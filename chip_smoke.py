@@ -3,15 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (into ``build/``),
-holds each kernel against its plain PyTorch version on the card at the
-serving shapes, checks that the kernel arms and the plain arms of the
-serving engine emit identical greedy tokens on a tiny f32 Llama, then
-serves Llama-3-8B at full width (random seeded weights, bf16) through
-``llama_serving_engine`` with whole-prompt and chunked prefill, counting
-the kernel launches of each of those two runs on its own.  Prints a ``{"kernels": [...]}`` line and
-ends with ``{"ok": true, "device": {...}}``; any failure exits non-zero.
-Exits non-zero without printing a result when CUDA is not available.
+Builds the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (into ``build/``)
+and runs, in order:
+
+3. the serving kernels (flash forward, paged attention, greedy argmax)
+   against their plain PyTorch versions on the card at the serving shapes;
+4. the kernel arms and the plain arms of the serving engine on a tiny f32
+   Llama: identical greedy tokens;
+5. Llama-3-8B at full width (random seeded weights, bf16) served through
+   ``llama_serving_engine`` with whole-prompt and chunked prefill;
+6. the training kernels (flash backward dQ and dK/dV, fused Adam) against
+   their plain versions at the training shapes;
+7. five train steps of ``initialize(...).train_batch`` on a tiny f32 Llama
+   with the kernel arms against the plain arms: the same losses and params;
+8. the training main path at full width: Llama-3-8B widths cut to 4 layers
+   (one card's memory), f32 master, bf16 compute, fused Adam, 4 steps.
+
+Each main path (the two serving runs and the training run) counts the
+launches of every kernel on its own (counters set to 0 just before it and
+read just after).  Prints a ``{"kernels": [...]}`` line and ends with
+``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
+non-zero without printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +48,21 @@ F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 FLASH_TOL = 1e-2
 PAGED_DECODE_TOL = 4e-3
 PAGED_CHUNK_TOL = 1e-2
+# flash backward, bf16 at T=2047: the largest |error| over the largest
+# |plain value| of dq, dk and dv.  The card read dq 0, dk 1.40e-3, dv
+# 1.38e-3 (a bf16 ulp of the largest value is 2^-8 = 3.9e-3 of it): about
+# 3x room
+FLASH_BWD_REL_TOL = 4e-3
+# fused Adam in f32: both sides round every operation once, in one order;
+# the card read 0 at 2.1 M and 525 M elements, bf16 and f32 grads
+ADAM_TOL = 1e-6
+# phase 7, f32 llama-tiny, 5 steps: kernel vs plain attention sum in another
+# order; the card read 7.8e-8 relative on the losses and 2.0e-6 on the
+# params: about 10x room
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_PARAM_ATOL = 2e-5
+
+SERVING_KERNELS = ("flash_fwd", "paged_attention", "greedy_argmax")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -361,7 +389,7 @@ def phase_serving(kernels, card_line):
                 cache_dtype=torch.bfloat16)
     results, launches = {}, {}
     for chunk in (0, 256):
-        path = f"prefill_chunk={chunk}"
+        path = f"serving prefill_chunk={chunk}"
         torch.cuda.reset_peak_memory_stats()
         for k in kernels:
             k["fn"].launches = 0
@@ -384,16 +412,364 @@ def phase_serving(kernels, card_line):
             raise SystemExit(f"serving run {path} failed")
         # whole-prompt prefill runs flash, paged (decode) and greedy;
         # chunked prefill runs paged (chunks and decode) and greedy and
-        # never flash
-        want_flash = chunk == 0
+        # never flash; serving never runs a training kernel
         for name, n in launches[path].items():
-            if name == "flash_fwd" and not want_flash:
-                if n:
-                    raise SystemExit(f"{path}: flash launched {n} times")
-            elif n == 0:
+            want = name in SERVING_KERNELS and (
+                chunk == 0 or name != "flash_fwd")
+            if want and n == 0:
                 raise SystemExit(f"{path}: {name} never launched")
+            if not want and n:
+                raise SystemExit(f"{path}: {name} launched {n} times")
         results[chunk] = m
     return launches, results
+
+
+# ------------------------------------------------------------ phase 6
+def _segments(T, n, device="cuda"):
+    """[1, T] int32 packed segment ids: n segments of near-equal length."""
+    bounds = np.linspace(0, T, n + 1).astype(int)
+    seg = np.zeros((1, T), np.int32)
+    for i in range(n):
+        seg[0, bounds[i]:bounds[i + 1]] = i + 1
+    return torch.from_numpy(seg).to(device), np.diff(bounds).tolist()
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _sdpa_bwd_ms(q, k, v, do):
+    """SDPA's backward (dq, dk, dv together) on the same causal GQA inputs,
+    timed as a yardstick only (the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    except TypeError:                   # a PyTorch without enable_gqa
+        return None
+    dot = do.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True), iters=10)
+
+
+def phase_backward(gen):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference, flash_delta,
+        flash_fwd, flash_fwd_reference)
+
+    B, T, H, KV, D = 1, 2047, 32, 8, 128
+    dt = torch.bfloat16
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
+    do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
+    rows, errs = {}, {}
+    for label, nseg in (("causal", 0), ("causal + 3 segments", 3)):
+        seg, lens = _segments(T, nseg) if nseg else (None, [T])
+        o, lse = flash_fwd(q, k, v, seg=seg)
+        ro, rlse = flash_fwd_reference(q, k, v, seg=seg)
+        delta = flash_delta(o, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, seg)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg)
+        want = flash_bwd_reference(q, k, v, o, lse, do, seg)
+        torch.cuda.synchronize()
+        err = {"o": (o.float() - ro.float()).abs().max().item(),
+               "lse": (lse - rlse).abs().max().item()}
+        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            err[name] = (g.float() - w.float()).abs().max().item()
+            err[name + "_rel"] = _rel(g, w)
+        errs[label] = err
+        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, seg),
+                        iters=10)
+        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, seg),
+                         iters=10)
+        plain = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, seg),
+                        iters=3, warmup=1)
+        library = _sdpa_bwd_ms(q, k, v, do) if not nseg else None
+        # live (query, key) pairs of this data: causal within each segment
+        pairs = sum(n * (n + 1) // 2 for n in lens)
+        io = 2 * (2 * B * T * H * D + 2 * B * T * KV * D)   # q, do, k, v
+        b_dq = bound(io + 2 * B * T * H * D + 8 * B * H * T,
+                     6 * D * pairs * H * B, BF16_FLOPS_PER_S)
+        b_dkv = bound(io + 2 * 2 * B * T * KV * D + 8 * B * H * T,
+                      8 * D * pairs * H * B, BF16_FLOPS_PER_S)
+        log(f"[flash bwd] B={B} T={T} H={H} KV={KV} D={D} bf16 {label}: "
+            f"o err {err['o']:.3e} lse err {err['lse']:.3e}; dq err "
+            f"{err['dq']:.3e} (rel {err['dq_rel']:.3e}) dk err {err['dk']:.3e}"
+            f" (rel {err['dk_rel']:.3e}) dv err {err['dv']:.3e} (rel "
+            f"{err['dv_rel']:.3e}) (rel tol {FLASH_BWD_REL_TOL}); dq kernel "
+            f"{ms_dq:.4f} ms bound {b_dq[0]:.4f} ms ({b_dq[1]}); dkv kernel "
+            f"{ms_dkv:.4f} ms bound {b_dkv[0]:.4f} ms ({b_dkv[1]}); plain "
+            f"bwd {plain:.4f} ms; sdpa bwd {library} ms")
+        if not nseg:
+            common = {"plain_ms": plain, "library_ms": library}
+            rows["flash_bwd_dq"] = dict(
+                common, name="flash_bwd_dq",
+                source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                replaces="deepspeed_tpu/ops/attention_pallas.py:97",
+                ms=ms_dq, bound_ms=b_dq[0], bound_by=b_dq[1])
+            rows["flash_bwd_dkv"] = dict(
+                common, name="flash_bwd_dkv",
+                source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                replaces="deepspeed_tpu/ops/attention_pallas.py:145",
+                ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1])
+        del o, ro, lse, rlse, delta, dq, dk, dv, want
+        torch.cuda.empty_cache()
+    worst = {n: max(e[n + "_rel"] for e in errs.values())
+             for n in ("dq", "dk", "dv")}
+    fwd_ok = all(e["o"] <= FLASH_TOL and e["lse"] <= 1e-3
+                 for e in errs.values())
+    if not fwd_ok or max(worst.values()) > FLASH_BWD_REL_TOL:
+        raise SystemExit("flash backward disagrees with its plain version")
+    rows["flash_bwd_dq"]["max_abs_err"] = max(e["dq"] for e in errs.values())
+    rows["flash_bwd_dkv"]["max_abs_err"] = max(
+        max(e["dk"], e["dv"]) for e in errs.values())
+    return rows
+
+
+def _fused_adamw_ms(n, gen):
+    """``torch._fused_adamw_`` on an f32 leaf of n elements, timed as a
+    yardstick only (the port never calls it)."""
+    if not hasattr(torch, "_fused_adamw_"):
+        return None
+    p, g, m = (torch.randn((n,), generator=gen, device="cuda")
+               for _ in range(3))
+    v = m.abs()
+    step = torch.ones((), device="cuda")
+    return time_ms(lambda: torch._fused_adamw_(
+        [p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), iters=10)
+
+
+def phase_adam(gen):
+    from deepspeed_tpu_torch.ops.adam_cuda import (adam_scalars, adam_update,
+                                                   adam_update_reference)
+
+    c1, c2 = adam_scalars(0.9, 0.999, 9)
+    row, worst = None, 0.0
+    # the 525 M leaf is the LM head (4096 x 128256); the train step hands
+    # the kernel f32 grads (its accumulators) and f32 master params
+    for n in (2_100_000, 4096 * 128256):
+        for g_dt in (torch.bfloat16, torch.float32):
+            g = torch.randn((n,), generator=gen, device="cuda").to(g_dt)
+            p = torch.randn((n,), generator=gen, device="cuda")
+            m = torch.randn((n,), generator=gen, device="cuda") * 0.1
+            v = torch.rand((n,), generator=gen, device="cuda") * 0.01
+            got = adam_update(g, m, v, p, c1, c2, 1e-3, wd=0.1)
+            want = adam_update_reference(g, m, v, p, c1, c2, 1e-3, wd=0.1)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            worst = max(worst, err)
+            del got, want
+            ms = time_ms(lambda: adam_update(g, m, v, p, c1, c2, 1e-3,
+                                             wd=0.1), iters=10)
+            plain = time_ms(lambda: adam_update_reference(
+                g, m, v, p, c1, c2, 1e-3, wd=0.1), iters=3, warmup=1)
+            del g, p, m, v
+            torch.cuda.empty_cache()
+            library = _fused_adamw_ms(n, gen)
+            gb = 2 if g_dt == torch.bfloat16 else 4
+            b_ms, b_by = bound(n * (gb + 4 * 3 + 4 * 3), 15 * n,
+                               F32_FLOPS_PER_S)
+            log(f"[fused adam] n={n} g {str(g_dt)[6:]} p float32 wd=0.1: "
+                f"max_abs_err {err:.3e} (tol {ADAM_TOL}); kernel {ms:.4f} ms "
+                f"plain {plain:.4f} ms _fused_adamw_ (f32) {library} ms bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            if n > 2_100_000 and g_dt == torch.float32:
+                row = {"name": "fused_adam", "ms": ms, "plain_ms": plain,
+                       "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
+                       "replaces": "deepspeed_tpu/ops/adam_pallas.py:64",
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": library}
+    if worst > ADAM_TOL:
+        raise SystemExit("fused adam disagrees with its plain version")
+    row["max_abs_err"] = worst
+    return row
+
+
+# ------------------------------------------------------------ phase 7
+def _train_config(batch, accum, dtype_block):
+    return {"train_batch_size": batch, "gradient_accumulation_steps": accum,
+            "gradient_clipping": 1.0, **dtype_block,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-3, "weight_decay": 0.1}},
+            "scheduler": {"type": "WarmupLR",
+                          "params": {"warmup_min_lr": 0.0,
+                                     "warmup_max_lr": 1e-3,
+                                     "warmup_num_steps": 3}}}
+
+
+def _warmup():
+    from deepspeed_tpu_torch.lr_schedules import warmup_lr
+
+    return warmup_lr(warmup_min_lr=0.0, warmup_max_lr=1e-3,
+                     warmup_num_steps=3)
+
+
+def _packed_batch(rng, B, T, vocab):
+    seg = np.ones((B, T), np.int32)
+    for b in range(B):
+        cut = int(rng.integers(T // 4, 3 * T // 4))
+        seg[b, cut:] = 2
+        seg[b, T - 1 - b:] = 0
+    return {"tokens": rng.integers(0, vocab, (B, T)).astype(np.int32),
+            "segment_ids": seg}
+
+
+def phase_train_identity(fns):
+    """Kernel arms (flash kernels, fused Adam) vs plain arms (reference
+    attention, the same Adam through its plain version) on a tiny f32
+    Llama: five steps of train_batch."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, loss_fn
+    from deepspeed_tpu_torch.ops.adam_cuda import (_leafwise_adam,
+                                                   adam_update_reference,
+                                                   fused_adam)
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                         device="cuda", dtype=torch.float32)
+    conf = _train_config(4, 2, {"bf16": {"enabled": False}})
+    rng = np.random.default_rng(1)
+    batches = [_packed_batch(rng, 4, 33, cfg.vocab_size) for _ in range(5)]
+    arms = {}
+    plain_adam = _leafwise_adam(adam_update_reference, "adam_reference",
+                                _warmup(), (0.9, 0.999), 1e-8, 0.1)
+    for arm, c, opt in (
+            ("kernel", cfg, fused_adam(lr=_warmup(), weight_decay=0.1)),
+            ("plain", dataclasses.replace(cfg, attn_impl="reference"),
+             plain_adam)):
+        for f in fns.values():
+            f.launches = 0
+        eng, _, _, _ = initialize(loss_fn=loss_fn(c), params=params,
+                                  config=conf, optimizer=opt)
+        losses = [float(eng.train_batch(b)) for b in batches]
+        arms[arm] = (losses, eng.module_params(),
+                     {n: f.launches for n, f in fns.items()})
+    (kl, kp, kn), (pl, pp, pn) = arms["kernel"], arms["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+    from deepspeed_tpu_torch._tree import tree_leaves
+
+    param_err = max((a - b).abs().max().item()
+                    for a, b in zip(tree_leaves(kp), tree_leaves(pp)))
+    log(f"[train identity] llama-tiny f32 accum=2 clip=1.0 WarmupLR packed "
+        f"segments, 5 steps: losses kernel {kl} plain {pl}; max rel loss "
+        f"diff {loss_rel:.3e} (tol {TRAIN_LOSS_RTOL}); max abs param diff "
+        f"{param_err:.3e} (tol {TRAIN_PARAM_ATOL}); launches kernel arm {kn} "
+        f"plain arm {pn}")
+    if loss_rel > TRAIN_LOSS_RTOL or param_err > TRAIN_PARAM_ATOL:
+        raise SystemExit("train identity: kernel and plain arms disagree")
+    if any(kn[n] == 0 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                "fused_adam")) or any(pn.values()):
+        raise SystemExit("train identity: launch counts are wrong")
+
+
+# ------------------------------------------------------------ phase 8
+def _device_events(prof):
+    """The trace's device-side entries (kernels, copies, sets): the CPU-side
+    ops also carry their kernels' time, so only these may be summed."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _device_busy_ms(prof) -> Optional[float]:
+    """Sum of the device time of every kernel, copy and set in a trace (one
+    stream, so nothing overlaps); None when the trace holds none."""
+    total = sum(e.self_device_time_total for e in _device_events(prof))
+    return total / 1e3 if total > 0 else None
+
+
+def phase_train(fns, card_line):
+    import dataclasses
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, loss_fn,
+                                                  param_count)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    eng, _, _, _ = initialize(
+        loss_fn=loss_fn(cfg), params=params,
+        config=_train_config(2, 2, {"bf16": {"enabled": True}}),
+        optimizer=fused_adam(lr=_warmup(), weight_decay=0.1))
+    del params
+    torch.cuda.synchronize()
+    n_params = param_count(cfg)
+    log(f"[train] llama3_8b widths, layers={cfg.n_layers} (cut from 32 to "
+        f"fit one card) params={n_params} f32 master, bf16 compute, "
+        f"fused_adam wd=0.1, accum=2 micro=1 clip=1.0 WarmupLR; init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB resident")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    tokens = 2 * 2047
+    probe = eng.state.params["blocks"]["wq"][0, :64, :64].clone()
+    for f in fns.values():
+        f.launches = 0
+    steps = []
+    for i in range(4):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        ms = (time.perf_counter() - ts) * 1e3
+        steps.append({"loss": loss, "grad_norm": eng.get_global_grad_norm(),
+                      "ms": ms, "tokens_per_s": tokens / ms * 1e3,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        log(f"[train] step {i}: loss {loss:.4f} grad_norm "
+            f"{steps[-1]['grad_norm']:.4f} lr {eng.metrics['lr']:.3e} "
+            f"{ms:.1f} ms/step {steps[-1]['tokens_per_s']:.1f} tokens/s "
+            f"peak_mem {steps[-1]['peak_mem_gb']:.1f} GB on {card_line}")
+    launches = {n: f.launches for n, f in fns.items()}
+    changed = not torch.equal(probe,
+                              eng.state.params["blocks"]["wq"][0, :64, :64])
+    want = {"flash_fwd": 32, "flash_bwd_dq": 32, "flash_bwd_dkv": 32,
+            "fused_adam": 4 * len(tree_leaves(eng.state.params))}
+    log(f"[train] launches {launches} (expected {want}); params changed "
+        f"{changed}")
+    # one more step under the profiler: device busy time over the step
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        float(eng.train_batch(batch))
+        traced_ms = (time.perf_counter() - ts) * 1e3
+    busy = _device_busy_ms(prof)
+    idle = None if busy is None else 1.0 - busy / traced_ms
+    top = sorted(_device_events(prof), key=lambda e: -e.self_device_time_total)
+    log(f"[train] profiled step: {traced_ms:.1f} ms host clock, device busy "
+        f"{busy} ms, device idle share {idle}; top device time: " + "; ".join(
+            f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+            for e in top[:10]))
+    ok = (all(np.isfinite(s["loss"]) for s in steps) and changed
+          and all(launches[n] > 0 for n in want)
+          and all(launches[n] == 0 for n in ("paged_attention",
+                                             "greedy_argmax")))
+    if not ok:
+        raise SystemExit("training main path failed")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, {"steps": steps, "traced_ms": traced_ms,
+                      "device_busy_ms": busy, "device_idle_share": idle}
 
 
 def main() -> int:
@@ -415,23 +791,45 @@ def main() -> int:
     _build.lib()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import \
+        paged_chunk_attention
+    from deepspeed_tpu_torch.ops.adam_cuda import adam_update
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
+                                                        flash_bwd_dq,
+                                                        flash_fwd)
+    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
+
+    # each kernel's wrapper, whose `launches` count the main paths read
+    fns = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+           "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": adam_update,
+           "paged_attention": paged_chunk_attention,
+           "greedy_argmax": fused_greedy_rows}
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = [phase_flash(gen), phase_paged(gen), phase_greedy(gen)]
     phase_identity(kernels)
-    launches, _ = phase_serving(kernels, card_line)
+    launches, _ = phase_serving(
+        [{"name": n, "fn": f} for n, f in fns.items()], card_line)
+    torch.cuda.empty_cache()
+    rows = {k["name"]: k for k in kernels}
+    rows.update(phase_backward(gen))
+    rows["fused_adam"] = phase_adam(gen)
+    torch.cuda.empty_cache()
+    phase_train_identity(fns)
+    launches["training"], _ = phase_train(fns, card_line)
 
-    rows = []
-    for k in kernels:
-        rows.append({key: k[key] for key in (
+    out = []
+    for name in fns:
+        k = rows[name]
+        row = {key: k[key] for key in (
             "name", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")})
-        rows[-1]["route"] = "cuda"
-        # each serving path's own count (set to 0 just before it, read
-        # just after), and their sum
-        by_path = {p: n[k["name"]] for p, n in launches.items()}
-        rows[-1]["launches"] = sum(by_path.values())
-        rows[-1]["launches_by_path"] = by_path
-    log(json.dumps({"kernels": rows}))
+            "bound_ms", "bound_by", "library_ms")}
+        row["route"] = "cuda"
+        # each main path's own count (set to 0 just before it, read just
+        # after), and their sum
+        row["launches_by_path"] = {p: n[name] for p, n in launches.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        out.append(row)
+    log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

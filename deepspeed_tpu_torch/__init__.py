@@ -1,8 +1,10 @@
 """PyTorch / CUDA port of ``deepspeed_tpu`` for NVIDIA Hopper.
 
 Imports ``torch`` and ``numpy`` only (never ``jax`` nor ``deepspeed_tpu``).
-This slice serves Llama with greedy continuous batching over a paged KV
-cache; its attention and sampling run hand-written CUDA kernels
+Two slices are ported: Llama greedy serving with continuous batching over
+a paged KV cache, and the train step at ZeRO stage 0 on one GPU
+(``initialize`` -> ``TrainingEngine.train_batch``).  Their attention,
+sampling and Adam update run hand-written CUDA kernels
 (``deepspeed_tpu_torch/csrc``).  Exports resolve lazily, so importing the
 package builds nothing and touches no device.
 """
@@ -21,6 +23,9 @@ _EXPORTS = {
     "serving_engine": "deepspeed_tpu_torch.inference.serving",
     "from_jax_params": "deepspeed_tpu_torch.weights",
     "init_params": "deepspeed_tpu_torch.weights",
+    "initialize": "deepspeed_tpu_torch.engine",
+    "TrainingEngine": "deepspeed_tpu_torch.engine",
+    "fused_adam": "deepspeed_tpu_torch.ops.adam_cuda",
 }
 
 __all__ = sorted(_EXPORTS)

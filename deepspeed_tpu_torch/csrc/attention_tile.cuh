@@ -12,6 +12,7 @@
 //   sKoff [kBN]    element offset of each key slot's row in K and V
 //                  (-1 for a slot past the live range)
 //   sQpos [BM], sKpos [kBN] token positions for the causal mask
+//   sQseg [BM], sKseg [kBN] packed-sequence segment ids (flash forward)
 //
 // 256 threads = 16 (tx) x 16 (ty).  Scores: thread (tx, ty) computes rows
 // ty*BM/16 .. +BM/16 against keys tx and tx+16.  Softmax: warp w owns rows
@@ -19,9 +20,9 @@
 // columns tx + 16 j, so D must be a multiple of 16.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype.cuh"
 
 namespace dstt {
 
@@ -30,18 +31,6 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;     // masked score (NEG_INF of the reference)
 constexpr int kNoPos = 0x7fffffff;    // key slot past the live range
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int BM, int D>
 struct TileSmem {
   static constexpr int kQ = BM * (D + 1);
@@ -49,7 +38,7 @@ struct TileSmem {
   static constexpr int kV = kBN * D;
   static constexpr int kP = BM * (kBN + 1);
   static constexpr size_t bytes = sizeof(long long) * kBN +
-      sizeof(float) * (kQ + kK + kV + kP + 3 * BM) + sizeof(int) * (BM + kBN);
+      sizeof(float) * (kQ + kK + kV + kP + 3 * BM) + sizeof(int) * 2 * (BM + kBN);
 };
 
 template <int BM, int D>
@@ -64,6 +53,8 @@ struct Tile {
   float* alpha;
   int* qpos;
   int* kpos;
+  int* qseg;
+  int* kseg;
 
   __device__ explicit Tile(char* base) {
     using S = TileSmem<BM, D>;
@@ -77,6 +68,8 @@ struct Tile {
     alpha = l + BM;
     qpos = reinterpret_cast<int*>(alpha + BM);
     kpos = qpos + BM;
+    qseg = kpos + kBN;
+    kseg = qseg + BM;
   }
 };
 
@@ -92,10 +85,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Scores of the current tile: s = (q . k) * scale where the key is live and
-// kpos <= qpos (causal) or live only (not causal); kNegInf elsewhere.
+// Scores of the current tile: s = (q . k) * scale where the key is live,
+// kpos <= qpos (causal) and, with seg, the key's segment id is the row's;
+// kNegInf elsewhere.
 template <int BM, int D>
-__device__ __forceinline__ void tile_scores(const Tile<BM, D>& t, float scale, bool causal) {
+__device__ __forceinline__ void tile_scores(const Tile<BM, D>& t, float scale, bool causal,
+                                            bool seg = false) {
   constexpr int RPT = BM / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float s[RPT][2];
@@ -121,7 +116,8 @@ __device__ __forceinline__ void tile_scores(const Tile<BM, D>& t, float scale, b
     for (int j = 0; j < 2; ++j) {
       const int c = tx + 16 * j;
       const int kp = t.kpos[c];
-      const bool ok = kp != kNoPos && (!causal || kp <= qp);
+      const bool ok = kp != kNoPos && (!causal || kp <= qp) &&
+                      (!seg || t.qseg[r] == t.kseg[c]);
       t.p[r * (kBN + 1) + c] = ok ? s[i][j] * scale : kNegInf;
     }
   }

@@ -4,8 +4,10 @@
 // TPU kernel behind flash_attention_tpu).  q [B, T, H, D] and k, v
 // [B, S, KV, D] are read in their model layout (no transposes); query head h
 // reads kv head h / (H / KV), so K/V are never repeated in memory.  Writes
-// o [B, T, H, D] in q's dtype and lse [B, H, T] f32 (m + log l, kept for the
-// training slice's backward).
+// o [B, T, H, D] in q's dtype and lse [B, H, T] f32 (m + log l, read by the
+// backward kernels in flash_bwd.cu).  Optional packed segment ids seg [B, T]
+// int32 (null = none; they need T == S): a row sees only keys of its own
+// segment, and a tile whose every entry is masked adds nothing (p = 0).
 //
 // One block of 256 threads per (b*h, tile of 64 query rows) sweeps the key
 // tiles of 32 with an f32 online softmax (attention_tile.cuh).  Causal
@@ -28,8 +30,8 @@ constexpr int kFlashBM = 64;
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int T_, int S, int H, int KV,
-                 float scale, int causal) {
+                 const int* __restrict__ seg, T* __restrict__ o, float* __restrict__ lse,
+                 int T_, int S, int H, int KV, float scale, int causal) {
   constexpr int BM = kFlashBM;
   extern __shared__ __align__(16) char smem[];
   Tile<BM, D> t(smem);
@@ -44,7 +46,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     t.q[r * (D + 1) + d] =
         tq < T_ ? to_f<T>(q[(((long long)b * T_ + tq) * H + h) * D + d]) : 0.f;
   }
-  for (int r = threadIdx.x; r < BM; r += kThreads) t.qpos[r] = q0 + r < T_ ? q0 + r : -1;
+  for (int r = threadIdx.x; r < BM; r += kThreads) {
+    t.qpos[r] = q0 + r < T_ ? q0 + r : -1;
+    if (seg) t.qseg[r] = q0 + r < T_ ? seg[(long long)b * T_ + q0 + r] : -1;
+  }
   float acc[BM / 16][D / 16];
   tile_init(t, acc);
 
@@ -57,11 +62,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int s = n0 + n;
       t.kpos[n] = s < S ? s : kNoPos;
       t.koff[n] = s < S ? (((long long)b * S + s) * KV + kvh) * D : -1;
+      if (seg) t.kseg[n] = s < S ? seg[(long long)b * S + s] : -2;
     }
     __syncthreads();
     tile_load_kv(t, k, v);
     __syncthreads();
-    tile_scores(t, scale, causal != 0);
+    tile_scores(t, scale, causal != 0, seg != nullptr);
     __syncthreads();
     tile_softmax<BM, D, true, T>(t);
     __syncthreads();
@@ -82,9 +88,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int D>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int B, int T_, int S, int H, int KV, float scale, int causal,
-                         cudaStream_t stream) {
+cudaError_t launch_flash(const void* q, const void* k, const void* v, const int* seg, void* o,
+                         void* lse, int B, int T_, int S, int H, int KV, float scale,
+                         int causal, cudaStream_t stream) {
   const size_t smem = TileSmem<kFlashBM, D>::bytes;
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t err =
@@ -92,35 +98,40 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, v
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (T_ + kFlashBM - 1) / kFlashBM);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg,
       static_cast<T*>(o), static_cast<float*>(lse), T_, S, H, KV, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_flash(const void* q, const void* k, const void* v, void* o, void* lse,
-                           int B, int T_, int S, int H, int KV, int D, float scale,
+cudaError_t dispatch_flash(const void* q, const void* k, const void* v, const int* seg, void* o,
+                           void* lse, int B, int T_, int S, int H, int KV, int D, float scale,
                            int causal, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, lse, B, T_, S, H, KV, scale, causal, s);
-    case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, T_, S, H, KV, scale, causal, s);
-    case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, T_, S, H, KV, scale, causal, s);
-    case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, T_, S, H, KV, scale, causal, s);
+    case 16: return launch_flash<T, 16>(q, k, v, seg, o, lse, B, T_, S, H, KV, scale, causal, s);
+    case 32: return launch_flash<T, 32>(q, k, v, seg, o, lse, B, T_, S, H, KV, scale, causal, s);
+    case 64: return launch_flash<T, 64>(q, k, v, seg, o, lse, B, T_, S, H, KV, scale, causal, s);
+    case 128:
+      return launch_flash<T, 128>(q, k, v, seg, o, lse, B, T_, S, H, KV, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace dstt
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
-extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                              int B, int T, int S, int H, int KV, int D, float scale,
-                              int causal, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16; seg: [B, T] int32 or null (needs T == S).
+// Returns the launch's cudaError_t.
+extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
+                              void* o, void* lse, int B, int T, int S, int H, int KV, int D,
+                              float scale, int causal, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (seg && T != S))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
   if (dtype == 0)
-    return dstt::dispatch_flash<float>(q, k, v, o, lse, B, T, S, H, KV, D, scale, causal, s);
+    return dstt::dispatch_flash<float>(q, k, v, sg, o, lse, B, T, S, H, KV, D, scale, causal, s);
   if (dtype == 1)
-    return dstt::dispatch_flash<__nv_bfloat16>(q, k, v, o, lse, B, T, S, H, KV, D, scale, causal, s);
+    return dstt::dispatch_flash<__nv_bfloat16>(q, k, v, sg, o, lse, B, T, S, H, KV, D, scale,
+                                               causal, s);
   return cudaErrorInvalidValue;
 }

@@ -7,7 +7,10 @@ and ``lm_head`` [d, V], under the same key names, so the weight bridge
 over the stacked layers becomes a Python loop.  Logits are f32, as the
 reference computes them (``preferred_element_type=float32``): a bf16 model
 multiplies its final hidden state and head in f32, so a 128k vocab does not
-grow argmax ties the reference lacks.
+grow argmax ties the reference lacks.  :func:`loss_fn` is the training
+objective: next-token cross entropy over ``{tokens, loss_mask,
+segment_ids}``, with packed-document attention through the flash kernels'
+``segment_ids``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
+from deepspeed_tpu_torch.ops.losses import chunked_lm_loss
 
 ATTN_IMPLS = ("auto", "flash", "reference")
 
@@ -36,6 +40,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    remat: str = "none"                    # none (the only policy ported)
+    loss_chunk: int = 0                    # >0: chunked-vocab CE
     attn_impl: str = "auto"                # auto | flash | reference
 
     def __post_init__(self):
@@ -50,6 +56,10 @@ class LlamaConfig:
                 f"attn_impl={self.attn_impl!r}: the port serves "
                 f"{'|'.join(ATTN_IMPLS)}; ring/ulysses/sparse come with the "
                 "distributed slice")
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"remat={self.remat!r}: activation checkpointing policies "
+                "come with a later slice (ROADMAP A5)")
 
     @property
     def head_dim(self) -> int:
@@ -109,11 +119,11 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def _attention(q, k, v, cfg: LlamaConfig):
+def _attention(q, k, v, cfg: LlamaConfig, segment_ids=None):
     """q: [B,T,H,Dh], k/v: [B,T,KV,Dh] -> [B,T,H,Dh] (causal)."""
     if cfg.attn_impl == "reference":
-        return _reference(q, k, v, causal=True)
-    return flash_attention(q, k, v, causal=True)
+        return _reference(q, k, v, causal=True, segment_ids=segment_ids)
+    return flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
 
 
 def _qkv(cfg: LlamaConfig, lp, x, cos, sin):
@@ -141,13 +151,24 @@ def lm_head(params, cfg: LlamaConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _head_logits(params, cfg: LlamaConfig, h):
+    return h.float() @ lm_head(params, cfg).float()
+
+
 def _logits(params, cfg: LlamaConfig, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x.float() @ lm_head(params, cfg).float()
+    return _head_logits(params, cfg,
+                        rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
-def forward(params, tokens, cfg: LlamaConfig, positions=None):
-    """tokens: [B, T] int -> logits [B, T, V] f32."""
+def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None,
+                   segment_ids=None, n_micro: Optional[int] = None):
+    """tokens: [B, T] int -> final-norm hidden states [B, T, d] (what the
+    LM head and the loss consume).  ``segment_ids`` [B, T]: packed
+    documents attend only within their own id."""
+    if n_micro:
+        raise NotImplementedError(
+            "n_micro: pipeline-parallel microbatching comes with the "
+            "distributed slice (ROADMAP A11)")
     T = tokens.shape[1]
     x = params["embed"][tokens.long()]
     if positions is None:
@@ -156,8 +177,52 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None):
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
-        x = _block_tail(cfg, lp, x, _attention(q, k, v, cfg))
-    return _logits(params, cfg, x)
+        x = _block_tail(cfg, lp, x, _attention(q, k, v, cfg, segment_ids))
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params, tokens, cfg: LlamaConfig, positions=None,
+            segment_ids=None, n_micro: Optional[int] = None):
+    """tokens: [B, T] int -> logits [B, T, V] f32."""
+    return _head_logits(params, cfg, forward_hidden(
+        params, tokens, cfg, positions=positions, segment_ids=segment_ids,
+        n_micro=n_micro))
+
+
+def packed_doc_mask(seg):
+    """CE mask for a packed layout's [B, T+1] token-aligned segment ids: a
+    document's last token does not predict the next document's first, and
+    padding (id 0) targets mask out."""
+    return ((seg[:, :-1] == seg[:, 1:]) & (seg[:, :-1] > 0)).float()
+
+
+def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
+    """Causal-LM next-token cross entropy over ``batch = {tokens,
+    (loss_mask), (segment_ids)}``; ``segment_ids`` are [B, T+1], aligned
+    with ``tokens`` (the forward takes the input slice, and the document
+    boundaries fold into the loss mask).  ``cfg.loss_chunk`` > 0 takes the
+    chunked-vocab loss, 0 the dense one."""
+    if n_micro:
+        raise NotImplementedError(
+            "n_micro: pipeline-parallel microbatching comes with the "
+            "distributed slice (ROADMAP A11)")
+
+    def f(params, batch):
+        tokens = batch["tokens"]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:].float()
+        seg = batch.get("segment_ids")
+        if seg is not None:
+            doc = packed_doc_mask(seg)
+            mask = doc if mask is None else mask * doc
+            seg = seg[:, :-1]
+        x = forward_hidden(params, tokens[:, :-1], cfg, segment_ids=seg)
+        return chunked_lm_loss(x, lm_head(params, cfg), tokens[:, 1:],
+                               mask=mask,
+                               chunk=cfg.loss_chunk or cfg.vocab_size)
+
+    return f
 
 
 def forward_paged(params, tokens, cfg: LlamaConfig, cache,

@@ -1,10 +1,14 @@
 """Attention dispatch (port of ``deepspeed_tpu/ops/attention.py``).
 
-``flash_attention`` launches the hand-written Hopper flash kernel
-(:mod:`deepspeed_tpu_torch.ops.attention_cuda`) for CUDA tensors and the
-plain :func:`_reference` for CPU tensors.  The TPU kernel's shape gates
-(T % 128, T >= 256, D in {64, 128}) do not carry over: the CUDA kernel
-masks ragged tails itself, and a shape it cannot take raises.
+``flash_attention`` runs :class:`FlashAttention`, a
+``torch.autograd.Function`` whose forward is the flash kernel and whose
+backward is the dQ and dK/dV kernels
+(:mod:`deepspeed_tpu_torch.ops.attention_cuda`) for CUDA tensors, and the
+plain versions of the same three for CPU tensors, so the CPU tests exercise
+the Function that the card runs.  :func:`_reference` is the plain attention
+that autograd differentiates, the oracle of all three.  The TPU kernel's
+shape gates (T % 128, T >= 256, D in {64, 128}) do not carry over: the CUDA
+kernels mask ragged tails themselves, and a shape they cannot take raises.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from deepspeed_tpu_torch.ops.attention_cuda import flash_bwd, flash_fwd
 
 
 def _reference(q, k, v, causal: bool = True, segment_ids=None):
@@ -37,17 +43,35 @@ def _reference(q, k, v, causal: bool = True, segment_ids=None):
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward (the custom VJP of
+    ``attention_pallas._flash_bhtd``): the forward keeps (q, k, v, o, lse)
+    and the backward recomputes the probabilities from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal=causal, seg=segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seg = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), seg,
+                               ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, segment_ids=None,
                     force_reference: bool = False):
-    """[B,T,H,Dh] x [B,S,KV,Dh]^2 -> [B,T,H,Dh].  CUDA tensors run the
-    flash kernel (``segment_ids`` raises there until the training slice);
-    CPU tensors, or ``force_reference``, take :func:`_reference`."""
-    if q.is_cuda and not force_reference:
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed segment_ids in the CUDA flash kernel come with the "
-                "training slice")
-        from deepspeed_tpu_torch.ops.attention_cuda import flash_fwd
-
-        return flash_fwd(q, k, v, causal=causal)[0]
-    return _reference(q, k, v, causal=causal, segment_ids=segment_ids)
+    """[B,T,H,Dh] x [B,S,KV,Dh]^2 -> [B,T,H,Dh] through
+    :class:`FlashAttention` (kernels on CUDA, their plain versions on the
+    CPU); ``force_reference`` takes :func:`_reference`.  ``segment_ids``
+    [B, T] (T == S) confines each position to its own packed segment."""
+    if force_reference:
+        return _reference(q, k, v, causal=causal, segment_ids=segment_ids)
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(device=q.device,
+                                     dtype=torch.int32).contiguous()
+    return FlashAttention.apply(q, k, v, segment_ids, causal)

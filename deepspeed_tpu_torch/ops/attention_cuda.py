@@ -1,14 +1,16 @@
-"""Flash attention forward on Hopper: the wrapper of ``csrc/flash_fwd.cu``
-and its plain PyTorch version.
+"""Flash attention on Hopper: the wrappers of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` and their plain PyTorch versions.
 
-Replaces ``deepspeed_tpu/ops/attention_pallas.py::_fwd_kernel`` (with
-``_flash_fwd_impl`` / ``flash_attention_tpu``).  On the H100 the prefill
-shapes are bound by operations (~4·T²·H·D/2 flops over O(T·H·D) bytes);
-this first kernel keeps the online softmax and both products in f32 on the
-FMA units from shared memory, reads q/k/v in their model layout, maps query
-head h to kv head h // (H/KV) without repeating K/V, skips key tiles above
-the diagonal and masks ragged tails itself.  Tensor cores (wgmma) and TMA
-staging are later work.
+Replaces ``deepspeed_tpu/ops/attention_pallas.py::_fwd_kernel``,
+``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel`` (with ``_flash_fwd_impl`` /
+``_flash_bwd_impl`` / ``flash_attention_tpu``).  On the H100 the prefill and
+training shapes are bound by operations (~4·T²·H·D/2 flops forward, ~2.5x
+that backward, over O(T·H·D) bytes); these first kernels keep the softmax
+and every product in f32 on the FMA units from shared memory, read q/k/v
+in their model layout, map query head h to kv head h // (H/KV) without
+repeating K/V, skip key tiles above the diagonal and mask ragged tails and
+packed segments themselves.  Tensor cores (wgmma) and TMA staging are later
+work.
 """
 
 from __future__ import annotations
@@ -22,61 +24,124 @@ from deepspeed_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 
-def flash_fwd_reference(q, k, v, causal: bool = True):
+def _live_mask(B, T, S, causal, seg, device):
+    """[B, 1, T, S] (or [1, 1, T, S]) bool: key s is visible from row t."""
+    mask = torch.ones((1, 1, T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask.tril()
+    if seg is not None:
+        mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+    return mask
+
+
+def _scores(q, k, causal, seg):
+    """f32 scores [B, H, T, S] scaled after the dot, -1e30 where masked."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) * (1.0 / math.sqrt(D))
+    return s.masked_fill(~_live_mask(B, T, S, causal, seg, q.device), NEG_INF)
+
+
+def flash_fwd_reference(q, k, v, causal: bool = True, seg=None):
     """Plain version of the kernel: (o [B,T,H,D] in q's dtype, lse [B,H,T]
     f32), with the kernel's arithmetic — f32 scores scaled after the dot,
     masked entries out of the softmax, p cast through v's dtype before
     P.V, zeros for a row that sees no key."""
-    B, T, H, D = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    kf = k.float().repeat_interleave(G, dim=2)
-    vf = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) * (1.0 / math.sqrt(D))
-    if causal:
-        mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, NEG_INF)
+    H, KV = q.shape[2], k.shape[2]
+    s = _scores(q, k, causal, seg)
     m = s.amax(-1, keepdim=True)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), 0.0)
     lsum = p.sum(-1, keepdim=True)
+    vf = v.repeat_interleave(H // KV, dim=2)
     pv = torch.einsum("bhts,bshd->bhtd", p.to(v.dtype).float(), vf.float())
     o = torch.where(lsum == 0, 0.0, pv / lsum)
     lse = (m + torch.log(torch.where(lsum == 0, 1.0, lsum)))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
 
 
-def flash_fwd(q, k, v, causal: bool = True):
-    """Flash attention forward: q [B,T,H,D], k/v [B,S,KV,D] (contiguous,
-    float32 or bfloat16, D in 16/32/64/128) -> (o, lse [B,H,T] f32).
-    CPU tensors take :func:`flash_fwd_reference`; CUDA tensors launch the
-    kernel or raise."""
-    if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, causal)
+def flash_delta(o, do):
+    """delta [B, H, T] f32 = rowsum(O * dO), the backward's per-row term
+    (a plain reduction here, as in the JAX package)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, seg=None, causal: bool = True):
+    """Plain version of the two backward kernels -> (dq, dk, dv) in the
+    inputs' dtypes: p = exp(s - lse) recomputed from the forward's lse,
+    ds = p * (dO.V^T - delta) * scale; dQ = ds (rounded to K's dtype) . K;
+    dV = p^T . dO and dK = ds^T . Q in f32, summed over each kv head's
+    group of query heads."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    p = torch.exp(_scores(q, k, causal, seg) - lse[..., None])
+    dof = do.float()
+    vf = v.float().repeat_interleave(G, dim=2)
+    dov = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dov - flash_delta(o, do)[..., None]) * scale
+    kf = k.float().repeat_interleave(G, dim=2)
+    dq = torch.einsum("bhts,bshd->bthd", ds.to(k.dtype).float(), kf)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
+    dk = dk.reshape(B, S, KV, G, D).sum(3)
+    dv = dv.reshape(B, S, KV, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(name, q, k, v, seg, *more):
+    """Shapes, dtypes, devices and contiguity the kernels take; returns
+    (B, T, S, H, KV, D)."""
     if not q.is_cuda:
-        raise ValueError(f"flash_fwd: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     B, T, H, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:
-        raise ValueError(f"flash_fwd: k/v {tuple(k.shape)}/{tuple(v.shape)} "
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
     S, KV = k.shape[1], k.shape[2]
     if H % KV:
-        raise ValueError(
-            f"flash_fwd: heads {H} not a multiple of kv heads {KV}")
+        raise ValueError(f"{name}: heads {H} not a multiple of kv heads {KV}")
     if D not in _build.HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head_dim {D} not in {_build.HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+        raise ValueError(f"{name}: head_dim {D} not in {_build.HEAD_DIMS}")
+    for tname, t in (("q", q), ("k", k), ("v", v)) + more:
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: {name} is {t.dtype} on {t.device}, "
+            raise ValueError(f"{name}: {tname} is {t.dtype} on {t.device}, "
                              f"q is {q.dtype} on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} is not contiguous")
+            raise ValueError(f"{name}: {tname} is not contiguous")
     if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"flash_fwd: dtype {q.dtype} not in float32/bfloat16")
+        raise ValueError(f"{name}: dtype {q.dtype} not in float32/bfloat16")
+    if seg is not None:
+        if T != S:
+            raise ValueError(f"{name}: segment_ids need T == S (self-"
+                             f"attention over one packed layout), got T={T} "
+                             f"S={S}")
+        if seg.shape != (B, T) or seg.dtype != torch.int32 \
+                or seg.device != q.device or not seg.is_contiguous():
+            raise ValueError(f"{name}: segment_ids must be a contiguous "
+                             f"[{B}, {T}] int32 tensor on {q.device}, got "
+                             f"{tuple(seg.shape)} {seg.dtype} on {seg.device}")
+    return B, T, S, H, KV, D
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd(q, k, v, causal: bool = True, seg=None):
+    """Flash attention forward: q [B,T,H,D], k/v [B,S,KV,D] (contiguous,
+    float32 or bfloat16, D in 16/32/64/128), optional packed segment ids
+    seg [B,T] int32 (T == S) -> (o, lse [B,H,T] f32).  CPU tensors take
+    :func:`flash_fwd_reference`; CUDA tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal, seg)
+    B, T, S, H, KV, D = _check("flash_fwd", q, k, v, seg)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     err = _build.lib().dstt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), o.data_ptr(),
         lse.data_ptr(), B, T, S, H, KV, D, 1.0 / math.sqrt(D), int(causal),
         _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
     _build.check("dstt_flash_fwd", err)
@@ -85,3 +150,64 @@ def flash_fwd(q, k, v, causal: bool = True):
 
 
 flash_fwd.launches = 0
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, seg=None, causal: bool = True):
+    """dQ kernel (CUDA tensors only): q/do [B,T,H,D], k/v [B,S,KV,D],
+    lse/delta [B,H,T] f32 -> dq [B,T,H,D] in q's dtype."""
+    B, T, S, H, KV, D = _check("flash_bwd_dq", q, k, v, seg, ("do", do))
+    lse, delta = _rows_f32("flash_bwd_dq", lse, delta, (B, H, T), q.device)
+    dq = torch.empty_like(q)
+    err = _build.lib().dstt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(), B, T, S,
+        H, KV, D, 1.0 / math.sqrt(D), int(causal),
+        _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+    _build.check("dstt_flash_bwd_dq", err)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, seg=None, causal: bool = True):
+    """dK/dV kernel (CUDA tensors only) -> (dk, dv) [B,S,KV,D] in k's
+    dtype, each summed over the kv head's group of query heads."""
+    B, T, S, H, KV, D = _check("flash_bwd_dkv", q, k, v, seg, ("do", do))
+    lse, delta = _rows_f32("flash_bwd_dkv", lse, delta, (B, H, T), q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = _build.lib().dstt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(seg), dk.data_ptr(),
+        dv.data_ptr(), B, T, S, H, KV, D, 1.0 / math.sqrt(D), int(causal),
+        _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+    _build.check("dstt_flash_bwd_dkv", err)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def _rows_f32(name, lse, delta, shape, device):
+    for tname, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be a contiguous {shape} "
+                             f"float32 tensor on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return lse, delta
+
+
+def flash_bwd(q, k, v, o, lse, do, seg=None, causal: bool = True):
+    """Flash attention backward -> (dq, dk, dv).  CPU tensors take
+    :func:`flash_bwd_reference`; CUDA tensors compute delta with a plain
+    reduction and launch the dQ and dK/dV kernels, or raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, seg, causal)
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, seg, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal)
+    return dq, dk, dv

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes beyond the smoke's (every head dim, both dtypes, ragged
-tails, odd page sizes, unaligned logits rows).  Marked ``cuda``: they skip
+tails, packed segments, odd page sizes, unaligned logits rows, odd leaf
+sizes).  Marked ``cuda``: they skip
 without a GPU.  On the card (the conftest imports JAX, which the GPU
 machine need not have):
 
@@ -47,6 +48,108 @@ def test_flash_fwd_matches_plain(gen, dtype, D, T, S, G, causal):
     torch.cuda.synchronize()
     assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
     assert (lse - rlse).abs().max().item() <= 1e-3
+
+
+def _segments(B, T):
+    seg = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        seg[b, T // 3 + b:] = 2
+        seg[b, (2 * T) // 3:] = 3
+    return seg
+
+
+def _rel_err(got, want):
+    """Largest |error| over the largest |value|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+# T = 1: a lone key makes dq and dk exactly 0; both sides hold only the
+# f32 rounding of dO.v - delta (a few ulps of a sum of D products of unit
+# normals) times |k| * scale, so they are held to an absolute bound instead
+ZERO_GRAD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("T,G,causal,with_seg", [
+    (1, 1, True, False), (37, 4, True, False), (130, 2, False, False),
+    (200, 4, True, True), (129, 1, False, True)])
+def test_flash_bwd_matches_plain(gen, dtype, D, T, G, causal, with_seg):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd, flash_bwd_reference, flash_fwd, flash_fwd_reference)
+
+    q = _randn(gen, (2, T, 2 * G, D), dtype)
+    k = _randn(gen, (2, T, 2, D), dtype)
+    v = _randn(gen, (2, T, 2, D), dtype)
+    do = _randn(gen, (2, T, 2 * G, D), dtype)
+    seg = _segments(2, T) if with_seg else None
+    o, lse = flash_fwd(q, k, v, causal=causal, seg=seg)
+    ro, rlse = flash_fwd_reference(q, k, v, causal=causal, seg=seg)
+    got = flash_bwd(q, k, v, o, lse, do, seg, causal)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, causal)
+    torch.cuda.synchronize()
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    rel = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == dtype
+        if T == 1 and name != "dv":
+            assert g.float().abs().max().item() <= ZERO_GRAD_ATOL, name
+            assert w.float().abs().max().item() <= ZERO_GRAD_ATOL, name
+        else:
+            assert _rel_err(g, w) <= rel, name
+
+
+def test_flash_attention_function_grads_on_the_card(gen):
+    from deepspeed_tpu_torch.ops import attention_cuda as ac
+    from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
+
+    q, k, v = (_randn(gen, s, torch.float32).requires_grad_(True)
+               for s in ((1, 96, 8, 64), (1, 96, 2, 64), (1, 96, 2, 64)))
+    seg = _segments(1, 96)
+    do = _randn(gen, (1, 96, 8, 64), torch.float32)
+    before = (ac.flash_fwd.launches, ac.flash_bwd_dq.launches,
+              ac.flash_bwd_dkv.launches)
+    flash_attention(q, k, v, segment_ids=seg).backward(do)
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    _reference(q, k, v, segment_ids=seg).backward(do)
+    for g, t in zip(got, (q, k, v)):
+        assert _rel_err(g, t.grad) <= 1e-4
+    assert (ac.flash_fwd.launches, ac.flash_bwd_dq.launches,
+            ac.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,wd", [(1, 0.0), (1000, 0.1), (2_100_001, 0.1)])
+def test_fused_adam_matches_plain(gen, g_dtype, p_dtype, n, wd):
+    from deepspeed_tpu_torch.ops.adam_cuda import (adam_scalars, adam_update,
+                                                   adam_update_reference)
+
+    g = _randn(gen, (n,), g_dtype)
+    p = _randn(gen, (n,), p_dtype)
+    m = _randn(gen, (n,), torch.float32)
+    v = _randn(gen, (n,), torch.float32).abs()
+    c1, c2 = adam_scalars(0.9, 0.999, 3)
+    got = adam_update(g, m, v, p, c1, c2, 1e-3, wd=wd)
+    want = adam_update_reference(g, m, v, p, c1, c2, 1e-3, wd=wd)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+def test_fused_adam_rejects_what_it_cannot_take(gen):
+    from deepspeed_tpu_torch.ops.adam_cuda import adam_update
+
+    g = _randn(gen, (8, 4), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam_update(g.T, g.T, g.T, g.T, 1.0, 1.0, 1e-3)
+    with pytest.raises(ValueError, match="float32"):
+        adam_update(g, g.half(), g, g, 1.0, 1.0, 1e-3)
 
 
 def test_flash_fwd_rejects_what_it_cannot_take(gen):

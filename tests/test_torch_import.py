@@ -26,8 +26,11 @@ def test_imports_with_jax_blocked():
         "paged_attention_cuda\n"
         "from deepspeed_tpu_torch.models import llama\n"
         "from deepspeed_tpu_torch.ops import attention, attention_cuda, "
-        "sampling_cuda, fused_ops, _build\n"
-        "from deepspeed_tpu_torch import weights\n"
+        "sampling_cuda, fused_ops, _build, optim, adam_cuda, losses\n"
+        "from deepspeed_tpu_torch import weights, engine, config, "
+        "precision, lr_schedules\n"
+        "from deepspeed_tpu_torch import initialize, TrainingEngine, "
+        "fused_adam\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"
@@ -70,6 +73,19 @@ def test_serving_engine_without_device_raises_on_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serving_engine(params, cfg)
     eng = serving_engine(params, cfg, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_initialize_without_device_raises_on_cpu(monkeypatch):
+    from deepspeed_tpu_torch import initialize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"w": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        initialize(loss_fn=lambda p, b: p["w"].sum(), params=params,
+                   config={})
+    eng, _, _, _ = initialize(loss_fn=lambda p, b: p["w"].sum(),
+                              params=params, config={}, device="cpu")
     assert eng.device.type == "cpu"
 
 
