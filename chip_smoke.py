@@ -8,10 +8,18 @@ and runs, in order:
 
 3. the serving kernels (flash forward, paged attention, greedy argmax)
    against their plain PyTorch versions on the card at the serving shapes;
+9. the int8-resident paged kernel (B7) and the split-key v1 kernel (B8)
+   against their plain versions at the same shapes, beside B5;
 4. the kernel arms and the plain arms of the serving engine on a tiny f32
    Llama: identical greedy tokens;
+10. the same on engines with ``prefix_cache`` and ``kv_tier``
+   (int8-resident pages: B7; the ``pallas_v1`` arm: B8), with pages
+   demoted and promoted;
 5. Llama-3-8B at full width (random seeded weights, bf16) served through
    ``llama_serving_engine`` with whole-prompt and chunked prefill;
+11. the prefix-cached, tiered, int8-resident path at the same width: two
+   waves of prompts on one shared prefix (the second promotes it from the
+   host tier), then the ``pallas_v1`` arm on phase 5's traffic;
 6. the training kernels (flash backward dQ and dK/dV, fused Adam) against
    their plain versions at the training shapes;
 7. five train steps of ``initialize(...).train_batch`` on a tiny f32 Llama
@@ -19,9 +27,9 @@ and runs, in order:
 8. the training main path at full width: Llama-3-8B widths cut to 4 layers
    (one card's memory), f32 master, bf16 compute, fused Adam, 4 steps.
 
-Each main path (the two serving runs and the training run) counts the
-launches of every kernel on its own (counters set to 0 just before it and
-read just after).  Prints a ``{"kernels": [...]}`` line and ends with
+Each main path (the two serving runs of phase 5, the two waves and the v1
+run of phase 11, and the training run) counts the launches of every kernel
+on its own (counters set to 0 just before it and read just after).  Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
 """
@@ -62,7 +70,21 @@ ADAM_TOL = 1e-6
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_PARAM_ATOL = 2e-5
 
+# B7 (int8 pages) and B8 (split-key v1) against their plain versions, bf16
+# at the serving shapes, set from the card's first reading as for B5: B7
+# read 9.8e-4 at decode and 3.9e-3 at C=256, B8 3.1e-5 and 3.9e-3 (one
+# bf16 ulp of the largest |o| at C=256); room of 2.5x to 30x, each bound
+# below the ~1e-2 shift that dropping one key of a long row makes
+PAGED_QUANT_DECODE_TOL = 4e-3
+PAGED_QUANT_CHUNK_TOL = 1e-2
+PAGED_V1_DECODE_TOL = 1e-3
+PAGED_V1_CHUNK_TOL = 1e-2
+
 SERVING_KERNELS = ("flash_fwd", "paged_attention", "greedy_argmax")
+# phase 11: Llama-3-8B, a 1024-token shared prefix, 128-token suffixes
+TIER_PREFIX, TIER_SUFFIX, TIER_NEW = 1024, 128, 32
+TIER_KV = {"quantize_cold": True, "quantized_resident": True,
+           "demote_watermark": 0.0}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -279,6 +301,121 @@ def phase_greedy(gen):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
+# ------------------------------------------------------------ phase 9
+def phase_paged_quant_v1(gen):
+    """B7 over int8 pages made by the port's codec from bf16 pages, B8 and
+    B5 over the bf16 pages, at phase 3's decode and chunk shapes."""
+    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_attention_quant_reference, paged_chunk_attention,
+        paged_chunk_attention_quant, paged_chunk_attention_quant_reference,
+        paged_chunk_attention_split_reference, paged_chunk_attention_v1,
+        paged_decode_attention, paged_decode_attention_quant,
+        paged_decode_attention_v1)
+
+    H, KV, D, ps = 32, 8, 128, 16
+    out = {"quant": {}, "v1": {}, "b5": {}}
+    for shape, C, lens in (("decode", 1, [0, 128, 256, 400, 512, 700, 900,
+                                          1024]),
+                           ("chunk", 256, [0, 128, 256, 300, 512, 600, 700,
+                                           768])):
+        kp, vp, table = _paged_inputs(gen, lens, C)
+        kq, ks = quantize_kv_rows(kp)
+        vq, vs = quantize_kv_rows(vp)
+        st = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if C == 1:
+            q = torch.randn((8, H, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            quant = lambda: paged_decode_attention_quant(  # noqa: E731
+                q, kq, ks, vq, vs, table, st)
+            quant_ref = lambda: paged_attention_quant_reference(  # noqa
+                q, kq, ks, vq, vs, table, st)
+            v1 = lambda: paged_decode_attention_v1(  # noqa: E731
+                q, kp, vp, table, st)
+            v1_ref = lambda: paged_chunk_attention_split_reference(  # noqa
+                q[:, None], kp, vp, table, st - 1)[:, 0]
+            b5 = lambda: paged_decode_attention(  # noqa: E731
+                q, kp, vp, table, st)
+            live = sum(lens)
+            pairs = live
+            io = 2 * 2 * 8 * H * D                     # q and o, bf16
+        else:
+            q = torch.randn((8, C, H, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            quant = lambda: paged_chunk_attention_quant(  # noqa: E731
+                q, kq, ks, vq, vs, table, st)
+            quant_ref = lambda: paged_chunk_attention_quant_reference(  # noqa
+                q, kq, ks, vq, vs, table, st)
+            v1 = lambda: paged_chunk_attention_v1(  # noqa: E731
+                q, kp, vp, table, st)
+            v1_ref = lambda: paged_chunk_attention_split_reference(  # noqa
+                q, kp, vp, table, st)
+            b5 = lambda: paged_chunk_attention(  # noqa: E731
+                q, kp, vp, table, st)
+            live = sum(s + C for s in lens)
+            pairs = sum(s * C + C * (C + 1) // 2 for s in lens)
+            io = 2 * 2 * 8 * C * H * D
+        got_q, want_q = quant(), quant_ref()
+        got_1, want_1 = v1(), v1_ref()
+        torch.cuda.synchronize()
+        err_q = (got_q.float() - want_q.float()).abs().max().item()
+        err_1 = (got_1.float() - want_1.float()).abs().max().item()
+        # the decode row 0 is empty: zeros from both kernels
+        empty_zero = C > 1 or bool((got_q[0] == 0).all()
+                                   and (got_1[0] == 0).all())
+        iters = 20 if C == 1 else 10
+        ms_q = time_ms(quant, iters=iters)
+        plain_q = time_ms(quant_ref, iters=3)
+        ms_1 = time_ms(v1, iters=iters)
+        plain_1 = time_ms(v1_ref, iters=3)
+        ms_5 = time_ms(b5, iters=iters)
+        flops = 4 * pairs * H * D
+        # B7 reads (D codes + one f32 scale) per live row, head and K/V;
+        # B5 and B8 read 2·D bytes of bf16
+        bq = bound(2 * live * KV * (D + 4) + io, flops, BF16_FLOPS_PER_S)
+        b1 = bound(2 * live * KV * D * 2 + io, flops, BF16_FLOPS_PER_S)
+        tol_q = PAGED_QUANT_DECODE_TOL if C == 1 else PAGED_QUANT_CHUNK_TOL
+        tol_1 = PAGED_V1_DECODE_TOL if C == 1 else PAGED_V1_CHUNK_TOL
+        log(f"[paged {shape} B7 int8] B=8 C={C} ps={ps} lens={lens}: "
+            f"max_abs_err {err_q:.3e} (tol {tol_q}); kernel {ms_q:.4f} ms "
+            f"plain {plain_q:.4f} ms bound {bq[0]:.5f} ms ({bq[1]}) library "
+            f"none")
+        log(f"[paged {shape} B8 v1 split] B=8 C={C} ps={ps} bf16: max_abs_err "
+            f"{err_1:.3e} (tol {tol_1}); kernel (both launches) {ms_1:.4f} "
+            f"ms plain {plain_1:.4f} ms bound {b1[0]:.5f} ms ({b1[1]}) "
+            f"library none")
+        log(f"[paged {shape} B5 same bf16 pages] kernel {ms_5:.4f} ms bound "
+            f"{b1[0]:.5f} ms ({b1[1]}); empty_row_zero {empty_zero}")
+        if not (err_q <= tol_q and err_1 <= tol_1 and empty_zero):
+            raise SystemExit(f"B7/B8 disagree with their plain versions "
+                             f"({shape})")
+        for key, ms, plain, err, bnd in (("quant", ms_q, plain_q, err_q, bq),
+                                         ("v1", ms_1, plain_1, err_1, b1),
+                                         ("b5", ms_5, None, None, b1)):
+            out[key][shape] = {"ms": ms, "plain_ms": plain, "err": err,
+                               "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del kp, vp, kq, ks, vq, vs, q, got_q, want_q, got_1, want_1
+        torch.cuda.empty_cache()
+
+    def row(name, fn, source, replaces, key):
+        d, c = out[key]["decode"], out[key]["chunk"]
+        return {"name": name, "fn": fn, "source": source,
+                "replaces": replaces, "max_abs_err": max(d["err"], c["err"]),
+                "ms": d["ms"], "plain_ms": d["plain_ms"],
+                "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+                "library_ms": None,
+                "chunk": {"C": 256, "ms": c["ms"], "plain_ms": c["plain_ms"],
+                          "bound_ms": c["bound_ms"],
+                          "bound_by": c["bound_by"]}}
+
+    return [row("paged_attention_quant", paged_chunk_attention_quant,
+                "deepspeed_tpu_torch/csrc/paged_attention_quant.cu",
+                "deepspeed_tpu/inference/kernels.py:795", "quant"),
+            row("paged_attention_v1", paged_chunk_attention_v1,
+                "deepspeed_tpu_torch/csrc/paged_attention_split.cu",
+                "deepspeed_tpu/inference/kernels.py:958", "v1")]
+
+
 # ------------------------------------------------------------ phase 4
 def phase_identity(kernels):
     """Kernel arms vs plain arms on a tiny f32 Llama: identical greedy
@@ -326,13 +463,78 @@ def phase_identity(kernels):
             raise SystemExit("identity: a kernel arm did not launch")
 
 
-# ------------------------------------------------------------ phase 5
-def serve(params, cfg, prompts, new_tokens, **opts):
-    """Serve every prompt (all submitted at once) and time it; returns the
-    outputs and the run's metrics."""
-    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+# ------------------------------------------------------------ phase 10
+def _tier_waves(rng, vocab, prefix, suffix, n):
+    """Two waves of n prompts: one shared prefix, distinct suffixes."""
+    shared = rng.integers(1, vocab, prefix).tolist()
+    return [{f"{w}{i}": shared + rng.integers(1, vocab, suffix).tolist()
+             for i in range(n)} for w in ("A", "B")]
 
-    eng = llama_serving_engine(params, cfg, **opts)
+
+def phase_tier_identity(fns):
+    """Kernel arms vs plain arms of engines with ``prefix_cache`` and
+    ``kv_tier`` on a tiny f32 Llama: int8-resident pages (B7 against its
+    plain arm) and the ``pallas_v1`` arm (B8) against ``xla`` on a dense
+    tier; identical greedy tokens over two waves on one shared prefix, with
+    pages demoted and promoted and no leaks."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                         device="cuda", dtype=torch.float32)
+    waves = _tier_waves(np.random.default_rng(3), cfg.vocab_size, 40, 9, 4)
+    opts = dict(max_batch=3, page_size=8, num_pages=64, max_seq=96,
+                prefill_bucket=8, cache_dtype=torch.float32,
+                prefix_cache={})
+    plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    plain = {"paged_attention": "xla", "fused_sampling": "off"}
+    for label, kernel_name, kv, paged in (
+            ("int8-resident", "paged_attention_quant", TIER_KV, "pallas_v2"),
+            ("pallas_v1", "paged_attention_v1", {"demote_watermark": 0.0},
+             "pallas_v1")):
+        outs, stats = [], []
+        for c, kn in ((cfg, {"paged_attention": paged}), (plain_cfg, plain)):
+            for f in fns.values():
+                f.launches = 0
+            eng = llama_serving_engine(params, c, kernels=kn, kv_tier=kv,
+                                       prefill_chunk=8, **opts)
+            out = {}
+            for wave in waves:
+                for rid, p in wave.items():
+                    eng.submit(rid, p, max_new_tokens=10)
+                out.update(eng.run())
+            al = eng.allocator
+            stats.append({"demoted": al.demoted, "promoted": al.promoted,
+                          "quant_promotes":
+                          eng.kv_tier_quant_resident_promotes,
+                          "hits": eng.prefix_cache_hits,
+                          "leaks": eng.check_leaks(),
+                          "launches": {n: f.launches
+                                       for n, f in fns.items()}})
+            outs.append(out)
+        same = outs[0] == outs[1]
+        log(f"[tier identity] llama-tiny f32 {label}: kernel arm == plain "
+            f"arm: {same} ({len(outs[0])} requests); kernel arm {stats[0]}; "
+            f"plain arm {stats[1]}")
+        ok = same and all(
+            s["demoted"] > 0 and s["promoted"] > 0 and s["hits"] > 0
+            and s["leaks"] == [] for s in stats)
+        ok = ok and stats[0]["launches"][kernel_name] > 0 and not any(
+            stats[1]["launches"].values())
+        if label == "int8-resident":
+            ok = ok and all(s["quant_promotes"] > 0 for s in stats)
+        if not ok:
+            raise SystemExit(f"tier identity ({label}) failed")
+
+
+# ------------------------------------------------------------ phase 5
+def drive(eng, prompts, new_tokens):
+    """Submit every prompt at once, step ``eng`` until all of them finish,
+    and time it; returns their outputs and the run's metrics."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for rid, p in prompts.items():
@@ -347,19 +549,17 @@ def serve(params, cfg, prompts, new_tokens, **opts):
         for b, s in enumerate(eng.slots):
             if s is not None and s.generated and s.req.req_id not in ttft:
                 ttft[s.req.req_id] = now - t0
-        for rid in eng.finished:
-            ttft.setdefault(rid, now - t0)
+        for rid in prompts:
+            if rid in eng.finished:
+                ttft.setdefault(rid, now - t0)
         if (eng.prefill_chunks == chunks and len(eng.queue) == queued
                 and busy == [s is not None for s in eng.slots]):
             decode_only.append(now - ts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    leaks = eng.check_leaks()
-    out = dict(eng.finished)
-    del eng
-    torch.cuda.empty_cache()
+    out = {rid: eng.finished[rid] for rid in prompts}
     gen_tokens = sum(len(v) - len(prompts[k]) for k, v in out.items())
-    return out, leaks, {
+    return out, {
         "wall_s": wall, "generated_tokens": gen_tokens,
         "tokens_per_s": gen_tokens / wall,
         "ttft_s_mean": float(np.mean(list(ttft.values()))),
@@ -367,6 +567,34 @@ def serve(params, cfg, prompts, new_tokens, **opts):
         "ms_per_decode_step": (float(np.median(decode_only)) * 1e3
                                if decode_only else None),
         "decode_only_steps": len(decode_only)}
+
+
+def serve(params, cfg, prompts, new_tokens, **opts):
+    """Serve every prompt on a fresh engine; returns the outputs, the
+    engine's leak check and the run's metrics."""
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+
+    eng = llama_serving_engine(params, cfg, **opts)
+    out, metrics = drive(eng, prompts, new_tokens)
+    leaks = eng.check_leaks()
+    del eng
+    torch.cuda.empty_cache()
+    return out, leaks, metrics
+
+
+def _valid(out, prompts, new_tokens, vocab):
+    return sorted(out) == sorted(prompts) and all(
+        isinstance(v, list) and len(v) == len(prompts[r]) + new_tokens
+        and all(0 <= t < vocab for t in v) for r, v in out.items())
+
+
+def _check_launches(path, counts, want):
+    """Every kernel in ``want`` launched on the path, every other none."""
+    for name, n in counts.items():
+        if name in want and n == 0:
+            raise SystemExit(f"{path}: {name} never launched")
+        if name not in want and n:
+            raise SystemExit(f"{path}: {name} launched {n} times")
 
 
 def phase_serving(kernels, card_line):
@@ -396,10 +624,7 @@ def phase_serving(kernels, card_line):
         out, leaks, m = serve(params, cfg, prompts, 32, prefill_chunk=chunk,
                               **opts)
         launches[path] = {k["name"]: k["fn"].launches for k in kernels}
-        done = sorted(out) == sorted(prompts) and all(
-            isinstance(v, list) and len(v) == len(prompts[r]) + 32
-            and all(0 <= t < cfg.vocab_size for t in v)
-            for r, v in out.items())
+        done = _valid(out, prompts, 32, cfg.vocab_size)
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[serving] prefill_chunk={chunk} prompts={lens} new=32: "
             f"finished {len(out)}/8 all_valid {done} check_leaks {leaks}; "
@@ -413,15 +638,138 @@ def phase_serving(kernels, card_line):
         # whole-prompt prefill runs flash, paged (decode) and greedy;
         # chunked prefill runs paged (chunks and decode) and greedy and
         # never flash; serving never runs a training kernel
-        for name, n in launches[path].items():
-            want = name in SERVING_KERNELS and (
-                chunk == 0 or name != "flash_fwd")
-            if want and n == 0:
-                raise SystemExit(f"{path}: {name} never launched")
-            if not want and n:
-                raise SystemExit(f"{path}: {name} launched {n} times")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
         results[chunk] = m
+    launches.update(phase_tier_serving(params, cfg, prompts, kernels,
+                                       card_line))
     return launches, results
+
+
+# ------------------------------------------------------------ phase 11
+def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
+    """The slice's main path at full width: an engine with ``prefix_cache``
+    and an int8-resident ``kv_tier`` serves wave A (no hits), its warm pages
+    demote to the host tier, and wave B on the same prefix promotes them
+    back as int8 pages and runs its suffix chunks and decode through B7.
+    Then the ``pallas_v1`` arm (B8) on phase 5's traffic."""
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+
+    def zero():
+        for k in kernels:
+            k["fn"].launches = 0
+
+    def counts():
+        return {k["name"]: k["fn"].launches for k in kernels}
+
+    waves = _tier_waves(np.random.default_rng(1), cfg.vocab_size,
+                        TIER_PREFIX, TIER_SUFFIX, 8)
+    opts = dict(max_batch=8, page_size=16, max_seq=2048, num_pages=1025,
+                cache_dtype=torch.bfloat16, prefill_chunk=256)
+    torch.cuda.reset_peak_memory_stats()
+    eng = llama_serving_engine(params, cfg, prefix_cache={},
+                               kv_tier=dict(TIER_KV), **opts)
+    c = eng.cache
+    int8_bytes = sum(t.numel() * t.element_size()
+                     for t in (c.k, c.v, c.k_scale, c.v_scale))
+    bf16_bytes = 2 * c.k.numel() * 2
+    log(f"[tier] llama3_8b layers={cfg.n_layers} bf16 weights, prefix_cache "
+        f"{{}} kv_tier {TIER_KV} prefill_chunk=256 pages={c.k.shape[2]}: KV "
+        f"pool int8 codes + scales {int8_bytes / 1e9:.4f} GB vs "
+        f"{bf16_bytes / 1e9:.4f} GB bf16 for the same pages "
+        f"({int8_bytes / bf16_bytes:.4f}x)")
+    # where wave B's TTFT goes: host clock around the promotions and the
+    # chunk forwards, each closed by a device sync (measurement only)
+    spent = {"promote_s": 0.0, "chunk_s": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return r
+        return run
+
+    launches, al = {}, eng.allocator
+    for w, wave in zip("AB", waves):
+        path = f"tier wave {w}"
+        before = (al.demoted, al.promoted, eng.kv_tier_quant_resident_promotes,
+                  eng.prefix_cache_cached_tokens,
+                  eng.prefix_cache_prompt_tokens)
+        if w == "B":
+            eng._complete_promotion = timed("promote_s",
+                                            eng._complete_promotion)
+            eng._chunk_prefill = timed("chunk_s", eng._chunk_prefill)
+        zero()
+        out, m = drive(eng, wave, TIER_NEW)
+        launches[path] = counts()
+        if w == "A":
+            t = time.perf_counter()
+            eng.step()           # idle step: the watermark sweep demotes
+            torch.cuda.synchronize()
+            spent["demote_s"] = time.perf_counter() - t
+        else:
+            m.update(spent)
+        d = [a - b for a, b in zip(
+            (al.demoted, al.promoted, eng.kv_tier_quant_resident_promotes,
+             eng.prefix_cache_cached_tokens,
+             eng.prefix_cache_prompt_tokens), before)]
+        m.update(demoted=d[0], promoted=d[1], quant_promotes=d[2],
+                 cached_fraction=d[3] / d[4], leaks=eng.check_leaks(),
+                 warm_after=len(al.pool),
+                 tier_pages=len(eng._kv_pool.entries),
+                 tier_bytes=eng._kv_pool.host_bytes)
+        log(f"[tier] wave {w}: 8 prompts = {TIER_PREFIX} shared + "
+            f"{TIER_SUFFIX} distinct tokens, {TIER_NEW} new: finished "
+            f"{len(out)}/8 all_valid "
+            f"{_valid(out, wave, TIER_NEW, cfg.vocab_size)} check_leaks "
+            f"{m['leaks']}; ttft_mean {m['ttft_s_mean'] * 1e3:.1f} ms "
+            f"ttft_max {m['ttft_s_max'] * 1e3:.1f} ms tokens/s "
+            f"{m['tokens_per_s']:.2f} ms/decode_step "
+            f"{m['ms_per_decode_step']} cached_fraction "
+            f"{m['cached_fraction']:.4f} demoted {m['demoted']} promoted "
+            f"{m['promoted']} quant_resident_promotes {m['quant_promotes']} "
+            f"host tier {m['tier_pages']} pages {m['tier_bytes']} bytes; "
+            f"host clock {spent} "
+            f"B7 launches {launches[path]['paged_attention_quant']} on "
+            f"{card_line}; kernel launches {launches[path]}")
+        ok = _valid(out, wave, TIER_NEW, cfg.vocab_size) and not m["leaks"]
+        if w == "A":
+            ok = ok and m["demoted"] > 0 and m["warm_after"] == 0
+        else:
+            ok = ok and m["promoted"] > 0 and m["quant_promotes"] > 0 \
+                and m["cached_fraction"] > 0
+        if not ok:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        ("paged_attention_quant", "greedy_argmax"))
+    log(f"[tier] peak_mem {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del eng, c
+    torch.cuda.empty_cache()
+
+    path = "serving pallas_v1"
+    zero()
+    out, leaks, m = serve(params, cfg, v1_prompts, 32, prefill_chunk=0,
+                          kernels={"paged_attention": "pallas_v1"},
+                          max_batch=8, page_size=16, max_seq=2048,
+                          num_pages=1025, cache_dtype=torch.bfloat16)
+    launches[path] = counts()
+    done = _valid(out, v1_prompts, 32, cfg.vocab_size)
+    log(f"[serving v1] prefill_chunk=0 kernels.paged_attention=pallas_v1 "
+        f"phase 5 prompts: finished {len(out)}/8 all_valid {done} "
+        f"check_leaks {leaks}; tokens/s {m['tokens_per_s']:.2f} ttft_mean "
+        f"{m['ttft_s_mean'] * 1e3:.1f} ms ms/decode_step "
+        f"{m['ms_per_decode_step']} B8 launches "
+        f"{launches[path]['paged_attention_v1']} on {card_line}; kernel "
+        f"launches {launches[path]}")
+    if not done or leaks:
+        raise SystemExit(f"{path} failed")
+    _check_launches(path, launches[path],
+                    ("flash_fwd", "paged_attention_v1", "greedy_argmax"))
+    return launches
 
 
 # ------------------------------------------------------------ phase 6
@@ -762,8 +1110,9 @@ def phase_train(fns, card_line):
             for e in top[:10]))
     ok = (all(np.isfinite(s["loss"]) for s in steps) and changed
           and all(launches[n] > 0 for n in want)
-          and all(launches[n] == 0 for n in ("paged_attention",
-                                             "greedy_argmax")))
+          and all(launches[n] == 0 for n in (
+              "paged_attention", "greedy_argmax", "paged_attention_quant",
+              "paged_attention_v1")))
     if not ok:
         raise SystemExit("training main path failed")
     del eng
@@ -791,8 +1140,9 @@ def main() -> int:
     _build.lib()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
-    from deepspeed_tpu_torch.inference.paged_attention_cuda import \
-        paged_chunk_attention
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention, paged_chunk_attention_quant,
+        paged_chunk_attention_v1)
     from deepspeed_tpu_torch.ops.adam_cuda import adam_update
     from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
                                                         flash_bwd_dq,
@@ -803,14 +1153,18 @@ def main() -> int:
     fns = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
            "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": adam_update,
            "paged_attention": paged_chunk_attention,
-           "greedy_argmax": fused_greedy_rows}
+           "greedy_argmax": fused_greedy_rows,
+           "paged_attention_quant": paged_chunk_attention_quant,
+           "paged_attention_v1": paged_chunk_attention_v1}
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = [phase_flash(gen), phase_paged(gen), phase_greedy(gen)]
+    tier_kernels = phase_paged_quant_v1(gen)
     phase_identity(kernels)
+    phase_tier_identity(fns)
     launches, _ = phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)
     torch.cuda.empty_cache()
-    rows = {k["name"]: k for k in kernels}
+    rows = {k["name"]: k for k in kernels + tier_kernels}
     rows.update(phase_backward(gen))
     rows["fused_adam"] = phase_adam(gen)
     torch.cuda.empty_cache()

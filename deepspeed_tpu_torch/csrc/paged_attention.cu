@@ -1,152 +1,37 @@
-// Paged attention for Hopper (sm_90a): decode (C = 1) and chunked prefill.
+// Paged attention for Hopper (sm_90a): decode (C = 1) and chunked prefill
+// over dense pages.
 //
 // Replaces deepspeed_tpu/inference/kernels.py::_chunk_v2_kernel (behind
-// paged_chunk_attention_v2 and paged_decode_attention_v2).  q [B, C, H, D]
-// sits at positions start[b] + c; pages k, v [KV, P, ps, D] hold one layer;
-// table [B, mp] int32 maps a row's page slot to a physical page.  Each query
-// attends causally (kpos <= qpos) over the keys its row's pages hold; a row
-// with no such key (start = -1, an empty decode row) gives zeros.
-//
-// The TPU ran one program per (b, kv_head) with all C*G rows in VMEM.  Here
-// the grid is (b*KV, tile of BM flattened rows), row r of the C*G rows being
-// query position r / G of head kvh*G + r % G, so a C = 256, G = 4 chunk
-// spreads over many blocks.  Each block reads the table itself and walks
-// only the key positions < start + (last row's c) + 1 (clamped to mp*ps):
-// table entries past that frontier may be stale or point at the trash page
-// and are never dereferenced.  K and V are read in f32 and the online
-// softmax is f32 (attention_tile.cuh), as in the TPU kernel.
+// paged_chunk_attention_v2 and paged_decode_attention_v2).  The block
+// (paged_attention.cuh) is shared with the int8 (B7) and split-key (B8)
+// kernels; this file instantiates it over dense pages with one block per
+// (b*KV, row tile) sweeping every live key.
 //
 // Bound on the H100: decode reads every live K/V byte once for 4 flops per
 // element pair, far below the 295 flop/byte ridge, so it is bound by bytes
 // (live KV bytes / 3.35 TB/s).  This version gathers rows with plain loads,
-// one block per (b, kv_head) at decode, so small batches leave SMs idle; a
-// split-K (flash-decoding) grid and cp.async/TMA page staging are later work.
-#include "attention_tile.cuh"
-
-namespace dstt {
-
-template <typename T, int BM, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp, const int* __restrict__ table,
-                       const int* __restrict__ start, T* __restrict__ out, int C, int H, int KV,
-                       int P, int ps, int mp, float scale) {
-  extern __shared__ __align__(16) char smem[];
-  Tile<BM, D> t(smem);
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
-  const int G = H / KV;
-  const int CG = C * G;
-  const int r0 = blockIdx.y * BM;
-  const int st = start[b];
-
-  for (int idx = threadIdx.x; idx < BM * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int f = r0 + r;
-    float x = 0.f;
-    if (f < CG) {
-      const int c = f / G, h = kvh * G + f % G;
-      x = to_f<T>(q[(((long long)b * C + c) * H + h) * D + d]);
-    }
-    t.q[r * (D + 1) + d] = x;
-  }
-  for (int r = threadIdx.x; r < BM; r += kThreads) {
-    const int f = r0 + r;
-    t.qpos[r] = f < CG ? st + f / G : -1;
-  }
-  float acc[BM / 16][D / 16];
-  tile_init(t, acc);
-
-  // live key positions for this block: 0 .. start + c_last
-  const int c_last = (min(r0 + BM, CG) - 1) / G;
-  const int live = min(st + c_last + 1, mp * ps);
-  const int* row_table = table + (long long)b * mp;
-  for (int n0 = 0; n0 < live; n0 += kBN) {
-    __syncthreads();  // previous tile fully consumed
-    for (int n = threadIdx.x; n < kBN; n += kThreads) {
-      const int pos = n0 + n;
-      if (pos < live) {
-        const int page = row_table[pos / ps];
-        t.kpos[n] = pos;
-        t.koff[n] = (((long long)kvh * P + page) * ps + pos % ps) * D;
-      } else {
-        t.kpos[n] = kNoPos;
-        t.koff[n] = -1;
-      }
-    }
-    __syncthreads();
-    tile_load_kv(t, kp, vp);
-    __syncthreads();
-    tile_scores(t, scale, true);
-    __syncthreads();
-    tile_softmax<BM, D, false, T>(t);
-    __syncthreads();
-    tile_pv(t, acc);
-  }
-  __syncthreads();
-  tile_store(t, acc, out, [&](int r) -> long long {
-    const int f = r0 + r;
-    if (f >= CG) return -1;
-    const int c = f / G, h = kvh * G + f % G;
-    return (((long long)b * C + c) * H + h) * D;
-  });
-}
-
-template <typename T, int BM, int D>
-cudaError_t launch_paged(const void* q, const void* kp, const void* vp, const void* table,
-                         const void* start, void* out, int B, int C, int H, int KV, int P,
-                         int ps, int mp, float scale, cudaStream_t stream) {
-  const size_t smem = TileSmem<BM, D>::bytes;
-  auto kern = paged_attention_kernel<T, BM, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int CG = C * (H / KV);
-  dim3 grid(B * KV, (CG + BM - 1) / BM);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(table), static_cast<const int*>(start), static_cast<T*>(out), C, H,
-      KV, P, ps, mp, scale);
-  return cudaGetLastError();
-}
-
-// Row tile: 16 rows when the C*G rows fit (decode), 64 otherwise.
-template <typename T, int D>
-cudaError_t dispatch_rows(const void* q, const void* kp, const void* vp, const void* table,
-                          const void* start, void* out, int B, int C, int H, int KV, int P,
-                          int ps, int mp, float scale, cudaStream_t s) {
-  if (C * (H / KV) <= 16)
-    return launch_paged<T, 16, D>(q, kp, vp, table, start, out, B, C, H, KV, P, ps, mp, scale, s);
-  return launch_paged<T, 64, D>(q, kp, vp, table, start, out, B, C, H, KV, P, ps, mp, scale, s);
-}
-
-template <typename T>
-cudaError_t dispatch_paged(const void* q, const void* kp, const void* vp, const void* table,
-                           const void* start, void* out, int B, int C, int H, int KV, int D,
-                           int P, int ps, int mp, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return dispatch_rows<T, 16>(q, kp, vp, table, start, out, B, C, H, KV, P, ps, mp, scale, s);
-    case 32: return dispatch_rows<T, 32>(q, kp, vp, table, start, out, B, C, H, KV, P, ps, mp, scale, s);
-    case 64: return dispatch_rows<T, 64>(q, kp, vp, table, start, out, B, C, H, KV, P, ps, mp, scale, s);
-    case 128: return dispatch_rows<T, 128>(q, kp, vp, table, start, out, B, C, H, KV, P, ps, mp, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace dstt
+// one block per (b, kv_head) at decode, so small batches leave SMs idle; the
+// split-key grid of paged_attention_split.cu and cp.async/TMA page staging
+// are the ways out.
+#include "paged_attention.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int dstt_paged_attention(const void* q, const void* kp, const void* vp,
                                     const void* table, const void* start, void* out, int B,
                                     int C, int H, int KV, int D, int P, int ps, int mp,
                                     float scale, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || KV <= 0 || H % KV != 0 || ps <= 0 || mp <= 0)
-    return cudaErrorInvalidValue;
+  if (!dstt::paged_shape_ok(B, C, H, KV, ps, mp)) return cudaErrorInvalidValue;
+  const dstt::PagedArgs a{q, table, start, out, nullptr, nullptr, nullptr,
+                          B, C, H, KV, P, ps, mp, 0, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dstt::dispatch_paged<float>(q, kp, vp, table, start, out, B, C, H, KV, D, P, ps, mp,
-                                       scale, s);
-  if (dtype == 1)
-    return dstt::dispatch_paged<__nv_bfloat16>(q, kp, vp, table, start, out, B, C, H, KV, D, P,
-                                               ps, mp, scale, s);
+  if (dtype == 0) {
+    const dstt::DenseKV<float> kv{static_cast<const float*>(kp), static_cast<const float*>(vp)};
+    return dstt::dispatch_paged<float, dstt::DenseKV<float>, false>(a, D, kv, s);
+  }
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    const dstt::DenseKV<bf16> kv{static_cast<const bf16*>(kp), static_cast<const bf16*>(vp)};
+    return dstt::dispatch_paged<bf16, dstt::DenseKV<bf16>, false>(a, D, kv, s);
+  }
   return cudaErrorInvalidValue;
 }

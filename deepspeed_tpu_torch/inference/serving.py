@@ -23,25 +23,42 @@ Conventions kept from the reference:
   sampled token to the next step, and the host reads the [B, K] tokens
   once per chunk.
 
+Automatic prefix caching (``prefix_cache``): full pages are published
+under chained content keys; an admission shares its prompt's longest
+cached page-aligned prefix read-only and prefills only the suffix in
+continuation chunks.  The KV tier (``kv_tier``, needs ``prefix_cache``):
+warm pages reclaimed under pressure (or past ``demote_watermark``) demote
+to a host pool instead of dropping, and a later admission matching a
+demoted span promotes it back into fresh pages; ``quantized_resident``
+keeps the device pages as int8 codes with per-token-row scales.
+
 Blocks of the reference engine that this slice does not port (mesh,
-telemetry, tracing, speculative, slo, kv_tier, faults, shedding, history,
-incidents, devprof, comm, prefix_cache, zero_inference, int8 weights)
-raise ``NotImplementedError`` when enabled; they are never ignored.
+telemetry, tracing, speculative, slo, faults, shedding, history,
+incidents, devprof, comm, zero_inference, int8 weights) raise
+``NotImplementedError`` when enabled; they are never ignored.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch._device import resolve_device
+from deepspeed_tpu_torch.config import KVTierConfig, PrefixCacheConfig
+from deepspeed_tpu_torch.faults import ChecksumError
 from deepspeed_tpu_torch.inference.kernels import (PagedKVCache,
                                                    PageAllocator,
                                                    resolve_serving_kernels)
+from deepspeed_tpu_torch.inference.kv_tier import (KVTierPool, from_host,
+                                                   to_host)
+from deepspeed_tpu_torch.inference.prefix_cache import (extend_page_keys,
+                                                        matchable_pages,
+                                                        page_keys)
 from deepspeed_tpu_torch.ops.sampling_cuda import (fused_sample_rows,
                                                    greedy_rows_reference,
                                                    with_temperature)
@@ -55,7 +72,6 @@ UNPORTED_BLOCKS = {
     "speculative": "the serving-extensions slice",
     "drafter": "the serving-extensions slice",
     "slo": "the control-plane slice",
-    "kv_tier": "the serving-extensions slice",
     "faults": "the control-plane slice",
     "shed_queue_depth": "the control-plane slice",
     "shed_expired_deadline": "the control-plane slice",
@@ -63,7 +79,6 @@ UNPORTED_BLOCKS = {
     "incidents": "the control-plane slice",
     "devprof": "the control-plane slice",
     "comm": "the distributed slice",
-    "prefix_cache": "the prefix-cache slice",
     "zero_inference": "the serving-extensions slice",
 }
 
@@ -72,6 +87,14 @@ UNPORTED_BLOCKS = {
 # fit (the reference engine's default), so one large request does not
 # stall the queue
 ADMIT_LOOKAHEAD = 4
+
+# promotion deferral cap: how many scheduler iterations one slot's prefill
+# may stand aside while its tier reads are still in flight before it
+# blocks on the fence (bounds starvation when the promoting slot is the
+# only work)
+_KV_PROMO_DEFER_CAP = 16
+
+logger = logging.getLogger(__name__)
 
 
 def _enabled(value) -> bool:
@@ -139,6 +162,24 @@ class Request:
     tokens: List[int]                  # prompt
     max_new_tokens: int = 32
     temperature: float = 0.0           # 0 -> greedy
+    # chained prefix-cache keys of the full pages (computed lazily, grown
+    # as pages fill; survives preemption)
+    page_keys: Optional[List[bytes]] = None
+
+
+@dataclasses.dataclass
+class _Promotion:
+    """One admission's in-flight tier -> device page promotion: the demoted
+    keys being streamed back, their freshly allocated target pages, and the
+    double-buffered reader driving the transfer.  ``primed`` holds group
+    0's tier reads, submitted at admission; ``deferred`` counts the steps
+    the slot's prefill stood aside for them."""
+
+    keys: List[bytes]
+    page_map: Dict[bytes, int]         # key -> target page
+    reader: Any                        # param_stream.TierPageReader
+    primed: Optional[list] = None
+    deferred: int = 0
 
 
 @dataclasses.dataclass
@@ -148,6 +189,7 @@ class _Slot:
     generated: List[int]
     seq_id: int = -1                   # PageAllocator owner key
     prefill_done: int = -1             # chunked prefill progress; -1 = done
+    promo: Optional[_Promotion] = None  # in-flight tier-page promotion
 
     @property
     def prefilling(self) -> bool:
@@ -162,6 +204,8 @@ class ServingEngine:
     ``(params, tokens, cache) -> (logits, cache)``; built for Llama by
     :func:`llama_serving_engine`.  ``device=None`` means CUDA and raises
     without it; the plain PyTorch path runs with ``device="cpu"``.
+    ``prefix_cache`` / ``kv_tier``: the config blocks of the JAX package
+    (dict, bool, config object or None).
     """
 
     def __init__(self, params, prefill_fn, decode_fn, *,
@@ -172,7 +216,7 @@ class ServingEngine:
                  cache_dtype=torch.bfloat16, seed: int = 0,
                  decode_chunk: int = 1, prefill_chunk: int = 0,
                  chunk_prefill_fn=None, kernels=None, device=None,
-                 **blocks):
+                 prefix_cache=None, kv_tier=None, **blocks):
         unknown = set(blocks) - set(UNPORTED_BLOCKS)
         if unknown:
             raise TypeError(f"unexpected ServingEngine arguments "
@@ -199,25 +243,63 @@ class ServingEngine:
         self.max_pages_per_seq = -(-max_seq // page_size)
         # last page is the sacrificial target for inactive-slot writes
         self.trash_page = num_pages - 1
-        self.allocator = PageAllocator(num_pages - 1)
+        # ---- automatic prefix caching: the allocator becomes a
+        # refcounted content-addressed pool; its warm (refcount-0) pages
+        # may hold at most pool_cap of the usable pages
+        pc = PrefixCacheConfig.coerce(prefix_cache)
+        self.prefix_cache = pc
+        self._pc_on = pc.enabled
+        usable = num_pages - 1
+        self.allocator = PageAllocator(usable,
+                                       cache_pages=pc.pool_cap(usable),
+                                       eviction=pc.eviction)
+        if self._pc_on and chunk_prefill_fn is None:
+            raise ValueError(
+                "prefix_cache needs chunk_prefill_fn — cache-hit "
+                "admissions prefill only the uncached suffix via the "
+                "continuation forward (forward_paged(..., "
+                "continuation=True))")
         self.kernels = resolve_serving_kernels(kernels, device=self.device)
+        # ---- tiered KV: coerced before the cache allocation, since
+        # quantized_resident changes the device cache's layout
+        kvt = KVTierConfig.coerce(kv_tier)
+        self.kv_tier = kvt
+        self._kvt_on = kvt.enabled
+        self._quant_resident = kvt.enabled and kvt.quantized_resident
+        if self._kvt_on and not self._pc_on:
+            raise ValueError(
+                "kv_tier needs the prefix_cache block — only published "
+                "refcount-0 prefix-cache pages demote; without content "
+                "addressing there is nothing to spill or match")
+        if self._quant_resident and \
+                self.kernels.paged_attention == "pallas_v1":
+            raise ValueError(
+                "kernels.paged_attention=pallas_v1 cannot serve int8-"
+                "resident pages (kv_tier.quantized_resident) — there is "
+                "no quantized v1 kernel; use xla or pallas_v2")
+        # ---- the host tier: the allocator owns the index states, the
+        # pool the payloads, this engine the device <-> host movement
+        self._kv_pool: Optional[KVTierPool] = None
+        self._kvt_wm_pages: Optional[int] = None
+        if self._kvt_on:
+            self._kv_pool = KVTierPool(
+                kvt, page_shape=(n_layers, n_kv, page_size, head_dim),
+                page_dtype=cache_dtype)
+            self.allocator.spill = self._kv_pool
+            self.allocator.demote_hook = self._demote_for_evict
+            if kvt.demote_watermark < 1.0 and self.allocator.cache_pages:
+                self._kvt_wm_pages = int(
+                    kvt.demote_watermark * self.allocator.cache_pages)
         self._sample_fn = (fused_sample_rows
                            if self.kernels.fused_sampling == "on"
                            else _sample_rows)
         self._prefill = prefill_fn
         self._decode = decode_fn
         self._chunk_prefill = chunk_prefill_fn
-        self.cache = PagedKVCache(
-            k=torch.zeros((n_layers, n_kv, num_pages, page_size, head_dim),
-                          dtype=cache_dtype, device=self.device),
-            v=torch.zeros((n_layers, n_kv, num_pages, page_size, head_dim),
-                          dtype=cache_dtype, device=self.device),
-            table=self._put(np.full((max_batch, self.max_pages_per_seq),
-                                    self.trash_page, np.int32)),
-            seq_lens=self._put(np.zeros((max_batch,), np.int32)),
-            page_size=page_size)
         self._table_host = np.full((max_batch, self.max_pages_per_seq),
                                    self.trash_page, np.int32)
+        self.cache = self._alloc_cache(n_layers, n_kv, num_pages, page_size,
+                                       head_dim, cache_dtype)
         # dirty flags: the device table/seq_lens re-upload only when the
         # slot composition changed since the last decode
         self._table_dirty = True
@@ -235,11 +317,54 @@ class ServingEngine:
         self.preempted = 0             # recompute preemptions so far
         self.decode_steps = 0          # batched decode steps (tokens/slot)
         self.prefill_chunks = 0        # split-fuse chunks absorbed
+        # prefix-cache counts (the published/evicted/demoted/promoted
+        # page counts live on the allocator)
+        self.prefix_cache_hits = 0          # admissions matching >= 1 page
+        self.prefix_cache_misses = 0
+        self.prefix_cache_cached_tokens = 0   # prompt tokens not prefilled
+        self.prefix_cache_prompt_tokens = 0   # prompt tokens admitted
+        # kv-tier counts
+        self.kv_tier_quant_resident_promotes = 0
+        self.kv_tier_promote_deferrals = 0
+        self.kv_tier_checksum_failures = 0
+        self.kv_tier_fallback_events = 0
+        self.kv_tier_fallback_pages = 0
+        self._kvt_fault_streak = 0
         self._closed = False
+
+    def _alloc_cache(self, n_layers, n_kv, num_pages, page_size, head_dim,
+                     cache_dtype) -> PagedKVCache:
+        shape = (n_layers, n_kv, num_pages, page_size, head_dim)
+        table = self._put(self._table_host)
+        seq_lens = self._put(np.zeros((self.max_batch,), np.int32))
+        if self._quant_resident:
+            # int8-resident pages: codes replace the dense planes and a
+            # per-token-row f32 scale plane rides along; scales start at
+            # ONE, the codec's convention for an all-zero row
+            sshape = shape[:-1] + (1,)
+            return PagedKVCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=self.device),
+                v=torch.zeros(shape, dtype=torch.int8, device=self.device),
+                table=table, seq_lens=seq_lens, page_size=page_size,
+                k_scale=torch.ones(sshape, dtype=torch.float32,
+                                   device=self.device),
+                v_scale=torch.ones(sshape, dtype=torch.float32,
+                                   device=self.device))
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=cache_dtype, device=self.device),
+            v=torch.zeros(shape, dtype=cache_dtype, device=self.device),
+            table=table, seq_lens=seq_lens, page_size=page_size)
 
     def _put(self, a) -> torch.Tensor:
         # a copy: the host arrays change under a live device tensor on CPU
         return torch.from_numpy(np.array(a)).to(self.device)
+
+    def _view(self, table, start: int) -> PagedKVCache:
+        """A one-row view of the cache over host table row ``table`` with
+        its frontier at ``start`` (the page planes are shared)."""
+        return dataclasses.replace(
+            self.cache, table=self._put(table),
+            seq_lens=self._put(np.full((1,), start, np.int32)))
 
     # ---------------------------------------------------------------- submit
     def submit(self, req_id, tokens, max_new_tokens: int = 32,
@@ -271,23 +396,40 @@ class ServingEngine:
 
     def check_leaks(self) -> List[str]:
         """Page-accounting invariants; returns violations (empty = clean):
-        each usable page sits in exactly one of {free list, live-owned},
-        refcounts match ownership, and an idle engine owns nothing."""
+        each usable page sits in exactly one of {free list, warm pool,
+        live-owned, parked}, refcounts match ownership multiplicity, every
+        promoting page is owned or parked, and an idle engine owns nothing,
+        promotes nothing, parks nothing and pins no tier entry."""
         al = self.allocator
         probs: List[str] = []
         owned_flat = [p for pages in al.owned.values() for p in pages]
         cnt = collections.Counter(al.free)
-        cnt.update(set(owned_flat))
+        cnt.update(al.pool.keys())     # keys() — a dict would be read
+        cnt.update(set(owned_flat))    # as a counts mapping
+        cnt.update(al._parked)
         missing = [p for p in range(self.trash_page) if cnt[p] != 1]
         if missing:
-            probs.append(f"pages not in exactly one of free/live: "
-                         f"{missing[:16]}")
+            probs.append(f"pages not in exactly one of free/warm/live/"
+                         f"parked: {missing[:16]}")
         for p, n in al.refs.items():
             owners = sum(1 for pages in al.owned.values() if p in pages)
             if n != owners:
                 probs.append(f"page {p}: refcount {n} != {owners} owners")
-        if not self.has_work and al.owned:
-            probs.append(f"idle engine owns pages: {dict(al.owned)}")
+        for p in al.promoting:
+            if p not in al.refs and p not in al._parked:
+                probs.append(
+                    f"page {p}: promoting but neither owned nor parked")
+        if not self.has_work:
+            if al.owned:
+                probs.append(f"idle engine owns pages: {dict(al.owned)}")
+            if al.promoting:
+                probs.append(f"idle engine has promotions in flight: "
+                             f"{dict(al.promoting)}")
+            if al._parked:
+                probs.append(f"idle engine has parked pages: {al._parked}")
+            if self._kv_pool is not None and self._kv_pool._pinned:
+                probs.append(f"idle engine holds tier pins: "
+                             f"{list(self._kv_pool._pinned)}")
         return probs
 
     # ------------------------------------------------------------ scheduling
@@ -348,43 +490,108 @@ class ServingEngine:
 
     def _try_admit(self, b: int, req: Request) -> bool:
         """Admit ``req`` into slot ``b`` if its pages fit; no side effects
-        when they do not."""
+        when they do not.  With the prefix cache, the prompt's longest
+        cached page-aligned prefix is shared into the page table (device
+        pages: refcount bumps, read-only; tier entries: fresh pages filled
+        by a promotion) and prefill starts at the first uncached token."""
         T = len(req.tokens)
         ps = self.page_size
+        # longest cached prefix across the device index and the tier; at
+        # least one prompt token always prefills (the first generated
+        # token is sampled from the last prompt position's logits)
+        matched: List[Tuple[str, Any]] = []
+        if self._pc_on:
+            if req.page_keys is None:
+                req.page_keys = page_keys(req.tokens, ps)
+            keys = req.page_keys[:matchable_pages(T, ps)]
+            if self._kvt_on:
+                matched = self.allocator.lookup_tiered(keys)
+            else:
+                matched = [("hbm", p) for p in self.allocator.lookup(keys)]
+        cm = len(matched)
+        cached = cm * ps
+        hbm_pages = [p for kind, p in matched if kind == "hbm"]
+        tier_keys = [k for kind, k in matched if kind == "tier"]
         bkt = self.prefill_chunk or self.prefill_bucket
-        # bucket-pad the prompt, clamped to the table width
-        end = min(-(-T // bkt) * bkt, self.max_pages_per_seq * ps)
-        need = self._pages_needed(max(end, T + 1))
-        if self.allocator.available < need:
+        # bucket-pad the UNCACHED suffix, clamped to the table width
+        end = min(cached + -(-(T - cached) // bkt) * bkt,
+                  self.max_pages_per_seq * ps)
+        # tier-matched spans skip prefill compute but need fresh pages for
+        # the promoted payload to land in
+        need = self._pages_needed(max(end, T + 1)) - cm + len(tier_keys)
+        # matched warm-pool pages revive rather than consume free pages,
+        # but once shared they stop being reclaimable
+        pooled = sum(1 for p in hbm_pages if p in self.allocator.pool)
+        if self.allocator.available - pooled < need:
             return False
         seq_id = self._seq_counter
         self._seq_counter += 1
+        page_map: Dict[bytes, int] = {}
         try:
+            # share BEFORE allocate: allocation pressure must never evict
+            # a page this admission is about to map; the pins keep the
+            # overflow from dropping the entries about to be promoted
+            if tier_keys:
+                self._kv_pool.pin(tier_keys)
+            if hbm_pages:
+                self.allocator.share(seq_id, hbm_pages)
+            # batch-demote the shortfall up front: one device read for the
+            # whole admission instead of one per page in _evict_one
+            self._ensure_free(need)
             pages = self.allocator.allocate(seq_id, need)
+            fresh = iter(pages)
+            row: List[int] = []
+            for kind, val in matched:
+                if kind == "hbm":
+                    row.append(val)
+                else:
+                    pg = next(fresh)
+                    page_map[val] = pg
+                    row.append(pg)
+            suffix = list(fresh)
             self._table_host[b, :] = self.trash_page
-            self._table_host[b, :len(pages)] = pages
+            self._table_host[b, :cm] = row
+            self._table_host[b, cm:cm + len(suffix)] = suffix
             self._table_dirty = self._lens_dirty = True
-            if self.prefill_chunk:
-                # split-fuse: the prompt is absorbed in continuation chunks;
-                # the slot is decode-ready once prefill_done reaches T
-                self.slots[b] = _Slot(req=req, seq_len=0, generated=[],
-                                      seq_id=seq_id, prefill_done=0)
+            if self._pc_on:
+                if cm:
+                    self.prefix_cache_hits += 1
+                else:
+                    self.prefix_cache_misses += 1
+                self.prefix_cache_cached_tokens += cached
+                self.prefix_cache_prompt_tokens += T
+            promo = (self._begin_promotion(tier_keys, page_map)
+                     if tier_keys else None)
+            if self.prefill_chunk or cached:
+                # split-fuse and/or cache hit: the uncached suffix goes
+                # through continuation chunks from the first uncached
+                # token; decode-ready once prefill_done reaches T
+                self.slots[b] = _Slot(req=req, seq_len=cached, generated=[],
+                                      seq_id=seq_id, prefill_done=cached,
+                                      promo=promo)
                 return True
             toks = np.zeros((1, end), np.int32)
             toks[0, :T] = req.tokens
-            view = PagedKVCache(
-                k=self.cache.k, v=self.cache.v,
-                table=self._put(self._table_host[b:b + 1]),
-                seq_lens=self._put(np.zeros((1,), np.int32)),
-                page_size=ps)
-            logits, _ = self._prefill(self.params, self._put(toks), view)
+            logits, _ = self._prefill(self.params, self._put(toks),
+                                      self._view(self._table_host[b:b + 1],
+                                                 0))
             slot = _Slot(req=req, seq_len=T, generated=[], seq_id=seq_id)
             self.slots[b] = slot
+            # the prompt's full pages are immutable from here on (decode
+            # writes only at the frontier): matchable now
+            self._publish_full_pages(b, slot, upto=T)
             # the first generated token comes from the REAL last prompt
             # position, sampled in the step's one batched boundary flush
             self._queue_boundary(b, logits[0, T - 1], slot)
             return True
         except BaseException:
+            # between allocation and slot publish nothing may leak: cancel
+            # any begun promotion, drop the pins, release every page this
+            # sequence took (shared and fresh) and clear the row
+            for pg in page_map.values():
+                self.allocator.cancel_promotion(pg)
+            if tier_keys:
+                self._kv_pool.unpin(tier_keys)
             self.allocator.release(seq_id)
             self._table_host[b, :] = self.trash_page
             self._table_dirty = self._lens_dirty = True
@@ -393,12 +600,259 @@ class ServingEngine:
                                       if p[0] != b]
             raise
 
+    def _valid_tokens(self, s: _Slot) -> int:
+        """Positions of slot ``s`` that hold REAL written KV: mid-prefill
+        the absorbed prefix; once decoding, the prompt plus every generated
+        token fed back through decode (the final one never is)."""
+        if s.prefilling:
+            return s.prefill_done
+        return len(s.req.tokens) + max(len(s.generated) - 1, 0)
+
+    def _publish_full_pages(self, b: int, s: _Slot, upto: int) -> None:
+        """Content-address every full page of slot ``b`` holding tokens
+        ``0..upto-1`` (chained keys; idempotent — shared prefix pages
+        dedup onto their existing index entries)."""
+        if not self._pc_on:
+            return
+        ps = self.page_size
+        full = min(upto, self.max_pages_per_seq * ps) // ps
+        if full <= 0:
+            return
+        if s.req.page_keys is None:
+            s.req.page_keys = []
+        if len(s.req.page_keys) < full:
+            extend_page_keys(s.req.page_keys, s.req.tokens + s.generated,
+                             full, ps)
+        for slot_idx in range(full):
+            page = int(self._table_host[b, slot_idx])
+            if page == self.trash_page:
+                break
+            if page in self.allocator.promoting:
+                # the payload has not landed: finish_promotion publishes it
+                continue
+            self.allocator.publish(page, s.req.page_keys[slot_idx])
+
+    # ------------------------------------------------ KV tier: promote
+    def _begin_promotion(self, tier_keys: List[bytes],
+                         page_map: Dict[bytes, int]) -> _Promotion:
+        """Start streaming a tier-matched span back into the fresh pages
+        just allocated for it: quarantine them, and submit the reader's
+        group-0 reads now (admission time).  The uploads happen in
+        :meth:`_complete_promotion`, batched per group."""
+        from deepspeed_tpu_torch.param_stream import TierPageReader
+
+        for key, pg in page_map.items():
+            self.allocator.begin_promotion(pg, key)
+        reader = TierPageReader(
+            self._kv_pool.host_view(), tier_keys, to_device=None,
+            group_pages=self.kv_tier.promote_group_pages,
+            retries=self.kv_tier.io_retries,
+            retry_backoff_s=self.kv_tier.io_retry_backoff_s)
+        # bound late: the callback needs the reader's own group table
+        reader.to_device = lambda bufs, g: self._promote_group(
+            page_map, bufs, reader.group_keys(g))
+        promo = _Promotion(keys=list(tier_keys), page_map=page_map,
+                           reader=reader)
+        promo.primed = reader.presubmit(0)
+        return promo
+
+    def _promotion_ready(self, b: int, s: _Slot) -> bool:
+        """Gate for the promoting slot's prefill: defer (bounded by
+        ``_KV_PROMO_DEFER_CAP``) while its tier reads are still in flight,
+        so the promotion hides under the other slots' compute; then drain
+        the promotion and let prefill proceed."""
+        p = s.promo
+        if p.reader.tier.reads_pending() and \
+                p.deferred < _KV_PROMO_DEFER_CAP:
+            p.deferred += 1
+            self.kv_tier_promote_deferrals += 1
+            return False
+        self._complete_promotion(b, s)
+        return True
+
+    def _complete_promotion(self, b: int, s: _Slot) -> None:
+        """Drain the slot's promotion: every group fences, decodes and
+        scatters into its target pages, which then publish under their
+        content keys.  Whatever escapes the reader's retries (a checksum
+        mismatch, an unrecoverable read) abandons the promotion and falls
+        back to re-prefilling the unlanded span."""
+        p = s.promo
+        try:
+            for _ in p.reader.sweep(range(p.reader.n_groups),
+                                    primed=p.primed):
+                pass
+        except Exception as e:
+            self._promotion_fallback(b, s, e)
+            return
+        self._kvt_fault_streak = 0
+        self._kv_pool.unpin(p.keys)
+        s.promo = None
+
+    def _promotion_fallback(self, b: int, s: _Slot,
+                            exc: BaseException) -> None:
+        """Abandon a failed promotion and re-prefill the span it was to
+        stream.  Groups land in page order, so the landed (published)
+        pages form a prefix; from the first unlanded page on, the
+        quarantine is cancelled (the pages stay owned: prefill writes them
+        now), the suspect tier entries drop, and the slot's absorbed prefix
+        retreats to that page's boundary.  Repeated failures trip the
+        tier's circuit breaker (``kv_tier.disable_after``)."""
+        p = s.promo
+        unlanded = [(key, pg) for key, pg in p.page_map.items()
+                    if pg in self.allocator.promoting]
+        self._kv_pool.unpin(p.keys)
+        for key, pg in unlanded:
+            self.allocator.cancel_promotion(pg)
+            # the payload is suspect: a future admission must re-prefill
+            # it — unless a concurrent promotion still pins the key (it
+            # will hit the same checksum and run its own fallback)
+            if key not in self._kv_pool._pinned:
+                self._kv_pool.discard(key)
+        if unlanded:
+            row = [int(x) for x in self._table_host[b]]
+            first_bad = min(row.index(pg) for _k, pg in unlanded)
+            fb_tokens = first_bad * self.page_size
+            s.prefill_done = min(s.prefill_done, fb_tokens)
+            s.seq_len = min(s.seq_len, fb_tokens)
+        else:
+            fb_tokens = s.prefill_done
+        if isinstance(exc, ChecksumError):
+            self.kv_tier_checksum_failures += 1
+        self.kv_tier_fallback_events += 1
+        self.kv_tier_fallback_pages += len(unlanded)
+        logger.warning(
+            "serving: KV-tier promotion failed for request %r (%s): "
+            "re-prefilling %d pages from token %d", s.req.req_id, exc,
+            len(unlanded), fb_tokens)
+        s.promo = None
+        self._kvt_fault_streak += 1
+        da = self.kv_tier.disable_after
+        if da and self._kvt_fault_streak >= da and \
+                self._kv_pool.disabled is None:
+            self._kv_pool.disable(
+                f"{self._kvt_fault_streak} consecutive promotion failures")
+
+    def _promote_group(self, page_map: Dict[bytes, int], bufs,
+                       g_keys) -> List[int]:
+        """TierPageReader ``to_device``: one fenced GROUP of demoted pages
+        -> decode (checksum first) -> one batched scatter into the target
+        pages -> publish.  Int8-resident: the entries' codes and scales
+        land verbatim, with no dequantisation."""
+        pages, parts, i = [], [], 0
+        for key in g_keys:
+            n = len(self._kv_pool.entry_meta(key)[0])
+            take = bufs[i:i + n]
+            i += n
+            parts.append(self._kv_pool.decode_quantized(key, take)
+                         if self._quant_resident
+                         else self._kv_pool.decode(key, take))
+            pages.append(page_map[key])
+        self._upload_promoted(pages, *(np.stack(c, axis=2)
+                                       for c in zip(*parts)))
+        if self._quant_resident:
+            self.kv_tier_quant_resident_promotes += len(g_keys)
+        for key, pg in zip(g_keys, pages):
+            self.allocator.finish_promotion(pg, key)
+        return pages
+
+    def _cancel_promotion(self, s: _Slot) -> None:
+        """Abandon a slot's in-flight promotion (preemption): release the
+        quarantine and the pins; the pages free through the normal release
+        path, and the tier entries stay for the requeued request."""
+        p = s.promo
+        if p is None:
+            return
+        for pg in p.page_map.values():
+            self.allocator.cancel_promotion(pg)
+        self._kv_pool.unpin(p.keys)
+        s.promo = None
+
+    # ------------------------------------------------- KV tier: demote
+    def _planes(self):
+        c = self.cache
+        return ((c.k, c.k_scale, c.v, c.v_scale) if self._quant_resident
+                else (c.k, c.v))
+
+    def _fetch_pages_host(self, pages: List[int]):
+        """One device -> host copy of whole pages across the layer stack,
+        ``[L, KV, n, ps, d]`` per plane: (k, v), or (k codes, k scales, v
+        codes, v scales) when int8-resident (verbatim: no dequantisation,
+        no second rounding)."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        return tuple(to_host(x[:, :, idx]) for x in self._planes())
+
+    def _upload_promoted(self, pages: List[int], *host) -> None:
+        """Scatter promoted payloads (one ``[L, KV, n, ps, d]`` host array
+        per plane, as :meth:`_fetch_pages_host` returns them) into their
+        target pages, in place."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for plane, a in zip(self._planes(), host):
+            plane[:, :, idx] = from_host(a, plane.dtype).to(self.device)
+
+    def _demote_for_evict(self, page: int, key: bytes) -> bool:
+        """``PageAllocator.demote_hook``: capture an evicted warm page to
+        the tier.  A span whose payload is already held re-demotes for
+        free (no device read)."""
+        pool = self._kv_pool
+        if pool.has(key):
+            pool.touch(key)
+            return True
+        page_planes = [a[:, :, 0] for a in self._fetch_pages_host([page])]
+        loc = (pool.demote_prequantized(key, *page_planes)
+               if self._quant_resident else pool.demote(key, *page_planes))
+        return loc is not None
+
+    def _demote_warm_batch(self, cands) -> None:
+        """Demote a batch of warm ``(page, key)`` candidates with ONE
+        batched device -> host read (spans already held just refresh their
+        age), then reclaim them to the free list."""
+        pool = self._kv_pool
+        fresh = [(p, k) for p, k in cands if not pool.has(k)]
+        if fresh:
+            bufs = self._fetch_pages_host([p for p, _ in fresh])
+        at = {p: i for i, (p, _) in enumerate(fresh)}
+        demoted, dropped = [], []
+        for p, key in cands:
+            if p in at:
+                page = [a[:, :, at[p]] for a in bufs]
+                loc = (pool.demote_prequantized(key, *page)
+                       if self._quant_resident else pool.demote(key, *page))
+            else:
+                loc = pool.touch(key)
+            (demoted if loc else dropped).append(p)
+        self.allocator.reclaim_warm(demoted, demoted=True)
+        self.allocator.reclaim_warm(dropped, demoted=False)
+
+    def _ensure_free(self, n: int) -> None:
+        """Top the free list up to ``n`` pages by batch-demoting the oldest
+        warm pages BEFORE an allocation dips into the warm pool."""
+        if not self._kvt_on:
+            return
+        short = n - len(self.allocator.free)
+        if short > 0:
+            cands = self.allocator.oldest_warm(short)
+            if cands:
+                self._demote_warm_batch(cands)
+
+    def _demote_watermark_sweep(self) -> None:
+        """Proactive demotion: past the ``demote_watermark`` fraction of
+        the warm-pool cap, the oldest warm pages demote in one batched
+        read, freeing pages ahead of allocation pressure."""
+        excess = len(self.allocator.pool) - self._kvt_wm_pages
+        if excess > 0:
+            self._demote_warm_batch(self.allocator.oldest_warm(excess))
+
     def _advance_prefill(self, b: int, s: _Slot) -> None:
-        """Absorb the next ``prefill_chunk`` tokens of slot ``b``'s prompt
-        (one continuation forward over history + chunk).  On the final
-        chunk, queue the first generated token from the last REAL prompt
-        position and flip the slot decode-ready."""
-        C = self.prefill_chunk
+        """Absorb the next chunk of slot ``b``'s prompt (one continuation
+        forward over history + chunk): ``prefill_chunk`` tokens under
+        split-fuse, ``prefill_bucket`` for a cache-hit admission without
+        it.  A slot with an in-flight promotion first waits for its pages
+        (the chunk attends over them).  On the final chunk, queue the first
+        generated token from the last REAL prompt position, publish the
+        prompt's pages and flip the slot decode-ready."""
+        if s.promo is not None and not self._promotion_ready(b, s):
+            return
+        C = self.prefill_chunk or self.prefill_bucket
         T = len(s.req.tokens)
         done = s.prefill_done
         take = min(C, T - done)
@@ -411,12 +865,9 @@ class ServingEngine:
         while np_bkt < np_live:
             np_bkt *= 2
         np_bkt = min(np_bkt, self.max_pages_per_seq)
-        view = PagedKVCache(
-            k=self.cache.k, v=self.cache.v,
-            table=self._put(self._table_host[b:b + 1, :np_bkt]),
-            seq_lens=self._put(np.full((1,), done, np.int32)),
-            page_size=self.page_size)
-        logits, _ = self._chunk_prefill(self.params, self._put(toks), view)
+        logits, _ = self._chunk_prefill(
+            self.params, self._put(toks),
+            self._view(self._table_host[b:b + 1, :np_bkt], done))
         s.prefill_done = done + take
         s.seq_len = s.prefill_done
         self.prefill_chunks += 1
@@ -424,21 +875,32 @@ class ServingEngine:
             s.prefill_done = -1
             # decode-ready: the device row flips from trash to real pages
             self._table_dirty = self._lens_dirty = True
+            self._publish_full_pages(b, s, upto=T)
             self._queue_boundary(b, logits[0, take - 1], s)
+
+    def _release_slot(self, b: int, s: _Slot) -> None:
+        """Publish-then-release: the slot's full pages (prompt and fed-back
+        generated tokens) stay matchable in the warm pool, an in-flight
+        promotion is abandoned, and the slot's references drop."""
+        self._publish_full_pages(b, s, upto=self._valid_tokens(s))
+        if s.promo is not None:
+            self._cancel_promotion(s)
+        self.allocator.release(s.seq_id)
+        self._table_host[b, :] = self.trash_page
+        self._table_dirty = self._lens_dirty = True
+        self.slots[b] = None
 
     def _preempt_youngest(self) -> None:
         """Recompute preemption: release the slot with the fewest generated
-        tokens and requeue prompt + generated as a fresh request."""
+        tokens and requeue prompt + generated as a fresh request (its
+        published pages let the recompute re-hit its own prefix)."""
         cand = [(len(s.generated), b) for b, s in enumerate(self.slots)
                 if s is not None]
         if not cand:
             raise MemoryError("out of KV pages with no slot to preempt")
         _, b = min(cand)
         s = self.slots[b]
-        self.allocator.release(s.seq_id)
-        self._table_host[b, :] = self.trash_page
-        self._table_dirty = self._lens_dirty = True
-        self.slots[b] = None
+        self._release_slot(b, s)
         self._pending_boundary = [p for p in self._pending_boundary
                                   if p[0] != b]
         req = s.req
@@ -446,7 +908,8 @@ class ServingEngine:
         # incarnation, which already holds everything produced before
         self.queue.appendleft(Request(
             req.req_id, req.tokens + s.generated,
-            req.max_new_tokens - len(s.generated), req.temperature))
+            req.max_new_tokens - len(s.generated), req.temperature,
+            page_keys=req.page_keys))
         self.preempted += 1
 
     def _queue_boundary(self, b: int, logits_row: torch.Tensor,
@@ -474,10 +937,7 @@ class ServingEngine:
         if done:
             self.finished[s.req.req_id] = list(s.req.tokens) + s.generated
             self._newly_finished.append(s.req.req_id)
-            self.allocator.release(s.seq_id)
-            self._table_host[b, :] = self.trash_page
-            self._table_dirty = self._lens_dirty = True
-            self.slots[b] = None
+            self._release_slot(b, s)
 
     def _grow_pages(self, ahead: int = 1) -> None:
         """Before decode writes: map every page the next ``ahead`` token
@@ -496,22 +956,29 @@ class ServingEngine:
             for slot_idx in range(s.seq_len // ps, last_pos // ps + 1):
                 if self._table_host[b, slot_idx] != self.trash_page:
                     continue
+                # available counts the warm pool: allocate reclaims cached
+                # pages before any preemption is considered
                 while not self.allocator.available:
                     self._preempt_youngest()
                     if self.slots[b] is None:   # preempted ourselves
                         break
                 if self.slots[b] is None:
                     break
+                self._ensure_free(1)
                 pg = self.allocator.allocate(s.seq_id, 1)[0]
                 self._table_host[b, slot_idx] = pg
                 self._table_dirty = True
 
     # ------------------------------------------------------------------ step
     def step(self) -> List[Any]:
-        """One scheduling iteration: admit -> prefill chunks -> boundary
-        sampling -> batched decode.  Returns the request ids that finished
-        during this step."""
+        """One scheduling iteration: watermark demotion -> admit -> prefill
+        chunks -> boundary sampling -> batched decode.  Returns the request
+        ids that finished during this step."""
         self._newly_finished = []
+        if self._kvt_wm_pages is not None:
+            # BEFORE admission: demoting past the watermark frees pages
+            # the admissions below can use
+            self._demote_watermark_sweep()
         while self._admit_one():
             pass
         for b, s in list(enumerate(self.slots)):

@@ -239,10 +239,12 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
 
     The page stores ``cache.k`` / ``cache.v`` are updated IN PLACE (the JAX
     engine donates them to the same effect); the returned cache shares
-    them and carries ``seq_lens = start + T``.  ``paged_kernel`` is the
-    resolved dispatch (``"pallas_v2"`` = the CUDA kernel, ``"xla"`` = the
-    plain version); None/"auto" takes the kernel on CUDA and the plain
-    version on CPU."""
+    them and carries ``seq_lens = start + T``.  The cache is int8-resident
+    iff ``cache.k_scale`` is not None: k/v then hold int8 codes and the
+    scale planes ride along per layer.  ``paged_kernel`` is the resolved
+    dispatch (``"pallas_v2"`` / ``"pallas_v1"`` = a CUDA kernel, ``"xla"``
+    = the plain version); None/"auto" takes the kernel on CUDA and the
+    plain version on CPU."""
     from deepspeed_tpu_torch.inference.kernels import (
         paged_attention_step, paged_forward_prelude, resolve_serving_kernels)
 
@@ -257,6 +259,7 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
     positions = start[:, None] + torch.arange(
         T, dtype=torch.int32, device=start.device)[None]
     cos, sin = rope_tables(cfg, positions)
+    quant = cache.k_scale is not None
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
@@ -264,7 +267,9 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
             q, k, v, cache.k[l], cache.v[l], cache.table, start, ps,
             continuation=continuation, prefill=prefill,
             paged_kernel=paged_kernel,
-            flash_force_reference=cfg.attn_impl == "reference")
+            flash_force_reference=cfg.attn_impl == "reference",
+            kps=cache.k_scale[l] if quant else None,
+            vps=cache.v_scale[l] if quant else None)
         x = _block_tail(cfg, lp, x, attn)
     return _logits(params, cfg, x), dataclasses.replace(
         cache, seq_lens=start + T)

@@ -53,6 +53,14 @@ SIGNATURES = {
     # q, kp, vp, table, start, out, B, C, H, KV, D, P, ps, mp, scale, dtype,
     # stream
     "dstt_paged_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # q, kq, ks, vq, vs, table, start, out, B, C, H, KV, D, P, ps, mp, scale,
+    # dtype, stream
+    "dstt_paged_attention_quant": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # q, kp, vp, table, start, part_m, part_l, part_acc, B, C, H, KV, D, P,
+    # ps, mp, split_keys, nsplit, scale, dtype, stream
+    "dstt_paged_split": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
+    # part_m, part_l, part_acc, out, B, C, H, KV, D, nsplit, dtype, stream
+    "dstt_paged_combine": [_P] * 4 + [_I] * 7 + [_P],
     # logits, out, B, V, stream
     "dstt_greedy_argmax": [_P, _P, _I, _I, _P],
 }

@@ -192,6 +192,81 @@ def test_paged_matches_plain(gen, dtype, D, C, G, ps):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+def _paged_case(gen, C, G, ps, D, dtype):
+    """Four rows over distinct random pages (start -1 on an empty decode
+    row), the table filled to its width."""
+    B, KV, mp = 4, 2, 40
+    starts = [0, 3, 97, 300] if C > 1 else [-1, 0, 97, 300]
+    P = B * mp + 1
+    perm = torch.randperm(P - 1, generator=gen, device="cuda").int()
+    table = perm[:B * mp].reshape(B, mp).contiguous()
+    kp = _randn(gen, (KV, P, ps, D), dtype)
+    vp = _randn(gen, (KV, P, ps, D), dtype)
+    q = _randn(gen, (B, C, KV * G, D), dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table, st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("C,G,ps", [(1, 4, 16), (1, 1, 8), (5, 4, 8),
+                                    (40, 2, 16), (256, 4, 16)])
+def test_paged_quant_matches_plain(gen, dtype, D, C, G, ps):
+    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention_quant, paged_chunk_attention_quant_reference)
+
+    q, kp, vp, table, st = _paged_case(gen, C, G, ps, D, dtype)
+    kq, ks = quantize_kv_rows(kp)
+    vq, vs = quantize_kv_rows(vp)
+    out = paged_chunk_attention_quant(q, kq, ks, vq, vs, table, st)
+    ref = paged_chunk_attention_quant_reference(q, kq, ks, vq, vs, table, st)
+    torch.cuda.synchronize()
+    if C == 1:                      # start -1: the empty row gives zeros
+        assert not out[0].any()
+        out, ref = out[1:], ref[1:]
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("C,G,ps", [(1, 4, 16), (1, 1, 8), (5, 4, 8),
+                                    (40, 2, 16), (256, 4, 16)])
+def test_paged_v1_split_matches_plain(gen, dtype, D, C, G, ps):
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention_reference, paged_chunk_attention_split_reference,
+        paged_chunk_attention_v1)
+
+    q, kp, vp, table, st = _paged_case(gen, C, G, ps, D, dtype)
+    before = paged_chunk_attention_v1.launches
+    out = paged_chunk_attention_v1(q, kp, vp, table, st)
+    split = paged_chunk_attention_split_reference(q, kp, vp, table, st)
+    torch.cuda.synchronize()
+    assert paged_chunk_attention_v1.launches == before + 2
+    if C == 1:                      # start -1: the empty row gives zeros
+        assert not out[0].any() and not split[0].any()
+        out, split = out[1:], split[1:]
+        q, table, st = q[1:], table[1:], st[1:]
+    assert (out.float() - split.float()).abs().max().item() <= TOL[dtype]
+    ref = paged_chunk_attention_reference(q, kp, vp, table, st)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_paged_kernels_reject_what_they_cannot_take(gen):
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention_quant, paged_chunk_attention_v1)
+
+    q, kp, vp, table, st = _paged_case(gen, 1, 2, 8, 16, torch.float32)
+    sc = kp[..., :1].contiguous()
+    with pytest.raises(ValueError, match="pages"):      # float pages
+        paged_chunk_attention_quant(q, kp, sc, vp, sc, table, st)
+    kq = kp.to(torch.int8)
+    with pytest.raises(ValueError, match="scales"):
+        paged_chunk_attention_quant(q, kq, sc.half(), kq, sc, table, st)
+    with pytest.raises(ValueError, match="int32"):
+        paged_chunk_attention_v1(q, kp, vp, table.long(), st)
+
+
 @pytest.mark.parametrize("B,V,offset", [(1, 7, 0), (3, 1001, 0),
                                         (8, 128256, 0), (4, 4096, 1)])
 def test_greedy_matches_argmax(gen, B, V, offset):

@@ -21,9 +21,11 @@ def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['deepspeed_tpu'] = None\n"
         "import deepspeed_tpu_torch\n"
         "from deepspeed_tpu_torch.inference import serving, kernels, "
-        "paged_attention_cuda\n"
+        "paged_attention_cuda, prefix_cache, kv_tier\n"
+        "from deepspeed_tpu_torch import faults, param_stream\n"
         "from deepspeed_tpu_torch.models import llama\n"
         "from deepspeed_tpu_torch.ops import attention, attention_cuda, "
         "sampling_cuda, fused_ops, _build, optim, adam_cuda, losses\n"

@@ -1,7 +1,9 @@
 """Paged KV of the port against the JAX package: the plain paged attention
-(the CUDA kernel's twin) against the Pallas v2 kernel in interpret mode,
-the page writers (drop-on-overflow included) and the page allocator.
-Tolerances are f32: 1e-5."""
+versions (the CUDA kernels' twins) against the Pallas kernels in interpret
+mode — B5 against v2, B7 against the int8 v2 kernel, B8 against v1 — the
+page writers (drop-on-overflow included, dense and int8), the int8 codec
+(bit-equal), the page allocator and the kernel policy.  Attention
+tolerances are f32: 1e-5; codes, scales and written planes are equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +11,12 @@ import pytest
 import torch
 
 from deepspeed_tpu.inference import kernels as jk
+from deepspeed_tpu.inference import kv_tier as jkv
 from deepspeed_tpu_torch.inference import kernels as tk
 from deepspeed_tpu_torch.inference.paged_attention_cuda import (
-    paged_chunk_attention, paged_decode_attention)
+    paged_chunk_attention, paged_chunk_attention_quant,
+    paged_chunk_attention_v1, paged_decode_attention,
+    paged_decode_attention_quant, paged_decode_attention_v1)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -163,8 +168,172 @@ def test_kernel_policy_resolution():
     assert (forced.paged_attention, forced.fused_sampling) == (
         "pallas_v2", "on")
     assert tk.resolve_serving_kernels(forced) is forced
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tk.resolve_serving_kernels({"paged_attention": "pallas_v1"},
-                                   device="cpu")
+    v1 = tk.resolve_serving_kernels({"paged_attention": "pallas_v1"},
+                                    device="cpu")
+    assert v1.paged_attention == "pallas_v1"
     with pytest.raises(ValueError):
         tk.resolve_serving_kernels({"fused_sampling": "maybe"}, device="cpu")
+
+
+# ----------------------------------------------------- int8 codec (B7 path)
+def _quant_pages(KV=2, P=24, ps=4, Dh=16, seed=0):
+    """int8 pages made by the port's codec from f32 pages (some zero rows)."""
+    k, v = _pages(KV=KV, P=P, ps=ps, Dh=Dh, seed=seed)
+    k[:, ::5, 1] = 0.0
+    kq, ks = tk.quantize_kv_rows(_t(k))
+    vq, vs = tk.quantize_kv_rows(_t(v))
+    return kq.numpy(), ks.numpy(), vq.numpy(), vs.numpy()
+
+
+def _codec_input():
+    rng = np.random.default_rng(7)
+    x = (3.0 * rng.standard_normal((4, 3, 16))).astype(np.float32)
+    x[0, 0] = 0.0                               # a zero row: scale 1.0
+    # exact .5 ties of x / scale: amax 127 gives scale 1.0 exactly
+    x[1, 0] = 0.0
+    x[1, 0, 0] = 127.0
+    x[1, 0, 1:8] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5]
+    return x
+
+
+def test_quantize_kv_rows_bit_equal_to_jax_and_tier_codec():
+    x = _codec_input()
+    codes, scale = tk.quantize_kv_rows(_t(x))
+    jc, js = jk.quantize_kv_rows(jnp.asarray(x))
+    hc, hs = jkv.quantize_page(x)
+    for c, sc in ((np.asarray(jc), np.asarray(js)), (hc, hs)):
+        np.testing.assert_array_equal(codes.numpy(), c)
+        np.testing.assert_array_equal(scale.numpy(), sc)
+    assert scale[0, 0, 0] == 1.0 and not codes[0, 0].any()
+    # round half to even on the planted ties
+    assert codes[1, 0, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, 126]
+    np.testing.assert_array_equal(
+        tk.dequantize_pages(codes, scale, torch.float32).numpy(),
+        np.asarray(jk.dequantize_pages(jc, js, jnp.float32)))
+
+
+def _write_quant_both(fn_j, fn_t, args_j, args_t, seed=0):
+    kq, ks, vq, vs = _quant_pages(P=12, seed=seed)
+    want = fn_j(*(jnp.asarray(a) for a in (kq, ks, vq, vs)), *args_j)
+    planes = [_t(a.copy()) for a in (kq, ks, vq, vs)]
+    got = fn_t(*planes, *args_t)
+    assert all(g is p for g, p in zip(got, planes)), "written in place"
+    for g, w in zip(planes, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_write_token_pages_quant_matches_jax():
+    table = np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)
+    lens = np.array([0, 5, 12], np.int32)       # row 2 is at capacity
+    rng = np.random.default_rng(3)
+    nk = rng.standard_normal((3, 2, 16), dtype=np.float32)
+    nv = rng.standard_normal((3, 2, 16), dtype=np.float32)
+    _write_quant_both(
+        jk.write_token_pages_quant, tk.write_token_pages_quant,
+        (jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(table),
+         jnp.asarray(lens), 4), (_t(nk), _t(nv), _t(table), _t(lens), 4))
+
+
+def test_write_prompt_pages_quant_pads_with_zero_codes_unit_scales():
+    table = np.array([[5, 2, 9], [0, 7, 3]], np.int32)
+    rng = np.random.default_rng(4)
+    nk = rng.standard_normal((2, 7, 2, 16), dtype=np.float32)
+    nv = rng.standard_normal((2, 7, 2, 16), dtype=np.float32)
+    _write_quant_both(
+        jk.write_prompt_pages_quant, tk.write_prompt_pages_quant,
+        (jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(table), 4),
+        (_t(nk), _t(nv), _t(table), 4))
+    kq, ks, vq, vs = (_t(a) for a in _quant_pages(P=12))
+    tk.write_prompt_pages_quant(kq, ks, vq, vs, _t(nk), _t(nv), _t(table), 4)
+    # position 7 of each row (page slot 1, offset 3) is the padded tail
+    for b, page in ((0, 2), (1, 7)):
+        assert not kq[:, page, 3].any() and (ks[:, page, 3] == 1.0).all()
+
+
+@pytest.mark.parametrize("start", [[0, 3, 9], [2, 8, 12], [10, 11, 30]])
+def test_write_chunk_pages_quant_drops_past_capacity(start):
+    table = np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)
+    st = np.array(start, np.int32)
+    rng = np.random.default_rng(sum(start))
+    nk = rng.standard_normal((3, 6, 2, 16), dtype=np.float32)
+    nv = rng.standard_normal((3, 6, 2, 16), dtype=np.float32)
+    _write_quant_both(
+        jk.write_chunk_pages_quant, tk.write_chunk_pages_quant,
+        (jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(table),
+         jnp.asarray(st), 4), (_t(nk), _t(nv), _t(table), _t(st), 4),
+        seed=sum(start))
+
+
+# --------------------------------- B7 and B8 plain versions vs the Pallas
+def _case(mode, G, seed):
+    """Decode (C = 1, lens with an empty row) or chunk (C = 5) inputs over
+    pages with stale table entries past each row's frontier."""
+    KV, ps, Dh = 2, 4, 16
+    C, B, mp = (1, 4, 5) if mode == "decode" else (5, 3, 6)
+    lens = (np.array([0, 1, 7, 20], np.int32) if mode == "decode"
+            else np.array([0, 5, 13], np.int32))
+    used = -(-(lens + (C if C > 1 else 0)) // ps)
+    live, stale = _table(B, mp, 24, seed=seed)
+    table = np.where(np.arange(mp)[None] < used[:, None], live, stale)
+    rng = np.random.default_rng(seed + 11)
+    shape = (B, KV * G, Dh) if mode == "decode" else (B, C, KV * G, Dh)
+    return rng.standard_normal(shape, dtype=np.float32), table, lens
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_quant_matches_pallas_v2_quant_interpret(mode, G):
+    q, table, lens = _case(mode, G, seed=G)
+    pages = _quant_pages(seed=G)
+    jfn = (jk.paged_decode_attention_v2_quant if mode == "decode"
+           else jk.paged_chunk_attention_v2_quant)
+    tfn = (paged_decode_attention_quant if mode == "decode"
+           else paged_chunk_attention_quant)
+    want = np.asarray(jfn(jnp.asarray(q), *(jnp.asarray(p) for p in pages),
+                          jnp.asarray(table), jnp.asarray(lens),
+                          pages_per_block=2, interpret=True))
+    got = tfn(_t(q), *(_t(p) for p in pages), _t(table), _t(lens))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if mode == "decode":
+        assert not got[0].any(), "an empty row must give zeros"
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_v1_split_matches_pallas_v1_interpret(mode, G, monkeypatch):
+    q, table, lens = _case(mode, G, seed=G + 2)
+    kp, vp = _pages(seed=G + 2)
+    jfn = (jk.paged_decode_attention if mode == "decode"
+           else jk.paged_chunk_attention)
+    tfn = (paged_decode_attention_v1 if mode == "decode"
+           else paged_chunk_attention_v1)
+    want = np.asarray(jfn(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                          jnp.asarray(table), jnp.asarray(lens),
+                          interpret=True))
+    # small splits, so several partials combine (and some are empty)
+    from deepspeed_tpu_torch.inference import paged_attention_cuda as pac
+
+    for keys in (4, 8, pac.SPLIT_KEYS):
+        monkeypatch.setattr(pac, "SPLIT_KEYS", keys)
+        got = pac.paged_chunk_attention_split_reference(
+            _t(q)[:, None] if mode == "decode" else _t(q), _t(kp), _t(vp),
+            _t(table), _t(lens - 1 if mode == "decode" else lens),
+            split_keys=keys)
+        got = got[:, 0] if mode == "decode" else got
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    got = tfn(_t(q), _t(kp), _t(vp), _t(table), _t(lens))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if mode == "decode":
+        assert not got[0].any(), "an empty row must give zeros"
+
+
+def test_paged_step_rejects_int8_pages_on_v1():
+    kq, ks, vq, vs = (_t(a) for a in _quant_pages())
+    q = torch.zeros((1, 1, 2, 16))
+    with pytest.raises(ValueError, match="pallas_v1"):
+        tk.paged_attention_step(
+            q, q[:, :, :2], q[:, :, :2], kq, vq,
+            torch.zeros((1, 6), dtype=torch.int32),
+            torch.zeros((1,), dtype=torch.int32), 4, continuation=False,
+            prefill=False, paged_kernel="pallas_v1",
+            flash_force_reference=True, kps=ks, vps=vs)

@@ -2,7 +2,8 @@
 IDENTICAL on llama-tiny in f32 (cache_dtype float32 on both sides), with
 ``check_leaks() == []`` on both, across whole-prompt prefill, split-fuse
 ``prefill_chunk``, ``decode_chunk``, EOS and preemption; every unported
-block raises ``NotImplementedError``."""
+block raises ``NotImplementedError`` (``prefix_cache`` and ``kv_tier`` are
+ported: they behave as in the JAX package)."""
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +94,21 @@ def test_preemption_under_small_pool_matches_jax(model):
     ("zero_inference", {}), ("weight_dtype", "int8")])
 def test_unported_blocks_raise(model, block, value):
     _, tcfg, _, tp = model
+    if block == "kv_tier":
+        # ported: as in the JAX package, the tier needs the prefix cache
+        with pytest.raises(ValueError, match="prefix_cache"):
+            serving_engine(tp, tcfg, device="cpu", **{block: value}, **BASE)
+        return
+    if block == "prefix_cache":
+        # ported: the block serves
+        eng = serving_engine(tp, tcfg, device="cpu", **{block: value},
+                             **BASE)
+        eng.submit("a", list(range(1, 20)), max_new_tokens=3)
+        eng.submit("b", list(range(1, 22)), max_new_tokens=3)
+        out = eng.run()
+        assert [len(out[r]) for r in "ab"] == [22, 24]
+        assert eng.prefix_cache_hits == 1 and eng.check_leaks() == []
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         serving_engine(tp, tcfg, device="cpu", **{block: value}, **BASE)
 
