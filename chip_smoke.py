@@ -20,6 +20,16 @@ and runs, in order:
 11. the prefix-cached, tiered, int8-resident path at the same width: two
    waves of prompts on one shared prefix (the second promotes it from the
    host tier), then the ``pallas_v1`` arm on phase 5's traffic;
+12. the group-quantize kernel (B9) against its plain version, bit for bit,
+   at the stacked FFN leaf of Llama-3-8B and at a decode step's K/V rows
+   (also against the host codec), with NaN / inf / zero groups; the probe
+   kernel (B10) through ``env_report.report()``;
+13. the int8 engine built on the card (B9) against one over weights
+   quantized on the host by B9's plain version, on a tiny f32 Llama:
+   equal codes and scales, identical greedy tokens;
+14. Llama-3-8B at full width with int8 weights (``weight_dtype="int8"``,
+   built from phase 5's weights, which are then freed), phase 5's traffic,
+   then one ``init_inference(dtype="int8")`` forward over the int8 tree;
 6. the training kernels (flash backward dQ and dK/dV, fused Adam) against
    their plain versions at the training shapes;
 7. five train steps of ``initialize(...).train_batch`` on a tiny f32 Llama
@@ -27,15 +37,19 @@ and runs, in order:
 8. the training main path at full width: Llama-3-8B widths cut to 4 layers
    (one card's memory), f32 master, bf16 compute, fused Adam, 4 steps.
 
-Each main path (the two serving runs of phase 5, the two waves and the v1
-run of phase 11, and the training run) counts the launches of every kernel
-on its own (counters set to 0 just before it and read just after).  Prints a ``{"kernels": [...]}`` line and ends with
+Each main path (the env report of phase 12, the two serving runs of phase
+5, the two waves and the v1 run of phase 11, the int8 build, the two
+int8 serving runs and the ``init_inference`` forward of phase 14, and the
+training run) counts the launches
+of every kernel on its own (counters set to 0 just before it and read just
+after).  Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -416,6 +430,197 @@ def phase_paged_quant_v1(gen):
                 "deepspeed_tpu/inference/kernels.py:958", "v1")]
 
 
+# ------------------------------------------------------------ phase 12
+def _quant_err(got, want) -> float:
+    """The largest |difference| of codes and of scales; a scale equal to
+    its plain value (an inf to an inf) or NaN where that is NaN counts 0, a
+    NaN on one side only counts inf."""
+    (q, s), (rq, rs) = got, want
+    q_err = (q.int() - rq.int()).abs().max().item() if q.numel() else 0
+    same = (s == rs) | (torch.isnan(s) & torch.isnan(rs))
+    s_err = torch.where(same, 0.0, (s - rs).abs().nan_to_num(
+        nan=float("inf"))).max().item() if s.numel() else 0.0
+    return float(max(q_err, s_err))
+
+
+def phase_quant(gen):
+    """B9 against its plain version: the stacked w1 leaf of Llama-3-8B
+    ([32, 4096, 14336] bf16 as 14.68 M groups of 128 in one launch, as the
+    engine build quantizes it; the plain version runs on 4 M-group slices
+    of the same input, for memory), the K/V rows of one decode step ([8, 8,
+    128] bf16, also against the host codec), and f32 groups holding NaN,
+    inf and zeros.  ``max_abs_err`` is the largest over the three."""
+    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    from deepspeed_tpu_torch.inference.kv_tier import quantize_page
+    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                    quantize_rows_reference)
+
+    L, d, f = 32, 4096, 14336
+    w1 = torch.empty((L, d, f), dtype=torch.bfloat16, device="cuda")
+    for layer in w1:
+        layer.normal_(generator=gen)
+    rows = w1.view(-1, 128)
+    G, n = rows.shape[0], w1.numel()
+    q, sc = quantize_rows(rows)          # the build's one launch
+    err_w1 = 0.0
+    for lo in range(0, G, 1 << 22):      # plain version in slices (memory)
+        hi = min(G, lo + (1 << 22))
+        err_w1 = max(err_w1, _quant_err(
+            (q[lo:hi], sc[lo:hi]), quantize_rows_reference(rows[lo:hi])))
+    del q, sc
+    # informational: scales from a division by the Python scalar 127.0
+    # (PyTorch's CUDA division multiplies by its reciprocal) that differ
+    # from the IEEE quotient the kernel and the host codec compute
+    amax = rows[:1 << 22].float().abs().amax(-1)
+    scalar_div_off = int((amax / 127.0
+                          != amax / torch.full_like(amax, 127.0)).sum())
+    del amax
+    ms = time_ms(lambda: quantize_rows(rows), iters=10)
+    plain_ms = time_ms(lambda: quantize_rows_reference(rows), iters=2,
+                       warmup=1)
+    # read each bf16 element, write its code and one f32 scale per group;
+    # |x|, max, divide, round and clamp per element in f32
+    b_ms, b_by = bound(n * 2 + n + G * 4, 5 * n, F32_FLOPS_PER_S)
+    del w1, rows
+    torch.cuda.empty_cache()
+
+    kv = torch.randn((8, 8, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kq, ks = quantize_kv_rows(kv)
+    hq, hs = quantize_page(kv.float().cpu().numpy())
+    err_kv = _quant_err((kq.view(64, 128), ks.view(64)),
+                        quantize_rows_reference(kv.view(64, 128)))
+    host_kv = (np.array_equal(kq.cpu().numpy(), hq)
+               and np.array_equal(ks.cpu().numpy(), hs))
+    kv_ms = time_ms(lambda: quantize_kv_rows(kv), iters=50)
+    kv_plain = time_ms(lambda: quantize_kv_rows(kv, force_reference=True),
+                       iters=50)
+    kb_ms, kb_by = bound(64 * 128 * 3 + 64 * 4, 5 * 64 * 128,
+                         F32_FLOPS_PER_S)
+
+    x = torch.randn((4096, 128), generator=gen, device="cuda") * 3.0
+    x[0] = 0.0
+    x[1, 5] = float("nan")
+    x[2, 7] = float("inf")
+    x[3, 0] = -float("inf")
+    x[4] = float("nan")
+    got = quantize_rows(x)
+    err_f32 = _quant_err(got, quantize_rows_reference(x))
+    special = bool(got[1][0] == 1.0 and not got[0][:5].any()
+                   and torch.isnan(got[1][[1, 4]]).all()
+                   and torch.isinf(got[1][[2, 3]]).all())
+    torch.cuda.synchronize()
+    err = max(err_w1, err_kv, err_f32)
+    log(f"[quantize B9] w1 leaf [{L}, {d}, {f}] bf16 as [{G}, 128], one "
+        f"launch: max |err| of codes and scales {err_w1} (bit-equal: 0); "
+        f"kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) library none; "
+        f"scalar-divisor scales off the IEEE quotient: {scalar_div_off} of "
+        f"{1 << 22} groups")
+    log(f"[quantize B9] decode K/V rows [8, 8, 128] bf16: max |err| "
+        f"{err_kv}, equal to the host codec {host_kv}; kernel {kv_ms:.4f} "
+        f"ms plain {kv_plain:.4f} ms bound {kb_ms:.6f} ms ({kb_by})")
+    log(f"[quantize B9] [4096, 128] f32 with zero / NaN / inf groups: max "
+        f"|err| {err_f32}, special groups as the plain version {special}")
+    if not (err == 0.0 and host_kv and special):
+        raise SystemExit("quantize kernel disagrees with its plain version")
+    return {"name": "quantize", "fn": quantize_rows,
+            "source": "deepspeed_tpu_torch/csrc/quant.cu",
+            "replaces": "deepspeed_tpu/ops/quant.py:190",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "kv_rows": {"ms": kv_ms, "plain_ms": kv_plain,
+                        "bound_ms": kb_ms, "bound_by": kb_by}}
+
+
+def phase_env_probe(fns):
+    """B10's main path is the port's ds_report: with every count at 0,
+    ``env_report.report()`` must show the probe compiled and right and
+    launch B10 once; then the kernel alone against ``2 * x``.  Returns the
+    kernel's row and the report's launch counts."""
+    from deepspeed_tpu_torch import env_report
+
+    for fn in fns.values():
+        fn.launches = 0
+    r = env_report.report()
+    launches = {n: f.launches for n, f in fns.items()}
+    log("[env_report] " + json.dumps(r))
+    _check_launches("env report", launches, ("env_probe",))
+    x = torch.arange(8 * 128, dtype=torch.float32, device="cuda").reshape(
+        8, 128)
+    out = env_report.env_probe(x)
+    want = env_report.env_probe_reference(x)
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    ms = time_ms(lambda: env_report.env_probe(x), iters=100)
+    plain_ms = time_ms(lambda: env_report.env_probe_reference(x), iters=100)
+    library_ms = time_ms(lambda: torch.mul(x, 2.0), iters=100)
+    b_ms, b_by = bound(2 * x.numel() * 4, x.numel(), F32_FLOPS_PER_S)
+    log(f"[env probe B10] (8, 128) f32: exact {err == 0.0}; kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms torch.mul {library_ms:.4f} ms "
+        f"bound {b_ms:.7f} ms ({b_by})")
+    if not (r["ops"]["cuda probe"]["ok"] and err == 0.0):
+        raise SystemExit("env probe failed")
+    return {"name": "env_probe", "fn": env_report.env_probe,
+            "source": "deepspeed_tpu_torch/csrc/env_probe.cu",
+            "replaces": "deepspeed_tpu/env_report.py:46",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}, launches
+
+
+# ------------------------------------------------------------ phase 13
+def phase_int8_identity(fns):
+    """The int8 engine built on the card (B9 quantizes every matrix leaf)
+    against one handed the same weights quantized on the host by B9's plain
+    version (no launch at build): equal codes and scales, identical greedy
+    tokens, whole-prompt and chunked over an int8-resident tier (whose K/V
+    rows go through B9 in both engines; phase 12 holds those rows to the
+    plain version and the host codec)."""
+    from deepspeed_tpu_torch._tree import tree_leaves, tree_map
+    from deepspeed_tpu_torch.inference.quantized import quantize_params
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                         device="cuda", dtype=torch.float32)
+    host_tree = quantize_params(tree_map(lambda t: t.cpu(), params),
+                                skip_paths=("attn_norm", "mlp_norm",
+                                            "final_norm"))
+    waves = _tier_waves(np.random.default_rng(5), cfg.vocab_size, 40, 9, 4)
+    opts = dict(max_batch=3, page_size=8, num_pages=64, max_seq=96,
+                prefill_bucket=8, cache_dtype=torch.bfloat16)
+    for label, extra in (("whole-prompt", {}),
+                         ("chunked, int8-resident tier",
+                          {"prefill_chunk": 8, "prefix_cache": {},
+                           "kv_tier": dict(TIER_KV)})):
+        outs, built, trees = [], [], []
+        for tree in (params, host_tree):
+            fns["quantize"].launches = 0
+            eng = llama_serving_engine(tree, cfg, weight_dtype="int8",
+                                       **opts, **extra)
+            built.append(fns["quantize"].launches)
+            trees.append(tree_leaves(eng.params))
+            out = {}
+            for wave in waves:
+                for rid, p in wave.items():
+                    eng.submit(rid, p, max_new_tokens=10)
+                out.update(eng.run())
+            if eng.check_leaks():
+                raise SystemExit(f"int8 identity: leaks {eng.check_leaks()}")
+            outs.append(out)
+        same_tree = all(torch.equal(x, y) for x, y in zip(*trees))
+        same = outs[0] == outs[1]
+        log(f"[int8 identity] llama-tiny f32 weights as int8, {label}: "
+            f"built on the card (B9, {built[0]} launches) == quantized on "
+            f"the host (plain, {built[1]} launches at build): codes and "
+            f"scales {same_tree}, tokens {same} ({len(outs[0])} requests)")
+        if not (same and same_tree and built[0] and not built[1]):
+            raise SystemExit(f"int8 identity ({label}) failed")
+
+
 # ------------------------------------------------------------ phase 4
 def phase_identity(kernels):
     """Kernel arms vs plain arms on a tiny f32 Llama: identical greedy
@@ -476,7 +681,8 @@ def phase_tier_identity(fns):
     ``kv_tier`` on a tiny f32 Llama: int8-resident pages (B7 against its
     plain arm) and the ``pallas_v1`` arm (B8) against ``xla`` on a dense
     tier; identical greedy tokens over two waves on one shared prefix, with
-    pages demoted and promoted and no leaks."""
+    pages demoted and promoted and no leaks.  The plain arms launch no
+    kernel but B9 on the int8-resident K/V writes."""
     import dataclasses
 
     from deepspeed_tpu_torch.inference.serving import llama_serving_engine
@@ -523,8 +729,10 @@ def phase_tier_identity(fns):
         ok = same and all(
             s["demoted"] > 0 and s["promoted"] > 0 and s["hits"] > 0
             and s["leaks"] == [] for s in stats)
+        # B9 has no plain arm on the card: both arms quantize K/V rows
+        # through it (phase 12 holds it to its plain version bit for bit)
         ok = ok and stats[0]["launches"][kernel_name] > 0 and not any(
-            stats[1]["launches"].values())
+            n for k, n in stats[1]["launches"].items() if k != "quantize")
         if label == "int8-resident":
             ok = ok and all(s["quant_promotes"] > 0 for s in stats)
         if not ok:
@@ -615,7 +823,7 @@ def phase_serving(kernels, card_line):
                for i, n in enumerate(lens)}
     opts = dict(max_batch=8, page_size=16, max_seq=2048, num_pages=1025,
                 cache_dtype=torch.bfloat16)
-    results, launches = {}, {}
+    results, launches, outs = {}, {}, {}
     for chunk in (0, 256):
         path = f"serving prefill_chunk={chunk}"
         torch.cuda.reset_peak_memory_stats()
@@ -641,9 +849,15 @@ def phase_serving(kernels, card_line):
         _check_launches(path, launches[path],
                         [n for n in SERVING_KERNELS
                          if chunk == 0 or n != "flash_fwd"])
-        results[chunk] = m
+        results[chunk], outs[chunk] = m, out
     launches.update(phase_tier_serving(params, cfg, prompts, kernels,
                                        card_line))
+    # phase 14 builds its int8 engine from these weights and then frees
+    # them: hand the only reference over
+    holder = [params]
+    del params
+    launches.update(phase_int8_serving(holder, cfg, prompts, outs, results,
+                                       kernels, card_line))
     return launches, results
 
 
@@ -734,7 +948,8 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
             f"{m['promoted']} quant_resident_promotes {m['quant_promotes']} "
             f"host tier {m['tier_pages']} pages {m['tier_bytes']} bytes; "
             f"host clock {spent} "
-            f"B7 launches {launches[path]['paged_attention_quant']} on "
+            f"B7 launches {launches[path]['paged_attention_quant']} B9 "
+            f"launches {launches[path]['quantize']} on "
             f"{card_line}; kernel launches {launches[path]}")
         ok = _valid(out, wave, TIER_NEW, cfg.vocab_size) and not m["leaks"]
         if w == "A":
@@ -745,8 +960,14 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
         if not ok:
             raise SystemExit(f"{path} failed")
         _check_launches(path, launches[path],
-                        ("paged_attention_quant", "greedy_argmax"))
+                        ("paged_attention_quant", "greedy_argmax",
+                         "quantize"))
     log(f"[tier] peak_mem {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    # the timing wrappers hold bound methods of the engine they sit on: a
+    # reference cycle that would keep the engine (its weights, its KV pool)
+    # on the card until the cycle collector ran
+    for name in ("_complete_promotion", "_chunk_prefill"):
+        vars(eng).pop(name, None)
     del eng, c
     torch.cuda.empty_cache()
 
@@ -770,6 +991,149 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
     _check_launches(path, launches[path],
                     ("flash_fwd", "paged_attention_v1", "greedy_argmax"))
     return launches
+
+
+# ------------------------------------------------------------ phase 14
+def phase_int8_serving(holder, cfg, prompts, bf16_outs, bf16_metrics,
+                       kernels, card_line):
+    """Weight-only int8 serving at full width: ``llama_serving_engine(...,
+    weight_dtype="int8")`` quantizes phase 5's bf16 weights on the card
+    (B9, one launch per matrix leaf), the bf16 tree (``holder``'s only
+    item) is freed, and phase 5's traffic is served with whole-prompt and
+    chunked prefill.  The chunked engine takes the first engine's quantized
+    tree (it passes through unquantized-again), and so does
+    ``init_inference(dtype="int8")`` with llama's forward for one forward
+    of the longest prompt, whose peak memory shows that no bf16 copy of the
+    model is made."""
+    from deepspeed_tpu_torch.inference.quantized import param_bytes
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+
+    def zero():
+        for k in kernels:
+            k["fn"].launches = 0
+
+    def counts():
+        return {k["name"]: k["fn"].launches for k in kernels}
+
+    opts = dict(max_batch=8, page_size=16, max_seq=2048, num_pages=1025,
+                cache_dtype=torch.bfloat16)
+    bf16_bytes = param_bytes(holder[0])
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = llama_serving_engine(holder[0], cfg, weight_dtype="int8",
+                               prefill_chunk=0, **opts)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launches["int8 build"] = counts()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    holder.clear()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    int8_bytes = param_bytes(eng.params)
+    log(f"[int8] llama3_8b weight_dtype=int8 groups of 128: build "
+        f"{build_ms:.1f} ms, B9 launches {launches['int8 build']['quantize']}"
+        f" (9 matrix leaves); resident weights {int8_bytes / 1e9:.4f} GB vs "
+        f"{bf16_bytes / 1e9:.4f} GB bf16 ({int8_bytes / bf16_bytes:.4f}x); "
+        f"build peak_mem {build_peak:.1f} GB, resident after freeing bf16 "
+        f"{resident / 1e9:.1f} GB on {card_line}")
+    _check_launches("int8 build", launches["int8 build"], ("quantize",))
+    # the int8 tree and this engine's KV pool: were anything still holding
+    # the bf16 tree, the card would hold more than its 16 GB
+    if launches["int8 build"]["quantize"] != 9 or not (
+            0.5 < int8_bytes / bf16_bytes < 0.53) or resident >= bf16_bytes:
+        raise SystemExit("int8 build: wrong launch count or residency")
+    first = {}
+    for chunk in (0, 256):
+        path = f"int8 serving prefill_chunk={chunk}"
+        if chunk:
+            qparams = eng.params
+            del eng
+            torch.cuda.empty_cache()
+            eng = llama_serving_engine(qparams, cfg, weight_dtype="int8",
+                                       prefill_chunk=chunk, **opts)
+            del qparams
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        out, m = drive(eng, prompts, 32)
+        launches[path] = counts()
+        leaks = eng.check_leaks()
+        done = _valid(out, prompts, 32, cfg.vocab_size)
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        gen = [(t, u) for r in prompts
+               for t, u in zip(out[r][len(prompts[r]):],
+                               bf16_outs[chunk][r][len(prompts[r]):])]
+        same = sum(t == u for t, u in gen) / len(gen)
+        b = bf16_metrics[chunk]
+        lens = [len(p) for p in prompts.values()]
+        log(f"[int8] prefill_chunk={chunk} prompts={lens} new=32: finished "
+            f"{len(out)}/8 all_valid "
+            f"{done} check_leaks {leaks}; tokens/s {m['tokens_per_s']:.2f} "
+            f"(bf16 {b['tokens_per_s']:.2f}) ttft_mean "
+            f"{m['ttft_s_mean'] * 1e3:.1f} ms (bf16 "
+            f"{b['ttft_s_mean'] * 1e3:.1f}) ttft_max "
+            f"{m['ttft_s_max'] * 1e3:.1f} ms ms/decode_step "
+            f"{m['ms_per_decode_step']} (bf16 {b['ms_per_decode_step']}) "
+            f"peak_mem {m['peak_mem_gb']:.1f} GB; greedy tokens equal to "
+            f"bf16's {same:.4f} (informational) on {card_line}; kernel "
+            f"launches {launches[path]}")
+        if not done or leaks:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+        first[chunk] = {r: out[r][len(prompts[r])] for r in prompts}
+    qparams = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    launches.update(_int8_init_inference(qparams, cfg, prompts, first[0],
+                                         zero, counts, card_line))
+    return launches
+
+
+def _int8_init_inference(qparams, cfg, prompts, first, zero, counts,
+                         card_line):
+    """``init_inference(dtype="int8")`` over the int8 engine's tree with
+    llama's forward: one forward of the longest prompt, its time, launches
+    and peak memory.  Its dense
+    ``[L, d]`` norm gains quantize there (two B9 launches), as the JAX
+    engine quantizes them."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import llama
+
+    rid = max(prompts, key=lambda r: len(prompts[r]))
+    toks = torch.tensor([prompts[rid]], dtype=torch.long, device="cuda")
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ie = init_inference(apply_fn=functools.partial(llama.forward, cfg=cfg),
+                        params=qparams, dtype="int8")
+    logits = ie(toks)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    path = "int8 init_inference"
+    used = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ok = (tuple(logits.shape) == (1, toks.shape[1], cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()))
+    same = int(logits[0, -1].argmax()) == first[rid]
+    log(f"[int8] init_inference(dtype=int8) with llama.forward over the "
+        f"int8 tree, one forward of [1, {toks.shape[1]}]: {ms:.1f} ms "
+        f"(build included), logits finite of shape {ok}, peak_mem "
+        f"{peak:.2f} GB with {resident:.2f} GB resident before; B9 "
+        f"launches {used['quantize']} (the [L, d] norm gains); first token "
+        f"equal to the int8 engine's {same} (informational) on "
+        f"{card_line}; kernel launches {used}")
+    del ie, logits
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"{path} failed")
+    _check_launches(path, used, ("flash_fwd", "quantize"))
+    return {path: used}
 
 
 # ------------------------------------------------------------ phase 6
@@ -1112,7 +1476,7 @@ def phase_train(fns, card_line):
           and all(launches[n] > 0 for n in want)
           and all(launches[n] == 0 for n in (
               "paged_attention", "greedy_argmax", "paged_attention_quant",
-              "paged_attention_v1")))
+              "paged_attention_v1", "quantize", "env_probe")))
     if not ok:
         raise SystemExit("training main path failed")
     del eng
@@ -1140,6 +1504,7 @@ def main() -> int:
     _build.lib()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
+    from deepspeed_tpu_torch.env_report import env_probe
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_chunk_attention, paged_chunk_attention_quant,
         paged_chunk_attention_v1)
@@ -1147,6 +1512,7 @@ def main() -> int:
     from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
                                                         flash_bwd_dq,
                                                         flash_fwd)
+    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
     from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
 
     # each kernel's wrapper, whose `launches` count the main paths read
@@ -1155,16 +1521,21 @@ def main() -> int:
            "paged_attention": paged_chunk_attention,
            "greedy_argmax": fused_greedy_rows,
            "paged_attention_quant": paged_chunk_attention_quant,
-           "paged_attention_v1": paged_chunk_attention_v1}
+           "paged_attention_v1": paged_chunk_attention_v1,
+           "quantize": quantize_rows, "env_probe": env_probe}
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = [phase_flash(gen), phase_paged(gen), phase_greedy(gen)]
     tier_kernels = phase_paged_quant_v1(gen)
+    probe_row, probe_launches = phase_env_probe(fns)
+    quant_kernels = [phase_quant(gen), probe_row]
     phase_identity(kernels)
     phase_tier_identity(fns)
-    launches, _ = phase_serving(
-        [{"name": n, "fn": f} for n, f in fns.items()], card_line)
+    phase_int8_identity(fns)
+    launches = {"env report": probe_launches}
+    launches.update(phase_serving(
+        [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
     torch.cuda.empty_cache()
-    rows = {k["name"]: k for k in kernels + tier_kernels}
+    rows = {k["name"]: k for k in kernels + tier_kernels + quant_kernels}
     rows.update(phase_backward(gen))
     rows["fused_adam"] = phase_adam(gen)
     torch.cuda.empty_cache()

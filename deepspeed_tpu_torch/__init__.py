@@ -1,12 +1,13 @@
 """PyTorch / CUDA port of ``deepspeed_tpu`` for NVIDIA Hopper.
 
 Imports ``torch`` and ``numpy`` only (never ``jax`` nor ``deepspeed_tpu``).
-Two slices are ported: Llama greedy serving with continuous batching over
-a paged KV cache, and the train step at ZeRO stage 0 on one GPU
-(``initialize`` -> ``TrainingEngine.train_batch``).  Their attention,
-sampling and Adam update run hand-written CUDA kernels
-(``deepspeed_tpu_torch/csrc``).  Exports resolve lazily, so importing the
-package builds nothing and touches no device.
+Ported: Llama greedy serving with continuous batching over a paged KV
+cache (prefix cache, host KV tier, int8-resident pages, int8 weights), the
+train step at ZeRO stage 0 on one GPU (``initialize`` ->
+``TrainingEngine.train_batch``), ``init_inference`` and the environment
+report.  Their attention, sampling, Adam update and int8 quantization run
+hand-written CUDA kernels (``deepspeed_tpu_torch/csrc``).  Exports resolve
+lazily, so importing the package builds nothing and touches no device.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ _EXPORTS = {
     "initialize": "deepspeed_tpu_torch.engine",
     "TrainingEngine": "deepspeed_tpu_torch.engine",
     "fused_adam": "deepspeed_tpu_torch.ops.adam_cuda",
+    "init_inference": "deepspeed_tpu_torch.inference.engine",
+    "init_serving": "deepspeed_tpu_torch.inference.engine",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -1,1 +1,22 @@
-"""Paged-KV serving: page store, paged attention, continuous batching."""
+"""Paged-KV serving: page store, paged attention, continuous batching;
+``init_inference`` / ``init_serving`` and weight-only int8.  Exports
+resolve lazily, so importing the package builds nothing."""
+
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "InferenceEngine": "deepspeed_tpu_torch.inference.engine",
+    "init_inference": "deepspeed_tpu_torch.inference.engine",
+    "init_serving": "deepspeed_tpu_torch.inference.engine",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(mod), name)

@@ -1,0 +1,141 @@
+"""Inference engine and the ``init_inference`` / ``init_serving`` entry
+points (port of ``deepspeed_tpu/inference/engine.py``; ref:
+deepspeed/inference/engine.py ``InferenceEngine``).
+
+The engine holds the params on one device and runs the model's forward
+under ``torch.inference_mode()``.  ``dtype="int8"`` is weight-only int8
+(:mod:`~deepspeed_tpu_torch.inference.quantized`): every floating leaf with
+``ndim >= 2`` is quantized (kernel B9 on CUDA).  A forward marked
+``takes_quantized`` (the Llama forwards, or a ``functools.partial`` of one)
+gets the int8 tree and dequantizes one layer at a time; any other forward
+is wrapped to dequantize the whole tree to bfloat16 on each call, as the
+JAX package does for every forward (a bf16 copy of the model per call).  Tensor parallelism (``mp_size``, a
+``mesh`` block, ``param_specs``) comes with the distributed slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from deepspeed_tpu_torch import precision
+from deepspeed_tpu_torch._device import resolve_device
+from deepspeed_tpu_torch._tree import tree_map
+from deepspeed_tpu_torch.config import Config, PrecisionConfig
+from deepspeed_tpu_torch.inference.quantized import quantize_for_inference
+from deepspeed_tpu_torch.inference.serving import serving_engine
+
+
+class InferenceEngine:
+    """The forward ``apply_fn(params, *inputs)`` over params on one
+    device (None = CUDA, raising without it; ``"cpu"`` runs the plain
+    versions)."""
+
+    def __init__(self, apply_fn: Callable, params: Any, device=None,
+                 dtype: str = "bfloat16", quant_group_size: int = 128):
+        self.device = resolve_device(device)
+        params = tree_map(lambda t: t.to(self.device), params)
+        if dtype == "int8":
+            # weight-only quantization (ref: init_inference(dtype=int8)):
+            # int8 codes + group scales resident.  Every ndim >= 2 leaf
+            # quantizes, the stacked norm gains too, as the JAX engine
+            # passes no skip_paths
+            params, apply_fn = quantize_for_inference(
+                params, apply_fn, group_size=quant_group_size)
+        else:
+            params = precision.cast_for_compute(
+                params, PrecisionConfig(dtype=dtype))
+        self.apply_fn = apply_fn
+        self.params = params
+
+    def __call__(self, *inputs):
+        inputs = [x.to(self.device) if isinstance(x, torch.Tensor) else x
+                  for x in inputs]
+        with torch.inference_mode():
+            return self.apply_fn(self.params, *inputs)
+
+    def forward(self, *inputs):
+        return self(*inputs)
+
+
+def init_inference(model: Any = None, *, apply_fn: Optional[Callable] = None,
+                   params: Any = None, config: Any = None, device=None,
+                   mesh: Any = None, param_specs: Any = None,
+                   dtype: str = "bfloat16", quant_group_size: int = 128,
+                   **_compat) -> InferenceEngine:
+    """ref: deepspeed.init_inference(model, config...) -> engine.
+
+    ``model`` may be an object with ``.apply`` / ``.params``, or pass
+    ``apply_fn`` + ``params`` explicitly.  A ``config`` dict is parsed
+    (and so validated) as the training config is.  ``mesh`` and
+    ``param_specs`` (tensor parallelism) raise ``NotImplementedError``;
+    other keywords of DeepSpeed's signature are accepted and unused, as in
+    the JAX package."""
+    if mesh is not None or param_specs is not None:
+        raise NotImplementedError(
+            "init_inference over a mesh (mesh, param_specs) comes with the "
+            "distributed slice")
+    if isinstance(config, dict):
+        config = Config.from_dict(config)
+    if apply_fn is None:
+        if model is None or not hasattr(model, "apply"):
+            raise ValueError("provide apply_fn+params or a model with .apply")
+        apply_fn = model.apply
+        params = params if params is not None else getattr(model, "params",
+                                                           None)
+    if params is None:
+        raise ValueError("init_inference requires params")
+    return InferenceEngine(apply_fn, params, device=device, dtype=dtype,
+                           quant_group_size=quant_group_size)
+
+
+def serving_mesh_from_config(config: Any) -> None:
+    """The serving mesh a config's ``mesh`` block asks for: None when every
+    axis but ``data`` is 1 (the one-device engine; ``data`` is a training
+    axis, read as 1 here as the JAX package does).  A sharded serving
+    replica raises ``NotImplementedError``: it comes with the distributed
+    slice."""
+    mc = config.mesh
+    sizes = {"pipe": mc.pipe, "expert": mc.expert, "seq": mc.seq,
+             "model": mc.model}
+    if all(int(v) <= 1 for v in sizes.values()):
+        return None
+    raise NotImplementedError(
+        f"serving mesh {sizes}: a sharded serving replica comes with the "
+        "distributed slice")
+
+
+# config blocks that are off unless enabled, passed through when they are
+_OPT_IN_BLOCKS = ("zero_inference", "prefix_cache", "kv_tier", "speculative",
+                  "slo", "faults", "history", "incidents")
+
+
+def init_serving(params, model_config, *, config: Any = None, **kw):
+    """Serving counterpart of :func:`init_inference`: the continuous-
+    batching engine for a model-family config
+    (:func:`~deepspeed_tpu_torch.inference.serving.serving_engine`),
+    honouring a DeepSpeed-style config.  Each enabled block of ``config``
+    reaches the engine unless a keyword of the same name is given (the
+    keyword wins); the engine refuses the blocks the port lacks.  The
+    ``kernels`` block always passes.  ``telemetry`` and ``tracing`` are on
+    by default in the schema, so they pass only when the config names
+    them (the engine then refuses them: they come with the control-plane
+    slice).  Remaining ``kw`` (``max_batch``, ``page_size``,
+    ``num_pages``, ``prefill_chunk``, ``weight_dtype``, ...) pass through
+    to the model family's engine function."""
+    if isinstance(config, dict):
+        config = Config.from_dict(config)
+    if config is not None:
+        serving_mesh_from_config(config)
+        for name in _OPT_IN_BLOCKS:
+            block = getattr(config, name)
+            if block.enabled:
+                kw.setdefault(name, block)
+        for name in ("telemetry", "tracing"):
+            if name in config.raw:
+                kw.setdefault(name, getattr(config, name))
+        kw.setdefault("kernels", {
+            "paged_attention": config.kernels.paged_attention,
+            "fused_sampling": config.kernels.fused_sampling})
+    return serving_engine(params, model_config, **kw)

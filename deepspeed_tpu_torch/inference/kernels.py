@@ -26,6 +26,8 @@ from deepspeed_tpu_torch.inference.paged_attention_cuda import (
     paged_chunk_attention_v1, paged_decode_attention,
     paged_decode_attention_quant, paged_decode_attention_v1)
 from deepspeed_tpu_torch.ops.attention import flash_attention
+from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                quantize_rows_reference)
 
 PAGED_ATTENTION_MODES = ("auto", "xla", "pallas_v1", "pallas_v2")
 FUSED_SAMPLING_MODES = ("auto", "off", "on")
@@ -393,17 +395,18 @@ def write_chunk_pages(pages_k, pages_v, new_k, new_v, table, start,
 # dequantises on chip.  These are the torch twins of the numpy codec in
 # deepspeed_tpu_torch/inference/kv_tier.py: the rounding must stay
 # identical or the lossless demote -> promote -> demote round trip breaks.)
-def quantize_kv_rows(x):
+def quantize_kv_rows(x, force_reference: bool = False):
     """Symmetric per-last-dim-row int8 quantisation of K/V rows on the
     device: ``x [..., Dh]`` -> ``(codes int8 [..., Dh], scales f32 [...,
-    1])``.  Bit-equal to ``kv_tier.quantize_page``: ``scale = amax / 127``
-    as an f32 division, all-zero rows take scale 1.0, ``x / scale`` rounds
-    half to even."""
-    xf = x.float()
-    amax = xf.abs().amax(-1, keepdim=True)
-    scale = torch.where(amax == 0.0, 1.0, amax / 127.0)
-    codes = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
-    return codes, scale
+    1])``, one group per row through B9 (:func:`~deepspeed_tpu_torch.ops.
+    quant_cuda.quantize_rows`: the kernel on CUDA, its plain version on the
+    CPU or with ``force_reference``).  Bit-equal to ``kv_tier.quantize_page``:
+    ``scale = amax / 127`` as an f32 division, 1.0 where that is 0, ``x /
+    scale`` rounds half to even."""
+    rows = x.reshape(-1, x.shape[-1])
+    codes, scale = (quantize_rows_reference(rows) if force_reference
+                    else quantize_rows(rows))
+    return codes.view(x.shape), scale.view(*x.shape[:-1], 1)
 
 
 def dequantize_pages(codes, scales, dtype):
@@ -535,7 +538,7 @@ def paged_attention_step(q, k, v, kp, vp, table, start, page_size: int, *,
     ``pallas_v1`` (B8) or ``xla`` (the plain versions); a kernel wrapper
     takes its plain version on CPU tensors.  ``kps``/``vps`` non-None
     selects the int8-resident path: kp/vp hold int8 codes, kps/vps the
-    per-token-row f32 scales, the writes quantise on the device, and
+    per-token-row f32 scales, the writes quantise on the device (B9), and
     ``xla`` dequantises with :func:`dequantize_pages` to q's dtype before
     the plain versions (there is no int8 ``pallas_v1``).  Returns attn
     [B, T, H, Dh]."""

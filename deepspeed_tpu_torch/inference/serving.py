@@ -32,10 +32,15 @@ to a host pool instead of dropping, and a later admission matching a
 demoted span promotes it back into fresh pages; ``quantized_resident``
 keeps the device pages as int8 codes with per-token-row scales.
 
+Int8 weight-only serving (``weight_dtype="int8"``):
+``llama_serving_engine`` quantizes every matrix leaf on the engine's
+device (kernel B9 on CUDA) and the forward dequantizes one layer at a
+time.
+
 Blocks of the reference engine that this slice does not port (mesh,
 telemetry, tracing, speculative, slo, faults, shedding, history,
-incidents, devprof, comm, zero_inference, int8 weights) raise
-``NotImplementedError`` when enabled; they are never ignored.
+incidents, devprof, comm, zero_inference) raise ``NotImplementedError``
+when enabled; they are never ignored.
 """
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import weakref
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch._device import resolve_device
+from deepspeed_tpu_torch._tree import tree_map
 from deepspeed_tpu_torch.config import KVTierConfig, PrefixCacheConfig
 from deepspeed_tpu_torch.faults import ChecksumError
 from deepspeed_tpu_torch.inference.kernels import (PagedKVCache,
@@ -56,6 +63,7 @@ from deepspeed_tpu_torch.inference.kernels import (PagedKVCache,
                                                    resolve_serving_kernels)
 from deepspeed_tpu_torch.inference.kv_tier import (KVTierPool, from_host,
                                                    to_host)
+from deepspeed_tpu_torch.inference.quantized import quantize_for_inference
 from deepspeed_tpu_torch.inference.prefix_cache import (extend_page_keys,
                                                         matchable_pages,
                                                         page_keys)
@@ -196,6 +204,12 @@ class _Slot:
         return 0 <= self.prefill_done < len(self.req.tokens)
 
 
+def _weak_method(bound):
+    """``bound`` as a callable that does not keep its object alive."""
+    ref = weakref.WeakMethod(bound)
+    return lambda *args: ref()(*args)
+
+
 class ServingEngine:
     """Host scheduler driving a paged-cache model on one device.
 
@@ -286,7 +300,10 @@ class ServingEngine:
                 kvt, page_shape=(n_layers, n_kv, page_size, head_dim),
                 page_dtype=cache_dtype)
             self.allocator.spill = self._kv_pool
-            self.allocator.demote_hook = self._demote_for_evict
+            # a weak hook: a bound method would make engine <-> allocator
+            # a cycle, and a dropped engine would hold its weights and KV
+            # pool on the card until the cycle collector ran
+            self.allocator.demote_hook = _weak_method(self._demote_for_evict)
             if kvt.demote_watermark < 1.0 and self.allocator.cache_pages:
                 self._kvt_wm_pages = int(
                     kvt.demote_watermark * self.allocator.cache_pages)
@@ -648,9 +665,13 @@ class ServingEngine:
             group_pages=self.kv_tier.promote_group_pages,
             retries=self.kv_tier.io_retries,
             retry_backoff_s=self.kv_tier.io_retry_backoff_s)
-        # bound late: the callback needs the reader's own group table
-        reader.to_device = lambda bufs, g: self._promote_group(
-            page_map, bufs, reader.group_keys(g))
+        # bound late: the callback needs the reader's own group table.
+        # Weakly, as the allocator's demote hook: the reader holds the
+        # callback, and engine -> slot -> reader -> engine is a cycle
+        promote = _weak_method(self._promote_group)
+        group_keys = _weak_method(reader.group_keys)
+        reader.to_device = lambda bufs, g: promote(page_map, bufs,
+                                                   group_keys(g))
         promo = _Promotion(keys=list(tier_keys), page_map=page_map,
                            reader=reader)
         promo.primed = reader.presubmit(0)
@@ -1048,22 +1069,32 @@ class ServingEngine:
 
 
 def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
-                         device=None, **kw) -> ServingEngine:
+                         quant_group_size: int = 128, device=None,
+                         **kw) -> ServingEngine:
     """ServingEngine over :func:`~deepspeed_tpu_torch.models.llama.
     forward_paged`.  ``params`` (the JAX pytree layout, see
     :mod:`deepspeed_tpu_torch.weights`) move to ``device`` (None = CUDA).
     The kernel policy resolves once here and the same policy reaches the
-    engine."""
+    engine.
+
+    ``weight_dtype="int8"``: weight-only int8 (ref: ``init_inference(dtype=
+    int8)``): every matrix leaf is quantized on ``device`` in groups of
+    ``quant_group_size`` (kernel B9 on CUDA; the stacked ``[L, d]`` norm
+    gains stay exact, as the JAX builder keeps them; leaves that are
+    already quantized pass through), and the forward dequantizes one layer
+    at a time.  Any other value but ``"bfloat16"`` raises
+    ``NotImplementedError``."""
     from deepspeed_tpu_torch.models import llama
 
-    if weight_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"weight_dtype={weight_dtype!r} (int8 weight-only serving) comes "
-            "with the serving-extensions slice")
     dev = resolve_device(device)
     policy = resolve_serving_kernels(kw.pop("kernels", None), device=dev)
     pk = policy.paged_attention
     params = _to_device(params, dev)
+    if weight_dtype != "bfloat16":
+        # raises on anything but "int8": never serve unquantized quietly
+        params, = quantize_for_inference(
+            params, weight_dtype=weight_dtype, group_size=quant_group_size,
+            skip_paths=("attn_norm", "mlp_norm", "final_norm"))
 
     def step(params, tokens, cache):
         return llama.forward_paged(params, tokens, cfg, cache,
@@ -1080,9 +1111,7 @@ def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
 
 
 def _to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def serving_engine(params, cfg, **kw):

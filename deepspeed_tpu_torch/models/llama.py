@@ -11,6 +11,18 @@ grow argmax ties the reference lacks.  :func:`loss_fn` is the training
 objective: next-token cross entropy over ``{tokens, loss_mask,
 segment_ids}``, with packed-document attention through the flash kernels'
 ``segment_ids``.
+
+Int8 weights: any matrix leaf may be an int8
+:class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor`
+(``init_inference(dtype="int8")``, ``llama_serving_engine(weight_dtype=
+"int8")``).  :func:`forward`, :func:`forward_hidden` and
+:func:`forward_paged` dequantize such leaves where they are read: one layer
+of a stacked leaf at a time, the embedding's gathered rows, the LM head once
+per forward, each to bfloat16 as the JAX package's ``quantized_apply`` does
+(they carry the ``takes_quantized`` mark, so ``init_inference`` hands them
+the int8 tree as it is).
+A quantized embedding makes the residual stream bfloat16 whatever the
+norm gains' dtype, as it does there (``rms_norm`` keeps x's dtype).
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
 from deepspeed_tpu_torch.ops.losses import chunked_lm_loss
@@ -144,11 +157,19 @@ def _block_tail(cfg: LlamaConfig, lp, x, attn):
 
 
 def _layer(params, l: int):
-    return {name: w[l] for name, w in params["blocks"].items()}
+    """Layer ``l`` of the stacked blocks, int8 leaves dequantized (only
+    this layer's slice of them)."""
+    return {name: take(w, l) for name, w in params["blocks"].items()}
+
+
+def _embed(params, tokens):
+    return take(params["embed"], tokens.long())
 
 
 def lm_head(params, cfg: LlamaConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.tie_embeddings:
+        return take(params["embed"]).T
+    return take(params["lm_head"])
 
 
 def _head_logits(params, cfg: LlamaConfig, h):
@@ -156,10 +177,11 @@ def _head_logits(params, cfg: LlamaConfig, h):
 
 
 def _logits(params, cfg: LlamaConfig, x):
-    return _head_logits(params, cfg,
-                        rms_norm(x, params["final_norm"], cfg.norm_eps))
+    h = rms_norm(x, take(params["final_norm"]), cfg.norm_eps)
+    return _head_logits(params, cfg, h)
 
 
+@takes_quantized
 def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None,
                    segment_ids=None, n_micro: Optional[int] = None):
     """tokens: [B, T] int -> final-norm hidden states [B, T, d] (what the
@@ -170,7 +192,7 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None,
             "n_micro: pipeline-parallel microbatching comes with the "
             "distributed slice (ROADMAP A11)")
     T = tokens.shape[1]
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_tables(cfg, positions)
@@ -178,9 +200,10 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None,
         lp = _layer(params, l)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
         x = _block_tail(cfg, lp, x, _attention(q, k, v, cfg, segment_ids))
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(x, take(params["final_norm"]), cfg.norm_eps)
 
 
+@takes_quantized
 def forward(params, tokens, cfg: LlamaConfig, positions=None,
             segment_ids=None, n_micro: Optional[int] = None):
     """tokens: [B, T] int -> logits [B, T, V] f32."""
@@ -225,6 +248,7 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
     return f
 
 
+@takes_quantized
 def forward_paged(params, tokens, cfg: LlamaConfig, cache,
                   continuation: bool = False,
                   paged_kernel: Optional[str] = None):
@@ -253,7 +277,7 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
     paged_kernel = resolve_serving_kernels(
         {"paged_attention": paged_kernel or "auto"},
         device=cache.k.device).paged_attention
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     # ragged frontiers under continuous batching: each row rotates by ITS
     # own start
     positions = start[:, None] + torch.arange(

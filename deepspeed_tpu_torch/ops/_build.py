@@ -63,6 +63,10 @@ SIGNATURES = {
     "dstt_paged_combine": [_P] * 4 + [_I] * 7 + [_P],
     # logits, out, B, V, stream
     "dstt_greedy_argmax": [_P, _P, _I, _I, _P],
+    # x, q, scale, n_groups, group_size, dtype, stream
+    "dstt_quantize_int8": [_P] * 3 + [ctypes.c_longlong] * 2 + [_I, _P],
+    # x, out, n, stream
+    "dstt_env_probe": [_P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch._device import resolve_device
+from deepspeed_tpu_torch.inference.quantized import QuantizedTensor
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -31,15 +32,21 @@ def from_jax_params(tree: Dict[str, Any], *, device=None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """A JAX param tree whose leaves are numpy arrays (``jax.device_get``
     of the JAX params) -> the same tree of torch tensors on ``device``
-    (None = CUDA), cast to ``dtype`` when given."""
-    dev = resolve_device(device)
+    (None = CUDA), cast to ``dtype`` when given.  An int8 leaf of the JAX
+    package's weight-only quantization (its ``QuantizedTensor``, a
+    NamedTuple of ``q`` and ``scale``) becomes the port's
+    :class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor` with
+    the same codes and scales (never cast)."""
+    return _convert(tree, resolve_device(device), dtype)
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor(x, dev, dtype)
 
-    return conv(tree)
+def _convert(x, dev, dtype):
+    if isinstance(x, dict):
+        return {k: _convert(v, dev, dtype) for k, v in x.items()}
+    if getattr(x, "_fields", None) == QuantizedTensor._fields:
+        return QuantizedTensor(q=_tensor(x.q, dev, None),
+                               scale=_tensor(x.scale, dev, None))
+    return _tensor(x, dev, dtype)
 
 
 def init_params(cfg, generator: torch.Generator, device=None,

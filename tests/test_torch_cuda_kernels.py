@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes beyond the smoke's (every head dim, both dtypes, ragged
 tails, packed segments, odd page sizes, unaligned logits rows, odd leaf
-sizes).  Marked ``cuda``: they skip
-without a GPU.  On the card (the conftest imports JAX, which the GPU
+sizes, odd group sizes, NaN and inf groups, offsets past 2^31).  Marked
+``cuda``: they skip without a GPU.  On the card (the conftest imports JAX, which the GPU
 machine need not have):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -287,3 +287,128 @@ def test_greedy_matches_argmax(gen, B, V, offset):
     assert torch.equal(got, greedy_rows_reference(x))
     assert got[0].item() == 0
     assert got[-1].item() == (0 if B == 1 else V // 2)
+
+
+def _nan_equal(a, b):
+    """Equal, with NaN equal to NaN (NaN bits may differ)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,gsz", [(1, 1), (8, 128), (64, 128), (3, 768),
+                                   (1000, 33), (5, 4096), (17, 7)])
+def test_quantize_matches_plain(gen, dtype, G, gsz):
+    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                    quantize_rows_reference)
+
+    x = _randn(gen, (G, gsz), dtype) * 3.0
+    x[0] = 0.0                          # a zero group: scale 1.0, codes 0
+    if gsz >= 8 and G > 1:              # exact .5 quotients: half to even
+        x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                 126.5], dtype=dtype)
+        x[1, 8:] = x[1, 8:].clamp(-127, 127)
+    before = quantize_rows.launches
+    q, s = quantize_rows(x)
+    rq, rs = quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert s[0].item() == 1.0 and not q[0].any()
+
+
+def test_quantize_nan_inf_and_strided_rows(gen):
+    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                    quantize_rows_reference)
+
+    x = _randn(gen, (6, 128), torch.float32)
+    x[0, 3] = float("nan")
+    x[1, 9] = float("inf")
+    x[2, 0] = -float("inf")
+    x[3] = float("nan")
+    q, s = quantize_rows(x)
+    rq, rs = quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, rq) and _nan_equal(s, rs)
+    assert not q[:4].any() and torch.isnan(s[[0, 3]]).all()
+    # the decode writer's strided view [B, 1, KV, Dh] of [B, T, KV, Dh]
+    k = _randn(gen, (4, 3, 2, 64), torch.bfloat16)
+    kq, ks = quantize_kv_rows(k[:, 1:2])
+    wq, ws = quantize_kv_rows(k[:, 1:2].contiguous(), force_reference=True)
+    assert torch.equal(kq, wq) and torch.equal(ks, ws)
+
+
+def test_quantize_offsets_past_int32(gen):
+    """More elements than an int holds: the tail groups, past 2^31, are
+    right (64-bit offsets)."""
+    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                    quantize_rows_reference)
+
+    G = (1 << 31) // 128 + 64
+    x = torch.ones((G, 128), dtype=torch.bfloat16, device="cuda")
+    tail = _randn(gen, (256, 128), torch.bfloat16)
+    x[-256:] = tail
+    q, s = quantize_rows(x)
+    rq, rs = quantize_rows_reference(tail)
+    hq, hs = quantize_rows_reference(x[:4])
+    torch.cuda.synchronize()
+    assert torch.equal(q[-256:], rq) and torch.equal(s[-256:], rs)
+    assert torch.equal(q[:4], hq) and torch.equal(s[:4], hs)
+
+
+@pytest.mark.parametrize("bits,symmetric", [(4, True), (2, True), (1, True),
+                                            (8, False), (4, False)])
+def test_plain_codecs_on_the_card_equal_the_host(gen, bits, symmetric):
+    """The codecs that stay plain PyTorch on CUDA divide by tensors: codes,
+    scales and zero-points on the card equal the host's bit for bit (a
+    Python-scalar divisor would be a multiply by its reciprocal there,
+    one ulp off on a few percent of 4096 groups)."""
+    from deepspeed_tpu_torch.ops.quant import quantize
+
+    x = _randn(gen, (4096, 128), torch.float32) * 3.0
+    x[0] = 0.0
+    got = quantize(x, bits=bits, num_groups=4096, symmetric=symmetric)
+    want = quantize(x.cpu(), bits=bits, num_groups=4096, symmetric=symmetric)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("kind", ["e4m3", "e5m2"])
+def test_fp8_on_the_card_equals_the_host(gen, kind):
+    """``to_fp8``'s per-tensor scale and fp8 bits on the card equal the
+    host's, over 256 tensors (256 scale divisions)."""
+    from deepspeed_tpu_torch.ops.quant import to_fp8
+
+    x = _randn(gen, (256, 64), torch.float32) * 5.0
+    for row in x:
+        q, s = to_fp8(row, kind)
+        hq, hs = to_fp8(row.cpu(), kind)
+        assert torch.equal(s.cpu(), hs)
+        assert torch.equal(q.view(torch.uint8).cpu(), hq.view(torch.uint8))
+
+
+def test_quantize_rejects_what_it_cannot_take(gen):
+    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
+
+    with pytest.raises(ValueError, match="dtype"):
+        quantize_rows(_randn(gen, (4, 8), torch.float16))
+    with pytest.raises(ValueError, match=r"\[G, gsz\]"):
+        quantize_rows(_randn(gen, (4, 8, 2), torch.float32))
+
+
+def test_env_probe_and_report_on_the_card(gen):
+    from deepspeed_tpu_torch import env_report
+
+    x = torch.arange(8 * 128, dtype=torch.float32, device="cuda").reshape(
+        8, 128)
+    before = env_report.env_probe.launches
+    out = env_report.env_probe(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2 * x)
+    assert env_report.env_probe.launches == before + 1
+    r = env_report.report()
+    assert r["ops"]["cuda probe"] == {"ok": True, "mode": "compiled",
+                                      "error": None}
+    assert r["backend"]["name"] == "cuda" and r["backend"]["devices"]

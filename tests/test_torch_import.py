@@ -24,15 +24,19 @@ def test_imports_with_jax_blocked():
         "sys.modules['deepspeed_tpu'] = None\n"
         "import deepspeed_tpu_torch\n"
         "from deepspeed_tpu_torch.inference import serving, kernels, "
-        "paged_attention_cuda, prefix_cache, kv_tier\n"
-        "from deepspeed_tpu_torch import faults, param_stream\n"
+        "paged_attention_cuda, prefix_cache, kv_tier, quantized\n"
+        "from deepspeed_tpu_torch.inference import engine as ie\n"
+        "from deepspeed_tpu_torch.inference import InferenceEngine, "
+        "init_inference, init_serving\n"
+        "from deepspeed_tpu_torch import faults, param_stream, env_report\n"
         "from deepspeed_tpu_torch.models import llama\n"
         "from deepspeed_tpu_torch.ops import attention, attention_cuda, "
-        "sampling_cuda, fused_ops, _build, optim, adam_cuda, losses\n"
+        "sampling_cuda, fused_ops, _build, optim, adam_cuda, losses, "
+        "quant, quant_cuda\n"
         "from deepspeed_tpu_torch import weights, engine, config, "
         "precision, lr_schedules\n"
         "from deepspeed_tpu_torch import initialize, TrainingEngine, "
-        "fused_adam\n"
+        "fused_adam, init_inference, init_serving\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"

@@ -16,6 +16,8 @@ mode is held instead to JAX's ``forward_paged`` over an int8-resident cache
 decode, and, end to end, to its own kernel arm (greedy tokens identical)."""
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -429,6 +431,24 @@ def test_quantized_resident_demote_promote_is_lossless(model):
                 np.testing.assert_array_equal(g[:, :, 0], h)
             promoted += 1
     assert promoted > 0
+
+
+@pytest.mark.parametrize("kvt", [TIER, QRES])
+def test_dropped_tiered_engine_frees_without_the_cycle_collector(model,
+                                                                   kvt):
+    """No reference cycle keeps a dropped engine (and so its weights and
+    KV pool) alive: on the card that memory must come back at ``del``."""
+    te = _engine(model, "torch", prefix_cache={}, kv_tier=kvt)
+    # demotes through the allocator's hook, promotes through a reader
+    _serve([te], _waves(), between=lambda e: e.step())
+    assert te.allocator.demoted > 0 and te.allocator.promoted > 0
+    gone = weakref.ref(te)
+    gc.disable()
+    try:
+        del te
+        assert gone() is None
+    finally:
+        gc.enable()
 
 
 def test_engine_rejects_what_the_slice_does_not_take(model, tmp_path):

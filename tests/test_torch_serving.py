@@ -2,8 +2,8 @@
 IDENTICAL on llama-tiny in f32 (cache_dtype float32 on both sides), with
 ``check_leaks() == []`` on both, across whole-prompt prefill, split-fuse
 ``prefill_chunk``, ``decode_chunk``, EOS and preemption; every unported
-block raises ``NotImplementedError`` (``prefix_cache`` and ``kv_tier`` are
-ported: they behave as in the JAX package)."""
+block raises ``NotImplementedError`` (``prefix_cache``, ``kv_tier`` and
+int8 ``weight_dtype`` are ported: they behave as in the JAX package)."""
 
 import jax
 import jax.numpy as jnp
@@ -108,6 +108,17 @@ def test_unported_blocks_raise(model, block, value):
         out = eng.run()
         assert [len(out[r]) for r in "ab"] == [22, 24]
         assert eng.prefix_cache_hits == 1 and eng.check_leaks() == []
+        return
+    if block == "weight_dtype":
+        # ported: int8 weights serve; another dtype raises, as in the JAX
+        # package
+        eng = serving_engine(tp, tcfg, device="cpu", **{block: value},
+                             **BASE)
+        eng.submit("a", list(range(1, 20)), max_new_tokens=3)
+        assert len(eng.run()["a"]) == 22 and eng.check_leaks() == []
+        with pytest.raises(NotImplementedError, match="int8"):
+            serving_engine(tp, tcfg, device="cpu", weight_dtype="int4",
+                           **BASE)
         return
     with pytest.raises(NotImplementedError, match="slice"):
         serving_engine(tp, tcfg, device="cpu", **{block: value}, **BASE)

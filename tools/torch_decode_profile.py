@@ -3,15 +3,17 @@
 time, on one CUDA GPU.
 
     python3 tools/torch_decode_profile.py [--steps 5] [--layers 32]
+                                          [--weight-dtype bfloat16|int8]
 
-Builds the engine at full width (random seeded bf16 weights, 8 requests
+Builds the engine at full width (random seeded bf16 weights, quantized to
+int8 on the card with ``--weight-dtype int8``; 8 requests
 with prompts of 128..1024 tokens, whole-prompt prefill), lets every prompt
 prefill, then times ``--steps`` decode steps on the host clock (each ends
 in the host's token fetch) and traces the same number under
 ``torch.profiler``: device time per step by kernel, kernel launches per
 step, and the device's idle share of the traced window.  Prints a summary
-and one JSON line; writes the JSON to ``chiprun_out/torch_decode_profile.json``
-when that directory exists.
+and one JSON line, also written as ``torch_decode_profile_<weight
+dtype>.json`` into the repo's gitignored output directory when it exists.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--weight-dtype", default="bfloat16",
+                    choices=("bfloat16", "int8"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -58,7 +62,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     eng = llama_serving_engine(params, cfg, max_batch=8, page_size=16,
                                max_seq=2048, num_pages=1025,
-                               cache_dtype=torch.bfloat16)
+                               cache_dtype=torch.bfloat16,
+                               weight_dtype=args.weight_dtype)
+    del params
     for i, n in enumerate(np.linspace(128, 1024, 8).astype(int)):
         eng.submit(i, rng.integers(1, cfg.vocab_size, n).tolist(),
                    max_new_tokens=4 + 2 * args.steps + 4)
@@ -89,6 +95,7 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     out = {
         "card": card, "layers": cfg.n_layers, "steps": args.steps,
+        "weight_dtype": args.weight_dtype,
         "active_rows": 8,
         "ms_per_decode_step_host": step_ms,
         "ms_per_decode_step_traced": traced_ms / args.steps,
@@ -97,7 +104,7 @@ def main() -> int:
         "kernel_launches_per_step": launches / args.steps,
         "top_kernels_ms_per_step": {k[:90]: v / args.steps for k, v in top},
     }
-    print(f"{card}: decode step {step_ms:.2f} ms (host clock), device "
+    print(f"{card}: {args.weight_dtype} decode step {step_ms:.2f} ms (host clock), device "
           f"{out['device_ms_per_step']:.2f} ms/step, idle share "
           f"{out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} launches/step")
@@ -107,7 +114,8 @@ def main() -> int:
     print(line)
     dest = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(dest):
-        with open(os.path.join(dest, "torch_decode_profile.json"), "w") as f:
+        name = f"torch_decode_profile_{args.weight_dtype}.json"
+        with open(os.path.join(dest, name), "w") as f:
             f.write(line + "\n")
     return 0
 
