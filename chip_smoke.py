@@ -7,7 +7,9 @@ Builds the CUDA kernels from ``deepspeed_tpu_torch/csrc`` (into ``build/``)
 and runs, in order:
 
 3. the serving kernels (flash forward, paged attention, greedy argmax)
-   against their plain PyTorch versions on the card at the serving shapes;
+   against their plain PyTorch versions on the card at the serving shapes,
+   and the flash forward at the training shape too (T = 2047, causal and
+   with 3 packed segments), each timed beside SDPA;
 9. the int8-resident paged kernel (B7) and the split-key v1 kernel (B8)
    against their plain versions at the same shapes, beside B5;
 4. the kernel arms and the plain arms of the serving engine on a tiny f32
@@ -42,7 +44,9 @@ Each main path (the env report of phase 12, the two serving runs of phase
 int8 serving runs and the ``init_inference`` forward of phase 14, and the
 training run) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
-after).  Prints a ``{"kernels": [...]}`` line and ends with
+after), and the flash forward's launches per body: every Llama-3-8B path
+must run only its tensor-core body, the f32 runs only its scalar one.
+Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
 """
@@ -101,6 +105,9 @@ TIER_KV = {"quantize_cold": True, "quantized_resident": True,
            "demote_watermark": 0.0}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# main path -> the flash forward's launches per body (tensor-core "wgmma",
+# "scalar"), read just after the path as its other counts are
+FLASH_BODIES = {}
 
 
 def log(*a):
@@ -122,6 +129,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: the device time of every kernel it
+    ran under ``torch.profiler``, without the host's launch cost that
+    back-to-back event timing includes when the host is the slower side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in _device_events(prof)) / 1e3 / iters
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -137,8 +161,21 @@ def card() -> str:
 
 
 # ------------------------------------------------------------ phase 3
+def _flash_bound(B, T, H, KV, D, pairs):
+    """Bytes (q, k, v read once, o written, lse f32) and the two products'
+    flops over the live (query, key) pairs of one head."""
+    nbytes = 2 * (2 * B * T * H * D + 2 * B * T * KV * D) + 4 * B * H * T
+    return bound(nbytes, 4 * B * H * D * pairs, BF16_FLOPS_PER_S)
+
+
 def phase_flash(gen):
+    """B1 against its plain version at the serving shape (T = 1024 and a
+    ragged T = 300) and the training shape (T = 2047, causal, and with 3
+    packed segments), each timed beside SDPA (under the segments' mask
+    where there are segments); every launch here takes the tensor-core
+    body."""
     from deepspeed_tpu_torch.ops.attention_cuda import (flash_fwd,
+                                                        flash_fwd_body,
                                                         flash_fwd_reference)
 
     B, T, H, KV, D = 1, 1024, 32, 8, 128
@@ -146,6 +183,9 @@ def phase_flash(gen):
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
+    if flash_fwd_body(q) != "wgmma":
+        raise SystemExit("phase 3: the serving shape does not take the "
+                         "tensor-core body")
     o, lse = flash_fwd(q, k, v)
     ro, rlse = flash_fwd_reference(q, k, v)
     torch.cuda.synchronize()
@@ -158,38 +198,96 @@ def phase_flash(gen):
     r300, _ = flash_fwd_reference(qr, kr, vr)
     err300 = (o300.float() - r300.float()).abs().max().item()
     ms = time_ms(lambda: flash_fwd(q, k, v))
+    dev_ms = device_ms(lambda: flash_fwd(q, k, v))
     plain_ms = time_ms(lambda: flash_fwd_reference(q, k, v), iters=5)
-    library_ms = _sdpa_ms(q, k, v)
-    nbytes = 2 * (2 * B * T * H * D + 2 * B * T * KV * D) + 4 * B * H * T
-    flops = 4 * B * H * D * T * (T + 1) / 2
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    sdpa = _sdpa(q, k, v)
+    library_ms = sdpa and time_ms(sdpa)
+    library_dev = sdpa and device_ms(sdpa)
+    b_ms, b_by = _flash_bound(B, T, H, KV, D, T * (T + 1) // 2)
     log(f"[flash] B={B} T={T} H={H} KV={KV} D={D} bf16: max_abs_err "
         f"{err:.3e} (tol {FLASH_TOL}) lse_err {lse_err:.3e} (tol 1e-3); "
-        f"T=300 max_abs_err {err300:.3e} (tol {FLASH_TOL}); kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms sdpa {library_ms} ms bound {b_ms:.4f} ms "
-        f"({b_by})")
-    if not (err <= FLASH_TOL and err300 <= FLASH_TOL and lse_err <= 1e-3):
+        f"T=300 max_abs_err {err300:.3e} (tol {FLASH_TOL}); kernel {ms:.5f} "
+        f"ms (device {dev_ms:.5f}) plain {plain_ms:.4f} ms sdpa {library_ms} "
+        f"ms (device {library_dev}) bound {b_ms:.5f} ms ({b_by})")
+    ok = err <= FLASH_TOL and err300 <= FLASH_TOL and lse_err <= 1e-3
+    del o, ro, lse, rlse, o300, r300, q, k, v, qr, kr, vr
+
+    # the training shape: T = 2047 (one 2048-token row less its last)
+    T2 = 2047
+    q = torch.randn((B, T2, H, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, T2, KV, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, T2, KV, D), generator=gen, device="cuda").to(dt)
+    train = {}
+    for label, nseg in (("causal", 0), ("causal + 3 segments", 3)):
+        seg, lens = _segments(T2, nseg) if nseg else (None, [T2])
+        o, lse = flash_fwd(q, k, v, seg=seg)
+        ro, rlse = flash_fwd_reference(q, k, v, seg=seg)
+        torch.cuda.synchronize()
+        e = (o.float() - ro.float()).abs().max().item()
+        le = (lse - rlse).abs().max().item()
+        t_ms = time_ms(lambda: flash_fwd(q, k, v, seg=seg))
+        t_dev = device_ms(lambda: flash_fwd(q, k, v, seg=seg))
+        t_plain = time_ms(lambda: flash_fwd_reference(q, k, v, seg=seg),
+                          iters=3, warmup=1)
+        sdpa = _sdpa(q, k, v, seg)
+        t_lib = sdpa and time_ms(sdpa)
+        t_lib_dev = sdpa and device_ms(sdpa)
+        # the yardstick computes the same o (it does not round p to bf16)
+        lib_err = sdpa and (sdpa().transpose(1, 2).float()
+                            - ro.float()).abs().max().item()
+        tb_ms, tb_by = _flash_bound(B, T2, H, KV, D,
+                                    sum(n * (n + 1) // 2 for n in lens))
+        log(f"[flash] B={B} T={T2} H={H} KV={KV} D={D} bf16 {label}: "
+            f"max_abs_err {e:.3e} (tol {FLASH_TOL}) lse_err {le:.3e} (tol "
+            f"1e-3); kernel {t_ms:.5f} ms (device {t_dev:.5f}) plain "
+            f"{t_plain:.4f} ms sdpa {t_lib} ms (device {t_lib_dev}; o vs "
+            f"plain {lib_err}) bound {tb_ms:.5f} ms ({tb_by})")
+        ok = ok and e <= FLASH_TOL and le <= 1e-3
+        train[label] = {"max_abs_err": e, "lse_err": le, "ms": t_ms,
+                        "device_ms": t_dev, "plain_ms": t_plain,
+                        "library_ms": t_lib, "library_device_ms": t_lib_dev,
+                        "library_max_abs_err": lib_err,
+                        "bound_ms": tb_ms, "bound_by": tb_by}
+        del o, ro, lse, rlse
+    del q, k, v
+    torch.cuda.empty_cache()
+    if not ok:
         raise SystemExit("flash kernel disagrees with its plain version")
     return {"name": "flash_fwd", "fn": flash_fwd,
             "source": "deepspeed_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "deepspeed_tpu/ops/attention_pallas.py:34",
-            "max_abs_err": max(err, err300), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": max([err, err300] + [r["max_abs_err"]
+                                                for r in train.values()]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": library_dev, "training_shape": train}
 
 
-def _sdpa_ms(q, k, v):
-    """One PyTorch call computing the same causal GQA attention, timed as
-    a yardstick only (the port never calls it)."""
+def _sdpa(q, k, v, seg=None):
+    """One PyTorch call computing the same causal GQA attention (with
+    packed segment ids, under their block-diagonal causal mask, built here
+    once), as a function of no arguments giving o [B, H, T, D], or None on a
+    PyTorch without ``enable_gqa``.  A yardstick only: the port never calls
+    it."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if seg is None:
+        kw = {"is_causal": True}
+    else:
+        T = q.shape[1]
+        causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        kw = {"attn_mask": (seg[:, None, :, None] == seg[:, None, None, :])
+              & causal}
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **kw)
     try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
+        call()
     except TypeError:                   # a PyTorch without enable_gqa
         return None
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    return call
 
 
 def _paged_inputs(gen, lens, C, H=32, KV=8, D=128, ps=16, mp=64):
@@ -540,8 +638,7 @@ def phase_env_probe(fns):
     kernel's row and the report's launch counts."""
     from deepspeed_tpu_torch import env_report
 
-    for fn in fns.values():
-        fn.launches = 0
+    _zero(fns.values())
     r = env_report.report()
     launches = {n: f.launches for n, f in fns.items()}
     log("[env_report] " + json.dumps(r))
@@ -641,8 +738,10 @@ def phase_identity(kernels):
     opts = dict(max_batch=3, page_size=8, num_pages=48, max_seq=96,
                 prefill_bucket=8, cache_dtype=torch.float32)
     plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    flash = next(k["fn"] for k in kernels if k["name"] == "flash_fwd")
     for chunk in (0, 8):
         before = [k["fn"].launches for k in kernels]
+        wgmma_before = flash.body_launches["wgmma"]
         outs = []
         for c, kn in ((cfg, None),
                       (plain_cfg, {"paged_attention": "xla",
@@ -666,6 +765,10 @@ def phase_identity(kernels):
         if any(u == 0 for k, u in zip(kernels, used)
                if not (chunk and k["name"] == "flash_fwd")):
             raise SystemExit("identity: a kernel arm did not launch")
+        # f32 attention takes the scalar body
+        if flash.body_launches["wgmma"] != wgmma_before:
+            raise SystemExit("identity: f32 flash launched the tensor-core "
+                             "body")
 
 
 # ------------------------------------------------------------ phase 10
@@ -704,8 +807,7 @@ def phase_tier_identity(fns):
              "pallas_v1")):
         outs, stats = [], []
         for c, kn in ((cfg, {"paged_attention": paged}), (plain_cfg, plain)):
-            for f in fns.values():
-                f.launches = 0
+            _zero(fns.values())
             eng = llama_serving_engine(params, c, kernels=kn, kv_tier=kv,
                                        prefill_chunk=8, **opts)
             out = {}
@@ -805,6 +907,29 @@ def _check_launches(path, counts, want):
             raise SystemExit(f"{path}: {name} launched {n} times")
 
 
+def _zero(fns):
+    """Sets every wrapper's launch count, and the flash forward's count per
+    body, to 0."""
+    for f in fns:
+        f.launches = 0
+        if hasattr(f, "body_launches"):
+            f.body_launches = dict.fromkeys(f.body_launches, 0)
+
+
+def _check_bodies(path, body, record=True):
+    """Every flash forward launch since the counts were set to 0 went
+    through ``body`` ("wgmma" on the Llama-3-8B paths, "scalar" for f32);
+    a main path's counts go into the kernels line."""
+    from deepspeed_tpu_torch.ops.attention_cuda import flash_fwd
+
+    got = dict(flash_fwd.body_launches)
+    if record:
+        FLASH_BODIES[path] = got
+    if any(n for b, n in got.items() if b != body):
+        raise SystemExit(f"{path}: flash forward launches by body {got}, "
+                         f"expected only {body}")
+
+
 def phase_serving(kernels, card_line):
     from deepspeed_tpu_torch.models.llama import LlamaConfig, param_count
     from deepspeed_tpu_torch.weights import init_params
@@ -827,11 +952,11 @@ def phase_serving(kernels, card_line):
     for chunk in (0, 256):
         path = f"serving prefill_chunk={chunk}"
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
-            k["fn"].launches = 0
+        _zero(k["fn"] for k in kernels)
         out, leaks, m = serve(params, cfg, prompts, 32, prefill_chunk=chunk,
                               **opts)
         launches[path] = {k["name"]: k["fn"].launches for k in kernels}
+        _check_bodies(path, "wgmma")
         done = _valid(out, prompts, 32, cfg.vocab_size)
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[serving] prefill_chunk={chunk} prompts={lens} new=32: "
@@ -871,8 +996,7 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
     from deepspeed_tpu_torch.inference.serving import llama_serving_engine
 
     def zero():
-        for k in kernels:
-            k["fn"].launches = 0
+        _zero(k["fn"] for k in kernels)
 
     def counts():
         return {k["name"]: k["fn"].launches for k in kernels}
@@ -920,6 +1044,7 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
         zero()
         out, m = drive(eng, wave, TIER_NEW)
         launches[path] = counts()
+        _check_bodies(path, "wgmma")
         if w == "A":
             t = time.perf_counter()
             eng.step()           # idle step: the watermark sweep demotes
@@ -978,6 +1103,7 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
                           max_batch=8, page_size=16, max_seq=2048,
                           num_pages=1025, cache_dtype=torch.bfloat16)
     launches[path] = counts()
+    _check_bodies(path, "wgmma")
     done = _valid(out, v1_prompts, 32, cfg.vocab_size)
     log(f"[serving v1] prefill_chunk=0 kernels.paged_attention=pallas_v1 "
         f"phase 5 prompts: finished {len(out)}/8 all_valid {done} "
@@ -1009,8 +1135,7 @@ def phase_int8_serving(holder, cfg, prompts, bf16_outs, bf16_metrics,
     from deepspeed_tpu_torch.inference.serving import llama_serving_engine
 
     def zero():
-        for k in kernels:
-            k["fn"].launches = 0
+        _zero(k["fn"] for k in kernels)
 
     def counts():
         return {k["name"]: k["fn"].launches for k in kernels}
@@ -1028,6 +1153,7 @@ def phase_int8_serving(holder, cfg, prompts, bf16_outs, bf16_metrics,
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
     launches["int8 build"] = counts()
+    _check_bodies("int8 build", "wgmma")
     build_peak = torch.cuda.max_memory_allocated() / 1e9
     holder.clear()
     torch.cuda.empty_cache()
@@ -1059,6 +1185,7 @@ def phase_int8_serving(holder, cfg, prompts, bf16_outs, bf16_metrics,
         zero()
         out, m = drive(eng, prompts, 32)
         launches[path] = counts()
+        _check_bodies(path, "wgmma")
         leaks = eng.check_leaks()
         done = _valid(out, prompts, 32, cfg.vocab_size)
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1117,6 +1244,7 @@ def _int8_init_inference(qparams, cfg, prompts, first, zero, counts,
     ms = (time.perf_counter() - t0) * 1e3
     path = "int8 init_inference"
     used = counts()
+    _check_bodies(path, "wgmma")
     peak = torch.cuda.max_memory_allocated() / 1e9
     ok = (tuple(logits.shape) == (1, toks.shape[1], cfg.vocab_size)
           and bool(torch.isfinite(logits).all()))
@@ -1358,11 +1486,12 @@ def phase_train_identity(fns):
             ("kernel", cfg, fused_adam(lr=_warmup(), weight_decay=0.1)),
             ("plain", dataclasses.replace(cfg, attn_impl="reference"),
              plain_adam)):
-        for f in fns.values():
-            f.launches = 0
+        _zero(fns.values())
         eng, _, _, _ = initialize(loss_fn=loss_fn(c), params=params,
                                   config=conf, optimizer=opt)
         losses = [float(eng.train_batch(b)) for b in batches]
+        # f32 attention stays on the scalar body
+        _check_bodies(f"train identity {arm}", "scalar", record=False)
         arms[arm] = (losses, eng.module_params(),
                      {n: f.launches for n, f in fns.items()})
     (kl, kp, kn), (pl, pp, pn) = arms["kernel"], arms["plain"]
@@ -1433,8 +1562,7 @@ def phase_train(fns, card_line):
         np.int32)}
     tokens = 2 * 2047
     probe = eng.state.params["blocks"]["wq"][0, :64, :64].clone()
-    for f in fns.values():
-        f.launches = 0
+    _zero(fns.values())
     steps = []
     for i in range(4):
         torch.cuda.reset_peak_memory_stats()
@@ -1450,6 +1578,7 @@ def phase_train(fns, card_line):
             f"{ms:.1f} ms/step {steps[-1]['tokens_per_s']:.1f} tokens/s "
             f"peak_mem {steps[-1]['peak_mem_gb']:.1f} GB on {card_line}")
     launches = {n: f.launches for n, f in fns.items()}
+    _check_bodies("training", "wgmma")
     changed = not torch.equal(probe,
                               eng.state.params["blocks"]["wq"][0, :64, :64])
     want = {"flash_fwd": 32, "flash_bwd_dq": 32, "flash_bwd_dkv": 32,
@@ -1553,6 +1682,16 @@ def main() -> int:
         # after), and their sum
         row["launches_by_path"] = {p: n[name] for p, n in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if name == "flash_fwd":
+            # per body, on the main paths that ran it
+            row["launches_by_body"] = {
+                b: sum(c[b] for c in FLASH_BODIES.values())
+                for b in flash_fwd.body_launches}
+            row["launches_by_path_and_body"] = {
+                p: c for p, c in FLASH_BODIES.items() if any(c.values())}
+            row["device_ms"] = k["device_ms"]
+            row["library_device_ms"] = k["library_device_ms"]
+            row["training_shape"] = k["training_shape"]
         out.append(row)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

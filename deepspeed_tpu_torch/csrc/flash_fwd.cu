@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a): two bodies behind one entry.
 //
 // Replaces deepspeed_tpu/ops/attention_pallas.py::_fwd_kernel (the Pallas
 // TPU kernel behind flash_attention_tpu).  q [B, T, H, D] and k, v
@@ -9,19 +9,28 @@
 // int32 (null = none; they need T == S): a row sees only keys of its own
 // segment, and a tile whose every entry is masked adds nothing (p = 0).
 //
-// One block of 256 threads per (b*h, tile of 64 query rows) sweeps the key
-// tiles of 32 with an f32 online softmax (attention_tile.cuh).  Causal
-// blocks stop at the diagonal; ragged tails of T and S are masked in the
-// kernel, so any T works; rows that see no key give zeros.  p is cast
-// through v's dtype before P.V, as the TPU kernel does.
+// Bound on the H100: at the prefill and training shapes (T = 1k to 2k,
+// D = 128) the work is ~4 T^2 H D / 2 flops over ~(2 T H + 2 T KV) D bytes,
+// far above the 295 flop/byte ridge, so it is bound by operations, and only
+// the tensor cores reach the card's 989 TFLOP/s (bf16).
 //
-// Bound on the H100: at the prefill shapes (T ~ 1k, D = 128) the work is
-// ~4 T^2 H D / 2 flops over ~(2 T H + 2 T KV) D bytes, far above the 295
-// flop/byte ridge, so it is bound by operations.  This first version runs
-// the products on the f32 FMA units from shared memory (no tensor cores),
-// which leaves it well short of the 989 TFLOP/s bf16 peak; a wgmma/TMA
-// version is later work.
+// The caller picks the body by dtype and head dim (the `body` argument),
+// never by retrying:
+//  - the tensor-core body (flash_fwd_sm90.cuh) for bfloat16 with D 64 or
+//    128, the Llama paths (q, k, v 16-byte aligned, as TMA needs: the
+//    wrapper copies a view that is not): TMA loads of K/V tiles into a ring
+//    of shared-memory stages on mbarriers, a producer warpgroup and two
+//    consumer warpgroups running wgmma for both products, the online
+//    softmax on the accumulator fragment;
+//  - the scalar body below for everything else (float32, bf16 D 16 or 32:
+//    the tiny models and the f32 identity runs): one block of 256 threads
+//    per (b*h, 64 query rows) sweeps key tiles of 32 with an f32 online
+//    softmax (attention_tile.cuh) on the FMA units from shared memory.
+// Both stop a causal sweep at the diagonal, mask ragged tails of T and S in
+// the kernel (any T works), give zeros for a row that sees no key, and cast
+// p through v's dtype before P.V, as the TPU kernel does.
 #include "attention_tile.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace dstt {
 
@@ -119,15 +128,27 @@ cudaError_t dispatch_flash(const void* q, const void* k, const void* v, const in
 
 }  // namespace dstt
 
-// dtype: 0 = float32, 1 = bfloat16; seg: [B, T] int32 or null (needs T == S).
-// Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; seg: [B, T] int32 or null (needs T == S);
+// body: 0 = the scalar body, 1 = the tensor-core body (bfloat16, D 64 or
+// 128, q/k/v 16-byte aligned).  Returns the launch's cudaError_t.
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
                               void* o, void* lse, int B, int T, int S, int H, int KV, int D,
-                              float scale, int causal, int dtype, void* stream) {
+                              float scale, int causal, int dtype, int body, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (seg && T != S))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
+  if (body == 1) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v);
+    if (dtype != 1 || (addr & 15) != 0) return cudaErrorInvalidValue;
+    if (D == 64)
+      return dstt::sm90::launch<64>(q, k, v, sg, o, lse, B, T, S, H, KV, scale, causal, s);
+    if (D == 128)
+      return dstt::sm90::launch<128>(q, k, v, sg, o, lse, B, T, S, H, KV, scale, causal, s);
+    return cudaErrorInvalidValue;
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dstt::dispatch_flash<float>(q, k, v, sg, o, lse, B, T, S, H, KV, D, scale, causal, s);
   if (dtype == 1)

@@ -38,8 +38,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
-    # q, k, v, seg, o, lse, B, T, S, H, KV, D, scale, causal, dtype, stream
-    "dstt_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, seg, o, lse, B, T, S, H, KV, D, scale, causal, dtype, body,
+    # stream
+    "dstt_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _P],
     # q, k, v, do, lse, delta, seg, dq, B, T, S, H, KV, D, scale, causal,
     # dtype, stream
     "dstt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],

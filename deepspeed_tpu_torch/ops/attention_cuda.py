@@ -5,12 +5,20 @@ Replaces ``deepspeed_tpu/ops/attention_pallas.py::_fwd_kernel``,
 ``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel`` (with ``_flash_fwd_impl`` /
 ``_flash_bwd_impl`` / ``flash_attention_tpu``).  On the H100 the prefill and
 training shapes are bound by operations (~4·T²·H·D/2 flops forward, ~2.5x
-that backward, over O(T·H·D) bytes); these first kernels keep the softmax
-and every product in f32 on the FMA units from shared memory, read q/k/v
-in their model layout, map query head h to kv head h // (H/KV) without
-repeating K/V, skip key tiles above the diagonal and mask ragged tails and
-packed segments themselves.  Tensor cores (wgmma) and TMA staging are later
-work.
+that backward, over O(T·H·D) bytes), which only the tensor cores deliver at
+the card's rate.  Every kernel reads q/k/v in their model layout, maps query
+head h to kv head h // (H/KV) without repeating K/V, skips key tiles above
+the diagonal and masks ragged tails and packed segments itself.
+
+The forward has two bodies, picked by :func:`flash_fwd_body` before the
+launch: for bfloat16 with head_dim 64 or 128 (the Llama paths) the
+tensor-core body (``csrc/flash_fwd_sm90.cuh``: TMA-fed K/V stages on
+mbarriers, a producer warp, two consumer warpgroups running ``wgmma`` for
+Q·Kᵀ and P·V, the online softmax on the accumulator fragment); for float32
+and bf16 head_dim 16 or 32 the scalar body (f32 FMA from shared memory).
+:func:`flash_fwd_tiled_reference` walks the tensor-core body's tiles in
+plain PyTorch.  The backward kernels still run on the FMA units; their
+tensor-core version is later work.
 """
 
 from __future__ import annotations
@@ -22,6 +30,12 @@ import torch
 from deepspeed_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+# head dims of the tensor-core forward body (bfloat16 only)
+WGMMA_HEAD_DIMS = (64, 128)
+# its tiles: query rows per block, keys per stage
+WGMMA_BLOCK_Q = 128
+WGMMA_BLOCK_K = 128
 
 
 def _live_mask(B, T, S, causal, seg, device):
@@ -57,6 +71,78 @@ def flash_fwd_reference(q, k, v, causal: bool = True, seg=None):
     pv = torch.einsum("bhts,bshd->bhtd", p.to(v.dtype).float(), vf.float())
     o = torch.where(lsum == 0, 0.0, pv / lsum)
     lse = (m + torch.log(torch.where(lsum == 0, 1.0, lsum)))[..., 0]
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_fwd_tiled_reference(q, k, v, causal: bool = True, seg=None,
+                              block_q: int = WGMMA_BLOCK_Q,
+                              block_k: int = WGMMA_BLOCK_K):
+    """Plain walk of the tensor-core body's tiles -> (o, lse), in its order
+    and with its arithmetic: query blocks of ``block_q`` rows, key tiles of
+    ``block_k`` ascending; a causal block stops at its last row; keys past S
+    read as zeros (the TMA fill) and are masked; with segment ids a tile
+    whose keys' ids all lie outside the range of the block's rows' ids is
+    skipped (it would add nothing); the element mask (-inf) only on a tile
+    that crosses the diagonal or S, or whose rows and keys do not all share
+    one segment id; unscaled f32 scores, the scale folded into exp2; a row
+    with no live key yet keeps m = -inf and p = 0; per-tile rescale of l and
+    the accumulator; p rounded to v's dtype before P·V; natural-log lse.
+    Not on any main path: the CPU tests hold it to the JAX kernel."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scale = torch.tensor(1.0 / math.sqrt(D), **f32)
+    scale_log2 = scale * torch.tensor(LOG2E, **f32)
+    s_pad = -(-S // block_k) * block_k
+    qf = q.float().transpose(1, 2)                       # [B, H, T, D]
+    kf = torch.zeros((B, H, s_pad, D), **f32)
+    vf = torch.zeros((B, H, s_pad, D), **f32)
+    kf[:, :, :S] = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf[:, :, :S] = v.repeat_interleave(G, dim=2).transpose(1, 2).float()
+    o = torch.empty((B, H, T, D), **f32)
+    lse = torch.empty((B, H, T), **f32)
+    cols_all = torch.arange(s_pad, device=q.device)
+    for q0 in range(0, T, block_q):
+        rows = torch.arange(q0, min(q0 + block_q, T), device=q.device)
+        m = torch.full((B, H, len(rows)), float("-inf"), **f32)
+        l = torch.zeros((B, H, len(rows)), **f32)
+        acc = torch.zeros((B, H, len(rows), D), **f32)
+        kv_end = min(S, q0 + block_q) if causal else S
+        for n0 in range(0, kv_end, block_k):
+            cols = cols_all[n0:n0 + block_k]
+            one_id = False
+            if seg is not None:
+                qs, ks = seg[:, rows], seg[:, n0:min(n0 + block_k, S)]
+                if ks.max() < qs.min() or ks.min() > qs.max():
+                    continue
+                one_id = bool((qs == ks[:, :1]).all()
+                              and (ks == ks[:, :1]).all())
+            s = torch.einsum("bhtd,bhsd->bhts", qf[:, :, rows],
+                             kf[:, :, n0:n0 + block_k])
+            if n0 + block_k > S or (causal and n0 + block_k - 1 > q0) \
+                    or (seg is not None and not one_id):
+                dead = (cols >= S)[None, None, None, :]
+                if causal:
+                    dead = dead | (cols[None, :] > rows[:, None])
+                if seg is not None:
+                    kseg = seg[:, cols.clamp(max=S - 1)]
+                    dead = dead | (seg[:, rows, None] != kseg[:, None, :])[
+                        :, None]
+                s = s.masked_fill(dead, float("-inf"))
+            mx = torch.maximum(m, s.amax(-1))
+            ms = torch.where(mx == float("-inf"), 0.0, mx * scale_log2)
+            alpha = torch.exp2(m * scale_log2 - ms)
+            p = torch.exp2(s * scale_log2 - ms[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhts,bhsd->bhtd", p.to(v.dtype).float(),
+                vf[:, :, n0:n0 + block_k])
+            m = mx
+        o[:, :, rows] = torch.where(l[..., None] == 0, 0.0,
+                                    acc / l[..., None])
+        lse[:, :, rows] = torch.where(l == 0, NEG_INF,
+                                      m * scale + torch.log(l))
     return o.transpose(1, 2).to(q.dtype), lse
 
 
@@ -130,26 +216,45 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def flash_fwd_body(q) -> str:
+    """The body of ``csrc/flash_fwd.cu`` that a CUDA call on ``q`` launches:
+    ``"wgmma"`` (tensor cores, TMA) for bfloat16 with head_dim 64 or 128,
+    ``"scalar"`` otherwise."""
+    return ("wgmma" if q.dtype == torch.bfloat16
+            and q.shape[-1] in WGMMA_HEAD_DIMS else "scalar")
+
+
 def flash_fwd(q, k, v, causal: bool = True, seg=None):
     """Flash attention forward: q [B,T,H,D], k/v [B,S,KV,D] (contiguous,
     float32 or bfloat16, D in 16/32/64/128), optional packed segment ids
     seg [B,T] int32 (T == S) -> (o, lse [B,H,T] f32).  CPU tensors take
-    :func:`flash_fwd_reference`; CUDA tensors launch the kernel or raise."""
+    :func:`flash_fwd_reference`; CUDA tensors launch the body that
+    :func:`flash_fwd_body` names, or raise.  ``flash_fwd.launches`` counts
+    every launch, ``flash_fwd.body_launches`` each body's."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal, seg)
     B, T, S, H, KV, D = _check("flash_fwd", q, k, v, seg)
+    body = flash_fwd_body(q)
+    if body == "wgmma":
+        # TMA needs 16-byte aligned bases; a view that starts off that
+        # (no caller makes one) is copied into a fresh allocation
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     err = _build.lib().dstt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), o.data_ptr(),
         lse.data_ptr(), B, T, S, H, KV, D, 1.0 / math.sqrt(D), int(causal),
-        _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+        _build.DTYPE_CODES[q.dtype], int(body == "wgmma"),
+        _build.stream_of(q))
     _build.check("dstt_flash_fwd", err)
     flash_fwd.launches += 1
+    flash_fwd.body_launches[body] += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.body_launches = {"wgmma": 0, "scalar": 0}
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, seg=None, causal: bool = True):

@@ -31,31 +31,86 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
-@pytest.mark.parametrize("T,S,G,causal", [
-    (1, 1, 1, True), (37, 37, 4, True), (130, 130, 2, False),
-    (64, 200, 1, False), (200, 64, 8, True)])
-def test_flash_fwd_matches_plain(gen, dtype, D, T, S, G, causal):
-    from deepspeed_tpu_torch.ops.attention_cuda import (flash_fwd,
-                                                        flash_fwd_reference)
-
-    q = _randn(gen, (2, T, 2 * G, D), dtype)
-    k = _randn(gen, (2, S, 2, D), dtype)
-    v = _randn(gen, (2, S, 2, D), dtype)
-    o, lse = flash_fwd(q, k, v, causal=causal)
-    ro, rlse = flash_fwd_reference(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
-    assert (lse - rlse).abs().max().item() <= 1e-3
-
-
 def _segments(B, T):
     seg = torch.ones((B, T), dtype=torch.int32, device="cuda")
     for b in range(B):
         seg[b, T // 3 + b:] = 2
         seg[b, (2 * T) // 3:] = 3
     return seg
+
+
+# (dtype, D, T, S, G, causal, with_seg): every dtype and head dim on a few
+# ragged shapes; then the tensor-core body's grid (bf16, D 64 and 128): T
+# around its 64-row warpgroups and 128-key tiles, GQA groups 1, 4 and 8,
+# causal or not, packed segments (at T = 300 a whole key tile lies outside
+# the last segment's rows), T != S both ways, and the training shape T = 2047
+FLASH_FWD_CASES = [
+    (dtype, D, T, S, G, causal, False)
+    for dtype in (torch.float32, torch.bfloat16) for D in (16, 32, 64, 128)
+    for T, S, G, causal in ((1, 1, 1, True), (37, 37, 4, True),
+                            (130, 130, 2, False), (64, 200, 1, False),
+                            (200, 64, 8, True))
+] + [
+    (torch.bfloat16, D, T, T, G, causal, with_seg)
+    for D in (64, 128) for T in (1, 63, 64, 65, 127, 129, 300)
+    for G in (1, 4, 8) for causal in (True, False) for with_seg in (False, True)
+] + [
+    (torch.bfloat16, D, T, S, G, causal, with_seg)
+    for D in (64, 128)
+    for T, S, G, causal, with_seg in ((100, 300, 4, False, False),
+                                      (300, 100, 4, False, False),
+                                      (2047, 2047, 4, True, False),
+                                      (2047, 2047, 4, True, True))
+]
+
+
+@pytest.mark.parametrize("dtype,D,T,S,G,causal,with_seg", FLASH_FWD_CASES)
+def test_flash_fwd_matches_plain(gen, dtype, D, T, S, G, causal, with_seg):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_fwd, flash_fwd_reference, flash_fwd_tiled_reference)
+
+    q = _randn(gen, (2, T, 2 * G, D), dtype)
+    k = _randn(gen, (2, S, 2, D), dtype)
+    v = _randn(gen, (2, S, 2, D), dtype)
+    seg = _segments(2, T) if with_seg else None
+    o, lse = flash_fwd(q, k, v, causal=causal, seg=seg)
+    ro, rlse = flash_fwd_reference(q, k, v, causal=causal, seg=seg)
+    to, tlse = flash_fwd_tiled_reference(q, k, v, causal=causal, seg=seg)
+    torch.cuda.synchronize()
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    assert (o.float() - to.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - tlse).abs().max().item() <= 1e-3
+
+
+def test_flash_fwd_counts_launches_per_body(gen):
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_fwd,
+                                                        flash_fwd_reference)
+
+    def launch(dtype, D, misalign=False):
+        shape = (1, 70, 4, D)
+        n = 70 * 4 * D
+        if misalign:          # contiguous, but 2 bytes off TMA's alignment
+            buf = _randn(gen, (3 * n + 1,), dtype)
+            q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(shape)
+                       for i in range(3))
+        else:
+            q, k, v = (_randn(gen, shape, dtype) for _ in range(3))
+        before = (flash_fwd.launches, dict(flash_fwd.body_launches))
+        o, _ = flash_fwd(q, k, v)
+        ro, _ = flash_fwd_reference(q, k, v)
+        torch.cuda.synchronize()
+        assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+        assert flash_fwd.launches == before[0] + 1
+        return {b: n - before[1][b] for b, n in flash_fwd.body_launches.items()}
+
+    assert launch(torch.bfloat16, 128) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.bfloat16, 64) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.float32, 128) == {"wgmma": 0, "scalar": 1}
+    assert launch(torch.bfloat16, 32) == {"wgmma": 0, "scalar": 1}
+    # a view off TMA's alignment is copied and keeps the tensor-core body
+    assert launch(torch.bfloat16, 128, misalign=True) == {"wgmma": 1,
+                                                          "scalar": 0}
 
 
 def _rel_err(got, want):
