@@ -32,20 +32,25 @@ and runs, in order:
 14. Llama-3-8B at full width with int8 weights (``weight_dtype="int8"``,
    built from phase 5's weights, which are then freed), phase 5's traffic,
    then one ``init_inference(dtype="int8")`` forward over the int8 tree;
-6. the training kernels (flash backward dQ and dK/dV, fused Adam) against
-   their plain versions at the training shapes;
+6. the training kernels (flash backward dQ and dK/dV on their tensor-core
+   body, fused Adam) against their plain versions at the training shapes,
+   the backward at T = 2047 causal and with 3 packed segments, timed on the
+   device clock and with events beside the O.dO reduction and SDPA's
+   backward;
 7. five train steps of ``initialize(...).train_batch`` on a tiny f32 Llama
    with the kernel arms against the plain arms: the same losses and params;
 8. the training main path at full width: Llama-3-8B widths cut to 4 layers
-   (one card's memory), f32 master, bf16 compute, fused Adam, 4 steps.
+   (one card's memory), f32 master, bf16 compute, fused Adam, 4 steps; all
+   32 + 32 backward launches on the tensor-core body, and a profiled step
+   that lists the LM-head products and the flash kernels.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
 int8 serving runs and the ``init_inference`` forward of phase 14, and the
 training run) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
-after), and the flash forward's launches per body: every Llama-3-8B path
-must run only its tensor-core body, the f32 runs only its scalar one.
+after), and the flash kernels' launches per body: every Llama-3-8B path
+must run only their tensor-core bodies, the f32 runs only the scalar ones.
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
@@ -105,7 +110,7 @@ TIER_KV = {"quantize_cold": True, "quantized_resident": True,
            "demote_watermark": 0.0}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# main path -> the flash forward's launches per body (tensor-core "wgmma",
+# flash kernel -> main path -> its launches per body (tensor-core "wgmma",
 # "scalar"), read just after the path as its other counts are
 FLASH_BODIES = {}
 
@@ -129,21 +134,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call of ``fn``: the device time of every kernel it
-    ran under ``torch.profiler``, without the host's launch cost that
-    back-to-back event timing includes when the host is the slower side."""
+def device_ms(fn, iters: int = 20) -> Optional[float]:
+    """Device time per call of ``fn`` under ``torch.profiler``, without the
+    host's launch cost that back-to-back event timing includes when the host
+    is the slower side: each kernel's mean time per recorded launch, times
+    its launches per call (its records over ``iters``, rounded up).  The
+    profiler can drop some of a window's records, and a plain sum over them
+    reads low (it read 0 once); a trace that holds none is taken again, up
+    to three times; None if none held any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total
-               for e in _device_events(prof)) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total / e.count * -(-e.count // iters)
+                    for e in _device_events(prof) if e.count)
+        if total > 0:
+            return total / 1e3
+    return None
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -207,7 +220,7 @@ def phase_flash(gen):
     log(f"[flash] B={B} T={T} H={H} KV={KV} D={D} bf16: max_abs_err "
         f"{err:.3e} (tol {FLASH_TOL}) lse_err {lse_err:.3e} (tol 1e-3); "
         f"T=300 max_abs_err {err300:.3e} (tol {FLASH_TOL}); kernel {ms:.5f} "
-        f"ms (device {dev_ms:.5f}) plain {plain_ms:.4f} ms sdpa {library_ms} "
+        f"ms (device {dev_ms}) plain {plain_ms:.4f} ms sdpa {library_ms} "
         f"ms (device {library_dev}) bound {b_ms:.5f} ms ({b_by})")
     ok = err <= FLASH_TOL and err300 <= FLASH_TOL and lse_err <= 1e-3
     del o, ro, lse, rlse, o300, r300, q, k, v, qr, kr, vr
@@ -239,7 +252,7 @@ def phase_flash(gen):
                                     sum(n * (n + 1) // 2 for n in lens))
         log(f"[flash] B={B} T={T2} H={H} KV={KV} D={D} bf16 {label}: "
             f"max_abs_err {e:.3e} (tol {FLASH_TOL}) lse_err {le:.3e} (tol "
-            f"1e-3); kernel {t_ms:.5f} ms (device {t_dev:.5f}) plain "
+            f"1e-3); kernel {t_ms:.5f} ms (device {t_dev}) plain "
             f"{t_plain:.4f} ms sdpa {t_lib} ms (device {t_lib_dev}; o vs "
             f"plain {lib_err}) bound {tb_ms:.5f} ms ({tb_by})")
         ok = ok and e <= FLASH_TOL and le <= 1e-3
@@ -263,6 +276,17 @@ def phase_flash(gen):
             "library_device_ms": library_dev, "training_shape": train}
 
 
+def _sdpa_mask(seg):
+    """SDPA's causal keywords: ``is_causal`` without segment ids, else the
+    segments' boolean block-diagonal causal mask [B, 1, T, T]."""
+    if seg is None:
+        return {"is_causal": True}
+    T = seg.shape[1]
+    causal = torch.ones((T, T), dtype=torch.bool, device=seg.device).tril()
+    return {"attn_mask": (seg[:, None, :, None] == seg[:, None, None, :])
+            & causal}
+
+
 def _sdpa(q, k, v, seg=None):
     """One PyTorch call computing the same causal GQA attention (with
     packed segment ids, under their block-diagonal causal mask, built here
@@ -272,13 +296,7 @@ def _sdpa(q, k, v, seg=None):
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if seg is None:
-        kw = {"is_causal": True}
-    else:
-        T = q.shape[1]
-        causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-        kw = {"attn_mask": (seg[:, None, :, None] == seg[:, None, None, :])
-              & causal}
+    kw = _sdpa_mask(seg)
 
     def call():
         return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
@@ -908,7 +926,7 @@ def _check_launches(path, counts, want):
 
 
 def _zero(fns):
-    """Sets every wrapper's launch count, and the flash forward's count per
+    """Sets every wrapper's launch count, and each flash kernel's count per
     body, to 0."""
     for f in fns:
         f.launches = 0
@@ -917,17 +935,20 @@ def _zero(fns):
 
 
 def _check_bodies(path, body, record=True):
-    """Every flash forward launch since the counts were set to 0 went
-    through ``body`` ("wgmma" on the Llama-3-8B paths, "scalar" for f32);
-    a main path's counts go into the kernels line."""
-    from deepspeed_tpu_torch.ops.attention_cuda import flash_fwd
+    """Every flash forward and backward launch since the counts were set to
+    0 went through ``body`` ("wgmma" on the Llama-3-8B paths, "scalar" for
+    f32); a main path's counts go into the kernels line."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
+                                                        flash_bwd_dq,
+                                                        flash_fwd)
 
-    got = dict(flash_fwd.body_launches)
-    if record:
-        FLASH_BODIES[path] = got
-    if any(n for b, n in got.items() if b != body):
-        raise SystemExit(f"{path}: flash forward launches by body {got}, "
-                         f"expected only {body}")
+    for f in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+        got = dict(f.body_launches)
+        if record:
+            FLASH_BODIES.setdefault(f.__name__, {})[path] = got
+        if any(n for b, n in got.items() if b != body):
+            raise SystemExit(f"{path}: {f.__name__} launches by body {got}, "
+                             f"expected only {body}")
 
 
 def phase_serving(kernels, card_line):
@@ -1279,27 +1300,35 @@ def _rel(got, want):
             / want.float().abs().max()).item()
 
 
-def _sdpa_bwd_ms(q, k, v, do):
-    """SDPA's backward (dq, dk, dv together) on the same causal GQA inputs,
-    timed as a yardstick only (the port never calls it)."""
+def _sdpa_bwd(q, k, v, do, seg=None):
+    """SDPA's backward (dq, dk, dv together, with its own O.dO pass) on the
+    same causal GQA inputs (with packed segment ids, under their boolean
+    block-diagonal causal mask), as a function of no arguments, or None on a
+    PyTorch without ``enable_gqa``.  A yardstick only: the port never calls
+    it."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     try:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **_sdpa_mask(seg))
     except TypeError:                   # a PyTorch without enable_gqa
         return None
     dot = do.transpose(1, 2)
-    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                               retain_graph=True), iters=10)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def phase_backward(gen):
+    """B2 and B3 against their plain version at the training shape (T =
+    2047, causal, and with 3 packed segments), on the tensor-core body,
+    each timed on the device clock and with events beside ``flash_delta``
+    (the plain O.dO reduction the backward starts with) and SDPA's backward
+    (under the segments' mask where there are segments)."""
     from deepspeed_tpu_torch.ops.attention_cuda import (
-        flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference, flash_delta,
-        flash_fwd, flash_fwd_reference)
+        flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        flash_delta, flash_fwd, flash_fwd_reference)
 
     B, T, H, KV, D = 1, 2047, 32, 8, 128
     dt = torch.bfloat16
@@ -1307,7 +1336,11 @@ def phase_backward(gen):
     k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
     do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
-    rows, errs = {}, {}
+    body = flash_bwd_body(q)
+    if body != "wgmma":
+        raise SystemExit("phase 6: the training shape does not take the "
+                         "tensor-core body")
+    shapes, errs = {}, {}
     for label, nseg in (("causal", 0), ("causal + 3 segments", 3)):
         seg, lens = _segments(T, nseg) if nseg else (None, [T])
         o, lse = flash_fwd(q, k, v, seg=seg)
@@ -1323,13 +1356,23 @@ def phase_backward(gen):
             err[name] = (g.float() - w.float()).abs().max().item()
             err[name + "_rel"] = _rel(g, w)
         errs[label] = err
-        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, seg),
-                        iters=10)
-        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, seg),
-                         iters=10)
-        plain = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, seg),
-                        iters=3, warmup=1)
-        library = _sdpa_bwd_ms(q, k, v, do) if not nseg else None
+        del dq, dk, dv, want, ro, rlse
+        fn_dq = functools.partial(flash_bwd_dq, q, k, v, do, lse, delta, seg)
+        fn_dkv = functools.partial(flash_bwd_dkv, q, k, v, do, lse, delta,
+                                   seg)
+        fn_delta = functools.partial(flash_delta, o, do)
+        t = {"dq": time_ms(fn_dq, iters=10), "dkv": time_ms(fn_dkv, iters=10),
+             "delta": time_ms(fn_delta, iters=10),
+             "dq_device": device_ms(fn_dq, iters=10),
+             "dkv_device": device_ms(fn_dkv, iters=10),
+             "delta_device": device_ms(fn_delta, iters=10)}
+        t["plain"] = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do,
+                                                         seg),
+                             iters=3, warmup=1)
+        sdpa = _sdpa_bwd(q, k, v, do, seg)
+        t["library"] = sdpa and time_ms(sdpa, iters=10)
+        t["library_device"] = sdpa and device_ms(sdpa, iters=10)
+        del sdpa
         # live (query, key) pairs of this data: causal within each segment
         pairs = sum(n * (n + 1) // 2 for n in lens)
         io = 2 * (2 * B * T * H * D + 2 * B * T * KV * D)   # q, do, k, v
@@ -1337,27 +1380,23 @@ def phase_backward(gen):
                      6 * D * pairs * H * B, BF16_FLOPS_PER_S)
         b_dkv = bound(io + 2 * 2 * B * T * KV * D + 8 * B * H * T,
                       8 * D * pairs * H * B, BF16_FLOPS_PER_S)
-        log(f"[flash bwd] B={B} T={T} H={H} KV={KV} D={D} bf16 {label}: "
-            f"o err {err['o']:.3e} lse err {err['lse']:.3e}; dq err "
-            f"{err['dq']:.3e} (rel {err['dq_rel']:.3e}) dk err {err['dk']:.3e}"
-            f" (rel {err['dk_rel']:.3e}) dv err {err['dv']:.3e} (rel "
-            f"{err['dv_rel']:.3e}) (rel tol {FLASH_BWD_REL_TOL}); dq kernel "
-            f"{ms_dq:.4f} ms bound {b_dq[0]:.4f} ms ({b_dq[1]}); dkv kernel "
-            f"{ms_dkv:.4f} ms bound {b_dkv[0]:.4f} ms ({b_dkv[1]}); plain "
-            f"bwd {plain:.4f} ms; sdpa bwd {library} ms")
-        if not nseg:
-            common = {"plain_ms": plain, "library_ms": library}
-            rows["flash_bwd_dq"] = dict(
-                common, name="flash_bwd_dq",
-                source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
-                replaces="deepspeed_tpu/ops/attention_pallas.py:97",
-                ms=ms_dq, bound_ms=b_dq[0], bound_by=b_dq[1])
-            rows["flash_bwd_dkv"] = dict(
-                common, name="flash_bwd_dkv",
-                source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
-                replaces="deepspeed_tpu/ops/attention_pallas.py:145",
-                ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1])
-        del o, ro, lse, rlse, delta, dq, dk, dv, want
+        ours = (None if None in (t["dq_device"], t["dkv_device"],
+                                 t["delta_device"])
+                else t["dq_device"] + t["dkv_device"] + t["delta_device"])
+        log(f"[flash bwd] B={B} T={T} H={H} KV={KV} D={D} bf16 {label}, "
+            f"body {body}: o err {err['o']:.3e} lse err {err['lse']:.3e}; dq "
+            f"err {err['dq']:.3e} (rel {err['dq_rel']:.3e}) dk err "
+            f"{err['dk']:.3e} (rel {err['dk_rel']:.3e}) dv err {err['dv']:.3e}"
+            f" (rel {err['dv_rel']:.3e}) (rel tol {FLASH_BWD_REL_TOL}); dq "
+            f"kernel {t['dq']:.5f} ms (device {t['dq_device']}) bound "
+            f"{b_dq[0]:.5f} ms ({b_dq[1]}); dkv kernel {t['dkv']:.5f} ms "
+            f"(device {t['dkv_device']}) bound {b_dkv[0]:.5f} ms "
+            f"({b_dkv[1]}); delta {t['delta']:.5f} ms (device "
+            f"{t['delta_device']}); dq + dkv + delta device {ours} "
+            f"ms; plain bwd {t['plain']:.4f} ms; sdpa bwd {t['library']} ms "
+            f"(device {t['library_device']})")
+        shapes[label] = dict(t, bound_dq=b_dq, bound_dkv=b_dkv)
+        del o, lse, delta, fn_dq, fn_dkv, fn_delta
         torch.cuda.empty_cache()
     worst = {n: max(e[n + "_rel"] for e in errs.values())
              for n in ("dq", "dk", "dv")}
@@ -1365,9 +1404,24 @@ def phase_backward(gen):
                  for e in errs.values())
     if not fwd_ok or max(worst.values()) > FLASH_BWD_REL_TOL:
         raise SystemExit("flash backward disagrees with its plain version")
-    rows["flash_bwd_dq"]["max_abs_err"] = max(e["dq"] for e in errs.values())
-    rows["flash_bwd_dkv"]["max_abs_err"] = max(
-        max(e["dk"], e["dv"]) for e in errs.values())
+    rows = {}
+    for name, key, line, grads in (("flash_bwd_dq", "dq", 97, ("dq",)),
+                                   ("flash_bwd_dkv", "dkv", 145,
+                                    ("dk", "dv"))):
+        per = {label: {
+            "ms": r[key], "device_ms": r[key + "_device"],
+            "delta_ms": r["delta"], "delta_device_ms": r["delta_device"],
+            "plain_ms": r["plain"], "library_ms": r["library"],
+            "library_device_ms": r["library_device"],
+            "bound_ms": r["bound_" + key][0], "bound_by": r["bound_" + key][1],
+            "max_abs_err": max(errs[label][n] for n in grads),
+            "rel_err": max(errs[label][n + "_rel"] for n in grads)}
+            for label, r in shapes.items()}
+        rows[name] = dict(
+            per["causal"], name=name, body=body, training_shape=per,
+            source="deepspeed_tpu_torch/csrc/flash_bwd_sm90.cuh",
+            replaces=f"deepspeed_tpu/ops/attention_pallas.py:{line}",
+            max_abs_err=max(r["max_abs_err"] for r in per.values()))
     return rows
 
 
@@ -1579,6 +1633,11 @@ def phase_train(fns, card_line):
             f"peak_mem {steps[-1]['peak_mem_gb']:.1f} GB on {card_line}")
     launches = {n: f.launches for n, f in fns.items()}
     _check_bodies("training", "wgmma")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if fns[name].body_launches != {"wgmma": 32, "scalar": 0}:
+            raise SystemExit(f"training: {name} launches by body "
+                             f"{fns[name].body_launches}, expected all 32 on "
+                             f"the tensor-core body")
     changed = not torch.equal(probe,
                               eng.state.params["blocks"]["wq"][0, :64, :64])
     want = {"flash_fwd": 32, "flash_bwd_dq": 32, "flash_bwd_dkv": 32,
@@ -1588,8 +1647,8 @@ def phase_train(fns, card_line):
     # one more step under the profiler: device busy time over the step
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         torch.cuda.synchronize()
         ts = time.perf_counter()
         float(eng.train_batch(batch))
@@ -1601,6 +1660,17 @@ def phase_train(fns, card_line):
         f"{busy} ms, device idle share {idle}; top device time: " + "; ".join(
             f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
             for e in top[:10]))
+    # the LM-head products (the matrix products over the vocabulary) with
+    # their operand shapes, and the flash kernels, by name
+    head = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key == "aten::mm" and cfg.vocab_size in sum(
+                (list(x) for x in e.input_shapes if x), [])]
+    log("[train] LM-head products: " + "; ".join(
+        f"aten::mm {e.input_shapes} x{e.count} "
+        f"{e.device_time_total / 1e3:.2f} ms" for e in head))
+    log("[train] flash kernels: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+        for e in top if "flash_" in e.key))
     ok = (all(np.isfinite(s["loss"]) for s in steps) and changed
           and all(launches[n] > 0 for n in want)
           and all(launches[n] == 0 for n in (
@@ -1682,16 +1752,16 @@ def main() -> int:
         # after), and their sum
         row["launches_by_path"] = {p: n[name] for p, n in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-        if name == "flash_fwd":
+        if name in FLASH_BODIES:
             # per body, on the main paths that ran it
+            paths = FLASH_BODIES[name]
             row["launches_by_body"] = {
-                b: sum(c[b] for c in FLASH_BODIES.values())
-                for b in flash_fwd.body_launches}
+                b: sum(c[b] for c in paths.values())
+                for b in fns[name].body_launches}
             row["launches_by_path_and_body"] = {
-                p: c for p, c in FLASH_BODIES.items() if any(c.values())}
-            row["device_ms"] = k["device_ms"]
-            row["library_device_ms"] = k["library_device_ms"]
-            row["training_shape"] = k["training_shape"]
+                p: c for p, c in paths.items() if any(c.values())}
+            for key in ("device_ms", "library_device_ms", "training_shape"):
+                row[key] = k[key]
         out.append(row)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

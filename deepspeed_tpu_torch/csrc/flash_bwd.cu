@@ -1,4 +1,5 @@
-// Flash attention backward for Hopper (sm_90a): dQ and dK/dV.
+// Flash attention backward for Hopper (sm_90a): dQ and dK/dV, two bodies
+// behind each entry.
 //
 // Replaces deepspeed_tpu/ops/attention_pallas.py::_bwd_dq_kernel and
 // ::_bwd_dkv_kernel (the Pallas TPU kernels behind the custom VJP of
@@ -10,6 +11,19 @@
 // reduction, outside any Pallas kernel in the JAX package too).  q and dO
 // are [B, T, H, D], k and v [B, S, KV, D], all in their model layout; query
 // head h reads kv head h / (H / KV), so K/V are never repeated in memory.
+//
+// Bound on the H100: at the training shapes (T ~ 2k, D = 128) the work is
+// ~5 products of 2 T^2 H D / 2 flops over O(T H D) bytes, far above the
+// 295 flop/byte ridge, so it is bound by operations, and only the tensor
+// cores reach the card's 989 TFLOP/s (bf16).
+//
+// The caller picks the body by dtype and head dim (the `body` argument),
+// never by retrying:
+//  - the tensor-core bodies (flash_bwd_sm90.cuh) for bfloat16 with D 64 or
+//    128, the Llama paths (q, k, v, dO 16-byte aligned, as TMA needs: the
+//    wrapper copies a view that is not);
+//  - the scalar bodies below for everything else (float32, bf16 D 16 or 32),
+//    every product on the f32 FMA units from shared memory:
 //
 // flash_bwd_dq: one block of 256 threads per (b*h, tile of 64 query rows)
 // sweeps the key tiles of 32 up to the causal frontier, with q, dO, lse and
@@ -24,13 +38,8 @@
 // so the GQA head-sum happens in the block's registers, in a fixed order,
 // with no atomics: the counterpart of the Pallas grid's inner (G * nq)
 // sweep.
-//
-// Bound on the H100: at the training shapes (T ~ 2k, D = 128) the work is
-// ~5 products of 2 T^2 H D / 2 flops over O(T H D) bytes, far above the
-// 295 flop/byte ridge, so it is bound by operations.  This first version
-// runs every product on the f32 FMA units from shared memory (no tensor
-// cores); a wgmma/TMA version is later work.
 #include "attention_tile.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace dstt {
 
@@ -381,12 +390,32 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int D, cudaStream_t s) {
   }
 }
 
+template <bool DKV, int D>
+cudaError_t launch_sm90(const BwdArgs& a, cudaStream_t s) {
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  if (DKV)
+    return sm90::launch_bwd_dkv<D>(a.q, a.k, a.v, a.dout, lse, delta, a.seg, a.dk, a.dv, a.B,
+                                   a.T, a.S, a.H, a.KV, a.scale, a.causal, s);
+  return sm90::launch_bwd_dq<D>(a.q, a.k, a.v, a.dout, lse, delta, a.seg, a.dq, a.B, a.T, a.S,
+                                a.H, a.KV, a.scale, a.causal, s);
+}
+
 template <bool DKV>
-int run_bwd(const BwdArgs& a, int D, int dtype, void* stream) {
+int run_bwd(const BwdArgs& a, int D, int dtype, int body, void* stream) {
   if (a.B <= 0 || a.T <= 0 || a.S <= 0 || a.KV <= 0 || a.H % a.KV != 0 ||
       (a.seg && a.T != a.S))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                           reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout);
+    if (dtype != 1 || (addr & 15) != 0) return cudaErrorInvalidValue;
+    if (D == 64) return launch_sm90<DKV, 64>(a, s);
+    if (D == 128) return launch_sm90<DKV, 128>(a, s);
+    return cudaErrorInvalidValue;
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch_bwd<DKV, float>(a, D, s);
   if (dtype == 1) return dispatch_bwd<DKV, __nv_bfloat16>(a, D, s);
   return cudaErrorInvalidValue;
@@ -395,22 +424,24 @@ int run_bwd(const BwdArgs& a, int D, int dtype, void* stream) {
 }  // namespace dstt
 
 // dtype: 0 = float32, 1 = bfloat16; lse, delta: [B, H, T] f32; seg: [B, T]
-// int32 or null (needs T == S).  Each returns the launch's cudaError_t.
+// int32 or null (needs T == S); body: 0 = the scalar body, 1 = the
+// tensor-core body (bfloat16, D 64 or 128, q/k/v/dout 16-byte aligned).
+// Each returns the launch's cudaError_t.
 extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, const void* seg, void* dq,
                                  int B, int T, int S, int H, int KV, int D, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 int causal, int dtype, int body, void* stream) {
   const dstt::BwdArgs a{q, k, v, dout, lse, delta, static_cast<const int*>(seg), dq,
                         nullptr, nullptr, B, T, S, H, KV, scale, causal};
-  return dstt::run_bwd<false>(a, D, dtype, stream);
+  return dstt::run_bwd<false>(a, D, dtype, body, stream);
 }
 
 extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   const void* seg, void* dk, void* dv, int B, int T, int S,
                                   int H, int KV, int D, float scale, int causal, int dtype,
-                                  void* stream) {
+                                  int body, void* stream) {
   const dstt::BwdArgs a{q, k, v, dout, lse, delta, static_cast<const int*>(seg), nullptr,
                         dk, dv, B, T, S, H, KV, scale, causal};
-  return dstt::run_bwd<true>(a, D, dtype, stream);
+  return dstt::run_bwd<true>(a, D, dtype, body, stream);
 }

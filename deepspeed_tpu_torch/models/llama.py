@@ -36,7 +36,7 @@ import torch
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
-from deepspeed_tpu_torch.ops.losses import chunked_lm_loss
+from deepspeed_tpu_torch.ops.losses import chunked_lm_loss, f32_matmul
 
 ATTN_IMPLS = ("auto", "flash", "reference")
 
@@ -173,7 +173,7 @@ def lm_head(params, cfg: LlamaConfig):
 
 
 def _head_logits(params, cfg: LlamaConfig, h):
-    return h.float() @ lm_head(params, cfg).float()
+    return f32_matmul(h, lm_head(params, cfg))
 
 
 def _logits(params, cfg: LlamaConfig, x):

@@ -42,11 +42,11 @@ SIGNATURES = {
     # stream
     "dstt_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _P],
     # q, k, v, do, lse, delta, seg, dq, B, T, S, H, KV, D, scale, causal,
-    # dtype, stream
-    "dstt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    # dtype, body, stream
+    "dstt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     # q, k, v, do, lse, delta, seg, dk, dv, B, T, S, H, KV, D, scale, causal,
-    # dtype, stream
-    "dstt_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+    # dtype, body, stream
+    "dstt_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
     # g, m, v, p, u, m_out, v_out, n, b1, 1-b1, b2, 1-b2, eps, wd, c1, c2,
     # lr, g_dtype, p_dtype, stream
     "dstt_fused_adam": [_P] * 7 + [ctypes.c_longlong] + [_F] * 9

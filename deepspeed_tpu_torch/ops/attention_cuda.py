@@ -10,15 +10,16 @@ the card's rate.  Every kernel reads q/k/v in their model layout, maps query
 head h to kv head h // (H/KV) without repeating K/V, skips key tiles above
 the diagonal and masks ragged tails and packed segments itself.
 
-The forward has two bodies, picked by :func:`flash_fwd_body` before the
-launch: for bfloat16 with head_dim 64 or 128 (the Llama paths) the
-tensor-core body (``csrc/flash_fwd_sm90.cuh``: TMA-fed K/V stages on
-mbarriers, a producer warp, two consumer warpgroups running ``wgmma`` for
-Q·Kᵀ and P·V, the online softmax on the accumulator fragment); for float32
-and bf16 head_dim 16 or 32 the scalar body (f32 FMA from shared memory).
-:func:`flash_fwd_tiled_reference` walks the tensor-core body's tiles in
-plain PyTorch.  The backward kernels still run on the FMA units; their
-tensor-core version is later work.
+Each kernel has two bodies, picked before the launch by
+:func:`flash_fwd_body` and :func:`flash_bwd_body`: for bfloat16 with
+head_dim 64 or 128 (the Llama paths) the tensor-core bodies
+(``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_sm90.cuh``: TMA-fed stages
+on mbarriers, a producer warp, two consumer warpgroups running ``wgmma``,
+the softmax or the backward's p and ds on the accumulator fragment); for
+float32 and bf16 head_dim 16 or 32 the scalar bodies (f32 FMA from shared
+memory).  :func:`flash_fwd_tiled_reference` and
+:func:`flash_bwd_tiled_reference` walk the tensor-core bodies' tiles in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,11 +32,16 @@ from deepspeed_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# head dims of the tensor-core forward body (bfloat16 only)
+# head dims of the tensor-core bodies (bfloat16 only)
 WGMMA_HEAD_DIMS = (64, 128)
-# its tiles: query rows per block, keys per stage
+# the forward's tiles: query rows per block, keys per stage
 WGMMA_BLOCK_Q = 128
 WGMMA_BLOCK_K = 128
+# the backward's: dQ's query rows per item and keys per stage; dK/dV's keys
+# per item and query rows per stage
+WGMMA_BWD_DQ_ROWS = 128
+WGMMA_BWD_KEYS = 64
+WGMMA_BWD_DKV_ROWS = 64
 
 
 def _live_mask(B, T, S, causal, seg, device):
@@ -149,7 +155,8 @@ def flash_fwd_tiled_reference(q, k, v, causal: bool = True, seg=None,
 def flash_delta(o, do):
     """delta [B, H, T] f32 = rowsum(O * dO), the backward's per-row term
     (a plain reduction here, as in the JAX package)."""
-    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    # do is upcast inside the product (exact, as its own .float() would be)
+    return (o.float() * do).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_bwd_reference(q, k, v, o, lse, do, seg=None, causal: bool = True):
@@ -174,6 +181,125 @@ def flash_bwd_reference(q, k, v, o, lse, do, seg=None, causal: bool = True):
     dk = dk.reshape(B, S, KV, G, D).sum(3)
     dv = dv.reshape(B, S, KV, G, D).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _tile_ids(seg, rows, keys):
+    """(skip, one_id) of a tile with segment ids: its keys' ids all outside
+    the range of its rows' ids (it adds nothing), or rows and keys all of
+    one id (no id mask needed)."""
+    qs, ks = seg[:, rows], seg[:, keys]
+    skip = bool(ks.max() < qs.min() or ks.min() > qs.max())
+    one = bool((qs == ks[:, :1]).all() and (ks == ks[:, :1]).all())
+    return skip, one
+
+
+def flash_bwd_tiled_reference(q, k, v, o, lse, do, seg=None,
+                              causal: bool = True,
+                              block_q: int = WGMMA_BWD_DQ_ROWS,
+                              block_k: int = WGMMA_BWD_KEYS,
+                              dkv_block_q: int = WGMMA_BWD_DKV_ROWS):
+    """Plain walk of the tensor-core backward bodies' tiles -> (dq, dk, dv),
+    in their order and with their arithmetic.  dQ: query blocks of
+    ``block_q`` rows sweep key tiles of ``block_k`` up to the causal
+    frontier.  dK/dV: key blocks of ``block_k`` sweep each group head's
+    query tiles of ``dkv_block_q`` rows from the block's first key (causal),
+    head by head, tile t adding into partial sum t % 2 (the two consumer
+    warpgroups), the two partials added at the end.  Both: with segment ids
+    a tile whose ids fall outside the range of the block's ids is skipped;
+    the element mask (-inf) only on a tile that crosses the diagonal or S,
+    or whose ids are mixed; unscaled f32 scores, p = exp2(s * scale *
+    log2(e) - lse * log2(e)); ds = p (dO.V^T - delta) scale; ds rounded to
+    K's dtype before dQ += ds.K; P and dS each split into hi = x in the
+    operand dtype and lo = x - hi in it, both multiplied into dV += P^T.dO
+    and dK += dS^T.Q.  Not on any main path: the CPU tests hold it to the
+    JAX kernel."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scale = torch.tensor(1.0 / math.sqrt(D), **f32)
+    log2e = torch.tensor(LOG2E, **f32)
+    scale_log2 = scale * log2e
+    lse2 = lse * log2e                                   # [B, H, T]
+    delta = flash_delta(o, do)                           # [B, H, T]
+    qf, dof = (x.float().transpose(1, 2) for x in (q, do))   # [B, H, T, D]
+    kf, vf = (x.float().transpose(1, 2) for x in (k, v))     # [B, KV, S, D]
+    kh = kf.repeat_interleave(G, dim=1)                  # [B, H, S, D]
+    vh = vf.repeat_interleave(G, dim=1)
+    trow = torch.arange(T, device=dev)
+    tkey = torch.arange(S, device=dev)
+
+    def dead_mask(rows, keys, masked):
+        """[B, 1, len(rows), len(keys)] dead entries, or None."""
+        if not masked:
+            return None
+        dead = torch.zeros((1, 1, len(rows), len(keys)), dtype=torch.bool,
+                           device=dev)
+        if causal:
+            dead = dead | (keys[None, :] > rows[:, None])
+        if seg is not None:
+            dead = dead | (seg[:, rows, None] != seg[:, None, keys])[:, None]
+        return dead
+
+    dq = torch.zeros((B, H, T, D), **f32)
+    for q0 in range(0, T, block_q):
+        rows = trow[q0:q0 + block_q]
+        kv_end = min(S, q0 + block_q) if causal else S
+        for n0 in range(0, kv_end, block_k):
+            keys = tkey[n0:n0 + block_k]
+            one_id = True
+            if seg is not None:
+                skip, one_id = _tile_ids(seg, rows, keys)
+                if skip:
+                    continue
+            s = qf[:, :, rows] @ kh[:, :, keys].transpose(-1, -2)
+            dead = dead_mask(rows, keys, n0 + block_k > S or (
+                causal and n0 + block_k - 1 > q0) or not one_id)
+            if dead is not None:
+                s = s.masked_fill(dead, float("-inf"))
+            p = torch.exp2(s * scale_log2 - lse2[:, :, rows, None])
+            dp = dof[:, :, rows] @ vh[:, :, keys].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, rows, None]) * scale
+            dq[:, :, rows] += ds.to(k.dtype).float() @ kh[:, :, keys]
+
+    dk = torch.zeros((B, KV, S, D), **f32)
+    dv = torch.zeros((B, KV, S, D), **f32)
+    for k0 in range(0, S, block_k):
+        keys = tkey[k0:k0 + block_k]
+        m_start = (k0 // dkv_block_q) * dkv_block_q if causal else 0
+        part_k = [torch.zeros((B, KV, len(keys), D), **f32) for _ in range(2)]
+        part_v = [torch.zeros((B, KV, len(keys), D), **f32) for _ in range(2)]
+        t = -1
+        for g in range(G):
+            heads = torch.arange(KV, device=dev) * G + g
+            for m0 in range(m_start, T, dkv_block_q):
+                t += 1
+                rows = trow[m0:m0 + dkv_block_q]
+                one_id = True
+                if seg is not None:
+                    skip, one_id = _tile_ids(seg, rows, keys)
+                    if skip:
+                        continue
+                qt, dot = qf[:, heads][:, :, rows], dof[:, heads][:, :, rows]
+                st = kf[:, :, keys] @ qt.transpose(-1, -2)    # [B, KV, n, m]
+                dead = dead_mask(rows, keys, (
+                    causal and m0 < k0 + block_k - 1) or not one_id)
+                if dead is not None:
+                    st = st.masked_fill(dead.transpose(-1, -2),
+                                        float("-inf"))
+                pt = torch.exp2(st * scale_log2
+                                - lse2[:, heads][:, :, None, rows])
+                dpt = vf[:, :, keys] @ dot.transpose(-1, -2)
+                dst = pt * (dpt - delta[:, heads][:, :, None, rows]) * scale
+                for x, acc, b in ((pt, part_v, dot), (dst, part_k, qt)):
+                    hi = x.to(q.dtype).float()
+                    acc[t % 2] += hi @ b
+                    acc[t % 2] += (x - hi).to(q.dtype).float() @ b
+        dk[:, :, keys] = part_k[0] + part_k[1]
+        dv[:, :, keys] = part_v[0] + part_v[1]
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def _check(name, q, k, v, seg, *more):
@@ -216,6 +342,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tma_aligned(*ts):
+    """TMA needs 16-byte aligned bases; a view that starts off that (no
+    caller makes one) is copied into a fresh allocation."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def flash_fwd_body(q) -> str:
     """The body of ``csrc/flash_fwd.cu`` that a CUDA call on ``q`` launches:
     ``"wgmma"`` (tensor cores, TMA) for bfloat16 with head_dim 64 or 128,
@@ -236,10 +368,7 @@ def flash_fwd(q, k, v, causal: bool = True, seg=None):
     B, T, S, H, KV, D = _check("flash_fwd", q, k, v, seg)
     body = flash_fwd_body(q)
     if body == "wgmma":
-        # TMA needs 16-byte aligned bases; a view that starts off that
-        # (no caller makes one) is copied into a fresh allocation
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+        q, k, v = _tma_aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     err = _build.lib().dstt_flash_fwd(
@@ -257,43 +386,65 @@ flash_fwd.launches = 0
 flash_fwd.body_launches = {"wgmma": 0, "scalar": 0}
 
 
+def flash_bwd_body(q) -> str:
+    """The body of ``csrc/flash_bwd.cu`` that a CUDA call on ``q`` launches
+    (both kernels): ``"wgmma"`` (tensor cores, TMA) for bfloat16 with
+    head_dim 64 or 128, ``"scalar"`` otherwise."""
+    return flash_fwd_body(q)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, seg=None, causal: bool = True):
     """dQ kernel (CUDA tensors only): q/do [B,T,H,D], k/v [B,S,KV,D],
-    lse/delta [B,H,T] f32 -> dq [B,T,H,D] in q's dtype."""
+    lse/delta [B,H,T] f32 -> dq [B,T,H,D] in q's dtype.  Launches the body
+    that :func:`flash_bwd_body` names; ``flash_bwd_dq.launches`` counts
+    every launch, ``flash_bwd_dq.body_launches`` each body's."""
     B, T, S, H, KV, D = _check("flash_bwd_dq", q, k, v, seg, ("do", do))
     lse, delta = _rows_f32("flash_bwd_dq", lse, delta, (B, H, T), q.device)
+    body = flash_bwd_body(q)
+    if body == "wgmma":
+        q, k, v, do = _tma_aligned(q, k, v, do)
     dq = torch.empty_like(q)
     err = _build.lib().dstt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(), B, T, S,
         H, KV, D, 1.0 / math.sqrt(D), int(causal),
-        _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+        _build.DTYPE_CODES[q.dtype], int(body == "wgmma"),
+        _build.stream_of(q))
     _build.check("dstt_flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.body_launches[body] += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.body_launches = {"wgmma": 0, "scalar": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, seg=None, causal: bool = True):
     """dK/dV kernel (CUDA tensors only) -> (dk, dv) [B,S,KV,D] in k's
-    dtype, each summed over the kv head's group of query heads."""
+    dtype, each summed over the kv head's group of query heads.  Bodies and
+    counts as :func:`flash_bwd_dq`."""
     B, T, S, H, KV, D = _check("flash_bwd_dkv", q, k, v, seg, ("do", do))
     lse, delta = _rows_f32("flash_bwd_dkv", lse, delta, (B, H, T), q.device)
+    body = flash_bwd_body(q)
+    if body == "wgmma":
+        q, k, v, do = _tma_aligned(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     err = _build.lib().dstt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg), dk.data_ptr(),
         dv.data_ptr(), B, T, S, H, KV, D, 1.0 / math.sqrt(D), int(causal),
-        _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+        _build.DTYPE_CODES[q.dtype], int(body == "wgmma"),
+        _build.stream_of(q))
     _build.check("dstt_flash_bwd_dkv", err)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.body_launches[body] += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.body_launches = {"wgmma": 0, "scalar": 0}
 
 
 def _rows_f32(name, lse, delta, shape, device):

@@ -6,6 +6,10 @@ online logsumexp, and its backward (:class:`_ChunkedNLL`, the twin of the
 JAX custom VJP ``_chunked_nll``) recomputes each chunk's logits from the
 saved lse while it accumulates ``dx`` in f32 and writes ``dhead`` chunk by
 chunk, so the loss holds one ``[N, Vc]`` block at a time.
+
+Every LM-head product goes through :func:`f32_matmul`: bf16 (or fp16)
+operands with an f32 result, the JAX package's ``dot(x, head,
+preferred_element_type=float32)``, so no f32 copy of the head is made.
 """
 
 from __future__ import annotations
@@ -13,10 +17,42 @@ from __future__ import annotations
 import torch
 
 
-def _logits(x, head):
-    """f32 logits of ``x @ head`` (the JAX package's
-    ``preferred_element_type=float32`` product)."""
-    return x.float() @ head.float()
+class _F32MatMul(torch.autograd.Function):
+    """``a @ b`` of two bf16 or fp16 CUDA tensors with an f32 result
+    (``aten::mm.dtype``, which has no autograd formula).  The backward is
+    the transpose rule of JAX's ``preferred_element_type=float32`` dot:
+    the f32 cotangent times the other operand (upcast), each product in
+    f32, rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        a2 = a.reshape(-1, a.shape[-1])
+        out = torch.mm(a2, b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g2 @ b.float().T).to(a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            db = (a.reshape(-1, a.shape[-1]).float().T @ g2).to(b.dtype)
+        return da, db
+
+
+def f32_matmul(a, b):
+    """f32 product of ``a`` [..., K] and ``b`` [K, N] (the JAX package's
+    ``preferred_element_type=float32`` dot).  Two bf16 or fp16 CUDA
+    operands go to the tensor cores as they are; otherwise (the CPU, where
+    ``aten::mm.dtype`` has no kernel, and f32) both are upcast, which
+    gives the same values."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16,
+                                                        torch.float16):
+        return _F32MatMul.apply(a, b)
+    return a.float() @ b.float()
 
 
 def _masked_mean(nll, mask):
@@ -27,7 +63,7 @@ def _masked_mean(nll, mask):
 def dense_lm_loss(x, head, targets, mask=None):
     """Mean (masked) NLL of ``softmax(x @ head)``: x [N, D], head [D, V],
     targets [N] int, mask optional [N] (1 = count) -> f32 scalar."""
-    logp = torch.log_softmax(_logits(x, head), dim=-1)
+    logp = torch.log_softmax(f32_matmul(x, head), dim=-1)
     nll = -logp.gather(-1, targets.long()[:, None])[:, 0]
     if mask is None:
         return nll.mean()
@@ -45,7 +81,7 @@ def _chunk_fwd(x, head, targets, chunk: int, v_real: int):
     col = torch.arange(chunk, device=dev)
     tl = targets.long()
     for base in range(0, head.shape[1], chunk):
-        logits = _logits(x, head[:, base:base + chunk])
+        logits = f32_matmul(x, head[:, base:base + chunk])
         logits = logits.masked_fill((base + col >= v_real)[None, :],
                                     float("-inf"))
         m_new = torch.maximum(m, logits.amax(-1))
@@ -86,7 +122,7 @@ class _ChunkedNLL(torch.autograd.Function):
         dhead = torch.empty_like(head)
         for base in range(0, head.shape[1], chunk):
             hc = head[:, base:base + chunk]
-            logits = _logits(x, hc).masked_fill(
+            logits = f32_matmul(x, hc).masked_fill(
                 (base + col >= v_real)[None, :], float("-inf"))
             p = torch.exp(logits - lse[:, None])
             local = tl - base

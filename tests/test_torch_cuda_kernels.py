@@ -156,25 +156,146 @@ def test_flash_bwd_matches_plain(gen, dtype, D, T, G, causal, with_seg):
             assert _rel_err(g, w) <= rel, name
 
 
-def test_flash_attention_function_grads_on_the_card(gen):
+# the tensor-core backward bodies (bf16, D 64 and 128): T around their
+# 64-key tiles and 128-row (dQ) / 64-row (dK/dV) tiles, GQA groups 1, 4 and
+# 8, causal or not, packed segments; T != S both ways; the training shape
+FLASH_BWD_WGMMA_CASES = [
+    (D, T, T, G, causal, with_seg)
+    for D in (64, 128) for T in (1, 63, 64, 65, 127, 129, 300)
+    for G in (1, 4, 8) for causal in (True, False) for with_seg in (False, True)
+] + [
+    (D, T, S, 4, causal, False)
+    for D in (64, 128) for T, S in ((100, 300), (300, 100))
+    for causal in (True, False)
+] + [
+    (D, 2047, 2047, 4, True, with_seg)
+    for D in (64, 128) for with_seg in (False, True)
+]
+# the smoke's gate (chip_smoke.FLASH_BWD_REL_TOL) at the training shape;
+# elsewhere the bf16 bound of test_flash_bwd_matches_plain, whose few-row
+# cases put a bf16 ulp of a small maximum in play
+FLASH_BWD_REL_TOL = 4e-3
+
+
+@pytest.mark.parametrize("D,T,S,G,causal,with_seg", FLASH_BWD_WGMMA_CASES)
+def test_flash_bwd_wgmma_matches_plain_and_tiled(gen, D, T, S, G, causal,
+                                                 with_seg):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        flash_bwd_tiled_reference, flash_fwd_reference)
+
+    dt = torch.bfloat16
+    q = _randn(gen, (2, T, 2 * G, D), dt)
+    k = _randn(gen, (2, S, 2, D), dt)
+    v = _randn(gen, (2, S, 2, D), dt)
+    do = _randn(gen, (2, T, 2 * G, D), dt)
+    seg = _segments(2, T) if with_seg else None
+    o, lse = flash_fwd_reference(q, k, v, causal=causal, seg=seg)
+    before = (dict(flash_bwd_dq.body_launches),
+              dict(flash_bwd_dkv.body_launches))
+    got = flash_bwd(q, k, v, o, lse, do, seg, causal)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, causal)
+    twin = flash_bwd_tiled_reference(q, k, v, o, lse, do, seg, causal)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq.body_launches["wgmma"] == before[0]["wgmma"] + 1
+    assert flash_bwd_dkv.body_launches["wgmma"] == before[1]["wgmma"] + 1
+    rel = FLASH_BWD_REL_TOL if T == 2047 else TOL[dt]
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, twin):
+        assert g.dtype == dt and torch.isfinite(g.float()).all(), name
+        if T == 1 and name != "dv":
+            assert g.float().abs().max().item() <= ZERO_GRAD_ATOL, name
+            continue
+        assert _rel_err(g, w) <= rel, name
+        assert _rel_err(g, t) <= rel, name
+
+
+def test_flash_bwd_counts_launches_per_body(gen):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference, flash_delta,
+        flash_fwd_reference)
+
+    def launch(dtype, D, misalign=False):
+        shape = (1, 70, 4, D)
+        n = 70 * 4 * D
+        if misalign:          # contiguous, but 2 bytes off TMA's alignment
+            buf = _randn(gen, (4 * n + 1,), dtype)
+            q, k, v, do = (buf[1 + i * n:1 + (i + 1) * n].view(shape)
+                           for i in range(4))
+        else:
+            q, k, v, do = (_randn(gen, shape, dtype) for _ in range(4))
+        o, lse = flash_fwd_reference(q, k, v)
+        delta = flash_delta(o, do)
+        before = [(f.launches, dict(f.body_launches))
+                  for f in (flash_bwd_dq, flash_bwd_dkv)]
+        dq = flash_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+        want = flash_bwd_reference(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for g, w in zip((dq, dk, dv), want):
+            assert _rel_err(g, w) <= TOL[dtype]
+        counts = []
+        for f, (n0, b0) in zip((flash_bwd_dq, flash_bwd_dkv), before):
+            assert f.launches == n0 + 1
+            counts.append({b: c - b0[b] for b, c in f.body_launches.items()})
+        assert counts[0] == counts[1]
+        return counts[0]
+
+    assert launch(torch.bfloat16, 128) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.bfloat16, 64) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.float32, 128) == {"wgmma": 0, "scalar": 1}
+    assert launch(torch.bfloat16, 32) == {"wgmma": 0, "scalar": 1}
+    # a view off TMA's alignment is copied and keeps the tensor-core body
+    assert launch(torch.bfloat16, 128, misalign=True) == {"wgmma": 1,
+                                                          "scalar": 0}
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 128)])
+def test_flash_attention_function_grads_on_the_card(gen, dtype, D):
     from deepspeed_tpu_torch.ops import attention_cuda as ac
     from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 
-    q, k, v = (_randn(gen, s, torch.float32).requires_grad_(True)
-               for s in ((1, 96, 8, 64), (1, 96, 2, 64), (1, 96, 2, 64)))
+    q, k, v = (_randn(gen, s, dtype).requires_grad_(True)
+               for s in ((1, 96, 8, D), (1, 96, 2, D), (1, 96, 2, D)))
     seg = _segments(1, 96)
-    do = _randn(gen, (1, 96, 8, 64), torch.float32)
-    before = (ac.flash_fwd.launches, ac.flash_bwd_dq.launches,
-              ac.flash_bwd_dkv.launches)
+    do = _randn(gen, (1, 96, 8, D), dtype)
+    counts = (ac.flash_fwd, ac.flash_bwd_dq, ac.flash_bwd_dkv)
+    before = [(f.launches, dict(f.body_launches)) for f in counts]
     flash_attention(q, k, v, segment_ids=seg).backward(do)
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
     _reference(q, k, v, segment_ids=seg).backward(do)
     for g, t in zip(got, (q, k, v)):
-        assert _rel_err(g, t.grad) <= 1e-4
-    assert (ac.flash_fwd.launches, ac.flash_bwd_dq.launches,
-            ac.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+        assert _rel_err(g, t.grad) <= {torch.float32: 1e-4,
+                                       torch.bfloat16: 2e-2}[dtype]
+    body = "wgmma" if dtype == torch.bfloat16 else "scalar"
+    for f, (n0, b0) in zip(counts, before):
+        assert f.launches == n0 + 1
+        assert f.body_launches[body] == b0[body] + 1
+
+
+def test_f32_matmul_on_the_card(gen):
+    # bf16 operands with an f32 result against the product of the upcast
+    # operands: the same products (exact in f32) summed in another order,
+    # ~sqrt(K) f32 roundings of a sum of K = 4096 (~4e-6 of the largest
+    # value), held at 1e-5; the backward is the upcast product's, bit for bit
+    from deepspeed_tpu_torch.ops.losses import f32_matmul
+
+    a = _randn(gen, (3, 100, 4096), torch.bfloat16).requires_grad_(True)
+    b = _randn(gen, (4096, 1000), torch.bfloat16).requires_grad_(True)
+    g = _randn(gen, (3, 100, 1000), torch.float32)
+    got = f32_matmul(a, b)
+    want = a.float() @ b.float()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel_err(got, want) <= 1e-5
+    da, db = torch.autograd.grad(got, (a, b), g)
+    wa, wb = torch.autograd.grad(want, (a, b), g)
+    assert da.dtype == db.dtype == torch.bfloat16
+    assert torch.equal(da, wa) and torch.equal(db, wb)
+    # a column slice of the head, as the chunked loss takes it
+    sl = b.detach()[:, 100:612]
+    assert _rel_err(f32_matmul(a.detach(), sl), a.float() @ sl.float()) <= 1e-5
 
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])

@@ -15,7 +15,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
-    ROOT / "tools" / "torch_flash_fwd_bench.py"]
+    ROOT / "tools" / "torch_flash_fwd_bench.py",
+    ROOT / "tools" / "torch_flash_bwd_bench.py"]
 
 
 def test_imports_with_jax_blocked():
