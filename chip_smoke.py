@@ -9,9 +9,11 @@ and runs, in order:
 3. the serving kernels (flash forward, paged attention, greedy argmax)
    against their plain PyTorch versions on the card at the serving shapes,
    and the flash forward at the training shape too (T = 2047, causal and
-   with 3 packed segments), each timed beside SDPA;
+   with 3 packed segments), each timed beside SDPA; paged attention (B5)
+   at decode and C = 256 on its Hopper body, on the device clock too;
 9. the int8-resident paged kernel (B7) and the split-key v1 kernel (B8)
-   against their plain versions at the same shapes, beside B5;
+   against their plain versions at the same shapes, beside B5, on the
+   device clock too;
 4. the kernel arms and the plain arms of the serving engine on a tiny f32
    Llama: identical greedy tokens;
 10. the same on engines with ``prefix_cache`` and ``kv_tier``
@@ -25,7 +27,8 @@ and runs, in order:
 12. the group-quantize kernel (B9) against its plain version, bit for bit,
    at the stacked FFN leaf of Llama-3-8B and at a decode step's K/V rows
    (also against the host codec), with NaN / inf / zero groups; the probe
-   kernel (B10) through ``env_report.report()``;
+   kernel (B10) through ``env_report.report()``, then timed beside
+   ``torch.mul`` with events and on the device clock;
 13. the int8 engine built on the card (B9) against one over weights
    quantized on the host by B9's plain version, on a tiny f32 Llama:
    equal codes and scales, identical greedy tokens;
@@ -49,8 +52,9 @@ Each main path (the env report of phase 12, the two serving runs of phase
 int8 serving runs and the ``init_inference`` forward of phase 14, and the
 training run) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
-after), and the flash kernels' launches per body: every Llama-3-8B path
-must run only their tensor-core bodies, the f32 runs only the scalar ones.
+after), and the launches per body of the flash kernels and of B5 / B7:
+every Llama-3-8B path must run only their Hopper bodies (flash "wgmma",
+B5 / B7 "sm90"), the f32 runs only the scalar ones.
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
@@ -110,9 +114,10 @@ TIER_KV = {"quantize_cold": True, "quantized_resident": True,
            "demote_watermark": 0.0}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# flash kernel -> main path -> its launches per body (tensor-core "wgmma",
-# "scalar"), read just after the path as its other counts are
-FLASH_BODIES = {}
+# kernel with two bodies -> main path -> its launches per body (the flash
+# kernels' tensor-core "wgmma", B5's and B7's Hopper "sm90", "scalar"),
+# read just after the path as its other counts are
+BODIES = {}
 
 
 def log(*a):
@@ -328,9 +333,18 @@ def _paged_inputs(gen, lens, C, H=32, KV=8, D=128, ps=16, mp=64):
     return kp, vp, table
 
 
+def _share(bound_ms, dev_ms):
+    """The bound's share of a device time (None where none was read)."""
+    return bound_ms / dev_ms if dev_ms else None
+
+
 def phase_paged(gen):
+    """B5 against its plain version at the decode and chunk shapes of the
+    Llama-3-8B paths (bf16, 32 / 8 heads, head_dim 128, pages of 16): both
+    take the Hopper body; each timed with events around the wrapper and on
+    the device clock around the kernel alone, beside its bound."""
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
-        paged_attention_reference, paged_chunk_attention,
+        paged_attention_reference, paged_body, paged_chunk_attention,
         paged_chunk_attention_reference, paged_decode_attention)
 
     H, KV, D, ps = 32, 8, 128, 16
@@ -339,12 +353,17 @@ def phase_paged(gen):
     kp, vp, table = _paged_inputs(gen, lens, 1)
     seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn((8, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    if paged_body(q) != "sm90":
+        raise SystemExit("phase 3: the serving shape does not take B5's "
+                         "Hopper body")
     out = paged_decode_attention(q, kp, vp, table, seq)
     ref = paged_attention_reference(q, kp, vp, table, seq)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     empty_zero = bool((out[0] == 0).all())
     ms = time_ms(lambda: paged_decode_attention(q, kp, vp, table, seq))
+    q1, st1 = q[:, None], seq - 1
+    dev = device_ms(lambda: paged_chunk_attention(q1, kp, vp, table, st1))
     plain_ms = time_ms(
         lambda: paged_attention_reference(q, kp, vp, table, seq), iters=5)
     live = sum(lens)
@@ -352,7 +371,8 @@ def phase_paged(gen):
     b_ms, b_by = bound(nbytes, 4 * live * H * D, BF16_FLOPS_PER_S)
     log(f"[paged decode] B=8 C=1 ps={ps} lens={lens} bf16: max_abs_err "
         f"{err:.3e} (tol {PAGED_DECODE_TOL}) empty_row_zero {empty_zero}; kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        f"{ms:.4f} ms (device {dev}, bound share {_share(b_ms, dev)}) plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
 
     # chunked prefill: C = 256 at per-row starts, history + chunk
     C = 256
@@ -366,6 +386,7 @@ def phase_paged(gen):
     torch.cuda.synchronize()
     err_c = (oc.float() - rc.float()).abs().max().item()
     ms_c = time_ms(lambda: paged_chunk_attention(qc, kp2, vp2, table2, st))
+    dev_c = device_ms(lambda: paged_chunk_attention(qc, kp2, vp2, table2, st))
     plain_c = time_ms(lambda: paged_chunk_attention_reference(
         qc, kp2, vp2, table2, st), iters=3)
     live_c = sum(s + C for s in starts)
@@ -373,8 +394,9 @@ def phase_paged(gen):
     bc_ms, bc_by = bound(2 * live_c * KV * D * 2 + 2 * 2 * 8 * C * H * D,
                          4 * pairs * H * D, BF16_FLOPS_PER_S)
     log(f"[paged chunk] B=8 C={C} ps={ps} starts={starts} bf16: max_abs_err "
-        f"{err_c:.3e} (tol {PAGED_CHUNK_TOL}); kernel {ms_c:.4f} ms plain "
-        f"{plain_c:.4f} ms bound {bc_ms:.4f} ms ({bc_by})")
+        f"{err_c:.3e} (tol {PAGED_CHUNK_TOL}); kernel {ms_c:.4f} ms (device "
+        f"{dev_c}, bound share {_share(bc_ms, dev_c)}) plain {plain_c:.4f} "
+        f"ms bound {bc_ms:.5f} ms ({bc_by})")
     if not (err <= PAGED_DECODE_TOL and err_c <= PAGED_CHUNK_TOL
             and empty_zero):
         raise SystemExit("paged kernel disagrees with its plain version")
@@ -383,8 +405,11 @@ def phase_paged(gen):
             "replaces": "deepspeed_tpu/inference/kernels.py:656",
             "max_abs_err": max(err, err_c), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "chunk": {"C": C, "ms": ms_c, "plain_ms": plain_c,
-                      "bound_ms": bc_ms, "bound_by": bc_by}}
+            "device_ms": dev, "bound_share": _share(b_ms, dev),
+            "chunk": {"C": C, "ms": ms_c, "device_ms": dev_c,
+                      "bound_share": _share(bc_ms, dev_c),
+                      "plain_ms": plain_c, "bound_ms": bc_ms,
+                      "bound_by": bc_by, "max_abs_err": err_c}}
 
 
 def phase_greedy(gen):
@@ -466,6 +491,12 @@ def phase_paged_quant_v1(gen):
                 q[:, None], kp, vp, table, st - 1)[:, 0]
             b5 = lambda: paged_decode_attention(  # noqa: E731
                 q, kp, vp, table, st)
+            # the kernels alone, for the device clock
+            q1, st1 = q[:, None], st - 1
+            quant_k = lambda: paged_chunk_attention_quant(  # noqa: E731
+                q1, kq, ks, vq, vs, table, st1)
+            b5_k = lambda: paged_chunk_attention(  # noqa: E731
+                q1, kp, vp, table, st1)
             live = sum(lens)
             pairs = live
             io = 2 * 2 * 8 * H * D                     # q and o, bf16
@@ -482,6 +513,7 @@ def phase_paged_quant_v1(gen):
                 q, kp, vp, table, st)
             b5 = lambda: paged_chunk_attention(  # noqa: E731
                 q, kp, vp, table, st)
+            quant_k, b5_k = quant, b5
             live = sum(s + C for s in lens)
             pairs = sum(s * C + C * (C + 1) // 2 for s in lens)
             io = 2 * 2 * 8 * C * H * D
@@ -495,10 +527,13 @@ def phase_paged_quant_v1(gen):
                                    and (got_1[0] == 0).all())
         iters = 20 if C == 1 else 10
         ms_q = time_ms(quant, iters=iters)
+        dev_q = device_ms(quant_k, iters=iters)
         plain_q = time_ms(quant_ref, iters=3)
         ms_1 = time_ms(v1, iters=iters)
+        dev_1 = device_ms(v1, iters=iters)
         plain_1 = time_ms(v1_ref, iters=3)
         ms_5 = time_ms(b5, iters=iters)
+        dev_5 = device_ms(b5_k, iters=iters)
         flops = 4 * pairs * H * D
         # B7 reads (D codes + one f32 scale) per live row, head and K/V;
         # B5 and B8 read 2·D bytes of bf16
@@ -508,22 +543,26 @@ def phase_paged_quant_v1(gen):
         tol_1 = PAGED_V1_DECODE_TOL if C == 1 else PAGED_V1_CHUNK_TOL
         log(f"[paged {shape} B7 int8] B=8 C={C} ps={ps} lens={lens}: "
             f"max_abs_err {err_q:.3e} (tol {tol_q}); kernel {ms_q:.4f} ms "
-            f"plain {plain_q:.4f} ms bound {bq[0]:.5f} ms ({bq[1]}) library "
-            f"none")
+            f"(device {dev_q}, bound share {_share(bq[0], dev_q)}) plain "
+            f"{plain_q:.4f} ms bound {bq[0]:.5f} ms ({bq[1]}) library none")
         log(f"[paged {shape} B8 v1 split] B=8 C={C} ps={ps} bf16: max_abs_err "
             f"{err_1:.3e} (tol {tol_1}); kernel (both launches) {ms_1:.4f} "
-            f"ms plain {plain_1:.4f} ms bound {b1[0]:.5f} ms ({b1[1]}) "
-            f"library none")
-        log(f"[paged {shape} B5 same bf16 pages] kernel {ms_5:.4f} ms bound "
+            f"ms (device {dev_1}) plain {plain_1:.4f} ms bound "
+            f"{b1[0]:.5f} ms ({b1[1]}) library none")
+        log(f"[paged {shape} B5 same bf16 pages] kernel {ms_5:.4f} ms "
+            f"(device {dev_5}, bound share {_share(b1[0], dev_5)}) bound "
             f"{b1[0]:.5f} ms ({b1[1]}); empty_row_zero {empty_zero}")
         if not (err_q <= tol_q and err_1 <= tol_1 and empty_zero):
             raise SystemExit(f"B7/B8 disagree with their plain versions "
                              f"({shape})")
-        for key, ms, plain, err, bnd in (("quant", ms_q, plain_q, err_q, bq),
-                                         ("v1", ms_1, plain_1, err_1, b1),
-                                         ("b5", ms_5, None, None, b1)):
-            out[key][shape] = {"ms": ms, "plain_ms": plain, "err": err,
-                               "bound_ms": bnd[0], "bound_by": bnd[1]}
+        for key, ms, dev, plain, err, bnd in (
+                ("quant", ms_q, dev_q, plain_q, err_q, bq),
+                ("v1", ms_1, dev_1, plain_1, err_1, b1),
+                ("b5", ms_5, dev_5, None, None, b1)):
+            out[key][shape] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                               "err": err, "bound_ms": bnd[0],
+                               "bound_by": bnd[1],
+                               "bound_share": _share(bnd[0], dev)}
         del kp, vp, kq, ks, vq, vs, q, got_q, want_q, got_1, want_1
         torch.cuda.empty_cache()
 
@@ -533,10 +572,13 @@ def phase_paged_quant_v1(gen):
                 "replaces": replaces, "max_abs_err": max(d["err"], c["err"]),
                 "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-                "library_ms": None,
-                "chunk": {"C": 256, "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "library_ms": None, "device_ms": d["device_ms"],
+                "bound_share": d["bound_share"],
+                "chunk": {"C": 256, "ms": c["ms"], "device_ms": c["device_ms"],
+                          "bound_share": c["bound_share"],
+                          "plain_ms": c["plain_ms"],
                           "bound_ms": c["bound_ms"],
-                          "bound_by": c["bound_by"]}}
+                          "bound_by": c["bound_by"], "max_abs_err": c["err"]}}
 
     return [row("paged_attention_quant", paged_chunk_attention_quant,
                 "deepspeed_tpu_torch/csrc/paged_attention_quant.cu",
@@ -670,10 +712,14 @@ def phase_env_probe(fns):
     ms = time_ms(lambda: env_report.env_probe(x), iters=100)
     plain_ms = time_ms(lambda: env_report.env_probe_reference(x), iters=100)
     library_ms = time_ms(lambda: torch.mul(x, 2.0), iters=100)
+    # the device clock takes the host's launch cost out of both
+    dev = device_ms(lambda: env_report.env_probe(x), iters=100)
+    library_dev = device_ms(lambda: torch.mul(x, 2.0), iters=100)
     b_ms, b_by = bound(2 * x.numel() * 4, x.numel(), F32_FLOPS_PER_S)
     log(f"[env probe B10] (8, 128) f32: exact {err == 0.0}; kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms torch.mul {library_ms:.4f} ms "
-        f"bound {b_ms:.7f} ms ({b_by})")
+        f"{ms:.4f} ms (device {dev}) plain {plain_ms:.4f} ms torch.mul "
+        f"{library_ms:.4f} ms (device {library_dev}) bound {b_ms:.7f} ms "
+        f"({b_by})")
     if not (r["ops"]["cuda probe"]["ok"] and err == 0.0):
         raise SystemExit("env probe failed")
     return {"name": "env_probe", "fn": env_report.env_probe,
@@ -681,7 +727,8 @@ def phase_env_probe(fns):
             "replaces": "deepspeed_tpu/env_report.py:46",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}, launches
+            "library_ms": library_ms, "device_ms": dev,
+            "library_device_ms": library_dev}, launches
 
 
 # ------------------------------------------------------------ phase 13
@@ -757,9 +804,11 @@ def phase_identity(kernels):
                 prefill_bucket=8, cache_dtype=torch.float32)
     plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
     flash = next(k["fn"] for k in kernels if k["name"] == "flash_fwd")
+    paged = next(k["fn"] for k in kernels if k["name"] == "paged_attention")
     for chunk in (0, 8):
         before = [k["fn"].launches for k in kernels]
         wgmma_before = flash.body_launches["wgmma"]
+        sm90_before = paged.body_launches["sm90"]
         outs = []
         for c, kn in ((cfg, None),
                       (plain_cfg, {"paged_attention": "xla",
@@ -783,9 +832,10 @@ def phase_identity(kernels):
         if any(u == 0 for k, u in zip(kernels, used)
                if not (chunk and k["name"] == "flash_fwd")):
             raise SystemExit("identity: a kernel arm did not launch")
-        # f32 attention takes the scalar body
-        if flash.body_launches["wgmma"] != wgmma_before:
-            raise SystemExit("identity: f32 flash launched the tensor-core "
+        # f32 attention takes the scalar bodies
+        if flash.body_launches["wgmma"] != wgmma_before \
+                or paged.body_launches["sm90"] != sm90_before:
+            raise SystemExit("identity: f32 attention launched a Hopper "
                              "body")
 
 
@@ -842,6 +892,8 @@ def phase_tier_identity(fns):
                           "launches": {n: f.launches
                                        for n, f in fns.items()}})
             outs.append(out)
+            _check_bodies(f"tier identity {label}", hopper=False,
+                          record=False)
         same = outs[0] == outs[1]
         log(f"[tier identity] llama-tiny f32 {label}: kernel arm == plain "
             f"arm: {same} ({len(outs[0])} requests); kernel arm {stats[0]}; "
@@ -934,20 +986,35 @@ def _zero(fns):
             f.body_launches = dict.fromkeys(f.body_launches, 0)
 
 
-def _check_bodies(path, body, record=True):
-    """Every flash forward and backward launch since the counts were set to
-    0 went through ``body`` ("wgmma" on the Llama-3-8B paths, "scalar" for
-    f32); a main path's counts go into the kernels line."""
+def _two_body_kernels():
+    """Kernel name -> (wrapper, its Hopper body's name) for the kernels
+    with a Hopper body and a scalar one."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention, paged_chunk_attention_quant)
     from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
                                                         flash_bwd_dq,
                                                         flash_fwd)
 
-    for f in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    return {"flash_fwd": (flash_fwd, "wgmma"),
+            "flash_bwd_dq": (flash_bwd_dq, "wgmma"),
+            "flash_bwd_dkv": (flash_bwd_dkv, "wgmma"),
+            "paged_attention": (paged_chunk_attention, "sm90"),
+            "paged_attention_quant": (paged_chunk_attention_quant, "sm90")}
+
+
+def _check_bodies(path, hopper=True, record=True):
+    """Every launch of the flash kernels and of B5 / B7 since the counts
+    were set to 0 went through their Hopper bodies ("wgmma" for flash,
+    "sm90" for B5 and B7) on the Llama-3-8B paths, or through "scalar" for
+    f32 (``hopper=False``); a main path's counts go into the kernels
+    line."""
+    for name, (f, hopper_body) in _two_body_kernels().items():
+        body = hopper_body if hopper else "scalar"
         got = dict(f.body_launches)
         if record:
-            FLASH_BODIES.setdefault(f.__name__, {})[path] = got
+            BODIES.setdefault(name, {})[path] = got
         if any(n for b, n in got.items() if b != body):
-            raise SystemExit(f"{path}: {f.__name__} launches by body {got}, "
+            raise SystemExit(f"{path}: {name} launches by body {got}, "
                              f"expected only {body}")
 
 
@@ -977,7 +1044,7 @@ def phase_serving(kernels, card_line):
         out, leaks, m = serve(params, cfg, prompts, 32, prefill_chunk=chunk,
                               **opts)
         launches[path] = {k["name"]: k["fn"].launches for k in kernels}
-        _check_bodies(path, "wgmma")
+        _check_bodies(path)
         done = _valid(out, prompts, 32, cfg.vocab_size)
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[serving] prefill_chunk={chunk} prompts={lens} new=32: "
@@ -1065,7 +1132,7 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
         zero()
         out, m = drive(eng, wave, TIER_NEW)
         launches[path] = counts()
-        _check_bodies(path, "wgmma")
+        _check_bodies(path)
         if w == "A":
             t = time.perf_counter()
             eng.step()           # idle step: the watermark sweep demotes
@@ -1124,7 +1191,7 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
                           max_batch=8, page_size=16, max_seq=2048,
                           num_pages=1025, cache_dtype=torch.bfloat16)
     launches[path] = counts()
-    _check_bodies(path, "wgmma")
+    _check_bodies(path)
     done = _valid(out, v1_prompts, 32, cfg.vocab_size)
     log(f"[serving v1] prefill_chunk=0 kernels.paged_attention=pallas_v1 "
         f"phase 5 prompts: finished {len(out)}/8 all_valid {done} "
@@ -1174,7 +1241,7 @@ def phase_int8_serving(holder, cfg, prompts, bf16_outs, bf16_metrics,
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
     launches["int8 build"] = counts()
-    _check_bodies("int8 build", "wgmma")
+    _check_bodies("int8 build")
     build_peak = torch.cuda.max_memory_allocated() / 1e9
     holder.clear()
     torch.cuda.empty_cache()
@@ -1206,7 +1273,7 @@ def phase_int8_serving(holder, cfg, prompts, bf16_outs, bf16_metrics,
         zero()
         out, m = drive(eng, prompts, 32)
         launches[path] = counts()
-        _check_bodies(path, "wgmma")
+        _check_bodies(path)
         leaks = eng.check_leaks()
         done = _valid(out, prompts, 32, cfg.vocab_size)
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1265,7 +1332,7 @@ def _int8_init_inference(qparams, cfg, prompts, first, zero, counts,
     ms = (time.perf_counter() - t0) * 1e3
     path = "int8 init_inference"
     used = counts()
-    _check_bodies(path, "wgmma")
+    _check_bodies(path)
     peak = torch.cuda.max_memory_allocated() / 1e9
     ok = (tuple(logits.shape) == (1, toks.shape[1], cfg.vocab_size)
           and bool(torch.isfinite(logits).all()))
@@ -1545,7 +1612,7 @@ def phase_train_identity(fns):
                                   config=conf, optimizer=opt)
         losses = [float(eng.train_batch(b)) for b in batches]
         # f32 attention stays on the scalar body
-        _check_bodies(f"train identity {arm}", "scalar", record=False)
+        _check_bodies(f"train identity {arm}", hopper=False, record=False)
         arms[arm] = (losses, eng.module_params(),
                      {n: f.launches for n, f in fns.items()})
     (kl, kp, kn), (pl, pp, pn) = arms["kernel"], arms["plain"]
@@ -1632,7 +1699,7 @@ def phase_train(fns, card_line):
             f"{ms:.1f} ms/step {steps[-1]['tokens_per_s']:.1f} tokens/s "
             f"peak_mem {steps[-1]['peak_mem_gb']:.1f} GB on {card_line}")
     launches = {n: f.launches for n, f in fns.items()}
-    _check_bodies("training", "wgmma")
+    _check_bodies("training")
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         if fns[name].body_launches != {"wgmma": 32, "scalar": 0}:
             raise SystemExit(f"training: {name} launches by body "
@@ -1752,15 +1819,17 @@ def main() -> int:
         # after), and their sum
         row["launches_by_path"] = {p: n[name] for p, n in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-        if name in FLASH_BODIES:
+        if name in BODIES:
             # per body, on the main paths that ran it
-            paths = FLASH_BODIES[name]
+            paths = BODIES[name]
             row["launches_by_body"] = {
                 b: sum(c[b] for c in paths.values())
                 for b in fns[name].body_launches}
             row["launches_by_path_and_body"] = {
                 p: c for p, c in paths.items() if any(c.values())}
-            for key in ("device_ms", "library_device_ms", "training_shape"):
+        for key in ("device_ms", "library_device_ms", "bound_share",
+                    "training_shape", "chunk"):
+            if key in k:
                 row[key] = k[key]
         out.append(row)
     log(json.dumps({"kernels": out}))

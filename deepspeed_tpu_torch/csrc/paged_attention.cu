@@ -2,34 +2,53 @@
 // over dense pages.
 //
 // Replaces deepspeed_tpu/inference/kernels.py::_chunk_v2_kernel (behind
-// paged_chunk_attention_v2 and paged_decode_attention_v2).  The block
-// (paged_attention.cuh) is shared with the int8 (B7) and split-key (B8)
-// kernels; this file instantiates it over dense pages with one block per
-// (b*KV, row tile) sweeping every live key.
+// paged_chunk_attention_v2 and paged_decode_attention_v2).  Two bodies
+// behind one entry; the caller names the body by dtype and head dim (the
+// `body` argument), never by retrying:
+//  - the Hopper body (paged_attention_sm90.cuh) for bfloat16 with head_dim
+//    64 or 128, every Llama-3-8B path: decode split over spans of pages with
+//    the partials merged by the last block in the same launch, chunked
+//    prefill on wgmma over pages staged by cp.async;
+//  - the scalar block (paged_attention.cuh, shared with B7 and B8) for
+//    float32 and head_dim 16 / 32: one block per (b*KV, row tile) sweeping
+//    every live key on the FMA units.
 //
 // Bound on the H100: decode reads every live K/V byte once for 4 flops per
 // element pair, far below the 295 flop/byte ridge, so it is bound by bytes
-// (live KV bytes / 3.35 TB/s).  This version gathers rows with plain loads,
-// one block per (b, kv_head) at decode, so small batches leave SMs idle; the
-// split-key grid of paged_attention_split.cu and cp.async/TMA page staging
-// are the ways out.
+// (live KV bytes / 3.35 TB/s); chunked prefill at C = 256 is bound by the
+// tensor cores' operations.
 #include "paged_attention.cuh"
+#include "paged_attention_sm90.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; body: 0 = the scalar block, 1 = the
+// Hopper body (bfloat16, D 64 or 128), which at decode with more than one
+// span of span_pages pages needs counters [B * KV] int32 (zeros, left zeros)
+// and part (f32 partials, paged_attention_sm90.cuh).  Returns the launch's
+// cudaError_t.
 extern "C" int dstt_paged_attention(const void* q, const void* kp, const void* vp,
                                     const void* table, const void* start, void* out, int B,
                                     int C, int H, int KV, int D, int P, int ps, int mp,
-                                    float scale, int dtype, void* stream) {
+                                    float scale, int dtype, int body, void* counters, void* part,
+                                    int span_pages, void* stream) {
   if (!dstt::paged_shape_ok(B, C, H, KV, ps, mp)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (body == 1) {
+    if (dtype != 1 || span_pages <= 0) return cudaErrorInvalidValue;
+    const dstt::paged90::Sm90Args a{q, table, start, out, static_cast<int*>(counters),
+                                    static_cast<float*>(part), B, C, H, KV, D, P, ps, mp,
+                                    span_pages, scale};
+    const dstt::paged90::DenseSrc src{static_cast<const bf16*>(kp), static_cast<const bf16*>(vp)};
+    return dstt::paged90::launch(a, src, s);
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   const dstt::PagedArgs a{q, table, start, out, nullptr, nullptr, nullptr,
                           B, C, H, KV, P, ps, mp, 0, 1, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const dstt::DenseKV<float> kv{static_cast<const float*>(kp), static_cast<const float*>(vp)};
     return dstt::dispatch_paged<float, dstt::DenseKV<float>, false>(a, D, kv, s);
   }
   if (dtype == 1) {
-    using bf16 = __nv_bfloat16;
     const dstt::DenseKV<bf16> kv{static_cast<const bf16*>(kp), static_cast<const bf16*>(vp)};
     return dstt::dispatch_paged<bf16, dstt::DenseKV<bf16>, false>(a, D, kv, s);
   }

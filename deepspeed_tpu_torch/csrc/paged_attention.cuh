@@ -1,9 +1,14 @@
-// Paged attention block shared by the three paged kernels of the port:
-//   paged_attention.cu        B5, dense pages (_chunk_v2_kernel)
+// Scalar paged attention block shared by the three paged kernels of the
+// port:
+//   paged_attention.cu        B5, dense pages (_chunk_v2_kernel), for
+//                             float32 and head_dim 16 / 32
 //   paged_attention_quant.cu  B7, int8 codes x per-row f32 scales
-//                             (_chunk_v2_quant_kernel)
+//                             (_chunk_v2_quant_kernel), for a float32 q and
+//                             head_dim 16 / 32
 //   paged_attention_split.cu  B8, dense pages over a split key axis plus a
 //                             combine pass (_chunk_kernel, the v1 arm)
+// A bfloat16 q with head_dim 64 or 128 takes B5's and B7's Hopper body
+// (paged_attention_sm90.cuh) instead.
 //
 // q [B, C, H, D] sits at positions start[b] + c; one layer's pages
 // [KV, P, ps, D] (codes, with scales [KV, P, ps, 1], for B7); table [B, mp]

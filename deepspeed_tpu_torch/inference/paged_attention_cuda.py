@@ -1,5 +1,5 @@
-"""Paged attention on Hopper: the wrappers of the three paged kernels and
-their plain PyTorch versions.
+"""Paged attention on Hopper: the wrappers of the three paged kernels,
+their plain PyTorch versions, and the CPU twin of B5's and B7's Hopper body.
 
 - ``csrc/paged_attention.cu`` (B5) replaces
   ``deepspeed_tpu/inference/kernels.py::_chunk_v2_kernel`` (with
@@ -7,18 +7,24 @@ their plain PyTorch versions.
   being its C = 1 case at ``start = seq_lens - 1``): dense pages.
 - ``csrc/paged_attention_quant.cu`` (B7) replaces
   ``_chunk_v2_quant_kernel`` (``paged_chunk_attention_v2_quant``): int8
-  codes with one f32 scale per token row, dequantised on chip in f32.
+  codes with one f32 scale per token row, dequantised on chip.
 - ``csrc/paged_attention_split.cu`` (B8) replaces the v1 ``_chunk_kernel``
   (``paged_chunk_attention``, the ``pallas_v1`` arm): dense pages, the key
   axis split over blocks and a second kernel combining the partials.
 
-Decode is bound by bytes on the H100: every live K/V byte is read once
-(live KV bytes / 3.35 TB/s; B7 reads D + 4 bytes per row where B5 reads
-2·D at bf16).  The kernels' grid is (b·kv_head, tile of the C·G flattened
-query rows[, key split]); each block reads the page table itself and walks
-only the key positions up to its last row's frontier, so stale or trash
-table entries past it are never dereferenced; K/V land in f32 and the
-online softmax is f32.
+B5 and B7 have two bodies, named by :func:`paged_body` from q's dtype and
+head dim.  The Hopper body (``csrc/paged_attention_sm90.cuh``; bf16 q, head
+dim 64 or 128) splits decode (at most :data:`DECODE_ROWS` flattened query
+rows) over spans of whole pages, :data:`DECODE_SPAN_KEYS` keys or more,
+stages them with ``cp.async`` and merges the spans' partials in the same
+launch; chunked prefill runs items of :data:`ITEM_ROWS` flattened rows over
+key tiles of :data:`KEY_TILE` on wgmma, P split into bf16 hi + lo.  The
+scalar block (f32, head dim 16 / 32; B8 always) gathers K/V into f32 shared
+memory over a grid of (b·kv_head, row tile[, key split]).  Every body walks
+only the key positions up to its rows' frontier, so stale or trash table
+entries past it are never dereferenced, and keeps the online softmax in
+f32.  Decode is bound by bytes on the H100 (live KV bytes / 3.35 TB/s; B7
+reads D + 4 bytes per row where B5 reads 2·D at bf16).
 """
 
 from __future__ import annotations
@@ -32,6 +38,18 @@ from deepspeed_tpu_torch.ops import _build
 NEG_INF = -1e30
 # B8: key positions per split of the v1 arm's split-key grid
 SPLIT_KEYS = 256
+# B5 / B7 Hopper body (csrc/paged_attention_sm90.cuh): the head dims it
+# takes; decode takes at most DECODE_ROWS flattened rows (C·G), in spans of
+# whole pages of at least DECODE_SPAN_KEYS keys (DECODE_MAX_SPANS spans at
+# most), each walked in tiles of DECODE_TILE keys; chunked prefill takes
+# items of ITEM_ROWS flattened rows over key tiles of KEY_TILE
+SM90_HEAD_DIMS = (64, 128)
+DECODE_ROWS = 16
+DECODE_SPAN_KEYS = 128
+DECODE_MAX_SPANS = 64
+DECODE_TILE = 32
+ITEM_ROWS = 128
+KEY_TILE = 64
 
 
 def _gather(pages, table, scales=None):
@@ -152,6 +170,134 @@ def paged_chunk_attention_split_reference(q, k_pages, v_pages, table, start,
     return out.reshape(B, C, H, Dh).to(q.dtype)
 
 
+def decode_span_pages(ps: int, mp: int) -> int:
+    """Pages per decode span of the Hopper body for pages of ``ps`` keys and
+    tables of ``mp`` slots: the fewest whole pages that hold
+    :data:`DECODE_SPAN_KEYS` keys, or more where a row would otherwise
+    split into more than :data:`DECODE_MAX_SPANS` spans."""
+    return max(1, -(-DECODE_SPAN_KEYS // ps), -(-mp // DECODE_MAX_SPANS))
+
+
+def _tiled_decode(qf, kg, vg, ks, vs, st, C, G, mp, ps, scale, span_pages):
+    """One row b of the Hopper decode body: qf [KV, C·G, Dh] f32; kg / vg
+    [KV, S, Dh] f32 (codes for B7), ks / vs [KV, S] (ones for B5)."""
+    KV, CG, Dh = qf.shape
+    live = min(st + C, mp * ps)
+    sk = span_pages * ps
+    qpos = st + torch.arange(CG) // G
+    parts = []
+    for lo in range(0, live, sk):            # the spans that hold keys
+        hi = min(live, lo + sk)
+        m = torch.full((KV, CG), NEG_INF)
+        l = torch.zeros((KV, CG))
+        acc = torch.zeros((KV, CG, Dh))
+        for n0 in range(lo, hi, DECODE_TILE):
+            n1 = min(n0 + DECODE_TILE, hi)
+            valid = torch.arange(n0, n1)[None] <= qpos[:, None]
+            sc = torch.einsum("krd,knd->krn", qf, kg[:, n0:n1]) \
+                * ks[:, None, n0:n1] * scale
+            sc = torch.where(valid, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.where(valid, torch.exp(sc - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            v = vg[:, n0:n1] * vs[:, n0:n1, None]
+            acc = acc * alpha[..., None] + torch.einsum("krn,knd->krd", p, v)
+            m = m_new
+        parts.append((m, l, acc))
+    if not parts:                            # an empty row: zeros
+        return torch.zeros((KV, CG, Dh))
+    m = torch.stack([x[0] for x in parts])   # merged in span order
+    w = torch.exp(m - m.amax(0))
+    l = (torch.stack([x[1] for x in parts]) * w).sum(0)
+    acc = (torch.stack([x[2] for x in parts]) * w[..., None]).sum(0)
+    return torch.where(l[..., None] == 0, 0.0,
+                       acc / torch.where(l == 0, 1.0, l)[..., None])
+
+
+def _tiled_chunk(qf, kg, vg, ks, vs, st, G, mp, ps, scale, split_p, item_rows,
+                 key_tile):
+    """One row b of the Hopper chunk body (operands as
+    :func:`_tiled_decode`): items of ``item_rows`` flattened rows, each over
+    key tiles up to its last row's frontier; S = (q·k)·ks, P' = P·vs, and
+    with ``split_p`` P' as bf16 hi + lo in the P'·V product."""
+    KV, CG, Dh = qf.shape
+    out = torch.zeros((KV, CG, Dh))
+    for r0 in range(0, CG, item_rows):
+        r1 = min(r0 + item_rows, CG)
+        k_hi = min(st + (r1 - 1) // G + 1, mp * ps)
+        qpos = st + torch.arange(r0, r1) // G
+        m = torch.full((KV, r1 - r0), float("-inf"))
+        l = torch.zeros((KV, r1 - r0))
+        acc = torch.zeros((KV, r1 - r0, Dh))
+        for n0 in range(0, max(k_hi, 0), key_tile):
+            n1 = min(n0 + key_tile, k_hi)
+            valid = torch.arange(n0, n1)[None] <= qpos[:, None]
+            sc = torch.einsum("krd,knd->krn", qf[:, r0:r1], kg[:, n0:n1]) \
+                * ks[:, None, n0:n1] * scale
+            sc = torch.where(valid, sc, float("-inf"))
+            m_new = torch.maximum(m, sc.amax(-1))
+            ms = torch.where(m_new == float("-inf"), 0.0, m_new)
+            p = torch.exp(sc - ms[..., None])
+            alpha = torch.exp(m - ms)
+            l = l * alpha + p.sum(-1)
+            p = p * vs[:, None, n0:n1]
+            v = vg[:, n0:n1]
+            if split_p:
+                hi = p.to(torch.bfloat16).float()
+                pv = torch.einsum("krn,knd->krd", hi, v) + torch.einsum(
+                    "krn,knd->krd", (p - hi).to(torch.bfloat16).float(), v)
+            else:
+                pv = torch.einsum("krn,knd->krd", p, v)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out[:, r0:r1] = torch.where(
+            l[..., None] == 0, 0.0, acc / torch.where(l == 0, 1.0, l)[..., None])
+    return out
+
+
+def paged_chunk_attention_tiled_reference(
+        q, k_pages, v_pages, table, start, k_scales=None, v_scales=None,
+        scale: Optional[float] = None, span_pages: Optional[int] = None,
+        item_rows: int = ITEM_ROWS, key_tile: int = KEY_TILE):
+    """The CPU twin of B5's and B7's Hopper body: the contract of
+    :func:`paged_chunk_attention_reference` (with ``k_scales`` /
+    ``v_scales`` [KV, P, ps, 1], that of
+    :func:`paged_chunk_attention_quant_reference` over int8 codes) computed
+    in the body's order, in f32.  At most :data:`DECODE_ROWS` flattened rows
+    (C·G): per span of ``span_pages`` pages (default
+    :func:`decode_span_pages`) an online softmax over tiles of
+    :data:`DECODE_TILE` keys, K and V dequantised in f32, then the spans'
+    partials merged in order.  More rows: items of ``item_rows`` rows over
+    key tiles of ``key_tile`` up to each item's frontier, the scales on S's
+    columns and folded into P, and for a bf16 q P split into bf16 hi + lo
+    for the P·V product, as the tensor cores take it."""
+    B, C, H, Dh = q.shape
+    KV, _, ps, _ = k_pages.shape
+    mp = table.shape[1]
+    G = H // KV
+    scale = scale if scale is not None else Dh ** -0.5
+    kg, vg = _gather(k_pages, table), _gather(v_pages, table)
+    if k_scales is None:
+        ks = vs = torch.ones(kg.shape[:3])
+    else:
+        ks = _gather(k_scales, table)[..., 0]
+        vs = _gather(v_scales, table)[..., 0]
+    qf = q.reshape(B, C, KV, G, Dh).permute(0, 2, 1, 3, 4) \
+        .reshape(B, KV, C * G, Dh).float()
+    sp = span_pages or decode_span_pages(ps, mp)
+    out = torch.stack([
+        _tiled_decode(qf[b], kg[b], vg[b], ks[b], vs[b], int(start[b]), C, G,
+                      mp, ps, scale, sp)
+        if C * G <= DECODE_ROWS else
+        _tiled_chunk(qf[b], kg[b], vg[b], ks[b], vs[b], int(start[b]), G, mp,
+                     ps, scale, q.dtype == torch.bfloat16, item_rows,
+                     key_tile)
+        for b in range(B)])
+    return out.reshape(B, KV, C, G, Dh).permute(0, 2, 1, 3, 4) \
+        .reshape(B, C, H, Dh).to(q.dtype)
+
+
 # ------------------------------------------------------------- wrappers
 def _check(name, q, pages, table, start, page_dtype, scales=()):
     """Raise on what the paged kernels do not take."""
@@ -201,11 +347,48 @@ def _device_ok(name, q) -> bool:
     return True
 
 
+def paged_body(q) -> str:
+    """The body of B5 and B7 that a CUDA call on ``q`` launches: ``"sm90"``
+    (``csrc/paged_attention_sm90.cuh``) for bfloat16 with head_dim 64 or
+    128, ``"scalar"`` otherwise."""
+    return ("sm90" if q.dtype == torch.bfloat16
+            and q.shape[-1] in SM90_HEAD_DIMS else "scalar")
+
+
+# per CUDA stream: decode counters [B·KV] int32 and f32 partials, grown as
+# needed (a cache of scratch memory, as PyTorch's allocator is one)
+_WORKSPACE = {}
+
+
+def _sm90_args(q, KV, ps, mp, stream):
+    """(counters, part, span_pages) of one launch of the Hopper body on
+    ``stream``.  A decode launch over more than one span needs counters
+    (zeros; the kernel leaves them zeros) and room for the spans' partials
+    (m, l, acc).  Both are kept per stream and serve every launch on it,
+    since a stream runs its launches one after another; allocating them per
+    call would cost a zeroing launch each time."""
+    B, C, H, Dh = q.shape
+    sp = decode_span_pages(ps, mp)
+    nspan = -(-mp // sp)
+    if C * (H // KV) > DECODE_ROWS or nspan == 1:
+        return None, None, sp
+    n_bk, n_part = B * KV, B * KV * nspan * DECODE_ROWS * (2 + Dh)
+    key = (q.device, stream.value)
+    counters, part = _WORKSPACE.get(key, (None, None))
+    if counters is None or counters.numel() < n_bk:
+        counters = torch.zeros((n_bk,), dtype=torch.int32, device=q.device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty((n_part,), dtype=torch.float32, device=q.device)
+    _WORKSPACE[key] = (counters, part)
+    return counters.data_ptr(), part.data_ptr(), sp
+
+
 def paged_chunk_attention(q, k_pages, v_pages, table, start):
     """B5: paged attention for chunk queries q [B, C, H, Dh] at positions
     ``start + 0..C-1`` over one layer's pages [KV, P, ps, Dh] -> [B, C, H,
     Dh].  CPU tensors take :func:`paged_chunk_attention_reference`; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the body that :func:`paged_body` names, or raise.
+    ``launches`` counts every launch, ``body_launches`` each body's."""
     if not _device_ok("paged_chunk_attention", q):
         return paged_chunk_attention_reference(q, k_pages, v_pages, table,
                                                start)
@@ -213,18 +396,24 @@ def paged_chunk_attention(q, k_pages, v_pages, table, start):
            q.dtype)
     B, C, H, Dh = q.shape
     KV, P, ps, _ = k_pages.shape
+    mp = table.shape[1]
+    body, stream = paged_body(q), _build.stream_of(q)
+    counters, part, sp = (_sm90_args(q, KV, ps, mp, stream)
+                          if body == "sm90" else (None, None, 1))
     out = torch.empty_like(q)
     err = _build.lib().dstt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), start.data_ptr(), out.data_ptr(), B, C, H, KV, Dh,
-        P, ps, table.shape[1], Dh ** -0.5, _build.DTYPE_CODES[q.dtype],
-        _build.stream_of(q))
+        P, ps, mp, Dh ** -0.5, _build.DTYPE_CODES[q.dtype],
+        int(body == "sm90"), counters, part, sp, stream)
     _build.check("dstt_paged_attention", err)
     paged_chunk_attention.launches += 1
+    paged_chunk_attention.body_launches[body] += 1
     return out
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.body_launches = {"sm90": 0, "scalar": 0}
 
 
 def paged_decode_attention(q, k_pages, v_pages, table, seq_lens):
@@ -243,7 +432,8 @@ def paged_chunk_attention_quant(q, kq_pages, ks_pages, vq_pages, vs_pages,
     int8 [KV, P, ps, Dh], per-token-row scales f32 [KV, P, ps, 1]),
     dequantised on chip.  CPU tensors take
     :func:`paged_chunk_attention_quant_reference`; CUDA tensors launch the
-    kernel or raise."""
+    body that :func:`paged_body` names, or raise; counts as
+    :func:`paged_chunk_attention`."""
     name = "paged_chunk_attention_quant"
     if not _device_ok(name, q):
         return paged_chunk_attention_quant_reference(
@@ -252,19 +442,25 @@ def paged_chunk_attention_quant(q, kq_pages, ks_pages, vq_pages, vs_pages,
            scales=(ks_pages, vs_pages))
     B, C, H, Dh = q.shape
     KV, P, ps, _ = kq_pages.shape
+    mp = table.shape[1]
+    body, stream = paged_body(q), _build.stream_of(q)
+    counters, part, sp = (_sm90_args(q, KV, ps, mp, stream)
+                          if body == "sm90" else (None, None, 1))
     out = torch.empty_like(q)
     err = _build.lib().dstt_paged_attention_quant(
         q.data_ptr(), kq_pages.data_ptr(), ks_pages.data_ptr(),
         vq_pages.data_ptr(), vs_pages.data_ptr(), table.data_ptr(),
-        start.data_ptr(), out.data_ptr(), B, C, H, KV, Dh, P, ps,
-        table.shape[1], Dh ** -0.5, _build.DTYPE_CODES[q.dtype],
-        _build.stream_of(q))
+        start.data_ptr(), out.data_ptr(), B, C, H, KV, Dh, P, ps, mp,
+        Dh ** -0.5, _build.DTYPE_CODES[q.dtype], int(body == "sm90"),
+        counters, part, sp, stream)
     _build.check("dstt_paged_attention_quant", err)
     paged_chunk_attention_quant.launches += 1
+    paged_chunk_attention_quant.body_launches[body] += 1
     return out
 
 
 paged_chunk_attention_quant.launches = 0
+paged_chunk_attention_quant.body_launches = {"sm90": 0, "scalar": 0}
 
 
 def paged_decode_attention_quant(q, kq_pages, ks_pages, vq_pages, vs_pages,

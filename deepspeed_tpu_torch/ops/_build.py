@@ -52,11 +52,12 @@ SIGNATURES = {
     "dstt_fused_adam": [_P] * 7 + [ctypes.c_longlong] + [_F] * 9
     + [_I, _I, _P],
     # q, kp, vp, table, start, out, B, C, H, KV, D, P, ps, mp, scale, dtype,
-    # stream
-    "dstt_paged_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # body, counters, part, span_pages, stream
+    "dstt_paged_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P, _P, _I, _P],
     # q, kq, ks, vq, vs, table, start, out, B, C, H, KV, D, P, ps, mp, scale,
-    # dtype, stream
-    "dstt_paged_attention_quant": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # dtype, body, counters, part, span_pages, stream
+    "dstt_paged_attention_quant": [_P] * 8 + [_I] * 8
+    + [_F, _I, _I, _P, _P, _I, _P],
     # q, kp, vp, table, start, part_m, part_l, part_acc, B, C, H, KV, D, P,
     # ps, mp, split_keys, nsplit, scale, dtype, stream
     "dstt_paged_split": [_P] * 8 + [_I] * 10 + [_F, _I, _P],

@@ -428,6 +428,95 @@ def test_paged_v1_split_matches_plain(gen, dtype, D, C, G, ps):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+def _sm90_paged_case(gen, C, G, ps, D):
+    """Rows at history lengths 0 (an empty decode row), 1, ps - 1, ps, a
+    decode span - 1 and + 1, and 1024, over distinct random live pages.  The
+    kernel's pool holds NaN wherever no row may read: in every page that a
+    table slot past a row's frontier points at, and past the frontier in
+    each row's last page; the plain versions get the same pool with those
+    NaNs as zeros.  Returns q, the two pools, the table and the starts."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        decode_span_pages)
+
+    KV, mp = 2, -(-(1024 + C) // ps) + 1
+    span = decode_span_pages(ps, mp) * ps
+    hist = [0, 1, ps - 1, ps, span - 1, span + 1, 1024]
+    starts = [h - 1 for h in hist] if C == 1 else hist
+    ends = [s + C for s in starts]                    # each row's frontier
+    B = len(hist)
+    used = [-(-max(e, 0) // ps) for e in ends]
+    n_live, n_nan = sum(used), 4
+    P = n_live + n_nan
+    perm = torch.randperm(n_live, generator=gen, device="cuda").int()
+    table = torch.randint(n_live, P, (B, mp), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    off = 0
+    for b, u in enumerate(used):
+        table[b, :u] = perm[off:off + u]
+        off += u
+    pools = []
+    for _ in range(2):
+        x = torch.randn((KV, P, ps, D), generator=gen, device="cuda")
+        x[:, n_live:] = float("nan")
+        for b, e in enumerate(ends):
+            if e % ps:                                # past the frontier
+                x[:, table[b, e // ps], e % ps:] = float("nan")
+        pools.append(x)
+    q = _randn(gen, (B, C, KV * G, D), torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    return q, pools, table, st
+
+
+# the Hopper body of B5 and B7 (bf16, head_dim 64 / 128): decode (C * G <=
+# 16 rows, split over spans) and chunks (tensor cores) at every GQA group
+# and page size of the engines
+PAGED_SM90_CASES = [(D, G, C, ps) for D in (64, 128) for G in (1, 4, 8)
+                    for C in (1, 7, 64, 256) for ps in (8, 16, 32)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("D,G,C,ps", PAGED_SM90_CASES)
+def test_paged_sm90_body_matches_plain(gen, quant, D, G, C, ps):
+    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention, paged_chunk_attention_quant,
+        paged_chunk_attention_quant_reference,
+        paged_chunk_attention_reference)
+
+    q, (kp, vp), table, st = _sm90_paged_case(gen, C, G, ps, D)
+    if quant:
+        kp[:, ::3, 1] = 0.0                 # zero-amax rows: scale 1.0
+        kq, ks = quantize_kv_rows(kp)
+        vq, vs = quantize_kv_rows(vp)
+        fn = paged_chunk_attention_quant
+        args = (kq, ks, vq, vs, table, st)
+        # the plain version over the same codes, NaN rows as zero rows
+        clean = [torch.where(torch.isnan(x), 0.0, x) for x in (ks, vs)]
+        kq0 = torch.where(torch.isnan(ks), 0, kq.int()).to(torch.int8)
+        vq0 = torch.where(torch.isnan(vs), 0, vq.int()).to(torch.int8)
+        ref = paged_chunk_attention_quant_reference(
+            q, kq0, clean[0], vq0, clean[1], table, st)
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        fn = paged_chunk_attention
+        args = (kp, vp, table, st)
+        ref = paged_chunk_attention_reference(
+            q, torch.nan_to_num(kp, nan=0.0), torch.nan_to_num(vp, nan=0.0),
+            table, st)
+    before = dict(fn.body_launches)
+    out = fn(q, *args)
+    again = fn(q, *args)
+    torch.cuda.synchronize()
+    assert fn.body_launches == {"sm90": before["sm90"] + 2,
+                                "scalar": before["scalar"]}
+    assert torch.isfinite(out).all(), "a read past a frontier"
+    assert torch.equal(out, again), "two launches disagree"
+    if C == 1:                      # start -1: the empty row gives zeros
+        assert not out[0].any()
+        out, ref = out[1:], ref[1:]
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
 def test_paged_kernels_reject_what_they_cannot_take(gen):
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_chunk_attention_quant, paged_chunk_attention_v1)
