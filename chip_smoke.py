@@ -37,9 +37,9 @@ and runs, in order:
    then one ``init_inference(dtype="int8")`` forward over the int8 tree;
 6. the training kernels (flash backward dQ and dK/dV on their tensor-core
    body, fused Adam) against their plain versions at the training shapes,
-   the backward at T = 2047 causal and with 3 packed segments, timed on the
-   device clock and with events beside the O.dO reduction and SDPA's
-   backward;
+   the backward at T = 2047 causal and with 3 packed segments (B2 forms
+   the O.dO reduction and is held to its plain version), timed on the
+   device clock and with events beside SDPA's backward;
 7. five train steps of ``initialize(...).train_batch`` on a tiny f32 Llama
    with the kernel arms against the plain arms: the same losses and params;
 8. the training main path at full width: Llama-3-8B widths cut to 4 layers
@@ -88,6 +88,10 @@ PAGED_CHUNK_TOL = 1e-2
 # 1.38e-3 (a bf16 ulp of the largest value is 2^-8 = 3.9e-3 of it): about
 # 3x room
 FLASH_BWD_REL_TOL = 4e-3
+# B2's delta against the plain O.dO reduction: the same f32 products summed
+# in another order, a few f32 ulps of each row's sum of |O * dO|; held to
+# 1e-5 of the largest |delta|
+FLASH_DELTA_REL_TOL = 1e-5
 # fused Adam in f32: both sides round every operation once, in one order;
 # the card read 0 at 2.1 M and 525 M elements, bf16 and f32 grads
 ADAM_TOL = 1e-6
@@ -162,6 +166,25 @@ def device_ms(fn, iters: int = 20) -> Optional[float]:
         if total > 0:
             return total / 1e3
     return None
+
+
+def device_median_ms(fn, iters: int = 100) -> Optional[float]:
+    """Median device time of one launch of the single kernel ``fn``
+    launches, over ``iters`` calls under ``torch.profiler``: robust to the
+    few launches a busy host delays; None if the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return float(np.median(us)) / 1e3 if us else None
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -712,14 +735,19 @@ def phase_env_probe(fns):
     ms = time_ms(lambda: env_report.env_probe(x), iters=100)
     plain_ms = time_ms(lambda: env_report.env_probe_reference(x), iters=100)
     library_ms = time_ms(lambda: torch.mul(x, 2.0), iters=100)
-    # the device clock takes the host's launch cost out of both
+    # the device clock takes the host's launch cost out of both: the mean
+    # per launch, and the median of 100 launches of each
     dev = device_ms(lambda: env_report.env_probe(x), iters=100)
     library_dev = device_ms(lambda: torch.mul(x, 2.0), iters=100)
+    med = device_median_ms(lambda: env_report.env_probe(x), iters=100)
+    library_med = device_median_ms(lambda: torch.mul(x, 2.0), iters=100)
     b_ms, b_by = bound(2 * x.numel() * 4, x.numel(), F32_FLOPS_PER_S)
     log(f"[env probe B10] (8, 128) f32: exact {err == 0.0}; kernel "
-        f"{ms:.4f} ms (device {dev}) plain {plain_ms:.4f} ms torch.mul "
-        f"{library_ms:.4f} ms (device {library_dev}) bound {b_ms:.7f} ms "
-        f"({b_by})")
+        f"{ms:.4f} ms (device {dev}, median {med}) plain {plain_ms:.4f} ms "
+        f"torch.mul {library_ms:.4f} ms (device {library_dev}, median "
+        f"{library_med}); kernel / torch.mul device medians "
+        f"{med / library_med if med and library_med else None}; bound "
+        f"{b_ms:.7f} ms ({b_by})")
     if not (r["ops"]["cuda probe"]["ok"] and err == 0.0):
         raise SystemExit("env probe failed")
     return {"name": "env_probe", "fn": env_report.env_probe,
@@ -728,7 +756,8 @@ def phase_env_probe(fns):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms, "device_ms": dev,
-            "library_device_ms": library_dev}, launches
+            "library_device_ms": library_dev, "device_median_ms": med,
+            "library_device_median_ms": library_med}, launches
 
 
 # ------------------------------------------------------------ phase 13
@@ -1389,9 +1418,10 @@ def _sdpa_bwd(q, k, v, do, seg=None):
 
 def phase_backward(gen):
     """B2 and B3 against their plain version at the training shape (T =
-    2047, causal, and with 3 packed segments), on the tensor-core body,
-    each timed on the device clock and with events beside ``flash_delta``
-    (the plain O.dO reduction the backward starts with) and SDPA's backward
+    2047, causal, and with 3 packed segments), on the tensor-core body: B2's
+    delta against ``flash_delta`` (the plain O.dO reduction), dq, dk and dv
+    against the plain backward; each kernel timed on the device clock and
+    with events (B2 with delta inside), their sum beside SDPA's backward
     (under the segments' mask where there are segments)."""
     from deepspeed_tpu_torch.ops.attention_cuda import (
         flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
@@ -1412,27 +1442,26 @@ def phase_backward(gen):
         seg, lens = _segments(T, nseg) if nseg else (None, [T])
         o, lse = flash_fwd(q, k, v, seg=seg)
         ro, rlse = flash_fwd_reference(q, k, v, seg=seg)
-        delta = flash_delta(o, do)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, seg)
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, seg)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg)
         want = flash_bwd_reference(q, k, v, o, lse, do, seg)
+        want_delta = flash_delta(o, do)
         torch.cuda.synchronize()
         err = {"o": (o.float() - ro.float()).abs().max().item(),
-               "lse": (lse - rlse).abs().max().item()}
+               "lse": (lse - rlse).abs().max().item(),
+               "delta": (delta - want_delta).abs().max().item(),
+               "delta_rel": _rel(delta, want_delta)}
         for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             err[name] = (g.float() - w.float()).abs().max().item()
             err[name + "_rel"] = _rel(g, w)
         errs[label] = err
-        del dq, dk, dv, want, ro, rlse
-        fn_dq = functools.partial(flash_bwd_dq, q, k, v, do, lse, delta, seg)
+        del dq, dk, dv, want, want_delta, ro, rlse
+        fn_dq = functools.partial(flash_bwd_dq, q, k, v, o, do, lse, seg)
         fn_dkv = functools.partial(flash_bwd_dkv, q, k, v, do, lse, delta,
                                    seg)
-        fn_delta = functools.partial(flash_delta, o, do)
         t = {"dq": time_ms(fn_dq, iters=10), "dkv": time_ms(fn_dkv, iters=10),
-             "delta": time_ms(fn_delta, iters=10),
              "dq_device": device_ms(fn_dq, iters=10),
-             "dkv_device": device_ms(fn_dkv, iters=10),
-             "delta_device": device_ms(fn_delta, iters=10)}
+             "dkv_device": device_ms(fn_dkv, iters=10)}
         t["plain"] = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do,
                                                          seg),
                              iters=3, warmup=1)
@@ -1443,32 +1472,38 @@ def phase_backward(gen):
         # live (query, key) pairs of this data: causal within each segment
         pairs = sum(n * (n + 1) // 2 for n in lens)
         io = 2 * (2 * B * T * H * D + 2 * B * T * KV * D)   # q, do, k, v
-        b_dq = bound(io + 2 * B * T * H * D + 8 * B * H * T,
-                     6 * D * pairs * H * B, BF16_FLOPS_PER_S)
+        # B2 also reads O and writes delta (2 flops a product of O.dO)
+        b_dq = bound(io + 2 * 2 * B * T * H * D + 8 * B * H * T,
+                     6 * D * pairs * H * B + 2 * B * T * H * D,
+                     BF16_FLOPS_PER_S)
         b_dkv = bound(io + 2 * 2 * B * T * KV * D + 8 * B * H * T,
                       8 * D * pairs * H * B, BF16_FLOPS_PER_S)
-        ours = (None if None in (t["dq_device"], t["dkv_device"],
-                                 t["delta_device"])
-                else t["dq_device"] + t["dkv_device"] + t["delta_device"])
+        ours = (None if None in (t["dq_device"], t["dkv_device"])
+                else t["dq_device"] + t["dkv_device"])
+        t["ratio"] = (ours / t["library_device"]
+                      if ours and t["library_device"] else None)
         log(f"[flash bwd] B={B} T={T} H={H} KV={KV} D={D} bf16 {label}, "
-            f"body {body}: o err {err['o']:.3e} lse err {err['lse']:.3e}; dq "
+            f"body {body}: o err {err['o']:.3e} lse err {err['lse']:.3e}; "
+            f"delta err {err['delta']:.3e} (rel {err['delta_rel']:.3e}, tol "
+            f"{FLASH_DELTA_REL_TOL}); dq "
             f"err {err['dq']:.3e} (rel {err['dq_rel']:.3e}) dk err "
             f"{err['dk']:.3e} (rel {err['dk_rel']:.3e}) dv err {err['dv']:.3e}"
             f" (rel {err['dv_rel']:.3e}) (rel tol {FLASH_BWD_REL_TOL}); dq "
             f"kernel {t['dq']:.5f} ms (device {t['dq_device']}) bound "
             f"{b_dq[0]:.5f} ms ({b_dq[1]}); dkv kernel {t['dkv']:.5f} ms "
             f"(device {t['dkv_device']}) bound {b_dkv[0]:.5f} ms "
-            f"({b_dkv[1]}); delta {t['delta']:.5f} ms (device "
-            f"{t['delta_device']}); dq + dkv + delta device {ours} "
-            f"ms; plain bwd {t['plain']:.4f} ms; sdpa bwd {t['library']} ms "
-            f"(device {t['library_device']})")
+            f"({b_dkv[1]}); dq (with delta) + dkv device {ours} ms; plain "
+            f"bwd {t['plain']:.4f} ms; sdpa bwd {t['library']} ms (device "
+            f"{t['library_device']}); ours / sdpa device {t['ratio']}")
         shapes[label] = dict(t, bound_dq=b_dq, bound_dkv=b_dkv)
-        del o, lse, delta, fn_dq, fn_dkv, fn_delta
+        del o, lse, delta, fn_dq, fn_dkv
         torch.cuda.empty_cache()
     worst = {n: max(e[n + "_rel"] for e in errs.values())
              for n in ("dq", "dk", "dv")}
     fwd_ok = all(e["o"] <= FLASH_TOL and e["lse"] <= 1e-3
                  for e in errs.values())
+    if max(e["delta_rel"] for e in errs.values()) > FLASH_DELTA_REL_TOL:
+        raise SystemExit("B2's delta disagrees with the plain O.dO reduction")
     if not fwd_ok or max(worst.values()) > FLASH_BWD_REL_TOL:
         raise SystemExit("flash backward disagrees with its plain version")
     rows = {}
@@ -1477,9 +1512,9 @@ def phase_backward(gen):
                                     ("dk", "dv"))):
         per = {label: {
             "ms": r[key], "device_ms": r[key + "_device"],
-            "delta_ms": r["delta"], "delta_device_ms": r["delta_device"],
             "plain_ms": r["plain"], "library_ms": r["library"],
             "library_device_ms": r["library_device"],
+            "b2_b3_over_library_device": r["ratio"],
             "bound_ms": r["bound_" + key][0], "bound_by": r["bound_" + key][1],
             "max_abs_err": max(errs[label][n] for n in grads),
             "rel_err": max(errs[label][n + "_rel"] for n in grads)}
@@ -1827,7 +1862,8 @@ def main() -> int:
                 for b in fns[name].body_launches}
             row["launches_by_path_and_body"] = {
                 p: c for p, c in paths.items() if any(c.values())}
-        for key in ("device_ms", "library_device_ms", "bound_share",
+        for key in ("device_ms", "library_device_ms", "device_median_ms",
+                    "library_device_median_ms", "bound_share",
                     "training_shape", "chunk"):
             if key in k:
                 row[key] = k[key]

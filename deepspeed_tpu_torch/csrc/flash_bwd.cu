@@ -7,10 +7,14 @@
 // lse [B, H, T] f32 that flash_fwd.cu writes, with s masked to -1e30 where
 // the key is past S, the row past T, the key above the diagonal (causal) or
 // in another segment (seg [B, T] int32, null = none, needs T == S).
-// delta [B, H, T] f32 = rowsum(O * dO) comes in from the wrapper (a plain
-// reduction, outside any Pallas kernel in the JAX package too).  q and dO
-// are [B, T, H, D], k and v [B, S, KV, D], all in their model layout; query
-// head h reads kv head h / (H / KV), so K/V are never repeated in memory.
+// delta [B, H, T] f32 = rowsum(O * dO), a plain reduction outside the
+// Pallas kernels in the JAX package, is formed by the dQ kernel here (both
+// bodies, in one order: the four threads of a row each sum f32(o) * f32(do)
+// over a D/4-column slice, the sums met as (s0 + s1) + (s2 + s3) over lane
+// bits 0 and 1) and written for every row below T; dK/dV reads it, launched
+// after dQ on the same stream.  q, O and dO are [B, T, H, D], k and v
+// [B, S, KV, D], all in their model layout; query head h reads kv head
+// h / (H / KV), so K/V are never repeated in memory.
 //
 // Bound on the H100: at the training shapes (T ~ 2k, D = 128) the work is
 // ~5 products of 2 T^2 H D / 2 flops over O(T H D) bytes, far above the
@@ -26,8 +30,8 @@
 //    every product on the f32 FMA units from shared memory:
 //
 // flash_bwd_dq: one block of 256 threads per (b*h, tile of 64 query rows)
-// sweeps the key tiles of 32 up to the causal frontier, with q, dO, lse and
-// delta resident in shared memory:
+// forms its rows' delta, then sweeps the key tiles of 32 up to the causal
+// frontier, with q, dO, lse and delta resident in shared memory:
 //   ds = p * (dO . V^T - delta) * scale;  dQ += ds . K
 // ds is rounded to K's dtype before the product, as the TPU kernel does.
 //
@@ -75,9 +79,10 @@ __device__ __forceinline__ bool live(int qp, int kp, int qs, int ks, bool causal
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const int* __restrict__ seg,
-                    T* __restrict__ dq, int T_, int S, int H, int KV, float scale, int causal) {
+                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    const int* __restrict__ seg, T* __restrict__ dq, int T_, int S, int H, int KV,
+                    float scale, int causal) {
   constexpr int BM = kDqBM, RPT = BM / 16;
   using Sm = DqSmem<D>;
   extern __shared__ __align__(16) char smem[];
@@ -114,7 +119,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     sQpos[r] = in ? tq : -1;
     sQseg[r] = has_seg && in ? seg[(long long)b * T_ + tq] : -1;
     sLse[r] = in ? lse[row] : 0.f;
-    sDelta[r] = in ? delta[row] : 0.f;
+  }
+  __syncthreads();  // sDO is in
+  {
+    // delta of row threadIdx.x / 4 (0 past T): the row's four threads each
+    // sum a D/4-column slice, met over lane bits 0 and 1, as the
+    // tensor-core body does
+    static_assert(kThreads == 4 * BM, "four threads a row");
+    const int r = threadIdx.x / 4, qc = threadIdx.x % 4;
+    const int tq = q0 + r;
+    float sum = 0.f;
+    if (tq < T_) {
+      const T* orow = o + (((long long)b * T_ + tq) * H + h) * D + qc * (D / 4);
+      const float* drow = sDO + r * (D + 1) + qc * (D / 4);
+#pragma unroll 8
+      for (int d = 0; d < D / 4; ++d) sum = fmaf(to_f<T>(orow[d]), drow[d], sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (qc == 0) {
+      sDelta[r] = sum;
+      if (tq < T_) delta[((long long)b * H + h) * T_ + tq] = sum;
+    }
   }
   float acc[BM / 16][D / 16];
 #pragma unroll
@@ -339,7 +365,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 struct BwdArgs {
-  const void *q, *k, *v, *dout, *lse, *delta;
+  const void *q, *k, *v, *o, *dout, *lse;
+  float* delta;  // written by dQ, read by dK/dV
   const int* seg;
   void *dq, *dk, *dv;
   int B, T, S, H, KV;
@@ -357,9 +384,9 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   dim3 grid(a.B * a.H, (a.T + kDqBM - 1) / kDqBM);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), a.seg, static_cast<T*>(a.dq), a.T, a.S, a.H, a.KV,
-      a.scale, a.causal);
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), a.delta, a.seg, static_cast<T*>(a.dq), a.T, a.S, a.H,
+      a.KV, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -373,8 +400,8 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   dim3 grid(a.B * a.KV, (a.S + kDkvBN - 1) / kDkvBN);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), a.seg, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse), a.delta, a.seg,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.T, a.S, a.H, a.KV, a.scale, a.causal);
   return cudaGetLastError();
 }
@@ -393,12 +420,11 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int D, cudaStream_t s) {
 template <bool DKV, int D>
 cudaError_t launch_sm90(const BwdArgs& a, cudaStream_t s) {
   const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
   if (DKV)
-    return sm90::launch_bwd_dkv<D>(a.q, a.k, a.v, a.dout, lse, delta, a.seg, a.dk, a.dv, a.B,
+    return sm90::launch_bwd_dkv<D>(a.q, a.k, a.v, a.dout, lse, a.delta, a.seg, a.dk, a.dv, a.B,
                                    a.T, a.S, a.H, a.KV, a.scale, a.causal, s);
-  return sm90::launch_bwd_dq<D>(a.q, a.k, a.v, a.dout, lse, delta, a.seg, a.dq, a.B, a.T, a.S,
-                                a.H, a.KV, a.scale, a.causal, s);
+  return sm90::launch_bwd_dq<D>(a.q, a.k, a.v, a.o, a.dout, lse, a.delta, a.seg, a.dq, a.B, a.T,
+                                a.S, a.H, a.KV, a.scale, a.causal, s);
 }
 
 template <bool DKV>
@@ -408,8 +434,10 @@ int run_bwd(const BwdArgs& a, int D, int dtype, int body, void* stream) {
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
+    // (o is null for dK/dV)
     const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-                           reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout);
+                           reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o) |
+                           reinterpret_cast<uintptr_t>(a.dout);
     if (dtype != 1 || (addr & 15) != 0) return cudaErrorInvalidValue;
     if (D == 64) return launch_sm90<DKV, 64>(a, s);
     if (D == 128) return launch_sm90<DKV, 128>(a, s);
@@ -423,16 +451,18 @@ int run_bwd(const BwdArgs& a, int D, int dtype, int body, void* stream) {
 
 }  // namespace dstt
 
-// dtype: 0 = float32, 1 = bfloat16; lse, delta: [B, H, T] f32; seg: [B, T]
-// int32 or null (needs T == S); body: 0 = the scalar body, 1 = the
-// tensor-core body (bfloat16, D 64 or 128, q/k/v/dout 16-byte aligned).
-// Each returns the launch's cudaError_t.
-extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, const void* seg, void* dq,
-                                 int B, int T, int S, int H, int KV, int D, float scale,
+// dtype: 0 = float32, 1 = bfloat16; lse, delta: [B, H, T] f32 (delta
+// written by dq for every row below T, read by dkv); seg: [B, T] int32 or
+// null (needs T == S); body: 0 = the scalar body, 1 = the tensor-core body
+// (bfloat16, D 64 or 128, q/k/v/o/dout 16-byte aligned).  Each returns the
+// launch's cudaError_t.
+extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, const void* lse, void* delta, const void* seg,
+                                 void* dq, int B, int T, int S, int H, int KV, int D, float scale,
                                  int causal, int dtype, int body, void* stream) {
-  const dstt::BwdArgs a{q, k, v, dout, lse, delta, static_cast<const int*>(seg), dq,
-                        nullptr, nullptr, B, T, S, H, KV, scale, causal};
+  const dstt::BwdArgs a{q, k, v, o, dout, lse, static_cast<float*>(delta),
+                        static_cast<const int*>(seg), dq, nullptr, nullptr, B, T, S, H, KV,
+                        scale, causal};
   return dstt::run_bwd<false>(a, D, dtype, body, stream);
 }
 
@@ -441,7 +471,9 @@ extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* seg, void* dk, void* dv, int B, int T, int S,
                                   int H, int KV, int D, float scale, int causal, int dtype,
                                   int body, void* stream) {
-  const dstt::BwdArgs a{q, k, v, dout, lse, delta, static_cast<const int*>(seg), nullptr,
-                        dk, dv, B, T, S, H, KV, scale, causal};
+  const dstt::BwdArgs a{q, k, v, nullptr, dout, lse,
+                        static_cast<float*>(const_cast<void*>(delta)),
+                        static_cast<const int*>(seg), nullptr, dk, dv, B, T, S, H, KV, scale,
+                        causal};
   return dstt::run_bwd<true>(a, D, dtype, body, stream);
 }

@@ -4,8 +4,9 @@
 // Replaces deepspeed_tpu/ops/attention_pallas.py::_bwd_dq_kernel (B2) and
 // ::_bwd_dkv_kernel (B3) for the shapes of the Llama paths (bf16, D = 128).
 // Both recompute p = exp2(s * scale * log2(e) - lse * log2(e)) from the
-// forward's lse [B, H, T] f32, take delta [B, H, T] f32 = rowsum(O * dO) from
-// the wrapper, and form ds = p * (dO . V^T - delta) * scale; causal or not,
+// forward's lse [B, H, T] f32 and form ds = p * (dO . V^T - delta) * scale
+// with delta [B, H, T] f32 = rowsum(O * dO), which B2 computes and writes
+// for every row below T and B3 reads after it on one stream; causal or not,
 // GQA read in place (query head h reads kv head h / (H / KV)), optional
 // packed segment ids [B, T] (T == S), ragged T and S.  q, k, v and dO are
 // read through 4-d tensor maps in their model layout [B, rows, heads, D], one
@@ -24,8 +25,17 @@
 //
 // B2, dQ: an item is (b * h, 128 query rows), heaviest causal tiles first;
 // each consumer owns 64 rows.  Q, dO (TMA, once per item), lse and delta
-// (each thread's two rows, from global memory) stay resident; K and V come
-// through a ring of four stages of 64 keys.  Per stage: S = Q K^T and
+// (each thread's two rows) stay resident; K and V come through a ring of
+// four stages of 64 keys.  delta is formed in the item's prologue, so no
+// pass over O and dO runs before the kernel: the four lanes of a row pair
+// (lane / 4) each sum f32(o) * f32(do) over a D/4-column slice of both rows,
+// O read from global memory (the loads issued before the wait for Q and
+// dO, so their latency hides behind it), dO from the swizzled shared tile,
+// and the partial sums meet over lane bits 0 and 1 (__shfl_xor_sync), as
+// (s0 + s1) + (s2 + s3); lane qc == 0 stores it.  O takes no shared memory
+// (a 128 x 128 bf16 tile would bring DqSmem<128> to ~225 of 227 KB); the
+// block's next item's O slices are prefetched into L2 during the sweep.  Per
+// stage: S = Q K^T and
 // dP = dO V^T are SS wgmma m64n64k16 (K and V K-major as loaded); p and ds
 // are formed on the accumulator fragment; ds is rounded to bf16 in registers
 // (as the TPU kernel rounds it to K's dtype) and is the register A operand
@@ -200,18 +210,39 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloa
 
 // ------------------------------------------------------------------ B2: dQ
 
+// the 128-byte line at p into L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// acc + sum of f32(a_i) * f32(b_i) over 8 packed bf16 pairs, in column order
+__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b, float acc) {
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pa + i));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pb + i));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
 template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_do,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int B,
-                         int T, int S, int H, int KV, float scale, int causal) {
+                         const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
+                         float* __restrict__ delta, const int* __restrict__ seg,
+                         __nv_bfloat16* __restrict__ dq, int B, int T, int S, int H, int KV,
+                         float scale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   DqSmem<D>& s = aligned_smem<DqSmem<D>>(smem_raw);
   constexpr uint32_t kHalfQ = kDqRows * 128, kHalfK = kDqKeys * 128;
+  constexpr int kDeltaChunks = D / 32;  // 16-byte chunks of a lane's D/4 columns
   const int n_q = (T + kDqRows - 1) / kDqRows;
   const int items = n_q * B * H;
 
@@ -325,18 +356,61 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       int qseg[2] = {0, 0};
       row[0] = wg_row0 + warp * 16 + lane / 4;
       row[1] = row[0] + 8;
+      // this lane's D/4 columns of O in both rows, 16 bytes a load, in
+      // flight while the producer's Q and dO arrive
+      uint4 ov[2][kDeltaChunks];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            o + (((long long)b * T + row[r]) * H + h) * D + qc * (D / 4));
+#pragma unroll
+        for (int j = 0; j < kDeltaChunks; ++j)
+          ov[r][j] = row[r] < T ? src[j] : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         // rows past T read nothing: lse +inf gives them p = 0
         const bool in = row[r] < T;
         const long long off = ((long long)b * H + h) * T + row[r];
         lse2[r] = in ? lse[off] * kLog2e : INFINITY;
-        dlt[r] = in ? delta[off] : 0.f;
         if (kSeg) qseg[r] = in ? seg[(long long)b * T + row[r]] : -1;
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       mbar_wait(&s.q_full, k & 1);
+      // delta of both rows: dO's same columns from the shared tile (row n of
+      // the item's 128, 16-byte chunk c of D at half c / 8, chunk c % 8
+      // swizzled with n % 8), the four lanes' sums met over lane bits 0, 1
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = wg * 64 + warp * 16 + lane / 4 + 8 * r;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kDeltaChunks; ++j) {
+          const int c = qc * kDeltaChunks + j;
+          const uint4 d4 = *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const unsigned char*>(s.dout[c / 8]) + n * 128 +
+              (((c % 8) ^ (n % 8)) << 4));
+          sum = dot8_bf16(ov[r][j], d4, sum);
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const bool in = row[r] < T;
+        dlt[r] = in ? sum : 0.f;
+        if (in && qc == 0) delta[((long long)b * H + h) * T + row[r]] = sum;
+      }
+      // the same slices of the block's next item into L2 while this one
+      // sweeps, so that its O loads wait on L2, not device memory
+      const int w_next = item_index(k + 1, items);
+      if (w_next >= 0) {
+        const Item nx = item_at<kDqRows, kDqKeys>(w_next, n_q, B * H, H, S, causal);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int nr = nx.q0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
+          if (nr < T)
+            prefetch_l2(o + (((long long)nx.b * T + nr) * H + nx.h) * D + qc * (D / 4));
+        }
+      }
       for (int t = 0; t < item.n_tiles; ++t, ++slot) {
         const int st = slot % kDqStages;
         const int n0 = t * kDqKeys;
@@ -706,9 +780,9 @@ inline cudaError_t bwd_grid(long long items, bool has_seg, unsigned* grid) {
 }
 
 template <int D>
-cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, const int* seg, void* dq, int B,
-                          int T, int S, int H, int KV, float scale, int causal,
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, const int* seg,
+                          void* dq, int B, int T, int S, int H, int KV, float scale, int causal,
                           cudaStream_t stream) {
   Maps m;
   cudaError_t err = encode_bwd_maps(&m, q, k, v, dout, B, T, S, H, KV, D, kDqRows, kDqKeys);
@@ -720,8 +794,9 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   unsigned grid = 0;
   err = bwd_grid((long long)((T + kDqRows - 1) / kDqRows) * B * H, seg != nullptr, &grid);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kBwdThreads, smem, stream>>>(m.q, m.k, m.v, m.dout, lse, delta, seg,
-                                            static_cast<__nv_bfloat16*>(dq), B, T, S, H, KV,
+  kern<<<grid, kBwdThreads, smem, stream>>>(m.q, m.k, m.v, m.dout,
+                                            static_cast<const __nv_bfloat16*>(o), lse, delta,
+                                            seg, static_cast<__nv_bfloat16*>(dq), B, T, S, H, KV,
                                             scale, causal);
   return cudaGetLastError();
 }

@@ -41,9 +41,9 @@ SIGNATURES = {
     # q, k, v, seg, o, lse, B, T, S, H, KV, D, scale, causal, dtype, body,
     # stream
     "dstt_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _P],
-    # q, k, v, do, lse, delta, seg, dq, B, T, S, H, KV, D, scale, causal,
-    # dtype, body, stream
-    "dstt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, delta (written), seg, dq, B, T, S, H, KV, D,
+    # scale, causal, dtype, body, stream
+    "dstt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
     # q, k, v, do, lse, delta, seg, dk, dv, B, T, S, H, KV, D, scale, causal,
     # dtype, body, stream
     "dstt_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],

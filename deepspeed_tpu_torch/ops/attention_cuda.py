@@ -17,7 +17,9 @@ head_dim 64 or 128 (the Llama paths) the tensor-core bodies
 on mbarriers, a producer warp, two consumer warpgroups running ``wgmma``,
 the softmax or the backward's p and ds on the accumulator fragment); for
 float32 and bf16 head_dim 16 or 32 the scalar bodies (f32 FMA from shared
-memory).  :func:`flash_fwd_tiled_reference` and
+memory).  The dQ kernel forms the backward's delta = rowsum(O * dO) itself
+(:func:`flash_delta_sliced` is its order in plain PyTorch) and hands it to
+the dK/dV kernel.  :func:`flash_fwd_tiled_reference` and
 :func:`flash_bwd_tiled_reference` walk the tensor-core bodies' tiles in
 plain PyTorch.
 """
@@ -159,6 +161,24 @@ def flash_delta(o, do):
     return (o.float() * do).sum(-1).transpose(1, 2).contiguous()
 
 
+# threads of a row that split its D columns when the dQ kernels form delta
+DELTA_LANES = 4
+
+
+def flash_delta_sliced(o, do):
+    """delta in the dQ kernels' order -> [B, H, T] f32: each row's D
+    columns in ``DELTA_LANES`` slices of D/4, each slice's f32 products
+    summed on its own, then the slices' sums met as (s0 + s1) + (s2 + s3),
+    as the xor shuffles over lane bits 0 and 1 meet them.  Within a slice
+    the kernels add in column order and this sum in its own: they agree to
+    a few f32 ulps."""
+    B, T, H, D = o.shape
+    part = (o.float() * do).reshape(B, T, H, DELTA_LANES,
+                                    D // DELTA_LANES).sum(-1)
+    delta = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+    return delta.transpose(1, 2).contiguous()
+
+
 def flash_bwd_reference(q, k, v, o, lse, do, seg=None, causal: bool = True):
     """Plain version of the two backward kernels -> (dq, dk, dv) in the
     inputs' dtypes: p = exp(s - lse) recomputed from the forward's lse,
@@ -208,7 +228,8 @@ def flash_bwd_tiled_reference(q, k, v, o, lse, do, seg=None,
     a tile whose ids fall outside the range of the block's ids is skipped;
     the element mask (-inf) only on a tile that crosses the diagonal or S,
     or whose ids are mixed; unscaled f32 scores, p = exp2(s * scale *
-    log2(e) - lse * log2(e)); ds = p (dO.V^T - delta) scale; ds rounded to
+    log2(e) - lse * log2(e)); delta in the dQ kernel's order
+    (:func:`flash_delta_sliced`); ds = p (dO.V^T - delta) scale; ds rounded to
     K's dtype before dQ += ds.K; P and dS each split into hi = x in the
     operand dtype and lo = x - hi in it, both multiplied into dV += P^T.dO
     and dK += dS^T.Q.  Not on any main path: the CPU tests hold it to the
@@ -222,7 +243,7 @@ def flash_bwd_tiled_reference(q, k, v, o, lse, do, seg=None,
     log2e = torch.tensor(LOG2E, **f32)
     scale_log2 = scale * log2e
     lse2 = lse * log2e                                   # [B, H, T]
-    delta = flash_delta(o, do)                           # [B, H, T]
+    delta = flash_delta_sliced(o, do)                    # [B, H, T]
     qf, dof = (x.float().transpose(1, 2) for x in (q, do))   # [B, H, T, D]
     kf, vf = (x.float().transpose(1, 2) for x in (k, v))     # [B, KV, S, D]
     kh = kf.repeat_interleave(G, dim=1)                  # [B, H, S, D]
@@ -393,19 +414,23 @@ def flash_bwd_body(q) -> str:
     return flash_fwd_body(q)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, seg=None, causal: bool = True):
-    """dQ kernel (CUDA tensors only): q/do [B,T,H,D], k/v [B,S,KV,D],
-    lse/delta [B,H,T] f32 -> dq [B,T,H,D] in q's dtype.  Launches the body
-    that :func:`flash_bwd_body` names; ``flash_bwd_dq.launches`` counts
-    every launch, ``flash_bwd_dq.body_launches`` each body's."""
-    B, T, S, H, KV, D = _check("flash_bwd_dq", q, k, v, seg, ("do", do))
-    lse, delta = _rows_f32("flash_bwd_dq", lse, delta, (B, H, T), q.device)
+def flash_bwd_dq(q, k, v, o, do, lse, seg=None, causal: bool = True):
+    """dQ kernel (CUDA tensors only): q/o/do [B,T,H,D], k/v [B,S,KV,D],
+    lse [B,H,T] f32 -> (dq [B,T,H,D] in q's dtype, delta [B,H,T] f32 =
+    rowsum(O * dO), which the kernel forms in :func:`flash_delta_sliced`'s
+    order and writes for every row, for :func:`flash_bwd_dkv`).  Launches
+    the body that :func:`flash_bwd_body` names; ``flash_bwd_dq.launches``
+    counts every launch, ``flash_bwd_dq.body_launches`` each body's."""
+    B, T, S, H, KV, D = _check("flash_bwd_dq", q, k, v, seg, ("o", o),
+                               ("do", do))
+    _rows_f32("flash_bwd_dq", (B, H, T), q.device, lse=lse)
     body = flash_bwd_body(q)
     if body == "wgmma":
-        q, k, v, do = _tma_aligned(q, k, v, do)
+        q, k, v, o, do = _tma_aligned(q, k, v, o, do)
     dq = torch.empty_like(q)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     err = _build.lib().dstt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(), B, T, S,
         H, KV, D, 1.0 / math.sqrt(D), int(causal),
         _build.DTYPE_CODES[q.dtype], int(body == "wgmma"),
@@ -413,7 +438,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, seg=None, causal: bool = True):
     _build.check("dstt_flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
     flash_bwd_dq.body_launches[body] += 1
-    return dq
+    return dq, delta
 
 
 flash_bwd_dq.launches = 0
@@ -421,11 +446,12 @@ flash_bwd_dq.body_launches = {"wgmma": 0, "scalar": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, seg=None, causal: bool = True):
-    """dK/dV kernel (CUDA tensors only) -> (dk, dv) [B,S,KV,D] in k's
-    dtype, each summed over the kv head's group of query heads.  Bodies and
-    counts as :func:`flash_bwd_dq`."""
+    """dK/dV kernel (CUDA tensors only), with delta as
+    :func:`flash_bwd_dq` returns it -> (dk, dv) [B,S,KV,D] in k's dtype,
+    each summed over the kv head's group of query heads.  Bodies and counts
+    as :func:`flash_bwd_dq`."""
     B, T, S, H, KV, D = _check("flash_bwd_dkv", q, k, v, seg, ("do", do))
-    lse, delta = _rows_f32("flash_bwd_dkv", lse, delta, (B, H, T), q.device)
+    _rows_f32("flash_bwd_dkv", (B, H, T), q.device, lse=lse, delta=delta)
     body = flash_bwd_body(q)
     if body == "wgmma":
         q, k, v, do = _tma_aligned(q, k, v, do)
@@ -447,23 +473,23 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dkv.body_launches = {"wgmma": 0, "scalar": 0}
 
 
-def _rows_f32(name, lse, delta, shape, device):
-    for tname, t in (("lse", lse), ("delta", delta)):
+def _rows_f32(name, shape, device, **rows):
+    for tname, t in rows.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32 \
                 or t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be a contiguous {shape} "
                              f"float32 tensor on {device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    return lse, delta
 
 
 def flash_bwd(q, k, v, o, lse, do, seg=None, causal: bool = True):
     """Flash attention backward -> (dq, dk, dv).  CPU tensors take
-    :func:`flash_bwd_reference`; CUDA tensors compute delta with a plain
-    reduction and launch the dQ and dK/dV kernels, or raise."""
+    :func:`flash_bwd_reference`; CUDA tensors launch the dQ kernel, which
+    forms delta = rowsum(O * dO) too, then the dK/dV kernel on the same
+    stream, or raise.  ``o`` may be a strided view (the plain forward's
+    is); the kernel's own is contiguous and is not copied."""
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, o, lse, do, seg, causal)
-    delta = flash_delta(o, do)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, seg, causal)
+    dq, delta = flash_bwd_dq(q, k, v, o.contiguous(), do, lse, seg, causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal)
     return dq, dk, dv

@@ -209,6 +209,70 @@ def test_flash_bwd_wgmma_matches_plain_and_tiled(gen, D, T, S, G, causal,
         assert _rel_err(g, t) <= rel, name
 
 
+# the dQ kernels' delta against flash_delta: the same f32 products summed in
+# another order (a few f32 ulps of the row's sum of |O * dO|), held to 1e-5
+# of the largest |delta|
+DELTA_REL_TOL = 1e-5
+
+
+def _dq_into(q, k, v, o, do, lse, seg, causal, dq, delta):
+    """dstt_flash_bwd_dq into the caller's dq and delta buffers, on the body
+    the wrapper would pick."""
+    import math
+
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.attention_cuda import flash_bwd_body
+
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    err = _build.lib().dstt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if seg is None else seg.data_ptr(), dq.data_ptr(), B, T, S, H,
+        KV, D, 1.0 / math.sqrt(D), int(causal), _build.DTYPE_CODES[q.dtype],
+        int(flash_bwd_body(q) == "wgmma"), _build.stream_of(q))
+    _build.check("dstt_flash_bwd_dq", err)
+
+
+# (dtype, D) on both bodies: f32 and bf16 D 32 take the scalar one, bf16 D
+# 64 / 128 the tensor-core one.  Segment layouts: none; thirds; or one id per
+# 128 rows, so that every 128-row item of the tensor-core body sees only
+# its own rows' keys and skips every other key tile (no item can skip all
+# of them: with T == S each row's own key is live)
+@pytest.mark.parametrize("seg_kind", [None, "thirds", "items"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1, 65, 300])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+def test_flash_bwd_dq_writes_delta(gen, dtype, D, T, causal, seg_kind):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd_dq, flash_delta, flash_fwd_reference)
+
+    q, o, do = (_randn(gen, (2, T, 8, D), dtype) for _ in range(3))
+    k, v = (_randn(gen, (2, T, 2, D), dtype) for _ in range(2))
+    seg = None
+    if seg_kind == "thirds":
+        seg = _segments(2, T)
+    elif seg_kind == "items":
+        seg = (torch.arange(T, device="cuda", dtype=torch.int32) // 128
+               ).expand(2, T).contiguous()
+    _, lse = flash_fwd_reference(q, k, v, causal=causal, seg=seg)
+    # every row below T must be written: the buffers start as NaN
+    dq = torch.full_like(q, float("nan"))
+    delta = torch.full((2, 8, T), float("nan"), device="cuda")
+    _dq_into(q, k, v, o, do, lse, seg, causal, dq, delta)
+    got_dq, got_delta = flash_bwd_dq(q, k, v, o, do, lse, seg, causal)
+    want = flash_delta(o, do)
+    torch.cuda.synchronize()
+    assert not delta.isnan().any() and not dq.isnan().any()
+    assert _rel_err(delta, want) <= DELTA_REL_TOL
+    # the wrapper launches the same kernel: the same bits
+    assert got_delta.shape == want.shape and got_delta.dtype == torch.float32
+    assert torch.equal(got_delta, delta) and torch.equal(got_dq, dq)
+
+
 def test_flash_bwd_counts_launches_per_body(gen):
     from deepspeed_tpu_torch.ops.attention_cuda import (
         flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference, flash_delta,
@@ -224,13 +288,14 @@ def test_flash_bwd_counts_launches_per_body(gen):
         else:
             q, k, v, do = (_randn(gen, shape, dtype) for _ in range(4))
         o, lse = flash_fwd_reference(q, k, v)
-        delta = flash_delta(o, do)
+        o = o.contiguous()            # the kernel's layout
         before = [(f.launches, dict(f.body_launches))
                   for f in (flash_bwd_dq, flash_bwd_dkv)]
-        dq = flash_bwd_dq(q, k, v, do, lse, delta)
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
         want = flash_bwd_reference(q, k, v, o, lse, do)
         torch.cuda.synchronize()
+        assert _rel_err(delta, flash_delta(o, do)) <= DELTA_REL_TOL
         for g, w in zip((dq, dk, dv), want):
             assert _rel_err(g, w) <= TOL[dtype]
         counts = []
@@ -251,9 +316,16 @@ def test_flash_bwd_counts_launches_per_body(gen):
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
                                      (torch.bfloat16, 128)])
-def test_flash_attention_function_grads_on_the_card(gen, dtype, D):
+def test_flash_attention_function_grads_on_the_card(gen, dtype, D,
+                                                    monkeypatch):
     from deepspeed_tpu_torch.ops import attention_cuda as ac
     from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
+
+    def no_plain_delta(*a):
+        raise AssertionError("the plain O.dO reduction ran on the card")
+
+    # the dQ kernel forms delta: the plain reduction is off the CUDA path
+    monkeypatch.setattr(ac, "flash_delta", no_plain_delta)
 
     q, k, v = (_randn(gen, s, dtype).requires_grad_(True)
                for s in ((1, 96, 8, D), (1, 96, 2, D), (1, 96, 2, D)))
@@ -661,6 +733,22 @@ def test_quantize_rejects_what_it_cannot_take(gen):
         quantize_rows(_randn(gen, (4, 8), torch.float16))
     with pytest.raises(ValueError, match=r"\[G, gsz\]"):
         quantize_rows(_randn(gen, (4, 8, 2), torch.float32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 1024, 1027, 4097])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_env_probe_bit_equal_at_every_size_and_alignment(gen, n, offset):
+    # offset 1: a contiguous view one float off 16-byte alignment, which
+    # takes the scalar path; n % 4 != 0 leaves a scalar tail
+    from deepspeed_tpu_torch import env_report
+
+    x = torch.randn((n + offset,), generator=gen, device="cuda")[offset:]
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = env_report.env_probe.launches
+    out = env_report.env_probe(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2 * x)
+    assert env_report.env_probe.launches == before + 1
 
 
 def test_env_probe_and_report_on_the_card(gen):

@@ -100,6 +100,6 @@ def test_no_graph_under_no_grad_and_kernels_refuse_the_cpu():
     assert out.grad_fn is None
     lse = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="unsupported device"):
-        tcuda.flash_bwd_dq(q, k, v, q, lse, lse)
+        tcuda.flash_bwd_dq(q, k, v, q, q, lse)
     with pytest.raises(ValueError, match="unsupported device"):
         tcuda.flash_bwd_dkv(q, k, v, q, lse, lse)

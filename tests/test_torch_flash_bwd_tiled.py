@@ -25,6 +25,8 @@ from deepspeed_tpu.ops.attention import _reference as jax_reference
 from deepspeed_tpu.ops.attention_pallas import flash_attention_tpu
 from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_reference,
                                                     flash_bwd_tiled_reference,
+                                                    flash_delta,
+                                                    flash_delta_sliced,
                                                     flash_fwd_reference)
 
 torch.set_num_threads(1)
@@ -33,6 +35,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # unequal size whose edges fall on both sides of the diagonal
 BLOCKS = [(128, 64, 64), (64, 32, 32), (32, 96, 48)]
 FLASH_BWD_REL_TOL = 4e-3          # chip_smoke.py's gate for B2/B3
+# delta in the dQ kernels' order against a plain sum: both sum the same f32
+# products, each order within a few ulps of the row's sum of |O * dO|
+# (read at most 3 over D 16-128, f32 and bf16 inputs): 8 such ulps
+DELTA_ULPS = 8
 
 
 def _inputs(T, S, G, seed, D=16, KV=2, B=1):
@@ -141,3 +147,28 @@ def test_twin_bf16_within_the_card_gate(D, causal):
         rel = ((g.float() - w.float()).abs().max()
                / w.float().abs().max()).item()
         assert rel <= FLASH_BWD_REL_TOL, (name, rel)
+
+
+@pytest.mark.parametrize("T", [1, 300])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_delta_matches_plain_and_jax(dtype, D, T):
+    # the kernels' four D/4-column slices met as (s0 + s1) + (s2 + s3),
+    # against flash_delta and the JAX package's own delta
+    # (attention_pallas._flash_bwd_impl: jnp.sum of f32 out * f32 do)
+    rng = np.random.default_rng(D + T)
+    o, do = (torch.from_numpy(rng.standard_normal((2, T, 4, D),
+                                                  dtype=np.float32)).to(dtype)
+             for _ in range(2))
+    got = flash_delta_sliced(o, do)
+    assert got.shape == (2, 4, T) and got.dtype == torch.float32
+    of, dof = o.float().numpy(), do.float().numpy()
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jo, jdo = (jnp.asarray(x).astype(jdt) for x in (of, dof))
+    jax_delta = np.asarray(jnp.sum(jo.astype(jnp.float32)
+                                   * jdo.astype(jnp.float32), axis=-1))
+    ulp = np.spacing(np.abs(of * dof).sum(-1)).transpose(0, 2, 1)
+    for name, want in (("flash_delta", flash_delta(o, do).numpy()),
+                       ("jax", jax_delta.transpose(0, 2, 1))):
+        err = np.abs(got.numpy() - want)
+        assert (err <= DELTA_ULPS * ulp).all(), (name, (err / ulp).max())

@@ -5,11 +5,11 @@ one CUDA GPU: phase 6 of ``chip_smoke.py`` (``phase_backward``), run
 
     python3 tools/torch_flash_bwd_bench.py [--rounds 2] [--seeds 0]
 
-Each round holds both kernels to their plain version and times them, the
-plain O.dO reduction (``flash_delta``), SDPA's backward and the plain
-backward at the training shape (Llama-3-8B heads, bf16, T = 2047 causal and
-with 3 packed segments), on the device clock and with events, with the
-smoke's bounds.  ``--seeds N`` then holds them to the plain version on N
+Each round holds B2's delta (the O.dO reduction it forms) to the plain
+``flash_delta`` and both kernels' gradients to their plain version, and
+times the two kernels, SDPA's backward and the plain backward at the
+training shape (Llama-3-8B heads, bf16, T = 2047 causal and with 3 packed
+segments), on the device clock and with events, with the smoke's bounds.  ``--seeds N`` then holds them to the plain version on N
 more random inputs of each shape under the smoke's metric and gate
 (``FLASH_BWD_REL_TOL``), untimed, and counts the inputs over it.  The
 kernels come from the checkout this script sits in, so two checkouts
