@@ -10,23 +10,30 @@ and runs, in order:
    against their plain PyTorch versions on the card at the serving shapes,
    and the flash forward at the training shape too (T = 2047, causal and
    with 3 packed segments), each timed beside SDPA; paged attention (B5)
-   at decode and C = 256 on its Hopper body, on the device clock too;
-9. the int8-resident paged kernel (B7) and the split-key v1 kernel (B8)
-   against their plain versions at the same shapes, beside B5, on the
-   device clock too;
+   at decode and C = 256 on its Hopper body, and greedy argmax (B6) beside
+   ``torch.argmax``, on the device clock too;
+9. the int8-resident paged kernel (B7) and the v1 arm (B8: B5's Hopper
+   body for bf16, held to its tiled twin; the split-key pair for f32, held
+   to the split plain version) against their plain versions at the same
+   shapes, beside B5, on the device clock too;
 4. the kernel arms and the plain arms of the serving engine on a tiny f32
    Llama: identical greedy tokens;
 10. the same on engines with ``prefix_cache`` and ``kv_tier``
-   (int8-resident pages: B7; the ``pallas_v1`` arm: B8), with pages
+   (int8-resident pages: B7 and B9's fused K/V write against the ``xla``
+   arm, whose writes are plain; the ``pallas_v1`` arm: B8), with pages
    demoted and promoted;
 5. Llama-3-8B at full width (random seeded weights, bf16) served through
    ``llama_serving_engine`` with whole-prompt and chunked prefill;
 11. the prefix-cached, tiered, int8-resident path at the same width: two
    waves of prompts on one shared prefix (the second promotes it from the
-   host tier), then the ``pallas_v1`` arm on phase 5's traffic;
+   host tier), each layer's K/V written by one launch of B9's fused entry
+   (as many as B7's), then the ``pallas_v1`` arm on phase 5's traffic;
 12. the group-quantize kernel (B9) against its plain version, bit for bit,
-   at the stacked FFN leaf of Llama-3-8B and at a decode step's K/V rows
-   (also against the host codec), with NaN / inf / zero groups; the probe
+   at the stacked FFN leaf of Llama-3-8B (device clock) and at a decode
+   step's K/V rows (device median; also against the host codec), with NaN
+   / inf / zero groups, and its fused K/V write of one layer at a decode
+   step, a C = 256 chunk and a padded prompt (all four page planes against
+   the plain version's, rows past and at capacity among them); the probe
    kernel (B10) through ``env_report.report()``, then timed beside
    ``torch.mul`` with events and on the device clock;
 13. the int8 engine built on the card (B9) against one over weights
@@ -39,7 +46,8 @@ and runs, in order:
    body, fused Adam) against their plain versions at the training shapes,
    the backward at T = 2047 causal and with 3 packed segments (B2 forms
    the O.dO reduction and is held to its plain version), timed on the
-   device clock and with events beside SDPA's backward;
+   device clock and with events beside SDPA's backward, and fused Adam at
+   the LM head's leaf on the device clock beside ``_fused_adamw_``;
 7. five train steps of ``initialize(...).train_batch`` on a tiny f32 Llama
    with the kernel arms against the plain arms: the same losses and params;
 8. the training main path at full width: Llama-3-8B widths cut to 4 layers
@@ -52,9 +60,10 @@ Each main path (the env report of phase 12, the two serving runs of phase
 int8 serving runs and the ``init_inference`` forward of phase 14, and the
 training run) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
-after), and the launches per body of the flash kernels and of B5 / B7:
-every Llama-3-8B path must run only their Hopper bodies (flash "wgmma",
-B5 / B7 "sm90"), the f32 runs only the scalar ones.
+after), and the launches per body of the flash kernels, B5, B7, B8 and
+B9: every Llama-3-8B path must run only their Hopper bodies (flash
+"wgmma", B5 / B7 / B8 "sm90") and B9's vector body, the f32 runs only the
+scalar attention bodies.
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
@@ -101,11 +110,13 @@ ADAM_TOL = 1e-6
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_PARAM_ATOL = 2e-5
 
-# B7 (int8 pages) and B8 (split-key v1) against their plain versions, bf16
-# at the serving shapes, set from the card's first reading as for B5: B7
-# read 9.8e-4 at decode and 3.9e-3 at C=256, B8 3.1e-5 and 3.9e-3 (one
-# bf16 ulp of the largest |o| at C=256); room of 2.5x to 30x, each bound
-# below the ~1e-2 shift that dropping one key of a long row makes
+# B7 (int8 pages) and B8's split-key pair against their plain versions at
+# the serving shapes, set from the card's first reading as for B5: B7 read
+# 9.8e-4 at decode and 3.9e-3 at C=256 (bf16), the pair 3.1e-5 and 3.9e-3
+# in bf16 (the smoke holds it in f32, its only dtype on the paths); room of
+# 2.5x to 30x, each bound below the ~1e-2 shift that dropping one key of a
+# long row makes.  B8's launches on B5's Hopper body are held to B5's gates
+# against the body's tiled twin
 PAGED_QUANT_DECODE_TOL = 4e-3
 PAGED_QUANT_CHUNK_TOL = 1e-2
 PAGED_V1_DECODE_TOL = 1e-3
@@ -119,8 +130,9 @@ TIER_KV = {"quantize_cold": True, "quantized_resident": True,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # kernel with two bodies -> main path -> its launches per body (the flash
-# kernels' tensor-core "wgmma", B5's and B7's Hopper "sm90", "scalar"),
-# read just after the path as its other counts are
+# kernels' tensor-core "wgmma", B5's, B7's and B8's Hopper "sm90",
+# "scalar"; B9's "vec" and "scalar"), read just after the path as its other
+# counts are
 BODIES = {}
 
 
@@ -466,28 +478,39 @@ def phase_greedy(gen):
     ms = time_ms(lambda: fused_greedy_rows(x), iters=50)
     plain_ms = time_ms(lambda: greedy_rows_reference(x), iters=50)
     library_ms = time_ms(lambda: torch.argmax(x, dim=-1), iters=50)
+    # the device clock, without the host's launch cost in either
+    dev = device_ms(lambda: fused_greedy_rows(x), iters=50)
+    library_dev = device_ms(lambda: torch.argmax(x, dim=-1), iters=50)
     b_ms, b_by = bound(B * V * 4 + B * 4, B * V, F32_FLOPS_PER_S)
     log(f"[greedy] B={B} V={V} f32 planted ties: exact {exact} (tol: "
-        f"exact; NaN rows {nan_ok}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms argmax "
-        f"{library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        f"exact; NaN rows {nan_ok}); kernel {ms:.4f} ms (device {dev}, "
+        f"bound share {_share(b_ms, dev)}) plain {plain_ms:.4f} ms argmax "
+        f"{library_ms:.4f} ms (device {library_dev}) bound {b_ms:.4f} ms "
+        f"({b_by})")
     if not exact:
         raise SystemExit("greedy kernel is not bit-exact")
     return {"name": "greedy_argmax", "fn": fused_greedy_rows,
             "source": "deepspeed_tpu_torch/csrc/greedy_argmax.cu",
             "replaces": "deepspeed_tpu/ops/sampling_pallas.py:65",
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_ms": dev, "library_device_ms": library_dev,
+            "bound_share": _share(b_ms, dev)}
 
 
 # ------------------------------------------------------------ phase 9
 def phase_paged_quant_v1(gen):
     """B7 over int8 pages made by the port's codec from bf16 pages, B8 and
-    B5 over the bf16 pages, at phase 3's decode and chunk shapes."""
+    B5 over the bf16 pages, at phase 3's decode and chunk shapes.  B8 takes
+    B5's Hopper body there (one launch) and is held to the body's tiled
+    twin at B5's gates; over the same pages in f32 it takes the split-key
+    pair (two launches), held to the split plain version at its own."""
     from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_attention_quant_reference, paged_chunk_attention,
         paged_chunk_attention_quant, paged_chunk_attention_quant_reference,
-        paged_chunk_attention_split_reference, paged_chunk_attention_v1,
+        paged_chunk_attention_split_reference,
+        paged_chunk_attention_tiled_reference, paged_chunk_attention_v1,
         paged_decode_attention, paged_decode_attention_quant,
         paged_decode_attention_v1)
 
@@ -510,11 +533,10 @@ def phase_paged_quant_v1(gen):
                 q, kq, ks, vq, vs, table, st)
             v1 = lambda: paged_decode_attention_v1(  # noqa: E731
                 q, kp, vp, table, st)
-            v1_ref = lambda: paged_chunk_attention_split_reference(  # noqa
-                q[:, None], kp, vp, table, st - 1)[:, 0]
             b5 = lambda: paged_decode_attention(  # noqa: E731
                 q, kp, vp, table, st)
-            # the kernels alone, for the device clock
+            # the chunk entries at start = length - 1: the kernels alone,
+            # for the device clock, and B8's inputs in its chunk form
             q1, st1 = q[:, None], st - 1
             quant_k = lambda: paged_chunk_attention_quant(  # noqa: E731
                 q1, kq, ks, vq, vs, table, st1)
@@ -532,50 +554,76 @@ def phase_paged_quant_v1(gen):
                 q, kq, ks, vq, vs, table, st)
             v1 = lambda: paged_chunk_attention_v1(  # noqa: E731
                 q, kp, vp, table, st)
-            v1_ref = lambda: paged_chunk_attention_split_reference(  # noqa
-                q, kp, vp, table, st)
             b5 = lambda: paged_chunk_attention(  # noqa: E731
                 q, kp, vp, table, st)
+            q1, st1 = q, st
             quant_k, b5_k = quant, b5
             live = sum(s + C for s in lens)
             pairs = sum(s * C + C * (C + 1) // 2 for s in lens)
             io = 2 * 2 * 8 * C * H * D
+        v1_k = lambda: paged_chunk_attention_v1(  # noqa: E731
+            q1, kp, vp, table, st1)
+        v1_ref = lambda: paged_chunk_attention_tiled_reference(  # noqa
+            q1, kp, vp, table, st1)
+        sm90_before = paged_chunk_attention_v1.body_launches["sm90"]
         got_q, want_q = quant(), quant_ref()
-        got_1, want_1 = v1(), v1_ref()
+        got_1, want_1 = v1_k(), v1_ref()
+        v1_sm90 = paged_chunk_attention_v1.body_launches["sm90"] \
+            - sm90_before == 1
+        # the split-key pair over the same pages and q in f32
+        qf, kf, vf = q1.float(), kp.float(), vp.float()
+        scalar_before = paged_chunk_attention_v1.body_launches["scalar"]
+        got_f = paged_chunk_attention_v1(qf, kf, vf, table, st1)
+        want_f = paged_chunk_attention_split_reference(qf, kf, vf, table,
+                                                       st1)
+        v1_split = paged_chunk_attention_v1.body_launches["scalar"] \
+            - scalar_before == 2
         torch.cuda.synchronize()
         err_q = (got_q.float() - want_q.float()).abs().max().item()
         err_1 = (got_1.float() - want_1.float()).abs().max().item()
-        # the decode row 0 is empty: zeros from both kernels
+        err_f = (got_f - want_f).abs().max().item()
+        # the decode row 0 is empty: zeros from every kernel
         empty_zero = C > 1 or bool((got_q[0] == 0).all()
-                                   and (got_1[0] == 0).all())
+                                   and (got_1[0] == 0).all()
+                                   and (got_f[0] == 0).all())
         iters = 20 if C == 1 else 10
         ms_q = time_ms(quant, iters=iters)
         dev_q = device_ms(quant_k, iters=iters)
         plain_q = time_ms(quant_ref, iters=3)
         ms_1 = time_ms(v1, iters=iters)
-        dev_1 = device_ms(v1, iters=iters)
-        plain_1 = time_ms(v1_ref, iters=3)
+        dev_1 = device_ms(v1_k, iters=iters)
+        plain_1 = time_ms(v1_ref, iters=2, warmup=1)
+        dev_f = device_ms(lambda: paged_chunk_attention_v1(
+            qf, kf, vf, table, st1), iters=iters)
         ms_5 = time_ms(b5, iters=iters)
         dev_5 = device_ms(b5_k, iters=iters)
         flops = 4 * pairs * H * D
         # B7 reads (D codes + one f32 scale) per live row, head and K/V;
-        # B5 and B8 read 2·D bytes of bf16
+        # B5 and B8 read 2·D bytes of bf16 (4·D in f32)
         bq = bound(2 * live * KV * (D + 4) + io, flops, BF16_FLOPS_PER_S)
         b1 = bound(2 * live * KV * D * 2 + io, flops, BF16_FLOPS_PER_S)
+        bf = bound(2 * live * KV * D * 4 + 2 * io, flops, F32_FLOPS_PER_S)
         tol_q = PAGED_QUANT_DECODE_TOL if C == 1 else PAGED_QUANT_CHUNK_TOL
-        tol_1 = PAGED_V1_DECODE_TOL if C == 1 else PAGED_V1_CHUNK_TOL
+        tol_1 = PAGED_DECODE_TOL if C == 1 else PAGED_CHUNK_TOL
+        tol_f = PAGED_V1_DECODE_TOL if C == 1 else PAGED_V1_CHUNK_TOL
         log(f"[paged {shape} B7 int8] B=8 C={C} ps={ps} lens={lens}: "
             f"max_abs_err {err_q:.3e} (tol {tol_q}); kernel {ms_q:.4f} ms "
             f"(device {dev_q}, bound share {_share(bq[0], dev_q)}) plain "
             f"{plain_q:.4f} ms bound {bq[0]:.5f} ms ({bq[1]}) library none")
-        log(f"[paged {shape} B8 v1 split] B=8 C={C} ps={ps} bf16: max_abs_err "
-            f"{err_1:.3e} (tol {tol_1}); kernel (both launches) {ms_1:.4f} "
-            f"ms (device {dev_1}) plain {plain_1:.4f} ms bound "
-            f"{b1[0]:.5f} ms ({b1[1]}) library none")
+        log(f"[paged {shape} B8 v1 sm90] B=8 C={C} ps={ps} bf16, one launch "
+            f"{v1_sm90}: max_abs_err vs the tiled twin {err_1:.3e} (tol "
+            f"{tol_1}); kernel {ms_1:.4f} ms (device {dev_1}, bound share "
+            f"{_share(b1[0], dev_1)}) plain (tiled twin) {plain_1:.4f} ms "
+            f"bound {b1[0]:.5f} ms ({b1[1]}) library none")
+        log(f"[paged {shape} B8 v1 split] B=8 C={C} ps={ps} f32, two "
+            f"launches {v1_split}: max_abs_err vs the split plain version "
+            f"{err_f:.3e} (tol {tol_f}); device {dev_f} bound {bf[0]:.5f} "
+            f"ms ({bf[1]})")
         log(f"[paged {shape} B5 same bf16 pages] kernel {ms_5:.4f} ms "
             f"(device {dev_5}, bound share {_share(b1[0], dev_5)}) bound "
             f"{b1[0]:.5f} ms ({b1[1]}); empty_row_zero {empty_zero}")
-        if not (err_q <= tol_q and err_1 <= tol_1 and empty_zero):
+        if not (err_q <= tol_q and err_1 <= tol_1 and err_f <= tol_f
+                and empty_zero and v1_sm90 and v1_split):
             raise SystemExit(f"B7/B8 disagree with their plain versions "
                              f"({shape})")
         for key, ms, dev, plain, err, bnd in (
@@ -586,28 +634,36 @@ def phase_paged_quant_v1(gen):
                                "err": err, "bound_ms": bnd[0],
                                "bound_by": bnd[1],
                                "bound_share": _share(bnd[0], dev)}
+        out["v1"][shape]["f32_split"] = {
+            "device_ms": dev_f, "max_abs_err": err_f, "bound_ms": bf[0],
+            "bound_by": bf[1]}
         del kp, vp, kq, ks, vq, vs, q, got_q, want_q, got_1, want_1
+        del qf, kf, vf, got_f, want_f
         torch.cuda.empty_cache()
 
     def row(name, fn, source, replaces, key):
         d, c = out[key]["decode"], out[key]["chunk"]
-        return {"name": name, "fn": fn, "source": source,
-                "replaces": replaces, "max_abs_err": max(d["err"], c["err"]),
-                "ms": d["ms"], "plain_ms": d["plain_ms"],
-                "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-                "library_ms": None, "device_ms": d["device_ms"],
-                "bound_share": d["bound_share"],
-                "chunk": {"C": 256, "ms": c["ms"], "device_ms": c["device_ms"],
-                          "bound_share": c["bound_share"],
-                          "plain_ms": c["plain_ms"],
-                          "bound_ms": c["bound_ms"],
-                          "bound_by": c["bound_by"], "max_abs_err": c["err"]}}
+        r = {"name": name, "fn": fn, "source": source,
+             "replaces": replaces, "max_abs_err": max(d["err"], c["err"]),
+             "ms": d["ms"], "plain_ms": d["plain_ms"],
+             "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+             "library_ms": None, "device_ms": d["device_ms"],
+             "bound_share": d["bound_share"],
+             "chunk": {"C": 256, "ms": c["ms"], "device_ms": c["device_ms"],
+                       "bound_share": c["bound_share"],
+                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                       "bound_by": c["bound_by"], "max_abs_err": c["err"]}}
+        if "f32_split" in d:
+            r["f32_split"] = {
+                "source": "deepspeed_tpu_torch/csrc/paged_attention_split.cu",
+                "decode": d["f32_split"], "chunk": c["f32_split"]}
+        return r
 
     return [row("paged_attention_quant", paged_chunk_attention_quant,
                 "deepspeed_tpu_torch/csrc/paged_attention_quant.cu",
                 "deepspeed_tpu/inference/kernels.py:795", "quant"),
             row("paged_attention_v1", paged_chunk_attention_v1,
-                "deepspeed_tpu_torch/csrc/paged_attention_split.cu",
+                "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "deepspeed_tpu/inference/kernels.py:958", "v1")]
 
 
@@ -624,16 +680,62 @@ def _quant_err(got, want) -> float:
     return float(max(q_err, s_err))
 
 
+# the fused K/V write's cases at the tier's widths (8 rows of 128-slot
+# tables of 16-key pages, 8 kv heads of 128, bf16): name -> (rows a
+# sequence, starts; None = a prompt from 0).  Decode holds a row at the last
+# slot, one at capacity and one past it; the chunk rows that run past
+# capacity and one wholly past it; the prompt a padded tail (1000 % 16)
+KV_WRITE_CASES = {
+    "decode": (1, [0, 128, 255, 400, 1024, 2047, 2048, 3000]),
+    "chunk": (256, [0, 128, 256, 300, 512, 600, 1900, 2048]),
+    "prompt": (1000, None),
+}
+
+
+def kv_write_inputs(gen, rows, starts, B=8, KV=8, D=128, ps=16, mp=128):
+    """Inputs of one layer's int8-resident K/V write: new K and V [B, rows,
+    KV, D] bf16, a table of distinct pages, the starts (None for a prompt)
+    and the four page planes filled with random codes and scales."""
+    P = B * mp + 1
+    perm = torch.randperm(P, generator=gen, device="cuda").int()
+    table = perm[:B * mp].reshape(B, mp).contiguous()
+    new = [(torch.randn((B, rows, KV, D), generator=gen, device="cuda")
+            * 3.0).to(torch.bfloat16) for _ in range(2)]
+    planes = []
+    for _ in range(2):
+        planes.append(torch.randint(-127, 128, (KV, P, ps, D), generator=gen,
+                                    device="cuda", dtype=torch.int8))
+        planes.append(torch.rand((KV, P, ps, 1), generator=gen,
+                                 device="cuda"))
+    st = (None if starts is None else
+          torch.tensor(starts, dtype=torch.int32, device="cuda"))
+    return planes, new, table, st
+
+
+def kv_write_rows(rows, starts, B=8, mp=128, ps=16):
+    """The rows a write stores per plane and kv head (in capacity, and a
+    prompt's padded tail)."""
+    if starts is None:
+        return B * -(-rows // ps) * ps
+    return sum(max(0, min(rows, mp * ps - s)) for s in starts)
+
+
 def phase_quant(gen):
-    """B9 against its plain version: the stacked w1 leaf of Llama-3-8B
-    ([32, 4096, 14336] bf16 as 14.68 M groups of 128 in one launch, as the
-    engine build quantizes it; the plain version runs on 4 M-group slices
-    of the same input, for memory), the K/V rows of one decode step ([8, 8,
-    128] bf16, also against the host codec), and f32 groups holding NaN,
-    inf and zeros.  ``max_abs_err`` is the largest over the three."""
-    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    """B9 against its plain version, bit for bit: the stacked w1 leaf of
+    Llama-3-8B ([32, 4096, 14336] bf16 as 14.68 M groups of 128 in one
+    launch, as the engine build quantizes it; the plain version runs on 4
+    M-group slices of the same input, for memory), the K/V rows of one
+    decode step ([8, 8, 128] bf16, also against the host codec), f32 groups
+    holding NaN, inf and zeros, and the fused K/V write of one layer at a
+    decode step, a C = 256 chunk and a prompt with a padded tail (all four
+    page planes against the plain version's).  Times on the device clock
+    (the w1 leaf's mean, the medians of 100 launches at the small shapes)
+    beside events around the wrapper.  ``max_abs_err`` is the largest over
+    all of them."""
+    from deepspeed_tpu_torch.inference.kernels import (
+        quantize_kv_rows, write_kv_quant, write_kv_quant_reference)
     from deepspeed_tpu_torch.inference.kv_tier import quantize_page
-    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+    from deepspeed_tpu_torch.ops.quant_cuda import (quant_body, quantize_rows,
                                                     quantize_rows_reference)
 
     L, d, f = 32, 4096, 14336
@@ -642,7 +744,10 @@ def phase_quant(gen):
         layer.normal_(generator=gen)
     rows = w1.view(-1, 128)
     G, n = rows.shape[0], w1.numel()
+    vec_before = quantize_rows.body_launches["vec"]
     q, sc = quantize_rows(rows)          # the build's one launch
+    vec_ok = (quant_body(rows) == "vec"
+              and quantize_rows.body_launches["vec"] == vec_before + 1)
     err_w1 = 0.0
     for lo in range(0, G, 1 << 22):      # plain version in slices (memory)
         hi = min(G, lo + (1 << 22))
@@ -657,6 +762,7 @@ def phase_quant(gen):
                           != amax / torch.full_like(amax, 127.0)).sum())
     del amax
     ms = time_ms(lambda: quantize_rows(rows), iters=10)
+    dev = device_ms(lambda: quantize_rows(rows), iters=10)
     plain_ms = time_ms(lambda: quantize_rows_reference(rows), iters=2,
                        warmup=1)
     # read each bf16 element, write its code and one f32 scale per group;
@@ -674,6 +780,7 @@ def phase_quant(gen):
     host_kv = (np.array_equal(kq.cpu().numpy(), hq)
                and np.array_equal(ks.cpu().numpy(), hs))
     kv_ms = time_ms(lambda: quantize_kv_rows(kv), iters=50)
+    kv_med = device_median_ms(lambda: quantize_kv_rows(kv), iters=100)
     kv_plain = time_ms(lambda: quantize_kv_rows(kv, force_reference=True),
                        iters=50)
     kb_ms, kb_by = bound(64 * 128 * 3 + 64 * 4, 5 * 64 * 128,
@@ -691,27 +798,69 @@ def phase_quant(gen):
                    and torch.isnan(got[1][[1, 4]]).all()
                    and torch.isinf(got[1][[2, 3]]).all())
     torch.cuda.synchronize()
-    err = max(err_w1, err_kv, err_f32)
+
+    writes, err_write = {}, 0.0
+    for case, (nrows, starts) in KV_WRITE_CASES.items():
+        planes, new, table, st = kv_write_inputs(gen, nrows, starts)
+        want = [p.clone() for p in planes]
+        before = quantize_rows.launches
+        write_kv_quant(*planes, *new, table, st, 16)
+        one_launch = quantize_rows.launches == before + 1
+        write_kv_quant_reference(*want, *new, table, st, 16)
+        torch.cuda.synchronize()
+        err = max(_quant_err((planes[i], planes[i + 1]),
+                             (want[i], want[i + 1])) for i in (0, 2))
+        err_write = max(err_write, err if one_launch else float("inf"))
+        del want
+        fn = functools.partial(write_kv_quant, *planes, *new, table, st, 16)
+        w_ms = time_ms(fn, iters=50)
+        w_med = device_median_ms(fn, iters=100)
+        w_plain = time_ms(functools.partial(
+            write_kv_quant_reference, *planes, *new, table, st, 16), iters=5)
+        stored = kv_write_rows(nrows, starts) * 8 * 2     # rows, K and V
+        read = min(stored, 2 * 8 * 8 * nrows) * 128 * 2
+        wb = bound(read + stored * (128 + 4), 5 * stored * 128,
+                   F32_FLOPS_PER_S)
+        writes[case] = {"rows": nrows, "starts": starts, "max_abs_err": err,
+                        "one_launch": one_launch, "ms": w_ms,
+                        "device_median_ms": w_med, "plain_ms": w_plain,
+                        "bound_ms": wb[0], "bound_by": wb[1],
+                        "bound_share": _share(wb[0], w_med)}
+        log(f"[quantize B9 K/V write] {case}: B=8 rows={nrows} starts="
+            f"{starts} KV=8 D=128 bf16 into int8 pages of 16 (tables of "
+            f"128): one launch {one_launch}, max |err| of the four planes "
+            f"{err} (bit-equal: 0); kernel {w_ms:.4f} ms (device median "
+            f"{w_med}, bound share {_share(wb[0], w_med)}) plain "
+            f"{w_plain:.4f} ms bound {wb[0]:.6f} ms ({wb[1]})")
+        del planes, new, table, st
+        torch.cuda.empty_cache()
+
+    err = max(err_w1, err_kv, err_f32, err_write)
     log(f"[quantize B9] w1 leaf [{L}, {d}, {f}] bf16 as [{G}, 128], one "
-        f"launch: max |err| of codes and scales {err_w1} (bit-equal: 0); "
-        f"kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) library none; "
-        f"scalar-divisor scales off the IEEE quotient: {scalar_div_off} of "
-        f"{1 << 22} groups")
+        f"launch on the vector body {vec_ok}: max |err| of codes and scales "
+        f"{err_w1} (bit-equal: 0); kernel {ms:.4f} ms (device {dev}, bound "
+        f"share {_share(b_ms, dev)}) plain {plain_ms:.4f} ms bound "
+        f"{b_ms:.4f} ms ({b_by}) library none; scalar-divisor scales off "
+        f"the IEEE quotient: {scalar_div_off} of {1 << 22} groups")
     log(f"[quantize B9] decode K/V rows [8, 8, 128] bf16: max |err| "
         f"{err_kv}, equal to the host codec {host_kv}; kernel {kv_ms:.4f} "
-        f"ms plain {kv_plain:.4f} ms bound {kb_ms:.6f} ms ({kb_by})")
+        f"ms (device median {kv_med}, bound share {_share(kb_ms, kv_med)}) "
+        f"plain {kv_plain:.4f} ms bound {kb_ms:.6f} ms ({kb_by})")
     log(f"[quantize B9] [4096, 128] f32 with zero / NaN / inf groups: max "
         f"|err| {err_f32}, special groups as the plain version {special}")
-    if not (err == 0.0 and host_kv and special):
+    if not (err == 0.0 and host_kv and special and vec_ok):
         raise SystemExit("quantize kernel disagrees with its plain version")
     return {"name": "quantize", "fn": quantize_rows,
             "source": "deepspeed_tpu_torch/csrc/quant.cu",
             "replaces": "deepspeed_tpu/ops/quant.py:190",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "kv_rows": {"ms": kv_ms, "plain_ms": kv_plain,
-                        "bound_ms": kb_ms, "bound_by": kb_by}}
+            "device_ms": dev, "bound_share": _share(b_ms, dev),
+            "kv_rows": {"ms": kv_ms, "device_median_ms": kv_med,
+                        "plain_ms": kv_plain, "bound_ms": kb_ms,
+                        "bound_by": kb_by,
+                        "bound_share": _share(kb_ms, kv_med)},
+            "kv_write": writes}
 
 
 def phase_env_probe(fns):
@@ -882,7 +1031,8 @@ def phase_tier_identity(fns):
     plain arm) and the ``pallas_v1`` arm (B8) against ``xla`` on a dense
     tier; identical greedy tokens over two waves on one shared prefix, with
     pages demoted and promoted and no leaks.  The plain arms launch no
-    kernel but B9 on the int8-resident K/V writes."""
+    kernel: the ``xla`` arm writes int8-resident K/V through the fused
+    write's plain version, the kernel arm through B9's fused entry."""
     import dataclasses
 
     from deepspeed_tpu_torch.inference.serving import llama_serving_engine
@@ -930,12 +1080,15 @@ def phase_tier_identity(fns):
         ok = same and all(
             s["demoted"] > 0 and s["promoted"] > 0 and s["hits"] > 0
             and s["leaks"] == [] for s in stats)
-        # B9 has no plain arm on the card: both arms quantize K/V rows
-        # through it (phase 12 holds it to its plain version bit for bit)
+        # the plain arm launches nothing (its int8-resident K/V writes take
+        # the fused write's plain version on the card too); the kernel arm
+        # writes through B9's fused entry, one launch a layer, as many as B7
         ok = ok and stats[0]["launches"][kernel_name] > 0 and not any(
-            n for k, n in stats[1]["launches"].items() if k != "quantize")
+            stats[1]["launches"].values())
         if label == "int8-resident":
-            ok = ok and all(s["quant_promotes"] > 0 for s in stats)
+            ok = ok and all(s["quant_promotes"] > 0 for s in stats) and (
+                stats[0]["launches"]["quantize"]
+                == stats[0]["launches"][kernel_name])
         if not ok:
             raise SystemExit(f"tier identity ({label}) failed")
 
@@ -1016,29 +1169,36 @@ def _zero(fns):
 
 
 def _two_body_kernels():
-    """Kernel name -> (wrapper, its Hopper body's name) for the kernels
-    with a Hopper body and a scalar one."""
+    """Kernel name -> (wrapper, its body on the Llama-3-8B paths, its body on
+    the tiny f32 paths) for the kernels with two bodies: the flash kernels'
+    tensor-core "wgmma", B5's, B7's and B8's Hopper "sm90" (f32 takes
+    "scalar"), and B9's "vec" (every group size of both: a multiple of 8)."""
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
-        paged_chunk_attention, paged_chunk_attention_quant)
+        paged_chunk_attention, paged_chunk_attention_quant,
+        paged_chunk_attention_v1)
     from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
                                                         flash_bwd_dq,
                                                         flash_fwd)
+    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
 
-    return {"flash_fwd": (flash_fwd, "wgmma"),
-            "flash_bwd_dq": (flash_bwd_dq, "wgmma"),
-            "flash_bwd_dkv": (flash_bwd_dkv, "wgmma"),
-            "paged_attention": (paged_chunk_attention, "sm90"),
-            "paged_attention_quant": (paged_chunk_attention_quant, "sm90")}
+    return {"flash_fwd": (flash_fwd, "wgmma", "scalar"),
+            "flash_bwd_dq": (flash_bwd_dq, "wgmma", "scalar"),
+            "flash_bwd_dkv": (flash_bwd_dkv, "wgmma", "scalar"),
+            "paged_attention": (paged_chunk_attention, "sm90", "scalar"),
+            "paged_attention_quant": (paged_chunk_attention_quant, "sm90",
+                                      "scalar"),
+            "paged_attention_v1": (paged_chunk_attention_v1, "sm90",
+                                   "scalar"),
+            "quantize": (quantize_rows, "vec", "vec")}
 
 
 def _check_bodies(path, hopper=True, record=True):
-    """Every launch of the flash kernels and of B5 / B7 since the counts
-    were set to 0 went through their Hopper bodies ("wgmma" for flash,
-    "sm90" for B5 and B7) on the Llama-3-8B paths, or through "scalar" for
-    f32 (``hopper=False``); a main path's counts go into the kernels
-    line."""
-    for name, (f, hopper_body) in _two_body_kernels().items():
-        body = hopper_body if hopper else "scalar"
+    """Every launch of the two-body kernels since the counts were set to 0
+    went through the body they take on the Llama-3-8B paths (the Hopper
+    bodies, B9's vector body), or on the tiny f32 paths
+    (``hopper=False``); a main path's counts go into the kernels line."""
+    for name, (f, hopper_body, f32_body) in _two_body_kernels().items():
+        body = hopper_body if hopper else f32_body
         got = dict(f.body_launches)
         if record:
             BODIES.setdefault(name, {})[path] = got
@@ -1108,8 +1268,9 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
     """The slice's main path at full width: an engine with ``prefix_cache``
     and an int8-resident ``kv_tier`` serves wave A (no hits), its warm pages
     demote to the host tier, and wave B on the same prefix promotes them
-    back as int8 pages and runs its suffix chunks and decode through B7.
-    Then the ``pallas_v1`` arm (B8) on phase 5's traffic."""
+    back as int8 pages and runs its suffix chunks and decode through B7,
+    every layer's K/V written by one launch of B9's fused entry.  Then the
+    ``pallas_v1`` arm (B8, on B5's Hopper body) on phase 5's traffic."""
     from deepspeed_tpu_torch.inference.serving import llama_serving_engine
 
     def zero():
@@ -1204,6 +1365,13 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
         _check_launches(path, launches[path],
                         ("paged_attention_quant", "greedy_argmax",
                          "quantize"))
+        # one fused K/V write a layer and forward: as many B9 launches as B7
+        if launches[path]["quantize"] != launches[path][
+                "paged_attention_quant"]:
+            raise SystemExit(f"{path}: {launches[path]['quantize']} K/V "
+                             f"writes for "
+                             f"{launches[path]['paged_attention_quant']} "
+                             f"B7 launches")
     log(f"[tier] peak_mem {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     # the timing wrappers hold bound methods of the engine they sit on: a
     # reference cycle that would keep the engine (its weights, its KV pool)
@@ -1227,7 +1395,8 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
         f"check_leaks {leaks}; tokens/s {m['tokens_per_s']:.2f} ttft_mean "
         f"{m['ttft_s_mean'] * 1e3:.1f} ms ms/decode_step "
         f"{m['ms_per_decode_step']} B8 launches "
-        f"{launches[path]['paged_attention_v1']} on {card_line}; kernel "
+        f"{launches[path]['paged_attention_v1']} (by body "
+        f"{BODIES['paged_attention_v1'][path]}) on {card_line}; kernel "
         f"launches {launches[path]}")
     if not done or leaks:
         raise SystemExit(f"{path} failed")
@@ -1527,18 +1696,22 @@ def phase_backward(gen):
     return rows
 
 
-def _fused_adamw_ms(n, gen):
+def _fused_adamw_ms(n, gen, device_clock=False):
     """``torch._fused_adamw_`` on an f32 leaf of n elements, timed as a
-    yardstick only (the port never calls it)."""
+    yardstick only (the port never calls it): events, and with
+    ``device_clock`` the device clock too."""
     if not hasattr(torch, "_fused_adamw_"):
-        return None
+        return None, None
     p, g, m = (torch.randn((n,), generator=gen, device="cuda")
                for _ in range(3))
     v = m.abs()
     step = torch.ones((), device="cuda")
-    return time_ms(lambda: torch._fused_adamw_(
-        [p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999,
-        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), iters=10)
+    fn = functools.partial(
+        torch._fused_adamw_, [p], [g], [m], [v], [], [step], lr=1e-3,
+        beta1=0.9, beta2=0.999, weight_decay=0.1, eps=1e-8, amsgrad=False,
+        maximize=False)
+    return (time_ms(fn, iters=10),
+            device_ms(fn, iters=10) if device_clock else None)
 
 
 def phase_adam(gen):
@@ -1561,26 +1734,34 @@ def phase_adam(gen):
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
             worst = max(worst, err)
             del got, want
-            ms = time_ms(lambda: adam_update(g, m, v, p, c1, c2, 1e-3,
-                                             wd=0.1), iters=10)
+            main = n > 2_100_000 and g_dt == torch.float32
+            fn = functools.partial(adam_update, g, m, v, p, c1, c2, 1e-3,
+                                   wd=0.1)
+            ms = time_ms(fn, iters=10)
+            # the device clock at the LM head's leaf, the train step's shape
+            dev = device_ms(fn, iters=10) if main else None
+            del fn
             plain = time_ms(lambda: adam_update_reference(
                 g, m, v, p, c1, c2, 1e-3, wd=0.1), iters=3, warmup=1)
             del g, p, m, v
             torch.cuda.empty_cache()
-            library = _fused_adamw_ms(n, gen)
+            library, library_dev = _fused_adamw_ms(n, gen, device_clock=main)
             gb = 2 if g_dt == torch.bfloat16 else 4
             b_ms, b_by = bound(n * (gb + 4 * 3 + 4 * 3), 15 * n,
                                F32_FLOPS_PER_S)
             log(f"[fused adam] n={n} g {str(g_dt)[6:]} p float32 wd=0.1: "
                 f"max_abs_err {err:.3e} (tol {ADAM_TOL}); kernel {ms:.4f} ms "
-                f"plain {plain:.4f} ms _fused_adamw_ (f32) {library} ms bound "
-                f"{b_ms:.4f} ms ({b_by})")
-            if n > 2_100_000 and g_dt == torch.float32:
+                f"(device {dev}, bound share {_share(b_ms, dev)}) plain "
+                f"{plain:.4f} ms _fused_adamw_ (f32) {library} ms (device "
+                f"{library_dev}) bound {b_ms:.4f} ms ({b_by})")
+            if main:
                 row = {"name": "fused_adam", "ms": ms, "plain_ms": plain,
                        "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
                        "replaces": "deepspeed_tpu/ops/adam_pallas.py:64",
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": library}
+                       "library_ms": library, "device_ms": dev,
+                       "library_device_ms": library_dev,
+                       "bound_share": _share(b_ms, dev)}
     if worst > ADAM_TOL:
         raise SystemExit("fused adam disagrees with its plain version")
     row["max_abs_err"] = worst
@@ -1864,7 +2045,8 @@ def main() -> int:
                 p: c for p, c in paths.items() if any(c.values())}
         for key in ("device_ms", "library_device_ms", "device_median_ms",
                     "library_device_median_ms", "bound_share",
-                    "training_shape", "chunk"):
+                    "training_shape", "chunk", "f32_split", "kv_rows",
+                    "kv_write"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

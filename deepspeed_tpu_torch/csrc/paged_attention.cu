@@ -2,7 +2,9 @@
 // over dense pages.
 //
 // Replaces deepspeed_tpu/inference/kernels.py::_chunk_v2_kernel (behind
-// paged_chunk_attention_v2 and paged_decode_attention_v2).  Two bodies
+// paged_chunk_attention_v2 and paged_decode_attention_v2), and for a bf16 q
+// with head_dim 64 or 128 the v1 _chunk_kernel too (the pallas_v1 arm, B8,
+// which computes the same function; only its page walk differs).  Two bodies
 // behind one entry; the caller names the body by dtype and head dim (the
 // `body` argument), never by retrying:
 //  - the Hopper body (paged_attention_sm90.cuh) for bfloat16 with head_dim

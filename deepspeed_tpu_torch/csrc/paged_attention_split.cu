@@ -1,4 +1,6 @@
-// Split-key paged attention for Hopper (sm_90a): the port of the v1 arm.
+// Split-key paged attention for Hopper (sm_90a): the port of the v1 arm for
+// float32 and head_dim 16 / 32 (a bf16 q with head_dim 64 or 128 takes the
+// Hopper body of paged_attention.cu, paged_attention_sm90.cuh).
 //
 // Replaces deepspeed_tpu/inference/kernels.py::_chunk_kernel (behind
 // paged_chunk_attention and paged_decode_attention, the

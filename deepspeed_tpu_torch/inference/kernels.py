@@ -25,6 +25,7 @@ from deepspeed_tpu_torch.inference.paged_attention_cuda import (
     paged_chunk_attention_quant, paged_chunk_attention_reference,
     paged_chunk_attention_v1, paged_decode_attention,
     paged_decode_attention_quant, paged_decode_attention_v1)
+from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.attention import flash_attention
 from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
                                                 quantize_rows_reference)
@@ -415,39 +416,121 @@ def dequantize_pages(codes, scales, dtype):
     return (codes.float() * scales).to(dtype)
 
 
+def write_kv_quant_reference(pages_k, pages_ks, pages_v, pages_vs, new_k,
+                             new_v, table, start, page_size: int):
+    """The fused K/V write's plain version: quantise the rows ``new_k`` /
+    ``new_v`` [B, C, KV, Dh] per token row (:func:`quantize_kv_rows` in its
+    plain version) and write codes and scales into the int8 pages [KV, P,
+    ps, Dh] / scales [KV, P, ps, 1], in place.  With ``start`` ([B] int32)
+    row c of b lands at position ``start[b] + c``, positions at or past the
+    row's capacity dropped (:func:`_scatter_rows`); with ``start`` None the
+    rows are a fresh prompt from position 0 and the padded tail of its last
+    page takes codes 0 with scale 1.0, the codec's all-zero row
+    (:func:`_write_prompt`)."""
+    kq, ks = quantize_kv_rows(new_k, force_reference=True)
+    vq, vs = quantize_kv_rows(new_v, force_reference=True)
+    if start is None:
+        _write_prompt([(pages_k, kq, 0), (pages_ks, ks, 1.0), (pages_v, vq, 0),
+                       (pages_vs, vs, 1.0)], table, page_size)
+    else:
+        _scatter_rows([(pages_k, kq), (pages_ks, ks), (pages_v, vq),
+                       (pages_vs, vs)], table, start, page_size)
+
+
+def write_kv_quant(pages_k, pages_ks, pages_v, pages_vs, new_k, new_v, table,
+                   start, page_size: int, force_reference: bool = False):
+    """One layer's int8-resident K/V write, the contract of
+    :func:`write_kv_quant_reference`.  CPU tensors (or ``force_reference``,
+    the ``xla`` arm's plain writes) take the plain version; CUDA tensors
+    launch B9's fused entry (``csrc/quant.cu`` ``dstt_quantize_write_kv``:
+    every K and V row quantised by the vector body's device functions and
+    stored in its page slot, one launch) or raise.  The launch counts as
+    one of B9's (``quantize_rows.launches``, body ``"vec"``)."""
+    if force_reference or new_k.device.type == "cpu":
+        return write_kv_quant_reference(pages_k, pages_ks, pages_v, pages_vs,
+                                        new_k, new_v, table, start, page_size)
+    name = "write_kv_quant"
+    if not new_k.is_cuda:
+        raise ValueError(f"{name}: unsupported device {new_k.device}")
+    B, T, KV, Dh = new_k.shape
+    _, P, ps, _ = pages_k.shape
+    mp = table.shape[1]
+    C = -(-T // ps) * ps if start is None else T
+    if new_v.shape != new_k.shape or new_v.dtype != new_k.dtype \
+            or new_k.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: new_k / new_v {tuple(new_k.shape)} "
+                         f"{new_k.dtype} / {tuple(new_v.shape)} {new_v.dtype}")
+    if Dh not in _build.HEAD_DIMS or ps != page_size \
+            or pages_k.shape != (KV, P, ps, Dh) \
+            or pages_v.shape != pages_k.shape:
+        raise ValueError(f"{name}: pages {tuple(pages_k.shape)} / "
+                         f"{tuple(pages_v.shape)} (page size {page_size}) do "
+                         f"not take rows {tuple(new_k.shape)}")
+    if table.shape != (B, mp) or table.dtype != torch.int32 or (
+            start is not None and (start.shape != (B,)
+                                   or start.dtype != torch.int32)):
+        raise ValueError(f"{name}: want table [B, mp] and start [B] int32")
+    if start is None and C > mp * ps:
+        raise ValueError(f"{name}: a prompt of {T} tokens needs more than "
+                         f"the table's {mp} pages")
+    planes = (pages_k, pages_ks, pages_v, pages_vs)
+    for i, (t, dt) in enumerate(zip(planes, (torch.int8, torch.float32) * 2)):
+        want = (KV, P, ps, Dh if dt == torch.int8 else 1)
+        if t.shape != want or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: plane {i} {tuple(t.shape)} {t.dtype}; "
+                             f"want {want} {dt} contiguous")
+    for t in (*planes, new_v, table) + (() if start is None else (start,)):
+        if t.device != new_k.device:
+            raise ValueError(f"{name}: inputs on {t.device} and "
+                             f"{new_k.device}")
+    nk, nv = new_k.contiguous(), new_v.contiguous()
+    if nk.data_ptr() % 16 or nv.data_ptr() % 16 \
+            or not table.is_contiguous() \
+            or not (start is None or start.is_contiguous()):
+        raise ValueError(f"{name}: new rows off a 16-byte boundary, or a "
+                         f"strided table or start")
+    err = _build.lib().dstt_quantize_write_kv(
+        nk.data_ptr(), nv.data_ptr(), table.data_ptr(),
+        None if start is None else start.data_ptr(), pages_k.data_ptr(),
+        pages_ks.data_ptr(), pages_v.data_ptr(), pages_vs.data_ptr(), B, T,
+        C, KV, Dh, P, ps, mp, _build.DTYPE_CODES[new_k.dtype],
+        _build.stream_of(new_k))
+    _build.check("dstt_quantize_write_kv", err)
+    quantize_rows.launches += 1
+    quantize_rows.body_launches["vec"] += 1
+
+
 def write_token_pages_quant(pages_k, pages_ks, pages_v, pages_vs, new_k,
-                            new_v, table, seq_lens, page_size: int):
+                            new_v, table, seq_lens, page_size: int,
+                            force_reference: bool = False):
     """:func:`write_token_pages` for the int8-resident store: quantise the
-    appended rows on the device and scatter codes and scales, in place,
-    with the same frontier and drop rule.  Scale stores are ``[KV, P, ps,
-    1]`` f32."""
-    kq, ks = quantize_kv_rows(new_k[:, None])
-    vq, vs = quantize_kv_rows(new_v[:, None])
-    _scatter_rows([(pages_k, kq), (pages_ks, ks), (pages_v, vq),
-                   (pages_vs, vs)], table, seq_lens, page_size)
+    appended rows ([B, KV, Dh]) on the device and write codes and scales, in
+    place, with the same frontier and drop rule (:func:`write_kv_quant`).
+    Scale stores are ``[KV, P, ps, 1]`` f32."""
+    write_kv_quant(pages_k, pages_ks, pages_v, pages_vs, new_k[:, None],
+                   new_v[:, None], table, seq_lens, page_size,
+                   force_reference)
     return pages_k, pages_ks, pages_v, pages_vs
 
 
 def write_prompt_pages_quant(pages_k, pages_ks, pages_v, pages_vs, new_k,
-                             new_v, table, page_size: int):
+                             new_v, table, page_size: int,
+                             force_reference: bool = False):
     """:func:`write_prompt_pages` for the int8-resident store, quantising
     per token row; the padded tail of the last page holds codes 0 with
     scale 1.0 (the codec's all-zero row)."""
-    kq, ks = quantize_kv_rows(new_k)
-    vq, vs = quantize_kv_rows(new_v)
-    _write_prompt([(pages_k, kq, 0), (pages_ks, ks, 1.0), (pages_v, vq, 0),
-                   (pages_vs, vs, 1.0)], table, page_size)
+    write_kv_quant(pages_k, pages_ks, pages_v, pages_vs, new_k, new_v, table,
+                   None, page_size, force_reference)
     return pages_k, pages_ks, pages_v, pages_vs
 
 
 def write_chunk_pages_quant(pages_k, pages_ks, pages_v, pages_vs, new_k,
-                            new_v, table, start, page_size: int):
+                            new_v, table, start, page_size: int,
+                            force_reference: bool = False):
     """:func:`write_chunk_pages` for the int8-resident store (split-fuse
     continuation chunks at per-row frontiers), in place."""
-    kq, ks = quantize_kv_rows(new_k)
-    vq, vs = quantize_kv_rows(new_v)
-    _scatter_rows([(pages_k, kq), (pages_ks, ks), (pages_v, vq),
-                   (pages_vs, vs)], table, start, page_size)
+    write_kv_quant(pages_k, pages_ks, pages_v, pages_vs, new_k, new_v, table,
+                   start, page_size, force_reference)
     return pages_k, pages_ks, pages_v, pages_vs
 
 
@@ -538,10 +621,11 @@ def paged_attention_step(q, k, v, kp, vp, table, start, page_size: int, *,
     ``pallas_v1`` (B8) or ``xla`` (the plain versions); a kernel wrapper
     takes its plain version on CPU tensors.  ``kps``/``vps`` non-None
     selects the int8-resident path: kp/vp hold int8 codes, kps/vps the
-    per-token-row f32 scales, the writes quantise on the device (B9), and
-    ``xla`` dequantises with :func:`dequantize_pages` to q's dtype before
-    the plain versions (there is no int8 ``pallas_v1``).  Returns attn
-    [B, T, H, Dh]."""
+    per-token-row f32 scales, ``pallas_v2`` writes them through B9's fused
+    K/V write (one launch a layer), and ``xla`` writes them through its
+    plain version and dequantises with :func:`dequantize_pages` to q's
+    dtype before the plain versions (there is no int8 ``pallas_v1``).
+    Returns attn [B, T, H, Dh]."""
     quant = kps is not None
     if quant and paged_kernel == "pallas_v1":
         raise ValueError("int8-resident pages have no pallas_v1 kernel "
@@ -550,7 +634,7 @@ def paged_attention_step(q, k, v, kp, vp, table, start, page_size: int, *,
     if continuation and q.shape[1] > 1:
         if quant:
             write_chunk_pages_quant(kp, kps, vp, vps, k, v, table, start,
-                                    page_size)
+                                    page_size, force_reference=not v2)
             if v2:
                 return paged_chunk_attention_quant(q, kp, kps, vp, vps,
                                                    table, start)
@@ -568,14 +652,14 @@ def paged_attention_step(q, k, v, kp, vp, table, start, page_size: int, *,
                                force_reference=flash_force_reference)
         if quant:
             write_prompt_pages_quant(kp, kps, vp, vps, k, v, table,
-                                     page_size)
+                                     page_size, force_reference=not v2)
         else:
             write_prompt_pages(kp, vp, k, v, table, page_size)
         return attn
     lens = start + 1
     if quant:
         write_token_pages_quant(kp, kps, vp, vps, k[:, 0], v[:, 0], table,
-                                start, page_size)
+                                start, page_size, force_reference=not v2)
         if v2:
             return paged_decode_attention_quant(q[:, 0], kp, kps, vp, vps,
                                                 table, lens)[:, None]

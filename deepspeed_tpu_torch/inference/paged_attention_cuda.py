@@ -8,23 +8,26 @@ their plain PyTorch versions, and the CPU twin of B5's and B7's Hopper body.
 - ``csrc/paged_attention_quant.cu`` (B7) replaces
   ``_chunk_v2_quant_kernel`` (``paged_chunk_attention_v2_quant``): int8
   codes with one f32 scale per token row, dequantised on chip.
-- ``csrc/paged_attention_split.cu`` (B8) replaces the v1 ``_chunk_kernel``
-  (``paged_chunk_attention``, the ``pallas_v1`` arm): dense pages, the key
-  axis split over blocks and a second kernel combining the partials.
+- B8 replaces the v1 ``_chunk_kernel`` (``paged_chunk_attention``, the
+  ``pallas_v1`` arm), which computes v2's function over dense pages: for a
+  bf16 q with head dim 64 or 128 it launches B5's Hopper body through
+  ``csrc/paged_attention.cu``; otherwise ``csrc/paged_attention_split.cu``,
+  the key axis split over blocks and a second kernel combining the
+  partials.
 
-B5 and B7 have two bodies, named by :func:`paged_body` from q's dtype and
-head dim.  The Hopper body (``csrc/paged_attention_sm90.cuh``; bf16 q, head
-dim 64 or 128) splits decode (at most :data:`DECODE_ROWS` flattened query
-rows) over spans of whole pages, :data:`DECODE_SPAN_KEYS` keys or more,
-stages them with ``cp.async`` and merges the spans' partials in the same
-launch; chunked prefill runs items of :data:`ITEM_ROWS` flattened rows over
-key tiles of :data:`KEY_TILE` on wgmma, P split into bf16 hi + lo.  The
-scalar block (f32, head dim 16 / 32; B8 always) gathers K/V into f32 shared
-memory over a grid of (b·kv_head, row tile[, key split]).  Every body walks
-only the key positions up to its rows' frontier, so stale or trash table
-entries past it are never dereferenced, and keeps the online softmax in
-f32.  Decode is bound by bytes on the H100 (live KV bytes / 3.35 TB/s; B7
-reads D + 4 bytes per row where B5 reads 2·D at bf16).
+B5, B7 and B8 have two bodies, named by :func:`paged_body` from q's dtype
+and head dim.  The Hopper body (``csrc/paged_attention_sm90.cuh``; bf16 q,
+head dim 64 or 128) splits decode (at most :data:`DECODE_ROWS` flattened
+query rows) over spans of whole pages, :data:`DECODE_SPAN_KEYS` keys or
+more, stages them with ``cp.async`` and merges the spans' partials in the
+same launch; chunked prefill runs items of :data:`ITEM_ROWS` flattened rows
+over key tiles of :data:`KEY_TILE` on wgmma, P split into bf16 hi + lo.
+The scalar block (f32, head dim 16 / 32; B8's split pair) gathers K/V into
+f32 shared memory over a grid of (b·kv_head, row tile[, key split]).  Every
+body walks only the key positions up to its rows' frontier, so stale or
+trash table entries past it are never dereferenced, and keeps the online
+softmax in f32.  Decode is bound by bytes on the H100 (live KV bytes / 3.35
+TB/s; B7 reads D + 4 bytes per row where B5 reads 2·D at bf16).
 """
 
 from __future__ import annotations
@@ -182,18 +185,19 @@ def _tiled_decode(qf, kg, vg, ks, vs, st, C, G, mp, ps, scale, span_pages):
     """One row b of the Hopper decode body: qf [KV, C·G, Dh] f32; kg / vg
     [KV, S, Dh] f32 (codes for B7), ks / vs [KV, S] (ones for B5)."""
     KV, CG, Dh = qf.shape
+    dev = qf.device
     live = min(st + C, mp * ps)
     sk = span_pages * ps
-    qpos = st + torch.arange(CG) // G
+    qpos = st + torch.arange(CG, device=dev) // G
     parts = []
     for lo in range(0, live, sk):            # the spans that hold keys
         hi = min(live, lo + sk)
-        m = torch.full((KV, CG), NEG_INF)
-        l = torch.zeros((KV, CG))
-        acc = torch.zeros((KV, CG, Dh))
+        m = torch.full((KV, CG), NEG_INF, device=dev)
+        l = torch.zeros((KV, CG), device=dev)
+        acc = torch.zeros((KV, CG, Dh), device=dev)
         for n0 in range(lo, hi, DECODE_TILE):
             n1 = min(n0 + DECODE_TILE, hi)
-            valid = torch.arange(n0, n1)[None] <= qpos[:, None]
+            valid = torch.arange(n0, n1, device=dev)[None] <= qpos[:, None]
             sc = torch.einsum("krd,knd->krn", qf, kg[:, n0:n1]) \
                 * ks[:, None, n0:n1] * scale
             sc = torch.where(valid, sc, NEG_INF)
@@ -206,7 +210,7 @@ def _tiled_decode(qf, kg, vg, ks, vs, st, C, G, mp, ps, scale, span_pages):
             m = m_new
         parts.append((m, l, acc))
     if not parts:                            # an empty row: zeros
-        return torch.zeros((KV, CG, Dh))
+        return torch.zeros((KV, CG, Dh), device=dev)
     m = torch.stack([x[0] for x in parts])   # merged in span order
     w = torch.exp(m - m.amax(0))
     l = (torch.stack([x[1] for x in parts]) * w).sum(0)
@@ -222,17 +226,18 @@ def _tiled_chunk(qf, kg, vg, ks, vs, st, G, mp, ps, scale, split_p, item_rows,
     key tiles up to its last row's frontier; S = (q·k)·ks, P' = P·vs, and
     with ``split_p`` P' as bf16 hi + lo in the P'·V product."""
     KV, CG, Dh = qf.shape
-    out = torch.zeros((KV, CG, Dh))
+    dev = qf.device
+    out = torch.zeros((KV, CG, Dh), device=dev)
     for r0 in range(0, CG, item_rows):
         r1 = min(r0 + item_rows, CG)
         k_hi = min(st + (r1 - 1) // G + 1, mp * ps)
-        qpos = st + torch.arange(r0, r1) // G
-        m = torch.full((KV, r1 - r0), float("-inf"))
-        l = torch.zeros((KV, r1 - r0))
-        acc = torch.zeros((KV, r1 - r0, Dh))
+        qpos = st + torch.arange(r0, r1, device=dev) // G
+        m = torch.full((KV, r1 - r0), float("-inf"), device=dev)
+        l = torch.zeros((KV, r1 - r0), device=dev)
+        acc = torch.zeros((KV, r1 - r0, Dh), device=dev)
         for n0 in range(0, max(k_hi, 0), key_tile):
             n1 = min(n0 + key_tile, k_hi)
-            valid = torch.arange(n0, n1)[None] <= qpos[:, None]
+            valid = torch.arange(n0, n1, device=dev)[None] <= qpos[:, None]
             sc = torch.einsum("krd,knd->krn", qf[:, r0:r1], kg[:, n0:n1]) \
                 * ks[:, None, n0:n1] * scale
             sc = torch.where(valid, sc, float("-inf"))
@@ -279,7 +284,7 @@ def paged_chunk_attention_tiled_reference(
     scale = scale if scale is not None else Dh ** -0.5
     kg, vg = _gather(k_pages, table), _gather(v_pages, table)
     if k_scales is None:
-        ks = vs = torch.ones(kg.shape[:3])
+        ks = vs = torch.ones(kg.shape[:3], device=q.device)
     else:
         ks = _gather(k_scales, table)[..., 0]
         vs = _gather(v_scales, table)[..., 0]
@@ -348,9 +353,9 @@ def _device_ok(name, q) -> bool:
 
 
 def paged_body(q) -> str:
-    """The body of B5 and B7 that a CUDA call on ``q`` launches: ``"sm90"``
-    (``csrc/paged_attention_sm90.cuh``) for bfloat16 with head_dim 64 or
-    128, ``"scalar"`` otherwise."""
+    """The body of B5, B7 and B8 that a CUDA call on ``q`` launches:
+    ``"sm90"`` (``csrc/paged_attention_sm90.cuh``) for bfloat16 with
+    head_dim 64 or 128, ``"scalar"`` otherwise."""
     return ("sm90" if q.dtype == torch.bfloat16
             and q.shape[-1] in SM90_HEAD_DIMS else "scalar")
 
@@ -394,10 +399,20 @@ def paged_chunk_attention(q, k_pages, v_pages, table, start):
                                                start)
     _check("paged_chunk_attention", q, (k_pages, v_pages), table, start,
            q.dtype)
+    body = paged_body(q)
+    out = _dense_launch(q, k_pages, v_pages, table, start, body)
+    paged_chunk_attention.launches += 1
+    paged_chunk_attention.body_launches[body] += 1
+    return out
+
+
+def _dense_launch(q, k_pages, v_pages, table, start, body):
+    """One launch of ``csrc/paged_attention.cu`` over dense pages through
+    ``body`` (checked inputs) -> out [B, C, H, Dh]."""
     B, C, H, Dh = q.shape
     KV, P, ps, _ = k_pages.shape
     mp = table.shape[1]
-    body, stream = paged_body(q), _build.stream_of(q)
+    stream = _build.stream_of(q)
     counters, part, sp = (_sm90_args(q, KV, ps, mp, stream)
                           if body == "sm90" else (None, None, 1))
     out = torch.empty_like(q)
@@ -407,8 +422,6 @@ def paged_chunk_attention(q, k_pages, v_pages, table, start):
         P, ps, mp, Dh ** -0.5, _build.DTYPE_CODES[q.dtype],
         int(body == "sm90"), counters, part, sp, stream)
     _build.check("dstt_paged_attention", err)
-    paged_chunk_attention.launches += 1
-    paged_chunk_attention.body_launches[body] += 1
     return out
 
 
@@ -477,26 +490,36 @@ def paged_decode_attention_quant(q, kq_pages, ks_pages, vq_pages, vs_pages,
 
 def paged_chunk_attention_v1(q, k_pages, v_pages, table, start):
     """B8, the ``pallas_v1`` arm: the contract of
-    :func:`paged_chunk_attention` computed over a split key axis (kernel 1:
-    one partial per :data:`SPLIT_KEYS` key positions; kernel 2: their
-    combine).  ``launches`` counts both kernels, two per call.  CPU tensors
-    take :func:`paged_chunk_attention_split_reference`; CUDA tensors launch
-    the kernels or raise."""
+    :func:`paged_chunk_attention` (the JAX v1 kernel computes v2's function;
+    only its page walk differs).  CUDA tensors launch the body that
+    :func:`paged_body` names, or raise: ``"sm90"`` is B5's Hopper body on
+    dense pages (one launch, the decode merge inside it, scratch from the
+    per-stream workspace); ``"scalar"`` (f32, head_dim 16 / 32) the
+    split-key pair (kernel 1: one partial per :data:`SPLIT_KEYS` key
+    positions; kernel 2: their combine), two launches.  ``launches`` counts
+    every launch, ``body_launches`` each body's.  CPU tensors take
+    :func:`paged_chunk_attention_split_reference`."""
     name = "paged_chunk_attention_v1"
     if not _device_ok(name, q):
         return paged_chunk_attention_split_reference(q, k_pages, v_pages,
                                                      table, start)
     _check(name, q, (k_pages, v_pages), table, start, q.dtype)
+    if paged_body(q) == "sm90":
+        out = _dense_launch(q, k_pages, v_pages, table, start, "sm90")
+        paged_chunk_attention_v1.launches += 1
+        paged_chunk_attention_v1.body_launches["sm90"] += 1
+        return out
     B, C, H, Dh = q.shape
     KV, P, ps, _ = k_pages.shape
     mp = table.shape[1]
+    lib, dt, stream = _build.lib(), _build.DTYPE_CODES[q.dtype], \
+        _build.stream_of(q)
+    out = torch.empty_like(q)
     nsplit = -(-(mp * ps) // SPLIT_KEYS)
     rows = B * KV * nsplit * C * (H // KV)
     part_m = torch.empty((rows,), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((rows, Dh), dtype=torch.float32, device=q.device)
-    lib, dt, stream = _build.lib(), _build.DTYPE_CODES[q.dtype], \
-        _build.stream_of(q)
     err = lib.dstt_paged_split(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), start.data_ptr(), part_m.data_ptr(),
@@ -504,16 +527,18 @@ def paged_chunk_attention_v1(q, k_pages, v_pages, table, start):
         SPLIT_KEYS, nsplit, Dh ** -0.5, dt, stream)
     _build.check("dstt_paged_split", err)
     paged_chunk_attention_v1.launches += 1
-    out = torch.empty_like(q)
+    paged_chunk_attention_v1.body_launches["scalar"] += 1
     err = lib.dstt_paged_combine(
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, C, H, KV, Dh, nsplit, dt, stream)
     _build.check("dstt_paged_combine", err)
     paged_chunk_attention_v1.launches += 1
+    paged_chunk_attention_v1.body_launches["scalar"] += 1
     return out
 
 
 paged_chunk_attention_v1.launches = 0
+paged_chunk_attention_v1.body_launches = {"sm90": 0, "scalar": 0}
 
 
 def paged_decode_attention_v1(q, k_pages, v_pages, table, seq_lens):

@@ -65,8 +65,11 @@ SIGNATURES = {
     "dstt_paged_combine": [_P] * 4 + [_I] * 7 + [_P],
     # logits, out, B, V, stream
     "dstt_greedy_argmax": [_P, _P, _I, _I, _P],
-    # x, q, scale, n_groups, group_size, dtype, stream
-    "dstt_quantize_int8": [_P] * 3 + [ctypes.c_longlong] * 2 + [_I, _P],
+    # x, q, scale, n_groups, group_size, dtype, body, stream
+    "dstt_quantize_int8": [_P] * 3 + [ctypes.c_longlong] * 2 + [_I, _I, _P],
+    # new_k, new_v, table, start, kq, ks, vq, vs, B, T, C, KV, D, P, ps, mp,
+    # dtype, stream
+    "dstt_quantize_write_kv": [_P] * 8 + [_I] * 9 + [_P],
     # x, out, n, stream
     "dstt_env_probe": [_P, _P, _I, _P],
 }

@@ -481,16 +481,28 @@ def test_paged_quant_matches_plain(gen, dtype, D, C, G, ps):
 @pytest.mark.parametrize("C,G,ps", [(1, 4, 16), (1, 1, 8), (5, 4, 8),
                                     (40, 2, 16), (256, 4, 16)])
 def test_paged_v1_split_matches_plain(gen, dtype, D, C, G, ps):
+    """B8 on its body: the split-key pair (f32, head_dim 16) against the
+    split plain version, two launches; B5's Hopper body (bf16, head_dim 64 /
+    128) against its tiled twin, one launch; both against the plain
+    version."""
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
-        paged_chunk_attention_reference, paged_chunk_attention_split_reference,
-        paged_chunk_attention_v1)
+        paged_body, paged_chunk_attention_reference,
+        paged_chunk_attention_split_reference,
+        paged_chunk_attention_tiled_reference, paged_chunk_attention_v1)
 
     q, kp, vp, table, st = _paged_case(gen, C, G, ps, D, dtype)
+    body = paged_body(q)
     before = paged_chunk_attention_v1.launches
+    bodies = dict(paged_chunk_attention_v1.body_launches)
     out = paged_chunk_attention_v1(q, kp, vp, table, st)
-    split = paged_chunk_attention_split_reference(q, kp, vp, table, st)
+    twin = (paged_chunk_attention_tiled_reference if body == "sm90"
+            else paged_chunk_attention_split_reference)
+    split = twin(q, kp, vp, table, st)
     torch.cuda.synchronize()
-    assert paged_chunk_attention_v1.launches == before + 2
+    n = 1 if body == "sm90" else 2
+    assert paged_chunk_attention_v1.launches == before + n
+    bodies[body] += n
+    assert paged_chunk_attention_v1.body_launches == bodies
     if C == 1:                      # start -1: the empty row gives zeros
         assert not out[0].any() and not split[0].any()
         out, split = out[1:], split[1:]
@@ -589,6 +601,32 @@ def test_paged_sm90_body_matches_plain(gen, quant, D, G, C, ps):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("D,G,C,ps", [c for c in PAGED_SM90_CASES
+                                      if c[2] in (1, 256)])
+def test_paged_v1_sm90_body_matches_tiled(gen, D, G, C, ps):
+    """B8's launches on the Hopper body (the pallas_v1 arm of the bf16
+    engines) against the body's tiled twin, with NaN pages behind every
+    frontier: one launch a call."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention_tiled_reference, paged_chunk_attention_v1)
+
+    q, (kp, vp), table, st = _sm90_paged_case(gen, C, G, ps, D)
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    before = dict(paged_chunk_attention_v1.body_launches)
+    out = paged_chunk_attention_v1(q, kb, vb, table, st)
+    ref = paged_chunk_attention_tiled_reference(
+        q, torch.nan_to_num(kb, nan=0.0), torch.nan_to_num(vb, nan=0.0),
+        table, st)
+    torch.cuda.synchronize()
+    assert paged_chunk_attention_v1.body_launches == {
+        "sm90": before["sm90"] + 1, "scalar": before["scalar"]}
+    assert torch.isfinite(out).all(), "a read past a frontier"
+    if C == 1:
+        assert not out[0].any()
+        out, ref = out[1:], ref[1:]
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
 def test_paged_kernels_reject_what_they_cannot_take(gen):
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_chunk_attention_quant, paged_chunk_attention_v1)
@@ -651,6 +689,146 @@ def test_quantize_matches_plain(gen, dtype, G, gsz):
     assert quantize_rows.launches == before + 1
     assert torch.equal(q, rq) and torch.equal(s, rs)
     assert s[0].item() == 1.0 and not q[0].any()
+
+
+# B9's vector body: group sizes 8, 128 and 4096 (the wire codec's), sizes
+# past one chunk a lane that are not powers of two, and the widest groups of
+# a warp's lanes (256) and past it (264); (offset elements into the buffer:
+# 8 keeps a 16-byte boundary for both dtypes)
+QUANT_VEC_CASES = [(G, gsz, off) for G, gsz in (
+    (1, 8), (1000, 8), (64, 128), (4099, 128), (3, 4096), (37, 24), (9, 40),
+    (33, 256), (5, 264)) for off in (0, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,gsz,offset", QUANT_VEC_CASES)
+def test_quantize_vec_body_bit_equal(gen, dtype, G, gsz, offset):
+    """The vector body against the plain version, bit for bit, with a zero
+    group, exact .5 quotients, a NaN group, a group holding one NaN, an inf
+    group and a -inf group."""
+    from deepspeed_tpu_torch.ops.quant_cuda import (quant_body, quantize_rows,
+                                                    quantize_rows_reference)
+
+    buf = _randn(gen, (offset + G * gsz,), dtype) * 3.0
+    x = buf[offset:].view(G, gsz)
+    specials = [("zero", 0.0), ("nan", float("nan")), ("one_nan", None),
+                ("inf", None), ("-inf", None)]
+    for i, (kind, fill) in enumerate(specials[:G]):
+        if fill is not None:
+            x[i] = fill
+        elif kind == "one_nan":
+            x[i, gsz // 2] = float("nan")
+        else:
+            x[i, gsz - 1] = float(kind)
+    if G > 6 and gsz >= 8:
+        x[5, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                 126.5], dtype=dtype)
+        x[5, 8:] = x[5, 8:].clamp(-127, 127)
+    assert quant_body(x) == "vec"
+    before = dict(quantize_rows.body_launches)
+    q, s = quantize_rows(x)
+    rq, rs = quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.body_launches == {"vec": before["vec"] + 1,
+                                           "scalar": before["scalar"]}
+    assert torch.equal(q, rq) and _nan_equal(s, rs)
+    assert s[0].item() == 1.0 and not q[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,gsz,offset", [(17, 7, 0), (64, 33, 0),
+                                          (64, 128, 1), (8, 4096, 3)])
+def test_quantize_scalar_body_takes_odd_sizes_and_views(gen, dtype, G, gsz,
+                                                        offset):
+    """Group sizes off a multiple of 8, and views off a 16-byte boundary,
+    take the scalar body: bit-equal too."""
+    from deepspeed_tpu_torch.ops.quant_cuda import (quant_body, quantize_rows,
+                                                    quantize_rows_reference)
+
+    buf = _randn(gen, (offset + G * gsz,), dtype) * 3.0
+    x = buf[offset:].view(G, gsz)
+    x[1] = float("nan")
+    x[2, 0] = float("inf")
+    assert quant_body(x) == "scalar"
+    before = dict(quantize_rows.body_launches)
+    q, s = quantize_rows(x)
+    rq, rs = quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.body_launches == {"vec": before["vec"],
+                                           "scalar": before["scalar"] + 1}
+    assert torch.equal(q, rq) and _nan_equal(s, rs)
+
+
+# the fused K/V write: (rows a sequence, starts; None = a prompt from 0) over
+# 4 sequences of 5 pages (capacity 5 * ps)
+WRITE_KV_CASES = [
+    (1, [0, 7, 79, 80]),            # decode: the last slot, then at capacity
+    (1, [3, 100, 16, 33]),          # past capacity: dropped
+    (9, [0, 9, 75, 80]),            # a chunk running past capacity
+    (256, [0, 0, 0, 0]),            # a chunk past every table
+    (16, None), (37, None), (1, None), (80, None),     # prompts, padded tails
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("rows,start", WRITE_KV_CASES)
+def test_write_kv_quant_matches_plain(gen, dtype, D, rows, start):
+    """One launch of the fused write against its plain version: the four
+    page planes (codes and scales of K and V) bit for bit, whole, with a
+    zero row, a NaN row and an inf row among the new ones."""
+    from deepspeed_tpu_torch.inference.kernels import (
+        write_kv_quant, write_kv_quant_reference)
+    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
+
+    B, KV, ps, mp = 4, 8, 16, 5
+    P = B * mp + 3
+    perm = torch.randperm(P, generator=gen, device="cuda").int()
+    table = perm[:B * mp].reshape(B, mp).contiguous()
+    nk = _randn(gen, (B, rows, KV, D), dtype) * 3.0
+    nv = _randn(gen, (B, rows, KV, D), dtype)
+    nk[0, 0, 0] = 0.0
+    nk[1, 0, 1] = float("nan")
+    nv[2, 0, 2, 3] = float("inf")
+    planes = [torch.randint(-127, 128, (KV, P, ps, D), generator=gen,
+                            device="cuda", dtype=torch.int8),
+              torch.rand((KV, P, ps, 1), generator=gen, device="cuda")]
+    planes = [planes[0], planes[1], planes[0].flip(1).contiguous(),
+              planes[1].flip(1).contiguous()]
+    want = [p.clone() for p in planes]
+    st = (None if start is None else
+          torch.tensor(start, dtype=torch.int32, device="cuda"))
+    before = dict(quantize_rows.body_launches)
+    write_kv_quant(*planes, nk, nv, table, st, ps)
+    write_kv_quant_reference(*want, nk, nv, table, st, ps)
+    torch.cuda.synchronize()
+    assert quantize_rows.body_launches == {"vec": before["vec"] + 1,
+                                           "scalar": before["scalar"]}
+    for got, ref in zip(planes, want):
+        if got.dtype == torch.int8:
+            assert torch.equal(got, ref)
+        else:
+            assert _nan_equal(got, ref)
+
+
+def test_write_kv_quant_rejects_what_it_cannot_take(gen):
+    from deepspeed_tpu_torch.inference.kernels import write_kv_quant
+
+    kq = torch.zeros((2, 6, 4, 16), dtype=torch.int8, device="cuda")
+    ks = torch.ones((2, 6, 4, 1), device="cuda")
+    new = _randn(gen, (1, 3, 2, 16), torch.float32)
+    table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    st = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        write_kv_quant(kq, ks, kq, ks, new, new, table.long(), st, 4)
+    with pytest.raises(ValueError, match="plane"):
+        write_kv_quant(kq, ks.half(), kq, ks, new, new, table, st, 4)
+    with pytest.raises(ValueError, match="pages"):
+        write_kv_quant(kq, ks, kq, ks, new[..., :12], new[..., :12], table,
+                       st, 4)
+    with pytest.raises(ValueError, match="prompt"):
+        write_kv_quant(kq, ks, kq, ks, torch.cat([new] * 3, 1),
+                       torch.cat([new] * 3, 1), table, None, 4)
 
 
 def test_quantize_nan_inf_and_strided_rows(gen):

@@ -6,6 +6,7 @@ page writers (drop-on-overflow included, dense and int8), the int8 codec
 tolerances are f32: 1e-5; codes, scales and written planes are equal."""
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -262,6 +263,91 @@ def test_write_chunk_pages_quant_drops_past_capacity(start):
         (jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(table),
          jnp.asarray(st), 4), (_t(nk), _t(nv), _t(table), _t(st), 4),
         seed=sum(start))
+
+
+# the fused int8 K/V write's plain version: (mode, rows a sequence, starts)
+# over 3 sequences of 3 pages of 4 (capacity 12)
+WRITE_CASES = [
+    ("token", 1, [0, 5, 11]),       # in capacity, the last slot of a table
+    ("token", 1, [3, 12, 40]),      # at capacity and past it: dropped
+    ("chunk", 6, [0, 3, 9]),        # the last rows run past capacity
+    ("chunk", 5, [12, 2, 7]),       # a sequence wholly past capacity
+    ("prompt", 8, None),            # whole pages
+    ("prompt", 7, None),            # a padded tail: codes 0, scale 1.0
+    ("prompt", 1, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("KV", [1, 4])
+@pytest.mark.parametrize("mode,rows,start", WRITE_CASES)
+def test_write_kv_quant_plain_matches_jax(dtype, KV, mode, rows, start):
+    """The fused K/V write's plain version (and the writers over it) against
+    JAX's ``write_{token,chunk,prompt}_pages_quant`` on the same numpy
+    inputs: every page plane bit for bit, the untouched slots included."""
+    table = np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)
+    rng = np.random.default_rng(rows * 10 + KV)
+    nk, nv = (rng.standard_normal((3, rows, KV, 16), dtype=np.float32) * 3
+              for _ in range(2))
+    nk[0, 0] = 0.0                                 # a zero row: scale 1.0
+    if dtype == "bfloat16":
+        nk, nv = (x.astype(ml_dtypes.bfloat16).astype(np.float32)
+                  for x in (nk, nv))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    pages = _quant_pages(KV=KV, P=12, seed=rows)
+    new = [_t(nk).to(tdt), _t(nv).to(tdt)]
+    jargs = [jnp.asarray(nk, jdt), jnp.asarray(nv, jdt), jnp.asarray(table)]
+    targs = new + [_t(table)]
+    st = None if start is None else np.array(start, np.int32)
+    if mode == "token":
+        jfn, tfn = jk.write_token_pages_quant, tk.write_token_pages_quant
+        jargs[:2] = [a[:, 0] for a in jargs[:2]]
+        targs[:2] = [a[:, 0] for a in targs[:2]]
+    elif mode == "chunk":
+        jfn, tfn = jk.write_chunk_pages_quant, tk.write_chunk_pages_quant
+    else:
+        jfn, tfn = jk.write_prompt_pages_quant, tk.write_prompt_pages_quant
+    if st is not None:
+        jargs.append(jnp.asarray(st))
+        targs.append(_t(st))
+    want = jfn(*(jnp.asarray(a) for a in pages), *jargs, 4)
+    planes = [_t(a.copy()) for a in pages]
+    tfn(*planes, *targs, 4)
+    direct = [_t(a.copy()) for a in pages]
+    tk.write_kv_quant_reference(*direct, *new, _t(table),
+                                None if st is None else _t(st), 4)
+    for g, d, w in zip(planes, direct, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("arm", ["xla", "pallas_v2"])
+@pytest.mark.parametrize("phase", ["decode", "chunk", "prompt"])
+def test_paged_step_int8_writes_plain_on_the_xla_arm(arm, phase,
+                                                     monkeypatch):
+    """The ``xla`` arm writes int8-resident K/V through the fused write's
+    plain version on every device (so on the card it is a plain arm to
+    hold the kernel arm to); ``pallas_v2`` asks for the kernel."""
+    asked = []
+    real = tk.write_kv_quant
+
+    def spy(*a):
+        asked.append(a[9])
+        return real(*a)
+
+    monkeypatch.setattr(tk, "write_kv_quant", spy)
+    kq, ks, vq, vs = (_t(a) for a in _quant_pages(P=12))
+    T = {"decode": 1, "chunk": 3, "prompt": 5}[phase]
+    rng = np.random.default_rng(1)
+    q = _t(rng.standard_normal((2, T, 4, 16), dtype=np.float32))
+    k = _t(rng.standard_normal((2, T, 2, 16), dtype=np.float32))
+    table = _t(np.array([[0, 1, 2], [3, 4, 5]], np.int32))
+    start = _t(np.array([0, 0] if phase == "prompt" else [2, 5], np.int32))
+    out = tk.paged_attention_step(
+        q, k, k, kq, vq, table, start, 4, continuation=phase == "chunk",
+        prefill=phase == "prompt", paged_kernel=arm,
+        flash_force_reference=True, kps=ks, vps=vs)
+    assert asked == [arm == "xla"] and out.shape == q.shape
 
 
 # --------------------------------- B7 and B8 plain versions vs the Pallas

@@ -170,6 +170,24 @@ def test_plain_b9_nan_and_inf_groups():
     assert torch.equal(q[3:], ref_q) and torch.equal(s[3:], ref_s)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gsz,offset,body", [
+    (128, 0, "vec"), (8, 0, "vec"), (24, 0, "vec"), (4096, 0, "vec"),
+    (128, 8, "vec"), (7, 0, "scalar"), (33, 0, "scalar"), (1, 0, "scalar"),
+    (128, 1, "scalar"), (128, 3, "scalar")])
+def test_quant_body_is_a_function_of_group_size_and_alignment(dtype, gsz,
+                                                               offset, body):
+    """B9's vector body takes groups whose size is a multiple of 8 on a
+    16-byte boundary; a view that starts off one (``offset`` elements into
+    a fresh buffer, which is aligned) or any other group size takes the
+    scalar body."""
+    from deepspeed_tpu_torch.ops.quant_cuda import quant_body
+
+    buf = torch.zeros(offset + 4 * gsz, dtype=dtype)
+    x = buf[offset:].view(4, gsz)
+    assert quant_body(x) == body
+
+
 def test_quantize_rows_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match=r"\[G, gsz\]"):
         quantize_rows(torch.zeros(4))

@@ -3,7 +3,8 @@
 time, on one CUDA GPU.
 
     python3 tools/torch_decode_profile.py [--steps 5] [--layers 32]
-                                          [--weight-dtype bfloat16|int8]
+        [--weight-dtype bfloat16|int8] [--kv-cache bfloat16|int8]
+        [--paged-kernel auto|pallas_v1] [--root CHECKOUT]
 
 Builds the engine at full width (random seeded bf16 weights, quantized to
 int8 on the card with ``--weight-dtype int8``; 8 requests
@@ -11,9 +12,15 @@ with prompts of 128..1024 tokens, whole-prompt prefill), lets every prompt
 prefill, then times ``--steps`` decode steps on the host clock (each ends
 in the host's token fetch) and traces the same number under
 ``torch.profiler``: device time per step by kernel, kernel launches per
-step, and the device's idle share of the traced window.  Prints a summary
-and one JSON line, also written as ``torch_decode_profile_<weight
-dtype>.json`` into the repo's gitignored output directory when it exists.
+step, and the device's idle share of the traced window.  ``--kv-cache
+int8`` serves from the int8-resident pool of ``chip_smoke.py``'s phase 11
+(``prefix_cache`` and ``kv_tier`` with ``quantized_resident``: B7 reads the
+pages, and each layer's K/V write quantises), ``--paged-kernel pallas_v1``
+through the v1 arm (B8).  The package comes from ``--root`` (default: the
+checkout this script sits in), so two checkouts compare in one call by
+running this script on each in turns.  Prints a summary and one JSON line,
+also written as ``torch_decode_profile_<weight dtype>_<kv cache>_<paged
+kernel>.json`` into the repo's gitignored output directory when it exists.
 """
 
 from __future__ import annotations
@@ -38,11 +45,18 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--weight-dtype", default="bfloat16",
                     choices=("bfloat16", "int8"))
+    ap.add_argument("--kv-cache", default="bfloat16",
+                    choices=("bfloat16", "int8"))
+    ap.add_argument("--paged-kernel", default="auto",
+                    choices=("auto", "pallas_v1"))
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose deepspeed_tpu_torch is profiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
     from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch.inference.serving import llama_serving_engine
@@ -60,10 +74,21 @@ def main() -> int:
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
                          device="cuda", dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
+    extra = {}
+    if args.kv_cache == "int8":
+        extra = {"prefix_cache": {}, "kv_tier": {
+            "quantize_cold": True, "quantized_resident": True,
+            "demote_watermark": 0.0}}
     eng = llama_serving_engine(params, cfg, max_batch=8, page_size=16,
                                max_seq=2048, num_pages=1025,
                                cache_dtype=torch.bfloat16,
-                               weight_dtype=args.weight_dtype)
+                               weight_dtype=args.weight_dtype,
+                               kernels={"paged_attention": args.paged_kernel},
+                               **extra)
+    if (eng.cache.k.dtype == torch.int8) != (args.kv_cache == "int8"):
+        print(f"the pool holds {eng.cache.k.dtype}, not {args.kv_cache}",
+              file=sys.stderr)
+        return 1
     del params
     for i, n in enumerate(np.linspace(128, 1024, 8).astype(int)):
         eng.submit(i, rng.integers(1, cfg.vocab_size, n).tolist(),
@@ -94,8 +119,9 @@ def main() -> int:
     device_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     out = {
-        "card": card, "layers": cfg.n_layers, "steps": args.steps,
-        "weight_dtype": args.weight_dtype,
+        "card": card, "root": root, "layers": cfg.n_layers,
+        "steps": args.steps, "weight_dtype": args.weight_dtype,
+        "kv_cache": args.kv_cache, "paged_kernel": args.paged_kernel,
         "active_rows": 8,
         "ms_per_decode_step_host": step_ms,
         "ms_per_decode_step_traced": traced_ms / args.steps,
@@ -104,7 +130,9 @@ def main() -> int:
         "kernel_launches_per_step": launches / args.steps,
         "top_kernels_ms_per_step": {k[:90]: v / args.steps for k, v in top},
     }
-    print(f"{card}: {args.weight_dtype} decode step {step_ms:.2f} ms (host clock), device "
+    print(f"{card}: {args.weight_dtype} weights, {args.kv_cache} KV, "
+          f"{args.paged_kernel} paged kernel: decode step {step_ms:.2f} ms "
+          f"(host clock), device "
           f"{out['device_ms_per_step']:.2f} ms/step, idle share "
           f"{out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} launches/step")
@@ -114,7 +142,8 @@ def main() -> int:
     print(line)
     dest = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(dest):
-        name = f"torch_decode_profile_{args.weight_dtype}.json"
+        name = (f"torch_decode_profile_{args.weight_dtype}_{args.kv_cache}_"
+                f"{args.paged_kernel}.json")
         with open(os.path.join(dest, name), "w") as f:
             f.write(line + "\n")
     return 0

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's paged attention kernels B5 (bf16 pages) and B7
-(int8 codes with f32 row scales) on one CUDA GPU, at the shapes of phases 3
-and 9 of ``chip_smoke.py``, once per seed.
+"""Times the PyTorch port's paged attention kernels B5 (bf16 pages), B7
+(int8 codes with f32 row scales) and B8 (the ``pallas_v1`` arm, bf16 pages)
+on one CUDA GPU, at the shapes of phases 3 and 9 of ``chip_smoke.py``, once
+per seed.
 
     python3 tools/torch_paged_bench.py [--seeds 3] [--root CHECKOUT]
 
@@ -9,7 +10,8 @@ The shapes are the Llama-3-8B paths' (bf16 q, 32 / 8 heads, head_dim 128,
 pages of 16): decode over 8 rows of 0..1024 keys, and a C = 256 chunk at
 starts 0..768.  For each seed, shape and kernel it prints the largest
 |error| against the plain version, the kernel's time on the device clock
-(the kernel alone) and with events around the wrapper, and its bound (the
+(every kernel of one call, summed: B8 launched two before it took B5's
+body) and with events around the wrapper, and its bound (the
 smoke's bounds and timers).  The kernels come from the package of
 ``--root`` (default: the checkout this script sits in), so two checkouts
 compare in one call by running this script on each in turns.  Prints one
@@ -46,7 +48,7 @@ def one_seed(smoke, seed):
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_chunk_attention, paged_chunk_attention_quant,
         paged_chunk_attention_quant_reference,
-        paged_chunk_attention_reference)
+        paged_chunk_attention_reference, paged_chunk_attention_v1)
 
     gen = torch.Generator("cuda").manual_seed(seed)
     rows = {}
@@ -72,7 +74,11 @@ def one_seed(smoke, seed):
                     q, kq, ks, vq, vs, table, st),
                  lambda: paged_chunk_attention_quant_reference(
                     q, kq, ks, vq, vs, table, st),
-                 2 * live * KV * (D + 4) + io)):
+                 2 * live * KV * (D + 4) + io),
+                ("B8", lambda: paged_chunk_attention_v1(q, kp, vp, table, st),
+                 lambda: paged_chunk_attention_reference(q, kp, vp, table,
+                                                         st),
+                 2 * live * KV * D * 2 + io)):
             got, want = fn(), ref()
             torch.cuda.synchronize()
             if C == 1:      # the plain chunk version does not zero row 0
