@@ -10,8 +10,10 @@ and runs, in order:
    against their plain PyTorch versions on the card at the serving shapes,
    and the flash forward at the training shape too (T = 2047, causal and
    with 3 packed segments), each timed beside SDPA; paged attention (B5)
-   at decode and C = 256 on its Hopper body, and greedy argmax (B6) beside
-   ``torch.argmax``, on the device clock too;
+   at decode and C = 256 on its Hopper body, and greedy argmax (B6, each
+   row split over a cluster of blocks) beside ``torch.argmax`` at B = 8
+   f32 (planted ties, NaN rows), B = 1 f32 and B = 8 bf16, on the device
+   clock too, reading from HBM (copies in turn) and from L2;
 9. the int8-resident paged kernel (B7) and the v1 arm (B8: B5's Hopper
    body for bf16, held to its tiled twin; the split-key pair for f32, held
    to the split plain version) against their plain versions at the same
@@ -60,10 +62,10 @@ Each main path (the env report of phase 12, the two serving runs of phase
 int8 serving runs and the ``init_inference`` forward of phase 14, and the
 training run) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
-after), and the launches per body of the flash kernels, B5, B7, B8 and
-B9: every Llama-3-8B path must run only their Hopper bodies (flash
-"wgmma", B5 / B7 / B8 "sm90") and B9's vector body, the f32 runs only the
-scalar attention bodies.
+after), and the launches per body of the flash kernels, B5, B7, B8, B9
+and B6: every Llama-3-8B path must run only their Hopper bodies (flash
+"wgmma", B5 / B7 / B8 "sm90"), B9's vector body and B6's cluster body, the
+f32 runs only the scalar attention bodies.
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
@@ -72,6 +74,7 @@ non-zero without printing a result when CUDA is not available.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -83,6 +86,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20            # H100 SXM L2
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 # bf16 attention tolerances, each set from the error the card read at these
@@ -131,8 +135,8 @@ TIER_KV = {"quantize_cold": True, "quantized_resident": True,
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # kernel with two bodies -> main path -> its launches per body (the flash
 # kernels' tensor-core "wgmma", B5's, B7's and B8's Hopper "sm90",
-# "scalar"; B9's "vec" and "scalar"), read just after the path as its other
-# counts are
+# "scalar"; B9's "vec" and "scalar"; B6's "cluster" and "row"), read just
+# after the path as its other counts are
 BODIES = {}
 
 
@@ -155,14 +159,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> Optional[float]:
+def device_ms(fn, iters: int = 20, kernels: bool = False):
     """Device time per call of ``fn`` under ``torch.profiler``, without the
     host's launch cost that back-to-back event timing includes when the host
     is the slower side: each kernel's mean time per recorded launch, times
     its launches per call (its records over ``iters``, rounded up).  The
     profiler can drop some of a window's records, and a plain sum over them
     reads low (it read 0 once); a trace that holds none is taken again, up
-    to three times; None if none held any."""
+    to three times; None if none held any.  With ``kernels``, returns that
+    time and the kernels launched per call (0 with None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -173,11 +178,13 @@ def device_ms(fn, iters: int = 20) -> Optional[float]:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        evs = [e for e in _device_events(prof) if e.count]
         total = sum(e.self_device_time_total / e.count * -(-e.count // iters)
-                    for e in _device_events(prof) if e.count)
+                    for e in evs)
         if total > 0:
-            return total / 1e3
-    return None
+            n = sum(-(-e.count // iters) for e in evs)
+            return (total / 1e3, n) if kernels else total / 1e3
+    return (None, 0) if kernels else None
 
 
 def device_median_ms(fn, iters: int = 100) -> Optional[float]:
@@ -197,6 +204,16 @@ def device_median_ms(fn, iters: int = 100) -> Optional[float]:
     us = [e.time_range.end - e.time_range.start for e in prof.events()
           if e.device_type == DeviceType.CUDA]
     return float(np.median(us)) / 1e3 if us else None
+
+
+def cold_inputs(x: torch.Tensor, total: int = 3 * L2_BYTES):
+    """A function that hands out copies of ``x`` in turn, copies that
+    together hold ``total`` bytes or more: a kernel called on each in turn
+    finds its input evicted from L2 since its last use, so it reads it from
+    HBM, as the bytes bound assumes."""
+    n = max(2, -(-total // (x.numel() * x.element_size())))
+    return functools.partial(next, itertools.cycle(
+        [x.clone() for _ in range(n)]))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -447,7 +464,40 @@ def phase_paged(gen):
                       "bound_by": bc_by, "max_abs_err": err_c}}
 
 
+def _greedy_case(fn, x):
+    """One B6 case timed on copies of ``x`` read from HBM in turn
+    (:func:`cold_inputs`): the kernel with events and on the device clock,
+    its plain version, and ``torch.argmax`` (events and device clock),
+    beside the bound (each element read once, B indices written).  The
+    kernel and ``argmax`` again on ``x`` alone, which stays in L2 as the LM
+    head's fresh output would in serving (``l2_*``: no share of the bound,
+    which assumes HBM)."""
+    from deepspeed_tpu_torch.ops.sampling_cuda import greedy_rows_reference
+
+    B, V = x.shape
+    b_ms, b_by = bound(B * V * x.element_size() + B * 4, B * V,
+                       F32_FLOPS_PER_S)
+    cold = cold_inputs(x)
+    dev = device_ms(lambda: fn(cold()), iters=50)
+    return {"ms": time_ms(lambda: fn(cold()), iters=50),
+            "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": _share(b_ms, dev),
+            "plain_ms": time_ms(lambda: greedy_rows_reference(cold()),
+                                iters=50),
+            "library_ms": time_ms(lambda: torch.argmax(cold(), dim=-1),
+                                  iters=50),
+            "library_device_ms": device_ms(
+                lambda: torch.argmax(cold(), dim=-1), iters=50),
+            "l2_device_ms": device_ms(lambda: fn(x), iters=50),
+            "library_l2_device_ms": device_ms(
+                lambda: torch.argmax(x, dim=-1), iters=50)}
+
+
 def phase_greedy(gen):
+    """B6 at the serving vocabulary: B = 8 f32 with planted ties (and NaN
+    rows), B = 1 f32 (a prefill flush of one row) and B = 8 bf16, each
+    exact against the plain version and ``torch.argmax``; each row split
+    over a cluster of blocks (the "cluster" body)."""
     from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
                                                        greedy_rows_reference)
 
@@ -458,44 +508,63 @@ def phase_greedy(gen):
             (128254, 128255), (0, 128255), (4, 4000, 40000)]
     for b, idx in enumerate(ties):
         x[b, list(idx)] = 50.0
+    fused_greedy_rows.body_launches = dict.fromkeys(
+        fused_greedy_rows.body_launches, 0)
     got = fused_greedy_rows(x)
     ref = greedy_rows_reference(x)
     arg = torch.argmax(x, dim=-1)
     torch.cuda.synchronize()
     err = (got.long() - ref.long()).abs().max().item()
-    exact = bool(torch.equal(got.long(), ref.long())
-                 and torch.equal(got.long(), arg)
-                 and got.tolist() == [min(t) for t in ties])
+    exact = {"B8 f32": bool(torch.equal(got.long(), ref.long())
+                            and torch.equal(got.long(), arg)
+                            and got.tolist() == [min(t) for t in ties])}
     # NaN counts as the max: an all-NaN row gives 0, a row with some NaN
     # its first NaN (ahead of its planted tie)
     xn = x.clone()
     xn[0] = float("nan")
     xn[6, [70001, 128000]] = float("nan")
     got_n = fused_greedy_rows(xn)
-    nan_ok = bool(torch.equal(got_n, greedy_rows_reference(xn))
-                  and got_n[0].item() == 0 and got_n[6].item() == 70001)
-    exact = exact and nan_ok
-    ms = time_ms(lambda: fused_greedy_rows(x), iters=50)
-    plain_ms = time_ms(lambda: greedy_rows_reference(x), iters=50)
-    library_ms = time_ms(lambda: torch.argmax(x, dim=-1), iters=50)
-    # the device clock, without the host's launch cost in either
-    dev = device_ms(lambda: fused_greedy_rows(x), iters=50)
-    library_dev = device_ms(lambda: torch.argmax(x, dim=-1), iters=50)
-    b_ms, b_by = bound(B * V * 4 + B * 4, B * V, F32_FLOPS_PER_S)
-    log(f"[greedy] B={B} V={V} f32 planted ties: exact {exact} (tol: "
-        f"exact; NaN rows {nan_ok}); kernel {ms:.4f} ms (device {dev}, "
-        f"bound share {_share(b_ms, dev)}) plain {plain_ms:.4f} ms argmax "
-        f"{library_ms:.4f} ms (device {library_dev}) bound {b_ms:.4f} ms "
-        f"({b_by})")
-    if not exact:
-        raise SystemExit("greedy kernel is not bit-exact")
+    exact["B8 f32 NaN rows"] = bool(
+        torch.equal(got_n, greedy_rows_reference(xn))
+        and got_n[0].item() == 0 and got_n[6].item() == 70001)
+    x1 = x[7:].clone()                  # B = 1: its max at 4, tied at 4000
+    xh = x.to(torch.bfloat16)           # bf16: the ties stay exact (50.0)
+    for key, xc, want in (("B1 f32", x1, [4]),
+                          ("B8 bf16", xh, [min(t) for t in ties])):
+        got_c = fused_greedy_rows(xc)
+        exact[key] = bool(torch.equal(got_c, greedy_rows_reference(xc))
+                          and torch.equal(got_c.long(),
+                                          torch.argmax(xc, dim=-1))
+                          and got_c.tolist() == want)
+    bodies = dict(fused_greedy_rows.body_launches)
+    split = bodies["row"] == 0
+    cases = {"B8 f32": _greedy_case(fused_greedy_rows, x),
+             "B1 f32": _greedy_case(fused_greedy_rows, x1),
+             "B8 bf16": _greedy_case(fused_greedy_rows, xh)}
+    for key, c in cases.items():
+        log(f"[greedy] {key} V={V}: exact {exact[key]} (tol: exact); "
+            f"from HBM: kernel device {c['device_ms']} ms (bound share "
+            f"{c['bound_share']}), events {c['ms']:.4f} ms; plain "
+            f"{c['plain_ms']:.4f} ms; argmax device {c['library_device_ms']}"
+            f" ms, events {c['library_ms']:.4f} ms; bound "
+            f"{c['bound_ms']:.5f} ms ({c['bound_by']}); from L2: kernel "
+            f"device {c['l2_device_ms']} ms, argmax {c['library_l2_device_ms']}"
+            f" ms")
+    log(f"[greedy] NaN rows exact {exact['B8 f32 NaN rows']}; launches by "
+        f"body {bodies} (all on the cluster body: {split})")
+    if not all(exact.values()) or not split:
+        raise SystemExit(f"greedy kernel is not bit-exact or left the "
+                         f"cluster body: {exact} {bodies}")
+    c = cases["B8 f32"]
     return {"name": "greedy_argmax", "fn": fused_greedy_rows,
             "source": "deepspeed_tpu_torch/csrc/greedy_argmax.cu",
             "replaces": "deepspeed_tpu/ops/sampling_pallas.py:65",
-            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "device_ms": dev, "library_device_ms": library_dev,
-            "bound_share": _share(b_ms, dev)}
+            "max_abs_err": float(err), "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "device_ms": c["device_ms"],
+            "library_device_ms": c["library_device_ms"],
+            "bound_share": c["bound_share"], "cases": cases}
 
 
 # ------------------------------------------------------------ phase 9
@@ -1172,7 +1241,9 @@ def _two_body_kernels():
     """Kernel name -> (wrapper, its body on the Llama-3-8B paths, its body on
     the tiny f32 paths) for the kernels with two bodies: the flash kernels'
     tensor-core "wgmma", B5's, B7's and B8's Hopper "sm90" (f32 takes
-    "scalar"), and B9's "vec" (every group size of both: a multiple of 8)."""
+    "scalar"), B9's "vec" (every group size of both: a multiple of 8), and
+    B6's "cluster" (every batch of both is at most 8 rows, split over
+    spans; "row" is for batches that fill the card alone)."""
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_chunk_attention, paged_chunk_attention_quant,
         paged_chunk_attention_v1)
@@ -1180,6 +1251,7 @@ def _two_body_kernels():
                                                         flash_bwd_dq,
                                                         flash_fwd)
     from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
+    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
 
     return {"flash_fwd": (flash_fwd, "wgmma", "scalar"),
             "flash_bwd_dq": (flash_bwd_dq, "wgmma", "scalar"),
@@ -1189,13 +1261,14 @@ def _two_body_kernels():
                                       "scalar"),
             "paged_attention_v1": (paged_chunk_attention_v1, "sm90",
                                    "scalar"),
-            "quantize": (quantize_rows, "vec", "vec")}
+            "quantize": (quantize_rows, "vec", "vec"),
+            "greedy_argmax": (fused_greedy_rows, "cluster", "cluster")}
 
 
 def _check_bodies(path, hopper=True, record=True):
     """Every launch of the two-body kernels since the counts were set to 0
     went through the body they take on the Llama-3-8B paths (the Hopper
-    bodies, B9's vector body), or on the tiny f32 paths
+    bodies, B9's vector body, B6's cluster body), or on the tiny f32 paths
     (``hopper=False``); a main path's counts go into the kernels line."""
     for name, (f, hopper_body, f32_body) in _two_body_kernels().items():
         body = hopper_body if hopper else f32_body
@@ -2046,7 +2119,7 @@ def main() -> int:
         for key in ("device_ms", "library_device_ms", "device_median_ms",
                     "library_device_median_ms", "bound_share",
                     "training_shape", "chunk", "f32_split", "kv_rows",
-                    "kv_write"):
+                    "kv_write", "cases"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

@@ -63,8 +63,8 @@ SIGNATURES = {
     "dstt_paged_split": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
     # part_m, part_l, part_acc, out, B, C, H, KV, D, nsplit, dtype, stream
     "dstt_paged_combine": [_P] * 4 + [_I] * 7 + [_P],
-    # logits, out, B, V, stream
-    "dstt_greedy_argmax": [_P, _P, _I, _I, _P],
+    # logits, out, B, V, row_stride, dtype, spans, stream
+    "dstt_greedy_argmax": [_P, _P, _I, _I, ctypes.c_longlong, _I, _I, _P],
     # x, q, scale, n_groups, group_size, dtype, body, stream
     "dstt_quantize_int8": [_P] * 3 + [ctypes.c_longlong] * 2 + [_I, _I, _P],
     # new_k, new_v, table, start, kq, ks, vq, vs, B, T, C, KV, D, P, ps, mp,

@@ -643,7 +643,9 @@ def test_paged_kernels_reject_what_they_cannot_take(gen):
 
 
 @pytest.mark.parametrize("B,V,offset", [(1, 7, 0), (3, 1001, 0),
-                                        (8, 128256, 0), (4, 4096, 1)])
+                                        (8, 128256, 0), (4, 4096, 1),
+                                        (1, 128256, 0), (2, 128256, 0),
+                                        (64, 128256, 0), (1, 128256, 1)])
 def test_greedy_matches_argmax(gen, B, V, offset):
     from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
                                                        greedy_rows_reference)
@@ -651,9 +653,13 @@ def test_greedy_matches_argmax(gen, B, V, offset):
     x = torch.randn((B * V + offset,), generator=gen, device="cuda")
     x = x[offset:].view(B, V)          # offset 1: rows not 16-byte aligned
     x[:, V // 3] = x[:, -1] = 100.0    # a tie in every row
+    fused_greedy_rows.body_launches = dict.fromkeys(
+        fused_greedy_rows.body_launches, 0)
     got = fused_greedy_rows(x)
     assert torch.equal(got.long(), torch.argmax(x, dim=-1))
     assert (got == V // 3).all()
+    # B <= 132 splits each row over a cluster (B = 64: 4 spans)
+    assert fused_greedy_rows.body_launches == {"cluster": 1, "row": 0}
     # NaN counts as the max: a row of NaN gives 0, a row with some NaN
     # gives its first NaN, ahead of the tied 100s
     x[0] = float("nan")
@@ -662,6 +668,91 @@ def test_greedy_matches_argmax(gen, B, V, offset):
     assert torch.equal(got, greedy_rows_reference(x))
     assert got[0].item() == 0
     assert got[-1].item() == (0 if B == 1 else V // 2)
+
+
+def _greedy_exact(x):
+    """The kernel against the plain version and torch.argmax: equal."""
+    from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
+                                                       greedy_rows_reference)
+
+    got = fused_greedy_rows(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, greedy_rows_reference(x))
+    assert torch.equal(got.long(), torch.argmax(x, dim=-1))
+    return got
+
+
+def _span_plan(x):
+    """The spans the kernel reads for row 0 of ``x`` (its head is where
+    that row's first 16-byte boundary falls): (S, edges)."""
+    from deepspeed_tpu_torch.ops.sampling_cuda import greedy_split_plan
+
+    width = 16 // x.element_size()
+    head = (16 - x.data_ptr() % 16) % 16 // x.element_size()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return greedy_split_plan(x.shape[0], x.shape[1], sms, width, head)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,V", [(1, 128256), (8, 128256), (2, 50000),
+                                 (64, 128256), (133, 128256), (34, 4099),
+                                 (8, 20), (1, 63), (4, 1), (4, 5)])
+def test_greedy_split_exact(gen, dtype, B, V):
+    """Every split the batch picks on 132 SMs (16 spans at B <= 4, 8, 7
+    at B = 34, 4 at B = 64, the row body at B = 133) and dtype: ties
+    planted on each side of each span edge, a NaN row and an all -inf row,
+    V below 16 spans of 16 bytes (empty spans), unaligned rows."""
+    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
+
+    fused_greedy_rows.body_launches = {"cluster": 0, "row": 0}
+    for offset in (0, 1):
+        base = _randn(gen, (B * V + offset,), dtype)
+        x = base[offset:].view(B, V)
+        _greedy_exact(x)
+        S, edges = _span_plan(x)
+        inner = [e for e in edges[1:-1] if 0 < e < V]
+        if inner:
+            # the same max just left and right of every edge: the left wins
+            x[:, inner] = 40.0
+            x[:, [e - 1 for e in inner]] = 40.0
+            got = _greedy_exact(x)
+            assert (got == inner[0] - 1).all()
+        if B > 1:
+            x[0] = float("-inf")
+            x[1, V // 2:] = float("nan")
+            got = _greedy_exact(x)
+            assert got[0].item() == 0 and got[1].item() == V // 2
+    other = "cluster" if S == 1 else "row"
+    assert fused_greedy_rows.body_launches[other] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8])
+def test_greedy_strided_last_position(gen, dtype, B):
+    """``logits[:, -1]`` of a [B, 3, V] tensor, read in place."""
+    V = 128256
+    x = _randn(gen, (B, 3, V), dtype)
+    x[:, 0] = 99.0                      # the other positions never count
+    last = x[:, -1]
+    assert last.stride(0) == 3 * V
+    last[:, 77777] = last[:, 5] = 50.0
+    got = _greedy_exact(last)
+    assert (got == 5).all()
+
+
+def test_greedy_rejects_what_it_cannot_take(gen):
+    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
+
+    x = torch.randn((4, 100), generator=gen, device="cuda")
+    for bad in (x.double(), x.int(), x.long()):
+        with pytest.raises(ValueError, match="float32"):
+            fused_greedy_rows(bad)
+    with pytest.raises(ValueError, match="float32"):
+        fused_greedy_rows(x[None])              # not [B, V]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_greedy_rows(x.t())
 
 
 def _nan_equal(a, b):

@@ -45,24 +45,6 @@ def _smoke():
     return mod
 
 
-def _device_per_call(fn, iters: int = 50):
-    """(device ms summed over every kernel, kernels) per call of ``fn``
-    under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    us = sum(e.time_range.end - e.time_range.start for e in evs)
-    return us / 1e3 / iters, len(evs) / iters
-
-
 def one_round(smoke, seed):
     from deepspeed_tpu_torch.inference import kernels as pk
     from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
@@ -108,7 +90,7 @@ def one_round(smoke, seed):
         else:
             fn = lambda: pk.write_chunk_pages_quant(  # noqa: E731
                 *planes, *new, table, st, 16)
-        dev, kernels = _device_per_call(fn)
+        dev, kernels = smoke.device_ms(fn, iters=50, kernels=True)
         ms = smoke.time_ms(fn, iters=50)
         stored = smoke.kv_write_rows(rows_, starts) * 8 * 2
         wb = smoke.bound(stored * (128 * 2 + 128 + 4), 5 * stored * 128,
