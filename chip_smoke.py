@@ -55,12 +55,22 @@ and runs, in order:
 8. the training main path at full width: Llama-3-8B widths cut to 4 layers
    (one card's memory), f32 master, bf16 compute, fused Adam, 4 steps; all
    32 + 32 backward launches on the tensor-core body, and a profiled step
-   that lists the LM-head products and the flash kernels.
+   that lists the LM-head products and the flash kernels;
+15. resumable packed training at Llama-3-8B widths cut to 2 layers:
+   ``PackedDataLoader`` rows of 2048 (+1) tokens holding 2-4 documents
+   each, a seqlen curriculum (1024 -> 2048 over 3 steps), ``remat="full"``,
+   fused Adam; an uninterrupted run of 4 steps twice (bit-equal: the
+   run-to-run reading), a run saved after 2 steps (``async_save``), its
+   engine dropped, a new engine loaded and run 2 more steps (bit-equal to
+   the uninterrupted run: losses and every state leaf), and the same 4
+   steps with ``remat="none"`` (ms/step, peak memory and MFU beside the
+   remat run's); every flash launch on the tensor-core body with segment
+   ids.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
-int8 serving runs and the ``init_inference`` forward of phase 14, and the
-training run) counts the launches
+int8 serving runs and the ``init_inference`` forward of phase 14, the
+training run of phase 8 and the four runs of phase 15) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -2040,6 +2050,255 @@ def phase_train(fns, card_line):
                       "device_busy_ms": busy, "device_idle_share": idle}
 
 
+# ------------------------------------------------------------ phase 15
+# phase 15: Llama-3-8B widths cut to 2 layers, packed documents of 64-1536
+# tokens into rows of 2048 (+1), a seqlen curriculum from 1024 to 2048 in
+# steps of 256 over the run's first 3 steps, train batch 2 (micro 1, accum 2)
+RESUME_LAYERS, RESUME_SEQ, RESUME_STEPS, RESUME_SAVE_AT = 2, 2048, 4, 2
+RESUME_CURRICULUM = {
+    "enabled": True, "curriculum_type": "seqlen", "min_difficulty": 1024,
+    "max_difficulty": 2048, "schedule_type": "fixed_linear",
+    "schedule_config": {"total_curriculum_step": 3, "difficulty_step": 256}}
+# remat="none" against remat="full" on the same kernels: the backward's
+# recompute runs the same launches on the same inputs, so the runs agree bit
+# for bit unless a kernel is not deterministic (losses, relative)
+REMAT_LOSS_RTOL = 0.0
+
+
+def _packed_docs(rng, n, vocab, lo=64, hi=1536):
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(
+        np.int32) for _ in range(n)]
+
+
+def _state_digest(state) -> list:
+    """Per state leaf (master params and optimizer moments): the int64 sums
+    of its 32-bit patterns, plain and weighted by position (mod 1000003),
+    on the card; equal for bit-equal leaves."""
+    from deepspeed_tpu_torch._tree import tree_leaves
+
+    out = []
+    for t in tree_leaves((state.params, state.opt_state[1:])):
+        v = t.detach().reshape(-1).view(torch.int32)
+        plain = weighted = 0
+        for i in range(0, v.numel(), 1 << 26):
+            c = v[i:i + (1 << 26)].long()
+            idx = torch.arange(i, i + c.numel(), device=c.device)
+            plain += int(c.sum())
+            weighted += int((c * (idx % 1000003 + 1)).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def _train_flops_per_sample(cfg, T):
+    """Model FLOPs of one training sample of T tokens (forward + backward =
+    3x the forward; the remat recompute is not counted): the weight and
+    LM-head products, and causal attention over the whole row."""
+    d, f, L, V = cfg.dim, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    weights = 2 * T * (L * (2 * d * d + 2 * d * kvd + 3 * d * f) + d * V)
+    attn = L * 2 * 2 * cfg.n_heads * cfg.head_dim * (T * (T + 1) // 2)
+    return 3 * (weights + attn)
+
+
+def phase_resume(fns, card_line):
+    """Resumable packed training at Llama-3-8B widths: an uninterrupted run
+    A (twice, for the run-to-run reading), run B saved after 2 steps,
+    dropped, rebuilt, loaded and run 2 more steps (equal to A bit for bit),
+    and run N with remat="none" (ms/step and peak memory beside A's)."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.data.packing import (PackedDataLoader,
+                                                  packing_efficiency)
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, loss_fn,
+                                                  param_count)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.timers import ThroughputTimer
+    from deepspeed_tpu_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=RESUME_LAYERS,
+                              remat="full")
+    rng = np.random.default_rng(15)
+    # greedy first-fit over windows of 32 documents: every row of these
+    # batches holds 2-4 documents
+    loader = PackedDataLoader(_packed_docs(rng, 128, cfg.vocab_size),
+                              batch_rows=2, seq_len=RESUME_SEQ,
+                              fill_factor=16)
+    batches = list(itertools.islice(iter(loader), RESUME_STEPS))
+    segs = [int(len(np.unique(r[r > 0]))) for b in batches
+            for r in b["segment_ids"]]
+    if min(segs) < 2:
+        raise SystemExit(f"phase 15: a packed row holds one document {segs}")
+    conf = _train_config(2, 2, {"bf16": {"enabled": True}})
+    conf["curriculum_learning"] = RESUME_CURRICULUM
+    T = RESUME_SEQ - 1
+    flops = _train_flops_per_sample(cfg, T)
+
+    def engine(c):
+        torch.cuda.empty_cache()
+        params = init_params(c, torch.Generator("cuda").manual_seed(0),
+                             device="cuda", dtype=torch.float32)
+        eng = initialize(loss_fn=loss_fn(c), params=params, config=conf,
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        del params
+        torch.cuda.synchronize()
+        return eng
+
+    def steps(eng, todo, timer=None):
+        """train_batch over ``todo``: per step its loss, seq length, ms and
+        peak memory."""
+        rows = []
+        for b in todo:
+            torch.cuda.reset_peak_memory_stats()
+            seqlen = eng.curriculum_difficulty()
+            if timer is not None:
+                timer.start()
+            ts = time.perf_counter()
+            loss = float(eng.train_batch(b))
+            ms = (time.perf_counter() - ts) * 1e3
+            if timer is not None:
+                timer.stop()
+            rows.append({"loss": loss, "seqlen": seqlen, "ms": ms,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return rows
+
+    def run(c, path):
+        """One uninterrupted run, its counts set to 0 just before its first
+        step and read just after its last."""
+        eng = engine(c)
+        timer = ThroughputTimer(batch_size=2, seq_len=T,
+                                flops_per_sample=flops,
+                                start_step=RESUME_STEPS - 1, device="cuda")
+        _zero(fns.values())
+        rows = steps(eng, batches, timer)
+        out = {"steps": rows, "launches": {n: f.launches
+                                           for n, f in fns.items()},
+               "tput": timer.summary(), "digest": _state_digest(eng.state),
+               "leaves": len(tree_leaves(eng.state.params))}
+        _check_bodies(path)
+        del eng
+        gc.collect()
+        return out
+
+    log(f"[resume] llama3_8b widths, layers={cfg.n_layers} (cut from 32 to "
+        f"keep the checkpoint's write and read short) params="
+        f"{param_count(cfg)} f32 master, bf16 compute, fused_adam wd=0.1, "
+        f"accum=2 micro=1 clip=1.0 WarmupLR remat=full; {len(batches)} "
+        f"packed batches [2, {RESUME_SEQ + 1}] of documents 64-1536 tokens "
+        f"(first-fit windows of 32), "
+        f"segments per row {segs}, packing efficiency "
+        f"{[round(packing_efficiency(b['segment_ids']), 4) for b in batches]}"
+        f"; curriculum {RESUME_CURRICULUM['schedule_config']} "
+        f"{RESUME_CURRICULUM['min_difficulty']}->"
+        f"{RESUME_CURRICULUM['max_difficulty']}; {flops:.4e} flops/sample "
+        f"at T={T}")
+    a = run(cfg, "packed training A")
+    a2 = run(cfg, "packed training A again")
+    deterministic = (a["digest"] == a2["digest"] and
+                     [r["loss"] for r in a["steps"]] ==
+                     [r["loss"] for r in a2["steps"]])
+    log(f"[resume] run A losses {[r['loss'] for r in a['steps']]} seqlens "
+        f"{[r['seqlen'] for r in a['steps']]}; run A again bit-equal to A "
+        f"(losses and all {len(a['digest'])} state leaves): {deterministic}")
+    if not deterministic:
+        raise SystemExit("phase 15: two uninterrupted runs differ on the "
+                         "card; the resume gate is bitwise")
+    if [r["seqlen"] for r in a["steps"]] != [1024, 1280, 1536, 2048]:
+        raise SystemExit("phase 15: the curriculum did not drive the steps")
+
+    # run B: save after RESUME_SAVE_AT steps, drop, rebuild, load, continue;
+    # the counts are set to 0 before its first step and read after its last
+    ckdir = tempfile.mkdtemp(prefix="dstt_resume_", dir=tempfile.gettempdir())
+    try:
+        eng = engine(cfg)
+        _zero(fns.values())
+        first = steps(eng, batches[:RESUME_SAVE_AT])
+        resident = torch.cuda.memory_allocated() / 1e9
+        ts = time.perf_counter()
+        eng.save_checkpoint(ckdir, async_save=True)
+        snap_s = time.perf_counter() - ts
+        eng.wait_for_checkpoint()
+        save_s = time.perf_counter() - ts
+        written = sum(os.path.getsize(os.path.join(dp, fn))
+                      for dp, _, files in os.walk(ckdir) for fn in files)
+        free = shutil.disk_usage(ckdir).free
+        del eng
+        gc.collect()
+        eng = engine(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ts = time.perf_counter()
+        path, _ = eng.load_checkpoint(ckdir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - ts
+        load_extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+        second = steps(eng, batches[RESUME_SAVE_AT:])
+        b_launches = {n: f.launches for n, f in fns.items()}
+        _check_bodies("resumed training")
+        b_digest = _state_digest(eng.state)
+        del eng
+        gc.collect()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    b_losses = [r["loss"] for r in first + second]
+    resumed_ok = (b_losses == [r["loss"] for r in a["steps"]]
+                  and b_digest == a["digest"])
+    log(f"[resume] run B: saved after {RESUME_SAVE_AT} steps to "
+        f"{tempfile.gettempdir()} ({written} bytes, {resident:.2f} GB "
+        f"resident), save_checkpoint returned in {snap_s:.2f} s (host "
+        f"snapshot), on disk after {save_s:.2f} s; {free / 1e9:.1f} GB free "
+        f"after; engine dropped and rebuilt; load_checkpoint {load_s:.2f} s, "
+        f"peak card memory above the rebuilt engine's during the load "
+        f"{load_extra:.3f} GB; losses {b_losses}; equal to run A bit for bit "
+        f"(losses and every state leaf): {resumed_ok}")
+    if not resumed_ok or path is None:
+        raise SystemExit("phase 15: the resumed run differs from run A")
+    launches = {"packed training A": a["launches"],
+                "packed training A again": a2["launches"],
+                "resumed training": b_launches}
+
+    n = run(dataclasses.replace(cfg, remat="none"), "packed training remat=none")
+    launches["packed training remat=none"] = n["launches"]
+    rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+              for x, y in zip(n["steps"], a["steps"]))
+    for name, r in (("A (remat=full)", a), ("N (remat=none)", n)):
+        log(f"[resume] run {name}: ms/step {[round(x['ms'], 1) for x in r['steps']]}"
+            f" peak GB {[round(x['peak_gb'], 2) for x in r['steps']]}; "
+            f"ThroughputTimer over the last step (T={T}): "
+            f"{r['tput']['tokens_per_sec']:.1f} tokens/s, "
+            f"{r['tput']['tflops']:.1f} TFLOP/s, MFU {r['tput']['mfu']:.4f} "
+            f"on {card_line}")
+    log(f"[resume] remat=none vs full: max rel loss diff {rel:.3e} (tol "
+        f"{REMAT_LOSS_RTOL}); state bit-equal {n['digest'] == a['digest']}; "
+        f"launches A {a['launches']} B {launches['resumed training']} N "
+        f"{n['launches']}")
+    if rel > REMAT_LOSS_RTOL:
+        raise SystemExit("phase 15: remat=none and remat=full disagree")
+    want = {"packed training A": 2 * 2 * RESUME_STEPS * cfg.n_layers,
+            "packed training A again": 2 * 2 * RESUME_STEPS * cfg.n_layers,
+            "resumed training": 2 * 2 * RESUME_STEPS * cfg.n_layers,
+            "packed training remat=none": 2 * RESUME_STEPS * cfg.n_layers}
+    for p, fwd in want.items():
+        c = launches[p]
+        exp = {"flash_fwd": fwd,
+               "flash_bwd_dq": 2 * RESUME_STEPS * cfg.n_layers,
+               "flash_bwd_dkv": 2 * RESUME_STEPS * cfg.n_layers,
+               "fused_adam": RESUME_STEPS * a["leaves"]}
+        if any(c[k] != v for k, v in exp.items()) or any(
+                c[k] for k in c if k not in exp):
+            raise SystemExit(f"phase 15: {p} launches {c}, expected {exp}")
+    log(f"[resume] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"A": a["steps"], "B": first + second,
+                      "N": n["steps"], "save_s": save_s, "load_s": load_s,
+                      "bytes": written}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2096,6 +2355,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_identity(fns)
     launches["training"], _ = phase_train(fns, card_line)
+    torch.cuda.empty_cache()
+    launches.update(phase_resume(fns, card_line)[0])
 
     out = []
     for name in fns:

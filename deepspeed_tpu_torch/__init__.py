@@ -4,8 +4,10 @@ Imports ``torch`` and ``numpy`` only (never ``jax`` nor ``deepspeed_tpu``).
 Ported: Llama greedy serving with continuous batching over a paged KV
 cache (prefix cache, host KV tier, int8-resident pages, int8 weights), the
 train step at ZeRO stage 0 on one GPU (``initialize`` ->
-``TrainingEngine.train_batch``), ``init_inference`` and the environment
-report.  Their attention, sampling, Adam update and int8 quantization run
+``TrainingEngine.train_batch``) with its data loader, packing, curriculum,
+activation checkpointing, timers and checkpoints (``save_checkpoint`` /
+``load_checkpoint``, ``zero_to_fp32``), ``init_inference`` and the
+environment report.  Their attention, sampling, Adam update and int8 quantization run
 hand-written CUDA kernels (``deepspeed_tpu_torch/csrc``).  Exports resolve
 lazily, so importing the package builds nothing and touches no device.
 """
@@ -23,6 +25,11 @@ _EXPORTS = {
     "llama_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "serving_engine": "deepspeed_tpu_torch.inference.serving",
     "from_jax_params": "deepspeed_tpu_torch.weights",
+    "from_jax_train_state": "deepspeed_tpu_torch.weights",
+    "DataLoader": "deepspeed_tpu_torch.data.loader",
+    "RepeatingLoader": "deepspeed_tpu_torch.data.loader",
+    "PackedDataLoader": "deepspeed_tpu_torch.data.packing",
+    "zero_to_fp32": "deepspeed_tpu_torch.checkpoint",
     "init_params": "deepspeed_tpu_torch.weights",
     "initialize": "deepspeed_tpu_torch.engine",
     "TrainingEngine": "deepspeed_tpu_torch.engine",

@@ -68,3 +68,29 @@ def tree_unflatten_like(tree: Any, leaves: List[Any]) -> Any:
     """A tree of ``tree``'s structure whose leaves are ``leaves``, in
     :func:`tree_leaves` order."""
     return _rebuild(tree, iter(leaves))
+
+
+def _walk_paths(x, prefix: str, out: List[Any]) -> None:
+    if x is None:
+        return
+    if isinstance(x, dict):
+        for k in sorted(x):
+            _walk_paths(x[k], f"{prefix}{k}/", out)
+    elif _is_namedtuple(x):
+        for name, v in zip(x._fields, x):
+            _walk_paths(v, f"{prefix}{name}/", out)
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            _walk_paths(v, f"{prefix}{i}/", out)
+    else:
+        out.append((prefix[:-1], x))
+
+
+def tree_leaves_with_path(tree: Any) -> List[Any]:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order; a path joins
+    the dict keys, NamedTuple field names and sequence indices on the way
+    with ``/`` (``"blocks/wq"``), as the JAX package names checkpoint
+    leaves."""
+    out: List[Any] = []
+    _walk_paths(tree, "", out)
+    return out

@@ -1,10 +1,11 @@
 """Config system accepting DeepSpeed-style JSON (ref: deepspeed/runtime/config.py).
 
 Port copy of ``deepspeed_tpu/config.py``, kept whole so that one JSON parses
-the same in both packages.  The four blocks whose validation lives in
-modules not ported yet (an enabled ``faults``, ``elasticity``,
-``curriculum_learning`` or ``random_ltd`` block) raise
-``NotImplementedError`` at parse time instead of importing them.
+the same in both packages.  The three blocks whose validation lives in
+modules not ported yet (an enabled ``faults``, ``elasticity`` or
+``random_ltd`` block) raise ``NotImplementedError`` at parse time instead
+of importing them; ``curriculum_learning`` parses into the port's
+:class:`~deepspeed_tpu_torch.data.curriculum.CurriculumConfig`.
 
 The reference parses a JSON dict (``train_batch_size``,
 ``zero_optimization``, ``fp16``/``bf16``, ``optimizer``, ``scheduler``,
@@ -734,7 +735,7 @@ class FaultsConfig:
         if f.enabled:
             raise NotImplementedError(
                 "faults: fault injection comes with the control-plane "
-                "slice (ROADMAP A12)")
+                "slice (ROADMAP A10)")
         return f
 
     @classmethod
@@ -1902,7 +1903,7 @@ class Config:
             c.moe.enabled = c.moe.enabled or c.moe.num_experts > 1
         if d.get("elasticity", {}).get("enabled"):
             raise NotImplementedError(
-                "elasticity comes with the distributed slice (ROADMAP A11)")
+                "elasticity comes with the distributed slice (ROADMAP A9)")
         # Data-efficiency blocks: accept both the reference's legacy
         # top-level "curriculum_learning" key and the nested
         # "data_efficiency" schema (ref: deepspeed/runtime/data_pipeline/
@@ -1911,12 +1912,13 @@ class Config:
         cl = (de.get("data_sampling", {}).get("curriculum_learning")
               or d.get("curriculum_learning"))
         if cl and cl.get("enabled"):
-            raise NotImplementedError(
-                "curriculum_learning comes with the data slice (ROADMAP A12)")
+            from deepspeed_tpu_torch.data.curriculum import CurriculumConfig
+
+            c.curriculum = CurriculumConfig.from_dict(cl)
         rltd = de.get("data_routing", {}).get("random_ltd") or d.get("random_ltd")
         if rltd and rltd.get("enabled"):
             raise NotImplementedError(
-                "random_ltd comes with the data slice (ROADMAP A12)")
+                "random_ltd comes with random_ltd.py (ROADMAP A11)")
         if d.get("progressive_layer_drop", {}).get("enabled"):
             c.progressive_layer_drop = dict(d["progressive_layer_drop"])
         if d.get("eigenvalue", {}).get("enabled"):
@@ -2008,7 +2010,7 @@ class Config:
         """
         if self.elasticity is not None and self.elasticity.enabled:
             raise NotImplementedError(
-                "elasticity comes with the distributed slice (ROADMAP A11)")
+                "elasticity comes with the distributed slice (ROADMAP A9)")
         if dp_world < 1:
             raise ValueError(f"dp_world must be positive, got {dp_world}")
         t, m, a = (self.train_batch_size, self.train_micro_batch_size_per_gpu,

@@ -13,6 +13,11 @@ neither the update nor the new optimizer state is ever a whole-model tree
 beside the old one.  On overflow the params and optimizer state are kept
 and the step does not advance, as ``_finish_step`` does.
 
+``train_batch`` first truncates the batch to the curriculum's current
+sequence length when a ``curriculum_learning`` block is configured, as the
+JAX engine does.  ``save_checkpoint`` / ``load_checkpoint`` /
+``wait_for_checkpoint`` resume a run (:mod:`deepspeed_tpu_torch.checkpoint`).
+
 DeepSpeed's three-call idiom is kept::
 
     loss = engine(batch)        # runs the whole step and commits it
@@ -34,8 +39,11 @@ from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch._tree import tree_leaves, tree_map, \
     tree_unflatten_like
 from deepspeed_tpu_torch.config import Config
+from deepspeed_tpu_torch.data.curriculum import (CurriculumScheduler,
+                                                 apply_seqlen_curriculum)
 from deepspeed_tpu_torch.ops.optim import Optimizer, default_lr
 from deepspeed_tpu_torch.ops.optim import from_config as opt_from_config
+from deepspeed_tpu_torch.timers import ThroughputTimer
 
 _MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
 
@@ -84,28 +92,28 @@ def _unsupported(config: Config, params, optimizer) -> Optional[str]:
     """The first configured feature this slice does not run, or None."""
     z = config.zero
     if z.stage > 0:
-        return f"ZeRO stage {z.stage} (ROADMAP A11, distributed slice)"
+        return f"ZeRO stage {z.stage} (ROADMAP A9, distributed slice)"
     if z.offload_param or z.offload_optimizer:
-        return "ZeRO offload (ROADMAP A11)"
+        return "ZeRO offload (ROADMAP A9)"
     if z.zeropp_quantized_gradients or z.zeropp_quantized_weights:
-        return "ZeRO++ qgZ/qwZ (ROADMAP A11)"
+        return "ZeRO++ qgZ/qwZ (ROADMAP A9)"
     name = optimizer.name if optimizer is not None else config.optimizer.type
     if name.startswith(("onebit", "zeroone")):
-        return f"1-bit optimizer {name!r} (ROADMAP A11)"
+        return f"1-bit optimizer {name!r} (ROADMAP A9)"
     if config.pipeline.stages > 1:
-        return "pipeline parallelism (ROADMAP A11)"
+        return "pipeline parallelism (ROADMAP A9)"
     if config.progressive_layer_drop:
-        return "progressive_layer_drop (ROADMAP A12)"
+        return "progressive_layer_drop (ROADMAP A11)"
     if config.eigenvalue:
-        return "eigenvalue (ROADMAP A12)"
+        return "eigenvalue (ROADMAP A11)"
     if "telemetry" in config.raw and config.telemetry.enabled:
-        return "the telemetry block (ROADMAP A12)"
+        return "the telemetry block (ROADMAP A10)"
     for key in _MONITORS:
         if (config.raw.get(key) or {}).get("enabled"):
-            return f"the {key} monitor (ROADMAP A12)"
+            return f"the {key} monitor (ROADMAP A10)"
     if callable(params) or not isinstance(params, (dict, list, tuple)):
         return ("params that are not a tree of arrays (init thunks and "
-                "LayeredModel param streaming, ROADMAP A10/A11)")
+                "LayeredModel param streaming, ROADMAP A8/A9)")
     return None
 
 
@@ -162,6 +170,16 @@ class TrainingEngine:
                 "(step: int, then trees shaped like the params)")
         self.state = TrainState(step=0, params=params, opt_state=opt_state,
                                 scaler=precision.scaler_init(config.precision))
+        # curriculum (ref: engine.curriculum_scheduler): seqlen-type
+        # curricula truncate each batch's sequence axis before the step
+        self.curriculum_scheduler = (
+            CurriculumScheduler(config.curriculum)
+            if config.curriculum is not None and config.curriculum.enabled
+            else None)
+        # ref: ThroughputTimer in engine.train; the engine starts and stops
+        # it only for the monitors and telemetry, which are not ported
+        self.tput_timer = ThroughputTimer(
+            batch_size=config.train_batch_size, device=self.device)
         self.global_steps = 0
         self.skipped_steps = 0
         self._pending: Optional[dict] = None
@@ -283,10 +301,21 @@ class TrainingEngine:
         self.skipped_steps += metrics["overflow"]
         self._last_metrics = metrics
 
+    def curriculum_difficulty(self) -> Optional[int]:
+        """Current curriculum difficulty (ref: engine.curriculum_scheduler
+        .get_difficulty), or None when no curriculum is configured."""
+        if self.curriculum_scheduler is None:
+            return None
+        return self.curriculum_scheduler.get_difficulty(self.global_steps)
+
+    def _apply_curriculum(self, batch):
+        return apply_seqlen_curriculum(batch, self.curriculum_scheduler,
+                                       self.global_steps)
+
     def train_batch(self, batch) -> torch.Tensor:
         """One optimizer step on a global batch; returns the loss (an f32
         scalar tensor on the device)."""
-        metrics = self._train_step(batch)
+        metrics = self._train_step(self._apply_curriculum(batch))
         self._post_step(metrics)
         return metrics["loss"]
 
@@ -297,7 +326,7 @@ class TrainingEngine:
         return loss if aux is None else (loss, aux)
 
     def __call__(self, batch):
-        metrics = self._train_step(batch)
+        metrics = self._train_step(self._apply_curriculum(batch))
         self._pending = metrics
         self._last_metrics = metrics
         return metrics["loss"]
@@ -343,6 +372,25 @@ class TrainingEngine:
         tensors, which later steps update in place."""
         return self.state.params
 
+    # ---------------------------------------------------------- checkpointing
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        async_save: bool = False):
+        from deepspeed_tpu_torch.checkpoint import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state,
+                     async_save=async_save)
+
+    def wait_for_checkpoint(self):
+        from deepspeed_tpu_torch.checkpoint import wait_for_checkpoint as _wait
+
+        return _wait(self)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None):
+        from deepspeed_tpu_torch.checkpoint import load_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag)
+
 
 def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                params: Any = None, config: Any = None,
@@ -362,11 +410,21 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
         config = Config()
     if loss_fn is None or params is None:
         raise ValueError("initialize() needs loss_fn and params")
-    if training_data is not None:
-        raise NotImplementedError(
-            "training_data: the data loader comes with the data slice "
-            "(ROADMAP A12)")
     engine = TrainingEngine(loss_fn, params, config, optimizer=optimizer,
                             lr_scheduler=lr_scheduler, has_aux=has_aux,
                             device=device)
-    return engine, engine.optimizer, None, engine.lr_schedule
+    return _finish_initialize(engine, config, training_data)
+
+
+def _finish_initialize(engine, config, training_data):
+    """initialize()'s tail: the dataloader over ``training_data`` (global
+    batches of numpy arrays, which ``train_batch`` moves to the device) and
+    the 4-tuple."""
+    dataloader = None
+    if training_data is not None:
+        from deepspeed_tpu_torch.data.loader import DataLoader
+
+        dataloader = DataLoader(training_data,
+                                batch_size=config.train_batch_size,
+                                seed=config.seed)
+    return engine, engine.optimizer, dataloader, engine.lr_schedule

@@ -37,6 +37,8 @@ from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
 from deepspeed_tpu_torch.ops.losses import chunked_lm_loss, f32_matmul
+from deepspeed_tpu_torch.remat import (check as check_remat,
+                                       checkpoint_block, checkpoint_named)
 
 ATTN_IMPLS = ("auto", "flash", "reference")
 
@@ -53,7 +55,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    remat: str = "none"                    # none (the only policy ported)
+    remat: str = "none"                    # none | full | save_dots | ...
     loss_chunk: int = 0                    # >0: chunked-vocab CE
     attn_impl: str = "auto"                # auto | flash | reference
 
@@ -69,10 +71,7 @@ class LlamaConfig:
                 f"attn_impl={self.attn_impl!r}: the port serves "
                 f"{'|'.join(ATTN_IMPLS)}; ring/ulysses/sparse come with the "
                 "distributed slice")
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r}: activation checkpointing policies "
-                "come with a later slice (ROADMAP A5)")
+        check_remat(self.remat)      # remat.POLICIES; offload_* raise
 
     @property
     def head_dim(self) -> int:
@@ -149,11 +148,34 @@ def _qkv(cfg: LlamaConfig, lp, x, cos, sin):
     return q, k, v
 
 
-def _block_tail(cfg: LlamaConfig, lp, x, attn):
+def _attn_out(cfg: LlamaConfig, lp, x, cos, sin, segment_ids):
+    """The block's attention context [B, T, H * Dh] (JAX's ``attn_out``)."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(cfg, lp, x, cos, sin)
+    return _attention(q, k, v, cfg, segment_ids).reshape(
+        B, T, cfg.n_heads * cfg.head_dim)
+
+
+def _mlp_out(cfg: LlamaConfig, lp, x):
+    """The FFN inner activation [B, T, ffn] (JAX's ``mlp_out``)."""
+    return swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp["w1"],
+                  lp["w3"])
+
+
+def _block_tail(cfg: LlamaConfig, lp, x, attn, remat: str = "none"):
     B, T, _ = x.shape
     x = x + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lp["wo"]
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(h, lp["w1"], lp["w3"]) @ lp["w2"]
+    mlp = checkpoint_named(_mlp_out, remat)(cfg, lp, x)
+    return x + mlp @ lp["w2"]
+
+
+def _block(cfg: LlamaConfig, lp, x, cos, sin, segment_ids):
+    """One transformer block; under ``remat="save_attn"`` its two named
+    stages are checkpointed (:func:`~deepspeed_tpu_torch.remat.
+    checkpoint_named`)."""
+    attn = checkpoint_named(_attn_out, cfg.remat)(cfg, lp, x, cos, sin,
+                                                  segment_ids)
+    return _block_tail(cfg, lp, x, attn, cfg.remat)
 
 
 def _layer(params, l: int):
@@ -186,20 +208,21 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None,
                    segment_ids=None, n_micro: Optional[int] = None):
     """tokens: [B, T] int -> final-norm hidden states [B, T, d] (what the
     LM head and the loss consume).  ``segment_ids`` [B, T]: packed
-    documents attend only within their own id."""
+    documents attend only within their own id.  Each block runs under
+    ``cfg.remat`` (:mod:`deepspeed_tpu_torch.remat`), as the JAX model wraps
+    its scanned block in ``jax.checkpoint``."""
     if n_micro:
         raise NotImplementedError(
             "n_micro: pipeline-parallel microbatching comes with the "
-            "distributed slice (ROADMAP A11)")
+            "distributed slice (ROADMAP A9)")
     T = tokens.shape[1]
     x = _embed(params, tokens)
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_tables(cfg, positions)
+    block = checkpoint_block(_block, cfg.remat)
     for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        q, k, v = _qkv(cfg, lp, x, cos, sin)
-        x = _block_tail(cfg, lp, x, _attention(q, k, v, cfg, segment_ids))
+        x = block(cfg, _layer(params, l), x, cos, sin, segment_ids)
     return rms_norm(x, take(params["final_norm"]), cfg.norm_eps)
 
 
@@ -228,7 +251,7 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
     if n_micro:
         raise NotImplementedError(
             "n_micro: pipeline-parallel microbatching comes with the "
-            "distributed slice (ROADMAP A11)")
+            "distributed slice (ROADMAP A9)")
 
     def f(params, batch):
         tokens = batch["tokens"]

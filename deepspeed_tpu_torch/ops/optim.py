@@ -260,7 +260,7 @@ def from_config(name: str, params: dict) -> Optimizer:
         raise NotImplementedError(
             f"optimizer {name!r}: the 1-bit family compresses gradient "
             "communication and comes with the distributed slice "
-            "(ROADMAP A11)")
+            "(ROADMAP A9)")
     if name not in _REGISTRY:
         raise ValueError(f"unknown optimizer {name!r}; known: {sorted(_REGISTRY)}")
     kw = dict(params)

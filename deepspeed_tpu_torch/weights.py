@@ -1,5 +1,5 @@
-"""Weights for the port: the bridge from the JAX param tree, and a seeded
-initialiser that builds a model on the card.
+"""Weights for the port: the bridge from the JAX param tree and train
+state, and a seeded initialiser that builds a model on the card.
 
 The port keeps the JAX pytree layout (``embed``, stacked ``blocks`` leaves
 ``[L, in, out]``, ``final_norm``, ``lm_head``), so the bridge is a plain
@@ -38,6 +38,37 @@ def from_jax_params(tree: Dict[str, Any], *, device=None,
     :class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor` with
     the same codes and scales (never cast)."""
     return _convert(tree, resolve_device(device), dtype)
+
+
+def from_jax_train_state(state_np, *, device=None):
+    """A ``jax.device_get`` of the JAX engine's ``TrainState`` (step,
+    params, ``opt_state``, scaler) -> the port's
+    :class:`~deepspeed_tpu_torch.engine.TrainState` on ``device`` (None =
+    CUDA): the same params and optimizer trees, leaf for leaf and dtype for
+    dtype, and the JAX scalars as the Python ints and floats the port
+    holds.  The optimizer state keeps its kind (``AdamState``,
+    ``FusedAdamState``, ...).  Assign it to ``engine.state`` (and
+    ``engine.global_steps``) of a port engine built with the same config to
+    continue the JAX run, or save it to hold its checkpoint against
+    JAX's."""
+    from deepspeed_tpu_torch.engine import TrainState
+    from deepspeed_tpu_torch.ops import adam_cuda, optim
+    from deepspeed_tpu_torch.precision import ScalerState
+
+    dev = resolve_device(device)
+    opt = state_np.opt_state
+    kind = (getattr(optim, type(opt).__name__, None)
+            or getattr(adam_cuda, type(opt).__name__, None))
+    if kind is None or getattr(kind, "_fields", None) != opt._fields:
+        raise ValueError(f"optimizer state {type(opt).__name__} has no "
+                         "counterpart in the port")
+    opt_state = kind(int(opt.step), *(
+        None if v is None else _convert(v, dev, None) for v in opt[1:]))
+    return TrainState(
+        step=int(state_np.step), params=_convert(state_np.params, dev, None),
+        opt_state=opt_state,
+        scaler=ScalerState(float(state_np.scaler.scale),
+                           int(state_np.scaler.good_steps)))
 
 
 def _convert(x, dev, dtype):

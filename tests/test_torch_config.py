@@ -2,10 +2,11 @@
 DeepSpeed dicts parse to the same fields, the batch arithmetic solves the
 same way, and every dataclass has the same fields with the same defaults.
 
-The intended differences: an enabled ``faults``, ``elasticity``,
-``curriculum_learning`` or ``random_ltd`` block parses in the JAX package
-(which validates it in modules the port has not ported) and raises
-``NotImplementedError`` in the port, naming the ROADMAP item."""
+The intended differences: an enabled ``faults``, ``elasticity`` or
+``random_ltd`` block parses in the JAX package (which validates it in
+modules the port has not ported) and raises ``NotImplementedError`` in the
+port, naming the ROADMAP item.  An enabled ``curriculum_learning`` block
+parses in both, into each package's own ``CurriculumConfig``."""
 
 import dataclasses
 import inspect
@@ -72,6 +73,13 @@ PARSED = {
                 "default_tier": "gold"},
         "telemetry": {"enabled": True, "interval_steps": 5},
         "tracing": {"sample_rate": 0.5}},
+    "curriculum_learning": {"curriculum_learning": {
+        "enabled": True, "curriculum_type": "seqlen", "min_difficulty": 9,
+        "max_difficulty": 33, "schedule_config": {
+            "total_curriculum_step": 4, "difficulty_step": 8}}},
+    "curriculum_learning-nested": {"data_efficiency": {"data_sampling": {
+        "curriculum_learning": {"enabled": True, "min_difficulty": 8,
+                                "max_difficulty": 16}}}},
     "disabled-blocks": {
         "faults": {"enabled": False, "rules": []},
         "elasticity": {"enabled": False},
@@ -92,15 +100,6 @@ RAISES = {
         "enabled": True, "max_train_batch_size": 64,
         "micro_batch_sizes": [2, 4], "min_gpus": 1, "max_gpus": 16}},
         "elasticity"),
-    "curriculum_learning": ({"curriculum_learning": {
-        "enabled": True, "curriculum_type": "seqlen", "min_difficulty": 9,
-        "max_difficulty": 33, "schedule_config": {
-            "total_curriculum_step": 4, "difficulty_step": 8}}},
-        "curriculum_learning"),
-    "curriculum_learning-nested": ({"data_efficiency": {"data_sampling": {
-        "curriculum_learning": {"enabled": True, "min_difficulty": 8,
-                                "max_difficulty": 16}}}},
-        "curriculum_learning"),
     "random_ltd": ({"random_ltd": {
         "enabled": True, "total_layer_num": 4, "random_ltd_layer_num": 2}},
         "random_ltd"),

@@ -1034,3 +1034,104 @@ def test_env_probe_and_report_on_the_card(gen):
     assert r["ops"]["cuda probe"] == {"ok": True, "mode": "compiled",
                                       "error": None}
     assert r["backend"]["name"] == "cuda" and r["backend"]["devices"]
+
+
+def _wgmma_llama(**kw):
+    """A small Llama whose attention takes the flash kernels' tensor-core
+    bodies (bf16, head_dim 128)."""
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                       n_kv_heads=1, ffn_dim=512, max_seq_len=256, **kw)
+
+
+def _packed_llama_batch(seed, B=2, T=129, vocab=512):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seg = np.ones((B, T), np.int32)
+    for b in range(B):
+        seg[b, int(rng.integers(20, T - 20)):] = 2
+        seg[b, T - 1 - 3 * b:] = 0
+    return {"tokens": rng.integers(0, vocab, (B, T)).astype(np.int32),
+            "segment_ids": seg}
+
+
+def test_bf16_save_load_continue_on_the_card(gen, tmp_path):
+    """save -> drop the engine -> load -> continue equals the uninterrupted
+    run on the card, bit for bit (losses and every state leaf)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.llama import loss_fn
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = _wgmma_llama()
+    params = init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    conf = {"train_batch_size": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "bf16": {"enabled": True}}
+    batches = [_packed_llama_batch(i) for i in range(4)]
+
+    def engine():
+        return initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                          optimizer=fused_adam(lr=1e-3, weight_decay=0.1))[0]
+
+    ref = engine()
+    want = [float(ref.train_batch(b)) for b in batches]
+    first = engine()
+    got = [float(first.train_batch(b)) for b in batches[:2]]
+    first.save_checkpoint(str(tmp_path), async_save=True)
+    first.wait_for_checkpoint()
+    del first
+    resumed = engine()
+    resumed.load_checkpoint(str(tmp_path))
+    got += [float(resumed.train_batch(b)) for b in batches[2:]]
+    assert got == want
+    assert resumed.state.step == ref.state.step == 4
+    for a, b in zip(tree_leaves(resumed.state), tree_leaves(ref.state)):
+        if torch.is_tensor(a):
+            assert a.is_cuda and torch.equal(a, b)
+
+
+def test_remat_full_with_flash_kernels_equals_no_remat(gen):
+    """remat="full" re-runs B1 in the backward (twice the launches, all on
+    the tensor-core body, segment ids set) and gives the gradients of
+    remat="none", bit for bit: the recomputed forward is the same kernels
+    on the same inputs."""
+    from deepspeed_tpu_torch.models.llama import loss_fn
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
+                                                        flash_bwd_dq,
+                                                        flash_fwd)
+    from deepspeed_tpu_torch.weights import init_params
+
+    base = init_params(_wgmma_llama(), gen, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _packed_llama_batch(7).items()}
+    out = {}
+    for remat in ("none", "full"):
+        cfg = _wgmma_llama(remat=remat)
+        params = {k: ({n: w.clone().requires_grad_(True)
+                       for n, w in v.items()} if isinstance(v, dict)
+                      else v.clone().requires_grad_(True))
+                  for k, v in base.items()}
+        for f in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+            f.launches = 0
+            f.body_launches = {b: 0 for b in f.body_launches}
+        loss = loss_fn(cfg)(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [params["embed"].grad, params["lm_head"].grad,
+                 params["final_norm"].grad,
+                 *(params["blocks"][n].grad for n in sorted(params["blocks"]))]
+        out[remat] = (loss.item(), grads,
+                      {f.__name__: dict(f.body_launches)
+                       for f in (flash_fwd, flash_bwd_dq, flash_bwd_dkv)})
+    (l0, g0, n0), (l1, g1, n1) = out["none"], out["full"]
+    assert l0 == l1
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    L = _wgmma_llama().n_layers
+    assert n0["flash_fwd"] == {"wgmma": L, "scalar": 0}
+    assert n1["flash_fwd"] == {"wgmma": 2 * L, "scalar": 0}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert n0[name] == n1[name] == {"wgmma": L, "scalar": 0}

@@ -39,6 +39,10 @@ def test_imports_with_jax_blocked():
         "precision, lr_schedules\n"
         "from deepspeed_tpu_torch import initialize, TrainingEngine, "
         "fused_adam, init_inference, init_serving\n"
+        "from deepspeed_tpu_torch import checkpoint, remat, timers\n"
+        "from deepspeed_tpu_torch.data import loader, packing, curriculum\n"
+        "from deepspeed_tpu_torch import DataLoader, PackedDataLoader, "
+        "from_jax_train_state, zero_to_fp32\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"

@@ -11,7 +11,15 @@ times the two kernels, SDPA's backward and the plain backward at the
 training shape (Llama-3-8B heads, bf16, T = 2047 causal and with 3 packed
 segments), on the device clock and with events, with the smoke's bounds.  ``--seeds N`` then holds them to the plain version on N
 more random inputs of each shape under the smoke's metric and gate
-(``FLASH_BWD_REL_TOL``), untimed, and counts the inputs over it.  The
+(``FLASH_BWD_REL_TOL``), untimed, and counts the inputs over it.  Beside
+the gate it measures what the elements over it are: for each such dq / dk /
+dv element, whether the kernel's bf16 value (and the plain version's) is one
+of the two bf16 neighbours of an f64 oracle, the backward's formulas
+evaluated in f64 on the same bf16 q, k, v, o, dO and f32 lse (for dq also
+with dS rounded to bf16 before dS.K, as the reference and the kernel round
+it: the "spec" oracle).  A neighbour is a faithful rounding of the exact
+value; an element that is not one is a kernel fault.  A round that reads
+over the gate is measured the same way on its own inputs.  The
 kernels come from the checkout this script sits in, so two checkouts
 compare by running each one's copy in turns.  Prints one JSON line per
 round, and one for the seeds, with the card's name and power limit; exits
@@ -45,11 +53,20 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     failed = False
     for r in range(args.rounds):
+        drawn = gen.get_state()
         try:
             rows = chip_smoke.phase_backward(gen)
         except SystemExit as e:     # over the smoke's gate: report, go on
             failed = True
-            rows = {"failed": str(e)}
+            # the round's own inputs again, its elements over the gate
+            # against the f64 oracle
+            again = torch.Generator("cuda")
+            again.set_state(drawn)
+            q, k, v, do = round_inputs(again)
+            errs = [check_input(chip_smoke, q, k, v, do, nseg)
+                    for nseg in (0, 3)]
+            rows = {"failed": str(e), "per_input": errs,
+                    **summarize(errs, chip_smoke.FLASH_BWD_REL_TOL)}
         print(json.dumps({"round": r, "card": card, "root": ROOT, **rows}),
               flush=True)
     if args.seeds:
@@ -59,15 +76,141 @@ def main() -> int:
     return int(failed)
 
 
-def seed_sweep(chip_smoke, n):
-    """B2 and B3 against their plain version on n random inputs of each
-    training shape: the largest relative error of each gradient per input,
-    and how many inputs read over the smoke's gate."""
+def _bf16_order(x):
+    """bf16 -> int32 keys in the values' order (-0 and +0 both 0)."""
+    bits = x.view(torch.int16).to(torch.int32) & 0xFFFF
+    mag = bits & 0x7FFF
+    return torch.where(bits >= 0x8000, -mag, mag)
+
+
+def _bf16_from_order(key):
+    bits = torch.where(key < 0, 0x8000 | (-key), key)
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def bf16_neighbour(got, exact):
+    """bool per element: the bf16 ``got`` is one of the two bf16 values
+    around the f64 ``exact`` (equal to it, or no bf16 value lies strictly
+    between them)."""
+    g = got.double()
+    step = torch.sign(exact - g).to(torch.int32)
+    nxt = _bf16_from_order(_bf16_order(got) + step).double()
+    return (g == exact) | ((g - exact) * (nxt - exact) < 0)
+
+
+def f64_oracle(q, k, v, o, lse, do, seg):
+    """(dq, dq_spec, dk, dv) in f64 from the kernels' own inputs: p =
+    exp(q.k * scale - lse), delta = rowsum(o * dO), ds = p * (dO.V^T -
+    delta) * scale, dq = ds.K, dk = ds^T.Q, dv = p^T.dO over each kv head's
+    group; dq_spec takes ds rounded to bf16 first."""
+    from deepspeed_tpu_torch.ops.attention_cuda import _live_mask
+
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / D ** 0.5
+    qd, od, dod = q.double(), o.double(), do.double()
+    kd = k.double().repeat_interleave(G, dim=2)
+    vd = v.double().repeat_interleave(G, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", qd, kd) * scale
+    live = _live_mask(B, T, S, True, seg, q.device)
+    p = torch.exp(s - lse.double()[..., None]).masked_fill(~live, 0.0)
+    del s
+    delta = (od * dod).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bthd,bshd->bhts", dod, vd)
+              - delta[..., None]) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kd)
+    dq_spec = torch.einsum("bhts,bshd->bthd",
+                           ds.to(torch.bfloat16).double(), kd)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qd).reshape(
+        B, S, KV, G, D).sum(3)
+    dv = torch.einsum("bhts,bthd->bshd", p, dod).reshape(
+        B, S, KV, G, D).sum(3)
+    return dq, dq_spec, dk, dv
+
+
+def over_gate_check(got, want, oracles, tol):
+    """The elements of ``got`` over the gate (|got - want| > tol *
+    max|want|): their count, and how many of them the kernel (``got``) and
+    the plain version (``want``) hold at a bf16 neighbour of each oracle."""
+    over = (got.float() - want.float()).abs() > tol * want.float().abs().max()
+    out = {"over_gate": int(over.sum())}
+    if out["over_gate"]:
+        for name, exact in oracles.items():
+            x = exact[over]
+            out["kernel_neighbour_" + name] = int(
+                bf16_neighbour(got[over], x).sum())
+            out["plain_neighbour_" + name] = int(
+                bf16_neighbour(want[over], x).sum())
+    return out
+
+
+SHAPE = dict(B=1, T=2047, H=32, KV=8, D=128)
+
+
+def round_inputs(gen):
+    """q, k, v, dO of the training shape, drawn from ``gen`` in the order
+    ``chip_smoke.phase_backward`` draws them."""
+    B, T, H, KV, D = (SHAPE[n] for n in ("B", "T", "H", "KV", "D"))
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, T, KV, D), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+def check_input(chip_smoke, q, k, v, do, nseg):
+    """B2 + B3 against their plain version on one input: each gradient's
+    relative error and, where one reads over the gate, its elements over it
+    against the f64 oracle (``over_gate_check``)."""
     from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd,
                                                         flash_bwd_reference,
                                                         flash_fwd)
 
-    B, T, H, KV, D = 1, 2047, 32, 8, 128
+    tol = chip_smoke.FLASH_BWD_REL_TOL
+    seg = chip_smoke._segments(SHAPE["T"], nseg)[0] if nseg else None
+    o, lse = flash_fwd(q, k, v, seg=seg)
+    got = flash_bwd(q, k, v, o, lse, do, seg)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg)
+    e = {"segments": nseg, **{name: chip_smoke._rel(g, w) for name, g, w in
+                              zip(("dq", "dk", "dv"), got, want)}}
+    if max(e[g] for g in ("dq", "dk", "dv")) > tol:
+        dq, dq_spec, dk, dv = f64_oracle(q, k, v, o, lse, do, seg)
+        e["elements"] = {
+            "dq": over_gate_check(got[0], want[0], {
+                "exact": dq, "spec": dq_spec}, tol),
+            "dk": over_gate_check(got[1], want[1], {"exact": dk}, tol),
+            "dv": over_gate_check(got[2], want[2], {"exact": dv}, tol)}
+    return e
+
+
+def summarize(errs, tol):
+    """Inputs over the gate, their elements' counts summed, and whether
+    every element over it is at a bf16 neighbour of its exact oracle (dq:
+    of the exact or of the spec oracle)."""
+    over = [e["elements"] for e in errs if "elements" in e]
+    total = {}
+    for el in over:
+        for g, counts in el.items():
+            for key, val in counts.items():
+                total[f"{g}_{key}"] = total.get(f"{g}_{key}", 0) + val
+    faithful = all(
+        c.get("kernel_neighbour_exact", 0) == c["over_gate"]
+        or c.get("kernel_neighbour_spec", 0) == c["over_gate"]
+        for el in over for c in el.values())
+    return {"inputs": len(errs), "gate": tol, "over_gate": len(over),
+            "over_gate_elements": total,
+            "over_gate_all_neighbours": faithful,
+            "worst": {g: max(e[g] for e in errs) for g in ("dq", "dk", "dv")}}
+
+
+def seed_sweep(chip_smoke, n):
+    """B2 and B3 against their plain version on n random inputs of each
+    training shape (``check_input``), summarized."""
+    B, T, H, KV, D = (SHAPE[n] for n in ("B", "T", "H", "KV", "D"))
     errs = []
     for seed in range(n):
         gen = torch.Generator("cuda").manual_seed(100 + seed)
@@ -76,19 +219,10 @@ def seed_sweep(chip_smoke, n):
         k, v = (torch.randn((B, T, KV, D), generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
         for nseg in (0, 3):
-            seg = chip_smoke._segments(T, nseg)[0] if nseg else None
-            o, lse = flash_fwd(q, k, v, seg=seg)
-            got = flash_bwd(q, k, v, o, lse, do, seg)
-            want = flash_bwd_reference(q, k, v, o, lse, do, seg)
-            errs.append({"seed": 100 + seed, "segments": nseg, **{
-                name: chip_smoke._rel(g, w)
-                for name, g, w in zip(("dq", "dk", "dv"), got, want)}})
-    tol = chip_smoke.FLASH_BWD_REL_TOL
-    return {"inputs": len(errs), "gate": tol,
-            "over_gate": sum(max(e[g] for g in ("dq", "dk", "dv")) > tol
-                             for e in errs),
-            "worst": {g: max(e[g] for e in errs) for g in ("dq", "dk", "dv")},
-            "per_input": errs}
+            errs.append({"seed": 100 + seed,
+                         **check_input(chip_smoke, q, k, v, do, nseg)})
+    return dict(summarize(errs, chip_smoke.FLASH_BWD_REL_TOL),
+                per_input=errs)
 
 
 if __name__ == "__main__":
