@@ -66,11 +66,34 @@ and runs, in order:
    steps with ``remat="none"`` (ms/step, peak memory and MFU beside the
    remat run's); every flash launch on the tensor-core body with segment
    ids.
+16. the serving and training kernels at GPT-2's shapes: B6 at V = 50257 on
+   ``logits[:, -1]`` rows (each off a 16-byte boundary), B5's Hopper body
+   at G = 1 (16 heads of 128, 12 of 64) at decode and C = 256, B1 at
+   H = KV, T = 1024, both head dims; then the kernel arms against the plain
+   arms on a tiny f32 GPT-2: the engine, ``gpt2_generator`` and
+   ``gpt2_paged_generator`` (card against CPU), and the engine against the
+   paged generator: identical greedy tokens;
+17. GPT-2 1.3B at full width (24 layers, 16 heads of 128, V 50257, seeded
+   bf16 weights): the tied head's product over ``wte.T`` without a copy;
+   the engine with whole-prompt and chunked prefill over 8 prompts of
+   64-768 tokens; both generators on 8 prompts of 128; then int8 weights
+   (B9 at build) on the engine's traffic and one ``init_inference(dtype=
+   "int8")`` forward;
+18. GPT-2 small (768 / 12 / 12, head_dim 64) served whole-prompt and
+   chunked, so the head_dim-64 Hopper bodies of B1 and B5 carry a main
+   path;
+19. GPT-2 1.3B trained at all 24 layers (micro 8 x 1024 tokens, fused
+   Adam) under ``remat="none"``, ``"save_attn"`` and ``"offload_attn"``:
+   ms/step, peak memory, ``ThroughputTimer`` tokens/s and MFU, the idle
+   share of a profiled step; the offload run's state equals ``save_attn``'s
+   bit for bit, it moves every layer's ``attn_out`` and ``mlp_out`` to
+   pinned host memory, and its peak is lower by about those bytes.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
 int8 serving runs and the ``init_inference`` forward of phase 14, the
-training run of phase 8 and the four runs of phase 15) counts the launches
+training run of phase 8, the four runs of phase 15, and the GPT-2 paths of
+phases 17-19) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -674,6 +697,8 @@ def phase_paged_quant_v1(gen):
         plain_1 = time_ms(v1_ref, iters=2, warmup=1)
         dev_f = device_ms(lambda: paged_chunk_attention_v1(
             qf, kf, vf, table, st1), iters=iters)
+        plain_f = time_ms(lambda: paged_chunk_attention_split_reference(
+            qf, kf, vf, table, st1), iters=2, warmup=1)
         ms_5 = time_ms(b5, iters=iters)
         dev_5 = device_ms(b5_k, iters=iters)
         flops = 4 * pairs * H * D
@@ -696,8 +721,8 @@ def phase_paged_quant_v1(gen):
             f"bound {b1[0]:.5f} ms ({b1[1]}) library none")
         log(f"[paged {shape} B8 v1 split] B=8 C={C} ps={ps} f32, two "
             f"launches {v1_split}: max_abs_err vs the split plain version "
-            f"{err_f:.3e} (tol {tol_f}); device {dev_f} bound {bf[0]:.5f} "
-            f"ms ({bf[1]})")
+            f"{err_f:.3e} (tol {tol_f}); device {dev_f} plain (split) "
+            f"{plain_f:.4f} ms bound {bf[0]:.5f} ms ({bf[1]})")
         log(f"[paged {shape} B5 same bf16 pages] kernel {ms_5:.4f} ms "
             f"(device {dev_5}, bound share {_share(b1[0], dev_5)}) bound "
             f"{b1[0]:.5f} ms ({b1[1]}); empty_row_zero {empty_zero}")
@@ -714,8 +739,8 @@ def phase_paged_quant_v1(gen):
                                "bound_by": bnd[1],
                                "bound_share": _share(bnd[0], dev)}
         out["v1"][shape]["f32_split"] = {
-            "device_ms": dev_f, "max_abs_err": err_f, "bound_ms": bf[0],
-            "bound_by": bf[1]}
+            "device_ms": dev_f, "plain_ms": plain_f, "max_abs_err": err_f,
+            "bound_ms": bf[0], "bound_by": bf[1]}
         del kp, vp, kq, ks, vq, vs, q, got_q, want_q, got_1, want_1
         del qf, kf, vf, got_f, want_f
         torch.cuda.empty_cache()
@@ -1211,11 +1236,11 @@ def drive(eng, prompts, new_tokens):
 
 
 def serve(params, cfg, prompts, new_tokens, **opts):
-    """Serve every prompt on a fresh engine; returns the outputs, the
-    engine's leak check and the run's metrics."""
-    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    """Serve every prompt on a fresh engine of ``cfg``'s family; returns the
+    outputs, the engine's leak check and the run's metrics."""
+    from deepspeed_tpu_torch.inference.serving import serving_engine
 
-    eng = llama_serving_engine(params, cfg, **opts)
+    eng = serving_engine(params, cfg, **opts)
     out, metrics = drive(eng, prompts, new_tokens)
     leaks = eng.check_leaks()
     del eng
@@ -1646,6 +1671,72 @@ def _segments(T, n, device="cuda"):
 def _rel(got, want):
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max()).item()
+
+
+def _bf16_order(x):
+    """bf16 -> int32 keys in the values' order (-0 and +0 both 0)."""
+    bits = x.view(torch.int16).to(torch.int32) & 0xFFFF
+    mag = bits & 0x7FFF
+    return torch.where(bits >= 0x8000, -mag, mag)
+
+
+def _bf16_from_order(key):
+    bits = torch.where(key < 0, 0x8000 | (-key), key)
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def bf16_neighbour(got, exact):
+    """bool per element: the bf16 ``got`` is one of the two bf16 values
+    around the f64 ``exact`` (equal to it, or no bf16 value lies strictly
+    between them)."""
+    g = got.double()
+    step = torch.sign(exact - g).to(torch.int32)
+    nxt = _bf16_from_order(_bf16_order(got) + step).double()
+    return (g == exact) | ((g - exact) * (nxt - exact) < 0)
+
+
+def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg):
+    """(dq, dq_spec, dk, dv) in f64 from the kernels' own inputs: p =
+    exp(q.k * scale - lse), delta = rowsum(o * dO), ds = p * (dO.V^T -
+    delta) * scale, dq = ds.K, dk = ds^T.Q, dv = p^T.dO over each kv head's
+    group; dq_spec takes ds rounded to bf16 first."""
+    from deepspeed_tpu_torch.ops.attention_cuda import _live_mask
+
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / D ** 0.5
+    qd, od, dod = q.double(), o.double(), do.double()
+    kd = k.double().repeat_interleave(G, dim=2)
+    vd = v.double().repeat_interleave(G, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", qd, kd) * scale
+    live = _live_mask(B, T, S, True, seg, q.device)
+    p = torch.exp(s - lse.double()[..., None]).masked_fill(~live, 0.0)
+    del s
+    delta = (od * dod).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bthd,bshd->bhts", dod, vd)
+              - delta[..., None]) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kd)
+    dq_spec = torch.einsum("bhts,bshd->bthd",
+                           ds.to(torch.bfloat16).double(), kd)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qd).reshape(
+        B, S, KV, G, D).sum(3)
+    dv = torch.einsum("bhts,bthd->bshd", p, dod).reshape(
+        B, S, KV, G, D).sum(3)
+    return dq, dq_spec, dk, dv
+
+
+def _faithful_over_gate(got, want, exacts, tol):
+    """The elements of ``got`` over the flash backward's gate (|got - want|
+    > tol * max|want|): their count, and whether the kernel holds every
+    one of them at a bf16 neighbour of one of the f64 ``exacts`` (a
+    faithful rounding: the plain version and the kernel one ulp apart in
+    the top binade, ROADMAP C-f6)."""
+    over = (got.float() - want.float()).abs() > tol * want.float().abs().max()
+    n = int(over.sum())
+    return n, n == 0 or any(bool(bf16_neighbour(got[over], x[over]).all())
+                            for x in exacts)
 
 
 def _sdpa_bwd(q, k, v, do, seg=None):
@@ -2299,6 +2390,710 @@ def phase_resume(fns, card_line):
                       "bytes": written}
 
 
+# ------------------------------------------------------------ phase 16
+def phase_gpt2_kernels(gen):
+    """The serving and training kernels at GPT-2's shapes, each exact or
+    within its gate against the plain version and timed on the device
+    clock: B6 at V = 50257 on ``logits[:, -1]`` rows of [8, 2, V] (each row
+    4 bytes further off a 16-byte boundary than the one before, ties
+    planted across the spans); B5's Hopper body at G = 1 (GPT-2 1.3B: 16
+    heads of 128; small: 12 of 64), decode over lens up to 1024 and a
+    C = 256 chunk; B1 at H = KV, T = 1024, causal, at both head dims; B2
+    and B3 at the training shape [8, 1024, H = KV, D], at both head dims.
+    Returns {kernel name: its GPT-2 cases}."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_body, paged_chunk_attention, paged_chunk_attention_reference)
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_fwd,
+                                                        flash_fwd_body,
+                                                        flash_fwd_reference)
+    from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
+                                                       greedy_rows_reference)
+
+    out = {"greedy_argmax": {}, "paged_attention": {}, "flash_fwd": {},
+           "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    ok = True
+    V = 50257
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((8, 2, V), generator=gen, device="cuda").to(dtype)
+        last = x[:, -1]
+        for b in range(8):              # ties across the row's spans
+            last[b, [b, V // 3 + b, V // 2, V - 1 - b]] = 30.0
+        fused_greedy_rows.body_launches = dict.fromkeys(
+            fused_greedy_rows.body_launches, 0)
+        got = fused_greedy_rows(last)
+        exact = bool(torch.equal(got, greedy_rows_reference(last))
+                     and torch.equal(got.long(), torch.argmax(last, -1))
+                     and got.tolist() == list(range(8))
+                     and fused_greedy_rows.body_launches["row"] == 0)
+        case = _greedy_case(fused_greedy_rows, last.contiguous())
+        case["exact"] = exact
+        key = f"B8 V{V} {str(dtype)[6:]} rows logits[:, -1]"
+        out["greedy_argmax"][key] = case
+        log(f"[gpt2 kernels] greedy {key}: exact {exact} (tol: exact), "
+            f"cluster body; from HBM device {case['device_ms']} ms (bound "
+            f"{case['bound_ms']:.5f} ms, share {case['bound_share']}); argmax"
+            f" device {case['library_device_ms']} ms; plain "
+            f"{case['plain_ms']:.4f} ms")
+        ok = ok and exact
+    for H, D in ((16, 128), (12, 64)):
+        dt = torch.bfloat16
+        for C, starts in ((1, [0, 127, 255, 399, 511, 699, 899, 1023]),
+                          (256, [0, 128, 256, 300, 512, 600, 700, 768])):
+            kp, vp, table = _paged_inputs(gen, starts, C, H=H, KV=H, D=D)
+            st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            q = torch.randn((8, C, H, D), generator=gen,
+                            device="cuda").to(dt)
+            sm90 = paged_body(q) == "sm90"
+            o = paged_chunk_attention(q, kp, vp, table, st)
+            r = paged_chunk_attention_reference(q, kp, vp, table, st)
+            torch.cuda.synchronize()
+            err = (o.float() - r.float()).abs().max().item()
+            tol = PAGED_DECODE_TOL if C == 1 else PAGED_CHUNK_TOL
+            dev = device_ms(lambda: paged_chunk_attention(q, kp, vp, table,
+                                                          st))
+            plain = time_ms(lambda: paged_chunk_attention_reference(
+                q, kp, vp, table, st), iters=3, warmup=1)
+            live = sum(s + C for s in starts)
+            pairs = sum(s * C + C * (C + 1) // 2 for s in starts)
+            b_ms, b_by = bound(2 * live * H * D * 2 + 2 * 2 * 8 * C * H * D,
+                               4 * pairs * H * D, BF16_FLOPS_PER_S)
+            key = f"G1 H{H} D{D} C{C}"
+            out["paged_attention"][key] = {
+                "max_abs_err": err, "tol": tol, "sm90": sm90,
+                "device_ms": dev, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "bound_share": _share(b_ms, dev)}
+            log(f"[gpt2 kernels] paged {key} B=8 starts={starts}: max_abs_err"
+                f" {err:.3e} (tol {tol}) Hopper body {sm90}; device {dev} ms"
+                f" (bound {b_ms:.5f} ms {b_by}, share {_share(b_ms, dev)}); "
+                f"plain {plain:.4f} ms")
+            ok = ok and sm90 and err <= tol
+        q, k, v = (torch.randn((2, 1024, H, D), generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        wgmma = flash_fwd_body(q) == "wgmma"
+        o, lse = flash_fwd(q, k, v)
+        ro, rlse = flash_fwd_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        dev = device_ms(lambda: flash_fwd(q, k, v))
+        plain = time_ms(lambda: flash_fwd_reference(q, k, v), iters=3,
+                        warmup=1)
+        sdpa = _sdpa(q, k, v)
+        lib = sdpa and device_ms(sdpa)
+        b_ms, b_by = _flash_bound(2, 1024, H, H, D, 1024 * 1025 // 2)
+        key = f"B2 T1024 H=KV={H} D{D} causal"
+        out["flash_fwd"][key] = {
+            "max_abs_err": err, "lse_err": lse_err, "wgmma": wgmma,
+            "device_ms": dev, "plain_ms": plain, "library_device_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": _share(b_ms, dev)}
+        log(f"[gpt2 kernels] flash {key}: max_abs_err {err:.3e} (tol "
+            f"{FLASH_TOL}) lse_err {lse_err:.3e}; tensor-core body {wgmma}; "
+            f"device {dev} ms, plain {plain:.4f} ms, sdpa device {lib} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        ok = ok and wgmma and err <= FLASH_TOL and lse_err <= 1e-3
+        for name, case in _gpt2_flash_bwd(gen, H, D).items():
+            out[name][f"B8 T1024 H=KV={H} D{D} causal"] = case
+            ok = ok and case["wgmma"] and case["over_gate_faithful"] and \
+                case.get("delta_rel", 0) <= FLASH_DELTA_REL_TOL
+    if not ok:
+        raise SystemExit("phase 16: a kernel disagrees at GPT-2's shapes")
+    return out
+
+
+def _gpt2_flash_bwd(gen, H, D, B=8, T=1024):
+    """B2 and B3 at GPT-2's training shape (micro 8 x 1024, causal, one
+    query head per kv head) against the plain backward: B2's delta against
+    ``flash_delta``, dq, dk and dv at the flash backward gate, where every
+    element over it must be a bf16 neighbour of the f64 oracle (C-f6); each
+    timed on the device clock beside its bound.  Returns {kernel name:
+    case}."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        flash_delta, flash_fwd)
+
+    dt = torch.bfloat16
+    q, k, v, do = (torch.randn((B, T, H, D), generator=gen,
+                               device="cuda").to(dt) for _ in range(4))
+    wgmma = flash_bwd_body(q) == "wgmma"
+    o, lse = flash_fwd(q, k, v)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+    want = flash_bwd_reference(q, k, v, o, lse, do)
+    want_delta = flash_delta(o, do)
+    torch.cuda.synchronize()
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    err = {n: ((g.float() - w.float()).abs().max().item(), _rel(g, w))
+           for (n, g), w in zip(got.items(), want)}
+    delta_rel = _rel(delta, want_delta)
+    # an element over the gate must be a faithful rounding of the exact
+    # value, as C-f6 settled; counted and logged
+    over = dict.fromkeys(got, (0, True))
+    if any(e[1] > FLASH_BWD_REL_TOL for e in err.values()):
+        dq64, dq_spec, dk64, dv64 = flash_bwd_f64_oracle(q, k, v, o, lse, do,
+                                                         None)
+        exact = {"dq": (dq64, dq_spec), "dk": (dk64,), "dv": (dv64,)}
+        del dq64, dq_spec, dk64, dv64
+        over = {n: _faithful_over_gate(got[n], w, exact[n],
+                                       FLASH_BWD_REL_TOL)
+                for n, w in zip(got, want)}
+        del exact
+    del dq, dk, dv, got, want, want_delta
+    plain = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do),
+                    iters=3, warmup=1)
+    sdpa = _sdpa_bwd(q, k, v, do)
+    lib = sdpa and device_ms(sdpa, iters=10)
+    del sdpa
+    pairs = T * (T + 1) // 2
+    # q, do, k, v read, two [B, T, H, D] tensors more each (B2 reads O and
+    # writes dq, B3 writes dk and dv), and lse and delta in f32
+    io = 2 * 4 * B * T * H * D + 2 * 2 * B * T * H * D + 8 * B * H * T
+    bounds = {"flash_bwd_dq": bound(io, 6 * D * pairs * H * B
+                                    + 2 * B * T * H * D, BF16_FLOPS_PER_S),
+              "flash_bwd_dkv": bound(io, 8 * D * pairs * H * B,
+                                     BF16_FLOPS_PER_S)}
+    fns = {"flash_bwd_dq": lambda: flash_bwd_dq(q, k, v, o, do, lse),
+           "flash_bwd_dkv": lambda: flash_bwd_dkv(q, k, v, do, lse, delta)}
+    out = {}
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        dev = device_ms(fns[name], iters=10)
+        b_ms, b_by = bounds[name]
+        case = {"wgmma": wgmma,
+                "max_abs_err": max(err[n][0] for n in grads),
+                "rel_err": max(err[n][1] for n in grads),
+                "tol_rel": FLASH_BWD_REL_TOL,
+                "over_gate": sum(over[n][0] for n in grads),
+                "over_gate_faithful": all(over[n][1] for n in grads),
+                "device_ms": dev,
+                "plain_ms": plain, "library_device_ms": lib,
+                "library": "sdpa backward (dq, dk, dv together)",
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": _share(b_ms, dev)}
+        if name == "flash_bwd_dq":
+            case["delta_rel"] = delta_rel
+        out[name] = case
+        log(f"[gpt2 kernels] {name} B={B} T={T} H=KV={H} D={D} bf16 causal:"
+            f" tensor-core body {wgmma}; rel err {case['rel_err']:.3e} (tol "
+            f"{FLASH_BWD_REL_TOL}) max_abs_err {case['max_abs_err']:.3e}; "
+            f"{case['over_gate']} elements over the gate, each a bf16 "
+            f"neighbour of the f64 oracle: {case['over_gate_faithful']}"
+            + (f" delta rel {delta_rel:.3e} (tol {FLASH_DELTA_REL_TOL})"
+               if name == "flash_bwd_dq" else "")
+            + f"; device {dev} ms (bound {b_ms:.5f} ms {b_by}, share "
+            f"{_share(b_ms, dev)}); plain bwd {plain:.4f} ms; sdpa bwd "
+            f"device {lib} ms")
+    del o, lse, delta, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 17
+def _gpt2_params(cfg, seed, dtype=torch.bfloat16):
+    from deepspeed_tpu_torch.weights import init_params
+
+    return init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                       device="cuda", dtype=dtype)
+
+
+def phase_gpt2_identity(fns):
+    """Kernel arms vs plain arms on a tiny f32 GPT-2: the engine (flash, B5
+    and B6 on the card) against the same engine on the CPU (every plain
+    version) with whole-prompt and chunked prefill; ``gpt2_generator`` (B6)
+    and ``gpt2_paged_generator`` (B1, B5, B6) on the card against the same
+    generators on the CPU; then the engine's tokens against
+    ``gpt2_paged_generator``'s on the same prompts.  Greedy tokens
+    identical on every pair, no leaks."""
+    from deepspeed_tpu_torch._tree import tree_map
+    from deepspeed_tpu_torch.inference.generation import (gpt2_generator,
+                                                          gpt2_paged_generator)
+    from deepspeed_tpu_torch.inference.serving import gpt2_serving_engine
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.tiny()
+    params = _gpt2_params(cfg, 2, torch.float32)
+    host = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(16)
+    prompts = {f"r{i}": rng.integers(1, cfg.vocab_size,
+                                     rng.integers(3, 40)).tolist()
+               for i in range(6)}
+    opts = dict(max_batch=3, page_size=8, num_pages=48, max_seq=96,
+                prefill_bucket=8, cache_dtype=torch.float32)
+
+    def counts():
+        return {n: f.launches for n, f in fns.items()}
+
+    for chunk in (0, 8):
+        outs, used = [], []
+        for p, dev in ((params, "cuda"), (host, "cpu")):
+            _zero(fns.values())
+            eng = gpt2_serving_engine(p, cfg, device=dev,
+                                      prefill_chunk=chunk, **opts)
+            for rid, prompt in prompts.items():
+                eng.submit(rid, prompt, max_new_tokens=12)
+            outs.append(eng.run())
+            used.append(counts())
+            _check_bodies(f"gpt2 identity chunk={chunk}", hopper=False,
+                          record=False)
+            if eng.check_leaks():
+                raise SystemExit(f"gpt2 identity: leaks {eng.check_leaks()}")
+        same = outs[0] == outs[1]
+        log(f"[gpt2 identity] engine gpt2-tiny f32 prefill_chunk={chunk}: "
+            f"card (kernels) == CPU (plain versions): {same} "
+            f"({len(outs[0])} requests); launches card {used[0]} CPU "
+            f"{used[1]}")
+        if not same or any(used[1].values()):
+            raise SystemExit("gpt2 identity: the engine's arms differ")
+        _check_launches(f"gpt2 identity chunk={chunk}", used[0],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+    toks = rng.integers(1, cfg.vocab_size, (3, 11))
+    gen_out = {}
+    for label, build, want in (
+            ("gpt2_generator", gpt2_generator, ("greedy_argmax",)),
+            ("gpt2_paged_generator", gpt2_paged_generator, SERVING_KERNELS)):
+        kw = {"page_size": 8} if label == "gpt2_paged_generator" else {}
+        _zero(fns.values())
+        card_out = build(params, cfg, cache_dtype=torch.float32,
+                         device="cuda", **kw).generate(
+                             toks, max_new_tokens=12).cpu()
+        used = counts()
+        _check_bodies(f"gpt2 identity {label}", hopper=False, record=False)
+        cpu_out = build(host, cfg, cache_dtype=torch.float32, device="cpu",
+                        **kw).generate(toks, max_new_tokens=12)
+        same = torch.equal(card_out, cpu_out)
+        log(f"[gpt2 identity] {label} gpt2-tiny f32 B=3 T=11 new=12: card "
+            f"(kernels) == CPU (plain versions): {same}; launches {used}")
+        if not same:
+            raise SystemExit(f"gpt2 identity: {label} differs from its "
+                             "plain arm")
+        _check_launches(f"gpt2 identity {label}", used, want)
+        gen_out[label] = card_out
+    eng = gpt2_serving_engine(params, cfg, **opts)
+    for i, p in enumerate(toks):
+        eng.submit(i, p.tolist(), max_new_tokens=12)
+    out = eng.run()
+    same = all(out[i] == gen_out["gpt2_paged_generator"][i].tolist()
+               for i in range(3)) and eng.check_leaks() == []
+    log(f"[gpt2 identity] engine == gpt2_paged_generator on the same 3 "
+        f"prompts: {same}")
+    if not same:
+        raise SystemExit("gpt2 identity: the engine and the paged "
+                         "generator differ")
+
+
+# ------------------------------------------------------------ phase 18
+GPT2_NEW = 32
+
+
+def _gpt2_generate(build, params, cfg, toks, path, fns, card_line, **kw):
+    """One generator's greedy run of ``toks`` on the card: tokens/s, the
+    ms per token step (host clock ending in a sync), launches and the
+    first new tokens."""
+    gen = build(params, cfg, device="cuda", **kw)
+    _zero(fns.values())
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gen.generate(toks, max_new_tokens=GPT2_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    B, T = toks.shape
+    ok = (tuple(out.shape) == (B, T + GPT2_NEW)
+          and torch.equal(out[:, :T].cpu(), torch.from_numpy(toks).int())
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    m = {"wall_s": wall, "tokens_per_s": B * GPT2_NEW / wall,
+         "ms_per_step": wall * 1e3 / GPT2_NEW,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[gpt2 serving] {path} B={B} T={T} new={GPT2_NEW}: valid {ok}; "
+        f"{m['tokens_per_s']:.2f} tokens/s, {m['ms_per_step']:.2f} ms per "
+        f"token step (prefill included), peak_mem {m['peak_mem_gb']:.2f} GB "
+        f"on {card_line}; kernel launches {used}")
+    if not ok:
+        raise SystemExit(f"{path} failed")
+    return out[:, T:].cpu(), used, m
+
+
+def phase_gpt2_serving(fns, card_line):
+    """GPT-2 1.3B at full width (24 layers, 16 heads of 128, V 50257),
+    seeded bf16 weights: the engine (max_batch 8, pages of 16, max_seq
+    1024) over 8 prompts of 64-768 tokens, 32 new tokens each, whole-prompt
+    and ``prefill_chunk=256``; ``gpt2_generator`` and
+    ``gpt2_paged_generator`` on 8 prompts of 128 tokens; then int8 weights
+    (``weight_dtype="int8"``, B9 at build, the bf16 tree freed) on the
+    engine's traffic, and one ``init_inference(dtype="int8")`` forward.
+    The tied head's product takes ``wte.T`` as it is (no copy)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.generation import (gpt2_generator,
+                                                          gpt2_paged_generator)
+    from deepspeed_tpu_torch.inference.quantized import param_bytes
+    from deepspeed_tpu_torch.inference.serving import gpt2_serving_engine
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.losses import f32_matmul
+
+    cfg = gpt2.GPT2Config.gpt2_1_3b()
+    t0 = time.perf_counter()
+    params = _gpt2_params(cfg, 12)
+    torch.cuda.synchronize()
+    log(f"[gpt2 serving] gpt2_1_3b layers={cfg.n_layers} dim={cfg.dim} "
+        f"heads={cfg.n_heads} head_dim={cfg.head_dim} vocab={cfg.vocab_size}"
+        f" params={gpt2.param_count(cfg)} bf16 random seeded weights, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the tied head: f32_matmul over the transposed view, no copy of wte
+    h = torch.randn((8, cfg.dim), device="cuda").to(torch.bfloat16)
+    head = gpt2.lm_head(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    f32_matmul(h, head)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    wte_bytes = params["wte"].numel() * 2
+    log(f"[gpt2 serving] tied head f32_matmul([8, {cfg.dim}], wte.T "
+        f"stride {head.stride()}): peak above resident {extra} bytes (wte "
+        f"{wte_bytes} bytes; a copy would add them)")
+    del h, head
+    if extra >= wte_bytes // 10:
+        raise SystemExit("gpt2: the tied head copies wte")
+    rng = np.random.default_rng(17)
+    lens = np.linspace(64, 768, 8).astype(int).tolist()
+    prompts = {f"g{i}": rng.integers(1, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(lens)}
+    opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
+                cache_dtype=torch.bfloat16)
+    launches, results, outs = {}, {}, {}
+    for chunk in (0, 256):
+        path = f"gpt2-1.3b serving prefill_chunk={chunk}"
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fns.values())
+        out, leaks, m = serve(params, cfg, prompts, GPT2_NEW,
+                              prefill_chunk=chunk, **opts)
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        done = _valid(out, prompts, GPT2_NEW, cfg.vocab_size)
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[gpt2 serving] prefill_chunk={chunk} prompts={lens} "
+            f"new={GPT2_NEW}: finished {len(out)}/8 all_valid {done} "
+            f"check_leaks {leaks}; tokens/s {m['tokens_per_s']:.2f} "
+            f"ttft_mean {m['ttft_s_mean'] * 1e3:.1f} ms ttft_max "
+            f"{m['ttft_s_max'] * 1e3:.1f} ms ms/decode_step "
+            f"{m['ms_per_decode_step']} peak_mem {m['peak_mem_gb']:.2f} GB "
+            f"on {card_line}; kernel launches {launches[path]}")
+        if not done or leaks:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+        results[path], outs[chunk] = m, out
+    same = sum(outs[0][r] == outs[256][r] for r in prompts)
+    log(f"[gpt2 serving] whole-prompt and chunked runs agree on {same}/8 "
+        "requests (informational: bf16 sums in another order)")
+
+    toks = rng.integers(1, cfg.vocab_size, (8, 128))
+    gens = {}
+    for label, build, want in (
+            ("gpt2_generator", gpt2_generator, ("greedy_argmax",)),
+            ("gpt2_paged_generator", gpt2_paged_generator, SERVING_KERNELS)):
+        path = f"gpt2-1.3b {label}"
+        gens[label], launches[path], results[path] = _gpt2_generate(
+            build, params, cfg, toks, path, fns, card_line)
+        _check_launches(path, launches[path], want)
+    agree = float((gens["gpt2_generator"] == gens["gpt2_paged_generator"])
+                  .float().mean())
+    log(f"[gpt2 serving] the two generators' new tokens agree on {agree:.4f}"
+        " (informational: dense f32 cached attention vs B1/B5 in bf16)")
+
+    # int8 weights on the same weights: B9 quantizes the 5 matrix leaves
+    # (wte, qkv_w, proj_w, fc_w, out_w); the bf16 tree is then freed
+    bf16_bytes = param_bytes(params)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fns.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = gpt2_serving_engine(params, cfg, weight_dtype="int8", **opts)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launches["gpt2-1.3b int8 build"] = {n: f.launches for n, f in fns.items()}
+    _check_bodies("gpt2-1.3b int8 build")
+    del params
+    torch.cuda.empty_cache()
+    int8_bytes = param_bytes(eng.params)
+    log(f"[gpt2 int8] build {build_ms:.1f} ms, B9 launches "
+        f"{launches['gpt2-1.3b int8 build']['quantize']} (5 matrix leaves); "
+        f"resident weights {int8_bytes / 1e9:.4f} GB vs {bf16_bytes / 1e9:.4f}"
+        f" GB bf16 ({int8_bytes / bf16_bytes:.4f}x) on {card_line}")
+    _check_launches("gpt2-1.3b int8 build", launches["gpt2-1.3b int8 build"],
+                    ("quantize",))
+    if launches["gpt2-1.3b int8 build"]["quantize"] != 5:
+        raise SystemExit("gpt2 int8 build: wrong B9 launch count")
+    for chunk in (0, 256):
+        path = f"gpt2-1.3b int8 serving prefill_chunk={chunk}"
+        if chunk:
+            qparams = eng.params
+            del eng
+            eng = gpt2_serving_engine(qparams, cfg, weight_dtype="int8",
+                                      prefill_chunk=chunk, **opts)
+            del qparams
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fns.values())
+        out, m = drive(eng, prompts, GPT2_NEW)
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        leaks = eng.check_leaks()
+        done = _valid(out, prompts, GPT2_NEW, cfg.vocab_size)
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[gpt2 int8] prefill_chunk={chunk}: finished {len(out)}/8 "
+            f"all_valid {done} check_leaks {leaks}; tokens/s "
+            f"{m['tokens_per_s']:.2f} ttft_mean {m['ttft_s_mean'] * 1e3:.1f}"
+            f" ms ms/decode_step {m['ms_per_decode_step']} peak_mem "
+            f"{m['peak_mem_gb']:.2f} GB on {card_line}; kernel launches "
+            f"{launches[path]}")
+        if not done or leaks:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+        results[path] = m
+    qparams = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    # init_inference(dtype="int8") over the int8 tree: the exact leaves
+    # quantize there (wpe and the 8 stacked vectors: 9 B9 launches)
+    rid = max(prompts, key=lambda r: len(prompts[r]))
+    toks1 = torch.tensor([prompts[rid]], dtype=torch.long, device="cuda")
+    path = "gpt2-1.3b int8 init_inference"
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fns.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ie = init_inference(apply_fn=functools.partial(gpt2.forward, cfg=cfg),
+                        params=qparams, dtype="int8")
+    logits = ie(toks1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches[path] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    ok = (tuple(logits.shape) == (1, toks1.shape[1], cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()))
+    log(f"[gpt2 int8] init_inference(dtype=int8) with gpt2.forward, one "
+        f"forward of [1, {toks1.shape[1]}]: {ms:.1f} ms (build included), "
+        f"logits finite of shape {ok}, peak_mem "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; B9 launches "
+        f"{launches[path]['quantize']} on {card_line}; kernel launches "
+        f"{launches[path]}")
+    del ie, logits, qparams
+    torch.cuda.empty_cache()
+    if not ok or launches[path]["quantize"] != 9:
+        raise SystemExit(f"{path} failed")
+    _check_launches(path, launches[path], ("flash_fwd", "quantize"))
+    return launches, results
+
+
+def phase_gpt2_small(fns, card_line):
+    """GPT-2 small at its published widths (768, 12 layers, 12 heads of
+    64): the engine over 8 prompts of 32-512 tokens, 16 new tokens,
+    whole-prompt and ``prefill_chunk=256``, so the head_dim-64 Hopper
+    bodies of B1 and B5 carry a main path."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config()
+    params = _gpt2_params(cfg, 18)
+    rng = np.random.default_rng(18)
+    lens = np.linspace(32, 512, 8).astype(int).tolist()
+    prompts = {f"s{i}": rng.integers(1, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(lens)}
+    opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
+                cache_dtype=torch.bfloat16)
+    launches, results = {}, {}
+    for chunk in (0, 256):
+        path = f"gpt2-small serving prefill_chunk={chunk}"
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fns.values())
+        out, leaks, m = serve(params, cfg, prompts, 16, prefill_chunk=chunk,
+                              **opts)
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        done = _valid(out, prompts, 16, cfg.vocab_size)
+        log(f"[gpt2 small] d={cfg.dim} layers={cfg.n_layers} heads="
+            f"{cfg.n_heads} head_dim={cfg.head_dim} prefill_chunk={chunk} "
+            f"prompts={lens} new=16: all_valid {done} check_leaks {leaks}; "
+            f"tokens/s {m['tokens_per_s']:.2f} ttft_mean "
+            f"{m['ttft_s_mean'] * 1e3:.1f} ms ms/decode_step "
+            f"{m['ms_per_decode_step']} on {card_line}; kernel launches "
+            f"{launches[path]}")
+        if not done or leaks:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+        results[path] = m
+    del params
+    torch.cuda.empty_cache()
+    return launches, results
+
+
+# ------------------------------------------------------------ phase 19
+# GPT-2 1.3B at all 24 layers: train batch 8 (micro 8, no accumulation) of
+# 1024 (+1) tokens, three steps per remat policy
+GPT2_TRAIN_STEPS, GPT2_TRAIN_B, GPT2_TRAIN_T = 3, 8, 1024
+GPT2_REMATS = ("none", "save_attn", "offload_attn")
+
+
+def _gpt2_flops_per_sample(cfg, T):
+    """Model FLOPs of one training sample of T tokens (3x the forward; the
+    recompute not counted): the weight products, the tied head, and causal
+    attention."""
+    d, L, V = cfg.dim, cfg.n_layers, cfg.vocab_size
+    weights = 2 * T * (L * 12 * d * d + d * V)
+    attn = L * 2 * 2 * cfg.n_heads * cfg.head_dim * (T * (T + 1) // 2)
+    return 3 * (weights + attn)
+
+
+def phase_gpt2_train(fns, card_line):
+    """GPT-2 1.3B trained at full depth on one card: bf16 compute, f32
+    master, fused Adam (B4), WarmupLR, clipping 1.0; three steps under
+    ``remat="none"``, ``"save_attn"`` and ``"offload_attn"``, each from the
+    same seeded weights on the same batch, then one profiled step.  The
+    offload run's state after its steps equals ``save_attn``'s bit for bit
+    (its gradients are those of its twin), it moves the named stage outputs
+    (attn_out, mlp_out of every layer) to pinned host memory each step, and
+    its peak card memory is lower by about those bytes."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import initialize, remat
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, loss_fn,
+                                                 param_count)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.timers import ThroughputTimer
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    base = GPT2Config.gpt2_1_3b()
+    B, T = GPT2_TRAIN_B, GPT2_TRAIN_T
+    rng = np.random.default_rng(19)
+    batch = {"tokens": rng.integers(0, base.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    conf = _train_config(B, 1, {"bf16": {"enabled": True}})
+    flops = _gpt2_flops_per_sample(base, T)
+    named = base.n_layers * B * T * (base.dim + 4 * base.dim) * 2
+    log(f"[gpt2 train] gpt2_1_3b params={param_count(base)} layers="
+        f"{base.n_layers} (all) f32 master, bf16 compute, fused_adam wd=0.1,"
+        f" micro {B} x {T} tokens, clip=1.0 WarmupLR; {flops:.4e} "
+        f"flops/sample; the named stage outputs are {named} bytes a step")
+
+    def run(policy):
+        cfg = dataclasses.replace(base, remat=policy)
+        torch.cuda.empty_cache()
+        params = _gpt2_params(cfg, 19, torch.float32)
+        eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        del params
+        torch.cuda.synchronize()
+        timer = ThroughputTimer(batch_size=B, seq_len=T,
+                                flops_per_sample=flops,
+                                start_step=GPT2_TRAIN_STEPS - 1,
+                                device="cuda")
+        _zero(fns.values())
+        rows = []
+        for _ in range(GPT2_TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            remat.offload.reset()
+            timer.start()
+            ts = time.perf_counter()
+            loss = float(eng.train_batch(batch))
+            ms = (time.perf_counter() - ts) * 1e3
+            timer.stop()
+            rows.append({"loss": loss, "ms": ms,
+                         "grad_norm": eng.get_global_grad_norm(),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "offloaded_bytes": remat.offload.bytes,
+                         "offloaded_tensors": remat.offload.tensors})
+        path = f"gpt2-1.3b training remat={policy}"
+        used = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        digest = _state_digest(eng.state)
+        leaves = len(tree_leaves(eng.state.params))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            float(eng.train_batch(batch))
+            traced = (time.perf_counter() - ts) * 1e3
+        evs = _device_events(prof)
+        copies = sum(e.self_device_time_total for e in evs
+                     if "Memcpy" in e.key) / 1e3
+        kernels = sum(e.self_device_time_total for e in evs
+                      if "Memcpy" not in e.key) / 1e3
+        out = {"steps": rows, "launches": used, "digest": digest,
+               "leaves": leaves, "tput": timer.summary(),
+               "traced_ms": traced, "kernel_busy_ms": kernels,
+               "copy_ms": copies,
+               "idle_share": 1.0 - kernels / traced if kernels else None,
+               "top": [(e.key[:60], e.count,
+                        round(e.self_device_time_total / 1e3, 2))
+                       for e in sorted(evs, key=lambda e:
+                                       -e.self_device_time_total)[:8]]}
+        log(f"[gpt2 train] remat={policy}: losses "
+            f"{[r['loss'] for r in rows]} ms/step "
+            f"{[round(r['ms'], 1) for r in rows]} peak GB "
+            f"{[round(r['peak_gb'], 3) for r in rows]} offloaded bytes/step "
+            f"{[r['offloaded_bytes'] for r in rows]} ({rows[-1]['offloaded_tensors']}"
+            f" tensors); ThroughputTimer over the last step: "
+            f"{out['tput']['tokens_per_sec']:.1f} tokens/s, "
+            f"{out['tput']['tflops']:.1f} TFLOP/s, MFU {out['tput']['mfu']:.4f};"
+            f" profiled step {traced:.1f} ms host clock, kernels {kernels:.1f}"
+            f" ms, copies {copies:.1f} ms on the device, idle share "
+            f"{out['idle_share']}; top device time {out['top']} on "
+            f"{card_line}; launches {used}")
+        del eng, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    runs = {p: run(p) for p in GPT2_REMATS}
+    L, S = base.n_layers, GPT2_TRAIN_STEPS
+    launches = {}
+    for p, r in runs.items():
+        want = {"flash_fwd": (1 if p == "none" else 2) * L * S,
+                "flash_bwd_dq": L * S, "flash_bwd_dkv": L * S,
+                "fused_adam": S * r["leaves"]}
+        c = r["launches"]
+        if any(c[k] != v for k, v in want.items()) or any(
+                c[k] for k in c if k not in want):
+            raise SystemExit(f"phase 19: remat={p} launches {c}, expected "
+                             f"{want}")
+        if not all(np.isfinite(x["loss"]) for x in r["steps"]):
+            raise SystemExit(f"phase 19: remat={p} loss is not finite")
+        launches[f"gpt2-1.3b training remat={p}"] = c
+    sa, off, no = runs["save_attn"], runs["offload_attn"], runs["none"]
+    equal = (off["digest"] == sa["digest"] and [x["loss"] for x in
+                                                off["steps"]]
+             == [x["loss"] for x in sa["steps"]])
+    none_equal = no["digest"] == sa["digest"]
+    moved = [x["offloaded_bytes"] for x in off["steps"]]
+    saved = [s["peak_gb"] - o["peak_gb"] for s, o in zip(sa["steps"],
+                                                          off["steps"])]
+    log(f"[gpt2 train] offload_attn vs save_attn: state after {S} steps "
+        f"bit-equal (so are the gradients) {equal}; moved {moved} bytes a "
+        f"step (the named outputs: {named}); peak lower by "
+        f"{[round(x, 3) for x in saved]} GB; ms/step "
+        f"{[round(x['ms'], 1) for x in off['steps']]} against "
+        f"{[round(x['ms'], 1) for x in sa['steps']]}; remat=none bit-equal "
+        f"to save_attn {none_equal} (informational); phase 19 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card_line}")
+    if not equal:
+        raise SystemExit("phase 19: offload_attn differs from save_attn")
+    if any(m != named for m in moved) or min(saved) * 1e9 < named / 2:
+        raise SystemExit("phase 19: offload_attn did not move the named "
+                         "outputs off the card")
+    return launches, runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2342,12 +3137,17 @@ def main() -> int:
     tier_kernels = phase_paged_quant_v1(gen)
     probe_row, probe_launches = phase_env_probe(fns)
     quant_kernels = [phase_quant(gen), probe_row]
+    gpt2_cases = phase_gpt2_kernels(gen)
     phase_identity(kernels)
     phase_tier_identity(fns)
     phase_int8_identity(fns)
+    phase_gpt2_identity(fns)
     launches = {"env report": probe_launches}
     launches.update(phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_gpt2_serving(fns, card_line)[0])
+    launches.update(phase_gpt2_small(fns, card_line)[0])
     torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels + tier_kernels + quant_kernels}
     rows.update(phase_backward(gen))
@@ -2357,6 +3157,10 @@ def main() -> int:
     launches["training"], _ = phase_train(fns, card_line)
     torch.cuda.empty_cache()
     launches.update(phase_resume(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_gpt2_train(fns, card_line)[0])
+    for name, cases in gpt2_cases.items():
+        rows[name]["gpt2_shapes"] = cases
 
     out = []
     for name in fns:
@@ -2380,7 +3184,7 @@ def main() -> int:
         for key in ("device_ms", "library_device_ms", "device_median_ms",
                     "library_device_median_ms", "bound_share",
                     "training_shape", "chunk", "f32_split", "kv_rows",
-                    "kv_write", "cases"):
+                    "kv_write", "cases", "gpt2_shapes"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

@@ -1,11 +1,12 @@
 """PyTorch / CUDA port of ``deepspeed_tpu`` for NVIDIA Hopper.
 
 Imports ``torch`` and ``numpy`` only (never ``jax`` nor ``deepspeed_tpu``).
-Ported: Llama greedy serving with continuous batching over a paged KV
-cache (prefix cache, host KV tier, int8-resident pages, int8 weights), the
-train step at ZeRO stage 0 on one GPU (``initialize`` ->
-``TrainingEngine.train_batch``) with its data loader, packing, curriculum,
-activation checkpointing, timers and checkpoints (``save_checkpoint`` /
+Ported: Llama and GPT-2 greedy serving with continuous batching over a
+paged KV cache (prefix cache, host KV tier, int8-resident pages, int8
+weights), their dense and paged generators, the train step at ZeRO stage 0
+on one GPU (``initialize`` -> ``TrainingEngine.train_batch``) with its data
+loader, packing, curriculum, activation checkpointing (the host-offload
+policies too), timers and checkpoints (``save_checkpoint`` /
 ``load_checkpoint``, ``zero_to_fp32``), ``init_inference`` and the
 environment report.  Their attention, sampling, Adam update and int8 quantization run
 hand-written CUDA kernels (``deepspeed_tpu_torch/csrc``).  Exports resolve
@@ -21,8 +22,10 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "resolve_device": "deepspeed_tpu_torch._device",
     "LlamaConfig": "deepspeed_tpu_torch.models.llama",
+    "GPT2Config": "deepspeed_tpu_torch.models.gpt2",
     "ServingEngine": "deepspeed_tpu_torch.inference.serving",
     "llama_serving_engine": "deepspeed_tpu_torch.inference.serving",
+    "gpt2_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "serving_engine": "deepspeed_tpu_torch.inference.serving",
     "from_jax_params": "deepspeed_tpu_torch.weights",
     "from_jax_train_state": "deepspeed_tpu_torch.weights",

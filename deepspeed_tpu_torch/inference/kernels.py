@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch.inference.paged_attention_cuda import (
     paged_attention_reference, paged_chunk_attention,
     paged_chunk_attention_quant, paged_chunk_attention_reference,
@@ -52,6 +53,29 @@ class PagedKVCache:
     page_size: int
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def alloc(cls, n_layers: int, n_kv: int, num_pages: int, page_size: int,
+              head_dim: int, batch: int, max_seq: int, dtype=torch.bfloat16,
+              device=None) -> "PagedKVCache":
+        """An empty cache whose row b owns pages ``b * max_pages ...
+        (b + 1) * max_pages - 1`` (the JAX package's static round-robin
+        table; the serving engine's allocator hands pages out instead).
+        ``device`` None means CUDA, which raises where there is none."""
+        device = resolve_device(device)
+        max_pages = -(-max_seq // page_size)
+        if num_pages < batch * max_pages:
+            raise ValueError(
+                f"num_pages {num_pages} < batch*max_pages {batch * max_pages}")
+        shape = (n_layers, n_kv, num_pages, page_size, head_dim)
+        table = (torch.arange(batch, dtype=torch.int32)[:, None] * max_pages
+                 + torch.arange(max_pages, dtype=torch.int32)[None])
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   table=table.to(device),
+                   seq_lens=torch.zeros((batch,), dtype=torch.int32,
+                                        device=device),
+                   page_size=page_size)
 
 
 class PageAllocator:

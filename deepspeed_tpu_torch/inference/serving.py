@@ -32,10 +32,10 @@ to a host pool instead of dropping, and a later admission matching a
 demoted span promotes it back into fresh pages; ``quantized_resident``
 keeps the device pages as int8 codes with per-token-row scales.
 
-Int8 weight-only serving (``weight_dtype="int8"``):
-``llama_serving_engine`` quantizes every matrix leaf on the engine's
-device (kernel B9 on CUDA) and the forward dequantizes one layer at a
-time.
+Int8 weight-only serving (``weight_dtype="int8"``): the family builders
+(``llama_serving_engine``, ``gpt2_serving_engine``) quantize every matrix
+leaf on the engine's device (kernel B9 on CUDA) and the forward dequantizes
+one layer at a time.
 
 Blocks of the reference engine that this slice does not port (mesh,
 telemetry, tracing, speculative, slo, faults, shedding, history,
@@ -1068,41 +1068,30 @@ class ServingEngine:
         self._closed = True
 
 
-def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
-                         quant_group_size: int = 128, device=None,
-                         **kw) -> ServingEngine:
-    """ServingEngine over :func:`~deepspeed_tpu_torch.models.llama.
-    forward_paged`.  ``params`` (the JAX pytree layout, see
-    :mod:`deepspeed_tpu_torch.weights`) move to ``device`` (None = CUDA).
-    The kernel policy resolves once here and the same policy reaches the
-    engine.
-
-    ``weight_dtype="int8"``: weight-only int8 (ref: ``init_inference(dtype=
-    int8)``): every matrix leaf is quantized on ``device`` in groups of
-    ``quant_group_size`` (kernel B9 on CUDA; the stacked ``[L, d]`` norm
-    gains stay exact, as the JAX builder keeps them; leaves that are
-    already quantized pass through), and the forward dequantizes one layer
-    at a time.  Any other value but ``"bfloat16"`` raises
-    ``NotImplementedError``."""
-    from deepspeed_tpu_torch.models import llama
-
+def _family_engine(forward_paged, params, cfg, weight_dtype: str,
+                   quant_group_size: int, device, skip_paths,
+                   **kw) -> ServingEngine:
+    """ServingEngine over a model family's ``forward_paged``: ``params``
+    move to ``device``, the kernel policy resolves once and reaches the
+    engine, and ``weight_dtype="int8"`` quantizes every matrix leaf but
+    ``skip_paths`` on ``device`` (B9 on CUDA; leaves already quantized pass
+    through).  Any other ``weight_dtype`` but ``"bfloat16"`` raises
+    ``NotImplementedError``: never serve unquantized quietly."""
     dev = resolve_device(device)
     policy = resolve_serving_kernels(kw.pop("kernels", None), device=dev)
     pk = policy.paged_attention
     params = _to_device(params, dev)
     if weight_dtype != "bfloat16":
-        # raises on anything but "int8": never serve unquantized quietly
         params, = quantize_for_inference(
             params, weight_dtype=weight_dtype, group_size=quant_group_size,
-            skip_paths=("attn_norm", "mlp_norm", "final_norm"))
+            skip_paths=skip_paths)
 
     def step(params, tokens, cache):
-        return llama.forward_paged(params, tokens, cfg, cache,
-                                   paged_kernel=pk)
+        return forward_paged(params, tokens, cfg, cache, paged_kernel=pk)
 
     def chunk_step(params, tokens, cache):
-        return llama.forward_paged(params, tokens, cfg, cache,
-                                   continuation=True, paged_kernel=pk)
+        return forward_paged(params, tokens, cfg, cache, continuation=True,
+                             paged_kernel=pk)
 
     return ServingEngine(
         params, step, step, n_layers=cfg.n_layers, n_kv=cfg.n_kv_heads,
@@ -1110,17 +1099,68 @@ def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
         device=dev, **kw)
 
 
+def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
+                         quant_group_size: int = 128, device=None,
+                         **kw) -> ServingEngine:
+    """ServingEngine over :func:`~deepspeed_tpu_torch.models.llama.
+    forward_paged`.  ``params`` (the JAX pytree layout, see
+    :mod:`deepspeed_tpu_torch.weights`) move to ``device`` (None = CUDA).
+
+    ``weight_dtype="int8"``: weight-only int8 (ref: ``init_inference(dtype=
+    int8)``): every matrix leaf is quantized on ``device`` in groups of
+    ``quant_group_size`` (kernel B9 on CUDA; the stacked ``[L, d]`` norm
+    gains stay exact, as the JAX builder keeps them), and the forward
+    dequantizes one layer at a time."""
+    from deepspeed_tpu_torch.models import llama
+
+    return _family_engine(llama.forward_paged, params, cfg, weight_dtype,
+                          quant_group_size, device,
+                          ("attn_norm", "mlp_norm", "final_norm"), **kw)
+
+
+# GPT-2 leaves an int8 engine keeps exact (the JAX builder's list): the
+# stacked biases and LayerNorm vectors and the position table
+GPT2_INT8_SKIP = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "qkv_b", "proj_b",
+                  "fc_b", "out_b", "lnf_w", "lnf_b", "wpe")
+
+
+def gpt2_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
+                        quant_group_size: int = 128, device=None,
+                        **kw) -> ServingEngine:
+    """ServingEngine over :func:`~deepspeed_tpu_torch.models.gpt2.
+    forward_paged` (ref: the reference serves GPT-2 through kernel
+    injection, deepspeed/module_inject/containers/gpt2.py).  ``max_seq``
+    past the learned position table raises ``ValueError``; int8 weights
+    keep :data:`GPT2_INT8_SKIP` exact; a ``mesh`` is refused by the engine,
+    as for Llama."""
+    from deepspeed_tpu_torch.models import gpt2
+
+    max_seq = kw.get("max_seq", 256)
+    if max_seq > cfg.max_seq_len:
+        # learned positions are HARD-bounded by the wpe table (unlike
+        # RoPE); past it the forward's clamp would silently reuse the
+        # last position embedding
+        raise ValueError(
+            f"max_seq {max_seq} exceeds the learned position table "
+            f"(cfg.max_seq_len={cfg.max_seq_len})")
+    return _family_engine(gpt2.forward_paged, params, cfg, weight_dtype,
+                          quant_group_size, device, GPT2_INT8_SKIP, **kw)
+
+
 def _to_device(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
 def serving_engine(params, cfg, **kw):
-    """Model registry for serving: Llama in this slice; the other families
-    come with the model-families slice."""
+    """Model registry for serving: dispatch on the config type (Llama and
+    GPT-2 in the port; the other families come with later slices)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
     from deepspeed_tpu_torch.models.llama import LlamaConfig
 
     if isinstance(cfg, LlamaConfig):
         return llama_serving_engine(params, cfg, **kw)
+    if isinstance(cfg, GPT2Config):
+        return gpt2_serving_engine(params, cfg, **kw)
     raise NotImplementedError(
         f"no serving path for {type(cfg).__name__} in deepspeed_tpu_torch "
         "yet; the other model families come with a later slice")

@@ -15,8 +15,9 @@ segment_ids}``, with packed-document attention through the flash kernels'
 Int8 weights: any matrix leaf may be an int8
 :class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor`
 (``init_inference(dtype="int8")``, ``llama_serving_engine(weight_dtype=
-"int8")``).  :func:`forward`, :func:`forward_hidden` and
-:func:`forward_paged` dequantize such leaves where they are read: one layer
+"int8")``).  :func:`forward`, :func:`forward_hidden`,
+:func:`forward_with_cache` and :func:`forward_paged` dequantize such leaves
+where they are read: one layer
 of a stacked leaf at a time, the embedding's gathered rows, the LM head once
 per forward, each to bfloat16 as the JAX package's ``quantized_apply`` does
 (they carry the ``takes_quantized`` mark, so ``init_inference`` hands them
@@ -71,7 +72,7 @@ class LlamaConfig:
                 f"attn_impl={self.attn_impl!r}: the port serves "
                 f"{'|'.join(ATTN_IMPLS)}; ring/ulysses/sparse come with the "
                 "distributed slice")
-        check_remat(self.remat)      # remat.POLICIES; offload_* raise
+        check_remat(self.remat)      # remat.POLICIES or remat.OFFLOAD
 
     @property
     def head_dim(self) -> int:
@@ -233,6 +234,29 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None,
     return _head_logits(params, cfg, forward_hidden(
         params, tokens, cfg, positions=positions, segment_ids=segment_ids,
         n_micro=n_micro))
+
+
+@takes_quantized
+def forward_with_cache(params, tokens, cfg: LlamaConfig, cache):
+    """Incremental forward for generation over a dense
+    :class:`~deepspeed_tpu_torch.inference.generation.KVCache` (written in
+    place): attends to cache[:length] + tokens, writes the new K/V at
+    ``cache.length``.  tokens [B, T] -> (logits [B, T, V] f32, cache with
+    ``length + T``)."""
+    from deepspeed_tpu_torch.inference.generation import cached_attention
+
+    T = tokens.shape[1]
+    start = cache.length
+    x = _embed(params, tokens)
+    cos, sin = rope_tables(cfg, start + torch.arange(
+        T, dtype=torch.int32, device=tokens.device))
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        q, k, v = _qkv(cfg, lp, x, cos, sin)
+        attn, _, _ = cached_attention(q, cache.k[l], cache.v[l], k, v, start)
+        x = _block_tail(cfg, lp, x, attn)
+    return _logits(params, cfg, x), dataclasses.replace(cache,
+                                                        length=start + T)
 
 
 def packed_doc_mask(seg):

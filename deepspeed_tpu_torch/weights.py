@@ -1,9 +1,10 @@
 """Weights for the port: the bridge from the JAX param tree and train
 state, and a seeded initialiser that builds a model on the card.
 
-The port keeps the JAX pytree layout (``embed``, stacked ``blocks`` leaves
-``[L, in, out]``, ``final_norm``, ``lm_head``), so the bridge is a plain
-array copy: no transposes, no renames.
+The port keeps the JAX pytree layout (Llama's ``embed``, stacked ``blocks``
+leaves ``[L, in, out]``, ``final_norm``, ``lm_head``; GPT-2's ``wte``,
+``wpe``, ``blocks``, ``lnf_w``, ``lnf_b``), so the bridge is a plain array
+copy: no transposes, no renames.
 """
 
 from __future__ import annotations
@@ -80,25 +81,37 @@ def _convert(x, dev, dtype):
     return _tensor(x, dev, dtype)
 
 
+def _normal(shape, generator, dev, dtype, scale) -> torch.Tensor:
+    """N(0, scale^2) of ``shape``, drawn in f32 one ``shape[-2:]`` slice at
+    a time (so the f32 scratch is one layer, not the stack)."""
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    for layer in out.view(-1, *shape[-2:]):
+        layer.copy_(torch.randn(shape[-2:], generator=generator,
+                                device=dev, dtype=torch.float32) * scale)
+    return out
+
+
 def init_params(cfg, generator: torch.Generator, device=None,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
-    """Random Llama weights in the JAX layout, drawn on ``device`` from
-    ``generator`` (a ``torch.Generator`` on that device): normal with
-    std 1/sqrt(fan_in) as the JAX ``init_params`` does (its threefry draws
-    cannot be reproduced; only the distribution matches), norms at one.
+    """Random weights in the JAX layout, drawn on ``device`` from
+    ``generator`` (a ``torch.Generator`` on that device), for a Llama or a
+    GPT-2 config.  Llama: normal with std 1/sqrt(fan_in) as the JAX
+    ``init_params`` does, norms at one.  GPT-2: normal with std 0.02
+    (``gpt2.py``'s), LayerNorm weights at one and biases at zero.  JAX's
+    threefry draws cannot be reproduced; only the distribution matches.
     Stacked leaves are drawn one layer at a time, so the f32 scratch is
     one layer, not the model."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
     dev = resolve_device(device)
+    if isinstance(cfg, GPT2Config):
+        return _init_gpt2(cfg, generator, dev, dtype)
     d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     def w(*shape):
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        scale = 1.0 / math.sqrt(shape[-2])
-        for layer in out.view(-1, *shape[-2:]):
-            layer.copy_(torch.randn(shape[-2:], generator=generator,
-                                    device=dev, dtype=torch.float32) * scale)
-        return out
+        return _normal(shape, generator, dev, dtype,
+                       1.0 / math.sqrt(shape[-2]))
 
     params = {
         "embed": w(cfg.vocab_size, d),
@@ -118,3 +131,27 @@ def init_params(cfg, generator: torch.Generator, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = w(d, cfg.vocab_size)
     return params
+
+
+def _init_gpt2(cfg, generator, dev, dtype) -> Dict[str, Any]:
+    d, L = cfg.dim, cfg.n_layers
+
+    def w(*shape):
+        return _normal(shape, generator, dev, dtype, 0.02)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    return {
+        "wte": w(cfg.vocab_size, d),
+        "wpe": w(cfg.max_seq_len, d),
+        "blocks": {
+            "ln1_w": const(1.0, L, d), "ln1_b": const(0.0, L, d),
+            "qkv_w": w(L, d, 3 * d), "qkv_b": const(0.0, L, 3 * d),
+            "proj_w": w(L, d, d), "proj_b": const(0.0, L, d),
+            "ln2_w": const(1.0, L, d), "ln2_b": const(0.0, L, d),
+            "fc_w": w(L, d, 4 * d), "fc_b": const(0.0, L, 4 * d),
+            "out_w": w(L, 4 * d, d), "out_b": const(0.0, L, d),
+        },
+        "lnf_w": const(1.0, d), "lnf_b": const(0.0, d),
+    }

@@ -1135,3 +1135,186 @@ def test_remat_full_with_flash_kernels_equals_no_remat(gen):
     assert n1["flash_fwd"] == {"wgmma": 2 * L, "scalar": 0}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert n0[name] == n1[name] == {"wgmma": L, "scalar": 0}
+
+
+# ------------------------------------------------------ the GPT-2 shapes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8])
+def test_greedy_gpt2_vocab_misaligned_rows(gen, dtype, B):
+    """B6 at GPT-2's vocabulary (V = 50257): rows taken as ``logits[:, -1]``
+    of a [B, 3, V] tensor, so each row starts at its own offset from a
+    16-byte boundary (3 V elements apart), with ties planted on both sides
+    of every span edge of each row's own split."""
+    from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
+                                                       greedy_split_plan)
+
+    V = 50257
+    x = _randn(gen, (B, 3, V), dtype)
+    x[:, 0] = 99.0                      # the other positions never count
+    last = x[:, -1]
+    assert last.stride(0) == 3 * V
+    fused_greedy_rows.body_launches = dict.fromkeys(
+        fused_greedy_rows.body_launches, 0)
+    _greedy_exact(last)
+    firsts = []
+    width = 16 // x.element_size()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for b in range(B):
+        head = (16 - last[b].data_ptr() % 16) % 16 // x.element_size()
+        _, edges = greedy_split_plan(B, V, sms, width, head)
+        inner = [e for e in edges[1:-1] if 0 < e < V]
+        assert inner
+        last[b, inner] = 40.0
+        last[b, [e - 1 for e in inner]] = 40.0
+        firsts.append(inner[0] - 1)
+    got = _greedy_exact(last)
+    assert got.tolist() == firsts
+    assert fused_greedy_rows.body_launches == {"cluster": 2, "row": 0}
+
+
+def _mha_paged_case(gen, H, D, C, ps=16, lens=(1, 15, 16, 17, 255, 511, 769,
+                                                1024)):
+    """GPT-2's paged shapes: B = 8 rows, H = KV heads (G = 1), a shuffled
+    table; decode (C = 1: the row's last position) or a C-token chunk after
+    each row's history.  Returns q, the bf16 pools, the table, the starts."""
+    B = len(lens)
+    starts = [n - 1 for n in lens]
+    mp = -(-(max(starts) + C) // ps)
+    P = B * mp + 1
+    perm = torch.randperm(P - 1, generator=gen, device="cuda").int()
+    table = perm[:B * mp].view(B, mp).contiguous()
+    kp = _randn(gen, (H, P, ps, D), torch.bfloat16)
+    vp = _randn(gen, (H, P, ps, D), torch.bfloat16)
+    q = _randn(gen, (B, C, H, D), torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table, st
+
+
+@pytest.mark.parametrize("H,D", [(12, 64), (16, 128)])
+@pytest.mark.parametrize("C", [1, 256])
+def test_paged_sm90_body_full_multi_head(gen, H, D, C):
+    """B5's Hopper body at G = H / KV = 1 (GPT-2 small and 1.3B), decode and
+    a C = 256 chunk (two items of 128 flattened rows each), against the
+    plain version at the smoke's gates (PAGED_DECODE_TOL 4e-3,
+    PAGED_CHUNK_TOL 1e-2)."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_body, paged_chunk_attention, paged_chunk_attention_reference)
+
+    q, kp, vp, table, st = _mha_paged_case(gen, H, D, C)
+    assert paged_body(q) == "sm90"
+    before = dict(paged_chunk_attention.body_launches)
+    out = paged_chunk_attention(q, kp, vp, table, st)
+    ref = paged_chunk_attention_reference(q, kp, vp, table, st)
+    torch.cuda.synchronize()
+    assert paged_chunk_attention.body_launches["sm90"] == before["sm90"] + 1
+    assert torch.isfinite(out).all()
+    tol = 4e-3 if C == 1 else 1e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_full_multi_head_causal(gen, D):
+    """B1-B3 at H = KV (one query head per kv head), causal, T = 1024, on
+    the tensor-core bodies, against the plain versions (forward at the
+    file's bf16 bound, the backward's three gradients relative to their
+    largest value at it too)."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        flash_fwd, flash_fwd_reference)
+
+    H = 12 if D == 64 else 16
+    dt = torch.bfloat16
+    q, k, v, do = (_randn(gen, (2, 1024, H, D), dt) for _ in range(4))
+    before = [dict(f.body_launches)
+              for f in (flash_fwd, flash_bwd_dq, flash_bwd_dkv)]
+    o, lse = flash_fwd(q, k, v, causal=True)
+    ro, rlse = flash_fwd_reference(q, k, v, causal=True)
+    got = flash_bwd(q, k, v, o, lse, do, None, True)
+    want = flash_bwd_reference(q, k, v, o, lse, do, None, True)
+    torch.cuda.synchronize()
+    for f, b in zip((flash_fwd, flash_bwd_dq, flash_bwd_dkv), before):
+        assert f.body_launches["wgmma"] == b["wgmma"] + 1
+        assert f.body_launches["scalar"] == b["scalar"]
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dt]
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= TOL[dt], name
+
+
+def test_f32_matmul_tied_head_takes_the_transposed_view(gen):
+    """The GPT-2 head ``f32_matmul(x, wte.T)`` at 1.3B's widths: no copy of
+    the 206 MB table (the peak grows by less than a tenth of it), and the
+    values of the upcast product at test_f32_matmul_on_the_card's 1e-5."""
+    from deepspeed_tpu_torch.ops.losses import f32_matmul
+
+    wte = _randn(gen, (50257, 2048), torch.bfloat16)
+    x = _randn(gen, (8, 2048), torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = f32_matmul(x, wte.T)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert got.shape == (8, 50257) and got.dtype == torch.float32
+    assert extra < wte.numel() * wte.element_size() // 10, extra
+    assert _rel_err(got, x.float() @ wte.float().T) <= 1e-5
+
+
+def _gpt2_card(remat):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    return GPT2Config(vocab_size=512, dim=1024, n_layers=4, n_heads=16,
+                      max_seq_len=512, remat=remat)
+
+
+@pytest.mark.parametrize("name", ["offload_attn", "offload_dots_no_batch"])
+def test_offload_remat_on_the_card(gen, name, monkeypatch):
+    """The offload policies on bf16 GPT-2 blocks (head_dim 64, flash on the
+    tensor-core bodies): gradients bit-equal to the on-device twin's, the
+    moved bytes those the twin keeps, and a lower peak: the named (or
+    product) tensors sit in pinned host memory between the forward and the
+    backward, copied on the offload stream.  Every copy back to the card is
+    read: no prefetched buffer is dropped unread."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import remat
+    from deepspeed_tpu_torch.models.gpt2 import loss_fn
+    from deepspeed_tpu_torch.weights import init_params
+
+    calls = {"_copy_back": 0, "load": 0}
+    for method in calls:
+        def counted(self, _f=getattr(remat._Offloaded, method), _m=method):
+            calls[_m] += 1
+            return _f(self)
+        monkeypatch.setattr(remat._Offloaded, method, counted)
+
+    base = init_params(_gpt2_card("none"), gen, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (4, 513))).cuda()
+    out = {}
+    for policy in (remat.OFFLOAD[name], name):
+        params = {k: ({n: w.clone().requires_grad_(True)
+                       for n, w in v.items()} if isinstance(v, dict)
+                      else v.clone().requires_grad_(True))
+                  for k, v in base.items()}
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        remat.offload.reset()
+        loss = loss_fn(_gpt2_card(policy))(params, {"tokens": toks})
+        moved = remat.offload.bytes
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [params["wte"].grad, params["wpe"].grad,
+                 *(params["blocks"][n].grad for n in sorted(params["blocks"]))]
+        out[policy] = (loss.item(), grads, moved,
+                       torch.cuda.max_memory_allocated() - start)
+    (l0, g0, m0, p0), (l1, g1, m1, p1) = out[remat.OFFLOAD[name]], out[name]
+    assert l0 == l1 and m0 == 0
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    per_layer = (1024 + 4096) if name == "offload_attn" else \
+        (3 * 1024 + 1024 + 4 * 1024 + 1024)
+    assert m1 == 4 * 4 * 512 * per_layer * 2          # layers, B, T, bf16
+    assert p0 - p1 >= m1 // 2, (p0, p1, m1)
+    assert 0 < calls["load"] == calls["_copy_back"], calls

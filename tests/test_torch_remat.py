@@ -4,7 +4,11 @@ equal ``remat="none"`` in the port and JAX's under the same policy, at
 test_torch_train.py's f32 tolerance (1e-4 relative, 1e-6 absolute on the
 gradients); each policy really recomputes (the attention runs again in the
 backward) and the dot policies keep the products (no ``aten.mm`` runs
-again); the offload policies and unknown names raise."""
+again); unknown names raise.  The offload policies (``offload_attn``,
+``offload_dots_no_batch``) give gradients bit-equal to their on-device
+twins' (``save_attn``, ``save_dots_no_batch``) on llama-tiny and
+gpt2-tiny, move exactly the tensors the twin keeps (counted, with their
+bytes), and every named stage output is moved."""
 
 import dataclasses
 
@@ -16,9 +20,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from deepspeed_tpu import remat as jremat
+from deepspeed_tpu.models import gpt2 as jg
 from deepspeed_tpu.models import llama as jl
 from deepspeed_tpu_torch import remat as tremat
 from deepspeed_tpu_torch._tree import tree_leaves_with_path
+from deepspeed_tpu_torch.models import gpt2 as tg
 from deepspeed_tpu_torch.models import llama as tl
 from deepspeed_tpu_torch.weights import from_jax_params
 
@@ -87,7 +93,7 @@ class _CountMM(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("remat", ["none"] + PORTED)
+@pytest.mark.parametrize("remat", ["none"] + PORTED + list(tremat.OFFLOAD))
 def test_policies_recompute_what_they_do_not_keep(model, remat, monkeypatch):
     """Attention runs once per layer without remat and again in the
     backward under every policy; the backward's ``aten.mm`` count grows by
@@ -114,17 +120,104 @@ def test_policies_recompute_what_they_do_not_keep(model, remat, monkeypatch):
     # w2's output is saved by nothing), ``save_attn`` its two stages (wq,
     # wk, wv; w1, w3)
     per_layer = {"none": 14, "save_dots": 14, "save_dots_no_batch": 14,
-                 "full": 20, "save_attn": 19}[remat]
+                 "full": 20, "save_attn": 19}[tremat.OFFLOAD.get(remat,
+                                                                remat)]
     head = 2                        # the LM head's two backward products
     assert count.mm == cfg.n_layers * per_layer + head, count.mm
 
 
 @pytest.mark.parametrize("name", ["offload_attn", "offload_dots_no_batch"])
 def test_offload_policies_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tl.LlamaConfig.tiny(remat=name)
-    with pytest.raises(NotImplementedError):
-        tremat.checkpoint_block(lambda x: x, name)
+    """The offload policies no longer raise ``NotImplementedError``: they
+    are policies of their own, named beside their on-device twins."""
+    assert tremat.check(name) == name
+    assert tl.LlamaConfig.tiny(remat=name).remat == name
+    assert tg.GPT2Config.tiny(remat=name).remat == name
+    assert callable(tremat.checkpoint_block(lambda x: x, name))
+    assert tremat.OFFLOAD[name] in tremat.POLICIES
+    assert (tremat.policy(name) is None) == (name == "offload_attn")
+
+
+# (family, config, loss function, batch) for the offload tests: llama-tiny
+# with packed segments, and gpt2-tiny
+def _families(batch):
+    gcfg = jg.GPT2Config.tiny()
+    gp = jax.device_get(jg.init_params(jax.random.PRNGKey(1), gcfg))
+    return {"llama": (tl.LlamaConfig.tiny, tl.loss_fn, batch),
+            "gpt2": (tg.GPT2Config.tiny, tg.loss_fn,
+                     {"tokens": batch["tokens"]}, gp)}
+
+
+def _family_grads(family, model, remat):
+    _, jp, batch = model
+    make, loss_fn, b, *params = _families(batch)[family]
+    tp = from_jax_params(params[0] if params else jp, device="cpu")
+    for leaf in jax.tree.leaves(tp):
+        leaf.requires_grad_(True)
+    tremat.offload.reset()
+    loss = loss_fn(make(remat=remat))(tp, {k: torch.from_numpy(v)
+                                           for k, v in b.items()})
+    moved = (tremat.offload.tensors, tremat.offload.bytes)
+    loss.backward()
+    return loss.item(), {p: t.grad for p, t in tree_leaves_with_path(tp)}, \
+        moved
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2"])
+@pytest.mark.parametrize("name", ["offload_attn", "offload_dots_no_batch"])
+def test_offload_gradients_bit_equal_to_the_twin(model, family, name):
+    twin = tremat.OFFLOAD[name]
+    loss, got, moved = _family_grads(family, model, name)
+    tloss, want, tmoved = _family_grads(family, model, twin)
+    assert loss == tloss and got.keys() == want.keys()
+    for path, g in got.items():
+        assert torch.equal(g, want[path]), path
+    assert tmoved == (0, 0) and moved[0] > 0
+
+
+def _kept(family, name, B, T):
+    """The tensors the twin keeps per layer, as (count, elements): the two
+    named stage outputs, or the outputs of every 2-D weight product."""
+    if family == "llama":
+        c = tl.LlamaConfig.tiny()
+        d, f, kvd = c.dim, c.ffn_dim, c.n_kv_heads * c.head_dim
+        dots = [d, kvd, kvd, d, f, f, d]          # wq wk wv wo w1 w3 w2
+        named = [c.n_heads * c.head_dim, f]
+    else:
+        c = tg.GPT2Config.tiny()
+        d = c.dim
+        dots = [3 * d, d, 4 * d, d]               # qkv proj fc out
+        named = [d, 4 * d]
+    widths = named if name == "offload_attn" else dots
+    return c.n_layers * len(widths), c.n_layers * B * T * sum(widths)
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2"])
+@pytest.mark.parametrize("name", ["offload_attn", "offload_dots_no_batch"])
+def test_offload_moves_exactly_what_the_twin_keeps(model, family, name):
+    _, _, batch = model
+    B, T = batch["tokens"].shape
+    _, _, moved = _family_grads(family, model, name)
+    count, elements = _kept(family, name, B, T - 1)
+    assert moved == (count, 4 * elements)         # f32
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2"])
+def test_every_named_stage_output_is_moved(model, family, monkeypatch):
+    """Each tensor ``checkpoint_named`` marks under ``offload_attn`` is
+    saved for the backward through the offload hook, once, and nothing
+    else is: no saved tensor of the named set stays where it was."""
+    named, packed = [], []
+    mark, pack = tremat.offload.name, tremat.offload.pack
+    monkeypatch.setattr(tremat.offload, "name", lambda out: named.append(
+        out.untyped_storage().data_ptr()) or mark(out))
+    monkeypatch.setattr(tremat.offload, "pack", lambda t: packed.append(
+        t.untyped_storage().data_ptr()) or pack(t))
+    _family_grads(family, model, "offload_attn")
+    layers = tl.LlamaConfig.tiny().n_layers if family == "llama" \
+        else tg.GPT2Config.tiny().n_layers
+    assert len(named) == 2 * layers
+    assert sorted(packed) == sorted(named)
 
 
 def test_unknown_policy_raises_value_error_as_jax():

@@ -335,8 +335,10 @@ def test_unported_features_raise(model, over, match):
 
 
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        tl.LlamaConfig.tiny(remat="offload_attn")
+    # the offload remat policies are ported; an unknown policy still raises
+    assert tl.LlamaConfig.tiny(remat="offload_attn").remat == "offload_attn"
+    with pytest.raises(ValueError, match="remat"):
+        tl.LlamaConfig.tiny(remat="offload_everything")
     with pytest.raises(NotImplementedError, match="n_micro"):
         tl.loss_fn(tl.LlamaConfig.tiny(), n_micro=2)
     with pytest.raises(NotImplementedError, match="init thunks"):

@@ -36,6 +36,8 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402  (the gate, its f64 oracle, phase 6)
 
 
 def main() -> int:
@@ -46,9 +48,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_flash_bwd_bench: needs a CUDA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
     card = chip_smoke.card()
     gen = torch.Generator("cuda").manual_seed(0)
     failed = False
@@ -76,60 +75,6 @@ def main() -> int:
     return int(failed)
 
 
-def _bf16_order(x):
-    """bf16 -> int32 keys in the values' order (-0 and +0 both 0)."""
-    bits = x.view(torch.int16).to(torch.int32) & 0xFFFF
-    mag = bits & 0x7FFF
-    return torch.where(bits >= 0x8000, -mag, mag)
-
-
-def _bf16_from_order(key):
-    bits = torch.where(key < 0, 0x8000 | (-key), key)
-    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(
-        torch.int16).view(torch.bfloat16)
-
-
-def bf16_neighbour(got, exact):
-    """bool per element: the bf16 ``got`` is one of the two bf16 values
-    around the f64 ``exact`` (equal to it, or no bf16 value lies strictly
-    between them)."""
-    g = got.double()
-    step = torch.sign(exact - g).to(torch.int32)
-    nxt = _bf16_from_order(_bf16_order(got) + step).double()
-    return (g == exact) | ((g - exact) * (nxt - exact) < 0)
-
-
-def f64_oracle(q, k, v, o, lse, do, seg):
-    """(dq, dq_spec, dk, dv) in f64 from the kernels' own inputs: p =
-    exp(q.k * scale - lse), delta = rowsum(o * dO), ds = p * (dO.V^T -
-    delta) * scale, dq = ds.K, dk = ds^T.Q, dv = p^T.dO over each kv head's
-    group; dq_spec takes ds rounded to bf16 first."""
-    from deepspeed_tpu_torch.ops.attention_cuda import _live_mask
-
-    B, T, H, D = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = 1.0 / D ** 0.5
-    qd, od, dod = q.double(), o.double(), do.double()
-    kd = k.double().repeat_interleave(G, dim=2)
-    vd = v.double().repeat_interleave(G, dim=2)
-    s = torch.einsum("bthd,bshd->bhts", qd, kd) * scale
-    live = _live_mask(B, T, S, True, seg, q.device)
-    p = torch.exp(s - lse.double()[..., None]).masked_fill(~live, 0.0)
-    del s
-    delta = (od * dod).sum(-1).transpose(1, 2)
-    ds = p * (torch.einsum("bthd,bshd->bhts", dod, vd)
-              - delta[..., None]) * scale
-    dq = torch.einsum("bhts,bshd->bthd", ds, kd)
-    dq_spec = torch.einsum("bhts,bshd->bthd",
-                           ds.to(torch.bfloat16).double(), kd)
-    dk = torch.einsum("bhts,bthd->bshd", ds, qd).reshape(
-        B, S, KV, G, D).sum(3)
-    dv = torch.einsum("bhts,bthd->bshd", p, dod).reshape(
-        B, S, KV, G, D).sum(3)
-    return dq, dq_spec, dk, dv
-
-
 def over_gate_check(got, want, oracles, tol):
     """The elements of ``got`` over the gate (|got - want| > tol *
     max|want|): their count, and how many of them the kernel (``got``) and
@@ -140,9 +85,9 @@ def over_gate_check(got, want, oracles, tol):
         for name, exact in oracles.items():
             x = exact[over]
             out["kernel_neighbour_" + name] = int(
-                bf16_neighbour(got[over], x).sum())
+                chip_smoke.bf16_neighbour(got[over], x).sum())
             out["plain_neighbour_" + name] = int(
-                bf16_neighbour(want[over], x).sum())
+                chip_smoke.bf16_neighbour(want[over], x).sum())
     return out
 
 
@@ -178,7 +123,8 @@ def check_input(chip_smoke, q, k, v, do, nseg):
     e = {"segments": nseg, **{name: chip_smoke._rel(g, w) for name, g, w in
                               zip(("dq", "dk", "dv"), got, want)}}
     if max(e[g] for g in ("dq", "dk", "dv")) > tol:
-        dq, dq_spec, dk, dv = f64_oracle(q, k, v, o, lse, do, seg)
+        dq, dq_spec, dk, dv = chip_smoke.flash_bwd_f64_oracle(
+            q, k, v, o, lse, do, seg)
         e["elements"] = {
             "dq": over_gate_check(got[0], want[0], {
                 "exact": dq, "spec": dq_spec}, tol),
