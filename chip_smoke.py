@@ -88,12 +88,36 @@ and runs, in order:
    share of a profiled step; the offload run's state equals ``save_attn``'s
    bit for bit, it moves every layer's ``attn_out`` and ``mlp_out`` to
    pinned host memory, and its peak is lower by about those bytes.
+20. the kernels at Mixtral-8x7B's new shapes (B6 at V = 32000, B9 on one
+   layer's expert stack [8, 4096, 14336], B4 on the 939.5 M-element ``w1``
+   leaf of the 2-layer training run, B2/B3 at micro 4 x 1024 with 32 / 8
+   heads), then the kernel arms against the plain arms on a tiny f32
+   Mixtral: the engine (whole prompt, ``prefill_chunk``, ``decode_chunk``),
+   ``mixtral_generator`` and ``mixtral_paged_generator`` (card against
+   CPU), the engine against the paged generator, and the capacity-limited
+   top-2 gate at the training shape (dispatch equal, combine at 1e-6);
+21. Mixtral-8x7B at full width (4096, 32 heads of 128, 8 kv heads, 8
+   experts, top-2, V 32000, seeded weights): bf16 at 16 layers (the first
+   prefill's logits, kernel arm against plain arm, and the (token, layer)
+   routings that differ between them; the engine whole-prompt and chunked
+   over 8 prompts of 64-768 tokens; both generators on 8 prompts of 128;
+   a decode step's split between dequantization, the MoE FFN and
+   attention), then int8 weights at all 32 layers built a layer at a time
+   (``weights.init_quantized_params``: 226 B9 launches, the router exact):
+   the engine's traffic, a decode step's split, and one
+   ``init_inference(dtype="int8")`` forward over ``mixtral.forward_eval``;
+22. Mixtral-8x7B widths trained at 2 layers (3.16 B params) through the
+   capacity-limited top-2 gate (micro 4 x 1024, C = 1280,
+   ``remat="save_attn"``, fused Adam, ``has_aux=True``): the loss falls;
+   aux and z losses and expert load per step, ms/step, peak memory,
+   tokens/s and MFU over the active top-2 FLOPs, a profiled step's idle
+   share and its dispatch / combine and expert products' shares.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
 int8 serving runs and the ``init_inference`` forward of phase 14, the
-training run of phase 8, the four runs of phase 15, and the GPT-2 paths of
-phases 17-19) counts the launches
+training run of phase 8, the four runs of phase 15, the GPT-2 paths of
+phases 17-19, and the Mixtral paths of phases 21-22) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -2501,20 +2525,21 @@ def phase_gpt2_kernels(gen):
     return out
 
 
-def _gpt2_flash_bwd(gen, H, D, B=8, T=1024):
-    """B2 and B3 at GPT-2's training shape (micro 8 x 1024, causal, one
-    query head per kv head) against the plain backward: B2's delta against
-    ``flash_delta``, dq, dk and dv at the flash backward gate, where every
-    element over it must be a bf16 neighbour of the f64 oracle (C-f6); each
-    timed on the device clock beside its bound.  Returns {kernel name:
-    case}."""
+def _gpt2_flash_bwd(gen, H, D, B=8, T=1024, KV=None, tag="gpt2 kernels"):
+    """B2 and B3 at a training shape (GPT-2's: micro 8 x 1024, causal, one
+    query head per kv head; ``KV`` kv heads for GQA) against the plain
+    backward: B2's delta against ``flash_delta``, dq, dk and dv at the flash
+    backward gate, where every element over it must be a bf16 neighbour of
+    the f64 oracle (C-f6); each timed on the device clock beside its
+    bound.  Returns {kernel name: case}."""
     from deepspeed_tpu_torch.ops.attention_cuda import (
         flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
         flash_delta, flash_fwd)
 
     dt = torch.bfloat16
-    q, k, v, do = (torch.randn((B, T, H, D), generator=gen,
-                               device="cuda").to(dt) for _ in range(4))
+    KV = KV or H
+    q, k, v, do = (torch.randn((B, T, n, D), generator=gen,
+                               device="cuda").to(dt) for n in (H, KV, KV, H))
     wgmma = flash_bwd_body(q) == "wgmma"
     o, lse = flash_fwd(q, k, v)
     dq, delta = flash_bwd_dq(q, k, v, o, do, lse)
@@ -2545,9 +2570,10 @@ def _gpt2_flash_bwd(gen, H, D, B=8, T=1024):
     lib = sdpa and device_ms(sdpa, iters=10)
     del sdpa
     pairs = T * (T + 1) // 2
-    # q, do, k, v read, two [B, T, H, D] tensors more each (B2 reads O and
-    # writes dq, B3 writes dk and dv), and lse and delta in f32
-    io = 2 * 4 * B * T * H * D + 2 * 2 * B * T * H * D + 8 * B * H * T
+    # q, do, k, v read, two tensors more each (B2 reads O and writes dq, B3
+    # writes dk and dv), and lse and delta in f32
+    io = (2 * B * T * D * (2 * H + 2 * KV) + 2 * B * T * D * (H + KV)
+          + 8 * B * H * T)
     bounds = {"flash_bwd_dq": bound(io, 6 * D * pairs * H * B
                                     + 2 * B * T * H * D, BF16_FLOPS_PER_S),
               "flash_bwd_dkv": bound(io, 8 * D * pairs * H * B,
@@ -2573,7 +2599,7 @@ def _gpt2_flash_bwd(gen, H, D, B=8, T=1024):
         if name == "flash_bwd_dq":
             case["delta_rel"] = delta_rel
         out[name] = case
-        log(f"[gpt2 kernels] {name} B={B} T={T} H=KV={H} D={D} bf16 causal:"
+        log(f"[{tag}] {name} B={B} T={T} H={H} KV={KV} D={D} bf16 causal:"
             f" tensor-core body {wgmma}; rel err {case['rel_err']:.3e} (tol "
             f"{FLASH_BWD_REL_TOL}) max_abs_err {case['max_abs_err']:.3e}; "
             f"{case['over_gate']} elements over the gate, each a bf16 "
@@ -2686,7 +2712,8 @@ def phase_gpt2_identity(fns):
 GPT2_NEW = 32
 
 
-def _gpt2_generate(build, params, cfg, toks, path, fns, card_line, **kw):
+def _gpt2_generate(build, params, cfg, toks, path, fns, card_line,
+                   tag="gpt2 serving", **kw):
     """One generator's greedy run of ``toks`` on the card: tokens/s, the
     ms per token step (host clock ending in a sync), launches and the
     first new tokens."""
@@ -2707,7 +2734,7 @@ def _gpt2_generate(build, params, cfg, toks, path, fns, card_line, **kw):
     m = {"wall_s": wall, "tokens_per_s": B * GPT2_NEW / wall,
          "ms_per_step": wall * 1e3 / GPT2_NEW,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"[gpt2 serving] {path} B={B} T={T} new={GPT2_NEW}: valid {ok}; "
+    log(f"[{tag}] {path} B={B} T={T} new={GPT2_NEW}: valid {ok}; "
         f"{m['tokens_per_s']:.2f} tokens/s, {m['ms_per_step']:.2f} ms per "
         f"token step (prefill included), peak_mem {m['peak_mem_gb']:.2f} GB "
         f"on {card_line}; kernel launches {used}")
@@ -3094,6 +3121,743 @@ def phase_gpt2_train(fns, card_line):
     return launches, runs
 
 
+# ------------------------------------------------------------ phase 20
+# Mixtral-8x7B: full width (4096, 32 heads of 128, 8 kv heads, 8 experts,
+# top-2, V 32000); bf16 serving cut to 16 layers (the 93.4 GB bf16 model
+# does not fit the card), int8 serving at all 32, training at 2
+MIXTRAL_BF16_LAYERS, MIXTRAL_TRAIN_LAYERS = 16, 2
+MIXTRAL_NEW = 32
+# phase 21's first prefill, the kernel arm's logits against the plain
+# arm's (B1 and B5 against the reference attention and the xla paged arm,
+# bf16, 16 layers), on the rows whose own top-2 routing agrees in every
+# layer: the largest |difference| over the largest |logit|.  A bf16
+# near-tie flip (C-w2) moves its row by O(1); it is counted, not gated
+MIXTRAL_LOGITS_REL_TOL = 5e-2
+# gate values on the card against the CPU's: f32 softmax / logsumexp of
+# two devices, a few ulps apart
+GATE_TOL = 1e-6
+
+
+def phase_mixtral_kernels(gen):
+    """The kernels at Mixtral's new shapes, each against its plain version
+    and timed on the device clock beside its bound and library call: B6 at
+    V = 32000 on ``logits[:, -1]`` rows of [8, 2, V] (ties planted); B9 on
+    one layer's expert stack ``w1[l]`` = [8, 4096, 14336] bf16 (what the
+    int8 build quantizes a launch at a time), bit for bit; B4 on the
+    training run's largest leaf, ``w1`` at 2 layers = [2, 8, 4096, 14336]
+    f32 (939.5 M elements), beside ``_fused_adamw_``; B2/B3 at the training
+    shape [4, 1024, 32 / 8 heads, 128] causal.  Returns {kernel name: its
+    Mixtral cases}."""
+    from deepspeed_tpu_torch.ops.adam_cuda import (adam_scalars, adam_update,
+                                                   adam_update_reference)
+    from deepspeed_tpu_torch.ops.quant_cuda import (quant_body, quantize_rows,
+                                                    quantize_rows_reference)
+    from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
+                                                       greedy_rows_reference)
+
+    out = {"greedy_argmax": {}, "quantize": {}, "fused_adam": {},
+           "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    ok = True
+    V = 32000
+    for dtype in (torch.float32, torch.bfloat16):
+        last = torch.randn((8, 2, V), generator=gen, device="cuda").to(
+            dtype)[:, -1]
+        for b in range(8):
+            last[b, [b, V // 3 + b, V // 2, V - 1 - b]] = 30.0
+        _zero([fused_greedy_rows])
+        got = fused_greedy_rows(last)
+        exact = bool(torch.equal(got, greedy_rows_reference(last))
+                     and torch.equal(got.long(), torch.argmax(last, -1))
+                     and got.tolist() == list(range(8))
+                     and fused_greedy_rows.body_launches["row"] == 0)
+        case = _greedy_case(fused_greedy_rows, last.contiguous())
+        case["exact"] = exact
+        key = f"B8 V{V} {str(dtype)[6:]} rows logits[:, -1]"
+        out["greedy_argmax"][key] = case
+        log(f"[mixtral kernels] greedy {key}: exact {exact} (tol: exact), "
+            f"cluster body; from HBM device {case['device_ms']} ms (bound "
+            f"{case['bound_ms']:.5f} ms, share {case['bound_share']}); argmax"
+            f" device {case['library_device_ms']} ms; plain "
+            f"{case['plain_ms']:.4f} ms")
+        ok = ok and exact
+
+    E, d, f = 8, 4096, 14336
+    w = torch.empty((E, d, f), dtype=torch.bfloat16, device="cuda")
+    for m in w:
+        m.normal_(generator=gen)
+    rows = w.view(-1, 128)
+    G, n = rows.shape[0], w.numel()
+    vec = quant_body(rows) == "vec"
+    q, sc = quantize_rows(rows)
+    exact = True
+    for lo in range(0, G, 1 << 22):      # plain version in slices (memory)
+        rq, rs = quantize_rows_reference(rows[lo:lo + (1 << 22)])
+        exact = exact and torch.equal(q[lo:lo + (1 << 22)], rq) \
+            and torch.equal(sc[lo:lo + (1 << 22)], rs)
+        del rq, rs
+    del q, sc
+    dev = device_ms(lambda: quantize_rows(rows), iters=10)
+    plain = time_ms(lambda: quantize_rows_reference(rows), iters=2, warmup=1)
+    b_ms, b_by = bound(n * 2 + n + G * 4, 5 * n, F32_FLOPS_PER_S)
+    key = "expert slice w1[l] [8, 4096, 14336] bf16"
+    out["quantize"][key] = {"exact": exact, "vec": vec, "device_ms": dev,
+                            "plain_ms": plain, "bound_ms": b_ms,
+                            "bound_by": b_by, "bound_share": _share(b_ms, dev),
+                            "library_ms": None}
+    log(f"[mixtral kernels] B9 {key}: bit-equal to the plain version {exact}"
+        f", vector body {vec}; device {dev} ms (bound {b_ms:.4f} ms {b_by},"
+        f" share {_share(b_ms, dev)}); plain {plain:.2f} ms")
+    ok = ok and exact and vec
+    del w, rows
+    torch.cuda.empty_cache()
+
+    n = MIXTRAL_TRAIN_LAYERS * E * d * f
+    c1, c2 = adam_scalars(0.9, 0.999, 9)
+    g = torch.randn((n,), generator=gen, device="cuda")
+    p = torch.randn((n,), generator=gen, device="cuda")
+    m = torch.randn((n,), generator=gen, device="cuda") * 0.1
+    v = torch.rand((n,), generator=gen, device="cuda") * 0.01
+    got = adam_update(g, m, v, p, c1, c2, 1e-3, wd=0.1)
+    err = 0.0
+    for lo in range(0, n, 1 << 28):     # plain version in slices (memory)
+        sl = slice(lo, lo + (1 << 28))
+        want = adam_update_reference(g[sl], m[sl], v[sl], p[sl], c1, c2,
+                                     1e-3, wd=0.1)
+        err = max(err, max((a[sl] - b).abs().max().item()
+                           for a, b in zip(got, want)))
+        del want
+    del got
+    fn = functools.partial(adam_update, g, m, v, p, c1, c2, 1e-3, wd=0.1)
+    dev = device_ms(fn, iters=5)
+    plain = time_ms(lambda: adam_update_reference(g, m, v, p, c1, c2, 1e-3,
+                                                  wd=0.1), iters=2, warmup=1)
+    del fn, g, p, m, v
+    torch.cuda.empty_cache()
+    library, library_dev = _fused_adamw_ms(n, gen, device_clock=True)
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(n * (4 + 4 * 3 + 4 * 3), 15 * n, F32_FLOPS_PER_S)
+    key = "w1 at 2 layers [2, 8, 4096, 14336] f32"
+    out["fused_adam"][key] = {
+        "max_abs_err": err, "tol": ADAM_TOL, "device_ms": dev,
+        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "bound_share": _share(b_ms, dev),
+        "library_ms": library, "library_device_ms": library_dev}
+    log(f"[mixtral kernels] B4 {key} ({n} elements): max_abs_err {err:.3e} "
+        f"(tol {ADAM_TOL}); device {dev} ms (bound {b_ms:.4f} ms {b_by}, "
+        f"share {_share(b_ms, dev)}); plain {plain:.2f} ms; _fused_adamw_ "
+        f"{library} ms (device {library_dev})")
+    ok = ok and err <= ADAM_TOL
+
+    for name, case in _gpt2_flash_bwd(gen, 32, 128, B=4, T=1024, KV=8,
+                                      tag="mixtral kernels").items():
+        out[name]["B4 T1024 H32 KV8 D128 causal"] = case
+        ok = ok and case["wgmma"] and case["over_gate_faithful"] and \
+            case.get("delta_rel", 0) <= FLASH_DELTA_REL_TOL
+    if not ok:
+        raise SystemExit("phase 20: a kernel disagrees at Mixtral's shapes")
+    return out
+
+
+def phase_mixtral_identity(fns):
+    """Kernel arms vs plain arms on a tiny f32 Mixtral (dim 64, 4 experts,
+    top-2; card against CPU):
+    the engine with whole-prompt prefill, ``prefill_chunk`` and
+    ``decode_chunk``; ``mixtral_generator`` (B6) and
+    ``mixtral_paged_generator`` (B1, B5, B6); the engine against the paged
+    generator; greedy tokens identical on every pair, no leaks.  Then the
+    capacity gate at the training shape (4096 tokens, 8 experts, top-2,
+    C = 1280): the dispatch on the card equal to the CPU's, the combine and
+    the losses at ``GATE_TOL``."""
+    from deepspeed_tpu_torch._tree import tree_map
+    from deepspeed_tpu_torch.inference.generation import (
+        mixtral_generator, mixtral_paged_generator)
+    from deepspeed_tpu_torch.inference.serving import mixtral_serving_engine
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+    from deepspeed_tpu_torch.parallel.moe import capacity, top_k_gating
+    from deepspeed_tpu_torch.weights import init_params
+
+    # dim 64: head_dim 16, the smallest the CUDA attention kernels take
+    # (the JAX preset's dim 32 gives 8, which the CPU tests run)
+    cfg = MixtralConfig.tiny(dim=64)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(20),
+                         device="cuda", dtype=torch.float32)
+    host = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(20)
+    prompts = {f"m{i}": rng.integers(1, cfg.vocab_size,
+                                     rng.integers(3, 40)).tolist()
+               for i in range(6)}
+    opts = dict(max_batch=3, page_size=8, num_pages=48, max_seq=64,
+                prefill_bucket=8, cache_dtype=torch.float32)
+
+    def counts():
+        return {n: f.launches for n, f in fns.items()}
+
+    for label, extra in (("whole prompt", {}),
+                         ("prefill_chunk=8", {"prefill_chunk": 8}),
+                         ("decode_chunk=4", {"decode_chunk": 4})):
+        outs, used = [], []
+        for p, dev in ((params, "cuda"), (host, "cpu")):
+            _zero(fns.values())
+            eng = mixtral_serving_engine(p, cfg, device=dev, **extra, **opts)
+            for rid, prompt in prompts.items():
+                eng.submit(rid, prompt, max_new_tokens=12)
+            outs.append(eng.run())
+            used.append(counts())
+            _check_bodies(f"mixtral identity {label}", hopper=False,
+                          record=False)
+            if eng.check_leaks():
+                raise SystemExit(f"mixtral identity: leaks "
+                                 f"{eng.check_leaks()}")
+        same = outs[0] == outs[1]
+        log(f"[mixtral identity] engine mixtral-tiny f32 {label}: card "
+            f"(kernels) == CPU (plain versions): {same} ({len(outs[0])} "
+            f"requests); launches card {used[0]} CPU {used[1]}")
+        if not same or any(used[1].values()):
+            raise SystemExit("mixtral identity: the engine's arms differ")
+        _check_launches(f"mixtral identity {label}", used[0],
+                        [n for n in SERVING_KERNELS
+                         if "prefill_chunk" not in extra or n != "flash_fwd"])
+    toks = rng.integers(1, cfg.vocab_size, (3, 11))
+    gen_out = {}
+    for label, build, want in (
+            ("mixtral_generator", mixtral_generator, ("greedy_argmax",)),
+            ("mixtral_paged_generator", mixtral_paged_generator,
+             SERVING_KERNELS)):
+        kw = {"page_size": 8} if label == "mixtral_paged_generator" else {}
+        _zero(fns.values())
+        card_out = build(params, cfg, cache_dtype=torch.float32,
+                         device="cuda", **kw).generate(
+                             toks, max_new_tokens=12).cpu()
+        used = counts()
+        _check_bodies(f"mixtral identity {label}", hopper=False,
+                      record=False)
+        cpu_out = build(host, cfg, cache_dtype=torch.float32, device="cpu",
+                        **kw).generate(toks, max_new_tokens=12)
+        same = torch.equal(card_out, cpu_out)
+        log(f"[mixtral identity] {label} mixtral-tiny f32 B=3 T=11 new=12: "
+            f"card (kernels) == CPU (plain versions): {same}; launches "
+            f"{used}")
+        if not same:
+            raise SystemExit(f"mixtral identity: {label} differs from its "
+                             "plain arm")
+        _check_launches(f"mixtral identity {label}", used, want)
+        gen_out[label] = card_out
+    eng = mixtral_serving_engine(params, cfg, **opts)
+    for i, p in enumerate(toks):
+        eng.submit(i, p.tolist(), max_new_tokens=12)
+    out = eng.run()
+    same = all(out[i] == gen_out["mixtral_paged_generator"][i].tolist()
+               for i in range(3)) and eng.check_leaks() == []
+    log(f"[mixtral identity] engine == mixtral_paged_generator on the same "
+        f"3 prompts: {same}")
+    if not same:
+        raise SystemExit("mixtral identity: the engine and the paged "
+                         "generator differ")
+
+    N, E = 4096, 8
+    cap = capacity(N, E, 2, 1.25)
+    logits = torch.randn((N, E), generator=torch.Generator("cuda")
+                         .manual_seed(20), device="cuda") * 2.0
+    logits[:, 0] += 1.0                 # a skew, so an expert overflows
+    got = top_k_gating(logits, 2, cap)
+    want = top_k_gating(logits.cpu(), 2, cap)
+    dispatch_equal = torch.equal(got.dispatch.cpu(), want.dispatch)
+    errs = {name: (getattr(got, name).cpu() - getattr(want, name)).abs()
+            .max().item()
+            for name in ("combine", "aux_loss", "z_loss", "expert_load")}
+    kept = int(want.dispatch.sum().item())
+    log(f"[mixtral identity] capacity gate N={N} E={E} top-2 C={cap}: "
+        f"dispatch card == CPU {dispatch_equal} ({kept} of {2 * N} choices "
+        f"kept); max |card - CPU| {errs} (tol {GATE_TOL})")
+    if not dispatch_equal or max(errs.values()) > GATE_TOL or kept >= 2 * N:
+        raise SystemExit("mixtral identity: the gate on the card differs "
+                         "from the CPU's")
+
+
+def _record(module, name, label):
+    """Wrap ``module.name`` so that each call runs under a profiler range
+    ``label``; returns a function that puts the original back."""
+    from torch.profiler import record_function
+
+    orig = getattr(module, name)
+
+    def wrapped(*a, **k):
+        with record_function(label):
+            return orig(*a, **k)
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
+def _range_ms(prof, label) -> float:
+    """Device time of the kernels launched inside the ranges ``label`` (the
+    host-side ranges: each holds its kernels' device time)."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key == label and e.device_type == DeviceType.CPU:
+            total += getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def _mixtral_decode_split(params, cfg, tag, card_line):
+    """One decode step of 8 rows (histories of 128-896 tokens) through
+    ``mixtral.forward_paged`` under ``torch.profiler``: the device time of
+    the step and of its parts, dequantization (``quantized.take``: every
+    layer's leaves, to bf16), the MoE FFN (router, the 8 experts' products
+    on every token, the combine) and attention (K/V page writes and B5)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference import kernels
+    from deepspeed_tpu_torch.inference.kernels import PagedKVCache
+    from deepspeed_tpu_torch.models import llama, mixtral
+
+    B, ps, max_seq = 8, 16, 1024
+    cache = PagedKVCache.alloc(cfg.n_layers, cfg.n_kv_heads,
+                               B * (max_seq // ps) + 1, ps, cfg.head_dim, B,
+                               max_seq, device="cuda")
+    cache.seq_lens.copy_(torch.arange(128, 1024, 112, dtype=torch.int32))
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    with torch.inference_mode():
+        mixtral.forward_paged(params, tok, cfg, cache)      # warm
+        torch.cuda.synchronize()
+        undo = [_record(llama, "take", "dequant"),
+                _record(mixtral, "_moe_ffn_dense", "moe"),
+                _record(kernels, "paged_attention_step", "attention")]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                ts = time.perf_counter()
+                mixtral.forward_paged(params, tok, cfg, cache)
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - ts) * 1e3
+        finally:
+            for u in undo:
+                u()
+    labels = ("dequant", "moe", "attention")
+    split = {k: _range_ms(prof, k) for k in labels}
+    # the device-side entries of the ranges themselves span their kernels
+    # and the gaps between them: only the kernels, copies and sets count
+    evs = [e for e in _device_events(prof) if e.key not in labels]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    out = {"host_ms": host, "device_ms": busy, **{f"{k}_ms": v
+                                                  for k, v in split.items()},
+           "launches": sum(e.count for e in evs),
+           "top": [(e.key[:50], e.count,
+                    round(e.self_device_time_total / 1e3, 3))
+                   for e in sorted(evs, key=lambda e:
+                                   -e.self_device_time_total)[:6]]}
+    log(f"[mixtral split] {tag} decode step B=8: host {host:.2f} ms, device "
+        f"{busy:.2f} ms ({out['launches']} kernels): dequantization "
+        f"{split['dequant']:.2f} ms, MoE FFN {split['moe']:.2f} ms, "
+        f"attention {split['attention']:.2f} ms, the rest "
+        f"{busy - sum(split.values()):.2f} ms; top device time {out['top']} "
+        f"on {card_line}")
+    del cache
+    return out
+
+
+def _first_prefill_check(params, cfg, prompt):
+    """The first prefill through both arms: the kernels (B1 prefill, the
+    paged writes) against the plain arm (the reference attention, the
+    ``xla`` paged arm), bf16.  Returns the relative error over the rows
+    whose own routing agrees in every layer, that over every row, and the
+    (token, layer) routings that differ."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.kernels import PagedKVCache
+    from deepspeed_tpu_torch.models import mixtral
+
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    T = toks.shape[1]
+    logits, routes = [], []
+    top_k = mixtral._top_k
+    for arm_cfg, pk in ((cfg, None),
+                        (dataclasses.replace(cfg, attn_impl="reference"),
+                         "xla")):
+        picks = []
+        mixtral._top_k = lambda lg, k: picks.append(top_k(lg, k)) or picks[-1]
+        try:
+            cache = PagedKVCache.alloc(cfg.n_layers, cfg.n_kv_heads,
+                                       -(-T // 16) + 1, 16, cfg.head_dim, 1,
+                                       T, device="cuda")
+            with torch.inference_mode():
+                out, _ = mixtral.forward_paged(params, toks, arm_cfg, cache,
+                                               paged_kernel=pk)
+            logits.append(out[0].float())
+        finally:
+            mixtral._top_k = top_k
+        routes.append(torch.stack(picks).sort(-1).values)     # [L, T, k]
+        del cache
+    differ = (routes[0] != routes[1]).any(-1)                 # [L, T]
+    clean = ~differ.any(0)
+    diff = (logits[0] - logits[1]).abs()
+    scale = logits[1].abs().max().item()
+    rel_clean = (diff[clean].max().item() / scale) if clean.any() else None
+    return rel_clean, diff.max().item() / scale, int(differ.sum()), \
+        int(clean.sum()), T
+
+
+def phase_mixtral_serving(fns, card_line):
+    """Mixtral-8x7B at full width, seeded weights.  bf16 at 16 layers
+    (47 GB): the first prefill's logits through the kernel arm against the
+    plain arm; the engine (max_batch 8, pages of 16, max_seq 1024) over 8
+    prompts of 64-768 tokens, 32 new tokens each, whole-prompt and
+    ``prefill_chunk=256``; ``mixtral_generator`` and
+    ``mixtral_paged_generator`` on 8 prompts of 128; a decode step's
+    split.  Then int8 at all 32 layers (48.2 GB), built a layer at a time
+    by ``weights.init_quantized_params`` (B9 per layer and leaf), the
+    router kept exact: the engine's traffic whole and chunked, a decode
+    step's split, and one ``init_inference(dtype="int8")`` forward over
+    ``mixtral.forward_eval``."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.generation import (
+        mixtral_generator, mixtral_paged_generator)
+    from deepspeed_tpu_torch.inference.quantized import (QuantizedTensor,
+                                                         param_bytes)
+    from deepspeed_tpu_torch.inference.serving import (MIXTRAL_INT8_SKIP,
+                                                       mixtral_serving_engine)
+    from deepspeed_tpu_torch.models import mixtral
+    from deepspeed_tpu_torch.weights import (init_params,
+                                             init_quantized_params)
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              n_layers=MIXTRAL_BF16_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(21),
+                         device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[mixtral serving] mixtral_8x7b layers={cfg.n_layers} (of 32) dim="
+        f"{cfg.dim} heads={cfg.n_heads}/{cfg.n_kv_heads} experts="
+        f"{cfg.num_experts} top_k={cfg.top_k} vocab={cfg.vocab_size} params="
+        f"{mixtral.param_count(cfg)} bf16 random seeded weights "
+        f"({param_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(21)
+    lens = np.linspace(64, 768, 8).astype(int).tolist()
+    prompts = {f"x{i}": rng.integers(1, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(lens)}
+    rel_clean, rel_all, flips, clean, T = _first_prefill_check(
+        params, cfg, prompts["x7"])
+    log(f"[mixtral serving] first prefill T={T}, kernel arm vs plain arm: "
+        f"max |diff| / max |logit| {rel_clean} over the {clean} rows routed "
+        f"alike in every layer (tol {MIXTRAL_LOGITS_REL_TOL}), {rel_all:.4e} "
+        f"over all rows; {flips} of {T * cfg.n_layers} (token, layer) top-2 "
+        f"routings differ between the arms (bf16 near-ties, counted)")
+    if rel_clean is None or rel_clean > MIXTRAL_LOGITS_REL_TOL:
+        raise SystemExit("phase 21: the kernel arm's first prefill differs "
+                         "from the plain arm's")
+    opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
+                cache_dtype=torch.bfloat16)
+    launches, results = {}, {"first_prefill": {
+        "rel_err_clean_rows": rel_clean, "rel_err_all_rows": rel_all,
+        "routing_flips": flips, "clean_rows": clean, "T": T}}
+    for chunk in (0, 256):
+        path = f"mixtral-8x7b-16L bf16 serving prefill_chunk={chunk}"
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fns.values())
+        out, leaks, m = serve(params, cfg, prompts, MIXTRAL_NEW,
+                              prefill_chunk=chunk, **opts)
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        done = _valid(out, prompts, MIXTRAL_NEW, cfg.vocab_size)
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[mixtral serving] bf16 prefill_chunk={chunk} prompts={lens} "
+            f"new={MIXTRAL_NEW}: finished {len(out)}/8 all_valid {done} "
+            f"check_leaks {leaks}; tokens/s {m['tokens_per_s']:.2f} "
+            f"ttft_mean {m['ttft_s_mean'] * 1e3:.1f} ms ms/decode_step "
+            f"{m['ms_per_decode_step']} peak_mem {m['peak_mem_gb']:.2f} GB "
+            f"on {card_line}; kernel launches {launches[path]}")
+        if not done or leaks:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+        results[path] = m
+    toks = rng.integers(1, cfg.vocab_size, (8, 128))
+    for label, build, want in (
+            ("mixtral_generator", mixtral_generator, ("greedy_argmax",)),
+            ("mixtral_paged_generator", mixtral_paged_generator,
+             SERVING_KERNELS)):
+        path = f"mixtral-8x7b-16L {label}"
+        _, launches[path], results[path] = _gpt2_generate(
+            build, params, cfg, toks, path, fns, card_line,
+            tag="mixtral serving")
+        _check_launches(path, launches[path], want)
+    results["bf16 decode split"] = _mixtral_decode_split(
+        params, cfg, "bf16 16 layers", card_line)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = mixtral.MixtralConfig.mixtral_8x7b()
+    path = "mixtral-8x7b int8 build"
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fns.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = init_quantized_params(
+        cfg, torch.Generator("cuda").manual_seed(21), MIXTRAL_INT8_SKIP,
+        device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches[path] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    gates_exact = not isinstance(qparams["blocks"]["gate"], QuantizedTensor)
+    w1 = qparams["blocks"]["w1"]
+    stacked = 7 * cfg.n_layers + 2       # 7 matrix leaves a layer, 2 tables
+    results[path] = {"build_s": build_s,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "resident_gb": param_bytes(qparams) / 1e9}
+    log(f"[mixtral int8] mixtral_8x7b all {cfg.n_layers} layers, params "
+        f"{mixtral.param_count(cfg)}: built a layer at a time in {build_s:.1f}"
+        f" s, peak {results[path]['peak_gb']:.2f} GB, resident "
+        f"{results[path]['resident_gb']:.2f} GB (w1 codes {tuple(w1.q.shape)}"
+        f" = {w1.q.numel()} elements, scales {tuple(w1.scale.shape)}); "
+        f"router (gate) exact {gates_exact}; B9 launches "
+        f"{launches[path]['quantize']} (expected {stacked}) on {card_line}")
+    if not gates_exact or launches[path]["quantize"] != stacked:
+        raise SystemExit("phase 21: the int8 build is wrong")
+    _check_launches(path, launches[path], ("quantize",))
+    eng = None
+    for chunk in (0, 256):
+        path = f"mixtral-8x7b int8 serving prefill_chunk={chunk}"
+        eng = mixtral_serving_engine(qparams, cfg, weight_dtype="int8",
+                                     prefill_chunk=chunk, **opts)
+        if isinstance(eng.params["blocks"]["gate"], QuantizedTensor):
+            raise SystemExit("phase 21: the int8 engine quantized the router")
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fns.values())
+        out, m = drive(eng, prompts, MIXTRAL_NEW)
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        leaks = eng.check_leaks()
+        done = _valid(out, prompts, MIXTRAL_NEW, cfg.vocab_size)
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[mixtral int8] prefill_chunk={chunk}: finished {len(out)}/8 "
+            f"all_valid {done} check_leaks {leaks}; tokens/s "
+            f"{m['tokens_per_s']:.2f} ttft_mean {m['ttft_s_mean'] * 1e3:.1f}"
+            f" ms ms/decode_step {m['ms_per_decode_step']} peak_mem "
+            f"{m['peak_mem_gb']:.2f} GB on {card_line}; kernel launches "
+            f"{launches[path]}")
+        if not done or leaks:
+            raise SystemExit(f"{path} failed")
+        _check_launches(path, launches[path],
+                        [n for n in SERVING_KERNELS
+                         if chunk == 0 or n != "flash_fwd"])
+        results[path] = m
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["int8 decode split"] = _mixtral_decode_split(
+        qparams, cfg, "int8 32 layers", card_line)
+    torch.cuda.empty_cache()
+    # init_inference(dtype="int8") over the int8 tree: the leaves the
+    # engine keeps exact quantize there, as JAX's engine quantizes every
+    # ndim >= 2 leaf (gate, attn_norm, mlp_norm: 3 B9 launches)
+    toks1 = torch.tensor([prompts["x7"]], dtype=torch.long, device="cuda")
+    path = "mixtral-8x7b int8 init_inference"
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fns.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ie = init_inference(apply_fn=functools.partial(mixtral.forward_eval,
+                                                   cfg=cfg),
+                        params=qparams, dtype="int8")
+    logits = ie(toks1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches[path] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    ok = (tuple(logits.shape) == (1, toks1.shape[1], cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()))
+    log(f"[mixtral int8] init_inference(dtype=int8) with mixtral.forward_eval"
+        f", one forward of [1, {toks1.shape[1]}]: {ms:.1f} ms (build "
+        f"included), logits finite of shape {ok}, peak_mem "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; B9 launches "
+        f"{launches[path]['quantize']} on {card_line}; kernel launches "
+        f"{launches[path]}; phase 21 took {time.perf_counter() - t_phase:.1f}"
+        " s")
+    del ie, logits, qparams, w1
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok or launches[path]["quantize"] != 3:
+        raise SystemExit(f"{path} failed")
+    _check_launches(path, launches[path], ("flash_fwd", "quantize"))
+    return launches, results
+
+
+# ------------------------------------------------------------ phase 22
+# Mixtral-8x7B widths at 2 layers: micro 4 x 1024 (+1) tokens, capacity
+# factor 1.25 (C = 1280 of 4096 tokens), remat="save_attn"
+MIXTRAL_TRAIN_STEPS, MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_T = 5, 4, 1024
+
+
+def _mixtral_flops_per_sample(cfg, T):
+    """Active model FLOPs of one training sample of T tokens (3x the
+    forward; the remat recompute not counted): per token and layer the
+    attention projections, the router and the top-k experts' three
+    products (k of E, not the E x C rows the capacity dispatch computes,
+    nor the dispatch and combine products), the LM head, and causal
+    attention over the row."""
+    d, f, L, V = cfg.dim, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    per_token = L * (2 * d * d + 2 * d * kvd + d * cfg.num_experts
+                     + cfg.top_k * 3 * d * f) + d * V
+    attn = L * 2 * 2 * cfg.n_heads * cfg.head_dim * (T * (T + 1) // 2)
+    return 3 * (2 * T * per_token + attn)
+
+
+def _moe_product_ms(cfg, N, cap):
+    """Device ms a ``save_attn`` training step spends in the MoE layer's
+    products, each timed alone on the device clock at the step's shapes
+    and multiplied by its count a step: the dispatch and combine products
+    (2-D, [N, E*C] against [.., d]: per layer two in the forward, two in
+    the recompute, three in the backward, the dispatch tensor taking no
+    gradient) and the expert products (batched over E, [E, C, d] against
+    [E, d, f] or [E, f, d]: three, three and six)."""
+    E, d, f, L = cfg.num_experts, cfg.dim, cfg.ffn_dim, cfg.n_layers
+    dt = torch.bfloat16
+    a = torch.randn((N, E * cap), device="cuda").to(dt)
+    x = torch.randn((N, d), device="cuda").to(dt)
+    h = torch.randn((E, cap, d), device="cuda").to(dt)
+    w = torch.randn((E, d, f), device="cuda").to(dt)
+    one = device_ms(lambda: a.T @ x, iters=10)
+    expert = device_ms(lambda: torch.bmm(h, w), iters=10)
+    del a, x, h, w
+    torch.cuda.empty_cache()
+    return (None if one is None else 7 * L * one,
+            None if expert is None else 12 * L * expert)
+
+
+def phase_mixtral_train(fns, card_line):
+    """Mixtral-8x7B at full width cut to 2 layers (3.16 B params: f32
+    master, m and v, the bf16 copy and the f32 gradients), trained through
+    the capacity-limited top-2 gate: bf16 compute, fused Adam (B4),
+    WarmupLR, clipping 1.0, ``remat="save_attn"``, micro 4 x 1024 on one
+    seeded batch, ``has_aux=True``.  The loss must fall; each step's aux
+    and z losses and expert load are logged; ms/step, peak memory,
+    ``ThroughputTimer`` tokens/s and MFU over the active top-2 FLOPs; a
+    profiled step's idle share and the shares of its dispatch / combine
+    products and of the expert products."""
+    import dataclasses
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig, loss_fn,
+                                                    param_count)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.parallel.moe import capacity
+    from deepspeed_tpu_torch.timers import ThroughputTimer
+    from deepspeed_tpu_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
+                              n_layers=MIXTRAL_TRAIN_LAYERS,
+                              remat="save_attn")
+    B, T, S = MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_T, MIXTRAL_TRAIN_STEPS
+    cap = capacity(B * T, cfg.num_experts, cfg.top_k, cfg.capacity_factor)
+    rng = np.random.default_rng(22)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    flops = _mixtral_flops_per_sample(cfg, T)
+    log(f"[mixtral train] mixtral_8x7b widths, layers={cfg.n_layers} params="
+        f"{param_count(cfg)} f32 master, bf16 compute, fused_adam wd=0.1, "
+        f"micro {B} x {T} tokens, capacity factor {cfg.capacity_factor} (C="
+        f"{cap}), remat={cfg.remat}, clip=1.0 WarmupLR; {flops:.4e} active "
+        "flops/sample")
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(22),
+                         device="cuda", dtype=torch.float32)
+    eng = initialize(loss_fn=loss_fn(cfg), params=params,
+                     config=_train_config(B, 1, {"bf16": {"enabled": True}}),
+                     optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                     has_aux=True)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    timer = ThroughputTimer(batch_size=B, seq_len=T, flops_per_sample=flops,
+                            start_step=S - 1, device="cuda")
+    _zero(fns.values())
+    rows = []
+    for _ in range(S):
+        torch.cuda.reset_peak_memory_stats()
+        timer.start()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        ms = (time.perf_counter() - ts) * 1e3
+        timer.stop()
+        aux = eng.metrics["aux"]
+        rows.append({"loss": loss, "ms": ms,
+                     "lm_loss": float(aux["lm_loss"]),
+                     "moe_aux_loss": float(aux["moe_aux_loss"]),
+                     "moe_z_loss": float(aux["moe_z_loss"]),
+                     "moe_expert_load": [round(x, 4) for x in
+                                         aux["moe_expert_load"].tolist()],
+                     "grad_norm": eng.get_global_grad_norm(),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        log(f"[mixtral train] step {len(rows)}: {rows[-1]}")
+    path = "mixtral-8x7b-2L training remat=save_attn"
+    used = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    leaves = len(tree_leaves(eng.state.params))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        float(eng.train_batch(batch))
+        traced = (time.perf_counter() - ts) * 1e3
+    evs = _device_events(prof)
+    kernels = sum(e.self_device_time_total for e in evs) / 1e3
+    dispatch_ms, expert_ms = _moe_product_ms(cfg, B * T, cap)
+    out = {"steps": rows, "launches": used, "leaves": leaves,
+           "tput": timer.summary(), "traced_ms": traced,
+           "kernel_busy_ms": kernels,
+           "idle_share": 1.0 - kernels / traced if kernels else None,
+           "dispatch_combine_ms": dispatch_ms, "expert_ms": expert_ms,
+           "flops_per_sample": flops, "capacity": cap,
+           "top": [(e.key[:60], e.count, round(e.self_device_time_total / 1e3,
+                                                 2))
+                   for e in sorted(evs, key=lambda e:
+                                   -e.self_device_time_total)[:8]]}
+    log(f"[mixtral train] losses {[r['loss'] for r in rows]} ms/step "
+        f"{[round(r['ms'], 1) for r in rows]} peak GB "
+        f"{[round(r['peak_gb'], 3) for r in rows]}; ThroughputTimer over the "
+        f"last step: {out['tput']['tokens_per_sec']:.1f} tokens/s, "
+        f"{out['tput']['tflops']:.1f} TFLOP/s (active), MFU "
+        f"{out['tput']['mfu']:.4f}; profiled step {traced:.1f} ms host "
+        f"clock, kernels {kernels:.1f} ms, idle share {out['idle_share']}; "
+        f"dispatch/combine products {dispatch_ms:.1f} ms "
+        f"({dispatch_ms / traced:.3f} of the step), expert products "
+        f"{expert_ms:.1f} ms ({expert_ms / traced:.3f}) (each timed alone at "
+        f"the step's shapes, times its count a step); top device time "
+        f"{out['top']} on {card_line}; launches {used}; phase 22 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del eng, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * S, "flash_bwd_dq": L * S,
+            "flash_bwd_dkv": L * S, "fused_adam": S * leaves}
+    if any(used[k] != v for k, v in want.items()) or any(
+            used[k] for k in used if k not in want):
+        raise SystemExit(f"phase 22: launches {used}, expected {want}")
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"phase 22: the loss did not fall: {losses}")
+    return {path: used}, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3138,16 +3902,21 @@ def main() -> int:
     probe_row, probe_launches = phase_env_probe(fns)
     quant_kernels = [phase_quant(gen), probe_row]
     gpt2_cases = phase_gpt2_kernels(gen)
+    mixtral_cases = phase_mixtral_kernels(gen)
+    torch.cuda.empty_cache()
     phase_identity(kernels)
     phase_tier_identity(fns)
     phase_int8_identity(fns)
     phase_gpt2_identity(fns)
+    phase_mixtral_identity(fns)
     launches = {"env report": probe_launches}
     launches.update(phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
     torch.cuda.empty_cache()
     launches.update(phase_gpt2_serving(fns, card_line)[0])
     launches.update(phase_gpt2_small(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_mixtral_serving(fns, card_line)[0])
     torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels + tier_kernels + quant_kernels}
     rows.update(phase_backward(gen))
@@ -3159,8 +3928,12 @@ def main() -> int:
     launches.update(phase_resume(fns, card_line)[0])
     torch.cuda.empty_cache()
     launches.update(phase_gpt2_train(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_mixtral_train(fns, card_line)[0])
     for name, cases in gpt2_cases.items():
         rows[name]["gpt2_shapes"] = cases
+    for name, cases in mixtral_cases.items():
+        rows[name]["mixtral_shapes"] = cases
 
     out = []
     for name in fns:
@@ -3184,7 +3957,7 @@ def main() -> int:
         for key in ("device_ms", "library_device_ms", "device_median_ms",
                     "library_device_median_ms", "bound_share",
                     "training_shape", "chunk", "f32_split", "kv_rows",
-                    "kv_write", "cases", "gpt2_shapes"):
+                    "kv_write", "cases", "gpt2_shapes", "mixtral_shapes"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

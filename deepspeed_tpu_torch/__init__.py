@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of ``deepspeed_tpu`` for NVIDIA Hopper.
 
 Imports ``torch`` and ``numpy`` only (never ``jax`` nor ``deepspeed_tpu``).
-Ported: Llama and GPT-2 greedy serving with continuous batching over a
-paged KV cache (prefix cache, host KV tier, int8-resident pages, int8
-weights), their dense and paged generators, the train step at ZeRO stage 0
+Ported: Llama, GPT-2 and Mixtral (MoE: the capacity-limited top-k gate of
+``parallel/moe.py`` in training, the dense top-k combine in serving) greedy
+serving with continuous batching over a paged KV cache (prefix cache, host
+KV tier, int8-resident pages, int8 weights), their dense and paged
+generators, the train step at ZeRO stage 0
 on one GPU (``initialize`` -> ``TrainingEngine.train_batch``) with its data
 loader, packing, curriculum, activation checkpointing (the host-offload
 policies too), timers and checkpoints (``save_checkpoint`` /
@@ -23,9 +25,11 @@ _EXPORTS = {
     "resolve_device": "deepspeed_tpu_torch._device",
     "LlamaConfig": "deepspeed_tpu_torch.models.llama",
     "GPT2Config": "deepspeed_tpu_torch.models.gpt2",
+    "MixtralConfig": "deepspeed_tpu_torch.models.mixtral",
     "ServingEngine": "deepspeed_tpu_torch.inference.serving",
     "llama_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "gpt2_serving_engine": "deepspeed_tpu_torch.inference.serving",
+    "mixtral_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "serving_engine": "deepspeed_tpu_torch.inference.serving",
     "from_jax_params": "deepspeed_tpu_torch.weights",
     "from_jax_train_state": "deepspeed_tpu_torch.weights",
@@ -34,6 +38,7 @@ _EXPORTS = {
     "PackedDataLoader": "deepspeed_tpu_torch.data.packing",
     "zero_to_fp32": "deepspeed_tpu_torch.checkpoint",
     "init_params": "deepspeed_tpu_torch.weights",
+    "init_quantized_params": "deepspeed_tpu_torch.weights",
     "initialize": "deepspeed_tpu_torch.engine",
     "TrainingEngine": "deepspeed_tpu_torch.engine",
     "fused_adam": "deepspeed_tpu_torch.ops.adam_cuda",

@@ -233,7 +233,8 @@ class TrainingEngine:
             del gs, scaled
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-            auxes.append(aux)
+            # detached, so the microbatch's graph is not kept alive
+            auxes.append(tree_map(lambda t: t.detach(), aux))
         del cparams, leaves
         if accum > 1:
             for g in grads:

@@ -274,9 +274,16 @@ def gpt2_generator(params, cfg, eos_token_id: Optional[int] = None,
                      eos_token_id=eos_token_id, device=device)
 
 
-def mixtral_generator(params, cfg, **kw) -> Generator:
-    raise NotImplementedError(
-        "mixtral_generator: models/mixtral.py is not ported yet (ROADMAP A7)")
+def mixtral_generator(params, cfg, eos_token_id: Optional[int] = None,
+                      cache_dtype=torch.bfloat16, device=None) -> Generator:
+    """MoE text generation (ref: DeepSpeed-MoE inference): cached
+    attention + the capacity-free dense top-k expert combine."""
+    from deepspeed_tpu_torch.models import mixtral
+
+    step, alloc = cached_step_alloc(mixtral.forward_with_cache, cfg,
+                                    cache_dtype, device)
+    return Generator(_on(params, device), step, step, alloc,
+                     eos_token_id=eos_token_id, device=device)
 
 
 def _paged_generator(forward_paged, params, cfg,
@@ -317,9 +324,10 @@ def llama_paged_generator(params, cfg, **kw) -> Generator:
 
 
 def mixtral_paged_generator(params, cfg, **kw) -> Generator:
-    raise NotImplementedError(
-        "mixtral_paged_generator: models/mixtral.py is not ported yet "
-        "(ROADMAP A7)")
+    """Paged-KV MoE generation: the offline oracle for Mixtral serving."""
+    from deepspeed_tpu_torch.models import mixtral
+
+    return _paged_generator(mixtral.forward_paged, params, cfg, **kw)
 
 
 def gpt2_paged_generator(params, cfg, **kw) -> Generator:

@@ -33,9 +33,10 @@ demoted span promotes it back into fresh pages; ``quantized_resident``
 keeps the device pages as int8 codes with per-token-row scales.
 
 Int8 weight-only serving (``weight_dtype="int8"``): the family builders
-(``llama_serving_engine``, ``gpt2_serving_engine``) quantize every matrix
-leaf on the engine's device (kernel B9 on CUDA) and the forward dequantizes
-one layer at a time.
+(``llama_serving_engine``, ``gpt2_serving_engine``,
+``mixtral_serving_engine``) quantize every matrix leaf on the engine's
+device (kernel B9 on CUDA) and the forward dequantizes one layer at a
+time.
 
 Blocks of the reference engine that this slice does not port (mesh,
 telemetry, tracing, speculative, slo, faults, shedding, history,
@@ -1147,16 +1148,49 @@ def gpt2_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
                           quant_group_size, device, GPT2_INT8_SKIP, **kw)
 
 
+# Mixtral leaves an int8 engine keeps exact (the JAX engine's list): the
+# router (int8 gate logits could flip a near-tied top-k choice) and the
+# stacked norm gains
+MIXTRAL_INT8_SKIP = ("gate", "attn_norm", "mlp_norm", "final_norm")
+
+
+def mixtral_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
+                           quant_group_size: int = 128, device=None,
+                           zero_inference=None, **kw) -> ServingEngine:
+    """ServingEngine over :func:`~deepspeed_tpu_torch.models.mixtral.
+    forward_paged` (ref: DeepSpeed-MoE inference serving): iteration-level
+    scheduling, paged KV, split-fuse and decode chunks apply to the MoE
+    model unchanged.  int8 weights keep :data:`MIXTRAL_INT8_SKIP` exact;
+    leaves already quantized (``weights.init_quantized_params``, for a
+    model whose bf16 weights do not fit the card) pass through.  A
+    ``mesh`` (expert parallelism) is refused by the engine, as for Llama;
+    ``zero_inference`` (streaming the expert stacks from host memory)
+    raises ``NotImplementedError`` naming ROADMAP A8."""
+    from deepspeed_tpu_torch.models import mixtral
+
+    if _enabled(zero_inference):
+        raise NotImplementedError(
+            "mixtral_serving_engine(zero_inference=...): weight-streamed "
+            "MoE serving needs inference/zero_inference.py and "
+            "mixtral.paged_layered_fns (ROADMAP A8)")
+    return _family_engine(mixtral.forward_paged, params, cfg, weight_dtype,
+                          quant_group_size, device, MIXTRAL_INT8_SKIP, **kw)
+
+
 def _to_device(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
 def serving_engine(params, cfg, **kw):
-    """Model registry for serving: dispatch on the config type (Llama and
-    GPT-2 in the port; the other families come with later slices)."""
+    """Model registry for serving: dispatch on the config type (Mixtral
+    first, as in the JAX registry, then Llama and GPT-2; the other
+    families come with later slices)."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config
     from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 
+    if isinstance(cfg, MixtralConfig):
+        return mixtral_serving_engine(params, cfg, **kw)
     if isinstance(cfg, LlamaConfig):
         return llama_serving_engine(params, cfg, **kw)
     if isinstance(cfg, GPT2Config):

@@ -1,1 +1,1 @@
-"""Model families of the port (Llama in this slice)."""
+"""Model families of the port: Llama, GPT-2 and Mixtral."""

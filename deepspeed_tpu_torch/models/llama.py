@@ -163,9 +163,15 @@ def _mlp_out(cfg: LlamaConfig, lp, x):
                   lp["w3"])
 
 
-def _block_tail(cfg: LlamaConfig, lp, x, attn, remat: str = "none"):
+def _block_tail(cfg: LlamaConfig, lp, x, attn, remat: str = "none",
+                ffn=None):
+    """The attention output's projection and residual, then the FFN and
+    its residual; ``ffn``: an ``(lp, h) -> y`` override of the FFN over the
+    ``mlp_norm``-normed residual (Mixtral's expert combine)."""
     B, T, _ = x.shape
     x = x + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    if ffn is not None:
+        return x + ffn(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
     mlp = checkpoint_named(_mlp_out, remat)(cfg, lp, x)
     return x + mlp @ lp["w2"]
 
@@ -298,7 +304,7 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
 @takes_quantized
 def forward_paged(params, tokens, cfg: LlamaConfig, cache,
                   continuation: bool = False,
-                  paged_kernel: Optional[str] = None):
+                  paged_kernel: Optional[str] = None, ffn=None):
     """Forward over a paged KV cache -> (logits [B, T, V] f32, cache).
 
     Prefill (T > 1, empty cache): causal attention over the prompt (the
@@ -315,7 +321,10 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
     scale planes ride along per layer.  ``paged_kernel`` is the resolved
     dispatch (``"pallas_v2"`` / ``"pallas_v1"`` = a CUDA kernel, ``"xla"``
     = the plain version); None/"auto" takes the kernel on CUDA and the
-    plain version on CPU."""
+    plain version on CPU.  ``ffn``: an ``(lp, h) -> y`` override of each
+    block's FFN over the ``mlp_norm``-normed residual ``h``: the paged
+    backbone is model-agnostic, and Mixtral swaps in its expert combine
+    (None: the SwiGLU FFN)."""
     from deepspeed_tpu_torch.inference.kernels import (
         paged_attention_step, paged_forward_prelude, resolve_serving_kernels)
 
@@ -341,6 +350,6 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
             flash_force_reference=cfg.attn_impl == "reference",
             kps=cache.k_scale[l] if quant else None,
             vps=cache.v_scale[l] if quant else None)
-        x = _block_tail(cfg, lp, x, attn)
+        x = _block_tail(cfg, lp, x, attn, ffn=ffn)
     return _logits(params, cfg, x), dataclasses.replace(
         cache, seq_lens=start + T)

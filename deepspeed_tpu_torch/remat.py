@@ -304,8 +304,9 @@ def checkpoint_named(fn, name: str):
     """Under ``save_attn`` and ``offload_attn``: ``fn``'s output (a tensor
     the JAX model names with ``checkpoint_name``) is kept, on the card or
     in host memory, and everything ``fn`` computes on the way is recomputed
-    in the backward.  Under any other policy ``fn`` is returned as it
-    is."""
+    in the backward; a tuple output names its first element (the stage's
+    tensor; Mixtral's MoE stage returns ``(y, aux)``).  Under any other
+    policy ``fn`` is returned as it is."""
     name = check(name)
     if OFFLOAD.get(name, name) != "save_attn":
         return fn
@@ -313,6 +314,8 @@ def checkpoint_named(fn, name: str):
     @functools.wraps(fn)
     def wrapped(*args):
         out = checkpoint(fn, *args, use_reentrant=False)
-        return offload.name(out) if name == "offload_attn" else out
+        if name == "offload_attn":
+            offload.name(out[0] if isinstance(out, tuple) else out)
+        return out
 
     return wrapped

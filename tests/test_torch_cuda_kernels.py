@@ -1318,3 +1318,111 @@ def test_offload_remat_on_the_card(gen, name, monkeypatch):
     assert m1 == 4 * 4 * 512 * per_layer * 2          # layers, B, T, bf16
     assert p0 - p1 >= m1 // 2, (p0, p1, m1)
     assert 0 < calls["load"] == calls["_copy_back"], calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8])
+def test_greedy_mixtral_vocab_rows(gen, dtype, B):
+    """B6 at Mixtral's vocabulary (V = 32000) on ``logits[:, -1]`` rows of
+    a [B, 2, V] tensor, ties planted across the row: exact against the
+    plain version and ``torch.argmax``, on the cluster body."""
+    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
+
+    V = 32000
+    last = _randn(gen, (B, 2, V), dtype)[:, -1]
+    for b in range(B):
+        last[b, [b, V // 3 + b, V // 2, V - 1 - b]] = 30.0
+    fused_greedy_rows.body_launches = dict.fromkeys(
+        fused_greedy_rows.body_launches, 0)
+    got = _greedy_exact(last)
+    assert got.tolist() == list(range(B))
+    assert fused_greedy_rows.body_launches == {"cluster": 1, "row": 0}
+
+
+def test_quantize_mixtral_expert_slice_bit_equal(gen):
+    """B9 on one layer of a Mixtral-8x7B expert stack, ``w1[l]`` = [8, 4096,
+    14336] bf16 (470 M elements, groups of 128), as ``init_quantized_params``
+    quantizes it: the vector body, bit for bit against the plain version."""
+    from deepspeed_tpu_torch.ops.quant_cuda import (quant_body, quantize_rows,
+                                                    quantize_rows_reference)
+
+    x = _randn(gen, (8 * 4096 * 14336 // 128, 128), torch.bfloat16)
+    assert quant_body(x) == "vec"
+    before = dict(quantize_rows.body_launches)
+    q, s = quantize_rows(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.body_launches["vec"] == before["vec"] + 1
+    for lo in range(0, x.shape[0], 1 << 20):       # the plain version, in
+        rq, rs = quantize_rows_reference(x[lo:lo + (1 << 20)])   # slices
+        assert torch.equal(q[lo:lo + (1 << 20)], rq)
+        assert torch.equal(s[lo:lo + (1 << 20)], rs)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_capacity_gating_on_the_card_equals_the_cpu(gen, k):
+    """The top-k gate at the 8x7B training shape (4 x 1024 tokens, 8
+    experts, capacity factor 1.25: C = 1280, some tokens dropped): the
+    dispatch equal to the CPU's, the combine and the losses at 1e-6."""
+    from deepspeed_tpu_torch.parallel.moe import capacity, top_k_gating
+
+    N, E = 4096, 8
+    logits = torch.randn((N, E), generator=gen, device="cuda") * 2.0
+    logits[:, 0] += 1.0                 # a skew, so some expert overflows
+    cap = capacity(N, E, k, 1.25)
+    got = top_k_gating(logits, k, cap)
+    want = top_k_gating(logits.cpu(), k, cap)
+    assert torch.equal(got.dispatch.cpu(), want.dispatch)
+    assert want.dispatch.sum().item() < N * k          # drops happened
+    for name in ("combine", "aux_loss", "z_loss", "expert_load"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=1e-6,
+                                   atol=1e-6, msg=name)
+
+
+def _mixtral_card(remat):
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+
+    return MixtralConfig(vocab_size=512, dim=1024, n_layers=2, n_heads=8,
+                         n_kv_heads=2, ffn_dim=1024, num_experts=4,
+                         max_seq_len=512, remat=remat)
+
+
+def test_mixtral_remat_on_the_card(gen):
+    """bf16 Mixtral blocks (head_dim 128, flash on the tensor-core bodies,
+    the capacity gate): ``save_attn``, ``offload_attn`` and
+    ``save_dots_no_batch`` give the gradients and aux of ``none`` bit for
+    bit, and ``offload_attn`` moves ``attn_out`` of each layer to host."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import remat
+    from deepspeed_tpu_torch.models.mixtral import loss_fn
+    from deepspeed_tpu_torch.weights import init_params
+
+    base = init_params(_mixtral_card("none"), gen, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 512, (2, 257))).cuda()
+    out = {}
+    for policy in ("none", "save_attn", "offload_attn",
+                   "save_dots_no_batch"):
+        params = {k: ({n: w.clone().requires_grad_(True)
+                       for n, w in v.items()} if isinstance(v, dict)
+                      else v.clone().requires_grad_(True))
+                  for k, v in base.items()}
+        remat.offload.reset()
+        loss, aux = loss_fn(_mixtral_card(policy))(params, {"tokens": toks})
+        moved = remat.offload.bytes
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [params["embed"].grad, params["lm_head"].grad,
+                 *(params["blocks"][n].grad for n in sorted(params["blocks"]))]
+        out[policy] = (loss.item(), aux, grads, moved)
+    l0, a0, g0, _ = out["none"]
+    for policy in ("save_attn", "offload_attn", "save_dots_no_batch"):
+        l1, a1, g1, moved = out[policy]
+        assert l1 == l0, policy
+        for name in a0:
+            assert torch.equal(a1[name], a0[name]), (policy, name)
+        for a, b in zip(g0, g1):
+            assert torch.equal(a, b), policy
+        assert moved == (2 * 2 * 256 * 1024 * 2
+                         if policy == "offload_attn" else 0), policy

@@ -24,7 +24,7 @@ from deepspeed_tpu.models import llama as jl
 from deepspeed_tpu_torch.inference import generation as tgen
 from deepspeed_tpu_torch.models import gpt2 as tg
 from deepspeed_tpu_torch.models import llama as tl
-from deepspeed_tpu_torch.weights import from_jax_params
+from deepspeed_tpu_torch.weights import from_jax_params, init_params
 
 torch.set_num_threads(1)
 
@@ -202,6 +202,18 @@ def test_greedy_draft_fn_equal_to_jax(models, family):
 
 
 def test_mixtral_builders_wait_for_their_model():
-    for fn in (tgen.mixtral_generator, tgen.mixtral_paged_generator):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn({}, None)
+    """models/mixtral.py has landed: both functions return generators
+    (their tokens are held to JAX's in test_torch_serving_mixtral.py)."""
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+
+    cfg = MixtralConfig.tiny()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", dtype=torch.float32)
+    prompt = _prompts(B=2, T=5, seed=2)
+    for fn, kw in ((tgen.mixtral_generator, {}),
+                   (tgen.mixtral_paged_generator, {"page_size": 8})):
+        gen = fn(params, cfg, cache_dtype=torch.float32, device="cpu", **kw)
+        assert isinstance(gen, tgen.Generator)
+        out = gen.generate(prompt, max_new_tokens=3)
+        assert out.shape == (2, 8)
+        np.testing.assert_array_equal(out[:, :5].numpy(), prompt)
