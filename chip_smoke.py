@@ -112,12 +112,36 @@ and runs, in order:
    aux and z losses and expert load per step, ms/step, peak memory,
    tokens/s and MFU over the active top-2 FLOPs, a profiled step's idle
    share and its dispatch / combine and expert products' shares.
+23. B1 at BERT-large's serving shapes (lots of 8 rows at T = 32, 64 and
+   512, 16 heads of 64 with H = KV, bidirectional, the attention mask as
+   segment ids that descend, one filler row all padding) and B2 / B3 at
+   its training shape (T = 512), on the tensor-core bodies, against their
+   plain versions, timed beside their bounds and SDPA under the pad mask;
+24. tiny BERT through ``bert_serving_engine`` on the card, the kernel arm
+   against the plain arm (reference attention) for the pooled, MLM and
+   hidden heads, in f32 (head_dim 16; also against the CPU engine) and
+   bf16 (head_dim 64); the int8 engine built on the card against the CPU's
+   build and against the unquantized engine;
+25. BERT-large at full width (24 layers, 16 heads of 64, V 30522, seeded
+   bf16 weights) served to 64 requests of 8-512 tokens in lots of 8 at the
+   default buckets, each head in bf16, then pooled and MLM with int8
+   weights built on the card (B9): sequences/s, real tokens/s, per-lot
+   host ms, the padding's share, peak memory, int8's resident bytes,
+   build seconds and pooled cosine against bf16;
+26. BERT-large trained at all 24 layers (MLM at T = 512, micro 8 x
+   accumulation 2, padded rows with their attention mask, fused Adam, 5
+   steps): ms/step, real tokens/s, MFU, peak, idle share, the loss falling;
+27. the CIFAR CNN served (64 images in lots of 8, against the CPU engine)
+   and trained (5 steps at batch 128, fused Adam), and
+   ``stochastic_round_bf16`` on a card tensor (distributional checks, and
+   the CPU's result on the same random bits).
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
 int8 serving runs and the ``init_inference`` forward of phase 14, the
 training run of phase 8, the four runs of phase 15, the GPT-2 paths of
-phases 17-19, and the Mixtral paths of phases 21-22) counts the launches
+phases 17-19, the Mixtral paths of phases 21-22, the BERT-large paths of
+phases 25-26 and the CNN's of phase 27) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -390,27 +414,29 @@ def phase_flash(gen):
             "library_device_ms": library_dev, "training_shape": train}
 
 
-def _sdpa_mask(seg):
-    """SDPA's causal keywords: ``is_causal`` without segment ids, else the
-    segments' boolean block-diagonal causal mask [B, 1, T, T]."""
+def _sdpa_mask(seg, causal=True):
+    """SDPA's mask keywords: ``is_causal`` without segment ids (none when
+    not causal), else the segments' boolean block-diagonal mask [B, 1, T,
+    T], causal or not."""
     if seg is None:
-        return {"is_causal": True}
+        return {"is_causal": causal}
     T = seg.shape[1]
-    causal = torch.ones((T, T), dtype=torch.bool, device=seg.device).tril()
-    return {"attn_mask": (seg[:, None, :, None] == seg[:, None, None, :])
-            & causal}
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    if not causal:
+        return {"attn_mask": same}
+    tril = torch.ones((T, T), dtype=torch.bool, device=seg.device).tril()
+    return {"attn_mask": same & tril}
 
 
-def _sdpa(q, k, v, seg=None):
-    """One PyTorch call computing the same causal GQA attention (with
-    packed segment ids, under their block-diagonal causal mask, built here
-    once), as a function of no arguments giving o [B, H, T, D], or None on a
-    PyTorch without ``enable_gqa``.  A yardstick only: the port never calls
-    it."""
+def _sdpa(q, k, v, seg=None, causal=True):
+    """One PyTorch call computing the same GQA attention (causal or not;
+    with segment ids, under their block-diagonal mask, built here once), as
+    a function of no arguments giving o [B, H, T, D], or None on a PyTorch
+    without ``enable_gqa``.  A yardstick only: the port never calls it."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kw = _sdpa_mask(seg)
+    kw = _sdpa_mask(seg, causal)
 
     def call():
         return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
@@ -1720,7 +1746,7 @@ def bf16_neighbour(got, exact):
     return (g == exact) | ((g - exact) * (nxt - exact) < 0)
 
 
-def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg):
+def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg, causal=True):
     """(dq, dq_spec, dk, dv) in f64 from the kernels' own inputs: p =
     exp(q.k * scale - lse), delta = rowsum(o * dO), ds = p * (dO.V^T -
     delta) * scale, dq = ds.K, dk = ds^T.Q, dv = p^T.dO over each kv head's
@@ -1735,7 +1761,7 @@ def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg):
     kd = k.double().repeat_interleave(G, dim=2)
     vd = v.double().repeat_interleave(G, dim=2)
     s = torch.einsum("bthd,bshd->bhts", qd, kd) * scale
-    live = _live_mask(B, T, S, True, seg, q.device)
+    live = _live_mask(B, T, S, causal, seg, q.device)
     p = torch.exp(s - lse.double()[..., None]).masked_fill(~live, 0.0)
     del s
     delta = (od * dod).sum(-1).transpose(1, 2)
@@ -1763,10 +1789,10 @@ def _faithful_over_gate(got, want, exacts, tol):
                             for x in exacts)
 
 
-def _sdpa_bwd(q, k, v, do, seg=None):
+def _sdpa_bwd(q, k, v, do, seg=None, causal=True):
     """SDPA's backward (dq, dk, dv together, with its own O.dO pass) on the
-    same causal GQA inputs (with packed segment ids, under their boolean
-    block-diagonal causal mask), as a function of no arguments, or None on a
+    same GQA inputs (causal or not; with segment ids, under their boolean
+    block-diagonal mask), as a function of no arguments, or None on a
     PyTorch without ``enable_gqa``.  A yardstick only: the port never calls
     it."""
     import torch.nn.functional as F
@@ -1775,7 +1801,7 @@ def _sdpa_bwd(q, k, v, do, seg=None):
                   for x in (q, k, v))
     try:
         out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                             **_sdpa_mask(seg))
+                                             **_sdpa_mask(seg, causal))
     except TypeError:                   # a PyTorch without enable_gqa
         return None
     dot = do.transpose(1, 2)
@@ -3858,6 +3884,833 @@ def phase_mixtral_train(fns, card_line):
     return {path: used}, out
 
 
+# ------------------------------------------------------------ phase 23
+# BERT-large (the encoder families' main paths): lots of 8 rows at the
+# default buckets; its attention is bidirectional over 16 heads of 64
+# (H = KV), with the attention mask passed as segment ids
+BERT_B, BERT_BUCKETS = 8, (32, 64, 512)
+# phase 24, tiny BERT on the card against its plain arm, set before the
+# first card reading: f32 (head_dim 16, the scalar bodies) the same sums in
+# another order, 1e-4 of the largest value; bf16 (head_dim 64, the
+# tensor-core bodies) a bf16 ulp of o (3.9e-3 of it) carried through two
+# post-LN layers and the heads: 5e-2 of the largest value.  The card (an
+# NVIDIA H100 80GB HBM3 at 700.00 W) read f32 9e-8 to 4.7e-7 and bf16
+# 5.1e-3 to 7.4e-3 (tiny, two layers), and at
+# BERT-large's 24 layers on phase 25's queue 0.041 / 0.022 / 0.027 (pooled /
+# MLM / hidden): bf16 roundings that differ once per attention grow through
+# 24 post-LN layers
+BERT_F32_REL_TOL = 1e-4
+BERT_BF16_REL_TOL = 5e-2
+# the int8 engine's pooled vectors against bf16's: the JAX test's bound
+BERT_INT8_POOLED_ABS = 0.15
+# phase 25: 64 requests of 8-512 tokens; BERT-large's kernel arm against
+# its plain arm (reference attention) on the same queue, at phase 24's bf16
+# bound; the int8 engine's pooled vectors hold a cosine of 0.95 or more
+# against bf16's (set before the first card reading)
+BERT_REQUESTS = 64
+BERT_INT8_MIN_COSINE = 0.95
+# phase 26: BERT-large at all 24 layers, MLM at T = 512, micro 8 x
+# accumulation 2, 5 steps on one batch of rows 128-512 tokens long, 15 % of
+# the real positions labelled
+BERT_TRAIN_STEPS, BERT_TRAIN_MICRO, BERT_TRAIN_ACCUM, BERT_TRAIN_T = \
+    5, 8, 2, 512
+# phase 27: the CIFAR CNN, 64 images in lots of 8 against the CPU engine
+# (f32, TF32 off: the same convolutions summed in another order), and 5
+# train steps at batch 128 with the lr warmed up to 1e-4 (at 1e-3, Adam's
+# first steps overshoot on one fixed batch: an NVIDIA H100 80GB HBM3 at
+# 700.00 W read 2.66 -> 3.82 -> 3.66 -> 3.08 -> 2.72); then 3 f32 steps on
+# the card against the same on
+# the CPU, at test_torch_train.py's 1e-4 relative on the losses
+CNN_IMAGES, CNN_TOL, CNN_TRAIN_B, CNN_TRAIN_STEPS = 64, 1e-4, 128, 5
+CNN_LR, CNN_TRAIN_RTOL = 1e-4, 1e-4
+def _pad_seg(lens, T):
+    """[len(lens), T] int32: row b is 1 on its first lens[b] positions and
+    0 after (BERT's attention mask as segment ids: ids that descend); a
+    length of 0 is a filler row, all padding."""
+    seg = np.zeros((len(lens), T), np.int32)
+    for b, n in enumerate(lens):
+        seg[b, :n] = 1
+    return torch.from_numpy(seg).to("cuda")
+
+
+def _pad_pairs(lens, T):
+    """Live (query, key) pairs of one head under pad ids: a row's real
+    tokens see each other, its pads its pads."""
+    return sum(n * n + (T - n) * (T - n) for n in lens)
+
+
+def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
+    """B2 and B3 at BERT's training shape, bidirectional with pad ids,
+    against the plain backward: B2's delta against ``flash_delta``, dq, dk
+    and dv at the flash backward gate (an element over it must be a bf16
+    neighbour of the f64 oracle, C-f6), each timed on the device clock
+    beside its bound and SDPA's backward under the pad mask."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        flash_delta, flash_fwd)
+
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    wgmma = flash_bwd_body(q) == "wgmma"
+    o, lse = flash_fwd(q, k, v, causal=False, seg=seg)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, seg, causal=False)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal=False)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, causal=False)
+    want_delta = flash_delta(o, do)
+    torch.cuda.synchronize()
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    err = {n: ((g.float() - w.float()).abs().max().item(), _rel(g, w))
+           for (n, g), w in zip(got.items(), want)}
+    delta_rel = _rel(delta, want_delta)
+    over = dict.fromkeys(got, (0, True))
+    if any(e[1] > FLASH_BWD_REL_TOL for e in err.values()):
+        dq64, dq_spec, dk64, dv64 = flash_bwd_f64_oracle(
+            q, k, v, o, lse, do, seg, causal=False)
+        exact = {"dq": (dq64, dq_spec), "dk": (dk64,), "dv": (dv64,)}
+        del dq64, dq_spec, dk64, dv64
+        over = {n: _faithful_over_gate(got[n], w, exact[n],
+                                       FLASH_BWD_REL_TOL)
+                for n, w in zip(got, want)}
+        del exact
+    del dq, dk, dv, got, want, want_delta
+    plain = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, seg,
+                                                causal=False),
+                    iters=3, warmup=1)
+    sdpa = _sdpa_bwd(q, k, v, do, seg, causal=False)
+    lib = sdpa and device_ms(sdpa, iters=10)
+    del sdpa
+    pairs = _pad_pairs(lens, T)
+    io = (2 * B * T * D * (2 * H + 2 * KV) + 2 * B * T * D * (H + KV)
+          + 8 * B * H * T + 4 * B * T)
+    bounds = {"flash_bwd_dq": bound(io, 6 * D * pairs * H
+                                    + 2 * B * T * H * D, BF16_FLOPS_PER_S),
+              "flash_bwd_dkv": bound(io, 8 * D * pairs * H,
+                                     BF16_FLOPS_PER_S)}
+    fns = {"flash_bwd_dq": lambda: flash_bwd_dq(q, k, v, o, do, lse, seg,
+                                                causal=False),
+           "flash_bwd_dkv": lambda: flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  seg, causal=False)}
+    out = {}
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        dev = device_ms(fns[name], iters=10)
+        b_ms, b_by = bounds[name]
+        case = {"wgmma": wgmma, "causal": False, "T": T, "lens": lens,
+                "max_abs_err": max(err[n][0] for n in grads),
+                "rel_err": max(err[n][1] for n in grads),
+                "tol_rel": FLASH_BWD_REL_TOL,
+                "over_gate": sum(over[n][0] for n in grads),
+                "over_gate_faithful": all(over[n][1] for n in grads),
+                "device_ms": dev, "plain_ms": plain,
+                "library_device_ms": lib,
+                "library": "sdpa backward under the pad mask",
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": _share(b_ms, dev)}
+        if name == "flash_bwd_dq":
+            case["delta_rel"] = delta_rel
+        out[name] = case
+        log(f"[{tag}] {name} B={B} T={T} H={H} KV={KV} D={D} bf16 "
+            f"non-causal, pad ids: tensor-core body {wgmma}; rel err "
+            f"{case['rel_err']:.3e} (tol {FLASH_BWD_REL_TOL}) max_abs_err "
+            f"{case['max_abs_err']:.3e}; {case['over_gate']} elements over "
+            f"the gate, each a bf16 neighbour of the f64 oracle: "
+            f"{case['over_gate_faithful']}"
+            + (f" delta rel {delta_rel:.3e} (tol {FLASH_DELTA_REL_TOL})"
+               if name == "flash_bwd_dq" else "")
+            + f"; device {dev} ms (bound {b_ms:.5f} ms {b_by}, share "
+            f"{_share(b_ms, dev)}); plain bwd {plain:.4f} ms; sdpa bwd "
+            f"device {lib} ms")
+    del o, lse, delta, fns
+    return out
+
+
+def phase_bert_kernels(gen):
+    """B1 at BERT-large's serving shapes (lots of 8 rows at T = 32, 64 and
+    512; 16 heads of 64, H = KV; bidirectional; pad ids from seeded lengths,
+    one filler row of padding) and B2 / B3 at its training shape (T = 512),
+    on the tensor-core bodies, against their plain versions; each timed on
+    the device clock beside its bound (over this data's live pairs) and
+    SDPA under the pad mask."""
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_fwd,
+                                                        flash_fwd_body,
+                                                        flash_fwd_reference)
+
+    cfg = BertConfig.large()
+    H, D, B = cfg.n_heads, cfg.head_dim, BERT_B
+    dt = torch.bfloat16
+    rng = np.random.default_rng(23)
+    fwd, bwd, ok = {}, {}, True
+    for T in BERT_BUCKETS:
+        T = min(T, cfg.max_seq_len)
+        lens = [int(n) for n in rng.integers(max(1, T // 4), T + 1,
+                                             B - 1)] + [0]
+        seg = _pad_seg(lens, T)
+        q, k, v, do = (torch.randn((B, T, H, D), generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        if flash_fwd_body(q) != "wgmma":
+            raise SystemExit("phase 23: BERT's shape does not take the "
+                             "tensor-core body")
+        o, lse = flash_fwd(q, k, v, causal=False, seg=seg)
+        ro, rlse = flash_fwd_reference(q, k, v, causal=False, seg=seg)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        lerr = (lse - rlse).abs().max().item()
+        fn = functools.partial(flash_fwd, q, k, v, causal=False, seg=seg)
+        dev = device_ms(fn)
+        plain = time_ms(lambda: flash_fwd_reference(q, k, v, causal=False,
+                                                    seg=seg),
+                        iters=3, warmup=1)
+        sdpa = _sdpa(q, k, v, seg, causal=False)
+        lib = sdpa and device_ms(sdpa)
+        lib_err = sdpa and (sdpa().transpose(1, 2).float()
+                            - ro.float()).abs().max().item()
+        # _flash_bound counts pairs of one row and head: the rows' mean
+        pairs = _pad_pairs(lens, T)
+        b_ms, b_by = _flash_bound(B, T, H, H, D, pairs / B)
+        full_ms = _flash_bound(B, T, H, H, D, T * T)[0]
+        ok = ok and err <= FLASH_TOL and lerr <= 1e-3
+        fwd[f"T{T}"] = {"causal": False, "lens": lens, "max_abs_err": err,
+                        "lse_err": lerr, "device_ms": dev, "plain_ms": plain,
+                        "library_device_ms": lib,
+                        "library": "sdpa under the pad mask",
+                        "library_max_abs_err": lib_err, "bound_ms": b_ms,
+                        "bound_by": b_by, "bound_full_tt_ms": full_ms,
+                        "bound_share": _share(b_ms, dev)}
+        log(f"[bert kernels] flash_fwd B={B} T={T} H=KV={H} D={D} bf16 "
+            f"non-causal, pad ids (lengths {lens}): tensor-core body; "
+            f"max_abs_err {err:.3e} (tol {FLASH_TOL}) lse_err {lerr:.3e} "
+            f"(tol 1e-3); device {dev} ms, bound {b_ms:.5f} ms ({b_by}, "
+            f"live pairs; {full_ms:.5f} over the full T.S), share "
+            f"{_share(b_ms, dev)}; plain {plain:.4f} ms; sdpa device {lib} "
+            f"ms (o vs plain {lib_err})")
+        del o, ro, lse, rlse, fn
+        if T == min(BERT_TRAIN_T, cfg.max_seq_len):
+            for name, case in _bert_flash_bwd(gen, q, k, v, do, seg, lens,
+                                              "bert kernels").items():
+                bwd[name] = {f"T{T}": case}
+                ok = (ok and case["wgmma"]
+                      and case.get("delta_rel", 0.0) <= FLASH_DELTA_REL_TOL
+                      and (case["rel_err"] <= FLASH_BWD_REL_TOL
+                           or case["over_gate_faithful"]))
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("phase 23: a flash kernel disagrees at BERT's "
+                         "shapes")
+    return {"flash_fwd": fwd, **bwd}
+
+
+# ------------------------------------------------------------ phase 24
+def _drive_encoder(eng, reqs):
+    """Submits ``reqs`` and runs the engine once -> (results, seconds,
+    per-lot host ms, elements of the lots' first input): a lot's time runs
+    from its forward's call to the next lot's (the last to the end of
+    ``run``), its result's copy to the host and slicing included; a BERT
+    lot's first input is its tokens, rows x bucket positions."""
+    starts, shipped = [], [0]
+    fn = eng._fn
+
+    def timed(*a):
+        starts.append(time.perf_counter())
+        shipped[0] += a[1].numel()
+        return fn(*a)
+
+    eng._fn = timed
+    for rid, toks in reqs.items():
+        eng.submit(rid, toks)
+    t0 = time.perf_counter()
+    out = eng.run()
+    t1 = time.perf_counter()
+    eng._fn = fn
+    lot_ms = np.diff(starts + [t1]) * 1e3
+    return out, t1 - t0, lot_ms, shipped[0]
+
+
+def _rel_np(got, want):
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                  1e-30))
+
+
+def phase_bert_identity(fns):
+    """Tiny BERT on the card, the kernel arm against the plain arm
+    (``attn_impl="reference"``, plain attention on the card) through
+    ``bert_serving_engine``, for the pooled, MLM and hidden heads, on a
+    queue of 11 requests in lots of 4 (buckets 32 and 64): in f32 at
+    head_dim 16 (the scalar bodies; also against the engine on the CPU)
+    and in bf16 at head_dim 64 (the tensor-core bodies); equal ``stats``.
+    Then the int8 engine built on the card (B9) against the same on the
+    CPU (equal codes, f32) and against the bf16 engine (pooled vectors
+    within the JAX test's bound)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch._tree import tree_map
+    from deepspeed_tpu_torch.inference.encoder_serving import (
+        bert_serving_engine)
+    from deepspeed_tpu_torch.inference.quantized import (QuantizedTensor,
+                                                         _leaves)
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    rng = np.random.default_rng(24)
+    reqs = {f"r{i}": rng.integers(1, 256, int(rng.integers(3, 65))).tolist()
+            for i in range(11)}
+    worst = {}
+    for label, cfg, dtype, tol, hopper in (
+            ("f32", BertConfig.tiny(), torch.float32, BERT_F32_REL_TOL,
+             False),
+            ("bf16", BertConfig.tiny(dim=256), torch.bfloat16,
+             BERT_BF16_REL_TOL, True)):
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(24),
+                             device="cuda", dtype=dtype)
+        host = tree_map(lambda t: t.cpu(), params)
+        plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
+        for head in ("pooled", "mlm", "hidden"):
+            _zero(fns.values())
+            eng = bert_serving_engine(params, cfg, head=head, max_batch=4,
+                                      device="cuda")
+            got = _drive_encoder(eng, reqs)[0]
+            used = {n: f.launches for n, f in fns.items()}
+            _check_bodies(f"bert identity {label} {head}", hopper=hopper,
+                          record=False)
+            arms = {"plain": (params, plain_cfg, "cuda")}
+            if dtype == torch.float32:
+                arms["cpu"] = (host, cfg, "cpu")
+            errs = {}
+            for arm, (p, c, d) in arms.items():
+                _zero(fns.values())
+                other = bert_serving_engine(p, c, head=head, max_batch=4,
+                                            device=d)
+                want = _drive_encoder(other, reqs)[0]
+                if any(f.launches for f in fns.values()):
+                    raise SystemExit(f"bert identity: the {arm} arm launched "
+                                     "a kernel")
+                if other.stats != eng.stats:
+                    raise SystemExit(f"bert identity: stats {eng.stats} "
+                                     f"against {other.stats}")
+                errs[arm] = max(_rel_np(got[r], want[r]) for r in reqs)
+                if set(got) != set(want) or any(
+                        got[r].shape != want[r].shape for r in reqs):
+                    raise SystemExit(f"bert identity: {head} shapes differ")
+            if dtype == torch.float32:
+                # isolation: a request alone (no lot-mates, no padding)
+                solo = _solo_rows(params, cfg, reqs, list(reqs), head)
+                errs["alone"] = max(_rel_np(got[r], solo[r]) for r in reqs)
+            worst[f"{label} {head}"] = errs
+            log(f"[bert identity] bert-tiny {label} (head_dim "
+                f"{cfg.head_dim}) head={head}: card kernel arm against "
+                f"{errs} (rel, tol {tol}); stats {eng.stats}; launches "
+                f"{used}")
+            if max(errs.values()) > tol:
+                raise SystemExit(f"bert identity: {label} {head} differs")
+            _check_launches(f"bert identity {label} {head}", used,
+                            ["flash_fwd"])
+        del params, host
+    # int8, f32 tiny: built on the card (B9) against the CPU's plain build
+    cfg = BertConfig.tiny()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(25),
+                         device="cuda", dtype=torch.float32)
+    host = tree_map(lambda t: t.cpu(), params)
+    _zero(fns.values())
+    q_card = bert_serving_engine(params, cfg, weight_dtype="int8",
+                                 device="cuda")
+    built = fns["quantize"].launches
+    q_cpu = bert_serving_engine(host, cfg, weight_dtype="int8", device="cpu")
+    same_codes = all(
+        torch.equal(a.q.cpu(), b.q) and torch.equal(a.scale.cpu(), b.scale)
+        for a, b in zip(_leaves(q_card.params), _leaves(q_cpu.params))
+        if isinstance(b, QuantizedTensor))
+    outs = [_drive_encoder(e, reqs)[0] for e in (
+        q_card, q_cpu, bert_serving_engine(params, cfg, device="cuda"))]
+    cpu_err = max(_rel_np(outs[0][r], outs[1][r]) for r in reqs)
+    bf16_abs = max(float(np.max(np.abs(outs[0][r] - outs[2][r])))
+                   for r in reqs)
+    log(f"[bert identity] int8 bert-tiny: built on the card with {built} B9 "
+        f"launches, codes and scales equal to the CPU build {same_codes}; "
+        f"pooled card vs CPU rel {cpu_err:.3e} (tol {BERT_F32_REL_TOL}); "
+        f"against the unquantized engine max abs {bf16_abs:.4f} (tol "
+        f"{BERT_INT8_POOLED_ABS}); stats {q_card.stats}")
+    if not same_codes or cpu_err > BERT_F32_REL_TOL or built != 6 \
+            or bf16_abs > BERT_INT8_POOLED_ABS:
+        raise SystemExit("bert identity: the int8 engine is wrong")
+    return worst
+
+
+# ------------------------------------------------------------ phase 25
+def _solo_rows(params, cfg, reqs, rids, head):
+    """The requests ``rids`` each run alone through ``cfg``'s forward at
+    its own length (no lot-mates, no padding) -> {rid: float32 row}."""
+    from deepspeed_tpu_torch.models import bert
+
+    out = {}
+    with torch.no_grad():
+        for rid in rids:
+            t = torch.tensor([reqs[rid]], dtype=torch.int32, device="cuda")
+            h = bert.forward(params, t, cfg,
+                             attention_mask=torch.ones_like(t))
+            row = (bert.pooled_output(params, h) if head == "pooled" else
+                   bert.mlm_logits(params, h, cfg) if head == "mlm" else h)
+            out[rid] = row[0].float().cpu().numpy()
+    return out
+
+
+def _one_per_bucket(reqs):
+    picked, seen = [], set()
+    for rid, toks in reqs.items():
+        b = next(x for x in BERT_BUCKETS if len(toks) <= x)
+        if b not in seen:
+            seen.add(b)
+            picked.append(rid)
+    return picked
+
+
+def phase_bert_serving(fns, card_line):
+    """BERT-large at full width (24 layers, 16 heads of 64, V 30522; seeded
+    bf16 weights) through ``bert_serving_engine`` with ``max_batch=8`` and
+    the default buckets (32, 64, 512): 64 requests of seeded lengths 8-512,
+    each head (pooled, MLM, hidden) in bf16, then int8 weights (built on the
+    card by B9, a skip list as JAX's) for the pooled and MLM heads.  Each
+    run is a main path: sequences/s and real tokens/s, per-lot host ms,
+    the padding's share of rows and positions, peak memory; the kernel arm
+    against the plain arm (reference attention) on the same queue, and a
+    request per bucket run alone; int8's resident bytes, build seconds and
+    pooled cosine against bf16."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.encoder_serving import (
+        bert_serving_engine)
+    from deepspeed_tpu_torch.inference.quantized import param_bytes
+    from deepspeed_tpu_torch.models.bert import BertConfig, param_count
+    from deepspeed_tpu_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    cfg = BertConfig.large()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(25),
+                         device="cuda")
+    rng = np.random.default_rng(25)
+    lens = rng.integers(8, cfg.max_seq_len + 1, BERT_REQUESTS)
+    reqs = {f"r{i}": rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for i, n in enumerate(lens)}
+    real = int(lens.sum())
+    log(f"[bert serving] bert-large params={param_count(cfg)} "
+        f"({param_bytes(params)} bytes bf16) layers={cfg.n_layers} "
+        f"{BERT_REQUESTS} requests of {int(lens.min())}-{int(lens.max())} "
+        f"tokens ({real} real), max_batch {BERT_B}, buckets "
+        f"{tuple(min(b, cfg.max_seq_len) for b in BERT_BUCKETS)}")
+    # warm-up: one short lot per bucket (first-use costs), not a main path
+    warm = bert_serving_engine(params, cfg, device="cuda")
+    _drive_encoder(warm, {f"w{b}": list(range(1, min(b, cfg.max_seq_len)))
+                          for b in BERT_BUCKETS})
+    del warm
+    launches, metrics, outs = {}, {}, {}
+
+    def one(path, eng, head, check_params):
+        _zero(fns.values())
+        torch.cuda.reset_peak_memory_stats()
+        out, secs, lot_ms, shipped = _drive_encoder(eng, reqs)
+        torch.cuda.synchronize()
+        used = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        lots = eng.stats["lots"]
+        slots = lots * BERT_B
+        want = {"flash_fwd": lots * cfg.n_layers}
+        if any(used[k] != v for k, v in want.items()) or any(
+                used[k] for k in used if k not in want):
+            raise SystemExit(f"{path}: launches {used}, expected {want}")
+        bad = [r for r, x in out.items() if not np.isfinite(x).all()
+               or x.shape != ((cfg.dim,) if head == "pooled" else (
+                   len(reqs[r]), cfg.vocab_size if head == "mlm"
+                   else cfg.dim))]
+        if bad or set(out) != set(reqs):
+            raise SystemExit(f"{path}: wrong or missing results {bad[:4]}")
+        err = alone = None
+        if check_params is not None:
+            # the plain arm (reference attention) on the same queue: the
+            # same lots and products, the attention aside
+            plain = bert_serving_engine(
+                check_params, dataclasses.replace(cfg, attn_impl="reference"),
+                head=head, max_batch=BERT_B, device="cuda")
+            want = _drive_encoder(plain, reqs)[0]
+            err = max(_rel_np(out[r], want[r]) for r in reqs)
+            del plain, want
+            # a request alone (informational: other product shapes, so
+            # other bf16 roundings over 24 layers)
+            rids = _one_per_bucket(reqs)
+            solo = _solo_rows(check_params, cfg, reqs, rids, head)
+            alone = max(_rel_np(out[r], solo[r]) for r in rids)
+        m = {"seqs_per_s": len(reqs) / secs, "real_tokens_per_s": real / secs,
+             "seconds": secs, "lots": lots,
+             "lot_host_ms_p50": float(np.median(lot_ms)),
+             "lot_host_ms_max": float(np.max(lot_ms)),
+             "rows_padding_share": eng.stats["rows_padded"] / slots,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "positions_padding_share": 1.0 - real / shipped,
+             "plain_arm_rel_err": err, "alone_rel_err": alone,
+             "stats": dict(eng.stats)}
+        launches[path], metrics[path] = used, m
+        log(f"[bert serving] {path}: {m['seqs_per_s']:.2f} sequences/s, "
+            f"{m['real_tokens_per_s']:.1f} real tokens/s over {secs:.3f} s; "
+            f"{lots} lots, per-lot host ms p50 {m['lot_host_ms_p50']:.2f} "
+            f"max {m['lot_host_ms_max']:.2f}; padding: rows "
+            f"{m['rows_padding_share']:.3f}, positions "
+            f"{m['positions_padding_share']:.3f}; peak {m['peak_gb']} GB; kernel "
+            f"arm vs plain arm on the same queue rel {err} (tol "
+            f"{BERT_BF16_REL_TOL}); a request alone vs in its lot rel {alone}"
+            f" (informational); launches {used} on {card_line}")
+        if err is not None and err > BERT_BF16_REL_TOL:
+            raise SystemExit(f"{path}: the kernel arm differs from the "
+                             "plain arm")
+        return out
+
+    for head in ("pooled", "mlm", "hidden"):
+        eng = bert_serving_engine(params, cfg, head=head, max_batch=BERT_B,
+                                  device="cuda")
+        path = f"bert-large serve bf16 {head}"
+        outs[head] = one(path, eng, head, params)
+        if head == "pooled":
+            # where a pooled run's time goes: the same queue once more,
+            # profiled (after the path's counts were read)
+            idle, top, traced = _profiled(lambda: _drive_encoder(eng, reqs))
+            metrics[path].update(profiled_ms=traced, idle_share=idle, top=top)
+            log(f"[bert serving] {path} profiled: {traced:.1f} ms host "
+                f"clock, device idle share {idle}; top device time {top}")
+        del eng
+        if head != "pooled":
+            outs.pop(head)
+        torch.cuda.empty_cache()
+    # int8: built on the card (B9), then served; the MLM engine reuses the
+    # built tree (quantized leaves pass through)
+    _zero(fns.values())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_eng = bert_serving_engine(params, cfg, head="pooled", max_batch=BERT_B,
+                                weight_dtype="int8", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    used = {n: f.launches for n, f in fns.items()}
+    _check_bodies("bert-large int8 build")
+    launches["bert-large int8 build"] = used
+    resident = param_bytes(q_eng.params)
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[bert serving] int8 build: {build_s:.3f} s, {used['quantize']} B9 "
+        f"launches, resident {resident} bytes (bf16 {param_bytes(params)}), "
+        f"peak {build_peak} GB; launches {used}")
+    if used["quantize"] != 6 or any(v for k, v in used.items()
+                                    if k != "quantize"):
+        raise SystemExit("bert-large int8 build: launches wrong")
+    q_out = one("bert-large serve int8 pooled", q_eng, "pooled", None)
+    cos = []
+    for r in reqs:
+        a, b = q_out[r].astype(np.float64), outs["pooled"][r].astype(
+            np.float64)
+        cos.append(float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b),
+                                     1e-30)))
+    m_eng = bert_serving_engine(q_eng.params, cfg, head="mlm",
+                                max_batch=BERT_B, weight_dtype="int8",
+                                device="cuda")
+    one("bert-large serve int8 mlm", m_eng, "mlm", None)
+    metrics["int8"] = {"build_s": build_s, "resident_bytes": resident,
+                       "bf16_bytes": param_bytes(params),
+                       "build_peak_gb": build_peak,
+                       "pooled_cosine_min": min(cos),
+                       "pooled_cosine_mean": float(np.mean(cos))}
+    log(f"[bert serving] int8 pooled against bf16: cosine min {min(cos):.5f} "
+        f"mean {np.mean(cos):.5f} (min >= {BERT_INT8_MIN_COSINE}); phase 25 "
+        f"took {time.perf_counter() - t_phase:.1f} s on {card_line}")
+    if min(cos) < BERT_INT8_MIN_COSINE:
+        raise SystemExit("bert-large int8: pooled vectors far from bf16's")
+    del q_eng, m_eng, params, outs
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+# ------------------------------------------------------------ phase 26
+def _bert_flops_per_sample(cfg, T):
+    """Model FLOPs of one BERT training sample of T positions (3x the
+    forward): per position and layer the four d x d and two d x ffn
+    products, bidirectional attention over all T keys (4 T d), and the MLM
+    head's tied decoder (2 d V) at every position."""
+    d, L, f, V = cfg.dim, cfg.n_layers, cfg.ffn_dim, cfg.vocab_size
+    per_token = 2 * L * (4 * d * d + 2 * d * f) + 4 * T * d * L + 2 * d * V
+    return 3 * T * per_token
+
+
+def _bert_batch(rng, B, T, vocab):
+    """Rows of seeded lengths 128-T (tokens past a row's length are 0),
+    their attention mask, token types (the second half of a row's real
+    tokens is type 1) and 15 % of the real positions labelled."""
+    lens = rng.integers(min(128, T), T + 1, B)
+    live = np.arange(T)[None] < lens[:, None]
+    tokens = np.where(live, rng.integers(1, vocab, (B, T)), 0)
+    types = live & (np.arange(T)[None] >= (lens // 2)[:, None])
+    labels = np.where(live & (rng.random((B, T)) < 0.15), tokens, -100)
+    return {"tokens": tokens.astype(np.int32),
+            "attention_mask": live.astype(np.int32),
+            "token_type_ids": types.astype(np.int32),
+            "mlm_labels": labels.astype(np.int32)}, lens
+
+
+def phase_bert_train(fns, card_line):
+    """BERT-large trained at all 24 layers on one card: MLM at T = 512,
+    micro 8 x accumulation 2, bf16 compute with an f32 master, fused Adam
+    (B4), WarmupLR, clipping 1.0; 5 steps on one batch of padded rows with
+    their attention mask (B1-B3 bidirectional with pad ids), then one
+    profiled step.  The loss falls."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.bert import (BertConfig, loss_fn,
+                                                 param_count)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.timers import ThroughputTimer
+    from deepspeed_tpu_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    cfg = BertConfig.large()
+    M, A = BERT_TRAIN_MICRO, BERT_TRAIN_ACCUM
+    B, T = M * A, min(BERT_TRAIN_T, cfg.max_seq_len)
+    batch, lens = _bert_batch(np.random.default_rng(26), B, T,
+                              cfg.vocab_size)
+    labelled = int((batch["mlm_labels"] >= 0).sum())
+    flops = _bert_flops_per_sample(cfg, T)
+    log(f"[bert train] bert-large params={param_count(cfg)} layers="
+        f"{cfg.n_layers} (all) f32 master, bf16 compute, fused_adam wd=0.01,"
+        f" micro {M} x accumulation {A} x T {T} (rows of "
+        f"{int(lens.min())}-{int(lens.max())} real tokens, {int(lens.sum())}"
+        f" real, {labelled} labelled), clip=1.0 WarmupLR; {flops:.4e} "
+        f"flops/sample")
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(26),
+                         device="cuda", dtype=torch.float32)
+    eng = initialize(loss_fn=loss_fn(cfg), params=params,
+                     config=_train_config(B, A, {"bf16": {"enabled": True}}),
+                     optimizer=fused_adam(lr=_warmup(), weight_decay=0.01),
+                     device="cuda")[0]
+    del params
+    torch.cuda.synchronize()
+    timer = ThroughputTimer(batch_size=B, seq_len=T, flops_per_sample=flops,
+                            start_step=BERT_TRAIN_STEPS - 1, device="cuda")
+    _zero(fns.values())
+    rows = []
+    for _ in range(BERT_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        timer.start()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        ms = (time.perf_counter() - ts) * 1e3
+        timer.stop()
+        rows.append({"loss": loss, "ms": ms,
+                     "grad_norm": eng.get_global_grad_norm(),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    path = "bert-large training"
+    used = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    leaves = len(tree_leaves(eng.state.params))
+    L, S = cfg.n_layers, BERT_TRAIN_STEPS
+    want = {"flash_fwd": L * A * S, "flash_bwd_dq": L * A * S,
+            "flash_bwd_dkv": L * A * S, "fused_adam": leaves * S}
+    idle, top, traced = _profiled(lambda: float(eng.train_batch(batch)))
+    tput = timer.summary()
+    losses = [r["loss"] for r in rows]
+    ms_steady = float(np.median([r["ms"] for r in rows[1:]]))
+    out = {"steps": rows, "launches": used, "tput": tput, "idle_share": idle,
+           "traced_ms": traced, "top": top,
+           "real_tokens_per_s": float(lens.sum()) / ms_steady * 1e3,
+           "ms_per_step": ms_steady}
+    log(f"[bert train] losses {losses} ms/step "
+        f"{[round(r['ms'], 1) for r in rows]} peak GB "
+        f"{[r['peak_gb'] and round(r['peak_gb'], 3) for r in rows]}; "
+        f"real tokens/s {out['real_tokens_per_s']:.1f} (steady median); "
+        f"ThroughputTimer over the last step: {tput['tokens_per_sec']:.1f} "
+        f"tokens/s (padding included), {tput['tflops']:.1f} TFLOP/s, MFU "
+        f"{tput['mfu']:.4f}; profiled step {traced:.1f} ms host clock, idle "
+        f"share {idle}; top device time {top} on {card_line}; launches "
+        f"{used}; phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    if any(used[k] != v for k, v in want.items()) or any(
+            used[k] for k in used if k not in want):
+        raise SystemExit(f"phase 26: launches {used}, expected {want}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise SystemExit(f"phase 26: the loss did not fall: {losses}")
+    del eng
+    torch.cuda.empty_cache()
+    return {path: used}, out
+
+
+def _profiled(fn):
+    """``fn()`` once under ``torch.profiler`` -> (device idle share, the
+    top device kernels, the host ms of the call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - ts) * 1e3
+    busy = _device_busy_ms(prof)
+    evs = _device_events(prof)
+    top = [(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 2))
+           for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]]
+    return (1.0 - busy / traced if busy else None), top, traced
+
+
+# ------------------------------------------------------------ phase 27
+def phase_cnn(fns, card_line):
+    """The CIFAR CNN (``CNNConfig()``, seeded f32 weights): 64 images served
+    through ``serving_engine`` in lots of 8 against the same engine on the
+    CPU (TF32 off), then 5 train steps at batch 128 (bf16 compute, f32
+    master, fused Adam: B4) on one batch, the loss falling, and 3 f32 steps
+    against the same on the CPU; then ``stochastic_round_bf16`` on a card
+    tensor."""
+    from deepspeed_tpu_torch._tree import tree_leaves, tree_map
+    from deepspeed_tpu_torch.inference.serving import serving_engine
+    from deepspeed_tpu_torch.models import cnn
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = cnn.CNNConfig()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(27),
+                         device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(27)
+    imgs = {f"i{k}": rng.normal(size=(32, 32, 3)).astype(np.float32)
+            for k in range(CNN_IMAGES)}
+    launches, out = {}, {}
+    warm = serving_engine(params, cfg, device="cuda")
+    warm.submit("w", imgs["i0"])
+    warm.run()
+    eng = serving_engine(params, cfg, device="cuda")
+    _zero(fns.values())
+    got, secs, lot_ms, _ = _drive_encoder(eng, imgs)
+    launches["cnn serve"] = {n: f.launches for n, f in fns.items()}
+    host = serving_engine(tree_map(lambda t: t.cpu(), params), cfg,
+                          device="cpu")
+    want = _drive_encoder(host, imgs)[0]
+    err = max(float(np.max(np.abs(got[r] - want[r]))) for r in imgs)
+    out["serve"] = {"images_per_s": len(imgs) / secs, "seconds": secs,
+                    "lot_host_ms_p50": float(np.median(lot_ms)),
+                    "lot_host_ms_max": float(np.max(lot_ms)),
+                    "max_abs_err_vs_cpu": err, "stats": dict(eng.stats)}
+    log(f"[cnn] serve {len(imgs)} images in lots of 8: "
+        f"{out['serve']['images_per_s']:.1f} images/s, per-lot host ms p50 "
+        f"{out['serve']['lot_host_ms_p50']:.3f} max "
+        f"{out['serve']['lot_host_ms_max']:.3f}; card vs CPU max abs "
+        f"{err:.3e} (tol {CNN_TOL}); stats {eng.stats}; launches "
+        f"{launches['cnn serve']} (the convolutions are cuDNN's, as the JAX "
+        f"package leaves them to XLA: no kernel of the repo)")
+    if err > CNN_TOL or eng.stats != {"lots": CNN_IMAGES // 8,
+                                      "requests": CNN_IMAGES}:
+        raise SystemExit("phase 27: CNN serving differs from the CPU engine")
+    B = CNN_TRAIN_B
+    batch = {"images": rng.normal(size=(B, 32, 32, 3)).astype(np.float32),
+             "labels": rng.integers(0, cfg.num_classes, B).astype(np.int32)}
+    tr = _cnn_engine(params, B, True, "cuda")
+    _zero(fns.values())
+    rows = []
+    for _ in range(CNN_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        loss = float(tr.train_batch(batch))
+        rows.append({"loss": loss, "ms": (time.perf_counter() - ts) * 1e3,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    used = {n: f.launches for n, f in fns.items()}
+    launches["cnn training"] = used
+    losses = [r["loss"] for r in rows]
+    leaves = len(tree_leaves(tr.state.params))
+    out["train"] = {"steps": rows}
+    log(f"[cnn] train batch {B} bf16 compute, fused_adam, {CNN_TRAIN_STEPS} "
+        f"steps: losses {losses} ms/step {[round(r['ms'], 2) for r in rows]}"
+        f" peak GB {[r['peak_gb'] for r in rows]}; launches {used}")
+    if used["fused_adam"] != leaves * CNN_TRAIN_STEPS or any(
+            v for k, v in used.items() if k != "fused_adam"):
+        raise SystemExit(f"phase 27: CNN training launches {used}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise SystemExit(f"phase 27: the CNN loss did not fall: {losses}")
+    # f32, the card's engine against the CPU's (plain versions)
+    arms = [_cnn_engine(p, B, False, d) for p, d in (
+        (params, "cuda"), (tree_map(lambda t: t.cpu(), params), "cpu"))]
+    traj = [[float(e.train_batch(batch)) for _ in range(3)] for e in arms]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
+    out["train"]["f32_card_vs_cpu_rel"] = rel
+    log(f"[cnn] f32 train, card against CPU over 3 steps: losses {traj[0]} /"
+        f" {traj[1]}, rel {rel:.3e} (tol {CNN_TRAIN_RTOL})")
+    if rel > CNN_TRAIN_RTOL:
+        raise SystemExit("phase 27: CNN training on the card differs from "
+                         "the CPU's")
+    del arms
+    out["rounding"] = _rounding_on_card()
+    del eng, tr, params
+    return launches, out
+
+
+def _cnn_engine(params, B, bf16, device):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.lr_schedules import warmup_lr
+    from deepspeed_tpu_torch.models import cnn
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+
+    lr = warmup_lr(warmup_min_lr=0.0, warmup_max_lr=CNN_LR,
+                   warmup_num_steps=3)
+    return initialize(loss_fn=cnn.loss_fn, params=params,
+                      config=_train_config(B, 1, {"bf16": {"enabled": bf16}}),
+                      optimizer=fused_adam(lr=lr, weight_decay=0.1),
+                      device=device)[0]
+
+
+def _rounding_on_card():
+    """``stochastic_round_bf16`` on a tensor on the card: only the two bf16
+    neighbours appear, values bf16 holds are unchanged, NaN and +-inf take
+    the plain cast, the mean of 2^20 draws of one value is within 5
+    standard errors of it, and on the same random bits the card's result
+    equals the CPU's bit for bit.  For one seed PyTorch's CUDA generator
+    (Philox) and CPU generator (mt19937) give different bits, so the
+    results on the same seed are compared and reported, not required
+    equal."""
+    from deepspeed_tpu_torch.ops.rounding import (random_bits,
+                                                  round_with_bits,
+                                                  stochastic_round_bf16)
+
+    g = torch.Generator("cuda").manual_seed(5)
+    n = 1 << 20
+    x = (torch.randn(n, generator=g, device="cuda")
+         * torch.pow(10.0, torch.randint(-20, 20, (n,), generator=g,
+                                         device="cuda").float()))
+    y = stochastic_round_bf16(x, g)
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    yb = y.view(torch.int16).to(torch.int64) & 0xFFFF
+    neighbours = bool(((yb == u >> 16) | (yb == (u >> 16) + 1)).all())
+    held = x.to(torch.bfloat16)
+    unchanged = torch.equal(stochastic_round_bf16(held.float(), g), held)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                           device="cuda")
+    s = stochastic_round_bf16(special, g).float().cpu()
+    plain_cast = bool(torch.isnan(s[0]) and s[1] == float("inf")
+                      and s[2] == -float("inf"))
+    v = 1.0 + 3 * 2 ** -9                          # rounds up with p = 0.75
+    m = stochastic_round_bf16(torch.full((n,), v, device="cuda"), g).double()
+    se = 2 ** -7 * (0.75 * 0.25 / n) ** 0.5
+    mean_dev = abs(float(m.mean()) - v) / se
+    bits = random_bits((n,), torch.Generator().manual_seed(6))
+    same_bits = torch.equal(round_with_bits(x, bits.to("cuda")).cpu(),
+                            round_with_bits(x.cpu(), bits))
+    seed_equal = torch.equal(
+        stochastic_round_bf16(x, torch.Generator("cuda").manual_seed(7)).cpu(),
+        stochastic_round_bf16(x.cpu(), torch.Generator().manual_seed(7)))
+    res = {"neighbours_only": neighbours, "held_unchanged": unchanged,
+           "non_finite_plain_cast": plain_cast,
+           "mean_deviation_in_se": mean_dev, "same_bits_equal_cpu": same_bits,
+           "same_seed_equal_cpu": seed_equal}
+    log(f"[rounding] stochastic_round_bf16 on the card, {n} values: only the "
+        f"two bf16 neighbours {neighbours}; bf16 values unchanged "
+        f"{unchanged}; NaN/inf plain cast {plain_cast}; mean of {n} draws of "
+        f"{v} off by {mean_dev:.2f} standard errors (limit 5); on the same "
+        f"bits equal to the CPU's {same_bits}; on the same seed equal to the "
+        f"CPU's {seed_equal}"
+        + ("" if seed_equal else " (PyTorch's CUDA generator, Philox, and "
+           "its CPU generator, mt19937, give different bits for one seed)"))
+    if not (neighbours and unchanged and plain_cast and mean_dev <= 5
+            and same_bits):
+        raise SystemExit("phase 27: stochastic rounding on the card is wrong")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3903,12 +4756,14 @@ def main() -> int:
     quant_kernels = [phase_quant(gen), probe_row]
     gpt2_cases = phase_gpt2_kernels(gen)
     mixtral_cases = phase_mixtral_kernels(gen)
+    bert_cases = phase_bert_kernels(gen)
     torch.cuda.empty_cache()
     phase_identity(kernels)
     phase_tier_identity(fns)
     phase_int8_identity(fns)
     phase_gpt2_identity(fns)
     phase_mixtral_identity(fns)
+    phase_bert_identity(fns)
     launches = {"env report": probe_launches}
     launches.update(phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
@@ -3917,6 +4772,8 @@ def main() -> int:
     launches.update(phase_gpt2_small(fns, card_line)[0])
     torch.cuda.empty_cache()
     launches.update(phase_mixtral_serving(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_bert_serving(fns, card_line)[0])
     torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels + tier_kernels + quant_kernels}
     rows.update(phase_backward(gen))
@@ -3930,6 +4787,11 @@ def main() -> int:
     launches.update(phase_gpt2_train(fns, card_line)[0])
     torch.cuda.empty_cache()
     launches.update(phase_mixtral_train(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_bert_train(fns, card_line)[0])
+    launches.update(phase_cnn(fns, card_line)[0])
+    for name, cases in bert_cases.items():
+        rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():
         rows[name]["gpt2_shapes"] = cases
     for name, cases in mixtral_cases.items():
@@ -3957,7 +4819,8 @@ def main() -> int:
         for key in ("device_ms", "library_device_ms", "device_median_ms",
                     "library_device_median_ms", "bound_share",
                     "training_shape", "chunk", "f32_split", "kv_rows",
-                    "kv_write", "cases", "gpt2_shapes", "mixtral_shapes"):
+                    "kv_write", "cases", "gpt2_shapes", "mixtral_shapes",
+                    "bert_shapes"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

@@ -5,7 +5,9 @@ Ported: Llama, GPT-2 and Mixtral (MoE: the capacity-limited top-k gate of
 ``parallel/moe.py`` in training, the dense top-k combine in serving) greedy
 serving with continuous batching over a paged KV cache (prefix cache, host
 KV tier, int8-resident pages, int8 weights), their dense and paged
-generators, the train step at ZeRO stage 0
+generators; the BERT and CIFAR CNN encoder families, served by lot
+batching (BERT in bf16 or int8 weights); stochastic rounding; the train
+step at ZeRO stage 0
 on one GPU (``initialize`` -> ``TrainingEngine.train_batch``) with its data
 loader, packing, curriculum, activation checkpointing (the host-offload
 policies too), timers and checkpoints (``save_checkpoint`` /
@@ -26,11 +28,18 @@ _EXPORTS = {
     "LlamaConfig": "deepspeed_tpu_torch.models.llama",
     "GPT2Config": "deepspeed_tpu_torch.models.gpt2",
     "MixtralConfig": "deepspeed_tpu_torch.models.mixtral",
+    "BertConfig": "deepspeed_tpu_torch.models.bert",
+    "CNNConfig": "deepspeed_tpu_torch.models.cnn",
     "ServingEngine": "deepspeed_tpu_torch.inference.serving",
     "llama_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "gpt2_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "mixtral_serving_engine": "deepspeed_tpu_torch.inference.serving",
     "serving_engine": "deepspeed_tpu_torch.inference.serving",
+    "EncoderServingEngine": "deepspeed_tpu_torch.inference.encoder_serving",
+    "CNNServingEngine": "deepspeed_tpu_torch.inference.encoder_serving",
+    "bert_serving_engine": "deepspeed_tpu_torch.inference.encoder_serving",
+    "stochastic_round_bf16": "deepspeed_tpu_torch.ops.rounding",
+    "stochastic_round_tree": "deepspeed_tpu_torch.ops.rounding",
     "from_jax_params": "deepspeed_tpu_torch.weights",
     "from_jax_train_state": "deepspeed_tpu_torch.weights",
     "DataLoader": "deepspeed_tpu_torch.data.loader",

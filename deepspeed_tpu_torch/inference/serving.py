@@ -1181,10 +1181,67 @@ def _to_device(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
+def _refuse_for_encoder(cfg, kw) -> None:
+    """The JAX registry's guards for a family without the paged-KV decode
+    path: each block that needs it raises ``NotImplementedError`` with the
+    JAX message when enabled; ``tracing``, ``history``, ``incidents`` and
+    ``devprof`` ride the decode scheduler's lifecycle and are accepted and
+    unused, as there.  Pops every key it reads from ``kw``."""
+    from deepspeed_tpu_torch.config import (CommConfig, KernelsConfig,
+                                            SLOConfig, SpeculativeConfig)
+
+    name = type(cfg).__name__
+    decoders = "supported: LlamaConfig, MixtralConfig, GPT2Config"
+    for key in ("tracing", "history", "incidents", "devprof"):
+        kw.pop(key, None)
+    kn = kw.pop("kernels", None)
+    if kn is not None:
+        k = KernelsConfig.coerce(kn)
+        if k.paged_attention != "auto" or k.fused_sampling != "auto":
+            raise NotImplementedError(
+                f"the kernels block pins paged-KV decode kernels, which "
+                f"{name} does not serve — {decoders}")
+    cm = kw.pop("comm", None)
+    if cm is not None and CommConfig.coerce(cm).quantized_serving:
+        raise NotImplementedError(
+            f"comm.quantized_serving quantizes TP replica weight placement, "
+            f"which {name} does not serve — {decoders}")
+    sp = kw.pop("speculative", None)
+    kw.pop("drafter", None)
+    if sp is not None and SpeculativeConfig.coerce(sp).enabled:
+        raise NotImplementedError(
+            f"speculative decoding needs the paged-KV decode path, which "
+            f"{name} does not serve — {decoders}")
+    # the port's FaultsConfig refuses any enabled block itself (the fault
+    # plan comes with the control-plane slice): the opt-in rule decides
+    checks = (("slo", SLOConfig.coerce, "the slo block needs"),
+              ("prefix_cache", PrefixCacheConfig.coerce, "prefix_cache needs"),
+              ("kv_tier", KVTierConfig.coerce, "kv_tier needs"),
+              ("faults", lambda v: v, "the faults block needs"))
+    for key, coerce, what in checks:
+        value = kw.pop(key, None)
+        if value is not None and _enabled(coerce(value)):
+            raise NotImplementedError(
+                f"{what} the paged-KV decode path, which {name} does not "
+                f"serve — {decoders}")
+    if kw.pop("shed_queue_depth", 0) or kw.pop("shed_expired_deadline",
+                                               False):
+        raise NotImplementedError(
+            f"load shedding lives in the paged-KV admission path, which "
+            f"{name} does not serve — {decoders}")
+
+
 def serving_engine(params, cfg, **kw):
-    """Model registry for serving: dispatch on the config type (Mixtral
-    first, as in the JAX registry, then Llama and GPT-2; the other
-    families come with later slices)."""
+    """Model registry for serving: dispatch on the config type, in the JAX
+    registry's order.  Decoder LMs (Mixtral, Llama, GPT-2) get the paged
+    continuous-batching engine; the encoder families (BERT, the CNN) the
+    lot-batching engines of :mod:`~deepspeed_tpu_torch.inference.
+    encoder_serving` (the same submit/run surface, no decode loop), after
+    the JAX registry's refusals of the blocks only the decode path serves.
+    Any other config raises ``TypeError``."""
+    from deepspeed_tpu_torch.config import ZeroInferenceConfig
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    from deepspeed_tpu_torch.models.cnn import CNNConfig
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config
     from deepspeed_tpu_torch.models.llama import LlamaConfig
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig
@@ -1193,8 +1250,32 @@ def serving_engine(params, cfg, **kw):
         return mixtral_serving_engine(params, cfg, **kw)
     if isinstance(cfg, LlamaConfig):
         return llama_serving_engine(params, cfg, **kw)
+    zi = kw.pop("zero_inference", None)
+    if zi is not None and ZeroInferenceConfig.coerce(zi).enabled:
+        # weight streaming needs the per-layer paged factoring of the
+        # layered decoder families; never serve resident quietly
+        raise NotImplementedError(
+            f"zero_inference streaming is not wired for "
+            f"{type(cfg).__name__} — supported: LlamaConfig, MixtralConfig")
     if isinstance(cfg, GPT2Config):
         return gpt2_serving_engine(params, cfg, **kw)
-    raise NotImplementedError(
-        f"no serving path for {type(cfg).__name__} in deepspeed_tpu_torch "
-        "yet; the other model families come with a later slice")
+    _refuse_for_encoder(cfg, kw)
+    if isinstance(cfg, BertConfig):
+        from deepspeed_tpu_torch.inference.encoder_serving import (
+            bert_serving_engine)
+
+        return bert_serving_engine(params, cfg, **kw)
+    if isinstance(cfg, CNNConfig):
+        from deepspeed_tpu_torch.inference.encoder_serving import (
+            CNNServingEngine)
+
+        for unsupported in ("mesh", "weight_dtype"):
+            if kw.get(unsupported) not in (None, "bfloat16"):
+                raise NotImplementedError(
+                    f"CNN serving does not support {unsupported!r} — it is "
+                    "a fixed-shape batched scorer")
+            kw.pop(unsupported, None)
+        return CNNServingEngine(params, cfg=cfg, **kw)
+    raise TypeError(
+        f"no serving path for config type {type(cfg).__name__}; supported: "
+        "LlamaConfig, MixtralConfig, GPT2Config, BertConfig, CNNConfig")

@@ -1,0 +1,210 @@
+"""BERT encoder family (port of ``deepspeed_tpu/models/bert.py``; ref:
+DeepSpeed's BingBertSquad / bert_pretrain examples and the encoder kernels
+of deepspeed/ops/transformer).
+
+The layer stack of :mod:`deepspeed_tpu_torch.models.gpt2` with BERT's
+parts: bidirectional attention, learned position and token-type
+embeddings, post-LN blocks (LayerNorm after each residual add) with a fused
+QKV projection with bias and a tanh-GELU MLP, a [CLS] pooler, and the MLM
+head (dense, GELU, LayerNorm, the decoder tied to ``embed`` through
+``f32_matmul(h, embed.T)``: bf16 operands on the card, f32 logits).
+Parameters keep the JAX pytree layout (``embed``, ``pos_embed``,
+``type_embed``, ``embed_norm``, stacked ``blocks`` leaves ``[L, in, out]``,
+``pooler``, ``mlm_dense``, ``mlm_norm``, ``mlm_bias``), so the weight bridge
+is a plain copy.
+
+Padding is masked through segment ids: the JAX model passes its
+``attention_mask`` (1 real, 0 pad) as ``segment_ids`` to the attention, so
+a real token sees the real tokens of its row and a pad token the pads.
+Here that is the flash kernels B1-B3 with ``causal=False`` (the JAX model
+calls ``reference_attention``, the same function as B1), or the plain
+attention with ``attn_impl="reference"``.  With no mask every token sees
+every token.
+
+Int8 weights: any leaf may be an int8
+:class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor`; the
+forwards carry ``takes_quantized`` and dequantize one layer at a time
+(``quantized.take``).  Products run in the promoted dtype of their
+operands, as ``jnp`` promotes them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
+from deepspeed_tpu_torch.models.gpt2 import _mm
+from deepspeed_tpu_torch.models.llama import ATTN_IMPLS
+from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
+from deepspeed_tpu_torch.ops.fused_ops import gelu, gelu_mlp, layer_norm
+from deepspeed_tpu_torch.ops.losses import _masked_mean, f32_matmul
+from deepspeed_tpu_torch.remat import (check as check_remat,
+                                       checkpoint_block, checkpoint_named)
+
+
+@dataclasses.dataclass
+class BertConfig:
+    vocab_size: int = 30522
+    dim: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    ffn_dim: int = 3072
+    max_seq_len: int = 512
+    type_vocab_size: int = 2
+    norm_eps: float = 1e-12
+    remat: str = "none"
+    attn_impl: str = "auto"                # auto | flash | reference
+
+    def __post_init__(self):
+        if self.dim % self.n_heads:
+            raise ValueError(f"dim {self.dim} / n_heads {self.n_heads} do "
+                             "not divide")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r}: the port serves "
+                f"{'|'.join(ATTN_IMPLS)}; ring/ulysses/sparse come with the "
+                "distributed slice")
+        check_remat(self.remat)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @classmethod
+    def base(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def large(cls, **kw):
+        return cls(dim=1024, n_layers=24, n_heads=16, ffn_dim=4096, **kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("dim", 64)
+        kw.setdefault("n_layers", 2)
+        kw.setdefault("n_heads", 4)
+        kw.setdefault("ffn_dim", 128)
+        kw.setdefault("max_seq_len", 64)
+        return cls(**kw)
+
+
+def param_count(cfg: BertConfig) -> int:
+    d, f, L, V = cfg.dim, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
+    per_layer = (d * 3 * d + 3 * d) + (d * d + d) + (d * f + f) + \
+        (f * d + d) + 4 * d
+    heads = (d * d + d) * 2 + 2 * d + V
+    return int(L * per_layer + (V + cfg.max_seq_len + cfg.type_vocab_size) * d
+               + 2 * d + heads)
+
+
+def param_specs(cfg: BertConfig):
+    """The tensor-parallel layout comes with the distributed slice."""
+    raise NotImplementedError(
+        "bert.param_specs: sharded BERT (tensor parallelism over a mesh) "
+        "comes with the distributed slice (ROADMAP A9)")
+
+
+# ------------------------------------------------------------------- blocks
+def _attention(cfg: BertConfig, q, k, v, attention_mask):
+    if cfg.attn_impl == "reference":
+        return _reference(q, k, v, causal=False, segment_ids=attention_mask)
+    return flash_attention(q, k, v, causal=False,
+                           segment_ids=attention_mask)
+
+
+def _attn_out(cfg: BertConfig, lp, x, attention_mask):
+    """The block's attention context [B, T, d] (JAX's ``attn_out``): the
+    fused QKV product, then bidirectional attention within each row's
+    mask id (q, k, v each contiguous: the flash kernels read them so)."""
+    B, T, d = x.shape
+    qkv = (_mm(x, lp["wqkv"]) + lp["bqkv"]).reshape(
+        B, T, 3, cfg.n_heads, cfg.head_dim)
+    q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+    return _attention(cfg, q, k, v, attention_mask).reshape(B, T, d)
+
+
+def _mlp_out(lp, x):
+    """The MLP's output [B, T, d] (JAX's ``mlp_out``)."""
+    dt = torch.promote_types(x.dtype, lp["w_in"].dtype)
+    return gelu_mlp(x.to(dt), lp["w_in"].to(dt), lp["b_in"],
+                    lp["w_out"].to(dt), lp["b_out"])
+
+
+def _block(cfg: BertConfig, lp, x, attention_mask):
+    """One post-LN encoder block; under ``save_attn`` / ``offload_attn``
+    its two named stages are checkpointed."""
+    attn = checkpoint_named(_attn_out, cfg.remat)(cfg, lp, x,
+                                                  attention_mask)
+    x = layer_norm(x + _mm(attn, lp["wo"]) + lp["bo"],
+                   lp["attn_norm_scale"], lp["attn_norm_bias"], cfg.norm_eps)
+    h = checkpoint_named(_mlp_out, cfg.remat)(lp, x)
+    return layer_norm(x + h, lp["mlp_norm_scale"], lp["mlp_norm_bias"],
+                      cfg.norm_eps)
+
+
+def _layer(params, l: int):
+    return {name: take(w, l) for name, w in params["blocks"].items()}
+
+
+# ----------------------------------------------------------------- forwards
+@takes_quantized
+def forward(params, tokens, cfg: BertConfig, token_type_ids=None,
+            attention_mask=None):
+    """tokens [B, T] int -> hidden states [B, T, d].  ``attention_mask``
+    [B, T] (1 real, 0 pad) confines each token to the tokens of its own
+    id; ``token_type_ids`` [B, T] adds the type embedding."""
+    T = tokens.shape[1]
+    x = take(params["embed"], tokens.long()) + take(params["pos_embed"],
+                                                     slice(0, T))
+    if token_type_ids is not None:
+        x = x + take(params["type_embed"], token_type_ids.long())
+    x = layer_norm(x, take(params["embed_norm"]["scale"]),
+                   take(params["embed_norm"]["bias"]), cfg.norm_eps)
+    if attention_mask is not None:
+        attention_mask = attention_mask.to(device=x.device,
+                                           dtype=torch.int32)
+    block = checkpoint_block(_block, cfg.remat)
+    for l in range(cfg.n_layers):
+        x = block(cfg, _layer(params, l), x, attention_mask)
+    return x
+
+
+@takes_quantized
+def pooled_output(params, hidden):
+    """[CLS] pooler (ref: BertPooler): tanh(dense(h[:, 0])) -> [B, d]."""
+    return torch.tanh(_mm(hidden[:, 0], take(params["pooler"]["w"]))
+                      + take(params["pooler"]["b"]))
+
+
+@takes_quantized
+def mlm_logits(params, hidden, cfg: BertConfig):
+    """MLM head -> f32 logits [B, T, V]: dense, GELU, LayerNorm, then the
+    decoder tied to ``embed`` (its transpose, a view) with an f32 result,
+    plus ``mlm_bias``."""
+    h = gelu(_mm(hidden, take(params["mlm_dense"]["w"]))
+             + take(params["mlm_dense"]["b"]))
+    h = layer_norm(h, take(params["mlm_norm"]["scale"]),
+                   take(params["mlm_norm"]["bias"]), cfg.norm_eps)
+    head = take(params["embed"]).T
+    dt = torch.promote_types(h.dtype, head.dtype)
+    return f32_matmul(h.to(dt), head.to(dt)) + take(params["mlm_bias"])
+
+
+def loss_fn(cfg: BertConfig):
+    """MLM cross-entropy: the mean NLL of the f32 logits over the positions
+    with ``mlm_labels >= 0`` (-100 = unmasked), divided by max(count, 1);
+    batch = {tokens, mlm_labels, (token_type_ids, attention_mask)}."""
+    def f(params, batch):
+        hidden = forward(params, batch["tokens"], cfg,
+                         token_type_ids=batch.get("token_type_ids"),
+                         attention_mask=batch.get("attention_mask"))
+        logits = mlm_logits(params, hidden, cfg)
+        labels = batch["mlm_labels"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        return _masked_mean(nll, labels >= 0)
+
+    return f

@@ -4,8 +4,11 @@ state, and a seeded initialiser that builds a model on the card.
 The port keeps the JAX pytree layout (Llama's ``embed``, stacked ``blocks``
 leaves ``[L, in, out]``, ``final_norm``, ``lm_head``; Mixtral's the same
 plus the router ``gate`` ``[L, d, E]`` and expert stacks ``[L, E, in,
-out]``; GPT-2's ``wte``, ``wpe``, ``blocks``, ``lnf_w``, ``lnf_b``), so the
-bridge is a plain array copy: no transposes, no renames.
+out]``; GPT-2's ``wte``, ``wpe``, ``blocks``, ``lnf_w``, ``lnf_b``; BERT's
+``embed``, ``pos_embed``, ``type_embed``, ``blocks`` and the pooler and MLM
+head dicts; the CNN's HWIO convolution kernels and dense ``[in, out]``
+matrices), so the bridge is a plain array copy: no transposes, no
+renames.
 :func:`init_quantized_params` builds a model's int8 tree a layer at a time,
 for a model whose bf16 weights would not fit the card.
 """
@@ -109,11 +112,17 @@ def _w(*shape) -> _Leaf:
 
 def _layout(cfg) -> Dict[str, Any]:
     """The JAX layout of ``cfg``'s params, leaf by leaf in draw order."""
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    from deepspeed_tpu_torch.models.cnn import CNNConfig
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 
     if isinstance(cfg, GPT2Config):
         return _gpt2_layout(cfg)
+    if isinstance(cfg, BertConfig):
+        return _bert_layout(cfg)
+    if isinstance(cfg, CNNConfig):
+        return _cnn_layout(cfg)
     d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     blocks = {
@@ -167,17 +176,69 @@ def _gpt2_layout(cfg) -> Dict[str, Any]:
     }
 
 
+def _bert_layout(cfg) -> Dict[str, Any]:
+    d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
+
+    def w(*shape):
+        return _Leaf("normal", shape, 0.02)
+
+    def const(value, *shape):
+        return _Leaf("const", shape, value)
+
+    def norm(*lead):
+        return {"scale": const(1.0, *lead, d), "bias": const(0.0, *lead, d)}
+
+    return {
+        "embed": w(cfg.vocab_size, d),
+        "pos_embed": w(cfg.max_seq_len, d),
+        "type_embed": w(cfg.type_vocab_size, d),
+        "embed_norm": norm(),
+        "blocks": {
+            "wqkv": w(L, d, 3 * d), "bqkv": const(0.0, L, 3 * d),
+            "wo": w(L, d, d), "bo": const(0.0, L, d),
+            "attn_norm_scale": const(1.0, L, d),
+            "attn_norm_bias": const(0.0, L, d),
+            "w_in": w(L, d, f), "b_in": const(0.0, L, f),
+            "w_out": w(L, f, d), "b_out": const(0.0, L, d),
+            "mlp_norm_scale": const(1.0, L, d),
+            "mlp_norm_bias": const(0.0, L, d),
+        },
+        "pooler": {"w": w(d, d), "b": const(0.0, d)},
+        "mlm_dense": {"w": w(d, d), "b": const(0.0, d)},
+        "mlm_norm": norm(),
+        "mlm_bias": const(0.0, cfg.vocab_size),
+    }
+
+
+def _cnn_layout(cfg) -> Dict[str, Any]:
+    c, k = cfg.channels, cfg.num_classes
+
+    def w(*shape):
+        # std 1/sqrt(fan_in), fan_in = every dim but the output one (an
+        # HWIO kernel's H * W * I)
+        return _Leaf("normal", shape, 1.0 / math.sqrt(math.prod(shape[:-1])))
+
+    def zeros(n):
+        return _Leaf("const", (n,), 0.0)
+
+    return {"conv1": w(3, 3, 3, c), "b1": zeros(c),
+            "conv2": w(3, 3, c, 2 * c), "b2": zeros(2 * c),
+            "fc1": w(2 * c * 8 * 8, 128), "fb1": zeros(128),
+            "fc2": w(128, k), "fb2": zeros(k)}
+
+
 def _make(leaf: _Leaf, generator, dev, dtype) -> torch.Tensor:
     if leaf.kind == "const":
         return torch.full(leaf.shape, leaf.value, dtype=dtype, device=dev)
     return _normal(leaf.shape, generator, dev, dtype, leaf.value)
 
 
-def _build(tree, fn):
-    """``fn(name, leaf, stacked)`` over a layout in draw order; ``stacked``:
-    the leaf is a ``blocks`` leaf, whose first dim is the layer."""
-    return {k: ({n: fn(n, leaf, True) for n, leaf in v.items()}
-                if k == "blocks" else fn(k, v, False))
+def _build(tree, fn, stacked: bool = False):
+    """``fn(name, leaf, stacked)`` over a layout in draw order, nested dicts
+    kept (``name`` is the leaf's own key); ``stacked``: the leaf is a
+    ``blocks`` leaf, whose first dim is the layer."""
+    return {k: (_build(v, fn, stacked or k == "blocks")
+                if isinstance(v, dict) else fn(k, v, stacked))
             for k, v in tree.items()}
 
 
@@ -185,12 +246,14 @@ def init_params(cfg, generator: torch.Generator, device=None,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Random weights in the JAX layout, drawn on ``device`` from
     ``generator`` (a ``torch.Generator`` on that device), for a Llama, a
-    Mixtral or a GPT-2 config.  Llama and Mixtral: normal with std
-    1/sqrt(fan_in) as the JAX ``init_params`` does (the expert stacks
-    ``[L, E, in, out]`` by their ``in``), Mixtral's router ``gate`` with std
-    0.02, norms at one.  GPT-2: normal with std 0.02 (``gpt2.py``'s),
-    LayerNorm weights at one and biases at zero.  JAX's threefry draws
-    cannot be reproduced; only the distribution matches.  Stacked leaves
+    Mixtral, a GPT-2, a BERT or a CNN config.  Llama and Mixtral: normal
+    with std 1/sqrt(fan_in) as the JAX ``init_params`` does (the expert
+    stacks ``[L, E, in, out]`` by their ``in``), Mixtral's router ``gate``
+    with std 0.02, norms at one.  GPT-2 and BERT: normal with std 0.02 (as
+    ``gpt2.py`` and ``bert.py`` draw), LayerNorm weights at one and biases
+    at zero.  The CNN: normal with std 1/sqrt(fan_in) over every dim but the
+    last (an HWIO kernel's H * W * I), biases at zero.  JAX's threefry
+    draws cannot be reproduced; only the distribution matches.  Stacked leaves
     are drawn one ``[in, out]`` matrix at a time, so the f32 scratch is
     one matrix, not the model."""
     dev = resolve_device(device)

@@ -209,6 +209,53 @@ def test_flash_bwd_wgmma_matches_plain_and_tiled(gen, D, T, S, G, causal,
         assert _rel_err(g, t) <= rel, name
 
 
+def _pad_ids(B, T):
+    """BERT's attention mask as segment ids: row b holds 1 on its first
+    len_b positions and 0 after (ids that descend), the last row all 0 (a
+    lot's filler row, every position padding)."""
+    seg = torch.zeros((B, T), dtype=torch.int32, device="cuda")
+    for b in range(B - 1):
+        seg[b, :max(1, (T * (b + 1)) // B - 3 * b)] = 1
+    return seg
+
+
+# BERT's path: bidirectional (causal=False), pad ids that descend, a filler
+# row all padding, head_dim 64 (and 128), H = KV (G = 1) and GQA 4, T from
+# one short tile (32) through a ragged 77 to the longest bucket, 512
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [32, 77, 512])
+@pytest.mark.parametrize("G", [1, 4])
+def test_flash_non_causal_pad_ids_match_plain_and_tiled(gen, D, T, G):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd, flash_bwd_reference, flash_bwd_tiled_reference,
+        flash_fwd, flash_fwd_body, flash_fwd_reference,
+        flash_fwd_tiled_reference)
+
+    dt = torch.bfloat16
+    B = 3
+    q = _randn(gen, (B, T, 2 * G, D), dt)
+    k = _randn(gen, (B, T, 2, D), dt)
+    v = _randn(gen, (B, T, 2, D), dt)
+    do = _randn(gen, (B, T, 2 * G, D), dt)
+    seg = _pad_ids(B, T)
+    assert flash_fwd_body(q) == "wgmma"
+    o, lse = flash_fwd(q, k, v, causal=False, seg=seg)
+    ro, rlse = flash_fwd_reference(q, k, v, causal=False, seg=seg)
+    to, tlse = flash_fwd_tiled_reference(q, k, v, causal=False, seg=seg)
+    got = flash_bwd(q, k, v, o, lse, do, seg, False)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, False)
+    twin = flash_bwd_tiled_reference(q, k, v, o, lse, do, seg, False)
+    torch.cuda.synchronize()
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dt]
+    assert (o.float() - to.float()).abs().max().item() <= TOL[dt]
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    assert (lse - tlse).abs().max().item() <= 1e-3
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, twin):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) <= TOL[dt], name
+        assert _rel_err(g, t) <= TOL[dt], name
+
+
 # the dQ kernels' delta against flash_delta: the same f32 products summed in
 # another order (a few f32 ulps of the row's sum of |O * dO|), held to 1e-5
 # of the largest |delta|

@@ -31,7 +31,14 @@ def test_imports_with_jax_blocked():
         "from deepspeed_tpu_torch.inference import InferenceEngine, "
         "init_inference, init_serving\n"
         "from deepspeed_tpu_torch import faults, param_stream, env_report\n"
-        "from deepspeed_tpu_torch.models import llama\n"
+        "from deepspeed_tpu_torch.models import llama, gpt2, mixtral, bert, "
+        "cnn\n"
+        "from deepspeed_tpu_torch.inference import encoder_serving\n"
+        "from deepspeed_tpu_torch.ops import rounding\n"
+        "from deepspeed_tpu_torch import BertConfig, CNNConfig, "
+        "bert_serving_engine, CNNServingEngine, EncoderServingEngine, "
+        "stochastic_round_bf16, stochastic_round_tree\n"
+        "from deepspeed_tpu_torch.models import BertConfig as B2\n"
         "from deepspeed_tpu_torch.ops import attention, attention_cuda, "
         "sampling_cuda, fused_ops, _build, optim, adam_cuda, losses, "
         "quant, quant_cuda\n"

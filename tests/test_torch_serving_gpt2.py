@@ -131,7 +131,7 @@ def test_registry_and_builder_checks(model):
         serving_engine(tp, tcfg, device="cpu", mesh=object(), **BASE)
     with pytest.raises(NotImplementedError, match="int8"):
         serving_engine(tp, tcfg, device="cpu", weight_dtype="int4", **BASE)
-    with pytest.raises(NotImplementedError, match="no serving path"):
+    with pytest.raises(TypeError, match="no serving path"):
         serving_engine(tp, object(), device="cpu", **BASE)
 
 
