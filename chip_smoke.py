@@ -134,14 +134,38 @@ and runs, in order:
 27. the CIFAR CNN served (64 images in lots of 8, against the CPU engine)
    and trained (5 steps at batch 128, fused Adam), and
    ``stochastic_round_bf16`` on a card tensor (distributional checks, and
-   the CPU's result on the same random bits).
+   the CPU's result on the same random bits);
+28. the port's host aio pool (``deepspeed_tpu_torch/csrc/host/aio.cpp``,
+   built with g++): a round trip on the temp dir's file system (its
+   native arm), 10,000 submit / wait cycles of racing small reads bounded
+   by a joined worker, 1 GB written and read back (cache-warm), and the
+   pinned host -> device rate of one Mixtral-8x7B layer (2.90 GB), the
+   link bound of phases 29-31;
+29. ZeRO-Inference against resident serving: Llama-3-8B (32 layers) on
+   phase 5's queue with every layer streamed from the host tier, bf16 and
+   int8 (identical tokens, the first prefill's and first decode step's
+   logits bitwise equal), Mixtral-8x7B bf16 at 16 layers the same, and the
+   NVMe tier against the host tier at 8 layers;
+30. speculative decoding: f32 Llama-3-8B widths at 2 layers, n-gram and
+   model drafters against plain greedy (identical tokens); bf16 at 32
+   layers (divergences reported); B5 at the verify window C = K+1 (4, 5)
+   beside C = 1; ``verify_accept`` card against CPU;
+31. the headline: Llama-3-8B all streamed with speculation, and
+   Mixtral-8x7B in bf16 at all 32 layers (93.4 GB image) under a 64 GB
+   device budget, speculation off and on: sweeps, streamed bytes per
+   emitted token, ms per sweep beside the link bound, the exposed-wait
+   share, tokens/s, acceptance, peak memory;
+32. phase 11's two waves with speculation on, the host tier against a
+   host pool small enough that wave A cascades to NVMe (wave B promotes
+   from NVMe): identical tokens, pages per location, admission waits.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
 int8 serving runs and the ``init_inference`` forward of phase 14, the
 training run of phase 8, the four runs of phase 15, the GPT-2 paths of
 phases 17-19, the Mixtral paths of phases 21-22, the BERT-large paths of
-phases 25-26 and the CNN's of phase 27) counts the launches
+phases 25-26, the CNN's of phase 27, and the streamed, speculative and
+KV-NVMe paths of phases 29-32) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -4711,6 +4735,691 @@ def _rounding_on_card():
     return res
 
 
+
+# ------------------------------------------------------- phases 28-32
+# ZeRO-Inference, speculative decoding and the KV tier's NVMe rung.  The
+# "NVMe" directories live under the system temp dir; their reads of a
+# freshly written file come from the page cache (cache-warm rates)
+ZI_LLAMA_OPTS = dict(max_batch=8, page_size=16, max_seq=2048,
+                     num_pages=1025, cache_dtype=torch.bfloat16)
+ZI_MIXTRAL_OPTS = dict(max_batch=8, page_size=16, max_seq=1024,
+                       num_pages=1025, cache_dtype=torch.bfloat16)
+# phase 31 (b): the device budget of Mixtral-8x7B's bf16 image at 32
+# layers (93.4 GB): about 19 layers resident, 13 streamed a sweep
+ZI_MIXTRAL_BUDGET = int(64e9)
+SPEC = {"draft_tokens": 4}
+# phase 29's cut of the NVMe-tier check, and of Mixtral's identity queue
+ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 8, 4, 8
+ZI_MIXTRAL_ID_LAYERS, ZI_MIXTRAL_ID_NEW = 16, 4
+# phase 32: the host pool that sends wave A's pages down to NVMe
+KV_NVME_HOST_POOL = 16 << 20
+
+
+def _nvme_dir(tag: str) -> str:
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"dstt_{tag}_")
+
+
+def _phase_line(phase, card_line, **fields):
+    log(json.dumps({"phase": phase, "card": card_line, **fields}))
+
+
+def _queue5(vocab):
+    """Phase 5's traffic: 8 prompts of 128..1024 tokens (seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = np.linspace(128, 1024, 8).astype(int).tolist()
+    return {f"req{i}": rng.integers(1, vocab, n).tolist()
+            for i, n in enumerate(lens)}
+
+
+def _queue21(vocab, n=8):
+    """Phase 21's traffic: prompts of 64..768 tokens (seed 21)."""
+    rng = np.random.default_rng(21)
+    lens = np.linspace(64, 768, 8).astype(int).tolist()[:n]
+    return {f"m{i}": rng.integers(1, vocab, k).tolist()
+            for i, k in enumerate(lens)}
+
+
+def _capture_first(eng):
+    """Keep the logits of the engine's first whole-prompt prefill and of
+    its first decode step (their forwards wrapped; measurement only)."""
+    got = {}
+    for name in ("_prefill", "_decode"):
+        def wrapped(*a, _fn=getattr(eng, name), _n=name):
+            logits, cache = _fn(*a)
+            if _n not in got:
+                got[_n] = logits.clone()
+            return logits, cache
+        setattr(eng, name, wrapped)
+    return got
+
+
+def _zi_stats(eng, out, prompts, m, link_gbps):
+    """The streamed engine's counts over one drive: sweeps, streamed bytes
+    per emitted token, ms per sweep beside the link bound, the exposed
+    wait's share, acceptance."""
+    gen = sum(len(v) - len(prompts[k]) for k, v in out.items())
+    waits = eng.prefetch_wait_seconds()
+    sweeps = eng.zi_layer_sweeps
+    streamed = eng.plan["n_streamed"] * eng.plan["layer_bytes"]
+    st = {"plan": {k: eng.plan[k] for k in (
+              "n_resident", "n_streamed", "layer_bytes", "cache_bytes",
+              "stem_head_bytes", "weight_image_bytes",
+              "hbm_working_set_bytes")},
+          "sweeps": sweeps, "h2d_uploads": eng.zi_layer_h2d_uploads,
+          "bytes_uploaded": eng.zi_bytes_uploaded,
+          "generated_tokens": gen,
+          "streamed_bytes_per_token": eng.zi_bytes_uploaded / max(gen, 1),
+          "ms_per_sweep": m["wall_s"] * 1e3 / max(sweeps, 1),
+          "link_bound_ms_per_sweep": streamed / (link_gbps * 1e9) * 1e3,
+          "exposed_wait_s": float(sum(waits)),
+          "exposed_wait_share": float(sum(waits)) / m["wall_s"],
+          "reader_hits": eng._reader.hits,
+          "reader_stalls": eng._reader.stalls,
+          "tokens_per_s": m["tokens_per_s"], "wall_s": m["wall_s"],
+          "ttft_s_mean": m["ttft_s_mean"]}
+    if eng._spec_on:
+        st.update(spec_sweeps=eng.spec_verify_sweeps,
+                  mean_accept_len=eng.spec_emitted_tokens
+                  / max(eng.spec_verify_slots, 1),
+                  drafted=eng.spec_drafted_tokens,
+                  accepted=eng.spec_accepted_tokens)
+    return st
+
+
+def _run(build, prompts, new, fns, path, launches, want, hopper=True,
+         capture=False, stats=None):
+    """One main path: counts to 0, build the engine and serve ``prompts``
+    (build included: an int8 build launches B9), counts read; returns the
+    outputs, the first logits when ``capture``, the metrics (``stats(eng,
+    out, m)`` added) and the build's seconds."""
+    import gc
+
+    _zero(fns.values())
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = _capture_first(eng) if capture else None
+    out, m = drive(eng, prompts, new)
+    launches[path] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path, hopper=hopper)
+    _check_launches(path, launches[path], want)
+    m["build_s"] = build_s
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    m["leaks"] = eng.check_leaks()
+    if stats is not None:
+        m.update(stats(eng, out, m))
+    for name in ("_prefill", "_decode"):
+        vars(eng).pop(name, None)
+    if m["leaks"] or not all(
+            isinstance(v, list) and len(v) == len(prompts[r]) + new
+            for r, v in out.items()):
+        raise SystemExit(f"{path}: outputs invalid or leaks {m['leaks']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, got, m
+
+
+def _same_logits(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in ("_prefill", "_decode"))
+
+
+# ------------------------------------------------------------ phase 28
+def _mixtral_layer_bytes(cfg) -> int:
+    d, f, E = cfg.dim, cfg.ffn_dim, cfg.num_experts
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    return 2 * (2 * d * d + 2 * d * kvd + 3 * E * d * f + d * E + 2 * d)
+
+
+def phase_aio(card_line):
+    """The port's aio pool on the temp dir's file system: a round trip
+    (``native`` must be True), 10,000 submit / wait cycles of four racing
+    small reads bounded by a joined worker (the lost-wakeup stress), 1 GB
+    written and read back (cache-warm), and the pinned host -> device rate
+    for one Mixtral-8x7B layer (2.90 GB): the link bound of the streamed
+    phases."""
+    import shutil
+    import threading
+
+    from deepspeed_tpu_torch.infinity import PinnedBuffer
+    from deepspeed_tpu_torch.io.aio import AioHandle
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+
+    d = _nvme_dir("aio")
+    try:
+        h = AioHandle(8)
+        if not h.native:
+            raise SystemExit("phase 28: the aio pool took its pure-Python "
+                             "arm (no g++ build)")
+        src = torch.randint(0, 256, (1 << 20,), dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(28))
+        path = os.path.join(d, "roundtrip.bin")
+        fd = h.open(path, write=True)
+        h.pwrite(fd, src)
+        werr = h.wait()
+        h.close(fd)
+        dst = torch.empty_like(src)
+        fd = h.open(path)
+        h.pread(fd, dst)
+        rerr = h.wait()
+        roundtrip = werr == 0 and rerr == 0 and torch.equal(src, dst)
+        small = [np.empty(512, np.uint8) for _ in range(4)]
+        state = {"cycles": 0, "errors": 0}
+
+        def stress():
+            for _ in range(10000):
+                for j, b in enumerate(small):
+                    h.pread(fd, b, 512 * j)
+                state["errors"] += h.wait()
+                state["cycles"] += 1
+
+        t0 = time.perf_counter()
+        worker = threading.Thread(target=stress, daemon=True)
+        worker.start()
+        worker.join(timeout=120)
+        stress_s = time.perf_counter() - t0
+        if worker.is_alive():
+            raise SystemExit(f"phase 28: submit/wait stress stuck after "
+                             f"{state['cycles']} cycles (a lost wakeup)")
+        h.close(fd)
+        n = 1 << 30
+        chunk = n // 8
+        buf = torch.full((n,), 7, dtype=torch.uint8)
+        path = os.path.join(d, "rate.bin")
+        fd = h.open(path, write=True)
+        t0 = time.perf_counter()
+        for i in range(8):
+            h.pwrite(fd, buf[i * chunk:(i + 1) * chunk], i * chunk)
+        werr = h.wait()
+        write_s = time.perf_counter() - t0
+        h.close(fd)
+        buf.zero_()
+        fd = h.open(path)
+        t0 = time.perf_counter()
+        for i in range(8):
+            h.pread(fd, buf[i * chunk:(i + 1) * chunk], i * chunk)
+        rerr += h.wait()
+        read_s = time.perf_counter() - t0
+        h.close(fd)
+        read_ok = bool((buf == 7).all()) and werr == 0
+        del buf
+        layer = _mixtral_layer_bytes(MixtralConfig.mixtral_8x7b())
+        t0 = time.perf_counter()
+        pinned = PinnedBuffer(layer)
+        register_s = time.perf_counter() - t0
+        dev = torch.empty((layer,), dtype=torch.uint8, device="cuda")
+        side = torch.cuda.Stream()
+        ms = []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(side):
+                e0.record(side)
+                dev.copy_(pinned.tensor, non_blocking=True)
+                e1.record(side)
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        link_gbps = layer / (float(np.median(ms)) / 1e3) / 1e9
+        del dev, pinned
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ok = roundtrip and read_ok and state["cycles"] == 10000 \
+        and state["errors"] == 0 and rerr == 0
+    _phase_line("28 aio", card_line, native=True, roundtrip=roundtrip,
+                stress_cycles=state["cycles"], stress_errors=state["errors"],
+                stress_s=stress_s, write_gbps=n / write_s / 1e9,
+                read_gbps_cache_warm=n / read_s / 1e9,
+                pinned_register_s=register_s, h2d_layer_bytes=layer,
+                h2d_ms=ms, h2d_gbps=link_gbps)
+    if not ok:
+        raise SystemExit("phase 28: aio round trip, stress or 1 GB check "
+                         "failed")
+    return link_gbps
+
+
+# ------------------------------------------------------------ phase 29
+def phase_zi_identity(fns, card_line, link_gbps):
+    """Streamed against resident, bitwise: Llama-3-8B (32 layers, bf16,
+    seeded) on phase 5's queue, resident and with every layer streamed from
+    the host tier (identical tokens, the first prefill's and first decode
+    step's logits bitwise equal); the same in int8; Mixtral-8x7B bf16 at
+    16 layers on 3 of phase 21's prompts; and the NVMe tier against the
+    host tier at 8 layers.  Returns the launches, the Llama-3-8B weights
+    (phases 30-32 serve them) and the streamed bf16 run's counts (phase
+    31's spec-off reading)."""
+    import dataclasses
+    import shutil
+
+    from deepspeed_tpu_torch.inference.serving import serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = LlamaConfig.llama3_8b()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda", dtype=torch.bfloat16)
+    prompts = _queue5(cfg.vocab_size)
+    launches, res = {}, {}
+    dense = SERVING_KERNELS
+    stats = functools.partial(_zi_stats, prompts=prompts,
+                              link_gbps=link_gbps)
+
+    def zi_stats(eng, out, m):
+        return stats(eng, out, m=m)
+
+    for wd in ("bfloat16", "int8"):
+        want = dense + (("quantize",) if wd == "int8" else ())
+        r_out, r_logits, r_m = _run(
+            lambda: serving_engine(params, cfg, weight_dtype=wd,
+                                   **ZI_LLAMA_OPTS),
+            prompts, 32, fns, f"zi resident llama {wd}", launches, want,
+            capture=True)
+        s_out, s_logits, s_m = _run(
+            lambda: serving_engine(params, cfg, weight_dtype=wd,
+                                   zero_inference={"hbm_budget_bytes": None},
+                                   **ZI_LLAMA_OPTS),
+            prompts, 32, fns, f"zi streamed llama {wd}", launches, want,
+            capture=True, stats=zi_stats)
+        res[wd] = {"tokens_equal": s_out == r_out,
+                   "logits_bitwise": _same_logits(s_logits, r_logits),
+                   "resident_tokens_per_s": r_m["tokens_per_s"],
+                   "streamed": {k: s_m[k] for k in s_m if k != "leaks"}}
+        if wd == "bfloat16":
+            streamed_bf16 = s_m
+    # the NVMe tier against the host tier, depth cut to 8 layers
+    cfg8 = dataclasses.replace(cfg, n_layers=ZI_NVME_LAYERS)
+    p8 = dict(params, blocks={k: v[:ZI_NVME_LAYERS]
+                              for k, v in params["blocks"].items()})
+    q8 = dict(list(prompts.items())[:ZI_NVME_PROMPTS])
+    stats8 = functools.partial(_zi_stats, prompts=q8, link_gbps=link_gbps)
+    d = _nvme_dir("zi")
+    try:
+        outs = {}
+        for tier in ("host", "nvme"):
+            outs[tier], _, m8 = _run(
+                lambda: serving_engine(p8, cfg8, zero_inference={
+                    "hbm_budget_bytes": None, "tier": tier,
+                    "nvme_path": d}, **ZI_LLAMA_OPTS),
+                q8, ZI_NVME_NEW, fns, f"zi {tier} tier llama 8 layers",
+                launches, dense, stats=lambda e, o, m: stats8(e, o, m=m))
+            res[f"{tier}_tier_8_layers"] = {
+                k: m8[k] for k in ("sweeps", "reader_hits", "reader_stalls",
+                                   "tokens_per_s", "ms_per_sweep",
+                                   "build_s")}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["nvme_tokens_equal_host"] = outs["nvme"] == outs["host"]
+    del p8
+    # Mixtral-8x7B bf16 at 16 layers (the resident engine's limit)
+    mcfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
+                               n_layers=ZI_MIXTRAL_ID_LAYERS)
+    mq = _queue21(mcfg.vocab_size, n=3)
+    holder = [init_params(mcfg, torch.Generator("cuda").manual_seed(21),
+                          device="cuda", dtype=torch.bfloat16)]
+    mstats = functools.partial(_zi_stats, prompts=mq, link_gbps=link_gbps)
+    r_out, r_logits, _ = _run(
+        lambda: serving_engine(holder[0], mcfg, **ZI_MIXTRAL_OPTS), mq,
+        ZI_MIXTRAL_ID_NEW, fns, "zi resident mixtral bf16", launches, dense,
+        capture=True)
+    s_out, s_logits, s_m = _run(
+        lambda: serving_engine(holder[0], mcfg, zero_inference={
+            "hbm_budget_bytes": None}, **ZI_MIXTRAL_OPTS), mq,
+        ZI_MIXTRAL_ID_NEW, fns, "zi streamed mixtral bf16", launches, dense,
+        capture=True, stats=lambda e, o, m: mstats(e, o, m=m))
+    del holder[:]
+    torch.cuda.empty_cache()
+    res["mixtral_16"] = {"tokens_equal": s_out == r_out,
+                         "logits_bitwise": _same_logits(s_logits, r_logits),
+                         "streamed": {k: s_m[k] for k in (
+                             "sweeps", "ms_per_sweep",
+                             "link_bound_ms_per_sweep", "exposed_wait_share",
+                             "build_s", "peak_mem_gb")}}
+    _phase_line("29 zi identity", card_line, **res)
+    ok = all(res[w]["tokens_equal"] and res[w]["logits_bitwise"]
+             for w in ("bfloat16", "int8", "mixtral_16")) \
+        and res["nvme_tokens_equal_host"]
+    if not ok:
+        raise SystemExit("phase 29: streamed serving differs from resident "
+                         "(or the NVMe tier from the host tier)")
+    return launches, params, streamed_bf16
+
+
+# ------------------------------------------------------------ phase 30
+def _first_divergence(a, b, prompts):
+    """(requests whose outputs differ, the first generated position where
+    any does)."""
+    bad = [r for r in prompts if a[r] != b[r]]
+    pos = [next(i for i, (x, y) in enumerate(zip(a[r], b[r])) if x != y)
+           - len(prompts[r]) for r in bad]
+    return len(bad), (min(pos) if pos else None)
+
+
+def phase_spec(fns, card_line, params, gen):
+    """Speculative decoding on the card.  f32 Llama-3-8B widths at 2
+    layers, kernels on: the n-gram drafter and a ``ModelDrafter`` drafting
+    with the same weights against plain greedy, tokens identical; bf16 at
+    32 layers (phase 29's weights): divergent requests reported, not
+    gated (C-w2); B5 at the verify shape C = K+1 (4 and 5, and C = 1)
+    against its plain version; ``verify_accept`` on the card against the
+    CPU on greedy rows."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        DECODE_ROWS, paged_chunk_attention, paged_chunk_attention_reference)
+    from deepspeed_tpu_torch.inference.serving import serving_engine
+    from deepspeed_tpu_torch.inference.speculative import (ModelDrafter,
+                                                           verify_accept)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    launches, res = {}, {}
+    dense = SERVING_KERNELS
+    cfg2 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    p32 = init_params(cfg2, torch.Generator("cuda").manual_seed(30),
+                      device="cuda", dtype=torch.float32)
+    prompts = _queue5(cfg2.vocab_size)
+    opts = dict(ZI_LLAMA_OPTS, cache_dtype=torch.float32)
+    plain, _, pm = _run(lambda: serving_engine(p32, cfg2, **opts), prompts,
+                        32, fns, "spec f32 plain", launches, dense,
+                        hopper=False)
+
+    def spec_stats(eng, out, m):
+        return {"spec_sweeps": eng.spec_verify_sweeps,
+                "mean_accept_len": eng.spec_emitted_tokens
+                / max(eng.spec_verify_slots, 1),
+                "decode_steps": eng.decode_steps}
+
+    ngram, _, nm = _run(lambda: serving_engine(p32, cfg2, speculative=SPEC,
+                                               **opts),
+                        prompts, 32, fns, "spec f32 ngram", launches, dense,
+                        hopper=False, stats=spec_stats)
+    drafter = ModelDrafter(p32, cfg2, draft_tokens=4, window=64,
+                           cache_dtype=torch.float32)
+    model, _, mm = _run(lambda: serving_engine(
+        p32, cfg2, speculative=dict(SPEC, drafter="model"), drafter=drafter,
+        **opts), prompts, 32, fns, "spec f32 model drafter", launches,
+        dense, hopper=False, stats=spec_stats)
+    del drafter, p32
+    torch.cuda.empty_cache()
+    res["f32_2_layers"] = {
+        "ngram_tokens_equal": ngram == plain,
+        "model_tokens_equal": model == plain,
+        "plain_tokens_per_s": pm["tokens_per_s"],
+        "ngram": {k: nm[k] for k in ("tokens_per_s", "spec_sweeps",
+                                     "mean_accept_len")},
+        "model": {k: mm[k] for k in ("tokens_per_s", "spec_sweeps",
+                                     "mean_accept_len")}}
+    cfg = LlamaConfig.llama3_8b()
+    prompts = _queue5(cfg.vocab_size)
+    b_plain, _, bpm = _run(lambda: serving_engine(params, cfg,
+                                                  **ZI_LLAMA_OPTS),
+                           prompts, 32, fns, "spec bf16 plain", launches,
+                           dense)
+    b_spec, _, bsm = _run(lambda: serving_engine(
+        params, cfg, speculative=SPEC, **ZI_LLAMA_OPTS), prompts, 32, fns,
+        "spec bf16 ngram", launches, dense, stats=spec_stats)
+    n_div, first = _first_divergence(b_spec, b_plain, prompts)
+    res["bf16_32_layers"] = {
+        "off_path_divergences": n_div, "first_divergence_position": first,
+        "plain_tokens_per_s": bpm["tokens_per_s"],
+        "spec_tokens_per_s": bsm["tokens_per_s"],
+        "mean_accept_len": bsm["mean_accept_len"],
+        "spec_sweeps": bsm["spec_sweeps"]}
+    # B5 at the verify window, the Llama-3-8B decode shape's heads
+    H, KV, D = 32, 8, 128
+    lens = [0, 128, 256, 400, 512, 700, 900, 1024]
+    cases = {}
+    for C in (1, 4, 5):
+        # pages cover each row's frontier + C keys (C = 5 at 1024 needs a
+        # 65th page)
+        kp, vp, table = _paged_inputs(gen, [n + C for n in lens], 1, mp=72)
+        st = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn((8, C, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = paged_chunk_attention(q, kp, vp, table, st)
+        ref = paged_chunk_attention_reference(q, kp, vp, table, st)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        regime = ("split-key decode" if C * (H // KV) <= DECODE_ROWS
+                  else "one block per (row, kv head)")
+        tol = PAGED_DECODE_TOL if C * (H // KV) <= DECODE_ROWS \
+            else PAGED_CHUNK_TOL
+        ms = time_ms(lambda: paged_chunk_attention(q, kp, vp, table, st))
+        dev = device_ms(lambda: paged_chunk_attention(q, kp, vp, table, st))
+        plain_ms = time_ms(lambda: paged_chunk_attention_reference(
+            q, kp, vp, table, st), iters=5)
+        live = sum(n + C for n in lens)
+        pairs = sum(n * C + C * (C + 1) // 2 for n in lens)
+        b_ms, b_by = bound(2 * live * KV * D * 2 + 2 * 2 * 8 * C * H * D,
+                           4 * pairs * H * D, BF16_FLOPS_PER_S)
+        cases[f"C={C}"] = {"max_abs_err": err, "tol": tol, "ms": ms,
+                           "device_ms": dev, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "bound_share": _share(b_ms, dev),
+                           "regime": regime}
+        if err > tol:
+            raise SystemExit(f"phase 30: B5 at C={C} disagrees with its "
+                             f"plain version ({err:.3e} > {tol})")
+    res["b5_verify_shapes"] = cases
+    V = cfg.vocab_size
+    logits = torch.randn((8, 5, V), generator=gen, device="cuda")
+    am = logits.argmax(-1)
+    drafts = torch.randint(0, V, (8, 4), generator=gen, device="cuda")
+    drafts[:4] = am[:4, :4]                 # half the rows accept all
+    drafts[4, :2] = am[4, :2]               # one accepts two
+    dl = torch.tensor([4, 3, 0, 2, 4, 4, 1, 4], device="cuda")
+    n_c, s_c = verify_accept(logits, drafts, dl)
+    n_h, s_h = verify_accept(logits.cpu(), drafts.cpu(), dl.cpu())
+    res["verify_accept_card_equals_cpu"] = bool(
+        torch.equal(n_c.cpu(), n_h) and torch.equal(s_c.cpu(), s_h))
+    res["verify_accept_n_acc"] = n_c.tolist()
+    _phase_line("30 spec", card_line, **res)
+    if not (res["f32_2_layers"]["ngram_tokens_equal"]
+            and res["f32_2_layers"]["model_tokens_equal"]
+            and res["verify_accept_card_equals_cpu"]):
+        raise SystemExit("phase 30: speculative greedy differs from plain "
+                         "greedy in f32, or verify_accept from the CPU")
+    return launches, cases
+
+
+# ------------------------------------------------------------ phase 31
+class _SeededLayers:
+    """A model's layers drawn one at a time on the card, each from its own
+    seed (a lazy sequence of per-layer trees for the streamed engine's
+    ingest: neither the card nor the host ever holds the whole image)."""
+
+    def __init__(self, cfg, seed: int):
+        import dataclasses
+
+        self.one = dataclasses.replace(cfg, n_layers=1)
+        self.n, self.seed = cfg.n_layers, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, l):
+        from deepspeed_tpu_torch.weights import init_params
+
+        p = init_params(self.one, torch.Generator("cuda").manual_seed(
+            self.seed * 1000 + l), device="cuda", dtype=torch.bfloat16)
+        return {k: v[0] for k, v in p["blocks"].items()}
+
+
+def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
+    """The headline: (a) Llama-3-8B at 32 layers, every layer streamed from
+    the host tier, on phase 5's traffic with n-gram speculation (K = 4;
+    speculation off is phase 29's streamed run); (b) Mixtral-8x7B in bf16
+    at all 32 layers (93.4 GB image) under a 64 GB device budget, the
+    layers drawn one at a time, on 8 of phase 21's prompts with 16 new
+    tokens, speculation off and on.  Each: sweeps, streamed bytes per
+    emitted token, ms per sweep beside the link bound (phase 28's rate),
+    the exposed-wait share, tokens/s, acceptance, peak memory, launches.
+    ``holder`` hands over the only reference to Llama-3-8B's weights, freed
+    before Mixtral's layers are drawn."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch.inference.serving import serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    launches, res = {}, {}
+    dense = SERVING_KERNELS
+    keys = ("sweeps", "streamed_bytes_per_token", "ms_per_sweep",
+            "link_bound_ms_per_sweep", "exposed_wait_share", "tokens_per_s",
+            "peak_mem_gb", "build_s", "wall_s", "ttft_s_mean",
+            "reader_hits", "reader_stalls")
+    cfg = LlamaConfig.llama3_8b()
+    prompts = _queue5(cfg.vocab_size)
+    stats = functools.partial(_zi_stats, prompts=prompts,
+                              link_gbps=link_gbps)
+    _, _, m = _run(lambda: serving_engine(
+        holder[0], cfg, zero_inference={"hbm_budget_bytes": None},
+        speculative=SPEC, **ZI_LLAMA_OPTS), prompts, 32, fns,
+        "zi streamed llama bf16 spec", launches, dense,
+        stats=lambda e, o, mm: stats(e, o, m=mm))
+    res["llama3_8b_32_layers"] = {
+        "plan": llama_off["plan"],
+        "spec_off": {k: llama_off[k] for k in keys},
+        "spec_on": {k: m[k] for k in keys + ("mean_accept_len",
+                                            "spec_sweeps")}}
+    del holder[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = MixtralConfig.mixtral_8x7b()
+    one = dataclasses.replace(mcfg, n_layers=1)
+    sh = init_params(one, torch.Generator("cuda").manual_seed(31),
+                     device="cuda", dtype=torch.bfloat16)
+    mparams = {"embed": sh["embed"], "final_norm": sh["final_norm"],
+               "lm_head": sh["lm_head"], "blocks": _SeededLayers(mcfg, 31)}
+    del sh
+    mq = _queue21(mcfg.vocab_size)
+    mstats = functools.partial(_zi_stats, prompts=mq, link_gbps=link_gbps)
+    outs = {}
+    for tag, extra in (("spec_off", {}), ("spec_on", {"speculative": SPEC})):
+        outs[tag], _, m = _run(lambda: serving_engine(
+            mparams, mcfg, zero_inference={
+                "hbm_budget_bytes": ZI_MIXTRAL_BUDGET},
+            **extra, **ZI_MIXTRAL_OPTS), mq, 16, fns,
+            f"zi mixtral 32 layers bf16 {tag}", launches, dense,
+            stats=lambda e, o, mm: mstats(e, o, m=mm))
+        res.setdefault("mixtral_8x7b_32_layers", {"plan": m["plan"]})
+        res["mixtral_8x7b_32_layers"][tag] = {
+            k: m[k] for k in keys + (("mean_accept_len", "spec_sweeps")
+                                     if tag == "spec_on" else ())}
+        gc.collect()
+    n_div, first = _first_divergence(outs["spec_on"], outs["spec_off"], mq)
+    res["mixtral_8x7b_32_layers"].update(
+        spec_off_path_divergences=n_div,
+        first_divergence_position=first)
+    res["launches"] = {p: {k: n for k, n in c.items() if n}
+                       for p, c in launches.items()}
+    _phase_line("31 zi serving", card_line, **res)
+    return launches
+
+
+# ------------------------------------------------------------ phase 32
+def phase_kv_nvme(fns, card_line, params):
+    """Phase 11's two waves (Llama-3-8B, a 1024-token shared prefix,
+    int8-resident pages, ``prefill_chunk=256``) with speculation on, served
+    twice: with the host tier only, and with ``nvme_dir`` set under a host
+    pool small enough that wave A's pages cascade to NVMe, so wave B
+    promotes from NVMe.  Tokens identical; pages per location, admission
+    waits, deferrals and TTFT per wave reported; B7 runs the verify window
+    at C = K+1."""
+    import gc
+    import shutil
+
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    waves = _tier_waves(np.random.default_rng(1), cfg.vocab_size,
+                        TIER_PREFIX, TIER_SUFFIX, 8)
+    launches, res, outs = {}, {}, {}
+    d = _nvme_dir("kv")
+    try:
+        for arm, extra in (("host", {}),
+                           ("nvme", {"nvme_dir": d,
+                                     "host_pool_bytes": KV_NVME_HOST_POOL})):
+            eng = llama_serving_engine(
+                params, cfg, prefix_cache={},
+                kv_tier=dict(TIER_KV, **extra), speculative=SPEC,
+                prefill_chunk=256, **ZI_LLAMA_OPTS)
+            pool, al = eng._kv_pool, eng.allocator
+            arm_res = {}
+            for w, wave in zip("AB", waves):
+                path = f"kv {arm} wave {w} spec"
+                before = (al.promoted, eng.kv_tier_admit_waits,
+                          eng.kv_tier_promote_deferrals)
+                _zero(fns.values())
+                out, m = drive(eng, wave, TIER_NEW)
+                launches[path] = {n: f.launches for n, f in fns.items()}
+                _check_bodies(path)
+                _check_launches(path, launches[path],
+                                ("paged_attention_quant", "greedy_argmax",
+                                 "quantize"))
+                if w == "A":
+                    eng.step()     # idle step: the watermark sweep demotes
+                outs[(arm, w)] = out
+                arm_res[w] = {
+                    "ttft_s_mean": m["ttft_s_mean"],
+                    "ttft_s_max": m["ttft_s_max"],
+                    "tokens_per_s": m["tokens_per_s"],
+                    "promoted": al.promoted - before[0],
+                    "admit_waits": eng.kv_tier_admit_waits - before[1],
+                    "deferrals": eng.kv_tier_promote_deferrals - before[2],
+                    "occupancy": pool.occupancy(),
+                    "b7_launches": launches[path]["paged_attention_quant"],
+                    "valid": _valid(out, wave, TIER_NEW, cfg.vocab_size)}
+            arm_res["leaks"] = eng.check_leaks()
+            arm_res["mean_accept_len"] = eng.spec_emitted_tokens / max(
+                eng.spec_verify_slots, 1)
+            res[arm] = arm_res
+            del eng, pool, al
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["nvme_tokens_equal_host"] = all(
+        outs[("nvme", w)] == outs[("host", w)] for w in "AB")
+    _phase_line("32 kv nvme", card_line, **res)
+    nv = res["nvme"]
+    if not (res["nvme_tokens_equal_host"] and not res["host"]["leaks"]
+            and not nv["leaks"] and nv["A"]["occupancy"]["nvme_pages"] > 0
+            and nv["B"]["promoted"] > 0
+            and all(res[a][w]["valid"] for a in ("host", "nvme")
+                    for w in "AB")):
+        raise SystemExit("phase 32: NVMe-promoted tokens differ from the "
+                         "host tier's, or nothing cascaded / promoted")
+    return launches
+
+
+def serve_beyond_the_card(fns, card_line, gen, rows):
+    """Phases 28-32 (Llama-3-8B's weights drawn once, in phase 29, and
+    served by 30, 32 and 31; 31 runs last, since Mixtral-8x7B's 64 GB
+    budget needs the card free of them); B5's verify-window cases join its
+    row.  Returns every main path's launches."""
+    link = phase_aio(card_line)
+    launches, params, llama_off = phase_zi_identity(fns, card_line, link)
+    spec_launches, cases = phase_spec(fns, card_line, params, gen)
+    launches.update(spec_launches)
+    launches.update(phase_kv_nvme(fns, card_line, params))
+    holder = [params]
+    del params
+    launches.update(phase_zi_serving(fns, card_line, holder, llama_off,
+                                     link))
+    rows["paged_attention"]["verify_shapes"] = cases
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4790,6 +5499,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_bert_train(fns, card_line)[0])
     launches.update(phase_cnn(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(serve_beyond_the_card(fns, card_line, gen, rows))
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():
@@ -4820,7 +5531,7 @@ def main() -> int:
                     "library_device_median_ms", "bound_share",
                     "training_shape", "chunk", "f32_split", "kv_rows",
                     "kv_write", "cases", "gpt2_shapes", "mixtral_shapes",
-                    "bert_shapes"):
+                    "bert_shapes", "verify_shapes"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

@@ -4,8 +4,9 @@ Imports ``torch`` and ``numpy`` only (never ``jax`` nor ``deepspeed_tpu``).
 Ported: Llama, GPT-2 and Mixtral (MoE: the capacity-limited top-k gate of
 ``parallel/moe.py`` in training, the dense top-k combine in serving) greedy
 serving with continuous batching over a paged KV cache (prefix cache, host
-KV tier, int8-resident pages, int8 weights), their dense and paged
-generators; the BERT and CIFAR CNN encoder families, served by lot
+and NVMe KV tiers, int8-resident pages, int8 weights, speculative decoding,
+and ZeRO-Inference weight streaming from host memory or NVMe for models
+larger than the card), their dense and paged generators; the BERT and CIFAR CNN encoder families, served by lot
 batching (BERT in bf16 or int8 weights); stochastic rounding; the train
 step at ZeRO stage 0
 on one GPU (``initialize`` -> ``TrainingEngine.train_batch``) with its data

@@ -113,7 +113,7 @@ def _unsupported(config: Config, params, optimizer) -> Optional[str]:
             return f"the {key} monitor (ROADMAP A10)"
     if callable(params) or not isinstance(params, (dict, list, tuple)):
         return ("params that are not a tree of arrays (init thunks and "
-                "LayeredModel param streaming, ROADMAP A8/A9)")
+                "LayeredModel param streaming, ROADMAP A9)")
     return None
 
 

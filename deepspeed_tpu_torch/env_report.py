@@ -10,7 +10,7 @@ on one ``(8, 128)`` f32 tile.  Unlike the JAX report there is no interpret
 mode: without a card the probe reports ``[FAIL]`` with the reason, it does
 not emulate.  Run as ``python -m deepspeed_tpu_torch.env_report`` or
 ``dstpu-torch-report``.  The host C++ entries (``csrc (aio/hostruntime)``,
-``cpu_adam``) come with the io slice.
+``cpu_adam``) come with ``io/native.py`` (ROADMAP A8).
 """
 
 from __future__ import annotations

@@ -117,7 +117,11 @@ def init_serving(params, model_config, *, config: Any = None, **kw):
     (:func:`~deepspeed_tpu_torch.inference.serving.serving_engine`),
     honouring a DeepSpeed-style config.  Each enabled block of ``config``
     reaches the engine unless a keyword of the same name is given (the
-    keyword wins); the engine refuses the blocks the port lacks.  The
+    keyword wins), as the JAX package routes them: ``zero_inference`` to
+    the weight-streamed engine of the Llama and Mixtral builders,
+    ``speculative`` to the draft-and-verify sweep (a model drafter rides
+    the ``drafter=`` keyword); the engine refuses the blocks the port
+    lacks.  The
     ``kernels`` block always passes.  ``telemetry`` and ``tracing`` are on
     by default in the schema, so they pass only when the config names
     them (the engine then refuses them: they come with the control-plane

@@ -30,7 +30,18 @@ continuation chunks.  The KV tier (``kv_tier``, needs ``prefix_cache``):
 warm pages reclaimed under pressure (or past ``demote_watermark``) demote
 to a host pool instead of dropping, and a later admission matching a
 demoted span promotes it back into fresh pages; ``quantized_resident``
-keeps the device pages as int8 codes with per-token-row scales.
+keeps the device pages as int8 codes with per-token-row scales; with
+``nvme_dir`` the host pool's overflow cascades to per-page files read back
+through the port's aio pool (:mod:`~deepspeed_tpu_torch.io.aio`), one
+NVMe-backed promotion at a time.
+
+Speculative decoding (``speculative``, :mod:`~deepspeed_tpu_torch.
+inference.speculative`): each decode iteration drafts up to K tokens per
+slot, scores all K + 1 positions in ONE continuation forward (the verify
+pass), keeps the accepted prefix plus a bonus token and rolls the KV
+frontier back past the rejects.  ZeRO-Inference (``zero_inference``, the
+Llama and Mixtral builders): the weight-streamed engine of
+:mod:`~deepspeed_tpu_torch.inference.zero_inference`.
 
 Int8 weight-only serving (``weight_dtype="int8"``): the family builders
 (``llama_serving_engine``, ``gpt2_serving_engine``,
@@ -39,9 +50,8 @@ device (kernel B9 on CUDA) and the forward dequantizes one layer at a
 time.
 
 Blocks of the reference engine that this slice does not port (mesh,
-telemetry, tracing, speculative, slo, faults, shedding, history,
-incidents, devprof, comm, zero_inference) raise ``NotImplementedError``
-when enabled; they are never ignored.
+telemetry, tracing, slo, faults, shedding, history, incidents, devprof,
+comm) raise ``NotImplementedError`` when enabled; they are never ignored.
 """
 
 from __future__ import annotations
@@ -57,7 +67,8 @@ import torch
 
 from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch._tree import tree_map
-from deepspeed_tpu_torch.config import KVTierConfig, PrefixCacheConfig
+from deepspeed_tpu_torch.config import (KVTierConfig, PrefixCacheConfig,
+                                        SpeculativeConfig)
 from deepspeed_tpu_torch.faults import ChecksumError
 from deepspeed_tpu_torch.inference.kernels import (PagedKVCache,
                                                    PageAllocator,
@@ -68,7 +79,10 @@ from deepspeed_tpu_torch.inference.quantized import quantize_for_inference
 from deepspeed_tpu_torch.inference.prefix_cache import (extend_page_keys,
                                                         matchable_pages,
                                                         page_keys)
-from deepspeed_tpu_torch.ops.sampling_cuda import (fused_sample_rows,
+from deepspeed_tpu_torch.inference.speculative import (build_drafter,
+                                                       verify_accept)
+from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
+                                                   fused_sample_rows,
                                                    greedy_rows_reference,
                                                    with_temperature)
 
@@ -78,8 +92,6 @@ UNPORTED_BLOCKS = {
     "mesh": "the distributed slice",
     "telemetry": "the control-plane slice",
     "tracing": "the control-plane slice",
-    "speculative": "the serving-extensions slice",
-    "drafter": "the serving-extensions slice",
     "slo": "the control-plane slice",
     "faults": "the control-plane slice",
     "shed_queue_depth": "the control-plane slice",
@@ -88,7 +100,6 @@ UNPORTED_BLOCKS = {
     "incidents": "the control-plane slice",
     "devprof": "the control-plane slice",
     "comm": "the distributed slice",
-    "zero_inference": "the serving-extensions slice",
 }
 
 
@@ -189,6 +200,9 @@ class _Promotion:
     reader: Any                        # param_stream.TierPageReader
     primed: Optional[list] = None
     deferred: int = 0
+    # True: an NVMe-backed promotion, owner of the pool's single aio read
+    # channel (host-resident promotions never claim it)
+    channel: bool = False
 
 
 @dataclasses.dataclass
@@ -219,8 +233,10 @@ class ServingEngine:
     ``(params, tokens, cache) -> (logits, cache)``; built for Llama by
     :func:`llama_serving_engine`.  ``device=None`` means CUDA and raises
     without it; the plain PyTorch path runs with ``device="cpu"``.
-    ``prefix_cache`` / ``kv_tier``: the config blocks of the JAX package
-    (dict, bool, config object or None).
+    ``prefix_cache`` / ``kv_tier`` / ``speculative``: the config blocks of
+    the JAX package (dict, bool, config object or None); ``drafter``: a
+    :class:`~deepspeed_tpu_torch.inference.speculative.Drafter` instance
+    (required for ``speculative.drafter == "model"``).
     """
 
     def __init__(self, params, prefill_fn, decode_fn, *,
@@ -231,7 +247,8 @@ class ServingEngine:
                  cache_dtype=torch.bfloat16, seed: int = 0,
                  decode_chunk: int = 1, prefill_chunk: int = 0,
                  chunk_prefill_fn=None, kernels=None, device=None,
-                 prefix_cache=None, kv_tier=None, **blocks):
+                 prefix_cache=None, kv_tier=None, speculative=None,
+                 drafter=None, **blocks):
         unknown = set(blocks) - set(UNPORTED_BLOCKS)
         if unknown:
             raise TypeError(f"unexpected ServingEngine arguments "
@@ -275,6 +292,26 @@ class ServingEngine:
                 "continuation forward (forward_paged(..., "
                 "continuation=True))")
         self.kernels = resolve_serving_kernels(kernels, device=self.device)
+        # ---- speculative decoding: draft K tokens per slot, score all
+        # K+1 positions in ONE continuation forward, keep the accepted
+        # prefix + a bonus token, roll the KV frontier back past the
+        # rejects.  The verify pass IS the continuation-chunk forward;
+        # when on, the speculative sweep replaces the chunked decode
+        # (decode_chunk is accepted and unused)
+        sc = SpeculativeConfig.coerce(speculative)
+        self.speculative = sc
+        self._spec_on = sc.enabled
+        self.drafter = None
+        if self._spec_on:
+            if chunk_prefill_fn is None:
+                raise ValueError(
+                    "speculative decoding needs chunk_prefill_fn — the "
+                    "verify pass scores K+1 positions per slot via the "
+                    "continuation forward (forward_paged(..., "
+                    "continuation=True)), which must return logits at "
+                    "EVERY position")
+            self.drafter = drafter if drafter is not None \
+                else build_drafter(sc)
         # ---- tiered KV: coerced before the cache allocation, since
         # quantized_resident changes the device cache's layout
         kvt = KVTierConfig.coerce(kv_tier)
@@ -311,6 +348,14 @@ class ServingEngine:
         self._sample_fn = (fused_sample_rows
                            if self.kernels.fused_sampling == "on"
                            else _sample_rows)
+        # the verify pass's greedy rows take the decode sampler's argmax
+        self._argmax = (fused_greedy_rows
+                        if self.kernels.fused_sampling == "on"
+                        else greedy_rows_reference)
+        # slot whose in-flight promotion owns the KV tier's NVMe read
+        # channel (host-resident promotions run concurrently, never
+        # claiming it)
+        self._promo_channel: Optional[int] = None
         self._prefill = prefill_fn
         self._decode = decode_fn
         self._chunk_prefill = chunk_prefill_fn
@@ -347,7 +392,17 @@ class ServingEngine:
         self.kv_tier_checksum_failures = 0
         self.kv_tier_fallback_events = 0
         self.kv_tier_fallback_pages = 0
+        # admissions that waited: their span needed NVMe bytes while
+        # another promotion owned the channel
+        self.kv_tier_admit_waits = 0
         self._kvt_fault_streak = 0
+        # speculative counts (the JAX metric names)
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rejected_tokens = 0
+        self.spec_emitted_tokens = 0
+        self.spec_verify_sweeps = 0
+        self.spec_verify_slots = 0
         self._closed = False
 
     def _alloc_cache(self, n_layers, n_kv, num_pages, page_size, head_dim,
@@ -524,6 +579,17 @@ class ServingEngine:
             keys = req.page_keys[:matchable_pages(T, ps)]
             if self._kvt_on:
                 matched = self.allocator.lookup_tiered(keys)
+                if self._promo_channel is not None and any(
+                        kind == "tier"
+                        and self._kv_pool.location(k) == "nvme"
+                        for kind, k in matched):
+                    # the NVMe read channel is single-consumer: an
+                    # admission needing NVMe bytes while another
+                    # promotion owns it WAITS (admitting with the device
+                    # prefix only would re-prefill a span sitting
+                    # demoted); the lookahead keeps other traffic moving
+                    self.kv_tier_admit_waits += 1
+                    return False
             else:
                 matched = [("hbm", p) for p in self.allocator.lookup(keys)]
         cm = len(matched)
@@ -578,7 +644,7 @@ class ServingEngine:
                     self.prefix_cache_misses += 1
                 self.prefix_cache_cached_tokens += cached
                 self.prefix_cache_prompt_tokens += T
-            promo = (self._begin_promotion(tier_keys, page_map)
+            promo = (self._begin_promotion(b, tier_keys, page_map)
                      if tier_keys else None)
             if self.prefill_chunk or cached:
                 # split-fuse and/or cache hit: the uncached suffix goes
@@ -603,9 +669,13 @@ class ServingEngine:
             self._queue_boundary(b, logits[0, T - 1], slot)
             return True
         except BaseException:
-            # between allocation and slot publish nothing may leak: cancel
-            # any begun promotion, drop the pins, release every page this
-            # sequence took (shared and fresh) and clear the row
+            # between allocation and slot publish nothing may leak: drain
+            # the NVMe channel if this admission owns it, cancel any begun
+            # promotion, drop the pins, release every page this sequence
+            # took (shared and fresh) and clear the row
+            if self._promo_channel == b:
+                self._kv_pool.fence_all_reads()
+                self._promo_channel = None
             for pg in page_map.values():
                 self.allocator.cancel_promotion(pg)
             if tier_keys:
@@ -651,7 +721,7 @@ class ServingEngine:
             self.allocator.publish(page, s.req.page_keys[slot_idx])
 
     # ------------------------------------------------ KV tier: promote
-    def _begin_promotion(self, tier_keys: List[bytes],
+    def _begin_promotion(self, b: int, tier_keys: List[bytes],
                          page_map: Dict[bytes, int]) -> _Promotion:
         """Start streaming a tier-matched span back into the fresh pages
         just allocated for it: quarantine them, and submit the reader's
@@ -661,8 +731,15 @@ class ServingEngine:
 
         for key, pg in page_map.items():
             self.allocator.begin_promotion(pg, key)
+        # pinned entries can neither drop nor spill, so a promotion whose
+        # keys are all host-resident stays channel-free (the pool's
+        # no-op-fencing host view; any number in flight); only an
+        # NVMe-backed one claims the single aio channel
+        channel = any(self._kv_pool.location(k) == "nvme"
+                      for k in tier_keys)
         reader = TierPageReader(
-            self._kv_pool.host_view(), tier_keys, to_device=None,
+            self._kv_pool if channel else self._kv_pool.host_view(),
+            tier_keys, to_device=None,
             group_pages=self.kv_tier.promote_group_pages,
             retries=self.kv_tier.io_retries,
             retry_backoff_s=self.kv_tier.io_retry_backoff_s)
@@ -674,8 +751,13 @@ class ServingEngine:
         reader.to_device = lambda bufs, g: promote(page_map, bufs,
                                                    group_keys(g))
         promo = _Promotion(keys=list(tier_keys), page_map=page_map,
-                           reader=reader)
-        promo.primed = reader.presubmit(0)
+                           reader=reader, channel=channel)
+        if channel:
+            self._promo_channel = b
+        # host-resident presubmit is dict lookups: only NVMe reads yield
+        # to a higher-priority aio user (the weight stream)
+        if not channel or self._kv_pool.may_submit():
+            promo.primed = reader.presubmit(0)
         return promo
 
     def _promotion_ready(self, b: int, s: _Slot) -> bool:
@@ -684,6 +766,14 @@ class ServingEngine:
         so the promotion hides under the other slots' compute; then drain
         the promotion and let prefill proceed."""
         p = s.promo
+        if p.primed is None:
+            if self._kv_pool.may_submit() or \
+                    p.deferred >= _KV_PROMO_DEFER_CAP:
+                p.primed = p.reader.presubmit(0)
+            else:
+                p.deferred += 1
+                self.kv_tier_promote_deferrals += 1
+                return False
         if p.reader.tier.reads_pending() and \
                 p.deferred < _KV_PROMO_DEFER_CAP:
             p.deferred += 1
@@ -709,6 +799,7 @@ class ServingEngine:
         self._kvt_fault_streak = 0
         self._kv_pool.unpin(p.keys)
         s.promo = None
+        self._release_channel(p)
 
     def _promotion_fallback(self, b: int, s: _Slot,
                             exc: BaseException) -> None:
@@ -747,6 +838,7 @@ class ServingEngine:
             "re-prefilling %d pages from token %d", s.req.req_id, exc,
             len(unlanded), fb_tokens)
         s.promo = None
+        self._release_channel(p)
         self._kvt_fault_streak += 1
         da = self.kv_tier.disable_after
         if da and self._kvt_fault_streak >= da and \
@@ -784,10 +876,20 @@ class ServingEngine:
         p = s.promo
         if p is None:
             return
+        if p.channel:
+            # the reads target host buffers about to be dropped
+            self._kv_pool.fence_all_reads()
         for pg in p.page_map.values():
             self.allocator.cancel_promotion(pg)
         self._kv_pool.unpin(p.keys)
         s.promo = None
+        self._release_channel(p)
+
+    def _release_channel(self, p: _Promotion) -> None:
+        """An NVMe-backed promotion (the channel's one owner) ended: the
+        channel is free."""
+        if p.channel:
+            self._promo_channel = None
 
     # ------------------------------------------------- KV tier: demote
     def _planes(self):
@@ -1009,13 +1111,101 @@ class ServingEngine:
         self._flush_boundary()
         ready = lambda: [(b, s) for b, s in enumerate(self.slots)  # noqa: E731
                          if s is not None and not s.prefilling]
+        # the speculative sweep writes K+1 positions per slot: provision
+        # its whole window, as chunked decode does its K
+        ahead = (self.speculative.draft_tokens + 1 if self._spec_on
+                 else self.decode_chunk)
         active = ready()
         if active:
-            self._grow_pages(ahead=self.decode_chunk)
+            self._grow_pages(ahead=ahead)
             active = ready()
-        if active:
+        if active and self._spec_on:
+            self._spec_step(active)
+        elif active:
             self._decode_active(active)
         return list(self._newly_finished)
+
+    def _check_frontier_writable(self, active, ahead: int) -> None:
+        """COW guard for the speculative write window: every page the
+        verify's ``ahead`` frontier positions can touch must be privately
+        owned (or the trash page).  Structurally always true (shared and
+        published prefix pages lie below the frontier), but a write into
+        one would poison the content-addressed index for every future
+        match, so the sweep checks rather than trusts."""
+        ps = self.page_size
+        for b, s in active:
+            last = min((s.seq_len + ahead - 1) // ps,
+                       self.max_pages_per_seq - 1)
+            for slot_idx in range(s.seq_len // ps, last + 1):
+                pg = int(self._table_host[b, slot_idx])
+                if pg != self.trash_page and \
+                        not self.allocator.writable(pg):
+                    raise RuntimeError(
+                        f"speculative verify would write shared/"
+                        f"published page {pg} (slot {b}, table slot "
+                        f"{slot_idx}) — COW invariant violated")
+
+    def _spec_step(self, active) -> None:
+        """One draft-and-verify sweep over every decode-ready slot.
+
+        Draft: the drafter proposes up to K tokens per slot from the
+        request's own history (on the host; an empty proposal rides the
+        sweep as a plain decode step).  Verify: ONE continuation forward
+        scores all K+1 positions for the whole batch (under ZeRO-Inference
+        one full weight stream), then :func:`~deepspeed_tpu_torch.
+        inference.speculative.verify_accept` computes on the device each
+        row's accepted prefix and its stop tokens: one device -> host
+        transfer per sweep.  Rollback: each slot's ``seq_len`` advances by
+        accepted + 1 (not the K+1 the forward wrote), so rejected drafts'
+        K/V is abandoned above the frontier and overwritten by the next
+        sweep; ``_publish_full_pages`` stops at ``_valid_tokens``, keeping
+        it out of the prefix cache."""
+        K = self.speculative.draft_tokens
+        Bm = self.max_batch
+        toks = np.zeros((Bm, K + 1), np.int32)
+        drafts = np.zeros((Bm, K), np.int32)
+        dlens = np.zeros((Bm,), np.int32)
+        temps = np.zeros((Bm,), np.float32)
+        for b, s in active:
+            hist = s.req.tokens + s.generated
+            d = list(self.drafter.propose(hist, K))[:K]
+            dlens[b] = len(d)
+            drafts[b, :len(d)] = d
+            toks[b, 0] = hist[-1]
+            toks[b, 1:1 + len(d)] = d
+            temps[b] = s.req.temperature
+        self.spec_drafted_tokens += int(dlens.sum())
+        if self._pc_on:
+            self._check_frontier_writable(active, K + 1)
+        self._upload_dirty()
+        logits, self.cache = self._chunk_prefill(self.params,
+                                                 self._put(toks), self.cache)
+        n_acc, stop = verify_accept(logits, self._put(drafts),
+                                    self._put(dlens), self.generator, temps,
+                                    argmax=self._argmax)
+        # the ONE device -> host transfer of the sweep
+        host = torch.cat([n_acc[:, None], stop], dim=1).cpu().numpy()
+        n_acc, stop = host[:, 0], host[:, 1:]
+        self.decode_steps += K + 1
+        self.spec_verify_sweeps += 1
+        for b, s in active:
+            a = int(n_acc[b])
+            self.spec_rejected_tokens += int(dlens[b]) - a
+            self.spec_accepted_tokens += a
+            self.spec_verify_slots += 1
+            self.spec_emitted_tokens += a + 1
+            # KV rollback: the forward wrote K+1 positions; only the
+            # re-fed token and the accepted drafts hold real history
+            s.seq_len += a + 1
+            for j in range(a):
+                self._append_token(b, int(drafts[b, j]))
+                if self.slots[b] is None:    # finished mid-span: the
+                    break                    # rest is discarded
+            if self.slots[b] is not None:
+                self._append_token(b, int(stop[b, a]))
+        # every row was rewound below the seq_lens the verify left on the
+        # device: re-upload before the next forward reads them
+        self._lens_dirty = True
 
     def _decode_active(self, active) -> None:
         """K = ``decode_chunk`` decode steps for every row in one device
@@ -1100,9 +1290,28 @@ def _family_engine(forward_paged, params, cfg, weight_dtype: str,
         device=dev, **kw)
 
 
+def _route_zero_inference(zero_inference, family: str, params, cfg,
+                          weight_dtype, quant_group_size, device, kw):
+    """Shared builder branch: a live ``zero_inference`` block routes to
+    the weight-streamed engine (:mod:`~deepspeed_tpu_torch.inference.
+    zero_inference`); returns None when the resident path should
+    proceed."""
+    from deepspeed_tpu_torch.config import ZeroInferenceConfig
+
+    zi = ZeroInferenceConfig.coerce(zero_inference)
+    if not zi.enabled:
+        return None
+    from deepspeed_tpu_torch.inference.zero_inference import (
+        zero_inference_serving_engine)
+
+    return zero_inference_serving_engine(
+        params, cfg, zi, family=family, weight_dtype=weight_dtype,
+        quant_group_size=quant_group_size, device=device, **kw)
+
+
 def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
                          quant_group_size: int = 128, device=None,
-                         **kw) -> ServingEngine:
+                         zero_inference=None, **kw) -> ServingEngine:
     """ServingEngine over :func:`~deepspeed_tpu_torch.models.llama.
     forward_paged`.  ``params`` (the JAX pytree layout, see
     :mod:`deepspeed_tpu_torch.weights`) move to ``device`` (None = CUDA).
@@ -1111,9 +1320,19 @@ def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
     int8)``): every matrix leaf is quantized on ``device`` in groups of
     ``quant_group_size`` (kernel B9 on CUDA; the stacked ``[L, d]`` norm
     gains stay exact, as the JAX builder keeps them), and the forward
-    dequantizes one layer at a time."""
+    dequantizes one layer at a time.
+
+    ``zero_inference``: a :class:`~deepspeed_tpu_torch.config.
+    ZeroInferenceConfig` (or its dict form) routes to the weight-streamed
+    engine: layer weights live on a host or NVMe tier and stream through a
+    small device working set, so the served model may exceed the card."""
     from deepspeed_tpu_torch.models import llama
 
+    zi_engine = _route_zero_inference(
+        zero_inference, "llama", params, cfg, weight_dtype,
+        quant_group_size, device, kw)
+    if zi_engine is not None:
+        return zi_engine
     return _family_engine(llama.forward_paged, params, cfg, weight_dtype,
                           quant_group_size, device,
                           ("attn_norm", "mlp_norm", "final_norm"), **kw)
@@ -1164,15 +1383,15 @@ def mixtral_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
     leaves already quantized (``weights.init_quantized_params``, for a
     model whose bf16 weights do not fit the card) pass through.  A
     ``mesh`` (expert parallelism) is refused by the engine, as for Llama;
-    ``zero_inference`` (streaming the expert stacks from host memory)
-    raises ``NotImplementedError`` naming ROADMAP A8."""
+    ``zero_inference`` streams the layers (the expert stacks are the
+    dominant MoE weight bytes) from a host or NVMe tier, as for Llama."""
     from deepspeed_tpu_torch.models import mixtral
 
-    if _enabled(zero_inference):
-        raise NotImplementedError(
-            "mixtral_serving_engine(zero_inference=...): weight-streamed "
-            "MoE serving needs inference/zero_inference.py and "
-            "mixtral.paged_layered_fns (ROADMAP A8)")
+    zi_engine = _route_zero_inference(
+        zero_inference, "mixtral", params, cfg, weight_dtype,
+        quant_group_size, device, kw)
+    if zi_engine is not None:
+        return zi_engine
     return _family_engine(mixtral.forward_paged, params, cfg, weight_dtype,
                           quant_group_size, device, MIXTRAL_INT8_SKIP, **kw)
 

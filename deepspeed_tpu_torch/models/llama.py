@@ -301,6 +301,76 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
     return f
 
 
+def paged_layered_fns(cfg: LlamaConfig, ffn=None,
+                      paged_kernel: Optional[str] = None):
+    """Per-layer factoring of :func:`forward_paged` for weight-streamed
+    (ZeRO-Inference) serving: stem (embedding + rope tables) and head
+    (final norm + LM head) stay resident, and each transformer layer is
+    its own call, so the streaming engine can upload layer ``l + 1``'s
+    weights while layer ``l`` computes.  Returns ``(stem_fn, block_fn,
+    head_fn)``::
+
+        stem_fn(stem, tokens, start)               -> (x, cos, sin)
+        block_fn(lp, x, cos, sin, kp, vp, table, start, *, continuation,
+                 prefill, kps=None, vps=None)      -> x
+        head_fn(head, x)                           -> logits [B, T, V] f32
+
+    ``stem`` holds ``embed``; ``head`` ``final_norm`` and ``lm_head`` (or
+    ``embed`` when tied).  ``lp`` is ONE layer's leaves (no layer axis), any
+    of them an int8 :class:`~deepspeed_tpu_torch.inference.quantized.
+    QuantizedTensor`, dequantized inside ``block_fn`` through
+    :func:`~deepspeed_tpu_torch.inference.quantized.take`.  ``kp``/``vp``
+    are one layer's pages ``[KV, P, ps, Dh]`` (a view of the stacked
+    cache), written in place; ``kps``/``vps`` their int8-resident scale
+    planes.  :func:`forward_paged` runs exactly these three functions, so
+    streamed serving runs the same ops, in the same order, through the same
+    kernels as resident serving.  ``paged_kernel``: the resolved dispatch
+    (``"pallas_v2"`` / ``"pallas_v1"`` = a CUDA kernel, ``"xla"`` = the
+    plain version; None / "auto" resolves from the cache's device per
+    call).  ``ffn``: an ``(lp, h) -> y`` override of the FFN over the
+    ``mlp_norm``-normed residual (Mixtral's expert combine)."""
+    from deepspeed_tpu_torch.inference.kernels import (
+        paged_attention_step, resolve_serving_kernels)
+
+    def stem_fn(sp, tokens, start):
+        T = tokens.shape[1]
+        x = _embed(sp, tokens)
+        # ragged frontiers under continuous batching: each row rotates by
+        # ITS own start
+        positions = start[:, None] + torch.arange(
+            T, dtype=torch.int32, device=start.device)[None]
+        cos, sin = rope_tables(cfg, positions)
+        return x, cos, sin
+
+    def block_fn(lp, x, cos, sin, kp, vp, table, start, *,
+                 continuation: bool, prefill: bool, kps=None, vps=None):
+        lp = {name: take(w) for name, w in lp.items()}
+        pk = resolve_serving_kernels(
+            {"paged_attention": paged_kernel or "auto"},
+            device=kp.device).paged_attention
+        q, k, v = _qkv(cfg, lp, x, cos, sin)
+        attn = paged_attention_step(
+            q, k, v, kp, vp, table, start, kp.shape[2],
+            continuation=continuation, prefill=prefill, paged_kernel=pk,
+            flash_force_reference=cfg.attn_impl == "reference",
+            kps=kps, vps=vps)
+        return _block_tail(cfg, lp, x, attn, ffn=ffn)
+
+    def head_fn(hp, x):
+        return _logits(hp, cfg, x)
+
+    return stem_fn, block_fn, head_fn
+
+
+def _layer_leaves(params, l: int):
+    """Layer ``l`` of the stacked blocks, int8 leaves still quantized (the
+    codes and scales of that layer only)."""
+    from deepspeed_tpu_torch._tree import tree_map
+
+    return {name: tree_map(lambda a: a[l], w)
+            for name, w in params["blocks"].items()}
+
+
 @takes_quantized
 def forward_paged(params, tokens, cfg: LlamaConfig, cache,
                   continuation: bool = False,
@@ -324,32 +394,20 @@ def forward_paged(params, tokens, cfg: LlamaConfig, cache,
     plain version on CPU.  ``ffn``: an ``(lp, h) -> y`` override of each
     block's FFN over the ``mlp_norm``-normed residual ``h``: the paged
     backbone is model-agnostic, and Mixtral swaps in its expert combine
-    (None: the SwiGLU FFN)."""
-    from deepspeed_tpu_torch.inference.kernels import (
-        paged_attention_step, paged_forward_prelude, resolve_serving_kernels)
+    (None: the SwiGLU FFN).  The body is :func:`paged_layered_fns`'
+    stem, one block per layer and head."""
+    from deepspeed_tpu_torch.inference.kernels import paged_forward_prelude
 
     T = tokens.shape[1]
-    ps, start, prefill = paged_forward_prelude(cache, tokens, continuation)
-    paged_kernel = resolve_serving_kernels(
-        {"paged_attention": paged_kernel or "auto"},
-        device=cache.k.device).paged_attention
-    x = _embed(params, tokens)
-    # ragged frontiers under continuous batching: each row rotates by ITS
-    # own start
-    positions = start[:, None] + torch.arange(
-        T, dtype=torch.int32, device=start.device)[None]
-    cos, sin = rope_tables(cfg, positions)
+    _, start, prefill = paged_forward_prelude(cache, tokens, continuation)
+    stem_fn, block_fn, head_fn = paged_layered_fns(cfg, ffn, paged_kernel)
+    x, cos, sin = stem_fn(params, tokens, start)
     quant = cache.k_scale is not None
     for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        q, k, v = _qkv(cfg, lp, x, cos, sin)
-        attn = paged_attention_step(
-            q, k, v, cache.k[l], cache.v[l], cache.table, start, ps,
-            continuation=continuation, prefill=prefill,
-            paged_kernel=paged_kernel,
-            flash_force_reference=cfg.attn_impl == "reference",
-            kps=cache.k_scale[l] if quant else None,
-            vps=cache.v_scale[l] if quant else None)
-        x = _block_tail(cfg, lp, x, attn, ffn=ffn)
-    return _logits(params, cfg, x), dataclasses.replace(
-        cache, seq_lens=start + T)
+        x = block_fn(_layer_leaves(params, l), x, cos, sin, cache.k[l],
+                     cache.v[l], cache.table, start,
+                     continuation=continuation, prefill=prefill,
+                     kps=cache.k_scale[l] if quant else None,
+                     vps=cache.v_scale[l] if quant else None)
+    return head_fn(params, x), dataclasses.replace(cache,
+                                                   seq_lens=start + T)

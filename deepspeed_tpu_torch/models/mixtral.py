@@ -32,9 +32,10 @@ combine products and recomputes the experts, as JAX's
 
 Int8 weights: the forwards carry ``takes_quantized`` and dequantize one
 layer at a time (:func:`~deepspeed_tpu_torch.inference.quantized.take`);
-serving keeps the router exact.  Sharding (``param_specs``) and layer
-streaming (``layered_model``, ``paged_layered_fns``) raise: they come with
-ROADMAP A9 and A8.
+serving keeps the router exact.  ``paged_layered_fns`` factors the paged
+forward per layer for weight-streamed serving; sharding (``param_specs``)
+and layer-streamed training (``layered_model``) raise: they come with
+ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -137,14 +138,22 @@ def param_specs(cfg: MixtralConfig):
 
 def layered_model(cfg: MixtralConfig, params):
     raise NotImplementedError(
-        "mixtral.layered_model: layer streaming needs param_stream."
-        "LayeredModel and zero_inference (ROADMAP A8)")
+        "mixtral.layered_model: layer-streamed training needs param_stream."
+        "LayeredModel / ParamStreamEngine, which come with ZeRO offload "
+        "(ROADMAP A9)")
 
 
-def paged_layered_fns(cfg: MixtralConfig, **kw):
-    raise NotImplementedError(
-        "mixtral.paged_layered_fns: weight-streamed serving needs "
-        "zero_inference (ROADMAP A8)")
+def paged_layered_fns(cfg: MixtralConfig, paged_kernel=None):
+    """Per-layer factoring of :func:`forward_paged` for weight-streamed
+    (ZeRO-Inference) MoE serving: Llama's ``(stem_fn, block_fn, head_fn)``
+    (:func:`~deepspeed_tpu_torch.models.llama.paged_layered_fns`) with the
+    capacity-free dense top-k expert combine as the FFN, so the expert
+    stacks (the dominant MoE weight bytes) stream through a two-layer
+    working set.  The router stays f32 and exact (the int8 builders never
+    quantize ``gate``)."""
+    return _llama.paged_layered_fns(cfg.llama_view(),
+                                    ffn=functools.partial(_dense_ffn, cfg),
+                                    paged_kernel=paged_kernel)
 
 
 # ------------------------------------------------------------------ blocks

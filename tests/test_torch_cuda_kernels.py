@@ -1259,6 +1259,43 @@ def test_paged_sm90_body_full_multi_head(gen, H, D, C):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("K", [3, 4])
+def test_paged_verify_window_matches_plain(gen, quant, K):
+    """B5 and B7 at the speculative verify shape: C = K + 1 query rows at
+    H / KV = 4 (Llama's and Mixtral's grouping), head_dim 128, pages of 16.
+    K = 3 gives 16 flattened rows (the split-key decode regime), K = 4
+    gives 20 (one block per row and kv head sweeps the whole context);
+    both on the Hopper body, against the plain version at the smoke's
+    paged gates (PAGED_DECODE_TOL 4e-3 for the decode regime,
+    PAGED_CHUNK_TOL 1e-2 otherwise)."""
+    from deepspeed_tpu_torch.inference.kernels import quantize_kv_rows
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        DECODE_ROWS, paged_chunk_attention, paged_chunk_attention_quant,
+        paged_chunk_attention_quant_reference,
+        paged_chunk_attention_reference)
+
+    C, G = K + 1, 4
+    q, (kp, vp), table, st = _sm90_paged_case(gen, C, G, 16, 128)
+    kp, vp = (torch.nan_to_num(x, nan=0.0) for x in (kp, vp))
+    if quant:
+        kq, ks = quantize_kv_rows(kp)
+        vq, vs = quantize_kv_rows(vp)
+        fn, args = paged_chunk_attention_quant, (kq, ks, vq, vs, table, st)
+        ref = paged_chunk_attention_quant_reference(q, *args)
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        fn, args = paged_chunk_attention, (kp, vp, table, st)
+        ref = paged_chunk_attention_reference(q, *args)
+    before = dict(fn.body_launches)
+    out = fn(q, *args)
+    torch.cuda.synchronize()
+    assert fn.body_launches["sm90"] == before["sm90"] + 1
+    assert torch.isfinite(out).all()
+    tol = 4e-3 if C * G <= DECODE_ROWS else 1e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_full_multi_head_causal(gen, D):
     """B1-B3 at H = KV (one query head per kv head), causal, T = 1024, on

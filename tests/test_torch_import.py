@@ -50,6 +50,11 @@ def test_imports_with_jax_blocked():
         "from deepspeed_tpu_torch.data import loader, packing, curriculum\n"
         "from deepspeed_tpu_torch import DataLoader, PackedDataLoader, "
         "from_jax_train_state, zero_to_fp32\n"
+        "from deepspeed_tpu_torch.inference import zero_inference, "
+        "speculative\n"
+        "from deepspeed_tpu_torch.io import aio\n"
+        "from deepspeed_tpu_torch.utils import ctypes_build\n"
+        "from deepspeed_tpu_torch import infinity\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"
@@ -117,3 +122,25 @@ def test_resolve_device_rules(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+
+
+def test_new_modules_are_scanned():
+    """The serving-extension modules sit among the scanned files (the
+    AST scan above covers every module of the package)."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"deepspeed_tpu_torch/io/aio.py",
+            "deepspeed_tpu_torch/infinity.py",
+            "deepspeed_tpu_torch/utils/ctypes_build.py",
+            "deepspeed_tpu_torch/inference/zero_inference.py",
+            "deepspeed_tpu_torch/inference/speculative.py"} <= names
+
+
+def test_host_aio_is_the_ports_own_copy():
+    """The port builds its aio from its own source into build/, never the
+    JAX package's ``csrc/aio.cpp`` or its committed library."""
+    from deepspeed_tpu_torch.io import aio
+
+    assert Path(aio._SRC) == ROOT / "deepspeed_tpu_torch" / "csrc" / \
+        "host" / "aio.cpp"
+    assert Path(aio._LIB).parent == ROOT / "build" / "deepspeed_tpu_torch" \
+        / "host"

@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.inference import kv_tier as tkv
 from deepspeed_tpu_torch.inference.serving import llama_serving_engine
 from deepspeed_tpu_torch.models import llama as tl
 from deepspeed_tpu_torch.weights import from_jax_params
+from test_torch_aio import bounded
 
 torch.set_num_threads(1)
 
@@ -241,10 +242,22 @@ def test_page_reader_streams_groups_through_the_host_view():
     assert seen == [(0, 8), (1, 8), (2, 4)] and reader.hits == 3
 
 
+@bounded
 def test_nvme_dir_raises_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError, match="io slice"):
-        tkv.KVTierPool(KVTierConfig.coerce({"nvme_dir": str(tmp_path)}),
-                       PAGE_SHAPE, torch.float32)
+    """The NVMe rung is ported: ``nvme_dir`` builds the aio channel and
+    the host pool's overflow spills there instead of dropping."""
+    pool = tkv.KVTierPool(KVTierConfig.coerce({
+        "nvme_dir": str(tmp_path), "host_pool_bytes": 4096}),
+        PAGE_SHAPE, torch.float32)
+    assert pool.uses_aio
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        k, v = (rng.standard_normal(PAGE_SHAPE).astype(np.float32)
+                for _ in range(2))
+        pool.demote(bytes([i]) * 32, k, v)
+    assert [pool.location(bytes([i]) * 32) for i in range(3)] == \
+        ["nvme", "nvme", "host"]
+    assert pool.dropped_pages == 0 and pool.spilled_pages == 2
 
 
 # ------------------------------------- model: int8-resident forward_paged
@@ -457,8 +470,185 @@ def test_engine_rejects_what_the_slice_does_not_take(model, tmp_path):
     with pytest.raises(ValueError, match="pallas_v1"):
         _engine(model, "torch", prefix_cache={}, kv_tier=QRES,
                 kernels={"paged_attention": "pallas_v1"})
-    with pytest.raises(NotImplementedError, match="io slice"):
-        _engine(model, "torch", prefix_cache={},
-                kv_tier={"nvme_dir": str(tmp_path)})
+    # the NVMe rung builds (it is ported; test_kv_nvme_* drive it)
+    assert _engine(model, "torch", prefix_cache={}, kv_tier={
+        "nvme_dir": str(tmp_path)})._kv_pool.uses_aio
     with pytest.raises(NotImplementedError, match="control-plane"):
         _engine(model, "torch", prefix_cache={}, kv_tier={}, faults={})
+
+
+# ------------------------------------------------------------ NVMe rung
+@pytest.fixture
+def jax_python_aio(monkeypatch):
+    """The JAX pool's NVMe rung on its pure-Python aio arm (the
+    reference's native pool is not driven here)."""
+    import deepspeed_tpu.io.aio as jaio
+
+    monkeypatch.setattr(jaio, "_ensure_lib", lambda: None)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@bounded
+def test_kv_nvme_cascade_matches_jax(tmp_path, jax_python_aio, quantize):
+    """The same demote sequence through both pools under a host pool of
+    three pages and an NVMe cap of four: every key's location, the byte
+    totals, the spill / drop counts, the buffers' crc32 and the spilled
+    files' bytes are the JAX pool's; promotion reads (the alternating aio
+    slots) and the synchronous rung return the demoted payload."""
+    page = int(np.prod(PAGE_SHAPE)) * 4
+    per = 2 * page if not quantize else None
+    t, j = _pools(quantize_cold=quantize, host_pool_bytes=3 * (per or 1),
+                  nvme_pool_bytes=4 * (per or 1),
+                  nvme_dir=str(tmp_path / "port"))
+    if quantize:
+        # size the pools to the quantised entry's bytes
+        k, v = rand_page(0), rand_page(1)
+        n = jkv.encode_entry(b"x" * 16, k, v, quantize=True,
+                             page_dtype=np.float32).nbytes
+        t, j = _pools(quantize_cold=True, host_pool_bytes=3 * n,
+                      nvme_pool_bytes=4 * n,
+                      nvme_dir=str(tmp_path / "port"))
+    j = jkv.KVTierPool(JKVTierConfig.coerce(dict(
+        enabled=True, quantize_cold=quantize,
+        host_pool_bytes=t.cfg.host_pool_bytes,
+        nvme_pool_bytes=t.cfg.nvme_pool_bytes,
+        nvme_dir=str(tmp_path / "jax"))), PAGE_SHAPE, np.float32)
+    keys = [bytes([i]) * 16 for i in range(9)]
+    pages = {}
+    for i, key in enumerate(keys):
+        pages[key] = (rand_page(10 + i), rand_page(30 + i))
+        assert t.demote(key, *pages[key]) == j.demote(key, *pages[key])
+        if i == 4:        # a touch reorders the cascade on both
+            assert t.touch(keys[0]) == j.touch(keys[0])
+    assert t.uses_aio and t.spilled_pages > 0 and t.dropped_pages > 0
+    for key in keys:
+        assert t.location(key) == j.location(key), key
+    occ = t.occupancy()
+    for f, v in j.occupancy().items():
+        assert occ[f] == v, f
+    for key in keys:
+        if t.location(key) is None:
+            continue
+        te, je = t.entries[key], j.entries[key]
+        assert te.checksums == je.checksums and te.nbytes == je.nbytes
+        if te.location == "nvme":
+            for name in te.names:
+                assert (tmp_path / "port" / f"{name}.bin").read_bytes() == \
+                    (tmp_path / "jax" / f"{name}.bin").read_bytes()
+    # promotion reads: NVMe entries through the aio slots, host entries
+    # zero-copy, each decoded (checksum first) to the demoted page
+    for key in keys:
+        if t.location(key) is None:
+            continue
+        names, shapes, dtypes = t.entry_meta(key)
+        bufs = [t.get_submit(n, s, d) for n, s, d in zip(names, shapes,
+                                                         dtypes)]
+        t.fence_reads()
+        t.next_read_slot()
+        k, v = t.decode(key, bufs)
+        jk, jv = j.decode(key, [j.read_sync(n, s, d) for n, s, d in
+                                zip(names, shapes, dtypes)])
+        np.testing.assert_array_equal(k, jk)
+        np.testing.assert_array_equal(v, jv)
+        sync = [t.read_sync(n, s, d) for n, s, d in zip(names, shapes,
+                                                        dtypes)]
+        for a, b in zip(sync, bufs):
+            np.testing.assert_array_equal(a, b)
+    # discarding an NVMe entry removes its files
+    nv = next(k for k in keys if t.location(k) == "nvme")
+    names = t.entries[nv].names
+    t.discard(nv)
+    assert not any((tmp_path / "port" / f"{n}.bin").exists()
+                   for n in names)
+
+
+@bounded
+def test_kv_nvme_pinned_entries_do_not_spill(tmp_path):
+    page = 2 * int(np.prod(PAGE_SHAPE)) * 4
+    t = tkv.KVTierPool(KVTierConfig.coerce(dict(
+        host_pool_bytes=2 * page, nvme_dir=str(tmp_path))), PAGE_SHAPE,
+        torch.float32)
+    a, b, c = (bytes([i]) * 16 for i in range(3))
+    t.demote(a, rand_page(1), rand_page(2))
+    t.demote(b, rand_page(3), rand_page(4))
+    t.pin([a])
+    t.demote(c, rand_page(5), rand_page(6))
+    assert (t.location(a), t.location(b), t.location(c)) == \
+        ("host", "nvme", "host")
+    with pytest.raises(RuntimeError, match="channel-free"):
+        t.host_view().get_submit(t.entries[b].names[0], (1,), "float32")
+
+
+def test_kv_nvme_priority_defers_to_higher_members(tmp_path):
+    from deepspeed_tpu_torch.io.aio import AioPriorityGroup
+
+    t = tkv.KVTierPool(KVTierConfig.coerce({"nvme_dir": str(tmp_path)}),
+                       PAGE_SHAPE, torch.float32)
+    assert t.may_submit()
+    busy = {"n": 0}
+    g = AioPriorityGroup()
+    g.register(lambda: busy["n"], 1)
+    t.set_priority(g, 0)
+    assert t.may_submit()
+    busy["n"] = 2
+    assert not t.may_submit()
+
+
+@pytest.mark.parametrize("kw", [{}, {"prefill_chunk": 8},
+                                {"kv_tier_extra": {"quantize_cold": True}}],
+                         ids=["dense", "prefill_chunk", "quantize_cold"])
+@bounded
+def test_kv_nvme_engine_tokens_identical_to_jax(model, tmp_path,
+                                                jax_python_aio, kw):
+    """Two waves on one prefix with a host pool too small for wave a's
+    pages: they cascade to NVMe and wave b promotes them back through the
+    aio channel, one NVMe-backed promotion at a time (the others wait at
+    admission).  Tokens equal the JAX engine's and the host-only run's."""
+    kw = dict(kw)
+    extra = kw.pop("kv_tier_extra", {})
+    page = 2 * 2 * 2 * 8 * 16 * 4        # k + v: L, KV, ps, Dh, f32
+    tier = dict(TIER, host_pool_bytes=page, **extra)
+    host_only = _engine(model, "torch", prefix_cache={},
+                        kv_tier=dict(TIER, **extra), **kw)
+    je = _engine(model, "jax", prefix_cache={}, kv_tier=dict(
+        tier, nvme_dir=str(tmp_path / "jax")), **kw)
+    te = _engine(model, "torch", prefix_cache={}, kv_tier=dict(
+        tier, nvme_dir=str(tmp_path / "port")), **kw)
+    want, got, host = _serve([je, te, host_only], _waves(),
+                             between=lambda e: e.step())
+    assert got == want == host
+    occ = te._kv_pool.occupancy()
+    assert occ["spilled_pages"] > 0
+    assert te.allocator.promoted > 0
+    jc = je.registry.snapshot()["counters"]
+    assert te.allocator.promoted == je.allocator.promoted
+    # the scheduler loops count admission retries differently; both wait
+    assert (te.kv_tier_admit_waits > 0) == (jc["kv_tier_admit_waits"] > 0)
+    assert te._promo_channel is None and te.check_leaks() == []
+
+
+@bounded
+def test_kv_nvme_admission_waits_for_the_channel(model, tmp_path):
+    """While one promotion owns the NVMe channel, an admission whose span
+    needs NVMe bytes waits (counted) instead of re-prefilling it, and goes
+    in once the channel frees."""
+    page = 2 * 2 * 2 * 8 * 16 * 4
+    te = _engine(model, "torch", prefix_cache={}, kv_tier=dict(
+        TIER, host_pool_bytes=page, nvme_dir=str(tmp_path)))
+    waves = _waves()
+    _serve([te], waves[:1])
+    te.step()                         # the watermark sweep demotes
+    assert te._kv_pool.occupancy()["nvme_pages"] > 0
+    b0, b1 = list(waves[1].items())[:2]
+    te.submit(*b0, max_new_tokens=4)
+    te._admit_one()
+    owner = te._promo_channel
+    assert owner is not None and te.slots[owner].promo.channel
+    te.submit(*b1, max_new_tokens=4)
+    waits = te.kv_tier_admit_waits
+    assert not te._admit_one()
+    assert te.kv_tier_admit_waits == waits + 1
+    out = te.run()
+    assert {b0[0], b1[0]} <= set(out) and te._promo_channel is None
+    assert out[b0[0]][:len(b0[1])] == b0[1]
+    assert te.check_leaks() == []

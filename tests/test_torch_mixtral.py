@@ -495,7 +495,8 @@ def test_sharding_and_streaming_raise(model):
     cfg, tcfg, _, tp = model
     with pytest.raises(NotImplementedError, match="A9"):
         tm.param_specs(tcfg)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A9"):
         tm.layered_model(tcfg, tp)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.paged_layered_fns(tcfg)
+    # weight-streamed serving is ported: the per-layer factoring serves
+    # (tests/test_torch_zero_inference.py holds it to the resident engine)
+    assert all(callable(f) for f in tm.paged_layered_fns(tcfg))

@@ -348,9 +348,10 @@ def test_init_serving_blocks(model):
     _, tcfg, _, tp = model
     with pytest.raises(NotImplementedError, match="distributed slice"):
         init_serving(tp, tcfg, config={"mesh": {"model": 2}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        init_serving(tp, tcfg, config={"speculative": {"k": 2}},
-                     device="cpu", **SERVE)
+    # the speculative block is ported: the config reaches the engine
+    eng = init_serving(tp, tcfg, config={"speculative": {"draft_tokens": 2}},
+                       device="cpu", **SERVE)
+    assert eng.speculative.enabled and eng.speculative.draft_tokens == 2
     with pytest.raises(NotImplementedError, match="telemetry"):
         init_serving(tp, tcfg, config={"telemetry": {"enabled": True}},
                      device="cpu", **SERVE)

@@ -109,6 +109,17 @@ def test_unported_blocks_raise(model, block, value):
         assert [len(out[r]) for r in "ab"] == [22, 24]
         assert eng.prefix_cache_hits == 1 and eng.check_leaks() == []
         return
+    if block in ("speculative", "zero_inference"):
+        # ported: speculative decoding and weight streaming serve, token
+        # for token as the plain engine (test_torch_speculative.py and
+        # test_torch_zero_inference.py hold them to the JAX package)
+        want = serving_engine(tp, tcfg, device="cpu", **BASE)
+        eng = serving_engine(tp, tcfg, device="cpu", **{block: value},
+                             **BASE)
+        for e in (want, eng):
+            e.submit("a", list(range(1, 20)), max_new_tokens=5)
+        assert eng.run() == want.run() and eng.check_leaks() == []
+        return
     if block == "weight_dtype":
         # ported: int8 weights serve; another dtype raises, as in the JAX
         # package

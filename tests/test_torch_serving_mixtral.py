@@ -10,7 +10,8 @@ int8 engine's up to a bf16 near-tie; both generators against
 JAX's; the engine against the paged generator (the offline oracle); the
 registry dispatches ``MixtralConfig`` first, ``init_serving`` and
 ``init_inference(apply_fn=forward_eval, dtype="int8")`` reach the MoE
-forwards; a ``mesh`` and ``zero_inference`` are refused."""
+forwards; a ``mesh`` is refused and ``zero_inference`` routes to the
+weight-streamed engine."""
 
 import functools
 
@@ -32,6 +33,8 @@ from deepspeed_tpu_torch.inference.serving import (MIXTRAL_INT8_SKIP,
                                                    ServingEngine,
                                                    mixtral_serving_engine,
                                                    serving_engine)
+from deepspeed_tpu_torch.inference.zero_inference import (
+    ZeroInferenceServingEngine)
 from deepspeed_tpu_torch.models import mixtral as tm
 from deepspeed_tpu_torch.weights import from_jax_params
 
@@ -194,12 +197,14 @@ def test_registry_init_serving_and_refusals(model):
     assert isinstance(eng.params["blocks"]["w2"], QuantizedTensor)
     with pytest.raises(NotImplementedError, match="slice"):
         serving_engine(tp, tcfg, device="cpu", mesh=object(), **BASE)
-    with pytest.raises(NotImplementedError, match="A8"):
-        serving_engine(tp, tcfg, device="cpu",
-                       zero_inference={"enabled": True}, **BASE)
-    with pytest.raises(NotImplementedError, match="A8"):
-        init_serving(tp, tcfg, config={"zero_inference": {"enabled": True}},
-                     device="cpu", **BASE)
+    # weight streaming is ported: both entry points route to the streamed
+    # engine (test_torch_zero_inference.py holds it to the resident one)
+    for eng in (serving_engine(tp, tcfg, device="cpu",
+                               zero_inference={"enabled": True}, **BASE),
+                init_serving(tp, tcfg, device="cpu", config={
+                    "zero_inference": {"enabled": True}}, **BASE)):
+        assert isinstance(eng, ZeroInferenceServingEngine)
+        assert eng.plan["n_streamed"] == tcfg.n_layers
     with pytest.raises(NotImplementedError, match="int8"):
         serving_engine(tp, tcfg, device="cpu", weight_dtype="int4", **BASE)
 
