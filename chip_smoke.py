@@ -157,15 +157,39 @@ and runs, in order:
    share, tokens/s, acceptance, peak memory;
 32. phase 11's two waves with speculation on, the host tier against a
    host pool small enough that wave A cascades to NVMe (wave B promotes
-   from NVMe): identical tokens, pages per location, admission waits.
+   from NVMe): identical tokens, pages per location, admission waits;
+33. the port's host natives (``csrc/host/hostruntime.cpp``, ``cpu_adam.cpp``,
+   built with g++): the buffer pool and the shuffle service native (the
+   shuffle equals its pure-Python mirror at n = 100,000), the fused CPU
+   Adam over Llama-3-8B's 525 M-element embedding leaf (seconds, GB/s, a
+   16 M-element slice against the plain mirror), the env report's host
+   rows;
+34. Llama-3-8B's seeded bf16 weights exported with ``save_pretrained`` (32.1
+   GB of f32 safetensors under the temp dir) and loaded back with
+   ``from_pretrained``: the tree bit for bit, phase 5's traffic served with
+   identical tokens and bitwise first logits, peak host RSS; a tiny
+   Mixtral through ``inject`` on the card against the CPU;
+35. LoRA of Llama-3-8B at all 32 layers (r 8, wq/wk/wv/wo, frozen bf16 base,
+   fused Adam on the adapters, micro 1 x accumulation 2 x 2048): step 1
+   equal to the base loss bit for bit, the loss falling, the base
+   unchanged, ``merge_lora`` against ``apply_lora``, ms/step, peak, idle;
+36. at phase 8's widths (4 layers): the hybrid engine's greedy rollouts
+   before and after a train step, each identical to a standalone
+   generator over the engine's params, and the cast's ms; distillation of
+   a 4-layer teacher into a 2-layer student; the HF Trainer bridge from a
+   ``save_pretrained`` directory through 2 steps to ``save_model``, read
+   back bit for bit.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
 int8 serving runs and the ``init_inference`` forward of phase 14, the
 training run of phase 8, the four runs of phase 15, the GPT-2 paths of
 phases 17-19, the Mixtral paths of phases 21-22, the BERT-large paths of
-phases 25-26, the CNN's of phase 27, and the streamed, speculative and
-KV-NVMe paths of phases 29-32) counts the launches
+phases 25-26, the CNN's of phase 27, the streamed, speculative and
+KV-NVMe paths of phases 29-32, the env report of phase 33, the HF-loaded
+serving run and the injected Mixtral of phase 34, the LoRA run of phase
+35, and the hybrid rollouts and step, distillation and Trainer runs of
+phase 36) counts the launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -2235,23 +2259,30 @@ def _packed_docs(rng, n, vocab, lo=64, hi=1536):
         np.int32) for _ in range(n)]
 
 
-def _state_digest(state) -> list:
-    """Per state leaf (master params and optimizer moments): the int64 sums
-    of its 32-bit patterns, plain and weighted by position (mod 1000003),
-    on the card; equal for bit-equal leaves."""
+def _leaf_digest(t) -> tuple:
+    """The int64 sums of a leaf's 16- or 32-bit patterns, plain and weighted
+    by position (mod 1000003), on the card; equal for bit-equal leaves."""
+    v = t.detach().reshape(-1)
+    v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+    plain = weighted = 0
+    for i in range(0, v.numel(), 1 << 26):
+        c = v[i:i + (1 << 26)].long()
+        idx = torch.arange(i, i + c.numel(), device=c.device)
+        plain += int(c.sum())
+        weighted += int((c * (idx % 1000003 + 1)).sum())
+    return plain, weighted
+
+
+def _tree_digest(tree) -> list:
     from deepspeed_tpu_torch._tree import tree_leaves
 
-    out = []
-    for t in tree_leaves((state.params, state.opt_state[1:])):
-        v = t.detach().reshape(-1).view(torch.int32)
-        plain = weighted = 0
-        for i in range(0, v.numel(), 1 << 26):
-            c = v[i:i + (1 << 26)].long()
-            idx = torch.arange(i, i + c.numel(), device=c.device)
-            plain += int(c.sum())
-            weighted += int((c * (idx % 1000003 + 1)).sum())
-        out.append((plain, weighted))
-    return out
+    return [_leaf_digest(t) for t in tree_leaves(tree)]
+
+
+def _state_digest(state) -> list:
+    """Per state leaf (master params and optimizer moments):
+    :func:`_leaf_digest`."""
+    return _tree_digest((state.params, state.opt_state[1:]))
 
 
 def _train_flops_per_sample(cfg, T):
@@ -4991,8 +5022,9 @@ def phase_zi_identity(fns, card_line, link_gbps):
     step's logits bitwise equal); the same in int8; Mixtral-8x7B bf16 at
     16 layers on 3 of phase 21's prompts; and the NVMe tier against the
     host tier at 8 layers.  Returns the launches, the Llama-3-8B weights
-    (phases 30-32 serve them) and the streamed bf16 run's counts (phase
-    31's spec-off reading)."""
+    (phases 30-32, 34 and 35 use them), the streamed bf16 run's counts
+    (phase 31's spec-off reading) and the resident bf16 run's outputs and
+    first logits (phase 34's reference)."""
     import dataclasses
     import shutil
 
@@ -5031,7 +5063,7 @@ def phase_zi_identity(fns, card_line, link_gbps):
                    "resident_tokens_per_s": r_m["tokens_per_s"],
                    "streamed": {k: s_m[k] for k in s_m if k != "leaks"}}
         if wd == "bfloat16":
-            streamed_bf16 = s_m
+            streamed_bf16, resident_bf16 = s_m, (r_out, r_logits)
     # the NVMe tier against the host tier, depth cut to 8 layers
     cfg8 = dataclasses.replace(cfg, n_layers=ZI_NVME_LAYERS)
     p8 = dict(params, blocks={k: v[:ZI_NVME_LAYERS]
@@ -5087,7 +5119,7 @@ def phase_zi_identity(fns, card_line, link_gbps):
     if not ok:
         raise SystemExit("phase 29: streamed serving differs from resident "
                          "(or the NVMe tier from the host tier)")
-    return launches, params, streamed_bf16
+    return launches, params, streamed_bf16, resident_bf16
 
 
 # ------------------------------------------------------------ phase 30
@@ -5402,16 +5434,667 @@ def phase_kv_nvme(fns, card_line, params):
     return launches
 
 
+# ------------------------------------------------------- phases 33-36
+# The host natives, HF checkpoints in and out, LoRA at all 32 layers, the
+# hybrid engine, distillation and the Trainer bridge
+CPU_ADAM_N = 128256 * 4096           # Llama-3-8B's embedding leaf
+CPU_ADAM_SLICE = 1 << 24             # the slice held to the plain mirror
+# the native step against the plain mirror on the slice, for each of p, m
+# and v: the norm of the difference over the norm of the plain step (new
+# minus old).  The C++ forms 1 - b1 and 1 - b2 in f32, the mirror rounds
+# them from f64 (2.4e-7 and 4.7e-5 apart; the JAX package's two arms
+# differ the same way), which moves the step by up to ~5e-5 of itself; an
+# element-wise bound fails where m or p land near 0 by cancellation.  A
+# CPU rehearsal at these scales read 4.0e-6 / 2.5e-7 / 1.8e-5
+CPU_ADAM_STEP_RTOL = 1e-4
+SHUFFLE_N, SHUFFLE_EPOCHS = 100_000, 3
+# phase 34's tiny Mixtral, card against CPU in f32 (the scalar attention
+# body sums in another order): 1e-4 of the largest |logit|, phase 24's f32
+# bound
+HF_MIXTRAL_REL_TOL = 1e-4
+# phase 35: merge_lora's forward (the f32 master A, B folded into the bf16
+# base) against apply_lora's over the engine's bf16 compute copy of A, B:
+# the two round A, B differently, which moves an element of W_eff across a
+# bf16 rounding boundary now and then (one bf16 ulp, 2^-8 of it).  Set
+# before the first card reading, at 5e-2 of the largest |logit|: a CPU
+# rehearsal on a 3-layer tiny model read 1.6e-2 with ~4 % of W_eff's
+# elements one ulp apart, and deep bf16 stacks read up to 4.1e-2 between
+# two arms that round once per attention (phase 24's BERT-large, 24
+# layers), below phase 21's 5e-2
+LORA_MERGE_REL_TOL = 5e-2
+LORA_STEPS = 4
+# phase 36: rollouts of 8 prompts of 128 tokens, 32 new; distillation 3
+# steps; the Trainer 2 steps over rows of 1025 tokens
+HYBRID_PROMPTS, HYBRID_PROMPT_LEN, HYBRID_NEW = 8, 128, 32
+DISTILL_STEPS, TRAINER_STEPS, TRAINER_ROW = 3, 2, 1025
+
+
+class _RssPeak:
+    """The peak resident set size of this process over a ``with`` block
+    (``VmRSS`` sampled every 10 ms on a thread; mapped file pages count)."""
+
+    def __init__(self):
+        import threading
+
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+
+    def gb(self) -> dict:
+        return {"base_gb": self.base / 1e9, "peak_gb": self.peak / 1e9,
+                "rise_gb": (self.peak - self.base) / 1e9}
+
+
+# ------------------------------------------------------------ phase 33
+def phase_host_natives(fns, card_line):
+    """The port's host natives, built by g++ from ``csrc/host``: the buffer
+    pool and the shuffle service on their native arms (a get -> put -> get
+    hits the pool; the native shuffle equals the pure-Python mirror at n =
+    100,000 for 3 epochs); the fused CPU Adam (``emit_bf16``) over
+    Llama-3-8B's embedding leaf, 525,336,576 f32 elements, two steps timed
+    (seconds, and GB/s over the 30 bytes an element moves), the first
+    step's 16 M-element slice held to the plain mirror and its bf16 image
+    to round-to-nearest-even of its p; the env report's host rows.  The
+    report is the phase's main path (its CUDA probe launches B10)."""
+    import unittest.mock
+
+    from deepspeed_tpu_torch import env_report
+    from deepspeed_tpu_torch.io import native
+    from deepspeed_tpu_torch.ops import cpu_adam
+
+    t0 = time.perf_counter()
+    built = {"hostruntime": native._ensure_lib() is not None,
+             "cpu_adam": cpu_adam.native_available()}
+    build_s = time.perf_counter() - t0
+    pool = native.HostBufferPool()
+    view, h = pool.get(64 << 20)
+    view[:] = 1
+    del view
+    pool.put(h)
+    _, h2 = pool.get(64 << 20)
+    pool_stats = pool.stats()
+    pool.put(h2)
+    pool.close()
+    pool_ok = pool_stats["native"] and h2 == h and pool_stats["hits"] == 1
+    svc = native.ShuffleIndexService(SHUFFLE_N, seed=33)
+    t0 = time.perf_counter()
+    orders = [svc.epoch_order(e) for e in range(SHUFFLE_EPOCHS)]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shuffle_ok = svc.native and all(
+        np.array_equal(o, native._splitmix64_shuffle(SHUFFLE_N, 33, e))
+        for e, o in enumerate(orders))
+    mirror_s = time.perf_counter() - t0
+    svc.close()
+
+    gen = torch.Generator("cuda").manual_seed(33)
+
+    def draw(scale):
+        return (torch.randn(CPU_ADAM_N, generator=gen, device="cuda")
+                * scale).cpu()
+
+    p = torch.empty(CPU_ADAM_N, dtype=torch.float32, pin_memory=True)
+    p.copy_(torch.randn(CPU_ADAM_N, generator=gen, device="cuda") * 0.02)
+    m, g = draw(1e-3), draw(1e-3)
+    v = draw(1e-3).square_()
+    ref = [t[:CPU_ADAM_SLICE].clone() for t in (p, m, v, g)]
+    old = [t.clone() for t in ref[:3]]
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.1, adamw=True,
+              emit_bf16=True)
+    steps = []
+    for t in (1, 2):
+        t0 = time.perf_counter()
+        img = cpu_adam.cpu_adam_step(p, m, v, g, t=t, **kw)
+        s = time.perf_counter() - t0
+        steps.append({"t": t, "s": s, "gb_per_s": 30 * CPU_ADAM_N / s / 1e9})
+        if t == 1:
+            got = [x[:CPU_ADAM_SLICE].clone() for x in (p, m, v, img)]
+    with unittest.mock.patch.object(cpu_adam, "_ensure_lib", lambda: None):
+        plain_img = cpu_adam.cpu_adam_step(*ref, t=1, **kw)
+    err = {name: float((a.double() - b.double()).norm()
+                       / (b.double() - o.double()).norm())
+           for name, a, b, o in zip("pmv", got[:3], ref[:3], old)}
+    image_rne = torch.equal(got[3], got[0].to(torch.bfloat16))
+    image_vs_plain = float((got[3] != plain_img).float().mean())
+    del p, m, v, g, img, ref, old, got, plain_img
+
+    _zero(fns.values())
+    r = env_report.report()
+    launches = {n: f.launches for n, f in fns.items()}
+    _check_launches("host natives env report", launches, ("env_probe",))
+    host_rows = {k: r["ops"][k]["ok"] for k in (
+        "csrc (aio/hostruntime)", "csrc (cpu_adam)", "g++")}
+    log("[host natives] " + "; ".join(
+        ln.strip() for ln in env_report.render(r)
+        if ln.strip().startswith(("csrc", "g++"))))
+    _phase_line("33 host natives", card_line, built=built,
+                build_s=build_s, pool=pool_stats, pool_hit=pool_ok,
+                shuffle_n=SHUFFLE_N, shuffle_epochs=SHUFFLE_EPOCHS,
+                shuffle_equal_mirror=shuffle_ok, shuffle_native_s=native_s,
+                shuffle_mirror_s=mirror_s, cpu_adam_elements=CPU_ADAM_N,
+                cpu_adam_bytes_per_element=30,
+                cpu_adam_threads=cpu_adam.N_THREADS,
+                host_cpus=os.cpu_count(), cpu_adam_steps=steps,
+                slice_elements=CPU_ADAM_SLICE,
+                slice_err_over_step=err, slice_tol=CPU_ADAM_STEP_RTOL,
+                bf16_image_is_rne_of_p=image_rne,
+                bf16_image_share_unlike_plain=image_vs_plain,
+                env_report_host_rows=host_rows,
+                env_report_probe_ok=r["ops"]["cuda probe"]["ok"])
+    ok = (all(built.values()) and pool_ok and shuffle_ok and image_rne
+          and max(err.values()) <= CPU_ADAM_STEP_RTOL
+          and all(host_rows.values())
+          and r["ops"]["cuda probe"]["ok"])
+    if not ok:
+        raise SystemExit("phase 33: host natives failed")
+    return {"host natives env report": launches}
+
+
+# ------------------------------------------------------------ phase 34
+def _mixtral_hf_state(cfg, seed=34):
+    """A synthetic HF Mixtral checkpoint: HF names, ``[out, in]`` f32
+    matrices (numpy, seeded), and its ``config.json`` dict."""
+    rng = np.random.default_rng(seed)
+    d, f, E = cfg.dim, cfg.ffn_dim, cfg.num_experts
+    kvd = cfg.n_kv_heads * cfg.head_dim
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.1).astype(np.float32)
+
+    sd = {"model.embed_tokens.weight": w(cfg.vocab_size, d),
+          "model.norm.weight": 1 + w(d),
+          "lm_head.weight": w(cfg.vocab_size, d)}
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        sd.update({pre + "input_layernorm.weight": 1 + w(d),
+                   pre + "post_attention_layernorm.weight": 1 + w(d),
+                   pre + "self_attn.q_proj.weight": w(d, d),
+                   pre + "self_attn.k_proj.weight": w(kvd, d),
+                   pre + "self_attn.v_proj.weight": w(kvd, d),
+                   pre + "self_attn.o_proj.weight": w(d, d),
+                   pre + "block_sparse_moe.gate.weight": w(E, d)})
+        for e in range(E):
+            moe = pre + f"block_sparse_moe.experts.{e}."
+            sd.update({moe + "w1.weight": w(f, d), moe + "w3.weight": w(f, d),
+                       moe + "w2.weight": w(d, f)})
+    hf = {"architectures": ["MixtralForCausalLM"],
+          "vocab_size": cfg.vocab_size, "hidden_size": d,
+          "num_hidden_layers": cfg.n_layers,
+          "num_attention_heads": cfg.n_heads,
+          "num_key_value_heads": cfg.n_kv_heads, "intermediate_size": f,
+          "num_local_experts": E, "num_experts_per_tok": cfg.top_k,
+          "max_position_embeddings": cfg.max_seq_len,
+          "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps}
+    return sd, hf
+
+
+def phase_hf_roundtrip(fns, card_line, params, resident):
+    """Llama-3-8B's seeded bf16 weights (phase 5's seed, drawn in phase 29)
+    exported with ``save_pretrained`` to the temp dir (f32, HF names, 32.1
+    GB at 32 layers; the depth is cut, and the cut printed, only when the
+    file system cannot hold it), loaded back with ``from_pretrained(device=
+    "cuda", dtype=bfloat16)`` (the tree bit for bit), and the loaded tree
+    served on phase 5's traffic: tokens identical to the seeded tree's
+    (phase 29's resident run) and the first prefill's and decode step's
+    logits bitwise equal.  Save and load seconds, bytes and the peak host
+    RSS.  Then a tiny f32 Mixtral through ``inject("MixtralForCausalLM")``
+    on the card against the same on the CPU (leaves exact, ``forward_eval``
+    logits at HF_MIXTRAL_REL_TOL)."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.inference.injection import inject
+    from deepspeed_tpu_torch.inference.serving import serving_engine
+    from deepspeed_tpu_torch.integrations.hf import (from_pretrained,
+                                                     save_pretrained)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, param_count
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    prompts = _queue5(cfg.vocab_size)
+    launches = {}
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    fixed = 4 * param_count(dataclasses.replace(cfg, n_layers=0))
+    per_layer = 4 * param_count(dataclasses.replace(cfg, n_layers=1)) - fixed
+    layers = cfg.n_layers
+    if free < 1.1 * (fixed + layers * per_layer):
+        layers = int((free / 1.1 - fixed) // per_layer)
+        log(f"[hf] {root} has {free / 1e9:.1f} GB free: the export is cut "
+            f"from {cfg.n_layers} to {layers} layers")
+        if layers < 1:
+            raise SystemExit("phase 34: no room for the export")
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    tree = params if layers == cfg.n_layers else dict(
+        params, blocks={k: v[:layers] for k, v in params["blocks"].items()})
+    if layers == cfg.n_layers:
+        r_out, r_logits = resident
+    else:
+        r_out, r_logits, _ = _run(
+            lambda: serving_engine(tree, cut, **ZI_LLAMA_OPTS), prompts, 32,
+            fns, f"hf seeded llama {layers} layers", launches,
+            SERVING_KERNELS, capture=True)
+    d = tempfile.mkdtemp(prefix="dstt_hf_")
+    try:
+        torch.cuda.synchronize()
+        with _RssPeak() as save_rss:
+            t0 = time.perf_counter()
+            nbytes = save_pretrained(tree, cut, d)
+            save_s = time.perf_counter() - t0
+        with _RssPeak() as load_rss:
+            t0 = time.perf_counter()
+            _, loaded, lcfg, specs = from_pretrained(
+                d, device="cuda", dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same_tree = lcfg == cut and specs is None and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(loaded),
+                                          tree_leaves(tree)))
+    l_out, l_logits, l_m = _run(
+        lambda: serving_engine(loaded, lcfg, **ZI_LLAMA_OPTS), prompts, 32,
+        fns, "hf loaded llama bf16", launches, SERVING_KERNELS,
+        capture=True)
+    tokens_equal = l_out == r_out
+    logits_bitwise = _same_logits(l_logits, r_logits)
+    del loaded, l_logits, r_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = MixtralConfig.tiny(dim=64)
+    sd, hf = _mixtral_hf_state(mcfg)
+    toks = torch.from_numpy(np.random.default_rng(34).integers(
+        0, mcfg.vocab_size, (2, 40)).astype(np.int32))
+    path = "hf injected mixtral tiny f32"
+    _zero(fns.values())
+    fn, on_card, _, _ = inject("MixtralForCausalLM", hf, sd,
+                               dtype=torch.float32, device="cuda")
+    card_logits = fn(on_card, toks.cuda()).cpu()
+    launches[path] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path, hopper=False)
+    _check_launches(path, launches[path], ("flash_fwd",))
+    fn_h, on_host, _, _ = inject("MixtralForCausalLM", hf, sd,
+                                 dtype=torch.float32, device="cpu")
+    host_logits = fn_h(on_host, toks)
+    mixtral_leaves_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(on_card), tree_leaves(on_host)))
+    mixtral_rel = float((card_logits - host_logits).abs().max()
+                        / host_logits.abs().max())
+    _phase_line("34 hf round trip", card_line, layers=layers,
+                temp_dir_free_gb=free / 1e9, file_bytes=nbytes,
+                save_s=save_s, save_gb_per_s=nbytes / save_s / 1e9,
+                load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9,
+                save_rss=save_rss.gb(), load_rss=load_rss.gb(),
+                loaded_tree_bitwise=same_tree, tokens_equal=tokens_equal,
+                logits_bitwise=logits_bitwise,
+                loaded_tokens_per_s=l_m["tokens_per_s"],
+                loaded_peak_mem_gb=l_m["peak_mem_gb"],
+                mixtral_leaves_equal=mixtral_leaves_equal,
+                mixtral_logits_rel=mixtral_rel,
+                mixtral_tol=HF_MIXTRAL_REL_TOL)
+    if not (same_tree and tokens_equal and logits_bitwise
+            and mixtral_leaves_equal and mixtral_rel <= HF_MIXTRAL_REL_TOL):
+        raise SystemExit("phase 34: the HF round trip differs from the "
+                         "seeded tree (or the injected Mixtral card from "
+                         "CPU)")
+    return launches
+
+
+# ------------------------------------------------------------ phase 35
+def phase_lora(fns, card_line, params):
+    """LoRA of Llama-3-8B at all 32 layers: the seeded bf16 base frozen,
+    ``LoRAConfig()`` (r 8, alpha 32, wq/wk/wv/wo), f32 adapter master, bf16
+    compute, fused Adam, micro 1 x accumulation 2 x 2048 tokens (phase 8's
+    batch), 4 steps on the one batch, ``remat="none"`` (memory allows it).
+    Gates: step 1's loss equals the base model's own ``loss_fn`` bit for
+    bit (B = 0); the loss falls; the base's digest is unchanged; the engine
+    holds and moved only adapters; B1-B3 ran on their tensor-core bodies
+    only and B4 launched once per adapter leaf a step; ``merge_lora``'s
+    forward is within LORA_MERGE_REL_TOL of ``apply_lora``'s.  Then a
+    profiled step's idle share."""
+    import gc
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves, tree_map
+    from deepspeed_tpu_torch.lora import (LoRAConfig, apply_lora,
+                                          count_trainable, init_lora,
+                                          lora_loss_fn, merge_lora)
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    lcfg = LoRAConfig()
+    base_digest = _tree_digest(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    adapters = init_lora(torch.Generator("cuda").manual_seed(35), params,
+                         lcfg)
+    n_train, train_bytes = count_trainable(adapters)
+    n_leaves = len(tree_leaves(adapters))
+    eng, _, _, _ = initialize(
+        loss_fn=lora_loss_fn(llama.loss_fn(cfg), params, lcfg),
+        params=adapters,
+        config=_train_config(2, 2, {"bf16": {"enabled": True}}),
+        optimizer=fused_adam(lr=_warmup(), weight_decay=0.1))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    with torch.no_grad():
+        base_loss = sum(llama.loss_fn(cfg)(params, {
+            "tokens": tokens[i:i + 1]}).float() for i in (0, 1)) / 2
+    path = "lora llama3_8b 32 layers"
+    _zero(fns.values())
+    steps = []
+    for i in range(LORA_STEPS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        loss = eng.train_batch(batch)
+        lossf = float(loss)
+        ms = (time.perf_counter() - ts) * 1e3
+        if i == 0:
+            first_bitwise = torch.equal(loss, base_loss)
+        steps.append({"loss": lossf, "ms": ms,
+                      "tokens_per_s": 2 * 2047 / ms * 1e3,
+                      "grad_norm": eng.get_global_grad_norm()})
+    launches = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    _check_launches(path, launches, ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv", "fused_adam"))
+    adam_per_leaf = launches["fused_adam"] == n_leaves * LORA_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trained = eng.module_params()
+    only_adapters = sorted(trained) == sorted(adapters) and any(
+        bool(torch.any(v["B"] != 0)) for v in trained.values())
+    base_unchanged = _tree_digest(params) == base_digest
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        float(eng.train_batch(batch))
+        traced_ms = (time.perf_counter() - ts) * 1e3
+    busy = _device_busy_ms(prof)
+    idle = None if busy is None else 1.0 - busy / traced_ms
+    del prof
+    trained = eng.module_params()
+    with torch.no_grad():
+        toks = tokens[:1, :-1]
+        cast = tree_map(lambda x: x.to(torch.bfloat16), trained)
+        eff = apply_lora(params, cast, lcfg)
+        merged = merge_lora(params, trained, lcfg)
+        w_eff_differ = {k: float((merged["blocks"][k] != eff["blocks"][k])
+                                 .float().mean())
+                        for k in lcfg.target_modules}
+        want = llama.forward(eff, toks, cfg)
+        del eff
+        got = llama.forward(merged, toks, cfg)
+        merge_rel = float((got - want).abs().max() / want.abs().max())
+        del merged, got, want
+    del eng, adapters, trained, cast
+    gc.collect()
+    torch.cuda.empty_cache()
+    falls = steps[-1]["loss"] < steps[0]["loss"]
+    _phase_line("35 lora llama3_8b", card_line, layers=cfg.n_layers,
+                lora={"r": lcfg.lora_r, "alpha": lcfg.lora_alpha,
+                      "targets": list(lcfg.target_modules)},
+                trainable_params=n_train, trainable_bytes=train_bytes,
+                adapter_leaves=n_leaves, remat=cfg.remat, micro=1, accum=2,
+                seq=2048, steps=steps, base_loss=float(base_loss),
+                first_step_equals_base_bitwise=first_bitwise,
+                loss_falls=falls, base_unchanged=base_unchanged,
+                only_adapters_moved=only_adapters,
+                fused_adam_once_per_leaf_a_step=adam_per_leaf,
+                launches=launches, peak_mem_gb=peak_gb,
+                traced_ms=traced_ms, device_busy_ms=busy,
+                device_idle_share=idle, merge_rel=merge_rel,
+                merge_tol=LORA_MERGE_REL_TOL,
+                w_eff_share_differing=w_eff_differ)
+    if not (first_bitwise and falls and base_unchanged and only_adapters
+            and adam_per_leaf and merge_rel <= LORA_MERGE_REL_TOL):
+        raise SystemExit("phase 35: LoRA gates failed")
+    return {path: launches}
+
+
+# ------------------------------------------------------------ phase 36
+def phase_rlhf_distill_trainer(fns, card_line):
+    """At phase 8's widths (Llama-3-8B, 4 layers): (a) the hybrid engine
+    over a full-parameter engine (f32 master, bf16 compute, fused Adam):
+    greedy rollouts of 8 prompts of 128 tokens, 32 new, then one
+    ``train_batch`` on phase 8's batch, then rollouts again, each
+    identical to a standalone ``llama_generator`` over the engine's params
+    cast to bf16 at that moment; (b) distillation of a seeded bf16 4-layer
+    teacher into a 2-layer student (alpha 0.5, T 2), 3 steps on the batch:
+    the loss falls, the teacher is unchanged; (c) the Trainer bridge: a
+    2-layer model exported with ``save_pretrained``, ``Trainer(model_dir=
+    ...)`` 2 steps, ``save_model``, ``from_pretrained`` in f32 equal to the
+    engine's master bit for bit.  The Trainer's config names ``adamw``,
+    which is the plain Adam (as in the JAX package), so B4 does not run
+    there."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves, tree_map
+    from deepspeed_tpu_torch.distill import Distiller
+    from deepspeed_tpu_torch.hybrid import init_hybrid_engine
+    from deepspeed_tpu_torch.inference.generation import llama_generator
+    from deepspeed_tpu_torch.integrations.hf import (from_pretrained,
+                                                     save_pretrained)
+    from deepspeed_tpu_torch.integrations.trainer import (Trainer,
+                                                          TrainingArguments)
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=4)
+    train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    launches, res = {}, {}
+
+    # (a) the hybrid engine
+    conf = _train_config(2, 2, {"bf16": {"enabled": True}})
+    conf["hybrid_engine"] = {"enabled": True, "max_out_tokens": 160}
+    eng, _, _, _ = initialize(
+        loss_fn=llama.loss_fn(cfg),
+        params=init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda", dtype=torch.float32),
+        config=conf, optimizer=fused_adam(lr=_warmup(), weight_decay=0.1))
+    hyb = init_hybrid_engine(eng, cfg)
+    prompts = np.random.default_rng(36).integers(
+        1, cfg.vocab_size, (HYBRID_PROMPTS, HYBRID_PROMPT_LEN)).astype(
+        np.int32)
+    outs = []
+    for tag in ("before step", "after step"):
+        p = f"hybrid rollout {tag}"
+        _zero(fns.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hyb.generate(prompts, max_new_tokens=HYBRID_NEW,
+                           temperature=0.0)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches[p] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(p)
+        _check_launches(p, launches[p], ("greedy_argmax",))
+        with torch.no_grad():
+            ref = llama_generator(tree_map(lambda x: x.to(torch.bfloat16),
+                                           eng.module_params()),
+                                  cfg).generate(prompts, HYBRID_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cast = hyb.compute_params()        # the mode switch, timed alone
+        torch.cuda.synchronize()
+        cast_ms = (time.perf_counter() - t0) * 1e3
+        del cast
+        res[p] = {"identical_to_generator": torch.equal(out, ref),
+                  "tokens_per_s": HYBRID_PROMPTS * HYBRID_NEW / s,
+                  "rollout_s": s, "cast_ms": cast_ms}
+        outs.append(out)
+        del ref
+        if tag == "before step":
+            p = "hybrid train step"
+            _zero(fns.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[p] = {"loss": float(hyb.train_batch(batch))}
+            res[p]["ms"] = (time.perf_counter() - t0) * 1e3
+            launches[p] = {n: f.launches for n, f in fns.items()}
+            _check_bodies(p)
+            _check_launches(p, launches[p], train_kernels + ("fused_adam",))
+    res["rollouts_differ_after_step"] = not torch.equal(*outs)
+    del hyb, eng, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) distillation
+    scfg = dataclasses.replace(cfg, n_layers=2)
+    teacher = init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                          device="cuda", dtype=torch.bfloat16)
+    teacher_digest = _tree_digest(teacher)
+    dist = Distiller(lambda p, x: llama.forward(p, x, cfg), teacher,
+                     alpha=0.5, temperature=2.0)
+    eng, _, _, _ = initialize(
+        loss_fn=dist.loss_fn(lambda p, x: llama.forward(p, x, scfg),
+                             has_aux=True),
+        params=init_params(scfg, torch.Generator("cuda").manual_seed(2),
+                           device="cuda", dtype=torch.float32),
+        config=_train_config(2, 2, {"bf16": {"enabled": True}}),
+        optimizer=fused_adam(lr=_warmup(), weight_decay=0.1), has_aux=True)
+    p = "distillation"
+    _zero(fns.values())
+    dsteps = []
+    for _ in range(DISTILL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        aux = eng.metrics["aux"]
+        dsteps.append({"loss": loss, "hard_loss": float(aux["hard_loss"]),
+                       "kd_loss": float(aux["kd_loss"]),
+                       "ms": (time.perf_counter() - t0) * 1e3})
+    launches[p] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(p)
+    _check_launches(p, launches[p], train_kernels + ("fused_adam",))
+    res[p] = {"steps": dsteps,
+              "loss_falls": dsteps[-1]["loss"] < dsteps[0]["loss"],
+              "teacher_unchanged": _tree_digest(teacher) == teacher_digest}
+    del eng, dist, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the Trainer bridge
+    d = tempfile.mkdtemp(prefix="dstt_trainer_")
+    try:
+        base = init_params(scfg, torch.Generator("cuda").manual_seed(3),
+                           device="cuda", dtype=torch.bfloat16)
+        save_pretrained(base, scfg, os.path.join(d, "base"))
+        del base
+        auto = {"train_micro_batch_size_per_gpu": "auto",
+                "gradient_accumulation_steps": "auto",
+                "gradient_clipping": "auto",
+                "optimizer": {"type": "adamw", "params": {
+                    "lr": "auto", "betas": "auto", "eps": "auto",
+                    "weight_decay": "auto"}},
+                "scheduler": {"type": "WarmupLR", "params": {
+                    "warmup_max_lr": "auto", "warmup_min_lr": "auto",
+                    "warmup_num_steps": "auto"}},
+                "bf16": {"enabled": True}}
+        args = TrainingArguments(output_dir=os.path.join(d, "out"),
+                                 deepspeed=auto,
+                                 per_device_train_batch_size=1,
+                                 learning_rate=1e-4,
+                                 max_steps=TRAINER_STEPS, warmup_steps=1,
+                                 logging_steps=0)
+        rows = [{"input_ids": r.tolist()} for r in
+                np.random.default_rng(3).integers(
+                    1, cfg.vocab_size, (4, TRAINER_ROW))]
+        p = "trainer"
+        _zero(fns.values())
+        t0 = time.perf_counter()
+        tr = Trainer(model_dir=os.path.join(d, "base"), args=args,
+                     train_dataset=rows)
+        out = tr.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches[p] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(p)
+        _check_launches(p, launches[p], train_kernels)
+        t0 = time.perf_counter()
+        outdir = tr.save_model()
+        save_s = time.perf_counter() - t0
+        _, back, bcfg, _ = from_pretrained(outdir, device="cuda",
+                                           dtype=torch.float32)
+        master = tr.engine.module_params()
+        res[p] = {"train": out, "train_and_load_s": train_s,
+                  "save_s": save_s, "config_equal": bcfg == scfg,
+                  "saved_equals_master_bitwise": all(
+                      torch.equal(a, b) for a, b in zip(
+                          tree_leaves(back), tree_leaves(master)))}
+        del tr, back, master
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_line("36 hybrid distill trainer", card_line, layers=cfg.n_layers,
+                **res)
+    ok = (all(res[f"hybrid rollout {t}"]["identical_to_generator"]
+              for t in ("before step", "after step"))
+          and np.isfinite(res["hybrid train step"]["loss"])
+          and res["distillation"]["loss_falls"]
+          and res["distillation"]["teacher_unchanged"]
+          and res["trainer"]["config_equal"]
+          and res["trainer"]["saved_equals_master_bitwise"]
+          and res["trainer"]["train"]["train_steps"] == TRAINER_STEPS)
+    if not ok:
+        raise SystemExit("phase 36: hybrid, distillation or Trainer gates "
+                         "failed")
+    return launches
+
+
 def serve_beyond_the_card(fns, card_line, gen, rows):
-    """Phases 28-32 (Llama-3-8B's weights drawn once, in phase 29, and
-    served by 30, 32 and 31; 31 runs last, since Mixtral-8x7B's 64 GB
-    budget needs the card free of them); B5's verify-window cases join its
-    row.  Returns every main path's launches."""
+    """Phases 28-32, 34 and 35 (Llama-3-8B's weights drawn once, in phase
+    29, and used by 30, 32, 34, 35 and 31; 31 runs last, since
+    Mixtral-8x7B's 64 GB budget needs the card free of them); B5's
+    verify-window cases join its row.  Returns every main path's
+    launches."""
     link = phase_aio(card_line)
-    launches, params, llama_off = phase_zi_identity(fns, card_line, link)
+    launches, params, llama_off, resident = phase_zi_identity(fns, card_line,
+                                                              link)
     spec_launches, cases = phase_spec(fns, card_line, params, gen)
     launches.update(spec_launches)
     launches.update(phase_kv_nvme(fns, card_line, params))
+    launches.update(phase_hf_roundtrip(fns, card_line, params, resident))
+    del resident
+    launches.update(phase_lora(fns, card_line, params))
     holder = [params]
     del params
     launches.update(phase_zi_serving(fns, card_line, holder, llama_off,
@@ -5430,6 +6113,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    smoke_t0 = time.perf_counter()
     card_line = card()
     log(card_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -5474,6 +6158,7 @@ def main() -> int:
     phase_mixtral_identity(fns)
     phase_bert_identity(fns)
     launches = {"env report": probe_launches}
+    launches.update(phase_host_natives(fns, card_line))
     launches.update(phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
     torch.cuda.empty_cache()
@@ -5499,6 +6184,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_bert_train(fns, card_line)[0])
     launches.update(phase_cnn(fns, card_line)[0])
+    torch.cuda.empty_cache()
+    launches.update(phase_rlhf_distill_trainer(fns, card_line))
     torch.cuda.empty_cache()
     launches.update(serve_beyond_the_card(fns, card_line, gen, rows))
     for name, cases in bert_cases.items():
@@ -5535,6 +6222,8 @@ def main() -> int:
             if key in k:
                 row[key] = k[key]
         out.append(row)
+    log(f"[smoke] whole run {time.perf_counter() - smoke_t0:.1f} s on "
+        f"{card_line}")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

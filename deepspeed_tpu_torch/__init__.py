@@ -13,7 +13,11 @@ on one GPU (``initialize`` -> ``TrainingEngine.train_batch``) with its data
 loader, packing, curriculum, activation checkpointing (the host-offload
 policies too), timers and checkpoints (``save_checkpoint`` /
 ``load_checkpoint``, ``zero_to_fp32``), ``init_inference`` and the
-environment report.  Their attention, sampling, Adam update and int8 quantization run
+environment report; HF checkpoints in and out (``from_pretrained`` /
+``save_pretrained``, the injection policies, the HF ``Trainer`` bridge),
+LoRA adapters, knowledge distillation and the hybrid train+generate
+engine; the host natives (pinned-buffer pool, shuffle index service, the
+fused CPU Adam).  Their attention, sampling, Adam update and int8 quantization run
 hand-written CUDA kernels (``deepspeed_tpu_torch/csrc``).  Exports resolve
 lazily, so importing the package builds nothing and touches no device.
 """
@@ -54,6 +58,21 @@ _EXPORTS = {
     "fused_adam": "deepspeed_tpu_torch.ops.adam_cuda",
     "init_inference": "deepspeed_tpu_torch.inference.engine",
     "init_serving": "deepspeed_tpu_torch.inference.engine",
+    "from_pretrained": "deepspeed_tpu_torch.integrations.hf",
+    "save_pretrained": "deepspeed_tpu_torch.integrations.hf",
+    "inject": "deepspeed_tpu_torch.inference.injection",
+    "Trainer": "deepspeed_tpu_torch.integrations.trainer",
+    "TrainingArguments": "deepspeed_tpu_torch.integrations.trainer",
+    "LoRAConfig": "deepspeed_tpu_torch.lora",
+    "init_lora": "deepspeed_tpu_torch.lora",
+    "lora_loss_fn": "deepspeed_tpu_torch.lora",
+    "merge_lora": "deepspeed_tpu_torch.lora",
+    "Distiller": "deepspeed_tpu_torch.distill",
+    "init_hybrid_engine": "deepspeed_tpu_torch.hybrid",
+    "HybridEngine": "deepspeed_tpu_torch.hybrid",
+    "HostBufferPool": "deepspeed_tpu_torch.io.native",
+    "ShuffleIndexService": "deepspeed_tpu_torch.io.native",
+    "cpu_adam_step": "deepspeed_tpu_torch.ops.cpu_adam",
 }
 
 __all__ = sorted(_EXPORTS)

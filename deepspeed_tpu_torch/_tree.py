@@ -70,27 +70,49 @@ def tree_unflatten_like(tree: Any, leaves: List[Any]) -> Any:
     return _rebuild(tree, iter(leaves))
 
 
-def _walk_paths(x, prefix: str, out: List[Any]) -> None:
+def _walk_paths(x, prefix: str, sep: str, out: List[Any]) -> None:
     if x is None:
         return
     if isinstance(x, dict):
         for k in sorted(x):
-            _walk_paths(x[k], f"{prefix}{k}/", out)
+            _walk_paths(x[k], f"{prefix}{k}{sep}", sep, out)
     elif _is_namedtuple(x):
         for name, v in zip(x._fields, x):
-            _walk_paths(v, f"{prefix}{name}/", out)
+            _walk_paths(v, f"{prefix}{name}{sep}", sep, out)
     elif isinstance(x, (list, tuple)):
         for i, v in enumerate(x):
-            _walk_paths(v, f"{prefix}{i}/", out)
+            _walk_paths(v, f"{prefix}{i}{sep}", sep, out)
     else:
-        out.append((prefix[:-1], x))
+        out.append((prefix[:-len(sep)], x))
 
 
-def tree_leaves_with_path(tree: Any) -> List[Any]:
+def tree_leaves_with_path(tree: Any, sep: str = "/") -> List[Any]:
     """``(path, leaf)`` pairs in :func:`tree_leaves` order; a path joins
     the dict keys, NamedTuple field names and sequence indices on the way
-    with ``/`` (``"blocks/wq"``), as the JAX package names checkpoint
-    leaves."""
+    with ``sep``: ``/`` (``"blocks/wq"``) as the JAX package names
+    checkpoint leaves, ``.`` (``"blocks.wq"``) as its ``utils/trees.
+    leaf_path`` spells module paths."""
     out: List[Any] = []
-    _walk_paths(tree, "", out)
+    _walk_paths(tree, "", sep, out)
     return out
+
+
+def _map_paths(fn, x, prefix: str, sep: str):
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _map_paths(fn, x[k], f"{prefix}{k}{sep}", sep) for k in x}
+    if _is_namedtuple(x):
+        return type(x)(*(_map_paths(fn, v, f"{prefix}{name}{sep}", sep)
+                         for name, v in zip(x._fields, x)))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map_paths(fn, v, f"{prefix}{i}{sep}", sep)
+                       for i, v in enumerate(x))
+    return fn(prefix[:-len(sep)], x)
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping the
+    containers; the path is dotted (``"blocks.wq"``), as
+    ``tree_leaves_with_path(tree, ".")`` spells it."""
+    return _map_paths(fn, tree, "", ".")

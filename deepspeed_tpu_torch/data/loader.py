@@ -5,12 +5,12 @@ The loader yields GLOBAL batches (dict/tuple of numpy arrays), as the
 reference does; the engine moves them to its device.  A background
 prefetch thread overlaps host batch assembly with device compute.
 
-The epoch shuffle is :func:`_splitmix64_shuffle`, a copy of the JAX
-package's pure-Python mirror of ``csrc/hostruntime.cpp``'s Fisher–Yates
-(``IndexService::Shuffle``), so the port's batches equal the JAX loader's
-for every seed and epoch whether or not its native index service built.
-The native C++ index service itself is not ported yet: it comes with
-``io/native.py`` (ROADMAP A8).
+The epoch order comes from the port's native index service
+(:class:`~deepspeed_tpu_torch.io.native.ShuffleIndexService`, over
+``csrc/host/hostruntime.cpp``), as the JAX loader takes it from its own;
+where the native build is absent the service runs its bit-identical
+pure-Python mirror, so the port's batches equal the JAX loader's for every
+seed and epoch either way.
 """
 
 from __future__ import annotations
@@ -20,28 +20,6 @@ import threading
 from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
-
-
-def _splitmix64_shuffle(n: int, seed: int, epoch: int) -> np.ndarray:
-    """Epoch order of ``n`` indices: the JAX package's
-    ``io/native._splitmix64_shuffle``, bit for bit (Fisher–Yates driven by
-    splitmix64 from a state seeded by ``seed`` and ``epoch``)."""
-    order = np.arange(n, dtype=np.int64)
-    mask = np.uint64(0xFFFFFFFFFFFFFFFF)
-    with np.errstate(over="ignore"):
-        state = (np.uint64(seed) ^
-                 (np.uint64(epoch & 0xFFFFFFFFFFFFFFFF) *
-                  np.uint64(0xD1B54A32D192ED03) & mask) ^
-                 np.uint64(0x2545F4914F6CDD1D))
-        for i in range(n - 1, 0, -1):
-            state = (state + np.uint64(0x9E3779B97F4A7C15)) & mask
-            z = state
-            z = ((z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)) & mask
-            z = ((z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)) & mask
-            z = z ^ (z >> np.uint64(31))
-            j = int(z % np.uint64(i + 1))
-            order[i], order[j] = order[j], order[i]
-    return order
 
 
 class DataLoader:
@@ -56,6 +34,7 @@ class DataLoader:
         self.collate_fn = collate_fn or _default_collate
         self.prefetch = prefetch
         self.epoch = 0
+        self._idx_svc = None  # the native shuffle service, built lazily
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -67,7 +46,12 @@ class DataLoader:
     def _indices(self) -> np.ndarray:
         if not self.shuffle:
             return np.arange(len(self.dataset))
-        return _splitmix64_shuffle(len(self.dataset), self.seed, self.epoch)
+        if self._idx_svc is None or self._idx_svc.n != len(self.dataset):
+            from deepspeed_tpu_torch.io.native import ShuffleIndexService
+
+            self._idx_svc = ShuffleIndexService(len(self.dataset),
+                                                seed=self.seed)
+        return self._idx_svc.epoch_order(self.epoch)
 
     def __iter__(self) -> Iterator[Any]:
         idx = self._indices()

@@ -397,10 +397,17 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                params: Any = None, config: Any = None,
                optimizer: Optional[Optimizer] = None, lr_scheduler=None,
                training_data=None, has_aux: bool = False,
-               dist_init_required: Optional[bool] = None, device=None):
+               dist_init_required: Optional[bool] = None,
+               param_specs: Any = None, device=None):
     """ref: deepspeed.initialize -> (engine, optimizer, dataloader,
     lr_schedule).  ``config`` may be a dict, a JSON path or a Config;
-    ``device`` None means CUDA."""
+    ``device`` None means CUDA.  ``param_specs`` (a tensor-parallel spec
+    tree, which the HF ``Trainer`` passes along) must be None: a spec tree
+    raises until the distributed slice."""
+    if param_specs is not None:
+        raise NotImplementedError(
+            "param_specs (tensor-parallel spec trees, ROADMAP A9) is not "
+            "ported yet; this slice trains at ZeRO stage 0 on one GPU")
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
     if isinstance(config, str):

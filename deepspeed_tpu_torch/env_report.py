@@ -8,15 +8,19 @@ library (:mod:`~deepspeed_tpu_torch.ops._build`) and launches the probe
 kernel B10 (``csrc/env_probe.cu``, replacing the JAX report's Pallas probe)
 on one ``(8, 128)`` f32 tile.  Unlike the JAX report there is no interpret
 mode: without a card the probe reports ``[FAIL]`` with the reason, it does
-not emulate.  Run as ``python -m deepspeed_tpu_torch.env_report`` or
-``dstpu-torch-report``.  The host C++ entries (``csrc (aio/hostruntime)``,
-``cpu_adam``) come with ``io/native.py`` (ROADMAP A8).
+not emulate.  The host rows, as in the JAX report: whether the port's host
+C++ libraries build with ``g++`` and load (``csrc (aio/hostruntime)``: the
+aio pool and the host runtime, :mod:`~deepspeed_tpu_torch.io.aio` and
+:mod:`~deepspeed_tpu_torch.io.native`; ``csrc (cpu_adam)``:
+:mod:`~deepspeed_tpu_torch.ops.cpu_adam`), and ``g++`` itself.  Run as
+``python -m deepspeed_tpu_torch.env_report`` or ``dstpu-torch-report``.
 """
 
 from __future__ import annotations
 
 import importlib
 import importlib.util
+import shutil
 import sys
 
 import numpy
@@ -95,6 +99,31 @@ def _probe_nvcc() -> tuple:
         return False, None, str(e)
 
 
+def _probe_host_natives() -> tuple:
+    """Build (or find) and load the aio and host-runtime libraries;
+    (ok, error)."""
+    try:
+        from deepspeed_tpu_torch.io import aio, native
+
+        missing = [name for name, mod in (("aio", aio),
+                                          ("hostruntime", native))
+                   if mod._ensure_lib() is None]
+        return not missing, (f"{', '.join(missing)} did not build"
+                             if missing else None)
+    except Exception as e:
+        return False, str(e)
+
+
+def _probe_cpu_adam() -> tuple:
+    try:
+        from deepspeed_tpu_torch.ops.cpu_adam import native_available
+
+        ok = native_available()
+        return ok, None if ok else "cpu_adam did not build"
+    except Exception as e:
+        return False, str(e)
+
+
 def report() -> dict:
     """Collect everything; the CLI renders this dict."""
     backend, devices, backend_err = _probe_backend()
@@ -117,6 +146,10 @@ def report() -> dict:
             "cuda probe": {"ok": probe_ok, "mode": probe_mode,
                            "error": probe_err},
             "nvcc": {"ok": nvcc_ok, "mode": nvcc_path, "error": nvcc_err},
+            "csrc (aio/hostruntime)": dict(zip(("ok", "error"),
+                                               _probe_host_natives())),
+            "csrc (cpu_adam)": dict(zip(("ok", "error"), _probe_cpu_adam())),
+            "g++": {"ok": shutil.which("g++") is not None},
         },
     }
 

@@ -1,1 +1,2 @@
-"""Host IO for the port (ref: deepspeed/ops/aio)."""
+"""Host IO for the port (ref: deepspeed/ops/aio): the aio pool, the host
+runtime natives and the safetensors format."""

@@ -117,9 +117,12 @@ class _ChunkedNLL(torch.autograd.Function):
         w = g.float() * maskf / torch.clamp(maskf.sum(), min=1.0)   # [N]
         col = torch.arange(chunk, device=x.device)
         tl = targets.long()
-        xf = x.float()
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        dhead = torch.empty_like(head)
+        # a frozen head (LoRA's base) needs no gradient: XLA drops that
+        # work under stop_gradient, and so does this loop
+        dhead = xf = None
+        if ctx.needs_input_grad[1]:
+            dhead, xf = torch.empty_like(head), x.float()
         for base in range(0, head.shape[1], chunk):
             hc = head[:, base:base + chunk]
             logits = f32_matmul(x, hc).masked_fill(
@@ -132,7 +135,8 @@ class _ChunkedNLL(torch.autograd.Function):
                             hit[:, None].float())
             dl = (p - onehot) * w[:, None]
             dx += dl @ hc.float().T
-            dhead[:, base:base + chunk] = (xf.T @ dl).to(head.dtype)
+            if dhead is not None:
+                dhead[:, base:base + chunk] = (xf.T @ dl).to(head.dtype)
         return dx.to(x.dtype), dhead, None, None, None, None
 
 

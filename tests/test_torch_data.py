@@ -28,6 +28,7 @@ from deepspeed_tpu_torch import initialize
 from deepspeed_tpu_torch.data import curriculum as tcur
 from deepspeed_tpu_torch.data import loader as tloader
 from deepspeed_tpu_torch.data import packing as tpack
+from deepspeed_tpu_torch.io import native as tnative
 from deepspeed_tpu_torch.models import llama as tl
 from deepspeed_tpu_torch.weights import from_jax_params
 
@@ -52,7 +53,7 @@ def _equal_batches(a, b):
                                           (23, 7, 5), (257, 42, 2**33 + 1)])
 def test_splitmix64_shuffle_is_the_reference_mirror(n, seed, epoch):
     np.testing.assert_array_equal(
-        tloader._splitmix64_shuffle(n, seed, epoch),
+        tnative._splitmix64_shuffle(n, seed, epoch),
         jnative._splitmix64_shuffle(n, seed, epoch))
 
 

@@ -46,7 +46,10 @@ def test_main_renders_fail_and_returns_1(no_card, capsys):
     out = capsys.readouterr().out
     assert "deepspeed_tpu_torch environment report (ref: ds_report)" in out
     assert "cuda probe [FAIL] -" in out
-    assert "nvcc [FAIL]" in out and "[OKAY]" not in out
+    assert "nvcc [FAIL]" in out
+    # only the host rows (g++ and its libraries) may read [OKAY] here
+    assert all(ln.split()[0] in ("csrc", "g++") for ln in out.splitlines()
+               if "[OKAY]" in ln)
 
 
 def test_render_marks_each_op():

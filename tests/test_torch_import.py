@@ -24,6 +24,8 @@ def test_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['deepspeed_tpu'] = None\n"
+        "sys.modules['safetensors'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import deepspeed_tpu_torch\n"
         "from deepspeed_tpu_torch.inference import serving, kernels, "
         "paged_attention_cuda, prefix_cache, kv_tier, quantized\n"
@@ -55,6 +57,16 @@ def test_imports_with_jax_blocked():
         "from deepspeed_tpu_torch.io import aio\n"
         "from deepspeed_tpu_torch.utils import ctypes_build\n"
         "from deepspeed_tpu_torch import infinity\n"
+        "from deepspeed_tpu_torch.io import native, safetensors\n"
+        "from deepspeed_tpu_torch.ops import cpu_adam\n"
+        "from deepspeed_tpu_torch.inference import injection\n"
+        "from deepspeed_tpu_torch.integrations import hf, trainer\n"
+        "from deepspeed_tpu_torch import lora, distill, hybrid\n"
+        "from deepspeed_tpu_torch import from_pretrained, save_pretrained, "
+        "inject, LoRAConfig, init_lora, lora_loss_fn, merge_lora, "
+        "Distiller, Trainer, TrainingArguments, HostBufferPool, "
+        "ShuffleIndexService, cpu_adam_step, init_hybrid_engine, "
+        "HybridEngine\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"
@@ -125,14 +137,47 @@ def test_resolve_device_rules(monkeypatch):
 
 
 def test_new_modules_are_scanned():
-    """The serving-extension modules sit among the scanned files (the
-    AST scan above covers every module of the package)."""
+    """The serving-extension modules and the HF / LoRA / hybrid / host
+    natives slice sit among the scanned files (the AST scan above covers
+    every module of the package)."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"deepspeed_tpu_torch/io/aio.py",
             "deepspeed_tpu_torch/infinity.py",
             "deepspeed_tpu_torch/utils/ctypes_build.py",
             "deepspeed_tpu_torch/inference/zero_inference.py",
-            "deepspeed_tpu_torch/inference/speculative.py"} <= names
+            "deepspeed_tpu_torch/inference/speculative.py",
+            "deepspeed_tpu_torch/io/native.py",
+            "deepspeed_tpu_torch/io/safetensors.py",
+            "deepspeed_tpu_torch/ops/cpu_adam.py",
+            "deepspeed_tpu_torch/inference/injection.py",
+            "deepspeed_tpu_torch/integrations/hf.py",
+            "deepspeed_tpu_torch/integrations/trainer.py",
+            "deepspeed_tpu_torch/lora.py",
+            "deepspeed_tpu_torch/distill.py",
+            "deepspeed_tpu_torch/hybrid.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_safetensors_or_ml_dtypes_import(path):
+    """The card's machine has neither package: the port reads and writes
+    safetensors itself and rounds bf16 with torch."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("safetensors", "ml_dtypes")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_host_natives_are_the_ports_own_copies():
+    """The port builds its host runtime and CPU Adam from its own sources
+    into build/, never the JAX package's ``csrc/`` files or libraries."""
+    from deepspeed_tpu_torch.io import native
+    from deepspeed_tpu_torch.ops import cpu_adam
+
+    for mod, src in ((native, "hostruntime.cpp"), (cpu_adam, "cpu_adam.cpp")):
+        assert Path(mod._SRC) == ROOT / "deepspeed_tpu_torch" / "csrc" / \
+            "host" / src
+        assert Path(mod._LIB).parent == ROOT / "build" / \
+            "deepspeed_tpu_torch" / "host"
 
 
 def test_host_aio_is_the_ports_own_copy():
