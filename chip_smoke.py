@@ -178,7 +178,29 @@ and runs, in order:
    generator over the engine's params, and the cast's ms; distillation of
    a 4-layer teacher into a 2-layer student; the HF Trainer bridge from a
    ``save_pretrained`` directory through 2 steps to ``save_model``, read
-   back bit for bit.
+   back bit for bit;
+37. ZeRO offload on tiny bf16 models (4 steps each): the layer-streaming
+   ``ParamStreamEngine`` on the card (B1-B3) against the same engine on
+   the CPU, and on the card its NVMe tier against its RAM tier and its
+   strict against its overlap mode bit for bit (losses and masters), the
+   stream against the stage-0 engine, ``InfinityEngine``'s device update
+   against its host update, the layered Mixtral against the stage-0
+   engine, and the unscheduled ``offload_optimizer: {device: cpu}``
+   engine (fused Adam, its state in page-locked host memory) against the
+   plain one bit for bit;
+38. the headline: Llama-3-8B widths at 16 of 32 layers (4.54 B params,
+   ``layered_model_lazy(seed=0)``) trained by ``ParamStreamEngine`` on the
+   RAM tier with the host Adam overlapped (micro 1 x accumulation 2 x
+   2048 tokens, 3 steps, the third profiled): ms/step, tokens/s, peak
+   card memory against stage 0's 82 GB, host RSS, link bytes, the phase
+   split, the bound (host Adam at phase 33's rate, link at phase 28's,
+   FLOPs) and the idle share; every B1-B3 launch on the tensor-core body;
+39. the same widths at 4 layers on the NVMe tier against the RAM tier, bit
+   for bit, then ``save_checkpoint`` -> ``zero_to_fp32`` equal to
+   ``master_params()``;
+40. ``InfinityEngine`` on phase 38's model and traffic, ``update:
+   "device"`` then ``"host"``: step 1 equal to phase 38's, ms/step, peak,
+   state bytes on the card and over the link.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -188,8 +210,9 @@ phases 17-19, the Mixtral paths of phases 21-22, the BERT-large paths of
 phases 25-26, the CNN's of phase 27, the streamed, speculative and
 KV-NVMe paths of phases 29-32, the env report of phase 33, the HF-loaded
 serving run and the injected Mixtral of phase 34, the LoRA run of phase
-35, and the hybrid rollouts and step, distillation and Trainer runs of
-phase 36) counts the launches
+35, the hybrid rollouts and step, distillation and Trainer runs of
+phase 36, and the offload engines' runs of phases 37-40) counts the
+launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
 and B6: every Llama-3-8B path must run only their Hopper bodies (flash
@@ -209,6 +232,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -267,10 +291,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # "scalar"; B9's "vec" and "scalar"; B6's "cluster" and "row"), read just
 # after the path as its other counts are
 BODIES = {}
+# rates this run measured that later phases' bounds read: phase 28's
+# pinned host -> device GB/s of one 2.9 GB copy, phase 33's host Adam GB/s
+RATES = {}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+_LAP = [time.perf_counter()]
+
+
+def _lap(what: str) -> None:
+    """Log the seconds since the previous lap (the smoke's time by
+    phase)."""
+    now = time.perf_counter()
+    log(f"[smoke] {what}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -5011,6 +5049,7 @@ def phase_aio(card_line):
     if not ok:
         raise SystemExit("phase 28: aio round trip, stress or 1 GB check "
                          "failed")
+    RATES["link_gbps"] = link_gbps
     return link_gbps
 
 
@@ -5520,6 +5559,7 @@ def phase_host_natives(fns, card_line):
     import unittest.mock
 
     from deepspeed_tpu_torch import env_report
+    from deepspeed_tpu_torch.infinity import PinnedBuffer
     from deepspeed_tpu_torch.io import native
     from deepspeed_tpu_torch.ops import cpu_adam
 
@@ -5554,7 +5594,10 @@ def phase_host_natives(fns, card_line):
         return (torch.randn(CPU_ADAM_N, generator=gen, device="cuda")
                 * scale).cpu()
 
-    p = torch.empty(CPU_ADAM_N, dtype=torch.float32, pin_memory=True)
+    # one registration, undone when the buffer goes (torch's pinned cache
+    # would keep 2.1 GB of host memory for the rest of the run)
+    pinned = PinnedBuffer(4 * CPU_ADAM_N)
+    p = pinned.view(0, (CPU_ADAM_N,), torch.float32)
     p.copy_(torch.randn(CPU_ADAM_N, generator=gen, device="cuda") * 0.02)
     m, g = draw(1e-3), draw(1e-3)
     v = draw(1e-3).square_()
@@ -5577,7 +5620,7 @@ def phase_host_natives(fns, card_line):
            for name, a, b, o in zip("pmv", got[:3], ref[:3], old)}
     image_rne = torch.equal(got[3], got[0].to(torch.bfloat16))
     image_vs_plain = float((got[3] != plain_img).float().mean())
-    del p, m, v, g, img, ref, old, got, plain_img
+    del p, m, v, g, img, ref, old, got, plain_img, pinned
 
     _zero(fns.values())
     r = env_report.report()
@@ -5608,6 +5651,7 @@ def phase_host_natives(fns, card_line):
           and r["ops"]["cuda probe"]["ok"])
     if not ok:
         raise SystemExit("phase 33: host natives failed")
+    RATES["cpu_adam_gbps"] = min(st["gb_per_s"] for st in steps)
     return {"host natives env report": launches}
 
 
@@ -6080,6 +6124,543 @@ def phase_rlhf_distill_trainer(fns, card_line):
     return launches
 
 
+# ------------------------------------------------------------ phases 37-40
+# phase 37: tiny bf16 models (JAX's param-stream test shape), 4 steps.
+# Tolerances: the card's engine (B1-B3) against the CPU's (plain
+# attention), both bf16: the card read 2.3e-4, so about 9x room; the stream against the stage-0 engine: JAX's own test bound
+# (test_trajectory_matches_plain_engine, 2e-2); the layered Mixtral against
+# the stage-0 engine: JAX's MoE bound (5e-3); Infinity's host update
+# (native Adam) against its device update (plain Adam): 2e-3, the CPU
+# test's bound
+PSTREAM_CARD_CPU_RTOL = 2e-3
+PSTREAM_PLAIN_RTOL = 2e-2
+PSTREAM_MOE_RTOL = 5e-3
+INFINITY_HOST_DEVICE_RTOL = 2e-3
+TINY_STEPS = 4
+# phases 38-40: Llama-3-8B widths cut to 16 of 32 layers (4.54 B params),
+# phase 8's traffic (micro 1 x accumulation 2 x 2048 tokens)
+OFFLOAD_LAYERS, OFFLOAD_NVME_LAYERS = 16, 4
+OFFLOAD_STEPS, OFFLOAD_NVME_STEPS, INFINITY_STEPS = 3, 2, 2
+# phase 40's step 1 against phase 38's: the same bf16 weights, batch and
+# forward; the two engines average the micro-batch losses in f64 (param
+# stream) and f32 (Infinity)
+INFINITY_VS_PSTREAM_RTOL = 1e-6
+# an engine that stayed alive would hold >= 24 GB of host state
+RSS_LEAK_GB = 10.0
+
+
+def _offload_config(zero, clip=0.0, batch=2, accum=2):
+    """Phase 8's optimizer and schedule (adamw, WarmupLR) with a ZeRO
+    block; no clipping unless asked (clipping forces the strict path)."""
+    conf = _train_config(batch, accum, {"bf16": {"enabled": True}})
+    conf["gradient_clipping"] = clip
+    conf["zero_optimization"] = {"stage": 0, **zero}
+    return conf
+
+
+def _drop():
+    """gc, then empty the card's allocator, torch's page-locked host cache
+    (where torch has the call) and malloc's free lists; returns (card GB
+    allocated, host RSS GB)."""
+    import ctypes
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+    return torch.cuda.memory_allocated() / 1e9, _RssPeak._rss() / 1e9
+
+
+def _tiny_batches(rng, n, rows, vocab, T=33):
+    return [{"tokens": rng.integers(0, vocab, (rows, T)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def phase_offload_identity(fns, card_line):
+    """Phase 37: tiny bf16 models, 4 steps each.  The param-stream engine
+    on the card (B1-B3) against the same engine on the CPU (plain arms);
+    on the card: RAM tier against NVMe tier and overlap against strict mode
+    bit for bit (losses and masters), the stream against the stage-0
+    engine, Infinity's device update against its host update, the layered
+    Mixtral against the stage-0 engine, and the unscheduled
+    ``offload_optimizer: {device: cpu}`` engine (fused Adam, B4) against
+    the plain one bit for bit."""
+    import shutil
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models import llama, mixtral
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = llama.LlamaConfig.tiny(dim=64, n_layers=3, n_heads=4,
+                                 n_kv_heads=2)
+    params = init_params(cfg, torch.Generator().manual_seed(37),
+                         device="cpu", dtype=torch.float32)
+    batches = _tiny_batches(np.random.default_rng(37), TINY_STEPS, 4,
+                            cfg.vocab_size)
+    sched = {"device": "cpu", "scheduled": True}
+    launches, res = {}, {}
+    attn = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    d = _nvme_dir("pstream_tiny")
+
+    def run(path, build, device="cuda", want=attn):
+        _zero(fns.values())
+        eng = build(device)
+        losses = [float(eng.train_batch(b)) for b in batches]
+        master = eng.module_params()
+        if device == "cuda":
+            launches[path] = {n: f.launches for n, f in fns.items()}
+            # head_dim 16: the flash kernels' scalar body
+            _check_bodies(path, hopper=False)
+            _check_launches(path, launches[path], want)
+        del eng
+        return losses, [t.detach().cpu() for t in tree_leaves(master)]
+
+    def stream(zero):
+        return lambda dev: initialize(
+            params=llama.layered_model(cfg, params),
+            config=_offload_config(zero), device=dev)[0]
+
+    try:
+        runs = {
+            "ram": run("pstream tiny card", stream({"offload_param": sched})),
+            "cpu": run("pstream tiny cpu", stream({"offload_param": sched}),
+                       device="cpu"),
+            "nvme": run("pstream tiny nvme", stream({"offload_param": {
+                "device": "nvme", "nvme_path": d}})),
+            "strict": run("pstream tiny strict", stream({"offload_param": {
+                **sched, "overlap_step": False}})),
+            "plain": run("stage0 tiny", lambda dev: initialize(
+                loss_fn=llama.loss_fn(cfg), params=params,
+                config=_offload_config({}), device=dev)[0]),
+            "inf_dev": run("infinity tiny device", lambda dev: initialize(
+                loss_fn=llama.loss_fn(cfg), params=params,
+                config=_offload_config({"offload_optimizer": sched}),
+                device=dev)[0]),
+            "inf_host": run("infinity tiny host", lambda dev: initialize(
+                loss_fn=llama.loss_fn(cfg), params=params,
+                config=_offload_config({"offload_optimizer": {
+                    **sched, "update": "host"}}), device=dev)[0])}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(x, y)
+                                    for x, y in zip(a[1], b[1]))
+
+    res["card_vs_cpu_rel"] = rel(runs["ram"][0], runs["cpu"][0])
+    res["nvme_equals_ram_bitwise"] = same(runs["nvme"], runs["ram"])
+    res["strict_equals_overlap_bitwise"] = same(runs["strict"], runs["ram"])
+    res["stream_vs_stage0_rel"] = rel(runs["ram"][0], runs["plain"][0])
+    res["infinity_host_vs_device_rel"] = rel(runs["inf_host"][0],
+                                             runs["inf_dev"][0])
+    res["losses"] = {k: v[0] for k, v in runs.items()}
+
+    # the layered Mixtral (per-layer aux, cotangent 1) against stage 0
+    mcfg = mixtral.MixtralConfig.tiny(dim=64, n_layers=2, n_heads=4,
+                                      n_kv_heads=2, num_experts=4)
+    mparams = init_params(mcfg, torch.Generator().manual_seed(38),
+                          device="cpu", dtype=torch.float32)
+    mbatches = _tiny_batches(np.random.default_rng(38), TINY_STEPS, 4,
+                             mcfg.vocab_size)
+    mruns = {}
+    for arm, build in (
+            ("pstream", lambda: initialize(
+                params=mixtral.layered_model(mcfg, mparams),
+                config=_offload_config({"offload_param": sched}))[0]),
+            ("stage0", lambda: initialize(
+                loss_fn=mixtral.loss_fn(mcfg), params=mparams, has_aux=True,
+                config=_offload_config({}))[0])):
+        path = f"mixtral tiny {arm}"
+        _zero(fns.values())
+        eng = build()
+        mruns[arm] = [float(eng.train_batch(b)) for b in mbatches]
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path, hopper=False)
+        _check_launches(path, launches[path], attn)
+        del eng
+    res["mixtral_stream_vs_stage0_rel"] = rel(mruns["pstream"],
+                                              mruns["stage0"])
+    res["mixtral_losses"] = mruns
+
+    # the unscheduled host placement (fused Adam: B4 on each visiting leaf)
+    oruns = {}
+    for arm, zero in (("plain", {}),
+                      ("offload", {"offload_optimizer": {"device": "cpu"}})):
+        path = f"stage0 tiny {arm} fused_adam"
+        _zero(fns.values())
+        eng = initialize(loss_fn=llama.loss_fn(cfg), params=params,
+                         config=_offload_config(zero, clip=1.0),
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        losses = [float(eng.train_batch(b)) for b in batches]
+        st = [t.detach().cpu() for t in tree_leaves(
+            (eng.state.params, eng.state.opt_state[1:]))]
+        on_host = all(t.device.type == "cpu" and t.is_pinned() for t in
+                      tree_leaves(eng.state.opt_state[1:])) \
+            if zero else None
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path, hopper=False)
+        _check_launches(path, launches[path], attn + ("fused_adam",))
+        oruns[arm] = (losses, st, on_host)
+        del eng
+    res["unscheduled_offload_equals_plain_bitwise"] = same(
+        oruns["offload"][:2], oruns["plain"][:2])
+    res["unscheduled_state_pinned_on_host"] = oruns["offload"][2]
+    _drop()
+    _phase_line("37 offload identity", card_line, layers=cfg.n_layers,
+                steps=TINY_STEPS, tolerances={
+                    "card_vs_cpu": PSTREAM_CARD_CPU_RTOL,
+                    "stream_vs_stage0": PSTREAM_PLAIN_RTOL,
+                    "mixtral_stream_vs_stage0": PSTREAM_MOE_RTOL,
+                    "infinity_host_vs_device": INFINITY_HOST_DEVICE_RTOL},
+                launches=launches, **res)
+    ok = (res["card_vs_cpu_rel"] <= PSTREAM_CARD_CPU_RTOL
+          and res["nvme_equals_ram_bitwise"]
+          and res["strict_equals_overlap_bitwise"]
+          and res["stream_vs_stage0_rel"] <= PSTREAM_PLAIN_RTOL
+          and res["infinity_host_vs_device_rel"]
+          <= INFINITY_HOST_DEVICE_RTOL
+          and res["mixtral_stream_vs_stage0_rel"] <= PSTREAM_MOE_RTOL
+          and res["unscheduled_offload_equals_plain_bitwise"]
+          and res["unscheduled_state_pinned_on_host"])
+    if not ok:
+        raise SystemExit("phase 37: offload identity gates failed")
+    return launches
+
+
+def _state_reckoning(cfg) -> dict:
+    """Host and card bytes of the offloaded state at ``cfg``'s depth."""
+    from deepspeed_tpu_torch.models.llama import param_count
+
+    n = param_count(cfg)
+    d, V = cfg.dim, cfg.vocab_size
+    stem_head = 2 * V * d + d
+    per_layer = (n - stem_head) // cfg.n_layers
+    return {"params": n, "per_layer_params": per_layer,
+            "host_tier_gb": cfg.n_layers * per_layer * 14 / 1e9,
+            "host_stem_head_state_gb": stem_head * 12 / 1e9,
+            "host_grad_accumulators_gb": n * 4 / 1e9,
+            "stage0_card_gb": n * (2 + 4 + 8 + 4) / 1e9}
+
+
+def _lazy_at_depth(lm, L):
+    """The lazy model ``lm`` cut to ``L`` layers (the same seeded draws:
+    layer l's generator depends on l only)."""
+    import dataclasses
+
+    return dataclasses.replace(lm, n_layers=L, blocks_spec={
+        k: torch.empty((L,) + tuple(v.shape[1:]), dtype=v.dtype,
+                       device="meta") for k, v in lm.blocks_spec.items()})
+
+
+def _profiled_step(eng, batch):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        float(eng.train_batch(batch))
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - ts) * 1e3
+    busy = _device_busy_ms(prof)
+    return traced_ms, busy, None if busy is None else 1.0 - busy / traced_ms
+
+
+def phase_pstream_headline(fns, card_line, cfg, lm, batch):
+    """Phase 38: Llama-3-8B widths at 16 layers (4.54 B params, seed 0,
+    ``layered_model_lazy``) trained by ``ParamStreamEngine`` on the RAM
+    tier, ``overlap_step`` on, phase 8's traffic, 3 steps (the third
+    under the profiler): ms/step, tokens/s, peak card memory against stage 0's need,
+    host RSS, link bytes, the phase split, the bound (host Adam, link,
+    FLOPs) and the idle share.  Gates: the loss falls; every B1-B3 launch
+    on the tensor-core body, 2 x (16 + 16) forward and 2 x 16 backward
+    launches a step; the native host Adam ran."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import cpu_adam
+
+    reck = _state_reckoning(cfg)
+    card0, rss0 = _drop()
+    torch.cuda.reset_peak_memory_stats()
+    path = f"pstream llama3_8b {cfg.n_layers} layers"
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        eng = initialize(params=lm, config=_offload_config(
+            {"offload_param": {"device": "cpu", "scheduled": True}}))[0]
+        init_s = time.perf_counter() - t0
+        log(f"[pstream] llama3_8b widths, {cfg.n_layers} of 32 layers "
+            f"(cut: 32 layers hold ~110 GB of host state, the host has "
+            f"101 GiB), {reck['params']} params; host tier "
+            f"{reck['host_tier_gb']:.1f} GB + stem/head state "
+            f"{reck['host_stem_head_state_gb']:.1f} GB + grad accumulators "
+            f"{reck['host_grad_accumulators_gb']:.1f} GB; stage 0 would "
+            f"need {reck['stage0_card_gb']:.1f} GB on the card; init "
+            f"{init_s:.1f} s on {card_line}")
+        _zero(fns.values())
+        steps = []
+        for i in range(OFFLOAD_STEPS):
+            # the last step runs under the profiler (the idle share)
+            profiled = i == OFFLOAD_STEPS - 1
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            if profiled:
+                traced_ms, busy, idle = _profiled_step(eng, batch)
+                loss = float(eng.metrics["loss"])
+                # the step itself, not the profiler's teardown after it
+                s = traced_ms / 1e3
+            else:
+                loss = float(eng.train_batch(batch))
+                s = time.perf_counter() - ts
+            steps.append({"loss": loss, "s": s, "profiled": profiled,
+                          "tokens_per_s": 2 * 2047 / s,
+                          "grad_norm": eng.get_global_grad_norm(),
+                          "link_bytes": dict(eng.link_bytes),
+                          "phases": eng.phase_report()})
+            log(f"[pstream] step {i}: loss {loss:.4f} {s * 1e3:.0f} ms "
+                f"{2 * 2047 / s:.1f} tokens/s phases {eng.phase_report()}")
+        launches = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        _check_launches(path, launches, ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv"))
+        L = cfg.n_layers
+        want = {"flash_fwd": OFFLOAD_STEPS * 2 * 2 * L,
+                "flash_bwd_dq": OFFLOAD_STEPS * 2 * L,
+                "flash_bwd_dkv": OFFLOAD_STEPS * 2 * L}
+        counts_ok = all(fns[n].body_launches == {"wgmma": k, "scalar": 0}
+                        for n, k in want.items())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        working_set = eng.hbm_param_working_set_bytes()
+        n_params = eng.total_param_count()
+        del eng
+        card1, rss1 = _drop()
+    last = steps[-2]                   # the last step off the profiler
+    link = last["link_bytes"]["up"] + last["link_bytes"]["down"]
+    flops = 2 * _train_flops_per_sample(cfg, 2047)
+    terms = {"host_adam_s": n_params * 30 / (RATES["cpu_adam_gbps"] * 1e9),
+             "link_s": max(last["link_bytes"]["up"],
+                           last["link_bytes"]["down"])
+             / (RATES["link_gbps"] * 1e9),
+             "flops_s": flops / BF16_FLOPS_PER_S}
+    bound_s = max(terms.values())
+    native = cpu_adam.native_available()
+    falls = steps[-1]["loss"] < steps[0]["loss"]
+    _phase_line("38 pstream llama3_8b", card_line, layers=cfg.n_layers,
+                cut="16 of 32 layers: host memory", reckoning=reck,
+                params=n_params, micro=1, accum=2, seq=2048, steps=steps,
+                init_s=init_s, peak_mem_gb=peak_gb,
+                hbm_param_working_set_gb=working_set / 1e9,
+                rss=rss.gb(), rss_before_gb=rss0, rss_after_drop_gb=rss1,
+                card_gb_before=card0, card_gb_after_drop=card1,
+                link_bytes_per_step=link, bound_terms_s=terms,
+                bound_s=bound_s, bound_share=bound_s / last["s"],
+                rates=RATES, model_flops_per_step=flops,
+                traced_ms=traced_ms, device_busy_ms=busy,
+                device_idle_share=idle, launches=launches,
+                launches_as_expected=counts_ok, native_cpu_adam=native,
+                loss_falls=falls)
+    if not (falls and counts_ok and native
+            and card1 <= card0 + 0.1 and rss1 <= rss0 + RSS_LEAK_GB):
+        raise SystemExit("phase 38: param-stream headline gates failed")
+    return {path: launches}, steps[0]["loss"]
+
+
+def phase_pstream_nvme(fns, card_line, lm, batch):
+    """Phase 39: the same widths at 4 layers (the smoke's time): the NVMe
+    tier against the RAM tier, 2 steps each, bit for bit (losses and
+    masters), the tier's bytes and GB/s over the step; then
+    ``save_checkpoint`` -> ``zero_to_fp32``, equal to ``master_params()``;
+    the tier and checkpoint directories deleted."""
+    import shutil
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch._tree import tree_leaves_with_path
+    from deepspeed_tpu_torch.checkpoint import zero_to_fp32
+
+    lm4 = _lazy_at_depth(lm, OFFLOAD_NVME_LAYERS)
+    card0, rss0 = _drop()
+    d = _nvme_dir("pstream_nvme")
+    launches, runs = {}, {}
+    try:
+        for arm, off in (("ram", {"device": "cpu", "scheduled": True}),
+                         ("nvme", {"device": "nvme",
+                                   "nvme_path": os.path.join(d, "swap")})):
+            path = f"pstream llama3_8b {OFFLOAD_NVME_LAYERS} layers {arm}"
+            t0 = time.perf_counter()
+            eng = initialize(params=lm4, config=_offload_config(
+                {"offload_param": off}))[0]
+            init_s = time.perf_counter() - t0
+            _zero(fns.values())
+            tier = eng.tier
+            r0 = getattr(tier, "bytes_read", 0)
+            w0 = getattr(tier, "bytes_written", 0) + getattr(
+                eng._utier, "bytes_written", 0)
+            steps = []
+            for _ in range(OFFLOAD_NVME_STEPS):
+                ts = time.perf_counter()
+                loss = float(eng.train_batch(batch))
+                steps.append({"loss": loss, "s": time.perf_counter() - ts,
+                              "phases": eng.phase_report()})
+            launches[path] = {n: f.launches for n, f in fns.items()}
+            _check_bodies(path)
+            _check_launches(path, launches[path], (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+            run_s = sum(st["s"] for st in steps)
+            io = {}
+            if arm == "nvme":
+                rd = tier.bytes_read + eng._utier.bytes_read - r0
+                wr = tier.bytes_written + eng._utier.bytes_written - w0
+                io = {"bytes_read": rd, "bytes_written": wr,
+                      "read_gbps_over_steps": rd / run_s / 1e9,
+                      "write_gbps_over_steps": wr / run_s / 1e9}
+            master = eng.master_params()
+            runs[arm] = {"steps": steps, "init_s": init_s, **io,
+                         "master": master}
+            if arm == "nvme":
+                t0 = time.perf_counter()
+                eng.save_checkpoint(os.path.join(d, "ck"))
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                flat = zero_to_fp32(os.path.join(d, "ck"),
+                                    os.path.join(d, "fp32.npz"))
+                fp32_s = time.perf_counter() - t0
+                names = {"embed": "stem/embed", "lm_head": "head/lm_head",
+                         "final_norm": "head/final_norm"}
+                fp32_ok = all(torch.equal(torch.from_numpy(
+                    flat[names.get(p, p)]), t)
+                    for p, t in tree_leaves_with_path(master))
+                flat.close()
+            del eng, master
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ram, nvme = runs["ram"], runs["nvme"]
+    bitwise = ([s["loss"] for s in nvme["steps"]]
+               == [s["loss"] for s in ram["steps"]]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves_with_path(nvme.pop("master")),
+            tree_leaves_with_path(ram.pop("master"))))
+    card1, rss1 = _drop()
+    _phase_line("39 pstream nvme", card_line, layers=OFFLOAD_NVME_LAYERS,
+                cut="4 layers: the smoke's time", ram=ram, nvme=nvme,
+                nvme_equals_ram_bitwise=bitwise, save_s=save_s,
+                zero_to_fp32_s=fp32_s, fp32_equals_master=fp32_ok,
+                card_gb_before=card0, card_gb_after_drop=card1,
+                rss_before_gb=rss0, rss_after_drop_gb=rss1,
+                launches=launches)
+    if not (bitwise and fp32_ok and card1 <= card0 + 0.1
+            and rss1 <= rss0 + RSS_LEAK_GB):
+        raise SystemExit("phase 39: NVMe tier or checkpoint gates failed")
+    return launches
+
+
+def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
+    """Phase 40: ``InfinityEngine`` on phase 38's 16-layer model and
+    traffic, RAM tier, ``update: "device"`` then ``"host"``, 2 steps each:
+    ms/step, peak card memory, ``hbm_state_bytes``, state bytes over the
+    link.  Gate: step 1's loss equals phase 38's step 1 within
+    INFINITY_VS_PSTREAM_RTOL (same weights, same batch, two engines)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import llama
+
+    keys = sorted(lm.blocks_spec)
+    with ThreadPoolExecutor(4) as ex:
+        layers = list(ex.map(lm.blocks, range(cfg.n_layers)))
+    tree = lm.assemble(lm.stem, {k: torch.stack([x[k] for x in layers])
+                                 for k in keys}, lm.head)
+    del layers
+    card0, rss0 = _drop()
+    launches, res = {}, {}
+    for mode in ("device", "host"):
+        path = f"infinity llama3_8b {cfg.n_layers} layers {mode}"
+        torch.cuda.reset_peak_memory_stats()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            eng = initialize(loss_fn=llama.loss_fn(cfg), params=tree,
+                             config=_offload_config({"offload_optimizer": {
+                                 "device": "cpu", "scheduled": True,
+                                 "update": mode}}))[0]
+            init_s = time.perf_counter() - t0
+            _zero(fns.values())
+            steps = []
+            for _ in range(INFINITY_STEPS):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                loss = float(eng.train_batch(batch))
+                s = time.perf_counter() - ts
+                steps.append({"loss": loss, "s": s,
+                              "tokens_per_s": 2 * 2047 / s,
+                              "link_bytes": dict(eng.link_bytes),
+                              "phases": eng.phase_report()})
+                log(f"[infinity {mode}] loss {loss:.4f} {s * 1e3:.0f} ms "
+                    f"{eng.phase_report()}")
+            launches[path] = {n: f.launches for n, f in fns.items()}
+            _check_bodies(path)
+            _check_launches(path, launches[path], (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+            res[mode] = {"init_s": init_s, "steps": steps,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9, "hbm_state_bytes": eng.hbm_state_bytes(),
+                         "tier_bytes": eng.tier_local_bytes(),
+                         "groups": len(eng.groups)}
+            del eng
+            card1, rss1 = _drop()
+        res[mode].update(rss=rss.gb(), card_gb_after_drop=card1,
+                         rss_after_drop_gb=rss1)
+    del tree
+    rels = {m: abs(res[m]["steps"][0]["loss"] - pstream_step1)
+            / abs(pstream_step1) for m in res}
+    _phase_line("40 infinity llama3_8b", card_line, layers=cfg.n_layers,
+                micro=1, accum=2, seq=2048, step1_vs_pstream_rel=rels,
+                tol=INFINITY_VS_PSTREAM_RTOL, pstream_step1=pstream_step1,
+                card_gb_before=card0, rss_before_gb=rss0, launches=launches,
+                **res)
+    ok = all(r <= INFINITY_VS_PSTREAM_RTOL for r in rels.values()) and all(
+        res[m]["card_gb_after_drop"] <= card0 + 0.1
+        and res[m]["rss_after_drop_gb"] <= rss0 + RSS_LEAK_GB for m in res)
+    if not ok:
+        raise SystemExit("phase 40: Infinity gates failed")
+    return launches
+
+
+def train_beyond_the_card(fns, card_line):
+    """Phases 37-40.  Phase 38's lazy model (its stem and head drawn once)
+    serves 39 (cut to 4 layers) and 40.  Returns every main path's
+    launches."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import llama
+
+    launches = phase_offload_identity(fns, card_line)
+    _lap("phase_offload_identity")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=OFFLOAD_LAYERS)
+    t0 = time.perf_counter()
+    lm = llama.layered_model_lazy(cfg, seed=0)
+    log(f"[offload] stem and head drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    got, step1 = phase_pstream_headline(fns, card_line, cfg, lm, batch)
+    launches.update(got)
+    _lap("phase_pstream_headline (stem / head draws included)")
+    launches.update(phase_pstream_nvme(fns, card_line, lm, batch))
+    _lap("phase_pstream_nvme")
+    launches.update(phase_infinity(fns, card_line, cfg, lm, batch, step1))
+    _lap("phase_infinity")
+    return launches
+
+
 def serve_beyond_the_card(fns, card_line, gen, rows):
     """Phases 28-32, 34 and 35 (Llama-3-8B's weights drawn once, in phase
     29, and used by 30, 32, 34, 35 and 31; 31 runs last, since
@@ -6087,18 +6668,25 @@ def serve_beyond_the_card(fns, card_line, gen, rows):
     verify-window cases join its row.  Returns every main path's
     launches."""
     link = phase_aio(card_line)
+    _lap("phase_aio")
     launches, params, llama_off, resident = phase_zi_identity(fns, card_line,
                                                               link)
+    _lap("phase_zi_identity")
     spec_launches, cases = phase_spec(fns, card_line, params, gen)
     launches.update(spec_launches)
+    _lap("phase_spec")
     launches.update(phase_kv_nvme(fns, card_line, params))
+    _lap("phase_kv_nvme")
     launches.update(phase_hf_roundtrip(fns, card_line, params, resident))
+    _lap("phase_hf_roundtrip")
     del resident
     launches.update(phase_lora(fns, card_line, params))
+    _lap("phase_lora")
     holder = [params]
     del params
     launches.update(phase_zi_serving(fns, card_line, holder, llama_off,
                                      link))
+    _lap("phase_zi_serving")
     rows["paged_attention"]["verify_shapes"] = cases
     return launches
 
@@ -6122,6 +6710,7 @@ def main() -> int:
     lib_path = _build.build(verbose=True)
     _build.lib()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    _LAP[0] = time.perf_counter()
 
     from deepspeed_tpu_torch.env_report import env_probe
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
@@ -6145,49 +6734,78 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = [phase_flash(gen), phase_paged(gen), phase_greedy(gen)]
     tier_kernels = phase_paged_quant_v1(gen)
+    _lap('phases 3, 9 kernels (flash, paged, greedy, quant v1)')
     probe_row, probe_launches = phase_env_probe(fns)
+    _lap('phase_env_probe')
     quant_kernels = [phase_quant(gen), probe_row]
     gpt2_cases = phase_gpt2_kernels(gen)
+    _lap('phase_gpt2_kernels')
     mixtral_cases = phase_mixtral_kernels(gen)
+    _lap('phase_mixtral_kernels')
     bert_cases = phase_bert_kernels(gen)
+    _lap('phase_bert_kernels')
     torch.cuda.empty_cache()
     phase_identity(kernels)
+    _lap('phase_identity')
     phase_tier_identity(fns)
+    _lap('phase_tier_identity')
     phase_int8_identity(fns)
+    _lap('phase_int8_identity')
     phase_gpt2_identity(fns)
+    _lap('phase_gpt2_identity')
     phase_mixtral_identity(fns)
+    _lap('phase_mixtral_identity')
     phase_bert_identity(fns)
+    _lap('phase_bert_identity')
     launches = {"env report": probe_launches}
     launches.update(phase_host_natives(fns, card_line))
+    _lap('phase_host_natives')
     launches.update(phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
+    _lap('phase_serving')
     torch.cuda.empty_cache()
     launches.update(phase_gpt2_serving(fns, card_line)[0])
+    _lap('phase_gpt2_serving')
     launches.update(phase_gpt2_small(fns, card_line)[0])
+    _lap('phase_gpt2_small')
     torch.cuda.empty_cache()
     launches.update(phase_mixtral_serving(fns, card_line)[0])
+    _lap('phase_mixtral_serving')
     torch.cuda.empty_cache()
     launches.update(phase_bert_serving(fns, card_line)[0])
+    _lap('phase_bert_serving')
     torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels + tier_kernels + quant_kernels}
     rows.update(phase_backward(gen))
+    _lap('phase_backward')
     rows["fused_adam"] = phase_adam(gen)
+    _lap('phase_adam')
     torch.cuda.empty_cache()
     phase_train_identity(fns)
+    _lap('phase_train_identity')
     launches["training"], _ = phase_train(fns, card_line)
+    _lap('phase_train')
     torch.cuda.empty_cache()
     launches.update(phase_resume(fns, card_line)[0])
+    _lap('phase_resume')
     torch.cuda.empty_cache()
     launches.update(phase_gpt2_train(fns, card_line)[0])
+    _lap('phase_gpt2_train')
     torch.cuda.empty_cache()
     launches.update(phase_mixtral_train(fns, card_line)[0])
+    _lap('phase_mixtral_train')
     torch.cuda.empty_cache()
     launches.update(phase_bert_train(fns, card_line)[0])
+    _lap('phase_bert_train')
     launches.update(phase_cnn(fns, card_line)[0])
+    _lap('phase_cnn')
     torch.cuda.empty_cache()
     launches.update(phase_rlhf_distill_trainer(fns, card_line))
+    _lap('phase_rlhf_distill_trainer')
     torch.cuda.empty_cache()
     launches.update(serve_beyond_the_card(fns, card_line, gen, rows))
+    torch.cuda.empty_cache()
+    launches.update(train_beyond_the_card(fns, card_line))
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():

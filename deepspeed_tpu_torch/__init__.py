@@ -17,7 +17,12 @@ environment report; HF checkpoints in and out (``from_pretrained`` /
 ``save_pretrained``, the injection policies, the HF ``Trainer`` bridge),
 LoRA adapters, knowledge distillation and the hybrid train+generate
 engine; the host natives (pinned-buffer pool, shuffle index service, the
-fused CPU Adam).  Their attention, sampling, Adam update and int8 quantization run
+fused CPU Adam); ZeRO-Infinity training of models whose state does not
+fit the card (``ParamStreamEngine`` streams each layer's params from host
+memory or NVMe and updates them with the host Adam behind the backward,
+``InfinityEngine`` streams the optimizer state, and the unscheduled
+``offload_*`` blocks keep the stage-0 engine's state in host memory).
+Their attention, sampling, Adam update and int8 quantization run
 hand-written CUDA kernels (``deepspeed_tpu_torch/csrc``).  Exports resolve
 lazily, so importing the package builds nothing and touches no device.
 """
@@ -73,6 +78,10 @@ _EXPORTS = {
     "HostBufferPool": "deepspeed_tpu_torch.io.native",
     "ShuffleIndexService": "deepspeed_tpu_torch.io.native",
     "cpu_adam_step": "deepspeed_tpu_torch.ops.cpu_adam",
+    "LayeredModel": "deepspeed_tpu_torch.param_stream",
+    "ParamStreamEngine": "deepspeed_tpu_torch.param_stream",
+    "InfinityEngine": "deepspeed_tpu_torch.infinity",
+    "NvmeSwapper": "deepspeed_tpu_torch.offload",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -116,3 +116,29 @@ def tree_map_with_path(fn: Callable, tree: Any) -> Any:
     containers; the path is dotted (``"blocks.wq"``), as
     ``tree_leaves_with_path(tree, ".")`` spells it."""
     return _map_paths(fn, tree, "", ".")
+
+
+def _walk_keystr(x, prefix: str, out: List[Any]) -> None:
+    if x is None:
+        return
+    if isinstance(x, dict):
+        for k in sorted(x):
+            _walk_keystr(x[k], f"{prefix}[{k!r}]", out)
+    elif _is_namedtuple(x):
+        for name, v in zip(x._fields, x):
+            _walk_keystr(v, f"{prefix}.{name}", out)
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            _walk_keystr(v, f"{prefix}[{i}]", out)
+    else:
+        out.append((prefix, x))
+
+
+def tree_leaves_with_keystr(tree: Any) -> List[Any]:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order, each path
+    spelled as ``jax.tree_util.keystr`` spells it (``"['blocks']['wq']"``,
+    ``".mu"``, ``"[0]"``): the offload engines name tier keys and
+    checkpoint manifests by it, so either package reads the other's."""
+    out: List[Any] = []
+    _walk_keystr(tree, "", out)
+    return out

@@ -24,6 +24,16 @@ updates its master params and moments in place; ``async_save=True`` then
 writes the copy from a background thread while training goes on.  Loading
 reads the files memory-mapped and copies each leaf into the engine's own
 tensors, so the card holds one state, not two.
+
+The offload engines (``ParamStreamEngine``, ``InfinityEngine``) write the
+JAX package's universal per-leaf layout instead, one flat unpadded f32
+leaf per file (:class:`UniversalLeafCheckpointer`): JAX writes each as an
+Orbax item, the port as ``<tag>/state/<key>.npy`` under the same keys
+(``w0003_b5``, ``stemw_000``, ...), and a param-stream ``meta.json`` carries
+the same ``pstream_universal`` manifest, from which :func:`zero_to_fp32`
+consolidates the checkpoint one leaf at a time into the JAX tool's
+``.npz`` names (``blocks/<leaf>`` stacked, ``stem/<leaf>``,
+``head/<leaf>``).
 """
 
 from __future__ import annotations
@@ -264,6 +274,141 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None):
     return path, meta.get("client_state", {})
 
 
+class UniversalLeafCheckpointer:
+    """The offload engines' per-leaf universal layout: each state leaf is
+    one ``.npy`` file, ``<tag_dir>/state/<key>.npy``, a flat unpadded f32
+    array, restorable under any tier or engine.  One file per leaf keeps
+    the transient to a single leaf, never the whole 12-bytes-a-parameter
+    state (which by the offload engines' premise does not fit).  Writes go
+    to a few background threads (the next leaf's tier read overlaps this
+    one's write, as JAX's background Orbax commit does), each under a
+    temporary name, fsynced and renamed; a saved buffer must stay unchanged
+    until :meth:`wait`."""
+
+    def __init__(self, tag_dir: str, workers: int = 4):
+        self.state_dir = os.path.join(tag_dir, _STATE)
+        os.makedirs(self.state_dir, exist_ok=True)
+        self._workers = workers
+        self._pool = None
+        self._futs: list = []
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.state_dir, key + ".npy")
+
+    def save(self, key: str, arr) -> None:
+        """Queue one leaf's write (at most twice the writers in flight)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        a = np.ascontiguousarray(
+            arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
+            else np.asarray(arr)).reshape(-1)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self._workers, thread_name_prefix="ckpt-leaf")
+        while len(self._futs) >= 2 * self._workers:
+            self._futs.pop(0).result()
+        self._futs.append(self._pool.submit(
+            _write_file, self._path(key),
+            lambda f: np.lib.format.write_array(f, a)))
+
+    def restore(self, key: str) -> torch.Tensor:
+        """The leaf, read into a fresh CPU tensor."""
+        return torch.from_numpy(np.load(self._path(key)))
+
+    def restore_into(self, key: str, out: np.ndarray) -> None:
+        """Read the leaf straight into ``out`` (C-contiguous, its size and
+        dtype)."""
+        with open(self._path(key), "rb") as f:
+            major, _ = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if major == 1
+                    else np.lib.format.read_array_header_2_0)
+            shape, _, dtype = read(f)
+            view = out.reshape(-1)
+            if int(np.prod(shape)) != view.size or dtype != view.dtype:
+                raise ValueError(f"checkpoint leaf {key}: {shape} {dtype}, "
+                                 f"expected {view.size} {view.dtype}")
+            got = f.readinto(memoryview(view.view(np.uint8)))
+        if got != view.nbytes:
+            raise IOError(f"short read of {self._path(key)}")
+
+    def wait(self) -> None:
+        """Join every queued write; the first failure raises here."""
+        futs, self._futs = self._futs, []
+        try:
+            for fut in futs:
+                fut.result()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
+
+
+def read_meta(tag_dir: str) -> dict:
+    with open(os.path.join(tag_dir, "meta.json")) as f:
+        return json.load(f)
+
+
+def resolve_offload_tag(load_dir: str, tag: Optional[str]) -> str:
+    """The tagged directory an offload engine loads: ``tag``, else the
+    ``latest`` pointer, else the numerically newest ``global_step`` dir
+    that holds a meta.json."""
+    wait_for_checkpoint()
+    tag = _resolve_tag(load_dir, tag, required=False)
+    if tag is None:
+        tags = [t for t in os.listdir(load_dir)
+                if os.path.exists(os.path.join(load_dir, t, "meta.json"))]
+        if not tags:
+            raise FileNotFoundError(f"no checkpoints under {load_dir}")
+        tag = max(tags, key=lambda t: (
+            int(t.rsplit("global_step", 1)[-1])
+            if t.rsplit("global_step", 1)[-1].isdigit() else -1, t))
+    return _ckpt_dir(load_dir, tag)
+
+
+def _pstream_to_fp32(tag_dir: str, manifest: dict, output: str):
+    """Offline consolidation of a param-stream universal checkpoint: stack
+    each block leaf's L per-layer files into its ``[L, ...]`` array, add
+    the stem and head leaves, and write one ``.npz`` keyed by the factored
+    paths of the manifest (``blocks/<leaf>`` stacked, ``stem/<leaf>``,
+    ``head/<leaf>``), engine- and model-free.  Arrays stream into the zip
+    one at a time, so the transient is a single stacked leaf; returns the
+    lazy ``NpzFile`` for the same reason."""
+    import re
+    import zipfile
+
+    ulc = UniversalLeafCheckpointer(tag_dir)
+    L = int(manifest["n_layers"])
+
+    def leaf_name(path: str) -> str:
+        # "['attn']['wq']" -> "attn/wq"
+        return re.sub(r"[^0-9A-Za-z_./]", "", path.replace("][", "/"))
+
+    n = 0
+    with zipfile.ZipFile(output, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        def add(name, arr):
+            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.ascontiguousarray(arr))
+
+        for b in manifest["blocks"]:
+            shape = tuple(b["shape"])
+            stack = np.empty((L,) + shape, np.float32)
+            for l in range(L):
+                ulc.restore_into(f"w{l:04d}_{b['key']}", stack[l])
+            add(f"blocks/{leaf_name(b['path'])}", stack)
+            del stack
+            n += 1
+        for pre in ("stem", "head"):
+            for i, s in enumerate(manifest[pre]):
+                add(f"{pre}/{leaf_name(s['path'])}",
+                    ulc.restore(f"{pre}w_{i:03d}").numpy().reshape(
+                        tuple(s["shape"])))
+                n += 1
+    logger.info("wrote %d fp32 tensors (pstream universal layout) to %s",
+                n, output)
+    return np.load(output)
+
+
 def _f32(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     return t.float().numpy() if t.is_floating_point() else t.numpy()
@@ -279,7 +424,9 @@ def consolidate_to_fp32(engine):
 def zero_to_fp32(ckpt_dir: str, output: str, tag: Optional[str] = None):
     """Offline checkpoint -> one ``.npz`` of float32 params keyed by
     pytree path, engine-free (ref: deepspeed/utils/zero_to_fp32.py).
-    Reads only the params file, memory-mapped.  Returns the dict written."""
+    Reads only the params file, memory-mapped.  Returns the dict written;
+    for a param-stream checkpoint, the ``NpzFile`` of
+    :func:`_pstream_to_fp32`."""
     tag = _resolve_tag(ckpt_dir, tag, required=True)
     meta_path = os.path.join(_ckpt_dir(ckpt_dir, tag), "meta.json")
     if os.path.exists(meta_path):
@@ -294,9 +441,8 @@ def zero_to_fp32(ckpt_dir: str, output: str, tag: Optional[str] = None):
                 "pytree — consolidate in-process via "
                 "engine.module_params() / consolidate_to_fp32(engine)")
         if "pstream_universal" in meta:
-            raise NotImplementedError(
-                "the param-stream universal layout comes with the offload "
-                "engines (ROADMAP A9)")
+            return _pstream_to_fp32(
+                _ckpt_dir(ckpt_dir, tag), meta["pstream_universal"], output)
     params = _load_flat(os.path.join(_ckpt_dir(ckpt_dir, tag), _STATE,
                                      _PARAMS))
     flat = {k: _f32(params[k]) for k in sorted(params)}

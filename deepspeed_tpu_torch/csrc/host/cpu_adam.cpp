@@ -1,5 +1,6 @@
-// Fused multi-threaded CPU Adam for the port's host-update path (copy of
-// the JAX package's csrc/cpu_adam.cpp; ref behavior:
+// Fused multi-threaded CPU Adam for the port's host-update path (the JAX
+// package's csrc/cpu_adam.cpp, plus a grad scale and the layer-streaming
+// engine's bf16 grad landing; ref behavior:
 // deepspeed/ops/adam/cpu_adam.cpp (DeepSpeedCPUAdam) — the reference's
 // offload optimizer updates on the HOST with a SIMD/OMP C++ kernel, because
 // the expression-chain formulation makes ~10 full passes over 16
@@ -7,7 +8,9 @@
 //
 // Single pass per element: reads p,m,v,g (16 B), writes p,m,v (12 B) and
 // optionally the bf16 compute image (2 B) — the bf16 emit here saves the
-// separate cast pass AND its extra f32 read in the Python caller.
+// separate cast pass AND its extra f32 read in the Python caller; a grad
+// scale (the engines' 1/accumulation and clip factor) multiplies g in the
+// same pass, as the callers' separate g *= scale would, rounding the same.
 // Threaded over contiguous ranges with std::thread (no libgomp dep);
 // memory-bandwidth-bound, so threads ~ #channels saturate.
 //
@@ -20,6 +23,7 @@
 // Build: g++ -O3 -ffp-contract=off -shared -fPIC -o libdstt_cpuadam.so
 //        cpu_adam.cpp -lpthread
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -47,12 +51,13 @@ struct AdamArgs {
   int adamw;
   float inv_c1, inv_c2;
   uint16_t *out_bf16;  // optional: fresh compute image (nullptr = skip)
+  float gscale;        // the grad is g * gscale (1: g itself, exactly)
 };
 
 void adam_range(const AdamArgs &a, int64_t lo, int64_t hi) {
   const float one_m_b1 = 1.0f - a.b1, one_m_b2 = 1.0f - a.b2;
   for (int64_t i = lo; i < hi; ++i) {
-    float gi = a.g[i];
+    float gi = a.g[i] * a.gscale;
     float pi = a.p[i];
     if (a.wd != 0.0f && !a.adamw) gi += a.wd * pi;   // L2 into the grad
     float mi = a.b1 * a.m[i] + one_m_b1 * gi;
@@ -74,9 +79,9 @@ extern "C" {
 void dstt_cpu_adam(float *p, float *m, float *v, const float *g, int64_t n,
                     float lr, float b1, float b2, float eps, float wd,
                     int adamw, float inv_c1, float inv_c2,
-                    uint16_t *out_bf16, int n_threads) {
+                    uint16_t *out_bf16, int n_threads, float gscale) {
   AdamArgs a{p, m, v, g, n, lr, b1, b2, eps, wd, adamw,
-             inv_c1, inv_c2, out_bf16};
+             inv_c1, inv_c2, out_bf16, gscale};
   if (n_threads < 1) n_threads = 1;
   if (n < (int64_t)n_threads * 4096) {   // small leaf: threads cost more
     adam_range(a, 0, n);
@@ -113,6 +118,40 @@ void dstt_f32_to_bf16(const float *src, uint16_t *dst, int64_t n,
     ts.emplace_back(run, lo, hi);
   }
   for (auto &t : ts) t.join();
+}
+
+// Gradient landing for the layer-streaming engine, one pass: acc = (first ?
+// 0 : acc) + f32(g), with g bf16 bit patterns (the widening is exact), and
+// the sum of squares of the new acc in double, per thread in order, so the
+// result does not depend on timing.  Returns that sum.
+double dstt_accum_bf16(float *acc, const uint16_t *g, int64_t n, int first,
+                       int n_threads) {
+  auto run = [&](int64_t lo, int64_t hi) {
+    double ssq = 0.0;
+    for (int64_t i = lo; i < hi; ++i) {
+      uint32_t bits = (uint32_t)g[i] << 16;
+      float gi;
+      std::memcpy(&gi, &bits, 4);
+      float x = first ? gi : acc[i] + gi;
+      acc[i] = x;
+      ssq += (double)x * (double)x;
+    }
+    return ssq;
+  };
+  if (n_threads < 1) n_threads = 1;
+  if (n < (int64_t)n_threads * 8192) return run(0, n);
+  std::vector<std::thread> ts;
+  std::vector<double> part(n_threads, 0.0);
+  int64_t per = (n + n_threads - 1) / n_threads;
+  for (int t = 0; t < n_threads; ++t) {
+    int64_t lo = t * per, hi = std::min(n, lo + per);
+    if (lo >= hi) break;
+    ts.emplace_back([&, t, lo, hi] { part[t] = run(lo, hi); });
+  }
+  for (auto &t : ts) t.join();
+  double ssq = 0.0;
+  for (double x : part) ssq += x;
+  return ssq;
 }
 
 }  // extern "C"

@@ -13,6 +13,13 @@ neither the update nor the new optimizer state is ever a whole-model tree
 beside the old one.  On overflow the params and optimizer state are kept
 and the step does not advance, as ``_finish_step`` does.
 
+Unscheduled ``offload_optimizer`` / ``offload_param`` blocks (``device:
+cpu``, no ``scheduled``) keep the named state in page-locked host memory:
+the moments and the f32 master for the optimizer block, the master for the
+param block; each leaf visits the card for its cast and its update, so the
+results equal the engine without the block bit for bit.  The scheduled and
+NVMe blocks go to the streaming engines (:func:`initialize`).
+
 ``train_batch`` first truncates the batch to the curriculum's current
 sequence length when a ``curriculum_learning`` block is configured, as the
 JAX engine does.  ``save_checkpoint`` / ``load_checkpoint`` /
@@ -92,9 +99,10 @@ def _unsupported(config: Config, params, optimizer) -> Optional[str]:
     """The first configured feature this slice does not run, or None."""
     z = config.zero
     if z.stage > 0:
-        return f"ZeRO stage {z.stage} (ROADMAP A9, distributed slice)"
-    if z.offload_param or z.offload_optimizer:
-        return "ZeRO offload (ROADMAP A9)"
+        # ZeRO-Offload at a stage > 0 partitions across ranks first
+        off = " with offload" if z.offload_param or z.offload_optimizer \
+            else ""
+        return f"ZeRO stage {z.stage}{off} (ROADMAP A9, distributed slice)"
     if z.zeropp_quantized_gradients or z.zeropp_quantized_weights:
         return "ZeRO++ qgZ/qwZ (ROADMAP A9)"
     name = optimizer.name if optimizer is not None else config.optimizer.type
@@ -112,8 +120,10 @@ def _unsupported(config: Config, params, optimizer) -> Optional[str]:
         if (config.raw.get(key) or {}).get("enabled"):
             return f"the {key} monitor (ROADMAP A10)"
     if callable(params) or not isinstance(params, (dict, list, tuple)):
-        return ("params that are not a tree of arrays (init thunks and "
-                "LayeredModel param streaming, ROADMAP A9)")
+        return ("params that are not a tree of arrays for the stage-0 "
+                "engine (init thunks are taken by the scheduled offload "
+                "engine, a LayeredModel by the param-stream engine, "
+                "through initialize(); ROADMAP A9)")
     return None
 
 
@@ -162,6 +172,22 @@ class TrainingEngine:
 
         params = tree_map(master, params)
         opt_state = self.optimizer.init(params)
+        # unscheduled offload blocks (ref: ZeRO-Offload; the JAX engine's
+        # pinned_host memory-kind shardings): the optimizer block keeps the
+        # moments and the f32 master in page-locked host memory, the param
+        # block the master; each leaf visits the card for its update
+        from deepspeed_tpu_torch.offload import offload_placement
+
+        place = offload_placement(config)
+        self._host_opt, self._host_master = (place["optimizer"],
+                                             place["master"])
+        self._pinned: list = []
+        if self._host_master:
+            params = tree_map(self._to_host, params)
+        if self._host_opt:
+            opt_state = type(opt_state)(opt_state[0], *(
+                None if f is None else tree_map(self._to_host, f)
+                for f in opt_state[1:]))
         if not (isinstance(opt_state, tuple) and hasattr(opt_state, "_fields")
                 and isinstance(opt_state[0], int)):
             raise ValueError(
@@ -185,6 +211,22 @@ class TrainingEngine:
         self._pending: Optional[dict] = None
         self._last_metrics: dict = {}
 
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A page-locked host copy of ``t`` (plain host memory without
+        CUDA)."""
+        from deepspeed_tpu_torch.infinity import pinned_views
+
+        out = pinned_views([tuple(t.shape)], [t.dtype], self._pinned)[0]
+        return out.copy_(t)
+
+    def _visit(self, t: torch.Tensor) -> torch.Tensor:
+        """A host-placed leaf's copy on the card (the leaf itself when it
+        already lives there)."""
+        if t.device.type == self.device.type:
+            return t
+        return torch.empty_like(t, device=self.device).copy_(
+            t, non_blocking=True)
+
     # ------------------------------------------------------------------ step
     def _compute_params(self):
         """A detached copy of the master params in the compute dtype whose
@@ -193,6 +235,7 @@ class TrainingEngine:
         dt = precision.compute_dtype(self.config.precision)
 
         def cast(p):
+            p = self._visit(p)
             if not p.is_floating_point():
                 return p
             return p.detach().to(dt).requires_grad_(True)
@@ -283,13 +326,20 @@ class TrainingEngine:
         try:
             for i, (p, g) in enumerate(zip(tree_leaves(self.state.params),
                                            tree_leaves(grads))):
-                sub = kind(step, *(None if c is None else c[i] for c in cols))
-                u, new = self.optimizer.update(g, sub, p)
-                p.add_(u.to(p.dtype))
+                sub = kind(step, *(None if c is None else self._visit(c[i])
+                                   for c in cols))
+                pd = self._visit(p)
+                u, new = self.optimizer.update(g, sub, pd)
+                pd.add_(u.to(pd.dtype))
                 del u
+                if pd is not p:
+                    p.copy_(pd)
                 for c, leaf in zip(cols, new[1:]):
                     if c is not None:
-                        c[i] = leaf
+                        if c[i].device.type != leaf.device.type:
+                            c[i].copy_(leaf)
+                        else:
+                            c[i] = leaf
                 new_step = new[0]
         finally:
             self.state = self.state._replace(opt_state=kind(
@@ -401,9 +451,19 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                param_specs: Any = None, device=None):
     """ref: deepspeed.initialize -> (engine, optimizer, dataloader,
     lr_schedule).  ``config`` may be a dict, a JSON path or a Config;
-    ``device`` None means CUDA.  ``param_specs`` (a tensor-parallel spec
-    tree, which the HF ``Trainer`` passes along) must be None: a spec tree
-    raises until the distributed slice."""
+    ``device`` None means CUDA.
+
+    Routing, as the JAX package routes: a
+    :class:`~deepspeed_tpu_torch.param_stream.LayeredModel`, or an
+    ``offload_param`` block on ``nvme`` (or ``cpu`` with ``scheduled``),
+    goes to the layer-streaming :class:`~deepspeed_tpu_torch.param_stream.
+    ParamStreamEngine`; an ``offload_optimizer`` block on ``nvme`` (or
+    ``cpu`` with ``scheduled``) to the optimizer-state-streaming
+    :class:`~deepspeed_tpu_torch.infinity.InfinityEngine`; everything else
+    to :class:`TrainingEngine` (whose unscheduled ``cpu`` offload blocks
+    keep the named state in page-locked host memory).  ``param_specs`` (a
+    tensor-parallel spec tree, which the HF ``Trainer`` passes along) must
+    be None until the distributed slice."""
     if param_specs is not None:
         raise NotImplementedError(
             "param_specs (tensor-parallel spec trees, ROADMAP A9) is not "
@@ -416,11 +476,60 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
         config = Config.from_dict(config)
     elif config is None:
         config = Config()
+
+    from deepspeed_tpu_torch.param_stream import (LayeredModel,
+                                                  ParamStreamEngine)
+
+    poff = config.zero.offload_param or {}
+    poff_dev = poff.get("device", "none")
+    if isinstance(params, LayeredModel) or (
+            poff_dev == "nvme" or (poff_dev == "cpu"
+                                   and poff.get("scheduled"))):
+        if not isinstance(params, LayeredModel):
+            raise ValueError(
+                "scheduled parameter offload streams per-layer programs "
+                "and needs the model factored for it: pass params="
+                "<model>.layered_model(cfg, params) (llama provides one); "
+                "plain pytrees only support the memory-kind offload path")
+        if optimizer is not None or has_aux:
+            raise ValueError(
+                "the param-stream engine drives its own CPU-Adam; "
+                "configure the optimizer via the config block and drop "
+                "has_aux (LayeredModel.block_has_aux covers it)")
+        engine = ParamStreamEngine(params, config, lr_scheduler=lr_scheduler,
+                                   device=device)
+        return _finish_initialize(engine, config, training_data)
+
     if loss_fn is None or params is None:
-        raise ValueError("initialize() needs loss_fn and params")
-    engine = TrainingEngine(loss_fn, params, config, optimizer=optimizer,
-                            lr_scheduler=lr_scheduler, has_aux=has_aux,
-                            device=device)
+        raise ValueError("initialize() needs loss_fn and params (a "
+                         "LayeredModel params carries its own loss)")
+    off = config.zero.offload_optimizer or {}
+    off_dev = off.get("device", "none")
+    if off_dev == "nvme" or (off_dev == "cpu" and off.get("scheduled")):
+        from deepspeed_tpu_torch.infinity import InfinityEngine
+
+        if optimizer is not None or has_aux:
+            raise ValueError(
+                "the ZeRO-Infinity scheduled-offload engine drives its own "
+                "Adam update; pass the optimizer via the config block and "
+                "drop has_aux (param_specs ARE supported: TP shardings on "
+                "the compute params compose with the [dp, chunk] state)")
+        if config.curriculum is not None and config.curriculum.enabled:
+            raise ValueError(
+                "curriculum_learning does not compose with the scheduled "
+                "ZeRO-Infinity engine yet — drop one of the two (the "
+                "TrainingEngine honors curriculum; Infinity ignores it, "
+                "which would be a silent no-op)")
+        if callable(params) and not isinstance(params, (dict, list, tuple)):
+            # a zero.Init thunk: the engine keeps the compute params on
+            # the card regardless, so materialize it now
+            params = params()
+        engine = InfinityEngine(loss_fn, params, config,
+                                lr_scheduler=lr_scheduler, device=device)
+    else:
+        engine = TrainingEngine(loss_fn, params, config, optimizer=optimizer,
+                                lr_scheduler=lr_scheduler, has_aux=has_aux,
+                                device=device)
     return _finish_initialize(engine, config, training_data)
 
 

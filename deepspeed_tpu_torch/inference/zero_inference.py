@@ -53,7 +53,8 @@ from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch._tree import (tree_leaves, tree_map,
                                        tree_unflatten_like)
 from deepspeed_tpu_torch.config import KVTierConfig, ZeroInferenceConfig
-from deepspeed_tpu_torch.infinity import PinnedBuffer, _NvmeTier, _RamTier
+from deepspeed_tpu_torch.infinity import (PinnedBuffer, _NvmeTier, _RamTier,
+                                          pinned_views)
 from deepspeed_tpu_torch.inference.quantized import (param_bytes,
                                                      quantize_params)
 from deepspeed_tpu_torch.inference.serving import (ServingEngine,
@@ -61,9 +62,6 @@ from deepspeed_tpu_torch.inference.serving import (ServingEngine,
 from deepspeed_tpu_torch.param_stream import TierLayerReader
 
 logger = logging.getLogger(__name__)
-
-# host views of a streamed layer start at this byte alignment
-_ALIGN = 256
 
 
 def plan_residency(*, n_layers: int, layer_bytes: int,
@@ -285,15 +283,7 @@ class ZeroInferenceServingEngine(ServingEngine):
     def _host_layer(self) -> List[torch.Tensor]:
         """Views of one page-locked host buffer holding a layer's leaves
         (one registration per layer)."""
-        offs, off = [], 0
-        for s, d in zip(self._shapes, self._dtypes):
-            offs.append(off)
-            n = _nbytes(torch.empty(s, dtype=d, device="meta"))
-            off += -(-n // _ALIGN) * _ALIGN
-        buf = PinnedBuffer(off)
-        self._pinned.append(buf)
-        return [buf.view(o, s, d)
-                for o, s, d in zip(offs, self._shapes, self._dtypes)]
+        return pinned_views(self._shapes, self._dtypes, self._pinned)
 
     def _stage(self, l: int) -> List[torch.Tensor]:
         """``out_fn`` of the NVMe reader: layer ``l``'s reads land in the

@@ -301,6 +301,126 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
     return f
 
 
+def layered_model(cfg: LlamaConfig, params):
+    """Factor a llama param tree for the layer-streaming engine (ref:
+    ZeRO-Infinity parameter offload, partitioned_param_swapper.py): stem =
+    the embedding, block = one transformer layer, head = the final norm and
+    the LM head with the chunked loss.  ``params["blocks"]`` may be the
+    stacked tree or a callable ``l -> layer tree`` (the lazy init of
+    :func:`layered_model_lazy`).  See :class:`~deepspeed_tpu_torch.
+    param_stream.LayeredModel`."""
+    from deepspeed_tpu_torch.param_stream import LayeredModel
+
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            "layered streaming with tied embeddings would need the embed "
+            "grad summed across stem and head — untie for now")
+
+    def stem_fn(sp, batch):
+        return sp["embed"][batch["tokens"][:, :-1].long()]
+
+    def block_fn(lp, x):
+        T = x.shape[1]
+        cos, sin = rope_tables(cfg, torch.arange(T, dtype=torch.int32,
+                                                 device=x.device))
+        return _block(cfg, lp, x, cos, sin, None)
+
+    def head_fn(hp, x, batch):
+        tokens = batch["tokens"]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:].float()
+        x = rms_norm(x, hp["final_norm"], cfg.norm_eps)
+        return chunked_lm_loss(x, hp["lm_head"], tokens[:, 1:], mask=mask,
+                               chunk=cfg.loss_chunk or cfg.vocab_size)
+
+    return LayeredModel(
+        stem_fn=stem_fn, block_fn=block_fn, head_fn=head_fn,
+        stem={"embed": params["embed"]}, blocks=params["blocks"],
+        head={"final_norm": params["final_norm"],
+              "lm_head": params["lm_head"]},
+        n_layers=cfg.n_layers, assemble=_assemble)
+
+
+def _assemble(stem, blocks, head):
+    """(stem, stacked blocks, head) -> the :func:`init_params` layout."""
+    return {"embed": stem["embed"], "blocks": blocks,
+            "final_norm": head["final_norm"], "lm_head": head["lm_head"]}
+
+
+# a lazy init's draws go chunk by chunk: a numpy Generator's stream does not
+# depend on how a fill is cut, and each chunk is scaled and rounded on a
+# second thread while the next one is drawn
+_DRAW_CHUNK = 1 << 24
+
+
+def _seeded_normal(rng, dtype: torch.dtype, *shape) -> torch.Tensor:
+    """The JAX lazy builder's draw: f32 standard normals from ``rng``,
+    scaled by 1/sqrt(fan-in) in numpy, then rounded to ``dtype`` by torch
+    (round-to-nearest-even, as ``ml_dtypes`` rounds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    scale = 1.0 / np.sqrt(shape[-2] if len(shape) > 1 else shape[-1])
+    n = int(np.prod(shape))
+    out = torch.empty(n, dtype=dtype)
+
+    def rounded(o, a):
+        out[o:o + a.size].copy_(torch.from_numpy(a * scale))
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        pending = None
+        for o in range(0, n, _DRAW_CHUNK):
+            a = rng.standard_normal(min(_DRAW_CHUNK, n - o),
+                                    dtype=np.float32)
+            if pending is not None:
+                pending.result()
+            pending = ex.submit(rounded, o, a)
+        if pending is not None:
+            pending.result()
+    return out.view(shape)
+
+
+def layered_model_lazy(cfg: LlamaConfig, seed: int = 0,
+                       dtype: torch.dtype = torch.bfloat16):
+    """:func:`layered_model` for models whose whole host image would not
+    fit in RAM, the host-side analogue of ``zero.Init`` (ref:
+    deepspeed.zero.Init): the blocks are a per-layer init callable plus
+    the stacked shapes (``blocks_spec``, meta tensors with a leading
+    ``[L]``), so the streaming engine materializes one layer at a time.
+    Layer ``l`` draws from ``numpy.random.default_rng((seed, l))`` and the
+    stem and head from ``default_rng((seed, 1 << 30))`` in the JAX
+    builder's order, so the f32 draws are the JAX package's; the bf16
+    rounding is torch's (the same round-to-nearest-even)."""
+    import numpy as np
+
+    d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    shapes = {"attn_norm": (d,), "wq": (d, nh * hd), "wk": (d, nkv * hd),
+              "wv": (d, nkv * hd), "wo": (nh * hd, d), "mlp_norm": (d,),
+              "w1": (d, f), "w3": (d, f), "w2": (f, d)}
+
+    def blocks(l):
+        r = np.random.default_rng((seed, l))
+        # the JAX builder's dict literal draws in this order
+        out = {k: _seeded_normal(r, dtype, *shapes[k])
+               for k in ("wq", "wk", "wv", "wo", "w1", "w3", "w2")}
+        out["attn_norm"] = torch.ones((d,), dtype=dtype)
+        out["mlp_norm"] = torch.ones((d,), dtype=dtype)
+        return out
+
+    r0 = np.random.default_rng((seed, 1 << 30))
+    embed = _seeded_normal(r0, dtype, cfg.vocab_size, d)
+    lm = layered_model(cfg, {
+        "embed": embed, "blocks": blocks,
+        "final_norm": torch.ones((d,), dtype=dtype),
+        "lm_head": _seeded_normal(r0, dtype, d, cfg.vocab_size)})
+    return dataclasses.replace(lm, blocks_spec={
+        k: torch.empty((L,) + s, dtype=dtype, device="meta")
+        for k, s in shapes.items()})
+
+
 def paged_layered_fns(cfg: LlamaConfig, ffn=None,
                       paged_kernel: Optional[str] = None):
     """Per-layer factoring of :func:`forward_paged` for weight-streamed

@@ -33,9 +33,9 @@ combine products and recomputes the experts, as JAX's
 Int8 weights: the forwards carry ``takes_quantized`` and dequantize one
 layer at a time (:func:`~deepspeed_tpu_torch.inference.quantized.take`);
 serving keeps the router exact.  ``paged_layered_fns`` factors the paged
-forward per layer for weight-streamed serving; sharding (``param_specs``)
-and layer-streamed training (``layered_model``) raise: they come with
-ROADMAP A9.
+forward per layer for weight-streamed serving, ``layered_model`` the
+training step for the layer-streaming engine; sharding (``param_specs``)
+raises: it comes with ROADMAP A9's distributed part.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from deepspeed_tpu_torch.config import MoEConfig
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.models import llama as _llama
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
-from deepspeed_tpu_torch.ops.losses import dense_lm_loss
+from deepspeed_tpu_torch.ops.losses import chunked_lm_loss, dense_lm_loss
 from deepspeed_tpu_torch.parallel.moe import MoELayer
 from deepspeed_tpu_torch.remat import (check as check_remat,
                                        checkpoint_block, checkpoint_named)
@@ -137,10 +137,39 @@ def param_specs(cfg: MixtralConfig):
 
 
 def layered_model(cfg: MixtralConfig, params):
-    raise NotImplementedError(
-        "mixtral.layered_model: layer-streamed training needs param_stream."
-        "LayeredModel / ParamStreamEngine, which come with ZeRO offload "
-        "(ROADMAP A9)")
+    """Factor a Mixtral tree for the layer-streaming engine, MoE under
+    parameter offload (ref: ZeRO-Infinity param swapping composed with
+    deepspeed.moe; the expert stacks dominate MoE param bytes).  Each block
+    returns ``(x, aux)``: the capacity MoE's load-balance + z losses, which
+    the engine adds to the total loss and back-propagates with cotangent 1,
+    the fused train step's router gradients."""
+    from deepspeed_tpu_torch.param_stream import LayeredModel
+
+    lcfg = cfg.llama_view()
+
+    def stem_fn(sp, batch):
+        return sp["embed"][batch["tokens"][:, :-1].long()]
+
+    def block_fn(lp, x):
+        T = x.shape[1]
+        cos, sin = _llama.rope_tables(lcfg, torch.arange(
+            T, dtype=torch.int32, device=x.device))
+        x = _attn_block(cfg, lcfg, x, lp, cos, sin)
+        y, aux = _moe_ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
+        return x + y, (aux["moe_aux_loss"] + aux["moe_z_loss"]).float()
+
+    def head_fn(hp, x, batch):
+        x = rms_norm(x, hp["final_norm"], cfg.norm_eps)
+        return chunked_lm_loss(x, hp["lm_head"], batch["tokens"][:, 1:],
+                               chunk=cfg.loss_chunk or cfg.vocab_size)
+
+    return LayeredModel(
+        stem_fn=stem_fn, block_fn=block_fn, head_fn=head_fn,
+        stem={"embed": params["embed"]}, blocks=params["blocks"],
+        head={"final_norm": params["final_norm"],
+              "lm_head": params["lm_head"]},
+        n_layers=cfg.n_layers, block_has_aux=True,
+        assemble=_llama._assemble)
 
 
 def paged_layered_fns(cfg: MixtralConfig, paged_kernel=None):

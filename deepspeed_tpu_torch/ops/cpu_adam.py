@@ -58,7 +58,10 @@ def _ensure_lib() -> Optional[ctypes.CDLL]:
         f, f, f, f, ctypes.c_int64,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        f, ctypes.c_int]
+        f, ctypes.c_int, ctypes.c_float]
+    lib.dstt_accum_bf16.restype = ctypes.c_double
+    lib.dstt_accum_bf16.argtypes = [f, f, ctypes.c_int64, ctypes.c_int,
+                                    ctypes.c_int]
     lib.dstt_f32_to_bf16.restype = None
     lib.dstt_f32_to_bf16.argtypes = [f, f, ctypes.c_int64, ctypes.c_int]
     return lib
@@ -94,16 +97,35 @@ def _bf16_image(like: Buffer, shape) -> tuple:
     return out, out
 
 
+def _bf16_out(out: Buffer, n: int) -> torch.Tensor:
+    """The bf16 tensor view of a caller's image buffer of ``n``
+    elements."""
+    out_t = (torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
+             if isinstance(out, np.ndarray) else out)
+    if out_t.dtype != torch.bfloat16 or out_t.numel() != n \
+            or not out_t.is_contiguous() or out_t.device.type != "cpu":
+        raise ValueError("cpu_adam: out must be a contiguous CPU bf16 (or "
+                         "uint16) buffer of p's size")
+    return out_t
+
+
 def cpu_adam_step(p: Buffer, m: Buffer, v: Buffer, g: Buffer, *, lr: float,
                   b1: float, b2: float, eps: float, wd: float, adamw: bool,
                   t: int, bias_correction: bool = True,
-                  emit_bf16: bool = False) -> Optional[Buffer]:
+                  emit_bf16: bool = False,
+                  out: Optional[Buffer] = None,
+                  grad_scale: float = 1.0) -> Optional[Buffer]:
     """One fused Adam step over flat f32 buffers, in place.
 
     Returns the bf16 compute image of the new ``p`` when ``emit_bf16``
     (uint16 bit patterns for numpy buffers, a bfloat16 tensor for
-    tensors), else None.  ``p``/``m``/``v``/``g`` must be contiguous CPU
-    f32 of equal size; the native loop runs on :data:`N_THREADS` threads.
+    tensors), else None; ``out``, a contiguous bf16 tensor (or uint16
+    array) of ``p``'s size, receives the image in place of a new buffer
+    (the streamed engines write it straight into page-locked memory).
+    ``grad_scale``: the step's grad is ``g * grad_scale`` in f32, as a
+    separate ``g *= grad_scale`` would make it (``g`` is not written).
+    ``p``/``m``/``v``/``g`` must be contiguous CPU f32 of equal size; the
+    native loop runs on :data:`N_THREADS` threads.
     """
     tp, tm, tv, tg = (_as_tensor(a, n) for a, n in
                       ((p, "p"), (m, "m"), (v, "v"), (g, "g")))
@@ -115,19 +137,23 @@ def cpu_adam_step(p: Buffer, m: Buffer, v: Buffer, g: Buffer, *, lr: float,
         inv_c2 = 1.0 / (1.0 - b2 ** t)
     else:
         inv_c1 = inv_c2 = 1.0
-    out, out_t = _bf16_image(p, tuple(p.shape)) if emit_bf16 else (None,
-                                                                   None)
+    out_t = None
+    if emit_bf16 and out is None:
+        out, out_t = _bf16_image(p, tuple(p.shape))
+    elif emit_bf16:
+        out_t = _bf16_out(out, n)
     lib = _ensure_lib()
     if lib is not None:
         lib.dstt_cpu_adam(
             tp.data_ptr(), tm.data_ptr(), tv.data_ptr(), tg.data_ptr(), n,
             lr, b1, b2, eps, wd, int(adamw), inv_c1, inv_c2,
-            out_t.data_ptr() if out_t is not None else None, N_THREADS)
+            out_t.data_ptr() if out_t is not None else None, N_THREADS,
+            grad_scale)
         return out
     # plain mirror: the same arithmetic, in more passes
-    gg = tg
+    gg = tg * grad_scale if grad_scale != 1.0 else tg
     if wd and not adamw:
-        gg = tg + wd * tp
+        gg = gg + wd * tp
     tm.mul_(b1).add_((1.0 - b1) * gg)
     tv.mul_(b2).add_((1.0 - b2) * (gg * gg))
     # torch's CPU f32 sqrt is not always correctly rounded (it differs
@@ -138,8 +164,30 @@ def cpu_adam_step(p: Buffer, m: Buffer, v: Buffer, g: Buffer, *, lr: float,
         u = u + wd * tp
     tp.sub_(lr * u)
     if out_t is not None:
-        out_t.copy_(tp)
+        out_t.view(-1).copy_(tp.view(-1))
     return out
+
+
+def accumulate_bf16(acc: torch.Tensor, g: torch.Tensor,
+                    first: bool) -> float:
+    """Land a bf16 grad in its f32 accumulator in one pass: ``acc = g`` on
+    the first micro-batch, ``acc += g`` after (the widening is exact, the
+    add rounds once in f32); returns the sum of squares of the new ``acc``
+    (in f64, its threads' shares summed in order)."""
+    ta = _as_tensor(acc, "acc")
+    if g.dtype != torch.bfloat16 or g.device.type != "cpu" \
+            or not g.is_contiguous() or g.numel() != ta.numel():
+        raise ValueError("accumulate_bf16: g must be a contiguous CPU bf16 "
+                         "tensor of acc's size")
+    lib = _ensure_lib()
+    if lib is not None:
+        return float(lib.dstt_accum_bf16(ta.data_ptr(), g.data_ptr(),
+                                         ta.numel(), int(first), N_THREADS))
+    if first:
+        ta.copy_(g)
+    else:
+        ta.add_(g)
+    return float(torch.dot(ta.double(), ta.double()))
 
 
 def f32_to_bf16(src: Buffer, out: Optional[Buffer] = None) -> Buffer:
@@ -149,14 +197,8 @@ def f32_to_bf16(src: Buffer, out: Optional[Buffer] = None) -> Buffer:
     ts = _as_tensor(src, "src")
     if out is None:
         out, out_t = _bf16_image(src, tuple(src.shape))
-    elif isinstance(out, np.ndarray):
-        out_t = torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
     else:
-        out_t = out
-    if out_t.dtype != torch.bfloat16 or out_t.numel() != ts.numel() \
-            or not out_t.is_contiguous():
-        raise ValueError("f32_to_bf16: out must be a contiguous bf16 (or "
-                         "uint16) buffer of src's size")
+        out_t = _bf16_out(out, ts.numel())
     lib = _ensure_lib()
     if lib is not None:
         lib.dstt_f32_to_bf16(ts.data_ptr(), out_t.data_ptr(), ts.numel(),

@@ -260,5 +260,15 @@ def test_pinned_buffer_views():
 
 
 def test_infinity_engine_waits_for_zero_offload():
+    # the engine is ported; its several-process path and the collective
+    # digest still wait for ROADMAP A9's distributed part
+    from deepspeed_tpu_torch.config import Config
+
     with pytest.raises(NotImplementedError, match="A9"):
-        tinf.InfinityEngine()
+        tinf.InfinityEngine(None, {}, None, param_specs={})
+    eng = tinf.InfinityEngine(
+        lambda p, b: p["w"].float().square().sum(), {"w": torch.ones(4)},
+        Config.from_dict({"zero_optimization": {"offload_optimizer": {
+            "device": "cpu", "scheduled": True}}}), device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        eng.comms_digest({})

@@ -154,3 +154,40 @@ def test_library_is_the_ports_own_build():
         "host" / "cpu_adam.cpp"
     assert Path(tadam._LIB).parent == root / "build" / \
         "deepspeed_tpu_torch" / "host"
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_grad_scale_equals_the_scaled_grad(native, monkeypatch):
+    # the layer-streaming engine folds 1/accumulation (and the clip factor)
+    # into the Adam's pass: the same as scaling g first, bit for bit
+    if not native:
+        monkeypatch.setattr(tadam, "_ensure_lib", lambda: None)
+    a = [torch.from_numpy(x) for x in _arrays(7)]
+    b = [x.clone() for x in a]
+    b[3].mul_(0.37)
+    img_a = tadam.cpu_adam_step(*a, grad_scale=0.37, **_kw(True, 0.1, True))
+    img_b = tadam.cpu_adam_step(*b, **_kw(True, 0.1, True))
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    assert torch.equal(img_a, img_b)
+    assert not torch.equal(a[3], b[3])       # g itself is not written
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_accumulate_bf16_lands_and_sums_squares(native, monkeypatch):
+    if not native:
+        monkeypatch.setattr(tadam, "_ensure_lib", lambda: None)
+    gen = torch.Generator().manual_seed(3)
+    g1, g2 = (torch.randn(N, generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    acc = torch.full((N,), 5.0)
+    s1 = tadam.accumulate_bf16(acc, g1, True)
+    assert torch.equal(acc, g1.float())
+    s2 = tadam.accumulate_bf16(acc, g2, False)
+    want = g1.float() + g2.float()
+    assert torch.equal(acc, want)
+    for got, ref in ((s1, g1.double()), (s2, want.double())):
+        np.testing.assert_allclose(got, float(torch.dot(ref, ref)),
+                                   rtol=1e-12)
+    with pytest.raises(ValueError, match="bf16"):
+        tadam.accumulate_bf16(acc, g1.float(), False)

@@ -67,6 +67,12 @@ def test_imports_with_jax_blocked():
         "Distiller, Trainer, TrainingArguments, HostBufferPool, "
         "ShuffleIndexService, cpu_adam_step, init_hybrid_engine, "
         "HybridEngine\n"
+        "from deepspeed_tpu_torch import offload\n"
+        "from deepspeed_tpu_torch.param_stream import ParamStreamEngine, "
+        "LayeredModel\n"
+        "from deepspeed_tpu_torch.infinity import InfinityEngine\n"
+        "from deepspeed_tpu_torch import ParamStreamEngine as P2, "
+        "InfinityEngine as I2, LayeredModel as L2, NvmeSwapper\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"
@@ -137,8 +143,8 @@ def test_resolve_device_rules(monkeypatch):
 
 
 def test_new_modules_are_scanned():
-    """The serving-extension modules and the HF / LoRA / hybrid / host
-    natives slice sit among the scanned files (the AST scan above covers
+    """The serving-extension modules, the HF / LoRA / hybrid / host
+    natives slice and the offload engines sit among the scanned files (the AST scan above covers
     every module of the package)."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"deepspeed_tpu_torch/io/aio.py",
@@ -154,7 +160,9 @@ def test_new_modules_are_scanned():
             "deepspeed_tpu_torch/integrations/trainer.py",
             "deepspeed_tpu_torch/lora.py",
             "deepspeed_tpu_torch/distill.py",
-            "deepspeed_tpu_torch/hybrid.py"} <= names
+            "deepspeed_tpu_torch/hybrid.py",
+            "deepspeed_tpu_torch/offload.py",
+            "deepspeed_tpu_torch/param_stream.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -322,7 +322,8 @@ def test_torch_idiom_and_eval(model):
 
 @pytest.mark.parametrize("over,match", [
     ({"zero_optimization": {"stage": 1}}, "ZeRO stage 1"),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    ({"zero_optimization": {"stage": 2,
+                            "offload_optimizer": {"device": "cpu"}}},
      "offload"),
     ({"telemetry": {"enabled": True}}, "telemetry"),
     ({"tensorboard": {"enabled": True}}, "tensorboard"),
