@@ -144,8 +144,9 @@ and runs, in order:
 29. ZeRO-Inference against resident serving: Llama-3-8B (32 layers) on
    phase 5's queue with every layer streamed from the host tier, bf16 and
    int8 (identical tokens, the first prefill's and first decode step's
-   logits bitwise equal), Mixtral-8x7B bf16 at 16 layers the same, and the
-   NVMe tier against the host tier at 8 layers;
+   logits bitwise equal), Mixtral-8x7B bf16 at 8 layers the same (16
+   until PR 18: the smoke's time), and the NVMe tier against the host tier
+   at 8 layers;
 30. speculative decoding: f32 Llama-3-8B widths at 2 layers, n-gram and
    model drafters against plain greedy (identical tokens); bf16 at 32
    layers (divergences reported); B5 at the verify window C = K+1 (4, 5)
@@ -198,9 +199,25 @@ and runs, in order:
 39. the same widths at 4 layers on the NVMe tier against the RAM tier, bit
    for bit, then ``save_checkpoint`` -> ``zero_to_fp32`` equal to
    ``master_params()``;
-40. ``InfinityEngine`` on phase 38's model and traffic, ``update:
-   "device"`` then ``"host"``: step 1 equal to phase 38's, ms/step, peak,
-   state bytes on the card and over the link.
+40. ``InfinityEngine`` on phase 39's 4-layer cut and phase 38's traffic,
+   ``update: "device"`` then ``"host"``: step 1 equal to phase 39's RAM
+   run's, ms/step, peak, state bytes on the card and over the link;
+41. in a rank that the port's launcher starts (``python -m
+   deepspeed_tpu_torch.launcher --nproc_per_node 1 chip_smoke.py
+   --zero-child ...``, one NCCL group of one rank): ZeRO++'s int8 wire on
+   a seeded flat f32 gradient of GPT-2 1.3B's 1,313,626,112 elements:
+   ``quantized_reduce_scatter`` (groups of 512), ``quantized_all_gather``
+   and ``hierarchical_all_reduce`` on the blockwise codec (what the
+   engine's qgZ, qwZ and hpZ run at a world above one), each bit for bit
+   the same function over B9's plain version on the card; B9's launches,
+   device time, bound and share at this flat shape;
+42. in the same rank: GPT-2 1.3B at all 24 layers (phase 19's config under
+   ``save_attn``) through ZeRO stages 0, 1, 2 and 3, 3 steps each: losses
+   and every master leaf bit for bit equal across stages, ms/step beside
+   phase 19's, peak memory, the comms logger's collectives and bytes a
+   step against what each stage moves, B1-B4 launches; qwZ at a world of
+   one warns and runs the plain path; a stage-3 save loaded into a stage-1
+   engine bit for bit.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -211,7 +228,8 @@ phases 25-26, the CNN's of phase 27, the streamed, speculative and
 KV-NVMe paths of phases 29-32, the env report of phase 33, the HF-loaded
 serving run and the injected Mixtral of phase 34, the LoRA run of phase
 35, the hybrid rollouts and step, distillation and Trainer runs of
-phase 36, and the offload engines' runs of phases 37-40) counts the
+phase 36, the offload engines' runs of phases 37-40, the wire of phase
+41 and each ZeRO stage's run of phase 42) counts the
 launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
@@ -225,6 +243,7 @@ non-zero without printing a result when CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -4819,7 +4838,7 @@ ZI_MIXTRAL_BUDGET = int(64e9)
 SPEC = {"draft_tokens": 4}
 # phase 29's cut of the NVMe-tier check, and of Mixtral's identity queue
 ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 8, 4, 8
-ZI_MIXTRAL_ID_LAYERS, ZI_MIXTRAL_ID_NEW = 16, 4
+ZI_MIXTRAL_ID_LAYERS, ZI_MIXTRAL_ID_NEW = 8, 4
 # phase 32: the host pool that sends wave A's pages down to NVMe
 KV_NVME_HOST_POOL = 16 << 20
 
@@ -5059,7 +5078,7 @@ def phase_zi_identity(fns, card_line, link_gbps):
     seeded) on phase 5's queue, resident and with every layer streamed from
     the host tier (identical tokens, the first prefill's and first decode
     step's logits bitwise equal); the same in int8; Mixtral-8x7B bf16 at
-    16 layers on 3 of phase 21's prompts; and the NVMe tier against the
+    8 layers on 3 of phase 21's prompts; and the NVMe tier against the
     host tier at 8 layers.  Returns the launches, the Llama-3-8B weights
     (phases 30-32, 34 and 35 use them), the streamed bf16 run's counts
     (phase 31's spec-off reading) and the resident bf16 run's outputs and
@@ -5127,7 +5146,7 @@ def phase_zi_identity(fns, card_line, link_gbps):
         shutil.rmtree(d, ignore_errors=True)
     res["nvme_tokens_equal_host"] = outs["nvme"] == outs["host"]
     del p8
-    # Mixtral-8x7B bf16 at 16 layers (the resident engine's limit)
+    # Mixtral-8x7B bf16 at 8 layers (the smoke's time; 16 fit resident)
     mcfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
                                n_layers=ZI_MIXTRAL_ID_LAYERS)
     mq = _queue21(mcfg.vocab_size, n=3)
@@ -5145,15 +5164,16 @@ def phase_zi_identity(fns, card_line, link_gbps):
         capture=True, stats=lambda e, o, m: mstats(e, o, m=m))
     del holder[:]
     torch.cuda.empty_cache()
-    res["mixtral_16"] = {"tokens_equal": s_out == r_out,
-                         "logits_bitwise": _same_logits(s_logits, r_logits),
-                         "streamed": {k: s_m[k] for k in (
-                             "sweeps", "ms_per_sweep",
-                             "link_bound_ms_per_sweep", "exposed_wait_share",
-                             "build_s", "peak_mem_gb")}}
+    res["mixtral"] = {"layers": ZI_MIXTRAL_ID_LAYERS,
+                      "tokens_equal": s_out == r_out,
+                      "logits_bitwise": _same_logits(s_logits, r_logits),
+                      "streamed": {k: s_m[k] for k in (
+                          "sweeps", "ms_per_sweep",
+                          "link_bound_ms_per_sweep", "exposed_wait_share",
+                          "build_s", "peak_mem_gb")}}
     _phase_line("29 zi identity", card_line, **res)
     ok = all(res[w]["tokens_equal"] and res[w]["logits_bitwise"]
-             for w in ("bfloat16", "int8", "mixtral_16")) \
+             for w in ("bfloat16", "int8", "mixtral")) \
         and res["nvme_tokens_equal_host"]
     if not ok:
         raise SystemExit("phase 29: streamed serving differs from resident "
@@ -6473,7 +6493,7 @@ def phase_pstream_headline(fns, card_line, cfg, lm, batch):
     if not (falls and counts_ok and native
             and card1 <= card0 + 0.1 and rss1 <= rss0 + RSS_LEAK_GB):
         raise SystemExit("phase 38: param-stream headline gates failed")
-    return {path: launches}, steps[0]["loss"]
+    return {path: launches}
 
 
 def phase_pstream_nvme(fns, card_line, lm, batch):
@@ -6561,18 +6581,23 @@ def phase_pstream_nvme(fns, card_line, lm, batch):
     if not (bitwise and fp32_ok and card1 <= card0 + 0.1
             and rss1 <= rss0 + RSS_LEAK_GB):
         raise SystemExit("phase 39: NVMe tier or checkpoint gates failed")
-    return launches
+    return launches, ram["steps"][0]["loss"]
 
 
 def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
-    """Phase 40: ``InfinityEngine`` on phase 38's 16-layer model and
-    traffic, RAM tier, ``update: "device"`` then ``"host"``, 2 steps each:
-    ms/step, peak card memory, ``hbm_state_bytes``, state bytes over the
-    link.  Gate: step 1's loss equals phase 38's step 1 within
+    """Phase 40: ``InfinityEngine`` on phase 39's 4-layer cut of phase 38's
+    model (the smoke's time) and phase 38's traffic, RAM tier, ``update:
+    "device"`` then ``"host"``, 2 steps each: ms/step, peak card memory,
+    ``hbm_state_bytes``, state bytes over the link.  Gate: step 1's loss
+    equals phase 39's 4-layer RAM run's step 1 within
     INFINITY_VS_PSTREAM_RTOL (same weights, same batch, two engines)."""
+    import dataclasses
+
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models import llama
 
+    cfg = dataclasses.replace(cfg, n_layers=OFFLOAD_NVME_LAYERS)
+    lm = _lazy_at_depth(lm, OFFLOAD_NVME_LAYERS)
     keys = sorted(lm.blocks_spec)
     with ThreadPoolExecutor(4) as ex:
         layers = list(ex.map(lm.blocks, range(cfg.n_layers)))
@@ -6621,6 +6646,7 @@ def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
     rels = {m: abs(res[m]["steps"][0]["loss"] - pstream_step1)
             / abs(pstream_step1) for m in res}
     _phase_line("40 infinity llama3_8b", card_line, layers=cfg.n_layers,
+                cut="4 layers: the smoke's time",
                 micro=1, accum=2, seq=2048, step1_vs_pstream_rel=rels,
                 tol=INFINITY_VS_PSTREAM_RTOL, pstream_step1=pstream_step1,
                 card_gb_before=card0, rss_before_gb=rss0, launches=launches,
@@ -6651,12 +6677,12 @@ def train_beyond_the_card(fns, card_line):
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
         np.int32)}
-    got, step1 = phase_pstream_headline(fns, card_line, cfg, lm, batch)
-    launches.update(got)
+    launches.update(phase_pstream_headline(fns, card_line, cfg, lm, batch))
     _lap("phase_pstream_headline (stem / head draws included)")
-    launches.update(phase_pstream_nvme(fns, card_line, lm, batch))
+    got, step1_4 = phase_pstream_nvme(fns, card_line, lm, batch)
+    launches.update(got)
     _lap("phase_pstream_nvme")
-    launches.update(phase_infinity(fns, card_line, cfg, lm, batch, step1))
+    launches.update(phase_infinity(fns, card_line, cfg, lm, batch, step1_4))
     _lap("phase_infinity")
     return launches
 
@@ -6691,12 +6717,375 @@ def serve_beyond_the_card(fns, card_line, gen, rows):
     return launches
 
 
+# ------------------------------------------------------------ phases 41-42
+# both run in one rank that the port's launcher starts: one NCCL group of
+# one rank (the card is one GPU), every ZeRO collective on it
+ZERO_CHILD_FLAG = "--zero-child"
+ZERO_CHILD_TIMEOUT_S = 900
+# phase 41: one flat f32 gradient of GPT-2 1.3B (its parameter count), on
+# qwZ's flat grid of 512-element groups
+WIRE_ELEMS, WIRE_GROUP = 1_313_626_112, 512
+ZERO_STEPS = 3
+
+
+def _kernel_fns():
+    """Each kernel's wrapper, whose ``launches`` the main paths read."""
+    from deepspeed_tpu_torch.env_report import env_probe
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention, paged_chunk_attention_quant,
+        paged_chunk_attention_v1)
+    from deepspeed_tpu_torch.ops.adam_cuda import adam_update
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
+                                                        flash_bwd_dq,
+                                                        flash_fwd)
+    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
+    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
+
+    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": adam_update,
+            "paged_attention": paged_chunk_attention,
+            "greedy_argmax": fused_greedy_rows,
+            "paged_attention_quant": paged_chunk_attention_quant,
+            "paged_attention_v1": paged_chunk_attention_v1,
+            "quantize": quantize_rows, "env_probe": env_probe}
+
+
+@contextlib.contextmanager
+def _plain_b9():
+    """B9's plain version in the place of its kernel inside ``ops/quant``
+    (the comparison arm of phase 41; it launches no B9)."""
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows_reference
+
+    real, quant.quantize_rows = quant.quantize_rows, quantize_rows_reference
+    try:
+        yield
+    finally:
+        quant.quantize_rows = real
+
+
+def phase_wire(fns, card_line):
+    """Phase 41: the int8 wire of qgZ / qwZ / hpZ at a world of one over
+    NCCL, on a seeded flat f32 gradient of GPT-2 1.3B's elements.  Each
+    function runs on B9 (the main path, counts set to 0 before it and read
+    after) and again over B9's plain version on the card; the outputs, and
+    the codes and scales, must be equal bit for bit.  Then B9 alone at this
+    flat shape on the device clock, beside its plain version and its bytes
+    bound."""
+    from deepspeed_tpu_torch.comm import collectives as hc
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, param_count
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                    quantize_rows_reference)
+    from deepspeed_tpu_torch.topology import current_mesh
+
+    n = WIRE_ELEMS
+    if n != param_count(GPT2Config.gpt2_1_3b()):
+        raise SystemExit("phase 41: the wire is not GPT-2 1.3B's size")
+    groups = n // WIRE_GROUP
+    g = torch.randn(n, generator=torch.Generator("cuda").manual_seed(41),
+                    device="cuda")
+    gp = quant.block_pad(g)             # the blockwise codec's 4096 grid
+    h = hc.resolve_hierarchy(1, 0, ms=current_mesh())
+    cases = {
+        "quantized_reduce_scatter": lambda: quant.quantized_reduce_scatter(
+            g, "data", groups_per_shard=groups),
+        "quantized_all_gather": lambda: quant.quantized_all_gather(
+            g, "data", num_groups=groups),
+        "hierarchical_all_reduce": lambda: hc.hierarchical_all_reduce(
+            gp, "data", h, codec="blockwise"),
+        "quantize (qgZ's codes and scales)": lambda: quant.quantize(
+            g, num_groups=groups)[:2],
+    }
+    main = ("quantized_reduce_scatter", "quantized_all_gather",
+            "hierarchical_all_reduce")
+    same, wall = {}, {}
+    _zero(fns.values())
+    for name, fn in cases.items():
+        count = name in main
+        before = {k: f.launches for k, f in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        if not count:           # the comparison's own launches do not count
+            for k, f in fns.items():
+                f.launches = before[k]
+        with _plain_b9():
+            want = fn()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        same[name] = all(torch.equal(a, b) for a, b in pairs)
+        del got, want
+        torch.cuda.empty_cache()
+    launches = {n_: f.launches for n_, f in fns.items()}
+    _check_bodies("wire W1")
+    _check_launches("wire W1", launches, ("quantize",))
+    # qrs 1, qag 1, the flat hierarchy's reduce-scatter and gather 2
+    want_b9 = 4
+    rows = g.view(groups, WIRE_GROUP)
+    dev = device_ms(lambda: quantize_rows(rows))
+    plain = device_ms(lambda: quantize_rows_reference(rows))
+    nbytes = n * 4 + n + groups * 4
+    bnd, by = bound(nbytes, 0, F32_FLOPS_PER_S)
+    row = {"shape": [groups, WIRE_GROUP], "dtype": "float32",
+           "ms": dev, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+           "bound_share": None if not dev else bnd / dev,
+           "launches": launches["quantize"], "nbytes": nbytes}
+    del g, gp, rows
+    torch.cuda.empty_cache()
+    _phase_line("41 wire W1", card_line, elements=n, group=WIRE_GROUP,
+                bit_for_bit_vs_plain_b9=same, host_ms=wall, b9=row,
+                launches=launches)
+    if not all(same.values()) or launches["quantize"] != want_b9:
+        raise SystemExit(f"phase 41: wire differs from B9's plain version "
+                         f"{same} or B9 launched {launches['quantize']} "
+                         f"times, expected {want_b9}")
+    return {"wire W1": launches}, row
+
+
+def _zero_comm_expected(stage, leaves, n):
+    """{op: (calls, bytes)} a step at a world of one: the grads (all-reduced
+    or reduce-scattered, f32), the new params all-gathered (stages 1-2,
+    f32) or the compute tree gathered (stage 3, bf16), and three small
+    all-reduces (the loss, the vector of sums of squares, the overflow
+    flag)."""
+    small = (3, 4 + 4 * leaves + 4)
+    if stage <= 1:
+        out = {"all_reduce": (leaves + 3, 4 * n + small[1])}
+    else:
+        out = {"all_reduce": small, "reduce_scatter": (leaves, 4 * n)}
+    if stage in (1, 2):
+        out["all_gather"] = (leaves, 4 * n)
+    if stage == 3:
+        out["all_gather"] = (leaves, 2 * n)
+    return out
+
+
+def phase_zero_stages(fns, card_line, phase19_ms):
+    """Phase 42: GPT-2 1.3B at all 24 layers (phase 19's config under
+    ``save_attn``: micro 8 x 1024, bf16 compute, f32 master, fused Adam,
+    clipping 1.0) through ZeRO stages 0-3 in this rank, 3 steps each from
+    the same seeded weights on the same batch.  Gates: losses and every
+    master leaf equal stage 0's bit for bit; the comms logger's calls and
+    bytes a step equal what the stage moves; B1-B4 launch counts; qwZ at a
+    world of one warns and runs the plain path (its step 1 equals stage
+    3's); a stage-3 save loaded into a stage-1 engine equals it bit for bit
+    (masters and moments)."""
+    import dataclasses
+    import gc
+    import logging
+    import shutil
+
+    from deepspeed_tpu_torch import comm, initialize, zero
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, loss_fn,
+                                                 param_count)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), remat="save_attn")
+    B, T = GPT2_TRAIN_B, GPT2_TRAIN_T
+    n = param_count(cfg)
+    rng = np.random.default_rng(19)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    log_ = comm.comms_logger()
+
+    def engine(zero_block):
+        conf = _train_config(B, 1, {"bf16": {"enabled": True}})
+        conf["zero_optimization"] = zero_block
+        torch.cuda.empty_cache()
+        params = _gpt2_params(cfg, 19, torch.float32)
+        eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        del params
+        torch.cuda.synchronize()
+        return eng
+
+    runs, launches, ref = {}, {}, None
+    for stage in range(4):
+        path = f"gpt2-1.3b ZeRO-{stage} W1"
+        eng = engine({"stage": stage})
+        leaves = len(tree_leaves(eng.state.params))
+        _zero(fns.values())
+        log_.reset()
+        rows = []
+        for _ in range(ZERO_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            ts = time.perf_counter()
+            loss = float(eng.train_batch(batch))
+            rows.append({"loss": loss,
+                         "ms": (time.perf_counter() - ts) * 1e3,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        got = {k: f.launches for k, f in fns.items()}
+        _check_bodies(path)
+        L = cfg.n_layers
+        want = {"flash_fwd": 2 * L * ZERO_STEPS,
+                "flash_bwd_dq": L * ZERO_STEPS,
+                "flash_bwd_dkv": L * ZERO_STEPS,
+                "fused_adam": leaves * ZERO_STEPS}
+        if any(got[k] != v for k, v in want.items()) or any(
+                got[k] for k in got if k not in want):
+            raise SystemExit(f"phase 42: {path} launches {got}, expected "
+                             f"{want}")
+        launches[path] = got
+        summ = log_.summary()
+        per_step = {op: (s["count"] / ZERO_STEPS, s["bytes"] / ZERO_STEPS)
+                    for op, s in summ.items()}
+        expected = _zero_comm_expected(stage, leaves, n)
+        masters = [t.detach().cpu() for t in
+                   tree_leaves(eng.module_params())]
+        if ref is None:
+            ref = {"losses": [r["loss"] for r in rows], "masters": masters}
+        equal = ([r["loss"] for r in rows] == ref["losses"] and all(
+            torch.equal(a, b) for a, b in zip(masters, ref["masters"])))
+        del masters
+        runs[stage] = {"steps": rows, "comm_per_step": per_step,
+                       "comm_expected": expected,
+                       "comm_ok": per_step == {k: (float(c), float(b))
+                                               for k, (c, b) in
+                                               expected.items()},
+                       "bitwise_vs_stage0": equal, "leaves": leaves}
+        log(f"[zero] stage {stage}: losses {[r['loss'] for r in rows]} "
+            f"ms/step {[round(r['ms'], 1) for r in rows]} (phase 19 "
+            f"save_attn: {phase19_ms}) peak GB "
+            f"{[round(r['peak_gb'], 3) for r in rows]} comm/step {per_step}"
+            f" bit-equal to stage 0 {equal}; launches {got}")
+        del eng
+        gc.collect()
+    # qwZ at a world of one: JAX's warning, the plain stage-3 path
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    logging.getLogger("deepspeed_tpu_torch.comm_compress").addHandler(
+        handler)
+    try:
+        eq = engine({"stage": 3, "zero_quantized_weights": True})
+    finally:
+        logging.getLogger("deepspeed_tpu_torch.comm_compress") \
+            .removeHandler(handler)
+    qwz = {"mode": eq.grad_comm_mode, "warned": any(
+        "data-parallel world is 1" in m for m in seen),
+        "step1": float(eq.train_batch(batch))}
+    qwz["step1_equals_stage3"] = qwz["step1"] == runs[3]["steps"][0]["loss"]
+    del eq
+    gc.collect()
+    # a stage-3 save loaded into a stage-1 engine
+    d = _nvme_dir("zero_ckpt")
+    try:
+        e3 = engine({"stage": 3})
+        e3.train_batch(batch)
+        t0 = time.perf_counter()
+        e3.save_checkpoint(d, tag="z3")
+        save_s = time.perf_counter() - t0
+        e1 = engine({"stage": 1})
+        t0 = time.perf_counter()
+        e1.load_checkpoint(d, tag="z3")
+        load_s = time.perf_counter() - t0
+        # leaf by leaf on the card: stage 3's gathered against stage 1's
+        _, pdims, odims = e3.state_layout()
+        pairs = [(tree_leaves(e3.state.params), tree_leaves(e1.state.params),
+                  pdims)] + [
+            (tree_leaves(getattr(e3.state.opt_state, f)),
+             tree_leaves(getattr(e1.state.opt_state, f)), odims)
+            for f in ("mu", "nu")]
+        ckpt_equal, ckpt_bytes = e1.state.step == e3.state.step, 0
+        for mine, theirs, dims in pairs:
+            for a, b, dim in zip(mine, theirs, dims):
+                full = zero.gather_shard(a, dim)
+                ckpt_equal = ckpt_equal and torch.equal(full, b)
+                ckpt_bytes += full.numel() * full.element_size()
+                del full
+        del e1, e3, pairs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_line("42 gpt2-1.3b ZeRO stages W1", card_line, layers=cfg.n_layers,
+                micro=B, seq=T, remat="save_attn", params=n, stages=runs,
+                phase19_save_attn_ms=phase19_ms, qwz_world1=qwz,
+                ckpt={"stage3_to_stage1_bitwise": ckpt_equal,
+                      "bytes": ckpt_bytes, "save_s": save_s,
+                      "load_s": load_s},
+                launches=launches)
+    ok = all(r["bitwise_vs_stage0"] and r["comm_ok"] for r in runs.values())
+    if not (ok and ckpt_equal and qwz["mode"] is None and qwz["warned"]
+            and qwz["step1_equals_stage3"]):
+        raise SystemExit(f"phase 42: gates failed: stages "
+                         f"{ {s: (r['bitwise_vs_stage0'], r['comm_ok']) for s, r in runs.items()} }"
+                         f" qwZ {qwz} checkpoint {ckpt_equal}")
+    return launches, runs
+
+
+def zero_child(out_path: str, phase19_ms) -> int:
+    """Phases 41-42 in a rank the port's launcher started: join its NCCL
+    group, run both, write their launches and rows to ``out_path``."""
+    from deepspeed_tpu_torch import comm, topology
+    from deepspeed_tpu_torch.ops import _build
+
+    comm.init_distributed()                  # nccl, the launcher's env
+    topology.set_current_mesh(topology.default_mesh())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    fns = _kernel_fns()
+    card_line = card()
+    log(f"[zero] rank {comm.get_rank()} of {comm.get_world_size()} on "
+        f"{torch.cuda.get_device_name()} (LOCAL_RANK "
+        f"{comm.get_local_rank()}, backend "
+        f"{torch.distributed.get_backend()})")
+    t0 = time.perf_counter()
+    launches, b9_row = phase_wire(fns, card_line)
+    wire_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, runs = phase_zero_stages(fns, card_line, phase19_ms)
+    launches.update(got)
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "b9_wire": b9_row,
+                   "bodies": {k: {p: c for p, c in v.items()
+                                  if p in launches}
+                              for k, v in BODIES.items()},
+                   "laps": {"phase_wire": wire_s,
+                            "phase_zero_stages": time.perf_counter() - t0}},
+                  f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_zero_launcher(card_line, rows, phase19_ms):
+    """Phases 41-42 through ``python -m deepspeed_tpu_torch.launcher
+    --nproc_per_node 1``: the child's code is checked (a failing child
+    fails the smoke) and its launches and B9's wire row come back."""
+    out = os.path.join(_nvme_dir("zero_child"), "result.json")
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher",
+           "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"),
+           ZERO_CHILD_FLAG, out, json.dumps(phase19_ms)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=ROOT, env=env,
+                        timeout=ZERO_CHILD_TIMEOUT_S).returncode
+    if rc != 0:
+        raise SystemExit(f"phases 41-42: the launched rank exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    log(f"[zero] launcher and rank: {time.perf_counter() - t0:.1f} s, "
+        f"phases {res['laps']}")
+    rows["quantize"]["wire_shape"] = res["b9_wire"]
+    for name, paths in res["bodies"].items():
+        BODIES.setdefault(name, {}).update(paths)
+    return res["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if len(sys.argv) > 1 and sys.argv[1] == ZERO_CHILD_FLAG:
+        return zero_child(sys.argv[2], json.loads(sys.argv[3]))
     from deepspeed_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6712,25 +7101,8 @@ def main() -> int:
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     _LAP[0] = time.perf_counter()
 
-    from deepspeed_tpu_torch.env_report import env_probe
-    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
-        paged_chunk_attention, paged_chunk_attention_quant,
-        paged_chunk_attention_v1)
-    from deepspeed_tpu_torch.ops.adam_cuda import adam_update
-    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
-                                                        flash_bwd_dq,
-                                                        flash_fwd)
-    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
-    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
-
     # each kernel's wrapper, whose `launches` count the main paths read
-    fns = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
-           "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": adam_update,
-           "paged_attention": paged_chunk_attention,
-           "greedy_argmax": fused_greedy_rows,
-           "paged_attention_quant": paged_chunk_attention_quant,
-           "paged_attention_v1": paged_chunk_attention_v1,
-           "quantize": quantize_rows, "env_probe": env_probe}
+    fns = _kernel_fns()
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = [phase_flash(gen), phase_paged(gen), phase_greedy(gen)]
     tier_kernels = phase_paged_quant_v1(gen)
@@ -6789,7 +7161,10 @@ def main() -> int:
     launches.update(phase_resume(fns, card_line)[0])
     _lap('phase_resume')
     torch.cuda.empty_cache()
-    launches.update(phase_gpt2_train(fns, card_line)[0])
+    got, gpt2_runs = phase_gpt2_train(fns, card_line)
+    launches.update(got)
+    phase19_ms = [round(r["ms"], 1) for r in gpt2_runs["save_attn"]["steps"]]
+    del gpt2_runs
     _lap('phase_gpt2_train')
     torch.cuda.empty_cache()
     launches.update(phase_mixtral_train(fns, card_line)[0])
@@ -6806,6 +7181,9 @@ def main() -> int:
     launches.update(serve_beyond_the_card(fns, card_line, gen, rows))
     torch.cuda.empty_cache()
     launches.update(train_beyond_the_card(fns, card_line))
+    torch.cuda.empty_cache()
+    launches.update(phase_zero_launcher(card_line, rows, phase19_ms))
+    _lap("phases 41-42 (wire, ZeRO stages) under the launcher")
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():
@@ -6836,7 +7214,7 @@ def main() -> int:
                     "library_device_median_ms", "bound_share",
                     "training_shape", "chunk", "f32_split", "kv_rows",
                     "kv_write", "cases", "gpt2_shapes", "mixtral_shapes",
-                    "bert_shapes", "verify_shapes"):
+                    "bert_shapes", "verify_shapes", "wire_shape"):
             if key in k:
                 row[key] = k[key]
         out.append(row)

@@ -8,8 +8,10 @@ and NVMe KV tiers, int8-resident pages, int8 weights, speculative decoding,
 and ZeRO-Inference weight streaming from host memory or NVMe for models
 larger than the card), their dense and paged generators; the BERT and CIFAR CNN encoder families, served by lot
 batching (BERT in bf16 or int8 weights); stochastic rounding; the train
-step at ZeRO stage 0
-on one GPU (``initialize`` -> ``TrainingEngine.train_batch``) with its data
+step, data parallel over ranks (one a GPU, ``python -m
+deepspeed_tpu_torch.launcher``) at ZeRO stages 0-3 with ZeRO++ and the
+1-bit optimizers (``initialize`` -> ``TrainingEngine.train_batch``; the
+collectives in ``deepspeed_tpu_torch.comm``) with its data
 loader, packing, curriculum, activation checkpointing (the host-offload
 policies too), timers and checkpoints (``save_checkpoint`` /
 ``load_checkpoint``, ``zero_to_fp32``), ``init_inference`` and the
@@ -82,6 +84,9 @@ _EXPORTS = {
     "ParamStreamEngine": "deepspeed_tpu_torch.param_stream",
     "InfinityEngine": "deepspeed_tpu_torch.infinity",
     "NvmeSwapper": "deepspeed_tpu_torch.offload",
+    "init_distributed": "deepspeed_tpu_torch.comm",
+    "MeshSpec": "deepspeed_tpu_torch.topology",
+    "sharded_init": "deepspeed_tpu_torch.zero",
 }
 
 __all__ = sorted(_EXPORTS)

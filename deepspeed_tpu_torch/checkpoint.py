@@ -25,6 +25,17 @@ writes the copy from a background thread while training goes on.  Loading
 reads the files memory-mapped and copies each leaf into the engine's own
 tensors, so the card holds one state, not two.
 
+Across ranks the layout stays the same, so a checkpoint loads at any ZeRO
+stage and world size (the JAX package restores onto the engine's current
+shardings for the same reason).  Every rank takes part in the save: each
+leaf held as shards is gathered whole on the card, one leaf at a time (the
+peak is one extra leaf), and rank 0 alone copies it to the host and writes
+the files.  On load every rank cuts its own slice of each leaf from the
+memory-mapped files.  The qwZ engine's flat rows are saved whole, as the
+``[world, chunk]`` buffer JAX saves; ``zero_to_fp32`` refuses them, as
+JAX's does (``consolidate_to_fp32(engine)`` goes through
+``module_params()``).
+
 The offload engines (``ParamStreamEngine``, ``InfinityEngine``) write the
 JAX package's universal per-leaf layout instead, one flat unpadded f32
 leaf per file (:class:`UniversalLeafCheckpointer`): JAX writes each as an
@@ -144,22 +155,58 @@ def finalize_checkpoint_dir(save_dir: str, tag: str, meta: dict) -> None:
     logger.info("saved checkpoint %s", path)
 
 
-def _host_copy(tree) -> dict:
-    return {p: t.detach().to("cpu", copy=True)
-            for p, t in tree_leaves_with_path(tree)}
+def _opt_fields(opt):
+    """(name, tree) of each optimizer field shaped like the params."""
+    return [(f, v) for f, v in zip(opt._fields, opt)
+            if f != "step" and v is not None]
 
 
-def _snapshot(state) -> dict:
-    """Host copies of the train state, keyed by path, and its numbers."""
+def _gathered_copy(tree, dims, keep: bool, prefix: str = "") -> dict:
+    """{path: whole leaf on the host}: each leaf gathered along its dim on
+    the card (every rank takes part), copied to the host on the keeping
+    rank and dropped before the next."""
+    from deepspeed_tpu_torch import zero
+
+    out = {}
+    for (path, t), d in zip(tree_leaves_with_path(tree), dims):
+        full = zero.gather_shard(t.detach(), d)
+        if keep:
+            out[prefix + path] = full.to("cpu", copy=True)
+        del full
+    return out
+
+
+def _snapshot(engine) -> Optional[dict]:
+    """Host copies of the train state, keyed by path, and its numbers; None
+    on the ranks that do not write."""
+    from deepspeed_tpu_torch import comm
+
+    state = engine.state
     opt = state.opt_state
+    layout = engine.state_layout()
+    keep = comm.get_rank() == 0
+    if layout[0] == "qwz":
+        def rows(t):
+            full = comm.all_gather(t.detach(), "data", tiled=False)
+            return full.cpu() if keep else None
+
+        params = {"": rows(state.params)}
+        optc = {f: rows(v) for f, v in _opt_fields(opt)}
+    else:
+        _, pdims, odims = layout
+        params = _gathered_copy(state.params, pdims, keep)
+        optc = {}
+        for f, v in _opt_fields(opt):
+            optc.update(_gathered_copy(v, odims, keep, prefix=f + "/"))
+    if not keep:
+        return None
     return {
-        _PARAMS: _host_copy(state.params),
-        _OPT: _host_copy(opt._replace(step=None)),
+        _PARAMS: params,
+        _OPT: optc,
         _SCALARS: {
             "step": state.step,
             "opt_state": {"kind": type(opt).__name__, "step": opt.step,
-                          "fields": [f for f, v in zip(opt._fields, opt)
-                                     if v is not None and f != "step"]},
+                          "fields": [f for f, _ in _opt_fields(opt)]},
             "scaler": {"scale": state.scaler.scale,
                        "good_steps": state.scaler.good_steps}}}
 
@@ -183,11 +230,17 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     is on disk (:func:`wait_for_checkpoint`, or the next save or load of
     any engine, joins it).
     """
+    from deepspeed_tpu_torch import comm
+
     tag = tag or f"global_step{engine.global_steps}"
     path = _ckpt_dir(save_dir, tag)
     # at most one save in flight, and the previous one's commit must run
     wait_for_checkpoint(engine)
-    snap = _snapshot(engine.state)
+    snap = _snapshot(engine)
+    if snap is None:                    # a rank that does not write
+        if not async_save:
+            comm.barrier()              # rank 0's files are on disk
+        return path
     meta = {
         "global_steps": engine.global_steps,
         "skipped_steps": engine.skipped_steps,
@@ -206,6 +259,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         return path
     write()
     finalize()
+    comm.barrier()
     return path
 
 
@@ -219,30 +273,42 @@ def _load_flat(path: str) -> dict:
     return torch.load(path, map_location="cpu", mmap=True, weights_only=True)
 
 
-def _copy_into(flat: dict, tree, what: str) -> None:
-    """Copy each checkpoint leaf into the engine's tensor at its path; the
-    two trees must hold the same paths, shapes and dtypes."""
-    leaves = tree_leaves_with_path(tree)
-    missing = sorted(set(flat) ^ {p for p, _ in leaves})
+def _copy_into(flat: dict, tree, what: str, dims, rank: int, world: int,
+               prefix: str = "") -> None:
+    """Copy this rank's slice of each checkpoint leaf (along its dim; the
+    whole leaf where it is None) into the engine's tensor at its path; the
+    two trees must hold the same paths, whole shapes and dtypes."""
+    from deepspeed_tpu_torch import zero
+
+    leaves = [(prefix + p, t) for p, t in tree_leaves_with_path(tree)]
+    mine = {p for p, _ in leaves}
+    missing = sorted({k for k in flat if k.startswith(prefix)} ^ mine)
     if missing:
         raise ValueError(f"checkpoint {what} and the engine's differ in "
                          f"leaves {missing}")
     with torch.no_grad():
-        for p, leaf in leaves:
+        for (p, leaf), d in zip(leaves, dims):
             src = flat[p]
-            if src.shape != leaf.shape or src.dtype != leaf.dtype:
+            want = tuple(leaf.shape) if d is None else \
+                tuple(leaf.shape[:d]) + (leaf.shape[d] * world,) \
+                + tuple(leaf.shape[d + 1:])
+            if tuple(src.shape) != want or src.dtype != leaf.dtype:
                 raise ValueError(
                     f"checkpoint {what} leaf {p!r} is {tuple(src.shape)} "
-                    f"{src.dtype}, the engine's {tuple(leaf.shape)} "
-                    f"{leaf.dtype}")
-            leaf.copy_(src)
+                    f"{src.dtype}, the engine's {want} {leaf.dtype}")
+            leaf.copy_(zero.take_shard(src, d, rank, world))
 
 
 def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None):
     """ref: DeepSpeedEngine.load_checkpoint -> (path, client_state), or
     (None, {}) when there is no ``latest`` and no tag.  Copies into the
-    engine's existing tensors, whose device, dtypes and shapes stay."""
+    engine's existing tensors, whose device, dtypes and shapes stay; each
+    rank reads its own slices, so the checkpoint may come from another
+    ZeRO stage or world size."""
+    from deepspeed_tpu_torch import comm
+
     wait_for_checkpoint(engine)          # join any pending async save
+    comm.barrier()                       # every rank's save is on disk
     tag = _resolve_tag(load_dir, tag, required=False)
     if tag is None:
         return None, {}
@@ -256,10 +322,32 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None):
     if o["kind"] != type(opt).__name__:
         raise ValueError(f"checkpoint optimizer state is {o['kind']}, the "
                          f"engine's {type(opt).__name__}")
-    _copy_into(_load_flat(os.path.join(state_dir, _PARAMS)), state.params,
-               "params")
-    _copy_into(_load_flat(os.path.join(state_dir, _OPT)),
-               opt._replace(step=None), "optimizer state")
+    layout = engine.state_layout()
+    world, rank = getattr(engine, "dp", 1), getattr(engine, "rank", 0)
+    params = _load_flat(os.path.join(state_dir, _PARAMS))
+    optf = _load_flat(os.path.join(state_dir, _OPT))
+    if layout[0] == "qwz":
+        if set(params) != {""} or params[""].shape != (
+                world, state.params.shape[0]):
+            raise ValueError(
+                "checkpoint params are not this qwZ engine's [world, chunk] "
+                f"rows ({world}, {state.params.shape[0]})")
+        with torch.no_grad():
+            state.params.copy_(params[""][rank])
+            for f, v in _opt_fields(opt):
+                v.copy_(optf[f][rank])
+    else:
+        _, pdims, odims = layout
+        _copy_into(params, state.params, "params", pdims, rank, world)
+        fields = _opt_fields(opt)
+        for f, v in fields:
+            _copy_into(optf, v, "optimizer state", odims, rank, world,
+                       prefix=f + "/")
+        extra = sorted(k for k in optf
+                       if k.split("/", 1)[0] not in dict(fields))
+        if extra:
+            raise ValueError("checkpoint optimizer state and the engine's "
+                             f"differ in leaves {extra}")
     engine.state = state._replace(
         step=int(scalars["step"]), opt_state=opt._replace(step=int(o["step"])),
         scaler=type(state.scaler)(float(scalars["scaler"]["scale"]),

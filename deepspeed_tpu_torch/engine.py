@@ -1,29 +1,42 @@
-"""Training engine on one GPU (port of ``deepspeed_tpu/engine.py``; ref:
+"""Training engine (port of ``deepspeed_tpu/engine.py``; ref:
 deepspeed/runtime/engine.py DeepSpeedEngine + deepspeed.initialize).
 
-ZeRO stage 0 on one device.  The master params live in the config's
-master dtype (f32).  Each step casts them once to the compute dtype (bf16,
-or fp16 under the dynamic loss scaler) as a detached copy, so autograd
-never holds the master, and runs the loss and its backward on that copy
-once per microbatch; the gradients accumulate in f32 and are divided by
-the accumulation count (the JAX step casts inside every microbatch, to the
-same values).  Then come unscale/overflow check, global-norm clipping and
-the optimizer, applied one leaf at a time in place (``p += u``), so
-neither the update nor the new optimizer state is ever a whole-model tree
-beside the old one.  On overflow the params and optimizer state are kept
-and the step does not advance, as ``_finish_step`` does.
+One rank a GPU, data parallel over the ``data`` axis of a mesh built from
+the process group (:mod:`deepspeed_tpu_torch.topology`), ZeRO stages 0-3
+(:mod:`deepspeed_tpu_torch.zero`).  Each rank takes the rows of the global
+batch that the JAX package's ``[dp, accum, mb]`` view gives its device,
+casts the master params once a step to the compute dtype (bf16, or fp16
+under the dynamic loss scaler) as a detached copy, so autograd never holds
+the master, and runs the loss and its backward once a microbatch; the
+gradients accumulate in f32 and are divided by the accumulation count.
+Then the grads are averaged over the ranks: all-reduced at stages 0 and 1,
+reduce-scattered to each rank's shard at stages 2 and 3.  The loss is the
+mean over ranks; the overflow decision (an all-reduced minimum) and the
+global norm (each leaf's sum of squares on this rank, all-reduced once) are
+the same on every rank.  The optimizer runs one leaf at a time in place
+(``p += u``): at stages 1-3 on this rank's shard of the master and the
+moments (fused Adam, B4, on CUDA), after which stages 1 and 2 all-gather
+the new master; stage 3 keeps f32 shards and gathers the compute-dtype
+tree leaf by leaf before the forward, freeing it after the backward.  On
+overflow the params and optimizer state are kept and the step does not
+advance, as ``_finish_step`` does.  The machinery runs at a world of one
+too, collectives included.  ZeRO++ (qgZ, qwZ, hpZ) and the 1-bit
+optimizers take the compressed steps of :mod:`~deepspeed_tpu_torch.
+comm_compress`.
 
 Unscheduled ``offload_optimizer`` / ``offload_param`` blocks (``device:
-cpu``, no ``scheduled``) keep the named state in page-locked host memory:
-the moments and the f32 master for the optimizer block, the master for the
-param block; each leaf visits the card for its cast and its update, so the
-results equal the engine without the block bit for bit.  The scheduled and
-NVMe blocks go to the streaming engines (:func:`initialize`).
+cpu``, no ``scheduled``) at stage 0 keep the named state in page-locked
+host memory: the moments and the f32 master for the optimizer block, the
+master for the param block; each leaf visits the card for its cast and its
+update, so the results equal the engine without the block bit for bit.
+The scheduled and NVMe blocks go to the streaming engines
+(:func:`initialize`).
 
 ``train_batch`` first truncates the batch to the curriculum's current
 sequence length when a ``curriculum_learning`` block is configured, as the
 JAX engine does.  ``save_checkpoint`` / ``load_checkpoint`` /
-``wait_for_checkpoint`` resume a run (:mod:`deepspeed_tpu_torch.checkpoint`).
+``wait_for_checkpoint`` resume a run at any stage and world size
+(:mod:`deepspeed_tpu_torch.checkpoint`).
 
 DeepSpeed's three-call idiom is kept::
 
@@ -36,12 +49,14 @@ beside ``loss = engine.train_batch(batch)``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+import logging
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch import lr_schedules, precision
+from deepspeed_tpu_torch import comm, comm_compress, lr_schedules, \
+    precision, topology, zero
 from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch._tree import tree_leaves, tree_map, \
     tree_unflatten_like
@@ -52,13 +67,19 @@ from deepspeed_tpu_torch.ops.optim import Optimizer, default_lr
 from deepspeed_tpu_torch.ops.optim import from_config as opt_from_config
 from deepspeed_tpu_torch.timers import ThroughputTimer
 
+logger = logging.getLogger(__name__)
+
 _MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
+# optimizers whose update reads a whole leaf (a trust ratio's norms)
+_PER_LEAF_NORM = ("lamb", "fusedlamb")
 
 
 class TrainState(NamedTuple):
     step: int                  # optimizer steps taken (skipped ones not)
-    params: Any                # master params (master dtype)
-    opt_state: Any
+    params: Any                # master params (master dtype): whole leaves,
+    #                            this rank's shards at stage 3, its flat
+    #                            row under qwZ
+    opt_state: Any             # at stages >= 1 this rank's shards
     scaler: precision.ScalerState
 
 
@@ -95,21 +116,21 @@ def _to_device(x, device):
     return torch.as_tensor(np.asarray(x), device=device)
 
 
-def _unsupported(config: Config, params, optimizer) -> Optional[str]:
-    """The first configured feature this slice does not run, or None."""
+def _is_init_thunk(params) -> bool:
+    """A zero-argument callable that returns the param tree (zero.Init
+    parity), not a tree."""
+    return callable(params) and not isinstance(params, (dict, list, tuple))
+
+
+def _unsupported(config: Config, params) -> Optional[str]:
+    """The first configured feature this engine does not run, or None."""
     z = config.zero
-    if z.stage > 0:
-        # ZeRO-Offload at a stage > 0 partitions across ranks first
-        off = " with offload" if z.offload_param or z.offload_optimizer \
-            else ""
-        return f"ZeRO stage {z.stage}{off} (ROADMAP A9, distributed slice)"
-    if z.zeropp_quantized_gradients or z.zeropp_quantized_weights:
-        return "ZeRO++ qgZ/qwZ (ROADMAP A9)"
-    name = optimizer.name if optimizer is not None else config.optimizer.type
-    if name.startswith(("onebit", "zeroone")):
-        return f"1-bit optimizer {name!r} (ROADMAP A9)"
+    if z.stage > 0 and (z.offload_param or z.offload_optimizer):
+        return (f"ZeRO stage {z.stage} with offload (the offload engines "
+                "at dp > 1 are ROADMAP A9's remainder; stage 0 keeps "
+                "unscheduled offload state on the host)")
     if config.pipeline.stages > 1:
-        return "pipeline parallelism (ROADMAP A9)"
+        return "pipeline parallelism (ROADMAP A9's remainder)"
     if config.progressive_layer_drop:
         return "progressive_layer_drop (ROADMAP A11)"
     if config.eigenvalue:
@@ -119,36 +140,95 @@ def _unsupported(config: Config, params, optimizer) -> Optional[str]:
     for key in _MONITORS:
         if (config.raw.get(key) or {}).get("enabled"):
             return f"the {key} monitor (ROADMAP A10)"
-    if callable(params) or not isinstance(params, (dict, list, tuple)):
-        return ("params that are not a tree of arrays for the stage-0 "
-                "engine (init thunks are taken by the scheduled offload "
-                "engine, a LayeredModel by the param-stream engine, "
-                "through initialize(); ROADMAP A9)")
+    if not _is_init_thunk(params) and not isinstance(params,
+                                                     (dict, list, tuple)):
+        return ("params that are neither a tree of arrays nor an init "
+                "thunk (a LayeredModel goes to the param-stream engine "
+                "through initialize())")
     return None
 
 
+def mesh_for(config: Config, device: torch.device) -> topology.MeshSpec:
+    """The engine's mesh over the process group: the config's ``mesh``
+    block (every rank on ``data`` by default).  The current mesh is reused
+    when it has those sizes, so engines built in turn share one set of
+    process groups."""
+    world = comm.get_world_size()
+    sizes = config.mesh.axis_sizes(world)
+    others = {a: n for a, n in sizes.items() if a != "data" and n > 1}
+    if others:
+        raise NotImplementedError(
+            f"mesh axes {others}: tensor, pipeline, sequence and expert "
+            "parallelism are ROADMAP A9's remainder; the port shards over "
+            "the data axis only")
+    ms = topology.current_mesh()
+    live = torch.distributed.is_initialized()
+    if ms is not None and ms.sizes == {a: sizes.get(a, 1)
+                                       for a in topology.AXES} \
+            and (ms.device_mesh is not None) == live:
+        return ms
+    return topology.MeshSpec.build(
+        sizes, device_type="cuda" if device.type == "cuda" else "cpu")
+
+
 class TrainingEngine:
-    """The train step of one device at ZeRO stage 0 + host bookkeeping.
+    """The data-parallel train step (ZeRO stages 0-3, ZeRO++, 1-bit) on
+    this rank + host bookkeeping.
 
     ``loss_fn``: ``(params, batch) -> loss`` or ``-> (loss, aux)`` with
     ``has_aux``; ``params`` arrive cast to the compute dtype.  ``params``:
-    the initial master tree (torch tensors or numpy arrays; copied, then
-    cast to the master dtype on ``device``).  ``device``: None = CUDA.
+    the initial master tree (torch tensors or numpy arrays, the same on
+    every rank; copied, cast to the master dtype and placed on ``device``),
+    or a zero-argument init thunk (:func:`~deepspeed_tpu_torch.zero.
+    sharded_init`).  ``device``: None = CUDA.  ``mesh``: default
+    :func:`mesh_for` the config.
     """
 
     def __init__(self, loss_fn: Callable, params: Any, config: Config,
                  optimizer: Optional[Optimizer] = None, lr_scheduler=None,
-                 has_aux: bool = False, device=None):
-        why = _unsupported(config, params, optimizer)
+                 has_aux: bool = False, device=None,
+                 mesh: Optional[topology.MeshSpec] = None):
+        why = _unsupported(config, params)
         if why is not None:
-            raise NotImplementedError(
-                f"{why} is not ported yet; this slice trains at ZeRO "
-                "stage 0 on one GPU")
+            raise NotImplementedError(f"{why} is not ported yet")
         self.config = config
         self.device = resolve_device(device)
-        config.resolve_batch_sizes(1)
+        self.mesh = mesh if mesh is not None else mesh_for(config,
+                                                           self.device)
+        topology.set_current_mesh(self.mesh)
+        self.dp = self.mesh.size("data")
+        self.rank = self.mesh.rank_in("data")
+        config.resolve_batch_sizes(self.mesh.dp_world)
         self.loss_fn = loss_fn
         self.has_aux = has_aux
+        stage = config.zero.stage
+        self.stage = stage
+
+        name = optimizer.name if optimizer is not None \
+            else config.optimizer.type
+        self.grad_comm_mode = comm_compress.resolve_mode(
+            config, self.mesh, name, has_aux)
+        mode = self.grad_comm_mode
+        if mode == "onebit" and config.gradient_clipping > 0:
+            logger.warning(
+                "gradient_clipping is ignored under the 1-bit optimizer "
+                "path (the exact global grad never exists; the reference "
+                "has the same semantics)")
+        if mode == "onebit" and optimizer is not None and \
+                optimizer.axis_name != comm_compress.AXIS:
+            raise ValueError(
+                "user-supplied 1-bit optimizer must be built with "
+                f"axis_name={comm_compress.AXIS!r} to run in the engine's "
+                "compressed step (yours has "
+                f"axis_name={optimizer.axis_name!r}, which would do NO "
+                "cross-rank communication and silently diverge); or "
+                "omit `optimizer=` and configure it via the config dict")
+        if stage >= 1 and self.dp > 1 and name.lower() in _PER_LEAF_NORM:
+            raise NotImplementedError(
+                f"optimizer {name!r} at ZeRO stage {stage} over {self.dp} "
+                "ranks: its trust ratio needs a whole leaf's norms, which "
+                "a shard does not hold (ROADMAP A9's remainder); use stage "
+                "0 or an elementwise optimizer")
 
         opt_lr = float(config.optimizer.params.get(
             "lr", default_lr(config.optimizer.type)))
@@ -160,18 +240,42 @@ class TrainingEngine:
         if optimizer is None:
             oparams = dict(config.optimizer.params)
             oparams["lr"] = self.lr_schedule
+            if mode == "onebit":
+                oparams["axis_name"] = comm_compress.AXIS
             optimizer = opt_from_config(config.optimizer.type, oparams)
         self.optimizer = optimizer
 
         mdt = precision.master_dtype(config.precision)
-
-        def master(p):
-            t = _to_device(p, self.device)
-            dt = mdt if t.is_floating_point() else t.dtype
-            return t.to(device=self.device, dtype=dt, copy=True)
-
-        params = tree_map(master, params)
-        opt_state = self.optimizer.init(params)
+        if _is_init_thunk(params):
+            # zero.Init parity: the tree is drawn on the host and each
+            # leaf placed (cut to this rank's shard at stage 3) and dropped
+            params = zero.draw_on_host(params)
+        leaves = tree_leaves(params)
+        self._skeleton = tree_unflatten_like(params, [0] * len(leaves))
+        self._shapes = [tuple(np.shape(l)) for l in leaves]
+        del params
+        if mode == "qwz":
+            self._setup_qwz_state(leaves, mdt)
+            self._finish_init()
+            return
+        # the dim each leaf's shard splits (None: whole on every rank);
+        # used from stage 1 (optimizer state), 2 (grads), 3 (master)
+        self._dims = [None if stage < 1 or not _is_float(l)
+                      else zero.shard_dim(s, self.dp)
+                      for s, l in zip(self._shapes, leaves)]
+        master = zero.place_leaves(
+            leaves, self._dims if stage >= 3 else [None] * len(leaves),
+            self.rank, self.dp, self.device, mdt)
+        params = tree_unflatten_like(self._skeleton, master)
+        del leaves, master
+        if stage in (1, 2):
+            opt_params = tree_unflatten_like(self._skeleton, [
+                zero.take_shard(p, d, self.rank, self.dp)
+                for p, d in zip(tree_leaves(params), self._dims)])
+        else:
+            opt_params = params
+        opt_state = self.optimizer.init(opt_params)
+        del opt_params
         # unscheduled offload blocks (ref: ZeRO-Offload; the JAX engine's
         # pinned_host memory-kind shardings): the optimizer block keeps the
         # moments and the f32 master in page-locked host memory, the param
@@ -196,6 +300,13 @@ class TrainingEngine:
                 "(step: int, then trees shaped like the params)")
         self.state = TrainState(step=0, params=params, opt_state=opt_state,
                                 scaler=precision.scaler_init(config.precision))
+        if mode == "qgz":
+            self._reduce_fn, self._hier = comm_compress.make_reduce_fn(
+                config.comm, self.mesh)
+        self._finish_init()
+
+    def _finish_init(self) -> None:
+        config = self.config
         # curriculum (ref: engine.curriculum_scheduler): seqlen-type
         # curricula truncate each batch's sequence axis before the step
         self.curriculum_scheduler = (
@@ -227,12 +338,73 @@ class TrainingEngine:
         return torch.empty_like(t, device=self.device).copy_(
             t, non_blocking=True)
 
+    # ------------------------------------------------------- qwZ flat state
+    def _setup_qwz_state(self, leaves: list, mdt) -> None:
+        """ZeRO++ qwZ layout (ref ``zero_quantized_weights``): the master
+        params as one flat ``[world, chunk]`` buffer of which this rank
+        keeps row ``rank`` (each leaf's part that falls in the row is
+        copied there and the leaf dropped); the step all-gathers the rows
+        as int8 codes and scales to rebuild the compute leaves."""
+        self._qwz_sizes = [int(np.prod(s)) for s in self._shapes]
+        total = sum(self._qwz_sizes)
+        unit = comm_compress._GROUP
+        C = -(-total // (self.dp * unit)) * unit
+        self._qwz_chunk = C
+        lo = self.rank * C
+        row = torch.zeros(C, dtype=mdt, device=self.device)
+        off = 0
+        for i, n in enumerate(self._qwz_sizes):
+            a, b = max(off, lo), min(off + n, lo + C)
+            if a < b:
+                flat = torch.as_tensor(leaves[i]).reshape(-1)
+                row[a - lo:b - lo] = flat[a - off:b - off].to(
+                    device=self.device, dtype=mdt)
+            leaves[i] = None
+            off += n
+        self.state = TrainState(
+            step=0, params=row, opt_state=self.optimizer.init(row),
+            scaler=precision.scaler_init(self.config.precision))
+        self._gather_row, self._hier = comm_compress.make_weight_gather(
+            self.config.comm, self.mesh)
+
+    def _qwz_flatten(self, leaves: List[torch.Tensor], dtype):
+        """Leaves -> the padded flat ``[world * chunk]`` buffer."""
+        flat = torch.cat([l.reshape(-1).to(dtype) for l in leaves])
+        pad = self.dp * self._qwz_chunk - flat.shape[0]
+        return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+    def _qwz_unflatten(self, flat, dtype):
+        """The flat buffer's unpadded prefix -> the param tree."""
+        out, off = [], 0
+        for shape, n in zip(self._shapes, self._qwz_sizes):
+            out.append(flat[off:off + n].reshape(shape).to(dtype))
+            off += n
+        return tree_unflatten_like(self._skeleton, out)
+
+    def _qwz_exact_params(self, dtype):
+        """The master tree from the rows, gathered exactly (f32)."""
+        full = comm.all_gather(self.state.params, "data")
+        return self._qwz_unflatten(full, dtype)
+
     # ------------------------------------------------------------------ step
     def _compute_params(self):
-        """A detached copy of the master params in the compute dtype whose
-        float leaves require grad (a view of the master when the dtypes
-        agree: nothing writes the master until the backward is done)."""
+        """The compute-dtype tree whose float leaves require grad: a
+        detached copy of the master (a view when the dtypes agree: nothing
+        writes the master until the backward is done), gathered leaf by
+        leaf from the shards at stage 3 (exactly, from the rows under
+        qwZ only for eval)."""
         dt = precision.compute_dtype(self.config.precision)
+        if self.grad_comm_mode == "qwz":
+            return tree_map(lambda p: p.detach(),
+                            self._qwz_exact_params(dt))
+        if self.stage >= 3:
+            leaves = [zero.gather_shard(p.detach().to(dt)
+                                        if p.is_floating_point() else p, d)
+                      for p, d in zip(tree_leaves(self.state.params),
+                                      self._dims)]
+            return tree_unflatten_like(self._skeleton, [
+                l.requires_grad_(True) if l.is_floating_point() else l
+                for l in leaves])
 
         def cast(p):
             p = self._visit(p)
@@ -250,22 +422,61 @@ class TrainingEngine:
     def _batch(self, batch):
         return tree_map(lambda x: _to_device(x, self.device), batch)
 
+    def _local_rows(self, batch, parts: int = 1):
+        """This rank's rows of the global batch, on the device: the block
+        ``[r n, (r + 1) n)``, ``n = B / world``, which JAX's ``[dp, accum,
+        mb]`` view gives device r, cut into ``parts`` microbatches."""
+        W, r = self.dp, self.rank
+
+        def rows(x):
+            if not getattr(x, "ndim", 0):
+                return x
+            B = x.shape[0]
+            if B % (W * parts):
+                raise ValueError(
+                    f"a global batch of {B} rows does not split into {W} "
+                    f"ranks x {parts} microbatches")
+            n = B // W
+            return x[r * n:(r + 1) * n] if W > 1 else x
+
+        local = self._batch(tree_map(rows, batch))
+        if parts == 1:
+            return [local]
+
+        def micro(i):
+            def f(x):
+                if not getattr(x, "ndim", 0):
+                    return x
+                mb = x.shape[0] // parts
+                return x[i * mb:(i + 1) * mb]
+            return tree_map(f, local)
+
+        return [micro(i) for i in range(parts)]
+
     def _train_step(self, batch) -> dict:
+        if self.grad_comm_mode == "qwz":
+            return self._qwz_train_step(batch)
         cfg = self.config
-        accum = cfg.gradient_accumulation_steps
-        batch = self._batch(batch)
-        micro = (accum_split(batch, accum) if accum > 1 else None)
+        micro = self._local_rows(batch, cfg.gradient_accumulation_steps)
+        accum = len(micro)
         cparams = self._compute_params()
         leaves = tree_leaves(cparams)
         live = [i for i, p in enumerate(leaves) if p.requires_grad]
         grads = [torch.zeros(p.shape, dtype=torch.float32,
                              device=self.device) for p in leaves]
         loss_sum, auxes = None, []
-        for i in range(accum):
-            mb = batch if micro is None else tree_map(lambda x: x[i], micro)
+        # the exact path's backward is of this rank's share of the global
+        # mean (its local mean / W), so each rank's partial grads have the
+        # size JAX's per-device partials have (what fp16 overflow sees)
+        # and the exchange sums them; the compressed paths average local
+        # means, as JAX's shard_map steps do
+        share = self.dp if self.grad_comm_mode is None and self.dp > 1 \
+            else None
+        for mb in micro:
             loss, aux = self._loss_for(cparams, mb)
-            scaled = precision.scale_loss(loss, self.state.scaler,
-                                          cfg.precision)
+            scaled = precision.scale_loss(
+                loss if share is None else loss / share, self.state.scaler,
+                cfg.precision)
             gs = torch.autograd.grad(scaled, [leaves[j] for j in live],
                                      allow_unused=True)
             for j, g in zip(live, gs):
@@ -278,26 +489,85 @@ class TrainingEngine:
             loss_sum = loss if loss_sum is None else loss_sum + loss
             # detached, so the microbatch's graph is not kept alive
             auxes.append(tree_map(lambda t: t.detach(), aux))
-        del cparams, leaves
+        del cparams, leaves, micro
         if accum > 1:
             for g in grads:
                 g /= accum
         loss = loss_sum / accum if accum > 1 else loss_sum
-        grads = tree_unflatten_like(self.state.params, grads)
+        grads = self._reduce_grads(grads)
+        loss = comm.all_reduce_(loss, "data", comm.ReduceOp.AVG)
         return self._finish_step(grads, loss, auxes)
 
-    def _finish_step(self, grads, loss, auxes) -> dict:
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The rank-local grads summed (each is its share of the global
+        mean) over the data axis: whole leaves at stages 0-1 (all-reduce),
+        this rank's shards at stages 2-3 (reduce-scatter); qgZ's quantized
+        all-reduce of the local means, then the shards at stage 2; the
+        1-bit optimizers exchange their own momentum."""
+        mode = self.grad_comm_mode
+        if mode == "onebit":
+            return grads
+        if mode == "qgz":
+            grads = self._reduce_fn(grads)
+            if self.stage >= 2:
+                grads = [zero.take_shard(g, d, self.rank, self.dp)
+                         .contiguous() for g, d in zip(grads, self._dims)]
+            return grads
+        # the exact path: each rank's grads are its share already.  Under
+        # fp16 the exchange carries fp16, as the reference's does (and the
+        # JAX engine's, whose grads are in the compute dtype): a sum of
+        # finite partials that overflows fp16 skips the step there too
+        wire = torch.float16 if self.config.precision.is_fp16 \
+            and self.dp > 1 else None
+        if wire is not None:
+            grads = [g.to(wire) for g in grads]
+        if self.stage >= 2:
+            grads = zero.grad_constraint(grads, self._dims,
+                                         comm.ReduceOp.SUM)
+        else:
+            grads = [comm.all_reduce_(g, "data") for g in grads]
+        return grads if wire is None else [g.float() for g in grads]
+
+    def _agree(self, ok: bool) -> bool:
+        """``ok`` on every rank (an all-reduced minimum), so all ranks skip
+        alike."""
+        if self.mesh.group("data") is None:
+            return ok
+        t = torch.tensor([int(ok)], dtype=torch.int32, device=self.device)
+        comm.all_reduce_(t, "data", comm.ReduceOp.MIN)
+        return bool(t.item())
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global grad norm, the same on every rank: each leaf's sum of
+        squares on this rank (a whole leaf counted on rank 0 only), one
+        all-reduce of the vector of sums, then the square root of its sum
+        (stage 0's formula on a world of one)."""
+        if self.grad_comm_mode == "onebit":
+            # the exact global grad never exists here: sqrt of the ranks'
+            # mean squared local norm, as the JAX package
+            sq = torch.square(global_norm(grads))
+            return torch.sqrt(comm.all_reduce_(sq, "data",
+                                               comm.ReduceOp.AVG))
+        sharded = self.stage >= 2
+        sums = torch.stack([
+            torch.sum(torch.square(g.float()))
+            if self.rank == 0 or (sharded and d is not None)
+            else g.new_zeros((), dtype=torch.float32)
+            for g, d in zip(grads, self._dims or [None] * len(grads))])
+        return torch.sqrt(comm.all_reduce_(sums, "data").sum())
+
+    def _finish_step(self, grads: List[torch.Tensor], loss, auxes) -> dict:
         """Unscale/overflow-check, clip, update, commit (the JAX
         ``_finish_step``)."""
         cfg = self.config
         step = self.state.step
         grads, ok, scaler = precision.unscale_and_check(
-            grads, self.state.scaler, cfg.precision)
-        gnorm = global_norm(grads)
+            grads, self.state.scaler, cfg.precision, agree=self._agree)
+        gnorm = self._global_norm(grads)
         if ok:
-            if cfg.gradient_clipping > 0:
+            if cfg.gradient_clipping > 0 and self.grad_comm_mode != "onebit":
                 factor = _clip_factor(gnorm, cfg.gradient_clipping)
-                for g in tree_leaves(grads):
+                for g in grads:
                     g.mul_(factor)
             self._apply_updates(grads)
         self.state = self.state._replace(
@@ -311,10 +581,12 @@ class TrainingEngine:
                                        *auxes))
         return metrics
 
-    def _apply_updates(self, grads) -> None:
+    def _apply_updates(self, grads: List[torch.Tensor]) -> None:
         """``optimizer.update`` one leaf at a time, then ``p += u`` in
-        place.  The old state's leaves are held only by ``cols``, so each
-        is freed as soon as its replacement lands."""
+        place: on the whole leaf at stage 0, on this rank's shard from
+        stage 1 (stages 1 and 2 then all-gather the new master).  The old
+        state's leaves are held only by ``cols``, so each is freed as soon
+        as its replacement lands."""
         opt = self.state.opt_state
         kind, step = type(opt), opt[0]
         skeletons = [None if f is None else tree_map(lambda _: 0, f)
@@ -322,17 +594,29 @@ class TrainingEngine:
         cols = [None if f is None else tree_leaves(f) for f in opt[1:]]
         self.state = self.state._replace(opt_state=None)
         del opt
+        dims = self._dims or [None] * len(grads)
         new_step = step
         try:
             for i, (p, g) in enumerate(zip(tree_leaves(self.state.params),
-                                           tree_leaves(grads))):
+                                           grads)):
+                d = dims[i]
+                split = self.stage in (1, 2) and d is not None
                 sub = kind(step, *(None if c is None else self._visit(c[i])
                                    for c in cols))
-                pd = self._visit(p)
+                if split:
+                    pd = zero.take_shard(p, d, self.rank, self.dp).clone(
+                        memory_format=torch.contiguous_format)
+                    if g.shape == p.shape:     # a whole grad (stage 1)
+                        g = zero.take_shard(g, d, self.rank, self.dp) \
+                            .contiguous()
+                else:
+                    pd = self._visit(p)
                 u, new = self.optimizer.update(g, sub, pd)
                 pd.add_(u.to(pd.dtype))
                 del u
-                if pd is not p:
+                if split:
+                    zero.gather_shard(pd, d, out=p)
+                elif pd is not p:
                     p.copy_(pd)
                 for c, leaf in zip(cols, new[1:]):
                     if c is not None:
@@ -345,6 +629,59 @@ class TrainingEngine:
             self.state = self.state._replace(opt_state=kind(
                 new_step, *(None if c is None else tree_unflatten_like(s, c)
                             for s, c in zip(skeletons, cols))))
+
+    def _qwz_train_step(self, batch) -> dict:
+        """Manual ZeRO-3 with compressed collectives: int8 row all-gather
+        (qwZ; hpZ's two hops under a hierarchy) -> local grads -> the flat
+        gradient reduce-scattered to this rank's row (int8 all-to-all with
+        qgZ, exact otherwise) -> the elementwise update of the row."""
+        cfg = self.config
+        cdt = precision.compute_dtype(cfg.precision)
+        C = self._qwz_chunk
+        row = self.state.params
+        full = self._gather_row(row)
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          self._qwz_unflatten(full, cdt))
+        del full
+
+        def local_grads(p, mb):
+            loss, _ = self._loss_for(p, mb)
+            return (list(torch.autograd.grad(loss, tree_leaves(p))),
+                    loss.detach())
+
+        grads, loss = comm_compress.accumulate_local_grads(
+            local_grads, params, self._local_rows(batch)[0],
+            cfg.gradient_accumulation_steps)
+        del params
+        gflat = self._qwz_flatten(grads, torch.float32)
+        del grads
+        if cfg.zero.zeropp_quantized_gradients:
+            from deepspeed_tpu_torch.ops.quant import quantized_reduce_scatter
+
+            gshard = quantized_reduce_scatter(
+                gflat, "data", groups_per_shard=C // comm_compress._GROUP)
+        else:
+            gshard = comm.reduce_scatter(gflat, "data",
+                                         op=comm.ReduceOp.AVG)
+        del gflat
+        # one consensus: a NaN lands in exactly one owner row
+        ok = self._agree(precision.finite_all([gshard]))
+        # the exact global norm: grads are fully reduced here
+        gnorm = torch.sqrt(comm.all_reduce_(
+            torch.sum(torch.square(gshard)), "data"))
+        if cfg.gradient_clipping > 0:
+            gshard = gshard * _clip_factor(gnorm, cfg.gradient_clipping)
+        loss = comm.all_reduce_(loss, "data", comm.ReduceOp.AVG)
+        step = self.state.step
+        if ok:
+            u, new_opt = self.optimizer.update(gshard, self.state.opt_state,
+                                               row)
+            row.add_(u.to(row.dtype))
+            self.state = self.state._replace(opt_state=new_opt)
+        self.state = self.state._replace(step=step + int(ok))
+        return {"loss": loss, "grad_norm": gnorm, "overflow": int(not ok),
+                "lr": self.lr_schedule(step + 1),
+                "loss_scale": self.state.scaler.scale}
 
     # ----------------------------------------------------------- public API
     def _post_step(self, metrics) -> None:
@@ -364,16 +701,20 @@ class TrainingEngine:
                                        self.global_steps)
 
     def train_batch(self, batch) -> torch.Tensor:
-        """One optimizer step on a global batch; returns the loss (an f32
-        scalar tensor on the device)."""
+        """One optimizer step on a global batch (every rank passes the same
+        one and takes its rows); returns the loss averaged over the ranks
+        (an f32 scalar tensor on the device)."""
         metrics = self._train_step(self._apply_curriculum(batch))
         self._post_step(metrics)
         return metrics["loss"]
 
     def eval_batch(self, batch):
+        """The loss of the global batch (each rank evaluates its rows, the
+        loss is averaged over the ranks), exact weights."""
         with torch.no_grad():
             cparams = self._compute_params()
-            loss, aux = self._loss_for(cparams, self._batch(batch))
+            loss, aux = self._loss_for(cparams, self._local_rows(batch)[0])
+            loss = comm.all_reduce_(loss, "data", comm.ReduceOp.AVG)
         return loss if aux is None else (loss, aux)
 
     def __call__(self, batch):
@@ -419,9 +760,28 @@ class TrainingEngine:
         return self.config.gradient_accumulation_steps
 
     def module_params(self):
-        """The master params (one device: no gather).  These are the live
-        tensors, which later steps update in place."""
+        """The master params as whole leaves: below stage 3 the live
+        tensors, which later steps update in place; at stage 3 gathered
+        one leaf at a time, and under qwZ from the rows (fresh tensors,
+        the same on every rank)."""
+        if self.grad_comm_mode == "qwz":
+            return self._qwz_exact_params(
+                precision.master_dtype(self.config.precision))
+        if self.stage >= 3:
+            return zero.unshard_params(self.state.params, self._dims)
         return self.state.params
+
+    def state_layout(self):
+        """How this rank holds the state, for checkpoints: ``("qwz",
+        chunk)`` for the flat rows, else ``("leaves", param_dims,
+        opt_dims)``: the dim each param / optimizer leaf is split along
+        over the data axis (None: whole)."""
+        if self.grad_comm_mode == "qwz":
+            return ("qwz", self._qwz_chunk)
+        dims = self._dims or [None] * len(self._shapes)
+        pdims = dims if self.stage >= 3 else [None] * len(dims)
+        odims = dims if self.stage >= 1 else [None] * len(dims)
+        return ("leaves", pdims, odims)
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
@@ -443,15 +803,26 @@ class TrainingEngine:
         return _load(self, load_dir, tag=tag)
 
 
+def _is_float(leaf) -> bool:
+    dt = getattr(leaf, "dtype", None)
+    if isinstance(dt, torch.dtype):
+        return dt.is_floating_point
+    return np.issubdtype(np.asarray(leaf).dtype, np.floating)
+
+
 def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                params: Any = None, config: Any = None,
                optimizer: Optional[Optimizer] = None, lr_scheduler=None,
                training_data=None, has_aux: bool = False,
                dist_init_required: Optional[bool] = None,
-               param_specs: Any = None, device=None):
+               param_specs: Any = None, device=None,
+               mesh: Optional[topology.MeshSpec] = None):
     """ref: deepspeed.initialize -> (engine, optimizer, dataloader,
     lr_schedule).  ``config`` may be a dict, a JSON path or a Config;
-    ``device`` None means CUDA.
+    ``device`` None means CUDA.  Unless ``dist_init_required`` is False,
+    the process first joins the launcher's process group
+    (:func:`~deepspeed_tpu_torch.comm.init_distributed`: nccl, or gloo when
+    ``device`` is the CPU; nothing to join for a lone process).
 
     Routing, as the JAX package routes: a
     :class:`~deepspeed_tpu_torch.param_stream.LayeredModel`, or an
@@ -460,14 +831,19 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
     ParamStreamEngine`; an ``offload_optimizer`` block on ``nvme`` (or
     ``cpu`` with ``scheduled``) to the optimizer-state-streaming
     :class:`~deepspeed_tpu_torch.infinity.InfinityEngine`; everything else
-    to :class:`TrainingEngine` (whose unscheduled ``cpu`` offload blocks
-    keep the named state in page-locked host memory).  ``param_specs`` (a
-    tensor-parallel spec tree, which the HF ``Trainer`` passes along) must
-    be None until the distributed slice."""
+    to :class:`TrainingEngine` (ZeRO stages 0-3 over the mesh; its
+    unscheduled ``cpu`` offload blocks keep stage 0's state in page-locked
+    host memory).  ``param_specs`` (a tensor-parallel spec tree, which the
+    HF ``Trainer`` passes along) must be None: tensor parallelism is
+    ROADMAP A9's remainder."""
     if param_specs is not None:
         raise NotImplementedError(
-            "param_specs (tensor-parallel spec trees, ROADMAP A9) is not "
-            "ported yet; this slice trains at ZeRO stage 0 on one GPU")
+            "param_specs (tensor-parallel spec trees) is not ported yet: "
+            "tensor parallelism is ROADMAP A9's remainder; the port "
+            "shards over the data axis only")
+    if dist_init_required is None or dist_init_required:
+        cpu = device is not None and torch.device(device).type == "cpu"
+        comm.init_distributed(dist_backend="gloo" if cpu else "nccl")
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
     if isinstance(config, str):
@@ -529,7 +905,7 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
     else:
         engine = TrainingEngine(loss_fn, params, config, optimizer=optimizer,
                                 lr_scheduler=lr_scheduler, has_aux=has_aux,
-                                device=device)
+                                device=device, mesh=mesh)
     return _finish_initialize(engine, config, training_data)
 
 

@@ -12,6 +12,7 @@ leaf at a time.  Every rule is elementwise or per leaf, in f32.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
@@ -45,8 +46,7 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Any]  # (grads, state, params) -> (updates, state)
     name: str = "optimizer"
-    # named axis the optimizer communicates over (1-bit family); always
-    # None in the port until the distributed slice
+    # named axis the optimizer communicates over (1-bit family)
     axis_name: Optional[str] = None
 
 
@@ -252,15 +252,31 @@ _REGISTRY = {
 }
 
 
+def _register_onebit():
+    from deepspeed_tpu_torch.ops import onebit
+
+    _REGISTRY["onebitadam"] = onebit.onebit_adam
+    _REGISTRY["onebitlamb"] = onebit.onebit_lamb
+    # 0/1 Adam maps to the same exchange
+    _REGISTRY["zerooneadam"] = onebit.onebit_adam
+
+
 def from_config(name: str, params: dict) -> Optimizer:
     """Build from the config ``optimizer`` block (ref:
     deepspeed/runtime/engine.py _configure_basic_optimizer)."""
     name = name.lower()
     if name.startswith("onebit") or name.startswith("zeroone"):
-        raise NotImplementedError(
-            f"optimizer {name!r}: the 1-bit family compresses gradient "
-            "communication and comes with the distributed slice "
-            "(ROADMAP A9)")
+        _register_onebit()   # deferred: onebit imports this module
+        # outside the engine's compressed step nothing names the axis, so
+        # axis_name defaults to None: no compressed exchange happens.  The
+        # engine passes axis_name="data" when its step runs one
+        params = dict(params)
+        if params.setdefault("axis_name", None) is None:
+            logging.getLogger(__name__).warning(
+                "%s built with axis_name=None: momentum compression is "
+                "INACTIVE (updates are exact Adam/LAMB with frozen "
+                "variance). Use it through TrainingEngine on a "
+                "data-parallel mesh to get compressed communication.", name)
     if name not in _REGISTRY:
         raise ValueError(f"unknown optimizer {name!r}; known: {sorted(_REGISTRY)}")
     kw = dict(params)

@@ -11,8 +11,9 @@ for them either; they divide by tensors, never by a Python scalar, which
 PyTorch's CUDA division would turn into a multiply by its reciprocal (one
 ulp off the IEEE quotient on some groups).  ``quantize_blockwise_pallas``
 has no separate counterpart: :func:`quantize_blockwise` of a flat buffer
-is its route, B9 at every block count.  The quantized collectives (``quantized_all_gather``,
-``quantized_reduce_scatter``) come with the distributed slice.
+is its route, B9 at every block count.  The ZeRO++ collectives
+(:func:`quantized_all_gather`, :func:`quantized_reduce_scatter`) put those
+int8 codes and f32 scales on the wire between ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
 
 INT_BOUNDS = {8: 127.0, 4: 7.0, 2: 1.0, 1: 1.0}
@@ -140,6 +142,44 @@ def block_pad(flat: torch.Tensor, unit: int = BLOCK_ELEMS) -> torch.Tensor:
     if pn == n:
         return flat
     return torch.cat([flat, flat.new_zeros(pn - n)])
+
+
+# ------------------------------------------------- quantized collectives
+def quantized_all_gather(x: torch.Tensor, axis_name: str = "data",
+                         bits: int = 8, num_groups: int = 1,
+                         group=None) -> torch.Tensor:
+    """ZeRO++ qwZ: all-gather int8 codes and f32 scales instead of x.
+    Returns every rank's dequantized x stacked on a leading dim of the
+    group's size, in rank order (``group``: a sub-group, the counterpart of
+    JAX's ``axis_index_groups``)."""
+    q, s, _ = quantize(x, bits=bits, num_groups=num_groups)
+    qg = comm.all_gather(q, axis_name, tiled=False, group=group)
+    sg = comm.all_gather(s, axis_name, tiled=False, group=group)
+    return dequantize(qg, sg, bits=bits)
+
+
+def quantized_reduce_scatter(x: torch.Tensor, axis_name: str = "data",
+                             bits: int = 8, groups_per_shard: int = 1,
+                             group=None,
+                             group_size: Optional[int] = None
+                             ) -> torch.Tensor:
+    """ZeRO++ qgZ gradient reduce-scatter: x ``[world * shard, ...]`` is
+    cut into one slice a peer, each slice quantized in ``groups_per_shard``
+    groups (one quantize call for all of them: the groups are contiguous),
+    codes and scales exchanged by one all-to-all each, and this rank's
+    slices from every peer dequantized and averaged -> ``[shard, ...]``.
+    With ``group`` the exchange stays in that sub-group of ``group_size``
+    ranks."""
+    _, n = comm._resolve(axis_name, group)
+    world = group_size if group_size is not None else n
+    shard = x.shape[0] // world
+    flat = x.reshape(world, -1)
+    q, s, _ = quantize(flat, bits=bits, num_groups=world * groups_per_shard)
+    q = comm.all_to_all(q, axis_name, group=group)
+    s = comm.all_to_all(s.reshape(world, groups_per_shard), axis_name,
+                        group=group)
+    deq = dequantize(q, s, bits=bits)
+    return deq.mean(0).reshape((shard,) + tuple(x.shape[1:]))
 
 
 # ------------------------------------------------------------------- fp8

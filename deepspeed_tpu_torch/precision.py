@@ -11,7 +11,7 @@ device.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,20 +64,25 @@ def finite_all(tree: Any) -> bool:
 
 
 def unscale_and_check(grads: Any, state: ScalerState,
-                      cfg: PrecisionConfig) -> Tuple[Any, bool, ScalerState]:
+                      cfg: PrecisionConfig,
+                      agree: Optional[Callable[[bool], bool]] = None
+                      ) -> Tuple[Any, bool, ScalerState]:
     """Unscale grads; return (grads, is_finite, new_scaler_state).
 
     Mirrors DynamicLossScaler.update_scale: on overflow divide the scale by
     2 (floored at ``min_loss_scale``; hysteresis folded into the backoff as
     in the JAX package), after ``loss_scale_window`` clean steps double it.
-    Float32 grads are unscaled in place (the engine owns them)."""
+    Float32 grads are unscaled in place (the engine owns them).  ``agree``
+    turns this rank's finite flag into the ranks' common one (grads held
+    as shards are checked shard by shard)."""
+    agree = agree or (lambda ok: ok)
     if not cfg.is_fp16:
-        return grads, finite_all(grads), state
+        return grads, agree(finite_all(grads)), state
     inv = 1.0 / state.scale
     grads = tree_map(
         lambda g: g.mul_(inv) if g.dtype == torch.float32
         else g.float() * inv, grads)
-    ok = finite_all(grads)
+    ok = agree(finite_all(grads))
     if cfg.loss_scale > 0:          # static scale
         return grads, ok, state
     if not ok:

@@ -1,1 +1,1 @@
-"""Host build helpers of the port."""
+"""Host helpers of the port: native builds and the collective log."""

@@ -1,0 +1,242 @@
+"""ZeRO redundancy elimination over ranks (port of ``deepspeed_tpu/
+zero.py``; ref: deepspeed/runtime/zero/stage_1_and_2.py, stage3.py,
+partition_parameters.py).
+
+========  ======================  ==================  =====================
+stage     optimizer state         gradients           parameters
+========  ======================  ==================  =====================
+0         replicated              all-reduced         replicated
+1         sharded over data       all-reduced         replicated
+2         sharded over data       reduce-scattered    replicated
+3         sharded over data       reduce-scattered    sharded (gathered)
+========  ======================  ==================  =====================
+
+The JAX package states each column as a per-leaf sharding and lets XLA
+place the collectives; the port keeps its placements (each leaf keeps its
+shape and splits its largest dim that the data axis divides, else stays
+whole on every rank) and issues the collectives itself: a rank's shard of
+a leaf is the slice ``[r c, (r + 1) c)`` of that dim, ``c = size / W``.
+
+A placement here is a spec tuple (an axis name or None a dim, the port's
+``PartitionSpec``); :func:`shard_dim` gives the dim the engine splits.
+``param_specs`` (tensor parallelism) is A9's remainder and raises.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable, List, Optional, Sequence, Union
+
+import torch
+
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch._tree import (tree_leaves, tree_map,
+                                      tree_unflatten_like)
+from deepspeed_tpu_torch.topology import (MeshSpec, Spec, ZERO_AXES,
+                                          _pick_dim, shard_leaf_spec)
+
+logger = logging.getLogger(__name__)
+
+SpecTree = Union[None, Callable, Any]
+
+
+def resolve_specs(params: Any, param_specs: SpecTree = None) -> Any:
+    """The base spec of every leaf: replicated.  A tensor-parallel
+    ``param_specs`` tree is not ported (ROADMAP A9's remainder)."""
+    if param_specs is not None:
+        raise NotImplementedError(
+            "param_specs (tensor-parallel spec trees) is not ported yet: "
+            "tensor parallelism is part of ROADMAP A9's remainder; the "
+            "port shards over the data axis only")
+    return tree_map(lambda _: (), params)
+
+
+def _zero_axis_size(ms: MeshSpec) -> int:
+    n = 1
+    for a in ZERO_AXES:
+        n *= ms.size(a)
+    return n
+
+
+def _zero_spec(leaf, ms: MeshSpec) -> Spec:
+    shape = tuple(getattr(leaf, "shape", ()))
+    if not shape:
+        return ()
+    return shard_leaf_spec(shape, "data", ms.size("data"))
+
+
+def param_shardings(params: Any, ms: MeshSpec, stage: int,
+                    param_specs: SpecTree = None) -> Any:
+    """Placements of the master params (stage 3 adds the data axis)."""
+    resolve_specs(params, param_specs)
+    shard = stage >= 3 and _zero_axis_size(ms) > 1
+    return tree_map(lambda p: _zero_spec(p, ms) if shard else (), params)
+
+
+def shard_dim(shape: Sequence[int], world: int) -> Optional[int]:
+    """The dim ZeRO splits a leaf of ``shape`` along over ``world`` ranks,
+    or None (scalar, or nothing divides: the leaf stays whole).  It is the
+    dim of :func:`_zero_spec`; at ``world`` 1, where JAX's spec is
+    replicated, it is the dim the same rule picks (the largest), so a
+    one-rank run moves the same collectives as a wide one."""
+    if not len(shape):
+        return None
+    return _pick_dim(tuple(shape), world, [None] * len(shape))
+
+
+def take_shard(full: torch.Tensor, dim: Optional[int], rank: int,
+               world: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``full`` along ``dim`` (a view; the whole
+    tensor for a leaf that stays whole)."""
+    if dim is None:
+        return full
+    c = full.shape[dim] // world
+    return full.narrow(dim, rank * c, c)
+
+
+def gather_shard(shard: torch.Tensor, dim: Optional[int], out=None,
+                 axis: str = "data") -> torch.Tensor:
+    """All-gather every rank's ``shard`` along ``dim`` into the whole leaf
+    (``out`` when given, contiguous).  A leaf that stays whole is
+    returned as it is."""
+    if dim is None:
+        if out is not None and out is not shard:
+            out.copy_(shard)
+            return out
+        return shard
+    if dim == 0 and out is not None:
+        g, n = comm._resolve(axis)
+        with comm.comms_logger().record("all_gather", comm._nbytes(shard)):
+            if g is None:
+                out.copy_(shard)
+            else:
+                torch.distributed.all_gather_into_tensor(
+                    out, shard.contiguous(), group=g)
+        return out
+    full = comm.all_gather(shard, axis, axis=dim)
+    if out is None:
+        return full.contiguous()
+    out.copy_(full)
+    return out
+
+
+def grad_constraint(grads: List[torch.Tensor], dims: List[Optional[int]],
+                    op=comm.ReduceOp.AVG,
+                    axis: str = "data") -> List[torch.Tensor]:
+    """Stage >= 2: each whole local gradient reduce-scattered (``op``: SUM
+    or AVG) to this rank's shard along its dim; a leaf that stays whole is
+    all-reduced (ref: stage_1_and_2.py ``reduce_scatter_gradients``)."""
+    out = []
+    for g, d in zip(grads, dims):
+        if d is None:
+            out.append(comm.all_reduce_(g, axis, op))
+        else:
+            out.append(comm.reduce_scatter(g, axis, axis=d, op=op)
+                       .contiguous())
+    return out
+
+
+def estimate_memory(num_params: int, dp_world: int, stage: int,
+                    offload_optimizer: bool = False,
+                    compute_bytes: int = 2, master_bytes: int = 4,
+                    activation_bytes: int = 0) -> dict:
+    """Per-device memory plan for a ZeRO stage (ref:
+    deepspeed/runtime/zero/stage3.py estimate_zero3_model_states_mem_needs*
+    / stage_1_and_2.py estimate_zero2_model_states_mem_needs*).
+
+    Returns bytes per device for each state class plus the total.  The
+    model: bf16 compute copy (replicated below stage 3, sharded at 3),
+    f32 master + two Adam moments (sharded from stage 1; on host when
+    ``offload_optimizer``), grads in compute dtype (sharded from stage 2).
+
+    That is the reference's layout, not what ``TrainingEngine`` holds.  At
+    stages 1 and 2 the engine keeps the whole f32 master on every rank (as
+    the JAX engine does: its params gain the data axis only at stage 3)
+    beside the compute copy, and at every stage it accumulates whole f32
+    grads before the exchange.  So at stages 1-2 a rank holds about
+    ``4 n`` (master) + ``8 n / W`` (moments) + ``compute_bytes n`` +
+    ``4 n`` (grads), more than this plan says; at stage 3 the grads are
+    the ``4 n`` the plan lacks.
+    """
+    if not 0 <= stage <= 3:
+        raise ValueError(f"stage must be 0..3, got {stage}")
+    if offload_optimizer and stage == 0:
+        logger.warning(
+            "offload_optimizer at ZeRO stage 0 keeps the full replicated "
+            "optimizer state on every host; use stage >= 1 to shard it")
+    n, w = num_params, max(dp_world, 1)
+    shard = lambda b: b // w
+    opt = 3 * master_bytes * n                      # master + m + v
+    plan = {
+        "compute_params": shard(compute_bytes * n) if stage >= 3
+        else compute_bytes * n,
+        "gradients": shard(compute_bytes * n) if stage >= 2
+        else compute_bytes * n,
+        "optimizer_states": 0 if offload_optimizer
+        else (shard(opt) if stage >= 1 else opt),
+        "host_optimizer_states": (shard(opt) if stage >= 1 else opt)
+        if offload_optimizer else 0,
+        "activations": activation_bytes,
+    }
+    plan["device_total"] = (plan["compute_params"] + plan["gradients"]
+                            + plan["optimizer_states"]
+                            + plan["activations"])
+    return plan
+
+
+def draw_on_host(init_fn: Callable[[], Any]) -> Any:
+    """Run an init thunk with the CPU as the default device of its
+    factory calls."""
+    with torch.device("cpu"):
+        return init_fn()
+
+
+def place_leaves(leaves: list, dims: List[Optional[int]], rank: int,
+                 world: int, device=None,
+                 dtype: Optional[torch.dtype] = None) -> list:
+    """Each leaf (a tensor or an array) cut to this rank's slice along its
+    dim (whole where the dim is None), floats cast to ``dtype``, copied to
+    ``device`` contiguous.  ``leaves`` is consumed: each entry is dropped
+    once placed, so a host tree drawn for the purpose is freed leaf by
+    leaf."""
+    out = []
+    for i, d in enumerate(dims):
+        t = torch.as_tensor(leaves[i])
+        leaves[i] = None
+        t = take_shard(t, d, rank, world)
+        dt = dtype if dtype is not None and t.is_floating_point() \
+            else t.dtype
+        out.append(t.to(device=device, dtype=dt, copy=True).contiguous())
+        del t
+    return out
+
+
+def sharded_init(init_fn: Callable[[], Any], ms: MeshSpec, stage: int,
+                 param_specs: SpecTree = None, device=None,
+                 dtype: Optional[torch.dtype] = None) -> Any:
+    """A parameter tree straight into this rank's ZeRO placement (ref:
+    partition_parameters.py ``zero.Init``): ``init_fn`` draws the tree on
+    the host (:func:`draw_on_host`), then each leaf in turn is cut to this
+    rank's slice (stage 3; whole below it), cast to ``dtype`` (floats) and
+    moved to ``device``, and the host leaf dropped, so the full tree never
+    sits on the card.  ``TrainingEngine`` does this for a thunk ``params``.
+    """
+    resolve_specs(None, param_specs)
+    world, rank = ms.size("data"), ms.rank_in("data")
+    tree = draw_on_host(init_fn)
+    leaves = tree_leaves(tree)
+    skeleton = tree_unflatten_like(tree, [0] * len(leaves))
+    del tree
+    dims = [shard_dim(tuple(torch.as_tensor(l).shape), world)
+            if stage >= 3 else None for l in leaves]
+    return tree_unflatten_like(
+        skeleton, place_leaves(leaves, dims, rank, world, device, dtype))
+
+
+def unshard_params(shards: Any, dims: List[Optional[int]],
+                   axis: str = "data") -> Any:
+    """The whole leaves of a stage-3 tree, gathered one leaf at a time
+    (ref: partition_parameters.py GatheredParameters)."""
+    leaves = tree_leaves(shards)
+    return tree_unflatten_like(
+        shards, [gather_shard(s, d, axis=axis) for s, d in zip(leaves, dims)])

@@ -104,8 +104,14 @@ def test_kernel_plain_version_is_the_xla_twin():
 def test_registry_and_onebit_names():
     assert topt.from_config("fusedadam", {"lr": 1e-3}).name == "adamw"
     assert topt.from_config("Lion", {}).name == "lion"
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        topt.from_config("OneBitAdam", {})
+    # the 1-bit family is ported: built outside the engine it exchanges
+    # nothing (axis_name None, with the JAX package's warning)
+    for name, want in (("OneBitAdam", "onebit_adam"),
+                       ("OnebitLamb", "onebit_lamb"),
+                       ("ZeroOneAdam", "onebit_adam")):
+        opt = topt.from_config(name, {})
+        assert (opt.name, opt.axis_name) == (want, None)
+        assert opt.name == jopt.from_config(name, {}).name
     with pytest.raises(ValueError, match="unknown optimizer"):
         topt.from_config("nope", {})
 

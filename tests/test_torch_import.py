@@ -73,6 +73,11 @@ def test_imports_with_jax_blocked():
         "from deepspeed_tpu_torch.infinity import InfinityEngine\n"
         "from deepspeed_tpu_torch import ParamStreamEngine as P2, "
         "InfinityEngine as I2, LayeredModel as L2, NvmeSwapper\n"
+        "from deepspeed_tpu_torch import comm, topology, mesh, zero, "
+        "launcher, comm_compress\n"
+        "from deepspeed_tpu_torch.comm import collectives\n"
+        "from deepspeed_tpu_torch.ops import onebit\n"
+        "from deepspeed_tpu_torch.utils import trace\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"
