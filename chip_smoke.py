@@ -189,17 +189,17 @@ and runs, in order:
    engine, and the unscheduled ``offload_optimizer: {device: cpu}``
    engine (fused Adam, its state in page-locked host memory) against the
    plain one bit for bit;
-38. the headline: Llama-3-8B widths at 16 of 32 layers (4.54 B params,
+38. the headline: Llama-3-8B widths at 8 of 32 layers (2.79 B params,
    ``layered_model_lazy(seed=0)``) trained by ``ParamStreamEngine`` on the
    RAM tier with the host Adam overlapped (micro 1 x accumulation 2 x
    2048 tokens, 3 steps, the third profiled): ms/step, tokens/s, peak
    card memory against stage 0's 82 GB, host RSS, link bytes, the phase
    split, the bound (host Adam at phase 33's rate, link at phase 28's,
    FLOPs) and the idle share; every B1-B3 launch on the tensor-core body;
-39. the same widths at 4 layers on the NVMe tier against the RAM tier, bit
+39. the same widths at 2 layers on the NVMe tier against the RAM tier, bit
    for bit, then ``save_checkpoint`` -> ``zero_to_fp32`` equal to
    ``master_params()``;
-40. ``InfinityEngine`` on phase 39's 4-layer cut and phase 38's traffic,
+40. ``InfinityEngine`` on phase 39's 2-layer cut and phase 38's traffic,
    ``update: "device"`` then ``"host"``: step 1 equal to phase 39's RAM
    run's, ms/step, peak, state bytes on the card and over the link;
 41. in a rank that the port's launcher starts (``python -m
@@ -218,6 +218,23 @@ and runs, in order:
    step against what each stage moves, B1-B4 launches; qwZ at a world of
    one warns and runs the plain path; a stage-3 save loaded into a stage-1
    engine bit for bit.
+43-47. in two ranks that the port's launcher starts on the one card
+   (``python -m deepspeed_tpu_torch.launcher --local_hosts 2 chip_smoke.py
+   --mp-child ...``, one gloo group: NCCL refuses two ranks on one device,
+   and gloo stages every collective of a CUDA tensor but all_reduce and
+   broadcast through host memory, so collective times are host-staged
+   gloo's): 43, tensor-parallel serving over model 2, Llama-3-8B bf16 at
+   32 layers on phase 5's queue, then int8 weights, each against the
+   one-rank engine on the same weights (first prefill logits), and a tiny
+   f32 Llama's tokens identical; 44, tensor-parallel training at phase 8's
+   config against phase 8's losses, its stage-0 checkpoint read back into
+   one rank bit for bit; 45, Ulysses (T = 8192) and ring (T = 4096) over
+   seq 2 at 2 layers, loss and grads against one rank; 46, pipe 2 with
+   n_micro 4 at 4 layers against one rank with 4 accumulation steps; 47,
+   Mixtral-8x7B widths over expert 2, trained at 1 layer and served at 8
+   against one rank, and a tiny f32 Mixtral's tokens identical.  Each
+   phase holds B1-B6 and B9 at a rank's shapes against their plain
+   versions.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -229,7 +246,8 @@ KV-NVMe paths of phases 29-32, the env report of phase 33, the HF-loaded
 serving run and the injected Mixtral of phase 34, the LoRA run of phase
 35, the hybrid rollouts and step, distillation and Trainer runs of
 phase 36, the offload engines' runs of phases 37-40, the wire of phase
-41 and each ZeRO stage's run of phase 42) counts the
+41, each ZeRO stage's run of phase 42 and the two-rank runs of phases
+43-47, both ranks' counts summed) counts the
 launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
@@ -4835,6 +4853,8 @@ ZI_MIXTRAL_OPTS = dict(max_batch=8, page_size=16, max_seq=1024,
 # phase 31 (b): the device budget of Mixtral-8x7B's bf16 image at 32
 # layers (93.4 GB): about 19 layers resident, 13 streamed a sweep
 ZI_MIXTRAL_BUDGET = int(64e9)
+# phase 31 (b): new tokens a request (8, not 16: the smoke's time)
+ZI_MIXTRAL_NEW = 8
 SPEC = {"draft_tokens": 4}
 # phase 29's cut of the NVMe-tier check, and of Mixtral's identity queue
 ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 8, 4, 8
@@ -5347,8 +5367,8 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
     the host tier, on phase 5's traffic with n-gram speculation (K = 4;
     speculation off is phase 29's streamed run); (b) Mixtral-8x7B in bf16
     at all 32 layers (93.4 GB image) under a 64 GB device budget, the
-    layers drawn one at a time, on 8 of phase 21's prompts with 16 new
-    tokens, speculation off and on.  Each: sweeps, streamed bytes per
+    layers drawn one at a time, on 8 of phase 21's prompts with
+    ``ZI_MIXTRAL_NEW`` new tokens, speculation off and on.  Each: sweeps, streamed bytes per
     emitted token, ms per sweep beside the link bound (phase 28's rate),
     the exposed-wait share, tokens/s, acceptance, peak memory, launches.
     ``holder`` hands over the only reference to Llama-3-8B's weights, freed
@@ -5398,7 +5418,7 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
         outs[tag], _, m = _run(lambda: serving_engine(
             mparams, mcfg, zero_inference={
                 "hbm_budget_bytes": ZI_MIXTRAL_BUDGET},
-            **extra, **ZI_MIXTRAL_OPTS), mq, 16, fns,
+            **extra, **ZI_MIXTRAL_OPTS), mq, ZI_MIXTRAL_NEW, fns,
             f"zi mixtral 32 layers bf16 {tag}", launches, dense,
             stats=lambda e, o, mm: mstats(e, o, m=mm))
         res.setdefault("mixtral_8x7b_32_layers", {"plan": m["plan"]})
@@ -6157,9 +6177,11 @@ PSTREAM_PLAIN_RTOL = 2e-2
 PSTREAM_MOE_RTOL = 5e-3
 INFINITY_HOST_DEVICE_RTOL = 2e-3
 TINY_STEPS = 4
-# phases 38-40: Llama-3-8B widths cut to 16 of 32 layers (4.54 B params),
-# phase 8's traffic (micro 1 x accumulation 2 x 2048 tokens)
-OFFLOAD_LAYERS, OFFLOAD_NVME_LAYERS = 16, 4
+# phases 38-40: Llama-3-8B widths cut to 8 of 32 layers (2.79 B params;
+# 32 hold ~110 GB of host state, more than the host's 101 GiB, and 8, not
+# 16, for the smoke's time), phase 8's traffic (micro 1 x accumulation 2 x
+# 2048 tokens); 39 and 40 at 2 layers (the smoke's time)
+OFFLOAD_LAYERS, OFFLOAD_NVME_LAYERS = 8, 2
 OFFLOAD_STEPS, OFFLOAD_NVME_STEPS, INFINITY_STEPS = 3, 2, 2
 # phase 40's step 1 against phase 38's: the same bf16 weights, batch and
 # forward; the two engines average the micro-batch losses in f64 (param
@@ -6400,13 +6422,13 @@ def _profiled_step(eng, batch):
 
 
 def phase_pstream_headline(fns, card_line, cfg, lm, batch):
-    """Phase 38: Llama-3-8B widths at 16 layers (4.54 B params, seed 0,
+    """Phase 38: Llama-3-8B widths at 8 layers (2.79 B params, seed 0,
     ``layered_model_lazy``) trained by ``ParamStreamEngine`` on the RAM
     tier, ``overlap_step`` on, phase 8's traffic, 3 steps (the third
     under the profiler): ms/step, tokens/s, peak card memory against stage 0's need,
     host RSS, link bytes, the phase split, the bound (host Adam, link,
     FLOPs) and the idle share.  Gates: the loss falls; every B1-B3 launch
-    on the tensor-core body, 2 x (16 + 16) forward and 2 x 16 backward
+    on the tensor-core body, 2 x (L + L) forward and 2 x L backward
     launches a step; the native host Adam ran."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.ops import cpu_adam
@@ -6477,7 +6499,8 @@ def phase_pstream_headline(fns, card_line, cfg, lm, batch):
     native = cpu_adam.native_available()
     falls = steps[-1]["loss"] < steps[0]["loss"]
     _phase_line("38 pstream llama3_8b", card_line, layers=cfg.n_layers,
-                cut="16 of 32 layers: host memory", reckoning=reck,
+                cut=f"{cfg.n_layers} of 32 layers: host memory (32), the "
+                "smoke's time (8)", reckoning=reck,
                 params=n_params, micro=1, accum=2, seq=2048, steps=steps,
                 init_s=init_s, peak_mem_gb=peak_gb,
                 hbm_param_working_set_gb=working_set / 1e9,
@@ -6497,7 +6520,7 @@ def phase_pstream_headline(fns, card_line, cfg, lm, batch):
 
 
 def phase_pstream_nvme(fns, card_line, lm, batch):
-    """Phase 39: the same widths at 4 layers (the smoke's time): the NVMe
+    """Phase 39: the same widths at 2 layers (the smoke's time): the NVMe
     tier against the RAM tier, 2 steps each, bit for bit (losses and
     masters), the tier's bytes and GB/s over the step; then
     ``save_checkpoint`` -> ``zero_to_fp32``, equal to ``master_params()``;
@@ -6572,7 +6595,8 @@ def phase_pstream_nvme(fns, card_line, lm, batch):
             tree_leaves_with_path(ram.pop("master"))))
     card1, rss1 = _drop()
     _phase_line("39 pstream nvme", card_line, layers=OFFLOAD_NVME_LAYERS,
-                cut="4 layers: the smoke's time", ram=ram, nvme=nvme,
+                cut=f"{OFFLOAD_NVME_LAYERS} layers: the smoke's time",
+                ram=ram, nvme=nvme,
                 nvme_equals_ram_bitwise=bitwise, save_s=save_s,
                 zero_to_fp32_s=fp32_s, fp32_equals_master=fp32_ok,
                 card_gb_before=card0, card_gb_after_drop=card1,
@@ -6585,11 +6609,11 @@ def phase_pstream_nvme(fns, card_line, lm, batch):
 
 
 def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
-    """Phase 40: ``InfinityEngine`` on phase 39's 4-layer cut of phase 38's
+    """Phase 40: ``InfinityEngine`` on phase 39's 2-layer cut of phase 38's
     model (the smoke's time) and phase 38's traffic, RAM tier, ``update:
     "device"`` then ``"host"``, 2 steps each: ms/step, peak card memory,
     ``hbm_state_bytes``, state bytes over the link.  Gate: step 1's loss
-    equals phase 39's 4-layer RAM run's step 1 within
+    equals phase 39's 2-layer RAM run's step 1 within
     INFINITY_VS_PSTREAM_RTOL (same weights, same batch, two engines)."""
     import dataclasses
 
@@ -6646,7 +6670,7 @@ def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
     rels = {m: abs(res[m]["steps"][0]["loss"] - pstream_step1)
             / abs(pstream_step1) for m in res}
     _phase_line("40 infinity llama3_8b", card_line, layers=cfg.n_layers,
-                cut="4 layers: the smoke's time",
+                cut=f"{OFFLOAD_NVME_LAYERS} layers: the smoke's time",
                 micro=1, accum=2, seq=2048, step1_vs_pstream_rel=rels,
                 tol=INFINITY_VS_PSTREAM_RTOL, pstream_step1=pstream_step1,
                 card_gb_before=card0, rss_before_gb=rss0, launches=launches,
@@ -6661,7 +6685,7 @@ def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
 
 def train_beyond_the_card(fns, card_line):
     """Phases 37-40.  Phase 38's lazy model (its stem and head drawn once)
-    serves 39 (cut to 4 layers) and 40.  Returns every main path's
+    serves 39 (cut to 2 layers) and 40.  Returns every main path's
     launches."""
     import dataclasses
 
@@ -6984,7 +7008,7 @@ def phase_zero_stages(fns, card_line, phase19_ms):
         e1.load_checkpoint(d, tag="z3")
         load_s = time.perf_counter() - t0
         # leaf by leaf on the card: stage 3's gathered against stage 1's
-        _, pdims, odims = e3.state_layout()
+        pdims, odims = e3.state_layout()[1:3]
         pairs = [(tree_leaves(e3.state.params), tree_leaves(e1.state.params),
                   pdims)] + [
             (tree_leaves(getattr(e3.state.opt_state, f)),
@@ -7078,6 +7102,931 @@ def phase_zero_launcher(card_line, rows, phase19_ms):
     return res["launches"]
 
 
+# ------------------------------------------------------------ phases 43-47
+# the model-parallel mesh axes, run by two ranks the port's launcher starts
+# on the one card (``--local_hosts 2``: both ranks on cuda:0, one gloo
+# group; gloo stages every collective but all_reduce and broadcast of a
+# CUDA tensor through host memory, so their times are host-staged gloo's)
+MP_CHILD_FLAG = "--mp-child"
+MP_CHILD_TIMEOUT_S = 900
+# phase 43: phase 5's queue, new tokens a request
+MP_SERVE_NEW = 8
+# phase 45: Ulysses at T = 8192 (4096 a rank), ring at T = 4096 (its f32
+# score blocks at 8192 would not fit beside both ranks' state)
+MP_ULYSSES_T, MP_RING_T = 8192, 4096
+# phase 46: n_micro 4 over pipe 2, micro rows of 1024 tokens
+MP_PIPE_B, MP_PIPE_T, MP_PIPE_MICRO = 4, 1024, 4
+# phase 47: Mixtral trained at 1 layer (2 layers of experts split over two
+# ranks on one card would not fit beside each other), served at 8
+MP_EP_TRAIN_LAYERS, MP_EP_SERVE_LAYERS, MP_EP_NEW, MP_EP_PROMPTS = 1, 8, 8, 4
+MP_STEPS = 3
+# bounds, each set from the first reading of its quantity on an NVIDIA H100
+# 80GB HBM3 at 700 W, with 2.5x-5x room; every one compares two orders of bf16
+# summation (the ranks' partial sums reduced, against one product).  The
+# first prefill's logits relative to their largest |value|: tp read
+# 0.0234 (bf16) / 0.0238 (int8); ep 0.115, the seeded near-uniform routers
+# flipping a position's top-2 (C-w2), with every served token equal.
+# Losses relative: tp 7.9e-4 / 2.1e-3 (two calls), pipe 2.0e-5, ep
+# 1.7e-3, seq 0 (Ulysses) / 6.3e-6 (ring); grads' largest error over
+# their largest |value|, the worst leaf: Ulysses 5.4e-3, ring 1.3e-2
+MP_TP_LOGITS_REL = 6e-2
+MP_TP_TRAIN_LOSS_REL = 5e-3
+MP_SEQ_LOSS_REL = 5e-5
+MP_SEQ_GRAD_REL = 4e-2
+MP_PIPE_LOSS_REL = 1e-4
+MP_EP_LOSS_REL = 5e-3
+MP_EP_LOGITS_REL = 0.25
+
+
+def _rank_sum(counts: dict) -> dict:
+    """``counts`` summed over every rank (the gloo group, on the host)."""
+    keys = sorted(counts)
+    t = torch.tensor([int(counts[k]) for k in keys], dtype=torch.int64)
+    torch.distributed.all_reduce(t)
+    return dict(zip(keys, t.tolist()))
+
+
+def _mp_path(fns, path, launches, want, hopper=True):
+    """A main path of two ranks: this rank's counts checked (bodies, every
+    kernel in ``want`` launched, no other), then both ranks' summed."""
+    mine = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path, hopper=hopper)
+    _check_launches(path, mine, want)
+    launches[path] = _rank_sum(mine)
+    for name in BODIES:
+        if path in BODIES[name]:
+            BODIES[name][path] = _rank_sum(BODIES[name][path])
+
+
+def _in_turn(fn):
+    """Run ``fn`` on rank 0, then on rank 1 (each rank's whole-tree draw
+    needs the card to itself), both ranks past a barrier at the end."""
+    from deepspeed_tpu_torch import comm
+
+    out = None
+    for r in range(comm.get_world_size()):
+        if comm.get_rank() == r:
+            out = fn()
+            torch.cuda.synchronize()
+        comm.barrier()
+    return out
+
+
+def _hold(name, got, want, tol, rel=False):
+    """One kernel launch held to its plain version on the same inputs:
+    max |err| (or its share of the plain version's max |value|)."""
+    if isinstance(got, tuple):
+        errs = [_hold(name, g, w, tol, rel)[1] for g, w in zip(got, want)]
+        return name, max(errs)
+    if got.dtype in (torch.int8, torch.int32, torch.int64):
+        err = float((got.long() - want.long()).abs().max().item())
+    else:
+        err = (_rel(got, want) if rel else
+               (got.float() - want.float()).abs().max().item())
+    if not err <= tol:
+        raise SystemExit(f"{name}: {err:.3e} against its plain version "
+                         f"(tol {tol})")
+    return name, err
+
+
+def _held_bwd(name, got, want, args):
+    """One flash backward output against its plain version: its error's
+    share of the plain version's largest |value|, held to
+    ``FLASH_BWD_REL_TOL`` save for elements the kernel holds at a bf16
+    neighbour of the f64 oracle (a faithful rounding, ROADMAP C-f6), which
+    is evaluated a KV head at a time (a rank's T = 8192 at once would not
+    fit)."""
+    rel = _rel(got, want)
+    if rel <= FLASH_BWD_REL_TOL:
+        return rel
+    q, k, v, o, lse, do = args
+    over = (got.float() - want.float()).abs() \
+        > FLASH_BWD_REL_TOL * want.float().abs().max()
+    G = q.shape[2] // k.shape[2]
+    ok = True
+    for g in range(k.shape[2]):
+        hs, ks = slice(g * G, (g + 1) * G), slice(g, g + 1)
+        dq64, dq_spec, dk64, dv64 = flash_bwd_f64_oracle(
+            q[:, :, hs], k[:, :, ks], v[:, :, ks], o[:, :, hs], lse[:, hs],
+            do[:, :, hs], None)
+        heads, exacts = {"dq": (hs, (dq64, dq_spec)), "dk": (ks, (dk64,)),
+                         "dv": (ks, (dv64,))}[name]
+        m = over[:, :, heads]
+        if m.any():
+            g_ = got[:, :, heads]
+            ok = ok and any(bool(bf16_neighbour(g_[m], x[m]).all())
+                            for x in exacts)
+        del dq64, dq_spec, dk64, dv64
+    if not ok:
+        raise SystemExit(f"flash backward {name}: {rel:.3e} against its "
+                         f"plain version (tol {FLASH_BWD_REL_TOL}), not all "
+                         "over the gate at a bf16 neighbour of the f64 "
+                         "oracle")
+    return rel
+
+
+def _hold_attention(gen, B, T, H, KV, D=128, bwd=True):
+    """B1 (and B2 / B3) at one rank's shape, against the plain versions
+    (B2 / B3 under the C-f6 rule of :func:`_held_bwd`); each kernel's
+    device ms there."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference, flash_fwd,
+        flash_fwd_reference)
+
+    dt = torch.bfloat16
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
+    o, lse = flash_fwd(q, k, v)
+    ro, _ = flash_fwd_reference(q, k, v)
+    held = dict([_hold("flash_fwd", o, ro, FLASH_TOL)])
+    ms = {"flash_fwd": device_ms(lambda: flash_fwd(q, k, v), iters=3)}
+    if bwd:
+        do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+        want = flash_bwd_reference(q, k, v, o, lse, do)
+        args = (q, k, v, o, lse, do)
+        held["flash_bwd_dq"] = _held_bwd("dq", dq, want[0], args)
+        held["flash_bwd_dkv"] = max(_held_bwd("dk", dk, want[1], args),
+                                    _held_bwd("dv", dv, want[2], args))
+        del want
+        ms["flash_bwd_dq"] = device_ms(
+            lambda: flash_bwd_dq(q, k, v, o, do, lse), iters=3)
+        ms["flash_bwd_dkv"] = device_ms(
+            lambda: flash_bwd_dkv(q, k, v, do, lse, delta), iters=3)
+    return {"shape": [B, T, H, KV, D], "max_abs_err": held, "ms": ms}
+
+
+def _hold_serving(gen, H, KV, V, rows=8):
+    """B5 at decode with a rank's heads, and B6 on the gathered logits,
+    against their plain versions."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_attention_reference, paged_decode_attention)
+    from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
+                                                       greedy_rows_reference)
+
+    lens = np.linspace(128, 1024, rows).astype(int).tolist()
+    kp, vp, table = _paged_inputs(gen, lens, 1, H=H, KV=KV)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((rows, H, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    logits = torch.randn((rows, V), generator=gen, device="cuda")
+    held = dict([
+        _hold("paged_attention", paged_decode_attention(q, kp, vp, table, seq),
+              paged_attention_reference(q, kp, vp, table, seq),
+              PAGED_DECODE_TOL),
+        _hold("greedy_argmax", fused_greedy_rows(logits),
+              greedy_rows_reference(logits), 0)])
+    ms = {"paged_attention": device_ms(
+        lambda: paged_decode_attention(q, kp, vp, table, seq), iters=5),
+        "greedy_argmax": device_ms(lambda: fused_greedy_rows(logits),
+                                   iters=5)}
+    return {"decode_rows": rows, "heads": [H, KV], "vocab": V,
+            "max_abs_err": held, "ms": ms}
+
+
+def _hold_leaf(leaf, adam=True, quant=False):
+    """B4 (an Adam step) and / or B9 (its int8 codes) on one rank's leaf,
+    against their plain versions."""
+    from deepspeed_tpu_torch.ops.adam_cuda import (adam_scalars, adam_update,
+                                                   adam_update_reference)
+    from deepspeed_tpu_torch.ops.quant_cuda import (quantize_rows,
+                                                    quantize_rows_reference)
+
+    held, ms = {}, {}
+    x = leaf.detach().reshape(-1)
+    if adam:
+        g = torch.randn_like(x, dtype=torch.float32)
+        p = x.float()
+        m = torch.zeros_like(p)
+        v = torch.zeros_like(p)
+        c1, c2 = adam_scalars(0.9, 0.999, 1)
+        held.update([_hold("fused_adam",
+                           adam_update(g, m, v, p, c1, c2, 1e-3, wd=0.1),
+                           adam_update_reference(g, m, v, p, c1, c2, 1e-3,
+                                                 wd=0.1), ADAM_TOL)])
+        ms["fused_adam"] = device_ms(lambda: adam_update(
+            g, m, v, p, c1, c2, 1e-3, wd=0.1), iters=3)
+        del g, p, m, v
+    if quant:
+        rows = x.view(-1, 128)
+        held.update([_hold("quantize", quantize_rows(rows),
+                           quantize_rows_reference(rows), 0)])
+        ms["quantize"] = device_ms(lambda: quantize_rows(rows), iters=3)
+    return {"leaf": list(leaf.shape), "max_abs_err": held, "ms": ms}
+
+
+def _mesh(sizes):
+    from deepspeed_tpu_torch import topology
+
+    ms = topology.MeshSpec.build(sizes)
+    topology.set_current_mesh(ms)
+    return ms
+
+
+def _serve_tp_engine(fns, path, launches, eng, prompts, want, built=None):
+    """Drive a two-rank engine built beforehand: counts set to 0, the
+    first prefill's logits kept, the queue served, the build's own counts
+    (``built``: B9 for int8) added; both ranks' counts."""
+    got = _capture_first(eng)
+    _zero(fns.values())
+    out, m = drive(eng, prompts, MP_SERVE_NEW)
+    if built is not None:
+        for n, f in fns.items():
+            f.launches += built[0][n]
+            for b, c in built[1].get(n, {}).items():
+                f.body_launches[b] += c
+    _mp_path(fns, path, launches, want)
+    for name in ("_prefill", "_decode"):
+        vars(eng).pop(name, None)
+    return out, got, m
+
+
+def _tiny_identity(fns, launches, family, build_sharded, build_one):
+    """The f32 tiny model on the card: the sharded engine's greedy tokens
+    equal the one-rank engine's (C-w2: the gate runs in f32)."""
+    prompts = {f"t{i}": list(range(3 + i, 12 + 3 * i)) for i in range(4)}
+    eng = build_one()
+    want, _ = drive(eng, prompts, 12)
+    del eng
+    eng = build_sharded()
+    _zero(fns.values())
+    out, _ = drive(eng, prompts, 12)
+    _mp_path(fns, f"{family} tiny f32 sharded", launches,
+             ("flash_fwd", "paged_attention", "greedy_argmax"), hopper=False)
+    if out != want:
+        raise SystemExit(f"{family} tiny f32: the sharded engine's tokens "
+                         f"differ from the one-rank engine's")
+    return True
+
+
+def phase_tp_serving(fns, card_line, gen):
+    """Phase 43: tensor-parallel serving over model 2.  Llama-3-8B bf16 at
+    all 32 layers (~8 GB of weights a rank, each rank's cache 4 of 8 KV
+    heads) on phase 5's queue: the first prefill's logits against the
+    one-rank engine on the same weights, ms per decode step and tokens/s;
+    then int8 weights over the mesh against the unsharded int8 engine the
+    same way; the f32 tiny model's tokens identical to the one-rank
+    engine's; B1, B5, B6 and B9 held at a rank's shapes."""
+    import gc
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    ms = _mesh({"model": 2})
+    cfg = LlamaConfig.llama3_8b()
+    prompts = _queue5(cfg.vocab_size)
+    opts = dict(max_batch=8, page_size=16, max_seq=2048, num_pages=1025,
+                cache_dtype=torch.bfloat16)
+    launches, res, engines, ref = {}, {}, {}, {}
+
+    def build():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             device="cuda", dtype=torch.bfloat16)
+        if comm.get_rank() == 0:
+            for wd in ("bfloat16", "int8"):
+                e = llama_serving_engine(params, cfg, weight_dtype=wd,
+                                         **opts)
+                first = _capture_first(e)
+                out, m = drive(e, prompts, MP_SERVE_NEW)
+                ref[wd] = (out, {k: v.cpu() for k, v in first.items()}, m)
+                del e
+                gc.collect()
+        for wd in ("bfloat16", "int8"):
+            _zero(fns.values())
+            t0 = time.perf_counter()
+            engines[wd] = llama_serving_engine(params, cfg, mesh=ms,
+                                               weight_dtype=wd, **opts)
+            torch.cuda.synchronize()
+            engines[wd].build_s = time.perf_counter() - t0
+            engines[wd].built = (
+                {n: f.launches for n, f in fns.items()},
+                {n: dict(f.body_launches) for n, f in fns.items()
+                 if hasattr(f, "body_launches")})
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _in_turn(build)
+    for wd in ("bfloat16", "int8"):
+        eng = engines.pop(wd)
+        path = f"llama3_8b tp2 serving {wd}"
+        want = SERVING_KERNELS + (("quantize",) if wd == "int8" else ())
+        out, got, m = _serve_tp_engine(fns, path, launches, eng, prompts,
+                                       want, built=eng.built)
+        decode_ms = m.get("ms_per_decode_step")
+        row = {"build_s": eng.build_s, "wall_s": m["wall_s"],
+               "tokens_per_s": m["tokens_per_s"],
+               "ttft_s_mean": m["ttft_s_mean"],
+               "decode_step_ms": decode_ms,
+               "cache_kv_heads_a_rank": int(eng.cache.k.shape[1]),
+               "peak_mem_gb_rank": torch.cuda.max_memory_allocated() / 1e9}
+        if comm.get_rank() == 0:
+            r_out, r_first, r_m = ref[wd]
+            # the first decode step reads the token each engine sampled,
+            # which a bf16 near-tie can flip (C-w2): the prefill is the
+            # same input on both
+            rel = {"_prefill": _rel(got["_prefill"].float().cpu(),
+                                    r_first["_prefill"].float())}
+            same = sum(out[k] == r_out[k] for k in prompts)
+            row.update(first_logits_rel=rel, same_outputs=same,
+                       one_rank_tokens_per_s=r_m["tokens_per_s"],
+                       one_rank_decode_step_ms=r_m.get("ms_per_decode_step"))
+            if max(rel.values()) > MP_TP_LOGITS_REL:
+                raise SystemExit(f"phase 43: {path} first logits {rel} "
+                                 f"past {MP_TP_LOGITS_REL} of the one-rank "
+                                 "engine's")
+        res[wd] = row
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    from deepspeed_tpu_torch.models.llama import LlamaConfig as LC
+
+    tiny = LC.tiny(dim=64)
+    tp = init_params(tiny, torch.Generator("cuda").manual_seed(43),
+                     device="cuda", dtype=torch.float32)
+    kw = dict(max_batch=2, page_size=8, num_pages=64, max_seq=64,
+              prefill_bucket=8, cache_dtype=torch.float32)
+    res["tiny_f32_tokens_identical"] = _tiny_identity(
+        fns, launches, "llama", lambda: llama_serving_engine(
+            tp, tiny, mesh=ms, **kw),
+        lambda: llama_serving_engine(tp, tiny, **kw))
+    res["held"] = {"attention": _hold_attention(gen, 1, 1024, 16, 4,
+                                                bwd=False),
+                   "serving": _hold_serving(gen, 16, 4, cfg.vocab_size),
+                   "int8_leaf": _hold_leaf(torch.randn(
+                       (4096, 2048), generator=gen, device="cuda").to(
+                       torch.bfloat16), adam=False, quant=True)}
+    if comm.get_rank() == 0:
+        _phase_line("43 llama3_8b tp2 serving", card_line, **res,
+                    launches=launches, mesh={"model": 2},
+                    collectives="host-staged gloo, two ranks on one card")
+    return launches
+
+
+def phase_tp_train(fns, card_line, phase8_losses, gen):
+    """Phase 44: tensor-parallel training over model 2 at phase 8's config
+    (Llama-3-8B widths at 4 layers, ~0.96 B parameters a rank, seed 0,
+    micro 1 x accumulation 2 x 2048, bf16 compute, fused Adam): losses
+    against phase 8's one-rank run; the stage-0 checkpoint written, read
+    back into one rank and held to the two ranks' gathered state bit for
+    bit; B1-B4 held at a rank's shapes."""
+    import gc
+    import shutil
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, loss_fn,
+                                                  param_specs)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    import dataclasses
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4)
+    conf = dict(_train_config(2, 2, {"bf16": {"enabled": True}}),
+                mesh={"model": 2})
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                     optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                     param_specs=param_specs(cfg), dist_init_required=False)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    launches, rows = {}, []
+    path = "llama3_8b-4L tp2 training"
+    _zero(fns.values())
+    comm.comms_logger().reset()
+    for _ in range(4):
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        rows.append({"loss": loss, "grad_norm": eng.get_global_grad_norm(),
+                     "ms": (time.perf_counter() - ts) * 1e3,
+                     "peak_gb_rank": torch.cuda.max_memory_allocated() / 1e9})
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "fused_adam"))
+    comms = comm.comms_logger().summary()
+    rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, phase8_losses)]
+    local = sum(t.numel() for t in tree_leaves(eng.state.params))
+    held = {"attention": _hold_attention(gen, 1, 2048, 16, 4),
+            "adam_leaf": _hold_leaf(eng.state.params["embed"])}
+    # the stage-0 checkpoint: each rank's blocks digested (exact integer
+    # sums of their bits), gathered on the card and written by rank 0,
+    # read back into one rank whose whole leaves, cut into the two ranks'
+    # blocks, must digest the same
+    specs = eng.state_layout()[3]
+    mine = _state_digests(eng, specs, None)
+    digests = [None] * comm.get_world_size()
+    torch.distributed.all_gather_object(digests, mine)
+    d = _bcast_str(_nvme_dir("tp_ckpt") if comm.get_rank() == 0 else None)
+    t0 = time.perf_counter()
+    eng.save_checkpoint(d, tag="tp2")
+    save_s = time.perf_counter() - t0
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = {}
+    if comm.get_rank() == 0:
+        one = initialize(loss_fn=loss_fn(cfg), params=init_params(
+            cfg, torch.Generator("cuda").manual_seed(1), device="cuda",
+            dtype=torch.float32), config=_train_config(
+                2, 2, {"bf16": {"enabled": True}}),
+            optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+            dist_init_required=False, mesh=_one_mesh())[0]
+        t1 = time.perf_counter()
+        one.load_checkpoint(d, tag="tp2")
+        ckpt["load_s"] = time.perf_counter() - t1
+        ckpt["bitwise"] = all(
+            _state_digests(one, specs, r) == digests[r]
+            for r in range(len(digests)))
+        ckpt["bytes"] = sum(
+            t.numel() * t.element_size() for f in (
+                one.state.params, one.state.opt_state.mu,
+                one.state.opt_state.nu) for t in tree_leaves(f))
+        del one
+        shutil.rmtree(d, ignore_errors=True)
+    comm.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if comm.get_rank() == 0:
+        _phase_line("44 llama3_8b-4L tp2 training", card_line, steps=rows,
+                    phase8_losses=phase8_losses, loss_rel=rel,
+                    bound=MP_TP_TRAIN_LOSS_REL, init_s=init_s,
+                    params_a_rank=local, comms=comms, held=held,
+                    ckpt=dict(ckpt, save_s=save_s), launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+        if max(rel) > MP_TP_TRAIN_LOSS_REL or not ckpt["bitwise"]:
+            raise SystemExit(f"phase 44: losses {rel} (bound "
+                             f"{MP_TP_TRAIN_LOSS_REL}) or checkpoint "
+                             f"{ckpt} failed")
+    return launches
+
+
+def _digest(t: torch.Tensor):
+    """Exact digest of a tensor's bits: the sum of its 32-bit words and
+    their sum weighted by position (mod 65521), as Python ints."""
+    w = t.detach().contiguous().view(-1).view(torch.int32).long()
+    pos = torch.arange(w.numel(), device=w.device) % 65521
+    return (int(w.sum()), int((w * pos).sum()))
+
+
+def _block(full, spec, r, ways):
+    """Block ``r`` of ``ways`` of a whole leaf along its ``model`` dim."""
+    for d, entry in enumerate(spec):
+        if entry == "model":
+            c = full.shape[d] // ways
+            return full.narrow(d, r * c, c)
+    return full
+
+
+def _state_digests(eng, specs, r):
+    """Digests of the master params and both moments, leaf by leaf: of
+    this rank's blocks (``r`` None), or of block ``r`` of the whole leaves
+    a one-rank engine holds."""
+    from deepspeed_tpu_torch._tree import tree_leaves
+
+    out = []
+    for tree in (eng.state.params, eng.state.opt_state.mu,
+                 eng.state.opt_state.nu):
+        for t, sp in zip(tree_leaves(tree), specs):
+            out.append(_digest(t if r is None else _block(t, sp, r, 2)))
+    return out
+
+
+def _bcast_str(s):
+    """Rank 0's string on every rank."""
+    obj = [s]
+    torch.distributed.broadcast_object_list(obj, src=0)
+    return obj[0]
+
+
+def _one_mesh():
+    from deepspeed_tpu_torch import topology
+
+    return topology.MeshSpec(sizes={a: 1 for a in topology.AXES})
+
+
+def _loss_and_grads(cfg, params, batch):
+    """The loss and every leaf's grad (f32) of one ``llama.loss_fn`` call;
+    under a seq axis each rank's grads are summed over it."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.llama import loss_fn
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.grad = None
+    loss = loss_fn(cfg)(params, batch)
+    loss.backward()
+    grads = []
+    for t in leaves:
+        g = t.grad.float()
+        t.grad = None
+        if comm._axis_live("seq"):
+            comm.all_reduce_(g, "seq")
+        grads.append(g)
+    return float(loss), grads
+
+
+def phase_seq(fns, card_line, gen):
+    """Phase 45: sequence parallelism over seq 2, Llama-3-8B widths at 2
+    layers (bf16 weights, replicated over seq).  Ulysses at T = 8192 (4096
+    positions a rank; B1-B3 at the whole T with 16 heads a rank) and ring
+    at T = 4096: the loss and every leaf's grad against one rank over the
+    same tokens (flash attention)."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import comm, topology
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    base = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    params = init_params(base, torch.Generator("cuda").manual_seed(45),
+                         device="cuda", dtype=torch.bfloat16)
+    for t in (params["embed"], params["final_norm"], params["lm_head"],
+              *params["blocks"].values()):
+        t.requires_grad_(True)
+    launches, res = {}, {}
+    for impl, T in (("ulysses", MP_ULYSSES_T), ("ring", MP_RING_T)):
+        rng = np.random.default_rng(45)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, base.vocab_size, (1, T + 1)).astype(np.int64)).cuda()}
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        path = f"llama3_8b-2L seq2 {impl} T{T}"
+        _mesh({"seq": 2})
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fns.values())
+        ts = time.perf_counter()
+        loss, grads = _loss_and_grads(cfg, params, batch)
+        wall = (time.perf_counter() - ts) * 1e3
+        want = (("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                if impl == "ulysses" else ())
+        _mp_path(fns, path, launches, want)
+        row = {"T": T, "positions_a_rank": T // 2, "loss": loss,
+               "ms": wall,
+               "peak_gb_rank": torch.cuda.max_memory_allocated() / 1e9}
+        topology.set_current_mesh(None)
+        ref = {}
+
+        def one_rank():
+            ref["loss"], ref["grads"] = _loss_and_grads(
+                dataclasses.replace(base, attn_impl="flash"), params, batch)
+
+        if comm.get_rank() == 0:
+            one_rank()
+            rel = max(_rel(g, w) for g, w in zip(grads, ref["grads"]))
+            row.update(one_rank_loss=ref["loss"],
+                       loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                       grad_rel_max=rel)
+            if row["loss_rel"] > MP_SEQ_LOSS_REL or rel > MP_SEQ_GRAD_REL:
+                raise SystemExit(f"phase 45: {impl} loss {row['loss_rel']} "
+                                 f"(bound {MP_SEQ_LOSS_REL}) or grads {rel} "
+                                 f"(bound {MP_SEQ_GRAD_REL})")
+        comm.barrier()
+        res[impl] = row
+        del grads, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    res["held"] = {"ulysses_attention": _hold_attention(
+        gen, 1, MP_ULYSSES_T, 16, 4)}
+    if comm.get_rank() == 0:
+        _phase_line("45 llama3_8b-2L seq2 ulysses / ring", card_line, **res,
+                    bounds={"loss_rel": MP_SEQ_LOSS_REL,
+                            "grad_rel": MP_SEQ_GRAD_REL},
+                    launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+    return launches
+
+
+def phase_pipe(fns, card_line, gen):
+    """Phase 46: pipeline parallelism over pipe 2, n_micro 4, Llama-3-8B
+    widths at 4 layers (2 a stage), micro 1 x 1024 tokens: the losses
+    against one rank with 4 accumulation steps on the same batch (run first
+    on rank 0 alone); B1-B4 held at a stage's shapes."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, loss_fn,
+                                                  param_specs)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4)
+    B, T, M = MP_PIPE_B, MP_PIPE_T, MP_PIPE_MICRO
+    rng = np.random.default_rng(46)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    conf = _train_config(B, M, {"bf16": {"enabled": True}})
+    ref = {}
+
+    def one_rank():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(46),
+                             device="cuda", dtype=torch.float32)
+        e = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                       optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                       dist_init_required=False, mesh=_one_mesh())[0]
+        del params
+        ref["losses"] = [float(e.train_batch(batch)) for _ in range(MP_STEPS)]
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if comm.get_rank() == 0:
+        one_rank()
+    comm.barrier()
+    _mesh({"pipe": 2})
+
+    def build():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(46),
+                             device="cuda", dtype=torch.float32)
+        e = initialize(loss_fn=loss_fn(cfg, n_micro=M), params=params,
+                       config=dict(conf, mesh={"pipe": 2},
+                                   pipeline={"stages": 2}),
+                       optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                       param_specs=param_specs(cfg, pipeline=True),
+                       dist_init_required=False)[0]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return e
+
+    eng = _in_turn(build)
+    launches, rows = {}, []
+    path = "llama3_8b-4L pipe2 n_micro4 training"
+    _zero(fns.values())
+    for _ in range(MP_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        rows.append({"loss": float(eng.train_batch(batch)),
+                     "ms": (time.perf_counter() - ts) * 1e3,
+                     "peak_gb_rank":
+                         torch.cuda.max_memory_allocated() / 1e9})
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "fused_adam"))
+    held = {"attention": _hold_attention(gen, 1, T, 32, 8),
+            "adam_leaf": _hold_leaf(eng.state.params["blocks"]["w1"])}
+    stage_layers = int(eng.state.params["blocks"]["wq"].shape[0])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if comm.get_rank() == 0:
+        rel = [abs(r["loss"] - w) / abs(w)
+               for r, w in zip(rows, ref["losses"])]
+        _phase_line("46 llama3_8b-4L pipe2 training", card_line, steps=rows,
+                    one_rank_accum4_losses=ref["losses"], loss_rel=rel,
+                    bound=MP_PIPE_LOSS_REL, layers_a_stage=stage_layers,
+                    held=held, launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+        if max(rel) > MP_PIPE_LOSS_REL:
+            raise SystemExit(f"phase 46: losses {rel} past "
+                             f"{MP_PIPE_LOSS_REL} of one rank's")
+    return launches
+
+
+def phase_ep(fns, card_line, gen):
+    """Phase 47: expert parallelism over expert 2.  Mixtral-8x7B widths
+    trained at 1 layer (4 of 8 experts a rank, the batch's rows split
+    over the ranks, the gate global) against one rank's run on the same
+    weights and batch; Mixtral served at 8 layers (bf16) against the
+    one-rank engine on the same weights (first logits; tokens reported,
+    C-w2), and the f32 tiny Mixtral's tokens identical; B1-B6 held at a
+    rank's shapes."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.inference.serving import mixtral_serving_engine
+    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig, loss_fn,
+                                                    param_specs)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    launches, res = {}, {}
+    cfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
+                              n_layers=MP_EP_TRAIN_LAYERS,
+                              remat="save_attn")
+    B, T = MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_T
+    rng = np.random.default_rng(47)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    conf = _train_config(B, 1, {"bf16": {"enabled": True}})
+    ref = {}
+
+    def one_rank():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(47),
+                             device="cuda", dtype=torch.float32)
+        e = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                       optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                       has_aux=True, dist_init_required=False,
+                       mesh=_one_mesh())[0]
+        del params
+        ref["losses"] = [float(e.train_batch(batch)) for _ in range(MP_STEPS)]
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if comm.get_rank() == 0:
+        one_rank()
+    comm.barrier()
+    ms = _mesh({"expert": 2})
+
+    def build():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(47),
+                             device="cuda", dtype=torch.float32)
+        e = initialize(loss_fn=loss_fn(cfg), params=params,
+                       config=dict(conf, mesh={"expert": 2}),
+                       optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                       has_aux=True, param_specs=param_specs(cfg),
+                       dist_init_required=False)[0]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return e
+
+    eng = _in_turn(build)
+    rows = []
+    path = "mixtral-8x7b-1L ep2 training"
+    _zero(fns.values())
+    for _ in range(MP_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        aux = eng.metrics["aux"]
+        rows.append({"loss": loss, "ms": (time.perf_counter() - ts) * 1e3,
+                     "moe_aux_loss": float(aux["moe_aux_loss"]),
+                     "peak_gb_rank":
+                         torch.cuda.max_memory_allocated() / 1e9})
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "fused_adam"))
+    experts_a_rank = int(eng.state.params["blocks"]["w1"].shape[1])
+    held = {"attention": _hold_attention(gen, B // 2, T, 32, 8),
+            "adam_leaf": _hold_leaf(eng.state.params["blocks"]["w2"])}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if comm.get_rank() == 0:
+        rel = [abs(r["loss"] - w) / abs(w)
+               for r, w in zip(rows, ref["losses"])]
+        res["train"] = {"steps": rows, "one_rank_losses": ref["losses"],
+                        "loss_rel": rel, "bound": MP_EP_LOSS_REL,
+                        "experts_a_rank": experts_a_rank}
+        if max(rel) > MP_EP_LOSS_REL:
+            raise SystemExit(f"phase 47: training losses {rel} past "
+                             f"{MP_EP_LOSS_REL} of one rank's")
+    # serving at 8 layers
+    scfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
+                               n_layers=MP_EP_SERVE_LAYERS)
+    prompts = _queue21(scfg.vocab_size, n=MP_EP_PROMPTS)
+    opts = dict(max_batch=4, page_size=16, max_seq=1024, num_pages=257,
+                cache_dtype=torch.bfloat16)
+    sref, holder = {}, {}
+
+    def serve_build():
+        params = init_params(scfg, torch.Generator("cuda").manual_seed(47),
+                             device="cuda", dtype=torch.bfloat16)
+        if comm.get_rank() == 0:
+            e = mixtral_serving_engine(params, scfg, **opts)
+            first = _capture_first(e)
+            sref["out"], sref["m"] = drive(e, prompts, MP_EP_NEW)
+            sref["first"] = {k: v.cpu() for k, v in first.items()}
+            del e
+            gc.collect()
+        holder["eng"] = mixtral_serving_engine(params, scfg, mesh=ms, **opts)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _in_turn(serve_build)
+    eng = holder.pop("eng")
+    spath = f"mixtral-8x7b-{MP_EP_SERVE_LAYERS}L ep2 serving bf16"
+    got = _capture_first(eng)
+    _zero(fns.values())
+    out, m = drive(eng, prompts, MP_EP_NEW)
+    _mp_path(fns, spath, launches, SERVING_KERNELS)
+    for name in ("_prefill", "_decode"):
+        vars(eng).pop(name, None)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = {"wall_s": m["wall_s"], "tokens_per_s": m["tokens_per_s"],
+             "decode_step_ms": m.get("ms_per_decode_step")}
+    if comm.get_rank() == 0:
+        rel = {"_prefill": _rel(got["_prefill"].float().cpu(),
+                                sref["first"]["_prefill"].float())}
+        n_div, first_pos = _first_divergence(out, sref["out"], prompts)
+        serve.update(first_logits_rel=rel, divergent_requests=n_div,
+                     first_divergence_position=first_pos,
+                     one_rank_tokens_per_s=sref["m"]["tokens_per_s"])
+        if max(rel.values()) > MP_EP_LOGITS_REL:
+            raise SystemExit(f"phase 47: served first logits {rel} past "
+                             f"{MP_EP_LOGITS_REL}")
+    res["serve"] = serve
+    tiny = MixtralConfig.tiny(dim=64)
+    tp = init_params(tiny, torch.Generator("cuda").manual_seed(47),
+                     device="cuda", dtype=torch.float32)
+    kw = dict(max_batch=2, page_size=8, num_pages=64, max_seq=64,
+              prefill_bucket=8, cache_dtype=torch.float32)
+    res["tiny_f32_tokens_identical"] = _tiny_identity(
+        fns, launches, "mixtral", lambda: mixtral_serving_engine(
+            tp, tiny, mesh=ms, **kw),
+        lambda: mixtral_serving_engine(tp, tiny, **kw))
+    res["held"] = held
+    res["held"]["serving"] = _hold_serving(gen, 32, 8, scfg.vocab_size,
+                                           rows=4)
+    if comm.get_rank() == 0:
+        _phase_line("47 mixtral-8x7b ep2", card_line, **res,
+                    launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+    return launches
+
+
+def mp_child(out_path: str, refs: dict) -> int:
+    """Phases 43-47 in one of two ranks the port's launcher started on the
+    one card: join the gloo group, run each phase (a failing rank fails
+    the launcher and so the smoke); rank 0 writes both ranks' launches."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import _build
+
+    comm.init_distributed(dist_backend="gloo")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    fns = _kernel_fns()
+    card_line = card()
+    gen = torch.Generator("cuda").manual_seed(43 + comm.get_rank())
+    log(f"[mp] rank {comm.get_rank()} of {comm.get_world_size()} on "
+        f"{torch.cuda.get_device_name()} (LOCAL_RANK "
+        f"{comm.get_local_rank()}, backend "
+        f"{torch.distributed.get_backend()})")
+    launches, laps = {}, {}
+    for name, fn in (
+            ("phase_tp_serving", lambda: phase_tp_serving(fns, card_line,
+                                                          gen)),
+            ("phase_tp_train", lambda: phase_tp_train(
+                fns, card_line, refs["phase8_losses"], gen)),
+            ("phase_seq", lambda: phase_seq(fns, card_line, gen)),
+            ("phase_pipe", lambda: phase_pipe(fns, card_line, gen)),
+            ("phase_ep", lambda: phase_ep(fns, card_line, gen))):
+        if refs.get("only") and name not in refs["only"]:
+            continue
+        t0 = time.perf_counter()
+        launches.update(fn())
+        torch.cuda.synchronize()
+        comm.barrier()
+        laps[name] = time.perf_counter() - t0
+        if comm.get_rank() == 0:
+            log(f"[smoke] {name} (two ranks): {laps[name]:.1f} s")
+    if comm.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump({"launches": launches, "laps": laps,
+                       "bodies": {k: {p: c for p, c in v.items()
+                                      if p in launches}
+                                  for k, v in BODIES.items()}}, f)
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mp_launcher(card_line, refs):
+    """Phases 43-47 through ``python -m deepspeed_tpu_torch.launcher
+    --local_hosts 2``: two ranks on the one card over gloo; a failing rank
+    fails the smoke; both ranks' launches come back."""
+    out = os.path.join(_nvme_dir("mp_child"), "result.json")
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher",
+           "--local_hosts", "2", os.path.join(ROOT, "chip_smoke.py"),
+           MP_CHILD_FLAG, out, json.dumps(refs)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=ROOT, env=env,
+                        timeout=MP_CHILD_TIMEOUT_S).returncode
+    if rc != 0:
+        raise SystemExit(f"phases 43-47: a launched rank exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    log(f"[mp] launcher and two ranks: {time.perf_counter() - t0:.1f} s, "
+        f"phases {res['laps']}")
+    for name, paths in res["bodies"].items():
+        BODIES.setdefault(name, {}).update(paths)
+    return res["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -7086,6 +8035,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if len(sys.argv) > 1 and sys.argv[1] == ZERO_CHILD_FLAG:
         return zero_child(sys.argv[2], json.loads(sys.argv[3]))
+    if len(sys.argv) > 1 and sys.argv[1] == MP_CHILD_FLAG:
+        return mp_child(sys.argv[2], json.loads(sys.argv[3]))
     from deepspeed_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7155,7 +8106,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_identity(fns)
     _lap('phase_train_identity')
-    launches["training"], _ = phase_train(fns, card_line)
+    launches["training"], train_run = phase_train(fns, card_line)
+    phase8_losses = [r["loss"] for r in train_run["steps"]]
+    del train_run
     _lap('phase_train')
     torch.cuda.empty_cache()
     launches.update(phase_resume(fns, card_line)[0])
@@ -7184,6 +8137,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_zero_launcher(card_line, rows, phase19_ms))
     _lap("phases 41-42 (wire, ZeRO stages) under the launcher")
+    launches.update(phase_mp_launcher(card_line, {
+        "phase8_losses": phase8_losses}))
+    _lap("phases 43-47 (tensor, sequence, pipeline and expert parallelism)"
+         " in two ranks under the launcher")
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():

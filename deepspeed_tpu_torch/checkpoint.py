@@ -155,21 +155,51 @@ def finalize_checkpoint_dir(save_dir: str, tag: str, meta: dict) -> None:
     logger.info("saved checkpoint %s", path)
 
 
+def _writes(engine) -> bool:
+    """Whether this rank writes the engine's checkpoint: index 0 along
+    every axis of the engine's mesh (a one-rank engine inside a larger
+    world writes its own)."""
+    from deepspeed_tpu_torch.topology import AXES
+
+    ms = getattr(engine, "mesh", None)
+    if ms is None:
+        from deepspeed_tpu_torch import comm
+
+        return comm.get_rank() == 0
+    return all(ms.rank_in(a) == 0 for a in AXES)
+
+
+def _barrier(engine) -> None:
+    """Every rank of the engine's mesh waits for the others (nothing for
+    an engine of one rank, whatever the world)."""
+    from deepspeed_tpu_torch import comm
+
+    ms = getattr(engine, "mesh", None)
+    if ms is None or ms.device_mesh is not None:
+        comm.barrier()
+
+
 def _opt_fields(opt):
     """(name, tree) of each optimizer field shaped like the params."""
     return [(f, v) for f, v in zip(opt._fields, opt)
             if f != "step" and v is not None]
 
 
-def _gathered_copy(tree, dims, keep: bool, prefix: str = "") -> dict:
-    """{path: whole leaf on the host}: each leaf gathered along its dim on
-    the card (every rank takes part), copied to the host on the keeping
-    rank and dropped before the next."""
+def _gathered_copy(tree, dims, keep: bool, prefix: str = "",
+                   specs=None) -> dict:
+    """{path: whole leaf on the host}: each leaf gathered along its ZeRO
+    dim and then over the model-parallel axes of its spec on the card
+    (every rank takes part), copied to the host on the keeping rank and
+    dropped before the next."""
     from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.topology import current_mesh
 
     out = {}
-    for (path, t), d in zip(tree_leaves_with_path(tree), dims):
+    specs = specs or [()] * len(dims)
+    for (path, t), d, sp in zip(tree_leaves_with_path(tree), dims, specs):
         full = zero.gather_shard(t.detach(), d)
+        if zero.spec_axes(sp):
+            full = zero.gather_local(full, sp, current_mesh())
         if keep:
             out[prefix + path] = full.to("cpu", copy=True)
         del full
@@ -184,7 +214,7 @@ def _snapshot(engine) -> Optional[dict]:
     state = engine.state
     opt = state.opt_state
     layout = engine.state_layout()
-    keep = comm.get_rank() == 0
+    keep = _writes(engine)
     if layout[0] == "qwz":
         def rows(t):
             full = comm.all_gather(t.detach(), "data", tiled=False)
@@ -193,11 +223,12 @@ def _snapshot(engine) -> Optional[dict]:
         params = {"": rows(state.params)}
         optc = {f: rows(v) for f, v in _opt_fields(opt)}
     else:
-        _, pdims, odims = layout
-        params = _gathered_copy(state.params, pdims, keep)
+        _, pdims, odims, specs = layout
+        params = _gathered_copy(state.params, pdims, keep, specs=specs)
         optc = {}
         for f, v in _opt_fields(opt):
-            optc.update(_gathered_copy(v, odims, keep, prefix=f + "/"))
+            optc.update(_gathered_copy(v, odims, keep, prefix=f + "/",
+                                       specs=specs))
     if not keep:
         return None
     return {
@@ -230,8 +261,6 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     is on disk (:func:`wait_for_checkpoint`, or the next save or load of
     any engine, joins it).
     """
-    from deepspeed_tpu_torch import comm
-
     tag = tag or f"global_step{engine.global_steps}"
     path = _ckpt_dir(save_dir, tag)
     # at most one save in flight, and the previous one's commit must run
@@ -239,7 +268,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     snap = _snapshot(engine)
     if snap is None:                    # a rank that does not write
         if not async_save:
-            comm.barrier()              # rank 0's files are on disk
+            _barrier(engine)            # rank 0's files are on disk
         return path
     meta = {
         "global_steps": engine.global_steps,
@@ -259,7 +288,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         return path
     write()
     finalize()
-    comm.barrier()
+    _barrier(engine)
     return path
 
 
@@ -274,12 +303,15 @@ def _load_flat(path: str) -> dict:
 
 
 def _copy_into(flat: dict, tree, what: str, dims, rank: int, world: int,
-               prefix: str = "") -> None:
-    """Copy this rank's slice of each checkpoint leaf (along its dim; the
-    whole leaf where it is None) into the engine's tensor at its path; the
-    two trees must hold the same paths, whole shapes and dtypes."""
+               prefix: str = "", specs=None) -> None:
+    """Copy this rank's slice of each checkpoint leaf (its model-parallel
+    block under its spec, then its slice along its ZeRO dim; the whole leaf
+    where neither splits it) into the engine's tensor at its path; the two
+    trees must hold the same paths, whole shapes and dtypes."""
     from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.topology import current_mesh
 
+    specs = specs or [()] * len(dims)
     leaves = [(prefix + p, t) for p, t in tree_leaves_with_path(tree)]
     mine = {p for p, _ in leaves}
     missing = sorted({k for k in flat if k.startswith(prefix)} ^ mine)
@@ -287,8 +319,10 @@ def _copy_into(flat: dict, tree, what: str, dims, rank: int, world: int,
         raise ValueError(f"checkpoint {what} and the engine's differ in "
                          f"leaves {missing}")
     with torch.no_grad():
-        for (p, leaf), d in zip(leaves, dims):
+        for (p, leaf), d, sp in zip(leaves, dims, specs):
             src = flat[p]
+            if zero.spec_axes(sp):
+                src = zero.local_shard(src, sp, current_mesh())
             want = tuple(leaf.shape) if d is None else \
                 tuple(leaf.shape[:d]) + (leaf.shape[d] * world,) \
                 + tuple(leaf.shape[d + 1:])
@@ -305,10 +339,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None):
     engine's existing tensors, whose device, dtypes and shapes stay; each
     rank reads its own slices, so the checkpoint may come from another
     ZeRO stage or world size."""
-    from deepspeed_tpu_torch import comm
-
     wait_for_checkpoint(engine)          # join any pending async save
-    comm.barrier()                       # every rank's save is on disk
+    _barrier(engine)                     # every rank's save is on disk
     tag = _resolve_tag(load_dir, tag, required=False)
     if tag is None:
         return None, {}
@@ -337,12 +369,13 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None):
             for f, v in _opt_fields(opt):
                 v.copy_(optf[f][rank])
     else:
-        _, pdims, odims = layout
-        _copy_into(params, state.params, "params", pdims, rank, world)
+        _, pdims, odims, specs = layout
+        _copy_into(params, state.params, "params", pdims, rank, world,
+                   specs=specs)
         fields = _opt_fields(opt)
         for f, v in fields:
             _copy_into(optf, v, "optimizer state", odims, rank, world,
-                       prefix=f + "/")
+                       prefix=f + "/", specs=specs)
         extra = sorted(k for k in optf
                        if k.split("/", 1)[0] not in dict(fields))
         if extra:

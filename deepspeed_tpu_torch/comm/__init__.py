@@ -184,6 +184,202 @@ def _avg_(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.div_(d) if x.is_floating_point() else x.floor_divide_(d)
 
 
+def _host_staged(g, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor in a gloo group: gloo carries only
+    all_reduce and broadcast for CUDA tensors, so every other collective
+    stages its buffers through host memory (several ranks sharing one
+    GPU, where NCCL refuses the group).  Under NCCL, or for CPU tensors,
+    nothing is staged."""
+    return g is not None and x.is_cuda and dist.get_backend(g) == "gloo"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """A page-locked host copy of a CUDA tensor (the caching host
+    allocator reuses the buffers), for a staged collective."""
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return h.copy_(x)
+
+
+def _op_name(op: str, g, x: torch.Tensor) -> str:
+    """The log's name of a call: ``op``, or ``op:host`` when staged."""
+    return f"{op}:host" if _host_staged(g, x) else op
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# --------------------------------------------------------------------------
+# the raw exchanges (no autograd; host staging for gloo + CUDA)
+# --------------------------------------------------------------------------
+def _all_reduce_raw(x: torch.Tensor, g, dop) -> None:
+    """In place; gloo reduces CUDA tensors itself (through host memory)."""
+    if g is not None:
+        dist.all_reduce(x, op=dop, group=g)
+
+
+def _gather_dim0(x: torch.Tensor, g, n: int) -> torch.Tensor:
+    """[n * x.shape[0], ...]: every rank's x along dim 0, in rank order."""
+    x = x.contiguous()
+    if g is None:
+        return x.clone()
+    src = _to_host(x) if _host_staged(g, x) else x
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=g)
+    return out.to(x.device) if out.device != x.device else out
+
+
+def _reduce_scatter_dim0(x: torch.Tensor, g, n: int) -> torch.Tensor:
+    """This rank's 1/n slice of dim 0 of the sum of every rank's x."""
+    x = x.contiguous()
+    if g is None:
+        return x.clone()
+    src = _to_host(x) if _host_staged(g, x) else x
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=g)
+    return out.to(x.device) if out.device != x.device else out
+
+
+def _all_to_all_dim0(x: torch.Tensor, g) -> torch.Tensor:
+    """Chunk j of dim 0 to rank j; received chunks in rank order."""
+    x = x.contiguous()
+    if g is None:
+        return x.clone()
+    src = _to_host(x) if _host_staged(g, x) else x
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=g)
+    return out.to(x.device) if out.device != x.device else out
+
+
+def _ppermute_raw(x: torch.Tensor, g, perm) -> torch.Tensor:
+    x = x.contiguous()
+    me = 0 if g is None else dist.get_group_rank(g, dist.get_rank())
+    staged = _host_staged(g, x)
+    src = _to_host(x) if staged else x
+    out = torch.zeros_like(src)
+    ops = []
+    for s, d in perm:
+        if s == me and d == me:
+            out.copy_(src)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, src,
+                                  dist.get_global_rank(g, d), g))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(g, s), g))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(x.device) if staged else out
+
+
+def _all_gather_fwd(x, axis_name, group, axis):
+    g, n = _resolve(axis_name, group)
+    with _comms_logger.record(_op_name("all_gather", g, x), _nbytes(x)):
+        out = _gather_dim0(x.movedim(axis, 0), g, n).movedim(0, axis)
+    # rows of the result are what its readers (kernels among them) expect
+    # contiguous
+    return out.contiguous()
+
+
+def _reduce_scatter_fwd(x, axis_name, group, axis):
+    g, n = _resolve(axis_name, group)
+    with _comms_logger.record(_op_name("reduce_scatter", g, x),
+                              _nbytes(x)):
+        out = _reduce_scatter_dim0(x.movedim(axis, 0), g, n)
+    return out.movedim(0, axis).contiguous()
+
+
+def _psum_fwd(x, axis_name, group):
+    g, _ = _resolve(axis_name, group)
+    y = x.clone()
+    with _comms_logger.record("all_reduce", _nbytes(x)):
+        _all_reduce_raw(y, g, dist.ReduceOp.SUM)
+    return y
+
+
+def _all_to_all_fwd(x, axis_name, group, split_axis, concat_axis):
+    g, n = _resolve(axis_name, group)
+    xm = x.movedim(split_axis, 0)
+    with _comms_logger.record(_op_name("all_to_all", g, x), _nbytes(x)):
+        out = _all_to_all_dim0(xm, g)
+    blocks = out.reshape((n, xm.shape[0] // n) + tuple(xm.shape[1:]))
+    return torch.cat([b.movedim(0, split_axis) for b in blocks],
+                     dim=concat_axis)
+
+
+def _ppermute_fwd(x, axis_name, group, perm):
+    g, _ = _resolve(axis_name, group)
+    with _comms_logger.record(_op_name("ppermute", g, x), _nbytes(x)):
+        return _ppermute_raw(x, g, perm)
+
+
+# --------------------------------------------------------------------------
+# collectives autograd goes through.  JAX takes each collective's backward
+# from its transpose rule: psum's is psum, all_gather's reduce_scatter,
+# all_to_all's the inverse all_to_all, ppermute's the inverse permutation.
+# Cotangents are partial a rank (each rank back-propagates its own share of
+# the loss), as under JAX's shard_map.
+# --------------------------------------------------------------------------
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, group):
+        ctx.a = (axis_name, group)
+        return _psum_fwd(x, *ctx.a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_fwd(g, *ctx.a), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, group, axis):
+        ctx.a = (axis_name, group, axis)
+        return _all_gather_fwd(x, axis_name, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_fwd(g, *ctx.a), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, group, axis):
+        ctx.a = (axis_name, group, axis)
+        return _reduce_scatter_fwd(x, axis_name, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_fwd(g, *ctx.a), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, group, split_axis, concat_axis):
+        ctx.a = (axis_name, group, split_axis, concat_axis)
+        return _all_to_all_fwd(x, axis_name, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, group, split_axis, concat_axis = ctx.a
+        return (_all_to_all_fwd(g, axis_name, group, concat_axis,
+                                split_axis), None, None, None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, group, perm):
+        ctx.a = (axis_name, group, perm)
+        return _ppermute_fwd(x, axis_name, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, group, perm = ctx.a
+        inverse = [(d, s) for s, d in perm]
+        return _ppermute_fwd(g, axis_name, group, inverse), None, None, None
+
+
 def all_reduce_(x: torch.Tensor, axis_name: str = "data",
                 op: ReduceOp = ReduceOp.SUM, group=None) -> torch.Tensor:
     """In-place :func:`all_reduce` of SUM / AVG / MAX / MIN; returns x."""
@@ -196,7 +392,7 @@ def all_reduce_(x: torch.Tensor, axis_name: str = "data",
                    ReduceOp.MIN: dist.ReduceOp.MIN}.get(op)
             if dop is None:
                 raise ValueError(f"unsupported in-place op {op}")
-            dist.all_reduce(x, op=dop, group=g)
+            _all_reduce_raw(x, g, dop)
     if op is ReduceOp.AVG:
         _avg_(x, n)
     return x
@@ -204,7 +400,9 @@ def all_reduce_(x: torch.Tensor, axis_name: str = "data",
 
 def all_reduce(x: torch.Tensor, axis_name: str = "data",
                op: ReduceOp = ReduceOp.SUM, group=None) -> torch.Tensor:
-    """ref: comm.all_reduce -> the reduction over the axis, on every rank."""
+    """ref: comm.all_reduce -> the reduction over the axis, on every rank.
+    SUM and AVG of a tensor that requires grad back-propagate as JAX's
+    ``psum`` / ``pmean`` do (the cotangents reduced the same way)."""
     if op is ReduceOp.PRODUCT:
         # log-space magnitude; sign parity and zeros counted apart so
         # non-positive inputs give no NaN (JAX's route)
@@ -219,49 +417,42 @@ def all_reduce(x: torch.Tensor, axis_name: str = "data",
                                ReduceOp.SUM, group) > 0
         sign = torch.where(neg % 2 == 0, ones, -ones)
         return torch.where(has_zero, torch.zeros_like(xf), sign * mag)
+    if op in (ReduceOp.SUM, ReduceOp.AVG) and _differentiable(x):
+        y = _PSum.apply(x, axis_name, group)
+        n = _resolve(axis_name, group)[1]
+        return y if op is ReduceOp.SUM or n == 1 else y / torch.full(
+            (), n, dtype=y.dtype, device=y.device)
     return all_reduce_(x.clone(), axis_name, op, group)
-
-
-def _gather_dim0(x: torch.Tensor, g, n: int) -> torch.Tensor:
-    """[n * x.shape[0], ...]: every rank's x along dim 0, in rank order."""
-    x = x.contiguous()
-    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    if g is None:
-        out.copy_(x)
-    else:
-        dist.all_gather_into_tensor(out, x, group=g)
-    return out
 
 
 def all_gather(x: torch.Tensor, axis_name: str = "data", axis: int = 0,
                tiled: bool = True, group=None) -> torch.Tensor:
     """ref: comm.all_gather -> every rank's x concatenated along ``axis``
-    (``tiled``), or stacked on a new dim at ``axis``."""
-    g, n = _resolve(axis_name, group)
-    with _comms_logger.record("all_gather", _nbytes(x)):
-        if tiled:
-            return _gather_dim0(x.movedim(axis, 0), g, n).movedim(0, axis)
-        out = _gather_dim0(x.unsqueeze(0), g, n)
-        return out.movedim(0, axis)
+    (``tiled``), or stacked on a new dim at ``axis``.  Its backward is the
+    reduce-scatter of the cotangent (JAX's transpose)."""
+    if not tiled:
+        return all_gather(x.unsqueeze(axis), axis_name, axis, True, group)
+    if _differentiable(x):
+        return _AllGather.apply(x, axis_name, group, axis)
+    return _all_gather_fwd(x, axis_name, group, axis)
 
 
 def reduce_scatter(x: torch.Tensor, axis_name: str = "data", axis: int = 0,
                    op: ReduceOp = ReduceOp.SUM, group=None) -> torch.Tensor:
     """ref: comm.reduce_scatter_base -> the sum (or mean) over the axis,
-    keeping this rank's 1/n slice of ``axis``."""
+    keeping this rank's 1/n slice of ``axis``; its backward all-gathers
+    the cotangent."""
     if op not in (ReduceOp.SUM, ReduceOp.AVG):
         raise ValueError("reduce_scatter supports SUM/AVG")
-    g, n = _resolve(axis_name, group)
-    xm = x.movedim(axis, 0).contiguous()
-    with _comms_logger.record("reduce_scatter", _nbytes(x)):
-        out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
-        if g is None:
-            out.copy_(xm)
-        else:
-            dist.reduce_scatter_tensor(out, xm, group=g)
+    if _differentiable(x):
+        out = _ReduceScatter.apply(x, axis_name, group, axis)
+        n = _resolve(axis_name, group)[1]
+        return out if op is ReduceOp.SUM or n == 1 else out / torch.full(
+            (), n, dtype=out.dtype, device=out.device)
+    out = _reduce_scatter_fwd(x, axis_name, group, axis)
     if op is ReduceOp.AVG:
-        _avg_(out, n)
-    return out.movedim(0, axis)
+        _avg_(out, _resolve(axis_name, group)[1])
+    return out
 
 
 def broadcast(x: torch.Tensor, axis_name: str = "data", src: int = 0,
@@ -279,44 +470,110 @@ def all_to_all(x: torch.Tensor, axis_name: str = "data", split_axis: int = 0,
                concat_axis: int = 0, group=None) -> torch.Tensor:
     """ref: comm.all_to_all_single: split ``split_axis`` into n chunks,
     chunk j to rank j, the chunks received concatenated along
-    ``concat_axis`` in rank order (JAX's tiled ``all_to_all``)."""
-    g, n = _resolve(axis_name, group)
-    xm = x.movedim(split_axis, 0).contiguous()
-    with _comms_logger.record("all_to_all", _nbytes(x)):
-        out = torch.empty_like(xm)
-        if g is None:
-            out.copy_(xm)
-        else:
-            dist.all_to_all_single(out, xm, group=g)
-    blocks = out.reshape((n, xm.shape[0] // n) + tuple(xm.shape[1:]))
-    return torch.cat([b.movedim(0, split_axis) for b in blocks],
-                     dim=concat_axis)
+    ``concat_axis`` in rank order (JAX's tiled ``all_to_all``).  Its
+    backward is the inverse all-to-all."""
+    if _differentiable(x):
+        return _AllToAll.apply(x, axis_name, group, split_axis, concat_axis)
+    return _all_to_all_fwd(x, axis_name, group, split_axis, concat_axis)
 
 
 def ppermute(x: torch.Tensor, axis_name: str, perm: Sequence,
              group=None) -> torch.Tensor:
     """Point-to-point exchange over the axis: for each ``(src, dst)`` pair
     of axis indices, dst receives src's x; a rank no pair sends to gets
-    zeros (JAX's ``ppermute``)."""
-    g, n = _resolve(axis_name, group)
-    me = 0 if g is None else dist.get_group_rank(g, dist.get_rank())
-    x = x.contiguous()
-    out = torch.zeros_like(x)
-    ops = []
-    with _comms_logger.record("ppermute", _nbytes(x)):
-        for src, dst in perm:
-            if src == me and dst == me:
-                out.copy_(x)
-            elif src == me:
-                ops.append(dist.P2POp(dist.isend, x,
-                                      dist.get_global_rank(g, dst), g))
-            elif dst == me:
-                ops.append(dist.P2POp(dist.irecv, out,
-                                      dist.get_global_rank(g, src), g))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-    return out
+    zeros (JAX's ``ppermute``).  Its backward sends each cotangent back
+    along the inverse permutation."""
+    perm = [tuple(p) for p in perm]
+    if _differentiable(x):
+        return _PPermute.apply(x, axis_name, group, perm)
+    return _ppermute_fwd(x, axis_name, group, perm)
+
+
+# --------------------------------------------------------------------------
+# Megatron's four mappings over an axis whose ranks all compute the same
+# loss (ref: megatron/mpu/mappings.py, wired in through DeepSpeed's mpu):
+# the cotangent of a value replicated over the axis is whole on every rank
+# --------------------------------------------------------------------------
+def _own_slice(x: torch.Tensor, axis_name: str, dim: int) -> torch.Tensor:
+    _, n = _resolve(axis_name)
+    c = x.shape[dim] // n
+    return x.narrow(dim, rank_in(axis_name) * c, c).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis = axis_name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_fwd(g, ctx.axis, None), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        return _psum_fwd(x, axis_name, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.a = (axis_name, dim)
+        return _all_gather_fwd(x, axis_name, None, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, *ctx.a), None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.a = (axis_name, dim)
+        return _own_slice(x, axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_fwd(g, ctx.a[0], None, ctx.a[1]), None, None
+
+
+def _axis_live(axis_name: str) -> bool:
+    ms = current_mesh()
+    return ms is not None and ms.size(axis_name) > 1
+
+
+def copy_to(x: torch.Tensor, axis_name: str = "model") -> torch.Tensor:
+    """Identity forward; the backward all-reduces the cotangent (the input
+    of a column-parallel product: each rank's grad covers its columns)."""
+    return _CopyTo.apply(x, axis_name) if _axis_live(axis_name) else x
+
+
+def reduce_from(x: torch.Tensor, axis_name: str = "model") -> torch.Tensor:
+    """All-reduce forward (a row-parallel product's partial sums);
+    identity backward."""
+    return _ReduceFrom.apply(x, axis_name) if _axis_live(axis_name) else x
+
+
+def gather_from(x: torch.Tensor, axis_name: str = "model",
+                dim: int = -1) -> torch.Tensor:
+    """All-gather ``dim`` forward; the backward keeps this rank's slice."""
+    if not _axis_live(axis_name):
+        return x
+    return _GatherFrom.apply(x, axis_name, dim % x.dim())
+
+
+def scatter_to(x: torch.Tensor, axis_name: str = "model",
+               dim: int = -1) -> torch.Tensor:
+    """This rank's slice of ``dim`` forward; the backward all-gathers."""
+    if not _axis_live(axis_name):
+        return x
+    return _ScatterTo.apply(x, axis_name, dim % x.dim())
 
 
 def send_recv_next(x: torch.Tensor, axis_name: str, size: int,
@@ -340,6 +597,8 @@ def mesh_all_reduce(x: torch.Tensor, mesh=None,
     from deepspeed_tpu_torch.topology import AXES
 
     ms = mesh if mesh is not None else current_mesh()
+    if ms is None:
+        return x.clone()
     with _comms_logger.record("mesh_all_reduce", _nbytes(x)):
         x = x.clone()
         for a in AXES:

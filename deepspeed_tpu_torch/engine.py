@@ -129,8 +129,6 @@ def _unsupported(config: Config, params) -> Optional[str]:
         return (f"ZeRO stage {z.stage} with offload (the offload engines "
                 "at dp > 1 are ROADMAP A9's remainder; stage 0 keeps "
                 "unscheduled offload state on the host)")
-    if config.pipeline.stages > 1:
-        return "pipeline parallelism (ROADMAP A9's remainder)"
     if config.progressive_layer_drop:
         return "progressive_layer_drop (ROADMAP A11)"
     if config.eigenvalue:
@@ -150,25 +148,26 @@ def _unsupported(config: Config, params) -> Optional[str]:
 
 def mesh_for(config: Config, device: torch.device) -> topology.MeshSpec:
     """The engine's mesh over the process group: the config's ``mesh``
-    block (every rank on ``data`` by default).  The current mesh is reused
-    when it has those sizes, so engines built in turn share one set of
-    process groups."""
+    block (every rank on ``data`` by default; ``model``, ``seq``, ``pipe``
+    and ``expert`` as it sets them).  The current mesh is reused when it
+    has those sizes, so engines built in turn share one set of process
+    groups."""
     world = comm.get_world_size()
     sizes = config.mesh.axis_sizes(world)
-    others = {a: n for a, n in sizes.items() if a != "data" and n > 1}
-    if others:
-        raise NotImplementedError(
-            f"mesh axes {others}: tensor, pipeline, sequence and expert "
-            "parallelism are ROADMAP A9's remainder; the port shards over "
-            "the data axis only")
     ms = topology.current_mesh()
     live = torch.distributed.is_initialized()
     if ms is not None and ms.sizes == {a: sizes.get(a, 1)
                                        for a in topology.AXES} \
             and (ms.device_mesh is not None) == live:
         return ms
+    nccl = live and torch.distributed.get_backend() == "nccl"
     return topology.MeshSpec.build(
-        sizes, device_type="cuda" if device.type == "cuda" else "cpu")
+        sizes, device_type="cuda" if device.type == "cuda" and nccl
+        else "cpu")
+
+
+# the axes besides data a param spec may split a leaf over
+_MP_AXES = ("pipe", "expert", "seq", "model")
 
 
 class TrainingEngine:
@@ -176,18 +175,30 @@ class TrainingEngine:
     this rank + host bookkeeping.
 
     ``loss_fn``: ``(params, batch) -> loss`` or ``-> (loss, aux)`` with
-    ``has_aux``; ``params`` arrive cast to the compute dtype.  ``params``:
-    the initial master tree (torch tensors or numpy arrays, the same on
-    every rank; copied, cast to the master dtype and placed on ``device``),
-    or a zero-argument init thunk (:func:`~deepspeed_tpu_torch.zero.
-    sharded_init`).  ``device``: None = CUDA.  ``mesh``: default
-    :func:`mesh_for` the config.
+    ``has_aux``; ``params`` arrive cast to the compute dtype, this rank's
+    blocks of the leaves a ``param_specs`` tree splits.  ``params``: the
+    initial master tree (torch tensors or numpy arrays, the same on every
+    rank; copied, cut to this rank's blocks, cast to the master dtype and
+    placed on ``device``), or a zero-argument init thunk
+    (:func:`~deepspeed_tpu_torch.zero.sharded_init`).  ``device``: None =
+    CUDA.  ``mesh``: default :func:`mesh_for` the config.
+    ``param_specs``: model-parallel placements (a tree of specs over
+    ``model`` / ``pipe`` / ``expert``, or a callable ``leaf -> spec``);
+    ZeRO layers the data axis onto a dim each leaves free.
+
+    Every rank of ``data`` x ``expert`` takes its rows of the global
+    batch; the ranks of ``seq`` take the same rows (the model splits the
+    sequence), and so do those of ``model`` and ``pipe``.  A leaf's grads
+    are summed over every axis that splits the tokens and does not split
+    the leaf (``seq``; ``expert`` for a leaf that is not an expert's), then
+    over ``data`` as the stage says.
     """
 
     def __init__(self, loss_fn: Callable, params: Any, config: Config,
                  optimizer: Optional[Optimizer] = None, lr_scheduler=None,
                  has_aux: bool = False, device=None,
-                 mesh: Optional[topology.MeshSpec] = None):
+                 mesh: Optional[topology.MeshSpec] = None,
+                 param_specs: Any = None):
         why = _unsupported(config, params)
         if why is not None:
             raise NotImplementedError(f"{why} is not ported yet")
@@ -198,6 +209,14 @@ class TrainingEngine:
         topology.set_current_mesh(self.mesh)
         self.dp = self.mesh.size("data")
         self.rank = self.mesh.rank_in("data")
+        self._live = [a for a in topology.AXES if self.mesh.size(a) > 1]
+        self._batch_live = [a for a in topology.BATCH_AXES
+                            if self.mesh.size(a) > 1]
+        stages = config.pipeline.stages
+        if stages > 1 and self.mesh.size("pipe") != stages:
+            raise ValueError(
+                f"pipeline.stages {stages} needs a mesh with pipe = "
+                f"{stages}, got pipe = {self.mesh.size('pipe')}")
         config.resolve_batch_sizes(self.mesh.dp_world)
         self.loss_fn = loss_fn
         self.has_aux = has_aux
@@ -209,6 +228,11 @@ class TrainingEngine:
         self.grad_comm_mode = comm_compress.resolve_mode(
             config, self.mesh, name, has_aux)
         mode = self.grad_comm_mode
+        mp = [a for a in self._live if a != "data"]
+        if mode is not None and mp:
+            raise NotImplementedError(
+                f"the {mode} compressed step over mesh axes {mp}: the "
+                "compressed paths run over the data axis only")
         if mode == "onebit" and config.gradient_clipping > 0:
             logger.warning(
                 "gradient_clipping is ignored under the 1-bit optimizer "
@@ -250,6 +274,14 @@ class TrainingEngine:
             # zero.Init parity: the tree is drawn on the host and each
             # leaf placed (cut to this rank's shard at stage 3) and dropped
             params = zero.draw_on_host(params)
+        self._specs = zero.spec_leaves(params, param_specs)
+        for sp in self._specs:
+            bad = [a for a in zero.spec_axes(sp) if a not in _MP_AXES]
+            if bad:
+                raise ValueError(
+                    f"param spec {sp} names {bad}: a param spec places "
+                    f"leaves over {_MP_AXES} (ZeRO adds the data axis)")
+        self._mp = any(zero.spec_axes(sp) for sp in self._specs)
         leaves = tree_leaves(params)
         self._skeleton = tree_unflatten_like(params, [0] * len(leaves))
         self._shapes = [tuple(np.shape(l)) for l in leaves]
@@ -261,11 +293,11 @@ class TrainingEngine:
         # the dim each leaf's shard splits (None: whole on every rank);
         # used from stage 1 (optimizer state), 2 (grads), 3 (master)
         self._dims = [None if stage < 1 or not _is_float(l)
-                      else zero.shard_dim(s, self.dp)
-                      for s, l in zip(self._shapes, leaves)]
+                      else zero.shard_dim(s, self.dp, sp)
+                      for s, l, sp in zip(self._shapes, leaves, self._specs)]
         master = zero.place_leaves(
             leaves, self._dims if stage >= 3 else [None] * len(leaves),
-            self.rank, self.dp, self.device, mdt)
+            self.rank, self.dp, self.device, mdt, self._specs, self.mesh)
         params = tree_unflatten_like(self._skeleton, master)
         del leaves, master
         if stage in (1, 2):
@@ -283,6 +315,10 @@ class TrainingEngine:
         from deepspeed_tpu_torch.offload import offload_placement
 
         place = offload_placement(config)
+        if (place["optimizer"] or place["master"]) and mp:
+            raise NotImplementedError(
+                f"offload blocks over mesh axes {mp}: the offload engines "
+                "beyond one data-parallel rank are ROADMAP A9's remainder")
         self._host_opt, self._host_master = (place["optimizer"],
                                              place["master"])
         self._pinned: list = []
@@ -424,9 +460,12 @@ class TrainingEngine:
 
     def _local_rows(self, batch, parts: int = 1):
         """This rank's rows of the global batch, on the device: the block
-        ``[r n, (r + 1) n)``, ``n = B / world``, which JAX's ``[dp, accum,
-        mb]`` view gives device r, cut into ``parts`` microbatches."""
-        W, r = self.dp, self.rank
+        ``[r n, (r + 1) n)``, ``n = B / W``, which JAX's ``[dp, accum, mb]``
+        view gives device r (``W`` the ranks of ``data`` x ``expert``, ``r``
+        this rank's index there, data-major), cut into ``parts``
+        microbatches."""
+        E = self.mesh.size("expert")
+        W, r = self.dp * E, self.rank * E + self.mesh.rank_in("expert")
 
         def rows(x):
             if not getattr(x, "ndim", 0):
@@ -457,7 +496,11 @@ class TrainingEngine:
         if self.grad_comm_mode == "qwz":
             return self._qwz_train_step(batch)
         cfg = self.config
-        micro = self._local_rows(batch, cfg.gradient_accumulation_steps)
+        # pipelined: the loss consumes the whole batch and microbatches it
+        # inside the pipeline (ref: runtime/pipe/engine.py train_batch)
+        micro = self._local_rows(
+            batch, 1 if cfg.pipeline.stages > 1
+            else cfg.gradient_accumulation_steps)
         accum = len(micro)
         cparams = self._compute_params()
         leaves = tree_leaves(cparams)
@@ -470,8 +513,8 @@ class TrainingEngine:
         # size JAX's per-device partials have (what fp16 overflow sees)
         # and the exchange sums them; the compressed paths average local
         # means, as JAX's shard_map steps do
-        share = self.dp if self.grad_comm_mode is None and self.dp > 1 \
-            else None
+        W = self.mesh.dp_world
+        share = W if self.grad_comm_mode is None and W > 1 else None
         for mb in micro:
             loss, aux = self._loss_for(cparams, mb)
             scaled = precision.scale_loss(
@@ -495,8 +538,14 @@ class TrainingEngine:
                 g /= accum
         loss = loss_sum / accum if accum > 1 else loss_sum
         grads = self._reduce_grads(grads)
-        loss = comm.all_reduce_(loss, "data", comm.ReduceOp.AVG)
+        loss = self._batch_mean_(loss)
         return self._finish_step(grads, loss, auxes)
+
+    def _batch_mean_(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks that split the batch, in place."""
+        for a in self._batch_live or ["data"]:
+            comm.all_reduce_(loss, a, comm.ReduceOp.AVG)
+        return loss
 
     def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The rank-local grads summed (each is its share of the global
@@ -518,9 +567,16 @@ class TrainingEngine:
         # JAX engine's, whose grads are in the compute dtype): a sum of
         # finite partials that overflows fp16 skips the step there too
         wire = torch.float16 if self.config.precision.is_fp16 \
-            and self.dp > 1 else None
+            and self.mesh.dp_world > 1 else None
         if wire is not None:
             grads = [g.to(wire) for g in grads]
+        # the token-splitting axes besides data: seq splits every leaf's
+        # tokens, expert those of every leaf that is not an expert's
+        for a in ("seq", "expert"):
+            if self.mesh.size(a) > 1:
+                for g, sp in zip(grads, self._specs):
+                    if a not in zero.spec_axes(sp):
+                        comm.all_reduce_(g, a)
         if self.stage >= 2:
             grads = zero.grad_constraint(grads, self._dims,
                                          comm.ReduceOp.SUM)
@@ -529,12 +585,13 @@ class TrainingEngine:
         return grads if wire is None else [g.float() for g in grads]
 
     def _agree(self, ok: bool) -> bool:
-        """``ok`` on every rank (an all-reduced minimum), so all ranks skip
-        alike."""
+        """``ok`` on every rank (an all-reduced minimum over every axis), so
+        all ranks skip alike."""
         if self.mesh.group("data") is None:
             return ok
         t = torch.tensor([int(ok)], dtype=torch.int32, device=self.device)
-        comm.all_reduce_(t, "data", comm.ReduceOp.MIN)
+        for a in self._live or ["data"]:
+            comm.all_reduce_(t, a, comm.ReduceOp.MIN)
         return bool(t.item())
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
@@ -549,12 +606,24 @@ class TrainingEngine:
             return torch.sqrt(comm.all_reduce_(sq, "data",
                                                comm.ReduceOp.AVG))
         sharded = self.stage >= 2
+
+        def counted(d, sp) -> bool:
+            # a leaf's sum of squares counts once: on each rank holding a
+            # distinct block of it, and on index 0 of every other axis
+            split = set(zero.spec_axes(sp))
+            if sharded and d is not None:
+                split.add("data")
+            return all(a in split or self.mesh.rank_in(a) == 0
+                       for a in self._live or ["data"])
+
         sums = torch.stack([
-            torch.sum(torch.square(g.float()))
-            if self.rank == 0 or (sharded and d is not None)
+            torch.sum(torch.square(g.float())) if counted(d, sp)
             else g.new_zeros((), dtype=torch.float32)
-            for g, d in zip(grads, self._dims or [None] * len(grads))])
-        return torch.sqrt(comm.all_reduce_(sums, "data").sum())
+            for g, d, sp in zip(grads, self._dims or [None] * len(grads),
+                                self._specs)])
+        for a in self._live or ["data"]:
+            comm.all_reduce_(sums, a)
+        return torch.sqrt(sums.sum())
 
     def _finish_step(self, grads: List[torch.Tensor], loss, auxes) -> dict:
         """Unscale/overflow-check, clip, update, commit (the JAX
@@ -714,7 +783,7 @@ class TrainingEngine:
         with torch.no_grad():
             cparams = self._compute_params()
             loss, aux = self._loss_for(cparams, self._local_rows(batch)[0])
-            loss = comm.all_reduce_(loss, "data", comm.ReduceOp.AVG)
+            loss = self._batch_mean_(loss)
         return loss if aux is None else (loss, aux)
 
     def __call__(self, batch):
@@ -762,26 +831,33 @@ class TrainingEngine:
     def module_params(self):
         """The master params as whole leaves: below stage 3 the live
         tensors, which later steps update in place; at stage 3 gathered
-        one leaf at a time, and under qwZ from the rows (fresh tensors,
-        the same on every rank)."""
+        one leaf at a time, and under qwZ from the rows, and whole leaves
+        gathered from every rank's model-parallel blocks when a spec
+        splits them (fresh tensors, the same on every rank)."""
         if self.grad_comm_mode == "qwz":
             return self._qwz_exact_params(
                 precision.master_dtype(self.config.precision))
+        params = self.state.params
         if self.stage >= 3:
-            return zero.unshard_params(self.state.params, self._dims)
-        return self.state.params
+            params = zero.unshard_params(params, self._dims)
+        if self._mp:
+            params = tree_unflatten_like(params, [
+                zero.gather_local(t, sp, self.mesh) for t, sp in
+                zip(tree_leaves(params), self._specs)])
+        return params
 
     def state_layout(self):
         """How this rank holds the state, for checkpoints: ``("qwz",
         chunk)`` for the flat rows, else ``("leaves", param_dims,
-        opt_dims)``: the dim each param / optimizer leaf is split along
-        over the data axis (None: whole)."""
+        opt_dims, specs)``: the dim each param / optimizer leaf is split
+        along over the data axis (None: whole), and each leaf's
+        model-parallel spec."""
         if self.grad_comm_mode == "qwz":
             return ("qwz", self._qwz_chunk)
         dims = self._dims or [None] * len(self._shapes)
         pdims = dims if self.stage >= 3 else [None] * len(dims)
         odims = dims if self.stage >= 1 else [None] * len(dims)
-        return ("leaves", pdims, odims)
+        return ("leaves", pdims, odims, self._specs)
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
@@ -833,14 +909,8 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
     :class:`~deepspeed_tpu_torch.infinity.InfinityEngine`; everything else
     to :class:`TrainingEngine` (ZeRO stages 0-3 over the mesh; its
     unscheduled ``cpu`` offload blocks keep stage 0's state in page-locked
-    host memory).  ``param_specs`` (a tensor-parallel spec tree, which the
-    HF ``Trainer`` passes along) must be None: tensor parallelism is
-    ROADMAP A9's remainder."""
-    if param_specs is not None:
-        raise NotImplementedError(
-            "param_specs (tensor-parallel spec trees) is not ported yet: "
-            "tensor parallelism is ROADMAP A9's remainder; the port "
-            "shards over the data axis only")
+    host memory).  ``param_specs``: the model-parallel placements of
+    :class:`TrainingEngine` (the streaming engines take none yet)."""
     if dist_init_required is None or dist_init_required:
         cpu = device is not None and torch.device(device).type == "cpu"
         comm.init_distributed(dist_backend="gloo" if cpu else "nccl")
@@ -872,6 +942,10 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                 "the param-stream engine drives its own CPU-Adam; "
                 "configure the optimizer via the config block and drop "
                 "has_aux (LayeredModel.block_has_aux covers it)")
+        if param_specs is not None:
+            raise NotImplementedError(
+                "param_specs with the param-stream engine: the offload "
+                "engines beyond one rank are ROADMAP A9's remainder")
         engine = ParamStreamEngine(params, config, lr_scheduler=lr_scheduler,
                                    device=device)
         return _finish_initialize(engine, config, training_data)
@@ -896,6 +970,10 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                 "ZeRO-Infinity engine yet — drop one of the two (the "
                 "TrainingEngine honors curriculum; Infinity ignores it, "
                 "which would be a silent no-op)")
+        if param_specs is not None:
+            raise NotImplementedError(
+                "param_specs with the ZeRO-Infinity engine: the offload "
+                "engines beyond one rank are ROADMAP A9's remainder")
         if callable(params) and not isinstance(params, (dict, list, tuple)):
             # a zero.Init thunk: the engine keeps the compute params on
             # the card regardless, so materialize it now
@@ -905,7 +983,8 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
     else:
         engine = TrainingEngine(loss_fn, params, config, optimizer=optimizer,
                                 lr_scheduler=lr_scheduler, has_aux=has_aux,
-                                device=device, mesh=mesh)
+                                device=device, mesh=mesh,
+                                param_specs=param_specs)
     return _finish_initialize(engine, config, training_data)
 
 

@@ -49,9 +49,21 @@ Int8 weight-only serving (``weight_dtype="int8"``): the family builders
 device (kernel B9 on CUDA) and the forward dequantizes one layer at a
 time.
 
-Blocks of the reference engine that this slice does not port (mesh,
-telemetry, tracing, slo, faults, shedding, history, incidents, devprof,
-comm) raise ``NotImplementedError`` when enabled; they are never ignored.
+Sharded serving (``mesh``, ref: replace_module.py TP injection and
+DeepSpeed-MoE's expert-parallel inference): one replica spans the ranks of
+a :class:`~deepspeed_tpu_torch.topology.MeshSpec` with ``model`` and / or
+``expert`` > 1.  Every rank runs the same scheduler on the same requests;
+the family builders place each rank's block of the weights
+(:mod:`~deepspeed_tpu_torch.inference.sharded`, also int8 and the int8
+wire of ``comm.quantized_serving``), each rank's cache holds
+``n_kv_heads / model`` heads, the paged kernels run on the rank's own
+heads (the JAX engine demotes its paged kernel to XLA under a mesh; the
+function is the same), and the logits are gathered, so every rank samples
+the same tokens.
+
+Blocks of the reference engine that this slice does not port (telemetry,
+tracing, slo, faults, shedding, history, incidents, devprof) raise
+``NotImplementedError`` when enabled; they are never ignored.
 """
 
 from __future__ import annotations
@@ -89,7 +101,6 @@ from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
 # enabled-when-set blocks of the reference engine, and the slice that
 # ports each
 UNPORTED_BLOCKS = {
-    "mesh": "the distributed slice",
     "telemetry": "the control-plane slice",
     "tracing": "the control-plane slice",
     "slo": "the control-plane slice",
@@ -99,7 +110,6 @@ UNPORTED_BLOCKS = {
     "history": "the control-plane slice",
     "incidents": "the control-plane slice",
     "devprof": "the control-plane slice",
-    "comm": "the distributed slice",
 }
 
 
@@ -248,13 +258,22 @@ class ServingEngine:
                  decode_chunk: int = 1, prefill_chunk: int = 0,
                  chunk_prefill_fn=None, kernels=None, device=None,
                  prefix_cache=None, kv_tier=None, speculative=None,
-                 drafter=None, **blocks):
+                 drafter=None, mesh=None, comm=None, **blocks):
         unknown = set(blocks) - set(UNPORTED_BLOCKS)
         if unknown:
             raise TypeError(f"unexpected ServingEngine arguments "
                             f"{sorted(unknown)}")
         _reject_unported(blocks)
         self.device = resolve_device(device)
+        # a sharded replica: the cache's head axis splits over model
+        self.mesh = _active_mesh(mesh)
+        self.comm_placement = None
+        if self.mesh is not None and self.mesh.size("model") > 1:
+            tp = self.mesh.size("model")
+            if n_kv % tp:
+                raise ValueError(f"n_kv_heads {n_kv} not divisible by "
+                                 f"model-axis size {tp}")
+            n_kv //= tp
         self.params = params
         self.decode_chunk = int(decode_chunk)
         if self.decode_chunk < 1:
@@ -1259,35 +1278,73 @@ class ServingEngine:
         self._closed = True
 
 
+def _active_mesh(mesh):
+    """``mesh`` when it shards a replica (``model`` or ``expert`` > 1),
+    None for no mesh or a mesh of one rank."""
+    from deepspeed_tpu_torch.topology import MeshSpec
+
+    if mesh is None:
+        return None
+    if not isinstance(mesh, MeshSpec):
+        raise TypeError(f"mesh must be a topology.MeshSpec (e.g. from "
+                        f"inference.engine.serving_mesh_from_config), got "
+                        f"{type(mesh).__name__}")
+    return mesh if any(mesh.size(a) > 1 for a in ("model", "expert")) \
+        else None
+
+
 def _family_engine(forward_paged, params, cfg, weight_dtype: str,
                    quant_group_size: int, device, skip_paths,
-                   **kw) -> ServingEngine:
+                   specs=None, **kw) -> ServingEngine:
     """ServingEngine over a model family's ``forward_paged``: ``params``
     move to ``device``, the kernel policy resolves once and reaches the
     engine, and ``weight_dtype="int8"`` quantizes every matrix leaf but
     ``skip_paths`` on ``device`` (B9 on CUDA; leaves already quantized pass
     through).  Any other ``weight_dtype`` but ``"bfloat16"`` raises
-    ``NotImplementedError``: never serve unquantized quietly."""
+    ``NotImplementedError``: never serve unquantized quietly.  Under a
+    sharding ``mesh`` each rank keeps its blocks of the weights under
+    ``specs`` (the family's ``param_specs``), and each forward runs with
+    that mesh current."""
+    from deepspeed_tpu_torch import topology
+    from deepspeed_tpu_torch.config import CommConfig
+
     dev = resolve_device(device)
     policy = resolve_serving_kernels(kw.pop("kernels", None), device=dev)
     pk = policy.paged_attention
-    params = _to_device(params, dev)
-    if weight_dtype != "bfloat16":
-        params, = quantize_for_inference(
-            params, weight_dtype=weight_dtype, group_size=quant_group_size,
-            skip_paths=skip_paths)
+    mesh = _active_mesh(kw.get("mesh"))
+    stats = None
+    if weight_dtype not in ("bfloat16", "int8"):
+        quantize_for_inference(params, weight_dtype=weight_dtype)  # raises
+    if mesh is not None:
+        from deepspeed_tpu_torch.inference.sharded import place_for_serving
+
+        params, stats = place_for_serving(
+            params, specs, mesh, dev, weight_dtype, quant_group_size,
+            skip_paths, CommConfig.coerce(kw.get("comm")))
+    else:
+        params = _to_device(params, dev)
+        if weight_dtype != "bfloat16":
+            params, = quantize_for_inference(
+                params, weight_dtype=weight_dtype,
+                group_size=quant_group_size, skip_paths=skip_paths)
 
     def step(params, tokens, cache):
+        if mesh is not None:
+            topology.set_current_mesh(mesh)
         return forward_paged(params, tokens, cfg, cache, paged_kernel=pk)
 
     def chunk_step(params, tokens, cache):
+        if mesh is not None:
+            topology.set_current_mesh(mesh)
         return forward_paged(params, tokens, cfg, cache, continuation=True,
                              paged_kernel=pk)
 
-    return ServingEngine(
+    eng = ServingEngine(
         params, step, step, n_layers=cfg.n_layers, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, chunk_prefill_fn=chunk_step, kernels=policy,
         device=dev, **kw)
+    eng.comm_placement = stats
+    return eng
 
 
 def _route_zero_inference(zero_inference, family: str, params, cfg,
@@ -1301,6 +1358,10 @@ def _route_zero_inference(zero_inference, family: str, params, cfg,
     zi = ZeroInferenceConfig.coerce(zero_inference)
     if not zi.enabled:
         return None
+    if _active_mesh(kw.get("mesh")) is not None:
+        raise NotImplementedError(
+            "zero_inference over a sharding mesh: the offload engines "
+            "beyond one rank are ROADMAP A9's remainder")
     from deepspeed_tpu_torch.inference.zero_inference import (
         zero_inference_serving_engine)
 
@@ -1325,7 +1386,13 @@ def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
     ``zero_inference``: a :class:`~deepspeed_tpu_torch.config.
     ZeroInferenceConfig` (or its dict form) routes to the weight-streamed
     engine: layer weights live on a host or NVMe tier and stream through a
-    small device working set, so the served model may exceed the card."""
+    small device working set, so the served model may exceed the card.
+
+    ``mesh``: a :class:`~deepspeed_tpu_torch.topology.MeshSpec` with
+    ``model`` > 1 serves one tensor-parallel replica over its ranks
+    (``llama.param_specs``; int8 codes and scales cut like their weights;
+    ``comm={"quantized_serving": True}`` places the blocks over the int8
+    wire)."""
     from deepspeed_tpu_torch.models import llama
 
     zi_engine = _route_zero_inference(
@@ -1335,7 +1402,8 @@ def llama_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
         return zi_engine
     return _family_engine(llama.forward_paged, params, cfg, weight_dtype,
                           quant_group_size, device,
-                          ("attn_norm", "mlp_norm", "final_norm"), **kw)
+                          ("attn_norm", "mlp_norm", "final_norm"),
+                          specs=llama.param_specs(cfg), **kw)
 
 
 # GPT-2 leaves an int8 engine keeps exact (the JAX builder's list): the
@@ -1351,10 +1419,18 @@ def gpt2_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
     forward_paged` (ref: the reference serves GPT-2 through kernel
     injection, deepspeed/module_inject/containers/gpt2.py).  ``max_seq``
     past the learned position table raises ``ValueError``; int8 weights
-    keep :data:`GPT2_INT8_SKIP` exact; a ``mesh`` is refused by the engine,
-    as for Llama."""
+    keep :data:`GPT2_INT8_SKIP` exact; a sharding ``mesh`` raises (GPT-2's
+    ``param_specs`` are queued)."""
     from deepspeed_tpu_torch.models import gpt2
 
+    mesh = _active_mesh(kw.get("mesh"))
+    if mesh is not None and mesh.size("expert") > 1:
+        raise ValueError("GPT-2 has no expert-parallel dimension — shard "
+                         "over the model axis instead")
+    if mesh is not None:
+        raise NotImplementedError(
+            "GPT-2 tensor-parallel serving: gpt2.param_specs is queued "
+            "(ROADMAP A9's remainder)")
     max_seq = kw.get("max_seq", 256)
     if max_seq > cfg.max_seq_len:
         # learned positions are HARD-bounded by the wpe table (unlike
@@ -1382,7 +1458,8 @@ def mixtral_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
     model unchanged.  int8 weights keep :data:`MIXTRAL_INT8_SKIP` exact;
     leaves already quantized (``weights.init_quantized_params``, for a
     model whose bf16 weights do not fit the card) pass through.  A
-    ``mesh`` (expert parallelism) is refused by the engine, as for Llama;
+    ``mesh`` shards the replica: experts over ``expert``, attention and
+    the experts' FFN features over ``model`` (``mixtral.param_specs``);
     ``zero_inference`` streams the layers (the expert stacks are the
     dominant MoE weight bytes) from a host or NVMe tier, as for Llama."""
     from deepspeed_tpu_torch.models import mixtral
@@ -1392,8 +1469,14 @@ def mixtral_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
         quant_group_size, device, kw)
     if zi_engine is not None:
         return zi_engine
+    mesh = _active_mesh(kw.get("mesh"))
+    if mesh is not None and cfg.num_experts % mesh.size("expert"):
+        raise ValueError(
+            f"num_experts {cfg.num_experts} not divisible by expert-axis "
+            f"size {mesh.size('expert')}")
     return _family_engine(mixtral.forward_paged, params, cfg, weight_dtype,
-                          quant_group_size, device, MIXTRAL_INT8_SKIP, **kw)
+                          quant_group_size, device, MIXTRAL_INT8_SKIP,
+                          specs=mixtral.param_specs(cfg), **kw)
 
 
 def _to_device(tree, dev):

@@ -35,7 +35,9 @@ def make_mesh(axis_sizes: Dict[str, int], device_type: Optional[str] = None):
     if total != world:
         raise ValueError(
             f"mesh {dict(axis_sizes)} needs {total} ranks, have {world}")
-    if device_type is None:
+    if device_type is None or dist.get_backend() == "gloo":
+        # a gloo group's mesh is a CPU mesh, also when its ranks compute
+        # on a GPU they share (the collectives stage CUDA tensors)
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 

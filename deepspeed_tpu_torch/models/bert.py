@@ -36,7 +36,9 @@ import torch
 
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.models.gpt2 import _mm
-from deepspeed_tpu_torch.models.llama import ATTN_IMPLS
+# the encoder attends over the whole sequence on one rank: the sequence-
+# parallel impls of the decoder are not its
+ATTN_IMPLS = ("auto", "flash", "reference")
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import gelu, gelu_mlp, layer_norm
 from deepspeed_tpu_torch.ops.losses import _masked_mean, f32_matmul
@@ -64,8 +66,8 @@ class BertConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: the port serves "
-                f"{'|'.join(ATTN_IMPLS)}; ring/ulysses/sparse come with the "
-                "distributed slice")
+                f"{'|'.join(ATTN_IMPLS)}; ring/ulysses split a decoder's "
+                "sequence, and sparse attention is ROADMAP A9's remainder")
         check_remat(self.remat)
 
     @property
@@ -101,10 +103,11 @@ def param_count(cfg: BertConfig) -> int:
 
 
 def param_specs(cfg: BertConfig):
-    """The tensor-parallel layout comes with the distributed slice."""
+    """The tensor-parallel layout of BERT is queued (ROADMAP A9's
+    remainder)."""
     raise NotImplementedError(
-        "bert.param_specs: sharded BERT (tensor parallelism over a mesh) "
-        "comes with the distributed slice (ROADMAP A9)")
+        "bert.param_specs: sharded BERT (tensor parallelism over a mesh) is "
+        "queued after Llama's and Mixtral's (ROADMAP A9's remainder)")
 
 
 # ------------------------------------------------------------------- blocks

@@ -24,6 +24,21 @@ per forward, each to bfloat16 as the JAX package's ``quantized_apply`` does
 the int8 tree as it is).
 A quantized embedding makes the residual stream bfloat16 whatever the
 norm gains' dtype, as it does there (``rms_norm`` keeps x's dtype).
+
+Model parallelism (:func:`param_specs`): every forward takes a tree whose
+leaves are this rank's blocks and decides from each leaf's shape what it
+holds, so a whole tree runs beside a sharded one.  Under tensor
+parallelism (``model``) q/k/v, ``w1``/``w3`` and the LM head hold this
+rank's output columns (heads, FFN features, vocabulary) and ``wo``/``w2``
+its input rows; the Megatron mappings of :mod:`~deepspeed_tpu_torch.
+parallel.tensor_parallel` reduce the partial sums and gather the embedding
+features and the logits.  Under sequence parallelism (``seq`` with
+``attn_impl`` ring or ulysses) :func:`loss_fn` gives each rank ``T / sp``
+consecutive positions through the whole block stack (DeepSpeed-Ulysses'
+layout), its RoPE positions starting at ``rank * T / sp``, and the loss is
+the global token mean.  With ``n_micro`` and a ``pipe`` axis the blocks
+(this stage's ``L / S`` layers) run as a pipeline
+(:func:`~deepspeed_tpu_torch.parallel.pipeline.pipelined_scan`).
 """
 
 from __future__ import annotations
@@ -34,14 +49,19 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
-from deepspeed_tpu_torch.ops.losses import chunked_lm_loss, f32_matmul
+from deepspeed_tpu_torch.ops.losses import (chunked_lm_loss, f32_matmul,
+                                            lm_loss_sum)
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    col_input, row_output, vocab_parallel_nll_sum)
 from deepspeed_tpu_torch.remat import (check as check_remat,
                                        checkpoint_block, checkpoint_named)
+from deepspeed_tpu_torch.topology import current_mesh
 
-ATTN_IMPLS = ("auto", "flash", "reference")
+ATTN_IMPLS = ("auto", "flash", "reference", "ring", "ulysses")
 
 
 @dataclasses.dataclass
@@ -70,8 +90,8 @@ class LlamaConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: the port serves "
-                f"{'|'.join(ATTN_IMPLS)}; ring/ulysses/sparse come with the "
-                "distributed slice")
+                f"{'|'.join(ATTN_IMPLS)}; sparse attention is ROADMAP A9's "
+                "remainder")
         check_remat(self.remat)      # remat.POLICIES or remat.OFFLOAD
 
     @property
@@ -108,6 +128,34 @@ def param_count(cfg: LlamaConfig) -> int:
     return int(L * per_layer + emb + head + d)
 
 
+def param_specs(cfg: LlamaConfig, pipeline: bool = False):
+    """Tensor-parallel placements over the ``model`` axis (Megatron's
+    layout: q/k/v and ``w1``/``w3`` column-parallel, ``wo``/``w2``
+    row-parallel, the embedding on its feature dim, the LM head on its
+    vocabulary), the tree of JAX ``param_specs``.  Dim 0 of the block
+    leaves is the stacked layer axis: ``pipeline=True`` splits it over
+    ``pipe`` (stage partitioning)."""
+    col, row = (None, None, "model"), (None, "model", None)
+    specs = {
+        "embed": (None, "model"),
+        "blocks": {
+            "attn_norm": (None, None),
+            "wq": col, "wk": col, "wv": col, "wo": row,
+            "mlp_norm": (None, None),
+            "w1": col, "w3": col, "w2": row,
+        },
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+    if pipeline:
+        from deepspeed_tpu_torch.parallel.pipeline import stage_spec
+
+        specs["blocks"] = {k: stage_spec(v)
+                           for k, v in specs["blocks"].items()}
+    return specs
+
+
 # ------------------------------------------------------------------- forward
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
     """positions: [T] or [B, T] int -> (cos, sin) [..., head_dim/2] f32."""
@@ -132,35 +180,64 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def _seq_parallel(cfg: LlamaConfig) -> int:
+    """The ``seq`` axis size this config's attention splits the sequence
+    over (1: none)."""
+    ms = current_mesh()
+    sp = 1 if ms is None else ms.size("seq")
+    if sp > 1 and cfg.attn_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"a seq axis of {sp} needs attn_impl ring or ulysses, got "
+            f"{cfg.attn_impl!r}")
+    return sp if cfg.attn_impl in ("ring", "ulysses") else 1
+
+
 def _attention(q, k, v, cfg: LlamaConfig, segment_ids=None):
-    """q: [B,T,H,Dh], k/v: [B,T,KV,Dh] -> [B,T,H,Dh] (causal)."""
-    if cfg.attn_impl == "reference":
+    """q: [B,T,H,Dh], k/v: [B,T,KV,Dh] -> [B,T,H,Dh] (causal).  Under
+    ring / ulysses with a ``seq`` axis, q/k/v are this rank's positions."""
+    impl = cfg.attn_impl
+    if impl in ("ring", "ulysses") and _seq_parallel(cfg) > 1:
+        if impl == "ring":
+            from deepspeed_tpu_torch.parallel.ring_attention import (
+                ring_attention_sharded)
+
+            return ring_attention_sharded(q, k, v, causal=True,
+                                          segment_ids=segment_ids)
+        from deepspeed_tpu_torch.parallel.sequence_parallel import (
+            ulysses_attention_sharded)
+
+        return ulysses_attention_sharded(q, k, v, causal=True,
+                                         segment_ids=segment_ids)
+    if impl == "reference":
         return _reference(q, k, v, causal=True, segment_ids=segment_ids)
     return flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
 
 
 def _qkv(cfg: LlamaConfig, lp, x, cos, sin):
+    """q [B, T, h, Dh], k / v [B, T, kv, Dh]: h and kv are this rank's
+    heads (all of them unless ``wq`` / ``wk`` hold a column block)."""
     B, T, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = apply_rope((h @ lp["wq"]).reshape(B, T, nh, hd), cos, sin)
-    k = apply_rope((h @ lp["wk"]).reshape(B, T, nkv, hd), cos, sin)
-    v = (h @ lp["wv"]).reshape(B, T, nkv, hd)
+    h = col_input(h, lp["wq"], cfg.n_heads * hd)
+    q = apply_rope((h @ lp["wq"]).reshape(B, T, -1, hd), cos, sin)
+    k = apply_rope((h @ lp["wk"]).reshape(B, T, -1, hd), cos, sin)
+    v = (h @ lp["wv"]).reshape(B, T, -1, hd)
     return q, k, v
 
 
 def _attn_out(cfg: LlamaConfig, lp, x, cos, sin, segment_ids):
-    """The block's attention context [B, T, H * Dh] (JAX's ``attn_out``)."""
+    """The block's attention context [B, T, h * Dh] (JAX's ``attn_out``)."""
     B, T, _ = x.shape
     q, k, v = _qkv(cfg, lp, x, cos, sin)
-    return _attention(q, k, v, cfg, segment_ids).reshape(
-        B, T, cfg.n_heads * cfg.head_dim)
+    return _attention(q, k, v, cfg, segment_ids).reshape(B, T, -1)
 
 
 def _mlp_out(cfg: LlamaConfig, lp, x):
-    """The FFN inner activation [B, T, ffn] (JAX's ``mlp_out``)."""
-    return swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp["w1"],
-                  lp["w3"])
+    """The FFN inner activation [B, T, ffn] (JAX's ``mlp_out``; this
+    rank's features when ``w1`` holds a column block)."""
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return swiglu(col_input(h, lp["w1"], cfg.ffn_dim), lp["w1"], lp["w3"])
 
 
 def _block_tail(cfg: LlamaConfig, lp, x, attn, remat: str = "none",
@@ -169,11 +246,12 @@ def _block_tail(cfg: LlamaConfig, lp, x, attn, remat: str = "none",
     its residual; ``ffn``: an ``(lp, h) -> y`` override of the FFN over the
     ``mlp_norm``-normed residual (Mixtral's expert combine)."""
     B, T, _ = x.shape
-    x = x + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    x = x + row_output(attn.reshape(B, T, -1) @ lp["wo"], lp["wo"],
+                       cfg.n_heads * cfg.head_dim)
     if ffn is not None:
         return x + ffn(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
     mlp = checkpoint_named(_mlp_out, remat)(cfg, lp, x)
-    return x + mlp @ lp["w2"]
+    return x + row_output(mlp @ lp["w2"], lp["w2"], cfg.ffn_dim)
 
 
 def _block(cfg: LlamaConfig, lp, x, cos, sin, segment_ids):
@@ -191,8 +269,17 @@ def _layer(params, l: int):
     return {name: take(w, l) for name, w in params["blocks"].items()}
 
 
-def _embed(params, tokens):
-    return take(params["embed"], tokens.long())
+def _n_layers(params) -> int:
+    """The layers this rank's stacked blocks hold (``L / S`` on a pipeline
+    stage)."""
+    return int(params["blocks"]["attn_norm"].shape[0])
+
+
+def _embed(params, tokens, cfg):
+    """The token embeddings [B, T, d], the features gathered over
+    ``model`` when the table holds this rank's feature block."""
+    x = take(params["embed"], tokens.long())
+    return comm.gather_from(x, "model", -1) if x.shape[-1] != cfg.dim else x
 
 
 def lm_head(params, cfg: LlamaConfig):
@@ -202,7 +289,17 @@ def lm_head(params, cfg: LlamaConfig):
 
 
 def _head_logits(params, cfg: LlamaConfig, h):
-    return f32_matmul(h, lm_head(params, cfg))
+    """f32 logits [..., V], gathered over ``model`` when the head holds a
+    vocabulary block (a tied head split on its features reduces the
+    partial products instead)."""
+    head = lm_head(params, cfg)
+    if cfg.tie_embeddings and head.shape[0] != cfg.dim:
+        return comm.reduce_from(f32_matmul(
+            comm.scatter_to(h, "model", -1), head), "model")
+    if head.shape[-1] != cfg.vocab_size:
+        return comm.gather_from(f32_matmul(comm.copy_to(h, "model"), head),
+                                "model", -1)
+    return f32_matmul(h, head)
 
 
 def _logits(params, cfg: LlamaConfig, x):
@@ -217,19 +314,34 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None,
     LM head and the loss consume).  ``segment_ids`` [B, T]: packed
     documents attend only within their own id.  Each block runs under
     ``cfg.remat`` (:mod:`deepspeed_tpu_torch.remat`), as the JAX model wraps
-    its scanned block in ``jax.checkpoint``."""
-    if n_micro:
-        raise NotImplementedError(
-            "n_micro: pipeline-parallel microbatching comes with the "
-            "distributed slice (ROADMAP A9)")
+    its scanned block in ``jax.checkpoint``.  ``n_micro`` with a ``pipe``
+    axis on the current mesh runs the blocks as a pipeline of ``n_micro``
+    microbatches, the stage body under ``cfg.remat``; without one it is
+    ignored, as in the JAX package."""
     T = tokens.shape[1]
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg)
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_tables(cfg, positions)
-    block = checkpoint_block(_block, cfg.remat)
-    for l in range(cfg.n_layers):
-        x = block(cfg, _layer(params, l), x, cos, sin, segment_ids)
+    ms = current_mesh()
+    if n_micro and ms is not None and ms.size("pipe") > 1:
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "packed segment_ids are not supported with pipeline-"
+                "parallel microbatching (as in the JAX package): pipeline "
+                "the batch without packing, or drop the pipe axis")
+        from deepspeed_tpu_torch.parallel.pipeline import pipelined_scan
+
+        def block_fn(x, lp):
+            return _block(cfg, {k: take(w) for k, w in lp.items()}, x, cos,
+                          sin, None)
+
+        x = pipelined_scan(block_fn, params["blocks"], x, n_micro, ms,
+                           remat=cfg.remat)
+    else:
+        block = checkpoint_block(_block, cfg.remat)
+        for l in range(_n_layers(params)):
+            x = block(cfg, _layer(params, l), x, cos, sin, segment_ids)
     return rms_norm(x, take(params["final_norm"]), cfg.norm_eps)
 
 
@@ -253,16 +365,27 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache):
 
     T = tokens.shape[1]
     start = cache.length
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg)
     cos, sin = rope_tables(cfg, start + torch.arange(
         T, dtype=torch.int32, device=tokens.device))
-    for l in range(cfg.n_layers):
+    for l in range(_n_layers(params)):
         lp = _layer(params, l)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
         attn, _, _ = cached_attention(q, cache.k[l], cache.v[l], k, v, start)
         x = _block_tail(cfg, lp, x, attn)
     return _logits(params, cfg, x), dataclasses.replace(cache,
                                                         length=start + T)
+
+
+def _loss_sum(params, cfg, x, targets, mask):
+    """(NLL sum, count) over ``x``'s rows: a head holding this rank's
+    vocabulary block takes the vocab-parallel loss (the logits never
+    gathered), any other head the whole logits."""
+    head = lm_head(params, cfg)
+    if not cfg.tie_embeddings and head.shape[-1] != cfg.vocab_size:
+        return vocab_parallel_nll_sum(
+            f32_matmul(comm.copy_to(x, "model"), head), targets, mask)
+    return lm_loss_sum(_head_logits(params, cfg, x), targets, mask)
 
 
 def packed_doc_mask(seg):
@@ -277,11 +400,17 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
     (loss_mask), (segment_ids)}``; ``segment_ids`` are [B, T+1], aligned
     with ``tokens`` (the forward takes the input slice, and the document
     boundaries fold into the loss mask).  ``cfg.loss_chunk`` > 0 takes the
-    chunked-vocab loss, 0 the dense one."""
-    if n_micro:
-        raise NotImplementedError(
-            "n_micro: pipeline-parallel microbatching comes with the "
-            "distributed slice (ROADMAP A9)")
+    chunked-vocab loss, 0 the dense one; a head that holds this rank's
+    vocabulary block takes the vocab-parallel loss (Megatron's: the
+    logits are never gathered).
+
+    ``n_micro``: pipeline microbatches (see :func:`forward_hidden`); set it
+    to ``gradient_accumulation_steps`` with ``pipeline.stages`` > 1, and
+    the engine feeds the whole batch in one call (DeepSpeed's
+    PipelineEngine.train_batch contract).  Under sequence parallelism each
+    rank of ``seq`` runs its ``T / sp`` positions and the loss is the mean
+    over every rank's tokens (the sum all-reduced, whose backward leaves
+    each rank its own share)."""
 
     def f(params, batch):
         tokens = batch["tokens"]
@@ -293,10 +422,34 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
             doc = packed_doc_mask(seg)
             mask = doc if mask is None else mask * doc
             seg = seg[:, :-1]
-        x = forward_hidden(params, tokens[:, :-1], cfg, segment_ids=seg)
-        return chunked_lm_loss(x, lm_head(params, cfg), tokens[:, 1:],
-                               mask=mask,
-                               chunk=cfg.loss_chunk or cfg.vocab_size)
+        inp, targets = tokens[:, :-1], tokens[:, 1:]
+        sp = _seq_parallel(cfg)
+        positions = None
+        if sp > 1:
+            T = inp.shape[1]
+            if T % sp:
+                raise ValueError(f"sequence length {T} does not split over "
+                                 f"seq = {sp}")
+            n = T // sp
+            lo = comm.rank_in("seq") * n
+            cut = slice(lo, lo + n)
+            inp, targets = inp[:, cut], targets[:, cut]
+            mask = None if mask is None else mask[:, cut]
+            seg = None if seg is None else seg[:, cut]
+            positions = torch.arange(lo, lo + n, dtype=torch.int32,
+                                     device=tokens.device)
+        x = forward_hidden(params, inp, cfg, positions=positions,
+                           segment_ids=seg, n_micro=n_micro)
+        head = lm_head(params, cfg)
+        if sp == 1 and head.shape[-1] == cfg.vocab_size \
+                and head.shape[0] == cfg.dim:
+            return chunked_lm_loss(x, head, targets, mask=mask,
+                                   chunk=cfg.loss_chunk or cfg.vocab_size)
+        total, count = _loss_sum(params, cfg, x, targets, mask)
+        if sp > 1:
+            total = comm.reduce_from(total, "seq")
+            count = comm.all_reduce(count, "seq")
+        return total / torch.clamp(count, min=1.0)
 
     return f
 
@@ -454,7 +607,7 @@ def paged_layered_fns(cfg: LlamaConfig, ffn=None,
 
     def stem_fn(sp, tokens, start):
         T = tokens.shape[1]
-        x = _embed(sp, tokens)
+        x = _embed(sp, tokens, cfg)
         # ragged frontiers under continuous batching: each row rotates by
         # ITS own start
         positions = start[:, None] + torch.arange(

@@ -34,8 +34,15 @@ Int8 weights: the forwards carry ``takes_quantized`` and dequantize one
 layer at a time (:func:`~deepspeed_tpu_torch.inference.quantized.take`);
 serving keeps the router exact.  ``paged_layered_fns`` factors the paged
 forward per layer for weight-streamed serving, ``layered_model`` the
-training step for the layer-streaming engine; sharding (``param_specs``)
-raises: it comes with ROADMAP A9's distributed part.
+training step for the layer-streaming engine.
+
+Sharding (:func:`param_specs`): attention and the experts' FFN features
+split over ``model`` as Llama's do, the expert stacks over ``expert``
+(``[L, E / ep, ...]`` a rank).  Training runs the expert-parallel capacity
+layer of :mod:`~deepspeed_tpu_torch.parallel.moe` over the batch axes;
+serving's dense combine runs each rank's experts on every token and sums
+the partial combines over ``expert``, as XLA places the JAX package's
+psum at the weighted combine.
 """
 
 from __future__ import annotations
@@ -47,12 +54,15 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.config import MoEConfig
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.models import llama as _llama
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
 from deepspeed_tpu_torch.ops.losses import chunked_lm_loss, dense_lm_loss
 from deepspeed_tpu_torch.parallel.moe import MoELayer
+from deepspeed_tpu_torch.parallel.tensor_parallel import (col_input,
+                                                          row_output)
 from deepspeed_tpu_torch.remat import (check as check_remat,
                                        checkpoint_block, checkpoint_named)
 
@@ -131,9 +141,24 @@ def param_count(cfg: MixtralConfig) -> int:
 
 
 def param_specs(cfg: MixtralConfig):
-    raise NotImplementedError(
-        "mixtral.param_specs: tensor and expert sharding come with the "
-        "distributed slice (ROADMAP A9)")
+    """Tensor parallelism over ``model`` for attention and the experts'
+    FFN features, the experts over ``expert`` (``[L, E, in, out]`` ->
+    ``(None, "expert", ...)``): the JAX ``param_specs`` tree."""
+    col, row = (None, None, "model"), (None, "model", None)
+    return {
+        "embed": (None, "model"),
+        "blocks": {
+            "attn_norm": (None, None),
+            "wq": col, "wk": col, "wv": col, "wo": row,
+            "mlp_norm": (None, None),
+            "gate": (None, None, None),
+            "w1": (None, "expert", None, "model"),
+            "w3": (None, "expert", None, "model"),
+            "w2": (None, "expert", "model", None),
+        },
+        "final_norm": (None,),
+        "lm_head": (None, "model"),
+    }
 
 
 def layered_model(cfg: MixtralConfig, params):
@@ -194,18 +219,28 @@ def _attn_block(cfg: MixtralConfig, lcfg, x, lp, cos, sin,
     B, T, _ = x.shape
     attn = checkpoint_named(_llama._attn_out, remat)(
         lcfg, lp, x, cos, sin, segment_ids)
-    return x + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    return x + row_output(attn.reshape(B, T, -1) @ lp["wo"], lp["wo"],
+                          cfg.n_heads * cfg.head_dim)
 
 
-def _expert_fn(p, h):
+def _expert_fn(cfg: MixtralConfig, p, h):
     """The experts' SwiGLU FFN over stacked ``[E, ...]`` leaves and
-    dispatched tokens ``h`` [E, C, d]: three products batched over E."""
-    return swiglu(h, p["w1"], p["w3"]) @ p["w2"]
+    dispatched tokens ``h`` [E, C, d]: three products batched over E, the
+    partial sums reduced over ``model`` when the leaves hold a block of
+    the FFN features."""
+    y = swiglu(col_input(h, p["w1"], cfg.ffn_dim), p["w1"], p["w3"]) \
+        @ p["w2"]
+    return row_output(y, p["w2"], cfg.ffn_dim)
 
 
 def _moe_ffn(cfg: MixtralConfig, x, lp):
-    """x: [B, T, d] -> (y, aux) via the capacity-limited top-k dispatch."""
-    layer = MoELayer(cfg=cfg.moe_config(), expert_fn=_expert_fn)
+    """x: [B, T, d] -> (y, aux) via the capacity-limited top-k dispatch
+    (expert-parallel over the current mesh's batch axes)."""
+    from deepspeed_tpu_torch.topology import current_mesh
+
+    layer = MoELayer(cfg=cfg.moe_config(),
+                     expert_fn=functools.partial(_expert_fn, cfg),
+                     mesh=current_mesh())
     eparams = {"w1": lp["w1"], "w3": lp["w3"], "w2": lp["w2"]}
     return layer(lp["gate"], eparams, x)
 
@@ -242,7 +277,10 @@ def _moe_ffn_dense(cfg: MixtralConfig, x, lp):
     renormalised top-k router probabilities, so no token is dropped.  The
     router runs in f32; the expert outputs ``ys`` [E, N, d] stay in x's
     dtype, the combine runs in f32 and the result is cast back, JAX's
-    dtype chain step for step."""
+    dtype chain step for step.  Expert leaves that hold this rank's
+    ``E / ep`` experts combine only theirs and the partial combines are
+    summed over ``expert``; FFN features split over ``model`` reduce
+    there."""
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     h = x.reshape(-1, d)
@@ -255,10 +293,16 @@ def _moe_ffn_dense(cfg: MixtralConfig, x, lp):
     if k > 1:
         # same renormalization as the training gate (top2gating)
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-    ys = swiglu(h, lp["w1"], lp["w3"]) @ lp["w2"]               # [E, N, d]
+    ys = _expert_fn(cfg, lp, h)                                 # [E, N, d]
     wfull = torch.zeros((h.shape[0], E), dtype=w.dtype,
                         device=w.device).scatter(-1, topi, w)   # [N, E]
-    y = torch.einsum("ne,end->nd", wfull, ys.to(w.dtype))
+    el = lp["w1"].shape[0]
+    if el != E:
+        e0 = comm.rank_in("expert") * el
+        y = comm.reduce_from(torch.einsum(
+            "ne,end->nd", wfull[:, e0:e0 + el], ys.to(w.dtype)), "expert")
+    else:
+        y = torch.einsum("ne,end->nd", wfull, ys.to(w.dtype))
     return y.reshape(B, T, d).to(x.dtype)
 
 
@@ -282,7 +326,7 @@ def forward_hidden(params, tokens, cfg: MixtralConfig, positions=None,
     ``cfg.remat``.  aux: ``moe_aux_loss`` and ``moe_z_loss`` summed over
     the layers, ``moe_expert_load`` [E] averaged over them."""
     lcfg = cfg.llama_view()
-    x = _llama._embed(params, tokens)
+    x = _llama._embed(params, tokens, cfg)
     cos, sin = _rope(cfg, lcfg, tokens, positions)
     dev = x.device
     aux = {"moe_aux_loss": torch.zeros((), dtype=torch.float32, device=dev),
@@ -290,7 +334,7 @@ def forward_hidden(params, tokens, cfg: MixtralConfig, positions=None,
            "moe_expert_load": torch.zeros((cfg.num_experts,),
                                           dtype=torch.float32, device=dev)}
     block = checkpoint_block(_block, cfg.remat)
-    for l in range(cfg.n_layers):
+    for l in range(_llama._n_layers(params)):
         x, a = block(cfg, lcfg, _llama._layer(params, l), x, cos, sin,
                      segment_ids)
         aux = {"moe_aux_loss": aux["moe_aux_loss"] + a["moe_aux_loss"],
@@ -317,7 +361,7 @@ def forward_eval(params, tokens, cfg: MixtralConfig, positions=None):
     capacity-free dense MoE combine (no token drops), the reference's
     eval-mode contract.  tokens [B, T] -> logits [B, T, V] f32."""
     lcfg = cfg.llama_view()
-    x = _llama._embed(params, tokens)
+    x = _llama._embed(params, tokens, cfg)
     cos, sin = _rope(cfg, lcfg, tokens, positions)
     for l in range(cfg.n_layers):
         lp = _llama._layer(params, l)
@@ -338,7 +382,7 @@ def forward_with_cache(params, tokens, cfg: MixtralConfig, cache):
     lcfg = cfg.llama_view()
     T = tokens.shape[1]
     start = cache.length
-    x = _llama._embed(params, tokens)
+    x = _llama._embed(params, tokens, cfg)
     cos, sin = _llama.rope_tables(lcfg, start + torch.arange(
         T, dtype=torch.int32, device=tokens.device))
     ffn = functools.partial(_dense_ffn, cfg)
@@ -384,10 +428,17 @@ def loss_fn(cfg: MixtralConfig):
             seg = seg[:, :-1]
         h, aux = forward_hidden(params, tokens[:, :-1], cfg,
                                 segment_ids=seg)
-        lm = dense_lm_loss(h.reshape(-1, cfg.dim),
-                           _llama.lm_head(params, cfg.llama_view()),
-                           tokens[:, 1:].reshape(-1),
-                           None if mask is None else mask.reshape(-1))
+        lcfg = cfg.llama_view()
+        head = _llama.lm_head(params, lcfg)
+        if head.shape[-1] != cfg.vocab_size:
+            # a vocabulary block a rank: the vocab-parallel loss
+            total, count = _llama._loss_sum(params, lcfg, h, tokens[:, 1:],
+                                            mask)
+            lm = total / torch.clamp(count, min=1.0)
+        else:
+            lm = dense_lm_loss(h.reshape(-1, cfg.dim), head,
+                               tokens[:, 1:].reshape(-1),
+                               None if mask is None else mask.reshape(-1))
         total = lm + aux["moe_aux_loss"] + aux["moe_z_loss"]
         return total, {"lm_loss": lm, **aux}
 

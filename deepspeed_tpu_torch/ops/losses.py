@@ -70,6 +70,21 @@ def dense_lm_loss(x, head, targets, mask=None):
     return _masked_mean(nll, mask)
 
 
+def lm_loss_sum(logits, targets, mask=None):
+    """(sum of the (masked) NLL, count of counted rows) of f32 ``logits``
+    [..., V] against ``targets`` [...]: the two halves of
+    :func:`dense_lm_loss`'s mean, for a loss whose rows are spread over
+    ranks (the sums are all-reduced before the division)."""
+    logits = logits.reshape(-1, logits.shape[-1])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets.reshape(-1).long()[:, None])[:, 0]
+    if mask is None:
+        return nll.sum(), torch.full((), float(nll.shape[0]),
+                                     device=nll.device)
+    mask = mask.reshape(-1).float()
+    return (nll * mask).sum(), mask.sum()
+
+
 def _chunk_fwd(x, head, targets, chunk: int, v_real: int):
     """Online-logsumexp sweep over vocab chunks of ``head`` (zero-padded
     past ``v_real``; padded columns are -inf) -> (nll [N], lse [N]) f32."""

@@ -12,10 +12,19 @@ JAX's ``dots_with_no_batch_dims_saveable`` does.  The experts run as one
 product batched over the stacked ``[E, ...]`` leaves (``jax.vmap`` makes
 them batched in JAX), which that policy recomputes.
 
-Expert parallelism (a ``mesh`` with an ``expert`` axis, the all-to-all
-pair) comes with the distributed slice: a ``mesh`` raises
-``NotImplementedError`` naming ROADMAP A9, and so does
-:func:`expert_param_specs`.
+Expert parallelism (a ``mesh`` with an ``expert`` axis): each rank holds
+``E / ep`` experts (:func:`expert_param_specs`) and its rows of the batch,
+which is split over ``data`` x ``expert`` (``topology.BATCH_AXES``).  The
+gate is the JAX package's, over the GLOBAL batch (under GSPMD the batch is
+one array): the router logits are all-gathered over the batch axes, so
+capacity, buffer positions and the aux losses are the global ones.  Each
+rank writes its own tokens' slots of the ``[E, C, d]`` dispatch buffer;
+the dispatch exchange sums the buffers over the batch axes into each
+expert owner's ``[E / ep, C, d]`` block (a reduce-scatter over ``expert``,
+then a sum over ``data``), the local experts run, and the combine exchange
+all-gathers their outputs over ``expert``, the pair XLA emits for the JAX
+layer's sharding constraint on the expert dim.  Every exchange goes
+through autograd by its transpose.
 """
 
 from __future__ import annotations
@@ -116,10 +125,13 @@ def top_k_gating(logits: torch.Tensor, k: int, cap: int,
                       expert_load=dispatch.sum(-1).sum(0) / max(N, 1))
 
 
-def _no_mesh(what: str):
-    return NotImplementedError(
-        f"{what}: expert parallelism over a mesh comes with the distributed "
-        "slice (ROADMAP A9)")
+def _batch_axes(mesh) -> tuple:
+    """The batch axes of ``mesh`` that hold more than one rank."""
+    from deepspeed_tpu_torch.topology import BATCH_AXES
+
+    if mesh is None:
+        return ()
+    return tuple(a for a in BATCH_AXES if mesh.size(a) > 1)
 
 
 @dataclasses.dataclass
@@ -131,7 +143,9 @@ class MoELayer:
         tokens.  A function written for ONE expert with products over the
         trailing two dims (``x @ w``, as the JAX package's per-expert
         functions are) batches over E as ``jax.vmap`` does there.
-    mesh: must be None (expert parallelism is ROADMAP A9).
+    mesh: a :class:`~deepspeed_tpu_torch.topology.MeshSpec` whose batch
+        axes split the tokens (the training engine's); ``expert_params``
+        are then this rank's ``[E / ep, ...]`` block when ``expert`` > 1.
     """
 
     cfg: MoEConfig
@@ -139,30 +153,48 @@ class MoELayer:
     mesh: Optional[Any] = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise _no_mesh("MoELayer(mesh=...)")
+        ep = 1 if self.mesh is None else self.mesh.size(EXPERT_AXIS)
+        if self.cfg.num_experts % ep:
+            raise ValueError(f"num_experts {self.cfg.num_experts} not "
+                             f"divisible by expert-axis size {ep}")
 
     def __call__(self, gate_w: torch.Tensor, expert_params: Any,
                  x: torch.Tensor, train: bool = True):
         """x: [B, T, d] -> (y [B, T, d], aux_losses dict).  The router
         runs in f32 (no noise: the JAX layer's ``rng`` reaches a gate whose
         ``noise_std`` is 0); dispatch, experts and combine in x's dtype."""
+        from deepspeed_tpu_torch import comm
+
         cfg = self.cfg
         B, T, d = x.shape
-        N = B * T
-        xf = x.reshape(N, d)
+        n = B * T
+        xf = x.reshape(n, d)
         logits = xf.float() @ gate_w.float()
+        axes = _batch_axes(self.mesh)
+        off = 0
+        for a in reversed(axes):   # minor axis first: data-major rows
+            off += comm.rank_in(a) * n * _prod(self.mesh, axes, a)
+            logits = comm.all_gather(logits, a, axis=0)
+        N = logits.shape[0]
         factor = cfg.capacity_factor if train else cfg.eval_capacity_factor
         cap = capacity(N, cfg.num_experts, cfg.top_k, factor,
                        cfg.min_capacity)
         gate = top_k_gating(logits, cfg.top_k, cap)
         E = cfg.num_experts
+        disp = gate.dispatch[off:off + n] if axes else gate.dispatch
+        comb = gate.combine[off:off + n] if axes else gate.combine
         # dispatch "nec,nd->ecd" and combine "nec,ecd->nd" as 2-D products
-        ein = (gate.dispatch.to(x.dtype).reshape(N, E * cap).T @ xf
+        ein = (disp.to(x.dtype).reshape(n, E * cap).T @ xf
                ).reshape(E, cap, d)
-        out = self.expert_fn(expert_params, ein)                  # [E, C, d]
-        y = gate.combine.to(x.dtype).reshape(N, E * cap) @ out.reshape(
-            E * cap, d)
+        ep = self.mesh.size(EXPERT_AXIS) if self.mesh is not None else 1
+        if ep > 1:
+            ein = comm.reduce_scatter(ein, EXPERT_AXIS, axis=0)
+        if "data" in axes:
+            ein = comm.all_reduce(ein, "data")
+        out = self.expert_fn(expert_params, ein)            # [E/ep, C, d]
+        if ep > 1:
+            out = comm.all_gather(out, EXPERT_AXIS, axis=0)
+        y = comb.to(x.dtype).reshape(n, E * cap) @ out.reshape(E * cap, d)
         aux = {
             "moe_aux_loss": gate.aux_loss * cfg.aux_loss_weight,
             "moe_z_loss": gate.z_loss * cfg.z_loss_weight,
@@ -171,7 +203,21 @@ class MoELayer:
         return y.reshape(B, T, d), aux
 
 
+def _prod(mesh, axes, after) -> int:
+    """The product of the sizes of ``axes`` past ``after`` (the stride of
+    ``after``'s index in the joint batch split)."""
+    k = 1
+    for a in axes[axes.index(after) + 1:]:
+        k *= mesh.size(a)
+    return k
+
+
 def expert_param_specs(specs: Any) -> Any:
-    """Prepend the expert axis to per-expert stacked param specs: the
-    sharding specs come with the distributed slice."""
-    raise _no_mesh("expert_param_specs")
+    """Prepend the expert axis to per-expert stacked param specs (a tree
+    of specs, or one spec)."""
+    def one(s):
+        return (EXPERT_AXIS,) + (tuple(s) if s is not None else ())
+
+    if isinstance(specs, dict):
+        return {k: expert_param_specs(v) for k, v in specs.items()}
+    return one(specs)

@@ -69,6 +69,14 @@ class MeshSpec:
     def dp_world(self) -> int:
         return self.size("data") * self.size("expert")
 
+    def batch_index(self) -> int:
+        """This rank's block of the global batch dim, which is split over
+        :data:`BATCH_AXES` major to minor (JAX's ``batch_spec``)."""
+        idx = 0
+        for a in BATCH_AXES:
+            idx = idx * self.size(a) + self.rank_in(a)
+        return idx
+
     def group(self, axis: str):
         """The process group of ``axis`` through this rank (None without a
         process group)."""

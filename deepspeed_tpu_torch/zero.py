@@ -19,19 +19,22 @@ a leaf is the slice ``[r c, (r + 1) c)`` of that dim, ``c = size / W``.
 
 A placement here is a spec tuple (an axis name or None a dim, the port's
 ``PartitionSpec``); :func:`shard_dim` gives the dim the engine splits.
-``param_specs`` (tensor parallelism) is A9's remainder and raises.
+Model-parallel placements compose as in the JAX package: ``param_specs``
+(a tree of specs over ``model`` / ``pipe`` / ``expert``, or a callable
+``leaf -> spec``) cuts each leaf to this rank's block
+(:func:`local_shard`), and ZeRO layers the data axis onto a dim the spec
+leaves free.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from deepspeed_tpu_torch import comm
-from deepspeed_tpu_torch._tree import (tree_leaves, tree_map,
-                                      tree_unflatten_like)
+from deepspeed_tpu_torch._tree import tree_leaves, tree_unflatten_like
 from deepspeed_tpu_torch.topology import (MeshSpec, Spec, ZERO_AXES,
                                           _pick_dim, shard_leaf_spec)
 
@@ -40,15 +43,101 @@ logger = logging.getLogger(__name__)
 SpecTree = Union[None, Callable, Any]
 
 
+def _norm_spec(spec) -> Spec:
+    """A leaf's spec as a tuple (None: replicated), trailing Nones kept
+    as given."""
+    if spec is None:
+        return ()
+    if not isinstance(spec, (tuple, list)):
+        raise TypeError(f"a placement spec is a tuple of axis names or "
+                        f"None a dim, got {spec!r}")
+    return tuple(spec)
+
+
+def _spec_walk(params, specs, fn, out) -> None:
+    """``fn(leaf, spec)`` for each leaf of ``params`` in tree order, the
+    spec read from the same place of ``specs`` (a tree of specs, a
+    callable ``leaf -> spec`` or None).  A QuantizedTensor is one leaf."""
+    from deepspeed_tpu_torch.inference.quantized import _is_qt
+
+    if params is None:
+        return
+    if isinstance(params, dict):
+        for k in sorted(params):
+            sub = specs if specs is None or callable(specs) else specs[k]
+            _spec_walk(params[k], sub, fn, out)
+    elif isinstance(params, (list, tuple)) and not _is_qt(params):
+        for i, v in enumerate(params):
+            sub = specs if specs is None or callable(specs) else specs[i]
+            _spec_walk(v, sub, fn, out)
+    else:
+        spec = specs(params) if callable(specs) else specs
+        out.append(fn(params, _norm_spec(spec)))
+
+
+def spec_leaves(params: Any, param_specs: SpecTree = None) -> List[Spec]:
+    """The spec of each leaf of ``params`` in :func:`tree_leaves` order (a
+    QuantizedTensor counts once)."""
+    out: list = []
+    _spec_walk(params, param_specs, lambda _, sp: sp, out)
+    return out
+
+
 def resolve_specs(params: Any, param_specs: SpecTree = None) -> Any:
-    """The base spec of every leaf: replicated.  A tensor-parallel
-    ``param_specs`` tree is not ported (ROADMAP A9's remainder)."""
-    if param_specs is not None:
-        raise NotImplementedError(
-            "param_specs (tensor-parallel spec trees) is not ported yet: "
-            "tensor parallelism is part of ROADMAP A9's remainder; the "
-            "port shards over the data axis only")
-    return tree_map(lambda _: (), params)
+    """Normalize ``param_specs`` (None | callable ``leaf -> spec`` | a tree
+    of specs shaped like ``params``) to a tree of spec tuples shaped like
+    ``params``, ``()`` (replicated) where a spec is None (JAX's
+    ``resolve_specs``)."""
+    if params is None:
+        return param_specs
+    return tree_unflatten_like(params, spec_leaves(params, param_specs))
+
+
+def _axis_entries(entry) -> tuple:
+    """The axis names of one spec entry (a name, a tuple of them, None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> tuple:
+    """Every axis name a spec places a dim over."""
+    return tuple(a for e in spec for a in _axis_entries(e))
+
+
+def _entry_index(entry, ms: MeshSpec) -> Tuple[int, int]:
+    """(ways, this rank's index) of the axes of one spec entry, major to
+    minor, as JAX lays a tuple entry."""
+    ways, idx = 1, 0
+    for a in _axis_entries(entry):
+        ways, idx = ways * ms.size(a), idx * ms.size(a) + ms.rank_in(a)
+    return ways, idx
+
+
+def local_shard(full, spec: Spec, ms: MeshSpec):
+    """This rank's block of a whole leaf under its model-parallel spec
+    (every named axis but ``data``, which is ZeRO's): a view."""
+    t = full
+    for d, entry in enumerate(spec):
+        if entry is None or "data" in _axis_entries(entry):
+            continue
+        ways, idx = _entry_index(entry, ms)
+        if ways > 1:
+            c = t.shape[d] // ways
+            t = t.narrow(d, idx * c, c)
+    return t
+
+
+def gather_local(t: torch.Tensor, spec: Spec, ms: MeshSpec) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`local_shard` (each named
+    axis all-gathered along its dim, minor axis first)."""
+    for d, entry in enumerate(spec):
+        if entry is None or "data" in _axis_entries(entry):
+            continue
+        for a in reversed(_axis_entries(entry)):
+            if ms.size(a) > 1:
+                t = comm.all_gather(t.contiguous(), a, axis=d)
+    return t
 
 
 def _zero_axis_size(ms: MeshSpec) -> int:
@@ -58,30 +147,38 @@ def _zero_axis_size(ms: MeshSpec) -> int:
     return n
 
 
-def _zero_spec(leaf, ms: MeshSpec) -> Spec:
+def _zero_spec(leaf, base: Spec, ms: MeshSpec) -> Spec:
+    """Layer the data axis onto ``base`` for one leaf."""
     shape = tuple(getattr(leaf, "shape", ()))
     if not shape:
         return ()
-    return shard_leaf_spec(shape, "data", ms.size("data"))
+    base = tuple(base or ())
+    taken = list(base)[:len(shape)] + [None] * max(0, len(shape) - len(base))
+    return shard_leaf_spec(shape, "data", ms.size("data"), taken=taken)
 
 
 def param_shardings(params: Any, ms: MeshSpec, stage: int,
                     param_specs: SpecTree = None) -> Any:
     """Placements of the master params (stage 3 adds the data axis)."""
-    resolve_specs(params, param_specs)
     shard = stage >= 3 and _zero_axis_size(ms) > 1
-    return tree_map(lambda p: _zero_spec(p, ms) if shard else (), params)
+    out: list = []
+    _spec_walk(params, param_specs,
+               lambda p, sp: _zero_spec(p, sp, ms) if shard else sp, out)
+    return tree_unflatten_like(params, out)
 
 
-def shard_dim(shape: Sequence[int], world: int) -> Optional[int]:
-    """The dim ZeRO splits a leaf of ``shape`` along over ``world`` ranks,
-    or None (scalar, or nothing divides: the leaf stays whole).  It is the
-    dim of :func:`_zero_spec`; at ``world`` 1, where JAX's spec is
+def shard_dim(shape: Sequence[int], world: int,
+              spec: Spec = ()) -> Optional[int]:
+    """The dim ZeRO splits a leaf of (whole) ``shape`` along over
+    ``world`` ranks, or None (scalar, or nothing divides: the leaf stays
+    whole), among the dims its model-parallel ``spec`` leaves free.  It is
+    the dim of :func:`_zero_spec`; at ``world`` 1, where JAX's spec is
     replicated, it is the dim the same rule picks (the largest), so a
     one-rank run moves the same collectives as a wide one."""
     if not len(shape):
         return None
-    return _pick_dim(tuple(shape), world, [None] * len(shape))
+    taken = list(spec)[:len(shape)] + [None] * max(0, len(shape) - len(spec))
+    return _pick_dim(tuple(shape), world, taken)
 
 
 def take_shard(full: torch.Tensor, dim: Optional[int], rank: int,
@@ -106,13 +203,15 @@ def gather_shard(shard: torch.Tensor, dim: Optional[int], out=None,
         return shard
     if dim == 0 and out is not None:
         g, n = comm._resolve(axis)
-        with comm.comms_logger().record("all_gather", comm._nbytes(shard)):
-            if g is None:
-                out.copy_(shard)
-            else:
-                torch.distributed.all_gather_into_tensor(
-                    out, shard.contiguous(), group=g)
-        return out
+        if not comm._host_staged(g, shard):
+            with comm.comms_logger().record("all_gather",
+                                            comm._nbytes(shard)):
+                if g is None:
+                    out.copy_(shard)
+                else:
+                    torch.distributed.all_gather_into_tensor(
+                        out, shard.contiguous(), group=g)
+            return out
     full = comm.all_gather(shard, axis, axis=dim)
     if out is None:
         return full.contiguous()
@@ -193,16 +292,21 @@ def draw_on_host(init_fn: Callable[[], Any]) -> Any:
 
 def place_leaves(leaves: list, dims: List[Optional[int]], rank: int,
                  world: int, device=None,
-                 dtype: Optional[torch.dtype] = None) -> list:
-    """Each leaf (a tensor or an array) cut to this rank's slice along its
-    dim (whole where the dim is None), floats cast to ``dtype``, copied to
-    ``device`` contiguous.  ``leaves`` is consumed: each entry is dropped
-    once placed, so a host tree drawn for the purpose is freed leaf by
-    leaf."""
+                 dtype: Optional[torch.dtype] = None,
+                 specs: Optional[List[Spec]] = None,
+                 ms: Optional[MeshSpec] = None) -> list:
+    """Each leaf (a tensor or an array) cut to this rank's model-parallel
+    block under its spec (``specs`` over ``ms``; none by default), then to
+    its slice along its ZeRO dim (whole where the dim is None), floats
+    cast to ``dtype``, copied to ``device`` contiguous.  ``leaves`` is
+    consumed: each entry is dropped once placed, so a host tree drawn for
+    the purpose is freed leaf by leaf."""
     out = []
     for i, d in enumerate(dims):
         t = torch.as_tensor(leaves[i])
         leaves[i] = None
+        if specs is not None:
+            t = local_shard(t, specs[i], ms)
         t = take_shard(t, d, rank, world)
         dt = dtype if dtype is not None and t.is_floating_point() \
             else t.dtype
@@ -214,23 +318,24 @@ def place_leaves(leaves: list, dims: List[Optional[int]], rank: int,
 def sharded_init(init_fn: Callable[[], Any], ms: MeshSpec, stage: int,
                  param_specs: SpecTree = None, device=None,
                  dtype: Optional[torch.dtype] = None) -> Any:
-    """A parameter tree straight into this rank's ZeRO placement (ref:
+    """A parameter tree straight into this rank's placement (ref:
     partition_parameters.py ``zero.Init``): ``init_fn`` draws the tree on
     the host (:func:`draw_on_host`), then each leaf in turn is cut to this
-    rank's slice (stage 3; whole below it), cast to ``dtype`` (floats) and
-    moved to ``device``, and the host leaf dropped, so the full tree never
-    sits on the card.  ``TrainingEngine`` does this for a thunk ``params``.
-    """
-    resolve_specs(None, param_specs)
+    rank's model-parallel block (``param_specs``) and ZeRO slice (stage 3;
+    whole below it), cast to ``dtype`` (floats) and moved to ``device``,
+    and the host leaf dropped, so the full tree never sits on the card.
+    ``TrainingEngine`` does this for a thunk ``params``."""
     world, rank = ms.size("data"), ms.rank_in("data")
     tree = draw_on_host(init_fn)
+    specs = spec_leaves(tree, param_specs)
     leaves = tree_leaves(tree)
     skeleton = tree_unflatten_like(tree, [0] * len(leaves))
     del tree
-    dims = [shard_dim(tuple(torch.as_tensor(l).shape), world)
-            if stage >= 3 else None for l in leaves]
+    dims = [shard_dim(tuple(torch.as_tensor(l).shape), world, sp)
+            if stage >= 3 else None for l, sp in zip(leaves, specs)]
     return tree_unflatten_like(
-        skeleton, place_leaves(leaves, dims, rank, world, device, dtype))
+        skeleton, place_leaves(leaves, dims, rank, world, device, dtype,
+                               specs, ms))
 
 
 def unshard_params(shards: Any, dims: List[Optional[int]],

@@ -136,13 +136,13 @@ class _Out(dict):
 
 
 def _train(out, name, conf, params, batches, steps, loss_fn=_mlp_loss,
-           optimizer=None, moments=True):
+           optimizer=None, moments=True, **kw):
     """Build an engine, run ``steps`` steps over ``batches`` (cycled), and
     record losses, grad norms, overflow flags, scales and final params."""
     from deepspeed_tpu_torch import initialize
 
     eng = initialize(loss_fn=loss_fn, params=params, config=conf,
-                     optimizer=optimizer, device="cpu")[0]
+                     optimizer=optimizer, device="cpu", **kw)[0]
     rows = []
     for i in range(steps):
         loss = float(eng.train_batch(batches[i % len(batches)]))
@@ -335,7 +335,7 @@ def _suite_ckpt(out, spec, inputs, W, r):
             checkpoint.zero_to_fp32(spec["dir"], spec["dir"] + "/fp32.npz")
     else:
         eng.load_checkpoint(spec["dir"])
-    _, pdims, odims = eng.state_layout()
+    pdims, odims = eng.state_layout()[1:3]
     out.put("params", eng.module_params())
     for f in ("mu", "nu"):
         tree = getattr(eng.state.opt_state, f)
@@ -369,6 +369,355 @@ def _suite_hello(out, spec, inputs, W, r):
 SUITES = {"comm": _suite_comm, "stages": _suite_stages,
           "llama": _suite_llama, "zeropp": _suite_zeropp,
           "ckpt": _suite_ckpt, "hello": _suite_hello}
+
+
+# ----------------------------------------------- model-parallel mesh axes
+def _tree_params(inputs, prefix):
+    from deepspeed_tpu_torch.weights import from_jax_params
+
+    flat = {k[len(prefix) + 1:]: v for k, v in inputs.items()
+            if k.startswith(prefix + "/")}
+    return from_jax_params(unflatten(flat, ""), device="cpu")
+
+
+def _use_mesh(sizes):
+    from deepspeed_tpu_torch import topology
+
+    ms = topology.MeshSpec.build(sizes)
+    topology.set_current_mesh(ms)
+    return ms
+
+
+def _suite_tp(out, spec, inputs, W, r):
+    """Tensor-parallel training of tiny Llama (W = 2: model 2; W = 4:
+    data 2 x model 2), a stage-0 checkpoint of it, and Megatron's four
+    mappings' values and grads."""
+    import torch
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models import llama as tl
+
+    sizes = {"model": 2} if W == 2 else {"data": 2, "model": 2}
+    cfg = tl.LlamaConfig.tiny()
+    batches = [{"tokens": inputs["tokens"][i]}
+               for i in range(inputs["tokens"].shape[0])]
+    for stage in spec["stages"][str(W)]:
+        conf = {"train_batch_size": 8, "bf16": {"enabled": False},
+                "gradient_clipping": 1.0, "mesh": sizes,
+                "zero_optimization": {"stage": stage},
+                "optimizer": {"type": "adamw",
+                              "params": {"lr": 3e-3, "weight_decay": 0.1}}}
+        eng = _train(out, f"stage{stage}", conf, _tree_params(inputs, "llama"),
+                     batches, 3, loss_fn=tl.loss_fn(cfg),
+                     param_specs=tl.param_specs(cfg))
+        if stage == spec["ckpt_stage"]:
+            d = os.path.join(spec["dir"], f"w{W}")
+            eng.save_checkpoint(d, tag="t")
+            # read back into a TP engine of another stage
+            back = initialize(loss_fn=tl.loss_fn(cfg),
+                              params=_tree_params(inputs, "llama"),
+                              config=dict(conf, zero_optimization={
+                                  "stage": 3 - stage}),
+                              param_specs=tl.param_specs(cfg),
+                              device="cpu")[0]
+            back.load_checkpoint(d)
+            out.put("ckpt/params", back.module_params())
+            out.put("ckpt/saved", eng.module_params())
+            out["ckpt/next"] = np.asarray([
+                float(e.train_batch(batches[0])) for e in (eng, back)])
+    # the mappings over model, rank m of the axis
+    m, tp = comm.rank_in("model"), 2
+    x = torch.arange(6.0).reshape(2, 3).requires_grad_(True)
+    y = comm.copy_to(x, "model") * (m + 1)
+    y.sum().backward()
+    out["copy_to/y"], out["copy_to/g"] = _np(y), _np(x.grad)
+    x = torch.arange(6.0).reshape(2, 3).requires_grad_(True)
+    y = comm.reduce_from(x * (m + 1), "model")
+    y.sum().backward()
+    out["reduce_from/y"], out["reduce_from/g"] = _np(y), _np(x.grad)
+    x = (torch.arange(4.0).reshape(2, 2) + 10 * m).requires_grad_(True)
+    y = comm.gather_from(x, "model", -1)
+    (y * torch.arange(2.0 * 2 * tp).reshape(2, 2 * tp)).sum().backward()
+    out["gather_from/y"], out["gather_from/g"] = _np(y), _np(x.grad)
+    x = torch.arange(8.0).reshape(2, 4).requires_grad_(True)
+    y = comm.scatter_to(x, "model", -1)
+    (y * (m + 1)).sum().backward()
+    out["scatter_to/y"], out["scatter_to/g"] = _np(y), _np(x.grad)
+
+
+def _serve(eng, prompts):
+    for rid, (p, n) in prompts.items():
+        eng.submit(rid, [int(t) for t in p], max_new_tokens=int(n))
+    res = eng.run()
+    return {rid: [int(t) for t in res[rid]] for rid in prompts}
+
+
+def _put_tokens(out, name, toks):
+    for rid, t in toks.items():
+        out[f"{name}/{rid}"] = np.asarray(t, np.int64)
+
+
+def _suite_serve_tp(out, spec, inputs, W, r):
+    """Tensor-parallel serving of tiny Llama over model 2: the engine (also
+    split-fuse with decode chunks, int8 weights and the int8 wire),
+    init_inference and init_serving, and the refusal of KV heads that do
+    not split."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import init_inference, init_serving
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models import llama as tl
+
+    ms = _use_mesh({"model": 2})
+    cfg = tl.LlamaConfig.tiny(dim=64, n_layers=2, n_heads=4, n_kv_heads=2)
+    params = _tree_params(inputs, "llama")
+    prompts = spec["prompts"]
+    kw = dict(spec["kw"], device="cpu", cache_dtype=torch.float32)
+    runs = {"tp": {}, "split": dict(prefill_chunk=4, decode_chunk=2),
+            "int8": dict(weight_dtype="int8", quant_group_size=16),
+            "wire": dict(comm={"quantized_serving": True,
+                               "serving_rtol": 0.05})}
+    for name, extra in runs.items():
+        eng = llama_serving_engine(params, cfg, mesh=ms, **dict(kw, **extra))
+        _put_tokens(out, name, _serve(eng, prompts))
+        out[f"{name}/cache_heads"] = np.asarray(eng.cache.k.shape[1])
+        assert eng.check_leaks() == []
+        if name == "int8":
+            qt = eng.params["blocks"]["wq"]
+            out["int8/wq_q"] = _np(qt.q)
+            out["int8/wq_scale"] = _np(qt.scale)
+        if name == "wire":
+            st = eng.comm_placement
+            out["wire/stats"] = np.asarray(
+                [st["leaves_quantized"], st["leaves_exact"]])
+            out.put("wire/params", eng.params)
+    eng = init_serving(params, cfg, config={"mesh": {"model": 2}}, **kw)
+    _put_tokens(out, "init_serving", _serve(eng, prompts))
+    tokens = torch.from_numpy(inputs["fwd_tokens"])
+    for dt in ("float32", "int8"):
+        import functools
+
+        ie = init_inference(apply_fn=functools.partial(tl.forward, cfg=cfg),
+                            params=params, mesh=ms,
+                            param_specs=tl.param_specs(cfg), dtype=dt,
+                            device="cpu")
+        out[f"ie_{dt}/logits"] = _np(ie(tokens))
+    bad = tl.LlamaConfig.tiny(dim=48, n_layers=1, n_heads=3, n_kv_heads=3)
+    from deepspeed_tpu_torch.weights import init_params
+
+    bp = init_params(bad, torch.Generator().manual_seed(1), device="cpu",
+                     dtype=torch.float32)
+    try:
+        llama_serving_engine(bp, bad, mesh=ms, **kw)
+        out["refused"] = np.asarray("")
+    except ValueError as e:
+        out["refused"] = np.asarray(str(e))
+
+
+def _seq_qkv(inputs, r, sp):
+    import torch
+
+    def part(k):
+        a = inputs[k]
+        n = a.shape[1] // sp
+        return torch.from_numpy(a[:, r * n:(r + 1) * n].copy())
+
+    return part
+
+
+def _suite_sp(out, spec, inputs, W, r):
+    """Sequence parallelism over seq = W: ring and Ulysses attention on
+    this rank's positions (values and grads of a global loss), with
+    segment ids and GQA broadcast; the collectives' transposes; tiny
+    Llama trained with attn_impl ring and ulysses."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama as tl
+    from deepspeed_tpu_torch.ops.attention import _reference
+    from deepspeed_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+    from deepspeed_tpu_torch.parallel.sequence_parallel import (
+        ulysses_attention_sharded)
+
+    _use_mesh({"seq": W})
+    part = _seq_qkv(inputs, r, W)
+
+    def ref_attn(q, k, v, causal, segment_ids=None):
+        return _reference(q, k, v, causal=causal, segment_ids=segment_ids)
+
+    for impl in ("ring", "ulysses"):
+        for case in ("plain", "seg", "gqa"):
+            pre = "gqa_" if case == "gqa" else ""
+            q, k, v = (part(pre + n).requires_grad_(True)
+                       for n in ("q", "k", "v"))
+            seg = part("seg") if case == "seg" else None
+            if impl == "ring":
+                o = ring_attention_sharded(q, k, v, segment_ids=seg)
+            else:
+                o = ulysses_attention_sharded(q, k, v, attn_fn=ref_attn,
+                                              segment_ids=seg)
+            (o ** 2).sum().backward()
+            out[f"{impl}/{case}/o"] = _np(o)
+            for n, t in (("q", q), ("k", k), ("v", v)):
+                out[f"{impl}/{case}/d{n}"] = _np(t.grad)
+    # the collectives' transposes on this rank's x
+    x = torch.arange(8.0).reshape(4, 2) + 100 * r
+    w = torch.arange(8.0 * W).reshape(4 * W, 2) + 1
+    for name in ("psum", "all_gather", "reduce_scatter", "all_to_all",
+                 "ppermute"):
+        t = x.clone().requires_grad_(True)
+        if name == "psum":
+            y = comm.all_reduce(t, "seq")
+            loss = (y * w[:4]).sum()
+        elif name == "all_gather":
+            y = comm.all_gather(t, "seq")
+            loss = (y * w).sum()
+        elif name == "reduce_scatter":
+            y = comm.reduce_scatter(t, "seq")
+            loss = (y * w[:y.shape[0]] * (r + 1)).sum()
+        elif name == "all_to_all":
+            y = comm.all_to_all(t, "seq", 0, 1)
+            loss = (y * torch.arange(float(y.numel())).reshape(y.shape)
+                    ).sum()
+        else:
+            y = comm.ppermute(t, "seq", [(i, (i + 1) % W)
+                                         for i in range(W)])
+            loss = (y * (r + 1)).sum()
+        loss.backward()
+        out[f"coll/{name}/y"], out[f"coll/{name}/g"] = _np(y), _np(t.grad)
+    batches = [{"tokens": inputs["tokens"][i]}
+               for i in range(inputs["tokens"].shape[0])]
+    for impl in ("ring", "ulysses"):
+        cfg = tl.LlamaConfig.tiny(attn_impl=impl)
+        conf = {"train_batch_size": 4, "bf16": {"enabled": False},
+                "gradient_clipping": 1.0, "mesh": {"seq": W, "data": 1},
+                "optimizer": {"type": "adamw",
+                              "params": {"lr": 3e-3, "weight_decay": 0.1}}}
+        _train(out, f"train_{impl}", conf, _tree_params(inputs, "llama"),
+               batches, 3, loss_fn=tl.loss_fn(cfg))
+
+
+def _pp_block(x, lp):
+    import torch
+
+    return torch.tanh(x @ lp["w"]) + x
+
+
+def _suite_pp(out, spec, inputs, W, r):
+    """Pipeline parallelism (W = 2: pipe 2; W = 4: pipe 2 x data 2 for
+    training, pipe 4 for the scan): pipelined_scan's values and grads
+    under three remat settings, the pipelined Llama forward, and Llama
+    trained with n_micro 4."""
+    import torch
+
+    from deepspeed_tpu_torch.models import llama as tl
+    from deepspeed_tpu_torch.parallel.pipeline import pipelined_scan
+
+    S = W
+    ms = _use_mesh({"pipe": S})
+    stage = ms.rank_in("pipe")
+    w = torch.from_numpy(inputs["pp_w"])
+    L = w.shape[0]
+    x = torch.from_numpy(inputs["pp_x"])
+    for remat in ("none", "full", "save_dots"):
+        lw = w[stage * L // S:(stage + 1) * L // S].clone() \
+            .requires_grad_(True)
+        xr = x.clone().requires_grad_(True)
+        y = pipelined_scan(_pp_block, {"w": lw}, xr, 4, ms, remat=remat)
+        (y ** 2).sum().backward()
+        out[f"scan/{remat}/y"] = _np(y)
+        out[f"scan/{remat}/dw"] = _np(lw.grad)
+        out[f"scan/{remat}/dx"] = _np(xr.grad)
+    cfg = tl.LlamaConfig.tiny(attn_impl="reference", n_layers=4)
+    full = _tree_params(inputs, "llama")
+    from deepspeed_tpu_torch import zero
+
+    specs = tl.param_specs(cfg, pipeline=True)
+    local = {k: v for k, v in full.items()}
+    local["blocks"] = {k: zero.local_shard(v, specs["blocks"][k], ms)
+                       for k, v in full["blocks"].items()}
+    toks = torch.from_numpy(inputs["fwd_tokens"])
+    with torch.no_grad():
+        out["llama/logits"] = _np(tl.forward(local, toks, cfg, n_micro=4))
+    sizes = {"pipe": 2} if W == 2 else {"pipe": 2, "data": 2}
+    _use_mesh(sizes)
+    batches = [{"tokens": inputs["tokens"][i]}
+               for i in range(inputs["tokens"].shape[0])]
+    conf = {"train_batch_size": 16, "gradient_accumulation_steps": 4,
+            "mesh": sizes, "pipeline": {"stages": 2},
+            "zero_optimization": {"stage": 0},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "bf16": {"enabled": False}}
+    _train(out, "train", conf, full, batches, 3,
+           loss_fn=tl.loss_fn(cfg, n_micro=4),
+           param_specs=tl.param_specs(cfg, pipeline=True))
+
+
+def _suite_ep(out, spec, inputs, W, r):
+    """Expert parallelism (W = 2: expert 2; W = 4: data 2 x expert 2, and
+    expert 2 x model 2 for serving): the MoE layer on this rank's rows,
+    Mixtral trained over the mesh, and Mixtral served over it."""
+    import torch
+
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.config import MoEConfig
+    from deepspeed_tpu_torch.inference.serving import mixtral_serving_engine
+    from deepspeed_tpu_torch.models import mixtral as tm
+    from deepspeed_tpu_torch.parallel.moe import (MoELayer,
+                                                  expert_param_specs)
+
+    sizes = {"expert": 2} if W == 2 else {"data": 2, "expert": 2}
+    ms = _use_mesh(sizes)
+    ep = {k: torch.from_numpy(inputs[f"moe/{k}"]) for k in ("w1", "w2")}
+    especs = expert_param_specs({"w1": None, "w2": None})
+    ep = {k: zero.local_shard(v, especs[k], ms).clone().requires_grad_(True)
+          for k, v in ep.items()}
+    x = torch.from_numpy(inputs["moe/x"])
+    n = x.shape[0] // ms.dp_world
+    xl = x[ms.batch_index() * n:(ms.batch_index() + 1) * n].clone() \
+        .requires_grad_(True)
+    gate = torch.from_numpy(inputs["moe/gate"]).requires_grad_(True)
+
+    def expert(p, h):
+        return torch.tanh(h @ p["w1"]) @ p["w2"]
+
+    for k in (1, 2):
+        layer = MoELayer(cfg=MoEConfig(enabled=True, num_experts=4, top_k=k,
+                                       capacity_factor=1.0, min_capacity=1),
+                         expert_fn=expert, mesh=ms)
+        y, aux = layer(gate, ep, xl)
+        for t in (xl, gate, *ep.values()):
+            t.grad = None
+        # this rank's share of the global mean, as the engine takes it
+        ((y ** 2).mean() / ms.dp_world + aux["moe_aux_loss"]
+         / ms.dp_world).backward()
+        out[f"moe{k}/y"] = _np(y)
+        out[f"moe{k}/aux"] = _np(aux["moe_aux_loss"])
+        out[f"moe{k}/load"] = _np(aux["moe_expert_load"])
+        out[f"moe{k}/dx"] = _np(xl.grad)
+        out[f"moe{k}/dgate"] = _np(gate.grad)
+        out[f"moe{k}/dw1"] = _np(ep["w1"].grad)
+    cfg = tm.MixtralConfig.tiny(attn_impl="reference")
+    batches = [{"tokens": inputs["tokens"][i]}
+               for i in range(inputs["tokens"].shape[0])]
+    conf = {"train_batch_size": 8, "bf16": {"enabled": False},
+            "mesh": sizes, "zero_optimization": {"stage": 0},
+            "optimizer": {"type": "adamw", "params": {"lr": 3e-3}}}
+    _train(out, "train", conf, _tree_params(inputs, "mixtral"), batches, 3,
+           loss_fn=tm.loss_fn(cfg), has_aux=True,
+           param_specs=tm.param_specs(cfg))
+    serve = {"expert": 2} if W == 2 else {"expert": 2, "model": 2}
+    sms = _use_mesh(serve)
+    eng = mixtral_serving_engine(
+        _tree_params(inputs, "mixtral"), cfg, mesh=sms, device="cpu",
+        cache_dtype=torch.float32, **spec["kw"])
+    _put_tokens(out, "serve", _serve(eng, spec["prompts"]))
+    out["serve/w1_shape"] = np.asarray(eng.params["blocks"]["w1"].shape)
+
+
+SUITES.update({"tp": _suite_tp, "serve_tp": _suite_serve_tp,
+               "sp": _suite_sp, "pp": _suite_pp, "ep": _suite_ep})
 
 
 def main(argv):

@@ -287,9 +287,12 @@ def test_policies_and_unknown_arch():
                                               "vocab_size": 256},
                                     attn_impl="reference")
     assert params is None and specs is None and cfg.attn_impl == "reference"
-    with pytest.raises(NotImplementedError, match="ring"):
+    # ring and ulysses are ported; sparse attention still raises
+    assert inject("llama", {"hidden_size": 64, "num_attention_heads": 4},
+                  attn_impl="ring")[2].attn_impl == "ring"
+    with pytest.raises(NotImplementedError, match="sparse"):
         inject("llama", {"hidden_size": 64, "num_attention_heads": 4},
-               attn_impl="ring")
+               attn_impl="sparse")
 
 
 def test_missing_weights_raise(tmp_path):

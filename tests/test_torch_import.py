@@ -76,6 +76,9 @@ def test_imports_with_jax_blocked():
         "from deepspeed_tpu_torch import comm, topology, mesh, zero, "
         "launcher, comm_compress\n"
         "from deepspeed_tpu_torch.comm import collectives\n"
+        "from deepspeed_tpu_torch.parallel import tensor_parallel, "
+        "sequence_parallel, ring_attention, pipeline, moe\n"
+        "from deepspeed_tpu_torch.inference import sharded\n"
         "from deepspeed_tpu_torch.ops import onebit\n"
         "from deepspeed_tpu_torch.utils import trace\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "

@@ -15,6 +15,7 @@ comes with ROADMAP A9.
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
 import numpy as np
 import pytest
 import torch
@@ -220,8 +221,14 @@ def test_noise_arm_is_distributional():
 
 
 def test_mesh_and_expert_specs_raise():
-    with pytest.raises(NotImplementedError, match="A9"):
+    # expert parallelism is ported: experts that do not divide over the
+    # expert axis raise; expert_param_specs prepends the axis as JAX's
+    from deepspeed_tpu_torch.topology import AXES, MeshSpec
+
+    ms = MeshSpec(sizes={a: 3 if a == "expert" else 1 for a in AXES})
+    with pytest.raises(ValueError, match="expert"):
         tmoe.MoELayer(cfg=MoEConfig(num_experts=4), expert_fn=_expert,
-                      mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        tmoe.expert_param_specs({"w1": None})
+                      mesh=ms)
+    want = jmoe.expert_param_specs({"w1": None, "w2": P(None, "model")})
+    assert tmoe.expert_param_specs({"w1": None, "w2": (None, "model")}) \
+        == {k: tuple(v) for k, v in want.items()}

@@ -198,8 +198,11 @@ def test_init_inference_other_dtypes_and_errors(model):
         init_inference(apply_fn=lambda p, t: t, device="cpu")
     with pytest.raises(ValueError, match="apply_fn"):
         init_inference(params=tp, device="cpu")
-    for tp_kw in ({"mesh": object()}, {"param_specs": {}}):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
+    # a mesh is ported (tests/test_torch_serving_tp.py): one that is no
+    # MeshSpec raises, and so do specs without a mesh
+    for tp_kw, err, match in (({"mesh": object()}, TypeError, "MeshSpec"),
+                              ({"param_specs": {}}, ValueError, "mesh")):
+        with pytest.raises(err, match=match):
             init_inference(apply_fn=lambda p, t: t, params=tp, device="cpu",
                            **tp_kw)
 
@@ -346,7 +349,9 @@ def test_unknown_weight_dtype_raises(model):
 
 def test_init_serving_blocks(model):
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    # a sharded replica is ported (tests/test_torch_serving_tp.py): its
+    # mesh needs the ranks of a process group, which this process lacks
+    with pytest.raises(ValueError, match="process group"):
         init_serving(tp, tcfg, config={"mesh": {"model": 2}}, device="cpu")
     # the speculative block is ported: the config reaches the engine
     eng = init_serving(tp, tcfg, config={"speculative": {"draft_tokens": 2}},

@@ -120,6 +120,24 @@ def test_unported_blocks_raise(model, block, value):
             e.submit("a", list(range(1, 20)), max_new_tokens=5)
         assert eng.run() == want.run() and eng.check_leaks() == []
         return
+    if block in ("mesh", "comm"):
+        # ported: a sharded replica over a MeshSpec
+        # (test_torch_serving_tp.py); a mesh of one rank, and the int8
+        # wire without a sharding mesh, serve as the plain engine, and a
+        # mesh that is no MeshSpec raises
+        from deepspeed_tpu_torch.topology import AXES, MeshSpec
+
+        want = serving_engine(tp, tcfg, device="cpu", **BASE)
+        one = MeshSpec(sizes={a: 1 for a in AXES})
+        eng = serving_engine(tp, tcfg, device="cpu", **(
+            {"mesh": one} if block == "mesh" else {block: value}), **BASE)
+        for e in (want, eng):
+            e.submit("a", list(range(1, 20)), max_new_tokens=5)
+        assert eng.run() == want.run() and eng.check_leaks() == []
+        if block == "mesh":
+            with pytest.raises(TypeError, match="MeshSpec"):
+                serving_engine(tp, tcfg, device="cpu", mesh=value, **BASE)
+        return
     if block == "weight_dtype":
         # ported: int8 weights serve; another dtype raises, as in the JAX
         # package

@@ -127,8 +127,18 @@ def test_registry_and_builder_checks(model):
     assert eng.kernels.paged_attention == "xla"
     with pytest.raises(ValueError, match="position table"):
         serving_engine(tp, tcfg, device="cpu", **dict(BASE, max_seq=256))
-    with pytest.raises(NotImplementedError, match="slice"):
+    # a sharding mesh: GPT-2's param_specs are queued, and it has no
+    # expert dimension (as in the JAX builder)
+    from deepspeed_tpu_torch.topology import AXES, MeshSpec
+
+    with pytest.raises(TypeError, match="MeshSpec"):
         serving_engine(tp, tcfg, device="cpu", mesh=object(), **BASE)
+    with pytest.raises(NotImplementedError, match="param_specs"):
+        serving_engine(tp, tcfg, device="cpu", mesh=MeshSpec(sizes={
+            a: 2 if a == "model" else 1 for a in AXES}), **BASE)
+    with pytest.raises(ValueError, match="expert"):
+        serving_engine(tp, tcfg, device="cpu", mesh=MeshSpec(sizes={
+            a: 2 if a == "expert" else 1 for a in AXES}), **BASE)
     with pytest.raises(NotImplementedError, match="int8"):
         serving_engine(tp, tcfg, device="cpu", weight_dtype="int4", **BASE)
     with pytest.raises(TypeError, match="no serving path"):

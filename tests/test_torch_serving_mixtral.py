@@ -195,8 +195,15 @@ def test_registry_init_serving_and_refusals(model):
         **BASE)
     assert eng.kernels.paged_attention == "xla"
     assert isinstance(eng.params["blocks"]["w2"], QuantizedTensor)
-    with pytest.raises(NotImplementedError, match="slice"):
+    # expert-parallel serving is ported (test_torch_expert_parallel.py):
+    # a mesh that is no MeshSpec, or experts that do not divide, raise
+    from deepspeed_tpu_torch.topology import AXES, MeshSpec
+
+    with pytest.raises(TypeError, match="MeshSpec"):
         serving_engine(tp, tcfg, device="cpu", mesh=object(), **BASE)
+    with pytest.raises(ValueError, match="num_experts"):
+        serving_engine(tp, tcfg, device="cpu", mesh=MeshSpec(sizes={
+            a: 3 if a == "expert" else 1 for a in AXES}), **BASE)
     # weight streaming is ported: both entry points route to the streamed
     # engine (test_torch_zero_inference.py holds it to the resident one)
     for eng in (serving_engine(tp, tcfg, device="cpu",

@@ -29,6 +29,7 @@ from deepspeed_tpu_torch import lr_schedules as tls
 from deepspeed_tpu_torch.models import llama as tl
 from deepspeed_tpu_torch.ops import adam_cuda as tadam
 from deepspeed_tpu_torch.ops import losses as tloss
+from deepspeed_tpu_torch.weights import init_params
 from deepspeed_tpu_torch.weights import from_jax_params
 
 torch.set_num_threads(1)
@@ -320,21 +321,26 @@ def test_torch_idiom_and_eval(model):
     assert te.train_batch_size == 4 and te.gradient_accumulation_steps == 2
 
 
-@pytest.mark.parametrize("over,match", [
+@pytest.mark.parametrize("over,match,exc", [
     # stage 1 itself is ported; with an offload block it still raises
     pytest.param({"zero_optimization": {
         "stage": 1, "offload_optimizer": {"device": "cpu"}}},
-        "ZeRO stage 1", id="over0-ZeRO stage 1"),
-    ({"zero_optimization": {"stage": 2,
-                            "offload_optimizer": {"device": "cpu"}}},
-     "offload"),
-    ({"telemetry": {"enabled": True}}, "telemetry"),
-    ({"tensorboard": {"enabled": True}}, "tensorboard"),
-    ({"pipeline": {"stages": 2}}, "pipeline"),
+        "ZeRO stage 1", NotImplementedError, id="over0-ZeRO stage 1"),
+    pytest.param({"zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}}}, "offload",
+        NotImplementedError, id="over1-offload"),
+    pytest.param({"telemetry": {"enabled": True}}, "telemetry",
+                 NotImplementedError, id="over2-telemetry"),
+    pytest.param({"tensorboard": {"enabled": True}}, "tensorboard",
+                 NotImplementedError, id="over3-tensorboard"),
+    # pipeline parallelism is ported: stages without a pipe axis of that
+    # size on the mesh is a configuration error
+    pytest.param({"pipeline": {"stages": 2}}, "pipeline.stages 2",
+                 ValueError, id="over4-pipeline"),
 ])
-def test_unported_features_raise(model, over, match):
+def test_unported_features_raise(model, over, match, exc):
     _, tcfg, jp = model
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         _torch_engine(tcfg, jp, _config(**over))
 
 
@@ -343,8 +349,24 @@ def test_unported_model_options_raise():
     assert tl.LlamaConfig.tiny(remat="offload_attn").remat == "offload_attn"
     with pytest.raises(ValueError, match="remat"):
         tl.LlamaConfig.tiny(remat="offload_everything")
-    with pytest.raises(NotImplementedError, match="n_micro"):
-        tl.loss_fn(tl.LlamaConfig.tiny(), n_micro=2)
+    # n_micro is ported: without a pipe axis it is ignored, as in JAX;
+    # packed segment ids under a pipelined forward still raise
+    from deepspeed_tpu_torch import topology
+
+    cfg = tl.LlamaConfig.tiny(dim=32, n_layers=2)
+    p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    tok = torch.zeros((2, 9), dtype=torch.int64)
+    assert torch.equal(tl.loss_fn(cfg, n_micro=2)(p, {"tokens": tok}),
+                       tl.loss_fn(cfg)(p, {"tokens": tok}))
+    topology.set_current_mesh(topology.MeshSpec(sizes={
+        a: 2 if a == "pipe" else 1 for a in topology.AXES}))
+    try:
+        with pytest.raises(NotImplementedError, match="segment_ids"):
+            tl.forward_hidden(p, tok, cfg, n_micro=2,
+                              segment_ids=torch.ones_like(tok))
+    finally:
+        topology.set_current_mesh(None)
     # init thunks are ported (zero.sharded_init); params that are neither
     # a tree nor a thunk still raise
     with pytest.raises(NotImplementedError, match="init thunk"):

@@ -214,7 +214,14 @@ def test_json_policy_reaches_model_remat(tmp_path):
 def test_param_specs_raise_until_a9():
     from deepspeed_tpu_torch import initialize
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    # param_specs are ported (tests/test_torch_tensor_parallel.py): a
+    # replicated spec trains on one rank, a spec naming ZeRO's data axis
+    # raises
+    eng = initialize(loss_fn=lambda p, b: p["w"].sum(),
+                     params={"w": torch.zeros(2)}, config={},
+                     param_specs={"w": None}, device="cpu")[0]
+    assert eng.state_layout()[3] == [()]
+    with pytest.raises(ValueError, match="data"):
         initialize(loss_fn=lambda p, b: p["w"].sum(),
                    params={"w": torch.zeros(2)}, config={},
-                   param_specs={"w": None}, device="cpu")
+                   param_specs={"w": ("data",)}, device="cpu")

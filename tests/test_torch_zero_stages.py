@@ -206,5 +206,11 @@ def test_sharded_init_places_leaf_by_leaf():
     assert got["w"].dtype == torch.float64
     np.testing.assert_array_equal(got["w"].numpy(),
                                   np.arange(12.).reshape(3, 4))
-    with pytest.raises(NotImplementedError, match="A9"):
-        zero.resolve_specs({}, param_specs={"w": None})
+    # param_specs are ported: a None spec is replicated, a spec that is
+    # neither a tuple nor None raises
+    t = torch.zeros(2, 2)
+    assert zero.resolve_specs({"w": t}, param_specs={"w": None}) == {"w": ()}
+    assert zero.resolve_specs({"w": t}, param_specs=lambda _: (
+        None, "model")) == {"w": (None, "model")}
+    with pytest.raises(TypeError, match="spec"):
+        zero.resolve_specs({"w": t}, param_specs={"w": "model"})
