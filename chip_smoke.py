@@ -97,7 +97,7 @@ and runs, in order:
    CPU), the engine against the paged generator, and the capacity-limited
    top-2 gate at the training shape (dispatch equal, combine at 1e-6);
 21. Mixtral-8x7B at full width (4096, 32 heads of 128, 8 kv heads, 8
-   experts, top-2, V 32000, seeded weights): bf16 at 16 layers (the first
+   experts, top-2, V 32000, seeded weights): bf16 at 8 layers (the first
    prefill's logits, kernel arm against plain arm, and the (token, layer)
    routings that differ between them; the engine whole-prompt and chunked
    over 8 prompts of 64-768 tokens; both generators on 8 prompts of 128;
@@ -144,16 +144,16 @@ and runs, in order:
 29. ZeRO-Inference against resident serving: Llama-3-8B (32 layers) on
    phase 5's queue with every layer streamed from the host tier, bf16 and
    int8 (identical tokens, the first prefill's and first decode step's
-   logits bitwise equal), Mixtral-8x7B bf16 at 8 layers the same (16
-   until PR 18: the smoke's time), and the NVMe tier against the host tier
-   at 8 layers;
+   logits bitwise equal), Mixtral-8x7B bf16 at 4 layers the same (16
+   until PR 18, 8 until PR 20: the smoke's time), and the NVMe tier
+   against the host tier at 4 layers (8 until PR 20);
 30. speculative decoding: f32 Llama-3-8B widths at 2 layers, n-gram and
    model drafters against plain greedy (identical tokens); bf16 at 32
    layers (divergences reported); B5 at the verify window C = K+1 (4, 5)
    beside C = 1; ``verify_accept`` card against CPU;
 31. the headline: Llama-3-8B all streamed with speculation, and
-   Mixtral-8x7B in bf16 at all 32 layers (93.4 GB image) under a 64 GB
-   device budget, speculation off and on: sweeps, streamed bytes per
+   Mixtral-8x7B in bf16 at 16 of 32 layers (46.7 GB image; 32 until PR
+   20) under a 32 GB device budget, speculation off and on: sweeps, streamed bytes per
    emitted token, ms per sweep beside the link bound, the exposed-wait
    share, tokens/s, acceptance, peak memory;
 32. phase 11's two waves with speculation on, the host tier against a
@@ -189,17 +189,17 @@ and runs, in order:
    engine, and the unscheduled ``offload_optimizer: {device: cpu}``
    engine (fused Adam, its state in page-locked host memory) against the
    plain one bit for bit;
-38. the headline: Llama-3-8B widths at 8 of 32 layers (2.79 B params,
+38. the headline: Llama-3-8B widths at 2 of 32 layers (1.49 B params,
    ``layered_model_lazy(seed=0)``) trained by ``ParamStreamEngine`` on the
    RAM tier with the host Adam overlapped (micro 1 x accumulation 2 x
    2048 tokens, 3 steps, the third profiled): ms/step, tokens/s, peak
    card memory against stage 0's 82 GB, host RSS, link bytes, the phase
    split, the bound (host Adam at phase 33's rate, link at phase 28's,
    FLOPs) and the idle share; every B1-B3 launch on the tensor-core body;
-39. the same widths at 2 layers on the NVMe tier against the RAM tier, bit
+39. the same widths at 1 layer on the NVMe tier against the RAM tier, bit
    for bit, then ``save_checkpoint`` -> ``zero_to_fp32`` equal to
    ``master_params()``;
-40. ``InfinityEngine`` on phase 39's 2-layer cut and phase 38's traffic,
+40. ``InfinityEngine`` on phase 39's 1-layer cut and phase 38's traffic,
    ``update: "device"`` then ``"host"``: step 1 equal to phase 39's RAM
    run's, ms/step, peak, state bytes on the card and over the link;
 41. in a rank that the port's launcher starts (``python -m
@@ -211,14 +211,20 @@ and runs, in order:
    engine's qgZ, qwZ and hpZ run at a world above one), each bit for bit
    the same function over B9's plain version on the card; B9's launches,
    device time, bound and share at this flat shape;
-42. in the same rank: GPT-2 1.3B at all 24 layers (phase 19's config under
+42. in the same rank: GPT-2 1.3B at 12 of 24 layers (phase 19's config under
    ``save_attn``) through ZeRO stages 0, 1, 2 and 3, 3 steps each: losses
    and every master leaf bit for bit equal across stages, ms/step beside
    phase 19's, peak memory, the comms logger's collectives and bytes a
    step against what each stage moves, B1-B4 launches; qwZ at a world of
    one warns and runs the plain path; a stage-3 save loaded into a stage-1
-   engine bit for bit.
-43-47. in two ranks that the port's launcher starts on the one card
+   engine bit for bit;
+48. in the same rank: ZeRO-Offload, phase 42's GPT-2 1.3B at stage 2 with
+   ``offload_optimizer: cpu`` and at stage 3 with both blocks, 3 steps
+   each: losses bit for bit phase 42's, the state this rank's shards in
+   page-locked host memory, the comms logger and ``comms_digest`` against
+   the stage's expectation, peak memory beside phase 42's, the host bytes
+   a step.
+43-47, 49-52. in two ranks that the port's launcher starts on the one card
    (``python -m deepspeed_tpu_torch.launcher --local_hosts 2 chip_smoke.py
    --mp-child ...``, one gloo group: NCCL refuses two ranks on one device,
    and gloo stages every collective of a CUDA tensor but all_reduce and
@@ -232,9 +238,15 @@ and runs, in order:
    seq 2 at 2 layers, loss and grads against one rank; 46, pipe 2 with
    n_micro 4 at 4 layers against one rank with 4 accumulation steps; 47,
    Mixtral-8x7B widths over expert 2, trained at 1 layer and served at 8
-   against one rank, and a tiny f32 Mixtral's tokens identical.  Each
-   phase holds B1-B6 and B9 at a rank's shapes against their plain
-   versions.
+   against one rank, and a tiny f32 Mixtral's tokens identical; 49,
+   ZeRO-Offload over data 2 (phase 48's stage-2 config) against phase
+   48's one-rank run; 50, ``ParamStreamEngine`` over data 2 at phase
+   38's depth against phase 38's losses; 51, ``InfinityEngine`` over data
+   2 at phase 40's depth against its step 1; 52, ZeRO-Inference over
+   model 2, Llama-3-8B bf16 at 32 layers streamed from each rank's host
+   tier, against phase 29's first prefill logits, and a tiny f32 Llama's
+   tokens identical.  Each phase holds its kernels (B1-B6, B9) at a rank's
+   shapes against their plain versions.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -246,8 +258,9 @@ KV-NVMe paths of phases 29-32, the env report of phase 33, the HF-loaded
 serving run and the injected Mixtral of phase 34, the LoRA run of phase
 35, the hybrid rollouts and step, distillation and Trainer runs of
 phase 36, the offload engines' runs of phases 37-40, the wire of phase
-41, each ZeRO stage's run of phase 42 and the two-rank runs of phases
-43-47, both ranks' counts summed) counts the
+41, each ZeRO stage's run of phase 42, the offload runs of phase 48 and
+the two-rank runs of phases 43-47 and 49-52, both ranks' counts summed)
+counts the
 launches
 of every kernel on its own (counters set to 0 just before it and read just
 after), and the launches per body of the flash kernels, B5, B7, B8, B9
@@ -3279,13 +3292,16 @@ def phase_gpt2_train(fns, card_line):
 
 # ------------------------------------------------------------ phase 20
 # Mixtral-8x7B: full width (4096, 32 heads of 128, 8 kv heads, 8 experts,
-# top-2, V 32000); bf16 serving cut to 16 layers (the 93.4 GB bf16 model
+# top-2, V 32000); bf16 serving cut to 8 layers (the 93.4 GB bf16 model
 # does not fit the card), int8 serving at all 32, training at 2
-MIXTRAL_BF16_LAYERS, MIXTRAL_TRAIN_LAYERS = 16, 2
-MIXTRAL_NEW = 32
+# phase 21's bf16 engine at 8 layers (16 until PR 20: the smoke's time,
+# which phases 48-52 raised; int8 stays at all 32)
+MIXTRAL_BF16_LAYERS, MIXTRAL_TRAIN_LAYERS = 8, 2
+# new tokens a request (32 until PR 20: the smoke's time)
+MIXTRAL_NEW = 16
 # phase 21's first prefill, the kernel arm's logits against the plain
 # arm's (B1 and B5 against the reference attention and the xla paged arm,
-# bf16, 16 layers), on the rows whose own top-2 routing agrees in every
+# bf16, 8 layers), on the rows whose own top-2 routing agrees in every
 # layer: the largest |difference| over the largest |logit|.  A bf16
 # near-tie flip (C-w2) moves its row by O(1); it is counted, not gated
 MIXTRAL_LOGITS_REL_TOL = 5e-2
@@ -3657,10 +3673,10 @@ def _first_prefill_check(params, cfg, prompt):
 
 
 def phase_mixtral_serving(fns, card_line):
-    """Mixtral-8x7B at full width, seeded weights.  bf16 at 16 layers
-    (47 GB): the first prefill's logits through the kernel arm against the
-    plain arm; the engine (max_batch 8, pages of 16, max_seq 1024) over 8
-    prompts of 64-768 tokens, 32 new tokens each, whole-prompt and
+    """Mixtral-8x7B at full width, seeded weights.  bf16 at 8 layers
+    (23.5 GB): the first prefill's logits through the kernel arm against
+    the plain arm; the engine (max_batch 8, pages of 16, max_seq 1024) over 8
+    prompts of 64-768 tokens, 16 new tokens each, whole-prompt and
     ``prefill_chunk=256``; ``mixtral_generator`` and
     ``mixtral_paged_generator`` on 8 prompts of 128; a decode step's
     split.  Then int8 at all 32 layers (48.2 GB), built a layer at a time
@@ -3716,7 +3732,8 @@ def phase_mixtral_serving(fns, card_line):
         "rel_err_clean_rows": rel_clean, "rel_err_all_rows": rel_all,
         "routing_flips": flips, "clean_rows": clean, "T": T}}
     for chunk in (0, 256):
-        path = f"mixtral-8x7b-16L bf16 serving prefill_chunk={chunk}"
+        path = (f"mixtral-8x7b-{MIXTRAL_BF16_LAYERS}L bf16 serving "
+                f"prefill_chunk={chunk}")
         torch.cuda.reset_peak_memory_stats()
         _zero(fns.values())
         out, leaks, m = serve(params, cfg, prompts, MIXTRAL_NEW,
@@ -3742,13 +3759,13 @@ def phase_mixtral_serving(fns, card_line):
             ("mixtral_generator", mixtral_generator, ("greedy_argmax",)),
             ("mixtral_paged_generator", mixtral_paged_generator,
              SERVING_KERNELS)):
-        path = f"mixtral-8x7b-16L {label}"
+        path = f"mixtral-8x7b-{MIXTRAL_BF16_LAYERS}L {label}"
         _, launches[path], results[path] = _gpt2_generate(
             build, params, cfg, toks, path, fns, card_line,
             tag="mixtral serving")
         _check_launches(path, launches[path], want)
     results["bf16 decode split"] = _mixtral_decode_split(
-        params, cfg, "bf16 16 layers", card_line)
+        params, cfg, f"bf16 {MIXTRAL_BF16_LAYERS} layers", card_line)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4850,15 +4867,22 @@ ZI_LLAMA_OPTS = dict(max_batch=8, page_size=16, max_seq=2048,
                      num_pages=1025, cache_dtype=torch.bfloat16)
 ZI_MIXTRAL_OPTS = dict(max_batch=8, page_size=16, max_seq=1024,
                        num_pages=1025, cache_dtype=torch.bfloat16)
-# phase 31 (b): the device budget of Mixtral-8x7B's bf16 image at 32
-# layers (93.4 GB): about 19 layers resident, 13 streamed a sweep
-ZI_MIXTRAL_BUDGET = int(64e9)
+# phase 31 (b): Mixtral-8x7B's bf16 image cut to 16 of 32 layers (46.7 GB;
+# all 32, 93.4 GB, until PR 20: the smoke's time, which phases 48-52
+# raised) under a device budget halved with it, 32 GB: 8 layers resident,
+# 8 streamed a sweep (19 / 13 at 32 layers under 64 GB)
+ZI_MIXTRAL_LAYERS, ZI_MIXTRAL_BUDGET = 16, int(32e9)
+# phases 29 and 31: new tokens a Llama-3-8B request (32 until PR 20: the
+# smoke's time)
+ZI_LLAMA_NEW = 16
 # phase 31 (b): new tokens a request (8, not 16: the smoke's time)
 ZI_MIXTRAL_NEW = 8
 SPEC = {"draft_tokens": 4}
 # phase 29's cut of the NVMe-tier check, and of Mixtral's identity queue
-ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 8, 4, 8
-ZI_MIXTRAL_ID_LAYERS, ZI_MIXTRAL_ID_NEW = 8, 4
+# (4 layers each, 8 until PR 20: the smoke's time, which phases 48-52
+# raised)
+ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 4, 4, 8
+ZI_MIXTRAL_ID_LAYERS, ZI_MIXTRAL_ID_NEW = 4, 4
 # phase 32: the host pool that sends wave A's pages down to NVMe
 KV_NVME_HOST_POOL = 16 << 20
 
@@ -5128,13 +5152,15 @@ def phase_zi_identity(fns, card_line, link_gbps):
         r_out, r_logits, r_m = _run(
             lambda: serving_engine(params, cfg, weight_dtype=wd,
                                    **ZI_LLAMA_OPTS),
-            prompts, 32, fns, f"zi resident llama {wd}", launches, want,
+            prompts, ZI_LLAMA_NEW, fns, f"zi resident llama {wd}", launches,
+            want,
             capture=True)
         s_out, s_logits, s_m = _run(
             lambda: serving_engine(params, cfg, weight_dtype=wd,
                                    zero_inference={"hbm_budget_bytes": None},
                                    **ZI_LLAMA_OPTS),
-            prompts, 32, fns, f"zi streamed llama {wd}", launches, want,
+            prompts, ZI_LLAMA_NEW, fns, f"zi streamed llama {wd}", launches,
+            want,
             capture=True, stats=zi_stats)
         res[wd] = {"tokens_equal": s_out == r_out,
                    "logits_bitwise": _same_logits(s_logits, r_logits),
@@ -5166,7 +5192,8 @@ def phase_zi_identity(fns, card_line, link_gbps):
         shutil.rmtree(d, ignore_errors=True)
     res["nvme_tokens_equal_host"] = outs["nvme"] == outs["host"]
     del p8
-    # Mixtral-8x7B bf16 at 8 layers (the smoke's time; 16 fit resident)
+    # Mixtral-8x7B bf16 at ZI_MIXTRAL_ID_LAYERS (the smoke's time; 16 fit
+    # resident)
     mcfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
                                n_layers=ZI_MIXTRAL_ID_LAYERS)
     mq = _queue21(mcfg.vocab_size, n=3)
@@ -5366,7 +5393,7 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
     """The headline: (a) Llama-3-8B at 32 layers, every layer streamed from
     the host tier, on phase 5's traffic with n-gram speculation (K = 4;
     speculation off is phase 29's streamed run); (b) Mixtral-8x7B in bf16
-    at all 32 layers (93.4 GB image) under a 64 GB device budget, the
+    at 16 of 32 layers (46.7 GB image) under a 32 GB device budget, the
     layers drawn one at a time, on 8 of phase 21's prompts with
     ``ZI_MIXTRAL_NEW`` new tokens, speculation off and on.  Each: sweeps, streamed bytes per
     emitted token, ms per sweep beside the link bound (phase 28's rate),
@@ -5393,7 +5420,7 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
                               link_gbps=link_gbps)
     _, _, m = _run(lambda: serving_engine(
         holder[0], cfg, zero_inference={"hbm_budget_bytes": None},
-        speculative=SPEC, **ZI_LLAMA_OPTS), prompts, 32, fns,
+        speculative=SPEC, **ZI_LLAMA_OPTS), prompts, ZI_LLAMA_NEW, fns,
         "zi streamed llama bf16 spec", launches, dense,
         stats=lambda e, o, mm: stats(e, o, m=mm))
     res["llama3_8b_32_layers"] = {
@@ -5404,7 +5431,8 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
     del holder[:]
     gc.collect()
     torch.cuda.empty_cache()
-    mcfg = MixtralConfig.mixtral_8x7b()
+    mcfg = dataclasses.replace(MixtralConfig.mixtral_8x7b(),
+                               n_layers=ZI_MIXTRAL_LAYERS)
     one = dataclasses.replace(mcfg, n_layers=1)
     sh = init_params(one, torch.Generator("cuda").manual_seed(31),
                      device="cuda", dtype=torch.bfloat16)
@@ -5419,15 +5447,16 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
             mparams, mcfg, zero_inference={
                 "hbm_budget_bytes": ZI_MIXTRAL_BUDGET},
             **extra, **ZI_MIXTRAL_OPTS), mq, ZI_MIXTRAL_NEW, fns,
-            f"zi mixtral 32 layers bf16 {tag}", launches, dense,
+            f"zi mixtral {ZI_MIXTRAL_LAYERS} layers bf16 {tag}", launches,
+            dense,
             stats=lambda e, o, mm: mstats(e, o, m=mm))
-        res.setdefault("mixtral_8x7b_32_layers", {"plan": m["plan"]})
-        res["mixtral_8x7b_32_layers"][tag] = {
+        res.setdefault("mixtral_8x7b_16_layers", {"plan": m["plan"]})
+        res["mixtral_8x7b_16_layers"][tag] = {
             k: m[k] for k in keys + (("mean_accept_len", "spec_sweeps")
                                      if tag == "spec_on" else ())}
         gc.collect()
     n_div, first = _first_divergence(outs["spec_on"], outs["spec_off"], mq)
-    res["mixtral_8x7b_32_layers"].update(
+    res["mixtral_8x7b_16_layers"].update(
         spec_off_path_divergences=n_div,
         first_divergence_position=first)
     res["launches"] = {p: {k: n for k, n in c.items() if n}
@@ -5531,6 +5560,7 @@ SHUFFLE_N, SHUFFLE_EPOCHS = 100_000, 3
 # body sums in another order): 1e-4 of the largest |logit|, phase 24's f32
 # bound
 HF_MIXTRAL_REL_TOL = 1e-4
+HF_LAYERS = 16
 # phase 35: merge_lora's forward (the f32 master A, B folded into the bf16
 # base) against apply_lora's over the engine's bf16 compute copy of A, B:
 # the two round A, B differently, which moves an element of W_eff across a
@@ -5765,11 +5795,13 @@ def phase_hf_roundtrip(fns, card_line, params, resident):
     free = shutil.disk_usage(root).free
     fixed = 4 * param_count(dataclasses.replace(cfg, n_layers=0))
     per_layer = 4 * param_count(dataclasses.replace(cfg, n_layers=1)) - fixed
-    layers = cfg.n_layers
+    # 16 of 32 layers (all 32 until PR 20: the smoke's time, which phases
+    # 48-52 raised); fewer when the file system cannot hold them
+    layers = HF_LAYERS
     if free < 1.1 * (fixed + layers * per_layer):
         layers = int((free / 1.1 - fixed) // per_layer)
         log(f"[hf] {root} has {free / 1e9:.1f} GB free: the export is cut "
-            f"from {cfg.n_layers} to {layers} layers")
+            f"from {HF_LAYERS} to {layers} layers")
         if layers < 1:
             raise SystemExit("phase 34: no room for the export")
     cut = dataclasses.replace(cfg, n_layers=layers)
@@ -6177,12 +6209,16 @@ PSTREAM_PLAIN_RTOL = 2e-2
 PSTREAM_MOE_RTOL = 5e-3
 INFINITY_HOST_DEVICE_RTOL = 2e-3
 TINY_STEPS = 4
-# phases 38-40: Llama-3-8B widths cut to 8 of 32 layers (2.79 B params;
-# 32 hold ~110 GB of host state, more than the host's 101 GiB, and 8, not
-# 16, for the smoke's time), phase 8's traffic (micro 1 x accumulation 2 x
-# 2048 tokens); 39 and 40 at 2 layers (the smoke's time)
-OFFLOAD_LAYERS, OFFLOAD_NVME_LAYERS = 8, 2
-OFFLOAD_STEPS, OFFLOAD_NVME_STEPS, INFINITY_STEPS = 3, 2, 2
+# phases 38-40: Llama-3-8B widths cut to 2 of 32 layers (1.49 B params;
+# 32 hold ~110 GB of host state, more than the host's 101 GiB, and 2, not
+# 8, for the smoke's time, which phases 48-52 raised: phase 50 trains the
+# same depth over two ranks with phase 38 as its oracle), phase 8's traffic (micro 1 x accumulation
+# 2 x 2048 tokens); 39, 40 and 51 at 1 layer (2 until PR 20: the smoke's
+# time, which phases 48-52 raised)
+OFFLOAD_LAYERS, OFFLOAD_NVME_LAYERS = 2, 1
+# phases 39 and 40 take one step an arm (2 until PR 20: the smoke's time;
+# phase 40's gate reads step 1)
+OFFLOAD_STEPS, OFFLOAD_NVME_STEPS, INFINITY_STEPS = 3, 1, 1
 # phase 40's step 1 against phase 38's: the same bf16 weights, batch and
 # forward; the two engines average the micro-batch losses in f64 (param
 # stream) and f32 (Infinity)
@@ -6516,11 +6552,11 @@ def phase_pstream_headline(fns, card_line, cfg, lm, batch):
     if not (falls and counts_ok and native
             and card1 <= card0 + 0.1 and rss1 <= rss0 + RSS_LEAK_GB):
         raise SystemExit("phase 38: param-stream headline gates failed")
-    return {path: launches}
+    return {path: launches}, [st["loss"] for st in steps]
 
 
 def phase_pstream_nvme(fns, card_line, lm, batch):
-    """Phase 39: the same widths at 2 layers (the smoke's time): the NVMe
+    """Phase 39: the same widths at 1 layer (the smoke's time): the NVMe
     tier against the RAM tier, 2 steps each, bit for bit (losses and
     masters), the tier's bytes and GB/s over the step; then
     ``save_checkpoint`` -> ``zero_to_fp32``, equal to ``master_params()``;
@@ -6609,11 +6645,11 @@ def phase_pstream_nvme(fns, card_line, lm, batch):
 
 
 def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
-    """Phase 40: ``InfinityEngine`` on phase 39's 2-layer cut of phase 38's
+    """Phase 40: ``InfinityEngine`` on phase 39's 1-layer cut of phase 38's
     model (the smoke's time) and phase 38's traffic, RAM tier, ``update:
     "device"`` then ``"host"``, 2 steps each: ms/step, peak card memory,
     ``hbm_state_bytes``, state bytes over the link.  Gate: step 1's loss
-    equals phase 39's 2-layer RAM run's step 1 within
+    equals phase 39's 1-layer RAM run's step 1 within
     INFINITY_VS_PSTREAM_RTOL (same weights, same batch, two engines)."""
     import dataclasses
 
@@ -6680,13 +6716,14 @@ def phase_infinity(fns, card_line, cfg, lm, batch, pstream_step1):
         and res[m]["rss_after_drop_gb"] <= rss0 + RSS_LEAK_GB for m in res)
     if not ok:
         raise SystemExit("phase 40: Infinity gates failed")
-    return launches
+    return launches, res["device"]["steps"][0]["loss"]
 
 
 def train_beyond_the_card(fns, card_line):
     """Phases 37-40.  Phase 38's lazy model (its stem and head drawn once)
-    serves 39 (cut to 2 layers) and 40.  Returns every main path's
-    launches."""
+    serves 39 (cut to 1 layer) and 40.  Returns every main path's
+    launches, phase 38's losses and phase 40's step-1 loss (phases 50 and
+    51's oracles)."""
     import dataclasses
 
     from deepspeed_tpu_torch.models import llama
@@ -6701,14 +6738,16 @@ def train_beyond_the_card(fns, card_line):
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
         np.int32)}
-    launches.update(phase_pstream_headline(fns, card_line, cfg, lm, batch))
+    got, losses38 = phase_pstream_headline(fns, card_line, cfg, lm, batch)
+    launches.update(got)
     _lap("phase_pstream_headline (stem / head draws included)")
     got, step1_4 = phase_pstream_nvme(fns, card_line, lm, batch)
     launches.update(got)
     _lap("phase_pstream_nvme")
-    launches.update(phase_infinity(fns, card_line, cfg, lm, batch, step1_4))
+    got, step1_40 = phase_infinity(fns, card_line, cfg, lm, batch, step1_4)
+    launches.update(got)
     _lap("phase_infinity")
-    return launches
+    return launches, {"phase38_losses": losses38, "phase40_step1": step1_40}
 
 
 def serve_beyond_the_card(fns, card_line, gen, rows):
@@ -6716,7 +6755,8 @@ def serve_beyond_the_card(fns, card_line, gen, rows):
     29, and used by 30, 32, 34, 35 and 31; 31 runs last, since
     Mixtral-8x7B's 64 GB budget needs the card free of them); B5's
     verify-window cases join its row.  Returns every main path's
-    launches."""
+    launches and the file holding phase 29's first prefill logits (bf16,
+    bitwise the streamed engine's: phase 52's reference)."""
     link = phase_aio(card_line)
     _lap("phase_aio")
     launches, params, llama_off, resident = phase_zi_identity(fns, card_line,
@@ -6729,6 +6769,8 @@ def serve_beyond_the_card(fns, card_line, gen, rows):
     _lap("phase_kv_nvme")
     launches.update(phase_hf_roundtrip(fns, card_line, params, resident))
     _lap("phase_hf_roundtrip")
+    prefill29 = os.path.join(_nvme_dir("zi_ref"), "prefill.pt")
+    torch.save(resident[1]["_prefill"].cpu(), prefill29)
     del resident
     launches.update(phase_lora(fns, card_line, params))
     _lap("phase_lora")
@@ -6738,7 +6780,7 @@ def serve_beyond_the_card(fns, card_line, gen, rows):
                                      link))
     _lap("phase_zi_serving")
     rows["paged_attention"]["verify_shapes"] = cases
-    return launches
+    return launches, prefill29
 
 
 # ------------------------------------------------------------ phases 41-42
@@ -6750,6 +6792,9 @@ ZERO_CHILD_TIMEOUT_S = 900
 # qwZ's flat grid of 512-element groups
 WIRE_ELEMS, WIRE_GROUP = 1_313_626_112, 512
 ZERO_STEPS = 3
+# phases 42, 48 and 49: GPT-2 1.3B cut to 12 of 24 layers (24 until PR 20:
+# the smoke's time, which phases 48-52 raised; phase 19 trains all 24)
+ZERO_LAYERS = 12
 
 
 def _kernel_fns():
@@ -6887,7 +6932,8 @@ def _zero_comm_expected(stage, leaves, n):
 
 
 def phase_zero_stages(fns, card_line, phase19_ms):
-    """Phase 42: GPT-2 1.3B at all 24 layers (phase 19's config under
+    """Phase 42: GPT-2 1.3B at ZERO_LAYERS (12) of 24 layers (phase 19's
+    config under
     ``save_attn``: micro 8 x 1024, bf16 compute, f32 master, fused Adam,
     clipping 1.0) through ZeRO stages 0-3 in this rank, 3 steps each from
     the same seeded weights on the same batch.  Gates: losses and every
@@ -6907,7 +6953,8 @@ def phase_zero_stages(fns, card_line, phase19_ms):
                                                  param_count)
     from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
 
-    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), remat="save_attn")
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), remat="save_attn",
+                              n_layers=ZERO_LAYERS)
     B, T = GPT2_TRAIN_B, GPT2_TRAIN_T
     n = param_count(cfg)
     rng = np.random.default_rng(19)
@@ -6929,7 +6976,7 @@ def phase_zero_stages(fns, card_line, phase19_ms):
 
     runs, launches, ref = {}, {}, None
     for stage in range(4):
-        path = f"gpt2-1.3b ZeRO-{stage} W1"
+        path = f"gpt2-1.3b-{ZERO_LAYERS}L ZeRO-{stage} W1"
         eng = engine({"stage": stage})
         leaves = len(tree_leaves(eng.state.params))
         _zero(fns.values())
@@ -7042,9 +7089,170 @@ def phase_zero_stages(fns, card_line, phase19_ms):
     return launches, runs
 
 
+def _offload_comm_expected(eng):
+    """{op: (calls, bytes)} a ZeRO-Offload step at stage 2 or 3 moves on
+    this rank: the three small all-reduces, each split leaf's f32 grad
+    reduce-scattered and its bf16 shard all-gathered (into the compute
+    copy at stage 2, the compute tree at stage 3), each whole leaf's grad
+    all-reduced.  Host-staged calls (two ranks on one card) count as
+    their op."""
+    W = eng.dp
+    ar, rs, ag = [3, 4 + 4 * len(eng._shapes) + 4], [0, 0], [0, 0]
+    for shape, d in zip(eng._shapes, eng._dims):
+        n = int(np.prod(shape))
+        if d is None:
+            ar[0] += 1
+            ar[1] += 4 * n
+        else:
+            rs[0] += 1
+            rs[1] += 4 * n
+            ag[0] += 1
+            ag[1] += 2 * n // W
+    out = {"all_reduce": tuple(ar)}
+    if rs[0]:
+        out["reduce_scatter"] = tuple(rs)
+        out["all_gather"] = tuple(ag)
+    return out
+
+
+def _comm_per_step(summ, steps):
+    """The comms logger's summary as {op: (calls, bytes)} a step, a
+    host-staged call (``op:host``) counted as its op."""
+    out = {}
+    for op, s in summ.items():
+        c, b = out.get(op.split(":")[0], (0.0, 0.0))
+        out[op.split(":")[0]] = (c + s["count"] / steps,
+                                 b + s["bytes"] / steps)
+    return out
+
+
+def _digest_expected(expected):
+    """An {op: (calls, bytes)} expectation as the digest's ``per_kind``."""
+    kinds = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter"}
+    return {kinds[op]: {"count": int(c), "bytes": int(b)}
+            for op, (c, b) in expected.items()}
+
+
+def _host_placed(eng) -> bool:
+    """Every master and moment leaf of ``eng`` in page-locked host
+    memory."""
+    from deepspeed_tpu_torch._tree import tree_leaves
+
+    leaves = tree_leaves(eng.state.params) + tree_leaves(
+        eng.state.opt_state.mu) + tree_leaves(eng.state.opt_state.nu)
+    return all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+
+
+def phase_zero_offload(fns, card_line, stage_runs):
+    """Phase 48: ZeRO-Offload in phase 42's world-1 rank: GPT-2 1.3B at
+    phase 42's 12 layers (``save_attn``, its seeded weights and batch, fused
+    Adam) at stage 2 with ``offload_optimizer: cpu`` and at stage 3 with
+    ``offload_optimizer`` and ``offload_param`` on ``cpu``, 3 steps each.
+    Gates: the losses equal phase 42's stage-2 / stage-3 losses bit for
+    bit; the state is this rank's shards in page-locked host memory; the
+    comms logger's calls and bytes a step and ``comms_digest`` equal what
+    the stage moves; B1-B4 launch counts.  Records the peak card memory
+    beside phase 42's, ms/step and the host bytes moved a step."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, loss_fn
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), remat="save_attn",
+                              n_layers=ZERO_LAYERS)
+    B, T = GPT2_TRAIN_B, GPT2_TRAIN_T
+    rng = np.random.default_rng(19)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    log_ = comm.comms_logger()
+    launches, res = {}, {}
+    for stage, block in ((2, {"offload_optimizer": {"device": "cpu"}}),
+                         (3, {"offload_optimizer": {"device": "cpu"},
+                              "offload_param": {"device": "cpu"}})):
+        path = f"gpt2-1.3b-{ZERO_LAYERS}L ZeRO-Offload-{stage} W1"
+        conf = _train_config(B, 1, {"bf16": {"enabled": True}})
+        conf["zero_optimization"] = {"stage": stage, **block}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = _gpt2_params(cfg, 19, torch.float32)
+        eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        del params
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = len(tree_leaves(eng.state.params))
+        _zero(fns.values())
+        log_.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for _ in range(ZERO_STEPS):
+            ts = time.perf_counter()
+            loss = float(eng.train_batch(batch))
+            rows.append({"loss": loss,
+                         "ms": (time.perf_counter() - ts) * 1e3,
+                         "host_bytes": dict(eng.link_bytes)})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = {k: f.launches for k, f in fns.items()}
+        _check_bodies(path)
+        L = cfg.n_layers
+        want = {"flash_fwd": 2 * L * ZERO_STEPS,
+                "flash_bwd_dq": L * ZERO_STEPS,
+                "flash_bwd_dkv": L * ZERO_STEPS,
+                "fused_adam": leaves * ZERO_STEPS}
+        if any(got[k] != v for k, v in want.items()) or any(
+                got[k] for k in got if k not in want):
+            raise SystemExit(f"phase 48: {path} launches {got}, expected "
+                             f"{want}")
+        launches[path] = got
+        per_step = _comm_per_step(log_.summary(), ZERO_STEPS)
+        expected = _offload_comm_expected(eng)
+        digest = eng.comms_digest(batch)
+        plain = [r["loss"] for r in stage_runs[stage]["steps"]]
+        res[stage] = {
+            "steps": rows, "init_s": init_s, "peak_mem_gb": peak,
+            "phase42_peak_mem_gb": max(r["peak_gb"] for r in
+                                       stage_runs[stage]["steps"]),
+            "phase42_ms": [r["ms"] for r in stage_runs[stage]["steps"]],
+            "losses_bitwise_vs_phase42": [r["loss"] for r in rows] == plain,
+            "host_placed": _host_placed(eng),
+            "comm_per_step": per_step, "comm_expected": expected,
+            "comm_ok": per_step == {k: (float(c), float(b))
+                                    for k, (c, b) in expected.items()},
+            "digest": digest,
+            "digest_ok": digest["per_kind"] == _digest_expected(expected),
+            "leaves": leaves}
+        log(f"[zero] offload stage {stage}: losses "
+            f"{[r['loss'] for r in rows]} (phase 42 {plain}) ms/step "
+            f"{[round(r['ms'], 1) for r in rows]} peak {peak:.2f} GB")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    _phase_line("48 gpt2-1.3b ZeRO-Offload W1", card_line,
+                layers=cfg.n_layers, micro=B, seq=T, remat="save_attn",
+                stages=res, launches=launches,
+                host_bytes="up / down a step: the offloaded state's "
+                "visits to the card (page-locked host memory)")
+    for stage, r in res.items():
+        if not (r["losses_bitwise_vs_phase42"] and r["host_placed"]
+                and r["comm_ok"] and r["digest_ok"]):
+            raise SystemExit(f"phase 48: stage {stage} gates failed: "
+                             f"{ {k: r[k] for k in ('losses_bitwise_vs_phase42', 'host_placed', 'comm_ok', 'digest_ok')} }"
+                             f" comm {r['comm_per_step']} expected "
+                             f"{r['comm_expected']} digest {r['digest']}")
+    return launches, [r["loss"] for r in res[2]["steps"]]
+
+
 def zero_child(out_path: str, phase19_ms) -> int:
-    """Phases 41-42 in a rank the port's launcher started: join its NCCL
-    group, run both, write their launches and rows to ``out_path``."""
+    """Phases 41, 42 and 48 in a rank the port's launcher started: join its
+    NCCL group, run them, write their launches, rows and phase 42's
+    stage-2 / stage-3 losses to ``out_path``."""
     from deepspeed_tpu_torch import comm, topology
     from deepspeed_tpu_torch.ops import _build
 
@@ -7065,22 +7273,29 @@ def zero_child(out_path: str, phase19_ms) -> int:
     t0 = time.perf_counter()
     got, runs = phase_zero_stages(fns, card_line, phase19_ms)
     launches.update(got)
+    zero_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, plain_losses = phase_zero_offload(fns, card_line, runs)
+    launches.update(got)
     with open(out_path, "w") as f:
         json.dump({"launches": launches, "b9_wire": b9_row,
+                   "phase48_losses": plain_losses,
                    "bodies": {k: {p: c for p, c in v.items()
                                   if p in launches}
                               for k, v in BODIES.items()},
                    "laps": {"phase_wire": wire_s,
-                            "phase_zero_stages": time.perf_counter() - t0}},
-                  f)
+                            "phase_zero_stages": zero_s,
+                            "phase_zero_offload":
+                                time.perf_counter() - t0}}, f)
     torch.distributed.destroy_process_group()
     return 0
 
 
 def phase_zero_launcher(card_line, rows, phase19_ms):
-    """Phases 41-42 through ``python -m deepspeed_tpu_torch.launcher
-    --nproc_per_node 1``: the child's code is checked (a failing child
-    fails the smoke) and its launches and B9's wire row come back."""
+    """Phases 41, 42 and 48 through ``python -m deepspeed_tpu_torch.
+    launcher --nproc_per_node 1``: the child's code is checked (a failing
+    child fails the smoke) and its launches, B9's wire row and phase 42's
+    stage-2 / stage-3 losses come back."""
     out = os.path.join(_nvme_dir("zero_child"), "result.json")
     cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher",
            "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"),
@@ -7091,7 +7306,7 @@ def phase_zero_launcher(card_line, rows, phase19_ms):
     rc = subprocess.run(cmd, cwd=ROOT, env=env,
                         timeout=ZERO_CHILD_TIMEOUT_S).returncode
     if rc != 0:
-        raise SystemExit(f"phases 41-42: the launched rank exited {rc}")
+        raise SystemExit(f"phases 41, 42, 48: the launched rank exited {rc}")
     with open(out) as f:
         res = json.load(f)
     log(f"[zero] launcher and rank: {time.perf_counter() - t0:.1f} s, "
@@ -7099,7 +7314,7 @@ def phase_zero_launcher(card_line, rows, phase19_ms):
     rows["quantize"]["wire_shape"] = res["b9_wire"]
     for name, paths in res["bodies"].items():
         BODIES.setdefault(name, {}).update(paths)
-    return res["launches"]
+    return res["launches"], res["phase48_losses"]
 
 
 # ------------------------------------------------------------ phases 43-47
@@ -7108,7 +7323,7 @@ def phase_zero_launcher(card_line, rows, phase19_ms):
 # group; gloo stages every collective but all_reduce and broadcast of a
 # CUDA tensor through host memory, so their times are host-staged gloo's)
 MP_CHILD_FLAG = "--mp-child"
-MP_CHILD_TIMEOUT_S = 900
+MP_CHILD_TIMEOUT_S = 1000
 # phase 43: phase 5's queue, new tokens a request
 MP_SERVE_NEW = 8
 # phase 45: Ulysses at T = 8192 (4096 a rank), ring at T = 4096 (its f32
@@ -7954,8 +8169,349 @@ def phase_ep(fns, card_line, gen):
     return launches
 
 
+# ------------------------------------------------------------ phases 49-52
+# the offload engines over the two ranks of phases 43-47 (gloo on one card:
+# every collective time is host-staged gloo's)
+# phase 49: phase 48's GPT-2 1.3B cut (ZERO_LAYERS), 2 steps (the smoke's
+# time: each step reduce-scatters the f32 grads through host-staged gloo);
+# its oracle is phase 48's stage-2 run
+MP_OFFLOAD_STEPS = 2
+MP_PSTREAM_STEPS = 2
+# phase 50: phase 38's model at its depth (OFFLOAD_LAYERS), the global
+# batch's 2 rows a row a rank; phase 51: phase 40's depth
+MP_ZI_NEW = 8
+# bounds against the one-rank runs, from the first readings on an NVIDIA
+# H100 80GB HBM3 at 700 W: phase 49 read 1.09e-5 (two ranks' f32 grad
+# sums against one rank's), bound with 4.6x room; phases 50 and 51 read
+# 0.0 (the loss depends on the bf16 images only), bound at INFINITY_VS_
+# PSTREAM_RTOL's 1e-6 (the f32 mean over ranks against the one-rank mean
+# may differ by ulps on other data)
+MP_OFFLOAD_LOSS_REL = 5e-5
+MP_PSTREAM_LOSS_REL = 1e-6
+MP_INFINITY_LOSS_REL = 1e-6
+
+
+def _rel_losses(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_offload_ranks(fns, card_line, refs):
+    """Phase 49: ZeRO-Offload over data 2: phase 48's stage-2 config
+    (GPT-2 1.3B at ZERO_LAYERS, ``offload_optimizer: cpu``) and global
+    batch (8 x 1024, 4 rows a rank), 2 steps.  Gates: the losses against
+    phase 48's one-rank stage-2 losses (the same weights and batch) under
+    MP_OFFLOAD_LOSS_REL, each rank's shards in page-locked host memory,
+    the comms logger and ``comms_digest`` against the stage's expectation
+    (host-staged gloo).  Records each rank's peak card memory and
+    ms/step."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, loss_fn
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+
+    _mesh({"data": 2})
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), remat="save_attn",
+                              n_layers=ZERO_LAYERS)
+    B, T = GPT2_TRAIN_B, GPT2_TRAIN_T
+    rng = np.random.default_rng(19)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    conf = _train_config(B, 1, {"bf16": {"enabled": True}})
+    conf["zero_optimization"] = {"stage": 2,
+                                 "offload_optimizer": {"device": "cpu"}}
+    path = f"gpt2-1.3b-{ZERO_LAYERS}L ZeRO-Offload-2 dp2"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _gpt2_params(cfg, 19, torch.float32)
+    eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                     optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                     device="cuda")[0]
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = len(tree_leaves(eng.state.params))
+    log_ = comm.comms_logger()
+    _zero(fns.values())
+    log_.reset()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(MP_OFFLOAD_STEPS):
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        rows.append({"loss": loss, "ms": (time.perf_counter() - ts) * 1e3,
+                     "host_bytes": dict(eng.link_bytes)})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {}
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "fused_adam"))
+    summ = log_.summary()
+    per_step = _comm_per_step(summ, MP_OFFLOAD_STEPS)
+    expected = _offload_comm_expected(eng)
+    wall = {op: s["time_s"] / MP_OFFLOAD_STEPS for op, s in summ.items()}
+    digest = eng.comms_digest(batch)
+    want = refs["phase48_losses"][:MP_OFFLOAD_STEPS]
+    rel = _rel_losses([r["loss"] for r in rows], want)
+    res = {"steps": rows, "init_s": init_s, "peak_mem_gb_rank": peak,
+           "leaves": leaves, "loss_rel_vs_phase48": rel,
+           "tol": MP_OFFLOAD_LOSS_REL, "host_placed": _host_placed(eng),
+           "comm_per_step": per_step, "comm_expected": expected,
+           "comm_wall_s_per_step": wall,
+           "comm_ok": per_step == {k: (float(c), float(b))
+                                   for k, (c, b) in expected.items()},
+           "digest": digest,
+           "digest_ok": digest["per_kind"] == _digest_expected(expected)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = _gather_rows_json(res)
+    if comm.get_rank() == 0:
+        _phase_line("49 gpt2-1.3b ZeRO-Offload dp2", card_line,
+                    layers=cfg.n_layers, micro=B // 2, seq=T, ranks=every,
+                    phase48_losses=want, launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+    for r in every:
+        if not (r["loss_rel_vs_phase48"] <= MP_OFFLOAD_LOSS_REL
+                and r["host_placed"] and r["comm_ok"] and r["digest_ok"]):
+            raise SystemExit(f"phase 49: gates failed: {r}")
+    return launches
+
+
+def _gather_rows_json(row):
+    """Every rank's ``row`` (JSON-able), in rank order."""
+    out = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(out, row)
+    return out
+
+
+def phase_pstream_ranks(fns, card_line, refs, lm):
+    """Phase 50: ``ParamStreamEngine`` over data 2 at Llama-3-8B widths x 2
+    layers (phase 38's lazy model and depth, seed 0), the RAM tier, phase
+    38's global batch (2 rows x 2048, a row a rank), 2 steps.  Gate: the
+    losses against phase 38's one-rank steps under MP_PSTREAM_LOSS_REL.
+    Records each rank's host RSS rise, ms/step beside the rank's host-Adam
+    bound, and the row all-gathers' bytes (host-staged gloo)."""
+    from deepspeed_tpu_torch import comm, initialize
+
+    _mesh({"data": 2})
+    rng = np.random.default_rng(0)
+    vocab = int(lm.head["lm_head"].shape[-1])
+    batch = {"tokens": rng.integers(0, vocab, (2, 2048)).astype(np.int32)}
+    path = f"pstream llama3_8b {lm.n_layers} layers dp2"
+    log_ = comm.comms_logger()
+    card0, rss0 = _drop()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        eng = initialize(params=lm, config=_offload_config(
+            {"offload_param": {"device": "cpu", "scheduled": True}},
+            accum=1))[0]
+        init_s = time.perf_counter() - t0
+        _zero(fns.values())
+        log_.reset()
+        steps = []
+        for _ in range(MP_PSTREAM_STEPS):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            loss = float(eng.train_batch(batch))
+            steps.append({"loss": loss, "s": time.perf_counter() - ts,
+                          "phases": eng.phase_report(),
+                          "link_bytes": dict(eng.link_bytes)})
+        summ = log_.summary()
+        n_params = eng.total_param_count()
+        row_elems = eng.L * sum(eng._schunks)
+        stem_head = sum(s["w"].numel() for s in eng._stem_state
+                        + eng._head_state)
+        overlap = eng.overlap_step
+        del eng
+        _drop()
+    launches = {}
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"))
+    # each rank's host Adam: its row slices and the whole stem and head
+    adam_s = (row_elems + stem_head) * 30 / (refs["rates"]["cpu_adam_gbps"]
+                                             * 1e9)
+    want = refs["phase38_losses"][:MP_PSTREAM_STEPS]
+    res = {"init_s": init_s, "steps": steps, "rss": rss.gb(),
+           "params": n_params, "row_elems_rank": row_elems,
+           "stem_head_elems": stem_head, "overlap_step": overlap,
+           "host_adam_bound_s": adam_s,
+           "comm_per_step": _comm_per_step(summ, MP_PSTREAM_STEPS),
+           "comm_wall_s_per_step": {op: s["time_s"] / MP_PSTREAM_STEPS
+                                    for op, s in summ.items()},
+           "loss_rel_vs_phase38": _rel_losses(
+               [s["loss"] for s in steps], want)}
+    every = _gather_rows_json(res)
+    if comm.get_rank() == 0:
+        _phase_line("50 pstream llama3_8b dp2", card_line,
+                    layers=lm.n_layers, ranks=every,
+                    phase38_losses=want, tol=MP_PSTREAM_LOSS_REL,
+                    launches=launches, card_gb_before=card0,
+                    rss_before_gb=rss0,
+                    collectives="host-staged gloo, two ranks on one card; "
+                    "the f32 grads and rows on the host")
+    for r in every:
+        if not (r["loss_rel_vs_phase38"] <= MP_PSTREAM_LOSS_REL
+                and not r["overlap_step"]):
+            raise SystemExit(f"phase 50: gates failed: {r}")
+    return launches
+
+
+def phase_infinity_ranks(fns, card_line, refs, lm):
+    """Phase 51: ``InfinityEngine`` over data 2 on phase 40's cut of phase
+    38's model (1 layer), the RAM tier, ``update: "device"``, phase 38's
+    global batch (a row a rank), one step (its gate's).  Gate: step 1 against phase 40's
+    step 1 under MP_INFINITY_LOSS_REL.  Records each rank's rows and tier
+    bytes."""
+    import dataclasses
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models import llama
+
+    _mesh({"data": 2})
+    L = OFFLOAD_NVME_LAYERS
+    sub = _lazy_at_depth(lm, L)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=L)
+    keys = sorted(sub.blocks_spec)
+    layers = [sub.blocks(l) for l in range(L)]
+    tree = sub.assemble(sub.stem, {k: torch.stack([x[k] for x in layers])
+                                   for k in keys}, sub.head)
+    del layers
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    path = f"infinity llama3_8b {L} layers dp2"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = initialize(loss_fn=llama.loss_fn(cfg), params=tree,
+                     config=_offload_config({"offload_optimizer": {
+                         "device": "cpu", "scheduled": True,
+                         "update": "device"}}, accum=1))[0]
+    del tree
+    init_s = time.perf_counter() - t0
+    _zero(fns.values())
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    loss = float(eng.train_batch(batch))
+    steps = [{"loss": loss, "s": time.perf_counter() - ts,
+              "link_bytes": dict(eng.link_bytes)}]
+    launches = {}
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"))
+    res = {"init_s": init_s, "steps": steps,
+           "rows": [1, sum(eng._chunks)],
+           "tier_bytes_rank": eng.tier_local_bytes(),
+           "peak_mem_gb_rank": torch.cuda.max_memory_allocated() / 1e9,
+           "step1_rel_vs_phase40": abs(steps[0]["loss"]
+                                       - refs["phase40_step1"])
+           / abs(refs["phase40_step1"])}
+    del eng
+    _drop()
+    every = _gather_rows_json(res)
+    if comm.get_rank() == 0:
+        _phase_line("51 infinity llama3_8b dp2", card_line, layers=L,
+                    ranks=every, phase40_step1=refs["phase40_step1"],
+                    tol=MP_INFINITY_LOSS_REL, launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+    for r in every:
+        if not r["step1_rel_vs_phase40"] <= MP_INFINITY_LOSS_REL:
+            raise SystemExit(f"phase 51: gates failed: {r}")
+    return launches
+
+
+def phase_zi_tp(fns, card_line, gen, refs):
+    """Phase 52: ZeRO-Inference over model 2: Llama-3-8B bf16 at all 32
+    layers, every layer streamed from each rank's host tier (its block of
+    each layer), phase 5's queue, MP_ZI_NEW new tokens.  Gate: the first
+    prefill's logits within MP_TP_LOGITS_REL of phase 29's one-rank
+    engine's on the same weights.  Records each rank's bytes a sweep, ms
+    per sweep beside the link bound (both ranks share one card's link),
+    tokens/s; the f32 tiny model's tokens identical to one rank's; B5 and
+    B6 held at a rank's shapes."""
+    import gc
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.weights import init_params
+
+    ms = _mesh({"model": 2})
+    cfg = LlamaConfig.llama3_8b()
+    prompts = _queue5(cfg.vocab_size)
+    zi = {"enabled": True, "hbm_budget_bytes": None}
+    holder = {}
+
+    def build():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             device="cuda", dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        holder["eng"] = llama_serving_engine(params, cfg, mesh=ms,
+                                             zero_inference=zi,
+                                             **ZI_LLAMA_OPTS)
+        holder["build_s"] = time.perf_counter() - t0
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _in_turn(build)
+    eng = holder.pop("eng")
+    launches = {}
+    path = "zi llama3_8b tp2 streamed bf16"
+    got = _capture_first(eng)
+    _zero(fns.values())
+    torch.cuda.reset_peak_memory_stats()
+    out, m = drive(eng, prompts, MP_ZI_NEW)
+    _mp_path(fns, path, launches, SERVING_KERNELS)
+    for name in ("_prefill", "_decode"):
+        vars(eng).pop(name, None)
+    link = refs["rates"]["link_gbps"]
+    st = _zi_stats(eng, out, prompts, m, link)
+    row = {k: st[k] for k in ("plan", "sweeps", "bytes_uploaded",
+                              "ms_per_sweep", "link_bound_ms_per_sweep",
+                              "exposed_wait_share", "tokens_per_s",
+                              "wall_s")}
+    # the card's one link carries both ranks' streams
+    row["link_bound_ms_per_sweep_two_ranks"] = \
+        2 * row["link_bound_ms_per_sweep"]
+    row["bytes_a_sweep_rank"] = st["plan"]["n_streamed"] \
+        * st["plan"]["layer_bytes"]
+    row["cache_kv_heads_a_rank"] = int(eng.cache.k.shape[1])
+    row["build_s"] = holder["build_s"]
+    row["peak_mem_gb_rank"] = torch.cuda.max_memory_allocated() / 1e9
+    if comm.get_rank() == 0:
+        want = torch.load(refs["phase29_prefill"], weights_only=True)
+        row["first_logits_rel"] = _rel(got["_prefill"].float().cpu(),
+                                       want.float())
+    del eng, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = LlamaConfig.tiny(dim=64)
+    tp = init_params(tiny, torch.Generator("cuda").manual_seed(52),
+                     device="cuda", dtype=torch.float32)
+    kw = dict(max_batch=2, page_size=8, num_pages=64, max_seq=64,
+              prefill_bucket=8, cache_dtype=torch.float32)
+    res = {"tp": row, "tiny_f32_tokens_identical": _tiny_identity(
+        fns, launches, "zi llama", lambda: llama_serving_engine(
+            tp, tiny, mesh=ms, zero_inference=zi, **kw),
+        lambda: llama_serving_engine(tp, tiny, zero_inference=zi, **kw)),
+        "held": {"serving": _hold_serving(gen, 16, 4, cfg.vocab_size)}}
+    every = _gather_rows_json(row)
+    if comm.get_rank() == 0:
+        _phase_line("52 zi llama3_8b tp2", card_line, ranks=every,
+                    held=res["held"], tol=MP_TP_LOGITS_REL,
+                    tiny_f32_tokens_identical=res[
+                        "tiny_f32_tokens_identical"],
+                    launches=launches, mesh={"model": 2},
+                    collectives="host-staged gloo, two ranks on one card")
+        if not row["first_logits_rel"] <= MP_TP_LOGITS_REL:
+            raise SystemExit(f"phase 52: first logits {row['first_logits_rel']}"
+                             f" past {MP_TP_LOGITS_REL} of phase 29's")
+    return launches
+
+
 def mp_child(out_path: str, refs: dict) -> int:
-    """Phases 43-47 in one of two ranks the port's launcher started on the
+    """Phases 43-47 and 49-52 in one of two ranks the port's launcher started on the
     one card: join the gloo group, run each phase (a failing rank fails
     the launcher and so the smoke); rank 0 writes both ranks' launches."""
     from deepspeed_tpu_torch import comm
@@ -7974,6 +8530,20 @@ def mp_child(out_path: str, refs: dict) -> int:
         f"{comm.get_local_rank()}, backend "
         f"{torch.distributed.get_backend()})")
     launches, laps = {}, {}
+    lazy = []
+
+    def lazy_model():
+        import dataclasses
+
+        from deepspeed_tpu_torch.models import llama
+
+        if not lazy:
+            # phase 38's model at its depth, drawn once for 50 and 51
+            lazy.append(llama.layered_model_lazy(dataclasses.replace(
+                llama.LlamaConfig.llama3_8b(), n_layers=OFFLOAD_LAYERS),
+                seed=0))
+        return lazy[0]
+
     for name, fn in (
             ("phase_tp_serving", lambda: phase_tp_serving(fns, card_line,
                                                           gen)),
@@ -7981,7 +8551,15 @@ def mp_child(out_path: str, refs: dict) -> int:
                 fns, card_line, refs["phase8_losses"], gen)),
             ("phase_seq", lambda: phase_seq(fns, card_line, gen)),
             ("phase_pipe", lambda: phase_pipe(fns, card_line, gen)),
-            ("phase_ep", lambda: phase_ep(fns, card_line, gen))):
+            ("phase_ep", lambda: phase_ep(fns, card_line, gen)),
+            ("phase_offload_ranks", lambda: phase_offload_ranks(
+                fns, card_line, refs)),
+            ("phase_pstream_ranks", lambda: phase_pstream_ranks(
+                fns, card_line, refs, lazy_model())),
+            ("phase_infinity_ranks", lambda: phase_infinity_ranks(
+                fns, card_line, refs, lazy_model())),
+            ("phase_zi_tp", lambda: phase_zi_tp(fns, card_line, gen,
+                                                refs))):
         if refs.get("only") and name not in refs["only"]:
             continue
         t0 = time.perf_counter()
@@ -8003,7 +8581,7 @@ def mp_child(out_path: str, refs: dict) -> int:
 
 
 def phase_mp_launcher(card_line, refs):
-    """Phases 43-47 through ``python -m deepspeed_tpu_torch.launcher
+    """Phases 43-47 and 49-52 through ``python -m deepspeed_tpu_torch.launcher
     --local_hosts 2``: two ranks on the one card over gloo; a failing rank
     fails the smoke; both ranks' launches come back."""
     out = os.path.join(_nvme_dir("mp_child"), "result.json")
@@ -8017,7 +8595,7 @@ def phase_mp_launcher(card_line, refs):
     rc = subprocess.run(cmd, cwd=ROOT, env=env,
                         timeout=MP_CHILD_TIMEOUT_S).returncode
     if rc != 0:
-        raise SystemExit(f"phases 43-47: a launched rank exited {rc}")
+        raise SystemExit(f"phases 43-52: a launched rank exited {rc}")
     with open(out) as f:
         res = json.load(f)
     log(f"[mp] launcher and two ranks: {time.perf_counter() - t0:.1f} s, "
@@ -8131,16 +8709,23 @@ def main() -> int:
     launches.update(phase_rlhf_distill_trainer(fns, card_line))
     _lap('phase_rlhf_distill_trainer')
     torch.cuda.empty_cache()
-    launches.update(serve_beyond_the_card(fns, card_line, gen, rows))
+    got, prefill29 = serve_beyond_the_card(fns, card_line, gen, rows)
+    launches.update(got)
     torch.cuda.empty_cache()
-    launches.update(train_beyond_the_card(fns, card_line))
+    got, refs = train_beyond_the_card(fns, card_line)
+    launches.update(got)
     torch.cuda.empty_cache()
-    launches.update(phase_zero_launcher(card_line, rows, phase19_ms))
-    _lap("phases 41-42 (wire, ZeRO stages) under the launcher")
-    launches.update(phase_mp_launcher(card_line, {
-        "phase8_losses": phase8_losses}))
-    _lap("phases 43-47 (tensor, sequence, pipeline and expert parallelism)"
-         " in two ranks under the launcher")
+    got, refs["phase48_losses"] = phase_zero_launcher(card_line, rows,
+                                                      phase19_ms)
+    launches.update(got)
+    _lap("phases 41, 42, 48 (wire, ZeRO stages, ZeRO-Offload) under the "
+         "launcher")
+    refs.update(phase8_losses=phase8_losses, phase29_prefill=prefill29,
+                rates=dict(RATES))
+    launches.update(phase_mp_launcher(card_line, refs))
+    _lap("phases 43-47, 49-52 (tensor, sequence, pipeline and expert "
+         "parallelism; the offload engines over ranks) in two ranks under "
+         "the launcher")
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():

@@ -31,7 +31,9 @@ shardings for the same reason).  Every rank takes part in the save: each
 leaf held as shards is gathered whole on the card, one leaf at a time (the
 peak is one extra leaf), and rank 0 alone copies it to the host and writes
 the files.  On load every rank cuts its own slice of each leaf from the
-memory-mapped files.  The qwZ engine's flat rows are saved whole, as the
+memory-mapped files.  State an engine keeps in host memory (ZeRO-Offload)
+visits the card for the gather on save, and on load each slice is copied
+straight into its host buffer.  The qwZ engine's flat rows are saved whole, as the
 ``[world, chunk]`` buffer JAX saves; ``zero_to_fp32`` refuses them, as
 JAX's does (``consolidate_to_fp32(engine)`` goes through
 ``module_params()``).
@@ -186,18 +188,19 @@ def _opt_fields(opt):
 
 
 def _gathered_copy(tree, dims, keep: bool, prefix: str = "",
-                   specs=None) -> dict:
+                   specs=None, visit=None) -> dict:
     """{path: whole leaf on the host}: each leaf gathered along its ZeRO
     dim and then over the model-parallel axes of its spec on the card
-    (every rank takes part), copied to the host on the keeping rank and
-    dropped before the next."""
+    (every rank takes part; ``visit`` brings a host-placed leaf there),
+    copied to the host on the keeping rank and dropped before the next."""
     from deepspeed_tpu_torch import zero
     from deepspeed_tpu_torch.topology import current_mesh
 
     out = {}
     specs = specs or [()] * len(dims)
     for (path, t), d, sp in zip(tree_leaves_with_path(tree), dims, specs):
-        full = zero.gather_shard(t.detach(), d)
+        t = t.detach()
+        full = zero.gather_shard(t if visit is None else visit(t), d)
         if zero.spec_axes(sp):
             full = zero.gather_local(full, sp, current_mesh())
         if keep:
@@ -224,11 +227,13 @@ def _snapshot(engine) -> Optional[dict]:
         optc = {f: rows(v) for f, v in _opt_fields(opt)}
     else:
         _, pdims, odims, specs = layout
-        params = _gathered_copy(state.params, pdims, keep, specs=specs)
+        visit = getattr(engine, "_visit", None)
+        params = _gathered_copy(state.params, pdims, keep, specs=specs,
+                                visit=visit)
         optc = {}
         for f, v in _opt_fields(opt):
             optc.update(_gathered_copy(v, odims, keep, prefix=f + "/",
-                                       specs=specs))
+                                       specs=specs, visit=visit))
     if not keep:
         return None
     return {

@@ -200,6 +200,22 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return h.copy_(x)
 
 
+def _device_staged(g, x: torch.Tensor) -> bool:
+    """True for a host tensor in an NCCL group: NCCL carries only CUDA
+    tensors, so host state (the offload engines') goes through the card."""
+    return g is not None and not x.is_cuda and dist.get_backend(g) == "nccl"
+
+
+def _wire(g, x: torch.Tensor) -> torch.Tensor:
+    """The tensor a collective of ``x`` hands the backend: a page-locked
+    host copy, a copy on the card, or ``x`` itself."""
+    if _host_staged(g, x):
+        return _to_host(x)
+    if _device_staged(g, x):
+        return x.to(torch.device("cuda", torch.cuda.current_device()))
+    return x
+
+
 def _op_name(op: str, g, x: torch.Tensor) -> str:
     """The log's name of a call: ``op``, or ``op:host`` when staged."""
     return f"{op}:host" if _host_staged(g, x) else op
@@ -214,7 +230,13 @@ def _differentiable(x: torch.Tensor) -> bool:
 # --------------------------------------------------------------------------
 def _all_reduce_raw(x: torch.Tensor, g, dop) -> None:
     """In place; gloo reduces CUDA tensors itself (through host memory)."""
-    if g is not None:
+    if g is None:
+        return
+    if _device_staged(g, x):
+        y = _wire(g, x)
+        dist.all_reduce(y, op=dop, group=g)
+        x.copy_(y)
+    else:
         dist.all_reduce(x, op=dop, group=g)
 
 
@@ -223,7 +245,7 @@ def _gather_dim0(x: torch.Tensor, g, n: int) -> torch.Tensor:
     x = x.contiguous()
     if g is None:
         return x.clone()
-    src = _to_host(x) if _host_staged(g, x) else x
+    src = _wire(g, x)
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=g)
     return out.to(x.device) if out.device != x.device else out
@@ -234,7 +256,7 @@ def _reduce_scatter_dim0(x: torch.Tensor, g, n: int) -> torch.Tensor:
     x = x.contiguous()
     if g is None:
         return x.clone()
-    src = _to_host(x) if _host_staged(g, x) else x
+    src = _wire(g, x)
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=g)
     return out.to(x.device) if out.device != x.device else out
@@ -245,7 +267,7 @@ def _all_to_all_dim0(x: torch.Tensor, g) -> torch.Tensor:
     x = x.contiguous()
     if g is None:
         return x.clone()
-    src = _to_host(x) if _host_staged(g, x) else x
+    src = _wire(g, x)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=g)
     return out.to(x.device) if out.device != x.device else out
@@ -254,8 +276,8 @@ def _all_to_all_dim0(x: torch.Tensor, g) -> torch.Tensor:
 def _ppermute_raw(x: torch.Tensor, g, perm) -> torch.Tensor:
     x = x.contiguous()
     me = 0 if g is None else dist.get_group_rank(g, dist.get_rank())
-    staged = _host_staged(g, x)
-    src = _to_host(x) if staged else x
+    src = _wire(g, x)
+    staged = src is not x
     out = torch.zeros_like(src)
     ops = []
     for s, d in perm:
@@ -462,7 +484,10 @@ def broadcast(x: torch.Tensor, axis_name: str = "data", src: int = 0,
     y = x.clone()
     with _comms_logger.record("broadcast", _nbytes(x)):
         if g is not None:
-            dist.broadcast(y, src=dist.get_global_rank(g, src), group=g)
+            w = _wire(g, y) if _device_staged(g, y) else y
+            dist.broadcast(w, src=dist.get_global_rank(g, src), group=g)
+            if w is not y:
+                y.copy_(w)
     return y
 
 

@@ -25,12 +25,20 @@ optimizers take the compressed steps of :mod:`~deepspeed_tpu_torch.
 comm_compress`.
 
 Unscheduled ``offload_optimizer`` / ``offload_param`` blocks (``device:
-cpu``, no ``scheduled``) at stage 0 keep the named state in page-locked
-host memory: the moments and the f32 master for the optimizer block, the
-master for the param block; each leaf visits the card for its cast and its
-update, so the results equal the engine without the block bit for bit.
-The scheduled and NVMe blocks go to the streaming engines
-(:func:`initialize`).
+cpu``, no ``scheduled``; ZeRO-Offload) keep the named state in page-locked
+host memory at every stage: the moments and the f32 master for the
+optimizer block, the master for the param block; whole leaves at stage 0,
+this rank's shards from stage 1 (:func:`~deepspeed_tpu_torch.offload.
+offload_placement`).  Each leaf or shard visits the card for its cast and
+its update (B4 under ``fused_adam``) and goes back.  At stages 1 and 2 a
+host master is a shard, so the card keeps the whole compute-dtype copy,
+and the new shard is cast and all-gathered into it after the update (the
+reference's fp16 all-gather).  Casting commutes with the gather, so the
+results equal the engine without the block bit for bit.  The scheduled
+and NVMe blocks go to the streaming engines (:func:`initialize`).
+
+:meth:`TrainingEngine.comms_digest` counts the collectives of one dry
+step (:mod:`deepspeed_tpu_torch.comm.digest`).
 
 ``train_batch`` first truncates the batch to the curriculum's current
 sequence length when a ``curriculum_learning`` block is configured, as the
@@ -91,6 +99,22 @@ def accum_split(batch: Any, accum: int) -> Any:
         batch)
 
 
+def rank_rows(batch: Any, world: int, rank: int) -> Any:
+    """Rank ``rank``'s rows of a global batch: the block ``[r n, (r + 1)
+    n)``, ``n = B / world``, which JAX's ``[dp, accum, mb]`` view gives
+    device r (scalars as they are)."""
+    if world == 1:
+        return batch
+
+    def rows(x):
+        if not getattr(x, "ndim", 0):
+            return x
+        n = x.shape[0] // world
+        return x[rank * n:(rank + 1) * n]
+
+    return tree_map(rows, batch)
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, accumulated in f32."""
     return torch.sqrt(torch.stack(
@@ -124,11 +148,6 @@ def _is_init_thunk(params) -> bool:
 
 def _unsupported(config: Config, params) -> Optional[str]:
     """The first configured feature this engine does not run, or None."""
-    z = config.zero
-    if z.stage > 0 and (z.offload_param or z.offload_optimizer):
-        return (f"ZeRO stage {z.stage} with offload (the offload engines "
-                "at dp > 1 are ROADMAP A9's remainder; stage 0 keeps "
-                "unscheduled offload state on the host)")
     if config.progressive_layer_drop:
         return "progressive_layer_drop (ROADMAP A11)"
     if config.eigenvalue:
@@ -203,6 +222,10 @@ class TrainingEngine:
         if why is not None:
             raise NotImplementedError(f"{why} is not ported yet")
         self.config = config
+        self._cparams: Optional[List[torch.Tensor]] = None
+        self._pinned: list = []
+        # host <-> card bytes of the offloaded state in the last step
+        self.link_bytes = {"up": 0, "down": 0}
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else mesh_for(config,
                                                            self.device)
@@ -233,6 +256,12 @@ class TrainingEngine:
             raise NotImplementedError(
                 f"the {mode} compressed step over mesh axes {mp}: the "
                 "compressed paths run over the data axis only")
+        if mode == "qwz" and (config.zero.offload_param
+                               or config.zero.offload_optimizer):
+            raise ValueError(
+                "zero_quantized_weights does not compose with offload "
+                "(the flat-shard step owns the param layout); use the "
+                "scheduled Infinity engine or drop the qwZ flag")
         if mode == "onebit" and config.gradient_clipping > 0:
             logger.warning(
                 "gradient_clipping is ignored under the 1-bit optimizer "
@@ -247,12 +276,9 @@ class TrainingEngine:
                 f"axis_name={optimizer.axis_name!r}, which would do NO "
                 "cross-rank communication and silently diverge); or "
                 "omit `optimizer=` and configure it via the config dict")
-        if stage >= 1 and self.dp > 1 and name.lower() in _PER_LEAF_NORM:
-            raise NotImplementedError(
-                f"optimizer {name!r} at ZeRO stage {stage} over {self.dp} "
-                "ranks: its trust ratio needs a whole leaf's norms, which "
-                "a shard does not hold (ROADMAP A9's remainder); use stage "
-                "0 or an elementwise optimizer")
+        # a trust ratio reads whole-leaf norms: a leaf split over ranks
+        # sums its blocks' squares over the axes that split it
+        self._per_leaf_norm = name.lower() in _PER_LEAF_NORM
 
         opt_lr = float(config.optimizer.params.get(
             "lr", default_lr(config.optimizer.type)))
@@ -311,18 +337,25 @@ class TrainingEngine:
         # unscheduled offload blocks (ref: ZeRO-Offload; the JAX engine's
         # pinned_host memory-kind shardings): the optimizer block keeps the
         # moments and the f32 master in page-locked host memory, the param
-        # block the master; each leaf visits the card for its update
+        # block the master, whole at stage 0 and this rank's shards from
+        # stage 1; each visits the card for its update
         from deepspeed_tpu_torch.offload import offload_placement
 
         place = offload_placement(config)
-        if (place["optimizer"] or place["master"]) and mp:
-            raise NotImplementedError(
-                f"offload blocks over mesh axes {mp}: the offload engines "
-                "beyond one data-parallel rank are ROADMAP A9's remainder")
         self._host_opt, self._host_master = (place["optimizer"],
                                              place["master"])
-        self._pinned: list = []
-        if self._host_master:
+        # stages 1-2 with a host master: the whole compute-dtype copy on
+        # the card (self._cparams)
+        if self._host_master and stage in (1, 2):
+            cdt = precision.compute_dtype(config.precision)
+            whole = tree_leaves(params)
+            self._cparams = [p.detach().to(cdt) if p.is_floating_point()
+                             else p for p in whole]
+            params = tree_unflatten_like(self._skeleton, [
+                self._to_host(zero.take_shard(p, d, self.rank, self.dp))
+                for p, d in zip(whole, self._dims)])
+            del whole
+        elif self._host_master:
             params = tree_map(self._to_host, params)
         if self._host_opt:
             opt_state = type(opt_state)(opt_state[0], *(
@@ -357,6 +390,7 @@ class TrainingEngine:
         self.skipped_steps = 0
         self._pending: Optional[dict] = None
         self._last_metrics: dict = {}
+        self._dry = False
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         """A page-locked host copy of ``t`` (plain host memory without
@@ -371,8 +405,15 @@ class TrainingEngine:
         already lives there)."""
         if t.device.type == self.device.type:
             return t
+        self.link_bytes["up"] += t.numel() * t.element_size()
         return torch.empty_like(t, device=self.device).copy_(
             t, non_blocking=True)
+
+    def _leave(self, host: torch.Tensor, t: torch.Tensor) -> None:
+        """Write a visiting copy ``t`` back into its host tensor."""
+        if t is not host:
+            self.link_bytes["down"] += t.numel() * t.element_size()
+            host.copy_(t)
 
     # ------------------------------------------------------- qwZ flat state
     def _setup_qwz_state(self, leaves: list, mdt) -> None:
@@ -433,11 +474,15 @@ class TrainingEngine:
         if self.grad_comm_mode == "qwz":
             return tree_map(lambda p: p.detach(),
                             self._qwz_exact_params(dt))
+        if self._cparams is not None:
+            return tree_unflatten_like(self._skeleton, [
+                c.detach().requires_grad_(True) if c.is_floating_point()
+                else c for c in self._cparams])
         if self.stage >= 3:
-            leaves = [zero.gather_shard(p.detach().to(dt)
-                                        if p.is_floating_point() else p, d)
-                      for p, d in zip(tree_leaves(self.state.params),
-                                      self._dims)]
+            leaves = [zero.gather_shard(
+                self._visit(p).detach().to(dt) if p.is_floating_point()
+                else self._visit(p), d)
+                for p, d in zip(tree_leaves(self.state.params), self._dims)]
             return tree_unflatten_like(self._skeleton, [
                 l.requires_grad_(True) if l.is_floating_point() else l
                 for l in leaves])
@@ -467,18 +512,14 @@ class TrainingEngine:
         E = self.mesh.size("expert")
         W, r = self.dp * E, self.rank * E + self.mesh.rank_in("expert")
 
-        def rows(x):
-            if not getattr(x, "ndim", 0):
-                return x
-            B = x.shape[0]
-            if B % (W * parts):
+        def check(x):
+            if getattr(x, "ndim", 0) and x.shape[0] % (W * parts):
                 raise ValueError(
-                    f"a global batch of {B} rows does not split into {W} "
-                    f"ranks x {parts} microbatches")
-            n = B // W
-            return x[r * n:(r + 1) * n] if W > 1 else x
+                    f"a global batch of {x.shape[0]} rows does not split "
+                    f"into {W} ranks x {parts} microbatches")
 
-        local = self._batch(tree_map(rows, batch))
+        tree_map(check, batch)
+        local = self._batch(rank_rows(batch, W, r))
         if parts == 1:
             return [local]
 
@@ -495,6 +536,7 @@ class TrainingEngine:
     def _train_step(self, batch) -> dict:
         if self.grad_comm_mode == "qwz":
             return self._qwz_train_step(batch)
+        self.link_bytes = {"up": 0, "down": 0}
         cfg = self.config
         # pipelined: the loss consumes the whole batch and microbatches it
         # inside the pipeline (ref: runtime/pipe/engine.py train_batch)
@@ -627,7 +669,8 @@ class TrainingEngine:
 
     def _finish_step(self, grads: List[torch.Tensor], loss, auxes) -> dict:
         """Unscale/overflow-check, clip, update, commit (the JAX
-        ``_finish_step``)."""
+        ``_finish_step``).  A dry step (:meth:`comms_digest`) runs every
+        exchange and commits nothing."""
         cfg = self.config
         step = self.state.step
         grads, ok, scaler = precision.unscale_and_check(
@@ -638,9 +681,10 @@ class TrainingEngine:
                 factor = _clip_factor(gnorm, cfg.gradient_clipping)
                 for g in grads:
                     g.mul_(factor)
-            self._apply_updates(grads)
-        self.state = self.state._replace(
-            step=self.state.step + int(ok), scaler=scaler)
+            self._apply_updates(grads, commit=not self._dry)
+        if not self._dry:
+            self.state = self.state._replace(
+                step=self.state.step + int(ok), scaler=scaler)
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "overflow": int(not ok), "lr": self.lr_schedule(step + 1),
                    "loss_scale": scaler.scale}
@@ -650,12 +694,26 @@ class TrainingEngine:
                                        *auxes))
         return metrics
 
-    def _apply_updates(self, grads: List[torch.Tensor]) -> None:
+    def _norm_axes(self, d, sp) -> List[str]:
+        """The axes over which leaf blocks are split on this rank: data
+        (its ZeRO dim, from stage 1) and its spec's live axes."""
+        axes = [a for a in zero.spec_axes(sp) if self.mesh.size(a) > 1]
+        if d is not None and self.stage >= 1 and self.dp > 1:
+            axes.append("data")
+        return axes
+
+    def _apply_updates(self, grads: List[torch.Tensor],
+                       commit: bool = True) -> None:
         """``optimizer.update`` one leaf at a time, then ``p += u`` in
         place: on the whole leaf at stage 0, on this rank's shard from
-        stage 1 (stages 1 and 2 then all-gather the new master).  The old
+        stage 1 (stages 1 and 2 then all-gather the new master, or cast
+        it and gather it into the compute copy when the master is a host
+        shard).  A host-placed leaf visits the card and goes back.  The old
         state's leaves are held only by ``cols``, so each is freed as soon
-        as its replacement lands."""
+        as its replacement lands.  ``commit=False`` runs the updates and
+        their gathers on copies and keeps the state as it was."""
+        from deepspeed_tpu_torch.ops.optim import whole_leaf_norms
+
         opt = self.state.opt_state
         kind, step = type(opt), opt[0]
         skeletons = [None if f is None else tree_map(lambda _: 0, f)
@@ -664,6 +722,7 @@ class TrainingEngine:
         self.state = self.state._replace(opt_state=None)
         del opt
         dims = self._dims or [None] * len(grads)
+        host_shard = self._cparams is not None
         new_step = step
         try:
             for i, (p, g) in enumerate(zip(tree_leaves(self.state.params),
@@ -672,25 +731,38 @@ class TrainingEngine:
                 split = self.stage in (1, 2) and d is not None
                 sub = kind(step, *(None if c is None else self._visit(c[i])
                                    for c in cols))
-                if split:
+                if split and not host_shard:
                     pd = zero.take_shard(p, d, self.rank, self.dp).clone(
                         memory_format=torch.contiguous_format)
-                    if g.shape == p.shape:     # a whole grad (stage 1)
-                        g = zero.take_shard(g, d, self.rank, self.dp) \
-                            .contiguous()
                 else:
                     pd = self._visit(p)
-                u, new = self.optimizer.update(g, sub, pd)
+                    if pd is p and not commit:
+                        pd = pd.clone()
+                if split and g.shape != pd.shape:   # a whole grad (stage 1)
+                    g = zero.take_shard(g, d, self.rank, self.dp) \
+                        .contiguous()
+                axes = self._norm_axes(d, self._specs[i]) \
+                    if self._per_leaf_norm else []
+                with whole_leaf_norms(axes):
+                    u, new = self.optimizer.update(g, sub, pd)
                 pd.add_(u.to(pd.dtype))
                 del u
-                if split:
-                    zero.gather_shard(pd, d, out=p)
-                elif pd is not p:
-                    p.copy_(pd)
+                if host_shard:
+                    c = self._cparams[i]
+                    src = pd.to(c.dtype) if pd.dtype != c.dtype else pd
+                    zero.gather_shard(src, d, out=c if commit else None)
+                    if commit:
+                        self._leave(p, pd)
+                elif split:
+                    zero.gather_shard(pd, d, out=p if commit else None)
+                elif commit:
+                    self._leave(p, pd)
+                if not commit:
+                    continue
                 for c, leaf in zip(cols, new[1:]):
                     if c is not None:
                         if c[i].device.type != leaf.device.type:
-                            c[i].copy_(leaf)
+                            self._leave(c[i], leaf)
                         else:
                             c[i] = leaf
                 new_step = new[0]
@@ -745,9 +817,11 @@ class TrainingEngine:
         if ok:
             u, new_opt = self.optimizer.update(gshard, self.state.opt_state,
                                                row)
-            row.add_(u.to(row.dtype))
-            self.state = self.state._replace(opt_state=new_opt)
-        self.state = self.state._replace(step=step + int(ok))
+            if not self._dry:
+                row.add_(u.to(row.dtype))
+                self.state = self.state._replace(opt_state=new_opt)
+        if not self._dry:
+            self.state = self.state._replace(step=step + int(ok))
         return {"loss": loss, "grad_norm": gnorm, "overflow": int(not ok),
                 "lr": self.lr_schedule(step + 1),
                 "loss_scale": self.state.scaler.scale}
@@ -820,6 +894,28 @@ class TrainingEngine:
         m = self._last_metrics.get("grad_norm")
         return float(m) if m is not None else 0.0
 
+    def comms_digest(self, batch, link_gbps: float = 45.0) -> dict:
+        """Per-kind count and bytes of the collectives one step on
+        ``batch`` runs (ref: deepspeed/comm/comm.py comms_logger; the JAX
+        engine reads them from its compiled step's HLO).  Every collective
+        here is an executed call, so the digest is the comms logger's
+        totals over one dry step: the forward, the backward and every
+        exchange of the step, the updates run on copies and discarded,
+        and no counter, scaler, schedule or data state advanced (the
+        trajectory after a call equals the trajectory without it, bit for
+        bit).  Returns the dict (:func:`~deepspeed_tpu_torch.comm.digest.
+        digest_of`); writing it to a monitor comes with the monitors."""
+        from deepspeed_tpu_torch.comm.digest import dry_digest
+
+        def run():
+            self._dry = True
+            try:
+                self._train_step(self._apply_curriculum(batch))
+            finally:
+                self._dry = False
+
+        return dry_digest(run, link_gbps)
+
     @property
     def train_batch_size(self):
         return self.config.train_batch_size
@@ -838,8 +934,10 @@ class TrainingEngine:
             return self._qwz_exact_params(
                 precision.master_dtype(self.config.precision))
         params = self.state.params
-        if self.stage >= 3:
-            params = zero.unshard_params(params, self._dims)
+        if self.stage >= 3 or self._cparams is not None:
+            params = tree_unflatten_like(params, [
+                zero.gather_shard(self._visit(t), d)
+                for t, d in zip(tree_leaves(params), self._dims)])
         if self._mp:
             params = tree_unflatten_like(params, [
                 zero.gather_local(t, sp, self.mesh) for t, sp in
@@ -855,7 +953,8 @@ class TrainingEngine:
         if self.grad_comm_mode == "qwz":
             return ("qwz", self._qwz_chunk)
         dims = self._dims or [None] * len(self._shapes)
-        pdims = dims if self.stage >= 3 else [None] * len(dims)
+        sharded = self.stage >= 3 or self._cparams is not None
+        pdims = dims if sharded else [None] * len(dims)
         odims = dims if self.stage >= 1 else [None] * len(dims)
         return ("leaves", pdims, odims, self._specs)
 
@@ -876,7 +975,14 @@ class TrainingEngine:
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None):
         from deepspeed_tpu_torch.checkpoint import load_checkpoint as _load
 
-        return _load(self, load_dir, tag=tag)
+        out = _load(self, load_dir, tag=tag)
+        if self._cparams is not None:
+            # the compute copy from the loaded host shards
+            for p, c, d in zip(tree_leaves(self.state.params), self._cparams,
+                               self._dims):
+                pd = self._visit(p)
+                zero.gather_shard(pd.to(c.dtype), d, out=c)
+        return out
 
 
 def _is_float(leaf) -> bool:
@@ -908,9 +1014,10 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
     ``cpu`` with ``scheduled``) to the optimizer-state-streaming
     :class:`~deepspeed_tpu_torch.infinity.InfinityEngine`; everything else
     to :class:`TrainingEngine` (ZeRO stages 0-3 over the mesh; its
-    unscheduled ``cpu`` offload blocks keep stage 0's state in page-locked
-    host memory).  ``param_specs``: the model-parallel placements of
-    :class:`TrainingEngine` (the streaming engines take none yet)."""
+    unscheduled ``cpu`` offload blocks keep the state, or this rank's
+    shards of it, in page-locked host memory).  ``param_specs``: the
+    model-parallel placements of every engine (each cuts its leaves to
+    this rank's blocks)."""
     if dist_init_required is None or dist_init_required:
         cpu = device is not None and torch.device(device).type == "cpu"
         comm.init_distributed(dist_backend="gloo" if cpu else "nccl")
@@ -942,12 +1049,9 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                 "the param-stream engine drives its own CPU-Adam; "
                 "configure the optimizer via the config block and drop "
                 "has_aux (LayeredModel.block_has_aux covers it)")
-        if param_specs is not None:
-            raise NotImplementedError(
-                "param_specs with the param-stream engine: the offload "
-                "engines beyond one rank are ROADMAP A9's remainder")
         engine = ParamStreamEngine(params, config, lr_scheduler=lr_scheduler,
-                                   device=device)
+                                   param_specs=param_specs, device=device,
+                                   mesh=mesh)
         return _finish_initialize(engine, config, training_data)
 
     if loss_fn is None or params is None:
@@ -970,16 +1074,14 @@ def initialize(args=None, *, loss_fn: Optional[Callable] = None,
                 "ZeRO-Infinity engine yet — drop one of the two (the "
                 "TrainingEngine honors curriculum; Infinity ignores it, "
                 "which would be a silent no-op)")
-        if param_specs is not None:
-            raise NotImplementedError(
-                "param_specs with the ZeRO-Infinity engine: the offload "
-                "engines beyond one rank are ROADMAP A9's remainder")
         if callable(params) and not isinstance(params, (dict, list, tuple)):
             # a zero.Init thunk: the engine keeps the compute params on
             # the card regardless, so materialize it now
             params = params()
         engine = InfinityEngine(loss_fn, params, config,
-                                lr_scheduler=lr_scheduler, device=device)
+                                lr_scheduler=lr_scheduler,
+                                param_specs=param_specs, device=device,
+                                mesh=mesh)
     else:
         engine = TrainingEngine(loss_fn, params, config, optimizer=optimizer,
                                 lr_scheduler=lr_scheduler, has_aux=has_aux,

@@ -1358,10 +1358,6 @@ def _route_zero_inference(zero_inference, family: str, params, cfg,
     zi = ZeroInferenceConfig.coerce(zero_inference)
     if not zi.enabled:
         return None
-    if _active_mesh(kw.get("mesh")) is not None:
-        raise NotImplementedError(
-            "zero_inference over a sharding mesh: the offload engines "
-            "beyond one rank are ROADMAP A9's remainder")
     from deepspeed_tpu_torch.inference.zero_inference import (
         zero_inference_serving_engine)
 

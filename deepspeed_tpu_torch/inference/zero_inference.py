@@ -36,6 +36,16 @@ forwards, each one layer sweep, so one weight stream scores every position
 of every active slot (speculation divides the streamed bytes per emitted
 token by the mean acceptance length).
 
+Over a sharding ``mesh`` (``model`` and, for Mixtral, ``expert``; JAX's
+``zero_inference_serving_engine(mesh=)``) each rank ingests only its block
+of every leaf under the family's ``param_specs`` (int8 leaves quantized
+whole on the resident builders' grid and then cut, as
+:func:`~deepspeed_tpu_torch.inference.sharded.shard_quantized` cuts them),
+so its tier holds and its ring streams 1/tp of each layer; the paged KV
+cache holds ``n_kv_heads / tp`` heads a rank, the residency plan is per
+rank, and the forward runs with the mesh current (the models' sharded
+blocks decide their collectives from the leaves' shapes).
+
 The fleet methods of the JAX engine (``promote_resident_layers``,
 ``swap_weights``, ``statusz``) come with ROADMAP A10.
 """
@@ -172,10 +182,15 @@ class ZeroInferenceServingEngine(ServingEngine):
         self._layer_bytes = int(layer_bytes)
         del leaves
 
-        # ---- residency plan; the cache geometry is the base engine's
-        # signature defaults (kw is forwarded to it as is)
+        # ---- residency plan, per rank; the cache geometry is the base
+        # engine's signature defaults (kw is forwarded to it as is), its
+        # heads this rank's under a model axis
+        from deepspeed_tpu_torch.inference.serving import _active_mesh
+
+        mesh = _active_mesh(kw.get("mesh"))
+        tp = mesh.size("model") if mesh is not None else 1
         cache_dtype = kw.get("cache_dtype", torch.bfloat16)
-        cache_bytes = (2 * n_layers * n_kv * kw.get("num_pages", 128)
+        cache_bytes = (2 * n_layers * (n_kv // tp) * kw.get("num_pages", 128)
                        * kw.get("page_size", 16) * head_dim
                        * torch.empty((), dtype=cache_dtype).element_size())
         # tied embeddings alias ONE table between stem and head: charge it
@@ -209,8 +224,13 @@ class ZeroInferenceServingEngine(ServingEngine):
         # ---- ingest: resident layers to the card, streamed ones to the
         # tier, one layer at a time (a lazy source never holds two)
         nvme = zi.tier == "nvme" and bool(self._streamed_ids)
-        self.tier = (_NvmeTier(os.path.join(zi.nvme_path, "zero_inference"))
-                     if nvme else _RamTier())
+        swap = os.path.join(zi.nvme_path, "zero_inference")
+        if mesh is not None:
+            from deepspeed_tpu_torch import comm
+
+            # a subdir a rank: each holds its own blocks
+            swap = os.path.join(swap, f"proc{comm.get_rank()}")
+        self.tier = _NvmeTier(swap) if nvme else _RamTier()
         self._resident: Dict[int, Any] = {}
         self._pinned: List[PinnedBuffer] = []
         for l in range(n_layers):
@@ -344,6 +364,10 @@ class ZeroInferenceServingEngine(ServingEngine):
         from deepspeed_tpu_torch.inference.kernels import (
             paged_forward_prelude)
 
+        if self.mesh is not None:
+            from deepspeed_tpu_torch import topology
+
+            topology.set_current_mesh(self.mesh)
         T = tokens.shape[1]
         _, start, prefill = paged_forward_prelude(cache, tokens,
                                                   continuation)
@@ -386,6 +410,18 @@ class ZeroInferenceServingEngine(ServingEngine):
 
 
 # --------------------------------------------------------------- builders
+def _drop_layer_dim(spec) -> tuple:
+    """A stacked block leaf's spec without its layer dim (JAX's refusal
+    when it is split: the streaming schedule owns that axis)."""
+    if spec is None:
+        return ()
+    if len(spec) and spec[0] is not None:
+        raise ValueError(
+            f"stacked block spec {spec} shards the layer axis — the "
+            "streaming engine owns that axis (host schedule)")
+    return tuple(spec)[1:]
+
+
 _FAMILY_SKIPS = {
     # the resident builders' exact-leaf sets: the quantization grid must
     # match or streamed and resident outputs diverge
@@ -410,6 +446,8 @@ def zero_inference_serving_engine(params, cfg, zi, *, family: str,
     serving."""
     from deepspeed_tpu_torch.inference.kernels import resolve_serving_kernels
 
+    from deepspeed_tpu_torch.inference.serving import _active_mesh
+
     zi = ZeroInferenceConfig.coerce(zi)
     if family not in _FAMILY_SKIPS:
         raise NotImplementedError(
@@ -418,27 +456,56 @@ def zero_inference_serving_engine(params, cfg, zi, *, family: str,
     dev = resolve_device(device)
     kw["kernels"] = resolve_serving_kernels(kw.get("kernels"), device=dev)
     pk = kw["kernels"].paged_attention
+    mesh = _active_mesh(kw.get("mesh"))
     if family == "mixtral":
         from deepspeed_tpu_torch.models import mixtral as fam
+
+        if mesh is not None and cfg.num_experts % mesh.size("expert"):
+            raise ValueError(
+                f"num_experts {cfg.num_experts} not divisible by "
+                f"expert-axis size {mesh.size('expert')}")
     else:
         from deepspeed_tpu_torch.models import llama as fam
     fns = fam.paged_layered_fns(cfg, paged_kernel=pk)
 
     stem = {"embed": params["embed"]}
     head = {"final_norm": params["final_norm"]}
-    if getattr(cfg, "tie_embeddings", False):
+    tied = getattr(cfg, "tie_embeddings", False)
+    if tied:
         head["embed"] = params["embed"]
     else:
         head["lm_head"] = params["lm_head"]
     layer_fn = None
     wd = zi.dtype or weight_dtype
-    if wd != "bfloat16":
-        if wd != "int8":
-            raise NotImplementedError(
-                f"weight-only quantized inference supports 'int8' only, "
-                f"got {wd!r}")
-        skips = _FAMILY_SKIPS[family]
+    if wd not in ("bfloat16", "int8"):
+        raise NotImplementedError(
+            f"weight-only quantized inference supports 'int8' only, "
+            f"got {wd!r}")
+    skips = _FAMILY_SKIPS[family]
+    if mesh is not None:
+        from deepspeed_tpu_torch.inference.sharded import place_for_serving
 
+        specs = fam.param_specs(cfg)
+        layer_specs = {k: _drop_layer_dim(v)
+                       for k, v in specs["blocks"].items()}
+        # int8 quantizes each whole leaf on the card before the cut;
+        # exact blocks are cut on the host, where the tier keeps them
+        where = dev if wd == "int8" else torch.device("cpu")
+
+        def layer_fn(t):
+            return place_for_serving(t, layer_specs, mesh, where, wd,
+                                     quant_group_size, skips)[0]
+
+        def place(t, names):
+            return place_for_serving(t, {k: specs[k] for k in names}, mesh,
+                                     dev, wd, quant_group_size, skips)[0]
+
+        stem = place(stem, stem)
+        head = place({k: v for k, v in head.items() if k != "embed"},
+                     [k for k in head if k != "embed"])
+        if tied:
+            head["embed"] = stem["embed"]
+    elif wd == "int8":
         def q(t):
             return quantize_params(tree_map(lambda a: a.to(dev), t),
                                    group_size=quant_group_size,
@@ -447,7 +514,6 @@ def zero_inference_serving_engine(params, cfg, zi, *, family: str,
         layer_fn = q
         stem = q(stem)
         # tied embeddings: quantize the shared table ONCE and alias it
-        tied = getattr(cfg, "tie_embeddings", False)
         head = q({k: v for k, v in head.items() if k != "embed"})
         if tied:
             head["embed"] = stem["embed"]

@@ -49,11 +49,16 @@ class PinnedBuffer:
     when CUDA is available (one registration for the whole buffer, at its
     exact size: ``pin_memory`` would round a 2.9 GB layer up to 4 GiB), so
     a ``copy_(non_blocking=True)`` out of it is truly asynchronous.  The
-    registration is undone when the buffer is collected, before its memory
-    is freed.  Without CUDA the buffer is plain host memory."""
+    memory is an anonymous ``mmap`` (page-aligned and untouched), which
+    registers faster than an allocator's block.  The registration is
+    undone when the buffer is collected, before its memory is freed.
+    Without CUDA the buffer is plain host memory."""
 
     def __init__(self, nbytes: int):
-        self.tensor = torch.empty((max(int(nbytes), 1),), dtype=torch.uint8)
+        import mmap
+
+        self._map = mmap.mmap(-1, max(int(nbytes), 1))
+        self.tensor = torch.frombuffer(self._map, dtype=torch.uint8)
         self._registered = False
         if torch.cuda.is_available():
             rt = torch.cuda.cudart()
@@ -302,10 +307,16 @@ class InfinityEngine:
     """Host-scheduled ZeRO-Infinity engine (port of the JAX package's; ref:
     deepspeed/runtime/swap_tensor/partitioned_optimizer_swapper.py): the
     compute-dtype params stay on the card, the f32 master and moments live
-    on the tier in the ``[dp, chunk]`` layout (dp = 1 here, chunks padded
-    to 128 elements) and stream through it in sub-groups of about
-    ``zero_optimization.sub_group_size`` elements (default 2**24; a larger
-    leaf is a group of its own).
+    on the tier in the ``[dp, chunk]`` layout (dp the ranks of the mesh's
+    ``data`` axis, chunks padded to 128 elements; each rank's tier holds
+    its own row, in a subdir of its own on NVMe) and stream through it in
+    sub-groups of about ``zero_optimization.sub_group_size`` elements
+    (default 2**24; a larger leaf is a group of its own).  Each rank
+    backprops its rows of the global batch; its grads are reduce-scattered
+    over ``data`` into its row, and the fresh compute rows are
+    all-gathered back into the whole leaf.  ``param_specs`` cut each
+    compute leaf to this rank's model-parallel block, and the ``[dp,
+    chunk]`` state is that block's.
 
     The grad program is ``loss_fn`` under autograd over the compute leaves,
     with accumulation in f32, the finite check and global-norm clipping on
@@ -320,7 +331,7 @@ class InfinityEngine:
     state."""
 
     def __init__(self, loss_fn, params: Any, config, lr_scheduler=None,
-                 param_specs=None, device=None):
+                 param_specs=None, device=None, mesh=None):
         from deepspeed_tpu_torch import lr_schedules, precision
         from deepspeed_tpu_torch._device import resolve_device
         from deepspeed_tpu_torch._tree import (tree_leaves_with_keystr,
@@ -331,19 +342,22 @@ class InfinityEngine:
                                                       default_swap_dir,
                                                       process_count)
 
-        if param_specs is not None or process_count() > 1:
-            raise NotImplementedError(
-                "InfinityEngine over several processes or with param_specs "
-                "(the [dp, chunk] partition, tensor-parallel compute "
-                "leaves) comes with ROADMAP A9's distributed part")
+        from deepspeed_tpu_torch import comm, topology, zero
+        from deepspeed_tpu_torch.engine import mesh_for
+
         self.config = config
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
-        config.resolve_batch_sizes(1)
+        self.mesh = mesh if mesh is not None else mesh_for(config,
+                                                           self.device)
+        topology.set_current_mesh(self.mesh)
+        self._pc = process_count()
+        self._dp = self.mesh.size("data")
+        self._row = self.mesh.rank_in("data")
+        config.resolve_batch_sizes(self._dp)
         self.loss_fn = loss_fn
         off = config.zero.offload_optimizer or {}
         self.device_tier = off.get("device", "cpu")
-        self._dp = 1
         self.update_mode = off.get("update", "device")
         if self.update_mode not in ("device", "host"):
             raise ValueError(
@@ -370,10 +384,16 @@ class InfinityEngine:
         self.optimizer = adam(lr=self.lr_schedule, adamw=adamw_mode,
                               **oparams)
 
-        # ---- the flat [dp, chunk] layout, leaf by leaf
+        # ---- the flat [dp, chunk] layout of each leaf's block
         flat = tree_leaves_with_keystr(params)
         self._template = tree_map(lambda a: 0, params)
         self._names = ["g" + p.replace("/", "_") for p, _ in flat]
+        self._specs = zero.spec_leaves(params, param_specs)
+        if len(self._specs) != len(flat):
+            raise ValueError("param_specs tree does not match params")
+        self._full = [tuple(a.shape) for _, a in flat]
+        flat = [(p, zero.local_shard(_cpu_tensor(a), sp, self.mesh)
+                 if sp else a) for (p, a), sp in zip(flat, self._specs)]
         self._shapes = [tuple(a.shape) for _, a in flat]
         self._sizes = [int(np.prod(s, dtype=np.int64)) for s in self._shapes]
         self._chunks = [-(-n // (self._dp * _LANE)) * _LANE
@@ -390,7 +410,8 @@ class InfinityEngine:
         self.groups = groups
         if self.device_tier == "nvme":
             self.tier: _Tier = _NvmeTier(os.path.join(
-                off.get("nvme_path", default_swap_dir()), "proc0"))
+                off.get("nvme_path", default_swap_dir()),
+                f"proc{comm.get_rank()}"))
         else:
             self.tier = _RamTier()
         self._compute_dtype = precision.compute_dtype(config.precision)
@@ -436,13 +457,34 @@ class InfinityEngine:
 
     # -------------------------------------------------- partition helpers
     def _partition_host(self, arr: torch.Tensor, i: int) -> torch.Tensor:
-        """A full leaf (host) -> its zero-padded ``[dp, chunk]`` rows."""
-        rows = torch.zeros((self._dp, self._chunks[i]), dtype=torch.float32)
-        rows.view(-1)[:self._sizes[i]].copy_(arr.reshape(-1))
+        """A block leaf (host) -> this rank's row of its zero-padded
+        ``[dp, chunk]`` layout, as ``[1, chunk]``."""
+        c = self._chunks[i]
+        lo = self._row * c
+        rows = torch.zeros((1, c), dtype=torch.float32)
+        n = max(0, min(c, self._sizes[i] - lo))
+        rows.view(-1)[:n].copy_(arr.reshape(-1)[lo:lo + n])
         return rows
 
     def _unpad(self, rows: torch.Tensor, i: int) -> torch.Tensor:
-        return rows.reshape(-1)[:self._sizes[i]].view(self._shapes[i])
+        """This rank's row -> the block leaf: every rank's row gathered
+        over ``data`` (a collective when dp > 1), unpadded."""
+        from deepspeed_tpu_torch import comm
+
+        flat = rows.reshape(-1)
+        if self._dp > 1:
+            flat = comm.all_gather(flat.contiguous(), "data")
+        return flat[:self._sizes[i]].view(self._shapes[i])
+
+    def _whole(self, rows: torch.Tensor, i: int) -> torch.Tensor:
+        """The whole leaf from this rank's row (collective over data and
+        the leaf's model-parallel axes)."""
+        from deepspeed_tpu_torch import zero
+
+        t = self._unpad(rows, i)
+        if self._specs[i]:
+            t = zero.gather_local(t, self._specs[i], self.mesh)
+        return t
 
     # ------------------------------------------------------------------ step
     def _phase_reset(self) -> Dict[str, float]:
@@ -465,23 +507,34 @@ class InfinityEngine:
         return dict(self.phase_times)
 
     def _grad_step(self, batch):
-        """(loss, finite, grads as [dp, chunk] rows in the grad dtype)."""
+        """(loss, finite, grads as this rank's ``[1, chunk]`` rows in the
+        grad dtype).  Over several processes the loss is the mean over
+        ``data``, each rank backprops its rows' share of it, the grads are
+        reduce-scattered over ``data`` into the rows, and the finite check
+        and the clipping norm are taken on the rows (one all-reduce)."""
+        from deepspeed_tpu_torch import comm
         from deepspeed_tpu_torch._tree import tree_map, tree_unflatten_like
         from deepspeed_tpu_torch.engine import (accum_split,
-                                                clip_by_global_norm)
+                                                clip_by_global_norm,
+                                                rank_rows)
         from deepspeed_tpu_torch.precision import finite_all
 
         accum = self.config.gradient_accumulation_steps
         leaves = [p.detach().requires_grad_(True) for p in self.params_c]
         tree = tree_unflatten_like(self._template, leaves)
+        ranks = self._pc > 1
+        share = float(self._dp) if self._dp > 1 else None
 
         def one(mb):
             with torch.enable_grad():
                 loss = self.loss_fn(tree, mb).float()
-                got = torch.autograd.grad(loss, leaves, allow_unused=True)
+                got = torch.autograd.grad(
+                    loss if share is None else loss / share, leaves,
+                    allow_unused=True)
             return loss.detach(), [torch.zeros_like(x) if g is None else g
                                    for g, x in zip(got, leaves)]
 
+        batch = rank_rows(batch, self._dp, self._row)
         if accum > 1:
             split = accum_split(batch, accum)
             g = [torch.zeros(x.shape, dtype=torch.float32,
@@ -503,22 +556,53 @@ class InfinityEngine:
             # bf16_grads: the tree stays bf16 (a full f32 copy doubles the
             # transient grad memory); clipping's norm still sums in f32
         del tree, leaves
-        ok = finite_all(g)
         clip = self.config.gradient_clipping
-        if clip > 0:
-            g, _ = clip_by_global_norm(g, clip)
+        if not ranks:
+            ok = finite_all(g)
+            if clip > 0:
+                g, _ = clip_by_global_norm(g, clip)
         out = []
         for x, n, c in zip(g, self._sizes, self._chunks):
             f = x.reshape(-1).to(self._grad_dtype)
             if self._dp * c > n:
                 f = torch.cat([f, f.new_zeros(self._dp * c - n)])
-            out.append(f.view(self._dp, c))
+            if self._dp > 1:
+                f = comm.reduce_scatter(f, "data")
+            out.append(f.view(1, c))
+        del g
+        if ranks:
+            comm.all_reduce_(loss, "data", comm.ReduceOp.AVG)
+            ok, out = self._check_rows(out, clip)
         return loss, ok, out
+
+    def _check_rows(self, rows, clip: float):
+        """(finite, rows clipped by the global norm) over every rank: the
+        counted sums of squares (a row counts on each rank holding a
+        distinct one, once over the axes it is replicated on) and nonfinite
+        counts, all-reduced once."""
+        from deepspeed_tpu_torch import comm, topology, zero
+        from deepspeed_tpu_torch.engine import _clip_factor
+
+        live = [a for a in topology.AXES if self.mesh.size(a) > 1]
+        sums = torch.zeros(2, dtype=torch.float32, device=self.device)
+        for r, sp in zip(rows, self._specs):
+            split = set(zero.spec_axes(sp)) | {"data"}
+            rf = r.float()
+            if all(a in split or self.mesh.rank_in(a) == 0 for a in live):
+                sums[0] += torch.sum(torch.square(rf))
+            sums[1] += (~torch.isfinite(rf)).any().float()
+        for a in live:
+            comm.all_reduce_(sums, a)
+        ok = bool(sums[1].item() == 0) and bool(torch.isfinite(sums[0]))
+        if ok and clip > 0:
+            factor = _clip_factor(torch.sqrt(sums[0]), clip)
+            rows = [r * factor.to(r.dtype) for r in rows]
+        return ok, rows
 
     def _submit_group_read(self, k: int):
         """Begin fetching group k's (master, mu, nu) rows from the tier."""
         return [tuple(self.tier.get_submit(
-            kind + self._names[i], (self._dp, self._chunks[i]),
+            kind + self._names[i], (1, self._chunks[i]),
             torch.float32) for kind in ("", "m", "v"))
             for i in self.groups[k]]
 
@@ -528,7 +612,7 @@ class InfinityEngine:
         if isinstance(self.tier, _NvmeTier):
             self.tier.fence_all()
         for i, n in enumerate(self._names):
-            rows = self.tier.get_submit(n, (self._dp, self._chunks[i]),
+            rows = self.tier.get_submit(n, (1, self._chunks[i]),
                                         torch.float32)
             self.tier.fence_reads()
             self._stage.h2d(self.params_c[i],
@@ -673,7 +757,7 @@ class InfinityEngine:
         self.link_bytes["down"] += g_rows.numel() * g_rows.element_size()
         self.link_bytes["up"] += size * dst.element_size()
         bf16 = self._compute_dtype == torch.bfloat16
-        if not self._cuda or not bf16:
+        if not self._cuda or not bf16 or self._dp > 1:
             t1 = time.perf_counter()
             g = torch.empty(n, dtype=g_rows.dtype)
             self._stage.d2h(g, g_rows.reshape(-1))
@@ -685,7 +769,7 @@ class InfinityEngine:
             ph["host_adam"] += time.perf_counter() - t1
             t1 = time.perf_counter()
             rows = img if bf16 else w.to(self._compute_dtype)
-            self._stage.h2d(dst, rows[:size])
+            self._stage.h2d(dst, self._unpad(rows, i).reshape(-1))
             ph["param_h2d_submit"] += time.perf_counter() - t1
             return
         # CUDA, bf16: pieces of the grad come down into page-locked slots,
@@ -732,10 +816,31 @@ class InfinityEngine:
         del g32
 
     # ----------------------------------------------------------- inspection
-    def comms_digest(self, batch, link_gbps: float = 45.0):
-        raise NotImplementedError(
-            "InfinityEngine.comms_digest (the grad program's collective "
-            "digest) waits for ROADMAP A9's comm/digest.py")
+    def comms_digest(self, batch, link_gbps: float = 45.0) -> dict:
+        """Per-kind count and bytes of the collectives one step on
+        ``batch`` runs: a dry step through the comms logger (see
+        :meth:`~deepspeed_tpu_torch.engine.TrainingEngine.comms_digest`):
+        the grad program with its exchanges, then the all-gather of each
+        leaf's (unchanged) compute rows that the update ends with; no
+        state, counter or schedule advances.  Returns the dict."""
+        from deepspeed_tpu_torch._tree import tree_map
+        from deepspeed_tpu_torch.comm.digest import dry_digest
+        from deepspeed_tpu_torch.engine import _to_device
+
+        def run():
+            b = tree_map(lambda x: _to_device(x, self.device), batch)
+            _, _, grads = self._grad_step(b)
+            del grads
+            if self._dp > 1:
+                for i, p in enumerate(self.params_c):
+                    c = self._chunks[i]
+                    flat = p.reshape(-1)
+                    row = torch.zeros(c, dtype=p.dtype, device=p.device)
+                    n = max(0, min(c, flat.numel() - self._row * c))
+                    row[:n] = flat[self._row * c:self._row * c + n]
+                    self._unpad(row, i)
+
+        return dry_digest(run, link_gbps)
 
     @property
     def metrics(self):
@@ -759,8 +864,9 @@ class InfinityEngine:
         return sum(x.numel() * x.element_size() for x in self.params_c)
 
     def tier_local_bytes(self) -> int:
-        """Bytes of f32 state the tier holds (12 per padded element)."""
-        return sum(12 * self._dp * c for c in self._chunks)
+        """Bytes of f32 state this rank's tier holds (12 per element of
+        its padded rows)."""
+        return sum(12 * c for c in self._chunks)
 
     # ---------------------------------------------------------- checkpoint
     def _ckpt_key(self, kind: str, i: int) -> str:
@@ -781,25 +887,32 @@ class InfinityEngine:
             UniversalLeafCheckpointer, finalize_checkpoint_dir,
             wait_for_checkpoint)
 
+        from deepspeed_tpu_torch import comm
+
         wait_for_checkpoint()
         tag = tag or f"global_step{self.global_steps}"
         d = os.path.join(os.path.abspath(save_dir), tag)
-        ulc = UniversalLeafCheckpointer(d)
+        writes = comm.get_rank() == 0
+        ulc = UniversalLeafCheckpointer(d) if writes else None
         for i, n in enumerate(self._names):
             for kind in ("", "m", "v"):
                 buf = self.tier.get_submit(
-                    kind + n, (self._dp, self._chunks[i]), torch.float32)
+                    kind + n, (1, self._chunks[i]), torch.float32)
                 self.tier.fence_reads()
-                ulc.save(self._ckpt_key(kind or "w", i),
-                         buf.reshape(-1)[:self._sizes[i]])
-        ulc.wait()
+                item = self._whole(buf, i).reshape(-1)
+                if writes:
+                    ulc.save(self._ckpt_key(kind or "w", i), item)
         if isinstance(self.tier, _NvmeTier):
             self.tier.fence_all()
-        finalize_checkpoint_dir(save_dir, tag, {
-            "global_steps": self.global_steps,
-            "opt_steps": self._opt_steps,
-            "skipped_steps": self.skipped_steps,
-            "client_state": client_state or {}})
+        if writes:
+            ulc.wait()
+            finalize_checkpoint_dir(save_dir, tag, {
+                "global_steps": self.global_steps,
+                "opt_steps": self._opt_steps,
+                "skipped_steps": self.skipped_steps,
+                "client_state": client_state or {}})
+        if self._pc > 1:
+            comm.barrier()
         return d
 
     def wait_for_checkpoint(self) -> None:
@@ -812,14 +925,23 @@ class InfinityEngine:
         from deepspeed_tpu_torch.checkpoint import (
             UniversalLeafCheckpointer, read_meta, resolve_offload_tag)
 
+        from deepspeed_tpu_torch import comm, zero
+
+        if self._pc > 1:
+            comm.barrier()
         d = resolve_offload_tag(load_dir, tag)
         ulc = UniversalLeafCheckpointer(d)
         for i, n in enumerate(self._names):
-            leaf = {k: ulc.restore(self._ckpt_key(k, i)) for k in "wmv"}
+            leaf = {}
+            for k in "wmv":
+                t = ulc.restore(self._ckpt_key(k, i)).view(self._full[i])
+                if self._specs[i]:
+                    t = zero.local_shard(t, self._specs[i], self.mesh)
+                leaf[k] = t.contiguous()
             for kind, key in (("", "w"), ("m", "m"), ("v", "v")):
                 self.tier.put(kind + n, self._partition_host(leaf[key], i))
-            self._stage.h2d(self.params_c[i], leaf["w"].view(
-                self._shapes[i]).to(self._compute_dtype))
+            self._stage.h2d(self.params_c[i],
+                            leaf["w"].to(self._compute_dtype))
             if isinstance(self.tier, _NvmeTier):
                 self.tier.fence_writes()
         if isinstance(self.tier, _NvmeTier):
@@ -832,15 +954,16 @@ class InfinityEngine:
 
     def master_params(self) -> Any:
         """The f32 masters, consolidated, as CPU tensors in the params'
-        layout."""
+        layout (every rank's rows and blocks gathered: a collective over
+        several processes)."""
         from deepspeed_tpu_torch._tree import tree_unflatten_like
 
         out = []
         for i, n in enumerate(self._names):
-            rows = self.tier.get_submit(n, (self._dp, self._chunks[i]),
+            rows = self.tier.get_submit(n, (1, self._chunks[i]),
                                         torch.float32)
             self.tier.fence_reads()
-            out.append(self._unpad(rows, i).clone())
+            out.append(self._whole(rows, i).clone())
         if isinstance(self.tier, _NvmeTier):
             self.tier.fence_all()
         return tree_unflatten_like(self._template, out)

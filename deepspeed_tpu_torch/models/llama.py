@@ -470,7 +470,7 @@ def layered_model(cfg: LlamaConfig, params):
             "grad summed across stem and head — untie for now")
 
     def stem_fn(sp, batch):
-        return sp["embed"][batch["tokens"][:, :-1].long()]
+        return _embed(sp, batch["tokens"][:, :-1], cfg)
 
     def block_fn(lp, x):
         T = x.shape[1]
@@ -484,6 +484,12 @@ def layered_model(cfg: LlamaConfig, params):
         if mask is not None:
             mask = mask[:, 1:].float()
         x = rms_norm(x, hp["final_norm"], cfg.norm_eps)
+        if hp["lm_head"].shape[-1] != cfg.vocab_size:
+            # this rank's vocabulary block: the vocab-parallel loss
+            total, count = vocab_parallel_nll_sum(
+                f32_matmul(comm.copy_to(x, "model"), hp["lm_head"]),
+                tokens[:, 1:], mask)
+            return total / torch.clamp(count, min=1.0)
         return chunked_lm_loss(x, hp["lm_head"], tokens[:, 1:], mask=mask,
                                chunk=cfg.loss_chunk or cfg.vocab_size)
 
@@ -492,7 +498,13 @@ def layered_model(cfg: LlamaConfig, params):
         stem={"embed": params["embed"]}, blocks=params["blocks"],
         head={"final_norm": params["final_norm"],
               "lm_head": params["lm_head"]},
-        n_layers=cfg.n_layers, assemble=_assemble)
+        n_layers=cfg.n_layers, assemble=_assemble,
+        # the param factoring's split: param_specs(cfg) ride into the
+        # streaming engine per layer
+        factor_specs=lambda specs: (
+            {"embed": specs["embed"]}, specs["blocks"],
+            {"final_norm": specs["final_norm"],
+             "lm_head": specs["lm_head"]}))
 
 
 def _assemble(stem, blocks, head):

@@ -3,10 +3,14 @@ ref: deepspeed/runtime/zero/offload_config.py + runtime/swap_tensor/).
 
 The JAX package places offloaded state with ``pinned_host`` memory-kind
 shardings; the port has no memory kinds.  Its host tier is page-locked host
-memory that the stage-0 :class:`~deepspeed_tpu_torch.engine.TrainingEngine`
-keeps the named state in, each leaf visiting the card for its update
-(:func:`offload_placement` says which state an engine's config places
-there).  The NVMe tier is :class:`NvmeSwapper`: a tree's leaves streamed
+memory that the :class:`~deepspeed_tpu_torch.engine.TrainingEngine` keeps
+the named state in at every ZeRO stage (whole leaves at stage 0, each
+rank's shards from stage 1), each leaf or shard visiting the card for its
+update (:func:`offload_placement` says which state an engine's config
+places there).  Where the JAX package keeps the state on the device for a
+backend without ``pinned_host`` memory, the port does not fall back: on
+CUDA the state is page-locked (``cudaHostRegister``) or the build
+raises.  The NVMe tier is :class:`NvmeSwapper`: a tree's leaves streamed
 to one flat file each through the port's aio pool (:mod:`~deepspeed_tpu_
 torch.io.aio`), as ``swap_tensor/partitioned_param_swapper.py`` swaps.
 """
@@ -26,7 +30,8 @@ from deepspeed_tpu_torch._tree import (tree_leaves_with_keystr,
 def offload_placement(config) -> Dict[str, bool]:
     """Which state the config's unscheduled offload blocks place in host
     memory: ``{"master": ..., "optimizer": ...}`` (the optimizer block
-    takes the moments and the f32 master, the param block the master; any
+    takes the moments and the f32 master, the param block the master, as
+    whole leaves at stage 0 and this rank's shards from stage 1; any
     device but ``none`` counts, as the JAX package maps both ``cpu`` and
     ``nvme`` onto host memory there)."""
     def on_host(block):

@@ -11,6 +11,7 @@ leaf at a time.  Every rule is elementwise or per leaf, in f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Any, Callable, NamedTuple, Optional, Union
@@ -96,6 +97,38 @@ def adamw(lr: ScalarOrSchedule = 1e-3, **kw) -> Optimizer:
     return adam(lr, adamw=True, name="adamw", **kw)
 
 
+# the mesh axes over which the leaf an update sees is one block (set by the
+# engine around each update of a split leaf; empty: a whole leaf)
+_BLOCK_AXES: tuple = ()
+
+
+@contextlib.contextmanager
+def whole_leaf_norms(axes):
+    """Within the block, a per-leaf norm (LAMB's trust ratio) is the whole
+    leaf's: each rank's sums of squares of its block are all-reduced over
+    ``axes``, one call for the pair (under GSPMD the JAX engine gets the
+    whole-leaf norm from the sharded reduction itself)."""
+    global _BLOCK_AXES
+    prev, _BLOCK_AXES = _BLOCK_AXES, tuple(axes)
+    try:
+        yield
+    finally:
+        _BLOCK_AXES = prev
+
+
+def _norms(a: torch.Tensor, b: torch.Tensor):
+    """The 2-norms of ``a`` and ``b`` over the whole leaves they are
+    blocks of."""
+    if not _BLOCK_AXES:
+        return torch.linalg.vector_norm(a), torch.linalg.vector_norm(b)
+    from deepspeed_tpu_torch import comm
+
+    sq = torch.stack([torch.sum(torch.square(a)), torch.sum(torch.square(b))])
+    for axis in _BLOCK_AXES:
+        comm.all_reduce_(sq, axis)
+    return torch.sqrt(sq[0]), torch.sqrt(sq[1])
+
+
 class LambState(NamedTuple):
     step: int
     mu: Any
@@ -125,8 +158,7 @@ def lamb(lr: ScalarOrSchedule = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
             if weight_decay:
                 u = u + weight_decay * p.float()
-            wn = torch.linalg.vector_norm(p.float())
-            un = torch.linalg.vector_norm(u)
+            wn, un = _norms(p.float(), u)
             trust = torch.where((wn > 0) & (un > 0),
                                 torch.clamp(wn / un, min_trust, max_trust),
                                 torch.ones_like(wn))

@@ -47,9 +47,22 @@ step exactly.  A nonfinite grad under a finite loss raises
 ``FloatingPointError`` in overlap mode (earlier layers have committed);
 ``overlap_step: false`` restores the strict whole-step skip.
 
-Several processes (row-sliced f32 state, cross-process image all-gathers)
-and ``param_specs`` raise until ROADMAP A9's distributed part; the metrics
-registry and tracer hooks wait for A10 (the counts are plain attributes).
+Several processes (JAX's ``_local_slice`` / ``_allgather_slices``): each
+data-parallel rank backprops its rows of the global batch, and after the
+backward each block leaf's f32 grad is reduce-scattered over ``data`` to
+the rank's contiguous ``1/dp`` row slice (zero-padded at the tail), which
+is all this rank's tier holds of the leaf's f32 master and moments; the
+host Adam runs on the slice, and the fresh bf16 image is re-assembled by
+an all-gather over ``data``.  The stem and head grads are all-reduced and
+their state updated redundantly on every rank.  Every collective runs on
+the main thread in one order on every rank, so ``overlap_step`` is off
+with more than one process, as in the JAX package.  ``param_specs`` (the
+model's tensor-parallel tree, mapped onto the factoring by
+``LayeredModel.factor_specs``) cut every leaf to this rank's block before
+it reaches the tier: the layers stream, update and gather as blocks, and
+the model's sharded forward runs on them.  ``master_params`` and the
+universal checkpoint gather whole leaves.  The metrics registry and tracer
+hooks wait for A10 (the counts are plain attributes).
 """
 
 from __future__ import annotations
@@ -70,14 +83,15 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch import lr_schedules, precision
+from deepspeed_tpu_torch import comm, lr_schedules, precision, topology, \
+    zero
 from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch._tree import (tree_leaves, tree_leaves_with_keystr,
                                        tree_map, tree_unflatten_like)
 from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.data.curriculum import (CurriculumScheduler,
                                                  apply_seqlen_curriculum)
-from deepspeed_tpu_torch.engine import _to_device, accum_split
+from deepspeed_tpu_torch.engine import _to_device, accum_split, rank_rows
 from deepspeed_tpu_torch.faults import retry_with_backoff
 from deepspeed_tpu_torch.infinity import (PinnedBuffer, _NvmeTier, _RamTier,
                                           pinned_views)
@@ -345,8 +359,9 @@ class LayeredModel:
     back to the model's own layout (``master_params``).  ``block_has_aux``:
     ``block_fn`` returns ``(x, aux)``, a per-layer loss term (MoE
     load-balance + z) that adds to the total, pulled with cotangent 1.
-    ``factor_specs`` maps a tensor-parallel spec tree onto the factoring
-    (ROADMAP A9's distributed part).  Models provide builders
+    ``factor_specs`` maps the model's spec tree onto the factoring:
+    ``specs -> (stem specs, stacked block specs, head specs)``.  Models
+    provide builders
     (``models.llama.layered_model``)."""
     stem_fn: Callable
     block_fn: Callable
@@ -368,21 +383,21 @@ class ParamStreamEngine:
     same schedule with plain copies and no streams)."""
 
     def __init__(self, layered: LayeredModel, config: Config,
-                 lr_scheduler=None, param_specs=None, device=None):
-        if param_specs is not None:
-            raise NotImplementedError(
-                "param_specs (tensor-parallel layer streaming) comes with "
-                "ROADMAP A9's distributed part; the param-stream engine "
-                "trains on one GPU")
-        if process_count() > 1:
-            raise NotImplementedError(
-                "param-stream training over several processes (row-sliced "
-                "f32 state, cross-process image all-gathers) comes with "
-                "ROADMAP A9's distributed part")
+                 lr_scheduler=None, param_specs=None, device=None,
+                 mesh: Optional[topology.MeshSpec] = None):
+        from deepspeed_tpu_torch.engine import mesh_for
+
         self.config = config
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
-        config.resolve_batch_sizes(1)
+        self.mesh = mesh if mesh is not None else mesh_for(config,
+                                                           self.device)
+        topology.set_current_mesh(self.mesh)
+        self._pc = process_count()
+        self._pid = comm.get_rank()
+        self.dp = self.mesh.size("data")
+        self._drank = self.mesh.rank_in("data")
+        config.resolve_batch_sizes(self.dp)
         self.layered = layered
         self.L = layered.n_layers
         self._last_grad_norm = 0.0
@@ -390,18 +405,31 @@ class ParamStreamEngine:
             CurriculumScheduler(config.curriculum)
             if config.curriculum is not None and config.curriculum.enabled
             else None)
+        self._specs = None
+        if param_specs is not None:
+            if layered.factor_specs is None:
+                raise ValueError(
+                    "param_specs given but this LayeredModel has no "
+                    "factor_specs hook mapping the original-layout specs "
+                    "onto the factored stem/blocks/head layout")
+            self._specs = layered.factor_specs(param_specs)
 
         off = dict(config.zero.offload_param or {})
         self.device_tier = off.get("device", "cpu")
         clip = config.gradient_clipping
         # overlap_step: layer l's host Adam starts as soon as its grads
         # drain, behind the remaining vjps; clipping needs the global norm
-        # first, so it takes the strict path
+        # first, so it takes the strict path, and so do several processes,
+        # whose collectives must run in one order on every rank
         self.overlap_step = bool(off.get("overlap_step", True)) and not (
-            clip and clip > 0)
+            clip and clip > 0) and self._pc == 1
+        if self._pc > 1 and off.get("overlap_step", True):
+            logger.info("param-stream: overlap_step disabled under "
+                        "process_count=%d (collective ordering)", self._pc)
         if self.device_tier == "nvme":
+            # a subdir a process: each holds its own row slices
             swap = os.path.join(off.get("nvme_path", default_swap_dir()),
-                                "pstream_proc0")
+                                f"pstream_proc{self._pid}")
             self.tier = _NvmeTier(swap)
             # the update worker's own aio channel: slot state is one
             # thread's, and the per-key files keep the channels apart
@@ -442,9 +470,20 @@ class ParamStreamEngine:
         spec = tree_leaves_with_keystr(src)
         self._bpaths = [p for p, _ in spec]
         self._btemplate = tree_map(lambda a: 0, src)
-        self._bshapes = [tuple(a.shape[1:]) for _, a in spec]
+        # each leaf's spec without the layer dim, which the schedule owns
+        self._bspecs = [()] * len(spec)
+        if self._specs is not None:
+            self._bspecs = [_drop_layer_dim(sp) for sp in zero.spec_leaves(
+                src, self._specs[1])]
+        # whole per-layer shapes, and this rank's blocks of them
+        self._bfull = [tuple(a.shape[1:]) for _, a in spec]
+        self._bshapes = [_block_shape(s, sp, self.mesh)
+                         for s, sp in zip(self._bfull, self._bspecs)]
         self._bsizes = [int(np.prod(s, dtype=np.int64))
                         for s in self._bshapes]
+        # the row slice over data of each block leaf's f32 state (the
+        # whole block at dp 1)
+        self._schunks = [-(-n // self.dp) for n in self._bsizes]
         self._bnames = [f"b{i}" for i in range(len(spec))]
         nvme = isinstance(self.tier, _NvmeTier)
         self._pinned: List[PinnedBuffer] = []
@@ -457,8 +496,11 @@ class ParamStreamEngine:
                     raise ValueError(
                         f"blocks({l}) leaves {[p for p, _ in got]} != "
                         f"blocks_spec leaves {self._bpaths}")
-                return [_cpu_tensor(a) for _, a in got]
-            return [_cpu_tensor(leaf[l]) for _, leaf in spec]
+                arrs = [_cpu_tensor(a) for _, a in got]
+            else:
+                arrs = [_cpu_tensor(leaf[l]) for _, leaf in spec]
+            return [zero.local_shard(a, sp, self.mesh) if sp else a
+                    for a, sp in zip(arrs, self._bspecs)]
 
         for l, arrs in enumerate(_prefetched(layer_arrays, self.L,
                                              4 if lazy else 1)):
@@ -480,10 +522,10 @@ class ParamStreamEngine:
                 else:
                     self._images[l][i].copy_(flat)
                     self.tier.put(f"p_{l}_{nm}", self._images[l][i])
-                self.tier.put(f"w_{l}_{nm}",
-                              flat.to(torch.float32, copy=True).contiguous())
-                self.tier.put(f"m_{l}_{nm}", torch.zeros(self._bsizes[i]))
-                self.tier.put(f"v_{l}_{nm}", torch.zeros(self._bsizes[i]))
+                self.tier.put(f"w_{l}_{nm}", self._local_slice(
+                    flat.to(torch.float32, copy=True).contiguous(), i))
+                self.tier.put(f"m_{l}_{nm}", torch.zeros(self._schunks[i]))
+                self.tier.put(f"v_{l}_{nm}", torch.zeros(self._schunks[i]))
             del arrs
             if nvme:
                 self.tier.fence_writes()
@@ -492,9 +534,9 @@ class ParamStreamEngine:
         # page-locked image per leaf serves the upload after each update
         # and the grad download during the step
         self._stem_state, self._stem_tmpl, self._stem_img = \
-            self._host_state(layered.stem)
+            self._host_state(layered.stem, 0)
         self._head_state, self._head_tmpl, self._head_img = \
-            self._host_state(layered.head)
+            self._host_state(layered.head, 2)
         self.stem_c = self._device_copy(self._stem_tmpl, self._stem_state,
                                         self._stem_img)
         self.head_c = self._device_copy(self._head_tmpl, self._head_state,
@@ -529,8 +571,11 @@ class ParamStreamEngine:
         # host f32 grad accumulators, one per leaf (and layer), kept across
         # steps; zero-filled here so their pages fault in at build, not in
         # the first step's drains
-        self._gbuf = [[torch.zeros(sz) for sz in self._bsizes]
-                      for _ in range(self.L)]
+        # (padded to dp x chunk: the reduce-scatter's input)
+        self._gbuf_flat = [[torch.zeros(self.dp * c) for c in self._schunks]
+                           for _ in range(self.L)]
+        self._gbuf = [[g[:sz] for g, sz in zip(row, self._bsizes)]
+                      for row in self._gbuf_flat]
         self._gstem = [torch.zeros(s["w"].numel()) for s in self._stem_state]
         self._ghead = [torch.zeros(s["w"].numel()) for s in self._head_state]
 
@@ -556,18 +601,24 @@ class ParamStreamEngine:
             sum(self._bsizes), 2 * sum(self._bsizes) / 1e6)
 
     # ---------------------------------------------------------- set-up
-    def _host_state(self, tree):
+    def _host_state(self, tree, which: int):
         """Per-leaf host f32 state (``w``, ``m``, ``v``) of a resident
-        tree, its structure, and one page-locked bf16 image per leaf."""
+        tree (this rank's blocks under ``param_specs``; ``which`` picks the
+        stem's (0) or the head's (2) specs), its structure, and one
+        page-locked bf16 image per leaf."""
         leaves = tree_leaves_with_keystr(tree)
+        specs = ([()] * len(leaves) if self._specs is None
+                 else zero.spec_leaves(tree, self._specs[which]))
         state = []
-        for path, a in leaves:
-            t = _cpu_tensor(a)
+        for (path, a), sp in zip(leaves, specs):
+            full = _cpu_tensor(a)
+            t = zero.local_shard(full, sp, self.mesh) if sp else full
             state.append({"w": t.to(torch.float32, copy=True).reshape(-1)
                           .contiguous(),
                           "m": torch.zeros(t.numel()),
                           "v": torch.zeros(t.numel()),
-                          "shape": tuple(t.shape), "path": path})
+                          "shape": tuple(t.shape), "path": path,
+                          "full": tuple(full.shape), "spec": sp})
         imgs = pinned_views([(s["w"].numel(),) for s in state],
                             [torch.bfloat16] * len(state), self._pinned)
         for s, img in zip(state, imgs):
@@ -731,7 +782,8 @@ class ParamStreamEngine:
         self.link_bytes = {"up": 0, "down": 0}
         nvme = isinstance(self.tier, _NvmeTier)
         accum = self.config.gradient_accumulation_steps
-        batch = tree_map(lambda x: _to_device(x, self.device), batch)
+        batch = tree_map(lambda x: _to_device(x, self.device),
+                         rank_rows(batch, self.dp, self._drank))
         if accum > 1:
             split = accum_split(batch, accum)
             micros = [tree_map(lambda x, _i=i: x[_i], split)
@@ -853,11 +905,19 @@ class ParamStreamEngine:
             ph["bwd_compute"] += time.perf_counter() - t1
 
         loss = loss_sum * inv
+        if self._pc > 1:
+            # the mean over the data ranks: one nonfinite loss skips all
+            lt = comm.all_reduce_(torch.tensor([loss], dtype=torch.float32),
+                                  "data", comm.ReduceOp.AVG)
+            loss = float(lt[0])
+            loss_bad = not math.isfinite(loss)
         if loss_bad:
             # no update launched anywhere (the loss gate precedes every
             # drain's finalize): the reference's exact whole-step skip
             self._last_grad_norm = float("inf")
             return self._finish(t0, ph, loss, skipped=True)
+        if self._pc > 1:
+            return self._finish_ranks(t0, ph, loss, lr, t_step, inv, nvme)
 
         # ---------------- finite consensus + unconditional grad norm
         res_ssq, res_fin = self._stats(self._gstem + self._ghead, res_ssq)
@@ -904,6 +964,63 @@ class ParamStreamEngine:
             ph["tier_write"] += time.perf_counter() - t1
         return self._finish(t0, ph, loss, skipped=False)
 
+    def _counted(self, spec, split_data: bool) -> bool:
+        """Whether this rank's copy of a leaf's grad counts in the global
+        sums: on every rank holding a distinct block, and on index 0 of
+        each axis it is replicated over."""
+        split = set(zero.spec_axes(spec)) | ({"data"} if split_data
+                                            else set())
+        return all(a in split or self.mesh.rank_in(a) == 0
+                   for a in topology.AXES if self.mesh.size(a) > 1)
+
+    def _finish_ranks(self, t0, ph, loss, lr, t_step, inv, nvme):
+        """The step's end over several processes, on the main thread in
+        one order on every rank: each block grad reduce-scattered over
+        ``data`` to this rank's row slice, the stem and head grads
+        all-reduced, one all-reduce of the counted sums of squares and
+        nonfinite counts, then the strict updates (each row's fresh bf16
+        image all-gathered)."""
+        t1 = time.perf_counter()
+        inv = inv / self.dp                 # the grads are summed over data
+        rows = [[comm.reduce_scatter(g, "data") if self.dp > 1 else g
+                 for g in self._gbuf_flat[l]] for l in range(self.L)]
+        res = self._gstem + self._ghead
+        if self.dp > 1:
+            for g in res:
+                comm.all_reduce_(g, "data")
+        sums = torch.zeros(2, dtype=torch.float64)
+        for row in rows:
+            for g, sp in zip(row, self._bspecs):
+                if self._counted(sp, self.dp > 1):
+                    sums[0] += float(torch.dot(g, g))
+                sums[1] += float(not bool(torch.isfinite(g).all()))
+        for g, st in zip(res, self._stem_state + self._head_state):
+            if self._counted(st["spec"], False):
+                sums[0] += float(torch.dot(g, g))
+            sums[1] += float(not bool(torch.isfinite(g).all()))
+        for a in topology.AXES:
+            if self.mesh.size(a) > 1:
+                comm.all_reduce_(sums, a)
+        ph["bwd_compute"] += time.perf_counter() - t1
+        ssq = float(sums[0])
+        norm = math.sqrt(ssq) * inv if math.isfinite(ssq) else float("inf")
+        self._last_grad_norm = norm
+        if sums[1] > 0 or not math.isfinite(ssq):
+            return self._finish(t0, ph, loss, skipped=True)
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            inv = inv * min(1.0, clip / (norm + 1e-6))
+        self._update_blocks(rows, lr, t_step, inv, ph, nvme)
+        self._update_resident(self._stem_state, self._gstem, self._stem_img,
+                              tree_leaves(self.stem_c), lr, t_step, inv, ph)
+        self._update_resident(self._head_state, self._ghead, self._head_img,
+                              tree_leaves(self.head_c), lr, t_step, inv, ph)
+        if nvme:
+            t1 = time.perf_counter()
+            self.tier.fence_all()
+            ph["tier_write"] += time.perf_counter() - t1
+        return self._finish(t0, ph, loss, skipped=False)
+
     # ------------------------------------------------------------- updates
     def _drain_block(self, l, ev, keep, slot, gbuf, first, finalize,
                      can_update, stats, upd_futs, lr, t, inv, ph):
@@ -932,7 +1049,7 @@ class ParamStreamEngine:
     def _read_state(self, tier, l: int):
         return [tuple(tier.get_submit(f"{k}_{l}_{nm}", (sz,), torch.float32)
                       for k in "wmv")
-                for nm, sz in zip(self._bnames, self._bsizes)]
+                for nm, sz in zip(self._bnames, self._schunks)]
 
     def _update_one_layer(self, l, grads, lr, t, inv, ph):
         """Update worker: the host Adam over one layer's leaves and its
@@ -954,11 +1071,20 @@ class ParamStreamEngine:
         for i, ((w, m, v), g) in enumerate(zip(bufs, grads)):
             nm = self._bnames[i]
             t1 = time.perf_counter()
-            img = (torch.empty(self._bsizes[i], dtype=torch.bfloat16)
-                   if nvme else self._images[l][i])
+            if self.dp > 1:
+                img = torch.empty(self._schunks[i], dtype=torch.bfloat16)
+            else:
+                img = (torch.empty(self._bsizes[i], dtype=torch.bfloat16)
+                       if nvme else self._images[l][i])
             self._adam(w, m, v, g, lr, t, img, inv)
             self._ph_add(ph, "host_adam", time.perf_counter() - t1)
             t1 = time.perf_counter()
+            if self.dp > 1:
+                # the fresh image of every row slice (a collective)
+                img = _gather_rows(img, self._bsizes[i])
+                if not nvme:
+                    self._images[l][i].copy_(img)
+                    img = self._images[l][i]
             if nvme:
                 tier.fence_writes()
             tier.put(f"w_{l}_{nm}", w)
@@ -1037,19 +1163,31 @@ class ParamStreamEngine:
         return self._ring_n * per_layer + stem_head
 
     def total_param_count(self) -> int:
-        return (self.L * sum(self._bsizes)
-                + sum(s["w"].numel() for s in self._stem_state)
-                + sum(s["w"].numel() for s in self._head_state))
+        """Parameters of the whole model (every rank's blocks)."""
+        return (self.L * sum(int(np.prod(s, dtype=np.int64))
+                             for s in self._bfull)
+                + sum(int(np.prod(s["full"], dtype=np.int64))
+                      for s in self._stem_state + self._head_state))
 
     def master_params(self) -> Any:
         """The f32 masters as CPU tensors: in the model's own layout when
         the LayeredModel gives ``assemble`` (llama's does), else the
         factored ``{stem, blocks, head}``.  NVMe reads land in place, all
-        L rows of a leaf under one fence."""
+        L rows of a leaf under one fence.  Over several processes the row
+        slices and model-parallel blocks are gathered (collective: every
+        rank calls it), so every rank returns the whole masters."""
         nvme = isinstance(self.tier, _NvmeTier)
         blocks = []
-        for nm, sz, shape in zip(self._bnames, self._bsizes, self._bshapes):
-            stack = torch.empty((self.L,) + shape, dtype=torch.float32)
+        for i, (nm, sz, shape) in enumerate(zip(
+                self._bnames, self._bsizes, self._bshapes)):
+            stack = torch.empty((self.L,) + self._bfull[i],
+                                dtype=torch.float32)
+            if self._pc > 1:
+                for l in range(self.L):
+                    stack[l].copy_(self._whole_block(i, self.tier.get_submit(
+                        f"w_{l}_{nm}", (self._schunks[i],), torch.float32)))
+                blocks.append(stack)
+                continue
             bufs = [self.tier.get_submit(f"w_{l}_{nm}", (sz,), torch.float32,
                                          out=stack[l].view(-1))
                     for l in range(self.L)]
@@ -1060,12 +1198,31 @@ class ParamStreamEngine:
             blocks.append(stack)
         blocks_tree = tree_unflatten_like(self._btemplate, blocks)
         stem, head = (tree_unflatten_like(tmpl, [
-            s["w"].view(s["shape"]).clone() for s in st])
+            self._whole_resident(s, "w") for s in st])
             for tmpl, st in ((self._stem_tmpl, self._stem_state),
                              (self._head_tmpl, self._head_state)))
         if self.layered.assemble is not None:
             return self.layered.assemble(stem, blocks_tree, head)
         return {"stem": stem, "blocks": blocks_tree, "head": head}
+
+    def _whole_block(self, i: int, buf) -> torch.Tensor:
+        """Block leaf ``i``'s whole per-layer f32 leaf from this rank's
+        row slice ``buf`` (a pending tier read): the rows all-gathered
+        over data, then the blocks over the spec's axes."""
+        self.tier.fence_reads()
+        flat = _gather_rows(buf, self._bsizes[i]) if self.dp > 1 \
+            else buf[:self._bsizes[i]]
+        block = flat.reshape(self._bshapes[i])
+        if self._bspecs[i]:
+            block = zero.gather_local(block, self._bspecs[i], self.mesh)
+        return block
+
+    def _whole_resident(self, st: dict, kind: str) -> torch.Tensor:
+        """A stem or head leaf's whole f32 ``kind`` (w, m or v)."""
+        t = st[kind].view(st["shape"])
+        if st["spec"]:
+            return zero.gather_local(t, st["spec"], self.mesh)
+        return t.clone()
 
     def module_params(self) -> Any:
         return self.master_params()
@@ -1080,10 +1237,10 @@ class ParamStreamEngine:
             "version": 1, "n_layers": self.L,
             "blocks": [{"key": nm, "path": p, "shape": list(s)}
                        for nm, p, s in zip(self._bnames, self._bpaths,
-                                           self._bshapes)],
-            "stem": [{"path": s["path"], "shape": list(s["shape"])}
+                                           self._bfull)],
+            "stem": [{"path": s["path"], "shape": list(s["full"])}
                      for s in self._stem_state],
-            "head": [{"path": s["path"], "shape": list(s["shape"])}
+            "head": [{"path": s["path"], "shape": list(s["full"])}
                      for s in self._head_state]}
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
@@ -1091,8 +1248,11 @@ class ParamStreamEngine:
                         async_save: bool = False):
         """The universal per-leaf layout (:class:`~deepspeed_tpu_torch.
         checkpoint.UniversalLeafCheckpointer`): one flat unpadded f32
-        ``.npy`` per (layer, leaf, kind), so the transient is one leaf.
-        Saves are synchronous (``async_save`` is accepted for parity)."""
+        ``.npy`` per (layer, leaf, kind) of the whole leaf, so the
+        transient is one leaf and the checkpoint loads at any world size.
+        Over several processes every rank takes part in the gathers and
+        rank 0 writes.  Saves are synchronous (``async_save`` is accepted
+        for parity)."""
         from deepspeed_tpu_torch.checkpoint import (
             UniversalLeafCheckpointer, finalize_checkpoint_dir,
             wait_for_checkpoint)
@@ -1100,28 +1260,36 @@ class ParamStreamEngine:
         wait_for_checkpoint()
         tag = tag or f"global_step{self.global_steps}"
         d = os.path.join(os.path.abspath(save_dir), tag)
-        ulc = UniversalLeafCheckpointer(d)
+        writes = self._pid == 0
+        ulc = UniversalLeafCheckpointer(d) if writes else None
         for l in range(self.L):
-            for nm, sz in zip(self._bnames, self._bsizes):
+            for i, nm in enumerate(self._bnames):
                 for kind in "wmv":
-                    buf = self.tier.get_submit(f"{kind}_{l}_{nm}", (sz,),
+                    buf = self.tier.get_submit(f"{kind}_{l}_{nm}",
+                                               (self._schunks[i],),
                                                torch.float32)
-                    self.tier.fence_reads()
-                    ulc.save(f"{kind}{l:04d}_{nm}", buf)
+                    item = self._whole_block(i, buf)
+                    if writes:
+                        ulc.save(f"{kind}{l:04d}_{nm}", item.reshape(-1))
         for pre, st in (("stem", self._stem_state),
                         ("head", self._head_state)):
             for i, s in enumerate(st):
                 for kind in "wmv":
-                    ulc.save(f"{pre}{kind}_{i:03d}", s[kind])
-        ulc.wait()
+                    item = self._whole_resident(s, kind)
+                    if writes:
+                        ulc.save(f"{pre}{kind}_{i:03d}", item.reshape(-1))
         if isinstance(self.tier, _NvmeTier):
             self.tier.fence_all()
-        finalize_checkpoint_dir(save_dir, tag, {
-            "global_steps": self.global_steps,
-            "opt_steps": self._opt_steps,
-            "skipped_steps": self.skipped_steps,
-            "pstream_universal": self._manifest(),
-            "client_state": client_state or {}})
+        if writes:
+            ulc.wait()
+            finalize_checkpoint_dir(save_dir, tag, {
+                "global_steps": self.global_steps,
+                "opt_steps": self._opt_steps,
+                "skipped_steps": self.skipped_steps,
+                "pstream_universal": self._manifest(),
+                "client_state": client_state or {}})
+        if self._pc > 1:
+            comm.barrier()
         return d
 
     def wait_for_checkpoint(self) -> None:
@@ -1130,32 +1298,42 @@ class ParamStreamEngine:
 
         wait_for_checkpoint()
 
+    def _mine(self, whole: torch.Tensor, spec, shape) -> torch.Tensor:
+        """This rank's block of a whole checkpoint leaf, flat."""
+        t = whole.reshape(shape)
+        if spec:
+            t = zero.local_shard(t, spec, self.mesh)
+        return t.reshape(-1)
+
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None):
         """Restore a universal checkpoint onto this engine's tier (any
-        tier: a RAM-tier save loads on NVMe).  Returns (path,
-        client_state)."""
+        tier and world size: each rank cuts its block and row slice of
+        every whole leaf).  Returns (path, client_state)."""
         from deepspeed_tpu_torch.checkpoint import (
             UniversalLeafCheckpointer, read_meta, resolve_offload_tag)
 
+        if self._pc > 1:
+            comm.barrier()
         d = resolve_offload_tag(load_dir, tag)
         ulc = UniversalLeafCheckpointer(d)
         nvme = isinstance(self.tier, _NvmeTier)
         for l in range(self.L):
             for i, nm in enumerate(self._bnames):
+                items = {k: self._mine(ulc.restore(f"{k}{l:04d}_{nm}"),
+                                       self._bspecs[i], self._bfull[i])
+                         for k in "wmv"}
+                image = f32_to_bf16(items["w"].contiguous())
+                for k in "wmv":
+                    part = self._local_slice(items[k].contiguous(), i)
+                    if nvme:
+                        self.tier.put(f"{k}_{l}_{nm}", part)
+                    else:
+                        self.tier.store[f"{k}_{l}_{nm}"].copy_(part)
                 if nvme:
-                    items = {k: ulc.restore(f"{k}{l:04d}_{nm}")
-                             for k in "wmv"}
-                    for k in "wmv":
-                        self.tier.put(f"{k}_{l}_{nm}", items[k])
-                    self.tier.put(f"p_{l}_{nm}", f32_to_bf16(items["w"]))
+                    self.tier.put(f"p_{l}_{nm}", image)
                     self.tier.fence_writes()
                 else:
-                    for k in "wmv":
-                        ulc.restore_into(f"{k}{l:04d}_{nm}",
-                                         self.tier.store[f"{k}_{l}_{nm}"]
-                                         .numpy())
-                    f32_to_bf16(self.tier.store[f"w_{l}_{nm}"],
-                                out=self._images[l][i])
+                    self._images[l][i].copy_(image)
         for pre, st, imgs, dev in (
                 ("stem", self._stem_state, self._stem_img,
                  tree_leaves(self.stem_c)),
@@ -1163,7 +1341,8 @@ class ParamStreamEngine:
                  tree_leaves(self.head_c))):
             for i, (s, img, dv) in enumerate(zip(st, imgs, dev)):
                 for kind in "wmv":
-                    ulc.restore_into(f"{pre}{kind}_{i:03d}", s[kind].numpy())
+                    s[kind].copy_(self._mine(ulc.restore(
+                        f"{pre}{kind}_{i:03d}"), s["spec"], s["full"]))
                 f32_to_bf16(s["w"], out=img)
                 dv.copy_(img.view(s["shape"]))
         if nvme:
@@ -1173,6 +1352,47 @@ class ParamStreamEngine:
         self._opt_steps = meta["opt_steps"]
         self.skipped_steps = meta["skipped_steps"]
         return d, meta.get("client_state", {})
+
+    # ------------------------------------------- per-process row partition
+    def _local_slice(self, flat: torch.Tensor, i: int) -> torch.Tensor:
+        """This data rank's row slice of block leaf ``i``'s flat array
+        (zero-padded at the tail rank; a copy, so the whole leaf is not
+        kept alive); the array itself at dp 1."""
+        if self.dp == 1:
+            return flat
+        c = self._schunks[i]
+        lo = self._drank * c
+        out = torch.zeros(c, dtype=flat.dtype)
+        n = max(0, min(c, flat.numel() - lo))
+        out[:n] = flat[lo:lo + n]
+        return out
+
+
+def _gather_rows(part: torch.Tensor, size: int) -> torch.Tensor:
+    """Every data rank's row slice of a flat leaf, concatenated in rank
+    order and cut to the leaf's ``size`` (a collective)."""
+    return comm.all_gather(part, "data")[:size]
+
+
+def _drop_layer_dim(spec) -> tuple:
+    """A stacked block leaf's spec without its layer dim, which the
+    streaming schedule owns (JAX's ``shard_of(..., drop_layer_dim=True)``
+    and its refusal)."""
+    if len(spec) and spec[0] is not None:
+        raise ValueError(
+            f"stacked block spec {spec} shards the layer axis — the "
+            "streaming engine owns that axis (host schedule), use pipe via "
+            "the pipeline engine instead")
+    return tuple(spec[1:])
+
+
+def _block_shape(shape, spec, ms) -> tuple:
+    """The shape of this rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    if not spec:
+        return tuple(shape)
+    return tuple(zero.local_shard(torch.empty(shape, device="meta"), spec,
+                                  ms).shape)
 
 
 def _adam_hyper(oparams: dict) -> dict:

@@ -720,6 +720,304 @@ SUITES.update({"tp": _suite_tp, "serve_tp": _suite_serve_tp,
                "sp": _suite_sp, "pp": _suite_pp, "ep": _suite_ep})
 
 
+# ------------------------------------------------- the offload engines
+OFFLOAD_BLOCKS = {
+    "opt": {"offload_optimizer": {"device": "cpu"}},
+    "param": {"offload_param": {"device": "cpu"}},
+    "both": {"offload_optimizer": {"device": "cpu"},
+             "offload_param": {"device": "cpu"}}}
+
+
+def _state_bytes(eng) -> dict:
+    """Every tensor of the engine's state as raw bytes (uint8), keyed by
+    its place: the shards a rank holds, host or card."""
+    import torch
+
+    from deepspeed_tpu_torch._tree import tree_leaves_with_path
+
+    out = {}
+    for name, tree in (("params", eng.state.params),
+                       ("opt", eng.state.opt_state[1:])):
+        for path, t in tree_leaves_with_path(tree):
+            if isinstance(t, torch.Tensor):
+                out[f"{name}/{path}"] = t.detach().cpu().contiguous() \
+                    .view(torch.uint8).numpy().copy()
+    return out
+
+
+def _suite_offload(out, spec, inputs, W, r):
+    """ZeRO-Offload (unscheduled cpu blocks) at stages 1-3 beside the same
+    stages without the block (the MLP, 5 steps), the shards each keeps,
+    LAMB at stages 1-3, a dry step's digest, and checkpoints: saved with
+    and without the block (W = 2), or loaded from W = 2's (W = 1)."""
+    from deepspeed_tpu_torch import initialize
+
+    params, batch = mlp_params(), mlp_data()
+    base = {"train_batch_size": 32, "bf16": {"enabled": False},
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "adam", "params": {"lr": 1e-2}}}
+    for stage in (1, 2, 3):
+        for name, blk in [("plain", {})] + list(OFFLOAD_BLOCKS.items()):
+            eng = _train(out, f"s{stage}_{name}", dict(
+                base, zero_optimization=dict(stage=stage, **blk)),
+                params, [batch], 5)
+            for k, v in _state_bytes(eng).items():
+                out[f"s{stage}_{name}/bytes/{k}"] = v
+            if name != "plain":
+                out[f"s{stage}_{name}/host"] = np.asarray(
+                    [len(eng._pinned), int(eng._cparams is not None)])
+        lamb = dict(base, optimizer={"type": "lamb",
+                                     "params": {"lr": 1e-2,
+                                                "weight_decay": 0.01}})
+        _train(out, f"lamb{stage}", dict(lamb, zero_optimization={
+            "stage": stage}), params, [batch], 4)
+        _train(out, f"lamb{stage}_off", dict(lamb, zero_optimization=dict(
+            stage=stage, **OFFLOAD_BLOCKS["opt"])), params, [batch], 4)
+    ck = spec.get("dir")
+    if ck is None:
+        return
+    conf = dict(base, zero_optimization=dict(stage=2,
+                                             **OFFLOAD_BLOCKS["both"]))
+    if W == spec["save_w"]:
+        for name, blk in (("off", OFFLOAD_BLOCKS["both"]), ("plain", {})):
+            eng = initialize(loss_fn=_mlp_loss, params=params, config=dict(
+                base, zero_optimization=dict(stage=2, **blk)),
+                device="cpu")[0]
+            for _ in range(2):
+                eng.train_batch(batch)
+            eng.save_checkpoint(os.path.join(ck, name), tag="t")
+        out["ckpt/next"] = np.asarray(float(eng.train_batch(batch)))
+    else:
+        eng = initialize(loss_fn=_mlp_loss, params=params,
+                         config=dict(conf, zero_optimization=dict(
+                             stage=3, **OFFLOAD_BLOCKS["opt"])),
+                         device="cpu")[0]
+        eng.load_checkpoint(os.path.join(ck, "off"))
+        out.put("ckpt/params", eng.module_params())
+        out["ckpt/step"] = np.asarray([eng.state.step, eng.global_steps])
+        out["ckpt/next"] = np.asarray(float(eng.train_batch(batch)))
+        out["ckpt/host"] = np.asarray(all(
+            t.device.type == "cpu"
+            for t in list(eng.state.opt_state.mu.values())))
+
+
+def _digest_arrays(out, name, d):
+    kinds = sorted(d["per_kind"])
+    out[f"{name}/kinds"] = np.asarray(kinds)
+    out[f"{name}/counts"] = np.asarray([d["per_kind"][k]["count"]
+                                        for k in kinds])
+    out[f"{name}/bytes"] = np.asarray([d["per_kind"][k]["bytes"]
+                                       for k in kinds])
+    out[f"{name}/totals"] = np.asarray([d["total_collectives"],
+                                        d["total_bytes"], d["est_wire_ms"],
+                                        d["link_gbps_model"]])
+
+
+def _suite_digest(out, spec, inputs, W, r):
+    """comms_digest of the MLP at stages 0-3 (with and without an offload
+    block), of qgZ and of the Infinity engine, and the trajectories of
+    engines that took a digest between their steps against engines that
+    did not."""
+    from deepspeed_tpu_torch import initialize
+
+    params, batch = mlp_params(), mlp_data()
+    base = {"train_batch_size": 32, "bf16": {"enabled": False},
+            "optimizer": {"type": "adam", "params": {"lr": 1e-2}}}
+    confs = {f"stage{s}": dict(base, zero_optimization={"stage": s})
+             for s in range(4)}
+    confs["stage2_off"] = dict(base, zero_optimization=dict(
+        stage=2, **OFFLOAD_BLOCKS["both"]))
+    confs["fp16"] = dict(base, fp16={"enabled": True,
+                                     "initial_scale_power": 20,
+                                     "loss_scale_window": 2},
+                         zero_optimization={"stage": 1})
+    confs["qgz"] = dict(base, zero_optimization={
+        "stage": 2, "zero_quantized_gradients": True})
+    for name, conf in confs.items():
+        runs = []
+        for probe in (False, True):
+            eng = initialize(loss_fn=_mlp_loss, params=params,
+                             config=dict(conf), device="cpu")[0]
+            losses = []
+            for i in range(3):
+                if probe:
+                    d = eng.comms_digest(batch)
+                losses.append(float(eng.train_batch(batch)))
+            runs.append((losses, eng))
+            if probe:
+                _digest_arrays(out, name, d)
+        (l0, e0), (l1, e1) = runs
+        out[f"{name}/losses"] = np.asarray([l0, l1])
+        out[f"{name}/same_state"] = np.asarray(all(
+            (a == b).all() for a, b in zip(
+                _state_bytes(e0).values(), _state_bytes(e1).values())))
+        out[f"{name}/leaves"] = np.asarray(len(e0._shapes))
+        out[f"{name}/n"] = np.asarray(sum(int(np.prod(s))
+                                          for s in e0._shapes))
+    from deepspeed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig.tiny(dim=64, n_layers=2, n_heads=4, n_kv_heads=2)
+    conf = {"train_batch_size": 8, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 3, "offload_optimizer": {
+                "device": "cpu", "scheduled": True}},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    toks = {"tokens": inputs["tokens"]}
+    eng = initialize(loss_fn=tl.loss_fn(cfg), params=_tree_params(
+        inputs, "llama"), config=conf, device="cpu")[0]
+    _digest_arrays(out, "infinity", eng.comms_digest(toks))
+    out["infinity/sizes"] = np.asarray(eng._chunks)
+    out["infinity/loss"] = np.asarray(float(eng.train_batch(toks)))
+
+
+def _pstream_conf(tier=None, **over):
+    conf = {"train_batch_size": 8,
+            "zero_optimization": {
+                "stage": 3,
+                "offload_param": tier or {"device": "cpu",
+                                          "scheduled": True}},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "bf16": {"enabled": True}}
+    conf.update(over)
+    return conf
+
+
+def _suite_pstream(out, spec, inputs, W, r):
+    """JAX's two-process param-stream scenario (tiny Llama, dim 64, 2
+    layers, 4/2 heads, 8 rows): 3 steps' losses, the step-3 grad norm and
+    the gathered masters; resuming from its universal checkpoint; the NVMe
+    tier beside the RAM tier; the model-parallel engine over model = W
+    (param_specs); and a checkpoint saved by another world size loaded
+    here (``spec["load"]``)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig.tiny(dim=64, n_layers=2, n_heads=4, n_kv_heads=2)
+    batch = {"tokens": inputs["tokens"]}
+
+    def build(conf, **kw):
+        return initialize(params=tl.layered_model(
+            cfg, _tree_params(inputs, "llama")), config=conf,
+            device="cpu", **kw)[0]
+
+    def run(name, eng, steps=3):
+        losses = [float(eng.train_batch(batch)) for _ in range(steps)]
+        out[f"{name}/losses"] = np.asarray(losses)
+        out[f"{name}/norm"] = np.asarray(eng.get_global_grad_norm())
+        out.put(f"{name}/master", eng.master_params())
+        return eng
+
+    if spec.get("load"):
+        eng = build(_pstream_conf())
+        eng.load_checkpoint(spec["load"])
+        out["resume/loss"] = np.asarray(float(eng.train_batch(batch)))
+        return
+    eng = run("ram", build(_pstream_conf()))
+    out["ram/overlap"] = np.asarray(eng.overlap_step)
+    out["ram/chunks"] = np.asarray(eng._schunks)
+    ck = os.path.join(spec["dir"], f"w{W}")
+    eng.save_checkpoint(ck)
+    e2 = build(_pstream_conf())
+    e2.load_checkpoint(ck)
+    out["resume/pair"] = np.asarray([float(eng.train_batch(batch)),
+                                     float(e2.train_batch(batch))])
+    nv = {"device": "nvme", "nvme_path": os.path.join(spec["dir"], "nv")}
+    run("nvme", build(_pstream_conf(nv)))
+    out["nvme/dirs"] = np.asarray(sorted(os.listdir(nv["nvme_path"])))
+    if W == 2:
+        _use_mesh({"model": 2})
+        run("tp", build(_pstream_conf(mesh={"model": 2}),
+                        param_specs=tl.param_specs(cfg)))
+
+
+def _suite_infinity(out, spec, inputs, W, r):
+    """JAX's two-process Infinity scenario (tiny Llama, 8 rows, 2 steps)
+    on the RAM tier (device and host updates) and on NVMe, the gathered
+    masters, a checkpoint round trip, and the model-parallel engine over
+    model = W (param_specs)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig.tiny(dim=64, n_layers=2, n_heads=4, n_kv_heads=2)
+    batch = {"tokens": inputs["tokens"]}
+
+    def conf(**off):
+        return {"train_batch_size": 8,
+                "zero_optimization": {"stage": 3, "offload_optimizer": dict(
+                    {"device": "cpu", "scheduled": True}, **off)},
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                "bf16": {"enabled": True}}
+
+    def run(name, c, **kw):
+        eng = initialize(loss_fn=tl.loss_fn(cfg), params=_tree_params(
+            inputs, "llama"), config=c, device="cpu", **kw)[0]
+        out[f"{name}/losses"] = np.asarray(
+            [float(eng.train_batch(batch)) for _ in range(2)])
+        out.put(f"{name}/master", eng.master_params())
+        out[f"{name}/tier_bytes"] = np.asarray(eng.tier_local_bytes())
+        return eng
+
+    eng = run("device", conf())
+    run("host", conf(update="host"))
+    nv = os.path.join(spec["dir"], "nv")
+    run("nvme", conf(device="nvme", nvme_path=nv))
+    out["nvme/dirs"] = np.asarray(sorted(os.listdir(nv)))
+    ck = os.path.join(spec["dir"], "ck")
+    eng.save_checkpoint(ck)
+    back = initialize(loss_fn=tl.loss_fn(cfg), params=_tree_params(
+        inputs, "llama"), config=conf(), device="cpu")[0]
+    back.load_checkpoint(ck)
+    out["ckpt/pair"] = np.asarray([float(eng.train_batch(batch)),
+                                   float(back.train_batch(batch))])
+    if W == 2:
+        _use_mesh({"model": 2})
+        run("tp", dict(conf(), mesh={"model": 2}),
+            param_specs=tl.param_specs(cfg))
+
+
+def _suite_zi_tp(out, spec, inputs, W, r):
+    """ZeRO-Inference over model = 2 (tiny Llama: bf16 weights in f32,
+    int8 weights, the NVMe tier) and over expert = 2 (tiny Mixtral), each
+    rank's streamed bytes and KV heads."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.serving import (
+        llama_serving_engine, mixtral_serving_engine)
+    from deepspeed_tpu_torch.models import llama as tl
+    from deepspeed_tpu_torch.models import mixtral as tm
+
+    kw = dict(spec["kw"], device="cpu", cache_dtype=torch.float32)
+    cfg = tl.LlamaConfig.tiny(dim=64, n_layers=2, n_heads=4, n_kv_heads=2)
+    params = _tree_params(inputs, "llama")
+    ms = _use_mesh({"model": 2})
+    runs = {"bf16": {}, "int8": dict(weight_dtype="int8",
+                                     quant_group_size=16),
+            "nvme": {"tier": "nvme",
+                     "nvme_path": os.path.join(spec["dir"], "zi")}}
+    for name, extra in runs.items():
+        zi = {"enabled": True, **{k: v for k, v in extra.items()
+                                  if k in ("tier", "nvme_path")}}
+        wkw = {k: v for k, v in extra.items() if k not in zi}
+        eng = llama_serving_engine(params, cfg, mesh=ms, zero_inference=zi,
+                                   **dict(kw, **wkw))
+        _put_tokens(out, name, _serve(eng, spec["prompts"]))
+        out[f"{name}/heads"] = np.asarray(eng.cache.k.shape[1])
+        out[f"{name}/layer_bytes"] = np.asarray(eng.plan["layer_bytes"])
+        out[f"{name}/uploaded"] = np.asarray(eng.zi_bytes_uploaded)
+        assert eng.check_leaks() == []
+    mcfg = tm.MixtralConfig.tiny(attn_impl="reference")
+    ems = _use_mesh({"expert": 2})
+    eng = mixtral_serving_engine(_tree_params(inputs, "mixtral"), mcfg,
+                                 mesh=ems, zero_inference={"enabled": True},
+                                 **kw)
+    _put_tokens(out, "moe", _serve(eng, spec["prompts"]))
+    out["moe/layer_bytes"] = np.asarray(eng.plan["layer_bytes"])
+
+
+SUITES.update({"offload": _suite_offload, "digest": _suite_digest,
+               "pstream": _suite_pstream, "infinity": _suite_infinity,
+               "zi_tp": _suite_zi_tp})
+
+
 def main(argv):
     import torch
 

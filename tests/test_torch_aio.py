@@ -260,15 +260,18 @@ def test_pinned_buffer_views():
 
 
 def test_infinity_engine_waits_for_zero_offload():
-    # the engine is ported; its several-process path and the collective
-    # digest still wait for ROADMAP A9's distributed part
+    # the engine, its several-process path and its collective digest are
+    # ported: a spec tree that does not match the params raises, and one
+    # rank's digest is empty
     from deepspeed_tpu_torch.config import Config
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        tinf.InfinityEngine(None, {}, None, param_specs={})
-    eng = tinf.InfinityEngine(
-        lambda p, b: p["w"].float().square().sum(), {"w": torch.ones(4)},
-        Config.from_dict({"zero_optimization": {"offload_optimizer": {
-            "device": "cpu", "scheduled": True}}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.comms_digest({})
+    conf = Config.from_dict({"zero_optimization": {"offload_optimizer": {
+        "device": "cpu", "scheduled": True}}})
+    loss = lambda p, b: p["w"].float().square().sum()   # noqa: E731
+    with pytest.raises(TypeError, match="spec"):
+        tinf.InfinityEngine(loss, {"w": torch.ones(4)}, conf,
+                            param_specs={"w": "model"}, device="cpu")
+    eng = tinf.InfinityEngine(loss, {"w": torch.ones(4)}, conf,
+                              device="cpu")
+    d = eng.comms_digest({})
+    assert d["total_collectives"] == 0 and eng.global_steps == 0

@@ -138,23 +138,65 @@ def test_routes(model):
 
 
 def test_distributed_paths_raise_naming_a9(model, monkeypatch):
+    """The paths that waited for ROADMAP A9 are ported: what still raises
+    is what the JAX package refuses too (specs without a factor_specs hook,
+    a block spec over the layer axis).  Under a patched process count of
+    2 with no process group (a data axis of one), the streaming engines
+    take their several-process paths (overlap_step off, the row-slice
+    step, the exchanges as identities) and train as one rank does."""
+    import dataclasses
+
     from deepspeed_tpu_torch.config import Config
 
-    _, tcfg, jp = model
+    cfg, tcfg, jp = model
     tp = from_jax_params(jp, device="cpu")
     conf = Config.from_dict(_conf({"offload_param": SCHED}))
-    with pytest.raises(NotImplementedError, match="A9"):
+    no_hook = dataclasses.replace(tl.layered_model(tcfg, tp),
+                                  factor_specs=None)
+    jlm = dataclasses.replace(jl.layered_model(
+        cfg, jax.tree.map(jnp.asarray, jp)), factor_specs=None)
+    want = _message(lambda: dstpu.initialize(
+        params=jlm, config=_conf({"offload_param": SCHED}),
+        param_specs=jl.param_specs(cfg)))
+    got = _message(lambda: ParamStreamEngine(
+        no_hook, conf, device="cpu", param_specs=tl.param_specs(tcfg)))
+    assert got == want
+    specs = tl.param_specs(tcfg)
+    specs["blocks"] = dict(specs["blocks"], wq=("model", None, None))
+    with pytest.raises(ValueError, match="shards the layer axis"):
         ParamStreamEngine(tl.layered_model(tcfg, tp), conf, device="cpu",
-                          param_specs={"embed": None})
-    with pytest.raises(NotImplementedError, match="A9"):
-        initialize(params=tl.layered_model(tcfg, tp), config=_conf(),
-                   param_specs={"embed": None}, device="cpu")
+                          param_specs=specs)
+    toks = {"tokens": np.random.default_rng(0).integers(
+        0, 256, (2, 17)).astype(np.int32)}
+
+    def losses(make):
+        eng = make()
+        return eng, [float(eng.train_batch(toks)) for _ in range(2)]
+
+    strict = Config.from_dict(_conf({"offload_param": dict(
+        SCHED, overlap_step=False)}))
+    ref, want = losses(lambda: ParamStreamEngine(
+        tl.layered_model(tcfg, from_jax_params(jp, device="cpu")), strict,
+        device="cpu"))
+    iconf = Config.from_dict(_conf({"offload_optimizer": SCHED}))
+    iref, iwant = losses(lambda: InfinityEngine(
+        tl.loss_fn(tcfg), from_jax_params(jp, device="cpu"), iconf,
+        device="cpu"))
     monkeypatch.setattr(tps, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ParamStreamEngine(tl.layered_model(tcfg, tp), conf, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        InfinityEngine(tl.loss_fn(tcfg), tp, Config.from_dict(
-            _conf({"offload_optimizer": SCHED})), device="cpu")
+    eng, got = losses(lambda: ParamStreamEngine(
+        tl.layered_model(tcfg, from_jax_params(jp, device="cpu")), conf,
+        device="cpu"))
+    assert not eng.overlap_step and got == want
+    for a, b in zip(tree_leaves(eng.master_params()),
+                    tree_leaves(ref.master_params())):
+        assert torch.equal(a, b)
+    ieng, igot = losses(lambda: InfinityEngine(
+        tl.loss_fn(tcfg), from_jax_params(jp, device="cpu"), Config.from_dict(
+            _conf({"offload_optimizer": SCHED})), device="cpu"))
+    assert igot == iwant
+    for a, b in zip(tree_leaves(ieng.master_params()),
+                    tree_leaves(iref.master_params())):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("block,opt", [
