@@ -224,7 +224,7 @@ and runs, in order:
    page-locked host memory, the comms logger and ``comms_digest`` against
    the stage's expectation, peak memory beside phase 42's, the host bytes
    a step.
-43-47, 49-52. in two ranks that the port's launcher starts on the one card
+43-47, 49-57. in two ranks that the port's launcher starts on the one card
    (``python -m deepspeed_tpu_torch.launcher --local_hosts 2 chip_smoke.py
    --mp-child ...``, one gloo group: NCCL refuses two ranks on one device,
    and gloo stages every collective of a CUDA tensor but all_reduce and
@@ -233,8 +233,8 @@ and runs, in order:
    32 layers on phase 5's queue, then int8 weights, each against the
    one-rank engine on the same weights (first prefill logits), and a tiny
    f32 Llama's tokens identical; 44, tensor-parallel training at phase 8's
-   config against phase 8's losses, its stage-0 checkpoint read back into
-   one rank bit for bit; 45, Ulysses (T = 8192) and ring (T = 4096) over
+   config against phase 8's losses, with the hybrid engine's rollouts
+   before and after its first step; 45, Ulysses (T = 8192) and ring (T = 4096) over
    seq 2 at 2 layers, loss and grads against one rank; 46, pipe 2 with
    n_micro 4 at 4 layers against one rank with 4 accumulation steps; 47,
    Mixtral-8x7B widths over expert 2, trained at 1 layer and served at 8
@@ -245,8 +245,25 @@ and runs, in order:
    2 at phase 40's depth against its step 1; 52, ZeRO-Inference over
    model 2, Llama-3-8B bf16 at 32 layers streamed from each rank's host
    tier, against phase 29's first prefill logits, and a tiny f32 Llama's
-   tokens identical.  Each phase holds its kernels (B1-B6, B9) at a rank's
-   shapes against their plain versions.
+   tokens identical; 53, GPT-2 1.3B served over model 2 at 24 layers (each
+   rank its heads of the fused QKV), bf16 and int8, against the one-rank
+   engine; 54, GPT-2 1.3B at 12 layers trained over model 2 against phase
+   42's losses, its stage-0 checkpoint read into one rank bit for bit; 55,
+   BERT-large over model 2, the pooled and MLM heads bf16 and int8 against
+   one rank, two training steps against phase 26's losses; 56, phase 43's
+   Llama-3-8B with int8-resident pages over model 2, each rank's pages
+   against the one-rank cache's head slice; 57, an injected tiny Llama
+   and Mixtral over model 2 (and expert 2), the hybrid engine's first
+   rollout of phase 44 against one rank's, an elastic batch at world 2.
+   Each phase holds its kernels (B1-B7, B9) at a rank's shapes against
+   their plain versions;
+58. block-sparse attention at phase 8's config ("fixed" and "bigbird",
+   blocks of 64): every layer's output against dense f32 attention under
+   the layout's token mask, the "dense" layout's loss against phase 8's,
+   two falling steps each, ms and peak memory beside phase 8's;
+59. ``autotune_config`` over GPT-2 1.3B at 4 layers: micro 1 / 2 x remat
+   none / full and an unknown policy, the fastest measured candidate
+   wins, the failed ones are listed, a second call reads the cache.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -258,8 +275,9 @@ KV-NVMe paths of phases 29-32, the env report of phase 33, the HF-loaded
 serving run and the injected Mixtral of phase 34, the LoRA run of phase
 35, the hybrid rollouts and step, distillation and Trainer runs of
 phase 36, the offload engines' runs of phases 37-40, the wire of phase
-41, each ZeRO stage's run of phase 42, the offload runs of phase 48 and
-the two-rank runs of phases 43-47 and 49-52, both ranks' counts summed)
+41, each ZeRO stage's run of phase 42, the offload runs of phase 48, the
+two-rank runs of phases 43-47 and 49-57, both ranks' counts summed, and
+the sparse and autotune runs of phases 58-59)
 counts the
 launches
 of every kernel on its own (counters set to 0 just before it and read just
@@ -278,6 +296,7 @@ import contextlib
 import functools
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2954,9 +2973,8 @@ def phase_gpt2_serving(fns, card_line):
     if extra >= wte_bytes // 10:
         raise SystemExit("gpt2: the tied head copies wte")
     rng = np.random.default_rng(17)
-    lens = np.linspace(64, 768, 8).astype(int).tolist()
-    prompts = {f"g{i}": rng.integers(1, cfg.vocab_size, n).tolist()
-               for i, n in enumerate(lens)}
+    prompts = _queue18(cfg.vocab_size, rng)
+    lens = [len(p) for p in prompts.values()]
     opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
                 cache_dtype=torch.bfloat16)
     launches, results, outs = {}, {}, {}
@@ -4086,12 +4104,13 @@ def _pad_pairs(lens, T):
     return sum(n * n + (T - n) * (T - n) for n in lens)
 
 
-def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
-    """B2 and B3 at BERT's training shape, bidirectional with pad ids,
-    against the plain backward: B2's delta against ``flash_delta``, dq, dk
-    and dv at the flash backward gate (an element over it must be a bf16
-    neighbour of the f64 oracle, C-f6), each timed on the device clock
-    beside its bound and SDPA's backward under the pad mask."""
+def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False):
+    """B2 and B3 at BERT's training shape, bidirectional with pad ids (or
+    ``causal`` without ids, ``seg`` and ``lens`` None), against the plain
+    backward: B2's delta against ``flash_delta``, dq, dk and dv at the
+    flash backward gate (an element over it must be a bf16 neighbour of the
+    f64 oracle, C-f6), each timed on the device clock beside its bound
+    (over the live pairs) and SDPA's backward under the same mask."""
     from deepspeed_tpu_torch.ops.attention_cuda import (
         flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
         flash_delta, flash_fwd)
@@ -4099,10 +4118,10 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
     B, T, H, D = q.shape
     KV = k.shape[2]
     wgmma = flash_bwd_body(q) == "wgmma"
-    o, lse = flash_fwd(q, k, v, causal=False, seg=seg)
-    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, seg, causal=False)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal=False)
-    want = flash_bwd_reference(q, k, v, o, lse, do, seg, causal=False)
+    o, lse = flash_fwd(q, k, v, causal=causal, seg=seg)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, seg, causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal=causal)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, causal=causal)
     want_delta = flash_delta(o, do)
     torch.cuda.synchronize()
     got = {"dq": dq, "dk": dk, "dv": dv}
@@ -4112,7 +4131,7 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
     over = dict.fromkeys(got, (0, True))
     if any(e[1] > FLASH_BWD_REL_TOL for e in err.values()):
         dq64, dq_spec, dk64, dv64 = flash_bwd_f64_oracle(
-            q, k, v, o, lse, do, seg, causal=False)
+            q, k, v, o, lse, do, seg, causal=causal)
         exact = {"dq": (dq64, dq_spec), "dk": (dk64,), "dv": (dv64,)}
         del dq64, dq_spec, dk64, dv64
         over = {n: _faithful_over_gate(got[n], w, exact[n],
@@ -4121,12 +4140,12 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
         del exact
     del dq, dk, dv, got, want, want_delta
     plain = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, seg,
-                                                causal=False),
+                                                causal=causal),
                     iters=3, warmup=1)
-    sdpa = _sdpa_bwd(q, k, v, do, seg, causal=False)
+    sdpa = _sdpa_bwd(q, k, v, do, seg, causal=causal)
     lib = sdpa and device_ms(sdpa, iters=10)
     del sdpa
-    pairs = _pad_pairs(lens, T)
+    pairs = (B * T * (T + 1) // 2 if causal else _pad_pairs(lens, T))
     io = (2 * B * T * D * (2 * H + 2 * KV) + 2 * B * T * D * (H + KV)
           + 8 * B * H * T + 4 * B * T)
     bounds = {"flash_bwd_dq": bound(io, 6 * D * pairs * H
@@ -4134,15 +4153,15 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
               "flash_bwd_dkv": bound(io, 8 * D * pairs * H,
                                      BF16_FLOPS_PER_S)}
     fns = {"flash_bwd_dq": lambda: flash_bwd_dq(q, k, v, o, do, lse, seg,
-                                                causal=False),
+                                                causal=causal),
            "flash_bwd_dkv": lambda: flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                  seg, causal=False)}
+                                                  seg, causal=causal)}
     out = {}
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
         dev = device_ms(fns[name], iters=10)
         b_ms, b_by = bounds[name]
-        case = {"wgmma": wgmma, "causal": False, "T": T, "lens": lens,
+        case = {"wgmma": wgmma, "causal": causal, "T": T, "lens": lens,
                 "max_abs_err": max(err[n][0] for n in grads),
                 "rel_err": max(err[n][1] for n in grads),
                 "tol_rel": FLASH_BWD_REL_TOL,
@@ -4150,14 +4169,15 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag):
                 "over_gate_faithful": all(over[n][1] for n in grads),
                 "device_ms": dev, "plain_ms": plain,
                 "library_device_ms": lib,
-                "library": "sdpa backward under the pad mask",
+                "library": "sdpa backward under the same mask",
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bound_share": _share(b_ms, dev)}
         if name == "flash_bwd_dq":
             case["delta_rel"] = delta_rel
         out[name] = case
         log(f"[{tag}] {name} B={B} T={T} H={H} KV={KV} D={D} bf16 "
-            f"non-causal, pad ids: tensor-core body {wgmma}; rel err "
+            + ("causal" if causal else "non-causal, pad ids")
+            + f": tensor-core body {wgmma}; rel err "
             f"{case['rel_err']:.3e} (tol {FLASH_BWD_REL_TOL}) max_abs_err "
             f"{case['max_abs_err']:.3e}; {case['over_gate']} elements over "
             f"the gate, each a bf16 neighbour of the f64 oracle: "
@@ -4434,10 +4454,8 @@ def phase_bert_serving(fns, card_line):
     cfg = BertConfig.large()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(25),
                          device="cuda")
-    rng = np.random.default_rng(25)
-    lens = rng.integers(8, cfg.max_seq_len + 1, BERT_REQUESTS)
-    reqs = {f"r{i}": rng.integers(1, cfg.vocab_size, int(n)).tolist()
-            for i, n in enumerate(lens)}
+    reqs = _queue25(cfg)
+    lens = np.array([len(r) for r in reqs.values()])
     real = int(lens.sum())
     log(f"[bert serving] bert-large params={param_count(cfg)} "
         f"({param_bytes(params)} bytes bf16) layers={cfg.n_layers} "
@@ -4867,11 +4885,12 @@ ZI_LLAMA_OPTS = dict(max_batch=8, page_size=16, max_seq=2048,
                      num_pages=1025, cache_dtype=torch.bfloat16)
 ZI_MIXTRAL_OPTS = dict(max_batch=8, page_size=16, max_seq=1024,
                        num_pages=1025, cache_dtype=torch.bfloat16)
-# phase 31 (b): Mixtral-8x7B's bf16 image cut to 16 of 32 layers (46.7 GB;
-# all 32, 93.4 GB, until PR 20: the smoke's time, which phases 48-52
-# raised) under a device budget halved with it, 32 GB: 8 layers resident,
-# 8 streamed a sweep (19 / 13 at 32 layers under 64 GB)
-ZI_MIXTRAL_LAYERS, ZI_MIXTRAL_BUDGET = 16, int(32e9)
+# phase 31 (b): Mixtral-8x7B's bf16 image cut to 8 of 32 layers (23.4 GB;
+# 16 layers under 32 GB before phases 53-59, all 32 under 64 GB before
+# phases 48-52: the smoke's time; 16 layers' two draws took 34 of the
+# phase's 75 s) under a device budget cut with it, 16 GB: 3-4 layers
+# resident, the rest streamed a sweep (8 / 8 at 16 layers, 19 / 13 at 32)
+ZI_MIXTRAL_LAYERS, ZI_MIXTRAL_BUDGET = 8, int(16e9)
 # phases 29 and 31: new tokens a Llama-3-8B request (32 until PR 20: the
 # smoke's time)
 ZI_LLAMA_NEW = 16
@@ -5393,7 +5412,7 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
     """The headline: (a) Llama-3-8B at 32 layers, every layer streamed from
     the host tier, on phase 5's traffic with n-gram speculation (K = 4;
     speculation off is phase 29's streamed run); (b) Mixtral-8x7B in bf16
-    at 16 of 32 layers (46.7 GB image) under a 32 GB device budget, the
+    at ZI_MIXTRAL_LAYERS of 32 layers under ZI_MIXTRAL_BUDGET, the
     layers drawn one at a time, on 8 of phase 21's prompts with
     ``ZI_MIXTRAL_NEW`` new tokens, speculation off and on.  Each: sweeps, streamed bytes per
     emitted token, ms per sweep beside the link bound (phase 28's rate),
@@ -5450,13 +5469,13 @@ def phase_zi_serving(fns, card_line, holder, llama_off, link_gbps):
             f"zi mixtral {ZI_MIXTRAL_LAYERS} layers bf16 {tag}", launches,
             dense,
             stats=lambda e, o, mm: mstats(e, o, m=mm))
-        res.setdefault("mixtral_8x7b_16_layers", {"plan": m["plan"]})
-        res["mixtral_8x7b_16_layers"][tag] = {
+        res.setdefault(f"mixtral_8x7b_{ZI_MIXTRAL_LAYERS}_layers", {"plan": m["plan"]})
+        res[f"mixtral_8x7b_{ZI_MIXTRAL_LAYERS}_layers"][tag] = {
             k: m[k] for k in keys + (("mean_accept_len", "spec_sweeps")
                                      if tag == "spec_on" else ())}
         gc.collect()
     n_div, first = _first_divergence(outs["spec_on"], outs["spec_off"], mq)
-    res["mixtral_8x7b_16_layers"].update(
+    res[f"mixtral_8x7b_{ZI_MIXTRAL_LAYERS}_layers"].update(
         spec_off_path_divergences=n_div,
         first_divergence_position=first)
     res["launches"] = {p: {k: n for k, n in c.items() if n}
@@ -5768,7 +5787,8 @@ def phase_hf_roundtrip(fns, card_line, params, resident):
     exported with ``save_pretrained`` to the temp dir (f32, HF names, 32.1
     GB at 32 layers; the depth is cut, and the cut printed, only when the
     file system cannot hold it), loaded back with ``from_pretrained(device=
-    "cuda", dtype=bfloat16)`` (the tree bit for bit), and the loaded tree
+    "cuda", dtype=bfloat16)`` (the tree bit for bit, the spec tree
+    Llama's ``param_specs``), and the loaded tree
     served on phase 5's traffic: tokens identical to the seeded tree's
     (phase 29's resident run) and the first prefill's and decode step's
     logits bitwise equal.  Save and load seconds, bytes and the peak host
@@ -5785,7 +5805,8 @@ def phase_hf_roundtrip(fns, card_line, params, resident):
     from deepspeed_tpu_torch.inference.serving import serving_engine
     from deepspeed_tpu_torch.integrations.hf import (from_pretrained,
                                                      save_pretrained)
-    from deepspeed_tpu_torch.models.llama import LlamaConfig, param_count
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, param_count,
+                                                  param_specs)
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 
     cfg = LlamaConfig.llama3_8b()
@@ -5829,7 +5850,7 @@ def phase_hf_roundtrip(fns, card_line, params, resident):
             load_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    same_tree = lcfg == cut and specs is None and all(
+    same_tree = lcfg == cut and specs == param_specs(cut) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(loaded),
                                           tree_leaves(tree)))
     l_out, l_logits, l_m = _run(
@@ -7440,37 +7461,44 @@ def _held_bwd(name, got, want, args):
     return rel
 
 
-def _hold_attention(gen, B, T, H, KV, D=128, bwd=True):
-    """B1 (and B2 / B3) at one rank's shape, against the plain versions
-    (B2 / B3 under the C-f6 rule of :func:`_held_bwd`); each kernel's
-    device ms there."""
+def _hold_attention(gen, B, T, H, KV, D=128, bwd=True, causal=True,
+                    seg=None):
+    """B1 (and B2 / B3) at one rank's shape, causal or not, with pad or
+    segment ids ``seg`` [B, T], against the plain versions (B2 / B3 under
+    the C-f6 rule of :func:`_held_bwd`); each kernel's device ms there
+    (:func:`_bert_flash_bwd` holds B2 / B3 beside SDPA's backward)."""
     from deepspeed_tpu_torch.ops.attention_cuda import (
         flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference, flash_fwd,
         flash_fwd_reference)
 
     dt = torch.bfloat16
+    kw = dict(causal=causal, seg=seg)
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dt)
-    o, lse = flash_fwd(q, k, v)
-    ro, _ = flash_fwd_reference(q, k, v)
+    o, lse = flash_fwd(q, k, v, **kw)
+    ro, _ = flash_fwd_reference(q, k, v, **kw)
     held = dict([_hold("flash_fwd", o, ro, FLASH_TOL)])
-    ms = {"flash_fwd": device_ms(lambda: flash_fwd(q, k, v), iters=3)}
+    ms = {"flash_fwd": device_ms(lambda: flash_fwd(q, k, v, **kw), iters=3)}
     if bwd:
         do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
-        dq, delta = flash_bwd_dq(q, k, v, o, do, lse)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
-        want = flash_bwd_reference(q, k, v, o, lse, do)
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        want = flash_bwd_reference(q, k, v, o, lse, do, **kw)
         args = (q, k, v, o, lse, do)
+        if seg is not None or not causal:
+            raise ValueError("_hold_attention's backward is causal without "
+                             "ids (_bert_flash_bwd holds the other case)")
         held["flash_bwd_dq"] = _held_bwd("dq", dq, want[0], args)
         held["flash_bwd_dkv"] = max(_held_bwd("dk", dk, want[1], args),
                                     _held_bwd("dv", dv, want[2], args))
         del want
         ms["flash_bwd_dq"] = device_ms(
-            lambda: flash_bwd_dq(q, k, v, o, do, lse), iters=3)
+            lambda: flash_bwd_dq(q, k, v, o, do, lse, **kw), iters=3)
         ms["flash_bwd_dkv"] = device_ms(
-            lambda: flash_bwd_dkv(q, k, v, do, lse, delta), iters=3)
-    return {"shape": [B, T, H, KV, D], "max_abs_err": held, "ms": ms}
+            lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw), iters=3)
+    return {"shape": [B, T, H, KV, D], "causal": causal,
+            "pad_ids": seg is not None, "max_abs_err": held, "ms": ms}
 
 
 def _hold_serving(gen, H, KV, V, rows=8):
@@ -7610,6 +7638,11 @@ def phase_tp_serving(fns, card_line, gen):
                 ref[wd] = (out, {k: v.cpu() for k, v in first.items()}, m)
                 del e
                 gc.collect()
+            # phase 56's one-rank int8-resident engine on these weights
+            _MP["kvq_ref"] = _kvq_one_rank(params, cfg)
+        # phase 56's int8-resident engine over the mesh, from this draw
+        _MP["kvq"] = llama_serving_engine(params, cfg, mesh=ms,
+                                          **_kvq_opts())
         for wd in ("bfloat16", "int8"):
             _zero(fns.values())
             t0 = time.perf_counter()
@@ -7686,13 +7719,16 @@ def phase_tp_train(fns, card_line, phase8_losses, gen):
     """Phase 44: tensor-parallel training over model 2 at phase 8's config
     (Llama-3-8B widths at 4 layers, ~0.96 B parameters a rank, seed 0,
     micro 1 x accumulation 2 x 2048, bf16 compute, fused Adam): losses
-    against phase 8's one-rank run; the stage-0 checkpoint written, read
-    back into one rank and held to the two ranks' gathered state bit for
-    bit; B1-B4 held at a rank's shapes."""
+    against phase 8's one-rank run; B1-B4 held at a rank's shapes.  Before
+    the last step the hybrid engine (``inference_tp_size`` 2, phase 57's
+    gate) rolls out from the live training layout, and again after it.
+    The stage-0 checkpoint's round trip over this layout is held on the
+    CPU (tests/test_torch_tensor_parallel.py) and, with the fused QKV's
+    placement, on the card by phase 54: its 23 GB gather over gloo took 70
+    of this phase's 91 s (the smoke's time)."""
     import gc
-    import shutil
 
-    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch import comm, init_hybrid_engine, initialize
     from deepspeed_tpu_torch._tree import tree_leaves
     from deepspeed_tpu_torch.models.llama import (LlamaConfig, loss_fn,
                                                   param_specs)
@@ -7703,14 +7739,21 @@ def phase_tp_train(fns, card_line, phase8_losses, gen):
 
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4)
     conf = dict(_train_config(2, 2, {"bf16": {"enabled": True}}),
-                mesh={"model": 2})
+                mesh={"model": 2},
+                hybrid_engine={"enabled": True, "inference_tp_size": 2})
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
         np.int32)}
+    prompts = torch.from_numpy(np.random.default_rng(57).integers(
+        1, cfg.vocab_size, (MP_HYBRID_ROWS, MP_HYBRID_T)).astype(np.int32))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
                          device="cuda", dtype=torch.float32)
+    # phase 57's reference: one rank's model over the same weights in the
+    # compute dtype, kept on rank 0 until the first rollout is scored
+    one_rank = (_cast_tree(params, torch.bfloat16) if comm.get_rank() == 0
+                else None)
     eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
                      optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
                      param_specs=param_specs(cfg), dist_init_required=False)[0]
@@ -7722,56 +7765,59 @@ def phase_tp_train(fns, card_line, phase8_losses, gen):
     path = "llama3_8b-4L tp2 training"
     _zero(fns.values())
     comm.comms_logger().reset()
-    for _ in range(4):
+
+    def step():
         torch.cuda.reset_peak_memory_stats()
         ts = time.perf_counter()
         loss = float(eng.train_batch(batch))
         rows.append({"loss": loss, "grad_norm": eng.get_global_grad_norm(),
                      "ms": (time.perf_counter() - ts) * 1e3,
                      "peak_gb_rank": torch.cuda.max_memory_allocated() / 1e9})
+
+    # the hybrid engine over the training layout before any step (the
+    # reference's weights): a rollout, the first step, a rollout; its
+    # launches go to a path of their own
+    hyb = init_hybrid_engine(eng, cfg)
+    seen = _capture_rollout(hyb)
+    ts = time.perf_counter()
+    before = hyb.generate(prompts, max_new_tokens=MP_HYBRID_NEW,
+                          temperature=0.0)
+    hybrid = {"rollout_before_ms": (time.perf_counter() - ts) * 1e3}
+    rollouts = _snap(fns)
+    hyb._prefill, hyb._decode = seen.pop("steps")
+    hybrid.update(cache_kv_heads_a_rank=seen["cache_kv_heads"],
+                  cache_kv_heads_want=cfg.n_kv_heads // 2)
+    if comm.get_rank() == 0:
+        hybrid.update(_score_rollout(one_rank, cfg, before, seen["logits"]))
+    del one_rank, seen
+    _zero(fns.values())
+    step()
+    trained = _snap(fns)
+    _zero(fns.values())
+    ts = time.perf_counter()
+    after = hyb.generate(prompts, max_new_tokens=MP_HYBRID_NEW,
+                         temperature=0.0)
+    hybrid["rollout_after_ms"] = (time.perf_counter() - ts) * 1e3
+    del hyb
+    _add(fns, rollouts)
+    # the generator attends in plain PyTorch and samples through B6
+    _mp_path(fns, "llama3_8b-4L tp2 hybrid rollouts", launches,
+             ("greedy_argmax",), hopper=False)
+    _zero(fns.values())
+    _add(fns, trained)
+    for _ in range(3):
+        step()
     _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "fused_adam"))
+    hybrid.update(new_tokens=before.shape[1] - prompts.shape[1],
+                  tokens_changed_by_the_step=int((before != after).sum()))
+    _MP["hybrid"] = hybrid
     comms = comm.comms_logger().summary()
     rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, phase8_losses)]
     local = sum(t.numel() for t in tree_leaves(eng.state.params))
     held = {"attention": _hold_attention(gen, 1, 2048, 16, 4),
             "adam_leaf": _hold_leaf(eng.state.params["embed"])}
-    # the stage-0 checkpoint: each rank's blocks digested (exact integer
-    # sums of their bits), gathered on the card and written by rank 0,
-    # read back into one rank whose whole leaves, cut into the two ranks'
-    # blocks, must digest the same
-    specs = eng.state_layout()[3]
-    mine = _state_digests(eng, specs, None)
-    digests = [None] * comm.get_world_size()
-    torch.distributed.all_gather_object(digests, mine)
-    d = _bcast_str(_nvme_dir("tp_ckpt") if comm.get_rank() == 0 else None)
-    t0 = time.perf_counter()
-    eng.save_checkpoint(d, tag="tp2")
-    save_s = time.perf_counter() - t0
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    ckpt = {}
-    if comm.get_rank() == 0:
-        one = initialize(loss_fn=loss_fn(cfg), params=init_params(
-            cfg, torch.Generator("cuda").manual_seed(1), device="cuda",
-            dtype=torch.float32), config=_train_config(
-                2, 2, {"bf16": {"enabled": True}}),
-            optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
-            dist_init_required=False, mesh=_one_mesh())[0]
-        t1 = time.perf_counter()
-        one.load_checkpoint(d, tag="tp2")
-        ckpt["load_s"] = time.perf_counter() - t1
-        ckpt["bitwise"] = all(
-            _state_digests(one, specs, r) == digests[r]
-            for r in range(len(digests)))
-        ckpt["bytes"] = sum(
-            t.numel() * t.element_size() for f in (
-                one.state.params, one.state.opt_state.mu,
-                one.state.opt_state.nu) for t in tree_leaves(f))
-        del one
-        shutil.rmtree(d, ignore_errors=True)
-    comm.barrier()
     gc.collect()
     torch.cuda.empty_cache()
     if comm.get_rank() == 0:
@@ -7779,13 +7825,54 @@ def phase_tp_train(fns, card_line, phase8_losses, gen):
                     phase8_losses=phase8_losses, loss_rel=rel,
                     bound=MP_TP_TRAIN_LOSS_REL, init_s=init_s,
                     params_a_rank=local, comms=comms, held=held,
-                    ckpt=dict(ckpt, save_s=save_s), launches=launches,
+                    launches=launches,
                     collectives="host-staged gloo, two ranks on one card")
-        if max(rel) > MP_TP_TRAIN_LOSS_REL or not ckpt["bitwise"]:
+        if max(rel) > MP_TP_TRAIN_LOSS_REL:
             raise SystemExit(f"phase 44: losses {rel} (bound "
-                             f"{MP_TP_TRAIN_LOSS_REL}) or checkpoint "
-                             f"{ckpt} failed")
+                             f"{MP_TP_TRAIN_LOSS_REL})")
     return launches
+
+
+def _capture_rollout(hyb):
+    """Wrap the hybrid engine's own prefill and decode steps: every logits
+    they return (cloned) and the head count of the cache its allocator
+    made; ``"steps"`` holds the unwrapped pair to put back."""
+    seen = {"logits": [], "steps": (hyb._prefill, hyb._decode)}
+
+    def wrap(fn):
+        def step(params, tokens, cache):
+            logits, cache = fn(params, tokens, cache)
+            seen["logits"].append(logits.float().clone())
+            seen["cache_kv_heads"] = int(cache.k.shape[-2])
+            return logits, cache
+        return step
+
+    hyb._prefill, hyb._decode = (wrap(f) for f in seen["steps"])
+    return seen
+
+
+def _score_rollout(params, cfg, rollout, logits):
+    """The hybrid engine's rollout against one rank's model over
+    ``params``: one rank's prefill over the same tokens gives the logits
+    of every step the rollout took (prefill and decodes, ``logits``);
+    their rel, and whether each generated token is one rank's greedy
+    choice up to the two runs' difference at its position (a token ``c``
+    with ``one[argmax] - one[c] <= 2 * max |tp - one|``: what any greedy
+    pick over logits within that difference satisfies)."""
+    tp = torch.cat(logits, dim=1)
+    T = tp.shape[1] - len(logits) + 1
+    one = _prefill_logits(params, cfg, rollout[:, :tp.shape[1]], tp=1)
+    pos = slice(T - 1, tp.shape[1])
+    chosen = rollout[:, T:tp.shape[1] + 1].long()
+    err = (tp[:, pos] - one[:, pos]).abs().amax(-1)
+    short = one[:, pos].amax(-1) - one[:, pos].gather(
+        -1, chosen[..., None])[..., 0]
+    return {"logits_rel": _rel(tp, one),
+            "finite": bool(torch.isfinite(tp).all()),
+            "tokens_one_rank_greedy": int((one[:, pos].argmax(-1)
+                                           == chosen).sum()),
+            "tokens_scored": chosen.numel(),
+            "tokens_within_error": bool((short <= 2 * err + 1e-5).all())}
 
 
 def _digest(t: torch.Tensor):
@@ -7797,11 +7884,15 @@ def _digest(t: torch.Tensor):
 
 
 def _block(full, spec, r, ways):
-    """Block ``r`` of ``ways`` of a whole leaf along its ``model`` dim."""
+    """Block ``r`` of ``ways`` of a whole leaf along its ``model`` dim (a
+    fused spec's slice of each part, as the placement cuts it)."""
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.topology import fused_parts
+
     for d, entry in enumerate(spec):
         if entry == "model":
-            c = full.shape[d] // ways
-            return full.narrow(d, r * c, c)
+            runs = zero._split_runs(full.shape[d], ways, r, fused_parts(spec))
+            return torch.cat([full.narrow(d, a, c) for a, c in runs], d)
     return full
 
 
@@ -8176,7 +8267,9 @@ def phase_ep(fns, card_line, gen):
 # time: each step reduce-scatters the f32 grads through host-staged gloo);
 # its oracle is phase 48's stage-2 run
 MP_OFFLOAD_STEPS = 2
-MP_PSTREAM_STEPS = 2
+# phase 50: 1 step (2 before phases 53-59: the smoke's time; a step read
+# 17.7 s, 12.9 of them the backward's host-staged gloo reductions)
+MP_PSTREAM_STEPS = 1
 # phase 50: phase 38's model at its depth (OFFLOAD_LAYERS), the global
 # batch's 2 rows a row a rank; phase 51: phase 40's depth
 MP_ZI_NEW = 8
@@ -8289,8 +8382,9 @@ def _gather_rows_json(row):
 def phase_pstream_ranks(fns, card_line, refs, lm):
     """Phase 50: ``ParamStreamEngine`` over data 2 at Llama-3-8B widths x 2
     layers (phase 38's lazy model and depth, seed 0), the RAM tier, phase
-    38's global batch (2 rows x 2048, a row a rank), 2 steps.  Gate: the
-    losses against phase 38's one-rank steps under MP_PSTREAM_LOSS_REL.
+    38's global batch (2 rows x 2048, a row a rank), MP_PSTREAM_STEPS
+    steps.  Gate: the losses against phase 38's one-rank steps under
+    MP_PSTREAM_LOSS_REL.
     Records each rank's host RSS rise, ms/step beside the rank's host-Adam
     bound, and the row all-gathers' bytes (host-staged gloo)."""
     from deepspeed_tpu_torch import comm, initialize
@@ -8510,10 +8604,1032 @@ def phase_zi_tp(fns, card_line, gen, refs):
     return launches
 
 
+# ------------------------------------------------------------ phases 53-59
+# GPT-2's and BERT's tensor-parallel layouts (53-55), int8-resident KV
+# under TP (56) and injection, the hybrid engine and an elastic batch over
+# model 2 (57) in the two-rank child; sparse attention (58) and autotune
+# (59) in the main process
+_MP: dict = {}               # what one phase of the child hands a later one
+# phase 54: GPT-2 1.3B at ZERO_LAYERS over model 2, steps on phase 42's
+# batch; phase 55: BERT-large over model 2, steps on phase 26's batch
+MP_GPT2_TRAIN_STEPS, MP_BERT_TRAIN_STEPS = 2, 2
+# phase 56: phase 11's two waves cut to the smoke's time (8 prompts of a
+# 1024-token prefix, 128-token suffixes and 32 new tokens there)
+MP_KVQ_PREFIX, MP_KVQ_SUFFIX, MP_KVQ_N, MP_KVQ_NEW = 256, 64, 4, 8
+# phases 44 / 57: the hybrid engine's rollout rows, prompt length, tokens
+MP_HYBRID_ROWS, MP_HYBRID_T, MP_HYBRID_NEW = 4, 64, 8
+# phase 58: phase 8's model with block-sparse attention, blocks of 64
+SPARSE_LAYOUTS = {"fixed": {"mode": "fixed", "block": 64},
+                  "bigbird": {"mode": "bigbird", "block": 64}}
+# bounds, each from the first card reading of its quantity on an NVIDIA
+# H100 80GB HBM3 at 700 W with 2.5x-5x room; the tensor-parallel ones
+# compare two orders of bf16 summation, as MP_TP_LOGITS_REL does.  Read:
+# GPT-2 tp first logits 0.0201 (bf16) / 0.0176 (int8), losses 2.6e-5 /
+# 4.9e-5; BERT over phase 25's 64 requests pooled 0.0418 / 0.0454 (bf16 /
+# int8), MLM 0.0208 / 0.0221, hidden 0.0289 (bf16), losses 3.7e-5 /
+# 1.5e-5; the int8-resident engine's first chunk 0.0209.  Each BERT head
+# has its own bound
+MP_GPT2_LOGITS_REL = 6e-2
+MP_GPT2_TRAIN_LOSS_REL = 2e-4
+MP_BERT_REL = {"pooled": 1.2e-1, "mlm": 6e-2, "hidden": 1e-1}
+MP_BERT_TRAIN_LOSS_REL = 1.5e-4
+MP_KVQ_LOGITS_REL = 6e-2
+# layer 0 of a page both engines published reads the same input on both
+# (the rank's column block of wk / wv against the whole product's
+# columns): its codes and scales read bit for bit on both ranks, so the
+# gate is equality
+MP_KVQ_LAYER0_CODES = 0
+# phase 58: every layer's rel 2.9e-3-3.9e-3; the dense layout's loss
+# 4.7e-7 off the flash path's
+SPARSE_ORACLE_REL = 1.2e-2
+SPARSE_DENSE_LOSS_REL = 2e-6
+
+
+def _snap(fns):
+    """Every wrapper's launch count and per-body counts."""
+    return {n: (f.launches, dict(getattr(f, "body_launches", {})))
+            for n, f in fns.items()}
+
+
+def _add(fns, snap):
+    """Add a :func:`_snap` into the wrappers' counts."""
+    for n, f in fns.items():
+        f.launches += snap[n][0]
+        for b, c in snap[n][1].items():
+            f.body_launches[b] += c
+
+
+def _cast_tree(tree, dtype):
+    from deepspeed_tpu_torch._tree import tree_map
+
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    tree)
+
+
+def _prefill_logits(params, cfg, prompts, tp):
+    """The dense generator's prefill logits [B, T, V] f32 over ``params``
+    (a rank's blocks at ``tp`` > 1), its cache of ``n_kv_heads / tp``
+    heads."""
+    from deepspeed_tpu_torch.inference.generation import llama_step_alloc
+
+    step, alloc = llama_step_alloc(cfg, torch.bfloat16, device="cuda", tp=tp)
+    with torch.inference_mode():
+        logits, _ = step(params, prompts.to("cuda"),
+                         alloc(prompts.shape[0], prompts.shape[1]))
+    return logits.float()
+
+
+def _queue18(vocab, rng=None):
+    """Phase 18's traffic: 8 prompts of 64..768 tokens (seed 17; ``rng``
+    given, drawn from it)."""
+    rng = rng or np.random.default_rng(17)
+    lens = np.linspace(64, 768, 8).astype(int).tolist()
+    return {f"g{i}": rng.integers(1, vocab, n).tolist()
+            for i, n in enumerate(lens)}
+
+
+def _queue25(cfg):
+    """Phase 25's traffic: BERT_REQUESTS requests of 8..512 tokens."""
+    rng = np.random.default_rng(25)
+    lens = rng.integers(8, cfg.max_seq_len + 1, BERT_REQUESTS)
+    return {f"r{i}": rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for i, n in enumerate(lens)}
+
+
+def _built(fns):
+    return ({n: f.launches for n, f in fns.items()},
+            {n: dict(f.body_launches) for n, f in fns.items()
+             if hasattr(f, "body_launches")})
+
+
+def phase_gpt2_tp_serving(fns, card_line, gen):
+    """Phase 53: GPT-2 1.3B served over model 2 at all 24 layers (phase
+    18's seeded bf16 weights, queue and options; each rank holds its 8 of
+    16 heads of the fused QKV and of the cache), bf16 then int8 weights:
+    the first prefill's logits against the one-rank engine on the same
+    weights, ms per decode step and tokens/s beside it, each rank's
+    weight bytes; the f32 tiny GPT-2's tokens identical to one rank's; B1,
+    B5, B6 and B9 held at a rank's shapes."""
+    import gc
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.quantized import param_bytes
+    from deepspeed_tpu_torch.inference.serving import gpt2_serving_engine
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    ms = _mesh({"model": 2})
+    cfg = GPT2Config.gpt2_1_3b()
+    prompts = _queue18(cfg.vocab_size)
+    opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
+                cache_dtype=torch.bfloat16)
+    launches, res, engines, ref = {}, {}, {}, {}
+
+    def build():
+        params = _gpt2_params(cfg, 12)
+        if comm.get_rank() == 0:
+            for wd in ("bfloat16", "int8"):
+                e = gpt2_serving_engine(params, cfg, weight_dtype=wd, **opts)
+                first = _capture_first(e)
+                out, m = drive(e, prompts, MP_SERVE_NEW)
+                ref[wd] = (out, {k: v.cpu() for k, v in first.items()}, m)
+                del e
+                gc.collect()
+        for wd in ("bfloat16", "int8"):
+            _zero(fns.values())
+            t0 = time.perf_counter()
+            engines[wd] = gpt2_serving_engine(params, cfg, mesh=ms,
+                                              weight_dtype=wd, **opts)
+            torch.cuda.synchronize()
+            engines[wd].build_s = time.perf_counter() - t0
+            engines[wd].built = _built(fns)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _in_turn(build)
+    for wd in ("bfloat16", "int8"):
+        eng = engines.pop(wd)
+        path = f"gpt2-1.3b tp2 serving {wd}"
+        want = SERVING_KERNELS + (("quantize",) if wd == "int8" else ())
+        out, got, m = _serve_tp_engine(fns, path, launches, eng, prompts,
+                                       want, built=eng.built)
+        row = {"build_s": eng.build_s, "wall_s": m["wall_s"],
+               "tokens_per_s": m["tokens_per_s"],
+               "ttft_s_mean": m["ttft_s_mean"],
+               "decode_step_ms": m.get("ms_per_decode_step"),
+               "cache_heads_a_rank": int(eng.cache.k.shape[1]),
+               "weight_bytes_rank": param_bytes(eng.params),
+               "peak_mem_gb_rank": torch.cuda.max_memory_allocated() / 1e9}
+        if comm.get_rank() == 0:
+            r_out, r_first, r_m = ref[wd]
+            rel = _rel(got["_prefill"].float().cpu(),
+                       r_first["_prefill"].float())
+            row.update(first_logits_rel=rel,
+                       same_outputs=sum(out[k] == r_out[k] for k in prompts),
+                       one_rank_tokens_per_s=r_m["tokens_per_s"],
+                       one_rank_decode_step_ms=r_m.get("ms_per_decode_step"))
+            if not rel <= MP_GPT2_LOGITS_REL:
+                raise SystemExit(f"phase 53: {path} first logits {rel} past "
+                                 f"{MP_GPT2_LOGITS_REL} of the one-rank "
+                                 "engine's")
+        res[wd] = row
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    tiny = GPT2Config.tiny()
+    tp = _gpt2_params(tiny, 53, torch.float32)
+    kw = dict(max_batch=2, page_size=8, num_pages=64, max_seq=64,
+              prefill_bucket=8, cache_dtype=torch.float32)
+    res["tiny_f32_tokens_identical"] = _tiny_identity(
+        fns, launches, "gpt2", lambda: gpt2_serving_engine(
+            tp, tiny, mesh=ms, **kw),
+        lambda: gpt2_serving_engine(tp, tiny, **kw))
+    res["held"] = {"attention": _hold_attention(gen, 1, 1024, 8, 8,
+                                                bwd=False),
+                   "serving": _hold_serving(gen, 8, 8, cfg.vocab_size),
+                   "int8_leaf": _hold_leaf(torch.randn(
+                       (cfg.dim, 3 * cfg.dim // 2), generator=gen,
+                       device="cuda").to(torch.bfloat16), adam=False,
+                       quant=True)}
+    if comm.get_rank() == 0:
+        _phase_line("53 gpt2-1.3b tp2 serving", card_line, **res,
+                    tol=MP_GPT2_LOGITS_REL, launches=launches,
+                    mesh={"model": 2},
+                    collectives="host-staged gloo, two ranks on one card")
+    return launches
+
+
+def _head_exchanges(wte, rows):
+    """The tied head's two exchanges over ``model`` at a micro-step of
+    ``rows`` rows, each timed once (host clock, synced on both sides):
+    all-reducing the f32 partial logits [rows, V], or gathering the rank's
+    bf16 block of ``wte`` whole (what the head does)."""
+    from deepspeed_tpu_torch import comm
+
+    out = {}
+    for name, x, fn in (
+            ("logits_all_reduce", torch.zeros((rows, wte.shape[0]),
+                                              device="cuda"),
+             lambda x: comm.reduce_from(x, "model")),
+            ("wte_gather", wte.detach().to(torch.bfloat16),
+             lambda x: comm.gather_from(x, "model", -1))):
+        torch.cuda.synchronize()
+        comm.barrier()
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "bytes_a_rank": x.numel() * x.element_size()}
+        del x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gpt2_tp_train(fns, card_line, refs, gen):
+    """Phase 54: GPT-2 1.3B trained over model 2 at phase 42's config
+    (ZERO_LAYERS of 24 layers, ``save_attn``, seed 19, micro 8 x 1024, bf16
+    compute, fused Adam), MP_GPT2_TRAIN_STEPS steps: losses against phase
+    42's one-rank losses; the stage-0 checkpoint written from the two
+    ranks' blocks and read into one rank, whose whole leaves cut into
+    each rank's blocks (the fused QKV's slice of q, k and v) must equal
+    the ranks' state bit for bit; the steps' collectives, and the tied
+    head's two exchanges timed alone (the partial logits' all-reduce it
+    avoids, the ``wte`` gather it makes); B1-B3 at a rank's 8 heads of 128
+    held to their plain versions (``phase_rank_shapes`` times B2 / B3
+    beside SDPA's backward at this shape)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, loss_fn,
+                                                 param_specs)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+
+    _mesh({"model": 2})
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), remat="save_attn",
+                              n_layers=ZERO_LAYERS)
+    B, T = GPT2_TRAIN_B, GPT2_TRAIN_T
+    rng = np.random.default_rng(19)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(
+        np.int32)}
+    conf = dict(_train_config(B, 1, {"bf16": {"enabled": True}}),
+                mesh={"model": 2})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = _gpt2_params(cfg, 19, torch.float32)
+    eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                     optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+                     param_specs=param_specs(cfg),
+                     dist_init_required=False)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    launches, rows = {}, []
+    path = f"gpt2-1.3b-{ZERO_LAYERS}L tp2 training"
+    _zero(fns.values())
+    comm.comms_logger().reset()
+    for _ in range(MP_GPT2_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        rows.append({"loss": loss, "ms": (time.perf_counter() - ts) * 1e3,
+                     "peak_gb_rank": torch.cuda.max_memory_allocated() / 1e9})
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "fused_adam"))
+    comms = comm.comms_logger().summary()
+    head = _head_exchanges(eng.state.params["wte"], B * T)
+    want = refs["phase48_losses"][:MP_GPT2_TRAIN_STEPS]
+    rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, want)]
+    specs = eng.state_layout()[3]
+    mine = _state_digests(eng, specs, None)
+    digests = [None] * comm.get_world_size()
+    torch.distributed.all_gather_object(digests, mine)
+    adam_leaf = _hold_leaf(eng.state.params["wte"])
+    d = _bcast_str(_nvme_dir("gpt2_tp_ckpt") if comm.get_rank() == 0
+                   else None)
+    t0 = time.perf_counter()
+    eng.save_checkpoint(d, tag="tp2")
+    save_s = time.perf_counter() - t0
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = {"save_s": save_s}
+    if comm.get_rank() == 0:
+        one = initialize(loss_fn=loss_fn(cfg), params=_gpt2_params(
+            cfg, 1, torch.float32), config=_train_config(
+                B, 1, {"bf16": {"enabled": True}}),
+            optimizer=fused_adam(lr=_warmup(), weight_decay=0.1),
+            dist_init_required=False, mesh=_one_mesh())[0]
+        t1 = time.perf_counter()
+        one.load_checkpoint(d, tag="tp2")
+        ckpt["load_s"] = time.perf_counter() - t1
+        ckpt["bitwise"] = all(
+            _state_digests(one, specs, r) == digests[r]
+            for r in range(len(digests)))
+        del one
+        shutil.rmtree(d, ignore_errors=True)
+    comm.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"attention": _hold_attention(gen, B, T, 8, 8),
+            "adam_leaf": adam_leaf}
+    if comm.get_rank() == 0:
+        _phase_line(f"54 gpt2-1.3b-{ZERO_LAYERS}L tp2 training", card_line,
+                    steps=rows, phase42_losses=want, loss_rel=rel,
+                    bound=MP_GPT2_TRAIN_LOSS_REL, init_s=init_s, ckpt=ckpt,
+                    comms=comms, tied_head=head, held=held, launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+        if not max(rel) <= MP_GPT2_TRAIN_LOSS_REL or not ckpt["bitwise"]:
+            raise SystemExit(f"phase 54: losses {rel} (bound "
+                             f"{MP_GPT2_TRAIN_LOSS_REL}) or checkpoint "
+                             f"{ckpt} failed")
+    return launches
+
+
+def _pooled_witness(params, out, ref):
+    """One rank's pooler (f32, on the card) over the [CLS] rows of two
+    hidden-head results: the largest rel of a request's [CLS] row and of
+    the pooled vector computed from it, as the pooled head's rel reads."""
+    w = params["pooler"]["w"].float()
+    b = params["pooler"]["b"].float()
+    got, want = (torch.stack([torch.as_tensor(np.asarray(o[r][0],
+                                                         np.float32))
+                              for r in sorted(ref)]).cuda()
+                 for o in (out, ref))
+
+    def rel(a, z):
+        return float(((a - z).abs().amax(-1) / z.abs().amax(-1)).max())
+
+    return {"cls_rows_rel": rel(got, want),
+            "pooled_from_cls_rows_rel": rel(torch.tanh(got @ w + b),
+                                            torch.tanh(want @ w + b))}
+
+
+def phase_bert_tp(fns, card_line, refs, gen):
+    """Phase 55: BERT-large over model 2 at all 24 layers (8 of 16 heads a
+    rank): phase 25's queue through the pooled and MLM heads, bf16 then
+    int8 weights (quantized, then cut), each against the one-rank engine on
+    the same weights, sequences/s beside it; then MP_BERT_TRAIN_STEPS
+    steps on phase 26's batch and config against phase 26's one-rank
+    losses.  The hidden head (bf16) is the pooled gap's second witness:
+    one rank's pooler over each engine's [CLS] rows.  B1 at a rank's
+    serving shape and B2 / B3 at its training shape
+    (8 heads of 64, bidirectional with pad ids) held to their plain
+    versions, beside SDPA's."""
+    import gc
+
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.inference.encoder_serving import (
+        bert_serving_engine)
+    from deepspeed_tpu_torch.models.bert import (BertConfig, loss_fn,
+                                                 param_specs)
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    ms = _mesh({"model": 2})
+    cfg = BertConfig.large()
+    reqs = _queue25(cfg)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(25),
+                         device="cuda")
+    launches, res = {}, {}
+    for head, wd in (("pooled", "bfloat16"), ("pooled", "int8"),
+                     ("mlm", "bfloat16"), ("mlm", "int8"),
+                     ("hidden", "bfloat16")):
+        path = f"bert-large tp2 {head} {wd}"
+        ref = None
+        if comm.get_rank() == 0:
+            e = bert_serving_engine(params, cfg, head=head,
+                                    weight_dtype=wd, max_batch=BERT_B)
+            ref, ref_s, _, _ = _drive_encoder(e, reqs)
+            del e
+        comm.barrier()
+        _zero(fns.values())
+        eng = bert_serving_engine(params, cfg, head=head, mesh=ms,
+                                  weight_dtype=wd, max_batch=BERT_B)
+        built = _snap(fns)
+        _zero(fns.values())
+        out, secs, _, _ = _drive_encoder(eng, reqs)
+        _add(fns, built)
+        _mp_path(fns, path, launches, ("flash_fwd",) + (
+            ("quantize",) if wd == "int8" else ()))
+        row = {"sequences_per_s": len(reqs) / secs,
+               "lots": eng.stats["lots"], "tol": MP_BERT_REL[head]}
+        if comm.get_rank() == 0:
+            row["one_rank_sequences_per_s"] = len(reqs) / ref_s
+            row["rel"] = max(_rel_np(out[r], ref[r]) for r in reqs)
+            if head == "hidden":
+                row.update(_pooled_witness(params, out, ref))
+            if not row["rel"] <= MP_BERT_REL[head]:
+                raise SystemExit(f"phase 55: {path} {row['rel']} past "
+                                 f"{MP_BERT_REL[head]} of one rank's")
+        res[f"{head}_{wd}"] = row
+        del eng, out, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    M, A = BERT_TRAIN_MICRO, BERT_TRAIN_ACCUM
+    B, T = M * A, min(BERT_TRAIN_T, cfg.max_seq_len)
+    batch, lens = _bert_batch(np.random.default_rng(26), B, T,
+                              cfg.vocab_size)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(26),
+                         device="cuda", dtype=torch.float32)
+    eng = initialize(loss_fn=loss_fn(cfg), params=params, config=dict(
+        _train_config(B, A, {"bf16": {"enabled": True}}), mesh={"model": 2}),
+        optimizer=fused_adam(lr=_warmup(), weight_decay=0.01),
+        param_specs=param_specs(cfg), dist_init_required=False)[0]
+    del params
+    _zero(fns.values())
+    rows = []
+    for _ in range(MP_BERT_TRAIN_STEPS):
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        rows.append({"loss": loss, "ms": (time.perf_counter() - ts) * 1e3})
+    path = "bert-large tp2 training"
+    _mp_path(fns, path, launches, ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "fused_adam"))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = refs["phase26_losses"][:MP_BERT_TRAIN_STEPS]
+    rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, want)]
+    H, D = cfg.n_heads // 2, cfg.head_dim
+    slens = [int(n) for n in np.random.default_rng(55).integers(
+        T // 4, T + 1, BERT_B - 1)] + [0]
+    seg = _pad_seg(slens, T)
+    q, k, v, do = (torch.randn((BERT_B, T, H, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    held = {"attention": _hold_attention(gen, BERT_B, T, H, H, D=D,
+                                         bwd=False, causal=False, seg=seg),
+            "backward": _bert_flash_bwd(gen, q, k, v, do, seg, slens,
+                                        "phase 55")}
+    del q, k, v, do
+    ok = all(c["rel_err"] <= FLASH_BWD_REL_TOL or c["over_gate_faithful"]
+             for c in held["backward"].values())
+    if comm.get_rank() == 0:
+        _phase_line("55 bert-large tp2", card_line, serving=res,
+                    train=rows, phase26_losses=want,
+                    loss_rel=rel, bound=MP_BERT_TRAIN_LOSS_REL, held=held,
+                    launches=launches, mesh={"model": 2},
+                    collectives="host-staged gloo, two ranks on one card")
+    if not ok or not max(rel) <= MP_BERT_TRAIN_LOSS_REL:
+        raise SystemExit(f"phase 55: losses {rel} (bound "
+                         f"{MP_BERT_TRAIN_LOSS_REL}) or B2 / B3 failed")
+    return launches
+
+
+def _kvq_opts():
+    return dict(max_batch=MP_KVQ_N, page_size=16, max_seq=512,
+                num_pages=257, cache_dtype=torch.bfloat16, prefill_chunk=256,
+                prefix_cache={}, kv_tier=dict(TIER_KV))
+
+
+def _kvq_waves(vocab):
+    return _tier_waves(np.random.default_rng(56), vocab, MP_KVQ_PREFIX,
+                       MP_KVQ_SUFFIX, MP_KVQ_N)
+
+
+def _kvq_drive(eng, waves):
+    """Wave A, an idle step (the watermark demotes its warm pages), wave B;
+    the first chunk forward's last-position logits -> (tokens, logits,
+    metrics of wave B)."""
+    got = {}
+    fn = eng._chunk_prefill
+
+    def wrapped(*a):
+        logits, cache = fn(*a)
+        if "first" not in got:
+            got["first"] = logits[:, -1].float().clone()
+        return logits, cache
+
+    eng._chunk_prefill = wrapped
+    out, _ = drive(eng, waves[0], MP_KVQ_NEW)
+    eng.step()
+    out_b, m = drive(eng, waves[1], MP_KVQ_NEW)
+    out.update(out_b)
+    eng._chunk_prefill = fn
+    return out, got["first"], m
+
+
+def _kvq_one_rank(params, cfg):
+    """Phase 56's one-rank int8-resident engine on ``params``: its tokens,
+    first logits and cache planes, on the host (written to a file the
+    other rank reads)."""
+    import gc
+
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+
+    eng = llama_serving_engine(params, cfg, **_kvq_opts())
+    out, first, m = _kvq_drive(eng, _kvq_waves(cfg.vocab_size))
+    c = eng.cache
+    ref = {"out": out, "first": first.cpu(), "tokens_per_s":
+           m["tokens_per_s"], "planes": {n: getattr(c, n).cpu() for n in (
+               "k", "v", "k_scale", "v_scale")},
+           "index": {key.hex(): int(p) for key, p in
+                     eng.allocator.index.items()}}
+    del eng, c
+    gc.collect()
+    path = os.path.join(_nvme_dir("kvq_ref"), "ref.pt")
+    torch.save(ref, path)
+    return path
+
+
+def phase_tp_kvq(fns, card_line, gen):
+    """Phase 56: phase 43's Llama-3-8B weights (drawn once there) served
+    over model 2 with int8-resident pages (``kv_tier.quantized_resident``:
+    each rank's 4 of 8 KV heads as int8 codes and f32 scales, written by
+    B9's fused K/V write and read by B7) on phase 11's two waves cut to
+    the smoke's time, beside the one-rank int8-resident engine: each
+    rank's pages against the unsharded cache's slice of its heads, the
+    first chunk's logits, tokens; the f32 tiny model's tokens identical to
+    one rank's over both waves; B7 and the fused write held at 4 KV heads
+    a rank."""
+    import gc
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.kernels import (
+        quantize_kv_rows, write_kv_quant, write_kv_quant_reference)
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_attention_quant_reference, paged_decode_attention_quant)
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+    ms = _mesh({"model": 2})
+    cfg = LlamaConfig.llama3_8b()
+    eng = _MP.pop("kvq")
+    r, path = comm.get_rank(), "llama3_8b tp2 int8-resident kv"
+    launches = {}
+    _zero(fns.values())
+    out, first, m = _kvq_drive(eng, _kvq_waves(cfg.vocab_size))
+    mine = {n: f.launches for n, f in fns.items()}
+    _mp_path(fns, path, launches, ("paged_attention_quant", "quantize",
+                                   "greedy_argmax"))
+    ref = torch.load(_bcast_str(_MP.pop("kvq_ref", None)), weights_only=True)
+    kv = eng.cache.k.shape[1]
+    # the published pages both engines hold: the same tokens at the same
+    # positions (content keys), so layer 0 reads the same input on both;
+    # the later layers read a residual whose row-parallel sums were
+    # reduced over ranks (two orders of bf16 summation)
+    mine_index = {key.hex(): p for key, p in eng.allocator.index.items()}
+    shared = sorted(set(mine_index) & set(ref["index"]))
+    pm = torch.tensor([mine_index[k] for k in shared], dtype=torch.long)
+    pr = torch.tensor([ref["index"][k] for k in shared], dtype=torch.long)
+    pages = {"compared": len(shared)}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        got = getattr(eng.cache, name).cpu()[:, :, pm]
+        want = ref["planes"][name][:, r * kv:(r + 1) * kv][:, :, pr]
+        if name in ("k", "v"):
+            diff = (got.int() - want.int()).abs()
+            pages[name] = {"layer0_equal": bool(diff[0].eq(0).all()),
+                           "layer0_max_code_diff": int(diff[0].max()),
+                           "layer0_share_equal":
+                               float(diff[0].eq(0).float().mean()),
+                           "max_code_diff": int(diff.max()),
+                           "share_equal": float(diff.eq(0).float().mean())}
+        else:
+            pages[name] = {"layer0_equal": bool(got[0].eq(want[0]).all()),
+                           "layer0_rel": _rel(got[0], want[0]),
+                           "rel": _rel(got, want)}
+    al = eng.allocator
+    row = {"pages": pages, "cache_kv_heads_a_rank": int(kv),
+           "first_logits_rel": _rel(first.cpu(), ref["first"]),
+           "same_outputs": sum(out[k] == ref["out"][k] for k in ref["out"]),
+           "tokens_per_s_wave_b": m["tokens_per_s"],
+           "one_rank_tokens_per_s_wave_b": ref["tokens_per_s"],
+           "demoted": al.demoted, "promoted": al.promoted,
+           "quant_resident_promotes": eng.kv_tier_quant_resident_promotes,
+           "b9_equals_b7": mine["quantize"] == mine["paged_attention_quant"],
+           "leaks": eng.check_leaks()}
+    del eng, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = LlamaConfig.tiny(dim=64)
+    tp = _gpt2_params(tiny, 56, torch.float32)
+    waves = _tier_waves(np.random.default_rng(3), tiny.vocab_size, 40, 9, 3)
+    kw = dict(max_batch=3, page_size=8, num_pages=64, max_seq=96,
+              prefill_bucket=8, cache_dtype=torch.float32, prefix_cache={},
+              kv_tier=dict(TIER_KV), prefill_chunk=8)
+    outs = []
+    for sharded in (False, True):
+        e = llama_serving_engine(tp, tiny, mesh=ms if sharded else None,
+                                 **kw)
+        _zero(fns.values())
+        o = {}
+        for wave in waves:
+            for rid, p in wave.items():
+                e.submit(rid, p, max_new_tokens=10)
+            o.update(e.run())
+        outs.append(o)
+        if sharded:
+            _mp_path(fns, "llama tiny f32 tp2 int8-resident kv", launches,
+                     ("paged_attention_quant", "quantize", "greedy_argmax"),
+                     hopper=False)
+            row["tiny_quant_resident_promotes"] = \
+                e.kv_tier_quant_resident_promotes
+        del e
+    row["tiny_f32_tokens_identical"] = outs[0] == outs[1]
+    # the fused write and B7 at a rank's 4 KV heads (16 query heads)
+    planes, new, table, st = kv_write_inputs(
+        gen, 1, KV_WRITE_CASES["decode"][1], KV=4)
+    want = [p.clone() for p in planes]
+    write_kv_quant(*planes, *new, table, st, 16)
+    write_kv_quant_reference(*want, *new, table, st, 16)
+    w_err = max(_quant_err((planes[i], planes[i + 1]),
+                           (want[i], want[i + 1])) for i in (0, 2))
+    held_ms = {"quantize_write_kv": device_ms(functools.partial(
+        write_kv_quant, *planes, *new, table, st, 16), iters=5)}
+    del planes, want, new
+    # B7 over phase 9's decode rows, its pages quantised as the tier does
+    lens = np.linspace(128, 1024, 8).astype(int).tolist()
+    kp, vp, table = _paged_inputs(gen, lens, 1, H=16, KV=4)
+    pq = (*quantize_kv_rows(kp), *quantize_kv_rows(vp))
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((len(lens), 16, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    held = dict([_hold("paged_attention_quant", paged_decode_attention_quant(
+        q, *pq, table, seq), paged_attention_quant_reference(
+        q, *pq, table, seq), PAGED_QUANT_DECODE_TOL)])
+    held["quantize_write_kv"] = w_err
+    held_ms["paged_attention_quant"] = device_ms(
+        lambda: paged_decode_attention_quant(q, *pq, table, seq), iters=5)
+    del kp, vp, pq
+    every = _gather_rows_json(row)
+    ok = all(x["first_logits_rel"] <= MP_KVQ_LOGITS_REL
+             and x["pages"]["compared"] > 0
+             and x["pages"]["k"]["layer0_max_code_diff"] <= MP_KVQ_LAYER0_CODES
+             and x["pages"]["v"]["layer0_max_code_diff"] <= MP_KVQ_LAYER0_CODES
+             and x["pages"]["k_scale"]["layer0_equal"]
+             and x["pages"]["v_scale"]["layer0_equal"]
+             and x["tiny_f32_tokens_identical"] and x["b9_equals_b7"]
+             and x["quant_resident_promotes"] > 0 and x["leaks"] == []
+             for x in every) and w_err == 0
+    if r == 0:
+        _phase_line("56 llama3_8b tp2 int8-resident kv", card_line,
+                    ranks=every, tol=MP_KVQ_LOGITS_REL,
+                    held={"max_abs_err": held, "ms": held_ms,
+                          "kv_heads": 4, "q_heads": 16},
+                    launches=launches, mesh={"model": 2},
+                    collectives="host-staged gloo, two ranks on one card")
+    if not ok:
+        raise SystemExit("phase 56: the int8-resident engine over model 2 "
+                         "failed a gate")
+    return launches
+
+
+def _mixtral_hf(cfg, gen):
+    """A seeded HF-layout Mixtral state dict (host tensors) and config."""
+    d, f, E, L = cfg.dim, cfg.ffn_dim, cfg.num_experts, cfg.n_layers
+    kvd = cfg.n_kv_heads * cfg.head_dim
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen) * 0.05
+
+    sd = {"model.embed_tokens.weight": w(cfg.vocab_size, d),
+          "model.norm.weight": torch.ones(d),
+          "lm_head.weight": w(cfg.vocab_size, d)}
+    for i in range(L):
+        pre = f"model.layers.{i}."
+        sd.update({pre + "input_layernorm.weight": torch.ones(d),
+                   pre + "post_attention_layernorm.weight": torch.ones(d),
+                   pre + "self_attn.q_proj.weight": w(d, d),
+                   pre + "self_attn.k_proj.weight": w(kvd, d),
+                   pre + "self_attn.v_proj.weight": w(kvd, d),
+                   pre + "self_attn.o_proj.weight": w(d, d),
+                   pre + "block_sparse_moe.gate.weight": w(E, d)})
+        for e in range(E):
+            moe = pre + f"block_sparse_moe.experts.{e}."
+            sd.update({moe + "w1.weight": w(f, d), moe + "w3.weight": w(f, d),
+                       moe + "w2.weight": w(d, f)})
+    hf = {"architectures": ["MixtralForCausalLM"],
+          "vocab_size": cfg.vocab_size, "hidden_size": d,
+          "num_hidden_layers": L, "num_attention_heads": cfg.n_heads,
+          "num_key_value_heads": cfg.n_kv_heads, "intermediate_size": f,
+          "num_local_experts": E, "num_experts_per_tok": cfg.top_k,
+          "max_position_embeddings": cfg.max_seq_len,
+          "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps}
+    return sd, hf
+
+
+def phase_inject_hybrid_elastic(fns, card_line):
+    """Phase 57: over model 2, an injected tiny Llama (``save_pretrained``
+    -> ``from_pretrained``) and tiny Mixtral (``inject`` of an HF state
+    dict, also over expert 2) served by ``init_inference(mesh=,
+    param_specs=specs)``, greedy tokens identical to one rank's; phase
+    44's hybrid rollouts (``inference_tp_size`` 2 over its Llama-3-8B
+    widths x 4 layers training state): the logits of every step of its
+    first rollout, taken inside ``generate``, against one rank's over the
+    same tokens within phase 43's bound, each generated token one rank's
+    greedy choice up to that difference, and its cache at n_kv_heads / 2
+    heads a rank; an engine whose batch an
+    ``elasticity`` block resolves at world 2 takes one step."""
+    import shutil
+
+    from deepspeed_tpu_torch import (comm, from_pretrained, initialize,
+                                     inject, save_pretrained, topology)
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, loss_fn
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+
+    r = comm.get_rank()
+    launches, res = {}, {}
+    tiny = LlamaConfig.tiny(dim=64)
+    params = _gpt2_params(tiny, 57, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(57).integers(
+        0, tiny.vocab_size, (2, 24)).astype(np.int64)).cuda()
+    d = _nvme_dir(f"inject{r}")
+    save_pretrained(params, tiny, d)
+    fn, p, _, specs = from_pretrained(d, dtype=torch.float32)
+    shutil.rmtree(d, ignore_errors=True)
+    sd, hf = _mixtral_hf(MixtralConfig.tiny(dim=64),
+                         torch.Generator().manual_seed(57))
+    mfn, mp, _, mspecs = inject("MixtralForCausalLM", hf, sd,
+                                dtype=torch.float32)
+    for name, f_, p_, sp, axis in (
+            ("llama", fn, p, specs, "model"),
+            ("mixtral", mfn, mp, mspecs, "model"),
+            ("mixtral", mfn, mp, mspecs, "expert")):
+        topology.set_current_mesh(None)
+        one = init_inference(apply_fn=f_, params=p_, dtype="float32")(toks)
+        ms = _mesh({axis: 2})
+        _zero(fns.values())
+        got = init_inference(apply_fn=f_, params=p_, mesh=ms,
+                             param_specs=sp, dtype="float32")(toks)
+        _mp_path(fns, f"injected {name} tiny f32 {axis}2", launches,
+                 ("flash_fwd",), hopper=False)
+        res[f"{name}_{axis}"] = {
+            "tokens_identical": bool((got.argmax(-1)
+                                      == one.argmax(-1)).all()),
+            "logits_rel": _rel(got, one)}
+    del p, mp, sd
+    hybrid = res["hybrid"] = dict(_MP.pop("hybrid"), tol=MP_TP_LOGITS_REL)
+    conf = {"bf16": {"enabled": False},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "elasticity": {"enabled": True, "max_train_batch_size": 8,
+                           "micro_batch_sizes": [1, 2], "min_gpus": 1,
+                           "max_gpus": 4}}
+    _zero(fns.values())
+    eng = initialize(loss_fn=loss_fn(tiny), params=params, config=conf,
+                     dist_init_required=False)[0]
+    c = eng.config
+    rows = torch.from_numpy(np.random.default_rng(58).integers(
+        0, tiny.vocab_size, (c.train_batch_size, 33)).astype(np.int64))
+    loss = float(eng.train_batch({"tokens": rows}))
+    _mp_path(fns, "elastic llama tiny f32 dp2", launches,
+             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), hopper=False)
+    res["elastic"] = {"train_batch_size": c.train_batch_size,
+                      "micro": c.train_micro_batch_size_per_gpu,
+                      "accumulation": c.gradient_accumulation_steps,
+                      "world": comm.get_world_size(), "loss": loss}
+    del eng
+    ok = (all(v["tokens_identical"] for k, v in res.items()
+              if k.startswith(("llama", "mixtral")))
+          and np.isfinite(loss) and c.train_micro_batch_size_per_gpu
+          * c.gradient_accumulation_steps * 2 == c.train_batch_size
+          and hybrid["cache_kv_heads_a_rank"] == hybrid["cache_kv_heads_want"])
+    if r == 0:
+        _phase_line("57 injection, hybrid and elasticity over 2 ranks",
+                    card_line, **res, launches=launches,
+                    collectives="host-staged gloo, two ranks on one card")
+        ok = (ok and hybrid["finite"] and hybrid["tokens_within_error"]
+              and hybrid["logits_rel"] <= MP_TP_LOGITS_REL)
+    if not ok:
+        raise SystemExit(f"phase 57 failed: {res}")
+    return launches
+
+
+def _dense_masked_attention(q, k, v, layout, block):
+    """The oracle of phase 58, independent of the gather: dense f32 causal
+    attention of q [1, T, H, D] over k / v [1, T, KV, D] under the block
+    layout expanded to a token mask -> [1, T, H, D] f32."""
+    H = q.shape[2]
+    rep = H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, 2).transpose(1, 2)
+    lay = torch.from_numpy(layout).to(q.device)
+    allow = lay.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    allow = allow & torch.ones(allow.shape[-2:], dtype=torch.bool,
+                               device=q.device).tril()
+    out = torch.empty_like(qf)
+    for h in range(H):                  # a head at a time: [T, T] f32
+        s = qf[0, h] @ kf[0, h].T / math.sqrt(q.shape[-1])
+        s = s.masked_fill(~allow[h], float("-inf"))
+        out[0, h] = torch.softmax(s, -1) @ vf[0, h]
+    return out.transpose(1, 2)
+
+
+def phase_sparse(fns, card_line, phase8):
+    """Phase 58: block-sparse attention at Llama-3-8B widths, phase 8's
+    config (4 layers, seed 0, micro 1 x accumulation 2, bf16 compute, fused
+    Adam) with ``attn_impl="sparse"`` on rows of T = 2048 (phase 8's 2047
+    is no multiple of a block; the layouts need one).  Gates: every
+    layer's sparse output in one forward against dense f32 attention under
+    the layout expanded to a token mask (the "fixed" layout, blocks of
+    64); the "dense" layout's first loss against the flash path's (phase
+    8's engine) on the same rows; "fixed" and "bigbird" each two steps of
+    finite, falling losses.  Records ms a step and peak memory beside the
+    flash path's and phase 8's, and each layout's density.  The sparse
+    path attends in plain PyTorch (no kernel of the reference's runs there
+    either); B4 updates the weights."""
+    import dataclasses
+    import gc
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.weights import init_params
+
+    base = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=4)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, base.vocab_size, (2, 2049)).astype(
+        np.int32)}
+    launches, res = {}, {}
+
+    def engine(sparse):
+        cfg = base if sparse is None else dataclasses.replace(
+            base, attn_impl="sparse", sparse_config=sparse)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             device="cuda", dtype=torch.float32)
+        eng = initialize(loss_fn=llama.loss_fn(cfg), params=params,
+                         config=_train_config(2, 2, {"bf16": {
+                             "enabled": True}}),
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        del params
+        return cfg, eng
+
+    def steps_of(eng, n):
+        rows = []
+        for _ in range(n):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            loss = float(eng.train_batch(batch))
+            rows.append({"loss": loss,
+                         "ms": (time.perf_counter() - ts) * 1e3,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9})
+        return rows
+
+    # the flash path on these rows, then the dense layout (causal
+    # attention over every block) against it
+    cfg, eng = engine(None)
+    res["flash"] = steps_of(eng, 2)
+    del eng
+    cfg, eng = engine({"mode": "dense", "block": 64})
+    dense_loss = steps_of(eng, 1)[0]["loss"]
+    del eng
+    flash_loss = res["flash"][0]["loss"]
+    res["dense_layout"] = {"loss": dense_loss, "flash_loss": flash_loss,
+                           "rel": abs(dense_loss - flash_loss)
+                           / abs(flash_loss), "tol": SPARSE_DENSE_LOSS_REL}
+    for name, sparse in SPARSE_LAYOUTS.items():
+        cfg, eng = engine(sparse)
+        sa = llama._sparse_self_attention(cfg)
+        row = {"density": sa.density(2048), "config": sparse}
+        if name == "fixed":
+            caught, orig = [], llama._sparse
+
+            def spy(q, k, v, c, segment_ids=None):
+                out = orig(q, k, v, c, segment_ids)
+                caught.append((q, k, v, out))
+                return out
+
+            llama._sparse = spy
+            try:
+                with torch.no_grad():
+                    llama.forward_hidden(
+                        _cast_tree(eng.state.params, torch.bfloat16),
+                        torch.from_numpy(batch["tokens"][:1, :-1]).cuda(), cfg)
+            finally:
+                llama._sparse = orig
+            layout = sa.layout(2048)
+            row["layer_rel"] = []
+            for q, k, v, out in caught:
+                want = _dense_masked_attention(q, k, v, layout,
+                                               sa.config.block)
+                row["layer_rel"].append(_rel(out, want))
+                del want
+            del caught
+        _zero(fns.values())
+        steps = steps_of(eng, 2)
+        path = f"llama3_8b-4L sparse {name} training"
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        _check_launches(path, launches[path], ("fused_adam",))
+        row["steps"] = steps
+        res[name] = row
+        del eng
+    res["phase8_flash_T2047"] = [{k: r[k] for k in ("loss", "ms",
+                                                    "peak_mem_gb")}
+                                 for r in phase8[:2]]
+    _phase_line("58 llama3_8b-4L sparse attention", card_line, **res,
+                oracle_tol=SPARSE_ORACLE_REL, launches=launches)
+    bad = [n for n in SPARSE_LAYOUTS
+           if not (all(np.isfinite([s["loss"] for s in res[n]["steps"]]))
+                   and res[n]["steps"][1]["loss"]
+                   < res[n]["steps"][0]["loss"])]
+    if bad or max(res["fixed"]["layer_rel"]) > SPARSE_ORACLE_REL \
+            or res["dense_layout"]["rel"] > SPARSE_DENSE_LOSS_REL:
+        raise SystemExit(f"phase 58 failed: {res}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_autotune(fns, card_line):
+    """Phase 59: ``autotune_config`` over GPT-2 1.3B at 4 of 24 layers (the
+    smoke's time; micro rows of 1024 tokens, train batch 4, bf16 compute)
+    on one card: micro 1 / 2 x remat none / full, and an unknown remat
+    policy (``loss_for`` hands each candidate's policy to the model), 2
+    timed steps each.  Gates: the winner is the fastest measured
+    candidate, the unknown policy's candidates are listed as failed, and a
+    second call reads the cache and launches no kernel."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.autotune import autotune_config
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, loss_fn
+
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(), n_layers=4)
+    params = _gpt2_params(cfg, 59, torch.float32)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(59).integers(
+        0, cfg.vocab_size, (4, 1025)).astype(np.int64)).cuda()}
+    base = {"train_batch_size": 4, "bf16": {"enabled": True},
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-4}}}
+    space = {"train_micro_batch_size_per_gpu": [1, 2],
+             "activation_checkpointing.policy": ["none", "full",
+                                                 "no_such_policy"]}
+    cache = os.path.join(_nvme_dir("autotune"), "cache.json")
+    launches = {}
+    def loss_for(policy):
+        return loss_fn(dataclasses.replace(cfg, remat=policy))
+
+    _zero(fns.values())
+    t0 = time.perf_counter()
+    verdict = autotune_config(base, loss_fn(cfg), params, batch, space=space,
+                              cache_path=cache, iters=2, loss_for=loss_for)
+    sweep_s = time.perf_counter() - t0
+    path = "gpt2-1.3b-4L autotune sweep"
+    launches[path] = {n: f.launches for n, f in fns.items()}
+    _check_bodies(path)
+    _check_launches(path, launches[path],
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    _zero(fns.values())
+    t0 = time.perf_counter()
+    again = autotune_config(base, loss_fn(cfg), params, batch, space=space,
+                            cache_path=cache, iters=2, loss_for=loss_for)
+    cached_s = time.perf_counter() - t0
+    relaunched = sum(f.launches for f in fns.values())
+    timed = [r for r in verdict["results"] if "step_time_s" in r]
+    failed = [r for r in verdict["results"] if "error" in r]
+    row = {"candidates": [{"overrides": r["overrides"],
+                           "ms": r.get("step_time_s", 0) * 1e3 or None,
+                           "error": r.get("error")}
+                          for r in verdict["results"]],
+           "winner": verdict["overrides"],
+           "winner_ms": verdict["step_time_s"] * 1e3, "sweep_s": sweep_s,
+           "cached_call_s": cached_s, "cached_call_launches": relaunched}
+    _phase_line("59 gpt2-1.3b-4L autotune", card_line, **row,
+                launches=launches)
+    ok = (len(timed) == 4 and len(failed) == 2
+          and all("no_such_policy" in r["error"] for r in failed)
+          and verdict["step_time_s"] == min(r["step_time_s"] for r in timed)
+          and again["overrides"] == verdict["overrides"] and relaunched == 0)
+    del params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"phase 59 failed: {row}")
+    return launches
+
+
+def phase_rank_shapes(card_line, gen):
+    """Phases 54-55's B2 / B3 at a tensor-parallel rank's shapes, timed in
+    this one process beside SDPA's backward on the same inputs (the two
+    ranks of the child share the card, so their times overlap): GPT-2
+    1.3B's 8 heads of 128 at phase 42's micro 8 x 1024, causal; BERT-large's
+    8 heads of 64 at phase 26's micro 8 x 512, bidirectional with pad
+    ids."""
+    q, k, v, do = (torch.randn((GPT2_TRAIN_B, GPT2_TRAIN_T, 8, 128),
+                               generator=gen, device="cuda").to(
+                                   torch.bfloat16) for _ in range(4))
+    gpt2 = _bert_flash_bwd(gen, q, k, v, do, None, None, "phase 54 shapes",
+                           causal=True)
+    T = min(BERT_TRAIN_T, 512)
+    lens = [int(n) for n in np.random.default_rng(55).integers(
+        T // 4, T + 1, BERT_B - 1)] + [0]
+    seg = _pad_seg(lens, T)
+    q, k, v, do = (torch.randn((BERT_B, T, 8, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    bert = _bert_flash_bwd(gen, q, k, v, do, seg, lens, "phase 55 shapes")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    row = {"gpt2_rank": gpt2, "bert_rank": bert}
+    for name, cases in (("gpt2", gpt2), ("bert", bert)):
+        ms = [cases[n]["device_ms"] for n in cases]
+        lib = cases["flash_bwd_dq"]["library_device_ms"]
+        row[f"{name}_b2_b3_over_sdpa_bwd"] = (
+            sum(ms) / lib if all(ms) and lib else None)
+    _phase_line("54-55 B2 / B3 at a rank's shapes beside SDPA", card_line,
+                **row)
+    ok = all(c["rel_err"] <= FLASH_BWD_REL_TOL or c["over_gate_faithful"]
+             for cases in (gpt2, bert) for c in cases.values())
+    if not ok:
+        raise SystemExit("phases 54-55: B2 / B3 disagree at a rank's "
+                         "shape")
+    return row
+
+
 def mp_child(out_path: str, refs: dict) -> int:
-    """Phases 43-47 and 49-52 in one of two ranks the port's launcher started on the
-    one card: join the gloo group, run each phase (a failing rank fails
-    the launcher and so the smoke); rank 0 writes both ranks' launches."""
+    """Phases 43-47, 49-57 in one of two ranks the port's launcher started
+    on the one card: join the gloo group, run each phase (a failing rank
+    fails the launcher and so the smoke); rank 0 writes both ranks'
+    launches."""
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.ops import _build
 
@@ -8547,8 +9663,11 @@ def mp_child(out_path: str, refs: dict) -> int:
     for name, fn in (
             ("phase_tp_serving", lambda: phase_tp_serving(fns, card_line,
                                                           gen)),
+            ("phase_tp_kvq", lambda: phase_tp_kvq(fns, card_line, gen)),
             ("phase_tp_train", lambda: phase_tp_train(
                 fns, card_line, refs["phase8_losses"], gen)),
+            ("phase_inject_hybrid_elastic",
+             lambda: phase_inject_hybrid_elastic(fns, card_line)),
             ("phase_seq", lambda: phase_seq(fns, card_line, gen)),
             ("phase_pipe", lambda: phase_pipe(fns, card_line, gen)),
             ("phase_ep", lambda: phase_ep(fns, card_line, gen)),
@@ -8559,7 +9678,13 @@ def mp_child(out_path: str, refs: dict) -> int:
             ("phase_infinity_ranks", lambda: phase_infinity_ranks(
                 fns, card_line, refs, lazy_model())),
             ("phase_zi_tp", lambda: phase_zi_tp(fns, card_line, gen,
-                                                refs))):
+                                                refs)),
+            ("phase_gpt2_tp_serving", lambda: phase_gpt2_tp_serving(
+                fns, card_line, gen)),
+            ("phase_gpt2_tp_train", lambda: phase_gpt2_tp_train(
+                fns, card_line, refs, gen)),
+            ("phase_bert_tp", lambda: phase_bert_tp(fns, card_line, refs,
+                                                    gen))):
         if refs.get("only") and name not in refs["only"]:
             continue
         t0 = time.perf_counter()
@@ -8581,7 +9706,7 @@ def mp_child(out_path: str, refs: dict) -> int:
 
 
 def phase_mp_launcher(card_line, refs):
-    """Phases 43-47 and 49-52 through ``python -m deepspeed_tpu_torch.launcher
+    """Phases 43-47, 49-57 through ``python -m deepspeed_tpu_torch.launcher
     --local_hosts 2``: two ranks on the one card over gloo; a failing rank
     fails the smoke; both ranks' launches come back."""
     out = os.path.join(_nvme_dir("mp_child"), "result.json")
@@ -8595,7 +9720,7 @@ def phase_mp_launcher(card_line, refs):
     rc = subprocess.run(cmd, cwd=ROOT, env=env,
                         timeout=MP_CHILD_TIMEOUT_S).returncode
     if rc != 0:
-        raise SystemExit(f"phases 43-52: a launched rank exited {rc}")
+        raise SystemExit(f"phases 43-57: a launched rank exited {rc}")
     with open(out) as f:
         res = json.load(f)
     log(f"[mp] launcher and two ranks: {time.perf_counter() - t0:.1f} s, "
@@ -8685,7 +9810,8 @@ def main() -> int:
     phase_train_identity(fns)
     _lap('phase_train_identity')
     launches["training"], train_run = phase_train(fns, card_line)
-    phase8_losses = [r["loss"] for r in train_run["steps"]]
+    phase8 = train_run["steps"]
+    phase8_losses = [r["loss"] for r in phase8]
     del train_run
     _lap('phase_train')
     torch.cuda.empty_cache()
@@ -8701,7 +9827,10 @@ def main() -> int:
     launches.update(phase_mixtral_train(fns, card_line)[0])
     _lap('phase_mixtral_train')
     torch.cuda.empty_cache()
-    launches.update(phase_bert_train(fns, card_line)[0])
+    got, bert_train = phase_bert_train(fns, card_line)
+    launches.update(got)
+    phase26_losses = [r["loss"] for r in bert_train["steps"]]
+    del bert_train
     _lap('phase_bert_train')
     launches.update(phase_cnn(fns, card_line)[0])
     _lap('phase_cnn')
@@ -8721,11 +9850,18 @@ def main() -> int:
     _lap("phases 41, 42, 48 (wire, ZeRO stages, ZeRO-Offload) under the "
          "launcher")
     refs.update(phase8_losses=phase8_losses, phase29_prefill=prefill29,
-                rates=dict(RATES))
+                phase26_losses=phase26_losses, rates=dict(RATES))
     launches.update(phase_mp_launcher(card_line, refs))
-    _lap("phases 43-47, 49-52 (tensor, sequence, pipeline and expert "
-         "parallelism; the offload engines over ranks) in two ranks under "
-         "the launcher")
+    _lap("phases 43-47, 49-57 (tensor, sequence, pipeline and expert "
+         "parallelism; the offload engines over ranks; GPT-2's and BERT's "
+         "layouts, int8-resident KV, injection and the hybrid engine) in "
+         "two ranks under the launcher")
+    launches.update(phase_sparse(fns, card_line, phase8))
+    _lap("phase_sparse")
+    launches.update(phase_autotune(fns, card_line))
+    _lap("phase_autotune")
+    phase_rank_shapes(card_line, gen)
+    _lap("phase_rank_shapes")
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():

@@ -1,11 +1,13 @@
 """Config system accepting DeepSpeed-style JSON (ref: deepspeed/runtime/config.py).
 
 Port copy of ``deepspeed_tpu/config.py``, kept whole so that one JSON parses
-the same in both packages.  The three blocks whose validation lives in
-modules not ported yet (an enabled ``faults``, ``elasticity`` or
-``random_ltd`` block) raise ``NotImplementedError`` at parse time instead
-of importing them; ``curriculum_learning`` parses into the port's
-:class:`~deepspeed_tpu_torch.data.curriculum.CurriculumConfig`.
+the same in both packages.  The two blocks whose validation lives in
+modules not ported yet (an enabled ``faults`` or ``random_ltd`` block)
+raise ``NotImplementedError`` at parse time instead of importing them;
+``curriculum_learning`` parses into the port's
+:class:`~deepspeed_tpu_torch.data.curriculum.CurriculumConfig` and an
+enabled ``elasticity`` block into the port's
+:class:`~deepspeed_tpu_torch.elasticity.ElasticityConfig`.
 
 The reference parses a JSON dict (``train_batch_size``,
 ``zero_optimization``, ``fp16``/``bf16``, ``optimizer``, ``scheduler``,
@@ -1902,8 +1904,9 @@ class Config:
             c.moe = MoEConfig(**{k: v for k, v in d["moe"].items() if k in known})
             c.moe.enabled = c.moe.enabled or c.moe.num_experts > 1
         if d.get("elasticity", {}).get("enabled"):
-            raise NotImplementedError(
-                "elasticity comes with the distributed slice (ROADMAP A9)")
+            from deepspeed_tpu_torch.elasticity import ElasticityConfig
+
+            c.elasticity = ElasticityConfig.from_dict(d["elasticity"])
         # Data-efficiency blocks: accept both the reference's legacy
         # top-level "curriculum_learning" key and the nested
         # "data_efficiency" schema (ref: deepspeed/runtime/data_pipeline/
@@ -2009,8 +2012,34 @@ class Config:
         one given assumes the others default; all three must be consistent.
         """
         if self.elasticity is not None and self.elasticity.enabled:
-            raise NotImplementedError(
-                "elasticity comes with the distributed slice (ROADMAP A9)")
+            # elastic mode owns the batch config: explicit batch keys
+            # beside it are a config error (ref: elasticity.py
+            # ensure_immutable_elastic_config).  Values a previous elastic
+            # resolution wrote do not count as explicit, so a second
+            # engine on the same Config re-resolves for its world size
+            if getattr(self, "_batch_from_elastic", False):
+                self.train_batch_size = None
+                self.train_micro_batch_size_per_gpu = None
+                self.gradient_accumulation_steps = None
+            fixed = [k for k, v in (
+                (TRAIN_BATCH_SIZE, self.train_batch_size),
+                (MICRO_BATCH, self.train_micro_batch_size_per_gpu),
+                (GRAD_ACCUM, self.gradient_accumulation_steps))
+                if v is not None]
+            if fixed:
+                raise ValueError(
+                    f"elasticity is enabled but {fixed} set explicitly; "
+                    "elastic mode computes the batch config itself")
+            from deepspeed_tpu_torch.elasticity import compute_elastic_config
+
+            run = compute_elastic_config(self.elasticity, world_size=dp_world)
+            self.train_batch_size = run["train_batch_size"]
+            self.train_micro_batch_size_per_gpu = \
+                run["train_micro_batch_size_per_gpu"]
+            self.gradient_accumulation_steps = \
+                run["gradient_accumulation_steps"]
+            self._batch_from_elastic = True
+            return
         if dp_world < 1:
             raise ValueError(f"dp_world must be positive, got {dp_world}")
         t, m, a = (self.train_batch_size, self.train_micro_batch_size_per_gpu,

@@ -251,11 +251,6 @@ class TrainingEngine:
         self.grad_comm_mode = comm_compress.resolve_mode(
             config, self.mesh, name, has_aux)
         mode = self.grad_comm_mode
-        mp = [a for a in self._live if a != "data"]
-        if mode is not None and mp:
-            raise NotImplementedError(
-                f"the {mode} compressed step over mesh axes {mp}: the "
-                "compressed paths run over the data axis only")
         if mode == "qwz" and (config.zero.offload_param
                                or config.zero.offload_optimizer):
             raise ValueError(

@@ -3,9 +3,12 @@
 DeepSpeedHybridEngine, DeepSpeed-Chat's rollout-then-train loop).
 
 The reference flips between ZeRO-3's partitioned training layout and the
-gathered layout its inference kernels want around every rollout.  On one
-GPU at stage 0 the master params are whole on the card already, so the
-mode switch is one cast: :meth:`HybridEngine.generate` casts the live f32
+gathered layout its inference kernels want around every rollout.  Here, as
+in the JAX package, generation reads the training layout as it is: at
+stage 0 the master params are on the card already (under a ``model`` mesh
+each rank's tensor-parallel blocks, which the generator's forward and its
+cache of ``n_kv_heads / model`` heads run on directly), so the mode switch
+is one cast: :meth:`HybridEngine.generate` casts the live f32
 master to the compute dtype once per call (the params do not change
 within a rollout, so these are the values JAX's per-step traced cast
 gives) and runs the dense generator over that copy; the copy is dropped
@@ -14,10 +17,11 @@ when the rollout ends.  The generator attends in plain PyTorch
 the JAX one does in XLA; its greedy rows take the sampling kernel B6.
 
 Config parity: the ``hybrid_engine`` JSON block is accepted.  ``enabled``
-and ``max_out_tokens`` are honoured; ``inference_tp_size`` above 1 raises
-(tensor parallelism is ROADMAP A9); ``release_inference_cache`` /
-``pin_parameters`` / ``tp_gather_partition_size`` describe machinery the
-one-device engine does not have and are logged as no-ops.
+and ``max_out_tokens`` are honoured; an ``inference_tp_size`` other than
+the engine mesh's ``model`` size raises (one layout serves training and
+generation, as in the JAX package); ``release_inference_cache`` /
+``pin_parameters`` / ``tp_gather_partition_size`` describe re-layout
+machinery the engine does not need and are logged as no-ops.
 """
 
 from __future__ import annotations
@@ -114,9 +118,9 @@ def _hybrid_block(config) -> dict:
                 "tp_gather_partition_size"):
         if key in hb:
             logger.info(
-                "hybrid_engine.%s: accepted no-op — the one-device engine "
-                "never re-lays-out weights between train and generate, so "
-                "there is no cache to release or partition to gather", key)
+                "hybrid_engine.%s: accepted no-op — the engine never "
+                "re-lays-out weights between train and generate, so there "
+                "is no cache to release or partition to gather", key)
     return hb
 
 
@@ -126,18 +130,22 @@ def llama_hybrid_engine(engine, cfg, *, eos_token_id: Optional[int] = None,
     """A :class:`HybridEngine` over models/llama.py weights: ``engine``
     holds the Llama tree, ``cfg`` is its
     :class:`~deepspeed_tpu_torch.models.llama.LlamaConfig`; the dense
-    cache lives on the engine's device."""
+    cache lives on the engine's device and holds ``n_kv_heads / model``
+    heads a rank."""
     hb = _hybrid_block(engine.config)
     tp = int(hb.get("inference_tp_size", 0) or 0)
-    if tp > 1:
+    model = engine.mesh.size("model")
+    if tp and tp != model:
         raise ValueError(
-            f"hybrid_engine.inference_tp_size={tp}: the port's hybrid engine "
-            "shares one device between training and generation; tensor "
-            "parallelism comes with the distributed slice (ROADMAP A9)")
+            f"hybrid_engine.inference_tp_size={tp} differs from the mesh's "
+            f"model axis ({model}); the hybrid engine shares one TP layout "
+            "between training and generation — set the mesh model axis "
+            "instead")
 
     from deepspeed_tpu_torch.inference.generation import llama_step_alloc
 
-    step, alloc = llama_step_alloc(cfg, cache_dtype, device=engine.device)
+    step, alloc = llama_step_alloc(cfg, cache_dtype, device=engine.device,
+                                   tp=model)
     return HybridEngine(engine, step, step, alloc, eos_token_id=eos_token_id,
                         max_out_tokens=hb.get("max_out_tokens"))
 

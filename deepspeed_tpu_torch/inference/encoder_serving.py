@@ -11,10 +11,11 @@ and their outputs are sliced off on the host), so a request's result does
 not depend on its lot-mates.  Each lot makes one host-to-device copy (its
 tokens and mask together) and one device-to-host copy (its result).
 
-Blocks of the reference engine that this slice does not port: an enabled
-``telemetry`` block (the control-plane slice) and a ``mesh`` of more than
-one device (the distributed slice) raise ``NotImplementedError``; with
-``telemetry`` None or False the engine keeps its ``stats`` only.
+A ``mesh`` with ``model`` > 1 shards the encoder's weights over its ranks
+(:mod:`~deepspeed_tpu_torch.inference.sharded`, after int8 quantization
+when asked), as the JAX engine does.  An enabled ``telemetry`` block (the
+control-plane slice) raises ``NotImplementedError``; with ``telemetry``
+None or False the engine keeps its ``stats`` only.
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch._device import resolve_device
-from deepspeed_tpu_torch.inference.quantized import (quantize_for_inference,
+from deepspeed_tpu_torch.inference.quantized import (_takes_quantized,
+                                                     quantize_for_inference,
+                                                     quantized_apply,
                                                      takes_quantized)
+from deepspeed_tpu_torch.topology import set_current_mesh
 
 # BERT leaves an int8 engine keeps exact (the JAX builder's list): norm
 # scales and biases, every bias, and the embedding tables (``embed`` is
@@ -42,15 +46,6 @@ def _reject_telemetry(telemetry) -> None:
     from deepspeed_tpu_torch.inference.serving import _reject_unported
 
     _reject_unported({"telemetry": telemetry})
-
-
-def _mesh_devices(mesh) -> int:
-    """Devices a mesh spans (``mesh.size()``, as a ``DeviceMesh`` gives
-    it); 0 when the object does not say."""
-    try:
-        return int(mesh.size())
-    except (AttributeError, TypeError):
-        return 0
 
 
 def _to_host(res: torch.Tensor) -> np.ndarray:
@@ -70,28 +65,50 @@ class EncoderServingEngine:
     the sequence axis (``per_token=True``).  ``params`` move to ``device``
     (None = CUDA); ``weight_dtype="int8"`` quantizes them there (B9 on
     CUDA) but for ``quant_skip_paths``.
+
+    ``mesh``: a :class:`~deepspeed_tpu_torch.topology.MeshSpec` with
+    ``model`` (or ``expert``) > 1 shards the weights over its ranks, as the
+    JAX engine does: quantized first (int8), then each rank keeps its
+    blocks under ``specs_tree`` (the model's ``param_specs``, required
+    there), and each lot runs with that mesh current.  Every rank forms the
+    same lots from the same queue, so lots, buckets and stats are one
+    rank's.
     """
 
     def __init__(self, apply_fn: Callable, params: Any, *,
                  buckets: Tuple[int, ...] = (32, 64, 128),
                  max_batch: int = 8, per_token: bool = False,
-                 mesh=None, weight_dtype: str = "bfloat16",
+                 mesh=None, specs_tree=None,
+                 weight_dtype: str = "bfloat16",
                  quant_group_size: int = 128, quant_skip_paths=(),
                  telemetry=None, device=None):
-        from deepspeed_tpu_torch.inference.serving import _to_device
+        from deepspeed_tpu_torch.inference.serving import (_active_mesh,
+                                                           _to_device)
 
         _reject_telemetry(telemetry)
-        if mesh is not None and _mesh_devices(mesh) != 1:
-            raise NotImplementedError(
-                "sharded encoder serving (a mesh of more than one device) "
-                "is not ported to deepspeed_tpu_torch yet; it comes with "
-                "the distributed slice")
         self.device = resolve_device(device)
-        params = _to_device(params, self.device)
-        if weight_dtype != "bfloat16":
-            params, apply_fn = quantize_for_inference(
-                params, apply_fn, weight_dtype=weight_dtype,
-                group_size=quant_group_size, skip_paths=quant_skip_paths)
+        self.mesh = _active_mesh(mesh)
+        if weight_dtype not in ("bfloat16", "int8"):
+            quantize_for_inference(params, weight_dtype=weight_dtype)  # raises
+        if self.mesh is not None:
+            if specs_tree is None:
+                raise ValueError(
+                    "sharded encoder serving needs the model's "
+                    "param_specs (specs_tree)")
+            from deepspeed_tpu_torch.inference.sharded import (
+                place_for_serving)
+
+            params, _ = place_for_serving(
+                params, specs_tree, self.mesh, self.device, weight_dtype,
+                quant_group_size, quant_skip_paths)
+        else:
+            params = _to_device(params, self.device)
+            if weight_dtype == "int8":
+                params, = quantize_for_inference(
+                    params, group_size=quant_group_size,
+                    skip_paths=quant_skip_paths)
+        if weight_dtype == "int8" and not _takes_quantized(apply_fn):
+            apply_fn = quantized_apply(apply_fn)
         self.params = params
         self.per_token = per_token
         self.max_batch = int(max_batch)
@@ -150,6 +167,8 @@ class EncoderServingEngine:
                 host[0, r, :len(toks)] = toks
                 host[1, r, :len(toks)] = 1
             dev = torch.from_numpy(host).to(self.device)
+            if self.mesh is not None:
+                set_current_mesh(self.mesh)
             res = _to_host(self._fn(self.params, dev[0], dev[1]))
             self.stats["lots"] += 1
             self.stats["rows_padded"] += B - len(lot)
@@ -168,7 +187,8 @@ def bert_serving_engine(params, cfg, head: str = "pooled", mesh=None,
     buckets (32, 64, ``max_seq_len``) are clamped to the learned position
     table, so a request the model cannot encode fails at ``submit()``.
     ``weight_dtype="int8"`` keeps :data:`BERT_INT8_SKIP` exact; the forward
-    dequantizes one layer at a time.
+    dequantizes one layer at a time.  ``mesh`` (``model`` > 1) serves the
+    encoder over its ranks under ``bert.param_specs``.
     """
     from deepspeed_tpu_torch.models import bert
 
@@ -189,7 +209,8 @@ def bert_serving_engine(params, cfg, head: str = "pooled", mesh=None,
          cfg.max_seq_len})))
     return EncoderServingEngine(
         apply, params, per_token=head != "pooled", mesh=mesh,
-        weight_dtype=weight_dtype, quant_skip_paths=BERT_INT8_SKIP, **kw)
+        specs_tree=bert.param_specs(cfg), weight_dtype=weight_dtype,
+        quant_skip_paths=BERT_INT8_SKIP, **kw)
 
 
 class CNNServingEngine:

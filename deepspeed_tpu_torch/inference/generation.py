@@ -211,15 +211,20 @@ def greedy_draft_fn(step, alloc_cache, window: int, k: int):
 
 
 def cached_step_alloc(forward_with_cache, cfg, cache_dtype=torch.bfloat16,
-                      device=None):
+                      device=None, tp: int = 1):
     """The (step, alloc_cache) pair over any model's
     ``forward_with_cache(params, tokens, cfg, cache)``; the cache lives on
-    ``device`` (None = CUDA)."""
+    ``device`` (None = CUDA) and holds ``n_kv_heads / tp`` heads (a
+    tensor-parallel rank's)."""
     dev = resolve_device(device)
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"n_kv_heads {cfg.n_kv_heads} not divisible by "
+                         f"model-axis size {tp}")
 
     def alloc(batch, max_seq):
-        return KVCache.alloc(cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-                             cfg.head_dim, dtype=cache_dtype, device=dev)
+        return KVCache.alloc(cfg.n_layers, batch, max_seq,
+                             cfg.n_kv_heads // tp, cfg.head_dim,
+                             dtype=cache_dtype, device=dev)
 
     def step(params, tokens, cache):
         return forward_with_cache(params, tokens, cfg, cache)
@@ -232,11 +237,12 @@ def _on(params: Any, device) -> Any:
     return tree_map(lambda t: t.to(dev), params)
 
 
-def llama_step_alloc(cfg, cache_dtype=torch.bfloat16, device=None):
+def llama_step_alloc(cfg, cache_dtype=torch.bfloat16, device=None,
+                     tp: int = 1):
     from deepspeed_tpu_torch.models import llama
 
     return cached_step_alloc(llama.forward_with_cache, cfg, cache_dtype,
-                             device)
+                             device, tp)
 
 
 def llama_generator(params, cfg, eos_token_id: Optional[int] = None,

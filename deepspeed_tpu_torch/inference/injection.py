@@ -8,8 +8,10 @@ functions over ``nn``-free param trees, so "injection" is a registry that
 maps an architecture name to the model family's config constructor, its
 weight converter (HF names and ``[out, in]`` matrices -> the stacked ``[L,
 in, out]`` tree) and its forward.  :func:`inject` returns ``(apply_fn, params,
-cfg, specs)``; ``specs`` (the tensor-parallel spec tree) is ``None``: the
-port has no TP spec trees until the distributed slice (ROADMAP A9).
+cfg, specs)``; ``specs`` is the family's tensor-parallel spec tree
+(``llama.param_specs`` / ``mixtral.param_specs``), so ``init_inference(fn,
+params, mesh=, param_specs=specs)`` serves the injected model over
+``model`` (and Mixtral over ``expert``).
 
 The converters build each leaf on the target device directly: every HF
 tensor is moved there, transposed and cast one at a time into its place in
@@ -37,7 +39,7 @@ class InjectionPolicy:
     build_config: Callable      # hf_config dict -> model config
     convert_weights: Callable   # (state_dict, cfg, device, dtype) -> params
     apply_fn: Callable          # (params, tokens, cfg) -> logits
-    param_specs: Callable       # cfg -> TP spec tree (None until A9)
+    param_specs: Callable       # cfg -> TP spec tree
 
 
 _REGISTRY: Dict[str, InjectionPolicy] = {}
@@ -64,8 +66,8 @@ def inject(arch: str, hf_config: Dict[str, Any],
     specs)``.  ``state_dict`` maps HF tensor names to CPU tensors (or
     numpy arrays): :func:`~deepspeed_tpu_torch.integrations.hf.
     load_state_dict`'s result.  Floating leaves are cast to ``dtype``; the
-    params land on ``device`` (None = CUDA).  ``specs`` is None (no TP spec
-    trees before ROADMAP A9)."""
+    params land on ``device`` (None = CUDA).  ``specs`` is the family's
+    ``param_specs(cfg)``."""
     pol = get_policy(arch)
     cfg = pol.build_config(hf_config)
     if hasattr(cfg, "attn_impl"):
@@ -216,10 +218,6 @@ def _mixtral_weights(sd, cfg, device, dtype):
     }
 
 
-def _no_specs(cfg):
-    return None
-
-
 def _register_builtin():
     from deepspeed_tpu_torch.models import llama, mixtral
 
@@ -228,7 +226,7 @@ def _register_builtin():
             arch=arch, build_config=_llama_config,
             convert_weights=_llama_weights,
             apply_fn=lambda p, tokens, cfg: llama.forward(p, tokens, cfg),
-            param_specs=_no_specs))
+            param_specs=lambda cfg: llama.param_specs(cfg)))
     for arch in ("mixtral", "mixtralforcausallm"):
         register_policy(InjectionPolicy(
             arch=arch, build_config=_mixtral_config,
@@ -237,7 +235,7 @@ def _register_builtin():
             # injected inference never drops tokens on router imbalance
             apply_fn=lambda p, tokens, cfg: mixtral.forward_eval(
                 p, tokens, cfg),
-            param_specs=_no_specs))
+            param_specs=lambda cfg: mixtral.param_specs(cfg)))
 
 
 _register_builtin()

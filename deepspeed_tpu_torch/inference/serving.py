@@ -1415,18 +1415,17 @@ def gpt2_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
     forward_paged` (ref: the reference serves GPT-2 through kernel
     injection, deepspeed/module_inject/containers/gpt2.py).  ``max_seq``
     past the learned position table raises ``ValueError``; int8 weights
-    keep :data:`GPT2_INT8_SKIP` exact; a sharding ``mesh`` raises (GPT-2's
-    ``param_specs`` are queued)."""
+    keep :data:`GPT2_INT8_SKIP` exact; a ``mesh`` with ``model`` > 1
+    serves one tensor-parallel replica (``gpt2.param_specs``: each rank
+    holds its heads of the fused QKV and ``n_heads / model`` heads of the
+    cache; the tied head gathers ``wte`` whole for a prefill and reduces
+    a decode step's partial logits over the axis)."""
     from deepspeed_tpu_torch.models import gpt2
 
     mesh = _active_mesh(kw.get("mesh"))
     if mesh is not None and mesh.size("expert") > 1:
         raise ValueError("GPT-2 has no expert-parallel dimension — shard "
                          "over the model axis instead")
-    if mesh is not None:
-        raise NotImplementedError(
-            "GPT-2 tensor-parallel serving: gpt2.param_specs is queued "
-            "(ROADMAP A9's remainder)")
     max_seq = kw.get("max_seq", 256)
     if max_seq > cfg.max_seq_len:
         # learned positions are HARD-bounded by the wpe table (unlike
@@ -1436,7 +1435,8 @@ def gpt2_serving_engine(params, cfg, weight_dtype: str = "bfloat16",
             f"max_seq {max_seq} exceeds the learned position table "
             f"(cfg.max_seq_len={cfg.max_seq_len})")
     return _family_engine(gpt2.forward_paged, params, cfg, weight_dtype,
-                          quant_group_size, device, GPT2_INT8_SKIP, **kw)
+                          quant_group_size, device, GPT2_INT8_SKIP,
+                          specs=gpt2.param_specs(cfg), **kw)
 
 
 # Mixtral leaves an int8 engine keeps exact (the JAX engine's list): the

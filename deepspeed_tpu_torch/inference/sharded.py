@@ -31,6 +31,7 @@ import torch
 from deepspeed_tpu_torch import zero
 from deepspeed_tpu_torch.inference.quantized import (QuantizedTensor, _is_qt,
                                                      _pick_groups)
+from deepspeed_tpu_torch.topology import fused_parts
 
 # the wire codec's group (the JAX codec's 8 x 512 block) and the leaves it
 # leaves exact: below this, scales would outweigh the payload saved, and
@@ -43,22 +44,26 @@ def shard_quantized(qt: QuantizedTensor, spec, ms) -> QuantizedTensor:
     """This rank's block of an int8 leaf: the codes cut like the weight,
     the scales (``q.shape[:-1] + (groups,)``) cut on the same leading dims
     and, where the spec splits the last dim, on their groups, which must
-    then split evenly with it (a single group a row stays whole)."""
+    then split evenly with it (a single group a row stays whole; a fused
+    spec's parts each split so)."""
     q = zero.local_shard(qt.q, spec, ms)
-    sspec = tuple(spec)
-    if len(sspec) == qt.q.dim() and sspec[-1] is not None:
+    sspec = spec
+    if len(spec) == qt.q.dim() and spec[-1] is not None:
         ways = qt.q.shape[-1] // q.shape[-1]
         groups = qt.scale.shape[-1]
+        parts = fused_parts(spec)
         if groups == 1:
             # one group a row covers every block of the row: each rank
             # keeps the row's scale (JAX replicates a scale dim the mesh
             # cannot divide)
-            sspec = sspec[:-1] + (None,)
-        elif groups % ways:
+            sspec = tuple(spec)[:-1] + (None,)
+        elif groups % (ways * parts):
             raise ValueError(
                 f"an int8 leaf of {groups} groups a row does not split "
-                f"{ways} ways with its weight: pick a quant_group_size "
-                "that divides the rank's block")
+                f"{ways} ways with its weight"
+                + (f" in each of its {parts} fused parts" if parts > 1
+                   else "")
+                + ": pick a quant_group_size that divides the rank's block")
     return QuantizedTensor(q=q.contiguous(), scale=zero.local_shard(
         qt.scale, sspec, ms).contiguous())
 
@@ -90,11 +95,13 @@ def _block_flat_index(shape, spec, ms, device) -> torch.Tensor:
     for d, n in enumerate(shape):
         entry = spec[d] if d < len(spec) else None
         ways, i = (1, 0) if entry is None else zero._entry_index(entry, ms)
-        c = n // ways
+        runs = (zero._split_runs(n, ways, i, fused_parts(spec))
+                if ways > 1 else [(0, n)])
+        pos = torch.cat([torch.arange(a, a + c, device=device)
+                         for a, c in runs])
         view = [1] * len(shape)
-        view[d] = c
-        part = (torch.arange(i * c, (i + 1) * c, device=device)
-                * strides[d]).view(view)
+        view[d] = pos.numel()
+        part = (pos * strides[d]).view(view)
         idx = part if idx is None else idx + part
     return idx
 

@@ -21,6 +21,17 @@ calls ``reference_attention``, the same function as B1), or the plain
 attention with ``attn_impl="reference"``.  With no mask every token sees
 every token.
 
+Tensor parallelism (:func:`param_specs`, JAX's tree): every forward takes
+a tree whose leaves are this rank's blocks and decides from each leaf's
+shape what it holds.  The three embedding tables hold a block of their
+features (their sum is gathered over ``model`` before the embedding
+LayerNorm, which needs the whole vector), ``wqkv`` / ``w_in`` and their
+biases hold output columns (the fused QKV leaf a
+:class:`~deepspeed_tpu_torch.topology.FusedSpec`: its columns run
+``[3][heads][head_dim]`` and a rank holds its heads of each of the three),
+``wo`` / ``w_out`` input rows, and the tied MLM decoder gathers the
+``embed`` block whole (or reduces its partial logits for a few rows).
+
 Int8 weights: any leaf may be an int8
 :class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor`; the
 forwards carry ``takes_quantized`` and dequantize one layer at a time
@@ -34,6 +45,7 @@ import dataclasses
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.models.gpt2 import _mm
 # the encoder attends over the whole sequence on one rank: the sequence-
@@ -41,9 +53,12 @@ from deepspeed_tpu_torch.models.gpt2 import _mm
 ATTN_IMPLS = ("auto", "flash", "reference")
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import gelu, gelu_mlp, layer_norm
-from deepspeed_tpu_torch.ops.losses import _masked_mean, f32_matmul
+from deepspeed_tpu_torch.ops.losses import _masked_mean
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    col_input, row_output, tied_head_logits)
 from deepspeed_tpu_torch.remat import (check as check_remat,
                                        checkpoint_block, checkpoint_named)
+from deepspeed_tpu_torch.topology import FusedSpec
 
 
 @dataclasses.dataclass
@@ -67,7 +82,8 @@ class BertConfig:
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: the port serves "
                 f"{'|'.join(ATTN_IMPLS)}; ring/ulysses split a decoder's "
-                "sequence, and sparse attention is ROADMAP A9's remainder")
+                "sequence, and the reference's BERT has no sparse "
+                "attention (only its Llama reaches it)")
         check_remat(self.remat)
 
     @property
@@ -103,11 +119,31 @@ def param_count(cfg: BertConfig) -> int:
 
 
 def param_specs(cfg: BertConfig):
-    """The tensor-parallel layout of BERT is queued (ROADMAP A9's
-    remainder)."""
-    raise NotImplementedError(
-        "bert.param_specs: sharded BERT (tensor parallelism over a mesh) is "
-        "queued after Llama's and Mixtral's (ROADMAP A9's remainder)")
+    """Tensor-parallel placements over ``model``, the tree of JAX
+    ``param_specs``: the three embedding tables on their feature dim,
+    ``wqkv`` / ``w_in`` and their biases column-parallel (the fused QKV
+    leaves as :class:`~deepspeed_tpu_torch.topology.FusedSpec` of three
+    parts), ``wo`` / ``w_out`` row-parallel, the rest replicated."""
+    col, row = (None, None, "model"), (None, "model", None)
+    rep1, rep2 = (None,), (None, None)
+    return {
+        "embed": (None, "model"),
+        "pos_embed": (None, "model"),
+        "type_embed": (None, "model"),
+        "embed_norm": {"scale": rep1, "bias": rep1},
+        "blocks": {
+            "wqkv": FusedSpec(col, 3), "bqkv": FusedSpec((None, "model"), 3),
+            "wo": row, "bo": rep2,
+            "attn_norm_scale": rep2, "attn_norm_bias": rep2,
+            "w_in": col, "b_in": (None, "model"),
+            "w_out": row, "b_out": rep2,
+            "mlp_norm_scale": rep2, "mlp_norm_bias": rep2,
+        },
+        "pooler": {"w": rep2, "b": rep1},
+        "mlm_dense": {"w": rep2, "b": rep1},
+        "mlm_norm": {"scale": rep1, "bias": rep1},
+        "mlm_bias": rep1,
+    }
 
 
 # ------------------------------------------------------------------- blocks
@@ -119,21 +155,30 @@ def _attention(cfg: BertConfig, q, k, v, attention_mask):
 
 
 def _attn_out(cfg: BertConfig, lp, x, attention_mask):
-    """The block's attention context [B, T, d] (JAX's ``attn_out``): the
-    fused QKV product, then bidirectional attention within each row's
-    mask id (q, k, v each contiguous: the flash kernels read them so)."""
+    """The block's attention context [B, T, h * Dh] (JAX's ``attn_out``):
+    the fused QKV product, then bidirectional attention within each row's
+    mask id (q, k, v each contiguous: the flash kernels read them so); h
+    is this rank's heads."""
     B, T, d = x.shape
+    x = col_input(x, lp["wqkv"], 3 * cfg.dim)
     qkv = (_mm(x, lp["wqkv"]) + lp["bqkv"]).reshape(
-        B, T, 3, cfg.n_heads, cfg.head_dim)
+        B, T, 3, -1, cfg.head_dim)
     q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
-    return _attention(cfg, q, k, v, attention_mask).reshape(B, T, d)
+    return _attention(cfg, q, k, v, attention_mask).reshape(B, T, -1)
 
 
-def _mlp_out(lp, x):
-    """The MLP's output [B, T, d] (JAX's ``mlp_out``)."""
+def _mlp_out(cfg: BertConfig, lp, x):
+    """The MLP's output [B, T, d] (JAX's ``mlp_out``); with ``w_in`` a
+    column block the partial sums are reduced over ``model`` before the
+    whole ``b_out`` is added."""
     dt = torch.promote_types(x.dtype, lp["w_in"].dtype)
-    return gelu_mlp(x.to(dt), lp["w_in"].to(dt), lp["b_in"],
-                    lp["w_out"].to(dt), lp["b_out"])
+    if lp["w_in"].shape[-1] == cfg.ffn_dim:
+        return gelu_mlp(x.to(dt), lp["w_in"].to(dt), lp["b_in"],
+                        lp["w_out"].to(dt), lp["b_out"])
+    h = gelu(col_input(x.to(dt), lp["w_in"], cfg.ffn_dim)
+             @ lp["w_in"].to(dt) + lp["b_in"])
+    return row_output(h @ lp["w_out"].to(dt), lp["w_out"],
+                      cfg.ffn_dim) + lp["b_out"]
 
 
 def _block(cfg: BertConfig, lp, x, attention_mask):
@@ -141,9 +186,10 @@ def _block(cfg: BertConfig, lp, x, attention_mask):
     its two named stages are checkpointed."""
     attn = checkpoint_named(_attn_out, cfg.remat)(cfg, lp, x,
                                                   attention_mask)
-    x = layer_norm(x + _mm(attn, lp["wo"]) + lp["bo"],
-                   lp["attn_norm_scale"], lp["attn_norm_bias"], cfg.norm_eps)
-    h = checkpoint_named(_mlp_out, cfg.remat)(lp, x)
+    x = layer_norm(x + row_output(_mm(attn, lp["wo"]), lp["wo"], cfg.dim)
+                   + lp["bo"], lp["attn_norm_scale"], lp["attn_norm_bias"],
+                   cfg.norm_eps)
+    h = checkpoint_named(_mlp_out, cfg.remat)(cfg, lp, x)
     return layer_norm(x + h, lp["mlp_norm_scale"], lp["mlp_norm_bias"],
                       cfg.norm_eps)
 
@@ -164,6 +210,10 @@ def forward(params, tokens, cfg: BertConfig, token_type_ids=None,
                                                      slice(0, T))
     if token_type_ids is not None:
         x = x + take(params["type_embed"], token_type_ids.long())
+    if x.shape[-1] != cfg.dim:
+        # feature blocks of the embedding sum: the LayerNorm reads the
+        # whole vector
+        x = comm.gather_from(x, "model", -1)
     x = layer_norm(x, take(params["embed_norm"]["scale"]),
                    take(params["embed_norm"]["bias"]), cfg.norm_eps)
     if attention_mask is not None:
@@ -191,9 +241,8 @@ def mlm_logits(params, hidden, cfg: BertConfig):
              + take(params["mlm_dense"]["b"]))
     h = layer_norm(h, take(params["mlm_norm"]["scale"]),
                    take(params["mlm_norm"]["bias"]), cfg.norm_eps)
-    head = take(params["embed"]).T
-    dt = torch.promote_types(h.dtype, head.dtype)
-    return f32_matmul(h.to(dt), head.to(dt)) + take(params["mlm_bias"])
+    return (tied_head_logits(h, take(params["embed"]))
+            + take(params["mlm_bias"]))
 
 
 def loss_fn(cfg: BertConfig):

@@ -21,6 +21,18 @@ assert instead, so :func:`forward_with_cache` and :func:`forward_paged`
 clamp explicitly, and the builders (serving, generators) raise
 ``ValueError`` before a real position can pass the table.
 
+Tensor parallelism (:func:`param_specs`, JAX's tree): every forward takes
+a tree whose leaves are this rank's blocks and decides from each leaf's
+shape what it holds, as :mod:`~deepspeed_tpu_torch.models.llama` does.
+``wte`` holds a block of its features: the lookup's rows are gathered
+over ``model``, the tied head gathers the block whole (or reduces its
+partial logits for a decode step's few rows), and the loss gathers it
+once for both uses.  ``qkv_w`` / ``fc_w`` and their biases hold output
+columns, ``proj_w`` / ``out_w`` input rows.  The fused QKV leaf's spec
+is a :class:`~deepspeed_tpu_torch.topology.FusedSpec`: a rank holds
+``[q_r | k_r | v_r]``, its own heads of each, and the gather puts the
+leaf back in order.
+
 Int8 weights: any leaf may be an int8
 :class:`~deepspeed_tpu_torch.inference.quantized.QuantizedTensor`; the
 forwards carry ``takes_quantized`` and dequantize one layer at a time
@@ -35,12 +47,16 @@ import dataclasses
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.ops.attention import flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import gelu, layer_norm
-from deepspeed_tpu_torch.ops.losses import dense_lm_loss, f32_matmul
+from deepspeed_tpu_torch.ops.losses import dense_lm_loss
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    col_input, row_output, tied_head_logits, whole_features)
 from deepspeed_tpu_torch.remat import (check as check_remat,
                                        checkpoint_block, checkpoint_named)
+from deepspeed_tpu_torch.topology import FusedSpec
 
 
 @dataclasses.dataclass
@@ -90,6 +106,29 @@ def param_count(cfg: GPT2Config) -> int:
                + cfg.max_seq_len * d + 2 * d)
 
 
+def param_specs(cfg: GPT2Config):
+    """Tensor-parallel placements over ``model``, the tree of JAX
+    ``param_specs``: ``wte`` on its feature dim, ``wpe`` replicated,
+    ``qkv_w`` / ``fc_w`` and their biases column-parallel (the fused QKV
+    leaves as :class:`~deepspeed_tpu_torch.topology.FusedSpec` of three
+    parts), ``proj_w`` / ``out_w`` row-parallel, the norms and the other
+    biases replicated."""
+    col, row = (None, None, "model"), (None, "model", None)
+    return {
+        "wte": (None, "model"), "wpe": (),
+        "blocks": {
+            "ln1_w": (), "ln1_b": (),
+            "qkv_w": FusedSpec(col, 3), "qkv_b": FusedSpec((None, "model"),
+                                                           3),
+            "proj_w": row, "proj_b": (),
+            "ln2_w": (), "ln2_b": (),
+            "fc_w": col, "fc_b": (None, "model"),
+            "out_w": row, "out_b": (),
+        },
+        "lnf_w": (), "lnf_b": (),
+    }
+
+
 # ------------------------------------------------------------------- blocks
 def _mm(x, w):
     """x @ w in the promoted dtype of the two (``jnp.matmul``'s rule; the
@@ -99,33 +138,43 @@ def _mm(x, w):
 
 
 def _qkv(cfg: GPT2Config, lp, x):
-    """LayerNorm and the fused QKV product -> q, k, v [B, T, H, Dh], each
-    contiguous (the flash kernels read them so)."""
+    """LayerNorm and the fused QKV product -> q, k, v [B, T, h, Dh], each
+    contiguous (the flash kernels read them so); h is this rank's heads
+    (all of them unless ``qkv_w`` holds its ``[q_r | k_r | v_r]``)."""
     B, T, _ = x.shape
     h = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
+    h = col_input(h, lp["qkv_w"], 3 * cfg.dim)
     qkv = _mm(h, lp["qkv_w"]) + lp["qkv_b"]
-    return tuple(t.reshape(B, T, cfg.n_heads, cfg.head_dim).contiguous()
-                 for t in qkv.split(cfg.dim, dim=-1))
+    return tuple(t.reshape(B, T, -1, cfg.head_dim).contiguous()
+                 for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
 
 
 def _attn_out(cfg: GPT2Config, lp, x):
-    """The block's attention context [B, T, d] (JAX's ``attn_out``)."""
+    """The block's attention context [B, T, h * Dh] (JAX's
+    ``attn_out``)."""
     B, T, _ = x.shape
     q, k, v = _qkv(cfg, lp, x)
-    return flash_attention(q, k, v, causal=True).reshape(B, T, cfg.dim)
+    return flash_attention(q, k, v, causal=True).reshape(B, T, -1)
 
 
 def _mlp_out(cfg: GPT2Config, lp, x):
-    """The MLP's GELU activation [B, T, 4d] (JAX's ``mlp_out``)."""
+    """The MLP's GELU activation [B, T, 4d] (JAX's ``mlp_out``; this
+    rank's features when ``fc_w`` holds a column block)."""
     h = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
+    h = col_input(h, lp["fc_w"], 4 * cfg.dim)
     return gelu(_mm(h, lp["fc_w"]) + lp["fc_b"])
 
 
 def _block_tail(cfg: GPT2Config, lp, x, attn, remat: str = "none"):
+    """The attention output's projection and residual, then the MLP and
+    its residual; a row-parallel product's partial sums are reduced
+    before its whole bias is added."""
     B, T, _ = x.shape
-    x = x + _mm(attn.reshape(B, T, cfg.dim), lp["proj_w"]) + lp["proj_b"]
+    x = x + row_output(_mm(attn.reshape(B, T, -1), lp["proj_w"]),
+                       lp["proj_w"], cfg.dim) + lp["proj_b"]
     mlp = checkpoint_named(_mlp_out, remat)(cfg, lp, x)
-    return x + _mm(mlp, lp["out_w"]) + lp["out_b"]
+    return x + row_output(_mm(mlp, lp["out_w"]), lp["out_w"],
+                          4 * cfg.dim) + lp["out_b"]
 
 
 def _block(cfg: GPT2Config, lp, x):
@@ -140,8 +189,13 @@ def _layer(params, l: int):
 
 
 def _embed(params, tokens, positions):
-    return take(params["wte"], tokens.long()) + take(params["wpe"],
-                                                     positions)
+    """Token plus position embeddings [B, T, d], the token rows' features
+    gathered over ``model`` when ``wte`` holds a feature block."""
+    x = take(params["wte"], tokens.long())
+    wpe = take(params["wpe"], positions)
+    if x.shape[-1] != wpe.shape[-1]:
+        x = comm.gather_from(x, "model", -1)
+    return x + wpe
 
 
 def lm_head(params):
@@ -152,7 +206,7 @@ def lm_head(params):
 def _logits(params, cfg: GPT2Config, x):
     h = layer_norm(x, take(params["lnf_w"]), take(params["lnf_b"]),
                    cfg.norm_eps)
-    return f32_matmul(h, lm_head(params))
+    return tied_head_logits(h, take(params["wte"]))
 
 
 def _clamped(positions, cfg: GPT2Config):
@@ -175,7 +229,8 @@ def forward_hidden(params, tokens, cfg: GPT2Config):
 @takes_quantized
 def forward(params, tokens, cfg: GPT2Config):
     """tokens [B, T] int -> logits [B, T, V] f32."""
-    return f32_matmul(forward_hidden(params, tokens, cfg), lm_head(params))
+    return tied_head_logits(forward_hidden(params, tokens, cfg),
+                            take(params["wte"]))
 
 
 @takes_quantized
@@ -209,6 +264,9 @@ def loss_fn(cfg: GPT2Config):
                 "learned absolute positions don't reset per document, "
                 "so silently accepting the key would train wrong")
         tokens = batch["tokens"]
+        # a feature block of wte is gathered whole once: the lookup and the
+        # tied head then run as on one rank
+        params = {**params, "wte": whole_features(params["wte"], cfg.dim)}
         x = forward_hidden(params, tokens[:, :-1], cfg)
         return dense_lm_loss(x.reshape(-1, cfg.dim), lm_head(params),
                              tokens[:, 1:].reshape(-1))

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -61,7 +61,7 @@ from deepspeed_tpu_torch.remat import (check as check_remat,
                                        checkpoint_block, checkpoint_named)
 from deepspeed_tpu_torch.topology import current_mesh
 
-ATTN_IMPLS = ("auto", "flash", "reference", "ring", "ulysses")
+ATTN_IMPLS = ("auto", "flash", "reference", "ring", "ulysses", "sparse")
 
 
 @dataclasses.dataclass
@@ -78,7 +78,11 @@ class LlamaConfig:
     tie_embeddings: bool = False
     remat: str = "none"                    # none | full | save_dots | ...
     loss_chunk: int = 0                    # >0: chunked-vocab CE
-    attn_impl: str = "auto"                # auto | flash | reference
+    # attn_impl="sparse": block-sparse attention from this dict ({"mode":
+    # ..., "block": ..., ...}; see ops/sparse_attention.
+    # sparsity_config_from_dict)
+    sparse_config: Optional[Dict[str, Any]] = None
+    attn_impl: str = "auto"                # auto | flash | reference | ...
 
     def __post_init__(self):
         if self.ffn_dim is None:
@@ -90,8 +94,7 @@ class LlamaConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: the port serves "
-                f"{'|'.join(ATTN_IMPLS)}; sparse attention is ROADMAP A9's "
-                "remainder")
+                f"{'|'.join(ATTN_IMPLS)}")
         check_remat(self.remat)      # remat.POLICIES or remat.OFFLOAD
 
     @property
@@ -192,10 +195,54 @@ def _seq_parallel(cfg: LlamaConfig) -> int:
     return sp if cfg.attn_impl in ("ring", "ulysses") else 1
 
 
+_SPARSE_CACHE: dict = {}
+
+
+def _sparse_self_attention(cfg: LlamaConfig):
+    """The per-config :class:`~deepspeed_tpu_torch.ops.sparse_attention.
+    SparseSelfAttention` (it caches each sequence length's layout, so the
+    O(H nb^2) host-side build runs once)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        SparseSelfAttention, sparsity_config_from_dict)
+
+    norm = tuple(sorted(
+        (k, tuple(v) if isinstance(v, (list, tuple)) else v)
+        for k, v in (cfg.sparse_config or {}).items()))
+    key = (cfg.n_heads, norm)
+    sa = _SPARSE_CACHE.get(key)
+    if sa is None:
+        sc = sparsity_config_from_dict(
+            cfg.sparse_config or {}, cfg.n_heads,
+            attention="unidirectional")               # causal LM default
+        sa = _SPARSE_CACHE[key] = SparseSelfAttention(sc, causal=True)
+    return sa
+
+
+def _sparse(q, k, v, cfg: LlamaConfig, segment_ids=None):
+    """Block-sparse causal attention, k/v heads repeated for GQA; under
+    tensor parallelism q holds this rank's heads and reads their rows of
+    the layout."""
+    sa = _sparse_self_attention(cfg)
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    h = q.shape[2]
+    heads = None
+    if h != cfg.n_heads:
+        m = comm.rank_in("model")
+        heads = slice(m * h, (m + 1) * h)
+    out = sa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             segment_ids=segment_ids, heads=heads)
+    return out.transpose(1, 2)
+
+
 def _attention(q, k, v, cfg: LlamaConfig, segment_ids=None):
     """q: [B,T,H,Dh], k/v: [B,T,KV,Dh] -> [B,T,H,Dh] (causal).  Under
     ring / ulysses with a ``seq`` axis, q/k/v are this rank's positions."""
     impl = cfg.attn_impl
+    if impl == "sparse":
+        return _sparse(q, k, v, cfg, segment_ids)
     if impl in ("ring", "ulysses") and _seq_parallel(cfg) > 1:
         if impl == "ring":
             from deepspeed_tpu_torch.parallel.ring_attention import (

@@ -160,3 +160,33 @@ def row_output(y: torch.Tensor, w, full_in: int,
     only this rank's input rows (its second-to-last dim short of
     ``full_in``), ``y`` as it is otherwise."""
     return comm.reduce_from(y, axis) if w.shape[-2] != full_in else y
+
+
+def whole_features(table: torch.Tensor, full: int,
+                   axis: str = MODEL_AXIS) -> torch.Tensor:
+    """``table`` [..., full] whole: gathered over the axis when it holds
+    only this rank's block of its last dim (the backward keeps this rank's
+    slice of the grad), as it is otherwise."""
+    return (comm.gather_from(table, axis, -1) if table.shape[-1] != full
+            else table)
+
+
+def tied_head_logits(h: torch.Tensor, table: torch.Tensor,
+                     axis: str = MODEL_AXIS) -> torch.Tensor:
+    """f32 logits ``h @ table.T`` [..., V] of the hidden state ``h`` [...,
+    d] through a tied embedding ``table`` [V, d], which may hold only this
+    rank's block of the features [V, d / tp].  Every rank ends with the
+    whole vocabulary, by whichever of two ways moves fewer bytes: the
+    block is gathered whole (V * d table elements; a training batch, a
+    lot, a long prefill), or the products over this rank's features are
+    partial sums of the logits, all-reduced (twice N * V f32 values; a
+    decode step's few rows)."""
+    from deepspeed_tpu_torch.ops.losses import f32_matmul
+
+    d = h.shape[-1]
+    dt = torch.promote_types(h.dtype, table.dtype)
+    rows = h.numel() // d
+    if table.shape[-1] != d and 8 * rows < d * table.element_size():
+        return comm.reduce_from(f32_matmul(
+            comm.scatter_to(h.to(dt), axis, -1), table.to(dt).T), axis)
+    return f32_matmul(h.to(dt), whole_features(table, d, axis).to(dt).T)

@@ -31,6 +31,33 @@ BATCH_AXES = ("data", "expert")
 Spec = Tuple[Optional[str], ...]
 
 
+class FusedSpec(tuple):
+    """A placement spec (equal to the plain tuple, JAX's ``PartitionSpec``)
+    of a leaf whose split dim concatenates ``parts`` equal tensors, as a
+    fused q|k|v projection does.  A rank's block is its slice of each part,
+    concatenated (``[q_r | k_r | v_r]``), not one contiguous run of the
+    dim, so it holds whole heads of each: the placement
+    (:func:`~deepspeed_tpu_torch.zero.local_shard`) cuts it so and the
+    gather (:func:`~deepspeed_tpu_torch.zero.gather_local`) restores the
+    leaf's order."""
+
+    def __new__(cls, spec, parts: int):
+        self = super().__new__(cls, spec)
+        self.parts = int(parts)
+        return self
+
+    def __getnewargs__(self):
+        return (tuple(self), self.parts)
+
+    def __repr__(self):
+        return f"FusedSpec({tuple(self)!r}, parts={self.parts})"
+
+
+def fused_parts(spec) -> int:
+    """The parts a spec's split dim concatenates (1 for a plain spec)."""
+    return getattr(spec, "parts", 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Resolved axis sizes and the live ``DeviceMesh`` (None for one

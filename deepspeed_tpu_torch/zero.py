@@ -35,8 +35,9 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch._tree import tree_leaves, tree_unflatten_like
-from deepspeed_tpu_torch.topology import (MeshSpec, Spec, ZERO_AXES,
-                                          _pick_dim, shard_leaf_spec)
+from deepspeed_tpu_torch.topology import (FusedSpec, MeshSpec, Spec,
+                                          ZERO_AXES, _pick_dim, fused_parts,
+                                          shard_leaf_spec)
 
 logger = logging.getLogger(__name__)
 
@@ -51,7 +52,7 @@ def _norm_spec(spec) -> Spec:
     if not isinstance(spec, (tuple, list)):
         raise TypeError(f"a placement spec is a tuple of axis names or "
                         f"None a dim, got {spec!r}")
-    return tuple(spec)
+    return spec if isinstance(spec, FusedSpec) else tuple(spec)
 
 
 def _spec_walk(params, specs, fn, out) -> None:
@@ -114,29 +115,50 @@ def _entry_index(entry, ms: MeshSpec) -> Tuple[int, int]:
     return ways, idx
 
 
+def _split_runs(n: int, ways: int, idx: int, parts: int):
+    """(start, length) of the runs of a dim of ``n`` that rank ``idx`` of
+    ``ways`` holds: one contiguous run, or its slice of each of ``parts``
+    equal parts (a :class:`~deepspeed_tpu_torch.topology.FusedSpec`)."""
+    part = n // parts
+    c = part // ways
+    return [(p * part + idx * c, c) for p in range(parts)]
+
+
 def local_shard(full, spec: Spec, ms: MeshSpec):
     """This rank's block of a whole leaf under its model-parallel spec
-    (every named axis but ``data``, which is ZeRO's): a view."""
+    (every named axis but ``data``, which is ZeRO's): a view, or a copy
+    where a fused spec's split dim takes a slice of each part."""
     t = full
+    parts = fused_parts(spec)
     for d, entry in enumerate(spec):
         if entry is None or "data" in _axis_entries(entry):
             continue
         ways, idx = _entry_index(entry, ms)
         if ways > 1:
-            c = t.shape[d] // ways
-            t = t.narrow(d, idx * c, c)
+            runs = _split_runs(t.shape[d], ways, idx, parts)
+            t = t.narrow(d, *runs[0]) if parts == 1 else torch.cat(
+                [t.narrow(d, *r) for r in runs], d)
     return t
 
 
 def gather_local(t: torch.Tensor, spec: Spec, ms: MeshSpec) -> torch.Tensor:
     """The whole leaf from every rank's :func:`local_shard` (each named
-    axis all-gathered along its dim, minor axis first)."""
+    axis all-gathered along its dim, minor axis first; a fused spec's
+    parts put back in the leaf's order)."""
+    parts = fused_parts(spec)
     for d, entry in enumerate(spec):
         if entry is None or "data" in _axis_entries(entry):
             continue
         for a in reversed(_axis_entries(entry)):
             if ms.size(a) > 1:
                 t = comm.all_gather(t.contiguous(), a, axis=d)
+        ways = _entry_index(entry, ms)[0]
+        if parts > 1 and ways > 1:
+            # [rank][part][c] -> [part][rank][c]
+            shape = t.shape
+            c = shape[d] // (ways * parts)
+            t = t.reshape(*shape[:d], ways, parts, c, *shape[d + 1:]) \
+                .transpose(d, d + 1).reshape(shape).contiguous()
     return t
 
 

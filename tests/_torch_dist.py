@@ -493,6 +493,25 @@ def _suite_serve_tp(out, spec, inputs, W, r):
             out.put("wire/params", eng.params)
     eng = init_serving(params, cfg, config={"mesh": {"model": 2}}, **kw)
     _put_tokens(out, "init_serving", _serve(eng, prompts))
+    # int8-resident KV (B7 / B9's fused write) at a rank's KV heads: two
+    # waves on one prefix, the idle step between demoting the warm pages
+    eng = llama_serving_engine(params, cfg, mesh=ms, **dict(
+        kw, **spec["kvq"]))
+    for i, wave in enumerate(spec["waves"]):
+        if i:
+            eng.step()
+            held = next(iter(eng._kv_pool.entries.values()))
+            out["kvq/tier_page_shape"] = np.asarray(held.data[0].shape)
+        for rid, p in wave.items():
+            eng.submit(rid, p, max_new_tokens=8)
+        for rid, t in eng.run().items():
+            out[f"kvq/tok/{rid}"] = np.asarray(t, np.int64)
+        assert eng.check_leaks() == []
+    for name in ("k", "v", "k_scale", "v_scale"):
+        out[f"kvq/{name}"] = _np(getattr(eng.cache, name))
+    out["kvq/counts"] = np.asarray([
+        eng.allocator.demoted, eng.allocator.promoted,
+        eng.kv_tier_quant_resident_promotes, eng.prefix_cache_hits])
     tokens = torch.from_numpy(inputs["fwd_tokens"])
     for dt in ("float32", "int8"):
         import functools
@@ -1016,6 +1035,186 @@ def _suite_zi_tp(out, spec, inputs, W, r):
 SUITES.update({"offload": _suite_offload, "digest": _suite_digest,
                "pstream": _suite_pstream, "infinity": _suite_infinity,
                "zi_tp": _suite_zi_tp})
+
+
+# ------------------------------------ GPT-2 / BERT TP, injection, hybrid
+def _suite_tp_gpt2_bert(out, spec, inputs, W, r):
+    """GPT-2 and BERT over ``model`` (W = 2: model 2; W = 4: model 4 for
+    serving, data 2 x model 2 for training): GPT-2 tp serving (f32 and
+    int8 weights) and ``init_inference`` logits, each rank's fused QKV
+    block, GPT-2 training at stages 0-1 (and 2-3 at W = 4) with a stage-0
+    checkpoint and remat ``save_attn`` / ``offload_attn``; BERT's pooled /
+    MLM / hidden heads over ``model`` (f32 and int8) and its training."""
+    import functools
+
+    import torch
+
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.inference.encoder_serving import (
+        bert_serving_engine)
+    from deepspeed_tpu_torch.inference.serving import gpt2_serving_engine
+    from deepspeed_tpu_torch.models import bert as tb
+    from deepspeed_tpu_torch.models import gpt2 as tg
+
+    cfg = tg.GPT2Config.tiny()
+    bcfg = tb.BertConfig.tiny()
+    gp = _tree_params(inputs, "gpt2")
+    bp = _tree_params(inputs, "bert")
+    ms = _use_mesh({"model": W})
+    kw = dict(spec["kw"], device="cpu", cache_dtype=torch.float32)
+    for name, extra in {"tp": {}, "int8": dict(weight_dtype="int8",
+                                               quant_group_size=16),
+                        "split": dict(prefill_chunk=4,
+                                      decode_chunk=2)}.items():
+        eng = gpt2_serving_engine(gp, cfg, mesh=ms, **dict(kw, **extra))
+        _put_tokens(out, f"gpt2_{name}", _serve(eng, spec["prompts"]))
+        out[f"gpt2_{name}/cache_heads"] = np.asarray(eng.cache.k.shape[1])
+        assert eng.check_leaks() == []
+        if name == "tp":
+            out["gpt2_tp/qkv_w"] = _np(eng.params["blocks"]["qkv_w"])
+            out["gpt2_tp/qkv_b"] = _np(eng.params["blocks"]["qkv_b"])
+        if name == "int8":
+            qt = eng.params["blocks"]["qkv_w"]
+            out["gpt2_int8/qkv_q"] = _np(qt.q)
+            out["gpt2_int8/qkv_scale"] = _np(qt.scale)
+    toks = torch.from_numpy(inputs["fwd_tokens"])
+    for dt in ("float32", "int8"):
+        ie = init_inference(apply_fn=functools.partial(tg.forward, cfg=cfg),
+                            params=gp, mesh=ms,
+                            param_specs=tg.param_specs(cfg), dtype=dt,
+                            device="cpu", quant_group_size=16)
+        out[f"gpt2_ie_{dt}/logits"] = _np(ie(toks))
+    lots = [[int(t) for t in q] for q in spec["bert_queue"]]
+    for head in ("pooled", "mlm", "hidden"):
+        for wdt in ("bfloat16", "int8"):
+            eng = bert_serving_engine(bp, bcfg, head=head, mesh=ms,
+                                      weight_dtype=wdt, max_batch=2,
+                                      quant_group_size=16, device="cpu")
+            for i, q in enumerate(lots):
+                eng.submit(i, q)
+            res = eng.run()
+            for i in range(len(lots)):
+                out[f"bert_{head}_{wdt}/{i}"] = np.asarray(res[i])
+            out[f"bert_{head}_{wdt}/lots"] = np.asarray(eng.stats["lots"])
+    # training over model
+    sizes = {"model": 2} if W == 2 else {"data": 2, "model": 2}
+    batches = [{"tokens": inputs["tokens"][i]}
+               for i in range(inputs["tokens"].shape[0])]
+    conf = {"train_batch_size": 4, "bf16": {"enabled": False},
+            "gradient_clipping": 1.0, "mesh": sizes,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 3e-3, "weight_decay": 0.1}}}
+    from deepspeed_tpu_torch import initialize
+
+    for stage in spec["stages"][str(W)]:
+        c = dict(conf, zero_optimization={"stage": stage})
+        eng = initialize(loss_fn=tg.loss_fn(cfg),
+                         params=_tree_params(inputs, "gpt2"), config=c,
+                         param_specs=tg.param_specs(cfg), device="cpu")[0]
+        if stage == 0:
+            # the gathered tree before a step is the one-rank tree
+            out.put("gpt2_train/init", eng.module_params())
+        out[f"gpt2_train{stage}/losses"] = np.asarray(
+            [float(eng.train_batch(b)) for b in batches])
+        out.put(f"gpt2_train{stage}/params", eng.module_params())
+        if stage == 0:
+            eng.save_checkpoint(os.path.join(spec["dir"], f"gpt2_w{W}"),
+                                tag="t")
+    for remat in ("save_attn", "offload_attn"):
+        rcfg = tg.GPT2Config.tiny(remat=remat)
+        c = dict(conf, zero_optimization={"stage": 0})
+        eng = initialize(loss_fn=tg.loss_fn(rcfg),
+                         params=_tree_params(inputs, "gpt2"), config=c,
+                         param_specs=tg.param_specs(rcfg), device="cpu")[0]
+        out[f"gpt2_{remat}/losses"] = np.asarray(
+            [float(eng.train_batch(b)) for b in batches])
+    bb = {k[len("bert_batch/"):]: v for k, v in inputs.items()
+          if k.startswith("bert_batch/")}
+    # BERT over model = W alone: its masked-mean MLM loss averaged over
+    # data ranks is not JAX's global masked mean (ROADMAP C-f7)
+    c = dict(conf, zero_optimization={"stage": 0}, mesh={"model": W})
+    eng = initialize(loss_fn=tb.loss_fn(bcfg), params=bp, config=c,
+                     param_specs=tb.param_specs(bcfg), device="cpu")[0]
+    out["bert_train/losses"] = np.asarray(
+        [float(eng.train_batch({k: torch.from_numpy(v) for k, v in
+                                bb.items()})) for _ in range(2)])
+    out.put("bert_train/params", eng.module_params())
+
+
+SUITES["tp_gpt2_bert"] = _suite_tp_gpt2_bert
+
+
+def _suite_inj_hybrid(out, spec, inputs, W, r):
+    """Over model 2: an injected tiny Llama (through ``from_pretrained``)
+    and Mixtral (``inject``, also over expert 2) served by
+    ``init_inference(mesh=, param_specs=specs)``; the hybrid engine at
+    ``inference_tp_size`` 2 (rollout, step, rollout) and its refusal of
+    another size; an engine resolving its batch from an elasticity
+    block."""
+    import torch
+
+    from deepspeed_tpu_torch import (from_pretrained, init_hybrid_engine,
+                                     initialize, inject, save_pretrained)
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.models import llama as tl
+
+    toks = torch.from_numpy(inputs["fwd_tokens"])
+    cfg = tl.LlamaConfig.tiny()
+    params = _tree_params(inputs, "llama")
+    d = os.path.join(spec["dir"], f"hf{r}")
+    save_pretrained(params, cfg, d)
+    fn, p, icfg, specs = from_pretrained(d, device="cpu",
+                                         dtype=torch.float32)
+    ms = _use_mesh({"model": 2})
+    ie = init_inference(apply_fn=fn, params=p, mesh=ms, param_specs=specs,
+                        dtype="float32", device="cpu")
+    out["llama/logits"] = _np(ie(toks))
+    out["llama/wq_cols"] = np.asarray(ie.params["blocks"]["wq"].shape[-1])
+    sd = {k[len("mixtral_sd/"):]: torch.from_numpy(v)
+          for k, v in inputs.items() if k.startswith("mixtral_sd/")}
+    fn, p, mcfg, specs = inject("MixtralForCausalLM", spec["mixtral_hf"], sd,
+                                dtype=torch.float32, device="cpu")
+    for axis in ("model", "expert"):
+        ms = _use_mesh({axis: 2})
+        ie = init_inference(apply_fn=fn, params=p, mesh=ms,
+                            param_specs=specs, dtype="float32", device="cpu")
+        out[f"mixtral_{axis}/logits"] = _np(ie(toks))
+    # hybrid over model 2
+    conf = dict(spec["hybrid_conf"], mesh={"model": 2})
+    eng = initialize(loss_fn=tl.loss_fn(cfg), params=params, config=conf,
+                     param_specs=tl.param_specs(cfg), device="cpu")[0]
+    hyb = init_hybrid_engine(eng, cfg, cache_dtype=torch.float32)
+    prompts = torch.from_numpy(inputs["prompts"])
+    out["hybrid/cache_heads"] = np.asarray(
+        hyb._alloc(1, 8).k.shape[-2])
+    out["hybrid/before"] = _np(hyb.generate(prompts, max_new_tokens=6,
+                                            temperature=0.0))
+    out["hybrid/loss"] = np.asarray(float(hyb.train_batch(
+        {"tokens": torch.from_numpy(inputs["train_tokens"])})))
+    out["hybrid/after"] = _np(hyb.generate(prompts, max_new_tokens=6,
+                                           temperature=0.0))
+    bad = dict(conf, hybrid_engine=dict(conf["hybrid_engine"],
+                                        inference_tp_size=4))
+    eng = initialize(loss_fn=tl.loss_fn(cfg), params=params, config=bad,
+                     param_specs=tl.param_specs(cfg), device="cpu")[0]
+    try:
+        init_hybrid_engine(eng, cfg)
+        out["hybrid/refused"] = np.asarray("")
+    except ValueError as e:
+        out["hybrid/refused"] = np.asarray(str(e))
+    # elasticity: the batch resolved at world 2 over data, one step
+    eng = initialize(loss_fn=tl.loss_fn(cfg), params=params,
+                     config=spec["elastic_conf"], device="cpu")[0]
+    c = eng.config
+    out["elastic/batch"] = np.asarray(
+        [c.train_batch_size, c.train_micro_batch_size_per_gpu,
+         c.gradient_accumulation_steps])
+    rows = torch.from_numpy(inputs["elastic_tokens"][:c.train_batch_size])
+    out["elastic/loss"] = np.asarray(float(eng.train_batch(
+        {"tokens": rows})))
+
+
+SUITES["inj_hybrid"] = _suite_inj_hybrid
 
 
 def main(argv):

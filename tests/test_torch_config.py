@@ -2,11 +2,13 @@
 DeepSpeed dicts parse to the same fields, the batch arithmetic solves the
 same way, and every dataclass has the same fields with the same defaults.
 
-The intended differences: an enabled ``faults``, ``elasticity`` or
-``random_ltd`` block parses in the JAX package (which validates it in
-modules the port has not ported) and raises ``NotImplementedError`` in the
-port, naming the ROADMAP item.  An enabled ``curriculum_learning`` block
-parses in both, into each package's own ``CurriculumConfig``."""
+The intended differences: an enabled ``faults`` or ``random_ltd`` block
+parses in the JAX package (which validates it in modules the port has not
+ported) and raises ``NotImplementedError`` in the port, naming the ROADMAP
+item.  An enabled ``curriculum_learning`` block parses in both, into each
+package's own ``CurriculumConfig``, and an enabled ``elasticity`` block
+into each package's ``ElasticityConfig``, which resolves the batch alike
+(its three errors included)."""
 
 import dataclasses
 import inspect
@@ -96,10 +98,11 @@ INVALID = {
 RAISES = {
     "faults": ({"faults": {"seed": 3, "rules": [
         {"subsystem": "aio_read", "rate": 0.5, "count": 2}]}}, "faults"),
+    # ported: parses and resolves as the JAX package does (match None)
     "elasticity": ({"elasticity": {
         "enabled": True, "max_train_batch_size": 64,
         "micro_batch_sizes": [2, 4], "min_gpus": 1, "max_gpus": 16}},
-        "elasticity"),
+        None),
     "random_ltd": ({"random_ltd": {
         "enabled": True, "total_layer_num": 4, "random_ltd_layer_num": 2}},
         "random_ltd"),
@@ -154,6 +157,13 @@ def test_batch_sizes_resolve_the_same(d):
 @pytest.mark.parametrize("d,match", RAISES.values(), ids=RAISES.keys())
 def test_unported_blocks_raise_where_jax_parses(d, match):
     assert isinstance(_parse(jcfg, d), dict)
+    if match is None:
+        # a block ported since: it parses and resolves the same
+        assert _parse(tcfg, d) == _parse(jcfg, d)
+        for dp_world in (1, 2, 4, 7, 0):
+            assert _resolve(tcfg, d, dp_world) == \
+                _resolve(jcfg, d, dp_world), dp_world
+        return
     with pytest.raises(NotImplementedError, match=match):
         tcfg.Config.from_dict(d)
 

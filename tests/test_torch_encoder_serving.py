@@ -208,8 +208,22 @@ def test_unported_blocks_raise(model):
     _, tcfg, _, tp = model
     with pytest.raises(NotImplementedError, match="control-plane"):
         tes.bert_serving_engine(tp, tcfg, device="cpu", telemetry=True)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # a mesh is served (test_torch_tp_gpt2_bert.py); it must be a MeshSpec,
+    # and a sharded one without the model's specs is refused as JAX does
+    from deepspeed_tpu.topology import MeshSpec as JMesh
+    from deepspeed_tpu_torch.topology import AXES, MeshSpec
+
+    with pytest.raises(TypeError, match="MeshSpec"):
         tes.bert_serving_engine(tp, tcfg, device="cpu", mesh=object())
+    with pytest.raises(ValueError) as want:
+        jes.EncoderServingEngine(lambda p, t, m: t, {}, mesh=JMesh.build(
+            {"model": 2}, devices=jax.devices()[:2]))
+    with pytest.raises(ValueError) as got:
+        tes.EncoderServingEngine(lambda p, t, m: t, {}, device="cpu",
+                                 mesh=MeshSpec(sizes={
+                                     a: 2 if a == "model" else 1
+                                     for a in AXES}))
+    assert str(got.value) == str(want.value)
     tes.bert_serving_engine(tp, tcfg, device="cpu", telemetry=False)
     with pytest.raises(NotImplementedError, match="control-plane"):
         tes.CNNServingEngine({}, device="cpu", telemetry={})

@@ -30,6 +30,13 @@ from deepspeed_tpu_torch.integrations import hf as thf
 from deepspeed_tpu_torch.io import safetensors as tst
 from deepspeed_tpu_torch.weights import from_jax_params
 
+
+def _jax_specs(tree):
+    """A JAX spec tree with each ``PartitionSpec`` as the port's tuple."""
+    from jax.sharding import PartitionSpec as P
+
+    return jax.tree.map(tuple, tree, is_leaf=lambda x: isinstance(x, P))
+
 torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -62,7 +69,7 @@ def test_jax_checkpoint_into_the_port(llama_tiny, tmp_path):
     jhf.save_pretrained(params, cfg, str(tmp_path))
     fn, tp, tcfg, specs = from_pretrained(str(tmp_path), dtype=torch.float32,
                                           device="cpu")
-    assert specs is None                 # no TP spec trees before A9
+    assert specs == _jax_specs(jl.param_specs(cfg))   # JAX's TP tree
     assert (tcfg.dim, tcfg.n_layers, tcfg.n_kv_heads) == (
         cfg.dim, cfg.n_layers, cfg.n_kv_heads)
     _same_tree(params, tp)
@@ -259,7 +266,8 @@ def test_mixtral_converter_and_forward_eval_match_jax():
                                  {k: torch.from_numpy(v)
                                   for k, v in sd.items()},
                                  dtype=torch.float32, device="cpu")
-    assert specs is None and tcfg.num_experts == jcfg.num_experts
+    assert specs == _jax_specs(jm.param_specs(jcfg))
+    assert tcfg.num_experts == jcfg.num_experts
     _same_tree(want_tree, tp)
     jfn, jp, _, _ = jinj.inject("MixtralForCausalLM", hf_cfg, sd,
                                 dtype=jnp.float32)
@@ -286,13 +294,16 @@ def test_policies_and_unknown_arch():
                                               "num_attention_heads": 4,
                                               "vocab_size": 256},
                                     attn_impl="reference")
-    assert params is None and specs is None and cfg.attn_impl == "reference"
-    # ring and ulysses are ported; sparse attention still raises
+    assert params is None and cfg.attn_impl == "reference"
+    # the family's tensor-parallel spec tree, as JAX's inject returns it
+    from deepspeed_tpu_torch.models import llama as tl
+
+    assert specs == tl.param_specs(cfg)
+    # ring, ulysses and sparse attention are ported
     assert inject("llama", {"hidden_size": 64, "num_attention_heads": 4},
                   attn_impl="ring")[2].attn_impl == "ring"
-    with pytest.raises(NotImplementedError, match="sparse"):
-        inject("llama", {"hidden_size": 64, "num_attention_heads": 4},
-               attn_impl="sparse")
+    assert inject("llama", {"hidden_size": 64, "num_attention_heads": 4},
+                  attn_impl="sparse")[2].attn_impl == "sparse"
 
 
 def test_missing_weights_raise(tmp_path):

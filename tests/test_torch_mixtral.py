@@ -97,9 +97,9 @@ def test_config_presets_and_param_count():
         assert b.head_dim == a.head_dim
         assert dataclasses.asdict(b.moe_config()) == dataclasses.asdict(
             a.moe_config())
-        # the port's LlamaConfig has no sparse-attention block (A9)
+        # the port's LlamaConfig carries the sparse-attention block too
         want = dataclasses.asdict(a.llama_view())
-        assert want.pop("sparse_config") is None
+        assert want["sparse_config"] is None
         assert dataclasses.asdict(b.llama_view()) == want
     big = tm.MixtralConfig.mixtral_8x7b()
     assert tm.param_count(big) == 46_702_792_704
@@ -110,10 +110,13 @@ def test_config_presets_and_param_count():
     assert tm.MixtralConfig(dim=96).ffn_dim == jm.MixtralConfig(dim=96).ffn_dim
     with pytest.raises(ValueError, match="remat"):
         tm.MixtralConfig.tiny(remat="bogus")
-    # ring and ulysses are ported; sparse attention still raises
+    # ring, ulysses and sparse attention are ported; llama_view passes
+    # attn_impl on, as JAX's does, and an unknown one raises
     assert tm.MixtralConfig.tiny(attn_impl="ring").attn_impl == "ring"
+    assert tm.MixtralConfig.tiny(attn_impl="sparse").llama_view() \
+        .attn_impl == "sparse"
     with pytest.raises(NotImplementedError, match="attn_impl"):
-        tm.MixtralConfig.tiny(attn_impl="sparse")
+        tm.MixtralConfig.tiny(attn_impl="bogus")
     assert tm.MixtralConfig.tiny(attn_impl="reference").llama_view() \
         .attn_impl == "reference"
     with pytest.raises(ValueError, match="divide"):

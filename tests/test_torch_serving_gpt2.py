@@ -127,15 +127,20 @@ def test_registry_and_builder_checks(model):
     assert eng.kernels.paged_attention == "xla"
     with pytest.raises(ValueError, match="position table"):
         serving_engine(tp, tcfg, device="cpu", **dict(BASE, max_seq=256))
-    # a sharding mesh: GPT-2's param_specs are queued, and it has no
-    # expert dimension (as in the JAX builder)
+    # a sharding mesh: a model axis places this rank's blocks under
+    # gpt2.param_specs (served over ranks in test_torch_tp_gpt2_bert.py);
+    # GPT-2 has no expert dimension (as in the JAX gpt2_serving_engine)
     from deepspeed_tpu_torch.topology import AXES, MeshSpec
 
     with pytest.raises(TypeError, match="MeshSpec"):
         serving_engine(tp, tcfg, device="cpu", mesh=object(), **BASE)
-    with pytest.raises(NotImplementedError, match="param_specs"):
-        serving_engine(tp, tcfg, device="cpu", mesh=MeshSpec(sizes={
-            a: 2 if a == "model" else 1 for a in AXES}), **BASE)
+    eng = serving_engine(tp, tcfg, device="cpu", mesh=MeshSpec(sizes={
+        a: 2 if a == "model" else 1 for a in AXES}), **BASE)
+    d = tcfg.dim
+    assert eng.cache.k.shape[1] == tcfg.n_heads // 2
+    assert torch.equal(eng.params["blocks"]["qkv_w"], torch.cat(
+        [tp["blocks"]["qkv_w"][..., p * d:p * d + d // 2]
+         for p in range(3)], -1))
     with pytest.raises(ValueError, match="expert"):
         serving_engine(tp, tcfg, device="cpu", mesh=MeshSpec(sizes={
             a: 2 if a == "expert" else 1 for a in AXES}), **BASE)

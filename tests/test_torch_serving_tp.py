@@ -39,10 +39,27 @@ def _inputs():
     return cfg, jp, toks.astype(np.int32)
 
 
+# int8-resident pages (kv_tier.quantized_resident) under TP: held to the
+# port's own unsharded int8-resident engine (the JAX engine is no oracle
+# for it, ROADMAP C-f2)
+KVQ = dict(prefix_cache={}, num_pages=48,
+           kv_tier={"demote_watermark": 0.0, "quantize_cold": True,
+                    "quantized_resident": True})
+
+
+def _waves(seed=5, n=3):
+    """Two waves of prompts sharing a 20-token prefix."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, 256, 20).tolist()
+    return [{f"{w}{i}": shared + rng.integers(1, 256, int(rng.integers(
+        2, 9))).tolist() for i in range(n)} for w in ("a", "b")]
+
+
 @pytest.fixture(scope="module")
 def ranks():
     _, jp, toks = _inputs()
-    return td.run_ranks("serve_tp", 2, {"prompts": PROMPTS, "kw": KW},
+    return td.run_ranks("serve_tp", 2, {"prompts": PROMPTS, "kw": KW,
+                                        "kvq": KVQ, "waves": _waves()},
                         {"llama": jp, "fwd_tokens": toks})
 
 
@@ -137,3 +154,54 @@ def test_init_inference_over_the_mesh_matches_jax(ranks, dtype):
 def test_indivisible_kv_heads_refused(ranks):
     for o in ranks:
         assert "divisible" in str(o["refused"])
+
+
+def _unsharded_kvq():
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models import llama as tl
+    from deepspeed_tpu_torch.weights import from_jax_params
+
+    _, jp, _ = _inputs()
+    eng = llama_serving_engine(
+        from_jax_params(jp, device="cpu"),
+        tl.LlamaConfig.tiny(dim=64, n_layers=2, n_heads=4, n_kv_heads=2),
+        device="cpu", cache_dtype=torch.float32, **dict(KW, **KVQ))
+    toks = {}
+    for i, wave in enumerate(_waves()):
+        if i:
+            eng.step()
+        for rid, p in wave.items():
+            eng.submit(rid, p, max_new_tokens=8)
+        toks.update({rid: [int(t) for t in r]
+                     for rid, r in eng.run().items()})
+    return eng, toks
+
+
+def test_int8_resident_kv_under_tp_matches_unsharded(ranks):
+    """Each rank's int8 pages are the unsharded int8-resident cache's
+    slice of its KV heads: layer 0 (whose input is the same on both)
+    code for code and scale for scale; the later layers read a residual
+    whose row-parallel sums were reduced over ranks, so their codes agree
+    within one step and their scales at 1e-5.  Tokens are identical, the
+    warm pages demote and promote through each rank's host tier, which
+    holds that rank's heads."""
+    eng, want = _unsharded_kvq()
+    assert eng.kv_tier_quant_resident_promotes > 0
+    for m, o in enumerate(ranks):
+        got = {k[len("kvq/tok/"):]: o[k].tolist() for k in o
+               if k.startswith("kvq/tok/")}
+        assert got == want
+        demoted, promoted, qpromotes, hits = o["kvq/counts"]
+        assert demoted > 0 and promoted > 0 and qpromotes > 0 and hits > 0
+        assert o["kvq/tier_page_shape"][1] == 1        # 2 KV heads / 2
+        for name in ("k", "v", "k_scale", "v_scale"):
+            whole = getattr(eng.cache, name).numpy()
+            mine = whole[:, m:m + 1]
+            assert o[f"kvq/{name}"].shape == mine.shape
+            np.testing.assert_array_equal(o[f"kvq/{name}"][0], mine[0])
+            if name in ("k", "v"):
+                assert np.abs(o[f"kvq/{name}"].astype(np.int32)
+                              - mine.astype(np.int32)).max() <= 1
+            else:
+                np.testing.assert_allclose(o[f"kvq/{name}"], mine,
+                                           rtol=1e-5)
