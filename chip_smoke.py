@@ -152,9 +152,10 @@ and runs, in order:
    layers (divergences reported); B5 at the verify window C = K+1 (4, 5)
    beside C = 1; ``verify_accept`` card against CPU;
 31. the headline: Llama-3-8B all streamed with speculation, and
-   Mixtral-8x7B in bf16 at 16 of 32 layers (46.7 GB image; 32 until PR
-   20) under a 32 GB device budget, speculation off and on: sweeps, streamed bytes per
-   emitted token, ms per sweep beside the link bound, the exposed-wait
+   Mixtral-8x7B in bf16 at 4 of 32 layers (11.7 GB image; 32 before
+   phases 48-52, 16 before 53-59, 8 before 60-61) under an 11 GB device
+   budget, speculation off and on: sweeps, streamed bytes per emitted
+   token, ms per sweep beside the link bound, the exposed-wait
    share, tokens/s, acceptance, peak memory;
 32. phase 11's two waves with speculation on, the host tier against a
    host pool small enough that wave A cascades to NVMe (wave B promotes
@@ -165,8 +166,9 @@ and runs, in order:
    Adam over Llama-3-8B's 525 M-element embedding leaf (seconds, GB/s, a
    16 M-element slice against the plain mirror), the env report's host
    rows;
-34. Llama-3-8B's seeded bf16 weights exported with ``save_pretrained`` (32.1
-   GB of f32 safetensors under the temp dir) and loaded back with
+34. Llama-3-8B's seeded bf16 weights at 8 of 32 layers exported with
+   ``save_pretrained`` (f32 safetensors under the temp dir; all 32, 32.1
+   GB, before phases 48-52, 16 before 60-61) and loaded back with
    ``from_pretrained``: the tree bit for bit, phase 5's traffic served with
    identical tokens and bitwise first logits, peak host RSS; a tiny
    Mixtral through ``inject`` on the card against the CPU;
@@ -211,7 +213,7 @@ and runs, in order:
    engine's qgZ, qwZ and hpZ run at a world above one), each bit for bit
    the same function over B9's plain version on the card; B9's launches,
    device time, bound and share at this flat shape;
-42. in the same rank: GPT-2 1.3B at 12 of 24 layers (phase 19's config under
+42. in the same rank: GPT-2 1.3B at 6 of 24 layers (phase 19's config under
    ``save_attn``) through ZeRO stages 0, 1, 2 and 3, 3 steps each: losses
    and every master leaf bit for bit equal across stages, ms/step beside
    phase 19's, peak memory, the comms logger's collectives and bytes a
@@ -230,7 +232,7 @@ and runs, in order:
    and gloo stages every collective of a CUDA tensor but all_reduce and
    broadcast through host memory, so collective times are host-staged
    gloo's): 43, tensor-parallel serving over model 2, Llama-3-8B bf16 at
-   32 layers on phase 5's queue, then int8 weights, each against the
+   16 of 32 layers on phase 5's queue, then int8 weights, each against the
    one-rank engine on the same weights (first prefill logits), and a tiny
    f32 Llama's tokens identical; 44, tensor-parallel training at phase 8's
    config against phase 8's losses, with the hybrid engine's rollouts
@@ -245,12 +247,13 @@ and runs, in order:
    2 at phase 40's depth against its step 1; 52, ZeRO-Inference over
    model 2, Llama-3-8B bf16 at 32 layers streamed from each rank's host
    tier, against phase 29's first prefill logits, and a tiny f32 Llama's
-   tokens identical; 53, GPT-2 1.3B served over model 2 at 24 layers (each
+   tokens identical; 53, GPT-2 1.3B served over model 2 at 12 of 24 layers (each
    rank its heads of the fused QKV), bf16 and int8, against the one-rank
-   engine; 54, GPT-2 1.3B at 12 layers trained over model 2 against phase
+   engine; 54, GPT-2 1.3B at 6 layers trained over model 2 against phase
    42's losses, its stage-0 checkpoint read into one rank bit for bit; 55,
-   BERT-large over model 2, the pooled and MLM heads bf16 and int8 against
-   one rank, two training steps against phase 26's losses; 56, phase 43's
+   BERT-large over model 2, the pooled and MLM heads bf16 and int8 at 12
+   of 24 layers against one rank, two training steps at 24 against phase
+   26's losses; 56, phase 43's
    Llama-3-8B with int8-resident pages over model 2, each rank's pages
    against the one-rank cache's head slice; 57, an injected tiny Llama
    and Mixtral over model 2 (and expert 2), the hybrid engine's first
@@ -263,7 +266,21 @@ and runs, in order:
    two falling steps each, ms and peak memory beside phase 8's;
 59. ``autotune_config`` over GPT-2 1.3B at 4 layers: micro 1 / 2 x remat
    none / full and an unknown policy, the fastest measured candidate
-   wins, the failed ones are listed, a second call reads the cache.
+   wins, the failed ones are listed, a second call reads the cache;
+60. the serving control plane on phase 5's Llama-3-8B weights (after phase
+   11): every block of the slice on (telemetry, tracing, two SLO tiers
+   with deadline shedding, queue-depth shedding, history, incidents,
+   devprof on CUDA events, a seeded fault plan failing three named slots
+   and corrupting every demote), two waves of 16 prompts through the
+   prefix cache and the host tier, against the engine with them off:
+   survivors' tokens identical, the corrupted spans caught by the crc and
+   re-prefilled to the same tokens, counts reconciled, no leak; then
+   whole-prompt prefill (B1) on vs off, and an int8-resident pair (B9, B7)
+   under the same corruption;
+61. the training control plane at phase 8's widths cut to 2 layers (after
+   phase 8): telemetry, the csv monitor, a Watchdog and one
+   ``FlopsProfiler`` forward against the engine without them, losses and
+   state bit for bit.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -276,8 +293,9 @@ serving run and the injected Mixtral of phase 34, the LoRA run of phase
 35, the hybrid rollouts and step, distillation and Trainer runs of
 phase 36, the offload engines' runs of phases 37-40, the wire of phase
 41, each ZeRO stage's run of phase 42, the offload runs of phase 48, the
-two-rank runs of phases 43-47 and 49-57, both ranks' counts summed, and
-the sparse and autotune runs of phases 58-59)
+two-rank runs of phases 43-47 and 49-57, both ranks' counts summed, the
+sparse and autotune runs of phases 58-59, and the control-plane runs of
+phases 60-61)
 counts the
 launches
 of every kernel on its own (counters set to 0 just before it and read just
@@ -1567,6 +1585,10 @@ def phase_serving(kernels, card_line):
         results[chunk], outs[chunk] = m, out
     launches.update(phase_tier_serving(params, cfg, prompts, kernels,
                                        card_line))
+    _lap("phases 5, 11 (serving, the tiered waves, the v1 arm)")
+    launches.update(phase_control_plane_serving(params, cfg, kernels,
+                                                card_line))
+    _lap("phase_control_plane_serving (phase 60)")
     # phase 14 builds its int8 engine from these weights and then frees
     # them: hand the only reference over
     holder = [params]
@@ -1715,6 +1737,368 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
         raise SystemExit(f"{path} failed")
     _check_launches(path, launches[path],
                     ("flash_fwd", "paged_attention_v1", "greedy_argmax"))
+    return launches
+
+
+# ------------------------------------------------------------ phase 60
+# the control plane on the serving engine: 16 distinct prompts a wave, of
+# 300-700 tokens (prefill_chunk 256: two or three chunks), 16 new tokens
+CP_PROMPTS, CP_NEW, CP_LO, CP_HI = 16, 16, 300, 700
+CP_SLO = {"tiers": {"interactive": {"ttft_s": 60.0, "deadline_s": 600.0,
+                                    "target": 0.9},
+                    "batch": {"deadline_s": 600.0, "target": 0.5}},
+          "default_tier": "interactive"}
+# three named requests fail in their slots: A3 at its first opportunity
+# (mid prefill), A5 and A6 later (in decode); every demote is corrupted
+# after its crc was recorded
+CP_FAULTS = {"seed": 22, "rules": [
+    {"subsystem": "slot", "match": "A3", "count": 1},
+    {"subsystem": "slot", "match": "A5", "after": 6, "count": 1},
+    {"subsystem": "slot", "match": "A6", "after": 10, "count": 1},
+    {"subsystem": "kv_corrupt"}]}
+CP_SHED_DEPTH = 12
+# the JAX engine's /statusz, /healthz and /requestz keys
+STATUSZ_KEYS = (
+    "schema_version", "wire_schema", "t_wall", "t_mono_ns", "engine",
+    "replica", "weights_version", "t", "uptime_s", "last_step_age_s",
+    "max_batch", "active_slots", "slots", "queue",
+    "finished_pending_drain", "kv", "prefix_cache", "kv_tier",
+    "speculative", "mesh", "kernels", "history", "incidents", "devprof",
+    "telemetry", "slo", "robustness", "metrics")
+HEALTHZ_KEYS = ("wire_schema", "t_wall", "t_mono_ns", "alive", "ready",
+                "replica", "uptime_s", "last_step_age_s", "queue_depth",
+                "active_slots", "watchdog", "degraded", "reasons")
+REQUESTZ_KEYS = ("req", "found", "state", "slot", "tracing_enabled",
+                 "events")
+
+
+def _cp_blocks(tmp):
+    """Every block of the control-plane slice, on."""
+    return dict(
+        telemetry={"enabled": True},
+        tracing={"sample_rate": 1.0, "dump_dir": os.path.join(tmp, "flight")},
+        slo=CP_SLO, shed_queue_depth=CP_SHED_DEPTH,
+        shed_expired_deadline=True,
+        history={"sample_interval_s": 0.5},
+        incidents={"eval_interval_s": 0.5,
+                   "dir": os.path.join(tmp, "incidents")},
+        devprof={"sample_rate": 1.0}, faults=CP_FAULTS)
+
+
+def _cp_wave(eng, wave, new, late=None):
+    """Submit a wave at once (``late``: one id submitted first, its arrival
+    1000 s in the past, on the batch tier) and step until it drains;
+    returns every id's typed result and the wave's timing."""
+    sheds = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (rid, p) in enumerate(wave.items()):
+        kw = {}
+        if rid == late:
+            kw = dict(tier="batch", arrival=time.perf_counter() - 1000.0)
+        elif i % 2:
+            kw = dict(tier="batch")
+        if getattr(eng, "_slo_on", False) is False:
+            kw = {}
+        sheds += eng.submit(rid, p, max_new_tokens=new, **kw) is not None
+    decode_only = []
+    while eng.has_work:
+        chunks, queued = eng.prefill_chunks, len(eng.queue)
+        busy = [s is not None for s in eng.slots]
+        ts = time.perf_counter()
+        eng.step()
+        if (eng.prefill_chunks == chunks and len(eng.queue) == queued
+                and busy == [s is not None for s in eng.slots]):
+            decode_only.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    return {rid: eng.finished[rid] for rid in wave}, {
+        "wall_s": time.perf_counter() - t0, "shed_at_submit": sheds,
+        "ms_per_decode_step": (float(np.median(decode_only)) * 1e3
+                               if decode_only else None),
+        "decode_only_steps": len(decode_only)}
+
+
+def _cp_paired(engines, wave, new):
+    """Serve one wave on each engine, a step of each in turn and the order
+    flipped every round, so that the host's drift falls on all alike;
+    returns each engine's typed results and its decode-only steps' ms."""
+    for eng in engines:
+        for rid, p in wave.items():
+            eng.submit(rid, p, max_new_tokens=new)
+    steps = [[] for _ in engines]
+    turn = list(range(len(engines)))
+    while any(e.has_work for e in engines):
+        for i in turn:
+            eng = engines[i]
+            if not eng.has_work:
+                continue
+            queued, busy = len(eng.queue), [s is not None for s in eng.slots]
+            ts = time.perf_counter()
+            eng.step()
+            if (len(eng.queue) == queued
+                    and busy == [s is not None for s in eng.slots]):
+                steps[i].append((time.perf_counter() - ts) * 1e3)
+        turn.reverse()
+    return [({rid: e.finished[rid] for rid in wave}, ms)
+            for e, ms in zip(engines, steps)]
+
+
+def _cp_reconcile(eng, typed):
+    """Finished, failed and shed counts against the submissions, in the
+    typed results, the telemetry counters and the SLO tracker."""
+    from deepspeed_tpu_torch.inference.serving import (RequestFailed,
+                                                       RequestShed)
+
+    n_tok = sum(isinstance(v, list) for v in typed.values())
+    n_shed = sum(isinstance(v, RequestShed) for v in typed.values())
+    n_fail = sum(isinstance(v, RequestFailed) for v in typed.values())
+    c = eng.registry.snapshot()["counters"]
+    life = [t["lifetime"] for t in
+            eng.slo_tracker.snapshot()["tiers"].values()]
+    got = {"submitted": len(typed), "finished": n_tok, "shed": n_shed,
+           "failed": n_fail,
+           "counter_shed": c.get("serving_shed_requests", 0),
+           "counter_failed": c.get("serving_failed_requests", 0),
+           "slo_shed": sum(x["shed"] for x in life),
+           "slo_failed": sum(x["failed"] for x in life),
+           "slo_classified": sum(x["attained"] + x["violated"]
+                                 for x in life)}
+    ok = (n_tok + n_shed + n_fail == len(typed)
+          and got["counter_shed"] == got["slo_shed"] == n_shed
+          and got["counter_failed"] == got["slo_failed"] == n_fail
+          and got["slo_classified"] == n_tok + n_fail)
+    return ok, got
+
+
+def _cp_documents(eng, rid):
+    """statusz / healthz / requestz / historyz / profilez: each parses as
+    JSON and carries the JAX engine's keys."""
+    docs = {"statusz": eng.statusz(), "healthz": eng.healthz(),
+            "requestz": eng.requestz(rid), "historyz": eng.historyz(),
+            "profilez": eng.profilez()}
+    for name, doc in docs.items():
+        json.loads(json.dumps(doc))
+    missing = {n: [k for k in keys if k not in docs[n]] for n, keys in (
+        ("statusz", STATUSZ_KEYS), ("healthz", HEALTHZ_KEYS),
+        ("requestz", REQUESTZ_KEYS))}
+    return docs, {n: m for n, m in missing.items() if m}
+
+
+def phase_control_plane_serving(params, cfg, kernels, card_line):
+    """Phase 60: the control plane of one serving process at Llama-3-8B full
+    width on phase 5's weights (bf16), prefix cache and host KV tier on.
+
+    (a) Two waves of the same 16 distinct prompts, the second after an idle
+    step that demotes every warm page, on the engine with every block of
+    the slice on (telemetry, tracing, two SLO tiers with deadlines and
+    deadline shedding, queue-depth shedding at 12 of a burst of 16,
+    history, incidents, devprof sampling every phase, and a seeded fault
+    plan: three named slot failures, every demote corrupted), and wave A
+    on the same engine with the blocks off.  Gates: the survivors' tokens
+    equal the blocks-off engine's (wave B, whose demoted pages all fail
+    their crc and re-prefill from the span's first page, against the
+    blocks-off engine's fresh prefill of the same prompt); the three
+    targets fail as ``slot_exception`` (one before its first token);
+    check_leaks is empty; the counts reconcile across the typed results,
+    the telemetry counters and the SLO tracker; the documents carry JAX's
+    keys; devprof's device seconds come from CUDA events.  (b) The blocks'
+    cost on the same traffic: the 16 prompts cut to 300 tokens, whole-
+    prompt prefill (B1), an engine with every block on but the faults and
+    the queue-depth shed (nothing is shed or failed) and one with the
+    blocks off, stepped in turn: identical tokens and schedules, and the
+    decode step times side by side.  (c) An
+    int8-resident wave pair of 4 prompts
+    under the same kv_corrupt rule (B9 writes, B7 reads): wave B
+    re-prefills to wave A's tokens."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.serving import (RequestFailed,
+                                                       RequestShed,
+                                                       llama_serving_engine)
+
+    def zero():
+        _zero(k["fn"] for k in kernels)
+
+    def counts():
+        return {k["name"]: k["fn"].launches for k in kernels}
+
+    rng = np.random.default_rng(60)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(CP_LO, CP_HI, CP_PROMPTS)]
+    waves = [{f"{w}{i}": p for i, p in enumerate(prompts)} for w in "AB"]
+    opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=1025,
+                cache_dtype=params["embed"].dtype, prefill_chunk=256,
+                prefix_cache={})
+    kvt = {"demote_watermark": 0.0, "host_pool_bytes": 4 << 30}
+    tmp = tempfile.mkdtemp(prefix="dstt_cp_")
+    launches, res, metrics = {}, {}, {}
+    for arm in ("off", "on"):
+        blocks = (_cp_blocks(tmp) if arm == "on"
+                  else dict(telemetry=False, tracing=False))
+        path = f"control plane serving ({arm})"
+        eng = llama_serving_engine(params, cfg, kv_tier=dict(kvt),
+                                   **blocks, **opts)
+        try:
+            zero()
+            out_a, m_a = _cp_wave(eng, waves[0], CP_NEW,
+                                  late="A0" if arm == "on" else None)
+            out_b, m_b = {}, {"wall_s": 0.0}
+            if arm == "on":            # the blocks-off wave A is the oracle
+                eng.step()             # idle: the watermark demotes all
+                out_b, m_b = _cp_wave(eng, waves[1], CP_NEW)
+            launches[path] = counts()
+            _check_bodies(path)
+            leaks = eng.check_leaks()
+            typed = {**out_a, **out_b}
+            res[arm] = typed
+            metrics[arm] = {"A": m_a, "B": m_b, "leaks": leaks,
+                            "checksum_failures":
+                                eng.kv_tier_checksum_failures,
+                            "fallback_events": eng.kv_tier_fallback_events,
+                            "promoted": eng.allocator.promoted,
+                            "demoted": eng.allocator.demoted}
+            if arm == "on":
+                ok_count, recon = _cp_reconcile(eng, typed)
+                docs, missing = _cp_documents(eng, "A1")
+                plan = eng._fault_plan.snapshot()
+                dev = docs["profilez"]
+                c = docs["statusz"]["metrics"]["counters"]
+                dev["decode_ms_per_chunk"] = (
+                    dev["device_seconds"]["decode"] * 1e3
+                    / max(c["serving_decode_syncs"], 1))
+                metrics["on"].update(reconcile=recon, reconcile_ok=ok_count,
+                                     missing_keys=missing,
+                                     faults=plan, devprof=dev,
+                                     degraded=docs["healthz"]["reasons"])
+        finally:
+            eng.shutdown()
+            del eng
+            torch.cuda.empty_cache()
+    on, off = res["on"], res["off"]
+    failed = {r: v for r, v in on.items() if isinstance(v, RequestFailed)}
+    shed = {r: v.reason for r, v in on.items() if isinstance(v, RequestShed)}
+    # survivors against the blocks-off engine: wave A by id; wave B
+    # re-prefilled from page 0 against the fresh prefill of its prompt
+    mismatched = [r for r, v in on.items() if isinstance(v, list) and v != (
+        off[r] if r[0] == "A" else off["A" + r[1:]])]
+    m = metrics["on"]
+    dev = m["devprof"]
+    log(f"[control plane] llama3_8b layers={cfg.n_layers} bf16, "
+        f"prefix_cache + host kv_tier {kvt}, prefill_chunk=256, "
+        f"{CP_PROMPTS} prompts of {CP_LO}-{CP_HI} tokens a wave x 2 "
+        f"waves, {CP_NEW} new: failed {sorted(failed)} (generated "
+        f"{ {r: v.generated for r, v in failed.items()} }), shed {shed}, "
+        f"survivors {sum(isinstance(v, list) for v in on.values())}, "
+        f"tokens differing from the blocks-off engine {mismatched}; "
+        f"reconcile {m['reconcile']}; "
+        f"kv_tier checksum failures {m['checksum_failures']} fallback "
+        f"events {m['fallback_events']} promoted {m['promoted']} (off: "
+        f"{metrics['off']['promoted']}) demoted {m['demoted']}; faults "
+        f"fired {m['faults']['injected']} of {m['faults']['opportunities']}"
+        f"; degraded {m['degraded']}; check_leaks on {m['leaks']} off "
+        f"{metrics['off']['leaks']}; missing document keys "
+        f"{m['missing_keys']}")
+    log(f"[control plane] devprof (CUDA events, every phase sampled): "
+        f"device seconds {dev['device_seconds']} ("
+        f"{dev['decode_ms_per_chunk']:.3f} ms a decode chunk) host-device gap "
+        f"{dev['host_device_gap_s']} mfu {dev['mfu']} mbu {dev['mbu']} "
+        f"compiles warmup {dev['compiles_warmup']} steady "
+        f"{dev['compiles_steady']}")
+    log(f"[control plane] decode step wave A (not one traffic: the on arm "
+        f"sheds and fails requests; (b) reads the cost): blocks on "
+        f"{m['A']['ms_per_decode_step']} ms ({m['A']['decode_only_steps']} "
+        f"decode-only steps), off {metrics['off']['A']['ms_per_decode_step']}"
+        f" ms ({metrics['off']['A']['decode_only_steps']}); wave walls on "
+        f"{m['A']['wall_s']:.2f} / {m['B']['wall_s']:.2f} s, off "
+        f"{metrics['off']['A']['wall_s']:.2f} s on {card_line}; kernel "
+        f"launches {launches}")
+    ok = (sorted(failed) == ["A3", "A5", "A6"]
+          and all(v.reason == "slot_exception" for v in failed.values())
+          and failed["A3"].generated == 0
+          and failed["A5"].generated > 0 and failed["A6"].generated > 0
+          and shed.get("A0") == "deadline"
+          and sum(r == "queue_depth" for r in shed.values()) == 8
+          and not mismatched and m["reconcile_ok"] and not m["leaks"]
+          and not metrics["off"]["leaks"] and not m["missing_keys"]
+          and m["checksum_failures"] > 0
+          and m["checksum_failures"] == m["fallback_events"]
+          and dev["device_seconds"]["decode"] > 0
+          and dev["device_seconds"]["prefill"] > 0)
+    if not ok:
+        raise SystemExit("phase 60 (control plane serving) failed")
+    for path in launches:
+        _check_launches(path, launches[path],
+                        ("paged_attention", "greedy_argmax"))
+
+    # (b) the blocks' cost on the same traffic: whole-prompt prefill (B1),
+    # every block on but the faults and the queue-depth shed, against off
+    short = {f"W{i}": p[:CP_LO] for i, p in enumerate(prompts)}
+    path = "control plane whole-prompt (off and on, paired)"
+    on_blocks = {k: v for k, v in _cp_blocks(tmp).items()
+                 if k not in ("faults", "shed_queue_depth")}
+    pair = [llama_serving_engine(params, cfg, **blocks, **dict(
+        opts, prefill_chunk=0, prefix_cache=None))
+        for blocks in (dict(telemetry=False, tracing=False), on_blocks)]
+    try:
+        zero()
+        (out_off, ms_off), (out_on, ms_on) = _cp_paired(pair, short, CP_NEW)
+        launches[path] = counts()
+        _check_bodies(path)
+        _check_launches(path, launches[path], SERVING_KERNELS)
+        leaks = [e.check_leaks() for e in pair]
+    finally:
+        for e in pair:
+            e.shutdown()
+        del pair
+    ratios = [a / b for a, b in zip(ms_on, ms_off)]
+    log(f"[control plane] the blocks' cost on the same traffic ({len(short)} "
+        f"prompts of {CP_LO} tokens, whole-prompt prefill, {CP_NEW} new; "
+        f"every block on but faults and queue-depth shedding, against off; "
+        f"the two engines stepped in turn, the order flipped each round): "
+        f"decode-only steps on {len(ms_on)} off {len(ms_off)}; ms a decode "
+        f"step on median {float(np.median(ms_on))} off "
+        f"{float(np.median(ms_off))}; on / off step by step: median "
+        f"{float(np.median(ratios))} quartiles "
+        f"{[float(q) for q in np.percentile(ratios, [25, 75])]} on "
+        f"{card_line}; tokens identical {out_on == out_off}; check_leaks "
+        f"{leaks}")
+    if out_on != out_off or any(leaks) or not all(
+            isinstance(v, list) for v in out_on.values()):
+        raise SystemExit("phase 60 (b): the blocks changed the tokens, or "
+                         "an engine leaked")
+
+    # (c) int8-resident pages under the same kv_corrupt rule
+    path = "control plane int8-resident"
+    eng = llama_serving_engine(
+        params, cfg, kv_tier=dict(TIER_KV, host_pool_bytes=1 << 30),
+        faults={"rules": [{"subsystem": "kv_corrupt"}]},
+        **dict(opts, max_seq=1024))
+    try:
+        zero()
+        wa = {f"QA{i}": p for i, p in enumerate(prompts[:4])}
+        wb = {f"QB{i}": p for i, p in enumerate(prompts[:4])}
+        out_a, _ = _cp_wave(eng, wa, CP_NEW)
+        eng.step()
+        out_b, _ = _cp_wave(eng, wb, CP_NEW)
+        launches[path] = counts()
+        _check_bodies(path)
+        _check_launches(path, launches[path],
+                        ("paged_attention_quant", "greedy_argmax",
+                         "quantize"))
+        same = all(out_b["QB" + r[2:]] == v for r, v in out_a.items())
+        q = (eng.kv_tier_checksum_failures, eng.kv_tier_fallback_events,
+             eng.check_leaks())
+    finally:
+        eng.shutdown()
+        del eng
+        torch.cuda.empty_cache()
+    log(f"[control plane] int8-resident waves under kv_corrupt: wave B "
+        f"equal to wave A {same}, checksum failures {q[0]} fallback events "
+        f"{q[1]} check_leaks {q[2]}; B7 launches "
+        f"{launches[path]['paged_attention_quant']} B9 launches "
+        f"{launches[path]['quantize']}")
+    if not (same and q[0] > 0 and q[0] == q[1] and not q[2]):
+        raise SystemExit("phase 60 (c) failed")
     return launches
 
 
@@ -2344,6 +2728,154 @@ def phase_train(fns, card_line):
     torch.cuda.empty_cache()
     return launches, {"steps": steps, "traced_ms": traced_ms,
                       "device_busy_ms": busy, "device_idle_share": idle}
+
+
+# ------------------------------------------------------------ phase 61
+# phase 8's widths cut to 2 layers, 2 steps of rows of 2048 tokens
+CP_TRAIN_LAYERS, CP_TRAIN_STEPS, CP_TRAIN_T = 2, 2, 2048
+# the CSV files JAX's monitor writes for a training run with the telemetry
+# exporter bridged in (tests/test_torch_engine_telemetry.py holds the port's
+# to JAX's on the CPU)
+CP_TRAIN_CSV = (
+    "Train_loss.csv", "Train_lr.csv", "Train_grad_norm.csv",
+    "Train_samples_per_sec.csv", "Telemetry_train_loss.csv",
+    "Telemetry_train_lr.csv", "Telemetry_train_grad_norm.csv",
+    "Telemetry_train_mfu.csv", "Telemetry_train_samples_per_sec.csv",
+    "Telemetry_train_steps.csv", "Telemetry_train_step_seconds_count.csv",
+    "Telemetry_train_step_seconds_mean.csv",
+    "Telemetry_train_step_seconds_sum.csv")
+
+
+def _csv_rows(path) -> int:
+    """Data rows of one monitor csv file (its header line not counted)."""
+    with open(path) as f:
+        return sum(1 for _ in f) - 1
+
+
+def phase_control_plane_train(fns, card_line):
+    """Phase 61: the training engine at phase 8's widths cut to 2 layers,
+    2 steps of phase 8's config (fused Adam, bf16 compute), with the
+    telemetry block (step_sync) and the csv monitor on, a Watchdog petted
+    each step, and one forward profiled by ``FlopsProfiler``, against the
+    same engine with every block off: the losses and every state leaf bit
+    for bit; the csv files carry JAX's tags, a row a step; the telemetry
+    snapshot's step time and MFU are read against
+    ``timers.device_peak_flops`` of this card.  The csv files carry JAX's
+    tags: a row a step for the ``Train/`` tags (steps_per_print 1), at least
+    one for the ``Telemetry/`` tags (the exporter's interval)."""
+    import dataclasses
+    import tempfile
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, loss_fn
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+    from deepspeed_tpu_torch.profiler import FlopsProfiler
+    from deepspeed_tpu_torch.timers import device_peak_flops
+    from deepspeed_tpu_torch.utils.watchdog import Watchdog
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              n_layers=CP_TRAIN_LAYERS)
+    steps, T = CP_TRAIN_STEPS, CP_TRAIN_T
+    rng = np.random.default_rng(61)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, T)).astype(
+        np.int32)}
+    tmp = tempfile.mkdtemp(prefix="dstt_cp_train_")
+    runs = {}
+    for arm in ("off", "on"):
+        conf = _train_config(2, 2, {"bf16": {"enabled": True}})
+        conf["steps_per_print"] = 1
+        if arm == "on":
+            conf["telemetry"] = {"enabled": True, "step_sync": True,
+                                 "prometheus_path": os.path.join(
+                                     tmp, "train.prom")}
+            conf["csv_monitor"] = {"enabled": True, "output_path": tmp,
+                                   "job_name": "phase61"}
+        else:
+            conf["telemetry"] = {"enabled": False}
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(61),
+                             device="cuda", dtype=torch.float32)
+        eng = initialize(loss_fn=loss_fn(cfg), params=params, config=conf,
+                         optimizer=fused_adam(lr=_warmup(),
+                                              weight_decay=0.1))[0]
+        del params
+        wd = None
+        if arm == "on":
+            eng.tput_timer.start_step = 0
+            eng.tput_timer.seq_len = T - 1
+            eng.tput_timer.flops_per_sample = _train_flops_per_sample(
+                cfg, T - 1)
+            wd = Watchdog(timeout_s=600.0, abort_on_timeout=False).start()
+        _zero(fns.values())
+        losses, ms = [], []
+        try:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                losses.append(float(eng.train_batch(batch)))
+                ms.append((time.perf_counter() - ts) * 1e3)
+                if wd is not None:
+                    wd.pet()
+        finally:
+            if wd is not None:
+                wd.stop()
+        launches = {n: f.launches for n, f in fns.items()}
+        _check_bodies(f"control plane training ({arm})", record=arm == "on")
+        run = {"losses": losses, "ms": ms, "launches": launches,
+               "digest": _state_digest(eng.state)}
+        if arm == "on":
+            cparams = eng._compute_params()
+            lfn = loss_fn(cfg)
+            local = {k: torch.as_tensor(v[:1], device="cuda")
+                     for k, v in batch.items()}
+            prof = FlopsProfiler(lfn).profile(cparams, local, iters=2,
+                                              warmup=1)
+            del cparams
+            snap = eng.telemetry_snapshot()
+            run.update(
+                flops_profile=prof, snapshot={
+                    "train_steps": snap["counters"]["train_steps"],
+                    "train_mfu": snap["gauges"]["train_mfu"],
+                    "samples_per_sec": snap["gauges"][
+                        "train_samples_per_sec"],
+                    "step_seconds": snap["histograms"][
+                        "train_step_seconds"]},
+                watchdog=wd.health(),
+                peak_flops=device_peak_flops(eng.device))
+            eng.monitor.close()
+            csv_dir = os.path.join(tmp, "phase61")
+            run["csv"] = {f: _csv_rows(os.path.join(csv_dir, f))
+                          for f in sorted(os.listdir(csv_dir))}
+        runs[arm] = run
+        del eng
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    same = on["losses"] == off["losses"] and on["digest"] == off["digest"]
+    # the Train/ tags a row a step (steps_per_print 1), the telemetry
+    # exporter's at least one (its interval)
+    missing = [f for f in CP_TRAIN_CSV if on["csv"].get(f, 0) < (
+        steps if f.startswith("Train_") else 1)]
+    step_s = on["snapshot"]["step_seconds"]
+    log(f"[control plane train] llama3_8b widths layers={cfg.n_layers}, "
+        f"phase 8's config, {steps} steps: losses on {on['losses']} off "
+        f"{off['losses']}; losses and state bit for bit {same}; ms/step on "
+        f"{[round(x, 1) for x in on['ms']]} off "
+        f"{[round(x, 1) for x in off['ms']]} on {card_line}; telemetry "
+        f"snapshot {on['snapshot']} (MFU against peak "
+        f"{on['peak_flops']} FLOP/s); csv rows {on['csv']} (missing "
+        f"{missing}); watchdog {on['watchdog']}; FlopsProfiler forward of "
+        f"one row: {on['flops_profile']}; kernel launches on "
+        f"{on['launches']}")
+    ok = (same and not missing and on["snapshot"]["train_steps"] == steps
+          and step_s["count"] == steps and not on["watchdog"]["fired"]
+          and on["flops_profile"]["flops"] > 0
+          and on["snapshot"]["train_mfu"] > 0)
+    if not ok:
+        raise SystemExit("phase 61 (control plane training) failed")
+    _check_launches("control plane training", on["launches"],
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "fused_adam"))
+    return {"control plane training (on)": on["launches"]}
 
 
 # ------------------------------------------------------------ phase 15
@@ -3316,7 +3848,9 @@ def phase_gpt2_train(fns, card_line):
 # which phases 48-52 raised; int8 stays at all 32)
 MIXTRAL_BF16_LAYERS, MIXTRAL_TRAIN_LAYERS = 8, 2
 # new tokens a request (32 until PR 20: the smoke's time)
-MIXTRAL_NEW = 16
+# phase 21's new tokens a request (16 before phases 60-61: the smoke's
+# time; an int8 decode step at 32 layers takes ~0.4 s)
+MIXTRAL_NEW = 8
 # phase 21's first prefill, the kernel arm's logits against the plain
 # arm's (B1 and B5 against the reference attention and the xla paged arm,
 # bf16, 8 layers), on the rows whose own top-2 routing agrees in every
@@ -3694,7 +4228,7 @@ def phase_mixtral_serving(fns, card_line):
     """Mixtral-8x7B at full width, seeded weights.  bf16 at 8 layers
     (23.5 GB): the first prefill's logits through the kernel arm against
     the plain arm; the engine (max_batch 8, pages of 16, max_seq 1024) over 8
-    prompts of 64-768 tokens, 16 new tokens each, whole-prompt and
+    prompts of 64-768 tokens, MIXTRAL_NEW new tokens each, whole-prompt and
     ``prefill_chunk=256``; ``mixtral_generator`` and
     ``mixtral_paged_generator`` on 8 prompts of 128; a decode step's
     split.  Then int8 at all 32 layers (48.2 GB), built a layer at a time
@@ -4885,12 +5419,13 @@ ZI_LLAMA_OPTS = dict(max_batch=8, page_size=16, max_seq=2048,
                      num_pages=1025, cache_dtype=torch.bfloat16)
 ZI_MIXTRAL_OPTS = dict(max_batch=8, page_size=16, max_seq=1024,
                        num_pages=1025, cache_dtype=torch.bfloat16)
-# phase 31 (b): Mixtral-8x7B's bf16 image cut to 8 of 32 layers (23.4 GB;
-# 16 layers under 32 GB before phases 53-59, all 32 under 64 GB before
-# phases 48-52: the smoke's time; 16 layers' two draws took 34 of the
-# phase's 75 s) under a device budget cut with it, 16 GB: 3-4 layers
-# resident, the rest streamed a sweep (8 / 8 at 16 layers, 19 / 13 at 32)
-ZI_MIXTRAL_LAYERS, ZI_MIXTRAL_BUDGET = 8, int(16e9)
+# phase 31 (b): Mixtral-8x7B's bf16 image cut to 4 of 32 layers (11.7 GB;
+# 8 under 16 GB before phases 60-61, 16 under 32 GB before phases 53-59,
+# all 32 under 64 GB before phases 48-52: the smoke's time; 16 layers' two
+# draws took 34 of the phase's 75 s) under a device budget cut with it,
+# 11 GB: one layer resident, three streamed a sweep (3 / 5 at 8 layers,
+# 8 / 8 at 16, 19 / 13 at 32)
+ZI_MIXTRAL_LAYERS, ZI_MIXTRAL_BUDGET = 4, int(11e9)
 # phases 29 and 31: new tokens a Llama-3-8B request (32 until PR 20: the
 # smoke's time)
 ZI_LLAMA_NEW = 16
@@ -5579,7 +6114,9 @@ SHUFFLE_N, SHUFFLE_EPOCHS = 100_000, 3
 # body sums in another order): 1e-4 of the largest |logit|, phase 24's f32
 # bound
 HF_MIXTRAL_REL_TOL = 1e-4
-HF_LAYERS = 16
+# phase 34's export depth: 8 of 32 layers (16 before phases 60-61, all 32
+# before phases 48-52: the smoke's time)
+HF_LAYERS = 8
 # phase 35: merge_lora's forward (the f32 master A, B folded into the bf16
 # base) against apply_lora's over the engine's bf16 compute copy of A, B:
 # the two round A, B differently, which moves an element of W_eff across a
@@ -5816,8 +6353,7 @@ def phase_hf_roundtrip(fns, card_line, params, resident):
     free = shutil.disk_usage(root).free
     fixed = 4 * param_count(dataclasses.replace(cfg, n_layers=0))
     per_layer = 4 * param_count(dataclasses.replace(cfg, n_layers=1)) - fixed
-    # 16 of 32 layers (all 32 until PR 20: the smoke's time, which phases
-    # 48-52 raised); fewer when the file system cannot hold them
+    # HF_LAYERS of 32 layers; fewer when the file system cannot hold them
     layers = HF_LAYERS
     if free < 1.1 * (fixed + layers * per_layer):
         layers = int((free / 1.1 - fixed) // per_layer)
@@ -6813,9 +7349,10 @@ ZERO_CHILD_TIMEOUT_S = 900
 # qwZ's flat grid of 512-element groups
 WIRE_ELEMS, WIRE_GROUP = 1_313_626_112, 512
 ZERO_STEPS = 3
-# phases 42, 48 and 49: GPT-2 1.3B cut to 12 of 24 layers (24 until PR 20:
-# the smoke's time, which phases 48-52 raised; phase 19 trains all 24)
-ZERO_LAYERS = 12
+# phases 42, 48, 49 and 54: GPT-2 1.3B cut to 6 of 24 layers (12 before
+# phases 60-61, 24 before phases 48-52: the smoke's time; phase 19 trains
+# all 24)
+ZERO_LAYERS = 6
 
 
 def _kernel_fns():
@@ -6953,7 +7490,7 @@ def _zero_comm_expected(stage, leaves, n):
 
 
 def phase_zero_stages(fns, card_line, phase19_ms):
-    """Phase 42: GPT-2 1.3B at ZERO_LAYERS (12) of 24 layers (phase 19's
+    """Phase 42: GPT-2 1.3B at ZERO_LAYERS (6) of 24 layers (phase 19's
     config under
     ``save_attn``: micro 8 x 1024, bf16 compute, f32 master, fused Adam,
     clipping 1.0) through ZeRO stages 0-3 in this rank, 3 steps each from
@@ -7167,7 +7704,7 @@ def _host_placed(eng) -> bool:
 
 def phase_zero_offload(fns, card_line, stage_runs):
     """Phase 48: ZeRO-Offload in phase 42's world-1 rank: GPT-2 1.3B at
-    phase 42's 12 layers (``save_attn``, its seeded weights and batch, fused
+    phase 42's 6 layers (``save_attn``, its seeded weights and batch, fused
     Adam) at stage 2 with ``offload_optimizer: cpu`` and at stage 3 with
     ``offload_optimizer`` and ``offload_param`` on ``cpu``, 3 steps each.
     Gates: the losses equal phase 42's stage-2 / stage-3 losses bit for
@@ -7345,8 +7882,10 @@ def phase_zero_launcher(card_line, rows, phase19_ms):
 # CUDA tensor through host memory, so their times are host-staged gloo's)
 MP_CHILD_FLAG = "--mp-child"
 MP_CHILD_TIMEOUT_S = 1000
-# phase 43: phase 5's queue, new tokens a request
-MP_SERVE_NEW = 8
+# phase 43: phase 5's queue, new tokens a request, and the depth of the
+# Llama-3-8B it serves (and phase 56 reuses): 16 of 32 layers (32 before
+# phases 60-61: the smoke's time)
+MP_SERVE_NEW, MP_TP_SERVE_LAYERS = 8, 16
 # phase 45: Ulysses at T = 8192 (4096 a rank), ring at T = 4096 (its f32
 # score blocks at 8192 would not fit beside both ranks' state)
 MP_ULYSSES_T, MP_RING_T = 8192, 4096
@@ -7606,12 +8145,13 @@ def _tiny_identity(fns, launches, family, build_sharded, build_one):
 
 def phase_tp_serving(fns, card_line, gen):
     """Phase 43: tensor-parallel serving over model 2.  Llama-3-8B bf16 at
-    all 32 layers (~8 GB of weights a rank, each rank's cache 4 of 8 KV
-    heads) on phase 5's queue: the first prefill's logits against the
+    MP_TP_SERVE_LAYERS of 32 layers (~4 GB of weights a rank, each rank's
+    cache 4 of 8 KV heads) on phase 5's queue: the first prefill's logits against the
     one-rank engine on the same weights, ms per decode step and tokens/s;
     then int8 weights over the mesh against the unsharded int8 engine the
     same way; the f32 tiny model's tokens identical to the one-rank
     engine's; B1, B5, B6 and B9 held at a rank's shapes."""
+    import dataclasses
     import gc
 
     from deepspeed_tpu_torch import comm
@@ -7620,7 +8160,8 @@ def phase_tp_serving(fns, card_line, gen):
     from deepspeed_tpu_torch.weights import init_params
 
     ms = _mesh({"model": 2})
-    cfg = LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              n_layers=MP_TP_SERVE_LAYERS)
     prompts = _queue5(cfg.vocab_size)
     opts = dict(max_batch=8, page_size=16, max_seq=2048, num_pages=1025,
                 cache_dtype=torch.bfloat16)
@@ -8272,7 +8813,9 @@ MP_OFFLOAD_STEPS = 2
 MP_PSTREAM_STEPS = 1
 # phase 50: phase 38's model at its depth (OFFLOAD_LAYERS), the global
 # batch's 2 rows a row a rank; phase 51: phase 40's depth
-MP_ZI_NEW = 8
+# phase 52: new tokens a request (8 before phases 60-61: the smoke's time;
+# a streamed sweep over two ranks read 2.6 s)
+MP_ZI_NEW = 4
 # bounds against the one-rank runs, from the first readings on an NVIDIA
 # H100 80GB HBM3 at 700 W: phase 49 read 1.09e-5 (two ranks' f32 grad
 # sums against one rank's), bound with 4.6x room; phases 50 and 51 read
@@ -8613,6 +9156,10 @@ _MP: dict = {}               # what one phase of the child hands a later one
 # phase 54: GPT-2 1.3B at ZERO_LAYERS over model 2, steps on phase 42's
 # batch; phase 55: BERT-large over model 2, steps on phase 26's batch
 MP_GPT2_TRAIN_STEPS, MP_BERT_TRAIN_STEPS = 2, 2
+# the depths phases 53 and 55 serve at: GPT-2 1.3B at 12 of 24 layers,
+# BERT-large at 12 of 24 (24 each before phases 60-61: the smoke's time;
+# phase 55 serves phase 25's whole queue of 64 and trains at all 24)
+MP_GPT2_SERVE_LAYERS, MP_BERT_SERVE_LAYERS = 12, 12
 # phase 56: phase 11's two waves cut to the smoke's time (8 prompts of a
 # 1024-token prefix, 128-token suffixes and 32 new tokens there)
 MP_KVQ_PREFIX, MP_KVQ_SUFFIX, MP_KVQ_N, MP_KVQ_NEW = 256, 64, 4, 8
@@ -8703,13 +9250,14 @@ def _built(fns):
 
 
 def phase_gpt2_tp_serving(fns, card_line, gen):
-    """Phase 53: GPT-2 1.3B served over model 2 at all 24 layers (phase
-    18's seeded bf16 weights, queue and options; each rank holds its 8 of
+    """Phase 53: GPT-2 1.3B served over model 2 at MP_GPT2_SERVE_LAYERS of
+    24 layers (phase 18's seed, queue and options; each rank holds its 8 of
     16 heads of the fused QKV and of the cache), bf16 then int8 weights:
     the first prefill's logits against the one-rank engine on the same
     weights, ms per decode step and tokens/s beside it, each rank's
     weight bytes; the f32 tiny GPT-2's tokens identical to one rank's; B1,
     B5, B6 and B9 held at a rank's shapes."""
+    import dataclasses
     import gc
 
     from deepspeed_tpu_torch import comm
@@ -8718,7 +9266,8 @@ def phase_gpt2_tp_serving(fns, card_line, gen):
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config
 
     ms = _mesh({"model": 2})
-    cfg = GPT2Config.gpt2_1_3b()
+    cfg = dataclasses.replace(GPT2Config.gpt2_1_3b(),
+                              n_layers=MP_GPT2_SERVE_LAYERS)
     prompts = _queue18(cfg.vocab_size)
     opts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
                 cache_dtype=torch.bfloat16)
@@ -8948,8 +9497,9 @@ def _pooled_witness(params, out, ref):
 
 
 def phase_bert_tp(fns, card_line, refs, gen):
-    """Phase 55: BERT-large over model 2 at all 24 layers (8 of 16 heads a
-    rank): phase 25's queue through the pooled and MLM heads, bf16 then
+    """Phase 55: BERT-large over model 2 (8 of 16 heads a rank), served at
+    MP_BERT_SERVE_LAYERS of 24 layers and trained at all 24: phase 25's
+    queue through the pooled and MLM heads, bf16 then
     int8 weights (quantized, then cut), each against the one-rank engine on
     the same weights, sequences/s beside it; then MP_BERT_TRAIN_STEPS
     steps on phase 26's batch and config against phase 26's one-rank
@@ -8958,6 +9508,7 @@ def phase_bert_tp(fns, card_line, refs, gen):
     serving shape and B2 / B3 at its training shape
     (8 heads of 64, bidirectional with pad ids) held to their plain
     versions, beside SDPA's."""
+    import dataclasses
     import gc
 
     from deepspeed_tpu_torch import comm, initialize
@@ -8970,8 +9521,9 @@ def phase_bert_tp(fns, card_line, refs, gen):
 
     ms = _mesh({"model": 2})
     cfg = BertConfig.large()
+    scfg = dataclasses.replace(cfg, n_layers=MP_BERT_SERVE_LAYERS)
     reqs = _queue25(cfg)
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(25),
+    params = init_params(scfg, torch.Generator("cuda").manual_seed(25),
                          device="cuda")
     launches, res = {}, {}
     for head, wd in (("pooled", "bfloat16"), ("pooled", "int8"),
@@ -8980,13 +9532,13 @@ def phase_bert_tp(fns, card_line, refs, gen):
         path = f"bert-large tp2 {head} {wd}"
         ref = None
         if comm.get_rank() == 0:
-            e = bert_serving_engine(params, cfg, head=head,
+            e = bert_serving_engine(params, scfg, head=head,
                                     weight_dtype=wd, max_batch=BERT_B)
             ref, ref_s, _, _ = _drive_encoder(e, reqs)
             del e
         comm.barrier()
         _zero(fns.values())
-        eng = bert_serving_engine(params, cfg, head=head, mesh=ms,
+        eng = bert_serving_engine(params, scfg, head=head, mesh=ms,
                                   weight_dtype=wd, max_batch=BERT_B)
         built = _snap(fns)
         _zero(fns.values())
@@ -9788,7 +10340,7 @@ def main() -> int:
     _lap('phase_host_natives')
     launches.update(phase_serving(
         [{"name": n, "fn": f} for n, f in fns.items()], card_line)[0])
-    _lap('phase_serving')
+    _lap('phase_int8_serving (phase 14)')
     torch.cuda.empty_cache()
     launches.update(phase_gpt2_serving(fns, card_line)[0])
     _lap('phase_gpt2_serving')
@@ -9814,6 +10366,9 @@ def main() -> int:
     phase8_losses = [r["loss"] for r in phase8]
     del train_run
     _lap('phase_train')
+    torch.cuda.empty_cache()
+    launches.update(phase_control_plane_train(fns, card_line))
+    _lap('phase_control_plane_train (phase 61)')
     torch.cuda.empty_cache()
     launches.update(phase_resume(fns, card_line)[0])
     _lap('phase_resume')

@@ -79,3 +79,17 @@ def dry_digest(run: Callable[[], Any], link_gbps: float = 45.0
         after = log.summary()
         log.enabled = was
     return digest_of(_minus(after, before), link_gbps)
+
+
+def log_digest(monitor, digest: Dict[str, Any], step: int,
+               prefix: str = "Comms") -> None:
+    """Write a digest's scalars through a
+    :class:`~deepspeed_tpu_torch.monitor.MonitorMaster` (the JAX
+    package's tags)."""
+    scalars = {f"{prefix}/total_bytes": digest["total_bytes"],
+               f"{prefix}/total_collectives": digest["total_collectives"],
+               f"{prefix}/est_wire_ms": digest["est_wire_ms"]}
+    for kind, v in digest["per_kind"].items():
+        scalars[f"{prefix}/{kind}_bytes"] = v["bytes"]
+        scalars[f"{prefix}/{kind}_count"] = v["count"]
+    monitor.write_scalars(scalars, step)

@@ -1,9 +1,10 @@
 """Config system accepting DeepSpeed-style JSON (ref: deepspeed/runtime/config.py).
 
 Port copy of ``deepspeed_tpu/config.py``, kept whole so that one JSON parses
-the same in both packages.  The two blocks whose validation lives in
-modules not ported yet (an enabled ``faults`` or ``random_ltd`` block)
-raise ``NotImplementedError`` at parse time instead of importing them;
+the same in both packages.  An enabled ``random_ltd`` block, whose
+validation lives in a module not ported yet, raises
+``NotImplementedError`` at parse time; an enabled ``faults`` block is
+validated by the port's :class:`~deepspeed_tpu_torch.faults.FaultPlan`;
 ``curriculum_learning`` parses into the port's
 :class:`~deepspeed_tpu_torch.data.curriculum.CurriculumConfig` and an
 enabled ``elasticity`` block into the port's
@@ -22,7 +23,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import tempfile
 from typing import Any, Dict, Optional
+
+
+def temp_path(name: str) -> str:
+    """``name`` under the process's temp directory (``TMPDIR`` when set):
+    where the default swap, flight-recorder and incident directories go."""
+    return os.path.join(tempfile.gettempdir(), name)
+
 
 # Defaults mirror the reference's constants
 # (ref: deepspeed/runtime/constants.py, deepspeed/runtime/zero/config.py).
@@ -86,7 +96,7 @@ class ZeroInferenceConfig:
     hbm_budget_bytes: Optional[int] = None
     prefetch_depth: int = 1
     tier: str = "host"                   # host | nvme
-    nvme_path: str = "/tmp/dstpu_nvme_swap"
+    nvme_path: str = temp_path("dstpu_nvme_swap")
     dtype: Optional[str] = None          # None (inherit) | bfloat16 | int8
     # bounded retry for transient tier-read failures: a failed stream
     # fence resubmits up to io_retries times (exponential backoff from
@@ -735,9 +745,12 @@ class FaultsConfig:
                 f"{type(f.rules).__name__}")
         f.rules = list(f.rules)
         if f.enabled:
-            raise NotImplementedError(
-                "faults: fault injection comes with the control-plane "
-                "slice (ROADMAP A10)")
+            # deep-validate NOW (a bad rule must fail at config parse,
+            # not at the first injection opportunity); the built plan
+            # is thrown away — the engine builds its own
+            from deepspeed_tpu_torch.faults import FaultPlan
+
+            FaultPlan(f.rules, seed=f.seed)
         return f
 
     @classmethod
@@ -1156,7 +1169,7 @@ class TracingConfig:
     enabled: bool = True
     sample_rate: float = 1.0             # per-request; 0 = off
     ring_capacity: int = 65536           # events kept (newest win)
-    dump_dir: str = "/tmp/dstpu_flight"  # postmortem dump target
+    dump_dir: str = temp_path("dstpu_flight")  # postmortem dump target
     install_excepthook: bool = False     # chain sys.excepthook → dump
     sigusr1: bool = False                # SIGUSR1 → dump (live probe)
 
@@ -1296,7 +1309,7 @@ class IncidentsConfig:
     """
 
     enabled: bool = False
-    dir: str = "/tmp/dstpu_incidents"    # bundle output directory
+    dir: str = temp_path("dstpu_incidents")  # bundle output directory
     pre_window_s: float = 60.0           # history window in the bundle
     dedup_window_s: float = 30.0         # per-class rate limit
     max_bundles: int = 16                # per-process bundle cap

@@ -57,7 +57,9 @@ beside ``loss = engine.train_batch(batch)``.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import time
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -71,13 +73,15 @@ from deepspeed_tpu_torch._tree import tree_leaves, tree_map, \
 from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.data.curriculum import (CurriculumScheduler,
                                                  apply_seqlen_curriculum)
+from deepspeed_tpu_torch.monitor import MonitorMaster
+from deepspeed_tpu_torch.ops.losses import global_batch_mean
 from deepspeed_tpu_torch.ops.optim import Optimizer, default_lr
 from deepspeed_tpu_torch.ops.optim import from_config as opt_from_config
+from deepspeed_tpu_torch.telemetry import MetricsRegistry, TelemetryExporter
 from deepspeed_tpu_torch.timers import ThroughputTimer
 
 logger = logging.getLogger(__name__)
 
-_MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
 # optimizers whose update reads a whole leaf (a trust ratio's norms)
 _PER_LEAF_NORM = ("lamb", "fusedlamb")
 
@@ -152,11 +156,6 @@ def _unsupported(config: Config, params) -> Optional[str]:
         return "progressive_layer_drop (ROADMAP A11)"
     if config.eigenvalue:
         return "eigenvalue (ROADMAP A11)"
-    if "telemetry" in config.raw and config.telemetry.enabled:
-        return "the telemetry block (ROADMAP A10)"
-    for key in _MONITORS:
-        if (config.raw.get(key) or {}).get("enabled"):
-            return f"the {key} monitor (ROADMAP A10)"
     if not _is_init_thunk(params) and not isinstance(params,
                                                      (dict, list, tuple)):
         return ("params that are neither a tree of arrays nor an init "
@@ -377,10 +376,47 @@ class TrainingEngine:
             CurriculumScheduler(config.curriculum)
             if config.curriculum is not None and config.curriculum.enabled
             else None)
-        # ref: ThroughputTimer in engine.train; the engine starts and stops
-        # it only for the monitors and telemetry, which are not ported
+        # monitoring + throughput (ref: engine._configure_monitoring +
+        # ThroughputTimer in engine.train): backends from the reference's
+        # config keys (tensorboard / wandb / csv_monitor); the timer runs
+        # (and syncs the device) only when a monitor or step_sync reads it
+        self.monitor = MonitorMaster(config.raw)
         self.tput_timer = ThroughputTimer(
             batch_size=config.train_batch_size, device=self.device)
+        # unified telemetry (the `telemetry` block): a step-time
+        # histogram and run gauges on a MetricsRegistry, with the optional
+        # exporter bridging into the monitors / a Prometheus file.  The
+        # step stays sync-free: the gauges that need a device read (loss,
+        # grad norm, MFU) refresh on the steps_per_print cadence when a
+        # sink reads them, or on demand through telemetry_snapshot()
+        tel = config.telemetry
+        self.registry = MetricsRegistry(enabled=tel.enabled)
+        self._c_train_steps = self.registry.counter(
+            "train_steps", "optimizer steps taken")
+        self._h_step = self.registry.histogram(
+            "train_step_seconds",
+            "per-step wall time (host wall unless telemetry.step_sync — "
+            "then device-synced via the ThroughputTimer)",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0))
+        self._g_loss = self.registry.gauge("train_loss")
+        self._g_lr = self.registry.gauge("train_lr")
+        self._g_grad_norm = self.registry.gauge("train_grad_norm")
+        self._g_sps = self.registry.gauge(
+            "train_samples_per_sec", "ThroughputTimer samples/sec")
+        self._g_mfu = self.registry.gauge(
+            "train_mfu", "model FLOPs utilization vs the card's peak "
+            "(0 until flops_per_sample is configured)")
+        self._tel_sync = tel.enabled and tel.step_sync
+        self._tel_exporter = None
+        if tel.enabled and (tel.prometheus_path or tel.http_port
+                            is not None or (tel.monitor_bridge
+                                            and self.monitor.enabled)):
+            self._tel_exporter = TelemetryExporter(
+                self.registry,
+                monitor=self.monitor if tel.monitor_bridge else None,
+                prometheus_path=tel.prometheus_path,
+                interval_s=tel.interval_s, http_port=tel.http_port)
         self.global_steps = 0
         self.skipped_steps = 0
         self._pending: Optional[dict] = None
@@ -553,7 +589,8 @@ class TrainingEngine:
         W = self.mesh.dp_world
         share = W if self.grad_comm_mode is None and W > 1 else None
         for mb in micro:
-            loss, aux = self._loss_for(cparams, mb)
+            with self._global_mean(share is not None):
+                loss, aux = self._loss_for(cparams, mb)
             scaled = precision.scale_loss(
                 loss if share is None else loss / share, self.state.scaler,
                 cfg.precision)
@@ -577,6 +614,16 @@ class TrainingEngine:
         grads = self._reduce_grads(grads)
         loss = self._batch_mean_(loss)
         return self._finish_step(grads, loss, auxes)
+
+    def _global_mean(self, on: bool):
+        """A masked mean inside divides by the microbatch's global count
+        (:func:`~deepspeed_tpu_torch.ops.losses.global_batch_mean` over the
+        axes that split the rows), as the JAX engine's GSPMD step takes it;
+        the compressed steps keep their local means, as JAX's shard_map
+        steps do."""
+        if not on or self.mesh.dp_world <= 1:
+            return contextlib.nullcontext()
+        return global_batch_mean(self._batch_live, self.mesh.dp_world)
 
     def _batch_mean_(self, loss: torch.Tensor) -> torch.Tensor:
         """The mean over the ranks that split the batch, in place."""
@@ -823,9 +870,45 @@ class TrainingEngine:
 
     # ----------------------------------------------------------- public API
     def _post_step(self, metrics) -> None:
+        """Per-step bookkeeping shared by train_batch and step(): sync-free
+        unless a monitor reads this step (steps_per_print cadence)."""
         self.global_steps += 1
         self.skipped_steps += metrics["overflow"]
         self._last_metrics = metrics
+        every = max(self.config.steps_per_print, 1)
+        if self.monitor.enabled and self.global_steps % every == 0:
+            self.monitor.write_scalars(
+                {"Train/loss": float(metrics["loss"]),
+                 "Train/lr": float(metrics["lr"]),
+                 "Train/grad_norm": float(metrics["grad_norm"]),
+                 "Train/samples_per_sec": self.tput_timer.samples_per_sec},
+                self.global_steps)
+            self.monitor.flush()
+        if self.registry.enabled:
+            self._c_train_steps.inc()
+            reads = self.monitor.enabled or self._tel_exporter is not None
+            if reads and self.global_steps % every == 0:
+                self._refresh_gauges(metrics)
+            if self._tel_exporter is not None:
+                self._tel_exporter.maybe_export(self.global_steps)
+
+    def _refresh_gauges(self, metrics) -> None:
+        self._g_loss.set(float(metrics["loss"]))
+        if "lr" in metrics:
+            self._g_lr.set(float(metrics["lr"]))
+        if metrics.get("grad_norm") is not None:
+            self._g_grad_norm.set(float(metrics["grad_norm"]))
+        self._g_sps.set(self.tput_timer.samples_per_sec)
+        self._g_mfu.set(self.tput_timer.mfu)
+        self.registry.fan_in_comms(comm.comms_logger())
+
+    def telemetry_snapshot(self) -> dict:
+        """On-demand registry snapshot with the synced gauges refreshed
+        from the last step's metrics (the one deliberate sync point for
+        callers that run without a monitor)."""
+        if self.registry.enabled and self._last_metrics:
+            self._refresh_gauges(self._last_metrics)
+        return self.registry.snapshot()
 
     def curriculum_difficulty(self) -> Optional[int]:
         """Current curriculum difficulty (ref: engine.curriculum_scheduler
@@ -842,7 +925,17 @@ class TrainingEngine:
         """One optimizer step on a global batch (every rank passes the same
         one and takes its rows); returns the loss averaged over the ranks
         (an f32 scalar tensor on the device)."""
-        metrics = self._train_step(self._apply_curriculum(batch))
+        batch = self._apply_curriculum(batch)
+        timed = self.monitor.enabled or self._tel_sync
+        if timed:
+            self.tput_timer.start()
+        t0 = time.perf_counter()
+        metrics = self._train_step(batch)
+        if timed:
+            self.tput_timer.stop()
+        if timed or self.registry.enabled:
+            # without a timer: the host wall only, no sync added
+            self._h_step.observe(time.perf_counter() - t0)
         self._post_step(metrics)
         return metrics["loss"]
 
@@ -851,7 +944,9 @@ class TrainingEngine:
         loss is averaged over the ranks), exact weights."""
         with torch.no_grad():
             cparams = self._compute_params()
-            loss, aux = self._loss_for(cparams, self._local_rows(batch)[0])
+            with self._global_mean(True):
+                loss, aux = self._loss_for(cparams,
+                                           self._local_rows(batch)[0])
             loss = self._batch_mean_(loss)
         return loss if aux is None else (loss, aux)
 
@@ -898,9 +993,9 @@ class TrainingEngine:
         exchange of the step, the updates run on copies and discarded,
         and no counter, scaler, schedule or data state advanced (the
         trajectory after a call equals the trajectory without it, bit for
-        bit).  Returns the dict (:func:`~deepspeed_tpu_torch.comm.digest.
-        digest_of`); writing it to a monitor comes with the monitors."""
-        from deepspeed_tpu_torch.comm.digest import dry_digest
+        bit).  Writes to the monitor when one is enabled; returns the dict
+        (:func:`~deepspeed_tpu_torch.comm.digest.digest_of`)."""
+        from deepspeed_tpu_torch.comm.digest import dry_digest, log_digest
 
         def run():
             self._dry = True
@@ -909,7 +1004,10 @@ class TrainingEngine:
             finally:
                 self._dry = False
 
-        return dry_digest(run, link_gbps)
+        d = dry_digest(run, link_gbps)
+        if self.monitor.enabled:
+            log_digest(self.monitor, d, self.global_steps)
+        return d
 
     @property
     def train_batch_size(self):

@@ -13,9 +13,11 @@ tokens and mask together) and one device-to-host copy (its result).
 
 A ``mesh`` with ``model`` > 1 shards the encoder's weights over its ranks
 (:mod:`~deepspeed_tpu_torch.inference.sharded`, after int8 quantization
-when asked), as the JAX engine does.  An enabled ``telemetry`` block (the
-control-plane slice) raises ``NotImplementedError``; with ``telemetry``
-None or False the engine keeps its ``stats`` only.
+when asked), as the JAX engine does.  ``telemetry`` takes the decoder
+engine's loose contract (None/bool/dict/TelemetryConfig, or a
+:class:`~deepspeed_tpu_torch.telemetry.MetricsRegistry` to share): the
+``encoder_lots``, ``encoder_requests`` and ``encoder_rows_padded``
+counters beside ``stats``, and an exporter when sink keys are set.
 """
 
 from __future__ import annotations
@@ -42,10 +44,26 @@ BERT_INT8_SKIP = ("scale", "bias", "b_in", "b_out", "bqkv", "bo",
                   "mlm_bias", "b")
 
 
-def _reject_telemetry(telemetry) -> None:
-    from deepspeed_tpu_torch.inference.serving import _reject_unported
+def _encoder_telemetry(telemetry):
+    """Same loose telemetry contract as the decoder ServingEngine:
+    None/bool/dict/TelemetryConfig build a registry (plus an exporter
+    when sink keys are set); an existing MetricsRegistry is shared and
+    the caller owns its sinks.  Returns ``(registry, exporter)``."""
+    from deepspeed_tpu_torch.config import TelemetryConfig
+    from deepspeed_tpu_torch.telemetry import (MetricsRegistry,
+                                               TelemetryExporter)
 
-    _reject_unported({"telemetry": telemetry})
+    if isinstance(telemetry, MetricsRegistry):
+        return telemetry, None
+    tcfg = TelemetryConfig.coerce(telemetry)
+    reg = MetricsRegistry(enabled=tcfg.enabled)
+    exp = None
+    if reg.enabled and (tcfg.prometheus_path
+                        or tcfg.http_port is not None):
+        exp = TelemetryExporter(reg, prometheus_path=tcfg.prometheus_path,
+                                interval_s=tcfg.interval_s,
+                                http_port=tcfg.http_port)
+    return reg, exp
 
 
 def _to_host(res: torch.Tensor) -> np.ndarray:
@@ -85,7 +103,6 @@ class EncoderServingEngine:
         from deepspeed_tpu_torch.inference.serving import (_active_mesh,
                                                            _to_device)
 
-        _reject_telemetry(telemetry)
         self.device = resolve_device(device)
         self.mesh = _active_mesh(mesh)
         if weight_dtype not in ("bfloat16", "int8"):
@@ -118,6 +135,13 @@ class EncoderServingEngine:
         self._fn = apply_fn
         self.queue: "collections.deque" = collections.deque()
         self.stats = {"lots": 0, "rows_padded": 0, "requests": 0}
+        self.registry, self._tel_exporter = _encoder_telemetry(telemetry)
+        self._c_lots = self.registry.counter(
+            "encoder_lots", "static-shape lots scored")
+        self._c_requests = self.registry.counter(
+            "encoder_requests", "requests submitted")
+        self._c_rows_padded = self.registry.counter(
+            "encoder_rows_padded", "padding rows shipped in lots")
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -134,6 +158,7 @@ class EncoderServingEngine:
         self._bucket(len(tokens))  # validate now, not at lot time
         self.queue.append((req_id, tokens))
         self.stats["requests"] += 1
+        self._c_requests.inc()
 
     def _next_lot(self):
         """The next lot, greedily in arrival order: the queue head's bucket
@@ -172,9 +197,13 @@ class EncoderServingEngine:
             res = _to_host(self._fn(self.params, dev[0], dev[1]))
             self.stats["lots"] += 1
             self.stats["rows_padded"] += B - len(lot)
+            self._c_lots.inc()
+            self._c_rows_padded.inc(B - len(lot))
             for r, (rid, toks) in enumerate(lot):
                 row = res[r]
                 out[rid] = row[:len(toks)] if self.per_token else row
+        if self._tel_exporter is not None:
+            self._tel_exporter.maybe_export()
         return out
 
 
@@ -224,7 +253,6 @@ class CNNServingEngine:
         from deepspeed_tpu_torch.inference.serving import _to_device
         from deepspeed_tpu_torch.models import cnn
 
-        _reject_telemetry(telemetry)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
@@ -233,6 +261,11 @@ class CNNServingEngine:
         self._fn = cnn.forward
         self.queue: "collections.deque" = collections.deque()
         self.stats = {"lots": 0, "requests": 0}
+        self.registry, self._tel_exporter = _encoder_telemetry(telemetry)
+        self._c_lots = self.registry.counter(
+            "encoder_lots", "static-shape lots scored")
+        self._c_requests = self.registry.counter(
+            "encoder_requests", "requests submitted")
 
     def submit(self, req_id, image) -> None:
         image = np.asarray(image, np.float32)
@@ -242,6 +275,7 @@ class CNNServingEngine:
                 f"{self.image_shape}")
         self.queue.append((req_id, image))
         self.stats["requests"] += 1
+        self._c_requests.inc()
 
     @torch.no_grad()
     def run(self) -> Dict[Any, np.ndarray]:
@@ -256,6 +290,9 @@ class CNNServingEngine:
             logits = _to_host(self._fn(
                 self.params, torch.from_numpy(batch).to(self.device)))
             self.stats["lots"] += 1
+            self._c_lots.inc()
             for r, (rid, _) in enumerate(lot):
                 out[rid] = logits[r]
+        if self._tel_exporter is not None:
+            self._tel_exporter.maybe_export()
         return out

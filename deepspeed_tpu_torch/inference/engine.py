@@ -159,12 +159,10 @@ def init_serving(params, model_config, *, config: Any = None, **kw):
     keyword wins), as the JAX package routes them: ``zero_inference`` to
     the weight-streamed engine of the Llama and Mixtral builders,
     ``speculative`` to the draft-and-verify sweep (a model drafter rides
-    the ``drafter=`` keyword); the engine refuses the blocks the port
-    lacks.  The
-    ``kernels`` block always passes.  ``telemetry`` and ``tracing`` are on
-    by default in the schema, so they pass only when the config names
-    them (the engine then refuses them: they come with the control-plane
-    slice).  Remaining ``kw`` (``max_batch``, ``page_size``,
+    the ``drafter=`` keyword), ``slo``, ``faults``, ``history`` and
+    ``incidents`` to the control plane.  The ``telemetry``, ``tracing``
+    and ``kernels`` blocks always pass (on by default in the schema, as
+    in the JAX package).  Remaining ``kw`` (``max_batch``, ``page_size``,
     ``num_pages``, ``prefill_chunk``, ``weight_dtype``, ...) pass through
     to the model family's engine function."""
     if isinstance(config, dict):
@@ -180,8 +178,7 @@ def init_serving(params, model_config, *, config: Any = None, **kw):
             if block.enabled:
                 kw.setdefault(name, block)
         for name in ("telemetry", "tracing"):
-            if name in config.raw:
-                kw.setdefault(name, getattr(config, name))
+            kw.setdefault(name, getattr(config, name))
         kw.setdefault("kernels", {
             "paged_attention": config.kernels.paged_attention,
             "fused_sampling": config.kernels.fused_sampling})

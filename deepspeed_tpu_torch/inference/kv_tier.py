@@ -56,6 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import faults as _faults
 from deepspeed_tpu_torch.faults import ChecksumError, retry_with_backoff
 from deepspeed_tpu_torch.inference.prefix_cache import TierEntry, key_hex
 
@@ -244,7 +245,9 @@ class _KVNvmeChannel:
                            on_retry=self._on_retry)
 
     def read_sync(self, name: str, shape, dtype) -> np.ndarray:
-        """One spill file through the plain OS path (no aio)."""
+        """One spill file through the plain OS path (no aio), behind the
+        ``sync_read`` injection point."""
+        _faults.inject("sync_read", key=name)
         buf = np.empty(tuple(shape), np.dtype(dtype))
         with open(self._path(name), "rb") as f:
             if f.readinto(memoryview(buf.reshape(-1).view(np.uint8))) \
@@ -257,6 +260,17 @@ class _KVNvmeChannel:
             os.remove(self._path(name))
         except OSError:
             pass
+
+
+def _maybe_corrupt(entry: TierEntry) -> TierEntry:
+    """The ``kv_corrupt`` injection point of a demote: with a firing rule,
+    flip a payload byte AFTER the entry's checksum was recorded, so the
+    promote-side verify must catch exactly this."""
+    if _faults.active_plan() is not None:
+        _delay, err = _faults.poll("kv_corrupt", key_hex(entry.key))
+        if err is not None:
+            _faults.corrupt_array(entry.data[0])
+    return entry
 
 
 class KVTierPool:
@@ -398,9 +412,9 @@ class KVTierPool:
         if key in self.entries:
             return self.touch(key)
         self._tick += 1
-        return self._land(encode_entry(
+        return self._land(_maybe_corrupt(encode_entry(
             key, k, v, quantize=self.cfg.quantize_cold,
-            page_dtype=self.page_dtype, tick=self._tick))
+            page_dtype=self.page_dtype, tick=self._tick)))
 
     def demote_prequantized(self, key: bytes, kq: np.ndarray,
                             ks: np.ndarray, vq: np.ndarray,
@@ -418,9 +432,9 @@ class KVTierPool:
                 "demote_prequantized requires kv_tier.quantize_cold: a "
                 "dense-entry pool cannot hold int8 codec payloads")
         self._tick += 1
-        return self._land(encode_prequantized_entry(
+        return self._land(_maybe_corrupt(encode_prequantized_entry(
             key, kq, ks, vq, vs, page_dtype=self.page_dtype,
-            tick=self._tick))
+            tick=self._tick)))
 
     def _land(self, entry: TierEntry) -> Optional[str]:
         """Place a freshly encoded entry: host pool first, cascading older
@@ -557,9 +571,11 @@ class KVTierPool:
     def read_sync(self, name: str, shape, dtype) -> np.ndarray:
         """Synchronous read of one buffer, the rung below the aio channel:
         host entries return their array, NVMe entries read their file
-        through the plain OS path."""
+        through the plain OS path.  Carries the ``sync_read`` injection
+        point, so a test can exhaust the last rung."""
         e, i = self._entry_of(name)
         if e.location == "host":
+            _faults.inject("sync_read", key=name)
             return e.data[i]
         return self._nvme.read_sync(name, shape, dtype)
 
@@ -637,7 +653,7 @@ class _HostOnlyView:
         return self._pool._host_buffer(name)
 
     def read_sync(self, name: str, shape, dtype):
-        return self._pool._host_buffer(name)
+        return self._pool.read_sync(name, shape, dtype)
 
     def reads_pending(self) -> int:
         return 0

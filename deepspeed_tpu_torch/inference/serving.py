@@ -61,9 +61,13 @@ heads (the JAX engine demotes its paged kernel to XLA under a mesh; the
 function is the same), and the logits are gathered, so every rank samples
 the same tokens.
 
-Blocks of the reference engine that this slice does not port (telemetry,
-tracing, slo, faults, shedding, history, incidents, devprof) raise
-``NotImplementedError`` when enabled; they are never ignored.
+The control plane (:mod:`~deepspeed_tpu_torch.inference.control_plane`):
+``telemetry``, ``tracing``, ``slo``, ``faults``, ``shed_queue_depth``,
+``shed_expired_deadline``, ``history``, ``incidents`` and ``devprof``, as
+in the JAX engine.  An exception in one slot's work (an injected ``slot``
+fault, say) fails that request alone as a typed :class:`RequestFailed` and
+releases exactly what it held; a queue at ``shed_queue_depth`` or a
+request past its tier's deadline sheds as a typed :class:`RequestShed`.
 """
 
 from __future__ import annotations
@@ -71,17 +75,20 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import faults as faults_mod
 from deepspeed_tpu_torch._device import resolve_device
-from deepspeed_tpu_torch._tree import tree_map
+from deepspeed_tpu_torch._tree import tree_leaves, tree_map
 from deepspeed_tpu_torch.config import (KVTierConfig, PrefixCacheConfig,
                                         SpeculativeConfig)
-from deepspeed_tpu_torch.faults import ChecksumError
+from deepspeed_tpu_torch.faults import ChecksumError, InjectedFault
+from deepspeed_tpu_torch.inference.control_plane import ControlPlane
 from deepspeed_tpu_torch.inference.kernels import (PagedKVCache,
                                                    PageAllocator,
                                                    resolve_serving_kernels)
@@ -97,21 +104,6 @@ from deepspeed_tpu_torch.ops.sampling_cuda import (fused_greedy_rows,
                                                    fused_sample_rows,
                                                    greedy_rows_reference,
                                                    with_temperature)
-
-# enabled-when-set blocks of the reference engine, and the slice that
-# ports each
-UNPORTED_BLOCKS = {
-    "telemetry": "the control-plane slice",
-    "tracing": "the control-plane slice",
-    "slo": "the control-plane slice",
-    "faults": "the control-plane slice",
-    "shed_queue_depth": "the control-plane slice",
-    "shed_expired_deadline": "the control-plane slice",
-    "history": "the control-plane slice",
-    "incidents": "the control-plane slice",
-    "devprof": "the control-plane slice",
-}
-
 
 # admission looks this many requests past a queue head whose pages do not
 # fit (the reference engine's default), so one large request does not
@@ -138,14 +130,6 @@ def _enabled(value) -> bool:
     return bool(getattr(value, "enabled", True))
 
 
-def _reject_unported(blocks: Dict[str, Any]) -> None:
-    for name, value in blocks.items():
-        if _enabled(value):
-            raise NotImplementedError(
-                f"serving block {name!r} is not ported to deepspeed_tpu_torch "
-                f"yet; it comes with {UNPORTED_BLOCKS[name]}")
-
-
 def _sample_rows(logits: torch.Tensor, temps,
                  generator=None) -> torch.Tensor:
     """Plain batched sampler: [B, V] logits + host temps [B] -> [B] int32.
@@ -162,8 +146,9 @@ class EngineClosed(RuntimeError):
 
 @dataclasses.dataclass
 class RequestShed:
-    """Typed admission rejection (load shedding; the shedding blocks come
-    with the control-plane slice, so this engine never produces one)."""
+    """Typed admission rejection (load shedding): the request never ran.
+    ``reason``: ``"queue_depth"`` (the queue was at ``shed_queue_depth``)
+    or ``"deadline"`` (its SLO tier's deadline expired in the queue)."""
 
     req_id: Any
     reason: str
@@ -173,8 +158,9 @@ class RequestShed:
 @dataclasses.dataclass
 class RequestFailed:
     """Typed per-request failure: an exception in this request's
-    admission failed THIS request, its pages were released and the engine
-    kept serving."""
+    admission (``"admit_exception"``) or its slot's work
+    (``"slot_exception"``) failed THIS request, what it held was released
+    and the engine kept serving."""
 
     req_id: Any
     reason: str
@@ -195,6 +181,17 @@ class Request:
     # chained prefix-cache keys of the full pages (computed lazily, grown
     # as pages fill; survives preemption)
     page_keys: Optional[List[bytes]] = None
+    # TTFT clock: submit-time perf_counter, cleared once the first token
+    # is observed (None also means "telemetry off")
+    t_submit: Optional[float] = None
+    # flight-recorder state: the sampling decision (made once at submit)
+    # and the first-token edge (a preempted requeue carries both)
+    traced: bool = False
+    first_token_seen: bool = False
+    # arrival (never cleared: /statusz ages and the SLO deadline survive
+    # the first token and a requeue) and the SLO tier
+    t_arrival: float = 0.0
+    tier: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -213,6 +210,7 @@ class _Promotion:
     # True: an NVMe-backed promotion, owner of the pool's single aio read
     # channel (host-resident promotions never claim it)
     channel: bool = False
+    t_start: float = 0.0               # admission time (promote latency)
 
 
 @dataclasses.dataclass
@@ -223,6 +221,7 @@ class _Slot:
     seq_id: int = -1                   # PageAllocator owner key
     prefill_done: int = -1             # chunked prefill progress; -1 = done
     promo: Optional[_Promotion] = None  # in-flight tier-page promotion
+    last_tok_t: float = 0.0            # inter-token latency clock
 
     @property
     def prefilling(self) -> bool:
@@ -235,7 +234,7 @@ def _weak_method(bound):
     return lambda *args: ref()(*args)
 
 
-class ServingEngine:
+class ServingEngine(ControlPlane):
     """Host scheduler driving a paged-cache model on one device.
 
     ``prefill_fn`` / ``decode_fn`` / ``chunk_prefill_fn``: callables with the
@@ -246,7 +245,12 @@ class ServingEngine:
     ``prefix_cache`` / ``kv_tier`` / ``speculative``: the config blocks of
     the JAX package (dict, bool, config object or None); ``drafter``: a
     :class:`~deepspeed_tpu_torch.inference.speculative.Drafter` instance
-    (required for ``speculative.drafter == "model"``).
+    (required for ``speculative.drafter == "model"``).  ``telemetry``,
+    ``tracing``, ``slo``, ``faults``, ``shed_queue_depth``,
+    ``shed_expired_deadline``, ``history``, ``incidents``, ``devprof``:
+    the control-plane blocks (:class:`~deepspeed_tpu_torch.inference.
+    control_plane.ControlPlane`); ``model_dim``: the model width, from
+    which devprof's roofline counts a decode step's FLOPs.
     """
 
     def __init__(self, params, prefill_fn, decode_fn, *,
@@ -258,12 +262,13 @@ class ServingEngine:
                  decode_chunk: int = 1, prefill_chunk: int = 0,
                  chunk_prefill_fn=None, kernels=None, device=None,
                  prefix_cache=None, kv_tier=None, speculative=None,
-                 drafter=None, mesh=None, comm=None, **blocks):
-        unknown = set(blocks) - set(UNPORTED_BLOCKS)
-        if unknown:
-            raise TypeError(f"unexpected ServingEngine arguments "
-                            f"{sorted(unknown)}")
-        _reject_unported(blocks)
+                 drafter=None, mesh=None, comm=None, telemetry=None,
+                 tracing=None, slo=None, faults=None,
+                 shed_queue_depth: int = 0,
+                 shed_expired_deadline: bool = False, history=None,
+                 incidents=None, devprof=None, replica_id=None,
+                 model_dim: Optional[int] = None):
+        self._closed = True     # until built: __del__ tears down nothing
         self.device = resolve_device(device)
         # a sharded replica: the cache's head axis splits over model
         self.mesh = _active_mesh(mesh)
@@ -422,7 +427,35 @@ class ServingEngine:
         self.spec_emitted_tokens = 0
         self.spec_verify_sweeps = 0
         self.spec_verify_slots = 0
+        # devprof's roofline: one decode chunk's FLOPs and bytes from the
+        # shapes (the JAX engine reads them from XLA's cost analysis)
+        self._cost_dims = (None if model_dim is None else
+                           (n_layers, n_kv, head_dim, model_dim))
+        self._init_control_plane(
+            telemetry=telemetry, tracing=tracing, slo=slo, faults=faults,
+            shed_queue_depth=shed_queue_depth,
+            shed_expired_deadline=shed_expired_deadline, history=history,
+            incidents=incidents, devprof=devprof, replica_id=replica_id)
         self._closed = False
+
+    def _shape_cost(self, n_layers, n_kv, head_dim,
+                    model_dim) -> Tuple[float, float]:
+        """(FLOPs, bytes) of one decode chunk: ``decode_chunk`` steps of
+        ``max_batch`` rows, each :func:`~deepspeed_tpu_torch.profiler.
+        transformer_decode_flops` over a ``max_seq`` cache, reading every
+        weight and the rows' K/V once a step."""
+        from deepspeed_tpu_torch.profiler import transformer_decode_flops
+
+        leaves = [t for t in tree_leaves(self.params)
+                  if isinstance(t, torch.Tensor)]
+        n_params = float(sum(t.numel() for t in leaves))
+        w_bytes = float(sum(t.numel() * t.element_size() for t in leaves))
+        per_tok = transformer_decode_flops(n_params, n_layers, model_dim,
+                                           self.max_seq)
+        elem = self.cache.k.element_size()
+        kv_bytes = 2.0 * n_layers * n_kv * self.max_seq * head_dim * elem
+        K, B = self.decode_chunk, self.max_batch
+        return K * B * per_tok, K * (w_bytes + B * kv_bytes)
 
     def _alloc_cache(self, n_layers, n_kv, num_pages, page_size, head_dim,
                      cache_dtype) -> PagedKVCache:
@@ -460,10 +493,19 @@ class ServingEngine:
 
     # ---------------------------------------------------------------- submit
     def submit(self, req_id, tokens, max_new_tokens: int = 32,
-               temperature: float = 0.0) -> None:
-        """Queue a request.  Raises :class:`EngineClosed` after
-        :meth:`shutdown`, and ValueError for a request that could never
-        complete (longer than ``max_seq`` or than the whole page pool)."""
+               temperature: float = 0.0, tier: Optional[str] = None,
+               arrival: Optional[float] = None) -> Optional[RequestShed]:
+        """Queue a request.  ``tier`` names an SLO tier of the ``slo``
+        block (None: its default tier; naming one with the block off
+        raises); ``arrival`` carries an earlier ``perf_counter`` arrival
+        through a re-submit, so deadlines judge the user's clock.
+
+        Returns None when queued.  With ``shed_queue_depth`` set and the
+        queue at capacity the request is not queued: a typed
+        :class:`RequestShed` is recorded in ``finished`` and returned.
+        Raises :class:`EngineClosed` after :meth:`shutdown`, and ValueError
+        for a request that could never complete (longer than ``max_seq``
+        or than the whole page pool)."""
         if self._closed:
             raise EngineClosed(f"request {req_id!r} submitted after shutdown")
         tokens = list(map(int, tokens))
@@ -479,8 +521,26 @@ class ServingEngine:
                 f"request {req_id}: needs {lifetime_pages} pages at full "
                 f"length but the pool has {self.trash_page} — it could "
                 "never complete even alone")
-        self.queue.append(Request(req_id, tokens, max_new_tokens,
-                                  temperature))
+        self._n_submitted += 1
+        if self.shed_queue_depth and \
+                len(self.queue) >= self.shed_queue_depth:
+            return self._shed(req_id, tier, "queue_depth")
+        traced = self._trace_on and self.tracer.sampled(req_id)
+        now = time.perf_counter() if arrival is None else float(arrival)
+        if self._slo_on or tier is not None:
+            # BEFORE the queue append: an unknown tier rejects the request
+            self.slo_tracker.on_submit(req_id, tier, now=now)
+        self.queue.append(Request(
+            req_id, tokens, max_new_tokens, temperature,
+            t_submit=now if self._tel_on else None, traced=traced,
+            t_arrival=now, tier=tier))
+        self._g_queue.set(len(self.queue))
+        if traced:
+            self.tracer.event("queued", req_id, attrs={
+                "prompt_tokens": len(tokens),
+                "max_new_tokens": max_new_tokens,
+                "queue_depth": len(self.queue)})
+        return None
 
     @property
     def has_work(self) -> bool:
@@ -567,20 +627,27 @@ class ServingEngine:
         for i in range(min(len(self.queue), 1 + ADMIT_LOOKAHEAD)):
             req = self.queue[i]
             try:
-                admitted = self._try_admit(b, req)
+                admitted = self._try_admit(b, req, queue_skips=i)
+            except faults_mod.FatalStreamError:
+                # an unrecoverable weight stream is engine-fatal: every
+                # admission needs the same bytes (the request stays queued)
+                raise
             except Exception as e:
                 # _try_admit released what it took: fail THIS request
+                logger.warning(
+                    "serving: request %r failed during admission (%s) — "
+                    "releasing and continuing", req.req_id, str(e))
                 del self.queue[i]
-                self.finished[req.req_id] = RequestFailed(
-                    req.req_id, "admit_exception", repr(e))
-                self._newly_finished.append(req.req_id)
+                self._record_failure(req, "admit_exception", e)
                 return True
             if admitted:
                 del self.queue[i]
+                if i:
+                    self._c_admit_skips.inc(i)
                 return True
         return False
 
-    def _try_admit(self, b: int, req: Request) -> bool:
+    def _try_admit(self, b: int, req: Request, queue_skips: int = 0) -> bool:
         """Admit ``req`` into slot ``b`` if its pages fit; no side effects
         when they do not.  With the prefix cache, the prompt's longest
         cached page-aligned prefix is shared into the page table (device
@@ -608,6 +675,7 @@ class ServingEngine:
                     # prefix only would re-prefill a span sitting
                     # demoted); the lookahead keeps other traffic moving
                     self.kv_tier_admit_waits += 1
+                    self._c_kvt_admit_waits.inc()
                     return False
             else:
                 matched = [("hbm", p) for p in self.allocator.lookup(keys)]
@@ -663,6 +731,15 @@ class ServingEngine:
                     self.prefix_cache_misses += 1
                 self.prefix_cache_cached_tokens += cached
                 self.prefix_cache_prompt_tokens += T
+                (self._c_pc_hits if cm else self._c_pc_misses).inc()
+                self._c_pc_cached_tokens.inc(cached)
+                self._c_pc_prompt_tokens.inc(T)
+            if req.traced:
+                # BEFORE the prefill compute: the admitted -> first_token
+                # span is the prefill's cost
+                self.tracer.event("admitted", req.req_id, b, attrs={
+                    "cached_tokens": cached, "tier_pages": len(tier_keys),
+                    "queue_skips": queue_skips})
             promo = (self._begin_promotion(b, tier_keys, page_map)
                      if tier_keys else None)
             if self.prefill_chunk or cached:
@@ -672,14 +749,19 @@ class ServingEngine:
                 self.slots[b] = _Slot(req=req, seq_len=cached, generated=[],
                                       seq_id=seq_id, prefill_done=cached,
                                       promo=promo)
+                self._c_admitted.inc()
                 return True
             toks = np.zeros((1, end), np.int32)
             toks[0, :T] = req.tokens
+            tk = self.devprof.begin("prefill") if self._devprof_on else None
             logits, _ = self._prefill(self.params, self._put(toks),
                                       self._view(self._table_host[b:b + 1],
                                                  0))
+            if tk is not None:
+                self.devprof.end(tk)
             slot = _Slot(req=req, seq_len=T, generated=[], seq_id=seq_id)
             self.slots[b] = slot
+            self._c_admitted.inc()
             # the prompt's full pages are immutable from here on (decode
             # writes only at the frontier): matchable now
             self._publish_full_pages(b, slot, upto=T)
@@ -770,7 +852,9 @@ class ServingEngine:
         reader.to_device = lambda bufs, g: promote(page_map, bufs,
                                                    group_keys(g))
         promo = _Promotion(keys=list(tier_keys), page_map=page_map,
-                           reader=reader, channel=channel)
+                           reader=reader, channel=channel,
+                           t_start=time.perf_counter())
+        self._g_kvt_inflight.set(len(self.allocator.promoting))
         if channel:
             self._promo_channel = b
         # host-resident presubmit is dict lookups: only NVMe reads yield
@@ -792,11 +876,13 @@ class ServingEngine:
             else:
                 p.deferred += 1
                 self.kv_tier_promote_deferrals += 1
+                self._c_kvt_deferrals.inc()
                 return False
         if p.reader.tier.reads_pending() and \
                 p.deferred < _KV_PROMO_DEFER_CAP:
             p.deferred += 1
             self.kv_tier_promote_deferrals += 1
+            self._c_kvt_deferrals.inc()
             return False
         self._complete_promotion(b, s)
         return True
@@ -816,9 +902,16 @@ class ServingEngine:
             self._promotion_fallback(b, s, e)
             return
         self._kvt_fault_streak = 0
+        dt = time.perf_counter() - p.t_start
+        self._h_kvt_promote.observe(dt)
         self._kv_pool.unpin(p.keys)
+        if s.req.traced:
+            self.tracer.event("kv_promote", s.req.req_id, b, attrs={
+                "pages": len(p.keys), "wait_s": round(dt, 6),
+                "deferred_steps": p.deferred})
         s.promo = None
         self._release_channel(p)
+        self._g_kvt_inflight.set(len(self.allocator.promoting))
 
     def _promotion_fallback(self, b: int, s: _Slot,
                             exc: BaseException) -> None:
@@ -850,14 +943,23 @@ class ServingEngine:
             fb_tokens = s.prefill_done
         if isinstance(exc, ChecksumError):
             self.kv_tier_checksum_failures += 1
+            self._c_kvt_checksum.inc()
         self.kv_tier_fallback_events += 1
         self.kv_tier_fallback_pages += len(unlanded)
+        self._c_kvt_fb_events.inc()
+        self._c_kvt_fb_pages.inc(len(unlanded))
         logger.warning(
             "serving: KV-tier promotion failed for request %r (%s): "
-            "re-prefilling %d pages from token %d", s.req.req_id, exc,
+            "re-prefilling %d pages from token %d", s.req.req_id, str(exc),
             len(unlanded), fb_tokens)
+        if self._trace_on:
+            self.tracer.event("kv_promote_failed", s.req.req_id, b,
+                              attrs={"error": repr(exc)[:200],
+                                     "pages": len(unlanded),
+                                     "resume_token": fb_tokens})
         s.promo = None
         self._release_channel(p)
+        self._g_kvt_inflight.set(len(self.allocator.promoting))
         self._kvt_fault_streak += 1
         da = self.kv_tier.disable_after
         if da and self._kvt_fault_streak >= da and \
@@ -884,6 +986,7 @@ class ServingEngine:
                                        for c in zip(*parts)))
         if self._quant_resident:
             self.kv_tier_quant_resident_promotes += len(g_keys)
+            self._c_kvt_qres_promotes.inc(len(g_keys))
         for key, pg in zip(g_keys, pages):
             self.allocator.finish_promotion(pg, key)
         return pages
@@ -1008,12 +1111,19 @@ class ServingEngine:
         while np_bkt < np_live:
             np_bkt *= 2
         np_bkt = min(np_bkt, self.max_pages_per_seq)
+        tk = self.devprof.begin("prefill") if self._devprof_on else None
         logits, _ = self._chunk_prefill(
             self.params, self._put(toks),
             self._view(self._table_host[b:b + 1, :np_bkt], done))
+        if tk is not None:
+            self.devprof.end(tk)
         s.prefill_done = done + take
         s.seq_len = s.prefill_done
         self.prefill_chunks += 1
+        self._c_prefill_chunks.inc()
+        if s.req.traced:
+            self.tracer.event("prefill_chunk", s.req.req_id, b, attrs={
+                "done": s.prefill_done, "of": T, "take": take})
         if s.prefill_done >= T:
             s.prefill_done = -1
             # decode-ready: the device row flips from trash to real pages
@@ -1043,17 +1153,29 @@ class ServingEngine:
             raise MemoryError("out of KV pages with no slot to preempt")
         _, b = min(cand)
         s = self.slots[b]
+        logger.warning("serving: preempting request %r (%d generated)",
+                       s.req.req_id, len(s.generated))
         self._release_slot(b, s)
         self._pending_boundary = [p for p in self._pending_boundary
                                   if p[0] != b]
         req = s.req
+        if req.traced:
+            self.tracer.event("preempt", req.req_id, b, attrs={
+                "generated": len(s.generated)})
         # the finished output is tokens + generated of the FINAL
-        # incarnation, which already holds everything produced before
+        # incarnation, which already holds everything produced before.
+        # Not re-announced to the SLO tracker: its record (and the
+        # original arrival) survives under the same req_id
         self.queue.appendleft(Request(
             req.req_id, req.tokens + s.generated,
             req.max_new_tokens - len(s.generated), req.temperature,
-            page_keys=req.page_keys))
+            page_keys=req.page_keys, t_submit=req.t_submit,
+            traced=req.traced, first_token_seen=req.first_token_seen,
+            t_arrival=req.t_arrival, tier=req.tier))
         self.preempted += 1
+        self._c_preempted.inc()
+        if req.traced:
+            self.tracer.event("requeue", req.req_id)
 
     def _queue_boundary(self, b: int, logits_row: torch.Tensor,
                         slot: _Slot) -> None:
@@ -1068,18 +1190,49 @@ class ServingEngine:
         pend, self._pending_boundary = self._pending_boundary, []
         rows = torch.stack([p[1] for p in pend])
         temps = np.asarray([p[2] for p in pend], np.float32)
-        toks = self._sample_fn(rows, temps, self.generator).cpu().numpy()
+        tk = self.devprof.begin("sample") if self._devprof_on else None
+        toks = self._sample_fn(rows, temps, self.generator)
+        if tk is not None:
+            self.devprof.end(tk)
+        toks = toks.cpu().numpy()
+        self._c_boundary_syncs.inc()
+        self._c_kdisp_sample.inc()
         for (b, _, _), tok in zip(pend, toks):
             self._append_token(b, int(tok))
 
     def _append_token(self, b: int, tok: int) -> None:
+        if self._devprof_on and not self.devprof.steady:
+            # the first token of the FIRST request: a kernel build after
+            # this is steady-state
+            self.devprof.mark_steady()
         s = self.slots[b]
         s.generated.append(tok)
+        if self._tel_on or self._slo_on:
+            # one clock read shared by TTFT/ITL and the SLO tracker
+            now = time.perf_counter()
+            if self._tel_on:
+                if s.req.t_submit is not None:
+                    self._h_ttft.observe(now - s.req.t_submit)
+                    s.req.t_submit = None  # once per request lifetime
+                elif s.last_tok_t:
+                    self._h_itl.observe(now - s.last_tok_t)
+                s.last_tok_t = now
+            if self._slo_on:
+                self.slo_tracker.on_token(s.req.req_id, now=now)
+        if s.req.traced and not s.req.first_token_seen:
+            s.req.first_token_seen = True
+            self.tracer.event("first_token", s.req.req_id, b)
         done = (self.eos is not None and tok == self.eos) or \
             len(s.generated) >= s.req.max_new_tokens
         if done:
             self.finished[s.req.req_id] = list(s.req.tokens) + s.generated
             self._newly_finished.append(s.req.req_id)
+            if self._slo_on:
+                self.slo_tracker.on_finish(s.req.req_id)
+            if s.req.traced:
+                self.tracer.event("finish", s.req.req_id, b, attrs={
+                    "generated": len(s.generated),
+                    "total_tokens": len(s.req.tokens) + len(s.generated)})
             self._release_slot(b, s)
 
     def _grow_pages(self, ahead: int = 1) -> None:
@@ -1114,19 +1267,48 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ step
     def step(self) -> List[Any]:
-        """One scheduling iteration: watermark demotion -> admit -> prefill
-        chunks -> boundary sampling -> batched decode.  Returns the request
-        ids that finished during this step."""
+        """One scheduling iteration: deadline shedding -> watermark
+        demotion -> admit -> prefill chunks -> boundary sampling -> batched
+        decode, inside the control plane's step span and tick.  Returns the
+        request ids that finished (or were shed or failed) during this
+        step."""
         self._newly_finished = []
+        self._step_control(self._step_inner)
+        return list(self._newly_finished)
+
+    def _step_inner(self) -> None:
+        if self._shed_deadline and self.queue:
+            # BEFORE admission: a request whose deadline already expired
+            # sheds, never burns a slot
+            self._shed_expired()
         if self._kvt_wm_pages is not None:
             # BEFORE admission: demoting past the watermark frees pages
             # the admissions below can use
             self._demote_watermark_sweep()
         while self._admit_one():
             pass
+        # failure isolation: an exception in one slot's work (including
+        # an injected `slot` fault) fails THAT request and releases what
+        # it held; the others keep serving.  A dead weight stream stays
+        # fatal to the engine
         for b, s in list(enumerate(self.slots)):
             if s is not None and s.prefilling:
-                self._advance_prefill(b, s)
+                try:
+                    self._inject_slot(s.req.req_id)
+                    self._advance_prefill(b, s)
+                except faults_mod.FatalStreamError:
+                    raise
+                except Exception as e:
+                    self._fail_slot(b, e)
+        if self._fault_plan is not None:
+            # decode-ready slots get the same per-step opportunity (a
+            # request that skipped chunked prefill would be untargetable)
+            for b, s in enumerate(self.slots):
+                if s is not None and not s.prefilling:
+                    try:
+                        self._inject_slot(s.req.req_id)
+                    except InjectedFault as e:
+                        self._fail_slot(b, e)
         self._flush_boundary()
         ready = lambda: [(b, s) for b, s in enumerate(self.slots)  # noqa: E731
                          if s is not None and not s.prefilling]
@@ -1138,11 +1320,12 @@ class ServingEngine:
         if active:
             self._grow_pages(ahead=ahead)
             active = ready()
+        if self._tel_on:
+            self._step_gauges(active)
         if active and self._spec_on:
             self._spec_step(active)
         elif active:
             self._decode_active(active)
-        return list(self._newly_finished)
 
     def _check_frontier_writable(self, active, ahead: int) -> None:
         """COW guard for the speculative write window: every page the
@@ -1194,11 +1377,15 @@ class ServingEngine:
             toks[b, 1:1 + len(d)] = d
             temps[b] = s.req.temperature
         self.spec_drafted_tokens += int(dlens.sum())
+        self._c_spec_drafted.inc(int(dlens.sum()))
         if self._pc_on:
             self._check_frontier_writable(active, K + 1)
         self._upload_dirty()
+        tk = self.devprof.begin("spec_verify") if self._devprof_on else None
         logits, self.cache = self._chunk_prefill(self.params,
                                                  self._put(toks), self.cache)
+        if tk is not None:
+            self.devprof.end(tk)
         n_acc, stop = verify_accept(logits, self._put(drafts),
                                     self._put(dlens), self.generator, temps,
                                     argmax=self._argmax)
@@ -1207,12 +1394,18 @@ class ServingEngine:
         n_acc, stop = host[:, 0], host[:, 1:]
         self.decode_steps += K + 1
         self.spec_verify_sweeps += 1
+        self._c_decode_steps.inc(K + 1)
+        self._c_spec_sweeps.inc()
         for b, s in active:
             a = int(n_acc[b])
             self.spec_rejected_tokens += int(dlens[b]) - a
             self.spec_accepted_tokens += a
             self.spec_verify_slots += 1
             self.spec_emitted_tokens += a + 1
+            self._c_spec_rejected.inc(int(dlens[b]) - a)
+            self._c_spec_accepted.inc(a)
+            self._c_spec_slots.inc()
+            self._c_spec_emitted.inc(a + 1)
             # KV rollback: the forward wrote K+1 positions; only the
             # re-fed token and the accepted drafts hold real history
             s.seq_len += a + 1
@@ -1240,18 +1433,29 @@ class ServingEngine:
         tok = self._put(toks)
         cache = self.cache
         out = []
+        tk = self.devprof.begin("decode") if self._devprof_on else None
         for _ in range(K):
             logits, cache = self._decode(self.params, tok, cache)
             nxt = self._sample_fn(logits[:, -1], temps, self.generator)
             out.append(nxt)
             tok = nxt[:, None]
+        if tk is not None:
+            self.devprof.end(tk)
         self.cache = cache
         # the device's structural seq_lens + K is trusted until the next
         # composition change re-uploads it
         for b, s in active:
             s.seq_len += K
         self.decode_steps += K
+        self._c_decode_steps.inc(K)
+        self._c_decode_syncs.inc()
+        self._c_kdisp_paged.inc()
+        self._c_kdisp_sample.inc(K)
         host_toks = torch.stack(out, dim=1).cpu().numpy()      # [B, K]
+        if self._trace_on and any(s.req.traced for _, s in active):
+            # one event per batch sync, not per token
+            self.tracer.event("decode_batch", attrs={
+                "active": len(active), "chunk": K})
         for b, s in active:
             for j in range(K):
                 self._append_token(b, int(host_toks[b, j]))
@@ -1274,8 +1478,19 @@ class ServingEngine:
         return out
 
     def shutdown(self) -> None:
-        """Idempotent: later ``submit`` calls raise :class:`EngineClosed`."""
+        """Idempotent teardown: later ``submit`` calls raise
+        :class:`EngineClosed`; the fault plan this engine installed is
+        cleared, the telemetry sinks flush and the HTTP server stops."""
+        if self._closed:
+            return
         self._closed = True
+        self._close_control_plane()
+
+    def __del__(self):
+        try:
+            self.shutdown()
+        except Exception:
+            pass
 
 
 def _active_mesh(mesh):
@@ -1342,7 +1557,7 @@ def _family_engine(forward_paged, params, cfg, weight_dtype: str,
     eng = ServingEngine(
         params, step, step, n_layers=cfg.n_layers, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, chunk_prefill_fn=chunk_step, kernels=policy,
-        device=dev, **kw)
+        device=dev, model_dim=getattr(cfg, "dim", None), **kw)
     eng.comm_placement = stats
     return eng
 
@@ -1510,8 +1725,7 @@ def _refuse_for_encoder(cfg, kw) -> None:
         raise NotImplementedError(
             f"speculative decoding needs the paged-KV decode path, which "
             f"{name} does not serve — {decoders}")
-    # the port's FaultsConfig refuses any enabled block itself (the fault
-    # plan comes with the control-plane slice): the opt-in rule decides
+    # a faults block is checked by the opt-in rule, as JAX's registry does
     checks = (("slo", SLOConfig.coerce, "the slo block needs"),
               ("prefix_cache", PrefixCacheConfig.coerce, "prefix_cache needs"),
               ("kv_tier", KVTierConfig.coerce, "kv_tier needs"),

@@ -33,6 +33,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops.losses import mean_denominator
+
 logger = logging.getLogger(__name__)
 
 
@@ -113,7 +115,7 @@ def causal_lm_loss(apply_fn):
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
         mask = batch["loss_mask"][:, 1:].float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return (nll * mask).sum() / mean_denominator(mask.sum())
 
     return loss_fn
 

@@ -105,6 +105,10 @@ class AioHandle:
     def __init__(self, n_threads: int = 8):
         self._lib = _ensure_lib()
         self._fds: List[int] = []
+        # fault injection (deepspeed_tpu_torch.faults): error rules swallow
+        # the submit and surface as failed ops at the next wait(); latency
+        # rules sleep at submit.  No plan installed = one branch per op
+        self._inject_errs = 0
         # buffers of submitted ops, kept alive until the next wait()
         self._inflight: List[np.ndarray] = []
         if self._lib is not None:
@@ -140,7 +144,28 @@ class AioHandle:
             self._fds.remove(fd)
 
     # ------------------------------------------------------------ async ops
+    def _maybe_inject(self, subsystem: str) -> bool:
+        """Consult the process-wide fault plan for one op: applies latency
+        rules, records error rules as a failed op reported by the next
+        :meth:`wait`.  Returns True when the op must NOT be submitted (it
+        is the injected failure)."""
+        from deepspeed_tpu_torch import faults
+
+        if faults.active_plan() is None:
+            return False
+        delay, err = faults.poll(subsystem)
+        if delay:
+            import time
+
+            time.sleep(delay)
+        if err is not None:
+            self._inject_errs += 1
+            return True
+        return False
+
     def _submit(self, fd: int, buf, offset: int, write: bool) -> None:
+        if self._maybe_inject("aio_write" if write else "aio_read"):
+            return                # swallowed: wait() reports the error
         view = as_bytes(buf)
         self._inflight.append(view)
         if self.native:
@@ -199,6 +224,8 @@ class AioHandle:
                     errs += 1
             self._futures = []
         self._inflight = []
+        errs += self._inject_errs
+        self._inject_errs = 0
         return errs
 
     def __del__(self):

@@ -54,7 +54,7 @@ from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.ops.attention import _reference, flash_attention
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
 from deepspeed_tpu_torch.ops.losses import (chunked_lm_loss, f32_matmul,
-                                            lm_loss_sum)
+                                            lm_loss_sum, mean_denominator)
 from deepspeed_tpu_torch.parallel.tensor_parallel import (
     col_input, row_output, vocab_parallel_nll_sum)
 from deepspeed_tpu_torch.remat import (check as check_remat,
@@ -496,7 +496,7 @@ def loss_fn(cfg: LlamaConfig, n_micro: Optional[int] = None):
         if sp > 1:
             total = comm.reduce_from(total, "seq")
             count = comm.all_reduce(count, "seq")
-        return total / torch.clamp(count, min=1.0)
+        return total / mean_denominator(count)
 
     return f
 
@@ -536,7 +536,7 @@ def layered_model(cfg: LlamaConfig, params):
             total, count = vocab_parallel_nll_sum(
                 f32_matmul(comm.copy_to(x, "model"), hp["lm_head"]),
                 tokens[:, 1:], mask)
-            return total / torch.clamp(count, min=1.0)
+            return total / mean_denominator(count)
         return chunked_lm_loss(x, hp["lm_head"], tokens[:, 1:], mask=mask,
                                chunk=cfg.loss_chunk or cfg.vocab_size)
 

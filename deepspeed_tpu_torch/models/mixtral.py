@@ -59,7 +59,8 @@ from deepspeed_tpu_torch.config import MoEConfig
 from deepspeed_tpu_torch.inference.quantized import take, takes_quantized
 from deepspeed_tpu_torch.models import llama as _llama
 from deepspeed_tpu_torch.ops.fused_ops import rms_norm, swiglu
-from deepspeed_tpu_torch.ops.losses import chunked_lm_loss, dense_lm_loss
+from deepspeed_tpu_torch.ops.losses import (chunked_lm_loss, dense_lm_loss,
+                                            mean_denominator)
 from deepspeed_tpu_torch.parallel.moe import MoELayer
 from deepspeed_tpu_torch.parallel.tensor_parallel import (col_input,
                                                           row_output)
@@ -434,7 +435,7 @@ def loss_fn(cfg: MixtralConfig):
             # a vocabulary block a rank: the vocab-parallel loss
             total, count = _llama._loss_sum(params, lcfg, h, tokens[:, 1:],
                                             mask)
-            lm = total / torch.clamp(count, min=1.0)
+            lm = total / mean_denominator(count)
         else:
             lm = dense_lm_loss(h.reshape(-1, cfg.dim), head,
                                tokens[:, 1:].reshape(-1),

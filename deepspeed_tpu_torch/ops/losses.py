@@ -14,6 +14,9 @@ preferred_element_type=float32)``, so no f32 copy of the head is made.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Sequence
+
 import torch
 
 
@@ -55,19 +58,58 @@ def f32_matmul(a, b):
     return a.float() @ b.float()
 
 
-def _masked_mean(nll, mask):
+# (axes, ranks) of the global-mean block the caller is in, innermost last
+_GLOBAL_MEAN: list = []
+
+
+@contextlib.contextmanager
+def global_batch_mean(axes: Sequence[str], world: int):
+    """Inside this block a masked mean over this rank's rows of a batch
+    split over ``axes`` (``world`` ranks in all) divides by the global
+    count: :func:`mean_denominator`.  The training engine's exact step
+    enters it, so that its sum of each rank's ``loss / world`` is the mean
+    over the whole microbatch, as the JAX engine's GSPMD step takes it."""
+    _GLOBAL_MEAN.append((tuple(axes), int(world)))
+    try:
+        yield
+    finally:
+        _GLOBAL_MEAN.pop()
+
+
+def mean_denominator(count: torch.Tensor) -> torch.Tensor:
+    """What a masked mean of this rank's rows divides by: ``max(count,
+    1)``; inside :func:`global_batch_mean`, the count summed over the axes
+    that split the batch, clamped, over the ranks' number (equal counts
+    give back the local count, bit for bit)."""
+    count = count.detach().float()
+    if not _GLOBAL_MEAN:
+        return torch.clamp(count, min=1.0)
+    from deepspeed_tpu_torch import comm
+
+    axes, world = _GLOBAL_MEAN[-1]
+    total = count.clone()
+    for a in axes:
+        comm.all_reduce_(total, a)
+    return torch.clamp(total, min=1.0) / world
+
+
+def _masked_mean(nll, mask, denom=None):
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = mean_denominator(mask.sum())
+    return (nll * mask).sum() / denom
 
 
-def dense_lm_loss(x, head, targets, mask=None):
+def dense_lm_loss(x, head, targets, mask=None, denom=None):
     """Mean (masked) NLL of ``softmax(x @ head)``: x [N, D], head [D, V],
-    targets [N] int, mask optional [N] (1 = count) -> f32 scalar."""
+    targets [N] int, mask optional [N] (1 = count) -> f32 scalar.
+    ``denom``: the masked mean's divisor (default
+    :func:`mean_denominator` of the mask's count)."""
     logp = torch.log_softmax(f32_matmul(x, head), dim=-1)
     nll = -logp.gather(-1, targets.long()[:, None])[:, 0]
     if mask is None:
         return nll.mean()
-    return _masked_mean(nll, mask)
+    return _masked_mean(nll, mask, denom)
 
 
 def lm_loss_sum(logits, targets, mask=None):
@@ -118,18 +160,18 @@ class _ChunkedNLL(torch.autograd.Function):
     padded columns get p = 0 through their -inf logits."""
 
     @staticmethod
-    def forward(ctx, x, head, targets, mask, chunk: int, v_real: int):
+    def forward(ctx, x, head, targets, mask, denom, chunk: int, v_real: int):
         nll, lse = _chunk_fwd(x, head, targets, chunk, v_real)
-        ctx.save_for_backward(x, head, targets, mask, lse)
+        ctx.save_for_backward(x, head, targets, mask, lse, denom)
         ctx.chunk, ctx.v_real = chunk, v_real
-        return _masked_mean(nll, mask)
+        return _masked_mean(nll, mask, denom)
 
     @staticmethod
     def backward(ctx, g):
-        x, head, targets, mask, lse = ctx.saved_tensors
+        x, head, targets, mask, lse, denom = ctx.saved_tensors
         chunk, v_real = ctx.chunk, ctx.v_real
         maskf = mask.float()
-        w = g.float() * maskf / torch.clamp(maskf.sum(), min=1.0)   # [N]
+        w = g.float() * maskf / denom   # [N]
         col = torch.arange(chunk, device=x.device)
         tl = targets.long()
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -152,7 +194,7 @@ class _ChunkedNLL(torch.autograd.Function):
             dx += dl @ hc.float().T
             if dhead is not None:
                 dhead[:, base:base + chunk] = (xf.T @ dl).to(head.dtype)
-        return dx.to(x.dtype), dhead, None, None, None, None
+        return dx.to(x.dtype), dhead, None, None, None, None, None
 
 
 def chunked_lm_loss(x, head, targets, mask=None, chunk: int = 8192):
@@ -169,11 +211,15 @@ def chunked_lm_loss(x, head, targets, mask=None, chunk: int = 8192):
     V = head.shape[1]
     chunk = min(chunk, V)
     if mask is None:
+        # every row counts, the same number on every rank: no exchange
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = mean_denominator(mask.float().sum())
     if V <= chunk:
-        return dense_lm_loss(x, head, targets, mask)
+        return dense_lm_loss(x, head, targets, mask, denom)
     pad = (-V) % chunk
     if pad:
         head = torch.cat([head, head.new_zeros((head.shape[0], pad))], dim=1)
-    return _ChunkedNLL.apply(x, head, targets, mask, chunk, V)
+    return _ChunkedNLL.apply(x, head, targets, mask, denom, chunk, V)

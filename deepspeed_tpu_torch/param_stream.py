@@ -61,8 +61,10 @@ model's tensor-parallel tree, mapped onto the factoring by
 ``LayeredModel.factor_specs``) cut every leaf to this rank's block before
 it reaches the tier: the layers stream, update and gather as blocks, and
 the model's sharded forward runs on them.  ``master_params`` and the
-universal checkpoint gather whole leaves.  The metrics registry and tracer
-hooks wait for A10 (the counts are plain attributes).
+universal checkpoint gather whole leaves.  The counts are plain
+attributes; a tier read that exhausts its retries and the synchronous
+fallback raises :class:`~deepspeed_tpu_torch.faults.FatalStreamError`
+after a flight-recorder postmortem.
 """
 
 from __future__ import annotations
@@ -184,8 +186,10 @@ class TierLayerReader:
         """Fence item ``l``'s reads: a transient IO failure resubmits them
         (bounded, exponential backoff); exhausted retries fall over to the
         tier's synchronous ``read_sync``; if that fails too (or the tier
-        has none) the last error propagates.  Returns the valid
-        buffers."""
+        has none) a flight-recorder postmortem is dumped and a structured
+        :class:`~deepspeed_tpu_torch.faults.FatalStreamError` raised,
+        naming the dump's paths.  Returns the valid buffers."""
+        from deepspeed_tpu_torch import faults as _faults_mod
         state = {"pending": pending}
 
         def fence():
@@ -205,14 +209,23 @@ class TierLayerReader:
         except (IOError, OSError) as e:
             last = e
         read_sync = getattr(self.tier, "read_sync", None)
-        if read_sync is None:
-            raise last
-        names, shapes, dtypes, _ = self._meta(l)
-        bufs = [read_sync(n, s, d) for n, s, d in zip(names, shapes, dtypes)]
-        self.sync_fallbacks += 1
-        logger.warning("tier retries exhausted for item %s: served by "
-                       "synchronous reads", l)
-        return bufs
+        if read_sync is not None:
+            try:
+                names, shapes, dtypes, _ = self._meta(l)
+                bufs = [read_sync(n, s, d)
+                        for n, s, d in zip(names, shapes, dtypes)]
+                self.sync_fallbacks += 1
+                logger.warning("tier retries exhausted for item %s: "
+                               "served by synchronous reads", l)
+                return bufs
+            except Exception as e:
+                last = e
+        paths = _faults_mod.guarded_postmortem("tier_stream_fatal")
+        raise _faults_mod.FatalStreamError(
+            f"tier read of item {l} failed after {self.retries} retries "
+            f"and the synchronous fallback ({last!r}); flight-recorder "
+            f"postmortem: {paths or 'no recorder live'}",
+            postmortem_paths=paths)
 
     def presubmit(self, l: int):
         """Submit item ``l``'s tier reads NOW (generators are lazy) and

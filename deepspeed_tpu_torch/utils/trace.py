@@ -1,5 +1,11 @@
-"""Collective log (port of ``CommsLogger`` from ``deepspeed_tpu/utils/
-trace.py``; ref: deepspeed/comm comms_logger).
+"""Execution tracing and the collective log (port of
+``deepspeed_tpu/utils/trace.py``; ref: DeepSpeed's profiling hooks +
+``deepspeed.comm`` comms_logger).
+
+:class:`Tracer` rides ``torch.profiler`` where the JAX package rides
+``jax.profiler``: a capture writes a Chrome trace (CPU ops and, on the
+card, the CUDA kernels on the device's clock) under ``log_dir``, and
+:meth:`Tracer.annotate` is a ``torch.profiler.record_function`` range.
 
 The JAX package logs a collective once per *trace* of its enclosing jit, so
 its counts answer "which call sites" and not "how many per step".  In the
@@ -12,9 +18,95 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import os
+import tempfile
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+
+class Tracer:
+    """start/stop trace capture + named annotation ranges."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir or _default_log_dir()
+        self.active = False
+        self._prof = None
+        self.last_trace: Optional[str] = None
+
+    def start(self) -> None:
+        import torch
+
+        os.makedirs(self.log_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
+        self.active = True
+
+    def stop(self) -> None:
+        if self.active:
+            prof, self._prof = self._prof, None
+            self.active = False
+            prof.__exit__(None, None, None)
+            path = os.path.join(
+                self.log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+            prof.export_chrome_trace(path)
+            self.last_trace = path
+
+    @contextlib.contextmanager
+    def trace(self):
+        self.start()
+        try:
+            yield self
+        finally:
+            self.stop()
+
+    @staticmethod
+    def annotate(name: str):
+        """Named range visible in the trace's timeline."""
+        import torch
+
+        return torch.profiler.record_function(name)
+
+    @staticmethod
+    def step(step_num: int):
+        """Mark one train step (a ``train_step#N`` range)."""
+        import torch
+
+        return torch.profiler.record_function(f"train_step#{step_num}")
+
+
+def _default_log_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "dstpu_trace")
+
+
+_global_tracer: Optional[Tracer] = None
+
+
+def get_tracer(log_dir: Optional[str] = None) -> Tracer:
+    """Process-wide profiler tracer.
+
+    ``log_dir=None`` means "whatever the singleton already uses".  An
+    explicit dir re-points the idle singleton; if a capture is ACTIVE the
+    running profiler owns its directory, so the change is refused with a
+    warning instead of being silently dropped."""
+    global _global_tracer
+    if _global_tracer is None:
+        _global_tracer = Tracer(log_dir)
+    elif log_dir is not None and log_dir != _global_tracer.log_dir:
+        if _global_tracer.active:
+            from deepspeed_tpu_torch.utils.logging import logger
+
+            logger.warning(
+                "get_tracer: capture already active in %s — ignoring "
+                "log_dir=%r until stop() (stop the capture before "
+                "re-pointing the tracer)",
+                _global_tracer.log_dir, log_dir)
+        else:
+            _global_tracer.log_dir = log_dir
+    return _global_tracer
 
 
 class CommsLogger:

@@ -117,6 +117,42 @@ def _mlp_loss(params, batch):
     return -torch.mean(torch.gather(logp, 1, y.long()[:, None]))
 
 
+def numpy_params(init_params, cfg, seed=0, std=0.05):
+    """A param tree of ``init_params(key, cfg)``'s shapes drawn from a numpy
+    seed (norm scales about 1), without running the JAX initializer."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+
+    def draw(path, s):
+        x = rng.normal(0, std, s.shape)
+        if "norm" in jax.tree_util.keystr(path) and \
+                "bias" not in jax.tree_util.keystr(path):
+            x = x + 1.0
+        return x.astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def bert_unequal_batch(seed=11, B=4, T=16):
+    """A tiny-BERT MLM batch whose labels split 10 / 15 over the halves of
+    its rows (data ranks 0 / 1 at data = 2); row 3 pads its last two
+    positions."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 256, (B, T)).astype(np.int32)
+    labels = np.full((B, T), -100, np.int32)
+    mask = np.ones((B, T), np.int32)
+    mask[3, T - 2:] = 0
+    for row, n in ((0, 6), (1, 4), (2, 8), (3, 7)):
+        pos = rng.choice(int(mask[row].sum()), n, replace=False)
+        labels[row, pos] = toks[row, pos]
+    return {"tokens": toks, "attention_mask": mask,
+            "token_type_ids": rng.integers(0, 2, (B, T)).astype(np.int32),
+            "mlm_labels": labels}
+
+
 def _np(t):
     import torch
 
@@ -1044,7 +1080,8 @@ def _suite_tp_gpt2_bert(out, spec, inputs, W, r):
     int8 weights) and ``init_inference`` logits, each rank's fused QKV
     block, GPT-2 training at stages 0-1 (and 2-3 at W = 4) with a stage-0
     checkpoint and remat ``save_attn`` / ``offload_attn``; BERT's pooled /
-    MLM / hidden heads over ``model`` (f32 and int8) and its training."""
+    MLM / hidden heads over ``model`` (f32 and int8) and its training
+    over ``model`` (and data 2 x model 2 at W = 4)."""
     import functools
 
     import torch
@@ -1130,8 +1167,7 @@ def _suite_tp_gpt2_bert(out, spec, inputs, W, r):
             [float(eng.train_batch(b)) for b in batches])
     bb = {k[len("bert_batch/"):]: v for k, v in inputs.items()
           if k.startswith("bert_batch/")}
-    # BERT over model = W alone: its masked-mean MLM loss averaged over
-    # data ranks is not JAX's global masked mean (ROADMAP C-f7)
+    # BERT over model = W, then (W = 4) over data 2 x model 2
     c = dict(conf, zero_optimization={"stage": 0}, mesh={"model": W})
     eng = initialize(loss_fn=tb.loss_fn(bcfg), params=bp, config=c,
                      param_specs=tb.param_specs(bcfg), device="cpu")[0]
@@ -1139,6 +1175,17 @@ def _suite_tp_gpt2_bert(out, spec, inputs, W, r):
         [float(eng.train_batch({k: torch.from_numpy(v) for k, v in
                                 bb.items()})) for _ in range(2)])
     out.put("bert_train/params", eng.module_params())
+    if W == 4:
+        # over data 2 x model 2, 10 and 15 labels on the data ranks: the
+        # MLM mean is over the global microbatch, as JAX's GSPMD step
+        ub = {k: torch.from_numpy(v) for k, v in bert_unequal_batch().items()}
+        c = dict(conf, zero_optimization={"stage": 0},
+                 mesh={"data": 2, "model": 2})
+        eng = initialize(loss_fn=tb.loss_fn(bcfg), params=bp, config=c,
+                         param_specs=tb.param_specs(bcfg), device="cpu")[0]
+        out["bert_train_dm/losses"] = np.asarray(
+            [float(eng.train_batch(ub)) for _ in range(2)])
+        out.put("bert_train_dm/params", eng.module_params())
 
 
 SUITES["tp_gpt2_bert"] = _suite_tp_gpt2_bert
@@ -1215,6 +1262,33 @@ def _suite_inj_hybrid(out, spec, inputs, W, r):
 
 
 SUITES["inj_hybrid"] = _suite_inj_hybrid
+
+
+def _suite_masked_mean(out, spec, inputs, W, r):
+    """Masked-mean losses over data = 2 with unequal counts on the ranks:
+    tiny BERT's MLM mean (exact step, and under qwZ, qgZ and 1-bit Adam)
+    and tiny Llama's packed-document loss, each for ``spec["steps"]``
+    steps; recorded as :func:`_train` records them."""
+    import torch
+
+    from deepspeed_tpu_torch.models import bert as tb
+    from deepspeed_tpu_torch.models import llama as tl
+
+    bcfg, lcfg = tb.BertConfig.tiny(), tl.LlamaConfig.tiny()
+    bb = {k[len("bert_batch/"):]: torch.from_numpy(v)
+          for k, v in inputs.items() if k.startswith("bert_batch/")}
+    lb = {k[len("llama_batch/"):]: torch.from_numpy(v)
+          for k, v in inputs.items() if k.startswith("llama_batch/")}
+    for name, conf in spec["cases"].items():
+        if name.startswith("llama"):
+            _train(out, name, conf, _llama_params(inputs), [lb],
+                   spec["steps"], loss_fn=tl.loss_fn(lcfg), moments=False)
+        else:
+            _train(out, name, conf, _tree_params(inputs, "bert"), [bb],
+                   spec["steps"], loss_fn=tb.loss_fn(bcfg), moments=False)
+
+
+SUITES["masked_mean"] = _suite_masked_mean
 
 
 def main(argv):

@@ -2,16 +2,21 @@
 DeepSpeed dicts parse to the same fields, the batch arithmetic solves the
 same way, and every dataclass has the same fields with the same defaults.
 
-The intended differences: an enabled ``faults`` or ``random_ltd`` block
-parses in the JAX package (which validates it in modules the port has not
-ported) and raises ``NotImplementedError`` in the port, naming the ROADMAP
-item.  An enabled ``curriculum_learning`` block parses in both, into each
+The intended difference: an enabled ``random_ltd`` block parses in the
+JAX package (which validates it in a module the port has not ported) and
+raises ``NotImplementedError`` in the port, naming the ROADMAP item; an
+enabled ``faults`` block parses in both, its rules validated by each
+package's ``FaultPlan``.  An enabled ``curriculum_learning`` block parses in both, into each
 package's own ``CurriculumConfig``, and an enabled ``elasticity`` block
 into each package's ``ElasticityConfig``, which resolves the batch alike
-(its three errors included)."""
+(its three errors included).  The JAX package's default directories under
+``/tmp`` (swap, flight recorder, incidents) sit under the process's temp
+directory in the port, the same paths when ``TMPDIR`` is unset."""
 
 import dataclasses
 import inspect
+import os
+import tempfile
 
 import pytest
 import torch
@@ -92,12 +97,17 @@ PARSED = {
 INVALID = {
     "slo-unknown-default-tier": {"slo": {"tiers": {"gold": {"ttft_s": 1}}}},
     "faults-rules-not-a-list": {"faults": {"enabled": False, "rules": 3}},
+    "faults-unknown-subsystem": {"faults": {"rules": [
+        {"subsystem": "gpu_melt"}]}},
+    "faults-latency-without-delay": {"faults": {"rules": [
+        {"subsystem": "slot", "mode": "latency"}]}},
     "kv_tier-negative-retries": {"kv_tier": {"io_retries": -1}},
 }
 
 RAISES = {
+    # ported: parses as the JAX package does (match None)
     "faults": ({"faults": {"seed": 3, "rules": [
-        {"subsystem": "aio_read", "rate": 0.5, "count": 2}]}}, "faults"),
+        {"subsystem": "aio_read", "rate": 0.5, "count": 2}]}}, None),
     # ported: parses and resolves as the JAX package does (match None)
     "elasticity": ({"elasticity": {
         "enabled": True, "max_train_batch_size": 64,
@@ -109,11 +119,23 @@ RAISES = {
 }
 
 
+def _rooted(v):
+    """The JAX package's ``/tmp/...`` defaults as the port roots them."""
+    if isinstance(v, dict):
+        return {k: _rooted(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_rooted(x) for x in v)
+    if isinstance(v, str) and v.startswith("/tmp/"):
+        return os.path.join(tempfile.gettempdir(), v[len("/tmp/"):])
+    return v
+
+
 def _parse(module, d):
     try:
-        return dataclasses.asdict(module.Config.from_dict(d))
+        got = dataclasses.asdict(module.Config.from_dict(d))
     except Exception as e:            # both packages must fail alike
         return (type(e).__name__, str(e))
+    return _rooted(got) if module is jcfg else got
 
 
 def _resolve(module, d, dp_world):
@@ -187,7 +209,7 @@ def test_every_dataclass_and_constant_has_its_twin():
     want, got = _dataclasses(jcfg), _dataclasses(tcfg)
     assert got.keys() == want.keys()
     for name, cls in want.items():
-        jf = [(f.name, _default(f)) for f in dataclasses.fields(cls)]
+        jf = [(f.name, _rooted(_default(f))) for f in dataclasses.fields(cls)]
         tf = [(f.name, _default(f)) for f in dataclasses.fields(got[name])]
         assert tf == jf, name
     consts = {n for n in vars(jcfg) if n.isupper()}

@@ -206,8 +206,13 @@ def test_registry_refuses_cnn_options_and_unknown_configs(cnn_model, kw):
 
 def test_unported_blocks_raise(model):
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="control-plane"):
-        tes.bert_serving_engine(tp, tcfg, device="cpu", telemetry=True)
+    # telemetry is ported: the JAX engine's counters beside ``stats``
+    eng = tes.bert_serving_engine(tp, tcfg, device="cpu", telemetry=True)
+    eng.submit("a", [3, 7, 9])
+    eng.run()
+    counters = eng.registry.snapshot()["counters"]
+    assert counters["encoder_lots"] == eng.stats["lots"] == 1
+    assert counters["encoder_requests"] == 1
     # a mesh is served (test_torch_tp_gpt2_bert.py); it must be a MeshSpec,
     # and a sharded one without the model's specs is refused as JAX does
     from deepspeed_tpu.topology import MeshSpec as JMesh
@@ -224,9 +229,10 @@ def test_unported_blocks_raise(model):
                                      a: 2 if a == "model" else 1
                                      for a in AXES}))
     assert str(got.value) == str(want.value)
-    tes.bert_serving_engine(tp, tcfg, device="cpu", telemetry=False)
-    with pytest.raises(NotImplementedError, match="control-plane"):
-        tes.CNNServingEngine({}, device="cpu", telemetry={})
+    off = tes.bert_serving_engine(tp, tcfg, device="cpu", telemetry=False)
+    assert not off.registry.enabled
+    assert tes.CNNServingEngine({}, device="cpu",
+                                telemetry={}).registry.enabled
 
 
 def test_cnn_lots_match_jax_engine_and_solo(cnn_model):

@@ -473,8 +473,16 @@ def test_engine_rejects_what_the_slice_does_not_take(model, tmp_path):
     # the NVMe rung builds (it is ported; test_kv_nvme_* drive it)
     assert _engine(model, "torch", prefix_cache={}, kv_tier={
         "nvme_dir": str(tmp_path)})._kv_pool.uses_aio
-    with pytest.raises(NotImplementedError, match="control-plane"):
-        _engine(model, "torch", prefix_cache={}, kv_tier={}, faults={})
+    # the faults block is ported: it builds and installs its plan for the
+    # engine's lifetime
+    from deepspeed_tpu_torch import faults
+
+    eng = _engine(model, "torch", prefix_cache={}, kv_tier={}, faults={})
+    try:
+        assert faults.active_plan() is eng._fault_plan is not None
+    finally:
+        eng.shutdown()
+    assert faults.active_plan() is None
 
 
 # ------------------------------------------------------------ NVMe rung

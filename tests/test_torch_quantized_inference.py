@@ -357,9 +357,10 @@ def test_init_serving_blocks(model):
     eng = init_serving(tp, tcfg, config={"speculative": {"draft_tokens": 2}},
                        device="cpu", **SERVE)
     assert eng.speculative.enabled and eng.speculative.draft_tokens == 2
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        init_serving(tp, tcfg, config={"telemetry": {"enabled": True}},
-                     device="cpu", **SERVE)
+    # the telemetry block is ported: the config reaches the engine
+    eng = init_serving(tp, tcfg, config={"telemetry": {"enabled": False}},
+                       device="cpu", **SERVE)
+    assert not eng.registry.enabled
     eng = init_serving(tp, tcfg, weight_dtype="int8", device="cpu",
                        config={"mesh": {"data": 4},
                                "prefix_cache": {},

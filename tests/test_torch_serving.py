@@ -1,9 +1,9 @@
 """Serving engine of the port against the JAX engine: greedy tokens must be
 IDENTICAL on llama-tiny in f32 (cache_dtype float32 on both sides), with
 ``check_leaks() == []`` on both, across whole-prompt prefill, split-fuse
-``prefill_chunk``, ``decode_chunk``, EOS and preemption; every unported
-block raises ``NotImplementedError`` (``prefix_cache``, ``kv_tier`` and
-int8 ``weight_dtype`` are ported: they behave as in the JAX package)."""
+``prefill_chunk``, ``decode_chunk``, EOS and preemption; every block of
+the JAX engine is ported and behaves as there (a block that needs another
+raises its ValueError; the others serve)."""
 
 import jax
 import jax.numpy as jnp
@@ -149,8 +149,33 @@ def test_unported_blocks_raise(model, block, value):
             serving_engine(tp, tcfg, device="cpu", weight_dtype="int4",
                            **BASE)
         return
-    with pytest.raises(NotImplementedError, match="slice"):
-        serving_engine(tp, tcfg, device="cpu", **{block: value}, **BASE)
+    if block in NEEDS:
+        # ported: without the block it needs it raises, as in the JAX
+        # engine (telemetry is on by default there and here)
+        off, match = NEEDS[block]
+        with pytest.raises(ValueError, match=match):
+            serving_engine(tp, tcfg, device="cpu", **{block: value}, **off,
+                           **BASE)
+        if off == {}:
+            return
+    # ported: a control-plane block serves token for token as the plain
+    # engine (test_torch_serving_control_plane.py holds it to JAX's)
+    want = serving_engine(tp, tcfg, device="cpu", **BASE)
+    eng = serving_engine(tp, tcfg, device="cpu", **{block: value}, **BASE)
+    try:
+        for e in (want, eng):
+            e.submit("a", list(range(1, 20)), max_new_tokens=5)
+        assert eng.run() == want.run() and eng.check_leaks() == []
+    finally:
+        eng.shutdown()
+
+
+# the control-plane blocks that need another block (the JAX engine's
+# ValueErrors)
+NEEDS = {"shed_expired_deadline": ({}, "slo"),
+         "history": ({"telemetry": False}, "telemetry"),
+         "incidents": ({"tracing": False}, "tracing"),
+         "devprof": ({"telemetry": False}, "telemetry")}
 
 
 def test_disabled_blocks_are_accepted(model):

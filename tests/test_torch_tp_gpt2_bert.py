@@ -18,7 +18,9 @@ Oracles and tolerances:
   JAX TP test's 5e-3 (tests/test_models.py:82); the gathered tree before a
   step and the stage-0 checkpoint read into one rank are bit for bit;
 - BERT heads: JAX's ``EncoderServingEngine`` with ``specs_tree`` over the
-  same mesh, 1e-5 in f32 and 1e-4 in int8 (test_torch_encoder_serving.py).
+  same mesh, 1e-5 in f32 and 1e-4 in int8 (test_torch_encoder_serving.py);
+- BERT training over data 2 x model 2 with 10 and 15 labels on the data
+  ranks: JAX's engine at the same 5e-3 (the masked mean is global).
 """
 
 import functools
@@ -178,6 +180,8 @@ def _jax_train(W, stage, what="gpt2"):
     sizes = {"model": 2} if W == 2 else {"data": 2, "model": 2}
     if what == "bert":
         sizes = {"model": W}
+    if what == "bert_dm":
+        sizes = {"data": 2, "model": 2}
     conf = {"train_batch_size": 4, "bf16": {"enabled": False},
             "gradient_clipping": 1.0, "mesh": sizes,
             "zero_optimization": {"stage": stage},
@@ -189,6 +193,8 @@ def _jax_train(W, stage, what="gpt2"):
         batches = [{"tokens": jnp.asarray(train[i])} for i in range(STEPS)]
     else:
         loss, p0, specs = jb.loss_fn(bcfg), bp, jb.param_specs(bcfg)
+        if what == "bert_dm":
+            bbatch = td.bert_unequal_batch()
         batches = [{k: jnp.asarray(v) for k, v in bbatch.items()}] * 2
     eng, _, _, _ = dstpu.initialize(
         loss_fn=loss, params=jax.tree.map(jnp.asarray, p0), config=conf,
@@ -280,4 +286,16 @@ def test_bert_training_over_model_matches_jax(runs, W):
         np.testing.assert_allclose(o["bert_train/losses"], want, **TP_TOL)
     for k, v in td._flatten(jp).items():
         np.testing.assert_allclose(runs[0][W][0][f"bert_train/params/{k}"],
+                                   v, err_msg=k, **TP_TOL)
+
+
+def test_bert_training_over_data_and_model_matches_jax(runs):
+    """data 2 x model 2 with 10 and 15 labels on the data ranks: the MLM
+    mean over the global microbatch (ROADMAP C-f7)."""
+    want, jp = _jax_train(4, 0, "bert_dm")
+    for o in runs[0][4]:
+        np.testing.assert_allclose(o["bert_train_dm/losses"], want,
+                                   **TP_TOL)
+    for k, v in td._flatten(jp).items():
+        np.testing.assert_allclose(runs[0][4][0][f"bert_train_dm/params/{k}"],
                                    v, err_msg=k, **TP_TOL)

@@ -330,17 +330,30 @@ def test_torch_idiom_and_eval(model):
     pytest.param({"zero_optimization": {
         "stage": 2, "offload_optimizer": {"device": "cpu"}}}, "offload",
         None, id="over1-offload"),
+    # telemetry and the monitors are ported (exc None): the engine builds
+    # and trains bit for bit like the one without them
     pytest.param({"telemetry": {"enabled": True}}, "telemetry",
-                 NotImplementedError, id="over2-telemetry"),
+                 None, id="over2-telemetry"),
     pytest.param({"tensorboard": {"enabled": True}}, "tensorboard",
-                 NotImplementedError, id="over3-tensorboard"),
+                 None, id="over3-tensorboard"),
     # pipeline parallelism is ported: stages without a pipe axis of that
     # size on the mesh is a configuration error
     pytest.param({"pipeline": {"stages": 2}}, "pipeline.stages 2",
                  ValueError, id="over4-pipeline"),
 ])
-def test_unported_features_raise(model, over, match, exc):
+def test_unported_features_raise(model, over, match, exc, tmp_path):
     _, tcfg, jp = model
+    if exc is None and "zero_optimization" not in over:
+        if "tensorboard" in over:
+            over = {"tensorboard": {"enabled": True,
+                                    "output_path": str(tmp_path)}}
+        eng = _torch_engine(tcfg, jp, _config(**over))
+        plain = _torch_engine(tcfg, jp, _config())
+        batch = _batch(7)
+        assert float(eng.train_batch(batch)) == float(
+            plain.train_batch(batch))
+        assert eng.registry.enabled
+        return
     if exc is None:
         eng = _torch_engine(tcfg, jp, _config(**over))
         plain = _torch_engine(tcfg, jp, _config(zero_optimization={
