@@ -143,10 +143,10 @@ and runs, in order:
    link bound of phases 29-31;
 29. ZeRO-Inference against resident serving: Llama-3-8B (32 layers) on
    phase 5's queue with every layer streamed from the host tier, bf16 and
-   int8 (identical tokens, the first prefill's and first decode step's
-   logits bitwise equal), Mixtral-8x7B bf16 at 4 layers the same (16
-   until PR 18, 8 until PR 20: the smoke's time), and the NVMe tier
-   against the host tier at 4 layers (8 until PR 20);
+   int8 at 16 layers (identical tokens, the first prefill's and first
+   decode step's logits bitwise equal), Mixtral-8x7B bf16 at 4 layers the
+   same, and the NVMe tier against the host tier at 2 layers (the smoke's
+   time);
 30. speculative decoding: f32 Llama-3-8B widths at 2 layers, n-gram and
    model drafters against plain greedy (identical tokens); bf16 at 32
    layers (divergences reported); B5 at the verify window C = K+1 (4, 5)
@@ -166,10 +166,9 @@ and runs, in order:
    Adam over Llama-3-8B's 525 M-element embedding leaf (seconds, GB/s, a
    16 M-element slice against the plain mirror), the env report's host
    rows;
-34. Llama-3-8B's seeded bf16 weights at 8 of 32 layers exported with
-   ``save_pretrained`` (f32 safetensors under the temp dir; all 32, 32.1
-   GB, before phases 48-52, 16 before 60-61) and loaded back with
-   ``from_pretrained``: the tree bit for bit, phase 5's traffic served with
+34. Llama-3-8B's seeded bf16 weights at 4 of 32 layers (the smoke's time;
+   all 32 are 32.1 GB) exported with ``save_pretrained`` (f32 safetensors
+   under the temp dir) and loaded back with ``from_pretrained``: the tree bit for bit, phase 5's traffic served with
    identical tokens and bitwise first logits, peak host RSS; a tiny
    Mixtral through ``inject`` on the card against the CPU;
 35. LoRA of Llama-3-8B at all 32 layers (r 8, wq/wk/wv/wo, frozen bf16 base,
@@ -199,8 +198,7 @@ and runs, in order:
    split, the bound (host Adam at phase 33's rate, link at phase 28's,
    FLOPs) and the idle share; every B1-B3 launch on the tensor-core body;
 39. the same widths at 1 layer on the NVMe tier against the RAM tier, bit
-   for bit, then ``save_checkpoint`` -> ``zero_to_fp32`` equal to
-   ``master_params()``;
+   for bit (its checkpoint round trip is a CPU test's);
 40. ``InfinityEngine`` on phase 39's 1-layer cut and phase 38's traffic,
    ``update: "device"`` then ``"host"``: step 1 equal to phase 39's RAM
    run's, ms/step, peak, state bytes on the card and over the link;
@@ -213,7 +211,7 @@ and runs, in order:
    engine's qgZ, qwZ and hpZ run at a world above one), each bit for bit
    the same function over B9's plain version on the card; B9's launches,
    device time, bound and share at this flat shape;
-42. in the same rank: GPT-2 1.3B at 6 of 24 layers (phase 19's config under
+42. in the same rank: GPT-2 1.3B at 2 of 24 layers (phase 19's config under
    ``save_attn``) through ZeRO stages 0, 1, 2 and 3, 3 steps each: losses
    and every master leaf bit for bit equal across stages, ms/step beside
    phase 19's, peak memory, the comms logger's collectives and bytes a
@@ -232,7 +230,7 @@ and runs, in order:
    and gloo stages every collective of a CUDA tensor but all_reduce and
    broadcast through host memory, so collective times are host-staged
    gloo's): 43, tensor-parallel serving over model 2, Llama-3-8B bf16 at
-   16 of 32 layers on phase 5's queue, then int8 weights, each against the
+   4 of 32 layers on phase 5's queue, then int8 weights, each against the
    one-rank engine on the same weights (first prefill logits), and a tiny
    f32 Llama's tokens identical; 44, tensor-parallel training at phase 8's
    config against phase 8's losses, with the hybrid engine's rollouts
@@ -247,11 +245,11 @@ and runs, in order:
    2 at phase 40's depth against its step 1; 52, ZeRO-Inference over
    model 2, Llama-3-8B bf16 at 32 layers streamed from each rank's host
    tier, against phase 29's first prefill logits, and a tiny f32 Llama's
-   tokens identical; 53, GPT-2 1.3B served over model 2 at 12 of 24 layers (each
+   tokens identical; 53, GPT-2 1.3B served over model 2 at 6 of 24 layers (each
    rank its heads of the fused QKV), bf16 and int8, against the one-rank
-   engine; 54, GPT-2 1.3B at 6 layers trained over model 2 against phase
+   engine; 54, GPT-2 1.3B at 4 layers trained over model 2 against phase
    42's losses, its stage-0 checkpoint read into one rank bit for bit; 55,
-   BERT-large over model 2, the pooled and MLM heads bf16 and int8 at 12
+   BERT-large over model 2, the pooled and MLM heads bf16 and int8 at 6
    of 24 layers against one rank, two training steps at 24 against phase
    26's losses; 56, phase 43's
    Llama-3-8B with int8-resident pages over model 2, each rank's pages
@@ -280,7 +278,26 @@ and runs, in order:
 61. the training control plane at phase 8's widths cut to 2 layers (after
    phase 8): telemetry, the csv monitor, a Watchdog and one
    ``FlopsProfiler`` forward against the engine without them, losses and
-   state bit for bit.
+   state bit for bit;
+62. the in-process serving fleet on phase 5's Llama-3-8B weights (after
+   phase 60), one weight tree for three replicas: affinity waves, a
+   seeded kill of one replica mid-traffic (typed partition), drain and
+   rejoin, a migration through the KV fabric and a corrupted one that
+   re-prefills; the same traffic through ``fleet.roles`` (prefill ->
+   decode handoff); an int8-resident chain migrated (B7, B9); tokens
+   against one engine's, near-ties held and counted;
+63. the out-of-process fleet: two ``python -m
+   deepspeed_tpu_torch.replica_child`` children on the card (shm and TCP)
+   serving Llama-3-8B at 8 layers from ``(config, seed)``, a migration
+   child -> router fabric -> child, a SIGKILL mid-traffic and the
+   failover's seconds, the scrape plane and a merged trace; tokens
+   against an in-process engine, no child left running;
+64. the elastic fleet: GPT-2 1.3B at 24 layers scaled 1 -> 3 -> 1 on a
+   burst and rolled out to a second weight version through
+   ``swap_params`` (each request on one version, its tokens a fresh
+   engine's of that version), and a streamed ZeRO-Inference cold start of
+   Llama-3-8B at 8 layers that flips to resident, its tokens the resident
+   engine's.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -294,8 +311,10 @@ serving run and the injected Mixtral of phase 34, the LoRA run of phase
 phase 36, the offload engines' runs of phases 37-40, the wire of phase
 41, each ZeRO stage's run of phase 42, the offload runs of phase 48, the
 two-rank runs of phases 43-47 and 49-57, both ranks' counts summed, the
-sparse and autotune runs of phases 58-59, and the control-plane runs of
-phases 60-61)
+sparse and autotune runs of phases 58-59, the control-plane runs of
+phases 60-61, the fleets of phase 62, the children of phase 63 (each
+child's counts, read through its ``launches`` verb) and the elastic
+fleets of phase 64)
 counts the
 launches
 of every kernel on its own (counters set to 0 just before it and read just
@@ -1589,6 +1608,8 @@ def phase_serving(kernels, card_line):
     launches.update(phase_control_plane_serving(params, cfg, kernels,
                                                 card_line))
     _lap("phase_control_plane_serving (phase 60)")
+    launches.update(phase_fleet(params, cfg, kernels, card_line))
+    _lap("phase_fleet (phase 62)")
     # phase 14 builds its int8 engine from these weights and then frees
     # them: hand the only reference over
     holder = [params]
@@ -3844,9 +3865,9 @@ def phase_gpt2_train(fns, card_line):
 # Mixtral-8x7B: full width (4096, 32 heads of 128, 8 kv heads, 8 experts,
 # top-2, V 32000); bf16 serving cut to 8 layers (the 93.4 GB bf16 model
 # does not fit the card), int8 serving at all 32, training at 2
-# phase 21's bf16 engine at 8 layers (16 until PR 20: the smoke's time,
-# which phases 48-52 raised; int8 stays at all 32)
-MIXTRAL_BF16_LAYERS, MIXTRAL_TRAIN_LAYERS = 8, 2
+# phase 21's bf16 engine at 4 layers (8 before phases 62-64, 16 before
+# phases 48-52: the smoke's time; int8 stays at all 32)
+MIXTRAL_BF16_LAYERS, MIXTRAL_TRAIN_LAYERS = 4, 2
 # new tokens a request (32 until PR 20: the smoke's time)
 # phase 21's new tokens a request (16 before phases 60-61: the smoke's
 # time; an int8 decode step at 32 layers takes ~0.4 s)
@@ -5432,10 +5453,12 @@ ZI_LLAMA_NEW = 16
 # phase 31 (b): new tokens a request (8, not 16: the smoke's time)
 ZI_MIXTRAL_NEW = 8
 SPEC = {"draft_tokens": 4}
-# phase 29's cut of the NVMe-tier check, and of Mixtral's identity queue
-# (4 layers each, 8 until PR 20: the smoke's time, which phases 48-52
-# raised)
-ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 4, 4, 8
+# phase 29's cut of the NVMe-tier check and of Mixtral's identity queue:
+# the smoke's time
+ZI_NVME_LAYERS, ZI_NVME_PROMPTS, ZI_NVME_NEW = 2, 4, 8
+# phase 29's int8 arm, resident against streamed: 16 of 32 layers (the
+# smoke's time; the bf16 arm keeps all 32 for phase 31's reading)
+ZI_INT8_LAYERS = 16
 ZI_MIXTRAL_ID_LAYERS, ZI_MIXTRAL_ID_NEW = 4, 4
 # phase 32: the host pool that sends wave A's pages down to NVMe
 KV_NVME_HOST_POOL = 16 << 20
@@ -5675,10 +5698,11 @@ def phase_zi_identity(fns, card_line, link_gbps):
     """Streamed against resident, bitwise: Llama-3-8B (32 layers, bf16,
     seeded) on phase 5's queue, resident and with every layer streamed from
     the host tier (identical tokens, the first prefill's and first decode
-    step's logits bitwise equal); the same in int8; Mixtral-8x7B bf16 at
-    8 layers on 3 of phase 21's prompts; and the NVMe tier against the
-    host tier at 8 layers.  Returns the launches, the Llama-3-8B weights
-    (phases 30-32, 34 and 35 use them), the streamed bf16 run's counts
+    step's logits bitwise equal); the same in int8 at ZI_INT8_LAYERS;
+    Mixtral-8x7B bf16 at ZI_MIXTRAL_ID_LAYERS on 3 of phase 21's prompts;
+    and the NVMe tier against the host tier at ZI_NVME_LAYERS.  Returns
+    the launches, the Llama-3-8B weights (phases 30-32, 34 and 35 use
+    them), the streamed bf16 run's counts
     (phase 31's spec-off reading) and the resident bf16 run's outputs and
     first logits (phase 34's reference)."""
     import dataclasses
@@ -5703,26 +5727,31 @@ def phase_zi_identity(fns, card_line, link_gbps):
 
     for wd in ("bfloat16", "int8"):
         want = dense + (("quantize",) if wd == "int8" else ())
+        depth = cfg.n_layers if wd == "bfloat16" else ZI_INT8_LAYERS
+        wcfg = dataclasses.replace(cfg, n_layers=depth)
+        wp = dict(params, blocks={k: v[:depth]
+                                  for k, v in params["blocks"].items()})
         r_out, r_logits, r_m = _run(
-            lambda: serving_engine(params, cfg, weight_dtype=wd,
+            lambda: serving_engine(wp, wcfg, weight_dtype=wd,
                                    **ZI_LLAMA_OPTS),
             prompts, ZI_LLAMA_NEW, fns, f"zi resident llama {wd}", launches,
             want,
             capture=True)
         s_out, s_logits, s_m = _run(
-            lambda: serving_engine(params, cfg, weight_dtype=wd,
+            lambda: serving_engine(wp, wcfg, weight_dtype=wd,
                                    zero_inference={"hbm_budget_bytes": None},
                                    **ZI_LLAMA_OPTS),
             prompts, ZI_LLAMA_NEW, fns, f"zi streamed llama {wd}", launches,
             want,
             capture=True, stats=zi_stats)
-        res[wd] = {"tokens_equal": s_out == r_out,
+        res[wd] = {"layers": depth, "tokens_equal": s_out == r_out,
                    "logits_bitwise": _same_logits(s_logits, r_logits),
                    "resident_tokens_per_s": r_m["tokens_per_s"],
                    "streamed": {k: s_m[k] for k in s_m if k != "leaks"}}
         if wd == "bfloat16":
             streamed_bf16, resident_bf16 = s_m, (r_out, r_logits)
-    # the NVMe tier against the host tier, depth cut to 8 layers
+        del wp
+    # the NVMe tier against the host tier, depth cut to ZI_NVME_LAYERS
     cfg8 = dataclasses.replace(cfg, n_layers=ZI_NVME_LAYERS)
     p8 = dict(params, blocks={k: v[:ZI_NVME_LAYERS]
                               for k, v in params["blocks"].items()})
@@ -5736,9 +5765,10 @@ def phase_zi_identity(fns, card_line, link_gbps):
                 lambda: serving_engine(p8, cfg8, zero_inference={
                     "hbm_budget_bytes": None, "tier": tier,
                     "nvme_path": d}, **ZI_LLAMA_OPTS),
-                q8, ZI_NVME_NEW, fns, f"zi {tier} tier llama 8 layers",
+                q8, ZI_NVME_NEW, fns,
+                f"zi {tier} tier llama {ZI_NVME_LAYERS} layers",
                 launches, dense, stats=lambda e, o, m: stats8(e, o, m=m))
-            res[f"{tier}_tier_8_layers"] = {
+            res[f"{tier}_tier_{ZI_NVME_LAYERS}_layers"] = {
                 k: m8[k] for k in ("sweeps", "reader_hits", "reader_stalls",
                                    "tokens_per_s", "ms_per_sweep",
                                    "build_s")}
@@ -6114,9 +6144,9 @@ SHUFFLE_N, SHUFFLE_EPOCHS = 100_000, 3
 # body sums in another order): 1e-4 of the largest |logit|, phase 24's f32
 # bound
 HF_MIXTRAL_REL_TOL = 1e-4
-# phase 34's export depth: 8 of 32 layers (16 before phases 60-61, all 32
-# before phases 48-52: the smoke's time)
-HF_LAYERS = 8
+# phase 34's export depth: 4 of 32 layers (8 before phases 62-64, 16
+# before phases 60-61, all 32 before phases 48-52: the smoke's time)
+HF_LAYERS = 4
 # phase 35: merge_lora's forward (the f32 master A, B folded into the bf16
 # base) against apply_lora's over the engine's bf16 compute copy of A, B:
 # the two round A, B differently, which moves an element of W_eff across a
@@ -7115,14 +7145,13 @@ def phase_pstream_headline(fns, card_line, cfg, lm, batch):
 def phase_pstream_nvme(fns, card_line, lm, batch):
     """Phase 39: the same widths at 1 layer (the smoke's time): the NVMe
     tier against the RAM tier, 2 steps each, bit for bit (losses and
-    masters), the tier's bytes and GB/s over the step; then
-    ``save_checkpoint`` -> ``zero_to_fp32``, equal to ``master_params()``;
-    the tier and checkpoint directories deleted."""
+    masters), the tier's bytes and GB/s over the step; the tier directory
+    deleted.  Its ``save_checkpoint`` -> ``zero_to_fp32`` round trip is the
+    CPU test's (``tests/test_torch_param_stream.py``): the smoke's time."""
     import shutil
 
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch._tree import tree_leaves_with_path
-    from deepspeed_tpu_torch.checkpoint import zero_to_fp32
 
     lm4 = _lazy_at_depth(lm, OFFLOAD_NVME_LAYERS)
     card0, rss0 = _drop()
@@ -7160,24 +7189,9 @@ def phase_pstream_nvme(fns, card_line, lm, batch):
                 io = {"bytes_read": rd, "bytes_written": wr,
                       "read_gbps_over_steps": rd / run_s / 1e9,
                       "write_gbps_over_steps": wr / run_s / 1e9}
-            master = eng.master_params()
             runs[arm] = {"steps": steps, "init_s": init_s, **io,
-                         "master": master}
-            if arm == "nvme":
-                t0 = time.perf_counter()
-                eng.save_checkpoint(os.path.join(d, "ck"))
-                save_s = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                flat = zero_to_fp32(os.path.join(d, "ck"),
-                                    os.path.join(d, "fp32.npz"))
-                fp32_s = time.perf_counter() - t0
-                names = {"embed": "stem/embed", "lm_head": "head/lm_head",
-                         "final_norm": "head/final_norm"}
-                fp32_ok = all(torch.equal(torch.from_numpy(
-                    flat[names.get(p, p)]), t)
-                    for p, t in tree_leaves_with_path(master))
-                flat.close()
-            del eng, master
+                         "master": eng.master_params()}
+            del eng
     finally:
         shutil.rmtree(d, ignore_errors=True)
     ram, nvme = runs["ram"], runs["nvme"]
@@ -7190,14 +7204,13 @@ def phase_pstream_nvme(fns, card_line, lm, batch):
     _phase_line("39 pstream nvme", card_line, layers=OFFLOAD_NVME_LAYERS,
                 cut=f"{OFFLOAD_NVME_LAYERS} layers: the smoke's time",
                 ram=ram, nvme=nvme,
-                nvme_equals_ram_bitwise=bitwise, save_s=save_s,
-                zero_to_fp32_s=fp32_s, fp32_equals_master=fp32_ok,
-                card_gb_before=card0, card_gb_after_drop=card1,
+                nvme_equals_ram_bitwise=bitwise, card_gb_before=card0,
+                card_gb_after_drop=card1,
                 rss_before_gb=rss0, rss_after_drop_gb=rss1,
                 launches=launches)
-    if not (bitwise and fp32_ok and card1 <= card0 + 0.1
+    if not (bitwise and card1 <= card0 + 0.1
             and rss1 <= rss0 + RSS_LEAK_GB):
-        raise SystemExit("phase 39: NVMe tier or checkpoint gates failed")
+        raise SystemExit("phase 39: NVMe tier gates failed")
     return launches, ram["steps"][0]["loss"]
 
 
@@ -7349,32 +7362,16 @@ ZERO_CHILD_TIMEOUT_S = 900
 # qwZ's flat grid of 512-element groups
 WIRE_ELEMS, WIRE_GROUP = 1_313_626_112, 512
 ZERO_STEPS = 3
-# phases 42, 48, 49 and 54: GPT-2 1.3B cut to 6 of 24 layers (12 before
-# phases 60-61, 24 before phases 48-52: the smoke's time; phase 19 trains
-# all 24)
-ZERO_LAYERS = 6
+# phases 42, 48, 49 and 54: GPT-2 1.3B cut to 2 of 24 layers (the smoke's
+# time; phase 19 trains all 24)
+ZERO_LAYERS = 2
 
 
 def _kernel_fns():
     """Each kernel's wrapper, whose ``launches`` the main paths read."""
-    from deepspeed_tpu_torch.env_report import env_probe
-    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
-        paged_chunk_attention, paged_chunk_attention_quant,
-        paged_chunk_attention_v1)
-    from deepspeed_tpu_torch.ops.adam_cuda import adam_update
-    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
-                                                        flash_bwd_dq,
-                                                        flash_fwd)
-    from deepspeed_tpu_torch.ops.quant_cuda import quantize_rows
-    from deepspeed_tpu_torch.ops.sampling_cuda import fused_greedy_rows
+    from deepspeed_tpu_torch.replica_child import kernel_wrappers
 
-    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": adam_update,
-            "paged_attention": paged_chunk_attention,
-            "greedy_argmax": fused_greedy_rows,
-            "paged_attention_quant": paged_chunk_attention_quant,
-            "paged_attention_v1": paged_chunk_attention_v1,
-            "quantize": quantize_rows, "env_probe": env_probe}
+    return kernel_wrappers()
 
 
 @contextlib.contextmanager
@@ -7490,7 +7487,7 @@ def _zero_comm_expected(stage, leaves, n):
 
 
 def phase_zero_stages(fns, card_line, phase19_ms):
-    """Phase 42: GPT-2 1.3B at ZERO_LAYERS (6) of 24 layers (phase 19's
+    """Phase 42: GPT-2 1.3B at ZERO_LAYERS (2) of 24 layers (phase 19's
     config under
     ``save_attn``: micro 8 x 1024, bf16 compute, f32 master, fused Adam,
     clipping 1.0) through ZeRO stages 0-3 in this rank, 3 steps each from
@@ -7883,9 +7880,9 @@ def phase_zero_launcher(card_line, rows, phase19_ms):
 MP_CHILD_FLAG = "--mp-child"
 MP_CHILD_TIMEOUT_S = 1000
 # phase 43: phase 5's queue, new tokens a request, and the depth of the
-# Llama-3-8B it serves (and phase 56 reuses): 16 of 32 layers (32 before
-# phases 60-61: the smoke's time)
-MP_SERVE_NEW, MP_TP_SERVE_LAYERS = 8, 16
+# Llama-3-8B it serves (and phase 56 reuses): 4 of 32 layers (the smoke's
+# time)
+MP_SERVE_NEW, MP_TP_SERVE_LAYERS = 8, 4
 # phase 45: Ulysses at T = 8192 (4096 a rank), ring at T = 4096 (its f32
 # score blocks at 8192 would not fit beside both ranks' state)
 MP_ULYSSES_T, MP_RING_T = 8192, 4096
@@ -8145,7 +8142,7 @@ def _tiny_identity(fns, launches, family, build_sharded, build_one):
 
 def phase_tp_serving(fns, card_line, gen):
     """Phase 43: tensor-parallel serving over model 2.  Llama-3-8B bf16 at
-    MP_TP_SERVE_LAYERS of 32 layers (~4 GB of weights a rank, each rank's
+    MP_TP_SERVE_LAYERS of 32 layers (~3 GB of weights a rank, each rank's
     cache 4 of 8 KV heads) on phase 5's queue: the first prefill's logits against the
     one-rank engine on the same weights, ms per decode step and tokens/s;
     then int8 weights over the mesh against the unsharded int8 engine the
@@ -9156,10 +9153,11 @@ _MP: dict = {}               # what one phase of the child hands a later one
 # phase 54: GPT-2 1.3B at ZERO_LAYERS over model 2, steps on phase 42's
 # batch; phase 55: BERT-large over model 2, steps on phase 26's batch
 MP_GPT2_TRAIN_STEPS, MP_BERT_TRAIN_STEPS = 2, 2
-# the depths phases 53 and 55 serve at: GPT-2 1.3B at 12 of 24 layers,
-# BERT-large at 12 of 24 (24 each before phases 60-61: the smoke's time;
-# phase 55 serves phase 25's whole queue of 64 and trains at all 24)
-MP_GPT2_SERVE_LAYERS, MP_BERT_SERVE_LAYERS = 12, 12
+# the depths phases 53 and 55 serve at: GPT-2 1.3B at 6 of 24 layers,
+# BERT-large at 6 of 24 (12 each before phases 62-64, 24 before phases
+# 60-61: the smoke's time; phase 55 serves phase 25's whole queue of 64 and
+# trains at all 24)
+MP_GPT2_SERVE_LAYERS, MP_BERT_SERVE_LAYERS = 6, 6
 # phase 56: phase 11's two waves cut to the smoke's time (8 prompts of a
 # 1024-token prefix, 128-token suffixes and 32 new tokens there)
 MP_KVQ_PREFIX, MP_KVQ_SUFFIX, MP_KVQ_N, MP_KVQ_NEW = 256, 64, 4, 8
@@ -10282,6 +10280,881 @@ def phase_mp_launcher(card_line, refs):
     return res["launches"]
 
 
+# ------------------------------------------------------------ phases 62-64
+# phase 62: three 512-token prefixes, eight prompts on each with 64..256
+# unique suffix tokens, 16 new greedy tokens, on replicas of max_batch 8
+FLEET_PREFIX, FLEET_LO, FLEET_HI, FLEET_NEW = 512, 64, 257, 16
+FLEET_OPTS = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=1025,
+                  prefill_bucket=128, cache_dtype=torch.bfloat16)
+
+
+# a greedy token that differs between two bf16 runs of one request (the
+# batch it ran in, how its prompt was prefilled: ROADMAP C-w2) is held at
+# its first divergent step: in a dense forward of the common prefix the two
+# tokens' logits lie within this share of the row's largest |logit| (the
+# smoke's bf16 logits tolerance, MIXTRAL_LOGITS_REL_TOL)
+FLEET_TIE_REL_TOL = 5e-2
+# phase 63: Llama-3-8B at full width and 8 layers in each child
+PROC_LAYERS, PROC_SEED, PROC_NEW = 8, 63, 32
+PROC_MODEL = {"family": "llama", "preset": "llama3_8b",
+              "n_layers": PROC_LAYERS}
+# phase 64: GPT-2 1.3B's two weight versions, and the streamed replica's
+ELASTIC_SEEDS, ELASTIC_NEW = (64, 65), 12
+ELASTIC_FAST = dict(min_replicas=1, max_replicas=3, eval_interval_steps=1,
+                    scale_up_queue_depth=2.0, scale_down_queue_depth=0.5,
+                    up_after=1, down_after=3, cooldown_s=0.0)
+
+
+def _fleet_prompts(vocab, seed=62):
+    """Phase 62's 24 prompts: wave 1 one a prefix, wave 2 the next six of
+    each and the eighth of the middle one, then two probes (``m0`` on the
+    first prefix, ``c0`` on the third)."""
+    rng = np.random.default_rng(seed)
+    pre = [rng.integers(1, vocab, FLEET_PREFIX).tolist()
+           for _ in range(3)]
+    per = [[pre[j] + rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(FLEET_LO, FLEET_HI, 8)] for j in range(3)]
+    wave1 = {f"w{j}": per[j][0] for j in range(3)}
+    wave2 = {f"q{j}{i}": per[j][i] for i in range(1, 7) for j in range(3)}
+    wave2["q17"] = per[1][7]
+    return wave1, wave2, {"m0": per[0][7]}, {"c0": per[2][7]}
+
+
+def _split_wave(wave2):
+    """Wave 2's first four a prefix, and the rest (submitted one router
+    step later)."""
+    late = {k: v for k, v in wave2.items() if k[-1] in "567"}
+    return {k: v for k, v in wave2.items() if k not in late}, late
+
+
+def _held_flips(params, cfg, forward, got, want, prompts, oracle="oracle"):
+    """Requests whose finished tokens differ from the oracle's: each one is
+    held at its first divergent step to FLEET_TIE_REL_TOL in a dense bf16
+    forward of the common prefix (measurement only: its kernel launches are
+    not a main path's).  Returns the flips; raises past the tolerance."""
+    flips = []
+    for rid, out in got.items():
+        if not isinstance(out, list) or out == want[rid]:
+            continue
+        ref = want[rid]
+        j = next(i for i, (a, b) in enumerate(zip(out, ref)) if a != b)
+        toks = torch.tensor([ref[:j]], dtype=torch.int32,
+                            device="cuda")
+        with torch.inference_mode():
+            row = forward(params, toks, cfg)[0, -1].float()
+        gap = abs(row[ref[j]] - row[out[j]]).item() / row.abs().max().item()
+        flips.append({"req": rid, "pos": j - len(prompts[rid]),
+                      "gap_rel": gap})
+        log(f"[fleet] near-tie flip {rid} against the {oracle} at "
+            f"generated position {j - len(prompts[rid])}: tokens {ref[j]} / "
+            f"{out[j]}, logit gap {gap:.3e} of the row's max |logit|")
+        if gap > FLEET_TIE_REL_TOL:
+            raise SystemExit(f"fleet: {rid} differs from the oracle at "
+                             f"position {j} by {gap:.3e} > "
+                             f"{FLEET_TIE_REL_TOL} (not a near-tie)")
+    return flips
+
+
+class _FleetClock:
+    """Host seconds of each replica's ``step`` inside the router's steps
+    (the replicas' step time, and the router's own host time beside it),
+    and each request's first token."""
+
+    def __init__(self, router):
+        self.router, self.eng_s, self.eng_steps = router, 0.0, 0
+        self.router_s, self.router_steps, self.ttft = 0.0, 0, {}
+        self._wave, self._t0 = {}, 0.0
+        for rep in router.replicas.values():
+            self.wrap(rep.engine)
+
+    def wrap(self, eng):
+        if "step" in vars(eng):
+            return
+        real = eng.step
+
+        def step():
+            t = time.perf_counter()
+            try:
+                return real()
+            finally:
+                now = time.perf_counter()
+                self.eng_s += now - t
+                self.eng_steps += 1
+                # a request's first token, read at the end of its own
+                # replica's step (a child's proxy mirrors no slot objects:
+                # there it is read when the request finishes)
+                for s in getattr(eng, "slots", ()):
+                    if getattr(s, "generated", None) and \
+                            s.req.req_id in self._wave:
+                        self.ttft.setdefault(s.req.req_id, now - self._t0)
+        eng.step = step
+
+    def drive(self, wave, new, arm=None):
+        """Submit ``wave``, step the router until it is idle (``arm(n)``
+        after the n-th step); returns each request's first placement."""
+        r = self.router
+        placed = {}
+        self._wave, self._t0 = wave, time.perf_counter()
+        t0 = self._t0
+        for rid, p in wave.items():
+            r.submit(rid, p, max_new_tokens=new)
+            freq = r.requests.get(rid)
+            placed[rid] = freq.replica if freq is not None else None
+        n = 0
+        while r.has_work:
+            for rep in r.replicas.values():
+                self.wrap(rep.engine)
+            ts = time.perf_counter()
+            r.step()
+            now = time.perf_counter()
+            self.router_s += now - ts
+            self.router_steps += 1
+            n += 1
+            for rid in wave:
+                if rid in r.finished:
+                    self.ttft.setdefault(rid, now - t0)
+            if arm is not None:
+                arm(n)
+            if n > 100_000:
+                raise SystemExit("fleet: the router did not converge")
+        return placed
+
+    def unwrap(self):
+        for rep in self.router.replicas.values():
+            vars(rep.engine).pop("step", None)
+
+    def summary(self):
+        eng_ms = self.eng_s * 1e3 / max(self.eng_steps, 1)
+        own = (self.router_s - self.eng_s) * 1e3 / max(self.router_steps, 1)
+        return {"router_steps": self.router_steps,
+                "router_host_ms_per_step": own,
+                "replica_step_ms": eng_ms, "replica_steps": self.eng_steps}
+
+
+def _oracle(build, waves, new):
+    """One engine serving the waves in order (each to completion): the
+    token oracle of a fleet path."""
+    eng = build()
+    out = {}
+    for wave in waves:
+        for rid, p in wave.items():
+            eng.submit(rid, p, max_new_tokens=new)
+        out.update(eng.run())
+    leaks = eng.check_leaks()
+    eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    if leaks:
+        raise SystemExit(f"fleet oracle leaks {leaks}")
+    return {k: list(v) for k, v in out.items()}
+
+
+def _two_leg_oracle(build, waves, new):
+    """One engine serving each wave as the fleet's prefill -> decode handoff
+    does, with no fabric: every prompt to its first token, then prompt plus
+    that token again for the other ``new - 1``, so the second leg matches
+    the prompt's full pages in the prefix cache and prefills only the tail
+    past them (the decode replica's leg).  The yardstick that tells the
+    handoff's own numerics from the fabric's bytes."""
+    eng = build()
+    out = {}
+    for wave in waves:
+        for rid, p in wave.items():
+            eng.submit(rid, p, max_new_tokens=1)
+        eng.run()
+        first = eng.drain_finished()
+        for rid in wave:
+            eng.submit(rid, list(first[rid]), max_new_tokens=new - 1)
+        eng.run()
+        out.update(eng.drain_finished())
+    leaks = eng.check_leaks()
+    eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    if leaks:
+        raise SystemExit(f"fleet two-leg oracle leaks {leaks}")
+    return {k: list(v) for k, v in out.items()}
+
+
+def _typed_partition(out, submitted):
+    ok = {k for k, v in out.items() if isinstance(v, list)}
+    failed = {k: (v.reason, v.generated) for k, v in out.items()
+              if type(v).__name__ == "RequestFailed"}
+    shed = {k: v.reason for k, v in out.items()
+            if type(v).__name__ == "RequestShed"}
+    if len(ok) + len(failed) + len(shed) != len(submitted) or \
+            set(out) != set(submitted):
+        raise SystemExit(f"fleet: finished {len(ok)} + failed "
+                         f"{len(failed)} + shed {len(shed)} != submitted "
+                         f"{len(submitted)}")
+    return ok, failed, shed
+
+
+def _clean(router, tag):
+    leaks, orphans = router.check_leaks(), router.orphaned()
+    if leaks or orphans:
+        raise SystemExit(f"{tag}: check_leaks {leaks} orphaned {orphans}")
+
+
+def phase_fleet(params, cfg, kernels, card_line):
+    """Phase 62: the in-process serving fleet at Llama-3-8B's full width on
+    phase 5's weights (bf16, 32 layers), ONE weight tree for every replica.
+
+    (a) Three replicas (``max_batch`` 8, prefix cache, a host KV tier with
+    ``quantize_cold`` off, a KVFabric) serve 24 prompts: wave 1 one on each
+    of three 512-token prefixes, wave 2 eighteen more (second-wave affinity
+    hits) while a seeded ``replica`` rule kills r1 two router steps in;
+    then ``drain("r0")`` and a probe on r0's prefix migrates to r2 through
+    the fabric (``rejoin`` after), and ``drain("r2")`` with a seeded
+    ``fabric`` corrupt-after-checksum rule sends a probe on r2's prefix to
+    r0, whose promotion fails its crc and re-prefills.  (b) The same
+    traffic through ``fleet.roles`` 1 prefill + 2 decode.  (c) The
+    int8-resident arm (``quantized_resident``, ``quantize_cold``): r0's
+    int8 chain migrates to r1 while r0 drains.  Gates: every finished
+    request's tokens equal one engine's over the same weights and blocks
+    serving the same prompts in the same order (a near-tie flip is held to
+    FLEET_TIE_REL_TOL and counted); finished + failed + shed = submitted;
+    ``check_leaks()`` and ``orphaned()`` empty; the replicas' weights are
+    the one tree; B1, B5 and B6 launched on (a) and (b), B7, B9 and B6 on
+    (c)."""
+    from deepspeed_tpu_torch.faults import FaultPlan
+    from deepspeed_tpu_torch.fleet import fleet_router
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models import llama
+
+    def zero():
+        _zero(k["fn"] for k in kernels)
+
+    def counts():
+        return {k["name"]: k["fn"].launches for k in kernels}
+
+    wave1, wave2, probe_m, probe_c = _fleet_prompts(cfg.vocab_size)
+    prompts = {**wave1, **wave2, **probe_m, **probe_c}
+    tier = {"quantize_cold": False, "host_pool_bytes": 4 << 30}
+    blocks = dict(prefix_cache={}, kv_tier=dict(tier), device="cuda",
+                  **FLEET_OPTS)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    launches, res = {}, {}
+
+    # ---- (a)
+    plan = FaultPlan([
+        {"subsystem": "replica", "mode": "error", "match": "r1",
+         "after": 10 ** 9, "count": 1},
+        {"subsystem": "fabric", "mode": "error", "match": "corrupt",
+         "after": 10 ** 9, "count": 2}], seed=62)
+    kill, corrupt = plan.rules
+    torch.cuda.reset_peak_memory_stats()
+    path = "fleet (a) 3 replicas"
+    zero()
+    router = fleet_router(params, cfg, fleet={
+        "replicas": 3, "digest_refresh_steps": 1, "retry_budget": 2},
+        fabric={"capacity_bytes": 4 << 30}, faults=plan, **blocks)
+    clock = _FleetClock(router)
+    try:
+        shared = all(
+            a.data_ptr() == b.data_ptr()
+            for rep in router.replicas.values()
+            for a, b in zip(_leaves(rep.engine.params), _leaves(params)))
+        if not shared:
+            raise SystemExit("fleet: a replica holds its own weights")
+        placed = clock.drive(wave1, FLEET_NEW)
+        aff0 = router.statusz()["fleet"]["affinity"]["affinity_routed"]
+        early, late = _split_wave(wave2)
+
+        def arm_kill(n):
+            # one router step into wave 2 the rest of it arrives and r1
+            # dies at its next poll: its running requests (a token each)
+            # fail typed, the ones it queued re-place
+            if n == 1:
+                for rid, p in late.items():
+                    router.submit(rid, p, max_new_tokens=FLEET_NEW)
+                    placed[rid] = router.requests[rid].replica
+                kill.after = kill.seen
+        placed.update(clock.drive(early, FLEET_NEW, arm=arm_kill))
+        st = router.statusz()["fleet"]
+        hits = st["affinity"]["affinity_routed"] - aff0
+        fo = router.last_failover
+        if router.replicas["r1"].state != "dead" or fo is None:
+            raise SystemExit("fleet: the seeded kill of r1 did not fire")
+        router.drain("r0")
+        fab0 = dict(router.statusz()["fleet"]["fabric"])
+        placed.update(clock.drive(probe_m, FLEET_NEW))
+        fab1 = dict(router.statusz()["fleet"]["fabric"])
+        if router.drained("r0") is not True:
+            raise SystemExit("fleet: r0 did not finish draining")
+        router.rejoin("r0")
+        router.drain("r2")
+        corrupt.after = corrupt.seen
+        placed.update(clock.drive(probe_c, FLEET_NEW))
+        fab2 = dict(router.statusz()["fleet"]["fabric"])
+        router.rejoin("r2")
+        out = {k: (list(v) if isinstance(v, list) else v)
+               for k, v in router.finished.items()}
+        ok, failed, shed = _typed_partition(out, prompts)
+        launches[path] = counts()
+        _check_bodies(path)
+        _check_launches(path, launches[path], SERVING_KERNELS)
+        _clean(router, path)
+        crc_fail = sum(rep.engine.kv_tier_checksum_failures
+                       for rep in router.replicas.values()
+                       if rep.state != "dead")
+        refills = sum(rep.engine.kv_tier_fallback_events
+                      for rep in router.replicas.values()
+                      if rep.state != "dead")
+        peak = torch.cuda.max_memory_allocated()
+        cache_bytes = 3 * router.replicas["r0"].engine.cache.k.numel() * 2 \
+            * 2
+        res["a"] = dict(
+            clock.summary(), placed=placed, affinity_hits=hits,
+            failover={"replica": fo["replica"],
+                      "replaced": sorted(fo["resubmitted"]),
+                      "failed_typed": sorted(fo["failed_typed"])},
+            finished=len(ok), failed=len(failed), shed=len(shed),
+            submitted=len(prompts),
+            migration={"pages": fab1["migration_pages"]
+                       - fab0["migration_pages"],
+                       "migrations": fab1["migrations"] - fab0["migrations"],
+                       "bytes": fab1["bytes_moved"] - fab0["bytes_moved"],
+                       "ttft_ms": clock.ttft["m0"] * 1e3,
+                       # the same prefix prefilled cold (wave 1, on its
+                       # replica beside the two others' prefills)
+                       "cold_prefill_ttft_ms": clock.ttft["w0"] * 1e3},
+            corrupt={"reprefills": refills,
+                     "corrupted": fab2["corrupted"],
+                     "checksum_failures": crc_fail,
+                     "ttft_ms": clock.ttft["c0"] * 1e3},
+            peak_mem_gb=peak / 1e9, weight_gb=weight_bytes / 1e9,
+            caches_gb=cache_bytes / 1e9)
+        if res["a"]["migration"]["migrations"] < 1 or crc_fail < 1:
+            raise SystemExit(f"fleet: migration {res['a']['migration']} / "
+                             f"corrupt fallback {res['a']['corrupt']} "
+                             "did not happen")
+        if peak > 2 * weight_bytes + cache_bytes:
+            raise SystemExit(f"fleet: peak {peak / 1e9:.1f} GB counts the "
+                             f"{weight_bytes / 1e9:.1f} GB of weights twice")
+    finally:
+        clock.unwrap()
+        router.shutdown()
+        del router, clock
+        torch.cuda.empty_cache()
+    want = _oracle(lambda: llama_serving_engine(params, cfg, **blocks),
+                   [wave1, *_split_wave(wave2), probe_m, probe_c], FLEET_NEW)
+    flips = _held_flips(params, cfg, llama.forward,
+                        {k: v for k, v in out.items() if k in ok}, want,
+                        prompts)
+    res["a"]["flips"] = flips
+    log(f"[fleet] (a) 3 replicas, one weight tree: finished "
+        f"{res['a']['finished']} failed {res['a']['failed']} shed "
+        f"{res['a']['shed']} of {res['a']['submitted']}; affinity hits "
+        f"{hits}; failover {res['a']['failover']}; migration "
+        f"{res['a']['migration']}; corrupt {res['a']['corrupt']}; router "
+        f"host {res['a']['router_host_ms_per_step']:.2f} ms a step beside "
+        f"replica steps of {res['a']['replica_step_ms']:.2f} ms; peak "
+        f"{peak / 1e9:.1f} GB (weights {weight_bytes / 1e9:.1f} GB once, "
+        f"caches {cache_bytes / 1e9:.1f} GB); near-tie flips {len(flips)} "
+        f"on {card_line}; kernel launches {launches[path]}")
+
+    # ---- (b) prefill -> decode handoff on the same traffic
+    path = "fleet (b) roles 1 prefill + 2 decode"
+    zero()
+    router = fleet_router(params, cfg, fleet={
+        "replicas": 3, "digest_refresh_steps": 1,
+        "roles": {"prefill": 1, "decode": 2}},
+        fabric={"capacity_bytes": 4 << 30}, **blocks)
+    clock = _FleetClock(router)
+    try:
+        for wave in (wave1, *_split_wave(wave2), probe_m, probe_c):
+            clock.drive(wave, FLEET_NEW)
+        out_b = {k: (list(v) if isinstance(v, list) else v)
+                 for k, v in router.finished.items()}
+        ok_b, failed_b, shed_b = _typed_partition(out_b, prompts)
+        launches[path] = counts()
+        _check_bodies(path)
+        _check_launches(path, launches[path], SERVING_KERNELS)
+        _clean(router, path)
+        fb = router.statusz()["fleet"]["fabric"]
+        res["b"] = dict(clock.summary(), finished=len(ok_b),
+                        failed=len(failed_b), shed=len(shed_b),
+                        handoffs=fb["handoffs"], migrations=fb["migrations"],
+                        migration_pages=fb["migration_pages"],
+                        bytes_moved=fb["bytes_moved"],
+                        ttft_ms_mean=float(np.mean(list(
+                            clock.ttft.values()))) * 1e3)
+        if fb["handoffs"] < 1 or failed_b or shed_b:
+            raise SystemExit(f"{path}: {res['b']}")
+    finally:
+        clock.unwrap()
+        router.shutdown()
+        del router, clock
+        torch.cuda.empty_cache()
+    res["b"]["flips"] = _held_flips(params, cfg, llama.forward, out_b, want,
+                                    prompts)
+    # the same handoff on one engine with no fabric: (b)'s tokens against
+    # it tell the decode leg's re-prefill of the tail (its own bf16
+    # rounding) from the migrated bytes
+    want_2 = _two_leg_oracle(
+        lambda: llama_serving_engine(params, cfg, **blocks),
+        [wave1, *_split_wave(wave2), probe_m, probe_c], FLEET_NEW)
+    res["b"]["two_leg_vs_one_leg"] = sorted(
+        k for k in prompts if want_2[k] != want[k])
+    res["b"]["flips_two_leg"] = _held_flips(params, cfg, llama.forward,
+                                            out_b, want_2, prompts,
+                                            oracle="two-leg oracle")
+    log(f"[fleet] (b) roles: finished {res['b']['finished']}/"
+        f"{len(prompts)}, handoffs {res['b']['handoffs']}, migrations "
+        f"{res['b']['migrations']} ({res['b']['migration_pages']} pages, "
+        f"{res['b']['bytes_moved']} B through the fabric), ttft mean "
+        f"{res['b']['ttft_ms_mean']:.1f} ms, router host "
+        f"{res['b']['router_host_ms_per_step']:.2f} ms a step, near-tie "
+        f"flips {len(res['b']['flips'])} against one engine, "
+        f"{len(res['b']['flips_two_leg'])} against one engine serving both "
+        f"legs (which differs from the one-leg engine on "
+        f"{len(res['b']['two_leg_vs_one_leg'])}) on {card_line}; kernel "
+        f"launches {launches[path]}")
+
+    # ---- (c) the int8-resident arm: a migrated int8 chain is admitted
+    path = "fleet (c) int8-resident migration"
+    qblocks = dict(blocks, prefill_chunk=256, kv_tier={
+        "quantize_cold": True, "quantized_resident": True,
+        "host_pool_bytes": 4 << 30})
+    qwave = {f"k{i}": p for i, p in enumerate(
+        [wave1["w0"]] + [wave2[f"q0{i}"] for i in range(1, 4)])}
+    first = {"k0": qwave.pop("k0")}
+    zero()
+    router = fleet_router(params, cfg, fleet={
+        "replicas": 2, "digest_refresh_steps": 1},
+        fabric={"capacity_bytes": 4 << 30}, **qblocks)
+    clock = _FleetClock(router)
+    try:
+        clock.drive(first, FLEET_NEW)
+        src = next(rid for rid, rep in router.replicas.items()
+                   if rep.engine.warm_keys())
+        router.drain(src)
+        clock.drive(qwave, FLEET_NEW)
+        router.rejoin(src)
+        out_c = {k: (list(v) if isinstance(v, list) else v)
+                 for k, v in router.finished.items()}
+        _typed_partition(out_c, {**first, **qwave})
+        launches[path] = counts()
+        _check_bodies(path)
+        _check_launches(path, launches[path],
+                        ("paged_attention_quant", "greedy_argmax",
+                         "quantize"))
+        _clean(router, path)
+        fb = router.statusz()["fleet"]["fabric"]
+        promotes = sum(rep.engine.kv_tier_quant_resident_promotes
+                       for rep in router.replicas.values())
+        res["c"] = dict(migrations=fb["migrations"],
+                        migration_pages=fb["migration_pages"],
+                        bytes_moved=fb["bytes_moved"],
+                        quant_resident_promotes=promotes)
+        if fb["migrations"] < 1 or promotes < 1:
+            raise SystemExit(f"{path}: no int8 chain was admitted "
+                             f"{res['c']}")
+    finally:
+        clock.unwrap()
+        router.shutdown()
+        del router, clock
+        torch.cuda.empty_cache()
+    want_c = _oracle(lambda: llama_serving_engine(params, cfg, **qblocks),
+                     [first, qwave], FLEET_NEW)
+    res["c"]["flips"] = _held_flips(params, cfg, llama.forward, out_c,
+                                    want_c, {**first, **qwave})
+    log(f"[fleet] (c) int8-resident: {res['c']} on {card_line}; kernel "
+        f"launches {launches[path]}")
+    _phase_line(62, card_line, **{k: {kk: vv for kk, vv in v.items()
+                                      if kk != "placed"}
+                                  for k, v in res.items()})
+    return launches
+
+
+def _leaves(tree):
+    from deepspeed_tpu_torch._tree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _proc_spec():
+    return {"model": dict(PROC_MODEL),
+            "engine": dict(max_batch=8, page_size=16, max_seq=1024,
+                           num_pages=513, prefill_bucket=128,
+                           cache_dtype="bfloat16", prefix_cache={},
+                           kv_tier={"host_pool_bytes": 2 << 30}),
+            "seed": PROC_SEED, "dtype": "bfloat16", "device": "cuda",
+            "fabric": {"capacity_bytes": 2 << 30}}
+
+
+def phase_proc_fleet(fns, card_line):
+    """Phase 63: the out-of-process fleet.  Two children (``python -m
+    deepspeed_tpu_torch.replica_child``) share the card, r0 over the shm
+    ring pair and r1 over TCP; each builds Llama-3-8B at full width and 8
+    layers from ``(config, seed)``.  The router (this process) sends 16
+    prompts: a migration child -> router fabric -> child on an affinity
+    miss, then a SIGKILL of r1 mid-traffic (the seconds from the signal to
+    the failover recorded); ``RemoteReplica`` scrapes each child's
+    ``/statusz``, ``/healthz`` and ``/tracez``, and the trace is merged
+    with the estimated clock offset.  Gates: every request's tokens equal
+    an in-process engine's built from the same ``(config, seed)`` (near
+    ties held to FLEET_TIE_REL_TOL), or it failed typed; the survivor's
+    ``check_leaks()`` is empty; no child is left running.  The children
+    report their own launches (the ``launches`` verb), B1, B5 and B6 among
+    them.  Returns the launches and phase 64's weights (this phase's
+    in-process model)."""
+    import signal
+
+    from deepspeed_tpu_torch.inference.serving import llama_serving_engine
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.obs_wire import FRESH, merge_trace_segments
+    from deepspeed_tpu_torch.proc_fleet import proc_fleet_router
+    from deepspeed_tpu_torch.replica_child import model_config
+    from deepspeed_tpu_torch.weights import init_params
+
+    spec = _proc_spec()
+    cfg = model_config(spec["model"])
+    rng = np.random.default_rng(63)
+    pref = rng.integers(1, cfg.vocab_size, 384).tolist()
+    shared = [pref + rng.integers(1, cfg.vocab_size, int(n)).tolist()
+              for n in rng.integers(32, 129, 4)]
+    rest = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(64, 513, 12)]
+    warm = {"p0": shared[0]}
+    spread = {f"p{i}": shared[i] for i in (1, 2, 3)}
+    tail = {f"u{i}": p for i, p in enumerate(rest)}
+    prompts = {**warm, **spread, **tail}
+    path = "proc fleet (2 children)"
+    t0 = time.perf_counter()
+    router = proc_fleet_router(
+        spec, proc_fleet={"replicas": 2, "spawn_timeout_s": 400,
+                          "poll_timeout_s": 60.0, "attach_scrape": True},
+        # a migrated chain of 24 pages of 0.5 MiB crosses in one frame:
+        # the rings hold 64 MiB a direction
+        transport=[{"kind": "shm", "slot_bytes": 1 << 20, "ring_slots": 64},
+                   {"kind": "tcp"}],
+        fleet={"replicas": 2, "affinity": False, "digest_refresh_steps": 1,
+               "retry_budget": 2}, fabric={"capacity_bytes": 2 << 30},
+        tracing={"sample_rate": 1.0})
+    spawn_s = time.perf_counter() - t0
+    procs = {rid: rep.engine.proc for rid, rep in router.replicas.items()}
+    res = {"spawn_s": spawn_s}
+    child_launches = {}
+    try:
+        kinds = [rep.engine.chan.endpoint.kind
+                 for rep in router.replicas.values()]
+        if kinds != ["shm", "tcp"]:
+            raise SystemExit(f"proc fleet: transports {kinds}")
+        clock = _FleetClock(router)
+        clock.drive(warm, PROC_NEW)
+        clock.drive(spread, PROC_NEW)
+        fb = router.statusz()["fleet"]["fabric"]
+        res["migration"] = {k: fb[k] for k in (
+            "migrations", "migration_pages", "bytes_moved",
+            "migration_fallbacks")}
+        if fb["migrations"] < 1:
+            raise SystemExit(f"proc fleet: no migration {fb}")
+        kill_t = []
+
+        def arm(n):
+            # SIGKILL r1 once its last poll reply shows a request past its
+            # first token (mid-generation: the children step on their own
+            # between the router's polls)
+            rep = router.replicas["r1"].engine
+            if not kill_t and any(g > 0 for g in rep._active.values()):
+                child_launches["r1"] = rep.chan.request(
+                    {"op": "launches"}, timeout_s=60)[0]["launches"]
+                kill_t.append(router.kill_child("r1", signal.SIGKILL))
+        clock.drive(tail, PROC_NEW, arm=arm)
+        fo = router.last_failover
+        if fo is None or fo["replica"] != "r1":
+            raise SystemExit(f"proc fleet: no failover of r1 ({fo})")
+        res["failover_s"] = fo["t"] - kill_t[0]
+        res["failover"] = {"replaced": sorted(map(str, fo["resubmitted"])),
+                           "failed_typed": sorted(map(str,
+                                                      fo["failed_typed"]))}
+        out = {k: (list(v) if isinstance(v, list) else v)
+               for k, v in router.finished.items()}
+        ok, failed, shed = _typed_partition(out, prompts)
+        for rid, (reason, _) in failed.items():
+            if reason != "replica_failed":
+                raise SystemExit(f"proc fleet: {rid} failed {reason}")
+        survivor = router.replicas["r0"].engine
+        child_launches["r0"] = survivor.chan.request(
+            {"op": "launches"}, timeout_s=60)[0]["launches"]
+        leaks = survivor.check_leaks()
+        if leaks or router.orphaned():
+            raise SystemExit(f"proc fleet: survivor leaks {leaks} orphans "
+                             f"{router.orphaned()}")
+        rem = router.remotes["scrape-r0"]
+        deadline = time.monotonic() + 30
+        while rem.state != FRESH and time.monotonic() < deadline:
+            rem.poll()
+            time.sleep(0.05)
+        health = rem.healthz()
+        evs, meta = rem.fetch_trace(since=0)
+        off, err = rem.estimate_clock_offset()
+        merged = merge_trace_segments([{"events": evs, "offset_ns": off,
+                                        "err_ns": err, "replica": "r0"}])
+        ts = [e["ts"] for e in merged["traceEvents"] if "ts" in e]
+        if rem.state != FRESH or not evs or ts != sorted(ts) or \
+                not health.get("ready"):
+            raise SystemExit(f"proc fleet: scrape {rem.state} events "
+                             f"{len(evs)} health {health}")
+        res["scrape"] = {"state": rem.state, "trace_events": len(evs),
+                         "clock_offset_ns": off, "offset_err_ns": err,
+                         "merged_events": len(merged["traceEvents"])}
+        res.update(clock.summary())
+        res.update(finished=len(ok), failed=len(failed), shed=len(shed))
+        clock.unwrap()
+    finally:
+        router.shutdown()
+    alive = [rid for rid, p in procs.items() if p.poll() is None]
+    if alive:
+        raise SystemExit(f"proc fleet: children {alive} still running")
+    launches = {path: {n: sum(c.get(n, 0) for c in child_launches.values())
+                       for n in fns}}
+    res["child_launches"] = child_launches
+    _check_launches(path, launches[path], SERVING_KERNELS)
+    # the oracle: an engine in this process from the same (config, seed)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(
+        PROC_SEED), device="cuda", dtype=torch.bfloat16)
+    eng_kw = dict(spec["engine"], cache_dtype=torch.bfloat16,
+                  device="cuda")
+    want = _oracle(lambda: llama_serving_engine(params, cfg, **eng_kw),
+                   [warm, spread, tail], PROC_NEW)
+    res["flips"] = _held_flips(params, cfg, llama.forward,
+                               {k: out[k] for k in ok}, want, prompts)
+    log(f"[proc fleet] 2 children (shm, tcp), Llama-3-8B {PROC_LAYERS} "
+        f"layers: spawned in {spawn_s:.1f} s; {res} on {card_line}; kernel "
+        f"launches {launches[path]}")
+    _phase_line(63, card_line, **res)
+    return launches, params, cfg
+
+
+def phase_elastic(fns, card_line, zi_params, zi_cfg):
+    """Phase 64: the elastic fleet.  (a) GPT-2 1.3B at all 24 layers, bf16:
+    the autoscaler grows a one-replica fleet to three on a burst of 24
+    prompts and back to one when idle, then rolls out a second seeded
+    weight version through drain -> ``swap_params`` -> rejoin while 12
+    more prompts arrive.  Gates: every request ran on one version (each
+    router step reads the version of the replica holding it) and its
+    tokens equal a fresh engine's on that version's weights (near ties
+    held to FLEET_TIE_REL_TOL).  (b) A streamed cold start: a fleet of one
+    resident Llama-3-8B replica at 8 layers (phase 63's weights) scales up
+    a ZeRO-Inference replica streaming its layers from a host copy; it
+    serves, ``promote_resident_layers`` runs to its flip.  Gate: its tokens
+    equal the resident engine's.  Cold-start, first-token and flip seconds
+    are logged."""
+    from deepspeed_tpu_torch.autoscale import FleetAutoscaler
+    from deepspeed_tpu_torch.fleet import fleet_router
+    from deepspeed_tpu_torch.inference.serving import serving_engine
+    from deepspeed_tpu_torch.models import gpt2, llama
+    from deepspeed_tpu_torch.telemetry import MetricsRegistry
+    from deepspeed_tpu_torch.weights import init_params
+
+    launches, res = {}, {}
+    # ---- (a) scale and roll out, GPT-2 1.3B
+    cfg = gpt2.GPT2Config.gpt2_1_3b()
+    v1, v2 = (init_params(cfg, torch.Generator("cuda").manual_seed(s),
+                          device="cuda", dtype=torch.bfloat16)
+              for s in ELASTIC_SEEDS)
+    opts = dict(max_batch=8, page_size=16, max_seq=512, num_pages=257,
+                prefill_bucket=64, cache_dtype=torch.bfloat16,
+                prefix_cache={}, device="cuda")
+    rng = np.random.default_rng(64)
+    burst = {f"b{i}": rng.integers(1, cfg.vocab_size, int(n)).tolist()
+             for i, n in enumerate(rng.integers(64, 257, 24))}
+    during = {f"v{i}": rng.integers(1, cfg.vocab_size, int(n)).tolist()
+              for i, n in enumerate(rng.integers(64, 257, 12))}
+    path = "elastic (a) GPT-2 1.3B scale + rollout"
+    _zero(fns.values())
+    router = fleet_router(v1, cfg, fleet={"replicas": 1},
+                          tracing={"ring_capacity": 16384}, **opts)
+
+    def factory(rid, streamed=False):
+        return serving_engine(v1, cfg, replica_id=rid, tracing=router.tracer,
+                              telemetry=MetricsRegistry(
+                                  namespace=f"dstpu_{rid}"), **opts)
+
+    auto = FleetAutoscaler(router, factory, autoscale={
+        **ELASTIC_FAST, "rollout_soak_steps": 1})
+    versions = {}
+    live_max = [1]
+
+    def note():
+        """Each running request's replica version (a queued one has run
+        on none yet), and the most replicas live at once."""
+        live = [rep for rep in router.replicas.values()
+                if rep.state != "dead"]
+        live_max[0] = max(live_max[0], len(live))
+        for rep in live:
+            for s in rep.engine.slots:
+                if s is not None:
+                    versions.setdefault(s.req.req_id, set()).add(
+                        str(rep.version))
+
+    def step():
+        auto.step()
+        note()
+
+    try:
+        t0 = time.perf_counter()
+        for rid, p in burst.items():            # all at once: a burst
+            router.submit(rid, p, max_new_tokens=ELASTIC_NEW)
+        for _ in range(200):
+            step()
+            if auto.status()["live_replicas"] >= 3 or not router.has_work:
+                break
+        # the burst grew the fleet; the rollout walks it while it serves
+        # (draining a lone replica would leave no capacity)
+        grown = auto.status()["live_replicas"]
+        auto.rollout(v2, version="v2")
+        for rid, p in during.items():
+            router.submit(rid, p, max_new_tokens=ELASTIC_NEW)
+        steps = 0
+        while router.has_work or auto.rollout_active:
+            step()
+            steps += 1
+            if steps > 100_000:
+                raise SystemExit("elastic: the rollout did not converge")
+        served_s = time.perf_counter() - t0
+        for _ in range(200):
+            step()
+            if auto.status()["live_replicas"] == 1 and \
+                    not router.has_work:
+                break
+        down = auto.status()
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        _check_launches(path, launches[path], SERVING_KERNELS)
+        _clean(router, path)
+        out = {k: (list(v) if isinstance(v, list) else v)
+               for k, v in router.finished.items()}
+        ok, failed, shed = _typed_partition(out, {**burst, **during})
+        st = auto.status()
+        last = auto.last_rollout or {}
+        res["a"] = {"live_max": live_max[0], "live_at_rollout": grown,
+                    "live_after_idle": down["live_replicas"],
+                    "scale_ups": st["scale_ups"],
+                    "scale_downs": st["scale_downs"],
+                    "rollout_completed": last.get("completed"),
+                    "rolled_back": last.get("rolled_back"),
+                    "burst_and_rollout_s": served_s,
+                    "finished": len(ok), "failed": len(failed),
+                    "shed": len(shed),
+                    "events": [e["kind"] for e in auto.events]}
+        mixed = {k: sorted(v) for k, v in versions.items() if len(v) != 1}
+        if live_max[0] < 3 or grown < 2 or down["live_replicas"] != 1 or \
+                mixed or \
+                not last.get("completed") or failed or shed:
+            raise SystemExit(f"elastic (a): {res['a']} mixed {mixed}")
+    finally:
+        router.shutdown()
+        del router, auto
+        torch.cuda.empty_cache()
+    tags = {k: next(iter(v)) for k, v in versions.items()}
+    if set(tags) != ok:
+        # every finished request was seen in a slot on exactly one
+        # version (``mixed`` is empty): none escapes the version gate
+        raise SystemExit(f"elastic (a): finished but never seen in a slot "
+                         f"{sorted(ok - set(tags))}, seen but not finished "
+                         f"{sorted(set(tags) - ok)}")
+    want = {}
+    for tag, w in (("0", v1), ("v2", v2)):
+        mine = {k: p for k, p in {**burst, **during}.items()
+                if tags.get(k) == tag}
+        if mine:
+            got = _oracle(lambda: serving_engine(w, cfg, **opts), [mine],
+                          ELASTIC_NEW)
+            flips = _held_flips(w, cfg, gpt2.forward,
+                                {k: out[k] for k in mine}, got, mine)
+            res["a"][f"tagged_{tag}"] = len(mine)
+            res["a"][f"flips_{tag}"] = flips
+            want.update(got)
+    if not res["a"].get("tagged_v2"):
+        raise SystemExit("elastic (a): no request ran on v2")
+    log(f"[elastic] (a) GPT-2 1.3B 24 layers: {res['a']} on {card_line}; "
+        f"kernel launches {launches[path]}")
+    del v1, v2
+    torch.cuda.empty_cache()
+
+    # ---- (b) a streamed cold start of a ZeRO-Inference replica
+    path = "elastic (b) streamed cold start"
+    host = {k: (v if k != "blocks" else
+                {n: t.to("cpu") for n, t in v.items()})
+            for k, v in zi_params.items()}
+    zopts = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=513,
+                 prefill_bucket=128, cache_dtype=torch.bfloat16,
+                 prefix_cache={}, device="cuda")
+    queue = {f"z{i}": rng.integers(1, zi_cfg.vocab_size,
+                                   int(n)).tolist()
+             for i, n in enumerate(rng.integers(64, 513, 16))}
+    _zero(fns.values())
+    router = fleet_router(zi_params, zi_cfg, fleet={"replicas": 1},
+                          tracing={"ring_capacity": 16384}, **zopts)
+    spawned = []
+
+    def zi_factory(rid, streamed=False):
+        zi = {"enabled": True, "tier": "host"} if streamed else None
+        eng = serving_engine(host if streamed else zi_params, zi_cfg,
+                             replica_id=rid, zero_inference=zi,
+                             tracing=router.tracer,
+                             telemetry=MetricsRegistry(
+                                 namespace=f"dstpu_{rid}"), **zopts)
+        spawned.append(eng)
+        return eng
+
+    auto = FleetAutoscaler(router, zi_factory, autoscale={
+        **ELASTIC_FAST, "cold_start": "streamed",
+        "promote_layers_per_tick": 1, "down_after": 10 ** 6})
+    try:
+        for rid, p in queue.items():
+            router.submit(rid, p, max_new_tokens=ELASTIC_NEW)
+            auto.step()
+        steps = 0
+        while router.has_work or any(
+                not getattr(e, "fully_resident", True) for e in spawned):
+            auto.step()
+            steps += 1
+            if steps > 100_000:
+                raise SystemExit("elastic (b): the flip did not land")
+        launches[path] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(path)
+        _check_launches(path, launches[path], SERVING_KERNELS)
+        _clean(router, path)
+        out = {k: (list(v) if isinstance(v, list) else v)
+               for k, v in router.finished.items()}
+        ok, failed, shed = _typed_partition(out, queue)
+        cold = [dict(c) for c in auto.cold_history]
+        zi_rows = [e.statusz()["zero_inference"] for e in spawned]
+        st = auto.status()
+        res["b"] = {"scale_ups": st["scale_ups"],
+                    "cold_flips": st["cold_flips"], "cold_history": cold,
+                    "zi": [{k: z[k] for k in ("n_streamed_now",
+                                              "n_resident_now",
+                                              "fully_resident",
+                                              "layer_sweeps",
+                                              "bytes_uploaded")}
+                           for z in zi_rows],
+                    "finished": len(ok), "failed": len(failed)}
+        if st["cold_flips"] < 1 or not spawned or failed or shed or \
+                not all(e.fully_resident for e in spawned):
+            raise SystemExit(f"elastic (b): {res['b']}")
+    finally:
+        router.shutdown()
+        del router, auto
+        spawned.clear()
+        torch.cuda.empty_cache()
+    want = _oracle(lambda: serving_engine(zi_params, zi_cfg, **zopts),
+                   [queue], ELASTIC_NEW)
+    res["b"]["flips"] = _held_flips(zi_params, zi_cfg, llama.forward,
+                                    {k: out[k] for k in ok}, want, queue)
+    log(f"[elastic] (b) streamed cold start, Llama-3-8B {PROC_LAYERS} "
+        f"layers: {res['b']} on {card_line}; kernel launches "
+        f"{launches[path]}")
+    _phase_line(64, card_line, **res)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -10417,6 +11290,14 @@ def main() -> int:
     _lap("phase_autotune")
     phase_rank_shapes(card_line, gen)
     _lap("phase_rank_shapes")
+    torch.cuda.empty_cache()
+    got, zi_params, zi_cfg = phase_proc_fleet(fns, card_line)
+    launches.update(got)
+    _lap("phase_proc_fleet (phase 63)")
+    launches.update(phase_elastic(fns, card_line, zi_params, zi_cfg))
+    del zi_params
+    torch.cuda.empty_cache()
+    _lap("phase_elastic (phase 64)")
     for name, cases in bert_cases.items():
         rows[name]["bert_shapes"] = cases
     for name, cases in gpt2_cases.items():

@@ -478,7 +478,7 @@ class KernelsConfig:
     greedy output is bit-exact either way).
 
     Resolution happens ONCE at engine build (``resolve_serving_kernels``
-    in :mod:`deepspeed_tpu.inference.kernels`): env vars still win as
+    in :mod:`deepspeed_tpu_torch.inference.kernels`): env vars still win as
     overrides at that point, the resolved policy is baked into the
     compiled programs and surfaced in ``/statusz`` under ``kernels``,
     and a forced Pallas choice that the build must demote (tensor
@@ -716,12 +716,12 @@ class SLOConfig:
 @dataclasses.dataclass
 class FaultsConfig:
     """Deterministic fault-injection block (robustness testing; see
-    :mod:`deepspeed_tpu.faults`).  ``rules`` is a list of rule dicts —
+    :mod:`deepspeed_tpu_torch.faults`).  ``rules`` is a list of rule dicts —
     ``{"subsystem": "aio_read", "rate": 0.5, "count": 3, ...}`` — each
     addressable by subsystem, firing rate, trigger count, skip-after
     offset, optional ``latency_s`` (mode "latency") and ``match``
     substring filter; ``seed`` makes the whole schedule reproducible.
-    The serving engine builds a :class:`~deepspeed_tpu.faults.
+    The serving engine builds a :class:`~deepspeed_tpu_torch.faults.
     FaultPlan` from the block and installs it process-wide for the
     aio/tier hook points; with the block off every hook is one branch.
 
@@ -772,10 +772,9 @@ class FaultsConfig:
 
 @dataclasses.dataclass
 class FleetConfig:
-    """Replicated serving fleet block (the multi-replica front end of
-    ROADMAP open item 2; consumed by :class:`~deepspeed_tpu.fleet.
-    FleetRouter`).  A fleet spreads open-loop traffic across
-    ``replicas`` in-process :class:`~deepspeed_tpu.inference.serving.
+    """Replicated serving fleet block (the multi-replica front end;
+    consumed by :class:`~deepspeed_tpu_torch.fleet.FleetRouter`).  A fleet spreads open-loop traffic across
+    ``replicas`` in-process :class:`~deepspeed_tpu_torch.inference.serving.
     ServingEngine` replicas: routing is prefix-cache-affine when
     ``affinity`` is on (the router matches a prompt's chained page keys
     against each replica's published-key digest and sends the request
@@ -801,12 +800,11 @@ class FleetConfig:
     dead (failover) rather than waited out.
 
     ``tp``: devices per replica on the ``model`` (tensor-parallel)
-    axis.  With ``tp > 1`` :func:`~deepspeed_tpu.fleet.fleet_router`
-    builds each replica over its own ``tp``-device model-axis mesh
-    (replica i takes the i-th device slice, wrapping around when
-    ``replicas * tp`` exceeds the host's device count — in-process
-    replicas may share chips), so a fleet replica is itself a
-    TP-sharded engine, token-identical to the single-device build.
+    axis.  The JAX package builds each replica over its own ``tp``-device
+    model-axis mesh; in the port a TP replica is a group of
+    ``torch.distributed`` processes, which the fleet does not build yet:
+    :func:`~deepspeed_tpu_torch.fleet.fleet_router` raises
+    ``NotImplementedError`` for ``tp > 1`` (ROADMAP A10's remainder).
     1 = classic unsharded replicas.
 
     ``roles``: disaggregated prefill/decode serving — a dict
@@ -814,7 +812,7 @@ class FleetConfig:
     into a prefill-specialized pool and a decode-specialized pool.  New
     requests route to a prefill replica, run to first-token-ready
     state, publish their KV chain to the attached
-    :class:`~deepspeed_tpu.kv_fabric.KVFabric`, and a decode replica
+    :class:`~deepspeed_tpu_torch.kv_fabric.KVFabric`, and a decode replica
     picks the request up as a migrated admission (the handoff charges
     no retry budget — it is scheduled movement).  Role preference
     degrades gracefully: when a role's pool has no routable replica,
@@ -912,8 +910,8 @@ class FleetConfig:
 @dataclasses.dataclass
 class FabricConfig:
     """Cross-replica KV fabric block (consumed by
-    :class:`~deepspeed_tpu.kv_fabric.KVFabric` and the
-    :class:`~deepspeed_tpu.fleet.FleetRouter` migration/handoff paths;
+    :class:`~deepspeed_tpu_torch.kv_fabric.KVFabric` and the
+    :class:`~deepspeed_tpu_torch.fleet.FleetRouter` migration/handoff paths;
     ref: ZeRO-Infinity's checksummed host/NVMe transport,
     arXiv:2104.07857, re-targeted at serialized KV pages).
 
@@ -982,8 +980,8 @@ class FabricConfig:
 @dataclasses.dataclass
 class AutoscaleConfig:
     """Elastic-fleet autoscaling block (consumed by
-    :class:`~deepspeed_tpu.autoscale.FleetAutoscaler` over a
-    :class:`~deepspeed_tpu.fleet.FleetRouter`).  The autoscaler polls
+    :class:`~deepspeed_tpu_torch.autoscale.FleetAutoscaler` over a
+    :class:`~deepspeed_tpu_torch.fleet.FleetRouter`).  The autoscaler polls
     the control-plane signals the fleet already emits — mean queue
     depth per routable replica, shed activity since the last
     evaluation, and the max SLO burn rate across the fleet — every
@@ -1092,7 +1090,7 @@ class AutoscaleConfig:
 class TelemetryConfig:
     """Runtime telemetry block (no single reference analogue — it
     unifies the reference's monitor/comms-logger/flops-profiler
-    surfaces behind one :class:`~deepspeed_tpu.telemetry.
+    surfaces behind one :class:`~deepspeed_tpu_torch.telemetry.
     MetricsRegistry`).
 
     ``enabled`` default-on keeps the registry live (counters/gauges/
@@ -1150,7 +1148,7 @@ class TracingConfig:
     """Per-request tracing + flight-recorder block (no single reference
     analogue; the third observability pillar next to ``telemetry`` —
     per-request event timelines and hang postmortems, see
-    :mod:`deepspeed_tpu.request_trace`).
+    :mod:`deepspeed_tpu_torch.request_trace`).
 
     Default-on: the recorder is a preallocated ring and each event is
     one clock read + one tuple store (bounded in
@@ -1213,10 +1211,10 @@ class HistoryConfig:
     """Time-series metric history block (no reference analogue; the
     fourth observability pillar next to ``telemetry``/``tracing``/
     ``slo`` — retained trajectories instead of point-in-time gauges,
-    see :mod:`deepspeed_tpu.history`).
+    see :mod:`deepspeed_tpu_torch.history`).
 
     Multi-resolution ring buffers over the engine's registry, sampled
-    on the :class:`~deepspeed_tpu.telemetry.TelemetryExporter` tick —
+    on the :class:`~deepspeed_tpu_torch.telemetry.TelemetryExporter` tick —
     never the decode hot path.  ``rings`` is a tuple of
     ``(period_s, samples)`` pairs (default: 1 s × 120 plus 10 s × 360 —
     two minutes fine, one hour coarse, fixed memory).  Counters record
@@ -1290,9 +1288,9 @@ class HistoryConfig:
 class IncidentsConfig:
     """Incident-capture block (no reference analogue; the black-box
     flight recorder's trip logic — see
-    :mod:`deepspeed_tpu.incidents`).
+    :mod:`deepspeed_tpu_torch.incidents`).
 
-    An :class:`~deepspeed_tpu.incidents.IncidentManager` subscribes to
+    An :class:`~deepspeed_tpu_torch.incidents.IncidentManager` subscribes to
     the structured events the stack already emits (``slo_burn_alert``,
     KV-tier promotion failures, replica failover, rollout rollbacks,
     watchdog fires, shed storms) plus lightweight EWMA z-score
@@ -1388,7 +1386,7 @@ class IncidentsConfig:
 class DevprofConfig:
     """Device-truth observability block (no reference analogue; the
     fifth observability pillar next to ``telemetry``/``tracing``/
-    ``history``/``incidents`` — see :mod:`deepspeed_tpu.devprof`).
+    ``history``/``incidents`` — see :mod:`deepspeed_tpu_torch.devprof`).
 
     Three coupled capabilities: a **compile sentinel** (every XLA
     compile attributed to a call-site ledger, split warmup vs
@@ -1454,14 +1452,14 @@ class DevprofConfig:
 @dataclasses.dataclass
 class ObsWireConfig:
     """Remote observability wire block (no reference analogue; see
-    :mod:`deepspeed_tpu.obs_wire`).
+    :mod:`deepspeed_tpu_torch.obs_wire`).
 
     Governs the **scrape plane**: `RemoteReplica` pollers that read a
     replica's ``/statusz``/``/metrics``/``/historyz``/``/tracez`` HTTP
     surface from another process and fold the snapshots into the fleet
     rollups. ``poll_interval_s`` paces the scrape loop; ``timeout_s``
     bounds each HTTP request; ``retries``/``backoff_s`` drive
-    :func:`~deepspeed_tpu.faults.retry_with_backoff` around each
+    :func:`~deepspeed_tpu_torch.faults.retry_with_backoff` around each
     scrape. Staleness hysteresis: a replica whose last successful
     scrape is older than ``stale_after_s`` reads STALE, older than
     ``lost_after_s`` reads LOST (last-known snapshot retained either
@@ -1536,7 +1534,7 @@ class ObsWireConfig:
 @dataclasses.dataclass
 class TransportConfig:
     """Process-boundary transport block (no reference analogue; see
-    :mod:`deepspeed_tpu.transport`).
+    :mod:`deepspeed_tpu_torch.transport`).
 
     Selects and sizes the byte mover under one parent<->child
     peer-pair.  ``kind``: ``"shm"`` (file-backed mmap ring pair,
@@ -1547,7 +1545,7 @@ class TransportConfig:
     larger frame errors rather than wedging).  ``io_timeout_s``
     bounds one send/recv; ``rpc_timeout_s`` bounds one full
     request/reply round trip.  ``connect_attempts``/``backoff_s``
-    drive :func:`~deepspeed_tpu.faults.retry_with_backoff` around
+    drive :func:`~deepspeed_tpu_torch.faults.retry_with_backoff` around
     dialing and re-dialing a TCP peer.
     """
 
@@ -1611,9 +1609,9 @@ class TransportConfig:
 @dataclasses.dataclass
 class ProcFleetConfig:
     """Out-of-process fleet block (no reference analogue; see
-    :mod:`deepspeed_tpu.proc_fleet`).
+    :mod:`deepspeed_tpu_torch.proc_fleet`).
 
-    Governs how :func:`~deepspeed_tpu.proc_fleet.proc_fleet_router`
+    Governs how :func:`~deepspeed_tpu_torch.proc_fleet.proc_fleet_router`
     spawns and supervises child replica processes.  ``replicas``
     counts children; ``spawn_timeout_s`` bounds one child's
     build-engine-and-handshake window; ``health_cache_s`` is the
@@ -1622,7 +1620,7 @@ class ProcFleetConfig:
     detection cadence); ``poll_timeout_s`` bounds one router-step
     poll RPC; ``shutdown_grace_s`` is how long SIGTERM gets before
     SIGKILL at teardown.  ``attach_scrape`` additionally attaches
-    each child's HTTP wire surface as a :class:`~deepspeed_tpu.
+    each child's HTTP wire surface as a :class:`~deepspeed_tpu_torch.
     obs_wire.RemoteReplica` so the scrape plane (staleness
     walk, trace merge) observes the same processes the data plane
     drives.

@@ -829,8 +829,12 @@ class TrainingEngine:
 
         def local_grads(p, mb):
             loss, _ = self._loss_for(p, mb)
-            return (list(torch.autograd.grad(loss, tree_leaves(p))),
-                    loss.detach())
+            leaves = tree_leaves(p)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a leaf the loss does not reach (BERT's pooler under the MLM
+            # loss) gets a zero gradient, as JAX's grad gives it
+            return ([torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, gs)], loss.detach())
 
         grads, loss = comm_compress.accumulate_local_grads(
             local_grads, params, self._local_rows(batch)[0],

@@ -37,12 +37,63 @@ never the whole engine.  This module provides both halves of proving that:
               postmortem path.
   burst       no engine hook: consumed by a traffic generator to trigger
               admission bursts (queue pressure → load shedding).
+  replica     the :class:`~deepspeed_tpu_torch.fleet.FleetRouter`'s per-
+              replica poll (one opportunity per replica per router
+              step; ``match=`` targets a replica id).  Mode ``error``
+              KILLS the replica (the router fails it over), mode
+              ``latency`` STALLS it for ``latency_s`` (a stall past
+              the fleet's ``fatal_stall_s`` is treated as a death),
+              and the replica-only mode ``degrade`` forces its health
+              to degraded for ``latency_s`` seconds (default 30) —
+              quarantine/hysteresis exercise without breaking
+              anything.  Combined with ``after=`` this is also how a
+              chaos run kills a replica mid-rollout.
+  fabric      the :class:`~deepspeed_tpu_torch.kv_fabric.KVFabric` hook
+              points.  Opportunities carry prefixed keys so one rule
+              targets one leg via ``match``: ``export:<keyhex>``
+              (publish into the fabric — an error rule fails the
+              export and the migration falls back to re-prefill),
+              ``fetch:<keyhex>`` (admit out of the fabric — a latency
+              rule delays the fetch, pushing the migration toward its
+              ``migrate_timeout_s``; an error rule fails it), and
+              ``corrupt:<keyhex>`` (an error rule flips a payload byte
+              AFTER the per-buffer crc32 was recorded, so the
+              admitting replica's promotion-time checksum verify must
+              catch it and re-prefill).  A rule without ``match``
+              fires on every leg — write ``match="export"`` etc. to
+              scope it.
+  scale       the :class:`~deepspeed_tpu_torch.autoscale.FleetAutoscaler`'s
+              scale-up path (one opportunity per spawn attempt; key =
+              the new replica id, so ``match=`` targets one).  Mode
+              ``error`` = engine-factory failure (the scale-up aborts,
+              is counted, and retries at a later evaluation); mode
+              ``latency`` = a slow cold-start (the spawn sleeps
+              ``latency_s`` before the factory runs — visible in the
+              ``autoscale_cold_start_seconds`` histogram).
+  scrape      the :class:`~deepspeed_tpu_torch.obs_wire.RemoteReplica` scrape
+              loop (one opportunity per HTTP scrape attempt; key = the
+              remote replica id, so ``match=`` targets one).  Mode
+              ``error`` fails the scrape (counted in
+              ``obswire_scrape_errors``, retried with backoff, and — if
+              persistent — walks the replica FRESH→STALE→LOST); mode
+              ``latency`` delays the scrape by ``latency_s`` capped at
+              the configured ``obs_wire.timeout_s`` so an injected
+              stall can never wedge the poll loop.
+  transport   the :class:`~deepspeed_tpu_torch.transport.Channel` data plane
+              (one opportunity per send/recv/frame; key =
+              ``send:<peer>``, ``recv:<peer>`` or ``corrupt:<peer>``,
+              so ``match=`` scopes a rule to one leg of one
+              peer-pair).  On ``send:``/``recv:`` a latency rule
+              sleeps (wire jitter) and an error rule raises
+              :class:`~deepspeed_tpu_torch.transport.TransportError` — the
+              reconnect/backoff path.  On ``corrupt:`` an error rule
+              flips one byte of the encoded frame AFTER its crc32 was
+              stamped, so the receiving side's ``decode_frame`` must
+              reject it as :class:`~deepspeed_tpu_torch.transport.
+              TransportCorrupt` (and a corrupted migrated page that
+              somehow slipped a layer further still dies at the
+              importer's promotion-time checksum).
   ========== ===========================================================
-
-  ``replica``, ``scale``, ``fabric``, ``scrape`` and ``transport`` are
-  valid rule subsystems (a plan parses and schedules them as the JAX
-  package's does); their hook points are the fleet's modules, which the
-  port does not have yet.
 
 - **Degradation helpers**: :func:`retry_with_backoff` (the bounded
   retry every aio consumer shares), the typed error hierarchy

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.devprof import NULL_DEVPROF, DevProf
 from deepspeed_tpu_torch.faults import FaultPlan
 from deepspeed_tpu_torch.history import NULL_HISTORY, MetricHistory
 from deepspeed_tpu_torch.incidents import NULL_INCIDENTS, IncidentManager
+from deepspeed_tpu_torch.obs_wire import tracez_provider, wire_stamp
 from deepspeed_tpu_torch.request_trace import (BoundTracer, RequestTracer,
                                                event_to_dict)
 from deepspeed_tpu_torch.slo import NULL_SLO_TRACKER, SLOTracker
@@ -51,18 +52,6 @@ logger = logging.getLogger(__name__)
 
 # /healthz reports "load_shedding_active" for this long after a shed
 _SHED_ACTIVE_WINDOW_S = 30.0
-
-# the wire stamp's schema (the JAX package's obs_wire.OBS_WIRE_SCHEMA_STR):
-# every introspection document carries it, so a scraper reads the port's
-# documents as it reads the JAX engine's
-OBS_WIRE_SCHEMA_STR = "1.0"
-
-
-def wire_stamp() -> Dict[str, Any]:
-    """Schema version plus paired wall / monotonic timestamps."""
-    return {"wire_schema": OBS_WIRE_SCHEMA_STR, "t_wall": time.time(),
-            "t_mono_ns": time.monotonic_ns()}
-
 
 def _weak(bound):
     """``bound`` (a bound method of the engine) as a callable that does not
@@ -394,6 +383,11 @@ class ControlPlane:
                 ex.register_provider("historyz", _weak(self.historyz))
             if self._devprof_on:
                 ex.register_provider("profilez", _weak(self.profilez))
+            if self._trace_on:
+                # /tracez?since= — incremental flight-recorder drain for
+                # the remote scrape plane (obs_wire)
+                ex.register_provider("tracez", tracez_provider(
+                    self.tracer.recorder, replica=self.replica_id))
 
     # ------------------------------------------------------------ the step
     def _step_control(self, inner) -> None:
@@ -666,7 +660,7 @@ class ControlPlane:
             **wire_stamp(),
             "engine": type(self).__name__,
             "replica": self.replica_id,
-            "weights_version": _req_key(0),
+            "weights_version": _req_key(getattr(self, "weights_version", 0)),
             "t": time.strftime("%Y-%m-%dT%H:%M:%S"),
             "uptime_s": round(now - self._t_start, 3),
             "last_step_age_s": (round(now - self._last_step_t, 3)

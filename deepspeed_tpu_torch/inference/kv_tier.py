@@ -48,6 +48,7 @@ step, plus the bf16 cast the cache dtype already imposes).
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 import os
 import zlib
@@ -435,6 +436,35 @@ class KVTierPool:
         return self._land(_maybe_corrupt(encode_prequantized_entry(
             key, kq, ks, vq, vs, page_dtype=self.page_dtype,
             tick=self._tick)))
+
+    def admit_entry(self, entry: TierEntry) -> Optional[str]:
+        """Admit an ALREADY-SERIALISED entry (a fabric migration: another
+        replica encoded and checksummed the payload; int8 cold pages ride
+        as they are).  Record and payload are copied, so this pool never
+        aliases a shared transit buffer.  Returns the landing tier as
+        :meth:`demote` does; the original checksums carry over, so a
+        payload corrupted in transit fails this pool's promotion-time
+        verify and the admitting engine re-prefills."""
+        if self.disabled is not None:
+            return None
+        if entry.key in self.entries:
+            return self.touch(entry.key)
+        self._tick += 1
+        return self._land(dataclasses.replace(
+            entry, location="host", tick=self._tick,
+            data=tuple(np.array(b, copy=True) for b in entry.data)))
+
+    def entry_payload(self, key: bytes) -> TierEntry:
+        """A host-form view of one entry for export: a host entry returns
+        as it is; an NVMe entry's buffers are read back synchronously (an
+        export is off the decode path).  The ORIGINAL checksums ride
+        along, for the importer's decode to verify."""
+        e = self.entries[key]
+        if e.location == "host":
+            return e
+        bufs = tuple(self._nvme.read_sync(name, shape, dtype)
+                     for name, shape, dtype in e.buffers)
+        return dataclasses.replace(e, location="host", data=bufs)
 
     def _land(self, entry: TierEntry) -> Optional[str]:
         """Place a freshly encoded entry: host pool first, cascading older

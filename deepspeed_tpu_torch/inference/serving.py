@@ -84,7 +84,8 @@ import torch
 
 from deepspeed_tpu_torch import faults as faults_mod
 from deepspeed_tpu_torch._device import resolve_device
-from deepspeed_tpu_torch._tree import tree_leaves, tree_map
+from deepspeed_tpu_torch._tree import (tree_leaves, tree_leaves_with_path,
+                                       tree_map)
 from deepspeed_tpu_torch.config import (KVTierConfig, PrefixCacheConfig,
                                         SpeculativeConfig)
 from deepspeed_tpu_torch.faults import ChecksumError, InjectedFault
@@ -92,8 +93,8 @@ from deepspeed_tpu_torch.inference.control_plane import ControlPlane
 from deepspeed_tpu_torch.inference.kernels import (PagedKVCache,
                                                    PageAllocator,
                                                    resolve_serving_kernels)
-from deepspeed_tpu_torch.inference.kv_tier import (KVTierPool, from_host,
-                                                   to_host)
+from deepspeed_tpu_torch.inference.kv_tier import (
+    KVTierPool, encode_entry, encode_prequantized_entry, from_host, to_host)
 from deepspeed_tpu_torch.inference.quantized import quantize_for_inference
 from deepspeed_tpu_torch.inference.prefix_cache import (extend_page_keys,
                                                         matchable_pages,
@@ -369,6 +370,19 @@ class ServingEngine(ControlPlane):
             if kvt.demote_watermark < 1.0 and self.allocator.cache_pages:
                 self._kvt_wm_pages = int(
                     kvt.demote_watermark * self.allocator.cache_pages)
+        # pages per batched device -> host gather of a fabric export: the
+        # JAX engine's biggest prewarmed bucket (the power of two at or
+        # above one sequence's pages)
+        self._kvt_fetch_cap = 1
+        while self._kvt_fetch_cap < self.max_pages_per_seq:
+            self._kvt_fetch_cap *= 2
+        # cross-replica KV fabric (attach_fabric): export / admit ride the
+        # spill pool, so the handle stays None unless kv_tier is on
+        self._fabric = None
+        # rolling-update identity: the weight image this engine serves
+        # (swap_params sets it; the fleet's per-version SLO rollup groups
+        # replicas by it)
+        self.weights_version: Any = 0
         self._sample_fn = (fused_sample_rows
                            if self.kernels.fused_sampling == "on"
                            else _sample_rows)
@@ -1461,6 +1475,190 @@ class ServingEngine(ControlPlane):
                 self._append_token(b, int(host_toks[b, j]))
                 if self.slots[b] is None:       # finished mid-chunk: the
                     break                       # rest is discarded
+
+    # ------------------------------------------------------- fleet verbs
+    # (driven by deepspeed_tpu_torch.fleet.FleetRouter: the warm digest
+    # for affinity, and the KV fabric's migration and prefill -> decode
+    # handoff, which are host bookkeeping plus one batched device -> host
+    # gather on the export side)
+    def warm_keys(self) -> frozenset:
+        """The replica's published-key digest: every content key matchable
+        at admission — the prefix-cache index plus (with the tier live)
+        the spilled host / NVMe entries."""
+        return frozenset(self.warm_digest())
+
+    def warm_digest(self) -> Dict[bytes, str]:
+        """:meth:`warm_keys` with tier locations: content key -> ``"hbm"``
+        / ``"host"`` / ``"nvme"`` (``"hbm"`` names the card's memory, as in
+        the JAX package).  The router prefers a card-warm replica over an
+        NVMe-warm one when warm lengths tie.  A span resident on the card
+        and in the spill reports ``"hbm"``."""
+        d = {k: "hbm" for k in self.allocator.index}
+        pool = self._kv_pool
+        if pool is not None and pool.disabled is None:
+            for k, e in pool.entries.items():
+                d.setdefault(k, e.location)
+        return d
+
+    def attach_fabric(self, fabric) -> None:
+        """Join a :class:`~deepspeed_tpu_torch.kv_fabric.KVFabric`: this
+        replica may then export page chains into it and admit chains other
+        replicas computed.  Requires the ``kv_tier`` block — admitted
+        entries land in the local spill pool, so the tier-hit admission
+        path (checksum-verified, re-prefill fallback) serves them."""
+        if fabric is not None and not self._kvt_on:
+            raise ValueError(
+                "attach_fabric needs the kv_tier block — the local spill "
+                "pool is the admission side of the transport (migrated "
+                "chains land there and re-admit through the tier "
+                "promotion path)")
+        self._fabric = fabric
+
+    def export_pages(self, keys: List[bytes], fabric=None) -> int:
+        """Export the longest contiguous prefix of ``keys`` this replica
+        holds into the fabric: published pages on the card gather to the
+        host in batches of ``_kvt_fetch_cap`` and encode (an int8-resident
+        cache exports its codes and scales verbatim), spilled tier entries
+        ride as they are.  Returns the number of leading keys the fabric
+        now covers; an export failure stops the chain there (the published
+        prefix stays chain-valid and the rest re-prefills remotely)."""
+        fab = fabric if fabric is not None else self._fabric
+        if fab is None or not self._kvt_on:
+            raise ValueError(
+                "export_pages needs an attached fabric and the kv_tier "
+                "block")
+        plan: List[Tuple[bytes, str, Optional[int]]] = []
+        for k in keys:
+            if fab.has(k):
+                plan.append((k, "fab", None))
+            elif k in self.allocator.index:
+                plan.append((k, "hbm", self.allocator.index[k]))
+            elif self._kv_pool.has(k):
+                plan.append((k, "tier", None))
+            else:
+                break
+        hbm = [(k, p) for k, kind, p in plan if kind == "hbm"]
+        payload: Dict[bytes, tuple] = {}
+        cap = self._kvt_fetch_cap
+        for i in range(0, len(hbm), cap):
+            chunk = hbm[i:i + cap]
+            planes = self._fetch_pages_host([p for _, p in chunk])
+            for j, (kk, _p) in enumerate(chunk):
+                payload[kk] = tuple(a[:, :, j] for a in planes)
+        n = nbytes = 0
+        pdt = self._kv_pool.page_dtype
+        for k, kind, _p in plan:
+            try:
+                if kind == "hbm":
+                    e = (encode_prequantized_entry(k, *payload[k],
+                                                   page_dtype=pdt)
+                         if self._quant_resident else
+                         encode_entry(k, *payload[k],
+                                      quantize=self.kv_tier.quantize_cold,
+                                      page_dtype=pdt))
+                    fab.publish(k, e)
+                    nbytes += e.nbytes
+                elif kind == "tier":
+                    e = self._kv_pool.entry_payload(k)
+                    fab.publish(k, e)
+                    nbytes += e.nbytes
+            except (IOError, OSError) as exc:
+                logger.warning("serving: fabric export stopped at page "
+                               "%d/%d (%s)", n, len(plan), exc)
+                break
+            n += 1
+        if n and self._trace_on:
+            self.tracer.event("kv_export", attrs={"pages": n,
+                                                  "bytes": nbytes})
+        return n
+
+    def admit_fabric(self, keys: List[bytes],
+                     deadline: Optional[float] = None) -> int:
+        """Fetch the longest contiguous prefix of ``keys`` out of the
+        fabric into the LOCAL spill pool, so the next admission's chained
+        walk treats the span as tier hits and promotes it through the
+        checksum-verified path.  ``deadline`` (``perf_counter``): stop
+        fetching once past it — the partial prefix admitted is still
+        chain-valid and the rest re-prefills.  Returns the leading keys
+        now locally matchable."""
+        fab = self._fabric
+        if fab is None or not self._kvt_on:
+            raise ValueError(
+                "admit_fabric needs an attached fabric and the kv_tier "
+                "block")
+        n = 0
+        for k in keys:
+            if k in self.allocator.index or self._kv_pool.has(k):
+                n += 1              # already warm here
+                continue
+            if deadline is not None and time.perf_counter() > deadline:
+                break
+            if not fab.has(k):
+                break
+            try:
+                entry = fab.fetch(k)
+            except (KeyError, IOError, OSError):
+                break               # evicted, or a failed fetch
+            if self._kv_pool.admit_entry(entry) is None:
+                break               # the pool cannot hold it (or disabled)
+            n += 1
+        if n and self._trace_on:
+            self.tracer.event("fabric_admit", attrs={"pages": n})
+        return n
+
+    def swap_params(self, new_params, version=None) -> None:
+        """Rolling-update weight swap: serve ``new_params`` in place of the
+        current tree.  The tree must match the served one leaf for leaf in
+        structure, shape and dtype (prepared as the family builder prepares
+        its weights: the same quantization); its leaves move to the served
+        leaves' devices.  Only a DRAINED engine may swap, so no in-flight
+        request mixes two versions; every published prefix page and spill
+        entry is dropped (old-version KV under new weights)."""
+        if self._closed:
+            raise EngineClosed(
+                "swap_params on a shut-down engine"
+                + (f" (replica {self.replica_id})"
+                   if self.replica_id else ""))
+        if self.has_work:
+            raise RuntimeError(
+                "swap_params needs a drained engine (queue and slots "
+                "empty) — drain the replica first so no in-flight request "
+                "mixes weight versions")
+        old = tree_leaves_with_path(self.params)
+        new = tree_leaves_with_path(new_params)
+        if [p for p, _ in old] != [p for p, _ in new] or any(
+                getattr(a, "shape", None) != getattr(b, "shape", None)
+                or getattr(a, "dtype", None) != getattr(b, "dtype", None)
+                for (_, a), (_, b) in zip(old, new)):
+            raise ValueError(
+                "swap_params: new weight tree does not match the served "
+                "one (structure/shape/dtype) — a mismatched swap would "
+                "mis-serve; rebuild the engine for an architecture change")
+        self.params = tree_map(
+            lambda a, b: b.to(a.device) if isinstance(a, torch.Tensor)
+            else b, self.params, new_params)
+        self._invalidate_warm_pages()
+        if version is not None:
+            self.weights_version = version
+        if self._trace_on:
+            self.tracer.event("weights_swap", attrs={
+                "version": str(self.weights_version)})
+
+    def _invalidate_warm_pages(self) -> None:
+        """Drop every published prefix-cache page (warm pool and spill
+        tier): KV computed under the old weights must never be shared
+        into a new-version request's page table."""
+        if not self._pc_on:
+            return
+        al = self.allocator
+        # a drained engine's published pages are all warm (refcount 0);
+        # reclaim_warm drops them without the demote hook — a version
+        # swap must not spill poisoned pages — and the tier discards
+        if al.pool:
+            al.reclaim_warm(list(al.pool), demoted=False)
+        if self._kv_pool is not None:
+            for key in list(self._kv_pool.entries):
+                self._kv_pool.discard(key)
 
     def run(self, max_steps: int = 10_000) -> Dict[Any, RequestResult]:
         """Drive until every submitted request completes."""

@@ -46,8 +46,13 @@ cache holds ``n_kv_heads / tp`` heads a rank, the residency plan is per
 rank, and the forward runs with the mesh current (the models' sharded
 blocks decide their collectives from the leaves' shapes).
 
-The fleet methods of the JAX engine (``promote_resident_layers``,
-``swap_weights``, ``statusz``) come with ROADMAP A10.
+The fleet methods of the JAX engine serve the elastic fleet
+(:mod:`~deepspeed_tpu_torch.autoscale`): :meth:`~ZeroInferenceServingEngine.
+promote_resident_layers` moves streamed layers onto the card between
+scheduler steps until :attr:`~ZeroInferenceServingEngine.fully_resident`
+(the streamed cold start's flip), :meth:`~ZeroInferenceServingEngine.
+swap_weights` is the drained engine's rolling update, and ``statusz``
+reports the live residency.
 """
 
 from __future__ import annotations
@@ -60,8 +65,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from deepspeed_tpu_torch._device import resolve_device
-from deepspeed_tpu_torch._tree import (tree_leaves, tree_map,
-                                       tree_unflatten_like)
+from deepspeed_tpu_torch._tree import (tree_leaves, tree_leaves_with_path,
+                                       tree_map, tree_unflatten_like)
 from deepspeed_tpu_torch.config import KVTierConfig, ZeroInferenceConfig
 from deepspeed_tpu_torch.infinity import (PinnedBuffer, _NvmeTier, _RamTier,
                                           pinned_views)
@@ -166,6 +171,7 @@ class ZeroInferenceServingEngine(ServingEngine):
                 "resident, or drop quantized_resident")
         self._stem_fn, self._block_fn, self._head_fn = fns
         self._L = n_layers
+        self._layer_fn = layer_fn
         layer = _layer_source(blocks, n_layers)
         if layer_fn is not None:
             raw = layer
@@ -388,6 +394,158 @@ class ZeroInferenceServingEngine(ServingEngine):
                 self._free[s].record(cur)
         return self._head_fn(self._head, x), dataclasses.replace(
             cache, seq_lens=start + T)
+
+    # ------------------------------------------ streamed -> resident flip
+    # (the elastic fleet's warm cold start: a replica spawns streamed —
+    # serving at once while its weights live on the tier — and the
+    # autoscaler promotes layers onto the card between scheduler steps
+    # until the engine is fully resident)
+    @property
+    def fully_resident(self) -> bool:
+        """True once every layer's weights are on the card (no tier reads
+        left on the decode path)."""
+        return not self._streamed_ids
+
+    @property
+    def resident_flip_blocked(self) -> bool:
+        """True when ``hbm_budget_bytes`` cannot hold another resident
+        layer: streaming is then this engine's steady state, and a
+        cold-start promoter stops here."""
+        return bool(self._streamed_ids) and not self._promote_budget_ok()
+
+    def _promote_budget_ok(self) -> bool:
+        budget = self._zi.hbm_budget_bytes
+        if budget is None:
+            return True
+        working = (self._ring_n * self._layer_bytes
+                   if len(self._streamed_ids) > 1 else 0)
+        after = (self.plan["stem_head_bytes"] + self.plan["cache_bytes"]
+                 + (len(self._resident) + 1) * self._layer_bytes + working)
+        return after <= budget
+
+    def promote_resident_layers(self, n: int = 1) -> int:
+        """Move up to ``n`` streamed layers' weights onto the card (a
+        synchronous tier read and upload; call BETWEEN scheduler steps,
+        when no sweep is in flight).  Stops early when ``hbm_budget_bytes``
+        cannot hold another resident layer.  Returns the number promoted;
+        the engine is fully resident once :attr:`fully_resident` is
+        True."""
+        done = 0
+        dev = self.device
+        while self._streamed_ids and done < n:
+            if not self._promote_budget_ok():
+                break
+            l = self._streamed_ids[0]
+            bufs = [self.tier.read_sync(name, s, d) for name, s, d in
+                    zip(self._names(l), self._shapes, self._dtypes)]
+            self._resident[l] = tree_unflatten_like(
+                self._template, [b.to(dev) for b in bufs])
+            self._streamed_ids.pop(0)
+            done += 1
+        return done
+
+    # ------------------------------------------------------- weight swap
+    def swap_params(self, new_params, version=None) -> None:
+        raise NotImplementedError(
+            "the streamed engine serves a decomposed weight image "
+            "(resident stem/head + tiered blocks) — use swap_weights("
+            "stem, blocks, head, version=) with trees prepared like the "
+            "constructor's (same quantization)")
+
+    def swap_weights(self, stem, blocks, head, version=None) -> None:
+        """Rolling-update weight swap for the streamed engine: ``stem`` and
+        ``head`` as the builder passes them to the constructor, ``blocks``
+        in the constructor's form (stacked ``[L, ...]`` leaves or a
+        sequence of per-layer trees; the engine's own per-layer
+        preparation applies).  Refreshes every streamed layer's tier
+        entries, re-uploads the resident layers, re-places stem and head,
+        and drops the warm prefix pages.  The drained-engine contract of
+        :meth:`~deepspeed_tpu_torch.inference.serving.ServingEngine.
+        swap_params`, and its refusal of a tree whose structure, shapes or
+        dtypes differ."""
+        from deepspeed_tpu_torch.inference.serving import EngineClosed
+
+        if self._closed:
+            raise EngineClosed(
+                "swap_weights on a shut-down engine"
+                + (f" (replica {self.replica_id})"
+                   if self.replica_id else ""))
+        if self.has_work:
+            raise RuntimeError(
+                "swap_weights needs a drained engine (queue and slots "
+                "empty) — drain the replica first so no in-flight request "
+                "mixes weight versions")
+        src = _layer_source(blocks, self._L)
+        layer = src if self._layer_fn is None else (
+            lambda l: self._layer_fn(src(l)))
+
+        def mismatch(new, ref) -> bool:
+            a, b = tree_leaves_with_path(new), tree_leaves_with_path(ref)
+            return [p for p, _ in a] != [p for p, _ in b] or any(
+                getattr(x, "shape", None) != getattr(y, "shape", None)
+                or getattr(x, "dtype", None) != getattr(y, "dtype", None)
+                for (_, x), (_, y) in zip(a, b))
+
+        first = layer(0)
+        if mismatch(first, tree_unflatten_like(self._template, [
+                torch.empty(s, dtype=d, device="meta")
+                for s, d in zip(self._shapes, self._dtypes)])):
+            raise ValueError(
+                "swap_weights: new block tree does not match the served "
+                "one (structure/shape/dtype) — rebuild the engine for an "
+                "architecture change")
+        for what, new, ref in (("stem", stem, self._stem),
+                               ("head", head, self._head)):
+            if mismatch(new, ref):
+                raise ValueError(
+                    f"swap_weights: new {what} tree does not match the "
+                    "served one (structure/shape/dtype) — rebuild the "
+                    "engine for an architecture change")
+        dev = self.device
+        nvme = isinstance(self.tier, _NvmeTier)
+        for l in range(self._L):
+            tree, first = (first if l == 0 else layer(l)), None
+            if l in self._resident:
+                self._resident[l] = tree_map(lambda a: a.to(dev), tree)
+                continue
+            for name, a in zip(self._names(l), tree_leaves(tree)):
+                if nvme:
+                    self.tier.put(name, a.detach().to("cpu").contiguous())
+                else:
+                    self.tier.store[name].copy_(a)
+            if nvme:
+                self.tier.fence_writes()
+        self._stem = tree_map(lambda a: a.to(dev), stem)
+        self._head = {k: (self._stem[k] if v is stem.get(k)
+                          else tree_map(lambda a: a.to(dev), v))
+                      for k, v in head.items()}
+        self._invalidate_warm_pages()
+        if version is not None:
+            self.weights_version = version
+        if self._trace_on:
+            self.tracer.event("weights_swap", attrs={
+                "version": str(self.weights_version)})
+
+    # ------------------------------------------------------- inspection
+    def statusz(self) -> Dict[str, Any]:
+        """Base snapshot + the weight-streaming view: the residency plan,
+        the live residency (:meth:`promote_resident_layers` moves layers
+        out of the streamed set after the plan was made) and the bytes
+        shipped."""
+        s = ServingEngine.statusz(self)
+        s["zero_inference"] = {
+            "tier": self._zi.tier,
+            "plan": dict(self.plan),
+            "n_streamed_now": len(self._streamed_ids),
+            "n_resident_now": len(self._resident),
+            "fully_resident": self.fully_resident,
+            "layer_h2d_uploads": int(self.zi_layer_h2d_uploads),
+            "layer_sweeps": int(self.zi_layer_sweeps),
+            "bytes_uploaded": int(self.zi_bytes_uploaded),
+            "stream_retries": int(self._reader.io_retries),
+            "stream_sync_fallbacks": int(self._reader.sync_fallbacks),
+        }
+        return s
 
     # ------------------------------------------------------- inspection
     def prefetch_wait_seconds(self) -> List[float]:

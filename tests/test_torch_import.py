@@ -81,6 +81,12 @@ def test_imports_with_jax_blocked():
         "from deepspeed_tpu_torch.inference import sharded\n"
         "from deepspeed_tpu_torch.ops import onebit\n"
         "from deepspeed_tpu_torch.utils import trace\n"
+        "from deepspeed_tpu_torch import transport, kv_fabric, obs_wire, "
+        "fleet, autoscale, proc_fleet, replica_child\n"
+        "from deepspeed_tpu_torch.fleet import fleet_router, FleetRouter\n"
+        "from deepspeed_tpu_torch.autoscale import FleetAutoscaler\n"
+        "from deepspeed_tpu_torch.proc_fleet import proc_fleet_router, "
+        "ProcEngine\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'deepspeed_tpu') "
         "or m.startswith(('jax.', 'deepspeed_tpu.')))]\n"
@@ -171,6 +177,15 @@ def test_new_modules_are_scanned():
             "deepspeed_tpu_torch/hybrid.py",
             "deepspeed_tpu_torch/offload.py",
             "deepspeed_tpu_torch/param_stream.py"} <= names
+
+
+def test_fleet_modules_are_scanned():
+    """The serving fleet's modules and the child replica's entry point sit
+    among the scanned files."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"deepspeed_tpu_torch/{m}.py" for m in (
+        "transport", "kv_fabric", "obs_wire", "fleet", "autoscale",
+        "proc_fleet", "replica_child")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -5,9 +5,9 @@ the global mean, test_torch_masked_mean_ranks.py).  Tiny Llama's
 packed-document loss over data = 2 on two gloo ranks, held to the JAX
 engine in the same mode: losses at rtol 1e-4, parameters after two steps at
 the one-device BERT test's rtol 1e-3 / atol 1e-4 (1-bit Adam at one step of
-lr: test_torch_masked_mean_ranks.ONEBIT_TOL).  BERT is left out here: its
-unused pooler is a leaf without a gradient, which the port's qwZ step does
-not take."""
+lr: test_torch_masked_mean_ranks.ONEBIT_TOL).  Tiny BERT's MLM mean (10 and
+15 labels on the ranks) trains under qwZ too: its pooler is a leaf the loss
+does not reach, which takes a zero gradient, as JAX's grad gives it."""
 
 import pytest
 import torch
@@ -16,6 +16,7 @@ from test_torch_masked_mean_ranks import _conf, check_against_jax, start_ranks
 
 torch.set_num_threads(1)
 CASES = {
+    "bert_qwz": _conf({"stage": 3, "zero_quantized_weights": True}),
     "llama_qwz": _conf({"stage": 3, "zero_quantized_weights": True}),
     "llama_qgz": _conf({"stage": 2, "zero_quantized_gradients": True}),
     "llama_onebit": _conf(opt="OnebitAdam",
