@@ -176,8 +176,9 @@ and runs, in order:
    equal to the base loss bit for bit, the loss falling, the base
    unchanged, ``merge_lora`` against ``apply_lora``, ms/step, peak, idle;
 36. at phase 8's widths (4 layers): the hybrid engine's greedy rollouts
-   before and after a train step, each identical to a standalone
-   generator over the engine's params, and the cast's ms; distillation of
+   (paged cache: B1 prefill, B5 decode) before and after a train step,
+   each identical to a standalone paged generator over the engine's
+   params, and the cast's ms; distillation of
    a 4-layer teacher into a 2-layer student; the HF Trainer bridge from a
    ``save_pretrained`` directory through 2 steps to ``save_model``, read
    back bit for bit;
@@ -265,12 +266,13 @@ and runs, in order:
 59. ``autotune_config`` over GPT-2 1.3B at 4 layers: micro 1 / 2 x remat
    none / full and an unknown policy, the fastest measured candidate
    wins, the failed ones are listed, a second call reads the cache;
-60. the serving control plane on phase 5's Llama-3-8B weights (after phase
-   11): every block of the slice on (telemetry, tracing, two SLO tiers
-   with deadline shedding, queue-depth shedding, history, incidents,
-   devprof on CUDA events, a seeded fault plan failing three named slots
-   and corrupting every demote), two waves of 16 prompts through the
-   prefix cache and the host tier, against the engine with them off:
+60. the serving control plane on phase 5's Llama-3-8B weights cut to 8
+   layers (after phase 11): every block of the slice on (telemetry,
+   tracing, two SLO tiers with deadline shedding, queue-depth shedding,
+   history, incidents, devprof on CUDA events, a seeded fault plan
+   failing three named slots and corrupting every demote), two waves of
+   16 prompts through the prefix cache and the host tier, against the
+   engine with them off:
    survivors' tokens identical, the corrupted spans caught by the crc and
    re-prefilled to the same tokens, counts reconciled, no leak; then
    whole-prompt prefill (B1) on vs off, and an int8-resident pair (B9, B7)
@@ -279,8 +281,9 @@ and runs, in order:
    phase 8): telemetry, the csv monitor, a Watchdog and one
    ``FlopsProfiler`` forward against the engine without them, losses and
    state bit for bit;
-62. the in-process serving fleet on phase 5's Llama-3-8B weights (after
-   phase 60), one weight tree for three replicas: affinity waves, a
+62. the in-process serving fleet on phase 5's Llama-3-8B weights cut to 8
+   layers (after phase 60), one weight tree for three replicas: affinity
+   waves, a
    seeded kill of one replica mid-traffic (typed partition), drain and
    rejoin, a migration through the KV fabric and a corrupted one that
    re-prefills; the same traffic through ``fleet.roles`` (prefill ->
@@ -297,7 +300,26 @@ and runs, in order:
    ``swap_params`` (each request on one version, its tokens a fresh
    engine's of that version), and a streamed ZeRO-Inference cold start of
    Llama-3-8B at 8 layers that flips to resident, its tokens the resident
-   engine's.
+   engine's;
+65. (after phase 23) DeepSpeed's fp16 mode on the kernels: B1, B2 and B3
+   in float16 on their tensor-core bodies at Llama's training shape (T =
+   2047, causal and with 3 packed segments), GPT-2 1.3B's and BERT-large's
+   (pad ids), and B5 with an fp16 q over bf16 pages at decode and C = 256,
+   each against its plain version beside its bound and SDPA's fp16 call;
+   B3's fp16 dK and dV (P and dS rounded once) against the f64 oracle,
+   beside that rounding in f64 sums and the outputs' own;
+66. (after phase 26) phase 8's run under DeepSpeed's fp16 defaults
+   (dynamic loss scaling from 2^16): losses beside phase 8's bf16 ones,
+   overflow flags and scales step by step equal to the same run on
+   ``attn_impl="reference"``; then from 2^32, the first steps overflowing
+   on the kernels and the scaler backing off, against its twin too;
+67. (a, b) GPT-2 1.3B and BERT-large at 4 layers, full widths, under the
+   fp16 defaults against their plain-attention twins (flags, scales,
+   losses), the loss falling; (c, on phase 66's first engine) the fp16
+   hybrid's greedy rollouts over the paged cache (B1 prefill, B5 decode
+   with an fp16 q over the bf16 cache), a train step, and rollouts again,
+   against the dense generator's plain attention over the same params:
+   near-ties held and counted.
 
 Each main path (the env report of phase 12, the two serving runs of phase
 5, the two waves and the v1 run of phase 11, the int8 build, the two
@@ -314,15 +336,16 @@ two-rank runs of phases 43-47 and 49-57, both ranks' counts summed, the
 sparse and autotune runs of phases 58-59, the control-plane runs of
 phases 60-61, the fleets of phase 62, the children of phase 63 (each
 child's counts, read through its ``launches`` verb) and the elastic
-fleets of phase 64)
-counts the
-launches
-of every kernel on its own (counters set to 0 just before it and read just
-after), and the launches per body of the flash kernels, B5, B7, B8, B9
-and B6: every Llama-3-8B path must run only their Hopper bodies (flash
-"wgmma", B5 / B7 / B8 "sm90"), B9's vector body and B6's cluster body, the
-f32 runs only the scalar attention bodies.
-Prints a ``{"kernels": [...]}`` line and ends with
+fleets of phase 64, the fp16 runs of phases 66-67 and the fp16 hybrid's
+rollouts and step) counts the launches of every kernel on its own
+(counters set to 0 just before it and read just after), and the launches
+per body of the flash kernels, B5, B7, B8, B9 and B6: every Llama-3-8B
+path must run only their Hopper bodies (flash "wgmma", B5 / B7 / B8
+"sm90"), B9's vector body and B6's cluster body, the f32 runs only the
+scalar attention bodies; the fp16 paths launch B1, B2, B3 and B5 only
+with an fp16 q.
+Prints a ``{"kernels": [...]}`` line (the fp16 bodies of B1, B2, B3 and
+B5 as rows of their own, ``*_fp16``) and ends with
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Exits
 non-zero without printing a result when CUDA is not available.
 """
@@ -397,6 +420,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # "scalar"; B9's "vec" and "scalar"; B6's "cluster" and "row"), read just
 # after the path as its other counts are
 BODIES = {}
+# B1, B2, B3 and B5 -> main path -> their launches per dtype of q (the
+# kernels line's fp16 rows read the float16 ones)
+DTYPES = {}
 # rates this run measured that later phases' bounds read: phase 28's
 # pinned host -> device GB/s of one 2.9 GB copy, phase 33's host Adam GB/s
 RATES = {}
@@ -1506,12 +1532,14 @@ def _check_launches(path, counts, want):
 
 
 def _zero(fns):
-    """Sets every wrapper's launch count, and each flash kernel's count per
-    body, to 0."""
+    """Sets every wrapper's launch count, and its counts per body and per
+    dtype where it keeps them, to 0."""
     for f in fns:
         f.launches = 0
         if hasattr(f, "body_launches"):
             f.body_launches = dict.fromkeys(f.body_launches, 0)
+        if hasattr(f, "dtype_launches"):
+            f.dtype_launches = dict.fromkeys(f.dtype_launches, 0)
 
 
 def _two_body_kernels():
@@ -1552,6 +1580,9 @@ def _check_bodies(path, hopper=True, record=True):
         got = dict(f.body_launches)
         if record:
             BODIES.setdefault(name, {})[path] = got
+            if hasattr(f, "dtype_launches"):
+                DTYPES.setdefault(name, {})[path] = {
+                    str(d)[6:]: n for d, n in f.dtype_launches.items()}
         if any(n for b, n in got.items() if b != body):
             raise SystemExit(f"{path}: {name} launches by body {got}, "
                              f"expected only {body}")
@@ -1763,8 +1794,10 @@ def phase_tier_serving(params, cfg, v1_prompts, kernels, card_line):
 
 # ------------------------------------------------------------ phase 60
 # the control plane on the serving engine: 16 distinct prompts a wave, of
-# 300-700 tokens (prefill_chunk 256: two or three chunks), 16 new tokens
+# 300-700 tokens (prefill_chunk 256: two or three chunks), 16 new tokens,
+# on phase 5's first 8 layers (32 before phases 65-67: the smoke's time)
 CP_PROMPTS, CP_NEW, CP_LO, CP_HI = 16, 16, 300, 700
+CP_LAYERS = 8
 CP_SLO = {"tiers": {"interactive": {"ttft_s": 60.0, "deadline_s": 600.0,
                                     "target": 0.9},
                     "batch": {"deadline_s": 600.0, "target": 0.5}},
@@ -1905,9 +1938,20 @@ def _cp_documents(eng, rid):
     return docs, {n: m for n, m in missing.items() if m}
 
 
+def _first_layers(params, cfg, n):
+    """A stacked Llama tree's first ``n`` layers (views of its blocks, no
+    copy) and the config of that depth."""
+    import dataclasses
+
+    return (dict(params, blocks={k: v[:n]
+                                 for k, v in params["blocks"].items()}),
+            dataclasses.replace(cfg, n_layers=n))
+
+
 def phase_control_plane_serving(params, cfg, kernels, card_line):
     """Phase 60: the control plane of one serving process at Llama-3-8B full
-    width on phase 5's weights (bf16), prefix cache and host KV tier on.
+    width on phase 5's weights (bf16) cut to their first CP_LAYERS layers
+    (views), prefix cache and host KV tier on.
 
     (a) Two waves of the same 16 distinct prompts, the second after an idle
     step that demotes every warm page, on the engine with every block of
@@ -1943,6 +1987,7 @@ def phase_control_plane_serving(params, cfg, kernels, card_line):
     def counts():
         return {k["name"]: k["fn"].launches for k in kernels}
 
+    params, cfg = _first_layers(params, cfg, CP_LAYERS)
     rng = np.random.default_rng(60)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(CP_LO, CP_HI, CP_PROMPTS)]
@@ -2290,27 +2335,32 @@ def _bf16_order(x):
     return torch.where(bits >= 0x8000, -mag, mag)
 
 
-def _bf16_from_order(key):
+def _bf16_from_order(key, dtype=torch.bfloat16):
     bits = torch.where(key < 0, 0x8000 | (-key), key)
     return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(
-        torch.int16).view(torch.bfloat16)
+        torch.int16).view(dtype)
 
 
 def bf16_neighbour(got, exact):
-    """bool per element: the bf16 ``got`` is one of the two bf16 values
-    around the f64 ``exact`` (equal to it, or no bf16 value lies strictly
-    between them)."""
+    """bool per element: the 16-bit ``got`` (bf16 or fp16: both keep sign
+    and magnitude in the same bit order) is one of the two values of its
+    dtype around the f64 ``exact`` (equal to it, or no value of the dtype
+    lies strictly between them)."""
     g = got.double()
     step = torch.sign(exact - g).to(torch.int32)
-    nxt = _bf16_from_order(_bf16_order(got) + step).double()
+    nxt = _bf16_from_order(_bf16_order(got) + step, got.dtype).double()
     return (g == exact) | ((g - exact) * (nxt - exact) < 0)
 
 
-def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg, causal=True):
+def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg, causal=True,
+                         once=False):
     """(dq, dq_spec, dk, dv) in f64 from the kernels' own inputs: p =
     exp(q.k * scale - lse), delta = rowsum(o * dO), ds = p * (dO.V^T -
     delta) * scale, dq = ds.K, dk = ds^T.Q, dv = p^T.dO over each kv head's
-    group; dq_spec takes ds rounded to bf16 first."""
+    group; dq_spec takes ds rounded to q's dtype first.  ``once``: also
+    (dk, dv) with p and ds each rounded once to q's dtype before the f64
+    products (what one 16-bit product a tile without bf16's hi + lo split,
+    B3's fp16 arithmetic, gives up to the order of the f32 sums)."""
     from deepspeed_tpu_torch.ops.attention_cuda import _live_mask
 
     B, T, H, D = q.shape
@@ -2328,13 +2378,18 @@ def flash_bwd_f64_oracle(q, k, v, o, lse, do, seg, causal=True):
     ds = p * (torch.einsum("bthd,bshd->bhts", dod, vd)
               - delta[..., None]) * scale
     dq = torch.einsum("bhts,bshd->bthd", ds, kd)
-    dq_spec = torch.einsum("bhts,bshd->bthd",
-                           ds.to(torch.bfloat16).double(), kd)
+    dq_spec = torch.einsum("bhts,bshd->bthd", ds.to(q.dtype).double(), kd)
     dk = torch.einsum("bhts,bthd->bshd", ds, qd).reshape(
         B, S, KV, G, D).sum(3)
     dv = torch.einsum("bhts,bthd->bshd", p, dod).reshape(
         B, S, KV, G, D).sum(3)
-    return dq, dq_spec, dk, dv
+    if not once:
+        return dq, dq_spec, dk, dv
+    dk1 = torch.einsum("bhts,bthd->bshd", ds.to(q.dtype).double(),
+                       qd).reshape(B, S, KV, G, D).sum(3)
+    dv1 = torch.einsum("bhts,bthd->bshd", p.to(q.dtype).double(),
+                       dod).reshape(B, S, KV, G, D).sum(3)
+    return dq, dq_spec, dk, dv, dk1, dv1
 
 
 def _faithful_over_gate(got, want, exacts, tol):
@@ -4659,13 +4714,15 @@ def _pad_pairs(lens, T):
     return sum(n * n + (T - n) * (T - n) for n in lens)
 
 
-def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False):
+def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False,
+                    tol=FLASH_BWD_REL_TOL, pairs=None):
     """B2 and B3 at BERT's training shape, bidirectional with pad ids (or
-    ``causal`` without ids, ``seg`` and ``lens`` None), against the plain
-    backward: B2's delta against ``flash_delta``, dq, dk and dv at the
-    flash backward gate (an element over it must be a bf16 neighbour of the
-    f64 oracle, C-f6), each timed on the device clock beside its bound
-    (over the live pairs) and SDPA's backward under the same mask."""
+    ``causal`` without ids, ``seg`` and ``lens`` None; or causal with packed
+    ids and their live ``pairs``), against the plain backward: B2's delta
+    against ``flash_delta``, dq, dk and dv at the flash backward gate
+    ``tol`` (an element over it must be a neighbour of the f64 oracle in
+    q's dtype, C-f6), each timed on the device clock beside its bound (over
+    the live pairs) and SDPA's backward under the same mask."""
     from deepspeed_tpu_torch.ops.attention_cuda import (
         flash_bwd_body, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
         flash_delta, flash_fwd)
@@ -4684,13 +4741,12 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False):
            for (n, g), w in zip(got.items(), want)}
     delta_rel = _rel(delta, want_delta)
     over = dict.fromkeys(got, (0, True))
-    if any(e[1] > FLASH_BWD_REL_TOL for e in err.values()):
+    if any(e[1] > tol for e in err.values()):
         dq64, dq_spec, dk64, dv64 = flash_bwd_f64_oracle(
             q, k, v, o, lse, do, seg, causal=causal)
         exact = {"dq": (dq64, dq_spec), "dk": (dk64,), "dv": (dv64,)}
         del dq64, dq_spec, dk64, dv64
-        over = {n: _faithful_over_gate(got[n], w, exact[n],
-                                       FLASH_BWD_REL_TOL)
+        over = {n: _faithful_over_gate(got[n], w, exact[n], tol)
                 for n, w in zip(got, want)}
         del exact
     del dq, dk, dv, got, want, want_delta
@@ -4700,7 +4756,8 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False):
     sdpa = _sdpa_bwd(q, k, v, do, seg, causal=causal)
     lib = sdpa and device_ms(sdpa, iters=10)
     del sdpa
-    pairs = (B * T * (T + 1) // 2 if causal else _pad_pairs(lens, T))
+    if pairs is None:
+        pairs = (B * T * (T + 1) // 2 if causal else _pad_pairs(lens, T))
     io = (2 * B * T * D * (2 * H + 2 * KV) + 2 * B * T * D * (H + KV)
           + 8 * B * H * T + 4 * B * T)
     bounds = {"flash_bwd_dq": bound(io, 6 * D * pairs * H
@@ -4719,7 +4776,7 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False):
         case = {"wgmma": wgmma, "causal": causal, "T": T, "lens": lens,
                 "max_abs_err": max(err[n][0] for n in grads),
                 "rel_err": max(err[n][1] for n in grads),
-                "tol_rel": FLASH_BWD_REL_TOL,
+                "tol_rel": tol,
                 "over_gate": sum(over[n][0] for n in grads),
                 "over_gate_faithful": all(over[n][1] for n in grads),
                 "device_ms": dev, "plain_ms": plain,
@@ -4730,12 +4787,14 @@ def _bert_flash_bwd(gen, q, k, v, do, seg, lens, tag, causal=False):
         if name == "flash_bwd_dq":
             case["delta_rel"] = delta_rel
         out[name] = case
-        log(f"[{tag}] {name} B={B} T={T} H={H} KV={KV} D={D} bf16 "
+        log(f"[{tag}] {name} B={B} T={T} H={H} KV={KV} D={D} "
+            f"{str(q.dtype)[6:]} "
             + ("causal" if causal else "non-causal, pad ids")
+            + (" + segments" if causal and seg is not None else "")
             + f": tensor-core body {wgmma}; rel err "
-            f"{case['rel_err']:.3e} (tol {FLASH_BWD_REL_TOL}) max_abs_err "
+            f"{case['rel_err']:.3e} (tol {tol}) max_abs_err "
             f"{case['max_abs_err']:.3e}; {case['over_gate']} elements over "
-            f"the gate, each a bf16 neighbour of the f64 oracle: "
+            f"the gate, each a neighbour of the f64 oracle: "
             f"{case['over_gate_faithful']}"
             + (f" delta rel {delta_rel:.3e} (tol {FLASH_DELTA_REL_TOL})"
                if name == "flash_bwd_dq" else "")
@@ -6588,10 +6647,11 @@ def phase_lora(fns, card_line, params):
 def phase_rlhf_distill_trainer(fns, card_line):
     """At phase 8's widths (Llama-3-8B, 4 layers): (a) the hybrid engine
     over a full-parameter engine (f32 master, bf16 compute, fused Adam):
-    greedy rollouts of 8 prompts of 128 tokens, 32 new, then one
-    ``train_batch`` on phase 8's batch, then rollouts again, each
-    identical to a standalone ``llama_generator`` over the engine's params
-    cast to bf16 at that moment; (b) distillation of a seeded bf16 4-layer
+    greedy rollouts of 8 prompts of 128 tokens, 32 new, over its paged
+    cache (B1 prefill, B5 decode), then one ``train_batch`` on phase 8's
+    batch, then rollouts again, each identical to a standalone
+    ``llama_paged_generator`` over the engine's params cast to bf16 at that
+    moment; (b) distillation of a seeded bf16 4-layer
     teacher into a 2-layer student (alpha 0.5, T 2), 3 steps on the batch:
     the loss falls, the teacher is unchanged; (c) the Trainer bridge: a
     2-layer model exported with ``save_pretrained``, ``Trainer(model_dir=
@@ -6608,7 +6668,7 @@ def phase_rlhf_distill_trainer(fns, card_line):
     from deepspeed_tpu_torch._tree import tree_leaves, tree_map
     from deepspeed_tpu_torch.distill import Distiller
     from deepspeed_tpu_torch.hybrid import init_hybrid_engine
-    from deepspeed_tpu_torch.inference.generation import llama_generator
+    from deepspeed_tpu_torch.inference.generation import llama_paged_generator
     from deepspeed_tpu_torch.integrations.hf import (from_pretrained,
                                                      save_pretrained)
     from deepspeed_tpu_torch.integrations.trainer import (Trainer,
@@ -6648,11 +6708,13 @@ def phase_rlhf_distill_trainer(fns, card_line):
         s = time.perf_counter() - t0
         launches[p] = {n: f.launches for n, f in fns.items()}
         _check_bodies(p)
-        _check_launches(p, launches[p], ("greedy_argmax",))
+        _check_launches(p, launches[p], ("flash_fwd", "paged_attention",
+                                         "greedy_argmax"))
         with torch.no_grad():
-            ref = llama_generator(tree_map(lambda x: x.to(torch.bfloat16),
-                                           eng.module_params()),
-                                  cfg).generate(prompts, HYBRID_NEW)
+            ref = llama_paged_generator(
+                tree_map(lambda x: x.to(torch.bfloat16),
+                         eng.module_params()), cfg).generate(
+                prompts, HYBRID_NEW, max_seq=hyb.max_out_tokens)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cast = hyb.compute_params()        # the mode switch, timed alone
@@ -10284,6 +10346,8 @@ def phase_mp_launcher(card_line, refs):
 # phase 62: three 512-token prefixes, eight prompts on each with 64..256
 # unique suffix tokens, 16 new greedy tokens, on replicas of max_batch 8
 FLEET_PREFIX, FLEET_LO, FLEET_HI, FLEET_NEW = 512, 64, 257, 16
+# phase 5's first 8 layers (32 before phases 65-67: the smoke's time)
+FLEET_LAYERS = 8
 FLEET_OPTS = dict(max_batch=8, page_size=16, max_seq=1024, num_pages=1025,
                   prefill_bucket=128, cache_dtype=torch.bfloat16)
 
@@ -10498,7 +10562,8 @@ def _clean(router, tag):
 
 def phase_fleet(params, cfg, kernels, card_line):
     """Phase 62: the in-process serving fleet at Llama-3-8B's full width on
-    phase 5's weights (bf16, 32 layers), ONE weight tree for every replica.
+    phase 5's weights (bf16) cut to their first FLEET_LAYERS layers (views
+    of the stacked blocks), ONE weight tree for every replica.
 
     (a) Three replicas (``max_batch`` 8, prefix cache, a host KV tier with
     ``quantize_cold`` off, a KVFabric) serve 24 prompts: wave 1 one on each
@@ -10528,6 +10593,7 @@ def phase_fleet(params, cfg, kernels, card_line):
     def counts():
         return {k["name"]: k["fn"].launches for k in kernels}
 
+    params, cfg = _first_layers(params, cfg, FLEET_LAYERS)
     wave1, wave2, probe_m, probe_c = _fleet_prompts(cfg.vocab_size)
     prompts = {**wave1, **wave2, **probe_m, **probe_c}
     tier = {"quantize_cold": False, "host_pool_bytes": 4 << 30}
@@ -10545,6 +10611,8 @@ def phase_fleet(params, cfg, kernels, card_line):
          "after": 10 ** 9, "count": 2}], seed=62)
     kill, corrupt = plan.rules
     torch.cuda.reset_peak_memory_stats()
+    # phase 5's whole tree, resident before the fleet starts
+    resident = torch.cuda.memory_allocated()
     path = "fleet (a) 3 replicas"
     zero()
     router = fleet_router(params, cfg, fleet={
@@ -10630,7 +10698,7 @@ def phase_fleet(params, cfg, kernels, card_line):
             raise SystemExit(f"fleet: migration {res['a']['migration']} / "
                              f"corrupt fallback {res['a']['corrupt']} "
                              "did not happen")
-        if peak > 2 * weight_bytes + cache_bytes:
+        if peak > resident + weight_bytes + cache_bytes:
             raise SystemExit(f"fleet: peak {peak / 1e9:.1f} GB counts the "
                              f"{weight_bytes / 1e9:.1f} GB of weights twice")
     finally:
@@ -11155,6 +11223,606 @@ def phase_elastic(fns, card_line, zi_params, zi_cfg):
     return launches
 
 
+# ------------------------------------------------------------ phases 65-67
+# DeepSpeed's fp16 mode on the card: the float16 bodies of B1-B3 and B5's
+# fp16 q over bf16 pages (65), Llama training at phase 8's widths under
+# dynamic loss scaling and the fp16 hybrid's rollouts (66), GPT-2 1.3B and
+# BERT-large under it (67).  DeepSpeed's documented fp16 defaults:
+FP16_DEFAULTS = {"enabled": True, "initial_scale_power": 16,
+                 "loss_scale_window": 1000, "hysteresis": 2,
+                 "min_loss_scale": 1}
+# the kernels a plain-attention twin must not launch
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# phase 65's gates, from the card's readings (an NVIDIA H100 80GB HBM3 at
+# 700.00 W): B1's o 4.9e-4 to 9.8e-4 (one or two fp16 ulps of |o| in
+# [1, 2)), B2 1.3e-4 to 2.8e-4 of each gradient's largest value, B3 5.3e-4
+# to 8.1e-4 (P and dS rounded to fp16 once, as the Pallas kernel does,
+# where the plain version multiplies them in f32), B5 decode 1.2e-4; each
+# below the ~1e-2 shift that dropping one key of a long row makes, the
+# backward under C-f6's rule (an element over the gate must be an fp16
+# neighbour of the f64 oracle)
+FP16_FLASH_TOL = 4e-3
+FP16_FLASH_BWD_REL_TOL = 1e-3
+FP16_PAGED_DECODE_TOL = 1e-3
+# B5's chunk holds |o| up to ~3, where two fp16 ulps are 3.9e-3; it read
+# 9.8e-4 largest and 1.7e-7 mean.  The control, the plain version over q
+# rounded to bf16 (the Hopper chunk without its hi + lo split of q), read
+# 4.9e-3 largest and 1.1e-4 mean, and must fail the gate
+FP16_PAGED_CHUNK_TOL = 4e-3
+FP16_PAGED_CHUNK_MEAN_TOL = 2e-5
+# phase 66: phase 8's run under FP16_DEFAULTS against phase 8's bf16 losses
+# (the same weights and batch; fp16 rounds 3 bits finer), and against its
+# twin on attn_impl="reference" (the same fp16 model, plain attention); the
+# overflow run starts at 2^FP16_OVERFLOW_POWER and steps until the scaler
+# has backed off to a step it takes (at most FP16_OVERFLOW_STEPS; the card
+# read 14 overflows, 2^32 down to 2^19, and took the 15th step at 2^18).
+# The losses' bounds were set before the first reading; the card read
+# 1.4e-3 (bf16) and 1.8e-4 (the twin)
+FP16_VS_BF16_RTOL = 1e-2
+FP16_TWIN_RTOL = 1e-2
+FP16_OVERFLOW_POWER, FP16_OVERFLOW_STEPS = 32, 20
+# phase 67: GPT-2 1.3B (micro 8 x 1024) and BERT-large (micro 8 x 512)
+# under FP16_DEFAULTS at FP16_MODEL_LAYERS layers, full widths, against their
+# plain-attention twins; the hybrid's fp16 rollouts (phase 36's prompts) over
+# the paged cache against the dense one's at near-ties of FP16_TIE_REL_TOL
+# of a row's max |logit|
+FP16_MODEL_LAYERS, FP16_MODEL_STEPS = 4, 4
+FP16_TIE_REL_TOL = 1e-2
+
+
+def _fp16_fwd_case(q, k, v, seg, causal, pairs, tag):
+    """B1 in fp16 against its plain version on one shape: the error, the
+    device time beside the bound (over ``pairs`` live pairs of one row and
+    head) and SDPA's fp16 forward under the same mask."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_fwd,
+                                                        flash_fwd_body,
+                                                        flash_fwd_reference)
+
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    if flash_fwd_body(q) != "wgmma":
+        raise SystemExit(f"phase 65: {tag} does not take the tensor-core "
+                         "body in fp16")
+    o, lse = flash_fwd(q, k, v, causal=causal, seg=seg)
+    ro, rlse = flash_fwd_reference(q, k, v, causal=causal, seg=seg)
+    torch.cuda.synchronize()
+    err = (o.float() - ro.float()).abs().max().item()
+    lerr = (lse - rlse).abs().max().item()
+    fn = functools.partial(flash_fwd, q, k, v, causal=causal, seg=seg)
+    dev = device_ms(fn)
+    plain = time_ms(lambda: flash_fwd_reference(q, k, v, causal=causal,
+                                                seg=seg), iters=3, warmup=1)
+    sdpa = _sdpa(q, k, v, seg, causal=causal)
+    lib = sdpa and device_ms(sdpa)
+    b_ms, b_by = _flash_bound(B, T, H, KV, D, pairs)
+    log(f"[fp16 kernels] flash_fwd {tag} B={B} T={T} H={H} KV={KV} D={D} "
+        f"fp16: tensor-core body; max_abs_err {err:.3e} (tol "
+        f"{FP16_FLASH_TOL}) lse_err {lerr:.3e} (tol 1e-3); device {dev} ms "
+        f"(bound {b_ms:.5f} ms {b_by}, share {_share(b_ms, dev)}); plain "
+        f"{plain:.4f} ms; sdpa fp16 device {lib} ms")
+    if err > FP16_FLASH_TOL or lerr > 1e-3:
+        raise SystemExit(f"phase 65: flash_fwd {tag} disagrees in fp16")
+    return {"max_abs_err": err, "lse_err": lerr, "device_ms": dev,
+            "plain_ms": plain, "library_device_ms": lib,
+            "library": "sdpa fp16 under the same mask", "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": _share(b_ms, dev)}
+
+
+def _fp16_rounding_check(q, k, v, seg):
+    """B3's fp16 arithmetic (P and dS rounded once to fp16, as the Pallas
+    kernel does), measured: the kernel's dK and dV against the f64 oracle,
+    beside that one rounding with f64 sums (and written to fp16, as the
+    kernel stores them) and the outputs' own fp16 rounding (the floor);
+    each the largest |error| over the largest |exact value|."""
+    from deepspeed_tpu_torch.ops.attention_cuda import (flash_bwd_dkv,
+                                                        flash_bwd_dq,
+                                                        flash_fwd)
+
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        65), device="cuda").to(q.dtype)
+    o, lse = flash_fwd(q, k, v, seg=seg)
+    _, delta = flash_bwd_dq(q, k, v, o, do, lse, seg)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg)
+    _, _, dk64, dv64, dk1, dv1 = flash_bwd_f64_oracle(q, k, v, o, lse, do,
+                                                      seg, once=True)
+    rel = lambda a, x: ((a.double() - x).abs().max() / x.abs().max()).item()
+    out = {g: {"kernel": rel(got, x), "one_rounding": rel(one, x),
+               "one_rounding_written": rel(one.to(q.dtype), x),
+               "output_rounding": rel(x.to(q.dtype), x)}
+           for g, got, one, x in (("dk", dk, dk1, dk64), ("dv", dv, dv1,
+                                                          dv64))}
+    log(f"[fp16 kernels] B3's one rounding of P and dS at T={q.shape[1]} "
+        f"against the f64 oracle (largest |error| over the largest "
+        f"|exact|): {out}")
+    return out
+
+
+def phase_fp16_kernels(gen):
+    """Phase 65: B1, B2 and B3 in fp16 against their plain versions on the
+    tensor-core bodies at Llama's training shape (T = 2047, causal, and with
+    3 packed segments), GPT-2 1.3B's (B 8, T 1024, 16 heads of 128, causal)
+    and BERT-large's (B 8, T 512, 16 heads of 64, pad ids), and B5 with an
+    fp16 q over bf16 pages at phase 3's decode and C = 256 chunk; each timed
+    on the device clock beside its bound and SDPA's fp16 call; B3's one
+    rounding of P and dS measured against the f64 oracle.  Returns each kernel's fp16 cases."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_attention_reference, paged_body, paged_chunk_attention,
+        paged_chunk_attention_reference, paged_decode_attention)
+
+    dt = torch.float16
+    fwd, bwd = {}, {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def backward(label, q, k, v, seg, lens, causal, pairs):
+        for name, case in _bert_flash_bwd(
+                gen, q, k, v, rand(*q.shape), seg, lens, "fp16 kernels",
+                causal=causal, tol=FP16_FLASH_BWD_REL_TOL,
+                pairs=pairs).items():
+            bwd[name][label] = case
+            if not (case["wgmma"] and case.get("delta_rel", 0.0)
+                    <= FLASH_DELTA_REL_TOL and (
+                        case["rel_err"] <= FP16_FLASH_BWD_REL_TOL
+                        or case["over_gate_faithful"])):
+                raise SystemExit(f"phase 65: {name} {label} disagrees in "
+                                 "fp16")
+
+    # Llama's training shape
+    B, T, H, KV, D = 1, 2047, 32, 8, 128
+    q, k, v = rand(B, T, H, D), rand(B, T, KV, D), rand(B, T, KV, D)
+    for label, nseg in (("llama T2047 causal", 0),
+                        ("llama T2047 + 3 segments", 3)):
+        seg, lens = _segments(T, nseg) if nseg else (None, [T])
+        pairs = sum(n * (n + 1) // 2 for n in lens)
+        fwd[label] = _fp16_fwd_case(q, k, v, seg, True, pairs, label)
+        backward(label, q, k, v, seg, lens if nseg else None, True,
+                 B * pairs)
+    rounding = _fp16_rounding_check(q, k, v, None)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # GPT-2 1.3B's (its training micro-batch of phase 19)
+    B, T, H, D = 8, 1024, 16, 128
+    q, k, v = rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D)
+    fwd["gpt2-1.3b B8 T1024"] = _fp16_fwd_case(q, k, v, None, True,
+                                               T * (T + 1) // 2, "gpt2-1.3b")
+    backward("gpt2-1.3b B8 T1024", q, k, v, None, None, True, None)
+    del q, k, v
+    # BERT-large's (phase 26's micro-batch), pad ids, one filler row
+    B, T, H, D = 8, 512, 16, 64
+    rng = np.random.default_rng(65)
+    lens = [int(n) for n in rng.integers(128, T + 1, B - 1)] + [0]
+    seg = _pad_seg(lens, T)
+    q, k, v = rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D)
+    fwd["bert-large B8 T512 pad ids"] = _fp16_fwd_case(
+        q, k, v, seg, False, _pad_pairs(lens, T) / B, "bert-large")
+    backward("bert-large B8 T512 pad ids", q, k, v, seg, lens, False, None)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # B5: an fp16 q over bf16 pages (the fp16 model's paged generator)
+    H, KV, D, ps = 32, 8, 128, 16
+    lens = [0, 128, 256, 400, 512, 700, 900, 1024]
+    kp, vp, table = _paged_inputs(gen, lens, 1)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = rand(8, H, D)
+    if paged_body(q) != "sm90":
+        raise SystemExit("phase 65: an fp16 q does not take B5's Hopper body")
+    out = paged_decode_attention(q, kp, vp, table, seq)
+    ref = paged_attention_reference(q, kp, vp, table, seq)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    q1, st1 = q[:, None], seq - 1
+    dev = device_ms(lambda: paged_chunk_attention(q1, kp, vp, table, st1))
+    plain = time_ms(lambda: paged_attention_reference(q, kp, vp, table,
+                                                      seq), iters=5)
+    live = sum(lens)
+    b_ms, b_by = bound(2 * live * KV * D * 2 + 2 * 2 * 8 * H * D,
+                       4 * live * H * D, BF16_FLOPS_PER_S)
+    paged = {"decode B8 lens 0-1024": {
+        "dtype": "fp16 q, bf16 pages", "max_abs_err": err, "device_ms": dev,
+        "plain_ms": plain, "library_device_ms": None, "bound_ms": b_ms,
+        "bound_by": b_by, "bound_share": _share(b_ms, dev),
+        "out_dtype": str(out.dtype)}}
+    ok = err <= FP16_PAGED_DECODE_TOL and out.dtype == dt and \
+        not out[0].any()
+    del kp, vp, table, out, ref
+    C = 256
+    starts = [0, 128, 256, 300, 512, 600, 700, 768]
+    kp, vp, table = _paged_inputs(gen, starts, C)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    qc = rand(8, C, H, D)
+    oc = paged_chunk_attention(qc, kp, vp, table, st)
+    rc = paged_chunk_attention_reference(qc, kp, vp, table, st)
+    # the control: q's split dropped
+    ctl = (paged_chunk_attention_reference(qc.to(torch.bfloat16).to(dt), kp,
+                                           vp, table, st).float()
+           - rc.float()).abs()
+    torch.cuda.synchronize()
+    err_c = (oc.float() - rc.float()).abs().max().item()
+    mean_c = (oc.float() - rc.float()).abs().mean().item()
+    ctl_max, ctl_mean = ctl.max().item(), ctl.mean().item()
+    del ctl
+    caught = ctl_max > FP16_PAGED_CHUNK_TOL or \
+        ctl_mean > FP16_PAGED_CHUNK_MEAN_TOL
+    dev_c = device_ms(lambda: paged_chunk_attention(qc, kp, vp, table, st))
+    plain_c = time_ms(lambda: paged_chunk_attention_reference(
+        qc, kp, vp, table, st), iters=3)
+    pairs = sum(s * C + C * (C + 1) // 2 for s in starts)
+    bc_ms, bc_by = bound(2 * sum(s + C for s in starts) * KV * D * 2
+                         + 2 * 2 * 8 * C * H * D, 4 * pairs * H * D,
+                         BF16_FLOPS_PER_S)
+    paged["chunk B8 C256 starts 0-768"] = {
+        "dtype": "fp16 q, bf16 pages", "max_abs_err": err_c,
+        "mean_abs_err": mean_c, "control_q_bf16": {
+            "max_abs_err": ctl_max, "mean_abs_err": ctl_mean,
+            "fails_the_gate": caught},
+        "device_ms": dev_c, "plain_ms": plain_c, "library_device_ms": None,
+        "bound_ms": bc_ms, "bound_by": bc_by,
+        "bound_share": _share(bc_ms, dev_c)}
+    ok = ok and err_c <= FP16_PAGED_CHUNK_TOL and \
+        mean_c <= FP16_PAGED_CHUNK_MEAN_TOL and caught and oc.dtype == dt
+    log(f"[fp16 kernels] paged_attention fp16 q over bf16 pages: decode "
+        f"max_abs_err {err:.3e} (tol {FP16_PAGED_DECODE_TOL}) device {dev} "
+        f"ms (bound {b_ms:.5f} ms {b_by}, share {_share(b_ms, dev)}) plain "
+        f"{plain:.4f} ms; chunk C={C} max_abs_err {err_c:.3e} (tol "
+        f"{FP16_PAGED_CHUNK_TOL}) mean {mean_c:.3e} (tol "
+        f"{FP16_PAGED_CHUNK_MEAN_TOL}), the control (q rounded to bf16) "
+        f"{ctl_max:.3e} / {ctl_mean:.3e} fails the gate: {caught}; "
+        f"device {dev_c} ms (bound {bc_ms:.5f} ms "
+        f"{bc_by}, share {_share(bc_ms, dev_c)}) plain {plain_c:.4f} ms")
+    del kp, vp, table, qc, oc, rc
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("phase 65: B5 with an fp16 q disagrees with its "
+                         "plain version")
+    return {"flash_fwd": fwd, "flash_bwd_dq": bwd["flash_bwd_dq"],
+            "flash_bwd_dkv": dict(bwd["flash_bwd_dkv"], rounding=rounding),
+            "paged_attention": paged}
+
+
+def _fp16_run(fns, path, loss_fn, params, conf, batch, steps, kernels=True,
+              until_taken=False):
+    """``steps`` train steps of a fresh engine over ``params`` under
+    ``conf`` (fused Adam): each step's loss, overflow flag, loss scale and
+    host ms, the peak memory, the launches (zeroed just before; a kernel arm
+    checks its bodies, a plain-attention twin that B1, B2 and B3 never
+    launched).  ``until_taken``: stop after the first step the scaler
+    takes.  Returns (rows, launches, engine, peak GB)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops.adam_cuda import fused_adam
+
+    eng = initialize(loss_fn=loss_fn, params=params, config=conf,
+                     optimizer=fused_adam(lr=_warmup(), weight_decay=0.1))[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fns.values())
+    rows = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        loss = float(eng.train_batch(batch))
+        ms = (time.perf_counter() - ts) * 1e3
+        rows.append({"loss": loss, "overflow": eng.metrics["overflow"],
+                     "scale": eng.metrics["loss_scale"], "ms": ms})
+        if until_taken and not rows[-1]["overflow"]:
+            break
+    used = {n: f.launches for n, f in fns.items()}
+    if kernels:
+        _check_bodies(path)
+        _check_fp16(path)
+    elif any(used[n] for n in FLASH_NAMES):
+        raise SystemExit(f"{path}: the plain-attention twin launched the "
+                         f"flash kernels: {used}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[fp16] {path}: losses {[round(r['loss'], 4) for r in rows]} "
+        f"overflow {[r['overflow'] for r in rows]} scale "
+        f"{[r['scale'] for r in rows]} ms/step "
+        f"{[round(r['ms'], 1) for r in rows]} peak {peak:.1f} GB; launches "
+        f"{used}")
+    return rows, used, eng, peak
+
+
+def _same_skips(tag, rows, twin, rtol):
+    """The kernel arm's overflow flags and scales equal its twin's, step by
+    step, and its losses within ``rtol`` of the twin's."""
+    flags = [(r["overflow"], r["scale"]) for r in rows]
+    want = [(r["overflow"], r["scale"]) for r in twin]
+    worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(rows, twin))
+    log(f"[fp16] {tag}: overflow / scale {flags} (twin {want}); losses "
+        f"within {worst:.3e} of the twin's (tol {rtol})")
+    if flags != want or worst > rtol:
+        raise SystemExit(f"{tag}: the kernels' fp16 run departs from its "
+                         "plain-attention twin")
+    return worst
+
+
+def _check_fp16(path):
+    """Every launch of B1, B2, B3 and B5 on ``path`` took an fp16 q."""
+    for name, per in DTYPES.items():
+        got = per[path]
+        if sum(got.values()) != got["float16"]:
+            raise SystemExit(f"{path}: {name} launches by dtype {got}, "
+                             "expected only float16")
+
+
+# the kernels line's fp16 rows: each kernel's phase 65 case at Llama's shape
+FP16_ROW_CASES = {"flash_fwd": "llama T2047 causal",
+                  "flash_bwd_dq": "llama T2047 causal",
+                  "flash_bwd_dkv": "llama T2047 causal",
+                  "paged_attention": "decode B8 lens 0-1024"}
+
+
+def _fp16_rows(rows, fp16_cases):
+    """The fp16 bodies' rows of the kernels line: each one's launches with
+    an fp16 q on the main paths (per path), its error, device time, plain
+    time, bound and SDPA's fp16 time at FP16_ROW_CASES' shape, and every
+    phase 65 case."""
+    out = []
+    for name, key in FP16_ROW_CASES.items():
+        c = fp16_cases[name][key]
+        by_path = {p: n["float16"] for p, n in DTYPES[name].items()
+                   if n["float16"]}
+        if not by_path:
+            raise SystemExit(f"{name} never launched with an fp16 q on a "
+                             "main path")
+        out.append({
+            "name": f"{name}_fp16", "route": "cuda",
+            "source": rows[name]["source"],
+            "replaces": rows[name]["replaces"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": c["max_abs_err"], "ms": c["device_ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_device_ms"],
+            "dtype": "float16", "shape": key, "cases": fp16_cases[name]})
+    return out
+
+
+def _fp16_rollout_flips(params, cfg, got, want, prompts):
+    """Rows of the kernel arm's rollout that differ from the plain arm's:
+    each held at its first divergent token to FP16_TIE_REL_TOL in an fp16
+    forward of the common prefix.  Returns the flips."""
+    from deepspeed_tpu_torch.models import llama
+
+    flips = []
+    for b in range(got.shape[0]):
+        diff = (got[b] != want[b]).nonzero()
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        with torch.inference_mode():
+            row = llama.forward(params, want[b:b + 1, :j], cfg)[0, -1].float()
+        gap = abs(row[want[b, j]] - row[got[b, j]]).item() / \
+            row.abs().max().item()
+        flips.append({"row": b, "pos": j - prompts.shape[1], "gap_rel": gap})
+        if gap > FP16_TIE_REL_TOL:
+            raise SystemExit(f"phase 67: rollout row {b} differs at {j} by "
+                             f"{gap:.3e} > {FP16_TIE_REL_TOL}")
+    return flips
+
+
+def phase_fp16_llama(fns, card_line, phase8):
+    """Phase 66, and 67 (c): phase 8's run (Llama-3-8B widths, 4 layers,
+    micro 1 x accumulation 2 x 2048, fused Adam) under DeepSpeed's fp16
+    defaults: its losses beside phase 8's bf16 ones, every step's overflow
+    flag and scale equal to its attn_impl="reference" twin's; then starting
+    at 2^32, so that the first steps overflow on the kernels and the scaler
+    backs off, against its twin.  On the first engine, 67 (c): the hybrid's
+    greedy rollouts over the paged cache (B1 prefill, B5 decode with an
+    fp16 q over the bf16 cache) against the dense generator's (plain
+    attention) over the same fp16 params and a bf16 cache, one train step
+    between two rollouts."""
+    import dataclasses
+
+    from deepspeed_tpu_torch._tree import tree_leaves
+    from deepspeed_tpu_torch.hybrid import init_hybrid_engine
+    from deepspeed_tpu_torch.inference.generation import llama_generator
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.weights import init_params
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=4)
+    twin_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(
+        np.int32)}
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    steps = len(phase8)
+    launches, res = {}, {}
+
+    def conf(power):
+        c = _train_config(2, 2, {"fp16": dict(FP16_DEFAULTS,
+                                             initial_scale_power=power)})
+        c["hybrid_engine"] = {"enabled": True, "max_out_tokens": 160}
+        return c
+
+    path = "fp16 training"
+    rows, launches[path], eng, peak = _fp16_run(
+        fns, path, llama.loss_fn(cfg), params, conf(16), batch, steps)
+    leaves = len(tree_leaves(eng.state.params))
+    taken = sum(1 - r["overflow"] for r in rows)
+    want = {"flash_fwd": 8 * steps, "flash_bwd_dq": 8 * steps,
+            "flash_bwd_dkv": 8 * steps, "fused_adam": leaves * taken}
+    if any(launches[path][n] != c for n, c in want.items()) or any(
+            launches[path][n] for n in launches[path] if n not in want):
+        raise SystemExit(f"phase 66: launches {launches[path]}, expected "
+                         f"{want}")
+    # the losses beside phase 8's bf16 run, while both took every step
+    upto = next((i + 1 for i, r in enumerate(rows) if r["overflow"]),
+                steps)
+    vs_bf16 = max(abs(r["loss"] - b["loss"]) / abs(b["loss"])
+                  for r, b in zip(rows[:upto], phase8))
+    ms = float(np.median([r["ms"] for r in rows[1:]]))
+    log(f"[fp16] Llama-3-8B widths, 4 layers, fp16 {FP16_DEFAULTS}: losses "
+        f"within {vs_bf16:.3e} of phase 8's bf16 over the first {upto} "
+        f"steps (tol {FP16_VS_BF16_RTOL}); {ms:.1f} ms/step against phase "
+        f"8's {float(np.median([r['ms'] for r in phase8[1:]])):.1f}; peak "
+        f"{peak:.1f} GB on {card_line}")
+    if vs_bf16 > FP16_VS_BF16_RTOL or not all(
+            np.isfinite(r["loss"]) for r in rows):
+        raise SystemExit("phase 66: the fp16 losses depart from bf16's")
+    res[path] = {"steps": rows, "peak_gb": peak, "ms_per_step": ms,
+                 "vs_bf16_rel": vs_bf16}
+
+    # 67 (c): the hybrid's rollouts on this engine
+    prompts = np.random.default_rng(36).integers(
+        1, cfg.vocab_size, (HYBRID_PROMPTS, HYBRID_PROMPT_LEN)).astype(
+        np.int32)
+    paged = init_hybrid_engine(eng, cfg)
+    flips, hyb = [], {}
+    for tag in ("before step", "after step"):
+        p = f"fp16 hybrid rollout {tag}"
+        _zero(fns.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = paged.generate(prompts, max_new_tokens=HYBRID_NEW,
+                             temperature=0.0)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches[p] = {n: f.launches for n, f in fns.items()}
+        _check_bodies(p)
+        _check_fp16(p)
+        _check_launches(p, launches[p], ("flash_fwd", "paged_attention",
+                                         "greedy_argmax"))
+        cast = paged.compute_params()
+        if any(x.dtype != torch.float16 for x in tree_leaves(cast)
+               if x.is_floating_point()):
+            raise SystemExit("phase 67: the hybrid's compute params are not "
+                             "fp16")
+        ref = llama_generator(cast, cfg).generate(
+            prompts, HYBRID_NEW, max_seq=paged.max_out_tokens)
+        f = _fp16_rollout_flips(cast, cfg, got, ref, prompts)
+        del cast
+        flips += f
+        hyb[p] = {"tokens_per_s": HYBRID_PROMPTS * HYBRID_NEW / s,
+                  "rollout_s": s, "rows_identical": HYBRID_PROMPTS - len(f),
+                  "flips": f}
+        log(f"[fp16] {p}: paged (B1 + B5, fp16 q over the bf16 cache) "
+            f"against the dense generator (plain attention): "
+            f"{HYBRID_PROMPTS - len(f)} of "
+            f"{HYBRID_PROMPTS} rows identical, near-tie flips {f}; "
+            f"{hyb[p]['tokens_per_s']:.1f} tokens/s; launches {launches[p]}")
+        if tag == "before step":
+            p = "fp16 hybrid train step"
+            _zero(fns.values())
+            loss = float(paged.train_batch(batch))
+            launches[p] = {n: f.launches for n, f in fns.items()}
+            _check_bodies(p)
+            _check_fp16(p)
+            _check_launches(p, launches[p], ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv", "fused_adam"))
+            hyb[p] = {"loss": loss, "overflow": eng.metrics["overflow"]}
+    res["hybrid"] = hyb
+    del paged, eng
+    torch.cuda.empty_cache()
+
+    twin, twin_used, eng, _ = _fp16_run(
+        fns, "fp16 training, reference twin", llama.loss_fn(twin_cfg),
+        params, conf(16), batch, steps, kernels=False)
+    del eng
+    res[path]["twin_rel"] = _same_skips("phase 66", rows, twin,
+                                        FP16_TWIN_RTOL)
+    res[path]["twin_flash_launches"] = {n: twin_used[n] for n in FLASH_NAMES}
+    torch.cuda.empty_cache()
+    # the overflow run: 2^32 overflows on the kernels, the scaler backs off
+    path = "fp16 training from 2^32"
+    rows, launches[path], eng, _ = _fp16_run(
+        fns, path, llama.loss_fn(cfg), params, conf(FP16_OVERFLOW_POWER),
+        batch, FP16_OVERFLOW_STEPS, until_taken=True)
+    del eng
+    torch.cuda.empty_cache()
+    skipped = sum(r["overflow"] for r in rows)
+    # each overflow halves the scale (the metrics carry the scale after the
+    # step's update), a taken step keeps it
+    scale, halves = 2.0 ** FP16_OVERFLOW_POWER, True
+    for r in rows:
+        scale = scale / 2 if r["overflow"] else scale
+        halves = halves and r["scale"] == scale
+    if not (rows[0]["overflow"] and halves and not rows[-1]["overflow"]):
+        raise SystemExit(f"phase 66: the run from 2^{FP16_OVERFLOW_POWER} "
+                         f"did not overflow and back off to a taken step: "
+                         f"{rows}")
+    twin, twin_used, eng, _ = _fp16_run(
+        fns, "fp16 training from 2^32, twin", llama.loss_fn(twin_cfg),
+        params, conf(FP16_OVERFLOW_POWER), batch, len(rows), kernels=False)
+    del eng, params
+    torch.cuda.empty_cache()
+    _same_skips("phase 66 from 2^32", rows, twin, FP16_TWIN_RTOL)
+    res[path] = {"steps": rows, "skipped": skipped,
+                 "final_scale": rows[-1]["scale"],
+                 "twin_flash_launches": {n: twin_used[n]
+                                         for n in FLASH_NAMES}}
+    return launches, res
+
+
+def phase_fp16_models(fns, card_line):
+    """Phase 67 (a), (b): GPT-2 1.3B (micro 8 x 1024, the reference's ZeRO-2
+    model) and BERT-large (MLM, micro 8 x 512, pad ids) at full width and
+    FP16_MODEL_LAYERS layers under DeepSpeed's fp16 defaults, each against
+    its twin with plain attention: overflow flags and scales equal step by
+    step, losses within FP16_TWIN_RTOL, the loss falling."""
+    import dataclasses
+    from unittest import mock
+
+    from deepspeed_tpu_torch.models import bert, gpt2
+    from deepspeed_tpu_torch.ops.attention import flash_attention
+    from deepspeed_tpu_torch.weights import init_params
+
+    launches, res = {}, {}
+    steps = FP16_MODEL_STEPS
+    gcfg = dataclasses.replace(gpt2.GPT2Config.gpt2_1_3b(),
+                               n_layers=FP16_MODEL_LAYERS)
+    bcfg = dataclasses.replace(bert.BertConfig.large(),
+                               n_layers=FP16_MODEL_LAYERS)
+    rng = np.random.default_rng(67)
+    gbatch = {"tokens": rng.integers(0, gcfg.vocab_size, (8, 1025)).astype(
+        np.int32)}
+    bbatch, _ = _bert_batch(rng, 8, 512, bcfg.vocab_size)
+    plain_gpt2 = functools.partial(flash_attention, force_reference=True)
+    for name, cfg, batch, loss_fn, twin in (
+            ("gpt2-1.3b", gcfg, gbatch, gpt2.loss_fn(gcfg),
+             lambda: mock.patch.object(gpt2, "flash_attention", plain_gpt2)),
+            ("bert-large", bcfg, bbatch, bert.loss_fn(bcfg),
+             None)):
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(67),
+                             device="cuda", dtype=torch.float32)
+        conf = _train_config(8, 1, {"fp16": dict(FP16_DEFAULTS)})
+        path = f"{name} fp16 training"
+        rows, launches[path], eng, peak = _fp16_run(
+            fns, path, loss_fn, params, conf, batch, steps)
+        del eng
+        torch.cuda.empty_cache()
+        L = cfg.n_layers
+        for k in FLASH_NAMES:
+            if launches[path][k] != L * steps:
+                raise SystemExit(f"phase 67: {path} {k} launches "
+                                 f"{launches[path][k]}, expected {L * steps}")
+        if twin is None:
+            tcfg = dataclasses.replace(cfg, attn_impl="reference")
+            trows, tused, eng, _ = _fp16_run(fns, f"{path}, twin",
+                                             bert.loss_fn(tcfg), params,
+                                             conf, batch, steps,
+                                             kernels=False)
+        else:
+            with twin():
+                trows, tused, eng, _ = _fp16_run(
+                    fns, f"{path}, twin", loss_fn, params, conf, batch,
+                    steps, kernels=False)
+        del eng, params
+        torch.cuda.empty_cache()
+        rel = _same_skips(f"phase 67 {name}", rows, trows, FP16_TWIN_RTOL)
+        losses = [r["loss"] for r in rows]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"phase 67: {path} did not fall: {losses}")
+        res[path] = {"steps": rows, "twin_rel": rel, "peak_gb": peak,
+                     "layers": L, "twin_flash_launches": {
+                         n: tused[n] for n in FLASH_NAMES}}
+    log(f"[fp16] phase 67 GPT-2 1.3B / BERT-large at {FP16_MODEL_LAYERS} "
+        f"layers on {card_line}: {res}")
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -11195,6 +11863,8 @@ def main() -> int:
     _lap('phase_mixtral_kernels')
     bert_cases = phase_bert_kernels(gen)
     _lap('phase_bert_kernels')
+    fp16_cases = phase_fp16_kernels(gen)
+    _lap('phase_fp16_kernels (phase 65)')
     torch.cuda.empty_cache()
     phase_identity(kernels)
     _lap('phase_identity')
@@ -11260,6 +11930,13 @@ def main() -> int:
     phase26_losses = [r["loss"] for r in bert_train["steps"]]
     del bert_train
     _lap('phase_bert_train')
+    got, _ = phase_fp16_llama(fns, card_line, phase8)
+    launches.update(got)
+    _lap('phase_fp16_llama (phases 66, 67 (c))')
+    got, _ = phase_fp16_models(fns, card_line)
+    launches.update(got)
+    _lap('phase_fp16_models (phase 67 (a), (b))')
+    torch.cuda.empty_cache()
     launches.update(phase_cnn(fns, card_line)[0])
     _lap('phase_cnn')
     torch.cuda.empty_cache()
@@ -11332,6 +12009,7 @@ def main() -> int:
             if key in k:
                 row[key] = k[key]
         out.append(row)
+    out += _fp16_rows(rows, fp16_cases)
     log(f"[smoke] whole run {time.perf_counter() - smoke_t0:.1f} s on "
         f"{card_line}")
     log(json.dumps({"kernels": out}))

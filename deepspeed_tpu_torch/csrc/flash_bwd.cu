@@ -19,15 +19,15 @@
 // Bound on the H100: at the training shapes (T ~ 2k, D = 128) the work is
 // ~5 products of 2 T^2 H D / 2 flops over O(T H D) bytes, far above the
 // 295 flop/byte ridge, so it is bound by operations, and only the tensor
-// cores reach the card's 989 TFLOP/s (bf16).
+// cores reach the card's 989 TFLOP/s (bf16 and fp16 alike).
 //
 // The caller picks the body by dtype and head dim (the `body` argument),
 // never by retrying:
-//  - the tensor-core bodies (flash_bwd_sm90.cuh) for bfloat16 with D 64 or
-//    128, the Llama paths (q, k, v, dO 16-byte aligned, as TMA needs: the
-//    wrapper copies a view that is not);
-//  - the scalar bodies below for everything else (float32, bf16 D 16 or 32),
-//    every product on the f32 FMA units from shared memory:
+//  - the tensor-core bodies (flash_bwd_sm90.cuh) for bfloat16 or float16
+//    with D 64 or 128, the Llama paths (q, k, v, dO 16-byte aligned, as TMA
+//    needs: the wrapper copies a view that is not);
+//  - the scalar bodies below for everything else (float32, bf16 or fp16 D 16
+//    or 32), every product on the f32 FMA units from shared memory:
 //
 // flash_bwd_dq: one block of 256 threads per (b*h, tile of 64 query rows)
 // forms its rows' delta, then sweeps the key tiles of 32 up to the causal
@@ -417,14 +417,21 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int D, cudaStream_t s) {
   }
 }
 
-template <bool DKV, int D>
+template <bool DKV, int D, typename E>
 cudaError_t launch_sm90(const BwdArgs& a, cudaStream_t s) {
   const float* lse = static_cast<const float*>(a.lse);
   if (DKV)
-    return sm90::launch_bwd_dkv<D>(a.q, a.k, a.v, a.dout, lse, a.delta, a.seg, a.dk, a.dv, a.B,
+    return sm90::launch_bwd_dkv<D, E>(a.q, a.k, a.v, a.dout, lse, a.delta, a.seg, a.dk, a.dv,
+                                      a.B, a.T, a.S, a.H, a.KV, a.scale, a.causal, s);
+  return sm90::launch_bwd_dq<D, E>(a.q, a.k, a.v, a.o, a.dout, lse, a.delta, a.seg, a.dq, a.B,
                                    a.T, a.S, a.H, a.KV, a.scale, a.causal, s);
-  return sm90::launch_bwd_dq<D>(a.q, a.k, a.v, a.o, a.dout, lse, a.delta, a.seg, a.dq, a.B, a.T,
-                                a.S, a.H, a.KV, a.scale, a.causal, s);
+}
+
+template <bool DKV, typename E>
+cudaError_t dispatch_sm90(const BwdArgs& a, int D, cudaStream_t s) {
+  if (D == 64) return launch_sm90<DKV, 64, E>(a, s);
+  if (D == 128) return launch_sm90<DKV, 128, E>(a, s);
+  return cudaErrorInvalidValue;
 }
 
 template <bool DKV>
@@ -438,24 +445,25 @@ int run_bwd(const BwdArgs& a, int D, int dtype, int body, void* stream) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
                            reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o) |
                            reinterpret_cast<uintptr_t>(a.dout);
-    if (dtype != 1 || (addr & 15) != 0) return cudaErrorInvalidValue;
-    if (D == 64) return launch_sm90<DKV, 64>(a, s);
-    if (D == 128) return launch_sm90<DKV, 128>(a, s);
+    if ((addr & 15) != 0) return cudaErrorInvalidValue;
+    if (dtype == 1) return dispatch_sm90<DKV, __nv_bfloat16>(a, D, s);
+    if (dtype == 2) return dispatch_sm90<DKV, __half>(a, D, s);
     return cudaErrorInvalidValue;
   }
   if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch_bwd<DKV, float>(a, D, s);
   if (dtype == 1) return dispatch_bwd<DKV, __nv_bfloat16>(a, D, s);
+  if (dtype == 2) return dispatch_bwd<DKV, __half>(a, D, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace dstt
 
-// dtype: 0 = float32, 1 = bfloat16; lse, delta: [B, H, T] f32 (delta
-// written by dq for every row below T, read by dkv); seg: [B, T] int32 or
-// null (needs T == S); body: 0 = the scalar body, 1 = the tensor-core body
-// (bfloat16, D 64 or 128, q/k/v/o/dout 16-byte aligned).  Each returns the
-// launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; lse, delta: [B, H, T] f32
+// (delta written by dq for every row below T, read by dkv); seg: [B, T]
+// int32 or null (needs T == S); body: 0 = the scalar body, 1 = the
+// tensor-core body (bfloat16 or float16, D 64 or 128, q/k/v/o/dout 16-byte
+// aligned).  Each returns the launch's cudaError_t.
 extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, const void* lse, void* delta, const void* seg,
                                  void* dq, int B, int T, int S, int H, int KV, int D, float scale,

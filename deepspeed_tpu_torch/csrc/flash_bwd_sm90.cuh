@@ -1,8 +1,11 @@
 // Flash attention backward for Hopper tensor cores (sm_90a): the bodies that
-// csrc/flash_bwd.cu runs for bfloat16 q/k/v/dO with head_dim 64 or 128.
+// csrc/flash_bwd.cu runs for bfloat16 or float16 q/k/v/dO with head_dim 64
+// or 128 (one instantiation per element type E; the wgmma products are
+// .f32.bf16.bf16 or .f32.f16.f16, every sum f32).
 //
 // Replaces deepspeed_tpu/ops/attention_pallas.py::_bwd_dq_kernel (B2) and
-// ::_bwd_dkv_kernel (B3) for the shapes of the Llama paths (bf16, D = 128).
+// ::_bwd_dkv_kernel (B3) for the shapes of the Llama paths (bf16 or fp16,
+// D = 128).
 // Both recompute p = exp2(s * scale * log2(e) - lse * log2(e)) from the
 // forward's lse [B, H, T] f32 and form ds = p * (dO . V^T - delta) * scale
 // with delta [B, H, T] f32 = rowsum(O * dO), which B2 computes and writes
@@ -37,8 +40,9 @@
 // block's next item's O slices are prefetched into L2 during the sweep.  Per
 // stage: S = Q K^T and
 // dP = dO V^T are SS wgmma m64n64k16 (K and V K-major as loaded); p and ds
-// are formed on the accumulator fragment; ds is rounded to bf16 in registers
-// (as the TPU kernel rounds it to K's dtype) and is the register A operand
+// are formed on the accumulator fragment; ds is rounded to E in registers
+// (as the TPU kernel rounds it to K's dtype: in fp16 a |ds| past 65504
+// becomes inf there and here) and is the register A operand
 // of dQ += ds K, wgmma m64nDk16 with K read MN-major through the transpose
 // bit.  64-key tiles keep the three accumulators (32 + 32 + 64 f32 at
 // D = 128) under setmaxnreg's 232 registers.  A warpgroup skips a tile that
@@ -54,15 +58,21 @@
 // slots in turns (slot t to warpgroup t % 2), each for all 64 keys: S^T =
 // K Q^T and dP^T = V dO^T are SS wgmma with the keys in M, lse and delta
 // vary along N and are read per fragment column.  The reference multiplies
-// f32 p and ds into dV and dK; the tensor cores take bf16 operands.  P and
-// dS rounded to bf16 alone leave dK and dV about a bf16 ulp of their
+// f32 p and ds into dV and dK; the tensor cores take 16-bit operands.  In
+// bf16, P and dS rounded alone leave dK and dV about a bf16 ulp of their
 // largest values off the reference before the output's own rounding, past
-// phase 6's gate.  So P^T and dS^T are each split in registers into
+// phase 6's gate.  So there P^T and dS^T are each split in registers into
 // hi = bf16(x) and lo = bf16(x - hi), and both halves are register A
 // operands of dV += P^T dO and dK += dS^T Q (dO and Q read MN-major): the
 // f32 products recovered to ~2^-16, at 1.5x the plain algorithm's product
 // work.  (A third part, the whole f32 significand, changed no result by
 // more than the tensor cores' own summation order does, and cost 17 %.)
+// In fp16, P and dS are rounded once, as the Pallas kernel does: that
+// leaves dK and dV within the outputs' own fp16 rounding of the f64
+// oracle, so each is one A operand and one product.  An |x| past 65504
+// rounds to inf there as in the Pallas kernel, and the step overflows as
+// on the reference, whose ds of that element rounds to inf in K's dtype
+// before dQ += ds K.
 // Each consumer holds the two f32 accumulators of its 64 keys (128
 // registers at D = 128) beside S^T, dP^T and the four operand halves:
 // setmaxnreg gives it 240 registers and the producer 24.  At the item's
@@ -103,11 +113,12 @@ constexpr int kSkip = 0, kOneId = 1, kMixed = 2;
 template <int D>
 struct DqSmem {
   static constexpr int kHalves = D / 64;
-  // every [rows][64] half: rows of 128 bytes, swizzled by TMA (128B mode)
-  __nv_bfloat16 q[kHalves][kDqRows * 64];
-  __nv_bfloat16 dout[kHalves][kDqRows * 64];
-  __nv_bfloat16 k[kDqStages][kHalves][kDqKeys * 64];
-  __nv_bfloat16 v[kDqStages][kHalves][kDqKeys * 64];
+  // every [rows][64] half of 2-byte elements (bf16 or fp16): rows of 128
+  // bytes, swizzled by TMA (128B mode)
+  uint16_t q[kHalves][kDqRows * 64];
+  uint16_t dout[kHalves][kDqRows * 64];
+  uint16_t k[kDqStages][kHalves][kDqKeys * 64];
+  uint16_t v[kDqStages][kHalves][kDqKeys * 64];
   int flag[kDqStages];
   int kseg[kDqStages][kDqKeys];
   uint64_t q_full;
@@ -119,10 +130,10 @@ struct DqSmem {
 template <int D>
 struct KvSmem {
   static constexpr int kHalves = D / 64;
-  __nv_bfloat16 k[kHalves][kKvKeys * 64];
-  __nv_bfloat16 v[kHalves][kKvKeys * 64];
-  __nv_bfloat16 q[kKvStages][kHalves][kKvRows * 64];
-  __nv_bfloat16 dout[kKvStages][kHalves][kKvRows * 64];
+  uint16_t k[kHalves][kKvKeys * 64];
+  uint16_t v[kHalves][kKvKeys * 64];
+  uint16_t q[kKvStages][kHalves][kKvRows * 64];
+  uint16_t dout[kKvStages][kHalves][kKvRows * 64];
   // one warpgroup's accumulator in fragment order: [register][thread]
   float red[D / 2][128];
   float lse[kKvStages][kKvRows];  // times log2(e); +inf past T
@@ -145,66 +156,60 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// two f32 values rounded to bf16 (round to nearest even), packed
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p2 = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p2);
-}
-
-// two f32 values as hi + lo, each bf16: hi = bf16(x), lo = bf16(x - hi)
+// two f32 values as hi + lo, each in bf16: hi = bf16(x), lo = bf16(x - hi)
 // (the difference exact in f32), packed; hi . B + lo . B, summed in the f32
-// accumulator, recovers the f32 product with a bf16 B to ~2^-16 of x
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+// accumulator, recovers the f32 product with a bf16 operand B to ~2^-16 of x
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack2<__nv_bfloat16>(x0, x1);
+  const float2 hf = unpack2<__nv_bfloat16>(hi);
+  lo = pack2<__nv_bfloat16>(x0 - hf.x, x1 - hf.y);
 }
 
-// a 64 x 64 f32 fragment rounded to bf16 as the register A operand of four
+// a 64 x 64 f32 fragment rounded to E as the register A operand of four
 // k16 steps: registers 4 j .. 4 j + 3 are a[j / 2][2 (j % 2)] and the next
+template <typename E>
 __device__ __forceinline__ void to_frag(const float (&x)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    a[j / 2][2 * (j % 2)] = pack_bf16(x[4 * j], x[4 * j + 1]);
-    a[j / 2][2 * (j % 2) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+    a[j / 2][2 * (j % 2)] = pack2<E>(x[4 * j], x[4 * j + 1]);
+    a[j / 2][2 * (j % 2) + 1] = pack2<E>(x[4 * j + 2], x[4 * j + 3]);
   }
 }
 
 // d = A . B^T over D for A, B [64 rows][D] K-major in swizzled halves
 // `half_a` / `half_b` bytes apart
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a, uint32_t half_a, uint32_t b,
                                          uint32_t half_b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(d, desc_sw128(a + (kk / 4) * half_a + (kk % 4) * 32, 16, 1024),
+    wgmma_ss_n64<E>(d, desc_sw128(a + (kk / 4) * half_a + (kk % 4) * 32, 16, 1024),
                  desc_sw128(b + (kk / 4) * half_b + (kk % 4) * 32, 16, 1024), kk > 0);
 }
 
 // d += A . B over 64 rows of B [64][D], B MN-major (the transpose bit): the
 // 64-column halves of D are `half_b` bytes apart, each group of 8 rows 1024
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[4][4], uint32_t b,
                                          uint32_t half_b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(d, a[kk], desc_sw128(b + kk * 16 * 128, half_b, 1024));
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<D, E>(d, a[kk], desc_sw128(b + kk * 16 * 128, half_b, 1024));
 }
 
-// a warpgroup's [64 x D] f32 accumulator stored as bf16 rows: row(r) is the
+// a warpgroup's [64 x D] f32 accumulator stored as rows of E: row(r) is the
 // element offset of the thread's fragment row r, or -1 to skip it
-template <int D, typename RowFn>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloat16* out, int qc,
-                                           RowFn row) {
+template <int D, typename E, typename RowFn>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], E* out, int qc, RowFn row) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long off = row(r);
     if (off < 0) continue;
-    __nv_bfloat16* p = out + off + 2 * qc;
+    E* p = out + off + 2 * qc;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack2<E>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
@@ -215,29 +220,30 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// acc + sum of f32(a_i) * f32(b_i) over 8 packed bf16 pairs, in column order
-__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b, float acc) {
+// acc + sum of f32(a_i) * f32(b_i) over 8 packed pairs of E, in column order
+template <typename E>
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
   const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
   const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pa + i));
-    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pb + i));
+    const float2 x = unpack2<E>(pa[i]);
+    const float2 y = unpack2<E>(pb[i]);
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
   return acc;
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, typename E>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_do,
-                         const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
+                         const E* __restrict__ o, const float* __restrict__ lse,
                          float* __restrict__ delta, const int* __restrict__ seg,
-                         __nv_bfloat16* __restrict__ dq, int B, int T, int S, int H, int KV,
+                         E* __restrict__ dq, int B, int T, int S, int H, int KV,
                          float scale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   DqSmem<D>& s = aligned_smem<DqSmem<D>>(smem_raw);
@@ -391,7 +397,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           const uint4 d4 = *reinterpret_cast<const uint4*>(
               reinterpret_cast<const unsigned char*>(s.dout[c / 8]) + n * 128 +
               (((c % 8) ^ (n % 8)) << 4));
-          sum = dot8_bf16(ov[r][j], d4, sum);
+          sum = dot8<E>(ov[r][j], d4, sum);
         }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -423,8 +429,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           fence_regs(sc);
           fence_regs(dp);
           wgmma_fence();
-          issue_ss<D>(sc, q_base, kHalfQ, k_base, kHalfK);
-          issue_ss<D>(dp, do_base, kHalfQ, v_base, kHalfK);
+          issue_ss<D, E>(sc, q_base, kHalfQ, k_base, kHalfK);
+          issue_ss<D, E>(dp, do_base, kHalfQ, v_base, kHalfK);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(sc);
@@ -445,11 +451,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
             const float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
             dp[i] = p * (dp[i] - dlt[r]) * scale;
           }
-          to_frag(dp, da);
+          to_frag<E>(dp, da);
           fence_regs(acc);
           fence_regs(da);
           wgmma_fence();
-          issue_rs<D>(acc, da, k_base, kHalfK);
+          issue_rs<D, E>(acc, da, k_base, kHalfK);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(acc);
@@ -461,7 +467,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           mbar_arrive(&s.empty[st]);                           // this warp is done with the stage
         }
       }
-      store_rows<D>(acc, dq, qc, [&](int r) -> long long {
+      store_rows<D, E>(acc, dq, qc, [&](int r) -> long long {
         return row[r] < T ? (((long long)b * T + row[r]) * H + h) * D : -1;
       });
     }
@@ -490,15 +496,14 @@ __device__ __forceinline__ KvItem kv_item_at(int w, int BKV, int KV, int T, int 
   return it;
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, typename E>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int B, int T, int S, int H, int KV,
+                          const int* __restrict__ seg, E* __restrict__ dk, E* __restrict__ dv, int B, int T, int S, int H, int KV,
                           float scale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   KvSmem<D>& s = aligned_smem<KvSmem<D>>(smem_raw);
@@ -624,7 +629,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t k_base = smem_u32(&s.k[0][0]);
     const uint32_t v_base = smem_u32(&s.v[0][0]);
     float ak[D / 2], av[D / 2], sc[32], dp[32];
-    uint32_t pa[4][4], pl[4][4], dsa[4][4], dsl[4][4];  // hi and lo parts
+    uint32_t pa[4][4], pl[4][4], dsa[4][4], dsl[4][4];  // hi and lo (bf16) parts
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
     int slot = 0;
@@ -655,8 +660,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           fence_regs(sc);
           fence_regs(dp);
           wgmma_fence();
-          issue_ss<D>(sc, k_base, kHalfK, q_st, kHalfM);
-          issue_ss<D>(dp, v_base, kHalfK, do_st, kHalfM);
+          issue_ss<D, E>(sc, k_base, kHalfK, q_st, kHalfM);
+          issue_ss<D, E>(dp, v_base, kHalfK, do_st, kHalfM);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(sc);
@@ -673,8 +678,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
               if (dead) sc[i] = -INFINITY;
             }
           }
-          // p and ds, split into the hi and lo A operands as they come
-          // (registers 4 j .. 4 j + 3 hold columns 8 j + 2 qc and the next)
+          // p and ds as A operands as they come (registers 4 j .. 4 j + 3
+          // hold columns 8 j + 2 qc and the next): in bf16 split into hi
+          // and lo, in fp16 rounded once
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const float2 l2 = *reinterpret_cast<const float2*>(&s.lse[st][8 * j + 2 * qc]);
@@ -687,30 +693,41 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
               ds[e] = p[e] * (dp[i] - ((e & 1) ? dl.y : dl.x)) * scale;
             }
             const int a = j / 2, e = 2 * (j % 2);
-            split_bf16(p[0], p[1], pa[a][e], pl[a][e]);
-            split_bf16(p[2], p[3], pa[a][e + 1], pl[a][e + 1]);
-            split_bf16(ds[0], ds[1], dsa[a][e], dsl[a][e]);
-            split_bf16(ds[2], ds[3], dsa[a][e + 1], dsl[a][e + 1]);
+            if constexpr (kIsHalf<E>) {
+              pa[a][e] = pack2<E>(p[0], p[1]);
+              pa[a][e + 1] = pack2<E>(p[2], p[3]);
+              dsa[a][e] = pack2<E>(ds[0], ds[1]);
+              dsa[a][e + 1] = pack2<E>(ds[2], ds[3]);
+            } else {
+              split2(p[0], p[1], pa[a][e], pl[a][e]);
+              split2(p[2], p[3], pa[a][e + 1], pl[a][e + 1]);
+              split2(ds[0], ds[1], dsa[a][e], dsl[a][e]);
+              split2(ds[2], ds[3], dsa[a][e + 1], dsl[a][e + 1]);
+            }
           }
           fence_regs(av);
           fence_regs(ak);
           fence_regs(pa);
-          fence_regs(pl);
           fence_regs(dsa);
-          fence_regs(dsl);
+          if constexpr (!kIsHalf<E>) {
+            fence_regs(pl);
+            fence_regs(dsl);
+          }
           wgmma_fence();
-          issue_rs<D>(av, pa, do_st, kHalfM);
-          issue_rs<D>(av, pl, do_st, kHalfM);
-          issue_rs<D>(ak, dsa, q_st, kHalfM);
-          issue_rs<D>(ak, dsl, q_st, kHalfM);
+          issue_rs<D, E>(av, pa, do_st, kHalfM);
+          if constexpr (!kIsHalf<E>) issue_rs<D, E>(av, pl, do_st, kHalfM);
+          issue_rs<D, E>(ak, dsa, q_st, kHalfM);
+          if constexpr (!kIsHalf<E>) issue_rs<D, E>(ak, dsl, q_st, kHalfM);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(av);
           fence_regs(ak);
           fence_regs(pa);
-          fence_regs(pl);
           fence_regs(dsa);
-          fence_regs(dsl);
+          if constexpr (!kIsHalf<E>) {
+            fence_regs(pl);
+            fence_regs(dsl);
+          }
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&s.empty[st]);  // this warp is done with the stage
@@ -741,8 +758,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         auto row = [&](int r) -> long long {
           return key[r] < S ? (((long long)b * S + key[r]) * KV + item.kvh) * D : -1;
         };
-        store_rows<D>(ak, dk, qc, row);
-        store_rows<D>(av, dv, qc, row);
+        store_rows<D, E>(ak, dk, qc, row);
+        store_rows<D, E>(av, dv, qc, row);
       }
     }
   }
@@ -755,16 +772,16 @@ struct Maps {
 };
 
 // q and dO [B, T, H, D] in boxes of `q_rows`, k and v [B, S, KV, D] in boxes
-// of `k_rows`
+// of `k_rows`, all of element type `dt`
 inline cudaError_t encode_bwd_maps(Maps* m, const void* q, const void* k, const void* v,
                                    const void* dout, int B, int T, int S, int H, int KV, int D,
-                                   int q_rows, int k_rows) {
+                                   int q_rows, int k_rows, CUtensorMapDataType dt) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  if (!encode_rows(fn, &m->q, q, B, T, H, D, q_rows) ||
-      !encode_rows(fn, &m->dout, dout, B, T, H, D, q_rows) ||
-      !encode_rows(fn, &m->k, k, B, S, KV, D, k_rows) ||
-      !encode_rows(fn, &m->v, v, B, S, KV, D, k_rows))
+  if (!encode_rows(fn, &m->q, q, B, T, H, D, q_rows, dt) ||
+      !encode_rows(fn, &m->dout, dout, B, T, H, D, q_rows, dt) ||
+      !encode_rows(fn, &m->k, k, B, S, KV, D, k_rows, dt) ||
+      !encode_rows(fn, &m->v, v, B, S, KV, D, k_rows, dt))
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
@@ -779,47 +796,49 @@ inline cudaError_t bwd_grid(long long items, bool has_seg, unsigned* grid) {
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, float* delta, const int* seg,
                           void* dq, int B, int T, int S, int H, int KV, float scale, int causal,
                           cudaStream_t stream) {
   Maps m;
-  cudaError_t err = encode_bwd_maps(&m, q, k, v, dout, B, T, S, H, KV, D, kDqRows, kDqKeys);
+  cudaError_t err =
+      encode_bwd_maps(&m, q, k, v, dout, B, T, S, H, KV, D, kDqRows, kDqKeys, tma_dtype<E>());
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(DqSmem<D>) + 1024;  // + room to align the base to 1024
-  auto kern = seg ? flash_bwd_dq_sm90_kernel<D, true> : flash_bwd_dq_sm90_kernel<D, false>;
+  auto kern =
+      seg ? flash_bwd_dq_sm90_kernel<D, true, E> : flash_bwd_dq_sm90_kernel<D, false, E>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   unsigned grid = 0;
   err = bwd_grid((long long)((T + kDqRows - 1) / kDqRows) * B * H, seg != nullptr, &grid);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kBwdThreads, smem, stream>>>(m.q, m.k, m.v, m.dout,
-                                            static_cast<const __nv_bfloat16*>(o), lse, delta,
-                                            seg, static_cast<__nv_bfloat16*>(dq), B, T, S, H, KV,
+  kern<<<grid, kBwdThreads, smem, stream>>>(m.q, m.k, m.v, m.dout, static_cast<const E*>(o), lse,
+                                            delta, seg, static_cast<E*>(dq), B, T, S, H, KV,
                                             scale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, const int* seg, void* dk,
                            void* dv, int B, int T, int S, int H, int KV, float scale, int causal,
                            cudaStream_t stream) {
   Maps m;
-  cudaError_t err = encode_bwd_maps(&m, q, k, v, dout, B, T, S, H, KV, D, kKvRows, kKvKeys);
+  cudaError_t err =
+      encode_bwd_maps(&m, q, k, v, dout, B, T, S, H, KV, D, kKvRows, kKvKeys, tma_dtype<E>());
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(KvSmem<D>) + 1024;
-  auto kern = seg ? flash_bwd_dkv_sm90_kernel<D, true> : flash_bwd_dkv_sm90_kernel<D, false>;
+  auto kern =
+      seg ? flash_bwd_dkv_sm90_kernel<D, true, E> : flash_bwd_dkv_sm90_kernel<D, false, E>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   unsigned grid = 0;
   err = bwd_grid((long long)((S + kKvKeys - 1) / kKvKeys) * B * KV, seg != nullptr, &grid);
   if (err != cudaSuccess) return err;
   kern<<<grid, kBwdThreads, smem, stream>>>(m.q, m.k, m.v, m.dout, lse, delta, seg,
-                                            static_cast<__nv_bfloat16*>(dk),
-                                            static_cast<__nv_bfloat16*>(dv), B, T, S, H, KV,
-                                            scale, causal);
+                                            static_cast<E*>(dk), static_cast<E*>(dv), B, T, S, H,
+                                            KV, scale, causal);
   return cudaGetLastError();
 }
 

@@ -12,18 +12,18 @@
 // Bound on the H100: at the prefill and training shapes (T = 1k to 2k,
 // D = 128) the work is ~4 T^2 H D / 2 flops over ~(2 T H + 2 T KV) D bytes,
 // far above the 295 flop/byte ridge, so it is bound by operations, and only
-// the tensor cores reach the card's 989 TFLOP/s (bf16).
+// the tensor cores reach the card's 989 TFLOP/s (bf16 and fp16 alike).
 //
 // The caller picks the body by dtype and head dim (the `body` argument),
 // never by retrying:
-//  - the tensor-core body (flash_fwd_sm90.cuh) for bfloat16 with D 64 or
-//    128, the Llama paths (q, k, v 16-byte aligned, as TMA needs: the
+//  - the tensor-core body (flash_fwd_sm90.cuh) for bfloat16 or float16 with
+//    D 64 or 128, the Llama paths (q, k, v 16-byte aligned, as TMA needs: the
 //    wrapper copies a view that is not): TMA loads of K/V tiles into a ring
 //    of shared-memory stages on mbarriers, a producer warpgroup and two
 //    consumer warpgroups running wgmma for both products, the online
 //    softmax on the accumulator fragment;
-//  - the scalar body below for everything else (float32, bf16 D 16 or 32:
-//    the tiny models and the f32 identity runs): one block of 256 threads
+//  - the scalar body below for everything else (float32, bf16 or fp16 D 16
+//    or 32: the tiny models and the f32 identity runs): one block of 256 threads
 //    per (b*h, 64 query rows) sweeps key tiles of 32 with an f32 online
 //    softmax (attention_tile.cuh) on the FMA units from shared memory.
 // Both stop a causal sweep at the diagonal, mask ragged tails of T and S in
@@ -128,9 +128,10 @@ cudaError_t dispatch_flash(const void* q, const void* k, const void* v, const in
 
 }  // namespace dstt
 
-// dtype: 0 = float32, 1 = bfloat16; seg: [B, T] int32 or null (needs T == S);
-// body: 0 = the scalar body, 1 = the tensor-core body (bfloat16, D 64 or
-// 128, q/k/v 16-byte aligned).  Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; seg: [B, T] int32 or null
+// (needs T == S); body: 0 = the scalar body, 1 = the tensor-core body
+// (bfloat16 or float16, D 64 or 128, q/k/v 16-byte aligned).  Returns the
+// launch's cudaError_t.
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
                               void* o, void* lse, int B, int T, int S, int H, int KV, int D,
                               float scale, int causal, int dtype, int body, void* stream) {
@@ -141,11 +142,22 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, const
   if (body == 1) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v);
-    if (dtype != 1 || (addr & 15) != 0) return cudaErrorInvalidValue;
+    if ((dtype != 1 && dtype != 2) || (addr & 15) != 0) return cudaErrorInvalidValue;
+    if (dtype == 2) {
+      if (D == 64)
+        return dstt::sm90::launch<64, __half>(q, k, v, sg, o, lse, B, T, S, H, KV, scale, causal,
+                                              s);
+      if (D == 128)
+        return dstt::sm90::launch<128, __half>(q, k, v, sg, o, lse, B, T, S, H, KV, scale,
+                                               causal, s);
+      return cudaErrorInvalidValue;
+    }
     if (D == 64)
-      return dstt::sm90::launch<64>(q, k, v, sg, o, lse, B, T, S, H, KV, scale, causal, s);
+      return dstt::sm90::launch<64, __nv_bfloat16>(q, k, v, sg, o, lse, B, T, S, H, KV, scale,
+                                                   causal, s);
     if (D == 128)
-      return dstt::sm90::launch<128>(q, k, v, sg, o, lse, B, T, S, H, KV, scale, causal, s);
+      return dstt::sm90::launch<128, __nv_bfloat16>(q, k, v, sg, o, lse, B, T, S, H, KV, scale,
+                                                    causal, s);
     return cudaErrorInvalidValue;
   }
   if (body != 0) return cudaErrorInvalidValue;
@@ -154,5 +166,7 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, const
   if (dtype == 1)
     return dstt::dispatch_flash<__nv_bfloat16>(q, k, v, sg, o, lse, B, T, S, H, KV, D, scale,
                                                causal, s);
+  if (dtype == 2)
+    return dstt::dispatch_flash<__half>(q, k, v, sg, o, lse, B, T, S, H, KV, D, scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,16 @@
 // Flash attention forward for Hopper tensor cores (sm_90a): the body that
-// csrc/flash_fwd.cu runs for bfloat16 q/k/v with head_dim 64 or 128.
+// csrc/flash_fwd.cu runs for bfloat16 or float16 q/k/v with head_dim 64 or
+// 128 (one instantiation per element type E).
 //
 // Replaces deepspeed_tpu/ops/attention_pallas.py::_fwd_kernel for the
-// shapes of the Llama paths (bf16, D = 128).  It computes what the scalar
-// body of flash_fwd.cu computes: o [B, T, H, D] bf16 and lse [B, H, T] f32
-// (natural log, m + log l), causal or not, GQA read in place (query head h
-// reads kv head h / (H / KV)), optional packed segment ids [B, T], ragged T
-// and S, p rounded to bf16 before P.V, zeros for a row that sees no key.
+// shapes of the Llama paths (bf16 or fp16, D = 128).  It computes what the
+// scalar body of flash_fwd.cu computes: o [B, T, H, D] in E and lse
+// [B, H, T] f32 (natural log, m + log l), causal or not, GQA read in place
+// (query head h reads kv head h / (H / KV)), optional packed segment ids
+// [B, T], ragged T and S, p rounded to E before P.V, zeros for a row that
+// sees no key.  The same wgmma runs both types (.f32.bf16.bf16 or
+// .f32.f16.f16); fp16's top of 65504 cannot bite here: p lies in [0, 1]
+// and |o| <= max |v|.
 //
 // Bound on the H100: at the prefill and training shapes (T = 1k to 2k,
 // D = 128) the two products are ~4 T^2 H D / 2 flops over O(T H D) bytes,
@@ -29,7 +33,7 @@
 //    wgmma m64n128k16 from shared memory (K is K-major as loaded); the
 //    online softmax runs on the f32 accumulator fragment (a row lives in the
 //    four threads of a quad), with the scale folded into exp2; P is rounded
-//    to bf16 in registers and is the register A operand of O += P V, wgmma
+//    to E in registers and is the register A operand of O += P V, wgmma
 //    m64nDk16 with V read MN-major through the descriptor's transpose bit.
 //    Each consumer warp releases a stage on a second mbarrier once its
 //    P V is done.  (Issuing one tile's Q K^T with the last tile's P V, and
@@ -60,11 +64,12 @@ constexpr float kEmptyLse = -1e30f;  // lse of a row that sees no key
 template <int D>
 struct Smem {
   static constexpr int kHalves = D / 64;
-  // every [rows][64] half: rows of 128 bytes, swizzled by TMA (128B mode);
-  // each half is a multiple of 1024 bytes, so all stay 1024-aligned
-  __nv_bfloat16 q[kHalves][kBM * 64];
-  __nv_bfloat16 k[kStages][kHalves][kBN * 64];
-  __nv_bfloat16 v[kStages][kHalves][kBN * 64];
+  // every [rows][64] half of 2-byte elements (bf16 or fp16): rows of 128
+  // bytes, swizzled by TMA (128B mode); each half is a multiple of 1024
+  // bytes, so all stay 1024-aligned
+  uint16_t q[kHalves][kBM * 64];
+  uint16_t k[kStages][kHalves][kBN * 64];
+  uint16_t v[kStages][kHalves][kBN * 64];
   // per stage: the key tile it holds (-1: the sweep is over) and, with
   // segment ids, the keys' ids and their range
   int tile[kStages];
@@ -79,12 +84,12 @@ struct Smem {
 
 // S's accumulator fragment turns into P's A operand in place (the fragment
 // layouts are in sm90_common.cuh).
-template <int D, bool kSeg>
+template <int D, bool kSeg, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int T,
+                      E* __restrict__ o, float* __restrict__ lse, int B, int T,
                       int S, int H, int KV, float scale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Smem<D>& s = *reinterpret_cast<Smem<D>*>(
@@ -215,7 +220,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t k_base = smem_u32(&s.k[st][0][0]);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(sc, desc_sw128(q_base + (kk / 4) * kHalfQ + (kk % 4) * 32, 16, 1024),
+        wgmma_ss_n128<E>(sc, desc_sw128(q_base + (kk / 4) * kHalfQ + (kk % 4) * 32, 16, 1024),
                       desc_sw128(k_base + (kk / 4) * kHalfKV + (kk % 4) * 32, 16, 1024), kk > 0);
       wgmma_commit();
     };
@@ -225,7 +230,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t v_base = smem_u32(&s.v[st][0][0]);
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_pv<D>(acc, pa[kk], desc_sw128(v_base + kk * 16 * 128, kHalfKV, 1024));
+        wgmma_pv<D, E>(acc, pa[kk], desc_sw128(v_base + kk * 16 * 128, kHalfKV, 1024));
       wgmma_commit();
     };
     // the element mask, only where a tile crosses the diagonal or S (TMA
@@ -277,15 +282,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rsum[r];
     };
-    // p rounded to bf16 (round to nearest even) as the register A operand
+    // p rounded to E (round to nearest even) as the register A operand
     auto to_frag = [&](const float (&sc)[kBN / 2], uint32_t (&pa)[kBN / 16][4]) {
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          __nv_bfloat162 p2 = __floats2bfloat162_rn(sc[kk * 8 + 2 * j], sc[kk * 8 + 2 * j + 1]);
-          pa[kk][j] = *reinterpret_cast<uint32_t*>(&p2);
-        }
+        for (int j = 0; j < 4; ++j) pa[kk][j] = pack2<E>(sc[kk * 8 + 2 * j], sc[kk * 8 + 2 * j + 1]);
     };
 
     float sc[kBN / 2];
@@ -370,12 +372,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (row[r] >= T) continue;  // rows past T are neither stored nor given an lse
-        __nv_bfloat16* orow = o + (((long long)b * T + row[r]) * H + h) * D + 2 * qc;
+        E* orow = o + (((long long)b * T + row[r]) * H + h) * D + 2 * qc;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           const float a0 = l[r] == 0.f ? 0.f : acc[4 * j + 2 * r] / l[r];
           const float a1 = l[r] == 0.f ? 0.f : acc[4 * j + 2 * r + 1] / l[r];
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(a0, a1);
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack2<E>(a0, a1);
         }
         if (qc == 0)
           lse[((long long)b * H + h) * T + row[r]] =
@@ -387,18 +389,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---------------------------------------------------------------- host side
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* o, void* lse,
                    int B, int T, int S, int H, int KV, float scale, int causal,
                    cudaStream_t stream) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_rows(fn, &mq, q, B, T, H, D, kBM) || !encode_rows(fn, &mk, k, B, S, KV, D, kBN) ||
-      !encode_rows(fn, &mv, v, B, S, KV, D, kBN))
+  constexpr CUtensorMapDataType dt = tma_dtype<E>();
+  if (!encode_rows(fn, &mq, q, B, T, H, D, kBM, dt) ||
+      !encode_rows(fn, &mk, k, B, S, KV, D, kBN, dt) ||
+      !encode_rows(fn, &mv, v, B, S, KV, D, kBN, dt))
     return cudaErrorInvalidValue;
   const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
-  auto kern = seg ? flash_fwd_sm90_kernel<D, true> : flash_fwd_sm90_kernel<D, false>;
+  auto kern = seg ? flash_fwd_sm90_kernel<D, true, E> : flash_fwd_sm90_kernel<D, false, E>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -410,7 +414,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
   if (err != cudaSuccess) return err;
   const long long items = (long long)((T + kBM - 1) / kBM) * B * H;
   const unsigned grid = (unsigned)(seg ? items : min(items, (long long)sms));
-  kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, seg, static_cast<__nv_bfloat16*>(o),
+  kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, seg, static_cast<E*>(o),
                                          static_cast<float*>(lse), B, T, S, H, KV, scale, causal);
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Paged attention for Hopper (sm_90a): the body that paged_attention.cu (B5,
 // bf16 pages) and paged_attention_quant.cu (B7, int8 codes with one f32
 // scale per token row) run for a bfloat16 q with head_dim 64 or 128, every
-// Llama-3-8B path.  f32 and head_dim 16 / 32 keep the scalar block of
-// paged_attention.cuh.
+// Llama-3-8B path, and B5 too for a float16 q over bf16 pages (the fp16
+// model's paged generator; TQ, q's and the output's type).  f32 and
+// head_dim 16 / 32 keep the scalar block of paged_attention.cuh.
 //
 // Replaces deepspeed_tpu/inference/kernels.py::_chunk_v2_kernel and
 // ::_chunk_v2_quant_kernel.  The contract is theirs: q [B, C, H, D] at
@@ -44,6 +45,15 @@
 // converts the codes to bf16 in shared memory (exact: |code| <= 127) and
 // moves the scales out of the products: S[r, n] = (q . code_n) * ks_n, and
 // P'[r, n] = P[r, n] * vs_n before the split.
+//
+// A float16 q meets bf16 pages as the JAX kernel has them meet: both read as
+// f32 (q is an exact f32 value of 11 significant bits).  Decode does its
+// math in f32 on the CUDA cores anyway.  Chunked prefill needs one operand
+// type for Q K^T: each fp16 q is split, once per item in shared memory,
+// into bf16 hi + lo, which hold its 11 bits exactly (fp16's exponent range
+// lies inside bf16's), so Q K^T = Q_hi K^T + Q_lo K^T is the f32 product up
+// to the order of the sums, at twice the Q K^T product work.  The output
+// is written in q's type.
 #pragma once
 
 #include "dtype.cuh"
@@ -94,15 +104,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+__device__ __forceinline__ uint32_t pack2(float a, float b) { return dstt::pack2<bf16>(a, b); }
 // x0, x1 as bf16 hi + lo: hi = bf16(x), lo = bf16(x - hi) (exact in f32)
 __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
+  hi = pack2(x0, x1);
+  const float2 hf = unpack2<bf16>(hi);
   lo = pack2(x0 - hf.x, x1 - hf.y);
 }
 
@@ -201,10 +207,10 @@ __device__ __forceinline__ void unpack16<true>(const unsigned char* p, float* x)
 // B * KV * nspan * kDecRows).  kR (4, 8 or 16) is the rows' bucket: rows
 // R..kR-1 carry zeros through branch-free loops, so the compiler keeps
 // every shared-memory load of a loop in flight at once.
-template <int D, int kR, typename Src>
+template <int D, int kR, typename Src, typename TQ>
 __global__ void __launch_bounds__(kDecThreads)
-paged_decode_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ table,
-                  const int* __restrict__ start, bf16* __restrict__ out, int* __restrict__ counters,
+paged_decode_sm90(const TQ* __restrict__ q, Src src, const int* __restrict__ table,
+                  const int* __restrict__ start, TQ* __restrict__ out, int* __restrict__ counters,
                   float* __restrict__ part, int B, int C, int H, int KV, int P, int ps, int mp,
                   int span_pages, float scale) {
   constexpr bool kQuant = Src::kQuant;
@@ -249,7 +255,7 @@ paged_decode_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ t
       const int r = idx / D, dd = idx % D;
       const int c = r / G, h = kvh * G + r % G;
       s_q[r * D + dd] =
-          r < R ? __bfloat162float(q[(((long long)b * C + c) * H + h) * D + dd]) : 0.f;
+          r < R ? to_f<TQ>(q[(((long long)b * C + c) * H + h) * D + dd]) : 0.f;
     }
     if (tid < kR) {
       s_m[tid] = kMasked;
@@ -383,8 +389,7 @@ paged_decode_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ t
         if (r >= R) continue;
         const int c = r / G, h = kvh * G + r % G;
         const float l = s_l[r];
-        out[(((long long)b * C + c) * H + h) * D + d] =
-            __float2bfloat16(l == 0.f ? 0.f : acc[i] / l);
+        out[(((long long)b * C + c) * H + h) * D + d] = from_f<TQ>(l == 0.f ? 0.f : acc[i] / l);
       }
       return;
     }
@@ -403,7 +408,7 @@ paged_decode_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ t
     for (int idx = tid; idx < R * D; idx += kDecThreads) {
       const int r = idx / D, dd = idx % D;
       const int c = r / G, h = kvh * G + r % G;
-      out[(((long long)b * C + c) * H + h) * D + dd] = __float2bfloat16(0.f);
+      out[(((long long)b * C + c) * H + h) * D + dd] = from_f<TQ>(0.f);
     }
     return;
   }
@@ -462,8 +467,7 @@ paged_decode_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ t
     const int r = rg + kGroups * i;
     if (r >= R) continue;
     const int c = r / G, h = kvh * G + r % G;
-    out[(((long long)b * C + c) * H + h) * D + d] =
-        __float2bfloat16(l[i] == 0.f ? 0.f : a[i] / l[i]);
+    out[(((long long)b * C + c) * H + h) * D + d] = from_f<TQ>(l[i] == 0.f ? 0.f : a[i] / l[i]);
   }
   if (tid == 0) counters[bk] = 0;
 }
@@ -478,15 +482,18 @@ constexpr int kChStages = 3;      // ring stages
 // Shared memory of a chunk block, in bytes from a 1024-aligned base: Q and
 // the K/V operand tiles (bf16, 128-byte swizzle); dense pages are staged
 // straight into a ring of operand tiles, int8 codes into a ring of raw
-// tiles (with their scales) that is converted into one operand tile.
-template <int D, bool kQuant>
+// tiles (with their scales) that is converted into one operand tile.  With
+// a float16 q (kSplitQ) Q arrives as fp16 and becomes its bf16 hi part in
+// place, the lo part in a second tile of the same layout.
+template <int D, bool kQuant, bool kSplitQ = false>
 struct ChLayout {
   static constexpr int kOpStages = kQuant ? 1 : kChStages;
   static constexpr int kQ = 0;
   static constexpr int kHalfQ = kChRows * 128;     // bytes of one 64-column half
   static constexpr int kHalfKV = kChTile * 128;
   static constexpr int kTileKV = kChTile * D * 2;  // one K (or V) operand tile
-  static constexpr int kK = kQ + kChRows * D * 2;
+  static constexpr int kQLo = kQ + kChRows * D * 2;
+  static constexpr int kK = kQLo + (kSplitQ ? kChRows * D * 2 : 0);
   static constexpr int kV = kK + kOpStages * kTileKV;
   static constexpr int kRawK = kV + kOpStages * kTileKV;
   static constexpr int kRaw = kChTile * D;         // one raw code tile
@@ -496,24 +503,28 @@ struct ChLayout {
   static constexpr int bytes = kVs + (kQuant ? kChStages * kChTile * 4 : 0);
 };
 
+// sc (+)= Q K^T over D (accumulate = false: sc = Q K^T)
 template <int D>
 __device__ __forceinline__ void wgmma_qk(float (&sc)[kChTile / 2], uint32_t q_base,
-                                         uint32_t k_base) {
+                                         uint32_t k_base, bool accumulate) {
   using L = ChLayout<D, false>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     sm90::wgmma_ss_n64(
         sc, sm90::desc_sw128(q_base + (kk / 4) * L::kHalfQ + (kk % 4) * 32, 16, 1024),
-        sm90::desc_sw128(k_base + (kk / 4) * L::kHalfKV + (kk % 4) * 32, 16, 1024), kk > 0);
+        sm90::desc_sw128(k_base + (kk / 4) * L::kHalfKV + (kk % 4) * 32, 16, 1024),
+        accumulate || kk > 0);
 }
 
-template <int D, typename Src>
+template <int D, typename Src, typename TQ>
 __global__ void __launch_bounds__(kChThreads, 1)
-paged_chunk_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ table,
-                 const int* __restrict__ start, bf16* __restrict__ out, int B, int C, int H,
+paged_chunk_sm90(const TQ* __restrict__ q, Src src, const int* __restrict__ table,
+                 const int* __restrict__ start, TQ* __restrict__ out, int B, int C, int H,
                  int KV, int P, int ps, int mp, float scale) {
   constexpr bool kQuant = Src::kQuant;
-  using L = ChLayout<D, kQuant>;
+  constexpr bool kSplitQ = kIsHalf<TQ>;
+  static_assert(!(kQuant && kSplitQ), "B7 takes a float32 or bfloat16 q");
+  using L = ChLayout<D, kQuant, kSplitQ>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
 
@@ -618,8 +629,27 @@ paged_chunk_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ ta
       }
     };
 
+    // fp16 Q rows -> bf16 hi in place and lo beside it (exact: see above)
+    auto split_q = [&]() {
+      for (int idx = tid; idx < kChRows * D / 8; idx += kChThreads) {
+        const uint32_t off = sw128(kChRows, idx / (D / 8), idx % (D / 8));
+        uint4* hi = reinterpret_cast<uint4*>(smem + L::kQ + off);
+        const uint4 u = *hi;
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+        uint32_t h[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = unpack2<TQ>(w[i]);
+          split2(f.x, f.y, h[i], lo[i]);
+        }
+        *hi = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(smem + L::kQLo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    };
+
     const float scale_log2 = scale * sm90::kLog2e;
     const uint32_t q_base = smem_u32(smem + L::kQ) + wg * 64 * 128;
+    const uint32_t q_lo_base = smem_u32(smem + L::kQLo) + wg * 64 * 128;
     float sc[kChTile / 2];
     uint32_t pa_hi[kChTile / 16][4], pa_lo[kChTile / 16][4];
 
@@ -634,6 +664,13 @@ paged_chunk_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ ta
       fence_async_smem();
       __syncthreads();   // tile t is in; every warpgroup is done with tile t - 1
       const int slot = t % kChStages, n0 = t * kChTile;
+      if constexpr (kSplitQ) {
+        if (t == 0) {
+          split_q();
+          fence_async_smem();
+          __syncthreads();
+        }
+      }
       int op = slot;
       if constexpr (kQuant) {
         convert(slot);
@@ -648,7 +685,8 @@ paged_chunk_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ ta
       const uint32_t v_base = smem_u32(smem + L::kV + op * L::kTileKV);
       sm90::fence_regs(sc);
       sm90::wgmma_fence();
-      wgmma_qk<D>(sc, q_base, k_base);
+      wgmma_qk<D>(sc, q_base, k_base, false);
+      if constexpr (kSplitQ) wgmma_qk<D>(sc, q_lo_base, k_base, true);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
@@ -728,12 +766,12 @@ paged_chunk_sm90(const bf16* __restrict__ q, Src src, const int* __restrict__ ta
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= CG) continue;
     const int c = row[r] / G, h = kvh * G + row[r] % G;
-    bf16* orow = out + (((long long)b * C + c) * H + h) * D + 2 * qc;
+    TQ* orow = out + (((long long)b * C + c) * H + h) * D + 2 * qc;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const float a0 = l[r] == 0.f ? 0.f : acc[4 * j + 2 * r] / l[r];
       const float a1 = l[r] == 0.f ? 0.f : acc[4 * j + 2 * r + 1] / l[r];
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(a0, a1);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = dstt::pack2<TQ>(a0, a1);
     }
   }
 }
@@ -754,21 +792,22 @@ struct Sm90Args {
   float scale;
 };
 
-template <int D, typename Src>
+template <int D, typename Src, typename TQ>
 cudaError_t launch_d(const Sm90Args& a, Src src, cudaStream_t stream) {
   const int G = a.H / a.KV;
-  const bf16* q = static_cast<const bf16*>(a.q);
+  const TQ* q = static_cast<const TQ*>(a.q);
   const int* table = static_cast<const int*>(a.table);
   const int* start = static_cast<const int*>(a.start);
-  bf16* out = static_cast<bf16*>(a.out);
+  TQ* out = static_cast<TQ*>(a.out);
   if (a.C * G <= kDecRows) {
     const int nspan = (a.mp + a.span_pages - 1) / a.span_pages;
     if (nspan > kMaxSpans || (nspan > 1 && (a.counters == nullptr || a.part == nullptr)))
       return cudaErrorInvalidValue;
     const int smem = DecLayout<D, Src::kQuant>::bytes;
     const int R = a.C * G;
-    auto kern = R <= 4 ? paged_decode_sm90<D, 4, Src>
-                : R <= 8 ? paged_decode_sm90<D, 8, Src> : paged_decode_sm90<D, 16, Src>;
+    auto kern = R <= 4   ? paged_decode_sm90<D, 4, Src, TQ>
+                : R <= 8 ? paged_decode_sm90<D, 8, Src, TQ>
+                         : paged_decode_sm90<D, 16, Src, TQ>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3(nspan, a.B * a.KV), kDecThreads, smem, stream>>>(
@@ -776,8 +815,9 @@ cudaError_t launch_d(const Sm90Args& a, Src src, cudaStream_t stream) {
         a.span_pages, a.scale);
     return cudaGetLastError();
   }
-  const int smem = ChLayout<D, Src::kQuant>::bytes + 1024;  // + room to align the base
-  auto kern = paged_chunk_sm90<D, Src>;
+  // + room to align the base
+  const int smem = ChLayout<D, Src::kQuant, kIsHalf<TQ>>::bytes + 1024;
+  auto kern = paged_chunk_sm90<D, Src, TQ>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long items = (long long)a.B * a.KV * ((a.C * G + kChRows - 1) / kChRows);
@@ -787,15 +827,16 @@ cudaError_t launch_d(const Sm90Args& a, Src src, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 q with head_dim 64 or 128; every pointer the body stages from is
-// 16-byte aligned (scales 4-byte), as cp.async needs
-template <typename Src>
+// q (and the output) of type TQ, bf16 or (dense pages only) fp16, with
+// head_dim 64 or 128; every pointer the body stages from is 16-byte aligned
+// (scales 4-byte), as cp.async needs
+template <typename Src, typename TQ = bf16>
 cudaError_t launch(const Sm90Args& a, Src src, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(src.k) |
                          reinterpret_cast<uintptr_t>(src.v);
   if ((addr & 15) != 0) return cudaErrorInvalidValue;
-  if (a.D == 64) return launch_d<64>(a, src, stream);
-  if (a.D == 128) return launch_d<128>(a, src, stream);
+  if (a.D == 64) return launch_d<64, Src, TQ>(a, src, stream);
+  if (a.D == 128) return launch_d<128, Src, TQ>(a, src, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -11,10 +11,15 @@ cache of ``n_kv_heads / model`` heads run on directly), so the mode switch
 is one cast: :meth:`HybridEngine.generate` casts the live f32
 master to the compute dtype once per call (the params do not change
 within a rollout, so these are the values JAX's per-step traced cast
-gives) and runs the dense generator over that copy; the copy is dropped
-when the rollout ends.  The generator attends in plain PyTorch
+gives) and runs the generator over that copy; the copy is dropped when
+the rollout ends.  On one rank the generator serves a paged cache:
+prefill through the flash kernel B1, decode through the paged kernel B5
+(under ``fp16``, an fp16 q over the bf16 cache).  Under a ``model`` axis
+it serves each rank's heads from a dense cache and attends in plain
+PyTorch
 (:func:`~deepspeed_tpu_torch.inference.generation.cached_attention`), as
-the JAX one does in XLA; its greedy rows take the sampling kernel B6.
+the JAX one does in XLA.  Both compute the JAX engine's function; greedy
+rows take the sampling kernel B6.
 
 Config parity: the ``hybrid_engine`` JSON block is accepted.  ``enabled``
 and ``max_out_tokens`` are honoured; an ``inference_tp_size`` other than
@@ -129,9 +134,11 @@ def llama_hybrid_engine(engine, cfg, *, eos_token_id: Optional[int] = None,
                         ) -> HybridEngine:
     """A :class:`HybridEngine` over models/llama.py weights: ``engine``
     holds the Llama tree, ``cfg`` is its
-    :class:`~deepspeed_tpu_torch.models.llama.LlamaConfig`; the dense
-    cache lives on the engine's device and holds ``n_kv_heads / model``
-    heads a rank."""
+    :class:`~deepspeed_tpu_torch.models.llama.LlamaConfig`.  The cache
+    lives on the engine's device: without a ``model`` axis a paged cache
+    of 16 keys a page
+    (:func:`~deepspeed_tpu_torch.inference.generation.paged_step_alloc`),
+    under one a dense cache of ``n_kv_heads / model`` heads a rank."""
     hb = _hybrid_block(engine.config)
     tp = int(hb.get("inference_tp_size", 0) or 0)
     model = engine.mesh.size("model")
@@ -142,10 +149,18 @@ def llama_hybrid_engine(engine, cfg, *, eos_token_id: Optional[int] = None,
             "between training and generation — set the mesh model axis "
             "instead")
 
-    from deepspeed_tpu_torch.inference.generation import llama_step_alloc
+    if model == 1:
+        from deepspeed_tpu_torch.inference.generation import paged_step_alloc
+        from deepspeed_tpu_torch.models import llama
 
-    step, alloc = llama_step_alloc(cfg, cache_dtype, device=engine.device,
-                                   tp=model)
+        step, alloc = paged_step_alloc(llama.forward_paged, cfg,
+                                       cache_dtype=cache_dtype,
+                                       device=engine.device)
+    else:
+        from deepspeed_tpu_torch.inference.generation import llama_step_alloc
+
+        step, alloc = llama_step_alloc(cfg, cache_dtype, device=engine.device,
+                                       tp=model)
     return HybridEngine(engine, step, step, alloc, eos_token_id=eos_token_id,
                         max_out_tokens=hb.get("max_out_tokens"))
 

@@ -292,15 +292,13 @@ def mixtral_generator(params, cfg, eos_token_id: Optional[int] = None,
                      eos_token_id=eos_token_id, device=device)
 
 
-def _paged_generator(forward_paged, params, cfg,
-                     eos_token_id: Optional[int] = None,
-                     page_size: int = 16, num_pages: Optional[int] = None,
-                     cache_dtype=torch.bfloat16, device=None,
-                     learned_positions: bool = False) -> Generator:
-    """Paged-KV generator over any ``forward_paged(params, tokens, cfg,
-    cache)``: row b owns pages ``b * max_pages ...`` (a static table).
-    ``learned_positions``: the budget is checked against the model's
-    position table (GPT-2)."""
+def paged_step_alloc(forward_paged, cfg, page_size: int = 16,
+                     num_pages: Optional[int] = None,
+                     cache_dtype=torch.bfloat16, device=None):
+    """The (step, alloc_cache) pair over any ``forward_paged(params,
+    tokens, cfg, cache)``: prefill through the flash kernel B1, decode
+    through the paged kernel B5 on CUDA; row b owns pages ``b * max_pages
+    ...`` (a static table)."""
     from deepspeed_tpu_torch.inference.kernels import PagedKVCache
 
     dev = resolve_device(device)
@@ -315,6 +313,20 @@ def _paged_generator(forward_paged, params, cfg,
     def step(params, tokens, cache):
         return forward_paged(params, tokens, cfg, cache)
 
+    return step, alloc
+
+
+def _paged_generator(forward_paged, params, cfg,
+                     eos_token_id: Optional[int] = None,
+                     page_size: int = 16, num_pages: Optional[int] = None,
+                     cache_dtype=torch.bfloat16, device=None,
+                     learned_positions: bool = False) -> Generator:
+    """Paged-KV generator over any ``forward_paged(params, tokens, cfg,
+    cache)`` (:func:`paged_step_alloc`).  ``learned_positions``: the budget
+    is checked against the model's position table (GPT-2)."""
+    dev = resolve_device(device)
+    step, alloc = paged_step_alloc(forward_paged, cfg, page_size, num_pages,
+                                   cache_dtype, dev)
     if learned_positions:
         alloc = _position_checked(alloc, cfg)
     return Generator(_on(params, dev), step, step, alloc,

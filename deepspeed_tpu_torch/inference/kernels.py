@@ -481,7 +481,7 @@ def write_kv_quant(pages_k, pages_ks, pages_v, pages_vs, new_k, new_v, table,
     mp = table.shape[1]
     C = -(-T // ps) * ps if start is None else T
     if new_v.shape != new_k.shape or new_v.dtype != new_k.dtype \
-            or new_k.dtype not in _build.DTYPE_CODES:
+            or new_k.dtype not in _build.F32_BF16:
         raise ValueError(f"{name}: new_k / new_v {tuple(new_k.shape)} "
                          f"{new_k.dtype} / {tuple(new_v.shape)} {new_v.dtype}")
     if Dh not in _build.HEAD_DIMS or ps != page_size \

@@ -17,11 +17,13 @@ their plain PyTorch versions, and the CPU twin of B5's and B7's Hopper body.
 
 B5, B7 and B8 have two bodies, named by :func:`paged_body` from q's dtype
 and head dim.  The Hopper body (``csrc/paged_attention_sm90.cuh``; bf16 q,
-head dim 64 or 128) splits decode (at most :data:`DECODE_ROWS` flattened
-query rows) over spans of whole pages, :data:`DECODE_SPAN_KEYS` keys or
+or for B5 an fp16 q over bf16 pages, head dim 64 or 128) splits decode (at
+most :data:`DECODE_ROWS` flattened query rows) over spans of whole pages,
+:data:`DECODE_SPAN_KEYS` keys or
 more, stages them with ``cp.async`` and merges the spans' partials in the
 same launch; chunked prefill runs items of :data:`ITEM_ROWS` flattened rows
-over key tiles of :data:`KEY_TILE` on wgmma, P split into bf16 hi + lo.
+over key tiles of :data:`KEY_TILE` on wgmma, P split into bf16 hi + lo (and
+an fp16 q split so, once per item, for Q·K^T over bf16 pages).
 The scalar block (f32, head dim 16 / 32; B8's split pair) gathers K/V into
 f32 shared memory over a grid of (b·kv_head, row tile[, key split]).  Every
 body walks only the key positions up to its rows' frontier, so stale or
@@ -47,6 +49,7 @@ SPLIT_KEYS = 256
 # most), each walked in tiles of DECODE_TILE keys; chunked prefill takes
 # items of ITEM_ROWS flattened rows over key tiles of KEY_TILE
 SM90_HEAD_DIMS = (64, 128)
+SM90_DTYPES = (torch.bfloat16, torch.float16)
 DECODE_ROWS = 16
 DECODE_SPAN_KEYS = 128
 DECODE_MAX_SPANS = 64
@@ -275,8 +278,9 @@ def paged_chunk_attention_tiled_reference(
     :data:`DECODE_TILE` keys, K and V dequantised in f32, then the spans'
     partials merged in order.  More rows: items of ``item_rows`` rows over
     key tiles of ``key_tile`` up to each item's frontier, the scales on S's
-    columns and folded into P, and for a bf16 q P split into bf16 hi + lo
-    for the P·V product, as the tensor cores take it."""
+    columns and folded into P, and for a bf16 or fp16 q P split into bf16
+    hi + lo for the P·V product, as the tensor cores take it (an fp16 q's
+    own split into bf16 hi + lo is exact: its f32 value here)."""
     B, C, H, Dh = q.shape
     KV, _, ps, _ = k_pages.shape
     mp = table.shape[1]
@@ -296,7 +300,7 @@ def paged_chunk_attention_tiled_reference(
                       mp, ps, scale, sp)
         if C * G <= DECODE_ROWS else
         _tiled_chunk(qf[b], kg[b], vg[b], ks[b], vs[b], int(start[b]), G, mp,
-                     ps, scale, q.dtype == torch.bfloat16, item_rows,
+                     ps, scale, q.dtype in SM90_DTYPES, item_rows,
                      key_tile)
         for b in range(B)])
     return out.reshape(B, KV, C, G, Dh).permute(0, 2, 1, 3, 4) \
@@ -304,7 +308,14 @@ def paged_chunk_attention_tiled_reference(
 
 
 # ------------------------------------------------------------- wrappers
-def _check(name, q, pages, table, start, page_dtype, scales=()):
+def _page_dtype(q):
+    """The pages B5 takes under ``q``: q's own dtype, and bfloat16 under a
+    float16 q (an fp16 model's bf16 cache, as the JAX kernel reads it)."""
+    return torch.bfloat16 if q.dtype == torch.float16 else q.dtype
+
+
+def _check(name, q, pages, table, start, page_dtype, scales=(),
+           q_dtypes=tuple(_build.DTYPE_CODES)):
     """Raise on what the paged kernels do not take."""
     B, C, H, Dh = q.shape
     k_pages, v_pages = pages
@@ -335,12 +346,12 @@ def _check(name, q, pages, table, start, page_dtype, scales=()):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: input {i} is not contiguous")
-    if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != page_dtype \
+    if q.dtype not in q_dtypes or k_pages.dtype != page_dtype \
             or v_pages.dtype != page_dtype:
+        names = "/".join(str(d).replace("torch.", "") for d in q_dtypes)
         raise ValueError(
             f"{name}: q/pages dtypes {q.dtype}/{k_pages.dtype}/"
-            f"{v_pages.dtype}; want q float32 or bfloat16 and pages "
-            f"{page_dtype}")
+            f"{v_pages.dtype}; want q in {names} and pages {page_dtype}")
 
 
 def _device_ok(name, q) -> bool:
@@ -354,9 +365,10 @@ def _device_ok(name, q) -> bool:
 
 def paged_body(q) -> str:
     """The body of B5, B7 and B8 that a CUDA call on ``q`` launches:
-    ``"sm90"`` (``csrc/paged_attention_sm90.cuh``) for bfloat16 with
-    head_dim 64 or 128, ``"scalar"`` otherwise."""
-    return ("sm90" if q.dtype == torch.bfloat16
+    ``"sm90"`` (``csrc/paged_attention_sm90.cuh``) for bfloat16 or float16
+    with head_dim 64 or 128, ``"scalar"`` otherwise.  (B7 and B8 take no
+    float16 q: they raise on one.)"""
+    return ("sm90" if q.dtype in SM90_DTYPES
             and q.shape[-1] in SM90_HEAD_DIMS else "scalar")
 
 
@@ -391,18 +403,22 @@ def _sm90_args(q, KV, ps, mp, stream):
 def paged_chunk_attention(q, k_pages, v_pages, table, start):
     """B5: paged attention for chunk queries q [B, C, H, Dh] at positions
     ``start + 0..C-1`` over one layer's pages [KV, P, ps, Dh] -> [B, C, H,
-    Dh].  CPU tensors take :func:`paged_chunk_attention_reference`; CUDA
-    tensors launch the body that :func:`paged_body` names, or raise.
-    ``launches`` counts every launch, ``body_launches`` each body's."""
+    Dh] in q's dtype.  Pages are of q's dtype, or bfloat16 under a float16 q
+    (:func:`_page_dtype`).  CPU tensors take
+    :func:`paged_chunk_attention_reference`; CUDA tensors launch the body
+    that :func:`paged_body` names, or raise.  ``launches`` counts every
+    launch, ``body_launches`` each body's and ``dtype_launches`` each q
+    dtype's."""
     if not _device_ok("paged_chunk_attention", q):
         return paged_chunk_attention_reference(q, k_pages, v_pages, table,
                                                start)
     _check("paged_chunk_attention", q, (k_pages, v_pages), table, start,
-           q.dtype)
+           _page_dtype(q))
     body = paged_body(q)
     out = _dense_launch(q, k_pages, v_pages, table, start, body)
     paged_chunk_attention.launches += 1
     paged_chunk_attention.body_launches[body] += 1
+    paged_chunk_attention.dtype_launches[q.dtype] += 1
     return out
 
 
@@ -427,6 +443,7 @@ def _dense_launch(q, k_pages, v_pages, table, start, body):
 
 paged_chunk_attention.launches = 0
 paged_chunk_attention.body_launches = {"sm90": 0, "scalar": 0}
+paged_chunk_attention.dtype_launches = dict.fromkeys(_build.DTYPE_CODES, 0)
 
 
 def paged_decode_attention(q, k_pages, v_pages, table, seq_lens):
@@ -452,7 +469,7 @@ def paged_chunk_attention_quant(q, kq_pages, ks_pages, vq_pages, vs_pages,
         return paged_chunk_attention_quant_reference(
             q, kq_pages, ks_pages, vq_pages, vs_pages, table, start)
     _check(name, q, (kq_pages, vq_pages), table, start, torch.int8,
-           scales=(ks_pages, vs_pages))
+           scales=(ks_pages, vs_pages), q_dtypes=_build.F32_BF16)
     B, C, H, Dh = q.shape
     KV, P, ps, _ = kq_pages.shape
     mp = table.shape[1]
@@ -503,7 +520,8 @@ def paged_chunk_attention_v1(q, k_pages, v_pages, table, start):
     if not _device_ok(name, q):
         return paged_chunk_attention_split_reference(q, k_pages, v_pages,
                                                      table, start)
-    _check(name, q, (k_pages, v_pages), table, start, q.dtype)
+    _check(name, q, (k_pages, v_pages), table, start, q.dtype,
+           q_dtypes=_build.F32_BF16)
     if paged_body(q) == "sm90":
         out = _dense_launch(q, k_pages, v_pages, table, start, "sm90")
         paged_chunk_attention_v1.launches += 1

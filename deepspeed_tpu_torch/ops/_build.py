@@ -31,8 +31,11 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "deepspeed_tpu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# the kernels' `dtype` argument, and the head dims they are instantiated for
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' `dtype` argument, and the head dims they are instantiated for:
+# B1-B3 and B5 take all three codes (B5: a float16 q over bfloat16 pages),
+# the fused Adam, B7-B9 and the int8 K/V write only F32_BF16
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+F32_BF16 = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -68,7 +68,7 @@ def adam_update(g, m, v, p, c1: float, c2: float, lr: float, *,
     if m.dtype != torch.float32 or v.dtype != torch.float32:
         raise ValueError(f"fused_adam: m/v must be float32, got "
                          f"{m.dtype}/{v.dtype}")
-    if g.dtype not in _build.DTYPE_CODES or p.dtype not in _build.DTYPE_CODES:
+    if g.dtype not in _build.F32_BF16 or p.dtype not in _build.F32_BF16:
         raise ValueError(f"fused_adam: g/p dtype {g.dtype}/{p.dtype} not in "
                          "float32/bfloat16")
     u = torch.empty(g.shape, dtype=torch.float32, device=g.device)

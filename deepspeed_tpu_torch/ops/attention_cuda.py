@@ -11,13 +11,17 @@ head h to kv head h // (H/KV) without repeating K/V, skips key tiles above
 the diagonal and masks ragged tails and packed segments itself.
 
 Each kernel has two bodies, picked before the launch by
-:func:`flash_fwd_body` and :func:`flash_bwd_body`: for bfloat16 with
-head_dim 64 or 128 (the Llama paths) the tensor-core bodies
-(``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_sm90.cuh``: TMA-fed stages
+:func:`flash_fwd_body` and :func:`flash_bwd_body`: for bfloat16 or float16
+with head_dim 64 or 128 (the Llama paths; fp16 for DeepSpeed's ``fp16``
+mode) the tensor-core bodies (``csrc/flash_fwd_sm90.cuh``,
+``csrc/flash_bwd_sm90.cuh``: TMA-fed stages
 on mbarriers, a producer warp, two consumer warpgroups running ``wgmma``,
 the softmax or the backward's p and ds on the accumulator fragment); for
-float32 and bf16 head_dim 16 or 32 the scalar bodies (f32 FMA from shared
-memory).  The dQ kernel forms the backward's delta = rowsum(O * dO) itself
+float32, and bf16 or fp16 at head_dim 16 or 32, the scalar bodies (f32 FMA
+from shared memory).  Both 16-bit types run the same arithmetic: f32 scores
+and softmax, P rounded to the operand dtype before P·V, ds rounded to it
+before dS·K, lse and delta f32, outputs in the operand dtype.  The dQ
+kernel forms the backward's delta = rowsum(O * dO) itself
 (:func:`flash_delta_sliced` is its order in plain PyTorch) and hands it to
 the dK/dV kernel.  :func:`flash_fwd_tiled_reference` and
 :func:`flash_bwd_tiled_reference` walk the tensor-core bodies' tiles in
@@ -34,8 +38,9 @@ from deepspeed_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# head dims of the tensor-core bodies (bfloat16 only)
+# head dims and dtypes of the tensor-core bodies
 WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 # the forward's tiles: query rows per block, keys per stage
 WGMMA_BLOCK_Q = 128
 WGMMA_BLOCK_K = 128
@@ -230,10 +235,10 @@ def flash_bwd_tiled_reference(q, k, v, o, lse, do, seg=None,
     or whose ids are mixed; unscaled f32 scores, p = exp2(s * scale *
     log2(e) - lse * log2(e)); delta in the dQ kernel's order
     (:func:`flash_delta_sliced`); ds = p (dO.V^T - delta) scale; ds rounded to
-    K's dtype before dQ += ds.K; P and dS each split into hi = x in the
-    operand dtype and lo = x - hi in it, both multiplied into dV += P^T.dO
-    and dK += dS^T.Q.  Not on any main path: the CPU tests hold it to the
-    JAX kernel."""
+    K's dtype before dQ += ds.K; into dV += P^T.dO and dK += dS^T.Q, P and
+    dS in bfloat16 each split into hi = bf16(x) and lo = bf16(x - hi), both
+    multiplied, and in float16 rounded once (the JAX kernel's arithmetic).
+    Not on any main path: the CPU tests hold it to the JAX kernel."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -316,7 +321,8 @@ def flash_bwd_tiled_reference(q, k, v, o, lse, do, seg=None,
                 for x, acc, b in ((pt, part_v, dot), (dst, part_k, qt)):
                     hi = x.to(q.dtype).float()
                     acc[t % 2] += hi @ b
-                    acc[t % 2] += (x - hi).to(q.dtype).float() @ b
+                    if q.dtype == torch.bfloat16:
+                        acc[t % 2] += (x - hi).to(q.dtype).float() @ b
         dk[:, :, keys] = part_k[0] + part_k[1]
         dv[:, :, keys] = part_v[0] + part_v[1]
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
@@ -326,6 +332,9 @@ def flash_bwd_tiled_reference(q, k, v, o, lse, do, seg=None,
 def _check(name, q, k, v, seg, *more):
     """Shapes, dtypes, devices and contiguity the kernels take; returns
     (B, T, S, H, KV, D)."""
+    if q.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not in "
+                         "float32/bfloat16/float16")
     if not q.is_cuda:
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, T, H, D = q.shape
@@ -344,8 +353,6 @@ def _check(name, q, k, v, seg, *more):
                              f"q is {q.dtype} on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} is not contiguous")
-    if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {q.dtype} not in float32/bfloat16")
     if seg is not None:
         if T != S:
             raise ValueError(f"{name}: segment_ids need T == S (self-"
@@ -371,19 +378,20 @@ def _tma_aligned(*ts):
 
 def flash_fwd_body(q) -> str:
     """The body of ``csrc/flash_fwd.cu`` that a CUDA call on ``q`` launches:
-    ``"wgmma"`` (tensor cores, TMA) for bfloat16 with head_dim 64 or 128,
-    ``"scalar"`` otherwise."""
-    return ("wgmma" if q.dtype == torch.bfloat16
+    ``"wgmma"`` (tensor cores, TMA) for bfloat16 or float16 with head_dim 64
+    or 128, ``"scalar"`` otherwise."""
+    return ("wgmma" if q.dtype in WGMMA_DTYPES
             and q.shape[-1] in WGMMA_HEAD_DIMS else "scalar")
 
 
 def flash_fwd(q, k, v, causal: bool = True, seg=None):
     """Flash attention forward: q [B,T,H,D], k/v [B,S,KV,D] (contiguous,
-    float32 or bfloat16, D in 16/32/64/128), optional packed segment ids
-    seg [B,T] int32 (T == S) -> (o, lse [B,H,T] f32).  CPU tensors take
-    :func:`flash_fwd_reference`; CUDA tensors launch the body that
+    float32, bfloat16 or float16, D in 16/32/64/128), optional packed
+    segment ids seg [B,T] int32 (T == S) -> (o, lse [B,H,T] f32).  CPU
+    tensors take :func:`flash_fwd_reference`; CUDA tensors launch the body that
     :func:`flash_fwd_body` names, or raise.  ``flash_fwd.launches`` counts
-    every launch, ``flash_fwd.body_launches`` each body's."""
+    every launch, ``flash_fwd.body_launches`` each body's and
+    ``flash_fwd.dtype_launches`` each dtype's."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal, seg)
     B, T, S, H, KV, D = _check("flash_fwd", q, k, v, seg)
@@ -400,17 +408,19 @@ def flash_fwd(q, k, v, causal: bool = True, seg=None):
     _build.check("dstt_flash_fwd", err)
     flash_fwd.launches += 1
     flash_fwd.body_launches[body] += 1
+    flash_fwd.dtype_launches[q.dtype] += 1
     return o, lse
 
 
 flash_fwd.launches = 0
 flash_fwd.body_launches = {"wgmma": 0, "scalar": 0}
+flash_fwd.dtype_launches = dict.fromkeys(_build.DTYPE_CODES, 0)
 
 
 def flash_bwd_body(q) -> str:
     """The body of ``csrc/flash_bwd.cu`` that a CUDA call on ``q`` launches
-    (both kernels): ``"wgmma"`` (tensor cores, TMA) for bfloat16 with
-    head_dim 64 or 128, ``"scalar"`` otherwise."""
+    (both kernels): ``"wgmma"`` (tensor cores, TMA) for bfloat16 or float16
+    with head_dim 64 or 128, ``"scalar"`` otherwise."""
     return flash_fwd_body(q)
 
 
@@ -420,7 +430,8 @@ def flash_bwd_dq(q, k, v, o, do, lse, seg=None, causal: bool = True):
     rowsum(O * dO), which the kernel forms in :func:`flash_delta_sliced`'s
     order and writes for every row, for :func:`flash_bwd_dkv`).  Launches
     the body that :func:`flash_bwd_body` names; ``flash_bwd_dq.launches``
-    counts every launch, ``flash_bwd_dq.body_launches`` each body's."""
+    counts every launch, ``flash_bwd_dq.body_launches`` each body's and
+    ``flash_bwd_dq.dtype_launches`` each dtype's."""
     B, T, S, H, KV, D = _check("flash_bwd_dq", q, k, v, seg, ("o", o),
                                ("do", do))
     _rows_f32("flash_bwd_dq", (B, H, T), q.device, lse=lse)
@@ -438,11 +449,13 @@ def flash_bwd_dq(q, k, v, o, do, lse, seg=None, causal: bool = True):
     _build.check("dstt_flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
     flash_bwd_dq.body_launches[body] += 1
+    flash_bwd_dq.dtype_launches[q.dtype] += 1
     return dq, delta
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dq.body_launches = {"wgmma": 0, "scalar": 0}
+flash_bwd_dq.dtype_launches = dict.fromkeys(_build.DTYPE_CODES, 0)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, seg=None, causal: bool = True):
@@ -466,11 +479,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, seg=None, causal: bool = True):
     _build.check("dstt_flash_bwd_dkv", err)
     flash_bwd_dkv.launches += 1
     flash_bwd_dkv.body_launches[body] += 1
+    flash_bwd_dkv.dtype_launches[q.dtype] += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.body_launches = {"wgmma": 0, "scalar": 0}
+flash_bwd_dkv.dtype_launches = dict.fromkeys(_build.DTYPE_CODES, 0)
 
 
 def _rows_f32(name, shape, device, **rows):

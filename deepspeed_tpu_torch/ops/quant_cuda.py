@@ -65,7 +65,7 @@ def quantize_rows(x):
         return quantize_rows_reference(x)
     if not x.is_cuda:
         raise ValueError(f"quantize_rows: unsupported device {x.device}")
-    if x.dtype not in _build.DTYPE_CODES:
+    if x.dtype not in _build.F32_BF16:
         raise ValueError(f"quantize_rows: dtype {x.dtype} not in "
                          "float32/bfloat16")
     x = x.contiguous()

@@ -15,7 +15,8 @@ import torch
 pytestmark = pytest.mark.cuda
 
 torch.set_num_threads(1)
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# about five ulps at 1 of each 16-bit type (2^-8, 2^-11 a unit)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 3e-3}
 
 
 @pytest.fixture
@@ -46,7 +47,8 @@ def _segments(B, T):
 # the last segment's rows), T != S both ways, and the training shape T = 2047
 FLASH_FWD_CASES = [
     (dtype, D, T, S, G, causal, False)
-    for dtype in (torch.float32, torch.bfloat16) for D in (16, 32, 64, 128)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16)
+    for D in (16, 32, 64, 128)
     for T, S, G, causal in ((1, 1, 1, True), (37, 37, 4, True),
                             (130, 130, 2, False), (64, 200, 1, False),
                             (200, 64, 8, True))
@@ -59,6 +61,17 @@ FLASH_FWD_CASES = [
     for D in (64, 128)
     for T, S, G, causal, with_seg in ((100, 300, 4, False, False),
                                       (300, 100, 4, False, False),
+                                      (2047, 2047, 4, True, False),
+                                      (2047, 2047, 4, True, True))
+] + [
+    # the fp16 instantiation of the tensor-core body on a coarser grid
+    (torch.float16, D, T, S, G, causal, with_seg)
+    for D in (64, 128)
+    for T, S, G, causal, with_seg in ((1, 1, 1, True, False),
+                                      (65, 65, 4, True, True),
+                                      (129, 129, 8, False, True),
+                                      (300, 300, 1, False, False),
+                                      (100, 300, 4, False, False),
                                       (2047, 2047, 4, True, False),
                                       (2047, 2047, 4, True, True))
 ]
@@ -96,12 +109,14 @@ def test_flash_fwd_counts_launches_per_body(gen):
                        for i in range(3))
         else:
             q, k, v = (_randn(gen, shape, dtype) for _ in range(3))
-        before = (flash_fwd.launches, dict(flash_fwd.body_launches))
+        before = (flash_fwd.launches, dict(flash_fwd.body_launches),
+                  flash_fwd.dtype_launches[dtype])
         o, _ = flash_fwd(q, k, v)
         ro, _ = flash_fwd_reference(q, k, v)
         torch.cuda.synchronize()
         assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
         assert flash_fwd.launches == before[0] + 1
+        assert flash_fwd.dtype_launches[dtype] == before[2] + 1
         return {b: n - before[1][b] for b, n in flash_fwd.body_launches.items()}
 
     assert launch(torch.bfloat16, 128) == {"wgmma": 1, "scalar": 0}
@@ -111,6 +126,11 @@ def test_flash_fwd_counts_launches_per_body(gen):
     # a view off TMA's alignment is copied and keeps the tensor-core body
     assert launch(torch.bfloat16, 128, misalign=True) == {"wgmma": 1,
                                                           "scalar": 0}
+    assert launch(torch.float16, 128) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.float16, 64) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.float16, 16) == {"wgmma": 0, "scalar": 1}
+    assert launch(torch.float16, 64, misalign=True) == {"wgmma": 1,
+                                                        "scalar": 0}
 
 
 def _rel_err(got, want):
@@ -125,7 +145,8 @@ def _rel_err(got, want):
 ZERO_GRAD_ATOL = 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("D", [16, 64, 128])
 @pytest.mark.parametrize("T,G,causal,with_seg", [
     (1, 1, True, False), (37, 4, True, False), (130, 2, False, False),
@@ -146,7 +167,7 @@ def test_flash_bwd_matches_plain(gen, dtype, D, T, G, causal, with_seg):
     torch.cuda.synchronize()
     assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
     assert (lse - rlse).abs().max().item() <= 1e-3
-    rel = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    rel = TOL[dtype]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype == dtype
         if T == 1 and name != "dv":
@@ -207,6 +228,84 @@ def test_flash_bwd_wgmma_matches_plain_and_tiled(gen, D, T, S, G, causal,
             continue
         assert _rel_err(g, w) <= rel, name
         assert _rel_err(g, t) <= rel, name
+
+
+# the fp16 instantiation of the tensor-core backward: T around its tiles,
+# GQA 1 / 4 / 8, segments, T != S, and the training shape
+FLASH_BWD_FP16_CASES = [
+    (D, T, S, G, causal, with_seg) for D in (64, 128)
+    for T, S, G, causal, with_seg in (
+        (1, 1, 1, True, False), (65, 65, 4, True, True),
+        (129, 129, 8, False, True), (300, 300, 1, False, False),
+        (100, 300, 4, True, False), (300, 100, 4, False, False),
+        (2047, 2047, 4, True, False), (2047, 2047, 4, True, True))
+]
+# fp16's gate at the training shape, from the first readings on the card
+FLASH_BWD_FP16_REL_TOL = 1e-3
+
+
+@pytest.mark.parametrize("D,T,S,G,causal,with_seg", FLASH_BWD_FP16_CASES)
+def test_flash_bwd_wgmma_fp16_matches_plain_and_tiled(gen, D, T, S, G,
+                                                      causal, with_seg):
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        flash_bwd_tiled_reference, flash_fwd_reference)
+
+    dt = torch.float16
+    q = _randn(gen, (2, T, 2 * G, D), dt)
+    k = _randn(gen, (2, S, 2, D), dt)
+    v = _randn(gen, (2, S, 2, D), dt)
+    do = _randn(gen, (2, T, 2 * G, D), dt)
+    seg = _segments(2, T) if with_seg else None
+    o, lse = flash_fwd_reference(q, k, v, causal=causal, seg=seg)
+    before = (dict(flash_bwd_dq.body_launches),
+              dict(flash_bwd_dkv.body_launches))
+    got = flash_bwd(q, k, v, o, lse, do, seg, causal)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, causal)
+    twin = flash_bwd_tiled_reference(q, k, v, o, lse, do, seg, causal)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq.body_launches["wgmma"] == before[0]["wgmma"] + 1
+    assert flash_bwd_dkv.body_launches["wgmma"] == before[1]["wgmma"] + 1
+    rel = FLASH_BWD_FP16_REL_TOL if T == 2047 else TOL[dt]
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, twin):
+        assert g.dtype == dt and torch.isfinite(g.float()).all(), name
+        if T == 1 and name != "dv":
+            assert g.float().abs().max().item() <= ZERO_GRAD_ATOL, name
+            continue
+        assert _rel_err(g, w) <= rel, name
+        assert _rel_err(g, t) <= rel, name
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_fp16_overflows_where_the_plain_version_does(gen, D):
+    """Under loss scales that push dS past fp16's 65504 the tensor-core
+    bodies overflow exactly when the plain version does (the step's skip
+    decision), and dQ and dV turn no element NaN that the plain version
+    keeps finite.  (dK may: an overflowed dS element rounds to inf there,
+    as in the Pallas kernel, where the plain version's f32 product stays
+    finite, and two of opposite signs meet as NaN; the step overflows
+    anyway, since that dS element's fp16 rounding makes dQ non-finite on
+    both sides.)"""
+    from deepspeed_tpu_torch.ops.attention_cuda import (
+        flash_bwd, flash_bwd_reference, flash_fwd)
+
+    dt = torch.float16
+    q, k, v = (_randn(gen, (1, 300, 8, D), dt) * 2 for _ in range(3))
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+    o, lse = flash_fwd(q, k, v)
+    base = _randn(gen, (1, 300, 8, D), torch.float32)
+    seen = []
+    for log_scale in (0, 10, 13, 16):
+        do = (base * 2.0 ** log_scale).clamp(-65504, 65504).to(dt)
+        got = flash_bwd(q, k, v, o, lse, do)
+        want = flash_bwd_reference(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(w).all()) for w in want)
+        assert finite == all(bool(torch.isfinite(g).all()) for g in got)
+        for g, w in zip(got[::2], want[::2]):          # dq, dv
+            assert not bool((torch.isnan(g) & torch.isfinite(w)).any())
+        seen.append(finite)
+    assert seen[0] and not seen[-1], seen
 
 
 def _pad_ids(B, T):
@@ -359,10 +458,13 @@ def test_flash_bwd_counts_launches_per_body(gen):
     # a view off TMA's alignment is copied and keeps the tensor-core body
     assert launch(torch.bfloat16, 128, misalign=True) == {"wgmma": 1,
                                                           "scalar": 0}
+    assert launch(torch.float16, 128) == {"wgmma": 1, "scalar": 0}
+    assert launch(torch.float16, 32) == {"wgmma": 0, "scalar": 1}
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
-                                     (torch.bfloat16, 128)])
+                                     (torch.bfloat16, 128),
+                                     (torch.float16, 128)])
 def test_flash_attention_function_grads_on_the_card(gen, dtype, D,
                                                     monkeypatch):
     from deepspeed_tpu_torch.ops import attention_cuda as ac
@@ -386,9 +488,8 @@ def test_flash_attention_function_grads_on_the_card(gen, dtype, D,
         t.grad = None
     _reference(q, k, v, segment_ids=seg).backward(do)
     for g, t in zip(got, (q, k, v)):
-        assert _rel_err(g, t.grad) <= {torch.float32: 1e-4,
-                                       torch.bfloat16: 2e-2}[dtype]
-    body = "wgmma" if dtype == torch.bfloat16 else "scalar"
+        assert _rel_err(g, t.grad) <= TOL[dtype]
+    body = "wgmma" if dtype != torch.float32 else "scalar"
     for f, (n0, b0) in zip(counts, before):
         assert f.launches == n0 + 1
         assert f.body_launches[body] == b0[body] + 1
@@ -453,8 +554,8 @@ def test_flash_fwd_rejects_what_it_cannot_take(gen):
     q = _randn(gen, (1, 8, 2, 48), torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd(q, q, q)
-    q = _randn(gen, (1, 8, 2, 16), torch.float16)
-    with pytest.raises(ValueError, match="dtype"):
+    q = _randn(gen, (1, 8, 2, 16), torch.float64)
+    with pytest.raises(ValueError, match="float32/bfloat16/float16"):
         flash_fwd(q, q, q)
     q = _randn(gen, (1, 2, 8, 16), torch.float32).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -674,6 +775,66 @@ def test_paged_v1_sm90_body_matches_tiled(gen, D, G, C, ps):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("C,G,ps", [(1, 4, 16), (1, 1, 8), (5, 4, 8),
+                                    (40, 2, 16), (256, 4, 16)])
+def test_paged_fp16_q_over_bf16_pages_matches_plain(gen, D, C, G, ps):
+    """B5 with an fp16 q over bf16 pages (an fp16 model's paged generator):
+    the Hopper body at head_dim 64 / 128, the scalar block at 16, against
+    the plain version and (Hopper) its tiled twin; the output in fp16."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_body, paged_chunk_attention, paged_chunk_attention_reference,
+        paged_chunk_attention_tiled_reference)
+
+    q, kp, vp, table, st = _paged_case(gen, C, G, ps, D, torch.bfloat16)
+    q = q.half()
+    body = paged_body(q)
+    assert body == ("sm90" if D >= 64 else "scalar")
+    before = dict(paged_chunk_attention.body_launches)
+    fp16 = paged_chunk_attention.dtype_launches[torch.float16]
+    out = paged_chunk_attention(q, kp, vp, table, st)
+    ref = paged_chunk_attention_reference(q, kp, vp, table, st)
+    twin = paged_chunk_attention_tiled_reference(q, kp, vp, table, st)
+    torch.cuda.synchronize()
+    before[body] += 1
+    assert paged_chunk_attention.body_launches == before
+    assert paged_chunk_attention.dtype_launches[torch.float16] == fp16 + 1
+    assert out.dtype == torch.float16
+    if C == 1:
+        assert not out[0].any()
+        out, ref, twin = out[1:], ref[1:], twin[1:]
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[q.dtype]
+    if body == "sm90":
+        assert (out.float() - twin.float()).abs().max().item() <= TOL[q.dtype]
+
+
+@pytest.mark.parametrize("D,G,C,ps", [c for c in PAGED_SM90_CASES
+                                      if c[3] != 32])
+def test_paged_sm90_body_fp16_q_matches_plain(gen, D, G, C, ps):
+    """The Hopper body with an fp16 q over bf16 pages, NaN pages behind
+    every frontier: decode spans and their merge, chunks on wgmma with the
+    q split into bf16 hi + lo."""
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention, paged_chunk_attention_reference)
+
+    q, (kp, vp), table, st = _sm90_paged_case(gen, C, G, ps, D)
+    q = q.float().mul(1.5).half()          # values bf16 does not hold
+    kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    before = dict(paged_chunk_attention.body_launches)
+    out = paged_chunk_attention(q, kp, vp, table, st)
+    ref = paged_chunk_attention_reference(
+        q, torch.nan_to_num(kp, nan=0.0), torch.nan_to_num(vp, nan=0.0),
+        table, st)
+    torch.cuda.synchronize()
+    assert paged_chunk_attention.body_launches == {
+        "sm90": before["sm90"] + 1, "scalar": before["scalar"]}
+    assert torch.isfinite(out).all(), "a read past a frontier"
+    if C == 1:
+        assert not out[0].any()
+        out, ref = out[1:], ref[1:]
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[q.dtype]
+
+
 def test_paged_kernels_reject_what_they_cannot_take(gen):
     from deepspeed_tpu_torch.inference.paged_attention_cuda import (
         paged_chunk_attention_quant, paged_chunk_attention_v1)
@@ -687,6 +848,17 @@ def test_paged_kernels_reject_what_they_cannot_take(gen):
         paged_chunk_attention_quant(q, kq, sc.half(), kq, sc, table, st)
     with pytest.raises(ValueError, match="int32"):
         paged_chunk_attention_v1(q, kp, vp, table.long(), st)
+    # B7 and B8 take no float16 q yet; B5 takes one only over bf16 pages
+    from deepspeed_tpu_torch.inference.paged_attention_cuda import (
+        paged_chunk_attention)
+
+    q16, kb = q.half(), kp.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32/bfloat16 "):
+        paged_chunk_attention_v1(q16, kb, vp.to(torch.bfloat16), table, st)
+    with pytest.raises(ValueError, match="float32/bfloat16 "):
+        paged_chunk_attention_quant(q16, kq, sc, kq, sc, table, st)
+    with pytest.raises(ValueError, match="pages torch.bfloat16"):
+        paged_chunk_attention(q16, kp.half(), vp.half(), table, st)
 
 
 @pytest.mark.parametrize("B,V,offset", [(1, 7, 0), (3, 1001, 0),

@@ -263,23 +263,34 @@ def test_packed_segments_equal_to_jax_and_isolate_documents(model):
     assert not torch.allclose(b[0, :7], a[0, :7])
 
 
-def test_int8_forward_close_to_jax_quantized_forward(model):
+def test_int8_forward_close_to_jax_quantized_forward(model, monkeypatch):
     """The serving engine's int8 tree (router and norm gains exact):
     ``forward_eval`` and ``forward_paged`` dequantize one layer at a time
     and meet JAX's ``quantized_apply`` of the same forward, which
-    dequantizes the whole tree; the router stays f32."""
+    dequantizes the whole tree; the router stays f32.  The residual stream
+    is bf16, so a top-2 choice that JAX makes by less than the two
+    frameworks' router-logit gap is a near-tie (ROADMAP C-w2 / C-f10):
+    each row is held to the bf16 bound up to its first such token, and
+    those tokens must be rare."""
     cfg, tcfg, jp, _ = model
     jqp = jqz.quantize_params(jax.tree.map(jnp.asarray, jp),
                               skip_paths=MIXTRAL_INT8_SKIP)
     tqp = from_jax_params(jax.device_get(jqp), device="cpu")
     assert not isinstance(tqp["blocks"]["gate"], tqz.QuantizedTensor)
     assert isinstance(tqp["blocks"]["w1"], tqz.QuantizedTensor)
-    toks = _tokens(2, 11, seed=7)
+    B, T = 2, 11
+    toks = _tokens(B, T, seed=7)
     want = np.asarray(jqz.quantized_apply(
         lambda p, t: jm.forward_eval(p, t, cfg))(jqp, jnp.asarray(toks)))
+    picked = []
+    top_k = tm._top_k
+    monkeypatch.setattr(tm, "_top_k", lambda lg, k: picked.append(
+        lg.detach().clone()) or top_k(lg, k))
     got = tm.forward_eval(tqp, torch.from_numpy(toks), tcfg)
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=BF16_ATOL)
+    upto = _upto_first_tie(jqz.dequantize_params(jqp), toks, cfg,
+                           torch.stack(picked[:cfg.n_layers]).numpy())
+    _close_upto(got.numpy(), want, upto)
     # per-layer dequantization == the whole tree's, bit for bit
     whole = tm.forward_eval(tqz.dequantize_params(tqp),
                             torch.from_numpy(toks), tcfg)
@@ -290,8 +301,60 @@ def test_int8_forward_close_to_jax_quantized_forward(model):
                                          paged_kernel="xla"))
     want, jc = jstep(jqp, jnp.asarray(toks), jc)
     got, tc = tm.forward_paged(tqp, torch.from_numpy(toks), tcfg, tc)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=BF16_ATOL)
+    _close_upto(got.numpy(), np.asarray(want), upto)
+
+
+def _jax_router_logits(jp, toks, cfg):
+    """The f32 router logits of JAX's ``forward_eval``, its layer loop
+    unrolled: [L, B * T, E]."""
+    from deepspeed_tpu.models import llama as jl
+
+    lcfg = cfg.llama_view()
+    B, T = toks.shape
+    x = jp["embed"][jnp.asarray(toks)]
+    cos, sin = jl.rope_tables(lcfg, jnp.arange(T, dtype=jnp.int32))
+    logits = []
+    for l in range(cfg.n_layers):
+        lp = jax.tree.map(lambda a: a[l], jp["blocks"])
+        x = jm._attn_block(cfg, lcfg, x, lp, cos, sin)
+        h = jl.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        logits.append(np.asarray(h.reshape(B * T, -1).astype(jnp.float32)
+                                 @ lp["gate"].astype(jnp.float32)))
+        x = x + jm._moe_ffn_dense(cfg, h, lp)
+    return np.stack(logits)
+
+
+def _upto_first_tie(jp, toks, cfg, port_logits):
+    """Per row, the number of leading tokens compared: up to the first
+    token that any layer routes by a margin (the k-th minus the (k+1)-th
+    router logit, in JAX's run) below twice the largest gap between the
+    two frameworks' router logits in this run.  A choice made by more than
+    that cannot flip; one made by less is a near-tie (C-w2), which moves
+    its token and, through causal attention, every later one.  Asserts
+    that such tokens are rare and prints their margins."""
+    B, T = toks.shape
+    jlog = _jax_router_logits(jp, toks, cfg)
+    bound = 2 * float(np.abs(port_logits - jlog).max())
+    top = np.sort(jlog, -1)[..., ::-1]
+    margin = top[..., cfg.top_k - 1] - top[..., cfg.top_k]      # [L, B*T]
+    tied = (margin < bound).reshape(cfg.n_layers, B, T)
+    ties = [(int(l), int(b), int(t), float(margin[l, b * T + t]))
+            for l, b, t in np.argwhere(tied)]
+    print(f"router tie bound {bound:.3g}; near-ties (layer, row, token, "
+          f"margin): {ties}")
+    assert tied.sum() <= tied.size // 16, tied.sum()
+    upto = []
+    for b in range(B):
+        first = np.flatnonzero(tied[:, b].any(0))
+        upto.append(int(first[0]) if len(first) else T)
+    assert sum(upto) >= B * T // 2, upto
+    return upto
+
+
+def _close_upto(got, want, upto):
+    for b, n in enumerate(upto):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], rtol=0,
+                                   atol=BF16_ATOL)
 
 
 def _jax_routes(jp, toks, cfg):

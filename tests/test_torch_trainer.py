@@ -74,6 +74,66 @@ def world_of_one(monkeypatch):
     monkeypatch.setattr(dstpu, "initialize",
                         lambda *a, **kw: real(*a, mesh=mesh, **kw))
 
+# An element whose gradient is this small against its leaf's largest takes
+# its sign from the order of f32 sums (ROADMAP C-f10)
+GRAD_TIE = 1e-5
+
+
+def _mean_grads(engine, jengine, batch, micro):
+    """Each framework's gradient of the step, the mean over its
+    micro-batches, at its own params: (port leaves, JAX leaves)."""
+    n = len(batch["tokens"]) // micro
+    tg, jg = None, None
+    for i in range(n):
+        mb = {k: np.asarray(v)[i * micro:(i + 1) * micro]
+              for k, v in batch.items()}
+        tp = [p.detach().clone().requires_grad_(True)
+              for p in tree_leaves(engine.module_params())]
+        tree = jax.tree.unflatten(jax.tree.structure(
+            jengine.module_params()), tp)
+        engine.loss_fn(tree, {k: torch.as_tensor(v)
+                              for k, v in mb.items()}).backward()
+        g = jax.grad(lambda p: jengine.loss_fn(p, {
+            k: jnp.asarray(v) for k, v in mb.items()}))(
+                jengine.module_params())
+        tg = [p.grad.numpy() / n + (0 if tg is None else tg[j])
+              for j, p in enumerate(tp)]
+        jg = [np.asarray(x) / n + (0 if jg is None else jg[j])
+              for j, x in enumerate(jax.tree.leaves(g))]
+    return tg, jg
+
+
+def _gradient_ties(engine, jengine, batch, micro):
+    """(leaf, flat index, port grad, JAX grad) of the elements whose
+    gradients the frameworks give opposite signs while both lie below
+    ``GRAD_TIE`` of their leaf's largest: Adam's normalised step moves such
+    an element by about the learning rate either way, so its direction is
+    a tie of the summation order, not a result."""
+    tg, jg = _mean_grads(engine, jengine, batch, micro)
+    out = []
+    for j, (a, b) in enumerate(zip(tg, jg)):
+        small = GRAD_TIE * max(np.abs(b).max(), 1e-30)
+        hit = (np.abs(a) < small) & (np.abs(b) < small) & (
+            np.sign(a) * np.sign(b) < 0)
+        out += [(j, int(i), float(a.flat[i]), float(b.flat[i]))
+                for i in np.flatnonzero(hit)]
+    return out
+
+
+def _take_jax_state_at(engine, jengine, tied):
+    """Copies JAX's master value and Adam moments of each tied element into
+    the port's state, so the steps after a tie compare what both decide
+    robustly; returns the ties with the step."""
+    mine = engine.state
+    theirs = jengine.state
+    for j, i, _, _ in tied:
+        for t, o in ((mine.params, theirs.params),
+                     (mine.opt_state.mu, theirs.opt_state.mu),
+                     (mine.opt_state.nu, theirs.opt_state.nu)):
+            leaf = tree_leaves(t)[j]
+            leaf.view(-1)[i] = float(np.asarray(jax.tree.leaves(o)[j]).flat[i])
+    return [(engine.global_steps, *t) for t in tied]
+
 
 def test_e2e_from_pretrained_train_save_matches_jax(world_of_one, tmp_path):
     base, cfg = make_base_checkpoint(tmp_path)
@@ -101,10 +161,14 @@ def test_e2e_from_pretrained_train_save_matches_jax(world_of_one, tmp_path):
                         jt.get_train_dataloader(epoch)):
             for k in ("tokens", "loss_mask"):
                 np.testing.assert_array_equal(a[k], b[k])
-    tlosses, jlosses = [], []
+    tlosses, jlosses, ties = [], [], []
     for batch in itertools.islice(tr.get_train_dataloader(0), 6):
+        tied = _gradient_ties(tr.engine, jt.engine, batch, micro=2)
         tlosses.append(float(tr.engine.train_batch(batch)))
         jlosses.append(float(jt.engine.train_batch(batch)))
+        ties += _take_jax_state_at(tr.engine, jt.engine, tied)
+    print("Adam near-ties (step, leaf, element, port grad, jax grad):", ties)
+    assert len(ties) <= 4, ties
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-5)
     for a, b in zip(tree_leaves(tr.engine.module_params()),
                     jax.tree.leaves(jt.engine.module_params())):
